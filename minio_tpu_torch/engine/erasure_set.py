@@ -1,0 +1,586 @@
+"""One erasure set on the GPU: quorum CRUD over a stripe of N local drives.
+
+Counterpart of minio_tpu/engine/erasure_set.py, cut to the erasure data
+path: `make_bucket`, `put_object`, `get_object` (whole and ranged, healthy
+and degraded), `head_object` and `delete_object`.  The on-disk state is
+the JAX package's, byte for byte, so either package reads what the other
+wrote.
+
+- A PUT cuts the body into 1 MiB blocks and encodes up to BATCH_BLOCKS
+  of them per device call (ops/fused.encode_and_hash): parity and the
+  mxh256 digest of every shard-block in one pass over one device copy of
+  the data.  The ragged tail block is one more device call, at its own
+  shard size.  The host only frames [digest | shard] onto the drives and
+  publishes with rename_data.  Objects <= 128 KiB are framed inline into
+  each drive's xl.meta.
+- A GET reads the k data shards of each segment and verifies their
+  digests on the device (ops/fused.verify_and_transform with no
+  targets): the healthy path does no GF(2^8) work, since the data shards
+  of a systematic code are the plaintext.  A missing drive, a failed
+  read or a digest mismatch drops that row and reads a parity spare;
+  the missing data rows are then rebuilt in the same device call that
+  verifies the survivors.
+
+The device is explicit: `device=None` is the CUDA card
+`set_index % n_devices()`, `device="cpu"` runs the plain versions on the
+host, and without CUDA the constructor raises.
+
+Left out of this slice (each has a byte-identical off switch in the JAX
+package, so the bytes do not depend on it): the cross-request coalescer,
+the device shard cache, the hot-object cache, metadata lanes, hedged
+reads, zero-copy IO, the multi-device mesh codec, namespace locks,
+multipart uploads, heal, delete markers and legacy xl.json objects.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import time
+import uuid
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from ..ops import devices, fused
+from ..storage import bitrot_io
+from ..storage.drive import SMALL_FILE_THRESHOLD, SYS_VOL, TMP_DIR, LocalDrive
+from ..storage.errors import (ErrBucketExists, ErrBucketNotFound,
+                              ErrDiskNotFound, ErrErasureReadQuorum,
+                              ErrErasureWriteQuorum, ErrFileCorrupt,
+                              ErrFileNotFound, ErrFileVersionNotFound,
+                              ErrObjectNotFound, ErrVersionNotFound,
+                              ErrVolumeExists, ErrVolumeNotFound,
+                              StorageError)
+from ..storage.xlmeta import (ErasureInfo, FileInfo, ObjectPartInfo,
+                              new_uuid, normalize_version_id)
+from ..utils import streams
+from . import quorum as Q
+
+BLOCK_SIZE = 1 << 20          # blockSizeV2, cmd/object-api-common.go:40
+BATCH_BLOCKS = 32             # 1 MiB blocks per device call (32 MiB data)
+
+
+class ErasureSet:
+    """Object CRUD on one stripe of `n` drives (an entry may be None when
+    a drive is offline)."""
+
+    def __init__(self, drives: list[LocalDrive | None],
+                 default_parity: int | None = None, set_index: int = 0,
+                 device=None):
+        self.drives = list(drives)
+        self.n = len(self.drives)
+        if self.n < 2:
+            raise ValueError("an erasure set needs >= 2 drives")
+        self.default_parity = (self.n // 2 if default_parity is None
+                               else default_parity)
+        self.set_index = set_index
+        self.device = devices.resolve(device, set_index)
+        self.pool = ThreadPoolExecutor(max_workers=max(self.n, 4))
+        self._md5_pool = ThreadPoolExecutor(max_workers=1)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
+        self._md5_pool.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- fan-out ---------------------------------------------------------------
+
+    def _map_positions(self, fn, positions=None) -> list:
+        """fn(pos, drive) on every drive position in parallel; returns
+        (result, error) per position.  An offline drive is
+        ErrDiskNotFound."""
+        positions = range(self.n) if positions is None else positions
+
+        def call(pos):
+            d = self.drives[pos]
+            if d is None:
+                return None, ErrDiskNotFound("offline")
+            try:
+                return fn(pos, d), None
+            except Exception as e:  # noqa: BLE001 — quorum classifies
+                return None, e
+
+        return list(self.pool.map(call, positions))
+
+    def _live_quorum(self) -> int:
+        return max(1, sum(1 for d in self.drives if d is not None) // 2)
+
+    # -- buckets ---------------------------------------------------------------
+
+    def make_bucket(self, bucket: str) -> None:
+        errs = [e for _, e in self._map_positions(
+            lambda pos, d: d.make_volume(bucket))]
+        if errs and all(isinstance(e, ErrVolumeExists) for e in errs):
+            raise ErrBucketExists(bucket)
+        # Partial existence is the heal case: treat as success.
+        errs = [None if isinstance(e, ErrVolumeExists) else e for e in errs]
+        err = Q.reduce_write_quorum_errs(errs, self.n // 2 + 1)
+        if err is not None:
+            raise err
+
+    def bucket_exists(self, bucket: str) -> bool:
+        res = self._map_positions(lambda pos, d: d.stat_volume(bucket))
+        return sum(1 for _, e in res if e is None) >= self._live_quorum()
+
+    # -- put -------------------------------------------------------------------
+
+    def clamp_parity(self, parity: int | None) -> int:
+        if parity is None:
+            return self.default_parity
+        return max(0, min(int(parity), self.n // 2))
+
+    def put_object(self, bucket: str, obj: str, data, *,
+                   metadata: dict | None = None, versioned: bool = False,
+                   parity: int | None = None, version_id: str | None = None,
+                   mod_time_ns: int | None = None) -> FileInfo:
+        """Erasure-code and store one object (single part).
+
+        `data` is bytes or a reader (.read(n)); a reader streams in
+        O(BATCH_BLOCKS x BLOCK_SIZE) memory.  `version_id`/`mod_time_ns`
+        override the generated identity (and a preserved timestamp never
+        replaces a newer version).
+        """
+        if not self.bucket_exists(bucket):
+            raise ErrBucketNotFound(bucket)
+        parity = self.clamp_parity(parity)
+        # Offline drives become parity, so the write keeps full
+        # reconstruction capability (cf. erasure-object.go:766-800).
+        offline = sum(1 for d in self.drives if d is None)
+        upgraded = bool(offline) and parity < self.n // 2
+        if upgraded:
+            parity = min(parity + offline, self.n // 2)
+        k = self.n - parity
+        write_quorum = k + (1 if k == parity else 0)
+
+        stream = None
+        if streams.is_reader(data):
+            # Peek enough to decide inline vs streaming.
+            stream, head = data, bytearray()
+            while len(head) <= SMALL_FILE_THRESHOLD:
+                piece = stream.read(SMALL_FILE_THRESHOLD + 1 - len(head))
+                if not piece:
+                    break
+                head += piece
+            data = bytes(head)
+            if len(data) <= SMALL_FILE_THRESHOLD:
+                stream = None
+
+        distribution = Q.hash_order(f"{bucket}/{obj}", self.n)
+        meta = dict(metadata or {})
+        if upgraded:
+            meta["x-mtpu-internal-erasure-upgraded"] = f"{offline}-offline"
+        if version_id is None:
+            version_id = new_uuid() if versioned else ""
+        mod_time = (mod_time_ns if mod_time_ns is not None
+                    else time.time_ns())
+        if mod_time_ns is not None:
+            try:
+                cur = self._read_metadata(bucket, obj, version_id)[0]
+                if cur.mod_time_ns >= mod_time:
+                    return cur
+            except StorageError:
+                pass
+
+        algo = bitrot_io.write_algo()
+        checksums = [{"part": 1, "algo": algo, "hash": b""}]
+        size = {"n": len(data)}        # a stream's is counted as it goes
+
+        def fi_for(pos: int, data_dir: str, inline: bytes | None):
+            ec = ErasureInfo(data_blocks=k, parity_blocks=parity,
+                             block_size=BLOCK_SIZE,
+                             index=distribution[pos],
+                             distribution=distribution, checksums=checksums)
+            n = size["n"]
+            return FileInfo(volume=bucket, name=obj, version_id=version_id,
+                            data_dir=data_dir, mod_time_ns=mod_time,
+                            size=n, metadata=meta,
+                            parts=[ObjectPartInfo(1, n, n)], erasure=ec,
+                            inline_data=inline)
+
+        if stream is None and len(data) <= SMALL_FILE_THRESHOLD:
+            meta.setdefault("etag", streams.etag(data))
+            shards = [bytearray() for _ in range(self.n)]
+            for chunk, is_last in streams.batched_chunks(
+                    data, None, BATCH_BLOCKS * BLOCK_SIZE):
+                for framed in self._encode_chunk(chunk, is_last, k, parity,
+                                                 algo):
+                    for i, f in enumerate(framed):
+                        shards[i] += memoryview(f)
+            per_drive = Q.unshuffle_to_drives([bytes(s) for s in shards],
+                                              distribution)
+            res = self._map_positions(lambda pos, d: d.write_metadata(
+                bucket, obj, fi_for(pos, "", per_drive[pos])))
+            errs = [e for _, e in res]
+            err = Q.reduce_write_quorum_errs(errs, write_quorum)
+            if err is not None:
+                self._undo_publish(bucket, obj, version_id, errs)
+                raise err
+            return fi_for(0, "", None)
+
+        data_dir = new_uuid()
+        tmp_dir = f"{TMP_DIR}/put-{uuid.uuid4().hex}"
+        part = f"{tmp_dir}/part.1"
+        failed = [d is None for d in self.drives]
+        # The ETag's MD5 of chunk i runs on its own thread while chunk i
+        # is encoded and written (hashlib releases the GIL): on the host
+        # it is the slowest stage of a PUT.
+        md5 = hashlib.md5()
+        md5_done = None
+        size["n"] = 0
+        try:
+            for chunk, is_last in streams.batched_chunks(
+                    data, stream, BATCH_BLOCKS * BLOCK_SIZE):
+                if md5_done is not None:
+                    md5_done.result()
+                md5_done = self._md5_pool.submit(md5.update, chunk)
+                size["n"] += len(chunk)
+                for framed in self._encode_chunk(chunk, is_last, k, parity,
+                                                 algo):
+                    per_drive = Q.unshuffle_to_drives(framed, distribution)
+                    todo = [p for p in range(self.n) if not failed[p]]
+                    res = self._map_positions(
+                        lambda pos, d: d.append_file(SYS_VOL, part,
+                                                     per_drive[pos]), todo)
+                    for pos, (_, e) in zip(todo, res):
+                        if e is not None:
+                            failed[pos] = True
+                    if failed.count(False) < write_quorum:
+                        raise ErrErasureWriteQuorum(
+                            f"{failed.count(False)} < {write_quorum}")
+            md5_done.result()
+            meta.setdefault("etag", md5.hexdigest())
+            res = self._map_positions(
+                lambda pos, d: self._publish(pos, d, failed, tmp_dir,
+                                             fi_for(pos, data_dir, None),
+                                             bucket, obj))
+            errs = [e for _, e in res]
+            err = Q.reduce_write_quorum_errs(errs, write_quorum)
+            if err is not None:
+                self._undo_publish(bucket, obj, version_id, errs)
+                raise err
+        finally:
+            # Publish renamed the winners' staging away; failed drives
+            # may still hold theirs.
+            self._map_positions(lambda pos, d: self._rm_tmp(d, tmp_dir))
+        return fi_for(0, data_dir, None)
+
+    @staticmethod
+    def _publish(pos, d, failed, tmp_dir, fi, bucket, obj) -> None:
+        if failed[pos]:
+            raise ErrDiskNotFound("staging failed")
+        d.rename_data(SYS_VOL, tmp_dir, fi, bucket, obj)
+
+    @staticmethod
+    def _rm_tmp(d, tmp_dir) -> None:
+        try:
+            d.delete(SYS_VOL, tmp_dir, recursive=True)
+        except ErrFileNotFound:
+            pass
+
+    def _undo_publish(self, bucket, obj, version_id, errs) -> None:
+        """Roll back drives that published when the write missed quorum,
+        so a rejected PUT never becomes readable."""
+        def undo(pos, d):
+            if errs[pos] is None:
+                d.delete_version(bucket, obj, version_id)
+        self._map_positions(undo)
+
+    def _encode_chunk(self, chunk, is_last: bool, k: int, m: int,
+                      algo: str):
+        """Yield lists of k+m framed shard pieces (shard order) for one
+        chunk: its full blocks in one device call, then, on the last
+        chunk, the ragged tail block in another."""
+        buf = np.frombuffer(chunk, dtype=np.uint8)
+        n_full = buf.size // BLOCK_SIZE
+        shard_size = -(-BLOCK_SIZE // k)
+        if n_full:
+            blocks = buf[:n_full * BLOCK_SIZE]
+            if BLOCK_SIZE % k:
+                # Each block zero-pads to k*shard_size (split padding
+                # rule, cf. erasure-coding.go:81).
+                padded = np.zeros((n_full, k * shard_size), dtype=np.uint8)
+                padded[:, :BLOCK_SIZE] = blocks.reshape(n_full, BLOCK_SIZE)
+                blocks = padded
+            yield self._encode_blocks(blocks.reshape(n_full, k, shard_size),
+                                      k, m, algo)
+        tail = buf[n_full * BLOCK_SIZE:]
+        if tail.size and not is_last:
+            raise ValueError("non-final chunk not BLOCK_SIZE aligned")
+        if tail.size:
+            tail_shard = -(-tail.size // k)
+            block = np.zeros(k * tail_shard, dtype=np.uint8)
+            block[:tail.size] = tail
+            yield self._encode_blocks(block.reshape(1, k, tail_shard),
+                                      k, m, algo)
+
+    def _encode_blocks(self, blocks: np.ndarray, k: int, m: int,
+                       algo: str) -> list[np.ndarray]:
+        parity, digests = fused.encode_and_hash(blocks, k, m, algo=algo,
+                                                device=self.device)
+        return bitrot_io.frame_shard_views(
+            blocks, parity.cpu().numpy(), digests.cpu().numpy(), algo)
+
+    # -- get -------------------------------------------------------------------
+
+    def get_object(self, bucket: str, obj: str, offset: int = 0,
+                   length: int = -1, version_id: str = ""
+                   ) -> tuple[FileInfo, bytes]:
+        """Read [offset, offset+length) of an object, verifying bitrot on
+        the device and rebuilding up to `parity` missing or corrupt
+        shards (cf. getObjectWithFileInfo, cmd/erasure-object.go:221)."""
+        fi, metas = self._read_metadata(bucket, obj, version_id)
+        if fi.deleted:
+            raise ErrObjectNotFound(f"{bucket}/{obj} (delete marker)")
+        size = fi.size
+        if offset < 0 or offset > size:
+            raise StorageError(f"offset {offset} outside object of size "
+                               f"{size}")
+        if length < 0:
+            length = size - offset
+        if offset + length > size:
+            raise StorageError(f"range [{offset}, {offset + length}) "
+                               f"outside object of size {size}")
+        if length == 0:
+            return fi, b""
+        if fi.inline_data is not None or (fi.parts and not fi.data_dir):
+            return fi, self._read_inline(fi, metas, offset, length)
+        out = bytearray(length)
+        mv = memoryview(out)
+        pos = 0
+        for pn, off, ln in self._plan_segments(fi, offset, length):
+            mv[pos:pos + ln] = self._read_part(bucket, obj, fi, pn, off, ln)
+            pos += ln
+        return fi, out
+
+    def _plan_segments(self, fi, offset: int, length: int) -> list:
+        """Map a byte range onto (part, offset, length) segments that end
+        on batch boundaries: one device call per segment (cf.
+        ObjectToPartOffset, cmd/erasure-metadata.go)."""
+        batch_bytes = BATCH_BLOCKS * BLOCK_SIZE
+        segs = []
+        part_start, pos, remaining = 0, offset, length
+        for part in fi.parts:
+            part_end = part_start + part.size
+            if remaining <= 0:
+                break
+            if pos < part_end:
+                in_off = pos - part_start
+                in_len = min(remaining, part.size - in_off)
+                seg, stop = in_off, in_off + in_len
+                while seg < stop:
+                    seg_end = min(stop, (seg // batch_bytes + 1) * batch_bytes)
+                    segs.append((part.number, seg, seg_end - seg))
+                    seg = seg_end
+                pos += in_len
+                remaining -= in_len
+            part_start = part_end
+        return segs
+
+    def _read_inline(self, fi, metas, offset: int, length: int) -> bytes:
+        """Small objects: each drive's framed shard lives in its xl.meta.
+        Only drives whose metadata matches the elected version count."""
+        want = Q._fi_key(fi)
+        by_shard: dict[int, bytes] = {}
+        for pos, meta in enumerate(metas):
+            if (meta is not None and meta.inline_data is not None
+                    and Q._fi_key(meta) == want):
+                by_shard[fi.erasure.distribution[pos] - 1] = meta.inline_data
+
+        def fetch(s: int) -> bytes:
+            if s not in by_shard:
+                raise ErrFileNotFound(f"inline shard {s}")
+            return by_shard[s]
+
+        b1 = -(-fi.size // BLOCK_SIZE)
+        data = self._read_blocks(fi, fi.size, 0, b1, fetch,
+                                 sorted(by_shard))
+        return data[offset:offset + length].tobytes()
+
+    def _read_part(self, bucket, obj, fi, part_number: int, offset: int,
+                   length: int) -> np.ndarray:
+        """[offset, offset+length) of one part, reading only the frames
+        that cover it."""
+        part_size = fi.parts[part_number - 1].size
+        frame = (bitrot_io.digest_size(fi.erasure.bitrot_algo(part_number))
+                 + fi.erasure.shard_size)
+        b0 = offset // BLOCK_SIZE
+        b1 = -(-(offset + length) // BLOCK_SIZE)
+        order = Q.shuffle_by_distribution(list(range(self.n)),
+                                          fi.erasure.distribution)
+        path = f"{obj}/{fi.data_dir}/part.{part_number}"
+
+        def fetch(s: int) -> bytes:
+            d = self.drives[order[s]]
+            if d is None:
+                raise ErrDiskNotFound("offline")
+            return d.read_file(bucket, path, b0 * frame, (b1 - b0) * frame)
+
+        k_m = fi.erasure.data_blocks + fi.erasure.parity_blocks
+        online = [s for s in range(k_m) if self.drives[order[s]] is not None]
+        data = self._read_blocks(fi, part_size, b0, b1, fetch, online,
+                                 part_number)
+        lo = offset - b0 * BLOCK_SIZE
+        return data[lo:lo + length]
+
+    def _read_blocks(self, fi, part_size: int, b0: int, b1: int, fetch,
+                     candidates: list[int], part_number: int = 1
+                     ) -> np.ndarray:
+        """Blocks [b0, b1) of a part as one uint8 array (the ragged tail
+        trimmed), from the frames `fetch(shard)` returns.
+
+        Data shards are read first and parity shards are spares.  Each
+        round verifies the chosen k rows on the device and, in the same
+        call, rebuilds the data rows that are not among them; a row
+        that fails to read, parse or verify is dropped and the next
+        spare is read (the parallelReader of cmd/erasure-decode.go:101
+        with the verifying ReadAt of cmd/bitrot-streaming.go:142)."""
+        ec = fi.erasure
+        k, m, shard_size = ec.data_blocks, ec.parity_blocks, ec.shard_size
+        algo = ec.bitrot_algo(part_number)
+        hs = bitrot_io.digest_size(algo)
+        n_full = part_size // BLOCK_SIZE
+        tail_len = part_size % BLOCK_SIZE
+        tail_shard = -(-tail_len // k) if tail_len else 0
+        has_tail = b1 > n_full
+        nb = min(b1, n_full) - b0
+        expect = nb * (hs + shard_size) + (hs + tail_shard if has_tail else 0)
+
+        def read_row(s: int):
+            buf = np.frombuffer(fetch(s), dtype=np.uint8)
+            if buf.size != expect:
+                raise ErrFileCorrupt(f"shard segment {buf.size} != {expect}")
+            hashes, blocks = bitrot_io.split_frames(buf, nb, shard_size, algo)
+            tail = buf[nb * (hs + shard_size):]
+            return hashes, blocks, tail[:hs], tail[hs:]
+
+        rows: dict[int, tuple] = {}
+        tried: set[int] = set()
+        while True:
+            want = [s for s in candidates if s not in tried
+                    and s not in rows][:max(k - len(rows), 0)]
+            if len(rows) < k and not want:
+                raise ErrErasureReadQuorum(
+                    f"only {len(rows)}/{k} shards readable")
+            tried.update(want)
+            for s, (row, err) in zip(want, self.pool.map(
+                    _attempt(read_row), want)):
+                if err is None:
+                    rows[s] = row
+            if len(rows) < k:
+                continue
+            sel = sorted(rows)[:k]
+            missing = tuple(s for s in range(k) if s not in sel)
+            bad: set[int] = set()
+            x = out = xt = out_t = None
+            if nb:
+                x = np.empty((nb, k, shard_size), dtype=np.uint8)
+                for i, s in enumerate(sel):
+                    x[:, i, :] = rows[s][1]
+                digests, out = fused.verify_and_transform(
+                    x, k, m, tuple(sel), missing, algo=algo,
+                    device=self.device)
+                digests = digests.cpu().numpy()
+                bad.update(s for i, s in enumerate(sel)
+                           if not np.array_equal(digests[:, i], rows[s][0]))
+            if has_tail:
+                xt = np.stack([rows[s][3] for s in sel])[None]
+                digests, out_t = fused.verify_and_transform(
+                    xt, k, m, tuple(sel), missing, algo=algo,
+                    device=self.device)
+                digests = digests.cpu().numpy()
+                bad.update(s for i, s in enumerate(sel)
+                           if not np.array_equal(digests[0, i], rows[s][2]))
+            if not bad:
+                break
+            for s in bad:
+                del rows[s]
+
+        pieces = []
+        if nb:
+            y = _data_rows(x, out, sel, missing, k)
+            flat = y.reshape(nb, k * shard_size)
+            pieces.append(flat[:, :BLOCK_SIZE].reshape(-1)
+                          if BLOCK_SIZE % k else flat.reshape(-1))
+        if has_tail:
+            y = _data_rows(xt, out_t, sel, missing, k)
+            pieces.append(y.reshape(-1)[:tail_len])
+        return pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
+
+    # -- metadata --------------------------------------------------------------
+
+    def _read_metadata(self, bucket: str, obj: str, version_id: str = ""):
+        """Read every drive's xl.meta and elect the version a read quorum
+        agrees on.  Returns (fi, metas by drive position)."""
+        version_id = normalize_version_id(version_id)
+        res = self._map_positions(
+            lambda pos, d: d.read_version(bucket, obj, version_id))
+        metas = [fi for fi, _ in res]
+        errs = [e for _, e in res]
+        if not any(m is not None for m in metas):
+            err, _ = Q.reduce_errs(errs, ignored=(ErrDiskNotFound,))
+            if isinstance(err, (ErrFileNotFound, ErrVolumeNotFound)):
+                if not self.bucket_exists(bucket):
+                    raise ErrBucketNotFound(bucket)
+                raise ErrObjectNotFound(f"{bucket}/{obj}")
+            if isinstance(err, ErrFileVersionNotFound):
+                raise ErrVersionNotFound(f"{bucket}/{obj}@{version_id}")
+            raise ErrErasureReadQuorum(f"{bucket}/{obj}: {err}")
+        read_quorum, _ = Q.object_quorum_from_meta(metas, self.n,
+                                                   self.default_parity)
+        return Q.find_file_info_in_quorum(metas, read_quorum), metas
+
+    def head_object(self, bucket: str, obj: str,
+                    version_id: str = "") -> FileInfo:
+        fi, _ = self._read_metadata(bucket, obj, version_id)
+        if fi.deleted and not version_id:
+            raise ErrObjectNotFound(f"{bucket}/{obj} (delete marker)")
+        return fi
+
+    def delete_object(self, bucket: str, obj: str,
+                      version_id: str = "") -> None:
+        """Delete one version ("" = the null version) from every drive
+        (cf. DeleteObject, cmd/erasure-object.go:1038)."""
+        if not self.bucket_exists(bucket):
+            raise ErrBucketNotFound(bucket)
+        vid = normalize_version_id(version_id)
+        errs = [e for _, e in self._map_positions(
+            lambda pos, d: d.delete_version(bucket, obj, vid))]
+        nf = (ErrFileNotFound, ErrFileVersionNotFound)
+        if errs and all(isinstance(e, nf) for e in errs):
+            if any(isinstance(e, ErrFileVersionNotFound) for e in errs):
+                raise ErrVersionNotFound(f"{bucket}/{obj}@{version_id}")
+            raise ErrObjectNotFound(f"{bucket}/{obj}")
+        # A drive that never had the version counts as success.
+        errs = [None if isinstance(e, nf) else e for e in errs]
+        err = Q.reduce_write_quorum_errs(errs, self.n // 2 + 1)
+        if err is not None:
+            raise err
+
+
+def _attempt(fn):
+    """fn -> a function returning (result, error) instead of raising."""
+    def call(arg):
+        try:
+            return fn(arg), None
+        except (StorageError, OSError) as e:
+            return None, e
+    return call
+
+
+def _data_rows(x: np.ndarray, out, sel: list[int], missing: tuple,
+               k: int) -> np.ndarray:
+    """The k data rows in shard order, from the chosen rows `x` (in `sel`
+    order) and the device-rebuilt `missing` rows `out`."""
+    if not missing:
+        return x                        # sel is range(k): x is the data
+    rebuilt = out.cpu().numpy()
+    y = np.empty((x.shape[0], k, x.shape[2]), dtype=np.uint8)
+    for s in range(k):
+        y[:, s] = x[:, sel.index(s)] if s in sel \
+            else rebuilt[:, missing.index(s)]
+    return y

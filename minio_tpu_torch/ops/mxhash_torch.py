@@ -1,0 +1,74 @@
+"""mxh256 on torch tensors: the digest as exact integer matmuls.
+
+Counterpart of minio_tpu/ops/mxhash_jax.py, which the JAX package left
+to XLA rather than to a Pallas kernel; here it is plain torch ops and a
+`torch.matmul` on the tensor's device.  Spec: ops/mxhash.py.
+
+Every tree level is a (rows, 256) x (256, 8) product of int8 values.
+|sum| <= 256 * 128 * 128 = 2^22 fits float32's 24-bit significand, so
+the product runs in float32 and is exact, provided TF32 is off: the
+function pins full float32 precision for the duration of a CUDA call.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import numpy as np
+import torch
+
+from . import mxhash
+
+
+@functools.lru_cache(maxsize=8)
+def _matrix_a(device: str) -> torch.Tensor:
+    return torch.from_numpy(mxhash.matrix_a().astype(np.float32)).to(device)
+
+
+@contextlib.contextmanager
+def _full_f32(x: torch.Tensor):
+    """Full float32 matmul precision on CUDA for the block's duration."""
+    if x.device.type != "cuda":
+        yield
+        return
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    prev_prec = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+        torch.set_float32_matmul_precision(prev_prec)
+
+
+def _level(rows: torch.Tensor) -> torch.Tensor:
+    """(n, L) uint8 -> (n, 32*ceil(L/256)) uint8: one tree level."""
+    n, ln = rows.shape
+    pad = (-ln) % mxhash.CHUNK
+    if pad or ln == 0:
+        rows = torch.nn.functional.pad(rows, (0, max(pad, mxhash.CHUNK - ln)))
+    chunks = rows.reshape(n, -1, mxhash.CHUNK).view(torch.int8)
+    h = torch.matmul(chunks.to(torch.float32),
+                     _matrix_a(str(rows.device)))            # (n, nc, 8)
+    # Words serialise little-endian: byte k of word w -> offset 4w + k.
+    return h.to(torch.int32).contiguous().view(torch.uint8).reshape(n, -1)
+
+
+def mxh256_rows(x: torch.Tensor) -> torch.Tensor:
+    """(n, L) uint8 tensor -> (n, 32) uint8 digests on the same device."""
+    if x.dtype != torch.uint8 or x.dim() != 2:
+        raise TypeError("mxh256_rows expects an (n, L) uint8 tensor")
+    n, ln = x.shape
+    if n == 0:
+        return torch.empty((0, mxhash.DIGEST_SIZE), dtype=torch.uint8,
+                           device=x.device)
+    cur = x.contiguous()
+    with _full_f32(x):
+        while True:
+            cur = _level(cur)
+            if cur.shape[1] == mxhash.DIGEST_SIZE:
+                break
+    tag = torch.from_numpy(mxhash.length_tag(ln).copy()).to(x.device)
+    return cur ^ tag[None, :]

@@ -1,0 +1,302 @@
+"""Local drive backend: the subset of minio_tpu/storage/drive.py that the
+erasure data path calls, with the same on-disk format.
+
+One `LocalDrive` owns one directory tree (cf. xlStorage,
+cmd/xl-storage.go in the reference):
+
+- volumes (buckets) are top-level directories;
+- an object is a directory holding ``xl.meta`` plus one subdirectory per
+  version data-dir holding the bitrot-framed shard files (``part.N``);
+- writes are staged under the drive's tmp area and published atomically
+  by renaming the data-dir into place and adding the version to xl.meta
+  (RenameData, cmd/xl-storage.go:1830);
+- deletes rename into the tmp trash first, so they appear atomic.
+
+A drive the JAX package wrote reads here, and the other way round.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import threading
+import uuid
+
+from . import diskio
+from .errors import (ErrDiskNotFound, ErrFileAccessDenied, ErrFileCorrupt,
+                     ErrFileNotFound, ErrFileVersionNotFound,
+                     ErrIsNotRegular, ErrVolumeExists, ErrVolumeNotFound)
+from .xlmeta import FileInfo, XLMeta
+
+# Reserved system namespace on every drive (reference: .minio.sys).
+SYS_VOL = ".mtpu.sys"
+TMP_DIR = "tmp"
+XL_META_FILE = "xl.meta"
+# The JAX package's system subdirectories, created alike so a drive
+# looks the same whichever package opened it first.
+_SYS_SUBDIRS = (TMP_DIR, "metajournal", "multipart", "buckets")
+
+# Objects <= this are stored inline in xl.meta (cf. smallFileThreshold,
+# cmd/xl-storage.go:59).
+SMALL_FILE_THRESHOLD = 128 * 1024
+
+
+def _is_valid_volname(vol: str) -> bool:
+    return bool(vol) and "/" not in vol and vol not in (".", "..")
+
+
+class LocalDrive:
+    """One local drive rooted at `root`."""
+
+    def __init__(self, root: str, create: bool = True):
+        self.root = os.path.abspath(root)
+        if create:
+            os.makedirs(self.root, exist_ok=True)
+        elif not os.path.isdir(self.root):
+            raise ErrDiskNotFound(root)
+        for sub in _SYS_SUBDIRS:
+            os.makedirs(os.path.join(self.root, SYS_VOL, sub), exist_ok=True)
+        self._meta_lock = threading.Lock()
+
+    # -- path helpers --------------------------------------------------------
+
+    def _vol_path(self, vol: str) -> str:
+        if not _is_valid_volname(vol):
+            raise ErrVolumeNotFound(vol)
+        return os.path.join(self.root, vol)
+
+    def _file_path(self, vol: str, path: str) -> str:
+        base = self._vol_path(vol)
+        p = os.path.normpath(os.path.join(base, path))
+        # Confine to the volume: '..' must not reach sibling volumes or
+        # the reserved system namespace.
+        if not (p + os.sep).startswith(base + os.sep):
+            raise ErrFileAccessDenied(f"{vol}/{path}")
+        return p
+
+    def _check_vol(self, vol: str) -> str:
+        p = self._vol_path(vol)
+        if not os.path.isdir(p):
+            raise ErrVolumeNotFound(vol)
+        return p
+
+    def _ensure_parent_in_vol(self, vol: str, p: str) -> None:
+        """mkdir the parent of `p`, re-validating the volume when the
+        chain is missing so a deleted bucket is never recreated."""
+        d = os.path.dirname(p)
+        try:
+            os.mkdir(d)
+        except FileExistsError:
+            pass
+        except FileNotFoundError:
+            self._check_vol(vol)
+            os.makedirs(d, exist_ok=True)
+
+    # -- volume ops ----------------------------------------------------------
+
+    def make_volume(self, vol: str) -> None:
+        p = self._vol_path(vol)
+        if os.path.isdir(p):
+            raise ErrVolumeExists(vol)
+        os.makedirs(p)
+
+    def stat_volume(self, vol: str) -> dict:
+        p = self._check_vol(vol)
+        return {"name": vol, "created_ns": int(os.stat(p).st_mtime_ns)}
+
+    # -- small files ---------------------------------------------------------
+
+    def write_all(self, vol: str, path: str, data: bytes) -> None:
+        """Atomic small-file write (tmp + fsync + rename)."""
+        self._check_vol(vol)
+        p = self._file_path(vol, path)
+        self._ensure_parent_in_vol(vol, p)
+        tmp = os.path.join(self.root, SYS_VOL, TMP_DIR,
+                           f"wa-{uuid.uuid4().hex}")
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, p)
+
+    def read_all(self, vol: str, path: str) -> bytes:
+        p = self._file_path(vol, path)
+        try:
+            with open(p, "rb") as f:
+                return f.read()
+        except (FileNotFoundError, IsADirectoryError):
+            raise ErrFileNotFound(f"{vol}/{path}") from None
+        except PermissionError:
+            raise ErrFileAccessDenied(f"{vol}/{path}") from None
+
+    def delete(self, vol: str, path: str, recursive: bool = False) -> None:
+        p = self._file_path(vol, path)
+        if not os.path.exists(p):
+            raise ErrFileNotFound(f"{vol}/{path}")
+        if os.path.isdir(p):
+            if not recursive:
+                raise ErrFileAccessDenied(f"{vol}/{path} is a directory")
+            self._move_to_trash(p)
+        else:
+            os.remove(p)
+
+    # -- shard files ---------------------------------------------------------
+
+    def append_file(self, vol: str, path: str, data) -> None:
+        """Append a contiguous buffer (bytes or a uint8 ndarray view) to a
+        staged shard file; parents are created."""
+        self._check_vol(vol)
+        p = self._file_path(vol, path)
+        self._ensure_parent_in_vol(vol, p)
+        buf = memoryview(data).cast("B")
+        with open(p, "ab") as f:
+            f.write(buf)
+            f.flush()
+            diskio.write_done(f.fileno(), len(buf))
+
+    def read_file(self, vol: str, path: str, offset: int = 0,
+                  length: int = -1) -> bytes:
+        p = self._file_path(vol, path)
+        try:
+            return diskio.read_range(p, offset, length)
+        except FileNotFoundError:
+            raise ErrFileNotFound(f"{vol}/{path}") from None
+        except IsADirectoryError:
+            raise ErrIsNotRegular(f"{vol}/{path}") from None
+
+    # -- versioned metadata --------------------------------------------------
+
+    def _read_xlmeta(self, vol: str, obj: str) -> XLMeta:
+        try:
+            buf = self.read_all(vol, os.path.join(obj, XL_META_FILE))
+        except ErrFileNotFound:
+            raise ErrFileNotFound(f"{vol}/{obj}") from None
+        return XLMeta.from_bytes(buf)
+
+    def _write_xlmeta(self, vol: str, obj: str, meta: XLMeta,
+                      new: bool = False) -> None:
+        if not meta.versions:
+            # Last version gone: remove the whole object dir.
+            self._move_to_trash(self._file_path(vol, obj))
+            return
+        if new:
+            # First xl.meta of the object: no reader can hold it yet, so
+            # no tmp+rename (a torn write fails the integrity checksum).
+            p = self._file_path(vol, os.path.join(obj, XL_META_FILE))
+            self._ensure_parent_in_vol(vol, p)
+            with open(p, "wb") as f:
+                f.write(meta.to_bytes())
+            return
+        self.write_all(vol, os.path.join(obj, XL_META_FILE), meta.to_bytes())
+
+    def read_version(self, vol: str, obj: str,
+                     version_id: str = "") -> FileInfo:
+        """One version's FileInfo (inline data included when present)."""
+        self._check_vol(vol)
+        return self._read_xlmeta(vol, obj).get(version_id, vol, obj)
+
+    def write_metadata(self, vol: str, obj: str, fi: FileInfo) -> None:
+        """Add/replace one version in xl.meta.  A corrupt xl.meta starts
+        fresh, so the quorum-elected metadata can replace it."""
+        self._check_vol(vol)
+        with self._meta_lock:
+            try:
+                meta = self._read_xlmeta(vol, obj)
+            except (ErrFileNotFound, ErrFileCorrupt):
+                meta = XLMeta()
+            meta.add_version(fi)
+            self._write_xlmeta(vol, obj, meta)
+
+    def rename_data(self, src_vol: str, src_dir: str, fi: FileInfo,
+                    dst_vol: str, dst_obj: str) -> None:
+        """Atomic publish: move the staged data-dir (whose contents are
+        the part files) to <dst_obj>/<fi.data_dir>/ and add the version
+        to xl.meta."""
+        self._check_vol(dst_vol)
+        with self._meta_lock:
+            fresh = False
+            try:
+                meta = self._read_xlmeta(dst_vol, dst_obj)
+            except ErrFileNotFound:
+                meta, fresh = XLMeta(), True
+            except ErrFileCorrupt:
+                meta = XLMeta()
+            # Non-versioned overwrite of the null version frees its
+            # old data-dir.
+            old_dd = ""
+            if fi.version_id == "":
+                try:
+                    old_dd = meta.delete_version("")
+                except ErrFileVersionNotFound:
+                    pass
+                if old_dd == fi.data_dir:
+                    old_dd = ""
+            if fi.uses_data_dir():
+                src = self._file_path(src_vol, src_dir)
+                if not os.path.isdir(src):
+                    raise ErrFileNotFound(f"{src_vol}/{src_dir}")
+                if diskio.osync():
+                    # Durability before visibility.
+                    for name in os.listdir(src):
+                        fp = os.path.join(src, name)
+                        if os.path.isfile(fp):
+                            fd = os.open(fp, os.O_RDONLY)
+                            try:
+                                os.fsync(fd)
+                            finally:
+                                os.close(fd)
+                dst = self._file_path(dst_vol,
+                                      os.path.join(dst_obj, fi.data_dir))
+                self._ensure_parent_in_vol(dst_vol, dst)
+                if os.path.isdir(dst):
+                    self._move_to_trash(dst)
+                os.replace(src, dst)
+            meta.add_version(fi)
+            self._write_xlmeta(dst_vol, dst_obj, meta, new=fresh)
+            if old_dd:
+                self._remove_data_dir(dst_vol, dst_obj, old_dd)
+
+    def delete_version(self, vol: str, obj: str,
+                       version_id: str = "") -> None:
+        """Remove one version, its data-dir when no other version shares
+        it, and the object dir with its last version."""
+        self._check_vol(vol)
+        with self._meta_lock:
+            meta = self._read_xlmeta(vol, obj)
+            dd = meta.delete_version(version_id)
+            self._write_xlmeta(vol, obj, meta)
+            if dd:
+                self._remove_data_dir(vol, obj, dd)
+            if not meta.versions:
+                self._cleanup_empty_parents(vol, obj)
+
+    def _remove_data_dir(self, vol: str, obj: str, data_dir: str) -> None:
+        p = self._file_path(vol, os.path.join(obj, data_dir))
+        if os.path.isdir(p):
+            self._move_to_trash(p)
+
+    def _cleanup_empty_parents(self, vol: str, obj: str) -> None:
+        """Remove now-empty parent dirs up to the volume root."""
+        base = self._check_vol(vol)
+        p = os.path.dirname(self._file_path(vol, obj))
+        while p.startswith(base + os.sep):
+            try:
+                os.rmdir(p)
+            except OSError:
+                break
+            p = os.path.dirname(p)
+
+    # -- internals -----------------------------------------------------------
+
+    def _move_to_trash(self, path: str) -> None:
+        """Atomic disappearance: rename into the tmp trash, then remove."""
+        trash = os.path.join(self.root, SYS_VOL, TMP_DIR,
+                             f"trash-{uuid.uuid4().hex}")
+        try:
+            os.replace(path, trash)
+        except FileNotFoundError:
+            return
+        shutil.rmtree(trash, ignore_errors=True)
+
+    def __repr__(self) -> str:
+        return f"LocalDrive({self.root!r})"

@@ -5,25 +5,42 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
 
-1. The card (nvidia-smi name and power limit) and the kernel build, timed.
+1. The card (nvidia-smi name and power limit) and the build of both
+   kernels (one nvcc per source, started together), timed, with ptxas's
+   register, shared-memory and spill lines, and the integer instructions
+   per packet of the HighwayHash kernel's loop by issuing pipe
+   (cuobjdump -sass).
 2. The hand-written GF(2^8) kernel against its plain PyTorch version on
    the card, bit-exact (torch.equal), at the shapes the main path gives
    it; its time (CUDA events, median, L2 flushed between runs) beside
    its bound and the plain version's time.
 3. mxh256 on the card against the numpy spec at one PUT batch's shape.
-4. The slice: an EC:8+4 ErasureSet over 12 drive directories (in
-   /dev/shm when present) takes 4 objects of 64 MiB and one of
-   64 MiB + 300 KiB, then GET (checked against MD5 and ETag), HEAD,
-   degraded GET with two data-shard drives taken away, GET with a
-   corrupted shard frame, and DELETE.  The kernel's launch count is set
-   to 0 before this phase and must rise on the PUTs and on the degraded
-   GETs.
-5. Where one 32 MiB PUT batch's time goes, layer by layer, and the
+4. The hand-written HighwayHash-256 kernel against its plain version
+   (torch.equal) at n = 384 and L in {0, 4096, 4097, 4113, 4127}, rows
+   misaligned by one byte included, and against the plain version and a
+   sample of rows of the numpy spec at the PUT and GET batch shapes;
+   its time beside its bound and the plain version's.
+5. The main paths, each with both kernels' launch counts set to 0 just
+   before it and read just after, on an EC:8+4 ErasureSet over 12 drive
+   directories (in /dev/shm when present):
+   a. mxh256 objects: PUT, GET (MD5 and ETag), HEAD, degraded GET with
+      two data-shard drives away, GET with a corrupted frame, DELETE;
+   b. the same under MTPU_BITROT_ALGO=highwayhash256S, with a
+      64 MiB + 300 KiB + 5 B object whose 38401-byte tail shard takes the
+      remainder packet;
+   c. heal: two drives wiped and reopened, heal_bucket and heal_object
+      restore every part file to its recorded SHA-256, then the healed
+      drives serve a GET with two other drives away;
+   d. multipart: three parts under mxh256, highwayhash256S and mxh256,
+      completed, read whole, ranged across a part boundary and degraded,
+      then healed and read again.
+6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
    device's busy share over one 64 MiB PUT + GET (torch.profiler).
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without CUDA, or without the package
-beside it, the script exits non-zero and prints no result.
+The line before the last is the kernels' JSON record, whose launches
+are the main paths'; the last line is {"ok": true, "device": {...}}.
+Without CUDA, or without the package beside it, the script exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,6 +49,7 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -41,8 +59,23 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+# H100 SXM: 132 SMs; each SM's integer ALU pipe and its FMA pipe (which
+# runs IMAD) take 64 thread-instructions a clock each, and the SM issues
+# at most 128 a clock (4 schedulers x 32 threads).
+SMS, PIPE_LANES = 132, 64
+# 32-bit integer SASS opcodes by the pipe that runs them: the ALU pipe,
+# the FMA pipe, or either (moves and VIADD, counted on whichever pipe is
+# less loaded so the bound stays a lower bound).
+ALU_OPS = ("LOP3", "SHF", "IADD3", "IADD", "PRMT", "LEA", "SHL", "SHR",
+           "BMSK", "SGXT", "IABS", "IMNMX", "ISCADD")
+FMA_OPS = ("IMAD", "IMUL")
+EITHER_OPS = ("IMAD.MOV", "VIADD")
 MIB = 1 << 20
 OBJECT_BYTES = 64 * MIB        # BASELINE.json config 2's object size
+# 64 MiB + 300 KiB + 5 B: a tail block whose shard (38401 B) is not a
+# multiple of 32, so the HighwayHash remainder packet is on the path.
+TAIL_OBJECT_BYTES = OBJECT_BYTES + 300 * 1024 + 5
+HH = "highwayhash256S"
 
 
 def card_line() -> str:
@@ -51,6 +84,72 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return float(out[0]) * 1e6
+
+
+class Launches:
+    """Sets to 0 and reads the launch counts of every kernel wrapper."""
+
+    def __init__(self, wrappers: dict):
+        self.wrappers = wrappers
+
+    def reset(self) -> None:
+        for mod in self.wrappers.values():
+            mod.LAUNCHES = 0
+
+    def read(self) -> dict[str, int]:
+        return {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
+
+
+def sass_int_ops_per_packet(lib, source) -> dict[str, float]:
+    """32-bit integer instructions per packet in the HighwayHash kernel's
+    packet loop by pipe ("alu", "fma", "either"), read off `cuobjdump
+    -sass` of its library: the loop is the longest backward branch; spans
+    inside it that a forward branch skips and that hold byte loads (the
+    path for misaligned rows) are left out; the counts are divided by the
+    packets one trip hashes."""
+    from minio_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+
+    def target(text):
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+        return int(m.group(1), 16) if m else None
+
+    loops = [(target(t), a) for a, t in ins
+             if target(t) is not None and target(t) < a]
+    start, end = max(loops, key=lambda se: se[1] - se[0])
+    body = [(a, t) for a, t in ins if start <= a <= end]
+    skipped = set()
+    for a, t in body:
+        to = target(t)
+        if to is not None and to > a:
+            span = [(x, y) for x, y in body if a < x < to]
+            if any("LDG" in y and "U8" in y for _, y in span):
+                skipped.update(x for x, _ in span)
+    count = {"alu": 0, "fma": 0, "either": 0}
+    for a, t in body:
+        op = t.split()[1] if t.startswith("@") else t.split()[0]
+        if a in skipped:
+            continue
+        if op.startswith(EITHER_OPS):
+            count["either"] += 1
+        elif op.split(".")[0] in FMA_OPS:
+            count["fma"] += 1
+        elif op.split(".")[0] in ALU_OPS:
+            count["alu"] += 1
+    group = int(re.search(r"kGroup = (\d+)", source.read_text()).group(1))
+    return {pipe: c / group for pipe, c in count.items()}
 
 
 def time_ms(torch, fn, runs: int, flush) -> float:
@@ -156,38 +255,151 @@ def phase_mxh(torch, mxhash, mt, gen, card):
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
     ms = time_ms(torch, lambda: mt.mxh256_rows(x), 10, flush)
     print(f"[mxh256] (384, 131072) on the card == numpy spec: {ok}; "
-          f"{ms:.4f} ms median of 10 ({x.numel() / ms / 1e6:.2f} GB/s); "
-          f"card {card}")
+          f"float64 tree levels {ms:.4f} ms median of 10 "
+          f"({x.numel() / ms / 1e6:.2f} GB/s); card {card}")
     if not ok:
         raise SystemExit("mxh256 on the card disagrees with the spec")
 
 
-def phase_slice(args, ec, card):
+def hh_bound(n: int, length: int, ops_per_packet: dict[str, float],
+             clock_hz: float) -> tuple[float, str]:
+    """Least time to hash n rows of `length` bytes: bytes moved over HBM
+    rate vs the integer instructions of every packet update (bulk,
+    remainder and the 10 finalisation rounds) on the busier pipe, or at
+    the SM's issue rate, whichever takes longer."""
+    bytes_ms = (n * length + n * 32) / HBM_BYTES_PER_S * 1e3
+    updates = length // 32 + (1 if length % 32 else 0) + 10
+    c = ops_per_packet
+    per_pipe = max(c["alu"], c["fma"], sum(c.values()) / 2)
+    ops_ms = n * updates * per_pipe / (SMS * PIPE_LANES * clock_hz) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def phase_hh_kernel(torch, hc, ht, spec, gen, card, ops_per_packet):
+    """HighwayHash kernel == plain version (and the numpy spec on sampled
+    rows at full shape); returns its JSON record (without launches)."""
+    import numpy as np
+    dev = torch.device("cuda", 0)
+
+    def rand(n, length, misalign=0):
+        buf = torch.randint(0, 256, (n * length + misalign,),
+                            dtype=torch.uint8, device=dev, generator=gen)
+        return buf[misalign:].view(n, length)
+
+    cases = [(f"(384, {4096 + r})", rand(384, 4096 + r))
+             for r in (0, 1, 17, 31)]
+    cases += [("(384, 0)", rand(384, 0)),
+              ("(384, 4113), rows start 1 byte off 16", rand(384, 4113, 1))]
+    max_err = 0
+
+    def compare(got, want) -> int:
+        return int((got.int() - want.int()).abs().max())
+
+    for name, x in cases:
+        got = hc.hh256_rows(x)
+        want = ht.hh256_rows_ref(x)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(got, want))
+        ok = torch.equal(got, want)
+        print(f"[hh256] {name}: kernel == plain version: {ok}")
+        if not ok:
+            raise SystemExit(f"hh256 kernel disagrees with plain: {name}")
+
+    flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
+    rec = {}
+    for n in (384, 256):                        # PUT batch, GET batch
+        x = rand(n, 131072)
+        got = hc.hh256_rows(x)
+        t0 = time.perf_counter()
+        want = ht.hh256_rows_ref(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        sample = np.linspace(0, n - 1, 16).astype(int)
+        spec_ok = np.array_equal(got.cpu().numpy()[sample],
+                                 spec.highwayhash256_batch(
+                                     x.cpu().numpy()[sample]))
+        ok = torch.equal(got, want) and spec_ok
+        max_err = max(max_err, compare(got, want))
+        ms = time_ms(torch, lambda: hc.hh256_rows(x), 20, flush)
+        bound_ms, bound_by = hh_bound(n, 131072, ops_per_packet,
+                                      max_sm_clock_hz())
+        print(f"[hh256] ({n}, 131072): kernel == plain version and == "
+              f"numpy spec on 16 sampled rows: {ok}; {ms:.4f} ms median of "
+              f"20 ({n * 131072 / ms / 1e6:.2f} GB/s; bound {bound_ms:.4f} "
+              f"ms by {bound_by}, {bound_ms / ms:.1%} of it); plain version "
+              f"{plain_ms:.1f} ms (one run, host clock); library call: none;"
+              f" card {card}")
+        if not ok:
+            raise SystemExit(f"hh256 kernel disagrees at ({n}, 131072)")
+        if n == 384:
+            rec = {"name": "hh256", "route": "cuda",
+                   "source": "minio_tpu_torch/csrc/hh256.cu",
+                   "replaces": "minio_tpu/ops/highwayhash_pallas.py:76",
+                   "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    x = cases[0][1]
+    plain_ms = time_ms(torch, lambda: ht.hh256_rows_ref(x), 3, flush)
+    ms = time_ms(torch, lambda: hc.hh256_rows(x), 20, flush)
+    print(f"[hh256] reduced shape (384, 4096): kernel {ms:.4f} ms, plain "
+          f"version {plain_ms:.4f} ms (CUDA events, median); card {card}")
+    # One thread per stream, one warp per block: the time should stay
+    # near flat while more warps fill idle SMs, which is what batching
+    # more streams into one launch would buy.
+    for n in (4224, 16896):
+        x = rand(n, 131072)
+        ms = time_ms(torch, lambda: hc.hh256_rows(x), 5, flush)
+        print(f"[hh256] ({n}, 131072), {n // 32} warps: {ms:.4f} ms median "
+              f"of 5 ({n * 131072 / ms / 1e6:.2f} GB/s); card {card}")
+        del x
+    return rec
+
+
+def _tmp_root(prefix: str) -> str:
+    base = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    return tempfile.mkdtemp(prefix=prefix, dir=base)
+
+
+def _data_positions(Q, fi, count):
+    order = Q.shuffle_by_distribution(list(range(12)),
+                                      fi.erasure.distribution)
+    return [order[s] for s in range(count)]
+
+
+def phase_slice(args, counts, card, algo, sizes):
+    """One main path: PUT, GET, HEAD, degraded GET, corrupted-frame GET
+    and DELETE of `sizes` objects under bitrot algorithm `algo`.  Returns
+    the launch counts of the path."""
     from minio_tpu_torch.engine import quorum as Q
     from minio_tpu_torch.engine.erasure_set import ErasureSet
     from minio_tpu_torch.storage.drive import LocalDrive
     from minio_tpu_torch.storage.errors import ErrObjectNotFound
     import numpy as np
 
-    base = "/dev/shm" if os.path.isdir("/dev/shm") else None
-    root = tempfile.mkdtemp(prefix="chip_smoke-", dir=base)
+    root = _tmp_root("chip_smoke-")
     rng = np.random.default_rng(args.seed)
-    sizes = [OBJECT_BYTES] * 4 + [OBJECT_BYTES + 300 * 1024]
     bodies = {f"obj{i}": rng.bytes(n) for i, n in enumerate(sizes)}
     total = sum(sizes)
+    os.environ["MTPU_BITROT_ALGO"] = algo
     es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
                      for i in range(12)], default_parity=4)
     steps = {}
     try:
         es.make_bucket("smoke")
-        ec.LAUNCHES = 0                       # the main path starts here
+        counts.reset()                        # the main path starts here
+
+        def step(name, before):
+            now = counts.read()
+            steps[name] = {k: now[k] - before[k] for k in now}
+            return now
 
         t0 = time.perf_counter()
         fis = {k: es.put_object("smoke", k, v) for k, v in bodies.items()}
         put_s = time.perf_counter() - t0
-        steps["put"] = ec.LAUNCHES
-        if steps["put"] == 0:
-            raise SystemExit("PUT did not launch the GF kernel")
+        mark = step("put", {k: 0 for k in counts.read()})
+        if any(fi.erasure.bitrot_algo() != algo for fi in fis.values()):
+            raise SystemExit(f"PUT did not record {algo}")
 
         get_s = 0.0
         for key, body in bodies.items():
@@ -196,7 +408,7 @@ def phase_slice(args, ec, card):
             get_s += time.perf_counter() - t0
             if hashlib.md5(got).hexdigest() != fi.etag or bytes(got) != body:
                 raise SystemExit(f"GET {key}: bytes or ETag differ")
-        steps["get"] = ec.LAUNCHES - steps["put"]
+        mark = step("get", mark)
 
         for key, body in bodies.items():
             fi = es.head_object("smoke", key)
@@ -204,41 +416,31 @@ def phase_slice(args, ec, card):
                     body).hexdigest():
                 raise SystemExit(f"HEAD {key}: size or ETag differ")
 
-        before = ec.LAUNCHES
         deg_s = 0.0
         for key, body in bodies.items():
-            order = Q.shuffle_by_distribution(
-                list(range(12)), fis[key].erasure.distribution)
             saved = list(es.drives)
-            for s in (0, 1):                  # two data-shard drives away
-                es.drives[order[s]] = None
+            for pos in _data_positions(Q, fis[key], 2):  # two data shards
+                es.drives[pos] = None
             t0 = time.perf_counter()
             _, got = es.get_object("smoke", key)
             deg_s += time.perf_counter() - t0
             es.drives = saved
             if bytes(got) != body:
                 raise SystemExit(f"degraded GET {key}: bytes differ")
-        steps["degraded_get"] = ec.LAUNCHES - before
-        if steps["degraded_get"] == 0:
-            raise SystemExit("degraded GET did not launch the GF kernel")
+        mark = step("degraded_get", mark)
 
         key = "obj1"
         fi = fis[key]
-        order = Q.shuffle_by_distribution(list(range(12)),
-                                          fi.erasure.distribution)
-        part = os.path.join(es.drives[order[2]].root, "smoke", key,
-                            fi.data_dir, "part.1")
+        part = os.path.join(es.drives[_data_positions(Q, fi, 3)[2]].root,
+                            "smoke", key, fi.data_dir, "part.1")
         with open(part, "r+b") as f:          # a frame mid-file
             f.seek(fi.size // MIB // 2 * (32 + fi.erasure.shard_size) + 1000)
             f.write(b"\xff" * 16)
-        before = ec.LAUNCHES
         _, got = es.get_object("smoke", key)
         if bytes(got) != bodies[key]:
             raise SystemExit("GET with a corrupted frame: bytes differ")
-        steps["corrupt_get"] = ec.LAUNCHES - before
-        if steps["corrupt_get"] == 0:
-            raise SystemExit("the corrupted frame was not rebuilt")
-        launches = ec.LAUNCHES                # the main path ends here
+        step("corrupt_get", mark)
+        launches = counts.read()              # the main path ends here
 
         for key in bodies:
             es.delete_object("smoke", key)
@@ -250,14 +452,185 @@ def phase_slice(args, ec, card):
     finally:
         es.close()
         shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
 
+    need = {"put": ("gf_matmul", "hh256") if algo == HH else ("gf_matmul",),
+            "get": ("hh256",) if algo == HH else (),
+            "degraded_get": ("gf_matmul", "hh256") if algo == HH
+            else ("gf_matmul",),
+            "corrupt_get": ("gf_matmul", "hh256") if algo == HH
+            else ("gf_matmul",)}
+    for name, kernels in need.items():
+        for kernel in kernels:
+            if steps[name][kernel] == 0:
+                raise SystemExit(f"{algo} {name} did not launch {kernel}")
     gb = total / 1e9
-    print(f"[slice] EC:8+4, 12 drives, {len(sizes)} objects, {total} bytes: "
-          f"PUT {gb / put_s:.3f} GB/s, GET {gb / get_s:.3f} GB/s, "
+    print(f"[slice {algo}] EC:8+4, 12 drives, {len(sizes)} objects, {total}"
+          f" bytes: PUT {gb / put_s:.3f} GB/s, GET {gb / get_s:.3f} GB/s, "
           f"degraded GET {gb / deg_s:.3f} GB/s (host clock); card {card}")
-    print(f"[slice] GF kernel launches: {steps} (total {launches}); "
-          "GET, HEAD, degraded GET, corrupted-frame GET byte-exact; "
-          "DELETE done")
+    print(f"[slice {algo}] launches per step: {steps}; GET, HEAD, degraded "
+          "GET, corrupted-frame GET byte-exact; DELETE done")
+    return launches
+
+
+def _part_hashes(es, bucket, objects) -> dict:
+    """SHA-256 of every part file of `objects` on every drive."""
+    out = {}
+    for pos, d in enumerate(es.drives):
+        for obj, fi in objects.items():
+            for part in fi.parts:
+                p = os.path.join(d.root, bucket, obj, fi.data_dir,
+                                 f"part.{part.number}")
+                with open(p, "rb") as f:
+                    out[pos, obj, part.number] = hashlib.sha256(
+                        f.read()).hexdigest()
+    return out
+
+
+def _wipe(es, LocalDrive, positions) -> None:
+    """A replaced drive: its whole directory gone, reopened empty."""
+    for pos in positions:
+        root = es.drives[pos].root
+        shutil.rmtree(root)
+        es.drives[pos] = LocalDrive(root)
+
+
+def phase_heal(args, counts, card):
+    """Heal path: one mxh256 and one HighwayHash object, two drives
+    wiped, heal_bucket + heal_object, every part file back to its
+    recorded SHA-256, then a GET the healed drives serve."""
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.storage.drive import LocalDrive
+    import numpy as np
+
+    root = _tmp_root("chip_smoke-heal-")
+    rng = np.random.default_rng(args.seed + 1)
+    bodies = {"mxh": rng.bytes(TAIL_OBJECT_BYTES),
+              "hh": rng.bytes(TAIL_OBJECT_BYTES)}
+    es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
+                     for i in range(12)], default_parity=4)
+    try:
+        es.make_bucket("heal")
+        fis = {}
+        for key, algo in (("mxh", "mxh256"), ("hh", HH)):
+            os.environ["MTPU_BITROT_ALGO"] = algo
+            fis[key] = es.put_object("heal", key, bodies[key])
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        golden = _part_hashes(es, "heal", fis)
+        order = Q.shuffle_by_distribution(list(range(12)),
+                                          fis["hh"].erasure.distribution)
+        wiped = [order[0], order[11]]         # a data and a parity shard
+        _wipe(es, LocalDrive, wiped)
+
+        counts.reset()                        # the main path starts here
+        t0 = time.perf_counter()
+        if sorted(heal.heal_bucket(es, "heal")) != sorted(wiped):
+            raise SystemExit("heal_bucket did not recreate the volume")
+        results = {key: heal.heal_object(es, "heal", key)[0] for key in fis}
+        heal_s = time.perf_counter() - t0
+        launches = counts.read()              # the main path ends here
+        for key, r in results.items():
+            if sorted(r.healed_drives) != sorted(wiped):
+                raise SystemExit(f"heal {key}: healed {r.healed_drives}")
+        if _part_hashes(es, "heal", fis) != golden:
+            raise SystemExit("healed part files differ from the originals")
+        if min(launches.values()) == 0:
+            raise SystemExit(f"heal did not launch every kernel: {launches}")
+
+        others = [p for p in order if p not in wiped][:2]
+        saved = list(es.drives)
+        for pos in others:
+            es.drives[pos] = None
+        for key, body in bodies.items():
+            if bytes(es.get_object("heal", key)[1]) != body:
+                raise SystemExit(f"GET {key} after heal: bytes differ")
+        es.drives = saved
+    finally:
+        es.close()
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+    total = sum(len(b) for b in bodies.values())
+    print(f"[heal] EC:8+4, drives {wiped} wiped; heal_bucket + heal_object "
+          f"of 2 objects ({total} bytes, mxh256 and {HH}): "
+          f"{total / heal_s / 1e9:.3f} GB/s (host clock); every part file "
+          f"equals its recorded SHA-256; GET with drives {others} away "
+          f"byte-exact; launches {launches}; card {card}")
+    return launches
+
+
+def phase_multipart(args, counts, card):
+    """Multipart path: three parts under mxh256, highwayhash256S and
+    mxh256; complete; whole, ranged and degraded GETs; heal of a wiped
+    drive; GET again."""
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.engine import multipart as mp
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.storage.drive import LocalDrive
+    import numpy as np
+
+    root = _tmp_root("chip_smoke-mp-")
+    rng = np.random.default_rng(args.seed + 2)
+    parts = [(OBJECT_BYTES, "mxh256"), (OBJECT_BYTES, HH),
+             (5 * MIB + 7, "mxh256")]
+    bodies = [rng.bytes(n) for n, _ in parts]
+    whole = b"".join(bodies)
+    es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
+                     for i in range(12)], default_parity=4)
+    try:
+        es.make_bucket("mp")
+        counts.reset()                        # the main path starts here
+        t0 = time.perf_counter()
+        uid = mp.new_multipart_upload(es, "mp", "obj")
+        listed = []
+        for i, ((_, algo), body) in enumerate(zip(parts, bodies)):
+            os.environ["MTPU_BITROT_ALGO"] = algo
+            info = mp.put_object_part(es, "mp", "obj", uid, i + 1, body)
+            listed.append((i + 1, info.etag))
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        fi = mp.complete_multipart_upload(es, "mp", "obj", uid, listed)
+        put_s = time.perf_counter() - t0
+        want = hashlib.md5(b"".join(hashlib.md5(b).digest()
+                                    for b in bodies)).hexdigest() + "-3"
+        if fi.etag != want or [c["algo"] for c in fi.erasure.checksums] != \
+                [a for _, a in parts]:
+            raise SystemExit(f"multipart ETag or algorithms wrong: {fi}")
+        if bytes(es.get_object("mp", "obj")[1]) != whole:
+            raise SystemExit("multipart GET: bytes differ")
+        off = OBJECT_BYTES - 3 * MIB - 11     # across the part 1/2 boundary
+        if bytes(es.get_object("mp", "obj", off, 6 * MIB)[1]) != \
+                whole[off:off + 6 * MIB]:
+            raise SystemExit("multipart ranged GET: bytes differ")
+        saved = list(es.drives)
+        data = _data_positions(Q, fi, 2)
+        for pos in data:
+            es.drives[pos] = None
+        if bytes(es.get_object("mp", "obj")[1]) != whole:
+            raise SystemExit("multipart degraded GET: bytes differ")
+        es.drives = saved
+        golden = _part_hashes(es, "mp", {"obj": fi})
+        _wipe(es, LocalDrive, [data[1]])
+        heal.heal_bucket(es, "mp")
+        r = heal.heal_object(es, "mp", "obj")[0]
+        if r.healed_drives != [data[1]] or \
+                _part_hashes(es, "mp", {"obj": fi}) != golden:
+            raise SystemExit("multipart heal did not restore the drive")
+        if bytes(es.get_object("mp", "obj")[1]) != whole:
+            raise SystemExit("multipart GET after heal: bytes differ")
+        launches = counts.read()              # the main path ends here
+    finally:
+        es.close()
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+    if min(launches.values()) == 0:
+        raise SystemExit(f"multipart did not launch every kernel: {launches}")
+    print(f"[multipart] 3 parts ({len(whole)} bytes; mxh256, {HH}, mxh256): "
+          f"upload + complete {len(whole) / put_s / 1e9:.3f} GB/s (host "
+          f"clock); ETag {fi.etag}; whole, ranged across parts 1/2, "
+          f"degraded and after-heal GETs byte-exact; launches {launches}; "
+          f"card {card}")
     return launches
 
 
@@ -346,8 +719,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from minio_tpu_torch.ops import cuda_build
         from minio_tpu_torch.ops import erasure_cuda as ec
         from minio_tpu_torch.ops import erasure_torch as et
+        from minio_tpu_torch.ops import highwayhash as spec
+        from minio_tpu_torch.ops import highwayhash_cuda as hc
+        from minio_tpu_torch.ops import highwayhash_torch as ht
         from minio_tpu_torch.ops import mxhash
         from minio_tpu_torch.ops import mxhash_torch as mt
     except ImportError as e:
@@ -361,20 +738,45 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    path, log = ec.build(verbose=True)
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    sources = [ec.LIBRARY.source, hc.LIBRARY.source]
+    built = cuda_build.build(sources, verbose=True)
+    print(f"[build] {', '.join(built[s][0].name for s in sources)} in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc per source, started "
+          "together)")
+    for src in sources:
+        for line in built[src][1].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {src.name}: {line.strip()}")
+    ops_per_packet = sass_int_ops_per_packet(built[hc.LIBRARY.source][0],
+                                             hc.LIBRARY.source)
+    print(f"[build] hh256.cu: 32-bit integer instructions per packet in the "
+          f"packet loop by pipe {ops_per_packet}, "
+          f"{sum(ops_per_packet.values())} in all (cuobjdump -sass)")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    record = phase_kernel(torch, ec, et, gen, card)
+    records = [phase_kernel(torch, ec, et, gen, card)]
     phase_mxh(torch, mxhash, mt, gen, card)
-    record["launches"] = phase_slice(args, ec, card)
+    records.append(phase_hh_kernel(torch, hc, ht, spec, gen, card,
+                                   ops_per_packet))
+
+    counts = Launches({"gf_matmul": ec, "hh256": hc})
+    paths = {
+        "mxh256 slice": lambda: phase_slice(
+            args, counts, card, "mxh256",
+            [OBJECT_BYTES] * 2 + [OBJECT_BYTES + 300 * 1024]),
+        "highwayhash256S slice": lambda: phase_slice(
+            args, counts, card, HH, [OBJECT_BYTES] * 2 + [TAIL_OBJECT_BYTES]),
+        "heal": lambda: phase_heal(args, counts, card),
+        "multipart": lambda: phase_multipart(args, counts, card),
+    }
+    per_path = {name: run() for name, run in paths.items()}
+    print(f"[launches] per main path: {per_path}")
+    for rec in records:
+        rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))
 
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

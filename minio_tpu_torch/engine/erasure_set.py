@@ -2,13 +2,14 @@
 
 Counterpart of minio_tpu/engine/erasure_set.py, cut to the erasure data
 path: `make_bucket`, `put_object`, `get_object` (whole and ranged, healthy
-and degraded), `head_object` and `delete_object`.  The on-disk state is
+and degraded, single- and multi-part), `head_object` and `delete_object`;
+engine/heal.py and engine/multipart.py build on it.  The on-disk state is
 the JAX package's, byte for byte, so either package reads what the other
 wrote.
 
 - A PUT cuts the body into 1 MiB blocks and encodes up to BATCH_BLOCKS
   of them per device call (ops/fused.encode_and_hash): parity and the
-  mxh256 digest of every shard-block in one pass over one device copy of
+  bitrot digest of every shard-block in one pass over one device copy of
   the data.  The ragged tail block is one more device call, at its own
   shard size.  The host only frames [digest | shard] onto the drives and
   publishes with rename_data.  Objects <= 128 KiB are framed inline into
@@ -20,6 +21,9 @@ wrote.
   read or a digest mismatch drops that row and reads a parity spare;
   the missing data rows are then rebuilt in the same device call that
   verifies the survivors.
+- The digest is each part's recorded bitrot algorithm
+  (`fi.erasure.bitrot_algo(part)`): mxh256, or HighwayHash256S as MinIO
+  writes it, both on the device.  New objects take MTPU_BITROT_ALGO.
 
 The device is explicit: `device=None` is the CUDA card
 `set_index % n_devices()`, `device="cpu"` runs the plain versions on the
@@ -29,7 +33,7 @@ Left out of this slice (each has a byte-identical off switch in the JAX
 package, so the bytes do not depend on it): the cross-request coalescer,
 the device shard cache, the hot-object cache, metadata lanes, hedged
 reads, zero-copy IO, the multi-device mesh codec, namespace locks,
-multipart uploads, heal, delete markers and legacy xl.json objects.
+delete markers and legacy xl.json objects.
 """
 
 from __future__ import annotations
@@ -106,6 +110,11 @@ class ErasureSet:
                 return None, e
 
         return list(self.pool.map(call, positions))
+
+    def _map_drives(self, fn) -> list:
+        """fn(drive) on every drive in parallel; (result, error) per
+        position."""
+        return self._map_positions(lambda pos, d: fn(d))
 
     def _live_quorum(self) -> int:
         return max(1, sum(1 for d in self.drives if d is not None) // 2)
@@ -226,33 +235,11 @@ class ErasureSet:
         tmp_dir = f"{TMP_DIR}/put-{uuid.uuid4().hex}"
         part = f"{tmp_dir}/part.1"
         failed = [d is None for d in self.drives]
-        # The ETag's MD5 of chunk i runs on its own thread while chunk i
-        # is encoded and written (hashlib releases the GIL): on the host
-        # it is the slowest stage of a PUT.
         md5 = hashlib.md5()
-        md5_done = None
-        size["n"] = 0
         try:
-            for chunk, is_last in streams.batched_chunks(
-                    data, stream, BATCH_BLOCKS * BLOCK_SIZE):
-                if md5_done is not None:
-                    md5_done.result()
-                md5_done = self._md5_pool.submit(md5.update, chunk)
-                size["n"] += len(chunk)
-                for framed in self._encode_chunk(chunk, is_last, k, parity,
-                                                 algo):
-                    per_drive = Q.unshuffle_to_drives(framed, distribution)
-                    todo = [p for p in range(self.n) if not failed[p]]
-                    res = self._map_positions(
-                        lambda pos, d: d.append_file(SYS_VOL, part,
-                                                     per_drive[pos]), todo)
-                    for pos, (_, e) in zip(todo, res):
-                        if e is not None:
-                            failed[pos] = True
-                    if failed.count(False) < write_quorum:
-                        raise ErrErasureWriteQuorum(
-                            f"{failed.count(False)} < {write_quorum}")
-            md5_done.result()
+            size["n"] = self.stage_stream(data, stream, md5, k, parity, algo,
+                                          distribution, part, failed,
+                                          write_quorum)
             meta.setdefault("etag", md5.hexdigest())
             res = self._map_positions(
                 lambda pos, d: self._publish(pos, d, failed, tmp_dir,
@@ -268,6 +255,43 @@ class ErasureSet:
             # may still hold theirs.
             self._map_positions(lambda pos, d: self._rm_tmp(d, tmp_dir))
         return fi_for(0, data_dir, None)
+
+    def stage_stream(self, head, stream, md5, k: int, m: int, algo: str,
+                     distribution: list[int], path: str, failed: list[bool],
+                     write_quorum: int) -> int:
+        """Encode a body (`head`, then the rest of `stream` when it is a
+        reader) batch by batch on the device and append each drive's
+        framed shards to `path` in its system volume; returns the body's
+        length.  `md5` takes the body: chunk i's MD5 runs on its own
+        thread while chunk i is encoded and written (hashlib releases the
+        GIL; on the host it is the slowest stage of a PUT).  A drive whose
+        append fails is marked in `failed`; fewer than `write_quorum`
+        left raises ErrErasureWriteQuorum."""
+        total = 0
+        md5_done = None
+        try:
+            for chunk, is_last in streams.batched_chunks(
+                    head, stream, BATCH_BLOCKS * BLOCK_SIZE):
+                if md5_done is not None:
+                    md5_done.result()
+                md5_done = self._md5_pool.submit(md5.update, chunk)
+                total += len(chunk)
+                for framed in self._encode_chunk(chunk, is_last, k, m, algo):
+                    per_drive = Q.unshuffle_to_drives(framed, distribution)
+                    todo = [p for p in range(self.n) if not failed[p]]
+                    res = self._map_positions(
+                        lambda pos, d: d.append_file(SYS_VOL, path,
+                                                     per_drive[pos]), todo)
+                    for pos, (_, e) in zip(todo, res):
+                        if e is not None:
+                            failed[pos] = True
+                    if failed.count(False) < write_quorum:
+                        raise ErrErasureWriteQuorum(
+                            f"{failed.count(False)} < {write_quorum}")
+        finally:
+            if md5_done is not None:
+                md5_done.result()
+        return total
 
     @staticmethod
     def _publish(pos, d, failed, tmp_dir, fi, bucket, obj) -> None:

@@ -3,9 +3,9 @@ binding and wrapper.
 
 Replaces the Pallas TPU kernels `erasure_pallas._kernel` and
 `_kernel_salted` (minio_tpu/ops/erasure_pallas.py:58,64, launched by
-`_pallas_gf_matmul` at :73).  The source is compiled with nvcc into a
-shared library with a plain C interface at first use, into
-`minio_tpu_torch/build/` (listed in .gitignore), and loaded with ctypes.
+`_pallas_gf_matmul` at :73).  ops/cuda_build.py compiles the source with
+nvcc into a shared library with a plain C interface at first use and
+loads it with ctypes.
 
 `gf_matmul_blocks` launches the kernel for a CUDA tensor and raises if
 it cannot; for a CPU tensor it runs the plain PyTorch version
@@ -16,90 +16,21 @@ launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from . import erasure_torch
-
-PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = PKG_DIR / "csrc" / "gf_matmul.cu"
-BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from . import cuda_build, erasure_torch
 
 #: Kernel launches since the last reset (the wrapper adds one per launch).
 LAUNCHES = 0
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+LIBRARY = cuda_build.Library(
+    "gf_matmul.cu", "gf_matmul_launch",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+     ctypes.c_void_p])
 _TABLES: dict[tuple, torch.Tensor] = {}
-
-
-def nvcc() -> str:
-    """The nvcc executable: $NVCC, then PATH, then $CUDA_HOME/bin."""
-    found = os.environ.get("NVCC") or shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def library_path() -> Path:
-    """Where the built library lives; named by the source's content hash
-    so an edited source is rebuilt and never loaded stale."""
-    h = hashlib.sha256(SOURCE.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libgf_matmul-{h}.so"
-
-
-def build(verbose: bool = False) -> tuple[Path, str]:
-    """Compile the kernel unless this source's library already exists.
-
-    Returns (library path, compiler output).  `verbose` adds
-    `-Xptxas -v` (registers, shared memory and spills per kernel).
-    Raises RuntimeError when nvcc fails or is missing.
-    """
-    out = library_path()
-    if out.exists() and not verbose:
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f"nvcc not found ({cmd[0]}): cannot build "
-                           f"{SOURCE.name}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
-
-
-def _lib():
-    global _LIB
-    if _LIB is None:
-        with _LIB_LOCK:
-            if _LIB is None:
-                path, _ = build()
-                lib = ctypes.CDLL(str(path))
-                fn = lib.gf_matmul_launch
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_longlong,
-                               ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                _LIB = lib
-    return _LIB
 
 
 def nibble_tables(mat_bits) -> np.ndarray:
@@ -175,10 +106,10 @@ def gf_matmul_blocks(mat_bits, x: torch.Tensor, rows: int,
     if b == 0 or s == 0 or rows == 0:
         return out
     tables = _device_tables(mat_bits, x.device)
-    lib = _lib()
+    launch = LIBRARY.fn()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gf_matmul_launch(
+        err = launch(
             tables.data_ptr(), x.data_ptr(), out.data_ptr(), b, rows, c, s,
             0 if salt is None else int(salt) & 0xFF, stream)
     if err != 0:

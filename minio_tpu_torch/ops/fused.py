@@ -1,19 +1,22 @@
-"""Codec + bitrot digest over one device buffer: the PUT and GET programs.
+"""Codec + bitrot digest over one device buffer: the PUT, GET and heal
+programs.
 
-Counterpart of minio_tpu/ops/fused.py:132-213.  Each call copies its
-input bytes to the device once; the GF(2^8) kernel and the mxh256 digest
-both read that one tensor, one after the other on the same stream, and
-the host gets back only what it needs (parity or rebuilt rows, and the
+Counterpart of minio_tpu/ops/fused.py:94-213.  Each call copies its
+input bytes to the device once; the GF(2^8) kernel and the digest both
+read that one tensor, one after the other on the same stream, and the
+host gets back only what it needs (parity or rebuilt rows, and the
 32-byte digests).  Output layouts are the JAX package's:
 
 - `encode_and_hash`: parity (B, M, S) and digests (K+M, B, 32),
   shard-major to match the frame writer's (n_shards, n_blocks) order;
 - `verify_and_transform`: digests of the input rows (B, K, 32) and the
-  rebuilt target rows (B, T, S), or None when there are no targets.
+  rebuilt target rows (B, T, S), or None when there are no targets;
+- `hash_rows`: digests (N, 32) of N rows (heal's frames of rebuilt rows).
 
-mxh256 is the one digest with a device path in this package.  Objects
-recorded under HighwayHash need the HighwayHash device path, which a
-later slice of the port adds.
+The digest is the object's recorded bitrot algorithm: mxh256
+(ops/mxhash_torch.py) or HighwayHash-256 (ops/highwayhash_cuda.py, the
+hand-written kernel on the card).  sha256 and blake2b512 have no device
+program, here or in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,23 +27,20 @@ import torch
 
 from . import devices
 from .erasure_torch import ReedSolomon
+from .highwayhash import MAGIC_KEY
+from .highwayhash_cuda import hh256_rows
 from .mxhash_torch import mxh256_rows
 
-# Algorithms with a device digest in this package.
-DEVICE_ALGOS = ("mxh256",)
+# Algorithms with a device digest (usable in the fused programs).
+DEVICE_ALGOS = ("mxh256", "highwayhash256S", "highwayhash256")
 
 
 def check_algo(algo: str) -> None:
     """Raise unless `algo` has a device digest here."""
-    if algo in DEVICE_ALGOS:
-        return
-    if algo.startswith("highwayhash"):
+    if algo not in DEVICE_ALGOS:
         raise NotImplementedError(
-            f"bitrot algorithm {algo!r}: the HighwayHash device path is "
-            "not ported yet (a later slice of the PyTorch port adds it); "
-            "read this object with the JAX package")
-    raise NotImplementedError(f"bitrot algorithm {algo!r} has no device "
-                              "path in minio_tpu_torch")
+            f"bitrot algorithm {algo!r} has no device program (device "
+            f"digests: {', '.join(DEVICE_ALGOS)})")
 
 
 @functools.lru_cache(maxsize=64)
@@ -48,10 +48,26 @@ def _codec(k: int, m: int, device: str) -> ReedSolomon:
     return ReedSolomon(k, m, device=device)
 
 
-def _rows_digest(x: torch.Tensor) -> torch.Tensor:
-    """(B, R, S) -> (B, R, 32) mxh256 of every row."""
-    b, r, s = x.shape
-    return mxh256_rows(x.reshape(b * r, s)).reshape(b, r, 32)
+def _digest_rows(x: torch.Tensor, algo: str) -> torch.Tensor:
+    """(..., S) uint8 -> (..., 32): the algorithm's device digest of
+    every row."""
+    rows = x.flatten(0, -2).contiguous()
+    if algo == "mxh256":
+        d = mxh256_rows(rows)
+    else:
+        d = hh256_rows(rows, MAGIC_KEY)
+    return d.reshape(*x.shape[:-1], 32)
+
+
+def hash_rows(x, algo: str, device=None) -> torch.Tensor:
+    """((N, S) rows) -> (N, 32) digests on the device (None means the
+    CUDA card; "cpu" runs the plain versions)."""
+    check_algo(algo)
+    xt = devices.put(x, devices.resolve(device))
+    if xt.dim() != 2:
+        raise ValueError(f"hash_rows takes (N, S) rows, got "
+                         f"{tuple(xt.shape)}")
+    return _digest_rows(xt, algo)
 
 
 def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None):
@@ -65,7 +81,8 @@ def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None):
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
     parity = _codec(k, m, str(dev)).encode_blocks(xt)
-    digests = torch.cat([_rows_digest(xt), _rows_digest(parity)], dim=1)
+    # One digest launch over all K+M rows of the batch.
+    digests = _digest_rows(torch.cat([xt, parity], dim=1), algo)
     return parity, digests.transpose(0, 1).contiguous()
 
 
@@ -75,13 +92,14 @@ def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
     """((B, K, S) shard rows) -> ((B, K, 32) digests, (B, T, S) rebuilt).
 
     Digests are of the INPUT rows (the caller compares them with the
-    frame hashes); rebuilt rows are the GF transform sources -> targets.
-    With no targets only the digest runs and the second result is None.
+    frame hashes); rebuilt rows are the GF transform sources -> targets,
+    parity rows included.  With no targets only the digest runs and the
+    second result is None.
     """
     check_algo(algo)
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
-    digests = _rows_digest(xt)
+    digests = _digest_rows(xt, algo)
     if not targets:
         return digests, None
     out = _codec(k, m, str(dev)).transform_blocks(xt, tuple(sources),

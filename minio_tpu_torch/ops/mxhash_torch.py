@@ -4,15 +4,15 @@ Counterpart of minio_tpu/ops/mxhash_jax.py, which the JAX package left
 to XLA rather than to a Pallas kernel; here it is plain torch ops and a
 `torch.matmul` on the tensor's device.  Spec: ops/mxhash.py.
 
-Every tree level is a (rows, 256) x (256, 8) product of int8 values.
-|sum| <= 256 * 128 * 128 = 2^22 fits float32's 24-bit significand, so
-the product runs in float32 and is exact, provided TF32 is off: the
-function pins full float32 precision for the duration of a CUDA call.
+Every tree level is a (rows, 256) x (256, 8) product of int8 values,
+|sum| <= 256 * 128 * 128 = 2^22.  The product runs in float64, where
+that is exact, and which no process-wide TF32 or matmul-precision setting
+touches: the digest stays exact whatever precision the application has
+chosen for its own float32 products, from any thread.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
@@ -23,24 +23,7 @@ from . import mxhash
 
 @functools.lru_cache(maxsize=8)
 def _matrix_a(device: str) -> torch.Tensor:
-    return torch.from_numpy(mxhash.matrix_a().astype(np.float32)).to(device)
-
-
-@contextlib.contextmanager
-def _full_f32(x: torch.Tensor):
-    """Full float32 matmul precision on CUDA for the block's duration."""
-    if x.device.type != "cuda":
-        yield
-        return
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    prev_prec = torch.get_float32_matmul_precision()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-        torch.set_float32_matmul_precision(prev_prec)
+    return torch.from_numpy(mxhash.matrix_a().astype(np.float64)).to(device)
 
 
 def _level(rows: torch.Tensor) -> torch.Tensor:
@@ -50,7 +33,7 @@ def _level(rows: torch.Tensor) -> torch.Tensor:
     if pad or ln == 0:
         rows = torch.nn.functional.pad(rows, (0, max(pad, mxhash.CHUNK - ln)))
     chunks = rows.reshape(n, -1, mxhash.CHUNK).view(torch.int8)
-    h = torch.matmul(chunks.to(torch.float32),
+    h = torch.matmul(chunks.to(torch.float64),
                      _matrix_a(str(rows.device)))            # (n, nc, 8)
     # Words serialise little-endian: byte k of word w -> offset 4w + k.
     return h.to(torch.int32).contiguous().view(torch.uint8).reshape(n, -1)
@@ -65,10 +48,9 @@ def mxh256_rows(x: torch.Tensor) -> torch.Tensor:
         return torch.empty((0, mxhash.DIGEST_SIZE), dtype=torch.uint8,
                            device=x.device)
     cur = x.contiguous()
-    with _full_f32(x):
-        while True:
-            cur = _level(cur)
-            if cur.shape[1] == mxhash.DIGEST_SIZE:
-                break
+    while True:
+        cur = _level(cur)
+        if cur.shape[1] == mxhash.DIGEST_SIZE:
+            break
     tag = torch.from_numpy(mxhash.length_tag(ln).copy()).to(x.device)
     return cur ^ tag[None, :]

@@ -1,12 +1,13 @@
 """Streaming bitrot framing: [32-byte digest | shard block] per block.
 
-The subset of minio_tpu/storage/bitrot_io.py that the erasure data path
-uses, with the same on-disk layout (the reference's streaming bitrot
-writer/reader, cmd/bitrot-streaming.go): a shard file of logical size L
-and shard block size S is ceil(L/S) frames of `32 + min(S, remaining)`
-bytes.  Hashing itself is not here: the digests come from the device
-programs in ops/fused.py, and mxh256 is the one algorithm this package
-writes and verifies.
+The subset of minio_tpu/storage/bitrot_io.py that the erasure data path,
+heal and multipart use, with the same on-disk layout (the reference's
+streaming bitrot writer/reader, cmd/bitrot-streaming.go): a shard file
+of logical size L and shard block size S is ceil(L/S) frames of
+`32 + min(S, remaining)` bytes.  Hashing itself is not here: every
+digest comes from the device programs in ops/fused.py, never from a
+host hasher.  This package writes mxh256 and HighwayHash256S and
+verifies both.
 """
 
 from __future__ import annotations
@@ -31,16 +32,17 @@ WRITE_ALGORITHMS = ("mxh256", "highwayhash256S", "sha256")
 
 def write_algo() -> str:
     """Bitrot algorithm for NEW objects: env MTPU_BITROT_ALGO, default
-    mxh256.  This package writes only mxh256; naming another valid
-    algorithm is NotImplementedError, an unknown one ValueError."""
+    mxh256.  This package writes mxh256 and highwayhash256S, the two with
+    a device digest; naming sha256 is NotImplementedError, an unknown
+    algorithm ValueError."""
     algo = os.environ.get("MTPU_BITROT_ALGO", "mxh256")
     if algo not in WRITE_ALGORITHMS:
         raise ValueError(
             f"MTPU_BITROT_ALGO={algo!r} not one of {WRITE_ALGORITHMS}")
-    if algo != "mxh256":
+    if algo == "sha256":
         raise NotImplementedError(
-            f"MTPU_BITROT_ALGO={algo!r}: minio_tpu_torch writes mxh256 "
-            "only; other algorithms come with later slices of the port")
+            "MTPU_BITROT_ALGO='sha256': minio_tpu_torch has no device "
+            "digest for sha256; it writes mxh256 or highwayhash256S")
     return algo
 
 
@@ -51,16 +53,33 @@ def digest_size(algo: str = DEFAULT_ALGO) -> int:
         raise ErrFileCorrupt(f"unknown bitrot algorithm {algo!r}") from None
 
 
-def frame_shard_views(blocks: np.ndarray, parity: np.ndarray,
-                      digests: np.ndarray,
-                      algo: str = DEFAULT_ALGO) -> list[np.ndarray]:
+def bitrot_shard_file_size(size: int, shard_size: int,
+                           algo: str = DEFAULT_ALGO) -> int:
+    """On-disk size of a shard file of logical size `size`
+    (cf. cmd/bitrot.go:146)."""
+    if size == 0:
+        return 0
+    return -(-size // shard_size) * digest_size(algo) + size
+
+
+def frame_shard_views(blocks: np.ndarray | None, parity: np.ndarray | None,
+                      digests: np.ndarray, algo: str = DEFAULT_ALGO,
+                      shards: np.ndarray | None = None) -> list[np.ndarray]:
     """The on-disk frame layout over one batch.
 
-    blocks (nb, K, S) and parity (nb, M, S) in the codec's block-major
-    layout, digests (K+M, nb, hs) shard-major.  Returns K+M per-shard
-    views over one (K+M, nb, hs+S) buffer: shard i's frames, contiguous.
+    Either `shards` already shard-major (n_shards, nb, S), or blocks
+    (nb, K, S) and parity (nb, M, S) in the codec's block-major layout;
+    digests (n_shards, nb, hs) shard-major, from the device.  Returns one
+    view per shard over one (n_shards, nb, hs+S) buffer: shard i's
+    frames, contiguous.
     """
     hs = digest_size(algo)
+    if shards is not None:
+        n_shards, nb, shard_size = shards.shape
+        framed = np.empty((n_shards, nb, hs + shard_size), dtype=np.uint8)
+        framed[:, :, hs:] = shards
+        framed[:, :, :hs] = digests
+        return [framed[i].reshape(-1) for i in range(n_shards)]
     nb, k, shard_size = blocks.shape
     m = parity.shape[1]
     framed = np.empty((k + m, nb, hs + shard_size), dtype=np.uint8)

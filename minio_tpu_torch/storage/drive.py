@@ -1,5 +1,5 @@
 """Local drive backend: the subset of minio_tpu/storage/drive.py that the
-erasure data path calls, with the same on-disk format.
+erasure data path, heal and multipart call, with the same on-disk format.
 
 One `LocalDrive` owns one directory tree (cf. xlStorage,
 cmd/xl-storage.go in the reference):
@@ -25,16 +25,18 @@ import uuid
 from . import diskio
 from .errors import (ErrDiskNotFound, ErrFileAccessDenied, ErrFileCorrupt,
                      ErrFileNotFound, ErrFileVersionNotFound,
-                     ErrIsNotRegular, ErrVolumeExists, ErrVolumeNotFound)
+                     ErrIsNotRegular, ErrPathNotFound, ErrVolumeExists,
+                     ErrVolumeNotFound)
 from .xlmeta import FileInfo, XLMeta
 
 # Reserved system namespace on every drive (reference: .minio.sys).
 SYS_VOL = ".mtpu.sys"
 TMP_DIR = "tmp"
+MULTIPART_DIR = "multipart"
 XL_META_FILE = "xl.meta"
 # The JAX package's system subdirectories, created alike so a drive
 # looks the same whichever package opened it first.
-_SYS_SUBDIRS = (TMP_DIR, "metajournal", "multipart", "buckets")
+_SYS_SUBDIRS = (TMP_DIR, "metajournal", MULTIPART_DIR, "buckets")
 
 # Objects <= this are stored inline in xl.meta (cf. smallFileThreshold,
 # cmd/xl-storage.go:59).
@@ -163,6 +165,38 @@ class LocalDrive:
             raise ErrFileNotFound(f"{vol}/{path}") from None
         except IsADirectoryError:
             raise ErrIsNotRegular(f"{vol}/{path}") from None
+
+    def rename_file(self, src_vol: str, src_path: str, dst_vol: str,
+                    dst_path: str) -> None:
+        """Atomic same-drive file move (parents created)."""
+        src = self._file_path(src_vol, src_path)
+        dst = self._file_path(dst_vol, dst_path)
+        if not os.path.isfile(src):
+            raise ErrFileNotFound(f"{src_vol}/{src_path}")
+        self._ensure_parent_in_vol(dst_vol, dst)
+        os.replace(src, dst)
+
+    def file_size(self, vol: str, path: str) -> int:
+        p = self._file_path(vol, path)
+        try:
+            st = os.stat(p)
+        except FileNotFoundError:
+            raise ErrFileNotFound(f"{vol}/{path}") from None
+        if not os.path.isfile(p):
+            raise ErrIsNotRegular(f"{vol}/{path}")
+        return st.st_size
+
+    # -- listing ---------------------------------------------------------------
+
+    def list_raw(self, vol: str, path: str = "") -> list[str]:
+        """Every entry (files and dirs) under a path, unfiltered: for
+        bookkeeping dirs such as multipart staging."""
+        self._check_vol(vol)
+        p = self._file_path(vol, path) if path else self._vol_path(vol)
+        try:
+            return sorted(os.listdir(p))
+        except (FileNotFoundError, NotADirectoryError):
+            raise ErrPathNotFound(f"{vol}/{path}") from None
 
     # -- versioned metadata --------------------------------------------------
 

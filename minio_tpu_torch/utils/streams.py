@@ -1,5 +1,6 @@
 """Body streaming helpers: the part of minio_tpu/utils/streams.py the
-erasure data path calls (reader detection, batch chunking, MD5 ETag)."""
+erasure data path and multipart call (reader detection, batch chunking,
+the single-part and multipart ETags)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,13 @@ def is_reader(x) -> bool:
 def etag(data) -> str:
     """S3 ETag of a single-part body: the hex MD5."""
     return hashlib.md5(data).hexdigest()
+
+
+def multipart_etag(part_etags: list[str]) -> str:
+    """S3 ETag of a multipart object: the MD5 of the concatenated binary
+    part MD5s, then "-" and the number of parts."""
+    md5s = b"".join(bytes.fromhex(e) for e in part_etags)
+    return f"{hashlib.md5(md5s).hexdigest()}-{len(part_etags)}"
 
 
 def batched_chunks(head, stream, chunk_len: int):

@@ -204,14 +204,90 @@ def test_same_bytes_on_disk(tmp_path, geom, size):
         assert a == b, jp
 
 
-def test_highwayhash_object_names_the_later_slice(tmp_path, monkeypatch):
-    paths = drive_paths(tmp_path, 4)
+def _flip(path, at):
+    with open(path, "r+b") as f:
+        f.seek(at)
+        old = f.read(8)
+        f.seek(at)
+        f.write(bytes(b ^ 0xFF for b in old))
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_highwayhash_jax_writes_port_reads(tmp_path, geom, size,
+                                           monkeypatch):
+    """An object MinIO's default algorithm framed, written by the JAX
+    package, reads byte-exact through the port: healthy, degraded, and
+    with a corrupted frame served from a spare."""
+    n, parity = geom
     monkeypatch.setenv("MTPU_BITROT_ALGO", "highwayhash256S")
+    paths = drive_paths(tmp_path, n)
+    jes = JaxErasureSet([JaxLocalDrive(p) for p in paths],
+                        default_parity=parity)
+    jes.make_bucket("bkt")
+    body = body_of(size, seed=31)
+    jfi = jes.put_object("bkt", "hh", body)
+    assert jfi.erasure.bitrot_algo() == "highwayhash256S"
+    with ErasureSet([LocalDrive(p) for p in paths], default_parity=parity,
+                    device="cpu") as es:
+        fi, got = es.get_object("bkt", "hh")
+        assert bytes(got) == body and fi.etag == jfi.etag
+        drives = list(es.drives)
+        for pos in data_shard_positions(fi, parity):
+            es.drives[pos] = None
+        assert bytes(es.get_object("bkt", "hh")[1]) == body
+        es.drives = drives
+        if fi.data_dir:
+            pos = data_shard_positions(fi, 1)[0]
+            _flip(os.path.join(paths[pos], "bkt", "hh", fi.data_dir,
+                               "part.1"), 32 + fi.erasure.shard_size + 100)
+            assert bytes(es.get_object("bkt", "hh")[1]) == body
+
+
+@pytest.mark.parametrize("size", SIZES)
+def test_highwayhash_port_writes_jax_reads_same_bytes(tmp_path, geom, size,
+                                                      monkeypatch):
+    """The port writes under MTPU_BITROT_ALGO=highwayhash256S; the JAX
+    package reads it, healthy and degraded, and wrote the same bytes at
+    every drive position for the same identity."""
+    n, parity = geom
+    monkeypatch.setenv("MTPU_BITROT_ALGO", "highwayhash256S")
+    body = body_of(size, seed=32)
+    ident = dict(version_id="", mod_time_ns=1_700_000_000_987_654_321)
+    tpaths = drive_paths(tmp_path / "torch", n)
+    with ErasureSet([LocalDrive(p) for p in tpaths], default_parity=parity,
+                    device="cpu") as es:
+        es.make_bucket("bkt")
+        fi = es.put_object("bkt", "hh", body, **ident)
+    assert fi.erasure.bitrot_algo() == "highwayhash256S"
+    jes = JaxErasureSet([JaxLocalDrive(p) for p in tpaths],
+                        default_parity=parity)
+    jfi, got = jes.get_object("bkt", "hh")
+    assert bytes(got) == body and jfi.etag == fi.etag
+    for pos in data_shard_positions(fi, parity):
+        jes.drives[pos] = None
+    assert bytes(jes.get_object("bkt", "hh")[1]) == body
+
+    jpaths = drive_paths(tmp_path / "jax", n)
+    jes = JaxErasureSet([JaxLocalDrive(p) for p in jpaths],
+                        default_parity=parity)
+    jes.make_bucket("bkt")
+    jfi = jes.put_object("bkt", "hh", body, **ident)
+    name = f"{fi.data_dir}/part.1" if fi.data_dir else "xl.meta"
+    for jp, tp in zip(jpaths, tpaths):
+        jname = f"{jfi.data_dir}/part.1" if jfi.data_dir else "xl.meta"
+        with open(os.path.join(jp, "bkt", "hh", jname), "rb") as a, \
+                open(os.path.join(tp, "bkt", "hh", name), "rb") as b:
+            assert a.read() == b.read(), jp
+
+
+def test_sha256_still_has_no_device_program(tmp_path, monkeypatch):
+    paths = drive_paths(tmp_path, 4)
+    monkeypatch.setenv("MTPU_BITROT_ALGO", "sha256")
     jes = JaxErasureSet([JaxLocalDrive(p) for p in paths])
     jes.make_bucket("bkt")
-    jes.put_object("bkt", "hh", body_of(5000))
+    jes.put_object("bkt", "sha", body_of(5000))
     with ErasureSet([LocalDrive(p) for p in paths], device="cpu") as es:
-        with pytest.raises(NotImplementedError, match="later slice"):
-            es.get_object("bkt", "hh")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="sha256"):
+            es.get_object("bkt", "sha")
+        with pytest.raises(NotImplementedError, match="sha256"):
             es.put_object("bkt", "new", b"abc")

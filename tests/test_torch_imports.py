@@ -77,6 +77,8 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError):
         fused.encode_and_hash(b"\0" * 8, 2, 2)
     with pytest.raises(RuntimeError):
+        fused.hash_rows(b"\0" * 8, "highwayhash256S")
+    with pytest.raises(RuntimeError):
         devices.resolve()
 
 

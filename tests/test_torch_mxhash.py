@@ -39,3 +39,23 @@ def test_mxh256_detects_single_byte_change():
 def test_mxh256_rows_rejects_wrong_dtype():
     with pytest.raises(TypeError):
         mxhash_torch.mxh256_rows(torch.zeros(2, 8, dtype=torch.int32))
+
+
+def test_mxh256_ignores_and_keeps_process_precision_settings():
+    """The tree levels run in float64, which no TF32 or matmul-precision
+    setting touches: the digest stays exact under the loosest setting, and
+    the call leaves the process-wide settings as it found them."""
+    x = np.random.default_rng(5).integers(0, 256, (4, 3000), dtype=np.uint8)
+    want = np.asarray(mxhash_jax.mxh256_rows(jnp.asarray(x)))
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("medium")
+        got = mxhash_torch.mxh256_rows(torch.from_numpy(x)).numpy()
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+        assert torch.get_float32_matmul_precision() == "medium"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    assert np.array_equal(got, want)

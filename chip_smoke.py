@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (minio_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--hh256-baseline CU]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card (nvidia-smi name and power limit) and the build of both
    kernels (one nvcc per source, started together), timed, with ptxas's
-   register, shared-memory and spill lines, and the integer instructions
-   per packet of the HighwayHash kernel's loop by issuing pipe
-   (cuobjdump -sass).
+   register, shared-memory and spill lines, and the packet loop of each
+   HighwayHash kernel variant (aligned rows, rows at any offset) read off
+   cuobjdump -sass: integer instructions per packet per thread by
+   issuing pipe, per stream (times the threads that carry a stream),
+   every instruction, and the opcodes (PRMT for the zipper; no byte-wise
+   global load).
 2. The hand-written GF(2^8) kernel against its plain PyTorch version on
    the card, bit-exact (torch.equal), at the shapes the main path gives
    it; its time (CUDA events, median, L2 flushed between runs) beside
@@ -17,9 +20,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. mxh256 on the card against the numpy spec at one PUT batch's shape.
 4. The hand-written HighwayHash-256 kernel against its plain version
    (torch.equal) at n = 384 and L in {0, 4096, 4097, 4113, 4127}, rows
-   misaligned by one byte included, and against the plain version and a
-   sample of rows of the numpy spec at the PUT and GET batch shapes;
-   its time beside its bound and the plain version's.
+   misaligned by one byte included, at n odd (383) and n = 1, and
+   against the plain version and a sample of rows of the numpy spec at
+   the PUT batch (384, 131072), the GET batch (256, 131072) and a tail
+   block (12, 38401), whose rows start at every offset mod 16; its time
+   at those shapes and at (4224, 131072) and (16896, 131072), each with
+   the SM clocks per packet, beside its bound (bytes and operations) and
+   the plain version's time; and (384, 131072) with rows one byte off
+   16, which takes the unaligned variant.  With --hh256-baseline, another
+   build of csrc/hh256.cu is checked equal and timed against the kernel
+   in turns (baseline, kernel, kernel, baseline) at each of those shapes.
 5. The main paths, each with both kernels' launch counts set to 0 just
    before it and read just after, on an EC:8+4 ErasureSet over 12 drive
    directories (in /dev/shm when present):
@@ -46,6 +56,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import os
@@ -108,48 +119,74 @@ class Launches:
         return {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
 
 
-def sass_int_ops_per_packet(lib, source) -> dict[str, float]:
-    """32-bit integer instructions per packet in the HighwayHash kernel's
-    packet loop by pipe ("alu", "fma", "either"), read off `cuobjdump
-    -sass` of its library: the loop is the longest backward branch; spans
-    inside it that a forward branch skips and that hold byte loads (the
-    path for misaligned rows) are left out; the counts are divided by the
-    packets one trip hashes."""
+def sass_packet_loop(lib, source) -> dict[str, dict]:
+    """The packet loop of each HighwayHash kernel variant ("aligned",
+    "unaligned"), read off `cuobjdump -sass` of its library.
+
+    The packet loop is the function's longest backward branch; the source
+    names the packets one trip hashes (kPacketsPerTrip) and the threads
+    that carry a stream (kThreadsPerStream).  Per variant: "per_thread",
+    the 32-bit integer instructions per packet per thread by issuing pipe
+    ("alu", "fma", "either"); "all", every instruction per packet per
+    thread; "ops", the count of each opcode per packet per thread;
+    "threads".  Fails if the loop found holds fewer than the 4 wide
+    multiplies a thread spends on a packet (then it is not the packet
+    loop) or any byte-wise global load."""
+    from collections import Counter
+
     from minio_tpu_torch.ops import cuda_build
+    text = source.read_text()
+    per_trip = int(re.search(r"kPacketsPerTrip = (\d+)", text).group(1))
+    threads = int(re.search(r"kThreadsPerStream = (\d+)", text).group(1))
     tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    ins = [(int(a, 16), t.strip()) for a, t in
-           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
 
-    def target(text):
-        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+    def target(t):
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)
         return int(m.group(1), 16) if m else None
 
-    loops = [(target(t), a) for a, t in ins
-             if target(t) is not None and target(t) < a]
-    start, end = max(loops, key=lambda se: se[1] - se[0])
-    body = [(a, t) for a, t in ins if start <= a <= end]
-    skipped = set()
-    for a, t in body:
-        to = target(t)
-        if to is not None and to > a:
-            span = [(x, y) for x, y in body if a < x < to]
-            if any("LDG" in y and "U8" in y for _, y in span):
-                skipped.update(x for x, _ in span)
-    count = {"alu": 0, "fma": 0, "either": 0}
-    for a, t in body:
-        op = t.split()[1] if t.startswith("@") else t.split()[0]
-        if a in skipped:
+    def opcode(t):
+        return t.split()[1] if t.startswith("@") else t.split()[0]
+
+    result = {}
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
+                                 sass, re.S):
+        variant = next((v for v in ("aligned", "unaligned")
+                        if f"hh256_{v}" in name), None)
+        if variant is None:
             continue
-        if op.startswith(EITHER_OPS):
-            count["either"] += 1
-        elif op.split(".")[0] in FMA_OPS:
-            count["fma"] += 1
-        elif op.split(".")[0] in ALU_OPS:
-            count["alu"] += 1
-    group = int(re.search(r"kGroup = (\d+)", source.read_text()).group(1))
-    return {pipe: c / group for pipe, c in count.items()}
+        ins = [(int(a, 16), t.strip()) for a, t in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        loops = [(target(t), a) for a, t in ins
+                 if target(t) is not None and target(t) < a]
+        start, end = max(loops, key=lambda se: se[1] - se[0])
+        ops = Counter(opcode(t) for a, t in ins if start <= a <= end)
+        count = {"alu": 0, "fma": 0, "either": 0}
+        for op, k in ops.items():
+            if op.startswith(EITHER_OPS):
+                count["either"] += k
+            elif op.split(".")[0] in FMA_OPS:
+                count["fma"] += k
+            elif op.split(".")[0] in ALU_OPS:
+                count["alu"] += k
+        if ops["IMAD.WIDE.U32"] < 4 * per_trip:
+            raise SystemExit(f"hh256 {variant}: the longest loop holds "
+                             f"{ops['IMAD.WIDE.U32']} wide multiplies for "
+                             f"{per_trip} packets: not the packet loop")
+        byte_loads = [op for op in ops if op.startswith("LDG")
+                      and ("U8" in op or "S8" in op)]
+        if byte_loads:
+            raise SystemExit(f"hh256 {variant}: byte-wise global loads in "
+                             f"the packet loop: {byte_loads}")
+        result[variant] = {
+            "per_thread": {p: c / per_trip for p, c in count.items()},
+            "all": sum(ops.values()) / per_trip,
+            "ops": {op: k / per_trip for op, k in ops.most_common()},
+            "threads": threads}
+    if set(result) != {"aligned", "unaligned"}:
+        raise SystemExit(f"hh256 variants not found in the SASS: {result}")
+    return result
 
 
 def time_ms(torch, fn, runs: int, flush) -> float:
@@ -261,24 +298,51 @@ def phase_mxh(torch, mxhash, mt, gen, card):
         raise SystemExit("mxh256 on the card disagrees with the spec")
 
 
-def hh_bound(n: int, length: int, ops_per_packet: dict[str, float],
-             clock_hz: float) -> tuple[float, str]:
+def hh_updates(length: int) -> int:
+    """Packet updates in one stream's chain: bulk, remainder and the 10
+    finalisation rounds."""
+    return length // 32 + (1 if length % 32 else 0) + 10
+
+
+def hh_bound(n: int, length: int, loop: dict, clock_hz: float
+             ) -> tuple[float, str, float, float]:
     """Least time to hash n rows of `length` bytes: bytes moved over HBM
-    rate vs the integer instructions of every packet update (bulk,
-    remainder and the 10 finalisation rounds) on the busier pipe, or at
-    the SM's issue rate, whichever takes longer."""
+    rate vs the integer instructions of every packet update on the busier
+    pipe, or at the SM's issue rate, whichever takes longer.  `loop` is
+    one variant of sass_packet_loop: its per-thread count times the
+    threads per stream is the work of one stream-packet, whatever the
+    mapping.  Returns (bound ms, what bounds it, bytes ms, operations
+    ms)."""
     bytes_ms = (n * length + n * 32) / HBM_BYTES_PER_S * 1e3
-    updates = length // 32 + (1 if length % 32 else 0) + 10
-    c = ops_per_packet
-    per_pipe = max(c["alu"], c["fma"], sum(c.values()) / 2)
-    ops_ms = n * updates * per_pipe / (SMS * PIPE_LANES * clock_hz) * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
-                                                           "operations")
+    c = loop["per_thread"]
+    per_pipe = loop["threads"] * max(c["alu"], c["fma"], sum(c.values()) / 2)
+    ops_ms = (n * hh_updates(length) * per_pipe
+              / (SMS * PIPE_LANES * clock_hz) * 1e3)
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", bytes_ms, ops_ms
+    return ops_ms, "operations", bytes_ms, ops_ms
 
 
-def phase_hh_kernel(torch, hc, ht, spec, gen, card, ops_per_packet):
+def hh_launch(torch, fn, x):
+    """(n, L) CUDA uint8 -> (n, 32) digests through a library's
+    hh256_launch `fn` (another build of the kernel, for comparison)."""
+    import numpy as np
+    from minio_tpu_torch.ops.highwayhash import MAGIC_KEY
+    out = torch.empty((x.shape[0], 32), dtype=torch.uint8, device=x.device)
+    words = [int(w) for w in np.frombuffer(MAGIC_KEY, dtype="<u8")]
+    err = fn(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], *words,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise SystemExit(f"baseline hh256 launch failed: CUDA error {err}")
+    return out
+
+
+def phase_hh_kernel(torch, hc, ht, spec, gen, card, loops, baseline):
     """HighwayHash kernel == plain version (and the numpy spec on sampled
-    rows at full shape); returns its JSON record (without launches)."""
+    rows at the main path's shapes); its times with the SM clocks per
+    packet, and, with `baseline` (another build's hh256_launch), both
+    kernels timed in turns.  Returns its JSON record (without
+    launches)."""
     import numpy as np
     dev = torch.device("cuda", 0)
 
@@ -290,7 +354,9 @@ def phase_hh_kernel(torch, hc, ht, spec, gen, card, ops_per_packet):
     cases = [(f"(384, {4096 + r})", rand(384, 4096 + r))
              for r in (0, 1, 17, 31)]
     cases += [("(384, 0)", rand(384, 0)),
-              ("(384, 4113), rows start 1 byte off 16", rand(384, 4113, 1))]
+              ("(384, 4113), rows start 1 byte off 16", rand(384, 4113, 1)),
+              ("(383, 4113), n odd", rand(383, 4113)),
+              ("(1, 4127), n = 1", rand(1, 4127))]
     max_err = 0
 
     def compare(got, want) -> int:
@@ -307,52 +373,88 @@ def phase_hh_kernel(torch, hc, ht, spec, gen, card, ops_per_packet):
             raise SystemExit(f"hh256 kernel disagrees with plain: {name}")
 
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
+    clock = max_sm_clock_hz()
     rec = {}
-    for n in (384, 256):                        # PUT batch, GET batch
-        x = rand(n, 131072)
+    # The PUT batch, the GET batch, a tail block's 12 rows of 38401 B
+    # (rows at offsets i * 38401: every offset mod 16, the unaligned
+    # variant), then the scaling lines: two threads per stream and one
+    # warp per block, 24 warps at n = 384, 264 (two per SM) at 4224,
+    # 1056 (eight per SM) at 16896.
+    for n, length, runs in ((384, 131072, 20), (256, 131072, 20),
+                            (12, 38401, 20), (4224, 131072, 5),
+                            (16896, 131072, 5)):
+        x = rand(n, length)
+        name = f"({n}, {length})"
         got = hc.hh256_rows(x)
-        t0 = time.perf_counter()
-        want = ht.hh256_rows_ref(x)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        sample = np.linspace(0, n - 1, 16).astype(int)
-        spec_ok = np.array_equal(got.cpu().numpy()[sample],
-                                 spec.highwayhash256_batch(
-                                     x.cpu().numpy()[sample]))
-        ok = torch.equal(got, want) and spec_ok
-        max_err = max(max_err, compare(got, want))
-        ms = time_ms(torch, lambda: hc.hh256_rows(x), 20, flush)
-        bound_ms, bound_by = hh_bound(n, 131072, ops_per_packet,
-                                      max_sm_clock_hz())
-        print(f"[hh256] ({n}, 131072): kernel == plain version and == "
-              f"numpy spec on 16 sampled rows: {ok}; {ms:.4f} ms median of "
-              f"20 ({n * 131072 / ms / 1e6:.2f} GB/s; bound {bound_ms:.4f} "
-              f"ms by {bound_by}, {bound_ms / ms:.1%} of it); plain version "
-              f"{plain_ms:.1f} ms (one run, host clock); library call: none;"
-              f" card {card}")
-        if not ok:
-            raise SystemExit(f"hh256 kernel disagrees at ({n}, 131072)")
-        if n == 384:
+        checked = ""
+        if n <= 384:                          # the main path's shapes
+            t0 = time.perf_counter()
+            want = ht.hh256_rows_ref(x)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            sample = np.linspace(0, n - 1, min(n, 16)).astype(int)
+            spec_ok = np.array_equal(got.cpu().numpy()[sample],
+                                     spec.highwayhash256_batch(
+                                         x.cpu().numpy()[sample]))
+            ok = torch.equal(got, want) and spec_ok
+            max_err = max(max_err, compare(got, want))
+            if not ok:
+                raise SystemExit(f"hh256 kernel disagrees at {name}")
+            checked = (f"kernel == plain version and == numpy spec on "
+                       f"{len(sample)} sampled rows: {ok}; plain version "
+                       f"{plain_ms:.1f} ms (one run, host clock); ")
+        variant = "aligned" if length % 16 == 0 else "unaligned"
+        ms = time_ms(torch, lambda: hc.hh256_rows(x), runs, flush)
+        bound_ms, bound_by, bytes_ms, ops_ms = hh_bound(
+            n, length, loops[variant], clock)
+        per_packet = ms * 1e-3 * clock / hh_updates(length)
+        print(f"[hh256] {name}, {variant} variant: {checked}{ms:.4f} ms "
+              f"median of {runs} ({n * length / ms / 1e6:.2f} GB/s; "
+              f"{per_packet:.1f} SM clocks per packet at "
+              f"{clock / 1e6:.0f} MHz over {hh_updates(length)} updates; "
+              f"bound {bound_ms:.4f} ms by {bound_by} (bytes "
+              f"{bytes_ms:.4f}, operations {ops_ms:.4f}), "
+              f"{bound_ms / ms:.1%} of it); library call: none; card {card}")
+        if baseline is not None:
+            old = hh_launch(torch, baseline, x)
+            if not torch.equal(old, got):
+                raise SystemExit(f"baseline hh256 disagrees at {name}")
+            times = [time_ms(torch, f, runs, flush) for f in (
+                lambda: hh_launch(torch, baseline, x),
+                lambda: hc.hh256_rows(x), lambda: hc.hh256_rows(x),
+                lambda: hh_launch(torch, baseline, x))]
+            old_ms, new_ms = (times[0] + times[3]) / 2, (times[1] +
+                                                        times[2]) / 2
+            print(f"[hh256 turns] {name}: baseline, new, new, baseline = "
+                  f"{', '.join(f'{t:.4f}' for t in times)} ms; baseline "
+                  f"{old_ms:.4f} ms ({old_ms * 1e-3 * clock / hh_updates(length):.1f}"
+                  f" clocks/packet), new {new_ms:.4f} ms "
+                  f"({new_ms * 1e-3 * clock / hh_updates(length):.1f} "
+                  f"clocks/packet), {old_ms / new_ms:.2f}x; outputs equal; "
+                  f"card {card}")
+        if (n, length) == (384, 131072):
             rec = {"name": "hh256", "route": "cuda",
                    "source": "minio_tpu_torch/csrc/hh256.cu",
                    "replaces": "minio_tpu/ops/highwayhash_pallas.py:76",
                    "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "library_ms": None}
+        del x, got
+    # The same work with every row one byte off 16: what the unaligned
+    # variant costs where the aligned one could run.
+    x = rand(384, 131072, misalign=1)
+    ms = time_ms(torch, lambda: hc.hh256_rows(x), 20, flush)
+    print(f"[hh256] (384, 131072), rows 1 byte off 16, unaligned variant: "
+          f"{ms:.4f} ms median of 20 "
+          f"({ms * 1e-3 * clock / hh_updates(131072):.1f} SM clocks per "
+          f"packet); card {card}")
+    del x
     x = cases[0][1]
     plain_ms = time_ms(torch, lambda: ht.hh256_rows_ref(x), 3, flush)
     ms = time_ms(torch, lambda: hc.hh256_rows(x), 20, flush)
     print(f"[hh256] reduced shape (384, 4096): kernel {ms:.4f} ms, plain "
           f"version {plain_ms:.4f} ms (CUDA events, median); card {card}")
-    # One thread per stream, one warp per block: the time should stay
-    # near flat while more warps fill idle SMs, which is what batching
-    # more streams into one launch would buy.
-    for n in (4224, 16896):
-        x = rand(n, 131072)
-        ms = time_ms(torch, lambda: hc.hh256_rows(x), 5, flush)
-        print(f"[hh256] ({n}, 131072), {n // 32} warps: {ms:.4f} ms median "
-              f"of 5 ({n * 131072 / ms / 1e6:.2f} GB/s); card {card}")
-        del x
+    rec["max_abs_err"] = max_err
     return rec
 
 
@@ -711,6 +813,9 @@ def phase_layers(torch, card, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hh256-baseline", metavar="CU",
+                    help="another build of csrc/hh256.cu (same hh256_launch)"
+                    " to time against the kernel in turns in phase 4")
     args = ap.parse_args()
 
     import torch
@@ -747,17 +852,31 @@ def main() -> int:
         for line in built[src][1].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src.name}: {line.strip()}")
-    ops_per_packet = sass_int_ops_per_packet(built[hc.LIBRARY.source][0],
-                                             hc.LIBRARY.source)
-    print(f"[build] hh256.cu: 32-bit integer instructions per packet in the "
-          f"packet loop by pipe {ops_per_packet}, "
-          f"{sum(ops_per_packet.values())} in all (cuobjdump -sass)")
+    loops = sass_packet_loop(built[hc.LIBRARY.source][0], hc.LIBRARY.source)
+    for variant, loop in loops.items():
+        per_thread = sum(loop["per_thread"].values())
+        top = ", ".join(f"{op} {k:g}" for op, k in loop["ops"].items())
+        print(f"[build] hh256.cu {variant} packet loop (cuobjdump -sass), "
+              f"per packet per thread: 32-bit integer instructions by pipe "
+              f"{loop['per_thread']}, {per_thread:g} in all; per stream "
+              f"({loop['threads']} threads) {loop['threads'] * per_thread:g};"
+              f" every instruction {loop['all']:g} per thread; opcodes: "
+              f"{top}")
+    baseline = None
+    if args.hh256_baseline:
+        from pathlib import Path
+        src = Path(args.hh256_baseline).resolve()
+        lib = cuda_build.build([src])[src][0]
+        baseline = ctypes.CDLL(str(lib)).hh256_launch
+        baseline.argtypes = hc.LIBRARY.argtypes
+        baseline.restype = ctypes.c_int
+        print(f"[build] baseline {src.name} built for the turns of phase 4")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records = [phase_kernel(torch, ec, et, gen, card)]
     phase_mxh(torch, mxhash, mt, gen, card)
-    records.append(phase_hh_kernel(torch, hc, ht, spec, gen, card,
-                                   ops_per_packet))
+    records.append(phase_hh_kernel(torch, hc, ht, spec, gen, card, loops,
+                                   baseline))
 
     counts = Launches({"gf_matmul": ec, "hh256": hc})
     paths = {

@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (minio_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--hh256-baseline CU]
+    python3 chip_smoke.py [--seed N] [--hh256-baseline CU] [--gf-baseline CU]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. The card (nvidia-smi name and power limit) and the build of both
    kernels (one nvcc per source, started together), timed, with ptxas's
-   register, shared-memory and spill lines, and the packet loop of each
+   register, shared-memory and spill lines; the packet loop of each
    HighwayHash kernel variant (aligned rows, rows at any offset) read off
    cuobjdump -sass: integer instructions per packet per thread by
    issuing pipe, per stream (times the threads that carry a stream),
    every instruction, and the opcodes (PRMT for the zipper; no byte-wise
-   global load).
+   global load); and the GF kernel's lookup loop at C = 8 (both
+   variants): integer instructions per input byte by pipe, LDS per input
+   byte, the opcodes, failing on an LDS.U8, on other than 2 LDS per byte
+   or on a byte-wise global load.
 2. The hand-written GF(2^8) kernel against its plain PyTorch version on
    the card, bit-exact (torch.equal), at the shapes the main path gives
-   it; its time (CUDA events, median, L2 flushed between runs) beside
-   its bound and the plain version's time.
+   it (encode, 2-row transform, one block, a PUT tail block (1, 8, 38401)
+   whose rows start at offsets 0-7 mod 16, ragged and misaligned rows,
+   salted) and at R = 1, 3 and 6, C = 16 and 20 and a 100-row random
+   matrix; its time (CUDA events, median, L2 flushed between runs) at the
+   encode, the 2-row transform and the tail block beside its bound, and
+   the plain version's time; at the encode, its time with the L2 flushed
+   by reads and back to back, and an empty launch's time, which show
+   what the timing protocol adds.  With --gf-baseline, another build of
+   csrc/gf_matmul.cu in the byte-table form of PRs 1-4 is checked equal
+   on every unsalted case, its lookup loop counted as in phase 1, and it
+   is timed against the kernel in turns (baseline, kernel, kernel,
+   baseline) at those three shapes.
 3. mxh256 on the card against the numpy spec at one PUT batch's shape.
 4. The hand-written HighwayHash-256 kernel against its plain version
    (torch.equal) at n = 384 and L in {0, 4096, 4097, 4113, 4127}, rows
@@ -67,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
@@ -119,6 +133,62 @@ class Launches:
         return {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
 
 
+def kernel_name(mangled: str) -> str:
+    """The GF kernel's template arguments (C, variant) for its mangled
+    symbol; any other symbol as it is."""
+    m = re.search(r"gf_matmul_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if not m:
+        return mangled
+    return (f"gf_matmul_kernel<C={m.group(1)}, "
+            f"{'aligned' if m.group(2) == '1' else 'unaligned'}"
+            f"{', chunked' if m.group(3) == '1' else ''}>")
+
+
+def _sass_functions(lib) -> list[tuple[str, list[tuple[int, str]]]]:
+    """Every function of a library's cuobjdump -sass: (mangled name,
+    [(address, instruction)])."""
+    from minio_tpu_torch.ops import cuda_build
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return [(name, [(int(a, 16), t.strip()) for a, t in
+                    re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)])
+            for name, body in re.findall(
+                r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S)]
+
+
+def _opcode(t: str) -> str:
+    return t.split()[1] if t.startswith("@") else t.split()[0]
+
+
+def _loops(ins) -> list[tuple[int, int]]:
+    """(start, end) of every backward branch."""
+    out = []
+    for a, t in ins:
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            out.append((int(m.group(1), 16), a))
+    return out
+
+
+def _by_pipe(ops) -> dict[str, int]:
+    """32-bit integer instructions of an opcode Counter by issuing pipe."""
+    count = {"alu": 0, "fma": 0, "either": 0}
+    for op, k in ops.items():
+        if op.startswith(EITHER_OPS):
+            count["either"] += k
+        elif op.split(".")[0] in FMA_OPS:
+            count["fma"] += k
+        elif op.split(".")[0] in ALU_OPS:
+            count["alu"] += k
+    return count
+
+
+def _byte_loads(ops) -> list[str]:
+    return [op for op in ops if op.startswith("LDG")
+            and ("U8" in op or "S8" in op)]
+
+
 def sass_packet_loop(lib, source) -> dict[str, dict]:
     """The packet loop of each HighwayHash kernel variant ("aligned",
     "unaligned"), read off `cuobjdump -sass` of its library.
@@ -134,53 +204,26 @@ def sass_packet_loop(lib, source) -> dict[str, dict]:
     loop) or any byte-wise global load."""
     from collections import Counter
 
-    from minio_tpu_torch.ops import cuda_build
     text = source.read_text()
     per_trip = int(re.search(r"kPacketsPerTrip = (\d+)", text).group(1))
     threads = int(re.search(r"kThreadsPerStream = (\d+)", text).group(1))
-    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
-
-    def target(t):
-        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)
-        return int(m.group(1), 16) if m else None
-
-    def opcode(t):
-        return t.split()[1] if t.startswith("@") else t.split()[0]
-
     result = {}
-    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)",
-                                 sass, re.S):
+    for name, ins in _sass_functions(lib):
         variant = next((v for v in ("aligned", "unaligned")
                         if f"hh256_{v}" in name), None)
         if variant is None:
             continue
-        ins = [(int(a, 16), t.strip()) for a, t in
-               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-        loops = [(target(t), a) for a, t in ins
-                 if target(t) is not None and target(t) < a]
-        start, end = max(loops, key=lambda se: se[1] - se[0])
-        ops = Counter(opcode(t) for a, t in ins if start <= a <= end)
-        count = {"alu": 0, "fma": 0, "either": 0}
-        for op, k in ops.items():
-            if op.startswith(EITHER_OPS):
-                count["either"] += k
-            elif op.split(".")[0] in FMA_OPS:
-                count["fma"] += k
-            elif op.split(".")[0] in ALU_OPS:
-                count["alu"] += k
+        start, end = max(_loops(ins), key=lambda se: se[1] - se[0])
+        ops = Counter(_opcode(t) for a, t in ins if start <= a <= end)
         if ops["IMAD.WIDE.U32"] < 4 * per_trip:
             raise SystemExit(f"hh256 {variant}: the longest loop holds "
                              f"{ops['IMAD.WIDE.U32']} wide multiplies for "
                              f"{per_trip} packets: not the packet loop")
-        byte_loads = [op for op in ops if op.startswith("LDG")
-                      and ("U8" in op or "S8" in op)]
-        if byte_loads:
+        if _byte_loads(ops):
             raise SystemExit(f"hh256 {variant}: byte-wise global loads in "
-                             f"the packet loop: {byte_loads}")
+                             f"the packet loop: {_byte_loads(ops)}")
         result[variant] = {
-            "per_thread": {p: c / per_trip for p, c in count.items()},
+            "per_thread": {p: c / per_trip for p, c in _by_pipe(ops).items()},
             "all": sum(ops.values()) / per_trip,
             "ops": {op: k / per_trip for op, k in ops.most_common()},
             "threads": threads}
@@ -189,14 +232,86 @@ def sass_packet_loop(lib, source) -> dict[str, dict]:
     return result
 
 
-def time_ms(torch, fn, runs: int, flush) -> float:
+def sass_gf_loop(lib, baseline: bool = False) -> dict[str, dict]:
+    """The hot loop of the GF(2^8) kernel at C = 8 input rows, read off
+    `cuobjdump -sass` of its library: a loop that holds the most
+    shared-memory loads (the table lookups).
+
+    csrc/gf_matmul.cu holds a thread's 16 bytes of all C rows in
+    registers and loops over groups of four output rows: a trip is one
+    group, 16 * C input bytes (the lookups, 2 LDS per input byte, the
+    transpose and the stores).  Its instances at C = 8 are read
+    ("aligned", "unaligned").  `baseline`: the form of PRs 1-4 (one
+    function, "aligned" only), whose innermost loop over input rows, the
+    shortest such loop, takes one row a trip (16 bytes; rows per trip
+    counted by its 16-byte global loads) for four output rows.
+    Per variant:
+    "per_byte", 32-bit integer instructions per input byte by issuing
+    pipe; "lds", shared-memory loads per input byte; "all", every
+    instruction per input byte; "ops", each opcode per input byte;
+    "stores", the function's global store opcodes.  Fails, for the
+    kernel, if the loop holds an LDS.U8 or other than 2 LDS per byte, or
+    the function a byte-wise global load."""
+    from collections import Counter
+
+    result = {}
+    for name, ins in _sass_functions(lib):
+        if "gf_matmul_kernel" not in name:
+            continue
+        m = re.search(r"gf_matmul_kernelILi(\d+)ELb([01])ELb([01])E", name)
+        if baseline:
+            variant = "aligned"
+        elif m and m.group(1) == "8" and m.group(3) == "0":
+            variant = "aligned" if m.group(2) == "1" else "unaligned"
+        else:
+            continue
+
+        def lds(a0, a1):
+            return sum(1 for a, t in ins if a0 <= a <= a1
+                       and _opcode(t).startswith("LDS"))
+        start, end = max(_loops(ins),          # the shortest such loop
+                         key=lambda se: (lds(*se), se[0] - se[1]))
+        ops = Counter(_opcode(t) for a, t in ins if start <= a <= end)
+        every = Counter(_opcode(t) for _, t in ins)
+        if baseline:
+            rows = sum(k for op, k in ops.items()
+                       if op.startswith("LDG") and "128" in op)
+            per_trip = 16 * max(rows, 1)
+        else:
+            per_trip = 16 * 8
+            if any(op.startswith("LDS.U8") for op in ops) or \
+                    lds(start, end) != 2 * per_trip:
+                raise SystemExit(
+                    f"gf_matmul {variant}: the lookup loop holds "
+                    f"{dict(ops)}: not 2 LDS.32 per input byte")
+            if _byte_loads(every):
+                raise SystemExit(f"gf_matmul {variant}: byte-wise global "
+                                 f"loads: {_byte_loads(every)}")
+        result[variant] = {
+            "per_byte": {p: c / per_trip for p, c in _by_pipe(ops).items()},
+            "lds": lds(start, end) / per_trip,
+            "all": sum(ops.values()) / per_trip,
+            "ops": {op: k / per_trip for op, k in ops.most_common()},
+            "stores": sorted(op for op in every if op.startswith("STG"))}
+    want = {"aligned"} if baseline else {"aligned", "unaligned"}
+    if set(result) != want:
+        raise SystemExit(f"gf_matmul instances at C = 8 not found in the "
+                         f"SASS: {sorted(result)}")
+    return result
+
+
+def time_ms(torch, fn, runs: int, flush, read: bool = False) -> float:
     """Median device time of fn() over `runs` runs, L2 flushed before
-    each, measured with CUDA events."""
+    each (by writing `flush`, or by reading it: then the L2 holds no
+    dirty lines to write back), measured with CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        if read:
+            torch.amax(flush)
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -205,6 +320,21 @@ def time_ms(torch, fn, runs: int, flush) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def back_to_back_ms(torch, fn, n: int) -> float:
+    """Device time per launch of n launches of fn() in a row (CUDA events
+    around all of them; the L2 keeps what the last launch left)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound(b: int, c: int, r: int, s: int) -> tuple[float, str]:
@@ -216,12 +346,53 @@ def bound(b: int, c: int, r: int, s: int) -> tuple[float, str]:
                                                            "operations")
 
 
-def phase_kernel(torch, ec, et, gen, card):
-    """Kernel == plain version on every case; returns its JSON record
-    (without launches)."""
+def byte_tables(mat_bits):
+    """(8R, 8C) plane-major bit matrix -> the (R, C, 32) uint8 byte-wide
+    nibble tables of the GF kernel of PRs 1-4 (for --gf-baseline): entry
+    [r, c, v] is M[r, c] * v and [r, c, 16 + v] is M[r, c] * (v << 4)."""
+    import numpy as np
+    m = np.asarray(mat_bits).astype(np.uint8)
+    rows, cols = m.shape[0] // 8, m.shape[1] // 8
+    m = m.reshape(8, rows, 8, cols)                         # [i, r, j, c]
+    weights = (1 << np.arange(8, dtype=np.uint32)).reshape(8, 1, 1, 1)
+    col = (m.astype(np.uint32) * weights).sum(axis=0)       # [r, j, c]
+    col = col.transpose(0, 2, 1).astype(np.uint8)           # [r, c, j]
+    sel = ((np.arange(16)[:, None] >> np.arange(4)[None, :]) & 1
+           ).astype(bool)                                   # [v, j]
+    out = np.zeros((rows, cols, 32), dtype=np.uint8)
+    for j in range(4):
+        out[:, :, :16] ^= np.where(sel[:, j], col[:, :, j, None], 0
+                                   ).astype(np.uint8)
+        out[:, :, 16:] ^= np.where(sel[:, j], col[:, :, j + 4, None], 0
+                                   ).astype(np.uint8)
+    return out
+
+
+def gf_launch(torch, fn, tables, x, rows):
+    """(B, C, S) CUDA uint8 -> (B, R, S) through another build's
+    gf_matmul_launch `fn` with its byte tables (for comparison)."""
+    b, c, s = x.shape
+    out = torch.empty((b, rows, s), dtype=torch.uint8, device=x.device)
+    err = fn(tables.data_ptr(), x.data_ptr(), out.data_ptr(), b, rows, c, s,
+             0, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise SystemExit(f"baseline gf_matmul launch failed: CUDA error {err}")
+    return out
+
+
+def phase_kernel(torch, ec, et, gen, card, baseline):
+    """Kernel == plain version on every case; times at the encode shape,
+    the 2-row transform and a PUT tail block beside their bounds and, with
+    `baseline` (another build's gf_matmul_launch), both kernels timed in
+    turns there.  Returns the kernel's JSON record (without launches)."""
+    import numpy as np
     dev = torch.device("cuda", 0)
     enc = et._encode_matrix_bits(8, 4)
     deg = et._transform_matrix_bits(8, 4, (2, 3, 4, 5, 6, 7, 8, 9), (0, 1))
+
+    def transform(k, m, lost):
+        sources = tuple(i for i in range(k + m) if i not in lost)[:k]
+        return et._transform_matrix_bits(k, m, sources, lost)
 
     def rand(shape, misalign=0):
         n = 1
@@ -231,6 +402,7 @@ def phase_kernel(torch, ec, et, gen, card):
                             device=dev, generator=gen)
         return buf[misalign:].view(shape)
 
+    wide = np.random.default_rng(5).integers(0, 2, (800, 128), dtype=np.uint8)
     cases = [
         ("encode (32, 8, 131072) -> R=4", enc, 4, rand((32, 8, 131072)),
          None),
@@ -238,10 +410,31 @@ def phase_kernel(torch, ec, et, gen, card):
          rand((32, 8, 131072)), None),
         ("one block (1, 8, 131072) -> R=4", enc, 4, rand((1, 8, 131072)),
          None),
+        ("R=1 transform (4, 8, 131072)", transform(8, 4, (0,)), 1,
+         rand((4, 8, 131072)), None),
+        ("R=3 transform (4, 8, 131072)", transform(8, 4, (0, 5, 9)), 3,
+         rand((4, 8, 131072)), None),
+        ("R=6 transform, EC:8+8 with 6 lost (4, 8, 131072)",
+         transform(8, 8, (0, 2, 4, 9, 12, 15)), 6, rand((4, 8, 131072)),
+         None),
+        ("PUT tail block (1, 8, 38401) -> R=4, rows at offsets c mod 16",
+         enc, 4, rand((1, 8, 38401)), None),
+        ("tail degraded (1, 8, 38401) -> R=2", deg, 2, rand((1, 8, 38401)),
+         None),
         ("ragged S=43691, row start 1 byte off 16 (3, 8, 43691) -> R=4",
          enc, 4, rand((3, 8, 43691), misalign=1), None),
+        ("x 3 bytes off 16, S = 131072 (2, 8, 131072) -> R=4", enc, 4,
+         rand((2, 8, 131072), misalign=3), None),
         ("salted 0x5A (4, 8, 131072) -> R=4", enc, 4, rand((4, 8, 131072)),
          0x5A),
+        ("salted 0x5A tail (1, 8, 38401) -> R=4", enc, 4,
+         rand((1, 8, 38401)), 0x5A),
+        ("C=16, EC:16+4 (2, 16, 131072) -> R=4",
+         et._encode_matrix_bits(16, 4), 4, rand((2, 16, 131072)), None),
+        ("C=20, 16 input rows at a time (2, 20, 4097) -> R=4",
+         et._encode_matrix_bits(20, 4), 4, rand((2, 20, 4097)), None),
+        ("random (800, 128) bit matrix, R=100 (2, 16, 4097)", wide, 100,
+         rand((2, 16, 4097)), None),
     ]
     max_err = 0
     for name, mat, rows, x, salt in cases:
@@ -255,30 +448,73 @@ def phase_kernel(torch, ec, et, gen, card):
               f"(max_abs_err {err})")
         if not ok:
             raise SystemExit(f"kernel disagrees with plain version: {name}")
+        if baseline is not None and salt is None:
+            old = gf_launch(torch, baseline,
+                            torch.from_numpy(byte_tables(mat)).to(dev), x,
+                            rows)
+            if not torch.equal(old, got):
+                raise SystemExit(f"baseline gf_matmul disagrees: {name}")
 
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
-    x = cases[0][3]
-    b, c, s = x.shape
-    ms = time_ms(torch, lambda: ec.gf_matmul_blocks(enc, x, 4), 30, flush)
-    plain_ms = time_ms(torch, lambda: et.gf_matmul_blocks_ref(enc, x, 4),
-                       20, flush)
-    bound_ms, bound_by = bound(b, c, 4, s)
-    xd = cases[1][3]
-    deg_ms = time_ms(torch, lambda: ec.gf_matmul_blocks(deg, xd, 2), 30,
+    rec = {}
+    for name, mat, rows, x, _ in (cases[0], cases[1], cases[6]):
+        b, c, s = x.shape
+        runs = 30
+        ms = time_ms(torch, lambda: ec.gf_matmul_blocks(mat, x, rows), runs,
                      flush)
-    deg_bound, _ = bound(b, c, 2, s)
-    print(f"[kernel] encode (32, 8, 131072) -> R=4: {ms:.4f} ms median of "
-          f"30 (bound {bound_ms:.4f} ms by {bound_by}, "
-          f"{bound_ms / ms:.1%} of it); plain version {plain_ms:.4f} ms; "
-          f"library call: none; card {card}")
-    print(f"[kernel] degraded 2-row transform: {deg_ms:.4f} ms median of 30 "
-          f"(bound {deg_bound:.4f} ms); card {card}")
+        bound_ms, bound_by = bound(b, c, rows, s)
+        plain = ""
+        if not rec:
+            plain_ms = time_ms(torch, lambda: et.gf_matmul_blocks_ref(
+                mat, x, rows), 20, flush)
+            plain = f"; plain version {plain_ms:.4f} ms; library call: none"
+        print(f"[kernel] {name}: {ms:.4f} ms median of {runs} "
+              f"({(b * c * s + b * rows * s) / ms / 1e9:.3f} TB/s; bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of "
+              f"it){plain}; card {card}")
+        if baseline is not None:
+            tables = torch.from_numpy(byte_tables(mat)).to(dev)
+            times = [time_ms(torch, f, runs, flush) for f in (
+                lambda: gf_launch(torch, baseline, tables, x, rows),
+                lambda: ec.gf_matmul_blocks(mat, x, rows),
+                lambda: ec.gf_matmul_blocks(mat, x, rows),
+                lambda: gf_launch(torch, baseline, tables, x, rows))]
+            old_ms = (times[0] + times[3]) / 2
+            new_ms = (times[1] + times[2]) / 2
+            print(f"[gf turns] {name}: baseline, new, new, baseline = "
+                  f"{', '.join(f'{t:.4f}' for t in times)} ms; baseline "
+                  f"{old_ms:.4f} ms ({bound_ms / old_ms:.1%} of the bound), "
+                  f"new {new_ms:.4f} ms ({bound_ms / new_ms:.1%}), "
+                  f"{old_ms / new_ms:.2f}x; outputs equal; card {card}")
+        if not rec:
+            rec = {"name": "gf_matmul", "route": "cuda",
+                   "source": "minio_tpu_torch/csrc/gf_matmul.cu",
+                   "replaces": "minio_tpu/ops/erasure_pallas.py:58",
+                   "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": None}
+    # What the timing protocol adds at the encode shape: the write flush
+    # leaves the L2 full of dirty lines that the kernel's misses write
+    # back; a read flush does not; back to back, the L2 holds most of the
+    # 48 MiB the kernel touches.  An empty launch gives the protocol's
+    # floor.
+    name, mat, rows, x, _ = cases[0]
+    fns = {"kernel": lambda: ec.gf_matmul_blocks(mat, x, rows)}
+    if baseline is not None:
+        tables = torch.from_numpy(byte_tables(mat)).to(dev)
+        fns["baseline"] = lambda: gf_launch(torch, baseline, tables, x, rows)
+    tiny = torch.empty(1, dtype=torch.int32, device=dev)
+    floor = time_ms(torch, lambda: tiny.zero_(), 30, flush)
+    for who, fn in fns.items():
+        wrote = time_ms(torch, fn, 30, flush)
+        read = time_ms(torch, fn, 30, flush, read=True)
+        warm = back_to_back_ms(torch, fn, 50)
+        print(f"[gf protocol] {name}, {who}: L2 flushed by writes "
+              f"{wrote:.4f} ms, by reads {read:.4f} ms; 50 launches back to "
+              f"back {warm:.4f} ms a launch; an empty launch (a 4-byte "
+              f"fill) after the write flush {floor:.4f} ms; card {card}")
     del flush
-    return {"name": "gf_matmul", "route": "cuda",
-            "source": "minio_tpu_torch/csrc/gf_matmul.cu",
-            "replaces": "minio_tpu/ops/erasure_pallas.py:58",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return rec
 
 
 def phase_mxh(torch, mxhash, mt, gen, card):
@@ -816,6 +1052,10 @@ def main() -> int:
     ap.add_argument("--hh256-baseline", metavar="CU",
                     help="another build of csrc/hh256.cu (same hh256_launch)"
                     " to time against the kernel in turns in phase 4")
+    ap.add_argument("--gf-baseline", metavar="CU",
+                    help="another build of csrc/gf_matmul.cu, of the form "
+                    "with (R, C, 32) byte tables (PRs 1-4), to check and "
+                    "time against the kernel in turns in phase 2")
     args = ap.parse_args()
 
     import torch
@@ -849,9 +1089,13 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, started "
           "together)")
     for src in sources:
+        fn = ""
         for line in built[src][1].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {src.name}: {line.strip()}")
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {src.name} {fn}: {line.strip()}")
     loops = sass_packet_loop(built[hc.LIBRARY.source][0], hc.LIBRARY.source)
     for variant, loop in loops.items():
         per_thread = sum(loop["per_thread"].values())
@@ -862,18 +1106,38 @@ def main() -> int:
               f"({loop['threads']} threads) {loop['threads'] * per_thread:g};"
               f" every instruction {loop['all']:g} per thread; opcodes: "
               f"{top}")
-    baseline = None
+    gf_loops = {"kernel": sass_gf_loop(built[ec.LIBRARY.source][0])}
+    baseline = gf_baseline = None
+    if args.hh256_baseline or args.gf_baseline:
+        extra = [Path(p).resolve() for p in (args.hh256_baseline,
+                                             args.gf_baseline) if p]
+        libs = cuda_build.build(extra)
+        print(f"[build] baselines {', '.join(p.name for p in extra)} built "
+              "for the turns of phases 2 and 4")
     if args.hh256_baseline:
-        from pathlib import Path
-        src = Path(args.hh256_baseline).resolve()
-        lib = cuda_build.build([src])[src][0]
+        lib = libs[Path(args.hh256_baseline).resolve()][0]
         baseline = ctypes.CDLL(str(lib)).hh256_launch
         baseline.argtypes = hc.LIBRARY.argtypes
         baseline.restype = ctypes.c_int
-        print(f"[build] baseline {src.name} built for the turns of phase 4")
+    if args.gf_baseline:
+        lib = libs[Path(args.gf_baseline).resolve()][0]
+        gf_baseline = ctypes.CDLL(str(lib)).gf_matmul_launch
+        gf_baseline.argtypes = ec.LIBRARY.argtypes
+        gf_baseline.restype = ctypes.c_int
+        gf_loops["baseline"] = sass_gf_loop(lib, baseline=True)
+    for who, loops_ in gf_loops.items():
+        for variant, loop in loops_.items():
+            top = ", ".join(f"{op} {k:g}" for op, k in loop["ops"].items())
+            print(f"[build] gf_matmul.cu {who} {variant} lookup loop at "
+                  f"C = 8 (cuobjdump -sass), per input byte for four output"
+                  f" rows: 32-bit integer instructions by pipe "
+                  f"{loop['per_byte']}, {sum(loop['per_byte'].values()):g} "
+                  f"in all; LDS {loop['lds']:g}; every instruction "
+                  f"{loop['all']:g}; opcodes: {top}; global stores in the "
+                  f"function: {', '.join(loop['stores'])}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    records = [phase_kernel(torch, ec, et, gen, card)]
+    records = [phase_kernel(torch, ec, et, gen, card, gf_baseline)]
     phase_mxh(torch, mxhash, mt, gen, card)
     records.append(phase_hh_kernel(torch, hc, ht, spec, gen, card, loops,
                                    baseline))

@@ -34,13 +34,15 @@ _TABLES: dict[tuple, torch.Tensor] = {}
 
 
 def nibble_tables(mat_bits) -> np.ndarray:
-    """(8R, 8C) plane-major bit matrix -> (R, C, 32) uint8 tables.
+    """(8R, 8C) plane-major bit matrix -> (G, C, 2, 16) uint32 row-packed
+    nibble tables, G = ceil(R / 4).
 
-    Entry [r, c, v] (v < 16) is M[r, c] * v and [r, c, 16 + v] is
-    M[r, c] * (v << 4), read straight off the bit matrix: column j*C+c
-    of output rows i*R+r holds bit i of M[r, c] * 2^j.  Works for any
-    GF(2)-linear byte map, so it is exact for every matrix the codec
-    builds.
+    Byte r' of entry [g, c, 0, v] is M[4g + r', c] * v and byte r' of
+    [g, c, 1, v] is M[4g + r', c] * (v << 4); rows past R are 0.  The
+    column products M[r, c] * 2^j are read straight off the bit matrix:
+    column j*C+c of output rows i*R+r holds bit i of M[r, c] * 2^j.
+    Works for any GF(2)-linear byte map, so it is exact for every matrix
+    the codec builds.  1 KiB for EC:8+4.
     """
     m = np.asarray(mat_bits).astype(np.uint8)
     r8, c8 = m.shape
@@ -51,22 +53,25 @@ def nibble_tables(mat_bits) -> np.ndarray:
     col = col.transpose(0, 2, 1).astype(np.uint8)           # [r, c, j]
     v = np.arange(16)
     sel = ((v[:, None] >> np.arange(4)[None, :]) & 1).astype(bool)  # [v, j]
-    out = np.zeros((rows, cols, 32), dtype=np.uint8)
+    groups = -(-rows // 4)
+    prod = np.zeros((4 * groups, cols, 2, 16), dtype=np.uint8)  # [r, c, h, v]
     for j in range(4):
-        out[:, :, :16] ^= np.where(sel[:, j], col[:, :, j, None], 0
-                                   ).astype(np.uint8)
-        out[:, :, 16:] ^= np.where(sel[:, j], col[:, :, j + 4, None], 0
-                                   ).astype(np.uint8)
-    return out
+        prod[:rows, :, 0] ^= np.where(sel[:, j], col[:, :, j, None], 0
+                                      ).astype(np.uint8)
+        prod[:rows, :, 1] ^= np.where(sel[:, j], col[:, :, j + 4, None], 0
+                                      ).astype(np.uint8)
+    packed = prod.reshape(groups, 4, cols, 2, 16).transpose(0, 2, 3, 4, 1)
+    return np.ascontiguousarray(packed).view("<u4")[..., 0].astype(np.uint32)
 
 
 def _device_tables(mat_bits, device: torch.device) -> torch.Tensor:
-    """Nibble tables on `device`, cached per (matrix, device)."""
+    """Nibble tables on `device` (their bytes, as uint8), cached per
+    (matrix, device)."""
     m = np.asarray(mat_bits).astype(np.uint8)
     key = (m.shape, m.tobytes(), str(device))
     t = _TABLES.get(key)
     if t is None:
-        t = torch.from_numpy(nibble_tables(m)).to(device)
+        t = torch.from_numpy(nibble_tables(m).view(np.uint8)).to(device)
         if len(_TABLES) >= 4096:
             _TABLES.clear()
         _TABLES[key] = t

@@ -56,7 +56,17 @@ Phases, each printing its own lines; any failure exits non-zero:
       drives serve a GET with two other drives away;
    d. multipart: three parts under mxh256, highwayhash256S and mxh256,
       completed, read whole, ranged across a part boundary and degraded,
-      then healed and read again.
+      then healed and read again;
+   e. drive heal: a formatted set holding 16 mxh256 objects of 64 MiB,
+      4 HighwayHash objects of 64 MiB + 300 KiB + 5 B, 32 inline
+      objects, a multipart object and a versioned object with a delete
+      marker; a data-shard drive wiped whole; heal_format, heal_drive
+      with four workers stopped after a third of the objects (the saved
+      tracker checked) and resumed; every file of the drive back to its
+      recorded SHA-256, launches equal to those the sizes call for, and
+      every version read byte-exact with three other drives away.  Then
+      pipelined and serial (MTPU_HEAL_PIPELINE=0), with four workers and
+      with one, uninterrupted, each twice in turns on a fresh wipe.
 6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
    device's busy share over one 64 MiB PUT + GET (torch.profiler).
 
@@ -79,6 +89,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -101,6 +112,14 @@ OBJECT_BYTES = 64 * MIB        # BASELINE.json config 2's object size
 # multiple of 32, so the HighwayHash remainder packet is on the path.
 TAIL_OBJECT_BYTES = OBJECT_BYTES + 300 * 1024 + 5
 HH = "highwayhash256S"
+# The drive-heal deployment (phase 5e): 16 mxh256 objects of
+# DRIVE_HEAL_OBJECT and 4 HighwayHash objects of DRIVE_HEAL_TAIL_OBJECT in
+# bucket a; 32 inline objects, a multipart object of DRIVE_HEAL_PARTS and
+# an object with DRIVE_HEAL_VERSIONS and a delete marker in bucket b.
+DRIVE_HEAL_OBJECT = OBJECT_BYTES
+DRIVE_HEAL_TAIL_OBJECT = TAIL_OBJECT_BYTES
+DRIVE_HEAL_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
+DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 
 
 def card_line() -> str:
@@ -694,8 +713,13 @@ def phase_hh_kernel(torch, hc, ht, spec, gen, card, loops, baseline):
     return rec
 
 
-def _tmp_root(prefix: str) -> str:
-    base = "/dev/shm" if os.path.isdir("/dev/shm") else None
+def _tmp_root(prefix: str, need_bytes: int = 0) -> str:
+    """A scratch directory for 12 drive directories: in /dev/shm when it
+    is there and has `need_bytes` free, else in the temporary directory."""
+    base = None
+    if os.path.isdir("/dev/shm") and \
+            shutil.disk_usage("/dev/shm").free >= need_bytes:
+        base = "/dev/shm"
     return tempfile.mkdtemp(prefix=prefix, dir=base)
 
 
@@ -972,6 +996,243 @@ def phase_multipart(args, counts, card):
     return launches
 
 
+def _drive_hashes(root) -> dict:
+    """SHA-256 of every file under one drive directory but the staging
+    area and the heal tracker, by path."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        rel_dir = os.path.relpath(dirpath, root)
+        if rel_dir.split(os.sep)[:2] == [".mtpu.sys", "tmp"]:
+            continue
+        for name in files:
+            rel = os.path.normpath(os.path.join(rel_dir, name))
+            if rel == os.path.join(".mtpu.sys", "healing.bin"):
+                continue
+            with open(os.path.join(root, rel), "rb") as f:
+                out[rel] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _drive_heal_deployment(es, rng, new_uuid, FileInfo):
+    """Write the drive-heal deployment; returns {(bucket, name,
+    version id): (FileInfo, body seed, size)} of every object version
+    (body seed None for the delete marker; for the multipart object, the
+    (seed, size) of each part).  Bodies are made again from their seeds
+    to check GETs, so the host holds one at a time."""
+    from minio_tpu_torch.engine import multipart as mp
+    import numpy as np
+
+    def body(seed, n):
+        return np.random.default_rng(seed).bytes(n)
+
+    versions = {}
+    es.make_bucket("a")
+    es.make_bucket("b")
+    sizes = ([("a", f"m{i:02d}", "mxh256", DRIVE_HEAL_OBJECT)
+              for i in range(16)]
+             + [("a", f"h{i}", HH, DRIVE_HEAL_TAIL_OBJECT) for i in range(4)]
+             + [("b", f"i{i:02d}", "mxh256", int(n)) for i, n in
+                enumerate(rng.integers(1024, 100 * 1024 + 1, 32))])
+    for seed, (bucket, name, algo, n) in enumerate(sizes):
+        os.environ["MTPU_BITROT_ALGO"] = algo
+        fi = es.put_object(bucket, name, body(seed, n))
+        versions[bucket, name, fi.version_id] = (fi, seed, n)
+    os.environ.pop("MTPU_BITROT_ALGO", None)
+    seed = len(sizes)
+    uid = mp.new_multipart_upload(es, "b", "mp")
+    listed, part_seeds = [], []
+    for i, n in enumerate(DRIVE_HEAL_PARTS):
+        info = mp.put_object_part(es, "b", "mp", uid, i + 1,
+                                  body(seed + i, n))
+        listed.append((i + 1, info.etag))
+        part_seeds.append((seed + i, n))
+    fi = mp.complete_multipart_upload(es, "b", "mp", uid, listed)
+    versions["b", "mp", ""] = (fi, part_seeds, sum(DRIVE_HEAL_PARTS))
+    seed += len(DRIVE_HEAL_PARTS)
+    for n in DRIVE_HEAL_VERSIONS:
+        fi = es.put_object("b", "v", body(seed, n), versioned=True)
+        versions["b", "v", fi.version_id] = (fi, seed, n)
+        seed += 1
+    # A delete marker: the port's DELETE takes no versioned mode yet, so
+    # it is written into every drive's xl.meta as the JAX package's
+    # versioned DELETE writes it.
+    dm = FileInfo(volume="b", name="v", version_id=new_uuid(),
+                  mod_time_ns=time.time_ns(), deleted=True)
+    for d in es.drives:
+        d.write_metadata("b", "v", dm)
+    versions["b", "v", dm.version_id] = (dm, None, 0)
+    return versions
+
+
+def _expected_heal_launches(versions, pos) -> dict[str, int]:
+    """Launches of each kernel when every version is healed onto drive
+    `pos` once, from the sizes alone: per batch of up to 32 full frames,
+    and per tail frame, one GF rebuild, and for HighwayHash parts one
+    digest of the sources and one of the rebuilt rows; an inline object
+    is read (a GF rebuild only if `pos` held a data shard) and encoded
+    again (one GF encode; mxh256 digests are not counted)."""
+    gf = hh = 0
+    for fi, _, _ in versions.values():
+        if fi.deleted:
+            continue
+        ec = fi.erasure
+        if fi.inline_data is not None or not fi.data_dir:
+            gf += 1 + (ec.distribution[pos] - 1 < ec.data_blocks)
+            hh += 2 if ec.bitrot_algo() == HH else 0
+            continue
+        for part in fi.parts:
+            full, tail = divmod(part.size, MIB)
+            batches = -(-full // 32) + (1 if tail else 0)
+            gf += batches
+            if ec.bitrot_algo(part.number) == HH:
+                hh += 2 * batches
+    return {"gf_matmul": gf, "hh256": hh}
+
+
+def phase_drive_heal(args, counts, card):
+    """Drive heal: a formatted EC:8+4 set of 12 drives holding about 60
+    objects (mxh256 and HighwayHash, inline, multipart, versioned with a
+    delete marker); one data-shard drive wiped whole; heal_format, then
+    heal_drive with four workers, stopped after about a third of the
+    objects and resumed; every file of the drive back to its recorded
+    SHA-256; every object version read byte-exact with three other drives
+    away.  Then each way of healing (pipelined and serial, the latter
+    MTPU_HEAL_PIPELINE=0, with four workers and with one) twice in turns,
+    each on a fresh wipe of the drive."""
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.storage import format as fmt
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.storage.errors import ErrObjectNotFound
+    from minio_tpu_torch.storage.xlmeta import FileInfo, new_uuid
+    import numpy as np
+
+    root = _tmp_root("chip_smoke-drive-heal-", need_bytes=8 << 30)
+    rng = np.random.default_rng(args.seed + 3)
+    drives = [LocalDrive(os.path.join(root, f"d{i}")) for i in range(12)]
+    fmt.init_format_sets([drives])
+    es = ErasureSet(drives, default_parity=4)
+    real_heal_object = heal.heal_object
+    runs = {}
+    try:
+        versions = _drive_heal_deployment(es, rng, new_uuid, FileInfo)
+        n_objects = len({(b, o) for b, o, _ in versions})
+        golden = {p: _drive_hashes(d.root) for p, d in enumerate(es.drives)}
+        first = versions["a", "m00", ""][0]
+        pos = Q.shuffle_by_distribution(list(range(12)),
+                                        first.erasure.distribution)[0]
+        want = _expected_heal_launches(versions, pos)
+
+        def wipe_and_heal(workers, interrupt):
+            _wipe(es, LocalDrive, [pos])
+            heal.STAGES.reset()
+            counts.reset()                    # the main path starts here
+            t0 = time.perf_counter()
+            if heal.heal_format(es) != [pos]:
+                raise SystemExit("heal_format did not name the wiped drive")
+            saved = None
+            if interrupt:
+                stop = threading.Event()
+                started = [0]
+                mu = threading.Lock()
+
+                def stopping(*a, **kw):
+                    with mu:
+                        started[0] += 1
+                        if started[0] >= n_objects // 3:
+                            stop.set()
+                    return real_heal_object(*a, **kw)
+                heal.heal_object = stopping
+                try:
+                    t = heal.heal_drive(es, pos, workers=workers,
+                                        checkpoint_every=8, stop=stop)
+                finally:
+                    heal.heal_object = real_heal_object
+                saved = heal.HealingTracker.load(es.drives[pos])
+                if t.finished or saved is None or saved.finished or \
+                        not saved.resume_object:
+                    raise SystemExit(f"interrupted heal_drive: {t}, saved "
+                                     f"{saved}")
+                for b, o, _ in versions:
+                    if (b, o) <= (saved.resume_bucket, saved.resume_object) \
+                            and not os.path.exists(os.path.join(
+                                es.drives[pos].root, b, o, "xl.meta")):
+                        raise SystemExit(f"{b}/{o} is before the saved "
+                                         f"resume point but not healed")
+            t = heal.heal_drive(es, pos, workers=workers, checkpoint_every=8)
+            heal_s = time.perf_counter() - t0
+            launches = counts.read()          # the main path ends here
+            if not t.finished or t.objects_failed or \
+                    t.objects_healed != len(versions):
+                raise SystemExit(f"heal_drive: {t}, {len(versions)} object "
+                                 "versions on the drive")
+            if launches != want:
+                raise SystemExit(f"heal_drive launches {launches} != "
+                                 f"{want} (workers {workers})")
+            if _drive_hashes(es.drives[pos].root) != golden[pos]:
+                raise SystemExit("a file of the healed drive differs from "
+                                 "its recorded SHA-256")
+            return {"s": heal_s, "bytes": t.bytes_healed,
+                    "launches": launches, "stages": heal.STAGES.read(),
+                    "saved": saved}
+
+        main = wipe_and_heal(4, interrupt=True)
+        others = [p for p in range(12) if p != pos][:3]
+        saved_drives = list(es.drives)
+        for p in others:
+            es.drives[p] = None
+        for (b, o, vid), (fi, seed, n) in versions.items():
+            if fi.deleted:
+                try:
+                    es.get_object(b, o)
+                    raise SystemExit(f"GET {b}/{o}: delete marker missed")
+                except ErrObjectNotFound:
+                    continue
+            got = bytes(es.get_object(b, o, version_id=vid)[1])
+            parts = seed if isinstance(seed, list) else [(seed, n)]
+            if got != b"".join(np.random.default_rng(s).bytes(k)
+                               for s, k in parts):
+                raise SystemExit(f"GET {b}/{o}@{vid}: bytes differ")
+        es.drives = saved_drives
+        # Each way of healing twice, in turns (ABCD DCBA), uninterrupted.
+        ways = [("pipelined, 4 workers", "1", 4),
+                ("pipelined, 1 worker", "1", 1),
+                ("serial, 4 workers", "0", 4), ("serial, 1 worker", "0", 1)]
+        for name, pipeline, workers in ways + ways[::-1]:
+            os.environ["MTPU_HEAL_PIPELINE"] = pipeline
+            runs.setdefault(name, []).append(
+                wipe_and_heal(workers, interrupt=False))
+    finally:
+        heal.heal_object = real_heal_object
+        os.environ.pop("MTPU_HEAL_PIPELINE", None)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        es.close()
+        shutil.rmtree(root, ignore_errors=True)
+    total = sum(n for _, _, n in versions.values())
+    print(f"[drive heal] EC:8+4, 12 drives, {n_objects} objects, "
+          f"{len(versions)} versions, {total} object bytes; drive {pos} "
+          f"wiped whole; heal_format + heal_drive stopped at "
+          f"{main['saved'].resume_bucket}/{main['saved'].resume_object} "
+          f"(saved, unfinished, contiguous prefix on disk) and resumed to "
+          f"finished; every file of the drive equals its recorded SHA-256;"
+          f" every version byte-exact with drives {others} away; card "
+          f"{card}")
+    def line(name, r):
+        st = r["stages"]
+        print(f"[drive heal] {name}: {r['bytes'] / r['s'] / 1e9:.3f} GB/s "
+              f"({r['bytes']} object bytes in {r['s']:.3f} s, host clock); "
+              f"launches {r['launches']} (expected {want}); pipeline "
+              f"stages summed over batches: read {st['read']:.3f} s, "
+              f"compute {st['compute']:.3f} s, write {st['write']:.3f} s, "
+              f"{st['batches']} batches; card {card}")
+    line("pipelined, 4 workers, stopped and resumed (the main path)", main)
+    for name, rs in runs.items():
+        for turn, r in enumerate(rs):
+            line(f"{name}, turn {turn + 1} of 2", r)
+    return main["launches"]
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's time goes, layer by layer
     (host clock around synchronised work, median of 5), and the device's
@@ -1151,6 +1412,7 @@ def main() -> int:
             args, counts, card, HH, [OBJECT_BYTES] * 2 + [TAIL_OBJECT_BYTES]),
         "heal": lambda: phase_heal(args, counts, card),
         "multipart": lambda: phase_multipart(args, counts, card),
+        "drive heal": lambda: phase_drive_heal(args, counts, card),
     }
     per_path = {name: run() for name, run in paths.items()}
     print(f"[launches] per main path: {per_path}")

@@ -29,22 +29,27 @@ The device is explicit: `device=None` is the CUDA card
 `set_index % n_devices()`, `device="cpu"` runs the plain versions on the
 host, and without CUDA the constructor raises.
 
+PUT and DELETE hold the object's namespace write lock
+(cluster/nslock.py), as multipart completion and heal do.
+
 Left out of this slice (each has a byte-identical off switch in the JAX
 package, so the bytes do not depend on it): the cross-request coalescer,
 the device shard cache, the hot-object cache, metadata lanes, hedged
-reads, zero-copy IO, the multi-device mesh codec, namespace locks,
-delete markers and legacy xl.json objects.
+reads, zero-copy IO, the multi-device mesh codec, delete markers and
+legacy xl.json objects.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from ..cluster.nslock import NSLockMap
 from ..ops import devices, fused
 from ..storage import bitrot_io
 from ..storage.drive import SMALL_FILE_THRESHOLD, SYS_VOL, TMP_DIR, LocalDrive
@@ -62,6 +67,10 @@ from . import quorum as Q
 
 BLOCK_SIZE = 1 << 20          # blockSizeV2, cmd/object-api-common.go:40
 BATCH_BLOCKS = 32             # 1 MiB blocks per device call (32 MiB data)
+#: A one-core host gains nothing from fanning work out to threads (the
+#: JAX package's ErasureSet._SERIAL_FANOUT); heal runs one object at a
+#: time there.
+SERIAL_FANOUT = (os.cpu_count() or 2) == 1
 
 
 class ErasureSet:
@@ -70,7 +79,7 @@ class ErasureSet:
 
     def __init__(self, drives: list[LocalDrive | None],
                  default_parity: int | None = None, set_index: int = 0,
-                 device=None):
+                 device=None, nslock: NSLockMap | None = None):
         self.drives = list(drives)
         self.n = len(self.drives)
         if self.n < 2:
@@ -81,10 +90,17 @@ class ErasureSet:
         self.device = devices.resolve(device, set_index)
         self.pool = ThreadPoolExecutor(max_workers=max(self.n, 4))
         self._md5_pool = ThreadPoolExecutor(max_workers=1)
+        # Read-ahead and write stages of heal's pipeline; never the
+        # drive fan-out pool, which those stages submit to.
+        self._iter_pool = ThreadPoolExecutor(max_workers=8)
+        # Object mutations hold the object's write lock (cf. NSLock at
+        # cmd/erasure-object.go:930); one process, so in-process locks.
+        self.nslock = NSLockMap() if nslock is None else nslock
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
         self._md5_pool.shutdown(wait=True)
+        self._iter_pool.shutdown(wait=True)
 
     def __enter__(self):
         return self
@@ -132,6 +148,16 @@ class ErasureSet:
         if err is not None:
             raise err
 
+    def list_buckets(self) -> list[str]:
+        """Buckets that at least a live quorum of drives holds."""
+        counts: dict[str, int] = {}
+        for vols, e in self._map_drives(lambda d: d.list_volumes()):
+            if e is None:
+                for v in vols:
+                    counts[v] = counts.get(v, 0) + 1
+        quorum = self._live_quorum()
+        return sorted(v for v, c in counts.items() if c >= quorum)
+
     def bucket_exists(self, bucket: str) -> bool:
         res = self._map_positions(lambda pos, d: d.stat_volume(bucket))
         return sum(1 for _, e in res if e is None) >= self._live_quorum()
@@ -156,6 +182,14 @@ class ErasureSet:
         """
         if not self.bucket_exists(bucket):
             raise ErrBucketNotFound(bucket)
+        with self.nslock.write_locked(bucket, obj):
+            return self._put_object_locked(
+                bucket, obj, data, metadata=metadata, versioned=versioned,
+                parity=parity, version_id=version_id,
+                mod_time_ns=mod_time_ns)
+
+    def _put_object_locked(self, bucket, obj, data, *, metadata, versioned,
+                           parity, version_id, mod_time_ns) -> FileInfo:
         parity = self.clamp_parity(parity)
         # Offline drives become parity, so the write keeps full
         # reconstruction capability (cf. erasure-object.go:766-800).
@@ -572,8 +606,9 @@ class ErasureSet:
         if not self.bucket_exists(bucket):
             raise ErrBucketNotFound(bucket)
         vid = normalize_version_id(version_id)
-        errs = [e for _, e in self._map_positions(
-            lambda pos, d: d.delete_version(bucket, obj, vid))]
+        with self.nslock.write_locked(bucket, obj):
+            errs = [e for _, e in self._map_positions(
+                lambda pos, d: d.delete_version(bucket, obj, vid))]
         nf = (ErrFileNotFound, ErrFileVersionNotFound)
         if errs and all(isinstance(e, nf) for e in errs):
             if any(isinstance(e, ErrFileVersionNotFound) for e in errs):

@@ -1,15 +1,16 @@
-"""Object and bucket heal on the GPU.
+"""Object, bucket and drive heal on the GPU.
 
-Counterpart of minio_tpu/engine/heal.py (`heal_object`, `heal_bucket`),
-with the same drive states, results and on-disk outcome, so a tree
-healed here equals the tree the JAX package's heal leaves:
+Counterpart of minio_tpu/engine/heal.py, with the same drive states,
+results and on-disk outcome, so a tree healed here equals the tree the
+JAX package's heal leaves:
 
 - `heal_object` classifies every drive's copy of each version (ok /
   offline / missing / outdated / corrupt), elects the quorum metadata,
   and rebuilds the copies that are not ok (cf. healObject,
-  cmd/erasure-healing.go:244).  Dangling versions, provably below read
-  quorum, are purged (cf. isObjectDangling, :834); `dry_run` only
-  reports.
+  cmd/erasure-healing.go:244), under the object's namespace write lock.
+  Dangling versions, provably below read quorum, are purged unless
+  `remove_dangling` is False (cf. isObjectDangling, :834); `dry_run`
+  only reports.
 - Data is rebuilt batch by batch, HEAL_BATCH_BLOCKS frames at a time:
   ranged frame reads of k sources, then one device call
   (ops/fused.verify_and_transform) that verifies their digests and
@@ -18,35 +19,53 @@ healed here equals the tree the JAX package's heal leaves:
   rebuilt rows' new frame digests come from the device too
   (ops/fused.hash_rows), and the tail fragment goes the same way at its
   own shard size.  The frames are appended to a staging file per target
-  and published with rename_data.
+  and published with rename_data.  By default the batches run through a
+  read -> verify+rebuild -> write pipeline (parallel/pipeline.py): batch
+  i+1's source reads fan out across drives while batch i is on the
+  device and batch i-1's frames are appended.  MTPU_HEAL_PIPELINE=0
+  runs them one after another, the equivalence oracle.
 - A deep check (`deep=True`) verifies every frame of every drive's copy
   on the device.
 - Inline objects are healed by reading them through the GET path and
   encoding them again, which gives each target its framed shard.
+- A replaced drive: `heal_format` writes its format.json back, then
+  `heal_drive` walks every bucket and object of the set onto it with a
+  bounded pool of object heals, checkpointing a resumable
+  `HealingTracker` on the drive (cf. healErasureSet,
+  cmd/global-heal.go:166).  `heal_bucket_objects` heals a bucket or a
+  prefix of it through the same pool.
 
-Left out of this slice: `heal_format`, `heal_drive` with its
-`HealingTracker`, `heal_bucket_objects` and the device-parallel sweeps,
-namespace locks, and the read/decode/write overlap of the JAX package's
-pipeline.
+Left out of this slice: the device-parallel sweep over several sets
+(`sweep_sets_device_parallel`) and the background heal sequences, which
+need several sets; the QoS plane's throttling of heal workers; the JAX
+package's device shard cache and dispatch coalescer branches of the
+pipelined heal.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..ops import fused
+from ..parallel import pipeline as pl
 from ..storage import bitrot_io
-from ..storage.drive import SYS_VOL, TMP_DIR
+from ..storage.drive import SYS_VOL, TMP_DIR, LocalDrive
 from ..storage.errors import (ErrErasureReadQuorum, ErrFileCorrupt,
                               ErrFileNotFound, ErrFileVersionNotFound,
                               ErrVolumeExists, ErrVolumeNotFound,
                               StorageError)
+from ..storage.format import load_format, new_format, save_format
 from ..storage.xlmeta import ErasureInfo, FileInfo, XLMeta
+from ..utils import msgpackx
 from . import quorum as Q
-from .erasure_set import BATCH_BLOCKS, BLOCK_SIZE, ErasureSet
+from .erasure_set import BATCH_BLOCKS, BLOCK_SIZE, SERIAL_FANOUT, ErasureSet
 
 # Drive states (cf. madmin drive states in the reference heal API).
 DRIVE_OK = "ok"
@@ -54,6 +73,8 @@ DRIVE_OFFLINE = "offline"
 DRIVE_MISSING = "missing"
 DRIVE_OUTDATED = "outdated"
 DRIVE_CORRUPT = "corrupt"
+
+HEALING_FILE = "healing.bin"  # lives under <drive>/.mtpu.sys/
 
 #: Frames per device call when verifying or rebuilding a part.
 HEAL_BATCH_BLOCKS = BATCH_BLOCKS
@@ -94,11 +115,11 @@ def object_version_ids(es: ErasureSet, bucket: str, obj: str) -> list[str]:
             sorted(seen.items(), key=lambda kv: kv[1], reverse=True)]
 
 
-def _frame_batches(size: int, ec: ErasureInfo, algo: str,
-                   batch: int = HEAL_BATCH_BLOCKS) -> list[tuple]:
+def _frame_batches(size: int, ec: ErasureInfo, algo: str) -> list[tuple]:
     """(offset, frames, shard length) of every device batch over one
     shard file of a part of `size` bytes: the full frames in groups of
-    `batch`, then the tail frame at its own length."""
+    HEAL_BATCH_BLOCKS, then the tail frame at its own length."""
+    batch = HEAL_BATCH_BLOCKS
     s = ec.shard_size
     frame = bitrot_io.digest_size(algo) + s
     n_full = size // BLOCK_SIZE
@@ -202,23 +223,29 @@ def _verify_drive_data(es: ErasureSet, d, bucket: str, obj: str,
 
 
 def heal_object(es: ErasureSet, bucket: str, obj: str, version_id: str = "",
-                deep: bool = False,
-                dry_run: bool = False) -> list[HealResult]:
+                deep: bool = False, dry_run: bool = False,
+                remove_dangling: bool = True) -> list[HealResult]:
     """Heal one object: every version when version_id == "", else that one.
 
     Returns one HealResult per version examined (cf. healObject,
-    cmd/erasure-healing.go:244).
+    cmd/erasure-healing.go:244); an object no drive holds is a no-op.
     """
     if version_id:
         vids = [version_id]
     else:
         vids = object_version_ids(es, bucket, obj)
-    return [_heal_version(es, bucket, obj, vid, deep, dry_run)
-            for vid in vids]
+        if not vids:
+            return []
+    # Heal rewrites shard files and metadata: the same write lock as PUT
+    # and DELETE (cf. NSLock in healObject, cmd/erasure-healing.go:276).
+    with es.nslock.write_locked(bucket, obj, timeout=30.0):
+        return [_heal_version(es, bucket, obj, vid, deep, dry_run,
+                              remove_dangling) for vid in vids]
 
 
 def _heal_version(es: ErasureSet, bucket: str, obj: str, version_id: str,
-                  deep: bool, dry_run: bool) -> HealResult:
+                  deep: bool, dry_run: bool,
+                  remove_dangling: bool) -> HealResult:
     res = es._map_drives(lambda d: d.read_version(bucket, obj, version_id))
     metas = [m for m, _ in res]
     errs = [e for _, e in res]
@@ -234,16 +261,16 @@ def _heal_version(es: ErasureSet, bucket: str, obj: str, version_id: str,
         fi = None
 
     if fi is None:
-        # Sub-quorum metadata.  Purge only when provably dangling: every
-        # drive gave a definite answer (no offline drive could be hiding
-        # a copy) and there is still no quorum.
+        # Sub-quorum metadata.  Purge only when asked to and provably
+        # dangling: every drive gave a definite answer (no offline drive
+        # could be hiding a copy) and there is still no quorum.
         definite = all(
             d is None or m is not None or isinstance(
                 e, (ErrFileNotFound, ErrFileVersionNotFound,
                     ErrVolumeNotFound, ErrFileCorrupt))
             for d, m, e in zip(es.drives, metas, errs))
         offline = sum(1 for d in es.drives if d is None)
-        if definite and n_found + offline < read_quorum:
+        if remove_dangling and definite and n_found + offline < read_quorum:
             result.before = [DRIVE_OFFLINE if d is None else
                              (DRIVE_OK if m is not None else DRIVE_MISSING)
                              for d, m in zip(es.drives, metas)]
@@ -354,6 +381,12 @@ def _heal_metadata_only(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
         es.drives[pos].write_metadata(bucket, obj, fi_pos)
 
 
+def _pipelined() -> bool:
+    """MTPU_HEAL_PIPELINE=0 runs each part's batches one after another
+    (the equivalence oracle of the pipelined heal), read per call."""
+    return os.environ.get("MTPU_HEAL_PIPELINE", "1") != "0"
+
+
 def _heal_data(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
                sources: list[int], targets: list[int]) -> None:
     """Rebuild every part's shard files onto the target drives and publish
@@ -361,10 +394,17 @@ def _heal_data(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
     dist = fi.erasure.distribution
     tmp_id = f"heal-{uuid.uuid4().hex}"
     need = sorted({dist[pos] - 1 for pos in targets})
+    heal_part = _heal_part_pipelined if _pipelined() else _heal_part_serial
     try:
         for part in fi.parts:
-            _heal_part(es, bucket, obj, fi, part, sources, targets, need,
-                       tmp_id)
+            if part.size == 0:            # an empty last part: no frames
+                for pos in targets:
+                    es.drives[pos].append_file(
+                        SYS_VOL, f"{TMP_DIR}/{tmp_id}/part.{part.number}",
+                        b"")
+                continue
+            heal_part(es, bucket, obj, fi, part, sources, targets, need,
+                      tmp_id)
         for pos in targets:
             _ensure_bucket_on(es.drives[pos], bucket)
             es.drives[pos].rename_data(SYS_VOL, f"{TMP_DIR}/{tmp_id}",
@@ -378,72 +418,78 @@ def _heal_data(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
                 pass
 
 
-def _heal_part(es: ErasureSet, bucket: str, obj: str, fi: FileInfo, part,
-               sources: list[int], targets: list[int], need: list[int],
-               tmp_id: str) -> None:
-    """Rebuild one part onto the targets, one device call per batch of
-    frames (the Erasure.Heal role, cmd/erasure-lowlevel-heal.go:31).
+class _PartRebuild:
+    """One part's source election and its per-batch verify + rebuild,
+    shared by the serial and the pipelined heal (the Erasure.Heal role,
+    cmd/erasure-lowlevel-heal.go:31).
 
-    Each batch reads the same frame range from k sources, verifies their
-    digests and rebuilds the `need` rows in one verify_and_transform, then
-    hashes the rebuilt rows for their new frames with hash_rows; a source
-    that fails to read or verify is dropped for this batch onward and a
-    spare read in its place, as on the GET path."""
-    ec = fi.erasure
-    dist = ec.distribution
-    k, m = ec.data_blocks, ec.parity_blocks
-    algo = ec.bitrot_algo(part.number)
-    hs = bitrot_io.digest_size(algo)
-    want = bitrot_io.bitrot_shard_file_size(
-        ec.shard_file_size(part.size), ec.shard_size, algo)
-    path = f"{obj}/{fi.data_dir}/part.{part.number}"
-    tmp_path = f"{TMP_DIR}/{tmp_id}/part.{part.number}"
-    src_pos = {dist[pos] - 1: pos for pos in sources}
+    A size check weeds out missing and truncated source shards before
+    any data moves; the first k good ones are selected and the rest are
+    spares.  `rebuild` verifies one batch of frames of the selected
+    sources and rebuilds the `need` rows in one verify_and_transform,
+    then hashes the rebuilt rows for their new frames with hash_rows; a
+    source that fails to read or verify is dropped for this batch onward
+    and a spare read in its place, as on the GET path.  `sel` changes
+    only in `rebuild`."""
 
-    def quorum_err(got: int) -> ErrErasureReadQuorum:
-        return ErrErasureReadQuorum(
-            f"heal {bucket}/{obj} part {part.number}: {got} readable < {k}")
+    def __init__(self, es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
+                 part, sources: list[int], need: list[int]):
+        ec = fi.erasure
+        self.es, self.need = es, need
+        self.k, self.m = ec.data_blocks, ec.parity_blocks
+        self.algo = ec.bitrot_algo(part.number)
+        self.hs = bitrot_io.digest_size(self.algo)
+        self.path = f"{obj}/{fi.data_dir}/part.{part.number}"
+        self.bucket = bucket
+        self.what = f"heal {bucket}/{obj} part {part.number}"
+        self.src_pos = {ec.distribution[pos] - 1: pos for pos in sources}
+        want = bitrot_io.bitrot_shard_file_size(
+            ec.shard_file_size(part.size), ec.shard_size, self.algo)
 
-    # A size check weeds out missing and truncated shards before any data
-    # moves.
-    def usable(s: int) -> bool:
-        try:
-            return es.drives[src_pos[s]].file_size(bucket, path) == want
-        except StorageError:
-            return False
+        def usable(s: int) -> bool:
+            try:
+                return es.drives[self.src_pos[s]].file_size(
+                    bucket, self.path) == want
+            except StorageError:
+                return False
 
-    if part.size == 0:                    # an empty last part: no frames
-        for pos in targets:
-            es.drives[pos].append_file(SYS_VOL, tmp_path, b"")
-        return
-    candidates = sorted(src_pos)
-    good = [s for s, ok in zip(candidates, es.pool.map(usable, candidates))
-            if ok]
-    if len(good) < k:
-        raise quorum_err(len(good))
-    sel, spares = good[:k], good[k:]
+        candidates = sorted(self.src_pos)
+        good = [s for s, ok in zip(candidates,
+                                   es.pool.map(usable, candidates)) if ok]
+        if len(good) < self.k:
+            raise self.quorum_err(len(good))
+        self.sel, self.spares = good[:self.k], good[self.k:]
 
-    def read_one(s: int, lo: int, ln: int) -> bytes:
-        raw = es.drives[src_pos[s]].read_file(bucket, path, lo, ln)
+    def quorum_err(self, got: int) -> ErrErasureReadQuorum:
+        return ErrErasureReadQuorum(f"{self.what}: {got} readable < {self.k}")
+
+    def read(self, s: int, lo: int, ln: int) -> bytes:
+        raw = self.es.drives[self.src_pos[s]].read_file(self.bucket,
+                                                        self.path, lo, ln)
         if len(raw) != ln:
             raise ErrFileCorrupt(f"short shard segment ({len(raw)} != {ln})")
         return raw
 
-    for lo, nb, s_len in _frame_batches(part.size, ec, algo):
+    def rebuild(self, data: dict[int, bytes], lo: int, nb: int,
+                s_len: int) -> dict[int, np.ndarray]:
+        """Framed rebuilt frames {shard: bytes} of the batch of `nb`
+        frames of shard length `s_len` at offset `lo`.  `data` holds the
+        frames already read, by source; sources of `sel` missing from it
+        are read here."""
+        k, m, hs, sel, spares = self.k, self.m, self.hs, self.sel, self.spares
         ln = nb * (hs + s_len)
-        data: dict[int, bytes] = {}
         while True:
             for s in [s for s in sel if s not in data]:
                 try:
-                    data[s] = read_one(s, lo, ln)
+                    data[s] = self.read(s, lo, ln)
                 except StorageError:
                     sel.remove(s)
             while len(sel) < k:
                 if not spares:
-                    raise quorum_err(len(sel))
+                    raise self.quorum_err(len(sel))
                 s = spares.pop(0)
                 try:
-                    data[s] = read_one(s, lo, ln)
+                    data[s] = self.read(s, lo, ln)
                 except StorageError:
                     continue
                 sel.append(s)
@@ -454,8 +500,8 @@ def _heal_part(es: ErasureSet, bucket: str, obj: str, fi: FileInfo, part,
             for i, s in enumerate(sel):
                 x[:, i, :] = frames[s][:, hs:]
             digests, rebuilt = fused.verify_and_transform(
-                x, k, m, tuple(sel), tuple(need), algo=algo,
-                device=es.device)
+                x, k, m, tuple(sel), tuple(self.need), algo=self.algo,
+                device=self.es.device)
             digests = digests.cpu().numpy()
             bad = [s for i, s in enumerate(sel)
                    if not np.array_equal(digests[:, i], frames[s][:, :hs])]
@@ -466,14 +512,113 @@ def _heal_part(es: ErasureSet, bucket: str, obj: str, fi: FileInfo, part,
                 del data[s]
         rows = rebuilt.transpose(0, 1).contiguous()       # (T, nb, s_len)
         new_digests = fused.hash_rows(
-            rows.reshape(len(need) * nb, s_len), algo, device=es.device)
+            rows.reshape(len(self.need) * nb, s_len), self.algo,
+            device=self.es.device)
         framed = bitrot_io.frame_shard_views(
-            None, None, new_digests.cpu().numpy().reshape(len(need), nb, hs),
-            algo, shards=rows.cpu().numpy())
-        payload = dict(zip(need, framed))
+            None, None,
+            new_digests.cpu().numpy().reshape(len(self.need), nb, hs),
+            self.algo, shards=rows.cpu().numpy())
+        return dict(zip(self.need, framed))
+
+
+def _heal_part_serial(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
+                      part, sources: list[int], targets: list[int],
+                      need: list[int], tmp_id: str) -> None:
+    """Rebuild one part onto the targets, one batch after another: the
+    sources are read one by one, then the device call, then the appends
+    one target at a time.  The oracle of `_heal_part_pipelined`."""
+    tmp_path = f"{TMP_DIR}/{tmp_id}/part.{part.number}"
+    dist = fi.erasure.distribution
+    job = _PartRebuild(es, bucket, obj, fi, part, sources, need)
+    for lo, nb, s_len in _frame_batches(part.size, fi.erasure, job.algo):
+        payload = job.rebuild({}, lo, nb, s_len)
         for pos in targets:
             es.drives[pos].append_file(SYS_VOL, tmp_path,
                                        payload[dist[pos] - 1])
+
+
+class StageSeconds:
+    """Seconds the pipelined heal spends in each stage, summed over
+    batches (and over concurrent heals, so the sums can exceed the wall
+    time), and the batches counted.  Thread-safe."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._mu:
+            self._sums = {"read": 0.0, "compute": 0.0, "write": 0.0,
+                          "batches": 0}
+
+    def add(self, read_s: float, compute_s: float, write_s: float) -> None:
+        with self._mu:
+            self._sums["read"] += read_s
+            self._sums["compute"] += compute_s
+            self._sums["write"] += write_s
+            self._sums["batches"] += 1
+
+    def read(self) -> dict:
+        with self._mu:
+            return dict(self._sums)
+
+
+#: Stage times of every pipelined part heal in the process: "read" is the
+#: wait for a batch's source frames, "compute" its verify + rebuild +
+#: framing, "write" its appends to the targets.
+STAGES = StageSeconds()
+
+
+def _heal_part_pipelined(es: ErasureSet, bucket: str, obj: str,
+                         fi: FileInfo, part, sources: list[int],
+                         targets: list[int], need: list[int],
+                         tmp_id: str) -> None:
+    """Rebuild one part onto the targets through a read -> verify +
+    rebuild -> write pipeline (cf. _heal_part_pipelined,
+    minio_tpu/engine/heal.py:514).
+
+    Each batch's source frames are read in parallel across drives, one
+    batch ahead of the device; the device call and the framing run on
+    the caller's thread; the appends to the targets (in parallel across
+    them) run with one batch in flight, so batch i+1's reads and batch
+    i-1's appends overlap batch i on the device.  Memory stays
+    O(batch).  The tail fragment is the last batch, at its own shard
+    size.  The bytes are those of `_heal_part_serial`."""
+    tmp_path = f"{TMP_DIR}/{tmp_id}/part.{part.number}"
+    dist = fi.erasure.distribution
+    job = _PartRebuild(es, bucket, obj, fi, part, sources, need)
+
+    def read_batch(batch):
+        """The selected sources' frames, read in parallel; a failed
+        read is left out, and `rebuild` drops its source."""
+        lo, nb, s_len = batch
+        ln = nb * (job.hs + s_len)
+        futs = {s: es.pool.submit(job.read, s, lo, ln) for s in list(job.sel)}
+        data = {}
+        for s, f in futs.items():
+            try:
+                data[s] = f.result()
+            except StorageError:
+                pass
+        return batch, data
+
+    def compute(item):
+        (lo, nb, s_len), data = item
+        return job.rebuild(data, lo, nb, s_len)
+
+    def write(payload):
+        def put(pos):
+            es.drives[pos].append_file(SYS_VOL, tmp_path,
+                                       payload[dist[pos] - 1])
+        if len(targets) == 1:
+            put(targets[0])
+        else:
+            list(es.pool.map(put, targets))
+
+    batches = _frame_batches(part.size, fi.erasure, job.algo)
+    pl.StagePipeline(es._iter_pool).run(
+        pl.prefetch_map(read_batch, batches, es._iter_pool, depth=1),
+        compute, write, on_batch=STAGES.add)
 
 
 def heal_bucket(es: ErasureSet, bucket: str) -> list[int]:
@@ -492,3 +637,212 @@ def heal_bucket(es: ErasureSet, bucket: str) -> list[int]:
             except StorageError:
                 pass
     return healed
+
+
+def heal_format(es: ErasureSet) -> list[int]:
+    """Write format.json and the system volume back on drives that lost
+    them (a wiped or replaced disk), in the slot the deployment's layout
+    gives each; the step before bucket and object heal, since every
+    write stages through the system volume (cf. HealFormat,
+    cmd/format-erasure.go:798).  Returns the healed positions."""
+    fmts: list[dict | None] = []
+    for d in es.drives:
+        try:
+            fmts.append(None if d is None else load_format(d))
+        except StorageError:
+            fmts.append(None)
+    ref = next((f for f in fmts if f), None)
+    if ref is None:
+        return []
+    layout = ref["xl"]["sets"]
+    healed = []
+    for pos, (d, f) in enumerate(zip(es.drives, fmts)):
+        if d is None or f is not None:
+            continue
+        try:
+            d.init_sys_volume()
+            save_format(d, new_format(ref["id"], layout,
+                                      layout[es.set_index][pos]))
+            healed.append(pos)
+        except StorageError:
+            continue
+    return healed
+
+
+# ---------------------------------------------------------------------------
+# Resumable drive healing (new or replaced disk).
+# ---------------------------------------------------------------------------
+
+@dataclass
+class HealingTracker:
+    """Persisted on the drive being healed, so a heal resumes after a
+    restart (cf. healingTracker, cmd/background-newdisks-heal-ops.go:48).
+    The bytes are the JAX package's: either package resumes the
+    other's tracker."""
+    heal_id: str = ""
+    started_ns: int = 0
+    resume_bucket: str = ""
+    resume_object: str = ""
+    objects_healed: int = 0
+    objects_failed: int = 0
+    bytes_healed: int = 0
+    finished: bool = False
+
+    def save(self, drive: LocalDrive) -> None:
+        drive.write_all(SYS_VOL, HEALING_FILE, msgpackx.packb({
+            "id": self.heal_id, "start": self.started_ns,
+            "rb": self.resume_bucket, "ro": self.resume_object,
+            "oh": self.objects_healed, "of": self.objects_failed,
+            "bh": self.bytes_healed, "fin": self.finished}))
+
+    @classmethod
+    def load(cls, drive: LocalDrive) -> "HealingTracker | None":
+        try:
+            d = msgpackx.unpackb(drive.read_all(SYS_VOL, HEALING_FILE))
+        except StorageError:
+            return None
+        return cls(heal_id=d.get("id", ""), started_ns=d.get("start", 0),
+                   resume_bucket=d.get("rb", ""),
+                   resume_object=d.get("ro", ""),
+                   objects_healed=d.get("oh", 0),
+                   objects_failed=d.get("of", 0),
+                   bytes_healed=d.get("bh", 0),
+                   finished=d.get("fin", False))
+
+
+def _set_objects(es: ErasureSet, bucket: str, skip_pos: int) -> list[str]:
+    """Sorted union of a bucket's object names on every drive but
+    `skip_pos`."""
+    names: set[str] = set()
+    for pos, d in enumerate(es.drives):
+        if d is None or pos == skip_pos:
+            continue
+        try:
+            for name, _ in d.walk_dir(bucket):
+                names.add(name)
+        except StorageError:
+            continue
+    return sorted(names)
+
+
+def _heal_workers(workers: int | None) -> int:
+    """Concurrent object heals: `workers` when given, else 1 on a
+    one-core host and min(4, cores) elsewhere.  The JAX package also
+    shrinks this under foreground load (server/qos.scale_workers); the
+    port has no QoS plane yet, so the bound stands as it is."""
+    if workers is not None:
+        return max(1, int(workers))
+    return 1 if SERIAL_FANOUT else min(4, os.cpu_count() or 1)
+
+
+def heal_drive(es: ErasureSet, pos: int, checkpoint_every: int = 64,
+               workers: int | None = None,
+               stop: threading.Event | None = None) -> HealingTracker:
+    """Walk the whole set onto one new, replaced or wiped drive,
+    resumably, healing up to `workers` objects at once (a bounded
+    submission window: no queue grows with the set).
+
+    The HealingTracker checkpoint advances only over the CONTIGUOUS
+    completed prefix of the sorted walk: with concurrent workers object
+    i+1 may finish before object i, and saving i+1 as the resume point
+    would skip i for good if the heal is interrupted.  Healing an object
+    past the frontier again on resume is a no-op.  Setting `stop` ends
+    the walk after the heals in flight; the tracker is saved unfinished.
+
+    cf. healErasureSet, cmd/global-heal.go:166."""
+    drive = es.drives[pos]
+    if drive is None:
+        raise ErrVolumeNotFound(f"drive position {pos} offline")
+    tracker = HealingTracker.load(drive)
+    if tracker is None or tracker.finished:
+        tracker = HealingTracker(heal_id=str(uuid.uuid4()),
+                                 started_ns=time.time_ns())
+        tracker.save(drive)
+    workers = _heal_workers(workers)
+
+    def walk():
+        for bucket in es.list_buckets():
+            if bucket < tracker.resume_bucket:
+                continue
+            heal_bucket(es, bucket)
+            for obj in _set_objects(es, bucket, skip_pos=pos):
+                if (bucket == tracker.resume_bucket
+                        and obj <= tracker.resume_object):
+                    continue
+                yield bucket, obj
+
+    def heal_one(item):
+        bucket, obj = item
+        healed = nbytes = 0
+        for r in heal_object(es, bucket, obj):
+            if pos in r.healed_drives:
+                healed += 1
+                nbytes += r.size
+        return healed, nbytes
+
+    frontier = pl.Frontier()
+    items: dict[int, tuple[str, str]] = {}
+    done_below = 0          # items the frontier has passed
+    since_ckpt = 0
+    pool = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
+    try:
+        for idx, item, res, err in pl.run_window(
+                heal_one, walk(), pool, window=workers * 2, stop=stop):
+            if err is not None and not isinstance(err, StorageError):
+                raise err
+            if err is not None:
+                tracker.objects_failed += 1
+            else:
+                tracker.objects_healed += res[0]
+                tracker.bytes_healed += res[1]
+            items[idx] = item
+            front = frontier.mark(idx)
+            while done_below < front:
+                tracker.resume_bucket, tracker.resume_object = \
+                    items.pop(done_below)
+                done_below += 1
+                since_ckpt += 1
+            if since_ckpt >= checkpoint_every:
+                tracker.save(drive)
+                since_ckpt = 0
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
+    if stop is None or not stop.is_set():
+        tracker.finished = True
+    tracker.save(drive)
+    return tracker
+
+
+def heal_bucket_objects(es: ErasureSet, bucket: str, prefix: str = "",
+                        deep: bool = False, remove_dangling: bool = True,
+                        workers: int | None = None,
+                        stop: threading.Event | None = None,
+                        on_object=None) -> list[HealResult]:
+    """Heal every object of a bucket whose name starts with `prefix`,
+    through the same bounded worker pool as heal_drive.
+    `on_object(name, results, err)` observes each object as it
+    completes; errors other than storage errors propagate."""
+    workers = _heal_workers(workers)
+    names = [n for n in _set_objects(es, bucket, skip_pos=-1)
+             if n.startswith(prefix)]
+
+    def one(name):
+        return heal_object(es, bucket, name, deep=deep,
+                           remove_dangling=remove_dangling)
+
+    results: list[HealResult] = []
+    pool = ThreadPoolExecutor(max_workers=workers) if workers > 1 else None
+    try:
+        for _, name, res, err in pl.run_window(
+                one, names, pool, window=workers * 2, stop=stop):
+            if err is not None and not isinstance(err, StorageError):
+                raise err
+            if on_object is not None:
+                on_object(name, res, err)
+            if err is None and res:
+                results.extend(res)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True)
+    return results

@@ -351,7 +351,12 @@ def complete_multipart_upload(es: ErasureSet, bucket: str, obj: str,
         d.rename_data(SYS_VOL, f"{TMP_DIR}/{tmp_id}", fi_for(pos),
                       bucket, obj)
 
-    res = es._map_positions(publish)
+    # The publish mutates the object namespace: the same write lock as
+    # PUT and DELETE, so a concurrent overwrite cannot interleave its
+    # per-drive metadata writes (cf. NSLock in CompleteMultipartUpload,
+    # erasure-multipart.go:771).
+    with es.nslock.write_locked(bucket, obj, timeout=30.0):
+        res = es._map_positions(publish)
     errs = [e for _, e in res]
     err = Q.reduce_write_quorum_errs(errs, write_quorum)
     if err is not None:

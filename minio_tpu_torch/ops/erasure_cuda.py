@@ -16,14 +16,17 @@ launches, so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 from . import cuda_build, erasure_torch
 
-#: Kernel launches since the last reset (the wrapper adds one per launch).
+#: Kernel launches since the last reset (the wrapper adds one per launch,
+#: under _LAUNCHES_LOCK: concurrent heals launch from several threads).
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 LIBRARY = cuda_build.Library(
     "gf_matmul.cu", "gf_matmul_launch",
@@ -31,6 +34,8 @@ LIBRARY = cuda_build.Library(
      ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
      ctypes.c_void_p])
 _TABLES: dict[tuple, torch.Tensor] = {}
+_TABLES_LOCK = threading.Lock()
+_TABLES_MAX = 4096
 
 
 def nibble_tables(mat_bits) -> np.ndarray:
@@ -66,16 +71,29 @@ def nibble_tables(mat_bits) -> np.ndarray:
 
 def _device_tables(mat_bits, device: torch.device) -> torch.Tensor:
     """Nibble tables on `device` (their bytes, as uint8), cached per
-    (matrix, device)."""
+    (matrix, device).
+
+    Threads share the cache.  A caller holds the tensor it got until its
+    launch is enqueued, so a clear() by another thread cannot free it
+    before then; after that the caching allocator hands its block out
+    again only in the stream's order, behind the launch."""
     m = np.asarray(mat_bits).astype(np.uint8)
     key = (m.shape, m.tobytes(), str(device))
-    t = _TABLES.get(key)
+    with _TABLES_LOCK:
+        t = _TABLES.get(key)
     if t is None:
         t = torch.from_numpy(nibble_tables(m).view(np.uint8)).to(device)
-        if len(_TABLES) >= 4096:
-            _TABLES.clear()
-        _TABLES[key] = t
+        with _TABLES_LOCK:
+            if len(_TABLES) >= _TABLES_MAX:
+                _TABLES.clear()
+            t = _TABLES.setdefault(key, t)
     return t
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 
 def gf_matmul_blocks(mat_bits, x: torch.Tensor, rows: int,
@@ -87,7 +105,6 @@ def gf_matmul_blocks(mat_bits, x: torch.Tensor, rows: int,
     65535); a CPU `x` runs the plain version.  `salt`: the low byte is
     XORed into every input byte inside the kernel.
     """
-    global LAUNCHES
     if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8 \
             or x.dim() != 3:
         raise TypeError("x must be a (B, C, S) uint8 tensor")
@@ -120,5 +137,5 @@ def gf_matmul_blocks(mat_bits, x: torch.Tensor, rows: int,
     if err != 0:
         raise RuntimeError(f"gf_matmul kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    _count_launch()
     return out

@@ -17,6 +17,7 @@ so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -25,8 +26,10 @@ from . import cuda_build
 from .highwayhash import MAGIC_KEY
 from .highwayhash_torch import hh256_rows_ref
 
-#: Kernel launches since the last reset (the wrapper adds one per launch).
+#: Kernel launches since the last reset (the wrapper adds one per launch,
+#: under _LAUNCHES_LOCK: concurrent heals launch from several threads).
 LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 LIBRARY = cuda_build.Library(
     "hh256.cu", "hh256_launch",
@@ -35,13 +38,18 @@ LIBRARY = cuda_build.Library(
      ctypes.c_void_p])
 
 
+def _count_launch() -> None:
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
+
+
 def hh256_rows(x: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:
     """(n, L) uint8 -> (n, 32) uint8 HighwayHash-256 of every row.
 
     A CUDA `x` launches the kernel on the current stream (any n, any L);
     a CPU `x` runs the plain version.
     """
-    global LAUNCHES
     if not isinstance(x, torch.Tensor) or x.dtype != torch.uint8 \
             or x.dim() != 2:
         raise TypeError("x must be an (n, L) uint8 tensor")
@@ -64,5 +72,5 @@ def hh256_rows(x: torch.Tensor, key: bytes = MAGIC_KEY) -> torch.Tensor:
         err = launch(x.data_ptr(), out.data_ptr(), n, length, *words, stream)
     if err != 0:
         raise RuntimeError(f"hh256 kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    _count_launch()
     return out

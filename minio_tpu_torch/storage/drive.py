@@ -34,6 +34,7 @@ SYS_VOL = ".mtpu.sys"
 TMP_DIR = "tmp"
 MULTIPART_DIR = "multipart"
 XL_META_FILE = "xl.meta"
+FORMAT_FILE = "format.json"
 # The JAX package's system subdirectories, created alike so a drive
 # looks the same whichever package opened it first.
 _SYS_SUBDIRS = (TMP_DIR, "metajournal", MULTIPART_DIR, "buckets")
@@ -56,9 +57,11 @@ class LocalDrive:
             os.makedirs(self.root, exist_ok=True)
         elif not os.path.isdir(self.root):
             raise ErrDiskNotFound(root)
-        for sub in _SYS_SUBDIRS:
-            os.makedirs(os.path.join(self.root, SYS_VOL, sub), exist_ok=True)
+        self.init_sys_volume()
         self._meta_lock = threading.Lock()
+        # This drive's id in the deployment's format.json (set when the
+        # format is loaded or saved, storage/format.py).
+        self.disk_id: str = ""
 
     # -- path helpers --------------------------------------------------------
 
@@ -96,11 +99,26 @@ class LocalDrive:
 
     # -- volume ops ----------------------------------------------------------
 
+    def init_sys_volume(self) -> None:
+        """Create the reserved system volume's subdirectories.  A wiped
+        drive has none; format heal calls this before it writes
+        format.json (cf. makeFormatErasureMetaVolumes,
+        cmd/format-erasure.go)."""
+        for sub in _SYS_SUBDIRS:
+            os.makedirs(os.path.join(self.root, SYS_VOL, sub), exist_ok=True)
+
     def make_volume(self, vol: str) -> None:
         p = self._vol_path(vol)
         if os.path.isdir(p):
             raise ErrVolumeExists(vol)
         os.makedirs(p)
+
+    def list_volumes(self) -> list[str]:
+        """The drive's volumes (buckets), sorted; the system volume and
+        other dot-names are not volumes."""
+        return [name for name in sorted(os.listdir(self.root))
+                if not name.startswith(".")
+                and os.path.isdir(os.path.join(self.root, name))]
 
     def stat_volume(self, vol: str) -> dict:
         p = self._check_vol(vol)
@@ -197,6 +215,29 @@ class LocalDrive:
             return sorted(os.listdir(p))
         except (FileNotFoundError, NotADirectoryError):
             raise ErrPathNotFound(f"{vol}/{path}") from None
+
+    def walk_dir(self, vol: str, prefix: str = ""):
+        """Yield (object name, xl.meta bytes) depth-first in lexical
+        order of directory names (cf. WalkDir, cmd/metacache-walk.go:60).
+        An object's directory is not descended into."""
+        base = self._check_vol(vol)
+        start = self._file_path(vol, prefix) if prefix else base
+        # The prefix may be a partial name: walk its parent and filter.
+        walk_root = start if os.path.isdir(start) else os.path.dirname(start)
+        if not os.path.isdir(walk_root):
+            return
+        for dirpath, dirnames, filenames in os.walk(walk_root):
+            dirnames.sort()
+            if XL_META_FILE in filenames:
+                rel = os.path.relpath(dirpath, base).replace(os.sep, "/")
+                if rel.startswith(prefix) or not prefix:
+                    try:
+                        with open(os.path.join(dirpath, XL_META_FILE),
+                                  "rb") as f:
+                            yield rel, f.read()
+                    except OSError:
+                        pass
+                dirnames[:] = []
 
     # -- versioned metadata --------------------------------------------------
 

@@ -61,6 +61,19 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_every_subpackage():
+    """Every subpackage of the port, cluster/ and parallel/ among them,
+    has its modules in the scan."""
+    subpackages = {p.parent.relative_to(PKG) for p in PKG.rglob("__init__.py")
+                   if (PKG / "build") not in p.parents}
+    scanned = {p.parent.relative_to(PKG) for p in SOURCES
+               if PKG in p.parents}
+    assert {Path("cluster"), Path("parallel")} <= subpackages <= scanned
+    for mod in ("cluster/nslock.py", "cluster/dynamic_timeout.py",
+                "parallel/pipeline.py", "storage/format.py"):
+        assert PKG / mod in SOURCES, mod
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 

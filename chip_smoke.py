@@ -60,18 +60,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    e. drive heal: a formatted set holding 16 mxh256 objects of 64 MiB,
       4 HighwayHash objects of 64 MiB + 300 KiB + 5 B, 32 inline
       objects, a multipart object and a versioned object with a delete
-      marker; a data-shard drive wiped whole; heal_format, heal_drive
+      marker (a versioned DELETE); a data-shard drive wiped whole; heal_format, heal_drive
       with four workers stopped after a third of the objects (the saved
       tracker checked) and resumed; every file of the drive back to its
       recorded SHA-256, launches equal to those the sizes call for, and
       every version read byte-exact with three other drives away.  Then
       pipelined and serial (MTPU_HEAL_PIPELINE=0), with four workers and
       with one, uninterrupted, each twice in turns on a fresh wipe.
+   f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
+      (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
+      versioned bucket of 2048 objects of 1-100 KiB, 96 of 4 MiB + 1 B
+      and 24 of 64 MiB (6 HighwayHash), about 2.1 GB: PUT with SipHash
+      placement checked, second versions, delete markers, a version
+      deleted by id, metadata updates, 1000-key pages listed cold and
+      warm and after a PUT, version histories, GET of every live object
+      by SHA-256, degraded GETs, a heal sequence after one drive of every
+      set was wiped (every file back to its SHA-256), GETs with other
+      drives away, a bucket emptied and deleted; launches equal to the
+      counts the sizes call for.  The 64 MiB objects also go through one
+      ErasureSet alone, for what the layers add.
 6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
    device's busy share over one 64 MiB PUT + GET (torch.profiler).
 
-The line before the last is the kernels' JSON record, whose launches
-are the main paths'; the last line is {"ok": true, "device": {...}}.
+Launch counts are read for gf_matmul, hh256 and mxh256 (its calls on the
+card; it is not a hand-written kernel and has no record).  The line
+before the last is the kernels' JSON record, whose launches are the main
+paths'; the last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -120,6 +134,16 @@ DRIVE_HEAL_OBJECT = OBJECT_BYTES
 DRIVE_HEAL_TAIL_OBJECT = TAIL_OBJECT_BYTES
 DRIVE_HEAL_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
+# The object-layer deployment (phase 5f): MinIO's
+# MINIO_ERASURE_SET_DRIVE_COUNT=12 with MINIO_STORAGE_CLASS_STANDARD=EC:4,
+# one pool of LAYER_SETS sets; a versioned bucket of LAYER_SMALL objects
+# of LAYER_SMALL_BYTES (inline), LAYER_MID of LAYER_MID_BYTES (a ragged
+# tail block) and LAYER_BIG of LAYER_BIG_BYTES, LAYER_BIG_HH of them
+# under highwayhash256S.
+LAYER_SETS, LAYER_SET_DRIVES = 4, 12
+LAYER_SMALL, LAYER_SMALL_BYTES = 2048, (1024, 100 * 1024)
+LAYER_MID, LAYER_MID_BYTES = 96, 4 * MIB + 1
+LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 24, 6, OBJECT_BYTES
 
 
 def card_line() -> str:
@@ -536,9 +560,15 @@ def phase_kernel(torch, ec, et, gen, card, baseline):
     return rec
 
 
-def phase_mxh(torch, mxhash, mt, gen, card):
+def phase_mxh(torch, mxhash, mt, gen, card) -> dict:
+    """mxh256 at one PUT batch's shape against the numpy spec; its time
+    beside its bound (each input byte read once, each digest written
+    once; its int8 operations are far below), and the time of one tree
+    level as PyTorch's int8 matmul (torch._int_mm) where it takes the
+    shape, checked equal to that level."""
     dev = torch.device("cuda", 0)
-    x = torch.randint(0, 256, (12 * 32, 131072), dtype=torch.uint8,
+    n, length = 12 * 32, 131072
+    x = torch.randint(0, 256, (n, length), dtype=torch.uint8,
                       device=dev, generator=gen)
     got = mt.mxh256_rows(x)
     torch.cuda.synchronize()
@@ -546,11 +576,38 @@ def phase_mxh(torch, mxhash, mt, gen, card):
     ok = bool((got.cpu().numpy() == want).all())
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
     ms = time_ms(torch, lambda: mt.mxh256_rows(x), 10, flush)
+    bytes_ms = (n * length + n * 32) / HBM_BYTES_PER_S * 1e3
+    ops = 0
+    width = length
+    while width > 32:                   # 256 x 8 int8 MACs per chunk
+        chunks = -(-width // 256)
+        ops += n * chunks * 256 * 8 * 2
+        width = chunks * 32
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    lib_ms, lib_note = None, ""
+    a = x.reshape(-1, 256).view(torch.int8)
+    m = torch.from_numpy(mxhash.matrix_a().astype("int8")).to(dev)
+    try:
+        level = torch._int_mm(a, m)
+        torch.cuda.synchronize()
+        if not torch.equal(level.view(torch.uint8).reshape(n, -1),
+                           mt._level(x)):
+            raise SystemExit("torch._int_mm's level differs from mxh256's")
+        lib_ms = time_ms(torch, lambda: torch._int_mm(a, m), 10, flush)
+    except Exception as e:  # noqa: BLE001 — a library probe, reported
+        lib_note = f" (torch._int_mm refused the shape: {e})"
     print(f"[mxh256] (384, 131072) on the card == numpy spec: {ok}; "
           f"float64 tree levels {ms:.4f} ms median of 10 "
-          f"({x.numel() / ms / 1e6:.2f} GB/s); card {card}")
+          f"({x.numel() / ms / 1e6:.2f} GB/s); bound {max(bytes_ms, ops_ms):.4f}"
+          f" ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
+          f"(operations {ops_ms:.4f} ms); one level as torch._int_mm "
+          f"(196608, 256) x (256, 8) int8 -> int32: "
+          f"{'not measured' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+          f"{lib_note}; card {card}")
     if not ok:
         raise SystemExit("mxh256 on the card disagrees with the spec")
+    return {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
+            "library_ms": lib_ms}
 
 
 def hh_updates(length: int) -> int:
@@ -998,11 +1055,12 @@ def phase_multipart(args, counts, card):
 
 def _drive_hashes(root) -> dict:
     """SHA-256 of every file under one drive directory but the staging
-    area and the heal tracker, by path."""
+    area, the listing cache and the heal tracker, by path."""
     out = {}
     for dirpath, _, files in os.walk(root):
         rel_dir = os.path.relpath(dirpath, root)
-        if rel_dir.split(os.sep)[:2] == [".mtpu.sys", "tmp"]:
+        if rel_dir.split(os.sep)[:2] in ([".mtpu.sys", "tmp"],
+                                         [".mtpu.sys", "metacache"]):
             continue
         for name in files:
             rel = os.path.normpath(os.path.join(rel_dir, name))
@@ -1013,7 +1071,7 @@ def _drive_hashes(root) -> dict:
     return out
 
 
-def _drive_heal_deployment(es, rng, new_uuid, FileInfo):
+def _drive_heal_deployment(es, rng):
     """Write the drive-heal deployment; returns {(bucket, name,
     version id): (FileInfo, body seed, size)} of every object version
     (body seed None for the delete marker; for the multipart object, the
@@ -1053,40 +1111,48 @@ def _drive_heal_deployment(es, rng, new_uuid, FileInfo):
         fi = es.put_object("b", "v", body(seed, n), versioned=True)
         versions["b", "v", fi.version_id] = (fi, seed, n)
         seed += 1
-    # A delete marker: the port's DELETE takes no versioned mode yet, so
-    # it is written into every drive's xl.meta as the JAX package's
-    # versioned DELETE writes it.
-    dm = FileInfo(volume="b", name="v", version_id=new_uuid(),
-                  mod_time_ns=time.time_ns(), deleted=True)
-    for d in es.drives:
-        d.write_metadata("b", "v", dm)
+    dm = es.delete_object("b", "v", versioned=True)       # a delete marker
+    if not dm.deleted:
+        raise SystemExit("versioned DELETE wrote no delete marker")
     versions["b", "v", dm.version_id] = (dm, None, 0)
     return versions
 
 
-def _expected_heal_launches(versions, pos) -> dict[str, int]:
-    """Launches of each kernel when every version is healed onto drive
-    `pos` once, from the sizes alone: per batch of up to 32 full frames,
-    and per tail frame, one GF rebuild, and for HighwayHash parts one
-    digest of the sources and one of the rebuilt rows; an inline object
-    is read (a GF rebuild only if `pos` held a data shard) and encoded
-    again (one GF encode; mxh256 digests are not counted)."""
-    gf = hh = 0
-    for fi, _, _ in versions.values():
+def _digest(algo: str) -> str:
+    """The launch count a digest of `algo` adds to."""
+    return "hh256" if algo == HH else "mxh256"
+
+
+def _expected_heal_launches(fis, pos) -> dict[str, int]:
+    """Launches of each kernel (and mxh256 calls) when every version in
+    `fis` is healed onto drive `pos` once, from the sizes alone: per
+    batch of up to 32 full frames, and per tail frame, one GF rebuild and
+    two digests (of the sources and of the rebuilt rows); an inline
+    object is read (a GF rebuild only if `pos` held a data shard) and
+    encoded again (one GF encode), one digest each."""
+    want = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+    for fi in fis:
         if fi.deleted:
             continue
         ec = fi.erasure
         if fi.inline_data is not None or not fi.data_dir:
-            gf += 1 + (ec.distribution[pos] - 1 < ec.data_blocks)
-            hh += 2 if ec.bitrot_algo() == HH else 0
+            want["gf_matmul"] += 1 + (ec.distribution[pos] - 1
+                                      < ec.data_blocks)
+            want[_digest(ec.bitrot_algo())] += 2
             continue
         for part in fi.parts:
             full, tail = divmod(part.size, MIB)
             batches = -(-full // 32) + (1 if tail else 0)
-            gf += batches
-            if ec.bitrot_algo(part.number) == HH:
-                hh += 2 * batches
-    return {"gf_matmul": gf, "hh256": hh}
+            want["gf_matmul"] += batches
+            want[_digest(ec.bitrot_algo(part.number))] += 2 * batches
+    return want
+
+
+def _check_launches(path: str, got: dict, want: dict) -> None:
+    """Fail unless both kernels' launches equal the counts the sizes
+    call for; mxh256's calls are reported beside theirs, not held."""
+    if any(got[k] != want[k] for k in ("gf_matmul", "hh256")):
+        raise SystemExit(f"{path} launches {got} != {want}")
 
 
 def phase_drive_heal(args, counts, card):
@@ -1105,7 +1171,6 @@ def phase_drive_heal(args, counts, card):
     from minio_tpu_torch.storage import format as fmt
     from minio_tpu_torch.storage.drive import LocalDrive
     from minio_tpu_torch.storage.errors import ErrObjectNotFound
-    from minio_tpu_torch.storage.xlmeta import FileInfo, new_uuid
     import numpy as np
 
     root = _tmp_root("chip_smoke-drive-heal-", need_bytes=8 << 30)
@@ -1116,13 +1181,14 @@ def phase_drive_heal(args, counts, card):
     real_heal_object = heal.heal_object
     runs = {}
     try:
-        versions = _drive_heal_deployment(es, rng, new_uuid, FileInfo)
+        versions = _drive_heal_deployment(es, rng)
         n_objects = len({(b, o) for b, o, _ in versions})
         golden = {p: _drive_hashes(d.root) for p, d in enumerate(es.drives)}
         first = versions["a", "m00", ""][0]
         pos = Q.shuffle_by_distribution(list(range(12)),
                                         first.erasure.distribution)[0]
-        want = _expected_heal_launches(versions, pos)
+        want = _expected_heal_launches(
+            (fi for fi, _, _ in versions.values()), pos)
 
         def wipe_and_heal(workers, interrupt):
             _wipe(es, LocalDrive, [pos])
@@ -1167,9 +1233,8 @@ def phase_drive_heal(args, counts, card):
                     t.objects_healed != len(versions):
                 raise SystemExit(f"heal_drive: {t}, {len(versions)} object "
                                  "versions on the drive")
-            if launches != want:
-                raise SystemExit(f"heal_drive launches {launches} != "
-                                 f"{want} (workers {workers})")
+            _check_launches(f"heal_drive ({workers} workers)", launches,
+                            want)
             if _drive_hashes(es.drives[pos].root) != golden[pos]:
                 raise SystemExit("a file of the healed drive differs from "
                                  "its recorded SHA-256")
@@ -1231,6 +1296,396 @@ def phase_drive_heal(args, counts, card):
         for turn, r in enumerate(rs):
             line(f"{name}, turn {turn + 1} of 2", r)
     return main["launches"]
+
+
+def _put_calls(size: int) -> int:
+    """Device calls (one GF encode and one digest each) of a PUT of
+    `size` bytes: one per batch of up to 32 full blocks, one for the
+    ragged tail block; an inline object is its tail block alone."""
+    full, tail = divmod(size, MIB)
+    return -(-full // 32) + (1 if tail else 0)
+
+
+def _get_calls(fi) -> int:
+    """Device calls (one digest each, and one GF rebuild when a data
+    shard is missing) of a whole-object GET: per segment of up to 32 MiB,
+    one for its full blocks and one for a tail block."""
+    if fi.size == 0:
+        return 0
+    if not fi.data_dir:
+        return 1                       # inline: one (tail) block
+    calls = 0
+    for part in fi.parts:
+        full = part.size // MIB
+        for seg in range(0, part.size, 32 * MIB):
+            b0 = seg // MIB
+            b1 = -(-min(part.size, seg + 32 * MIB) // MIB)
+            calls += (min(b1, full) > b0) + (b1 > full)
+    return calls
+
+
+def _holds_data(fi, positions) -> bool:
+    """Whether any of the drive positions holds a data shard of fi."""
+    ec = fi.erasure
+    return any(ec.distribution[p] - 1 < ec.data_blocks for p in positions)
+
+
+def phase_object_layer(args, counts, card):
+    """The object layer a server stands on: one ServerPools of one pool,
+    LAYER_SETS sets x LAYER_SET_DRIVES drives, EC:8+4 (MinIO's
+    MINIO_ERASURE_SET_DRIVE_COUNT=12 with MINIO_STORAGE_CLASS_STANDARD=
+    EC:4), a versioned bucket of small, 4 MiB + 1 B and 64 MiB objects.
+    PUT (placement checked against SipHash), second versions, delete
+    markers, a version deleted by id, metadata updates, paged listings
+    cold and warm and after a PUT, version histories, GET of every live
+    object by SHA-256, degraded GETs, a heal sequence after one drive of
+    every set was wiped (every file back to its SHA-256), GETs with other
+    drives away, and a second bucket emptied and deleted.  Both kernels'
+    launches must equal the counts the sizes call for.  Beforehand, the
+    64 MiB objects go through one ErasureSet alone, to show what the
+    layers add."""
+    import uuid
+
+    from minio_tpu_torch.background.heal_ops import HealState
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.storage.errors import ErrObjectNotFound
+    from minio_tpu_torch.utils.siphash import sip_hash_mod
+    import numpy as np
+
+    n_sets, n_drives = LAYER_SETS, LAYER_SET_DRIVES
+    rng = np.random.default_rng(args.seed + 4)
+    small = rng.integers(LAYER_SMALL_BYTES[0], LAYER_SMALL_BYTES[1] + 1,
+                         LAYER_SMALL)
+    specs = ([(f"small/{i:04d}", int(n), "mxh256")
+              for i, n in enumerate(small)]
+             + [(f"mid/{i:03d}", LAYER_MID_BYTES, "mxh256")
+                for i in range(LAYER_MID)]
+             + [(f"big/{i:02d}", LAYER_BIG_BYTES,
+                 HH if i < LAYER_BIG_HH else "mxh256")
+                for i in range(LAYER_BIG)])
+    total = sum(n for _, n, _ in specs)
+    # On the drives: each version's shards (12/8 of its bytes) plus one
+    # in ten overwritten; the one-set comparison is gone before that.
+    need = int(total * 1.5 * 1.25) + (1 << 30)
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        free = (shutil.disk_usage("/dev/shm").free
+                if os.path.isdir("/dev/shm") else 0)
+        raise SystemExit(f"object layer: needs {need} bytes free on "
+                         f"/dev/shm, has {free}")
+    root = tempfile.mkdtemp(prefix="chip_smoke-layer-", dir="/dev/shm")
+
+    def body(seed, n):
+        return np.random.default_rng(seed).bytes(n)
+
+    def put_algo(algo):
+        os.environ["MTPU_BITROT_ALGO"] = algo
+
+    big = [(name, n, algo, i) for i, (name, n, algo) in enumerate(specs)
+           if name.startswith("big/")]
+    started = time.perf_counter()
+    big_bytes = sum(n for _, n, _, _ in big)
+    rates = {}
+    pools = None
+    try:
+        # The 64 MiB objects through one ErasureSet of 12 drives alone.
+        with ErasureSet([LocalDrive(os.path.join(root, "one", f"d{i}"))
+                         for i in range(n_drives)],
+                        default_parity=4) as es:
+            es.make_bucket("v")
+            put_s = get_s = 0.0
+            for name, n, algo, seed in big:
+                data = body(seed, n)
+                put_algo(algo)
+                t0 = time.perf_counter()
+                es.put_object("v", name, data, versioned=True)
+                put_s += time.perf_counter() - t0
+            os.environ.pop("MTPU_BITROT_ALGO", None)
+            for name, n, algo, seed in big:
+                t0 = time.perf_counter()
+                got = es.get_object("v", name)[1]
+                get_s += time.perf_counter() - t0
+                if hashlib.sha256(got).digest() != \
+                        hashlib.sha256(body(seed, n)).digest():
+                    raise SystemExit(f"one set: GET {name} differs")
+            rates["one set"] = (big_bytes / put_s / 1e9,
+                                big_bytes / get_s / 1e9)
+        shutil.rmtree(os.path.join(root, "one"))
+
+        drives = [LocalDrive(os.path.join(root, f"d{i:02d}"))
+                  for i in range(n_sets * n_drives)]
+        pools = ServerPools([ErasureSets(drives, set_drive_count=n_drives,
+                                         default_parity=4)])
+        sets = pools.pools[0].sets
+        dep_key = uuid.UUID(pools.deployment_id).bytes
+        pools.make_bucket("v")
+        counts.reset()                        # the main path starts here
+        want = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+
+        def expect(calls, algo, gf):
+            want["gf_matmul"] += calls * gf
+            want[_digest(algo)] += calls
+
+        latest = {}                # name -> (fi, sha256, algo) of latest
+        sizes_of = {}              # (name, version id) -> size
+        times = {}
+        t_small = t_big = 0.0
+        for seed, (name, n, algo) in enumerate(specs):
+            data = body(seed, n)
+            put_algo(algo)
+            t0 = time.perf_counter()
+            fi = pools.put_object("v", name, data, versioned=True)
+            dt = time.perf_counter() - t0
+            if name.startswith("small/"):
+                t_small += dt
+            elif name.startswith("big/"):
+                t_big += dt
+            latest[name] = (fi, hashlib.sha256(data).digest(), algo)
+            sizes_of[name, fi.version_id] = n
+            expect(_put_calls(n), algo, 1)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        get_s = 0.0
+        for name, _, algo, _ in big:
+            fi, digest, _ = latest[name]
+            t0 = time.perf_counter()
+            got = pools.get_object("v", name)[1]
+            get_s += time.perf_counter() - t0
+            if hashlib.sha256(got).digest() != digest:
+                raise SystemExit(f"pools: GET {name} differs")
+            expect(_get_calls(fi), algo, 0)
+        rates["pools"] = (big_bytes / t_big / 1e9, big_bytes / get_s / 1e9)
+        times["small PUT ops/s"] = LAYER_SMALL / t_small
+
+        # Placement: each name on the set SipHash names, every set used.
+        per_set = [0] * n_sets
+        for name in latest:
+            idx = sip_hash_mod(name, n_sets, dep_key)
+            per_set[idx] += 1
+            here = [os.path.isfile(os.path.join(
+                s.drives[0].root, "v", name, "xl.meta")) for s in sets]
+            if here != [i == idx for i in range(n_sets)]:
+                raise SystemExit(f"{name} is not (only) on set {idx}")
+        if min(per_set) == 0:
+            raise SystemExit(f"a set holds no object: {per_set}")
+
+        # Second versions of one object in ten, delete markers on
+        # another one in ten, one older version deleted by id.
+        names = list(latest)
+        overwritten = names[3::10]
+        marked = names[7::10]
+        history = {name: [latest[name][0].version_id] for name in names}
+        for name in overwritten:
+            seed = 100_000 + names.index(name)
+            n = sizes_of[name, history[name][0]]
+            algo = latest[name][2]
+            data = body(seed, n)
+            put_algo(algo)
+            fi = pools.put_object("v", name, data, versioned=True)
+            latest[name] = (fi, hashlib.sha256(data).digest(), algo)
+            sizes_of[name, fi.version_id] = n
+            history[name].insert(0, fi.version_id)
+            expect(_put_calls(n), algo, 1)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        for name in marked:
+            dm = pools.delete_object("v", name, versioned=True)
+            if not dm.deleted:
+                raise SystemExit(f"DELETE {name}: no delete marker")
+            history[name].insert(0, dm.version_id)
+            del latest[name]
+        trimmed = overwritten[0]
+        pools.delete_object("v", trimmed, version_id=history[trimmed][1])
+        history[trimmed].pop(1)
+
+        # Metadata updates, read back.
+        for name in overwritten[1:9]:
+            fi = pools.head_object("v", name)
+            fi.metadata["x-amz-meta-smoke"] = name
+            pools.update_object_metadata("v", name, fi)
+            if pools.head_object("v", name).metadata.get(
+                    "x-amz-meta-smoke") != name:
+                raise SystemExit(f"metadata update of {name} not read back")
+
+        # Paged listings, cold (the walk) and warm (the metacache).
+        def list_all():
+            out, marker, page_ms = [], "", []
+            while True:
+                t0 = time.perf_counter()
+                page = pools.list_objects("v", marker=marker, max_keys=1000)
+                page_ms.append((time.perf_counter() - t0) * 1e3)
+                if not page:
+                    return out, page_ms
+                out += [fi.name for fi in page]
+                marker = page[-1].name
+
+        live = sorted(latest)
+        walks = sum(s.metacache.walks for s in sets)
+        cold, cold_ms = list_all()
+        walked = sum(s.metacache.walks for s in sets) - walks
+        warm, warm_ms = list_all()
+        if cold != live or warm != live:
+            raise SystemExit("listing differs from the live names")
+        if sum(s.metacache.walks for s in sets) != walks + walked:
+            raise SystemExit("the warm listing walked the drives again")
+        data = body(200_000, 4321)
+        fi = pools.put_object("v", "new/after-listing", data,
+                              versioned=True)
+        latest["new/after-listing"] = (fi, hashlib.sha256(data).digest(),
+                                       "mxh256")
+        history["new/after-listing"] = [fi.version_id]
+        sizes_of["new/after-listing", fi.version_id] = len(data)
+        expect(_put_calls(len(data)), "mxh256", 1)
+        if list_all()[0] != sorted(latest):
+            raise SystemExit("a PUT after the listing is not listed")
+
+        # Version histories of every overwritten or marked object.
+        t0 = time.perf_counter()
+        for name in overwritten + marked:
+            vers = pools.list_object_versions("v", name)
+            if [v.version_id for v in vers] != history[name] or \
+                    vers[0].deleted != (name in marked):
+                raise SystemExit(f"versions of {name}: "
+                                 f"{[v.version_id for v in vers]}")
+        vers_ms = (time.perf_counter() - t0) * 1e3 / len(overwritten + marked)
+
+        # GET every live object; degraded GETs on set 0 with two of each
+        # object's data-shard drives away.
+        def get_all(away_of):
+            for name, (fi, digest, algo) in latest.items():
+                es = pools.pools[0].set_for(name)
+                away = away_of(es, fi)
+                saved = list(es.drives)
+                for p in away:
+                    es.drives[p] = None
+                try:
+                    got = pools.get_object("v", name)[1]
+                finally:
+                    es.drives = saved
+                if hashlib.sha256(got).digest() != digest:
+                    raise SystemExit(f"GET {name} (drives {away} away) "
+                                     "differs")
+                expect(_get_calls(fi), algo, _holds_data(fi, away))
+
+        get_all(lambda es, fi: ())
+        set0 = [name for name in latest
+                if pools.pools[0].set_for(name) is sets[0]]
+        degraded = [n for n in set0 if not n.startswith("small/")] + \
+            [n for n in set0 if n.startswith("small/")][:64]
+        for name in degraded:
+            fi, digest, algo = latest[name]
+            order = Q.shuffle_by_distribution(list(range(n_drives)),
+                                              fi.erasure.distribution)
+            saved = list(sets[0].drives)
+            for p in order[:2]:
+                sets[0].drives[p] = None
+            try:
+                got = pools.get_object("v", name)[1]
+            finally:
+                sets[0].drives = saved
+            if hashlib.sha256(got).digest() != digest:
+                raise SystemExit(f"degraded GET {name} differs")
+            expect(_get_calls(fi), algo, 1)
+
+        # One drive of every set wiped; a full heal sequence.
+        wiped = [(5 * i) % n_drives for i in range(n_sets)]
+        golden = {i: _drive_hashes(s.drives[wiped[i]].root)
+                  for i, s in enumerate(sets)}
+        for i, s in enumerate(sets):
+            _wipe(s, LocalDrive, [wiped[i]])
+        versions = {}              # every version left: (set, FileInfo)
+        for name in history:
+            s = pools.pools[0].set_for(name)
+            for v in pools.list_object_versions("v", name):
+                versions[name, v.version_id] = (sets.index(s), v)
+        for i in range(n_sets):
+            got = _expected_heal_launches(
+                (fi for si, fi in versions.values() if si == i), wiped[i])
+            for k in want:
+                want[k] += got[k]
+        heal_bytes = sum(sizes_of[key] for key, (_, fi) in versions.items()
+                         if not fi.deleted)
+        t0 = time.perf_counter()
+        seq = HealState(pools).launch()
+        seq.wait()
+        heal_s = time.perf_counter() - t0
+        st = seq.status()
+        if st["state"] != "done" or st["failures"] or \
+                st["scanned"] != len(history) or \
+                st["healed"] != len(history):
+            raise SystemExit(f"heal sequence: {st}, {len(history)} objects")
+        for i, s in enumerate(sets):
+            if _drive_hashes(s.drives[wiped[i]].root) != golden[i]:
+                raise SystemExit(f"set {i} drive {wiped[i]}: a healed file "
+                                 "differs from its recorded SHA-256")
+        others = {id(s): [(wiped[i] + 1) % n_drives,
+                          (wiped[i] + 2) % n_drives]
+                  for i, s in enumerate(sets)}
+        get_all(lambda es, fi: others[id(es)])
+
+        # A second bucket, emptied and deleted.
+        pools.make_bucket("w")
+        for i in range(3):
+            data = body(300_000 + i, 2000 + i)
+            pools.put_object("w", f"t{i}", data)
+            expect(_put_calls(len(data)), "mxh256", 1)
+        for i in range(3):
+            pools.delete_object("w", f"t{i}")
+        pools.delete_bucket("w")
+        if "w" in pools.list_buckets():
+            raise SystemExit("delete_bucket left the bucket")
+        try:
+            pools.head_object("v", marked[0])
+            raise SystemExit("a delete-marked object is still served")
+        except ErrObjectNotFound:
+            pass
+        launches = counts.read()              # the main path ends here
+        _check_launches("object layer", launches, want)
+    finally:
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        if pools is not None:
+            pools.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+    n_pages = len(cold_ms) - 1            # the last call returns no key
+    print(f"[object layer] ServerPools, 1 pool, {n_sets} sets x {n_drives} "
+          f"drives, EC:8+4, bucket v versioned: {len(specs)} objects "
+          f"({LAYER_SMALL} of 1-100 KiB, {LAYER_MID} of {LAYER_MID_BYTES} "
+          f"B, {LAYER_BIG} of {LAYER_BIG_BYTES} B, {LAYER_BIG_HH} of them "
+          f"{HH}), {total} bytes; per set {per_set} (SipHash placement "
+          f"checked); {len(overwritten)} second versions, {len(marked)} "
+          f"delete markers, 1 version deleted by id, 8 metadata updates; "
+          f"card {card}")
+    print(f"[object layer] {LAYER_BIG_BYTES} B objects ({len(big)}, "
+          f"{big_bytes} bytes): "
+          f"PUT {rates['pools'][0]:.3f} GB/s, GET {rates['pools'][1]:.3f} "
+          f"GB/s through ServerPools; PUT {rates['one set'][0]:.3f} GB/s, "
+          f"GET {rates['one set'][1]:.3f} GB/s through one ErasureSet "
+          f"(host clock); card {card}")
+    print(f"[object layer] small-object PUT {times['small PUT ops/s']:.1f} "
+          f"operations/s (host clock); card {card}")
+    print(f"[object layer] list_objects, {len(live)} live names in "
+          f"{n_pages} pages of 1000: cold "
+          f"{sum(cold_ms[:n_pages]) / n_pages:.3f} ms a page (first "
+          f"{cold_ms[0]:.3f} ms), warm {sum(warm_ms[:n_pages]) / n_pages:.3f}"
+          f" ms a page (metacache hit); delete "
+          f"markers hidden; a PUT after it listed; card {card}")
+    print(f"[object layer] list_object_versions "
+          f"{vers_ms:.3f} ms per object over {len(overwritten + marked)} "
+          f"objects; card {card}")
+    print(f"[object layer] heal sequence after drives {wiped} of sets 0-"
+          f"{n_sets - 1} wiped: {heal_bytes / heal_s / 1e9:.3f} GB/s "
+          f"({heal_bytes} object bytes of {len(versions)} versions in "
+          f"{heal_s:.3f} s, host clock), {st['scanned']} items scanned, "
+          f"{st['healed']} healed; every file back to its SHA-256; every "
+          f"live object byte-exact with two other drives of each set away; "
+          f"card {card}")
+    print(f"[object layer] launches {launches}, expected from the sizes "
+          f"{want}; the phase took {time.perf_counter() - started:.1f} s; "
+          f"card {card}")
+    return launches
 
 
 def phase_layers(torch, card, dev):
@@ -1399,11 +1854,11 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     records = [phase_kernel(torch, ec, et, gen, card, gf_baseline)]
-    phase_mxh(torch, mxhash, mt, gen, card)
+    mxh = phase_mxh(torch, mxhash, mt, gen, card)
     records.append(phase_hh_kernel(torch, hc, ht, spec, gen, card, loops,
                                    baseline))
 
-    counts = Launches({"gf_matmul": ec, "hh256": hc})
+    counts = Launches({"gf_matmul": ec, "hh256": hc, "mxh256": mt})
     paths = {
         "mxh256 slice": lambda: phase_slice(
             args, counts, card, "mxh256",
@@ -1413,9 +1868,14 @@ def main() -> int:
         "heal": lambda: phase_heal(args, counts, card),
         "multipart": lambda: phase_multipart(args, counts, card),
         "drive heal": lambda: phase_drive_heal(args, counts, card),
+        "object layer": lambda: phase_object_layer(args, counts, card),
     }
     per_path = {name: run() for name, run in paths.items()}
     print(f"[launches] per main path: {per_path}")
+    calls = sum(p["mxh256"] for p in per_path.values())
+    print(f"[mxh256] calls on the main paths {calls}; loss {calls} x "
+          f"({mxh['ms']:.4f} - {mxh['bound_ms']:.4f}) = "
+          f"{calls * (mxh['ms'] - mxh['bound_ms']):.2f} ms; card {card}")
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

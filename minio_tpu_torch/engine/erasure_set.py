@@ -1,9 +1,13 @@
 """One erasure set on the GPU: quorum CRUD over a stripe of N local drives.
 
-Counterpart of minio_tpu/engine/erasure_set.py, cut to the erasure data
-path: `make_bucket`, `put_object`, `get_object` (whole and ranged, healthy
-and degraded, single- and multi-part), `head_object` and `delete_object`;
-engine/heal.py and engine/multipart.py build on it.  The on-disk state is
+Counterpart of minio_tpu/engine/erasure_set.py, cut to the object API a
+server stands on: buckets (`make_bucket`, `delete_bucket`, listing),
+`put_object`, `get_object` (whole and ranged, healthy and degraded,
+single- and multi-part), `head_object`, `update_object_metadata`,
+`delete_object` (a version, or a delete marker when versioned), and the
+listings (`list_objects` through engine/metacache.py, `list_object_names`,
+`list_object_versions`); engine/heal.py, engine/multipart.py and
+engine/sets.py build on it.  The on-disk state is
 the JAX package's, byte for byte, so either package reads what the other
 wrote.
 
@@ -30,13 +34,15 @@ The device is explicit: `device=None` is the CUDA card
 host, and without CUDA the constructor raises.
 
 PUT and DELETE hold the object's namespace write lock
-(cluster/nslock.py), as multipart completion and heal do.
+(cluster/nslock.py), as multipart completion and heal do.  Every
+mutation calls `_mark_dirty`, which bumps the bucket's metacache
+generation, so no listing is served from a cache taken before it.
 
 Left out of this slice (each has a byte-identical off switch in the JAX
 package, so the bytes do not depend on it): the cross-request coalescer,
 the device shard cache, the hot-object cache, metadata lanes, hedged
-reads, zero-copy IO, the multi-device mesh codec, delete markers and
-legacy xl.json objects.
+reads, zero-copy IO, the multi-device mesh codec and legacy xl.json
+objects.
 """
 
 from __future__ import annotations
@@ -60,10 +66,11 @@ from ..storage.errors import (ErrBucketExists, ErrBucketNotFound,
                               ErrObjectNotFound, ErrVersionNotFound,
                               ErrVolumeExists, ErrVolumeNotFound,
                               StorageError)
-from ..storage.xlmeta import (ErasureInfo, FileInfo, ObjectPartInfo,
+from ..storage.xlmeta import (ErasureInfo, FileInfo, ObjectPartInfo, XLMeta,
                               new_uuid, normalize_version_id)
 from ..utils import streams
 from . import quorum as Q
+from .metacache import Metacache
 
 BLOCK_SIZE = 1 << 20          # blockSizeV2, cmd/object-api-common.go:40
 BATCH_BLOCKS = 32             # 1 MiB blocks per device call (32 MiB data)
@@ -71,6 +78,12 @@ BATCH_BLOCKS = 32             # 1 MiB blocks per device call (32 MiB data)
 #: JAX package's ErasureSet._SERIAL_FANOUT); heal runs one object at a
 #: time there.
 SERIAL_FANOUT = (os.cpu_count() or 2) == 1
+#: Seconds a positive bucket-existence answer serves the PUT pre-check.
+_BUCKET_CACHE_TTL = 2.0
+
+
+def _now_ns() -> int:
+    return time.time_ns()
 
 
 class ErasureSet:
@@ -96,6 +109,12 @@ class ErasureSet:
         # Object mutations hold the object's write lock (cf. NSLock at
         # cmd/erasure-object.go:930); one process, so in-process locks.
         self.nslock = NSLockMap() if nslock is None else nslock
+        self._bucket_cache: dict[str, float] = {}
+        self.metacache = Metacache(self)
+
+    def _mark_dirty(self, bucket: str) -> None:
+        """A mutation of `bucket`: its cached listings are stale."""
+        self.metacache.bump(bucket)
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
@@ -158,9 +177,38 @@ class ErasureSet:
         quorum = self._live_quorum()
         return sorted(v for v, c in counts.items() if c >= quorum)
 
-    def bucket_exists(self, bucket: str) -> bool:
+    def bucket_exists(self, bucket: str, cached: bool = False) -> bool:
+        """Whether a live quorum of drives holds the bucket.  `cached`
+        serves the PUT pre-check from a recent positive answer (the
+        write itself still fails on a drive without the volume); other
+        callers always stat."""
+        now = time.monotonic()
+        if cached:
+            hit = self._bucket_cache.get(bucket)
+            if hit is not None and now - hit < _BUCKET_CACHE_TTL:
+                return True
         res = self._map_positions(lambda pos, d: d.stat_volume(bucket))
-        return sum(1 for _, e in res if e is None) >= self._live_quorum()
+        exists = sum(1 for _, e in res if e is None) >= self._live_quorum()
+        if exists:
+            self._bucket_cache[bucket] = now
+        else:
+            self._bucket_cache.pop(bucket, None)
+        return exists
+
+    def delete_bucket(self, bucket: str, force: bool = False) -> None:
+        """Remove the bucket from every drive: an empty one, or with
+        `force` whatever it holds (cf. DeleteBucket,
+        cmd/erasure-bucket.go)."""
+        self._bucket_cache.pop(bucket, None)
+        errs = [e for _, e in self._map_drives(
+            lambda d: d.delete_volume(bucket, force=force))]
+        if errs and all(isinstance(e, ErrVolumeNotFound) for e in errs):
+            raise ErrBucketNotFound(bucket)
+        errs = [None if isinstance(e, ErrVolumeNotFound) else e for e in errs]
+        err = Q.reduce_write_quorum_errs(errs, self.n // 2 + 1)
+        if err is not None:
+            raise err
+        self._mark_dirty(bucket)
 
     # -- put -------------------------------------------------------------------
 
@@ -180,13 +228,15 @@ class ErasureSet:
         override the generated identity (and a preserved timestamp never
         replaces a newer version).
         """
-        if not self.bucket_exists(bucket):
+        if not self.bucket_exists(bucket, cached=True):
             raise ErrBucketNotFound(bucket)
         with self.nslock.write_locked(bucket, obj):
-            return self._put_object_locked(
+            fi = self._put_object_locked(
                 bucket, obj, data, metadata=metadata, versioned=versioned,
                 parity=parity, version_id=version_id,
                 mod_time_ns=mod_time_ns)
+        self._mark_dirty(bucket)
+        return fi
 
     def _put_object_locked(self, bucket, obj, data, *, metadata, versioned,
                            parity, version_id, mod_time_ns) -> FileInfo:
@@ -220,7 +270,7 @@ class ErasureSet:
         if version_id is None:
             version_id = new_uuid() if versioned else ""
         mod_time = (mod_time_ns if mod_time_ns is not None
-                    else time.time_ns())
+                    else _now_ns())
         if mod_time_ns is not None:
             try:
                 cur = self._read_metadata(bucket, obj, version_id)[0]
@@ -599,16 +649,60 @@ class ErasureSet:
             raise ErrObjectNotFound(f"{bucket}/{obj} (delete marker)")
         return fi
 
-    def delete_object(self, bucket: str, obj: str,
-                      version_id: str = "") -> None:
-        """Delete one version ("" = the null version) from every drive
-        (cf. DeleteObject, cmd/erasure-object.go:1038)."""
+    def update_object_metadata(self, bucket: str, obj: str,
+                               fi: FileInfo) -> None:
+        """Set `fi.metadata` on every drive's own copy of the version
+        (cf. updateObjectMetadata, cmd/erasure-object.go:1513).  Each
+        drive's xl.meta holds that drive's erasure index and, for a small
+        object, its own inline shard, so each drive's version is read,
+        given the new metadata and written back."""
+        def upd(d):
+            own = d.read_version(bucket, obj, fi.version_id)
+            own.metadata = dict(fi.metadata)
+            d.update_metadata(bucket, obj, own)
+        res = self._map_drives(upd)
+        # The write quorum of every other mutation: an update on a
+        # minority would lose the read election.
+        if sum(1 for _, e in res if e is None) < self.n // 2 + 1:
+            errs = [e for _, e in res if e is not None]
+            raise errs[0] if errs else ErrObjectNotFound(f"{bucket}/{obj}")
+        self._mark_dirty(bucket)
+
+    def delete_object(self, bucket: str, obj: str, version_id: str = "",
+                      versioned: bool = False) -> FileInfo | None:
+        """Delete one version ("" = the null version), or, when
+        `versioned` and no version is named, write a delete marker and
+        return it (cf. DeleteObject, cmd/erasure-object.go:1038)."""
         if not self.bucket_exists(bucket):
             raise ErrBucketNotFound(bucket)
-        vid = normalize_version_id(version_id)
         with self.nslock.write_locked(bucket, obj):
-            errs = [e for _, e in self._map_positions(
-                lambda pos, d: d.delete_version(bucket, obj, vid))]
+            return self._delete_object_locked(bucket, obj, version_id,
+                                              versioned)
+
+    def _delete_object_locked(self, bucket, obj, version_id,
+                              versioned) -> FileInfo | None:
+        write_quorum = self.n // 2 + 1
+        if versioned and version_id == "":
+            dm = FileInfo(volume=bucket, name=obj, version_id=new_uuid(),
+                          mod_time_ns=_now_ns(), deleted=True)
+
+            def mark(d):
+                try:
+                    d.delete_version(bucket, obj, mark_delete=True, fi=dm)
+                except ErrFileNotFound:
+                    # A marker on a name no version holds is legal.
+                    d.write_metadata(bucket, obj, dm)
+
+            err = Q.reduce_write_quorum_errs(
+                [e for _, e in self._map_drives(mark)], write_quorum)
+            if err is not None:
+                raise err
+            self._mark_dirty(bucket)
+            return dm
+
+        vid = normalize_version_id(version_id)
+        errs = [e for _, e in self._map_drives(
+            lambda d: d.delete_version(bucket, obj, vid))]
         nf = (ErrFileNotFound, ErrFileVersionNotFound)
         if errs and all(isinstance(e, nf) for e in errs):
             if any(isinstance(e, ErrFileVersionNotFound) for e in errs):
@@ -616,9 +710,89 @@ class ErasureSet:
             raise ErrObjectNotFound(f"{bucket}/{obj}")
         # A drive that never had the version counts as success.
         errs = [None if isinstance(e, nf) else e for e in errs]
-        err = Q.reduce_write_quorum_errs(errs, self.n // 2 + 1)
+        err = Q.reduce_write_quorum_errs(errs, write_quorum)
         if err is not None:
             raise err
+        self._mark_dirty(bucket)
+        return None
+
+    # -- listing ---------------------------------------------------------------
+
+    def list_objects(self, bucket: str, prefix: str = "",
+                     max_keys: int = 10000,
+                     marker: str = "") -> list[FileInfo]:
+        """One page of the quorum-merged listing of the latest live
+        versions, through the metacache (cf.
+        cmd/metacache-server-pool.go:59)."""
+        if not self.bucket_exists(bucket):
+            raise ErrBucketNotFound(bucket)
+        return self.metacache.list(bucket, prefix, marker, max_keys)
+
+    def list_object_names(self, bucket: str,
+                          prefix: str = "") -> list[str]:
+        """Every object name with any version on any drive, delete-marked
+        ones included (the version listing needs them)."""
+        names: set[str] = set()
+        for entries, e in self._map_drives(
+                lambda d: [n for n, _ in d.walk_dir(bucket, prefix)]):
+            if e is None:
+                names.update(entries)
+        return sorted(names)
+
+    def list_object_versions(self, bucket: str, obj: str) -> list[FileInfo]:
+        """The quorum-elected version history, newest first: each version
+        must be on enough drives' xl.meta, so a stale drive neither
+        serves a stale history nor brings back a deleted version (cf.
+        readAllFileInfo + findFileInfoInQuorum,
+        cmd/erasure-metadata-utils.go).
+
+        Objects in the legacy xl.json format are not read here: that
+        format waits for its module (storage/xlmeta_v1.py, ROADMAP.md
+        Queue A item 8), and an xl.meta object's history does not
+        depend on it."""
+        lists: list[list[FileInfo]] = []
+        for raw, err in self._map_drives(
+                lambda d: d.read_all(bucket, f"{obj}/xl.meta")):
+            if err is not None or raw is None:
+                continue
+            try:
+                lists.append(XLMeta.from_bytes(raw).list_versions(bucket,
+                                                                  obj))
+            except StorageError:
+                continue
+        if not lists:
+            raise ErrObjectNotFound(f"{bucket}/{obj}")
+        counts: dict[tuple, int] = {}
+        keep: dict[tuple, FileInfo] = {}
+        for lst in lists:
+            for fi in lst:
+                key = (fi.version_id, fi.mod_time_ns, fi.data_dir,
+                       fi.size, fi.deleted, fi.metadata.get("etag", ""))
+                counts[key] = counts.get(key, 0) + 1
+                keep.setdefault(key, fi)
+        # One read quorum for every version: the data blocks of the
+        # newest erasure-bearing version that at least half the drives
+        # hold (cf. objectQuorumFromMeta, cmd/erasure-metadata.go:389,
+        # and getLatestFileInfo, cmd/erasure-healing-common.go:196), so
+        # a version readable from k shards stays listable with k copies
+        # of its metadata, and one stale drive cannot set the quorum.
+        # A history of delete markers only takes a simple majority.
+        quorum = self.n // 2 + 1
+        trust_floor = max(self.n // 2, 1)
+        for key, fi in sorted(keep.items(),
+                              key=lambda kv: -kv[1].mod_time_ns):
+            if fi.erasure is not None and counts[key] >= trust_floor:
+                quorum = fi.erasure.data_blocks
+                break
+        if len(lists) < quorum:
+            raise ErrErasureReadQuorum(
+                f"{bucket}/{obj}: {len(lists)}/{self.n} version lists")
+        out = [keep[k] for k, c in counts.items() if c >= quorum]
+        if not out:
+            raise ErrObjectNotFound(f"{bucket}/{obj} (no version in "
+                                    "quorum)")
+        out.sort(key=lambda fi: (-fi.mod_time_ns, fi.version_id))
+        return out
 
 
 def _attempt(fn):

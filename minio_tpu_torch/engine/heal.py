@@ -35,11 +35,13 @@ JAX package's heal leaves:
   cmd/global-heal.go:166).  `heal_bucket_objects` heals a bucket or a
   prefix of it through the same pool.
 
-Left out of this slice: the device-parallel sweep over several sets
-(`sweep_sets_device_parallel`) and the background heal sequences, which
-need several sets; the QoS plane's throttling of heal workers; the JAX
-package's device shard cache and dispatch coalescer branches of the
-pipelined heal.
+- `sweep_sets_device_parallel` runs a job over the sets of a pool with
+  one thread per card, each running its card's sets in order
+  (engine/sets.py and background/heal_ops.py call it).
+
+Left out: the QoS plane's throttling of heal workers (ROADMAP.md Queue
+A item 7); the JAX package's device shard cache and dispatch coalescer
+branches of the pipelined heal.
 """
 
 from __future__ import annotations
@@ -239,8 +241,14 @@ def heal_object(es: ErasureSet, bucket: str, obj: str, version_id: str = "",
     # Heal rewrites shard files and metadata: the same write lock as PUT
     # and DELETE (cf. NSLock in healObject, cmd/erasure-healing.go:276).
     with es.nslock.write_locked(bucket, obj, timeout=30.0):
-        return [_heal_version(es, bucket, obj, vid, deep, dry_run,
-                              remove_dangling) for vid in vids]
+        results = [_heal_version(es, bucket, obj, vid, deep, dry_run,
+                                 remove_dangling) for vid in vids]
+        # Heal is a mutation: a listing must not be served from a cache
+        # taken before it.
+        if not dry_run and any(r.healed_drives or r.purged
+                               for r in results):
+            es._mark_dirty(bucket)
+        return results
 
 
 def _heal_version(es: ErasureSet, bucket: str, obj: str, version_id: str,
@@ -845,4 +853,60 @@ def heal_bucket_objects(es: ErasureSet, bucket: str, prefix: str = "",
     finally:
         if pool is not None:
             pool.shutdown(wait=True)
+    return results
+
+
+def device_parallel_enabled() -> bool:
+    """MTPU_HEAL_DEVICE_PARALLEL=0 makes every sweep the serial in-order
+    loop (read per call)."""
+    return os.environ.get("MTPU_HEAL_DEVICE_PARALLEL", "1") != "0"
+
+
+def sweep_sets_device_parallel(sets, job, stop: threading.Event | None = None):
+    """Run `job(es)` over every erasure set, the sets grouped by their
+    card (`es.device.index`): one thread per card runs its group's sets
+    in order, so sets on different cards heal at once while one card's
+    own jobs stay serial.  With one group, a stop request, or
+    MTPU_HEAL_DEVICE_PARALLEL=0, it is the plain in-order loop on the
+    caller's thread.
+
+    Returns {set_index: job result}.  The first exception of any group is
+    raised again after every group finished, so no set is skipped
+    because a set on another card failed."""
+    groups: dict = {}
+    for es in sets:
+        groups.setdefault(es.device.index, []).append(es)
+    results: dict[int, object] = {}
+    if not device_parallel_enabled() or len(groups) <= 1 or \
+            (stop is not None and stop.is_set()):
+        for es in sets:
+            if stop is not None and stop.is_set():
+                break
+            results[es.set_index] = job(es)
+        return results
+    mu = threading.Lock()
+    errors: list[BaseException] = []
+
+    def run_group(group):
+        for es in group:
+            if stop is not None and stop.is_set():
+                return
+            try:
+                r = job(es)
+            except BaseException as e:  # noqa: BLE001 — raised after join
+                with mu:
+                    errors.append(e)
+                return
+            with mu:
+                results[es.set_index] = r
+
+    threads = [threading.Thread(target=run_group, args=(g,),
+                                name=f"mtpu-heal-d{d}", daemon=True)
+               for d, g in groups.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
     return results

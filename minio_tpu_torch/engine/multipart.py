@@ -384,4 +384,5 @@ def complete_multipart_upload(es: ErasureSet, bucket: str, obj: str,
         raise err
     _remove_everywhere(es, f"{TMP_DIR}/{tmp_id}", recursive=True)
     _remove_everywhere(es, path, recursive=True)
+    es._mark_dirty(bucket)
     return fi_for(0)

@@ -9,16 +9,32 @@ Every tree level is a (rows, 256) x (256, 8) product of int8 values,
 that is exact, and which no process-wide TF32 or matmul-precision setting
 touches: the digest stays exact whatever precision the application has
 chosen for its own float32 products, from any thread.
+
+`LAUNCHES` counts the calls on a CUDA tensor (one digest program of a few
+device ops each), so a run can read how often its path ran mxh256 on the
+card; calls on the CPU are not counted.
 """
 
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from . import mxhash
+
+#: mxh256_rows calls on the card since the last reset (under
+#: _LAUNCHES_LOCK: heal workers hash from several threads).
+LAUNCHES = 0
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    with _LAUNCHES_LOCK:
+        LAUNCHES += 1
 
 
 @functools.lru_cache(maxsize=8)
@@ -53,4 +69,6 @@ def mxh256_rows(x: torch.Tensor) -> torch.Tensor:
         if cur.shape[1] == mxhash.DIGEST_SIZE:
             break
     tag = torch.from_numpy(mxhash.length_tag(ln).copy()).to(x.device)
+    if x.device.type == "cuda":
+        _count_launch()
     return cur ^ tag[None, :]

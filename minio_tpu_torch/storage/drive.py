@@ -1,5 +1,6 @@
 """Local drive backend: the subset of minio_tpu/storage/drive.py that the
-erasure data path, heal and multipart call, with the same on-disk format.
+erasure data path, heal, multipart, the listings and the pools call, with
+the same on-disk format.
 
 One `LocalDrive` owns one directory tree (cf. xlStorage,
 cmd/xl-storage.go in the reference):
@@ -17,6 +18,7 @@ A drive the JAX package wrote reads here, and the other way round.
 
 from __future__ import annotations
 
+import errno
 import os
 import shutil
 import threading
@@ -26,7 +28,7 @@ from . import diskio
 from .errors import (ErrDiskNotFound, ErrFileAccessDenied, ErrFileCorrupt,
                      ErrFileNotFound, ErrFileVersionNotFound,
                      ErrIsNotRegular, ErrPathNotFound, ErrVolumeExists,
-                     ErrVolumeNotFound)
+                     ErrVolumeNotEmpty, ErrVolumeNotFound)
 from .xlmeta import FileInfo, XLMeta
 
 # Reserved system namespace on every drive (reference: .minio.sys).
@@ -123,6 +125,29 @@ class LocalDrive:
     def stat_volume(self, vol: str) -> dict:
         p = self._check_vol(vol)
         return {"name": vol, "created_ns": int(os.stat(p).st_mtime_ns)}
+
+    def delete_volume(self, vol: str, force: bool = False) -> None:
+        """Remove a volume: an empty one, or with `force` whatever it
+        holds."""
+        p = self._check_vol(vol)
+        if force:
+            self._move_to_trash(p)
+            return
+        try:
+            os.rmdir(p)
+        except OSError as e:
+            if e.errno == errno.ENOTEMPTY:
+                raise ErrVolumeNotEmpty(vol) from e
+            raise
+
+    def disk_info(self) -> dict:
+        """Capacity of the filesystem under the drive, for the pools'
+        free-space placement."""
+        st = os.statvfs(self.root)
+        return {"total": st.f_blocks * st.f_frsize,
+                "free": st.f_bavail * st.f_frsize,
+                "used": (st.f_blocks - st.f_bfree) * st.f_frsize,
+                "endpoint": self.root, "id": self.disk_id, "online": True}
 
     # -- small files ---------------------------------------------------------
 
@@ -239,6 +264,73 @@ class LocalDrive:
                         pass
                 dirnames[:] = []
 
+    def walk_page(self, vol: str, prefix: str = "", after: str = "",
+                  limit: int = 1000):
+        """One bounded page of the lexical walk: up to `limit` (object
+        name, xl.meta bytes) entries with name > `after`, and an eof
+        flag.  Subtrees that cannot hold names past `after` are pruned,
+        so paging a large bucket never reads again what earlier pages
+        covered (WalkDir with a resume marker, cf.
+        cmd/metacache-walk.go:60)."""
+        base = self._check_vol(vol)
+        start = self._file_path(vol, prefix) if prefix else base
+        walk_root = start if os.path.isdir(start) \
+            else os.path.dirname(start)
+        out: list[tuple[str, bytes]] = []
+
+        def emit(dirpath: str, rel: str) -> bool:
+            if (not prefix or rel.startswith(prefix)) and rel > after:
+                if len(out) >= limit:
+                    return False
+                try:
+                    with open(os.path.join(dirpath, XL_META_FILE),
+                              "rb") as f:
+                        out.append((rel, f.read()))
+                except OSError:
+                    pass
+            return True
+
+        def descend(dirpath: str) -> bool:
+            """False when the page filled inside the subtree."""
+            try:
+                names = os.listdir(dirpath)
+            except OSError:
+                return True
+            # An object dir d emits "d", a container dir d names that
+            # start "d/": siblings go in (name if object else name + "/")
+            # order, or "x/..." would come before a sibling "x!a".
+            items = []
+            for name in names:
+                sub = os.path.join(dirpath, name)
+                if not os.path.isdir(sub):
+                    continue
+                is_obj = os.path.isfile(os.path.join(sub, XL_META_FILE))
+                items.append((name if is_obj else name + "/", is_obj, sub))
+            items.sort()
+            for _, is_obj, sub in items:
+                rel = os.path.relpath(sub, base).replace(os.sep, "/")
+                if is_obj:
+                    if not emit(sub, rel):
+                        return False
+                    continue         # an object dir holds data dirs only
+                # Every name under rel starts with rel + "/": skip the
+                # subtree when that whole range sorts before `after`.
+                if after and rel + "/" < after[:len(rel) + 1]:
+                    continue
+                if len(out) >= limit:
+                    return False
+                if not descend(sub):
+                    return False
+            return True
+
+        if not os.path.isdir(walk_root):
+            return [], True
+        if os.path.isfile(os.path.join(walk_root, XL_META_FILE)):
+            # The prefix names an object.
+            rel = os.path.relpath(walk_root, base).replace(os.sep, "/")
+            return ([], True) if not emit(walk_root, rel) else (out, True)
+        return out, descend(walk_root)
+
     # -- versioned metadata --------------------------------------------------
 
     def _read_xlmeta(self, vol: str, obj: str) -> XLMeta:
@@ -331,13 +423,30 @@ class LocalDrive:
             if old_dd:
                 self._remove_data_dir(dst_vol, dst_obj, old_dd)
 
-    def delete_version(self, vol: str, obj: str,
-                       version_id: str = "") -> None:
+    def update_metadata(self, vol: str, obj: str, fi: FileInfo) -> None:
+        """Replace an existing version's entry in xl.meta."""
+        with self._meta_lock:
+            meta = self._read_xlmeta(vol, obj)
+            meta.find_version(fi.version_id)      # must exist
+            meta.add_version(fi)
+            self._write_xlmeta(vol, obj, meta)
+
+    def delete_version(self, vol: str, obj: str, version_id: str = "",
+                       mark_delete: bool = False,
+                       fi: FileInfo | None = None) -> None:
         """Remove one version, its data-dir when no other version shares
-        it, and the object dir with its last version."""
+        it, and the object dir with its last version; or, with
+        `mark_delete`, add the delete marker `fi` (cf. DeleteVersion,
+        cmd/xl-storage.go, and the xlMetaV2 state machine)."""
         self._check_vol(vol)
         with self._meta_lock:
             meta = self._read_xlmeta(vol, obj)
+            if mark_delete:
+                if fi is None or not fi.deleted:
+                    raise ValueError("mark_delete takes a delete marker")
+                meta.add_version(fi)
+                self._write_xlmeta(vol, obj, meta)
+                return
             dd = meta.delete_version(version_id)
             self._write_xlmeta(vol, obj, meta)
             if dd:

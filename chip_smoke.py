@@ -163,16 +163,25 @@ def max_sm_clock_hz() -> float:
 
 
 class Launches:
-    """Sets to 0 and reads the launch counts of every kernel wrapper."""
+    """Sets to 0 and reads the launch counts of every kernel wrapper, and
+    with them the tally of mxh256's shapes (`shapes`, a MxhShapes) when
+    one is installed: `last_shapes` is the tally as the last read()
+    found it."""
 
     def __init__(self, wrappers: dict):
         self.wrappers = wrappers
+        self.shapes = None
+        self.last_shapes: dict[tuple[int, int], int] = {}
 
     def reset(self) -> None:
         for mod in self.wrappers.values():
             mod.LAUNCHES = 0
+        if self.shapes is not None:
+            self.shapes.reset()
 
     def read(self) -> dict[str, int]:
+        if self.shapes is not None:
+            self.last_shapes = self.shapes.snapshot()
         return {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
 
 
@@ -560,6 +569,88 @@ def phase_kernel(torch, ec, et, gen, card, baseline):
     return rec
 
 
+def mxh_bound(n: int, length: int) -> tuple[float, float]:
+    """mxh256's bound at (n, length) in ms, (bytes, operations): each
+    input byte read once and each digest written once; 256 x 8 int8 MACs
+    per 256-byte chunk of every tree level."""
+    bytes_ms = (n * length + n * 32) / HBM_BYTES_PER_S * 1e3
+    ops = 0
+    width = length
+    while width > 32:
+        chunks = -(-width // 256)
+        ops += n * chunks * 256 * 8 * 2
+        width = chunks * 32
+    return bytes_ms, ops / INT8_OPS_PER_S * 1e3
+
+
+class MxhShapes:
+    """Tallies the (rows, length) shape of every mxh256 call on the card
+    made through the digest dispatch (ops/fused.py, its only caller in
+    the package) while installed, so that its time can be taken at each
+    shape the main paths gave it."""
+
+    def __init__(self, fused, mt):
+        self.fused, self.mt = fused, mt
+        self.counts: dict[tuple[int, int], int] = {}
+        self._lock = threading.Lock()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counts = {}
+
+    def snapshot(self) -> dict[tuple[int, int], int]:
+        with self._lock:
+            return dict(self.counts)
+
+    def _call(self, x):
+        if x.is_cuda:
+            with self._lock:
+                key = tuple(x.shape)
+                self.counts[key] = self.counts.get(key, 0) + 1
+        return self.mt.mxh256_rows(x)
+
+    def __enter__(self):
+        self.fused.mxh256_rows = self._call
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.fused.mxh256_rows = self.mt.mxh256_rows
+
+
+def phase_mxh_shapes(torch, mt, gen, card,
+                     tally: dict[tuple[int, int], int], calls: int) -> None:
+    """mxh256's loss on the main paths as a sum over the shapes they
+    called it at: calls x (median time - bound) at each shape, each
+    timed here on random rows (the digest's time does not depend on the
+    bytes)."""
+    if sum(tally.values()) != calls:
+        raise SystemExit(f"mxh256 shape tally {sum(tally.values())} != "
+                         f"its launch count {calls}")
+    dev = torch.device("cuda", 0)
+    flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
+    rows = []
+    for (n, length), k in tally.items():
+        x = torch.randint(0, 256, (n, length), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        ms = time_ms(torch, lambda: mt.mxh256_rows(x), 5, flush)
+        bound = max(mxh_bound(n, length))
+        rows.append((k * (ms - bound), k, n, length, ms, bound))
+    del flush
+    rows.sort(reverse=True)
+    loss = sum(r[0] for r in rows)
+    spent = sum(r[1] * r[4] for r in rows)
+    small = [r for r in rows if r[3] <= 128 * 1024 // 8]
+    print(f"[mxh256] calls on the main paths {calls} at {len(rows)} shapes;"
+          f" time at each shape (median of 5) summed over the calls "
+          f"{spent:.2f} ms, loss against the bound {loss:.2f} ms; calls "
+          f"with rows of at most 16 KiB (inline shards, ragged tails) "
+          f"{sum(r[1] for r in small)}, their loss "
+          f"{sum(r[0] for r in small):.2f} ms; card {card}")
+    for r in rows[:6]:
+        print(f"[mxh256]   ({r[2]}, {r[3]}): {r[1]} calls x ({r[4]:.4f} - "
+              f"{r[5]:.4f}) ms = {r[0]:.2f} ms; card {card}")
+
+
 def phase_mxh(torch, mxhash, mt, gen, card) -> dict:
     """mxh256 at one PUT batch's shape against the numpy spec; its time
     beside its bound (each input byte read once, each digest written
@@ -576,14 +667,7 @@ def phase_mxh(torch, mxhash, mt, gen, card) -> dict:
     ok = bool((got.cpu().numpy() == want).all())
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
     ms = time_ms(torch, lambda: mt.mxh256_rows(x), 10, flush)
-    bytes_ms = (n * length + n * 32) / HBM_BYTES_PER_S * 1e3
-    ops = 0
-    width = length
-    while width > 32:                   # 256 x 8 int8 MACs per chunk
-        chunks = -(-width // 256)
-        ops += n * chunks * 256 * 8 * 2
-        width = chunks * 32
-    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    bytes_ms, ops_ms = mxh_bound(n, length)
     lib_ms, lib_note = None, ""
     a = x.reshape(-1, 256).view(torch.int8)
     m = torch.from_numpy(mxhash.matrix_a().astype("int8")).to(dev)
@@ -1783,6 +1867,7 @@ def main() -> int:
         from minio_tpu_torch.ops import cuda_build
         from minio_tpu_torch.ops import erasure_cuda as ec
         from minio_tpu_torch.ops import erasure_torch as et
+        from minio_tpu_torch.ops import fused
         from minio_tpu_torch.ops import highwayhash as spec
         from minio_tpu_torch.ops import highwayhash_cuda as hc
         from minio_tpu_torch.ops import highwayhash_torch as ht
@@ -1870,12 +1955,18 @@ def main() -> int:
         "drive heal": lambda: phase_drive_heal(args, counts, card),
         "object layer": lambda: phase_object_layer(args, counts, card),
     }
-    per_path = {name: run() for name, run in paths.items()}
+    per_path, tally = {}, {}
+    with MxhShapes(fused, mt) as counts.shapes:
+        for name, run in paths.items():
+            per_path[name] = run()
+            for shape, k in counts.last_shapes.items():
+                tally[shape] = tally.get(shape, 0) + k
+    counts.shapes = None
     print(f"[launches] per main path: {per_path}")
     calls = sum(p["mxh256"] for p in per_path.values())
-    print(f"[mxh256] calls on the main paths {calls}; loss {calls} x "
-          f"({mxh['ms']:.4f} - {mxh['bound_ms']:.4f}) = "
-          f"{calls * (mxh['ms'] - mxh['bound_ms']):.2f} ms; card {card}")
+    print(f"[mxh256] at (384, 131072): {mxh['ms']:.4f} ms against a bound "
+          f"of {mxh['bound_ms']:.4f} ms; card {card}")
+    phase_mxh_shapes(torch, mt, gen, card, tally, calls)
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

@@ -35,10 +35,7 @@ class ErasureSets:
                  set_drive_count: int,
                  default_parity: int | None = None,
                  deployment_id: str | None = None,
-                 nslock=None, preloaded_format: dict | None = None,
                  device=None):
-        """preloaded_format: a format the caller already loaded and
-        verified, which skips the format scan."""
         if set_drive_count < 2:
             raise ValueError("set_drive_count must be >= 2")
         if len(drives) % set_drive_count != 0:
@@ -49,8 +46,7 @@ class ErasureSets:
         self.set_count = len(drives) // set_drive_count
         rows = [drives[i * set_drive_count:(i + 1) * set_drive_count]
                 for i in range(self.set_count)]
-        fmt = (preloaded_format if preloaded_format is not None
-               else init_format_sets(rows, deployment_id))
+        fmt = init_format_sets(rows, deployment_id)
         self.deployment_id = fmt["id"]
         self._dep_key = uuid.UUID(self.deployment_id).bytes
         self.sets: list[ErasureSet] = []
@@ -58,7 +54,7 @@ class ErasureSets:
             for i, row in enumerate(rows):
                 self.sets.append(ErasureSet(
                     row, default_parity=default_parity, set_index=i,
-                    device=device, nslock=nslock))
+                    device=device))
         except BaseException:
             self.close()
             raise

@@ -79,13 +79,31 @@ Phases, each printing its own lines; any failure exits non-zero:
       drives away, a bucket emptied and deleted; launches equal to the
       counts the sizes call for.  The 64 MiB objects also go through one
       ErasureSet alone, for what the layers add.
+   g. the S3 server: an in-process S3Server on loopback TCP over the
+      deployment of f, driven by the port's S3Client signing SigV4: a
+      versioned bucket, 16 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
+      PUT from 1 and 4 clients (2 highwayhash256S), one of 64 MiB +
+      300 KiB + 5 B by signed aws-chunked PUT, 1024 of 1-100 KiB by
+      signed-payload PUT from 1 and 8 clients, a multipart upload of
+      64 MiB + 64 MiB + 5 MiB + 7 B; GETs of every object, ranged GETs,
+      an If-None-Match 304, HEADs, a presigned GET, ListObjectsV2 in
+      pages of 1000, ListObjectVersions, a versioned DELETE, degraded
+      GETs with two data-shard drives away; every body by SHA-256 and
+      the three device programs' launches equal to the counts the sizes
+      call for; PUT and GET GB/s over HTTP beside ServerPools directly,
+      small-object operations/s, ms a listing page, the split of one
+      64 MiB HTTP PUT, and how long the PUT batches' copies and kernels
+      waited on the shared default stream behind other clients'.  Then `python -m minio_tpu_torch.server` boots in
+      a subprocess on the card, serves a 64 MiB PUT and GET and exits 0
+      on SIGTERM.
 6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
    device's busy share over one 64 MiB PUT + GET (torch.profiler).
 
 Launch counts are read for gf_matmul, hh256 and mxh256 (its calls on the
-card; it is not a hand-written kernel and has no record).  The line
-before the last is the kernels' JSON record, whose launches are the main
-paths'; the last line is {"ok": true, "device": {...}}.
+card).  The line before the last is the kernels' JSON record, whose
+launches are the main paths'; mxh256 is no hand-written kernel and its
+row stands under "torch_ops" beside "kernels", with route "torch".  The
+last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -95,6 +113,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import io
 import json
 import os
 import re
@@ -144,6 +163,19 @@ LAYER_SETS, LAYER_SET_DRIVES = 4, 12
 LAYER_SMALL, LAYER_SMALL_BYTES = 2048, (1024, 100 * 1024)
 LAYER_MID, LAYER_MID_BYTES = 96, 4 * MIB + 1
 LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 24, 6, OBJECT_BYTES
+# The S3 server on the card (phase 5g), over the deployment of 5f:
+# SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
+# one of SERVER_CHUNKED_BYTES by aws-chunked PUT, SERVER_SMALL of
+# SERVER_SMALL_BYTES (the first SERVER_SMALL_SERIAL from one client),
+# one multipart upload of SERVER_PARTS, a ranged GET of SERVER_RANGE
+# (offset, length) per large object.
+SERVER_SETS = LAYER_SETS
+SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 16, 2, OBJECT_BYTES
+SERVER_CHUNKED_BYTES = TAIL_OBJECT_BYTES
+SERVER_SMALL, SERVER_SMALL_SERIAL = 1024, 128
+SERVER_SMALL_BYTES = (1024, 100 * 1024)
+SERVER_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
+SERVER_RANGE = (300 * 1024, MIB)
 
 
 def card_line() -> str:
@@ -665,6 +697,7 @@ def phase_mxh(torch, mxhash, mt, gen, card) -> dict:
     torch.cuda.synchronize()
     want = mxhash.mxh256_batch(x.cpu().numpy())
     ok = bool((got.cpu().numpy() == want).all())
+    err = int(abs(got.cpu().numpy().astype(int) - want.astype(int)).max())
     flush = torch.empty(256 * MIB, dtype=torch.uint8, device=dev)
     ms = time_ms(torch, lambda: mt.mxh256_rows(x), 10, flush)
     bytes_ms, ops_ms = mxh_bound(n, length)
@@ -691,7 +724,8 @@ def phase_mxh(torch, mxhash, mt, gen, card) -> dict:
     if not ok:
         raise SystemExit("mxh256 on the card disagrees with the spec")
     return {"ms": ms, "bound_ms": max(bytes_ms, ops_ms),
-            "library_ms": lib_ms}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err}
 
 
 def hh_updates(length: int) -> int:
@@ -1232,10 +1266,12 @@ def _expected_heal_launches(fis, pos) -> dict[str, int]:
     return want
 
 
-def _check_launches(path: str, got: dict, want: dict) -> None:
-    """Fail unless both kernels' launches equal the counts the sizes
-    call for; mxh256's calls are reported beside theirs, not held."""
-    if any(got[k] != want[k] for k in ("gf_matmul", "hh256")):
+def _check_launches(path: str, got: dict, want: dict,
+                    held=("gf_matmul", "hh256")) -> None:
+    """Fail unless the launches of `held` (both kernels by default, with
+    mxh256's calls reported beside them) equal the counts the sizes
+    call for."""
+    if any(got[k] != want[k] for k in held):
         raise SystemExit(f"{path} launches {got} != {want}")
 
 
@@ -1390,21 +1426,30 @@ def _put_calls(size: int) -> int:
     return -(-full // 32) + (1 if tail else 0)
 
 
-def _get_calls(fi) -> int:
+def _get_calls(fi, offset: int = 0, length: int | None = None) -> int:
     """Device calls (one digest each, and one GF rebuild when a data
-    shard is missing) of a whole-object GET: per segment of up to 32 MiB,
-    one for its full blocks and one for a tail block."""
-    if fi.size == 0:
+    shard is missing) of a GET of [offset, offset + length), the whole
+    object by default: per segment of a part, up to the next 32 MiB
+    boundary, one for the full blocks it touches and one for the part's
+    tail block when it touches that; an inline object is read whole, in
+    one call."""
+    if length is None:
+        length = fi.size - offset
+    if length == 0:
         return 0
     if not fi.data_dir:
         return 1                       # inline: one (tail) block
-    calls = 0
+    calls, part_start = 0, 0
     for part in fi.parts:
         full = part.size // MIB
-        for seg in range(0, part.size, 32 * MIB):
-            b0 = seg // MIB
-            b1 = -(-min(part.size, seg + 32 * MIB) // MIB)
+        seg = max(offset, part_start) - part_start
+        stop = min(offset + length, part_start + part.size) - part_start
+        while seg < stop:
+            seg_end = min(stop, (seg // (32 * MIB) + 1) * 32 * MIB)
+            b0, b1 = seg // MIB, -(-seg_end // MIB)
             calls += (min(b1, full) > b0) + (b1 > full)
+            seg = seg_end
+        part_start += part.size
     return calls
 
 
@@ -1772,6 +1817,684 @@ def phase_object_layer(args, counts, card):
     return launches
 
 
+class _Timed:
+    """Sums the seconds spent in one method of a class while installed
+    (the split of one HTTP PUT; one request in flight)."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.s = cls, name, 0.0
+        self.orig = getattr(cls, name)
+
+    def __enter__(self):
+        orig, timer = self.orig, self
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                timer.s += time.perf_counter() - t0
+        setattr(self.cls, self.name, timed)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.cls, self.name, self.orig)
+
+
+class _StreamWaits:
+    """Times every PUT batch's device section (ErasureSet._encode_blocks:
+    the same calls in the same order, its copy to the card made first)
+    on the host clock and with CUDA events on the stream, to tell how
+    long one handler's copies waited on the shared default stream behind
+    other handlers' batches.  Host times map onto the device's clock
+    through an event recorded on an idle card.  Per call:
+    - the wait before its host-to-device copy: event a, recorded just
+      before the copy, ran that long after the host recorded it;
+    - the wait before its device-to-host copy: event c, recorded just
+      before the copy, ran that long after both the host's request and
+      the call's own kernels (event b);
+    - the span of its copy in (a..a2) and of its kernels (from their
+      launch or a2, whichever is later, to b) beyond the median of its
+      batch shape in the window of one client: other batches on the
+      stream, or gaps in the host's launches (GIL, cores), which the
+      events cannot tell apart."""
+
+    def __init__(self, torch):
+        from minio_tpu_torch.engine.erasure_set import ErasureSet
+        self.torch, self.cls = torch, ErasureSet
+        self.orig = ErasureSet._encode_blocks
+        self.calls, self.mu = [], threading.Lock()
+
+    def __enter__(self):
+        from minio_tpu_torch.ops import devices, fused
+        from minio_tpu_torch.storage import bitrot_io
+        torch, calls, mu = self.torch, self.calls, self.mu
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        def timed(es, blocks, k, m, algo):
+            ha = time.perf_counter()
+            a = event()
+            xt = devices.put(blocks, es.device)
+            a2 = event()
+            hk = time.perf_counter()
+            parity, digests = fused.encode_and_hash(xt, k, m, algo=algo,
+                                                    device=es.device)
+            b = event()
+            hc = time.perf_counter()
+            c = event()
+            pn, dn = parity.cpu().numpy(), digests.cpu().numpy()
+            hd = time.perf_counter()
+            with mu:
+                calls.append((blocks.shape, ha, a, a2, hk, b, hc, c, hd))
+            return bitrot_io.frame_shard_views(blocks, pn, dn, algo)
+
+        torch.cuda.synchronize()
+        self.h_ref = time.perf_counter()
+        self.ref = event()
+        self.t0 = time.perf_counter()
+        self.cls._encode_blocks = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls._encode_blocks = self.orig
+        self.wall = time.perf_counter() - self.t0
+        self.torch.cuda.synchronize()
+
+    def _spans(self):
+        """(shape, copy-in span, kernels' span, wait in, wait out, host
+        ms of the section) per call, in ms."""
+        t = self.ref.elapsed_time
+
+        def h(x):
+            return (x - self.h_ref) * 1e3
+        for shape, ha, a, a2, hk, b, hc, c, hd in self.calls:
+            yield (shape, a.elapsed_time(a2), t(b) - max(h(hk), t(a2)),
+                   max(0.0, t(a) - h(ha)),
+                   max(0.0, t(c) - max(h(hc), t(b))), (hd - ha) * 1e3)
+
+    def own(self) -> dict:
+        """Median copy-in and kernels' spans by batch shape."""
+        by = {}
+        for shape, cin, kern, *_ in self._spans():
+            by.setdefault(shape, []).append((cin, kern))
+        return {s: (statistics.median(v[0] for v in vs),
+                    statistics.median(v[1] for v in vs))
+                for s, vs in by.items()}
+
+    def summary(self, clients: int, own: dict) -> dict:
+        """Sums over the window's calls, in ms."""
+        out = dict.fromkeys(("wait_in", "wait_out", "copy_in", "kernels",
+                             "section"), 0.0)
+        for shape, cin, kern, w_in, w_out, section in self._spans():
+            o_cin, o_kern = own.get(shape, (cin, kern))
+            out["wait_in"] += w_in
+            out["wait_out"] += w_out
+            out["copy_in"] += max(0.0, cin - o_cin)
+            out["kernels"] += max(0.0, kern - o_kern)
+            out["section"] += section
+        out["calls"] = len(self.calls)
+        out["client_ms"] = self.wall * 1e3 * clients
+        return out
+
+
+def _in_threads(n: int, fn, items) -> list:
+    """fn(item) for every item from `n` client threads; every result."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        return list(ex.map(fn, items))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def phase_server(args, counts, card):
+    """The S3 server on the card: an in-process S3Server on loopback TCP
+    over one ServerPools of one pool, SERVER_SETS sets x 12 drives,
+    EC:8+4 (the object-layer deployment of phase 5f), driven by the
+    port's S3Client signing SigV4.  A versioned bucket; SERVER_BIG
+    objects of 64 MiB by streamed UNSIGNED-PAYLOAD PUT, half from one
+    client and half from 4 (SERVER_BIG_HH of them highwayhash256S); one
+    of 64 MiB + 300 KiB + 5 B by signed aws-chunked PUT; SERVER_SMALL of
+    1-100 KiB by signed-payload PUT from 1 and 8 clients; one multipart
+    upload; GETs of every object from 1 and from 4 (small: 8) clients,
+    ranged GETs, an If-None-Match 304, HEADs, a presigned GET, paged
+    ListObjectsV2 and ListObjectVersions, a versioned DELETE (marker,
+    404, GET by version id), and degraded GETs of the large objects with
+    two data-shard drives of their set away.  Every body is checked by
+    SHA-256 and the three device programs' launches must equal the
+    counts the sizes give.  Beforehand, the 64 MiB objects go through
+    ServerPools directly (the front door's cost), and afterwards
+    `python -m minio_tpu_torch.server` is booted in a subprocess on the
+    card, serves a 64 MiB PUT and GET and must exit 0 on SIGTERM."""
+    import datetime
+    import http.client
+    import xml.etree.ElementTree as ET
+
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server import sigv4
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.utils import streams
+    import numpy as np
+    import torch
+
+    access, secret = "smokeadmin", "smokeadmin-secret"
+    n_drives = LAYER_SET_DRIVES
+    rng = np.random.default_rng(args.seed + 5)
+    big = [(f"big/{i:02d}", SERVER_BIG_BYTES,
+            HH if i < SERVER_BIG_HH else "mxh256", 1000 + i)
+           for i in range(SERVER_BIG)]
+    small = [(f"small/{i:04d}", int(n), "mxh256", 2000 + i)
+             for i, n in enumerate(rng.integers(
+                 SERVER_SMALL_BYTES[0], SERVER_SMALL_BYTES[1] + 1,
+                 SERVER_SMALL))]
+    chunked = ("chunked/0", SERVER_CHUNKED_BYTES, "mxh256", 3000)
+    total = (sum(n for _, n, _, _ in big + small) + SERVER_CHUNKED_BYTES
+             + sum(SERVER_PARTS))
+    need = int(total * 1.5 * 1.3) + 2 * SERVER_BIG_BYTES + (1 << 30)
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"server: needs {need} bytes free on /dev/shm")
+    root = tempfile.mkdtemp(prefix="chip_smoke-server-", dir="/dev/shm")
+
+    def body(seed, n):
+        return np.random.default_rng(seed).bytes(n)
+
+    def put_algo(algo):
+        if algo == "mxh256":
+            os.environ.pop("MTPU_BITROT_ALGO", None)
+        else:
+            os.environ["MTPU_BITROT_ALGO"] = algo
+
+    started = time.perf_counter()
+    pools = srv = None
+    rates, split, waits = {}, {}, {}
+    try:
+        drives = [LocalDrive(os.path.join(root, f"d{i:02d}"))
+                  for i in range(SERVER_SETS * n_drives)]
+        pools = ServerPools([ErasureSets(drives, set_drive_count=n_drives,
+                                         default_parity=4)])
+        srv = S3Server(pools, sigv4.Credentials(access, secret)).start()
+        cli = S3Client(srv.endpoint, access, secret, timeout=300)
+        digests = {}                 # name -> sha256 of the body
+        one, four = big[:SERVER_BIG // 2], big[SERVER_BIG // 2:]
+
+        # The 64 MiB objects through ServerPools directly: the front
+        # door's cost is the difference (not counted).  Bodies are made
+        # and checked outside the timed loops.
+        pools.make_bucket("direct")
+
+        def check(name, pieces):
+            h = hashlib.sha256()
+            for piece in pieces:
+                h.update(piece)
+            if h.digest() != digests[name]:
+                raise SystemExit(f"GET {name} differs")
+
+        def timed_batch(kind, clients, put, get, specs):
+            """PUT then GET `specs` from `clients` threads: (PUT GB/s of
+            the mxh256 objects, GET GB/s of all), highwayhash256S
+            objects PUT first from this thread, untimed.  The timed PUTs'
+            waits on the shared stream go to waits[kind, clients]."""
+            datas = {name: body(seed, n) for name, n, _, seed in specs}
+            for name, data in datas.items():
+                digests[name] = hashlib.sha256(data).digest()
+            put_algo(HH)
+            for name, _, algo, _ in specs:
+                if algo == HH:
+                    put(name, datas[name])
+            put_algo("mxh256")
+            rest = [name for name, _, algo, _ in specs if algo != HH]
+            t0 = time.perf_counter()
+            with _StreamWaits(torch) as waits[kind, clients]:
+                _in_threads(clients, lambda nm: put(nm, datas[nm]), rest)
+            put_rate = (sum(len(datas[nm]) for nm in rest)
+                        / (time.perf_counter() - t0) / 1e9)
+            del datas
+            t0 = time.perf_counter()
+            got = _in_threads(clients, get, [name for name, *_ in specs])
+            get_rate = (sum(sum(map(len, g)) for g in got)
+                        / (time.perf_counter() - t0) / 1e9)
+            for (name, *_), pieces in zip(specs, got):
+                check(name, pieces)
+            return put_rate, get_rate
+
+        def direct_put(name, data):
+            pools.put_object("direct", name, data, versioned=True)
+
+        def direct_get(name):
+            return [pools.get_object("direct", name)[1]]
+
+        for clients, specs in ((1, one[:-1]), (4, four)):
+            rates["direct", clients] = timed_batch("direct", clients,
+                                                   direct_put,
+                                                   direct_get, specs)
+        pools.delete_bucket("direct", force=True)
+
+        counts.reset()                        # the main path starts here
+        want = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+
+        def expect(calls, algo, gf):
+            want["gf_matmul"] += calls * gf
+            want[_digest(algo)] += calls
+
+        cli.make_bucket("srv")
+        cli.set_versioning("srv", True)       # one inline config object
+        expect(1, "mxh256", 1)
+        versions = {}                         # name -> version id
+
+        def http_put(name, data):
+            h = cli.put_object_stream("srv", name, io.BytesIO(data),
+                                      len(data))
+            versions[name] = h["x-amz-version-id"]
+
+        def http_get(name):
+            return list(cli.get_object_stream("srv", name))
+
+        # Streamed UNSIGNED-PAYLOAD PUTs from 1 and from 4 clients (the
+        # highwayhash256S objects first); then one more 64 MiB PUT split
+        # into its steps.
+        for clients, specs in ((1, one[:-1]), (4, four)):
+            rates["http", clients] = timed_batch("http", clients,
+                                                 http_put,
+                                                 http_get, specs)
+            for _, n, algo, _ in specs:
+                expect(_put_calls(n), algo, 1)
+                # a whole GET of one part takes as many calls as its PUT
+                expect(_put_calls(n), algo, 0)
+        name, n, algo, seed = one[-1]
+        data = body(seed, n)
+        digests[name] = hashlib.sha256(data).digest()
+        with _Timed(streams.LimitedReader, "read") as rd, \
+                _Timed(ServerPools, "put_object") as eng:
+            t0 = time.perf_counter()
+            http_put(name, data)
+            split["unsigned"] = (time.perf_counter() - t0, rd.s, 0.0, eng.s)
+        expect(_put_calls(n), algo, 1)
+        t0 = time.perf_counter()
+        hashlib.md5(data)
+        split["md5 alone"] = time.perf_counter() - t0
+        del data
+
+        # A signed aws-chunked PUT (STREAMING-AWS4-HMAC-SHA256-PAYLOAD),
+        # split into socket read, payload SHA-256 and the engine.
+        name, n, algo, seed = chunked
+        data = body(seed, n)
+        digests[name] = hashlib.sha256(data).digest()
+        now = datetime.datetime.now(datetime.timezone.utc)
+        amz_date = now.strftime("%Y%m%dT%H%M%SZ")
+        scope = f"{amz_date[:8]}/{cli.creds.region}/s3/aws4_request"
+        headers = {"Host": f"{cli.host}:{cli.port}",
+                   "x-amz-decoded-content-length": str(n)}
+        auth = sigv4.sign_request(cli.creds, "PUT", f"/srv/{name}", {},
+                                  headers, sigv4.STREAMING_PAYLOAD, now=now)
+        headers.update(auth)
+        wire = sigv4.encode_streaming_body(
+            cli.creds, scope, amz_date,
+            auth["Authorization"].rsplit("Signature=", 1)[1], data,
+            chunk_size=1 << 20)
+        headers["Content-Length"] = str(len(wire))
+        conn = http.client.HTTPConnection(cli.host, cli.port, timeout=300)
+        try:
+            with _Timed(streams.LimitedReader, "read") as rd, \
+                    _Timed(sigv4.StreamingSigV4Reader,
+                           "_verify_frames") as sha, \
+                    _Timed(ServerPools, "put_object") as eng:
+                t0 = time.perf_counter()
+                conn.request("PUT", f"/srv/{name}", body=wire,
+                             headers=headers)
+                resp = conn.getresponse()
+                out = resp.read()
+                split["aws-chunked"] = (time.perf_counter() - t0, rd.s,
+                                        sha.s, eng.s)
+        finally:
+            conn.close()
+        if resp.status != 200:
+            raise SystemExit(f"aws-chunked PUT: {resp.status} {out[:300]}")
+        versions[name] = resp.getheader("x-amz-version-id")
+        expect(_put_calls(n), algo, 1)
+        del wire, data
+
+        # Small objects, signed payload: from 1 client, then from 8.
+        def small_put(spec):
+            name, n, _, seed = spec
+            data = body(seed, n)
+            digests[name] = hashlib.sha256(data).digest()
+            versions[name] = cli.put_object("srv", name, data)[
+                "x-amz-version-id"]
+
+        def small_get(spec):
+            name = spec[0]
+            if hashlib.sha256(cli.get_object("srv", name)).digest() != \
+                    digests[name]:
+                raise SystemExit(f"HTTP GET {name} differs")
+
+        ops = {}
+        for clients, specs in ((1, small[:SERVER_SMALL_SERIAL]),
+                               (8, small[SERVER_SMALL_SERIAL:])):
+            t0 = time.perf_counter()
+            _in_threads(clients, small_put, specs)
+            ops["put", clients] = len(specs) / (time.perf_counter() - t0)
+            for _, n, algo, _ in specs:
+                expect(_put_calls(n), algo, 1)
+
+        # One multipart upload, signed-payload parts.
+        uid = cli.create_multipart("srv", "multipart/0")
+        etags, mp = [], hashlib.sha256()
+        for i, n in enumerate(SERVER_PARTS):
+            data = body(4000 + i, n)
+            mp.update(data)
+            etags.append((i + 1, cli.upload_part("srv", "multipart/0", uid,
+                                                 i + 1, data)))
+            expect(_put_calls(n), "mxh256", 1)
+        cli.complete_multipart("srv", "multipart/0", uid, etags)
+        digests["multipart/0"] = mp.digest()
+        del data
+
+        # GETs of every object, whole: the large ones not read yet
+        # from 1 and 4 clients (the 64 MiB ones were read after their
+        # PUTs), small from 1 and 8.
+        large = [sp[0] for sp in big] + [chunked[0], "multipart/0"]
+        fis = {name: pools.head_object("srv", name) for name in large}
+        for name in (one[-1][0], chunked[0], "multipart/0"):
+            for _ in (1, 4):
+                check(name, http_get(name))
+                expect(_get_calls(fis[name]), fis[name].erasure.bitrot_algo(),
+                       0)
+        for clients in (1, 8):
+            t0 = time.perf_counter()
+            _in_threads(clients, small_get, small)
+            ops["get", clients] = len(small) / (time.perf_counter() - t0)
+            for name, n, algo, _ in small:
+                expect(1, algo, 0)
+
+        # A ranged GET per large object, HEADs, a 304 and a presigned GET.
+        off, ln = SERVER_RANGE
+        for name, fi in fis.items():
+            st, h, got = cli.request("GET", f"/srv/{name}",
+                                     headers={"Range": f"bytes={off}-"
+                                                       f"{off + ln - 1}"})
+            data = (body(dict((sp[0], sp[3]) for sp in big + [chunked])
+                         [name], fi.size)[off:off + ln]
+                    if name != "multipart/0"
+                    else body(4000, SERVER_PARTS[0])[off:off + ln])
+            if st != 206 or got != data or h.get("Content-Range") != \
+                    f"bytes {off}-{off + ln - 1}/{fi.size}":
+                raise SystemExit(f"ranged GET {name}: {st} "
+                                 f"{h.get('Content-Range')}")
+            expect(_get_calls(fi, off, ln), fi.erasure.bitrot_algo(), 0)
+            hh = cli.head_object("srv", name)
+            if int(hh["Content-Length"]) != fi.size:
+                raise SystemExit(f"HEAD {name}: {hh}")
+        etag = cli.head_object("srv", big[0][0])["ETag"]
+        st, _, got = cli.request("GET", f"/srv/{big[0][0]}",
+                                 headers={"If-None-Match": etag})
+        if (st, got) != (304, b""):
+            raise SystemExit(f"If-None-Match GET: {st}")
+        url = sigv4.presign_url(cli.creds, "GET", f"/srv/{big[2][0]}", {},
+                                host=f"{cli.host}:{cli.port}")
+        path, _, qs = url.partition("?")
+        st, _, got = cli.request("GET", path, raw_query=qs)
+        if st != 200:
+            raise SystemExit(f"presigned GET: {st}")
+        check(big[2][0], [got])
+        expect(_get_calls(fis[big[2][0]]), "mxh256", 0)
+        del got
+
+        # A versioned DELETE: the marker, a 404, the version by id.
+        victim = small[0][0]
+        h = cli.delete_object("srv", victim)
+        if h.get("x-amz-delete-marker") != "true":
+            raise SystemExit(f"versioned DELETE: {h}")
+        st, _, _ = cli.request("GET", f"/srv/{victim}")
+        if st != 404:
+            raise SystemExit(f"GET after the delete marker: {st}")
+        got = cli.get_object("srv", victim, version_id=versions[victim])
+        if hashlib.sha256(got).digest() != digests[victim]:
+            raise SystemExit("GET by version id differs")
+        expect(1, "mxh256", 0)
+
+        # ListObjectsV2 in pages of 1000, then ListObjectVersions.
+        ns = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+        listed, token, page_ms = [], "", []
+        while True:
+            q = {"list-type": "2", "max-keys": "1000"}
+            if token:
+                q["continuation-token"] = token
+            t0 = time.perf_counter()
+            _, _, x = cli._check(*cli.request("GET", "/srv", query=q))
+            page_ms.append((time.perf_counter() - t0) * 1e3)
+            root_el = ET.fromstring(x)
+            listed += [c.findtext(f"{ns}Key")
+                       for c in root_el.iter(f"{ns}Contents")]
+            token = root_el.findtext(f"{ns}NextContinuationToken") or ""
+            if root_el.findtext(f"{ns}IsTruncated") != "true":
+                break
+        live = sorted(set(digests) - {victim})
+        if listed != live:
+            raise SystemExit(f"ListObjectsV2: {len(listed)} keys, "
+                             f"{len(live)} live")
+        n_versions = n_markers = 0
+        q = {"versions": ""}
+        t0 = time.perf_counter()
+        while True:
+            _, _, x = cli._check(*cli.request("GET", "/srv", query=q))
+            root_el = ET.fromstring(x)
+            n_versions += len(list(root_el.iter(f"{ns}Version")))
+            n_markers += len(list(root_el.iter(f"{ns}DeleteMarker")))
+            if root_el.findtext(f"{ns}IsTruncated") != "true":
+                break
+            q = {"versions": "",
+                 "key-marker": root_el.findtext(f"{ns}NextKeyMarker"),
+                 "version-id-marker":
+                     root_el.findtext(f"{ns}NextVersionIdMarker")}
+        versions_s = time.perf_counter() - t0
+        if (n_versions, n_markers) != (len(digests), 1):
+            raise SystemExit(f"ListObjectVersions: {n_versions} versions, "
+                             f"{n_markers} markers")
+
+        # Degraded GETs: two data-shard drives of each large object's set
+        # away.
+        t0 = time.perf_counter()
+        for name, fi in fis.items():
+            es = pools.pools[0].set_for(name)
+            order = Q.shuffle_by_distribution(list(range(n_drives)),
+                                              fi.erasure.distribution)
+            saved = list(es.drives)
+            for p in order[:2]:
+                es.drives[p] = None
+            try:
+                check(name, http_get(name))
+            finally:
+                es.drives = saved
+            expect(_get_calls(fi), fi.erasure.bitrot_algo(), 1)
+        degraded_s = time.perf_counter() - t0
+        launches = counts.read()              # the main path ends here
+        _check_launches("server", launches, want,
+                        held=("gf_matmul", "hh256", "mxh256"))
+    finally:
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        if srv is not None:
+            srv.shutdown()
+        if pools is not None:
+            pools.close()
+        shutil.rmtree(root, ignore_errors=True)
+    served_s = time.perf_counter() - started
+
+    boot = _boot_server(card)
+    print(f"[server] S3Server on loopback over ServerPools, 1 pool, "
+          f"{SERVER_SETS} sets x {n_drives} drives, EC:8+4, bucket srv "
+          f"versioned: {len(big)} objects of {SERVER_BIG_BYTES} B "
+          f"({SERVER_BIG_HH} {HH}) by streamed UNSIGNED-PAYLOAD PUT, one of "
+          f"{SERVER_CHUNKED_BYTES} B by signed aws-chunked PUT, "
+          f"{len(small)} of 1-100 KiB by signed-payload PUT, a multipart "
+          f"upload of {'+'.join(map(str, SERVER_PARTS))} B; {total} object "
+          f"bytes; every body checked by SHA-256; card {card}")
+    print(f"[server] {SERVER_BIG_BYTES} B objects ({len(one) - 1} from 1 "
+          f"client, {len(four)} from 4; mxh256 PUTs, all GETs): HTTP PUT "
+          f"{rates['http', 1][0]:.3f} GB/s from 1 client, "
+          f"{rates['http', 4][0]:.3f} from 4; through ServerPools "
+          f"{rates['direct', 1][0]:.3f} and {rates['direct', 4][0]:.3f}; "
+          f"HTTP GET {rates['http', 1][1]:.3f} GB/s from 1 client, "
+          f"{rates['http', 4][1]:.3f} from 4; through ServerPools "
+          f"{rates['direct', 1][1]:.3f} and {rates['direct', 4][1]:.3f} "
+          f"(host clock, bodies made and checked outside the timing); "
+          f"card {card}")
+    for kind in ("direct", "http"):
+        own = waits[kind, 1].own()
+        for clients in (1, 4):
+            w = waits[kind, clients].summary(clients, own)
+            waited = w["wait_in"] + w["wait_out"]
+            print(f"[server] shared default stream, {kind} PUTs of "
+                  f"{SERVER_BIG_BYTES} B from {clients} client(s): "
+                  f"{w['calls']} batches; their device sections (copy in, "
+                  f"encode + digests, copy out) {w['section']:.1f} ms of "
+                  f"{w['client_ms']:.1f} ms of client time; copies waiting "
+                  f"on the stream behind other batches: before the copy in "
+                  f"{w['wait_in']:.1f} ms, before the copy out "
+                  f"{w['wait_out']:.1f}, {waited:.1f} ms in all = "
+                  f"{waited / w['client_ms']:.2%} of client time; spans "
+                  f"beyond one client's (other batches or host launch "
+                  f"gaps): copy in {w['copy_in']:.1f} ms, kernels "
+                  f"{w['kernels']:.1f} (CUDA events, host clock); card "
+                  f"{card}")
+    print(f"[server] small objects: PUT {ops['put', 1]:.1f} operations/s "
+          f"from 1 client, {ops['put', 8]:.1f} from 8; GET "
+          f"{ops['get', 1]:.1f} from 1, {ops['get', 8]:.1f} from 8 (host "
+          f"clock); card {card}")
+    n_pages = len(page_ms)
+    print(f"[server] ListObjectsV2: {len(listed)} keys in {n_pages} pages "
+          f"of 1000, {sum(page_ms) / n_pages:.3f} ms a page (first "
+          f"{page_ms[0]:.3f} ms); ListObjectVersions: {n_versions} versions"
+          f" and {n_markers} delete marker in {versions_s * 1e3:.1f} ms; a "
+          f"versioned DELETE (marker, 404, GET by version id); ranged, 304,"
+          f" HEAD and presigned GETs checked; card {card}")
+    for kind, (total_s, read_s, sha_s, eng_s) in (
+            (k, v) for k, v in split.items() if k != "md5 alone"):
+        engine_s = eng_s - read_s - sha_s
+        steps = {"socket read": read_s, "payload SHA-256": sha_s,
+                 "engine": engine_s,
+                 "HTTP and the client": total_s - eng_s}
+        holds = max(steps, key=steps.get)
+        print(f"[server] split of one {kind} HTTP PUT "
+              f"({SERVER_BIG_BYTES if kind == 'unsigned' else SERVER_CHUNKED_BYTES}"
+              f" B): {total_s * 1e3:.1f} ms in all; socket read "
+              f"{read_s * 1e3:.1f} ms, payload SHA-256 and chunk signatures "
+              f"{sha_s * 1e3:.1f} ms, engine (encode, digests, MD5 waits, "
+              f"framing, writes, publish) {engine_s * 1e3:.1f} ms, HTTP "
+              f"parsing, the response and the client's send "
+              f"{(total_s - eng_s) * 1e3:.1f} ms; MD5 of the "
+              f"{SERVER_BIG_BYTES} B body alone "
+              f"{split['md5 alone'] * 1e3:.1f} ms (on its own thread, beside"
+              f" the engine); {holds} holds it; card {card}")
+    print(f"[server] degraded GETs of {len(fis)} large objects (two "
+          f"data-shard drives of their set away) in {degraded_s:.3f} s; "
+          f"launches {launches}, expected from the sizes {want}; the "
+          f"phase took {served_s:.1f} s, then the boot {boot:.1f} s; "
+          f"card {card}")
+    return launches
+
+
+def _boot_server(card) -> float:
+    """`python -m minio_tpu_torch.server --drives <shm>/b{1...12}` in a
+    subprocess on the card: ready, one signed PUT (storage class STANDARD
+    = EC:4 through MTPU_STORAGE_CLASS_STANDARD) and GET of 64 MiB checked
+    by SHA-256, then SIGTERM and exit 0 within 30 s.  Returns its
+    seconds."""
+    import signal
+    import urllib.request
+
+    from minio_tpu_torch.server.client import S3Client
+    import numpy as np
+
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke-boot-", dir="/dev/shm")
+    port = _free_port()
+    env = dict(os.environ, MTPU_ROOT_USER="bootadmin",
+               MTPU_ROOT_PASSWORD="bootadmin-secret",
+               MTPU_STORAGE_CLASS_STANDARD="EC:4")
+    env.pop("MTPU_BITROT_ALGO", None)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here
+    out_path, err_path = (os.path.join(root, "out"),
+                          os.path.join(root, "err"))
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "minio_tpu_torch.server", "--drives",
+             os.path.join(root, "b{1...12}"), "--port", str(port)],
+            cwd=here, env=env, stdout=out, stderr=err)
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            if proc.poll() is not None:
+                raise SystemExit(f"boot exited {proc.returncode}: "
+                                 f"{open(err_path).read()[-3000:]}")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/minio/health/ready",
+                        timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise SystemExit("boot: never ready")
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t_start
+        cli = S3Client(f"http://127.0.0.1:{port}", "bootadmin",
+                       "bootadmin-secret", timeout=300)
+        data = np.random.default_rng(6000).bytes(OBJECT_BYTES)
+        cli.make_bucket("boot")
+        t0 = time.perf_counter()
+        cli.put_object("boot", "o", data,
+                       headers={"x-amz-storage-class": "STANDARD"})
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = cli.get_object("boot", "o")
+        get_s = time.perf_counter() - t0
+        if hashlib.sha256(got).digest() != hashlib.sha256(data).digest():
+            raise SystemExit("boot: GET differs")
+        k = sum(1 for d in range(1, 13) if os.path.isdir(
+            os.path.join(root, f"b{d}", "boot", "o")))
+        proc.send_signal(signal.SIGTERM)
+        t0 = time.perf_counter()
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            raise SystemExit("boot: no exit within 30 s of SIGTERM") \
+                from None
+        if rc != 0:
+            raise SystemExit(f"boot: exit {rc} on SIGTERM: "
+                             f"{open(err_path).read()[-3000:]}")
+        stop_s = time.perf_counter() - t0
+        lines = open(out_path).read().strip().splitlines()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[server] boot: python -m minio_tpu_torch.server over 12 drives "
+          f"ready in {ready_s:.1f} s ({lines[0] if lines else ''}); signed "
+          f"PUT of {OBJECT_BYTES} B with x-amz-storage-class STANDARD (EC:4)"
+          f" in {put_s * 1e3:.0f} ms onto {k} drives, GET in "
+          f"{get_s * 1e3:.0f} ms, SHA-256 equal; SIGTERM: exit 0 in "
+          f"{stop_s:.1f} s; card {card}")
+    if k != 12:
+        raise SystemExit(f"boot: the object is on {k} drives, not 12")
+    return time.perf_counter() - t_start
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's time goes, layer by layer
     (host clock around synchronised work, median of 5), and the device's
@@ -1954,6 +2677,7 @@ def main() -> int:
         "multipart": lambda: phase_multipart(args, counts, card),
         "drive heal": lambda: phase_drive_heal(args, counts, card),
         "object layer": lambda: phase_object_layer(args, counts, card),
+        "server": lambda: phase_server(args, counts, card),
     }
     per_path, tally = {}, {}
     with MxhShapes(fused, mt) as counts.shapes:
@@ -1971,8 +2695,18 @@ def main() -> int:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))
 
+    # mxh256 is no hand-written kernel and replaces no pallas_call: its
+    # row stands beside the kernels, not among them, with route "torch".
+    torch_ops = [{
+        "name": "mxh256", "route": "torch",
+        "source": "minio_tpu_torch/ops/mxhash_torch.py",
+        "replaces": "minio_tpu/ops/mxhash_jax.py:47 (XLA, not Pallas)",
+        "launches": calls, "max_abs_err": mxh["max_abs_err"],
+        "ms": mxh["ms"], "plain_ms": mxh["ms"],
+        "bound_ms": mxh["bound_ms"], "bound_by": mxh["bound_by"],
+        "library_ms": None}]
     print(card)
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records, "torch_ops": torch_ops}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

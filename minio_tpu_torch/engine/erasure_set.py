@@ -2,8 +2,9 @@
 
 Counterpart of minio_tpu/engine/erasure_set.py, cut to the object API a
 server stands on: buckets (`make_bucket`, `delete_bucket`, listing),
-`put_object`, `get_object` (whole and ranged, healthy and degraded,
-single- and multi-part), `head_object`, `update_object_metadata`,
+`put_object`, `get_object` and its streaming form `get_object_iter`
+(whole and ranged, healthy and degraded, single- and multi-part),
+`head_object`, `update_object_metadata`,
 `delete_object` (a version, or a delete marker when versioned), and the
 listings (`list_objects` through engine/metacache.py, `list_object_names`,
 `list_object_versions`); engine/heal.py, engine/multipart.py and
@@ -57,6 +58,7 @@ import numpy as np
 
 from ..cluster.nslock import NSLockMap
 from ..ops import devices, fused
+from ..parallel import pipeline
 from ..storage import bitrot_io
 from ..storage.drive import SMALL_FILE_THRESHOLD, SYS_VOL, TMP_DIR, LocalDrive
 from ..storage.errors import (ErrBucketExists, ErrBucketNotFound,
@@ -441,6 +443,51 @@ class ErasureSet:
         """Read [offset, offset+length) of an object, verifying bitrot on
         the device and rebuilding up to `parity` missing or corrupt
         shards (cf. getObjectWithFileInfo, cmd/erasure-object.go:221)."""
+        fi, metas, offset, length = self._plan_read(bucket, obj, offset,
+                                                    length, version_id)
+        if length == 0:
+            return fi, b""
+        if fi.inline_data is not None or (fi.parts and not fi.data_dir):
+            return fi, self._read_inline(fi, metas, offset, length)
+        out = bytearray(length)
+        mv = memoryview(out)
+        pos = 0
+        for pn, off, ln in self._plan_segments(fi, offset, length):
+            mv[pos:pos + ln] = self._read_part(bucket, obj, fi, pn, off, ln)
+            pos += ln
+        return fi, out
+
+    def get_object_iter(self, bucket: str, obj: str, offset: int = 0,
+                        length: int = -1, version_id: str = ""):
+        """Streaming read: (fi, iterator of verified, decoded chunks), each
+        at most one device batch (BATCH_BLOCKS blocks), so memory is
+        O(batch), never O(object) (the GetObjectReader role,
+        cmd/object-api-utils.go:392-528).  The metadata election and the
+        range check run before it returns; a read that fails later
+        raises from the iterator.
+
+        Segment i+1's drive reads and device call run while segment i
+        drains to the caller.  On a one-core host a healthy read from
+        local drives has nothing to overlap, so its segments run inline;
+        a degraded one still prefetches, its rebuild overlapping the
+        next segment's shard reads."""
+        fi, metas, offset, length = self._plan_read(bucket, obj, offset,
+                                                    length, version_id)
+        if length == 0:
+            return fi, iter(())
+        if fi.inline_data is not None or (fi.parts and not fi.data_dir):
+            return fi, iter((self._read_inline(fi, metas, offset, length),))
+        degraded = (any(d is None for d in self.drives)
+                    or any(m is None for m in metas))
+        pool = None if SERIAL_FANOUT and not degraded else self._iter_pool
+        return fi, pipeline.prefetch_map(
+            lambda seg: self._read_part(bucket, obj, fi, *seg),
+            self._plan_segments(fi, offset, length), pool, depth=1)
+
+    def _plan_read(self, bucket: str, obj: str, offset: int, length: int,
+                   version_id: str):
+        """A GET's front half: the metadata election and the range
+        check; (fi, metas by drive position, offset, resolved length)."""
         fi, metas = self._read_metadata(bucket, obj, version_id)
         if fi.deleted:
             raise ErrObjectNotFound(f"{bucket}/{obj} (delete marker)")
@@ -453,17 +500,7 @@ class ErasureSet:
         if offset + length > size:
             raise StorageError(f"range [{offset}, {offset + length}) "
                                f"outside object of size {size}")
-        if length == 0:
-            return fi, b""
-        if fi.inline_data is not None or (fi.parts and not fi.data_dir):
-            return fi, self._read_inline(fi, metas, offset, length)
-        out = bytearray(length)
-        mv = memoryview(out)
-        pos = 0
-        for pn, off, ln in self._plan_segments(fi, offset, length):
-            mv[pos:pos + ln] = self._read_part(bucket, obj, fi, pn, off, ln)
-            pos += ln
-        return fi, out
+        return fi, metas, offset, length
 
     def _plan_segments(self, fi, offset: int, length: int) -> list:
         """Map a byte range onto (part, offset, length) segments that end

@@ -274,10 +274,12 @@ def list_multipart_uploads(es: ErasureSet, bucket: str,
 
 def complete_multipart_upload(es: ErasureSet, bucket: str, obj: str,
                               upload_id: str,
-                              parts: list[tuple[int, str]]) -> FileInfo:
+                              parts: list[tuple[int, str]], *,
+                              versioned: bool = False) -> FileInfo:
     """Check the client's part list, move the chosen parts into a fresh
     data dir and publish one version atomically (cf.
-    CompleteMultipartUpload, erasure-multipart.go:771)."""
+    CompleteMultipartUpload, erasure-multipart.go:771): a new version
+    when `versioned`, else the null version."""
     fi_up = _read_upload_fi(es, bucket, obj, upload_id)
     ec = fi_up.erasure
     listed, part_algos = _list_parts_with_algos(es, bucket, obj, upload_id)
@@ -297,7 +299,7 @@ def complete_multipart_upload(es: ErasureSet, bucket: str, obj: str,
 
     total = sum(p.size for p in chosen)
     data_dir = new_uuid()
-    version_id = ""                       # the null version
+    version_id = new_uuid() if versioned else ""
     mod_time = time.time_ns()
     meta = {k: v for k, v in fi_up.metadata.items()
             if not k.startswith("x-mtpu-internal-mp-")}

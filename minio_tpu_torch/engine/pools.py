@@ -14,7 +14,6 @@ pool to a running deployment.
 
 from __future__ import annotations
 
-from ..ops import devices
 from ..storage.errors import (ErrBucketExists, ErrBucketNotFound,
                               ErrObjectNotFound, ErrVersionNotFound,
                               StorageError)
@@ -26,20 +25,20 @@ from .sets import ErasureSets
 class ServerPools:
     """The object layer over one or more pools.
 
-    `device` is where the pools' sets run: None means the CUDA cards,
-    "cpu" the host.  Pools whose sets run on another kind of device are
-    refused, so one layer never mixes host and card sets."""
+    The sets carry their device (ErasureSets(device=...)).  Pools whose
+    sets run on different kinds of device are refused, so one layer
+    never mixes host and card sets."""
 
-    def __init__(self, pools: list[ErasureSets], device=None):
+    def __init__(self, pools: list[ErasureSets]):
         if not pools:
             raise ValueError("need at least one pool")
-        self.device = devices.resolve(device)
+        first = pools[0].sets[0].device
         for i, p in enumerate(pools):
             for es in p.sets:
-                if es.device.type != self.device.type:
+                if es.device.type != first.type:
                     raise ValueError(
                         f"pool {i} set {es.set_index} runs on {es.device},"
-                        f" not on {self.device.type}")
+                        f" not on {first.type} as pool 0 set 0 does")
         self.pools = list(pools)
         self.deployment_id = pools[0].deployment_id
 
@@ -165,6 +164,13 @@ class ServerPools:
     def get_object(self, bucket: str, obj: str, offset: int = 0,
                    length: int = -1, version_id: str = ""):
         return self._first(bucket, obj, lambda p: p.get_object(
+            bucket, obj, offset, length, version_id))
+
+    def get_object_iter(self, bucket: str, obj: str, offset: int = 0,
+                        length: int = -1, version_id: str = ""):
+        """Streaming read: (fi, iterator of chunks of at most one device
+        batch) from the first pool that holds the object."""
+        return self._first(bucket, obj, lambda p: p.get_object_iter(
             bucket, obj, offset, length, version_id))
 
     def head_object(self, bucket: str, obj: str,

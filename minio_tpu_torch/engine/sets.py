@@ -129,6 +129,11 @@ class ErasureSets:
         return self.set_for(obj).get_object(bucket, obj, offset, length,
                                             version_id)
 
+    def get_object_iter(self, bucket: str, obj: str, offset: int = 0,
+                        length: int = -1, version_id: str = ""):
+        return self.set_for(obj).get_object_iter(bucket, obj, offset,
+                                                 length, version_id)
+
     def head_object(self, bucket: str, obj: str,
                     version_id: str = "") -> FileInfo:
         return self.set_for(obj).head_object(bucket, obj, version_id)

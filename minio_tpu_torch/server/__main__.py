@@ -1,0 +1,154 @@
+"""Standalone boot: `python -m minio_tpu_torch.server --drives /data{1...12}`.
+
+The single-node part of minio_tpu/server/__main__.py (the serverMain
+role, cmd/server-main.go:441): expand the drive endpoints, build the
+object layer (pools -> sets -> drives) on the CUDA card, start the S3
+front door, serve until SIGTERM or SIGINT, then drain and exit 0.  A
+second signal forces the exit.  Credentials come from MTPU_ROOT_USER /
+MTPU_ROOT_PASSWORD (the reference's MINIO_ROOT_USER convention),
+defaulting to minioadmin/minioadmin.
+
+Each --drives flag is one pool; within a flag, each space-separated
+ellipsis group is one pool too (`--drives '/a{1...4} /b{1...4}'`),
+plain paths without ellipses make one pool together.  The sets run on
+the card (`--device cpu` runs them on the host, for tests); without
+CUDA and without that flag the boot raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+
+#: What the JAX package's boot starts and this one does not, with the
+#: ROADMAP.md Queue A item each waits for.
+LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner "
+            "(item 9); startup self-tests, boot recovery sweep, drive "
+            "health wrap and MRF (item 5); hot cache and QoS (item 7); "
+            "the pre-fork worker pool (item 6); IAM (item 3b); "
+            "notifications, replication and tiering (item 10)")
+
+
+def expand_ellipses(pattern: str) -> list[str]:
+    """Expand `/tmp/d{1...4}` patterns
+    (cf. cmd/endpoint-ellipses.go:341)."""
+    from ..topology.endpoints import expand_one, has_ellipses
+    if has_ellipses(pattern):
+        return expand_one(pattern)
+    return pattern.split()
+
+
+def parse_pool_paths(drive_groups: list[list[str]]) -> list[list[str]] | None:
+    """Expand --drives groups into per-pool path lists; None on a
+    mixed ellipsis/plain group (the caller exits 2)."""
+    from ..topology.endpoints import has_ellipses
+    pool_paths: list[list[str]] = []
+    for group in drive_groups:
+        if len(group) > 1 and any(has_ellipses(a) for a in group):
+            if not all(has_ellipses(a) for a in group):
+                print("--drives: cannot mix ellipsis pool patterns "
+                      f"with plain paths in one group: {group}",
+                      file=sys.stderr)
+                return None
+            pool_paths.extend(expand_ellipses(a) for a in group)
+        else:
+            pool_paths.append(
+                [p for a in group for p in expand_ellipses(a)])
+    return pool_paths
+
+
+def install_signal_handlers(stop: threading.Event) -> None:
+    """SIGTERM and SIGINT both start a graceful drain (cmd/signals.go
+    treats them alike); a SECOND signal forces the exit."""
+    def _sig(signum, frame):
+        if stop.is_set():
+            try:
+                os.write(2, b"minio_tpu_torch: second signal, forcing "
+                            b"exit\n")
+            except OSError:
+                pass
+            os._exit(130 if signum == signal.SIGINT else 143)
+        stop.set()
+    signal.signal(signal.SIGTERM, _sig)
+    signal.signal(signal.SIGINT, _sig)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="minio_tpu_torch.server")
+    ap.add_argument("--drives", required=True, action="append",
+                    help="drive paths, ellipses ok: /tmp/d{1...4}; "
+                         "repeat the flag to add a pool")
+    ap.add_argument("--port", type=int, default=9000)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--set-drive-count", type=int, default=None)
+    ap.add_argument("--certs-dir",
+                    default=os.environ.get("MTPU_CERTS_DIR", ""),
+                    help="dir with public.crt/private.key -> serve HTTPS")
+    ap.add_argument("--device", choices=("cpu",), default=None,
+                    help="run the sets on the host (tests); by default "
+                         "they run on the CUDA card")
+    args = ap.parse_args(argv)
+
+    certs = None
+    if args.certs_dir:
+        cert = os.path.join(args.certs_dir, "public.crt")
+        key = os.path.join(args.certs_dir, "private.key")
+        if not (os.path.exists(cert) and os.path.exists(key)):
+            print(f"--certs-dir: missing {cert} or {key}",
+                  file=sys.stderr)
+            return 2
+        certs = (cert, key)
+    pool_paths = parse_pool_paths([g.split() for g in args.drives])
+    if pool_paths is None:
+        return 2
+
+    from ..engine.pools import ServerPools
+    from ..engine.sets import ErasureSets
+    from ..storage.drive import LocalDrive
+    from .server import S3Server
+    from .sigv4 import Credentials
+
+    creds = Credentials(os.environ.get("MTPU_ROOT_USER", "minioadmin"),
+                        os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"))
+    pool_sets: list[ErasureSets] = []
+    try:
+        for paths in pool_paths:
+            drives = [LocalDrive(p) for p in paths]
+            pool_sets.append(ErasureSets(
+                drives, set_drive_count=args.set_drive_count or len(drives),
+                deployment_id=(pool_sets[0].deployment_id
+                               if pool_sets else None),
+                device=args.device))
+        pools = ServerPools(pool_sets)
+    except BaseException:
+        for p in pool_sets:
+            p.close()
+        raise
+    stop = threading.Event()
+    install_signal_handlers(stop)
+    try:
+        srv = S3Server(pools, creds, host=args.host, port=args.port,
+                       certs=certs).start()
+        desc = ", ".join(f"pool{i}: {len(p)} drives "
+                         f"set={pool_sets[i].set_drive_count}"
+                         for i, p in enumerate(pool_paths))
+        device = pool_sets[0].sets[0].device
+        print(f"minio_tpu_torch server on {srv.endpoint} ({desc}; sets on "
+              f"{device})", flush=True)
+        print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
+        while not stop.wait(timeout=1.0):
+            pass
+        # Graceful exit: 503 to new requests, finish inflight ones, then
+        # drop the listener and stop the sets' executors.
+        srv.drain()
+        srv.shutdown()
+    finally:
+        pools.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -62,18 +62,25 @@ def test_no_forbidden_imports(path):
 
 
 def test_scan_covers_every_subpackage():
-    """Every subpackage of the port, cluster/, parallel/ and background/
-    among them, has its modules in the scan."""
+    """Every subpackage of the port, cluster/, parallel/, background/
+    and the S3 server's server/, bucket/, config/ and topology/ among
+    them, has its modules in the scan."""
     subpackages = {p.parent.relative_to(PKG) for p in PKG.rglob("__init__.py")
                    if (PKG / "build") not in p.parents}
     scanned = {p.parent.relative_to(PKG) for p in SOURCES
                if PKG in p.parents}
-    assert {Path("cluster"), Path("parallel"), Path("background")} \
-        <= subpackages <= scanned
+    assert {Path("cluster"), Path("parallel"), Path("background"),
+            Path("server"), Path("bucket"), Path("config"),
+            Path("topology")} <= subpackages <= scanned
     for mod in ("cluster/nslock.py", "cluster/dynamic_timeout.py",
                 "parallel/pipeline.py", "storage/format.py",
                 "utils/siphash.py", "engine/metacache.py", "engine/sets.py",
-                "engine/pools.py", "background/heal_ops.py"):
+                "engine/pools.py", "background/heal_ops.py",
+                "server/server.py", "server/handlers.py",
+                "server/sigv4.py", "server/api_errors.py",
+                "server/client.py", "server/__main__.py",
+                "bucket/metadata.py", "config/config.py",
+                "topology/endpoints.py"):
         assert PKG / mod in SOURCES, mod
 
 

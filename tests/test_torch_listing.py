@@ -40,7 +40,7 @@ PORT = SimpleNamespace(
     name="port", LocalDrive=LocalDrive,
     ErasureSet=functools.partial(port_es_mod.ErasureSet, device="cpu"),
     ErasureSets=functools.partial(ErasureSets, device="cpu"),
-    ServerPools=functools.partial(ServerPools, device="cpu"), mc=port_mc,
+    ServerPools=ServerPools, mc=port_mc,
     errors=port_errors, FileInfo=FileInfo, es_mod=port_es_mod)
 IMPLS = [JAX, PORT]
 MIB = 1 << 20

@@ -43,7 +43,7 @@ JAX = SimpleNamespace(
 PORT = SimpleNamespace(
     name="port", LocalDrive=LocalDrive,
     ErasureSets=functools.partial(ErasureSets, device="cpu"),
-    ServerPools=functools.partial(ServerPools, device="cpu"),
+    ServerPools=ServerPools,
     HealState=HealState, errors=port_errors)
 IMPLS = [JAX, PORT]
 MIB = 1 << 20
@@ -588,23 +588,23 @@ def test_heal_sequence_failure_is_reported(tmp_path, closing, monkeypatch):
 # -- the device ------------------------------------------------------------------
 
 def test_server_pools_device(tmp_path, monkeypatch, closing):
-    """No device means the CUDA card: without CUDA the layer raises;
-    device="cpu" works; pools on another kind of device are refused."""
-    pool = pool_on(PORT, tmp_path, 4, 4)
+    """No device means the CUDA card: without CUDA the sets raise; sets
+    made with device="cpu" make a layer on the host; pools whose sets
+    run on different kinds of device are refused."""
+    pool = pool_on(PORT, tmp_path, 8, 4)
     closing(pool)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ServerPools([pool])
-    with pytest.raises(RuntimeError):
         ErasureSets([LocalDrive(str(tmp_path / f"x{i}")) for i in range(4)],
                     set_drive_count=4)
-    pools = ServerPools([pool], device="cpu")
-    assert pools.device == torch.device("cpu")
+    pools = ServerPools([pool])
+    assert {es.device for es in pools.pools[0].sets} == \
+        {torch.device("cpu")}
     pools.make_bucket("b")
     pools.put_object("b", "o", b"on the host")
     assert bytes(pools.get_object("b", "o")[1]) == b"on the host"
-    monkeypatch.setattr(pool.sets[0], "device", torch.device("cuda", 0))
+    monkeypatch.setattr(pool.sets[1], "device", torch.device("cuda", 0))
     with pytest.raises(ValueError, match="runs on cuda:0"):
-        ServerPools([pool], device="cpu")
+        ServerPools([pool])
     with pytest.raises(ValueError):
-        ServerPools([], device="cpu")
+        ServerPools([])

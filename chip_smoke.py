@@ -91,19 +91,40 @@ Phases, each printing its own lines; any failure exits non-zero:
       GETs with two data-shard drives away; every body by SHA-256 and
       the three device programs' launches equal to the counts the sizes
       call for; PUT and GET GB/s over HTTP beside ServerPools directly,
-      small-object operations/s, ms a listing page, the split of one
-      64 MiB HTTP PUT, and how long the PUT batches' copies and kernels
-      waited on the shared default stream behind other clients'.  Then `python -m minio_tpu_torch.server` boots in
+      small-object operations/s, ms a listing page and the split of one
+      64 MiB HTTP PUT.  Then `python -m minio_tpu_torch.server` boots in
       a subprocess on the card, serves a 64 MiB PUT and GET and exits 0
       on SIGTERM.
+   h. concurrent dispatch: the deployment of f through ServerPools and
+      through the S3 server, with the cross-request coalescer
+      (ops/coalesce.py) and its pinned, double-buffered copies, with
+      MTPU_COALESCE=0 and with MTPU_H2D_PIPELINE=0: 16 clients x 8
+      objects of 1 MiB PUT and GET, 4 clients x 2 HighwayHash objects,
+      four 64 MiB objects PUT and GET from 1 and from 4 clients and read
+      degraded with two drives of every set away, and a 16 MiB object
+      read twice, the second read a device-shard-cache hit that copies 0
+      bytes to the card by the ledger (ops/devcache.py).  Bodies equal,
+      part files' SHA-256 equal in every mode, no fallback or batch
+      fault, every lane-thread dispatch pipelined when the pipeline is
+      on; per step GB/s, operations/s, dispatches and items per
+      dispatch, the lanes' time split, bytes copied per byte served.
+   Phases a-g run with MTPU_DEVCACHE=0: their counts assume every GET
+   reads its shards, and a and b probe a GET of a corrupted frame.
 6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
    device's busy share over one 64 MiB PUT + GET (torch.profiler).
 
 Launch counts are read for gf_matmul, hh256 and mxh256 (its calls on the
-card).  The line before the last is the kernels' JSON record, whose
-launches are the main paths'; mxh256 is no hand-written kernel and its
-row stands under "torch_ops" beside "kernels", with route "torch".  The
-last line is {"ok": true, "device": {...}}.
+card), and beside them the work items of each (ops/fused.ITEMS: one per
+direct call, the requests packed into a coalesced dispatch).  Where a
+phase holds counts (e-h), the items must equal what the sizes call for
+and the launches must be at most the items (equal with
+MTPU_COALESCE=0).  Each path starts on fresh coalescer lanes; after each
+of a-g their dispatches are printed, and a batch fault, a lane-thread
+dispatch that was not pipelined, or a fallback to the direct call on any
+path fails the run.  The line before the last is the kernels' JSON record,
+whose launches are the main paths'; mxh256 is no hand-written kernel and
+its row stands under "torch_ops" beside "kernels", with route "torch".
+The last line is {"ok": true, "device": {...}}.
 Without CUDA, or without the package beside it, the script exits
 non-zero and prints no result.
 """
@@ -176,6 +197,24 @@ SERVER_SMALL, SERVER_SMALL_SERIAL = 1024, 128
 SERVER_SMALL_BYTES = (1024, 100 * 1024)
 SERVER_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 SERVER_RANGE = (300 * 1024, MIB)
+# Concurrent dispatch on the card (phase 5h), over the deployment of 5f,
+# through ServerPools and through the S3 server, in each of
+# DISPATCH_MODES: DISPATCH_SMALL_CLIENTS clients each PUT and GET
+# DISPATCH_SMALL_PER objects of DISPATCH_SMALL_BYTES; DISPATCH_HH_CLIENTS
+# clients DISPATCH_HH_PER highwayhash256S objects of that size each;
+# DISPATCH_BIG_CLIENTS objects of DISPATCH_BIG_BYTES from 1 client and
+# from DISPATCH_BIG_CLIENTS, and their degraded GETs with drives
+# DISPATCH_AWAY of every set away; one DISPATCH_HIT_BYTES object read
+# twice (the second read a device-cache hit).
+DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 16, 8, MIB
+DISPATCH_HH_CLIENTS, DISPATCH_HH_PER = 4, 2
+DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 4, OBJECT_BYTES
+DISPATCH_AWAY = (0, 1)
+DISPATCH_HIT_BYTES = 16 * MIB
+DISPATCH_MODES = (
+    ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
+    ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
+    ("serial copies", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "0"}))
 
 
 def card_line() -> str:
@@ -195,19 +234,23 @@ def max_sm_clock_hz() -> float:
 
 
 class Launches:
-    """Sets to 0 and reads the launch counts of every kernel wrapper, and
+    """Sets to 0 and reads the launch counts of every kernel wrapper, the
+    work items the fused programs computed per kernel (`items`: one per
+    direct call, the requests packed into a coalesced dispatch), and
     with them the tally of mxh256's shapes (`shapes`, a MxhShapes) when
     one is installed: `last_shapes` is the tally as the last read()
     found it."""
 
-    def __init__(self, wrappers: dict):
+    def __init__(self, wrappers: dict, fused):
         self.wrappers = wrappers
+        self.fused = fused
         self.shapes = None
         self.last_shapes: dict[tuple[int, int], int] = {}
 
     def reset(self) -> None:
         for mod in self.wrappers.values():
             mod.LAUNCHES = 0
+        self.fused.reset_items()
         if self.shapes is not None:
             self.shapes.reset()
 
@@ -215,6 +258,9 @@ class Launches:
         if self.shapes is not None:
             self.last_shapes = self.shapes.snapshot()
         return {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
+
+    def items(self) -> dict[str, int]:
+        return dict(self.fused.ITEMS)
 
 
 def kernel_name(mangled: str) -> str:
@@ -1266,13 +1312,19 @@ def _expected_heal_launches(fis, pos) -> dict[str, int]:
     return want
 
 
-def _check_launches(path: str, got: dict, want: dict,
+def _check_launches(path: str, got: dict, items: dict, want: dict,
                     held=("gf_matmul", "hh256")) -> None:
-    """Fail unless the launches of `held` (both kernels by default, with
-    mxh256's calls reported beside them) equal the counts the sizes
-    call for."""
-    if any(got[k] != want[k] for k in held):
-        raise SystemExit(f"{path} launches {got} != {want}")
+    """Fail unless, for each kernel of `held` (both kernels by default,
+    with mxh256's calls reported beside them), the work items equal the
+    counts the sizes call for and the launches are at least one where
+    there was work and at most the items: the coalescer packs items into
+    fewer launches; without it (MTPU_COALESCE=0) launches equal items."""
+    direct = os.environ.get("MTPU_COALESCE", "1") == "0"
+    for k in held:
+        if items[k] != want[k] or got[k] > items[k] or \
+                (items[k] and not got[k]) or (direct and got[k] != items[k]):
+            raise SystemExit(f"{path}: launches {got}, items {items}, "
+                             f"expected items {want}")
 
 
 def phase_drive_heal(args, counts, card):
@@ -1349,17 +1401,20 @@ def phase_drive_heal(args, counts, card):
             t = heal.heal_drive(es, pos, workers=workers, checkpoint_every=8)
             heal_s = time.perf_counter() - t0
             launches = counts.read()          # the main path ends here
+            items = counts.items()
             if not t.finished or t.objects_failed or \
                     t.objects_healed != len(versions):
                 raise SystemExit(f"heal_drive: {t}, {len(versions)} object "
                                  "versions on the drive")
             _check_launches(f"heal_drive ({workers} workers)", launches,
-                            want)
+                            items, want)
             if _drive_hashes(es.drives[pos].root) != golden[pos]:
                 raise SystemExit("a file of the healed drive differs from "
                                  "its recorded SHA-256")
             return {"s": heal_s, "bytes": t.bytes_healed,
-                    "launches": launches, "stages": heal.STAGES.read(),
+                    "launches": launches, "items": items,
+                    "shapes": counts.last_shapes,
+                    "stages": heal.STAGES.read(),
                     "saved": saved}
 
         main = wipe_and_heal(4, interrupt=True)
@@ -1407,7 +1462,8 @@ def phase_drive_heal(args, counts, card):
         st = r["stages"]
         print(f"[drive heal] {name}: {r['bytes'] / r['s'] / 1e9:.3f} GB/s "
               f"({r['bytes']} object bytes in {r['s']:.3f} s, host clock); "
-              f"launches {r['launches']} (expected {want}); pipeline "
+              f"launches {r['launches']}, items {r['items']} (expected "
+              f"{want}); pipeline "
               f"stages summed over batches: read {st['read']:.3f} s, "
               f"compute {st['compute']:.3f} s, write {st['write']:.3f} s, "
               f"{st['batches']} batches; card {card}")
@@ -1415,6 +1471,9 @@ def phase_drive_heal(args, counts, card):
     for name, rs in runs.items():
         for turn, r in enumerate(rs):
             line(f"{name}, turn {turn + 1} of 2", r)
+    # Coalesced launches differ from run to run: the main path's shapes go
+    # with its launches.
+    counts.last_shapes = main["shapes"]
     return main["launches"]
 
 
@@ -1771,7 +1830,8 @@ def phase_object_layer(args, counts, card):
         except ErrObjectNotFound:
             pass
         launches = counts.read()              # the main path ends here
-        _check_launches("object layer", launches, want)
+        items = counts.items()
+        _check_launches("object layer", launches, items, want)
     finally:
         os.environ.pop("MTPU_BITROT_ALGO", None)
         if pools is not None:
@@ -1811,8 +1871,8 @@ def phase_object_layer(args, counts, card):
           f"{st['healed']} healed; every file back to its SHA-256; every "
           f"live object byte-exact with two other drives of each set away; "
           f"card {card}")
-    print(f"[object layer] launches {launches}, expected from the sizes "
-          f"{want}; the phase took {time.perf_counter() - started:.1f} s; "
+    print(f"[object layer] launches {launches}, items {items}, expected "
+          f"from the sizes {want}; the phase took {time.perf_counter() - started:.1f} s; "
           f"card {card}")
     return launches
 
@@ -1839,106 +1899,6 @@ class _Timed:
 
     def __exit__(self, *exc) -> None:
         setattr(self.cls, self.name, self.orig)
-
-
-class _StreamWaits:
-    """Times every PUT batch's device section (ErasureSet._encode_blocks:
-    the same calls in the same order, its copy to the card made first)
-    on the host clock and with CUDA events on the stream, to tell how
-    long one handler's copies waited on the shared default stream behind
-    other handlers' batches.  Host times map onto the device's clock
-    through an event recorded on an idle card.  Per call:
-    - the wait before its host-to-device copy: event a, recorded just
-      before the copy, ran that long after the host recorded it;
-    - the wait before its device-to-host copy: event c, recorded just
-      before the copy, ran that long after both the host's request and
-      the call's own kernels (event b);
-    - the span of its copy in (a..a2) and of its kernels (from their
-      launch or a2, whichever is later, to b) beyond the median of its
-      batch shape in the window of one client: other batches on the
-      stream, or gaps in the host's launches (GIL, cores), which the
-      events cannot tell apart."""
-
-    def __init__(self, torch):
-        from minio_tpu_torch.engine.erasure_set import ErasureSet
-        self.torch, self.cls = torch, ErasureSet
-        self.orig = ErasureSet._encode_blocks
-        self.calls, self.mu = [], threading.Lock()
-
-    def __enter__(self):
-        from minio_tpu_torch.ops import devices, fused
-        from minio_tpu_torch.storage import bitrot_io
-        torch, calls, mu = self.torch, self.calls, self.mu
-
-        def event():
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            return e
-
-        def timed(es, blocks, k, m, algo):
-            ha = time.perf_counter()
-            a = event()
-            xt = devices.put(blocks, es.device)
-            a2 = event()
-            hk = time.perf_counter()
-            parity, digests = fused.encode_and_hash(xt, k, m, algo=algo,
-                                                    device=es.device)
-            b = event()
-            hc = time.perf_counter()
-            c = event()
-            pn, dn = parity.cpu().numpy(), digests.cpu().numpy()
-            hd = time.perf_counter()
-            with mu:
-                calls.append((blocks.shape, ha, a, a2, hk, b, hc, c, hd))
-            return bitrot_io.frame_shard_views(blocks, pn, dn, algo)
-
-        torch.cuda.synchronize()
-        self.h_ref = time.perf_counter()
-        self.ref = event()
-        self.t0 = time.perf_counter()
-        self.cls._encode_blocks = timed
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.cls._encode_blocks = self.orig
-        self.wall = time.perf_counter() - self.t0
-        self.torch.cuda.synchronize()
-
-    def _spans(self):
-        """(shape, copy-in span, kernels' span, wait in, wait out, host
-        ms of the section) per call, in ms."""
-        t = self.ref.elapsed_time
-
-        def h(x):
-            return (x - self.h_ref) * 1e3
-        for shape, ha, a, a2, hk, b, hc, c, hd in self.calls:
-            yield (shape, a.elapsed_time(a2), t(b) - max(h(hk), t(a2)),
-                   max(0.0, t(a) - h(ha)),
-                   max(0.0, t(c) - max(h(hc), t(b))), (hd - ha) * 1e3)
-
-    def own(self) -> dict:
-        """Median copy-in and kernels' spans by batch shape."""
-        by = {}
-        for shape, cin, kern, *_ in self._spans():
-            by.setdefault(shape, []).append((cin, kern))
-        return {s: (statistics.median(v[0] for v in vs),
-                    statistics.median(v[1] for v in vs))
-                for s, vs in by.items()}
-
-    def summary(self, clients: int, own: dict) -> dict:
-        """Sums over the window's calls, in ms."""
-        out = dict.fromkeys(("wait_in", "wait_out", "copy_in", "kernels",
-                             "section"), 0.0)
-        for shape, cin, kern, w_in, w_out, section in self._spans():
-            o_cin, o_kern = own.get(shape, (cin, kern))
-            out["wait_in"] += w_in
-            out["wait_out"] += w_out
-            out["copy_in"] += max(0.0, cin - o_cin)
-            out["kernels"] += max(0.0, kern - o_kern)
-            out["section"] += section
-        out["calls"] = len(self.calls)
-        out["client_ms"] = self.wall * 1e3 * clients
-        return out
 
 
 def _in_threads(n: int, fn, items) -> list:
@@ -1987,7 +1947,6 @@ def phase_server(args, counts, card):
     from minio_tpu_torch.storage.drive import LocalDrive
     from minio_tpu_torch.utils import streams
     import numpy as np
-    import torch
 
     access, secret = "smokeadmin", "smokeadmin-secret"
     n_drives = LAYER_SET_DRIVES
@@ -2019,7 +1978,7 @@ def phase_server(args, counts, card):
 
     started = time.perf_counter()
     pools = srv = None
-    rates, split, waits = {}, {}, {}
+    rates, split = {}, {}
     try:
         drives = [LocalDrive(os.path.join(root, f"d{i:02d}"))
                   for i in range(SERVER_SETS * n_drives)]
@@ -2045,8 +2004,7 @@ def phase_server(args, counts, card):
         def timed_batch(kind, clients, put, get, specs):
             """PUT then GET `specs` from `clients` threads: (PUT GB/s of
             the mxh256 objects, GET GB/s of all), highwayhash256S
-            objects PUT first from this thread, untimed.  The timed PUTs'
-            waits on the shared stream go to waits[kind, clients]."""
+            objects PUT first from this thread, untimed."""
             datas = {name: body(seed, n) for name, n, _, seed in specs}
             for name, data in datas.items():
                 digests[name] = hashlib.sha256(data).digest()
@@ -2057,8 +2015,7 @@ def phase_server(args, counts, card):
             put_algo("mxh256")
             rest = [name for name, _, algo, _ in specs if algo != HH]
             t0 = time.perf_counter()
-            with _StreamWaits(torch) as waits[kind, clients]:
-                _in_threads(clients, lambda nm: put(nm, datas[nm]), rest)
+            _in_threads(clients, lambda nm: put(nm, datas[nm]), rest)
             put_rate = (sum(len(datas[nm]) for nm in rest)
                         / (time.perf_counter() - t0) / 1e9)
             del datas
@@ -2321,7 +2278,8 @@ def phase_server(args, counts, card):
             expect(_get_calls(fi), fi.erasure.bitrot_algo(), 1)
         degraded_s = time.perf_counter() - t0
         launches = counts.read()              # the main path ends here
-        _check_launches("server", launches, want,
+        items = counts.items()
+        _check_launches("server", launches, items, want,
                         held=("gf_matmul", "hh256", "mxh256"))
     finally:
         os.environ.pop("MTPU_BITROT_ALGO", None)
@@ -2351,24 +2309,6 @@ def phase_server(args, counts, card):
           f"{rates['direct', 1][1]:.3f} and {rates['direct', 4][1]:.3f} "
           f"(host clock, bodies made and checked outside the timing); "
           f"card {card}")
-    for kind in ("direct", "http"):
-        own = waits[kind, 1].own()
-        for clients in (1, 4):
-            w = waits[kind, clients].summary(clients, own)
-            waited = w["wait_in"] + w["wait_out"]
-            print(f"[server] shared default stream, {kind} PUTs of "
-                  f"{SERVER_BIG_BYTES} B from {clients} client(s): "
-                  f"{w['calls']} batches; their device sections (copy in, "
-                  f"encode + digests, copy out) {w['section']:.1f} ms of "
-                  f"{w['client_ms']:.1f} ms of client time; copies waiting "
-                  f"on the stream behind other batches: before the copy in "
-                  f"{w['wait_in']:.1f} ms, before the copy out "
-                  f"{w['wait_out']:.1f}, {waited:.1f} ms in all = "
-                  f"{waited / w['client_ms']:.2%} of client time; spans "
-                  f"beyond one client's (other batches or host launch "
-                  f"gaps): copy in {w['copy_in']:.1f} ms, kernels "
-                  f"{w['kernels']:.1f} (CUDA events, host clock); card "
-                  f"{card}")
     print(f"[server] small objects: PUT {ops['put', 1]:.1f} operations/s "
           f"from 1 client, {ops['put', 8]:.1f} from 8; GET "
           f"{ops['get', 1]:.1f} from 1, {ops['get', 8]:.1f} from 8 (host "
@@ -2400,9 +2340,259 @@ def phase_server(args, counts, card):
               f" the engine); {holds} holds it; card {card}")
     print(f"[server] degraded GETs of {len(fis)} large objects (two "
           f"data-shard drives of their set away) in {degraded_s:.3f} s; "
-          f"launches {launches}, expected from the sizes {want}; the "
+          f"launches {launches}, items {items}, expected from the sizes "
+          f"{want}; the "
           f"phase took {served_s:.1f} s, then the boot {boot:.1f} s; "
           f"card {card}")
+    return launches
+
+
+def phase_dispatch(args, counts, card):
+    """Concurrent dispatch on the card: the deployment of 5f (4 sets x 12
+    drives, EC:8+4) through ServerPools directly and through an
+    in-process S3Server, in each of DISPATCH_MODES (the coalescer with
+    its pinned, double-buffered copies; MTPU_COALESCE=0; and
+    MTPU_H2D_PIPELINE=0).  Per mode and route, a fresh bucket: 16
+    clients PUT 8 objects of 1 MiB each, then GET them; 4 clients PUT and
+    GET 2 highwayhash256S objects each; four 64 MiB objects PUT from 1
+    client and again from 4, then read from 1 and from 4; degraded GETs
+    of them from 4 clients with two drives of every set away; one 16 MiB
+    object PUT and read twice, the second read a device-cache hit that
+    copies 0 bytes to the card by the ledger.  Every GET round starts
+    from an empty device cache.  Every body equals what was PUT; the
+    part files' SHA-256 are the same in every mode; per mode the work
+    items equal the counts the sizes call for and the launches are at
+    most the items (equal without the coalescer); the coalesced modes
+    make no fallback and no batch fault, and with the pipeline on every
+    dispatch of a lane thread was pipelined.  Prints, per step, GB/s,
+    operations/s, dispatches and items per dispatch, the lanes' time
+    split and the bytes copied to the card per byte served."""
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.ops import coalesce, devcache
+    from minio_tpu_torch.server import sigv4
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.storage.drive import LocalDrive
+    import numpy as np
+
+    access, secret = "smokeadmin", "smokeadmin-secret"
+    n_drives = LAYER_SET_DRIVES
+    small = [[(f"small/{c:02d}/{i}", DISPATCH_SMALL_BYTES)
+              for i in range(DISPATCH_SMALL_PER)]
+             for c in range(DISPATCH_SMALL_CLIENTS)]
+    hh = [[(f"hh/{c}/{i}", DISPATCH_SMALL_BYTES)
+           for i in range(DISPATCH_HH_PER)]
+          for c in range(DISPATCH_HH_CLIENTS)]
+    big = [[(f"big/{c}", DISPATCH_BIG_BYTES)]
+           for c in range(DISPATCH_BIG_CLIENTS)]
+    hit = [[("hit/0", DISPATCH_HIT_BYTES)]]
+    specs = [sp for group in (small, hh, big, hit) for c in group
+             for sp in c]
+    bodies = {name: np.random.default_rng(args.seed + 9000 + i).bytes(n)
+              for i, (name, n) in enumerate(specs)}
+    total = sum(len(b) for b in bodies.values())
+    need = int(total * 1.5 * 2.5) + (1 << 30)
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"dispatch: needs {need} bytes free on /dev/shm")
+    root = tempfile.mkdtemp(prefix="chip_smoke-dispatch-", dir="/dev/shm")
+    started = time.perf_counter()
+    pools = srv = None
+    rows, hashes = [], {}
+    saved_env = {k: os.environ.get(k) for k in
+                 ("MTPU_COALESCE", "MTPU_H2D_PIPELINE", "MTPU_BITROT_ALGO")}
+    try:
+        drives = [LocalDrive(os.path.join(root, f"d{i:02d}"))
+                  for i in range(LAYER_SETS * n_drives)]
+        pools = ServerPools([ErasureSets(drives, set_drive_count=n_drives,
+                                         default_parity=4)])
+        sets = pools.pools[0].sets
+        srv = S3Server(pools, sigv4.Credentials(access, secret)).start()
+        cli = S3Client(srv.endpoint, access, secret, timeout=300)
+        routes = {
+            "ServerPools": (
+                lambda b, nm: pools.put_object(b, nm, bodies[nm]),
+                lambda b, nm: bytes(pools.get_object(b, nm)[1])),
+            "HTTP": (
+                lambda b, nm: cli.put_object_stream(
+                    b, nm, io.BytesIO(bodies[nm]), len(bodies[nm])),
+                lambda b, nm: b"".join(cli.get_object_stream(b, nm))),
+        }
+        counts.reset()                        # the main path starts here
+        for mi, (mode, env) in enumerate(DISPATCH_MODES):
+            os.environ.update(env)
+            for ri, (route, (put, get)) in enumerate(routes.items()):
+                bucket = f"dispatch{mi}{ri}"
+                pools.make_bucket(bucket)
+                want = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+                l0, i0 = counts.read(), counts.items()
+                f0 = coalesce.stats()
+                hits0 = devcache.get().stats()["hits"]
+
+                def step(name, groups, kind, algo="mxh256", away=()):
+                    """One round: each group of objects from its own
+                    client, in turn within the group."""
+                    coalesce.reset()          # fresh lanes, fresh stats
+                    if kind == "get":
+                        devcache.get().clear()
+                    devcache.reset_h2d()
+                    fn = put if kind == "put" else get
+                    got = {}
+
+                    def client(group):
+                        for nm, _ in group:
+                            got[nm] = fn(bucket, nm)
+
+                    t0 = time.perf_counter()
+                    _in_threads(len(groups), client, groups)
+                    dt = time.perf_counter() - t0
+                    names = [nm for g in groups for nm, _ in g]
+                    nbytes = sum(len(bodies[nm]) for nm in names)
+                    for nm in names:
+                        fi = pools.head_object(bucket, nm)
+                        calls = (_put_calls(fi.size) if kind == "put"
+                                 else _get_calls(fi))
+                        want[_digest(algo)] += calls
+                        if kind == "put" or _holds_data(fi, away):
+                            want["gf_matmul"] += calls
+                        if kind == "get" and got[nm] != bodies[nm]:
+                            raise SystemExit(f"dispatch {mode} {route}: "
+                                             f"GET {nm} differs")
+                    st = coalesce.get().stats()
+                    queued = st["dispatches"] - st["inline_dispatches"]
+                    piped = (queued if env["MTPU_H2D_PIPELINE"] == "1"
+                             else 0)
+                    if st["batch_faults"] or \
+                            st["pipeline_dispatches"] != piped:
+                        raise SystemExit(f"dispatch {mode} {route} {name}: "
+                                         f"lanes {st}")
+                    rows.append({
+                        "mode": mode, "route": route, "step": name,
+                        "clients": len(groups), "ops": len(names),
+                        "bytes": nbytes, "s": dt, "lanes": st,
+                        "h2d": devcache.h2d_stats()["h2d_bytes"]})
+                    return rows[-1]
+
+                step("1 MiB PUT", small, "put")
+                step("1 MiB GET", small, "get")
+                os.environ["MTPU_BITROT_ALGO"] = HH
+                try:
+                    step(f"1 MiB {HH} PUT", hh, "put", HH)
+                finally:
+                    os.environ.pop("MTPU_BITROT_ALGO", None)
+                step(f"1 MiB {HH} GET", hh, "get", HH)
+                step("64 MiB PUT", [sum(big, [])], "put")
+                step("64 MiB PUT", big, "put")
+                step("64 MiB GET", [sum(big, [])], "get")
+                step("64 MiB GET", big, "get")
+                saved = [list(es.drives) for es in sets]
+                for es in sets:
+                    for p in DISPATCH_AWAY:
+                        es.drives[p] = None
+                try:
+                    step("64 MiB degraded GET", big, "get",
+                         away=DISPATCH_AWAY)
+                finally:
+                    for es, drv in zip(sets, saved):
+                        es.drives = drv
+                step("16 MiB PUT", hit, "put")
+                first = step("16 MiB GET, first touch", hit, "get")
+                devcache.reset_h2d()
+                t0 = time.perf_counter()
+                again = get(bucket, hit[0][0][0])
+                dt = time.perf_counter() - t0
+                if again != bodies[hit[0][0][0]]:
+                    raise SystemExit(f"dispatch {mode} {route}: the "
+                                     "cached GET differs")
+                h2d = devcache.h2d_stats()["h2d_bytes"]
+                hits = devcache.get().stats()["hits"] - hits0
+                if h2d or hits != 1 or first["h2d"] < DISPATCH_HIT_BYTES:
+                    raise SystemExit(f"dispatch {mode} {route}: cache hit "
+                                     f"copied {h2d} bytes, {hits} hits, "
+                                     f"first touch {first['h2d']}")
+                rows.append({"mode": mode, "route": route,
+                             "step": "16 MiB GET, device-cache hit",
+                             "clients": 1, "ops": 1,
+                             "bytes": DISPATCH_HIT_BYTES, "s": dt,
+                             "lanes": None, "h2d": h2d})
+                launches, items = counts.read(), counts.items()
+                got = {k: launches[k] - l0[k] for k in launches}
+                made = {k: items[k] - i0[k] for k in items}
+                _check_launches(f"dispatch {mode} {route}", got, made, want,
+                                held=("gf_matmul", "hh256", "mxh256"))
+                f1 = coalesce.stats()
+                if f1["co_fallbacks"] != f0["co_fallbacks"] or \
+                        f1["co_faults"] != f0["co_faults"]:
+                    raise SystemExit(f"dispatch {mode} {route}: fallbacks "
+                                     f"or faults {f0} -> {f1}")
+                rows.append({"mode": mode, "route": route, "launches": got,
+                             "items": made})
+                parts = {}
+                for nm in bodies:
+                    fi = pools.head_object(bucket, nm)
+                    es = pools.pools[0].set_for(nm)
+                    # By shard: the distribution depends on the bucket.
+                    for pos, d in enumerate(es.drives):
+                        with open(os.path.join(d.root, bucket, nm,
+                                               fi.data_dir, "part.1"),
+                                  "rb") as f:
+                            parts[sets.index(es),
+                                  fi.erasure.distribution[pos], nm] = \
+                                hashlib.sha256(f.read()).digest()
+                hashes[mode, route] = parts
+                pools.delete_bucket(bucket, force=True)
+        launches = counts.read()              # the main path ends here
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        coalesce.reset()
+        if srv is not None:
+            srv.shutdown()
+        if pools is not None:
+            pools.close()
+        shutil.rmtree(root, ignore_errors=True)
+    ref = next(iter(hashes.values()))
+    for key, parts in hashes.items():
+        if parts != ref:
+            raise SystemExit(f"dispatch: part files of {key} differ from "
+                             f"those of {next(iter(hashes))}")
+
+    print(f"[dispatch] ServerPools, 1 pool, {LAYER_SETS} sets x {n_drives} "
+          f"drives, EC:8+4, and the S3 server over it; {len(bodies)} objects"
+          f" ({total} bytes) per mode and route, in modes "
+          f"{', '.join(m for m, _ in DISPATCH_MODES)}; every body equal, "
+          f"part files' SHA-256 equal in every mode ({len(ref)} files); "
+          f"card {card}")
+    for r in rows:
+        if "step" not in r:
+            print(f"[dispatch] {r['mode']}, {r['route']}: launches "
+                  f"{r['launches']}, items {r['items']} (items as the sizes"
+                  f" call for); card {card}")
+            continue
+        st = r["lanes"]
+        lanes = "no lane"
+        if st is not None and st["dispatches"]:
+            lanes = (f"dispatches {st['dispatches']} (inline "
+                     f"{st['inline_dispatches']}, pipelined "
+                     f"{st['pipeline_dispatches']}), items per dispatch "
+                     f"{st['items'] / st['dispatches']:.2f} mean, "
+                     f"{st['max_items']} max; lane seconds: pack "
+                     f"{st['pack_s']:.4f}, copy issue {st['h2d_s']:.4f}, "
+                     f"resolve {st['resolve_s']:.4f}, overlapped "
+                     f"{st['overlap_s']:.4f}")
+        elif st is not None:
+            lanes = "no lane dispatch"
+        print(f"[dispatch] {r['mode']}, {r['route']}, {r['step']}, "
+              f"{r['clients']} client(s): {r['bytes'] / r['s'] / 1e9:.3f} "
+              f"GB/s, {r['ops'] / r['s']:.1f} operations/s (host clock); "
+              f"{lanes}; host-to-card bytes per byte "
+              f"{r['h2d'] / r['bytes']:.3f}; card {card}")
+    print(f"[dispatch] the phase took {time.perf_counter() - started:.1f} s;"
+          f" card {card}")
     return launches
 
 
@@ -2587,7 +2777,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from minio_tpu_torch.ops import cuda_build
+        from minio_tpu_torch.ops import coalesce, cuda_build
         from minio_tpu_torch.ops import erasure_cuda as ec
         from minio_tpu_torch.ops import erasure_torch as et
         from minio_tpu_torch.ops import fused
@@ -2666,7 +2856,7 @@ def main() -> int:
     records.append(phase_hh_kernel(torch, hc, ht, spec, gen, card, loops,
                                    baseline))
 
-    counts = Launches({"gf_matmul": ec, "hh256": hc, "mxh256": mt})
+    counts = Launches({"gf_matmul": ec, "hh256": hc, "mxh256": mt}, fused)
     paths = {
         "mxh256 slice": lambda: phase_slice(
             args, counts, card, "mxh256",
@@ -2678,13 +2868,40 @@ def main() -> int:
         "drive heal": lambda: phase_drive_heal(args, counts, card),
         "object layer": lambda: phase_object_layer(args, counts, card),
         "server": lambda: phase_server(args, counts, card),
+        "dispatch": lambda: phase_dispatch(args, counts, card),
     }
     per_path, tally = {}, {}
+    faults0 = coalesce.stats()
     with MxhShapes(fused, mt) as counts.shapes:
         for name, run in paths.items():
+            # Phases 5a-5g count every GET's device work from the sizes
+            # and probe reads of corrupted frames: they run without the
+            # device shard cache; 5h runs every default.
+            if name == "dispatch":
+                os.environ.pop("MTPU_DEVCACHE", None)
+            else:
+                os.environ["MTPU_DEVCACHE"] = "0"
+            coalesce.reset()
             per_path[name] = run()
             for shape, k in counts.last_shapes.items():
                 tally[shape] = tally.get(shape, 0) + k
+            st = coalesce.get().stats()
+            queued = st["dispatches"] - st["inline_dispatches"]
+            if name != "dispatch":
+                print(f"[lanes] {name}: dispatches {st['dispatches']} "
+                      f"(inline {st['inline_dispatches']}, pipelined "
+                      f"{st['pipeline_dispatches']}), items "
+                      f"{st['items']}, at most {st['max_items']} a "
+                      f"dispatch; card {card}")
+                if st["batch_faults"] or \
+                        st["pipeline_dispatches"] != queued:
+                    raise SystemExit(f"{name}: lanes {st}")
+    os.environ.pop("MTPU_DEVCACHE", None)
+    faults = coalesce.stats()
+    if (faults["co_fallbacks"], faults["co_faults"]) != \
+            (faults0["co_fallbacks"], faults0["co_faults"]):
+        raise SystemExit(f"coalescer fallbacks or faults on the main "
+                         f"paths: {faults0} -> {faults}")
     counts.shapes = None
     print(f"[launches] per main path: {per_path}")
     calls = sum(p["mxh256"] for p in per_path.values())

@@ -13,19 +13,31 @@ the JAX package's, byte for byte, so either package reads what the other
 wrote.
 
 - A PUT cuts the body into 1 MiB blocks and encodes up to BATCH_BLOCKS
-  of them per device call (ops/fused.encode_and_hash): parity and the
+  of them per device batch (ops/fused.encode_and_hash): parity and the
   bitrot digest of every shard-block in one pass over one device copy of
-  the data.  The ragged tail block is one more device call, at its own
-  shard size.  The host only frames [digest | shard] onto the drives and
-  publishes with rename_data.  Objects <= 128 KiB are framed inline into
-  each drive's xl.meta.
+  the data.  The ragged tail block is one more batch, at its own shard
+  size.  Batch i is dispatched before batch i-1 is framed and written.
+  The host only frames [digest | shard] onto the drives and publishes
+  with rename_data.  Objects <= 128 KiB are framed inline into each
+  drive's xl.meta.
 - A GET reads the k data shards of each segment and verifies their
-  digests on the device (ops/fused.verify_and_transform with no
-  targets): the healthy path does no GF(2^8) work, since the data shards
-  of a systematic code are the plaintext.  A missing drive, a failed
-  read or a digest mismatch drops that row and reads a parity spare;
-  the missing data rows are then rebuilt in the same device call that
-  verifies the survivors.
+  digests on the device: the healthy path does no GF(2^8) work, since
+  the data shards of a systematic code are the plaintext.  A missing
+  drive, a failed read or a digest mismatch drops that row and reads a
+  parity spare; the missing data rows are then rebuilt in the same
+  device call that verifies the survivors (ops/fused.verify_and_transform).
+- Every device batch goes through the cross-request coalescer
+  (ops/coalesce.py, MTPU_COALESCE): an encode under ("enc", k, m, algo,
+  S), a healthy verify under ("digest", algo, S) (on the CPU only while
+  the lane is hot, as the reference does off the device), a degraded
+  verify + rebuild under ("vt", k, m, sources, targets, algo, S).
+  Concurrent requests' items pack into one launch; a failed handle is
+  recomputed by the direct call.  MTPU_COALESCE=0 is the direct oracle.
+- A fully verified healthy read fills the device shard cache
+  (ops/devcache.py, MTPU_DEVCACHE) with its rows, the generation taken
+  before the shard reads; a later read of a resident range is served
+  from the verified copy with no shard read and no copy to the card.
+  Every mutation (`_mark_dirty`) invalidates the bucket's entries.
 - The digest is each part's recorded bitrot algorithm
   (`fi.erasure.bitrot_algo(part)`): mxh256, or HighwayHash256S as MinIO
   writes it, both on the device.  New objects take MTPU_BITROT_ALGO.
@@ -40,10 +52,9 @@ mutation calls `_mark_dirty`, which bumps the bucket's metacache
 generation, so no listing is served from a cache taken before it.
 
 Left out of this slice (each has a byte-identical off switch in the JAX
-package, so the bytes do not depend on it): the cross-request coalescer,
-the device shard cache, the hot-object cache, metadata lanes, hedged
-reads, zero-copy IO, the multi-device mesh codec and legacy xl.json
-objects.
+package, so the bytes do not depend on it): the hot-object cache,
+metadata lanes, hedged reads, zero-copy IO, the multi-device mesh codec
+and legacy xl.json objects.
 """
 
 from __future__ import annotations
@@ -55,9 +66,10 @@ import uuid
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from ..cluster.nslock import NSLockMap
-from ..ops import devices, fused
+from ..ops import coalesce, devcache, devices, fused
 from ..parallel import pipeline
 from ..storage import bitrot_io
 from ..storage.drive import SMALL_FILE_THRESHOLD, SYS_VOL, TMP_DIR, LocalDrive
@@ -82,6 +94,10 @@ BATCH_BLOCKS = 32             # 1 MiB blocks per device call (32 MiB data)
 SERIAL_FANOUT = (os.cpu_count() or 2) == 1
 #: Seconds a positive bucket-existence answer serves the PUT pre-check.
 _BUCKET_CACHE_TTL = 2.0
+#: Rows a coalesced batch is padded to a multiple of.  The reference pads
+#: to BATCH_BLOCKS to bound its jit shapes; the port's kernels take any
+#: batch, so padding would only add work (ROADMAP Queue C).
+PAD_ROWS = 1
 
 
 def _now_ns() -> int:
@@ -113,10 +129,16 @@ class ErasureSet:
         self.nslock = NSLockMap() if nslock is None else nslock
         self._bucket_cache: dict[str, float] = {}
         self.metacache = Metacache(self)
+        # Device shard cache identity: a fresh token per instance, so a
+        # reopened set never sees what an earlier one filled.
+        self._devcache_owner = devcache.next_owner()
 
     def _mark_dirty(self, bucket: str) -> None:
-        """A mutation of `bucket`: its cached listings are stale."""
+        """A mutation of `bucket`: its cached listings and shard batches
+        are stale.  Recorded with the cache off too, so turning it on
+        again cannot bring back entries from before the write."""
         self.metacache.bump(bucket)
+        devcache.get().note_mutation(self._devcache_owner, bucket)
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
@@ -300,12 +322,12 @@ class ErasureSet:
         if stream is None and len(data) <= SMALL_FILE_THRESHOLD:
             meta.setdefault("etag", streams.etag(data))
             shards = [bytearray() for _ in range(self.n)]
-            for chunk, is_last in streams.batched_chunks(
-                    data, None, BATCH_BLOCKS * BLOCK_SIZE):
-                for framed in self._encode_chunk(chunk, is_last, k, parity,
-                                                 algo):
-                    for i, f in enumerate(framed):
-                        shards[i] += memoryview(f)
+            for framed in self._encode_chunks(
+                    streams.batched_chunks(data, None,
+                                           BATCH_BLOCKS * BLOCK_SIZE),
+                    k, parity, algo):
+                for i, f in enumerate(framed):
+                    shards[i] += memoryview(f)
             per_drive = Q.unshuffle_to_drives([bytes(s) for s in shards],
                                               distribution)
             res = self._map_positions(lambda pos, d: d.write_metadata(
@@ -355,25 +377,30 @@ class ErasureSet:
         left raises ErrErasureWriteQuorum."""
         total = 0
         md5_done = None
-        try:
+
+        def chunks():
+            nonlocal total, md5_done
             for chunk, is_last in streams.batched_chunks(
                     head, stream, BATCH_BLOCKS * BLOCK_SIZE):
                 if md5_done is not None:
                     md5_done.result()
                 md5_done = self._md5_pool.submit(md5.update, chunk)
                 total += len(chunk)
-                for framed in self._encode_chunk(chunk, is_last, k, m, algo):
-                    per_drive = Q.unshuffle_to_drives(framed, distribution)
-                    todo = [p for p in range(self.n) if not failed[p]]
-                    res = self._map_positions(
-                        lambda pos, d: d.append_file(SYS_VOL, path,
-                                                     per_drive[pos]), todo)
-                    for pos, (_, e) in zip(todo, res):
-                        if e is not None:
-                            failed[pos] = True
-                    if failed.count(False) < write_quorum:
-                        raise ErrErasureWriteQuorum(
-                            f"{failed.count(False)} < {write_quorum}")
+                yield chunk, is_last
+
+        try:
+            for framed in self._encode_chunks(chunks(), k, m, algo):
+                per_drive = Q.unshuffle_to_drives(framed, distribution)
+                todo = [p for p in range(self.n) if not failed[p]]
+                res = self._map_positions(
+                    lambda pos, d: d.append_file(SYS_VOL, path,
+                                                 per_drive[pos]), todo)
+                for pos, (_, e) in zip(todo, res):
+                    if e is not None:
+                        failed[pos] = True
+                if failed.count(False) < write_quorum:
+                    raise ErrErasureWriteQuorum(
+                        f"{failed.count(False)} < {write_quorum}")
         finally:
             if md5_done is not None:
                 md5_done.result()
@@ -400,40 +427,127 @@ class ErasureSet:
                 d.delete_version(bucket, obj, version_id)
         self._map_positions(undo)
 
-    def _encode_chunk(self, chunk, is_last: bool, k: int, m: int,
-                      algo: str):
-        """Yield lists of k+m framed shard pieces (shard order) for one
-        chunk: its full blocks in one device call, then, on the last
-        chunk, the ragged tail block in another."""
-        buf = np.frombuffer(chunk, dtype=np.uint8)
-        n_full = buf.size // BLOCK_SIZE
-        shard_size = -(-BLOCK_SIZE // k)
-        if n_full:
-            blocks = buf[:n_full * BLOCK_SIZE]
-            if BLOCK_SIZE % k:
-                # Each block zero-pads to k*shard_size (split padding
-                # rule, cf. erasure-coding.go:81).
-                padded = np.zeros((n_full, k * shard_size), dtype=np.uint8)
-                padded[:, :BLOCK_SIZE] = blocks.reshape(n_full, BLOCK_SIZE)
-                blocks = padded
-            yield self._encode_blocks(blocks.reshape(n_full, k, shard_size),
-                                      k, m, algo)
-        tail = buf[n_full * BLOCK_SIZE:]
-        if tail.size and not is_last:
-            raise ValueError("non-final chunk not BLOCK_SIZE aligned")
-        if tail.size:
-            tail_shard = -(-tail.size // k)
-            block = np.zeros(k * tail_shard, dtype=np.uint8)
-            block[:tail.size] = tail
-            yield self._encode_blocks(block.reshape(1, k, tail_shard),
-                                      k, m, algo)
+    def _enc_kernel(self, k: int, m: int, algo: str):
+        """The coalesced encode of stacked (B, K, S) blocks on this set's
+        device: (parity, digests) per span, the pair `_direct_encode`
+        gives; `launch` is its pipelined form."""
+        dev = self.device
 
-    def _encode_blocks(self, blocks: np.ndarray, k: int, m: int,
-                       algo: str) -> list[np.ndarray]:
-        parity, digests = fused.encode_and_hash(blocks, k, m, algo=algo,
-                                                device=self.device)
-        return bitrot_io.frame_shard_views(
-            blocks, parity.cpu().numpy(), digests.cpu().numpy(), algo)
+        def kernel(stacked, spans, ctx):
+            x, n = coalesce.pad_batch(stacked, PAD_ROWS)
+            parity, digests = fused.encode_and_hash(
+                x, k, m, algo=algo, device=dev, items=len(spans))
+            return _enc_slices(parity, digests, n, spans)
+
+        def launch(x, n, spans, ctx):
+            parity, digests = fused.encode_and_hash(
+                x, k, m, algo=algo, device=dev, items=len(spans))
+            return lambda: _enc_slices(parity, digests, n, spans)
+
+        kernel.launch = launch
+        kernel.pad_rows = PAD_ROWS
+        return kernel
+
+    def _direct_encode(self, blocks: np.ndarray, k: int, m: int, algo: str):
+        """The encode of one (nb, K, S) batch without the coalescer:
+        (parity, digests) as tensors on the device.  Also the recompute of
+        a failed coalesced handle: this request's bytes on this request's
+        launches."""
+        return fused.encode_and_hash(blocks, k, m, algo=algo,
+                                     device=self.device)
+
+    def _vt_kernel(self, k: int, m: int, sources: tuple, targets: tuple,
+                   algo: str):
+        """The coalesced verify (+ rebuild of `targets`) of stacked
+        (B, K, S) rows in `sources` order: (digests (B, K, 32), rebuilt
+        (B, T, S) or None) per span; `launch` is its pipelined form."""
+        dev = self.device
+
+        def kernel(stacked, spans, ctx):
+            x, n = coalesce.pad_batch(stacked, PAD_ROWS)
+            digests, out = fused.verify_and_transform(
+                x, k, m, sources, targets, algo=algo, device=dev,
+                items=len(spans))
+            return _vt_slices(digests, out, n, spans)
+
+        def launch(x, n, spans, ctx):
+            digests, out = fused.verify_and_transform(
+                x, k, m, sources, targets, algo=algo, device=dev,
+                items=len(spans))
+            return lambda: _vt_slices(digests, out, n, spans)
+
+        kernel.launch = launch
+        kernel.pad_rows = PAD_ROWS
+        return kernel
+
+    def _encode_chunks(self, chunks, k: int, m: int, algo: str):
+        """Yield lists of k+m framed shard pieces (shard order), one per
+        device batch, for an iterator of (chunk, is_last) pairs, every
+        chunk a multiple of BLOCK_SIZE but the last.  Full blocks go in
+        batches of up to BATCH_BLOCKS, the ragged tail block in one more
+        at its own shard size.  Batch i is dispatched before batch i-1 is
+        framed and yielded, so the caller's writes of i-1 overlap the
+        device's work on i.
+
+        With the coalescer on, each batch is submitted under ("enc", k,
+        m, algo, S), where concurrent requests' batches pack into one
+        launch; a handle that fails is recomputed by `_direct_encode`."""
+        co = coalesce.get() if coalesce.enabled() else None
+        shard_size = -(-BLOCK_SIZE // k)
+
+        def dispatch(blocks):
+            if co is None:
+                return blocks, self._direct_encode(blocks, k, m, algo)
+            return blocks, co.submit(
+                ("enc", k, m, algo, blocks.shape[2]), blocks,
+                self._enc_kernel(k, m, algo), weight=blocks.shape[0],
+                device=self.device)
+
+        def frame(p):
+            blocks, h = p
+            if isinstance(h, coalesce.Handle):
+                try:
+                    parity, digests = h.result()
+                    h.release()
+                except Exception:  # noqa: BLE001 — direct recompute
+                    coalesce.record_co_fallback()
+                    parity, digests = self._direct_encode(blocks, k, m,
+                                                          algo)
+            else:
+                parity, digests = h
+            return bitrot_io.frame_shard_views(blocks, _host(parity),
+                                               _host(digests), algo)
+
+        pending = None
+        for chunk, is_last in chunks:
+            buf = np.frombuffer(chunk, dtype=np.uint8)
+            n_full = buf.size // BLOCK_SIZE
+            tail = buf[n_full * BLOCK_SIZE:]
+            if tail.size and not is_last:
+                raise ValueError("non-final chunk not BLOCK_SIZE aligned")
+            batches = []
+            for start in range(0, n_full, BATCH_BLOCKS):
+                nb = min(BATCH_BLOCKS, n_full - start)
+                blocks = buf[start * BLOCK_SIZE:(start + nb) * BLOCK_SIZE]
+                if BLOCK_SIZE % k:
+                    # Each block zero-pads to k*shard_size (split padding
+                    # rule, cf. erasure-coding.go:81).
+                    padded = np.zeros((nb, k * shard_size), dtype=np.uint8)
+                    padded[:, :BLOCK_SIZE] = blocks.reshape(nb, BLOCK_SIZE)
+                    blocks = padded
+                batches.append(blocks.reshape(nb, k, shard_size))
+            if tail.size:
+                tail_shard = -(-tail.size // k)
+                block = np.zeros(k * tail_shard, dtype=np.uint8)
+                block[:tail.size] = tail
+                batches.append(block.reshape(1, k, tail_shard))
+            for blocks in batches:
+                nxt = dispatch(blocks)
+                if pending is not None:
+                    yield frame(pending)
+                pending = nxt
+        if pending is not None:
+            yield frame(pending)
 
     # -- get -------------------------------------------------------------------
 
@@ -568,13 +682,13 @@ class ErasureSet:
         k_m = fi.erasure.data_blocks + fi.erasure.parity_blocks
         online = [s for s in range(k_m) if self.drives[order[s]] is not None]
         data = self._read_blocks(fi, part_size, b0, b1, fetch, online,
-                                 part_number)
+                                 part_number, cache=(bucket, obj))
         lo = offset - b0 * BLOCK_SIZE
         return data[lo:lo + length]
 
     def _read_blocks(self, fi, part_size: int, b0: int, b1: int, fetch,
-                     candidates: list[int], part_number: int = 1
-                     ) -> np.ndarray:
+                     candidates: list[int], part_number: int = 1,
+                     cache: tuple[str, str] | None = None) -> np.ndarray:
         """Blocks [b0, b1) of a part as one uint8 array (the ragged tail
         trimmed), from the frames `fetch(shard)` returns.
 
@@ -583,7 +697,11 @@ class ErasureSet:
         call, rebuilds the data rows that are not among them; a row
         that fails to read, parse or verify is dropped and the next
         spare is read (the parallelReader of cmd/erasure-decode.go:101
-        with the verifying ReadAt of cmd/bitrot-streaming.go:142)."""
+        with the verifying ReadAt of cmd/bitrot-streaming.go:142).
+
+        `cache` is (bucket, object) of a part read: a resident range of
+        the device shard cache is served from its verified rows, and a
+        read whose first round verified the k data shards fills it."""
         ec = fi.erasure
         k, m, shard_size = ec.data_blocks, ec.parity_blocks, ec.shard_size
         algo = ec.bitrot_algo(part_number)
@@ -595,6 +713,23 @@ class ErasureSet:
         nb = min(b1, n_full) - b0
         expect = nb * (hs + shard_size) + (hs + tail_shard if has_tail else 0)
 
+        # Only a read with every data shard's drive online takes the
+        # cache, as the reference's fast path does.
+        dcache = (devcache.get() if cache is not None and devcache.enabled()
+                  and all(s in candidates for s in range(k)) else None)
+        if dcache is not None:
+            # The generation before any shard read: a write that races
+            # this read rejects its fill.
+            gen0 = dcache.current_gen(self._devcache_owner, cache[0])
+            found = dcache.lookup_range(self._devcache_owner, *cache,
+                                        part_number, fi.data_dir, algo,
+                                        b0, b1)
+            if found is not None:
+                e, boff = found
+                if not has_tail or e.tail is not None:
+                    return _assemble(e.host[boff:boff + nb] if nb else None,
+                                     e.tail if has_tail else None, tail_len)
+
         def read_row(s: int):
             buf = np.frombuffer(fetch(s), dtype=np.uint8)
             if buf.size != expect:
@@ -603,58 +738,113 @@ class ErasureSet:
             tail = buf[nb * (hs + shard_size):]
             return hashes, blocks, tail[:hs], tail[hs:]
 
-        rows: dict[int, tuple] = {}
-        tried: set[int] = set()
-        while True:
-            want = [s for s in candidates if s not in tried
-                    and s not in rows][:max(k - len(rows), 0)]
-            if len(rows) < k and not want:
-                raise ErrErasureReadQuorum(
-                    f"only {len(rows)}/{k} shards readable")
-            tried.update(want)
-            for s, (row, err) in zip(want, self.pool.map(
-                    _attempt(read_row), want)):
-                if err is None:
-                    rows[s] = row
-            if len(rows) < k:
-                continue
-            sel = sorted(rows)[:k]
-            missing = tuple(s for s in range(k) if s not in sel)
-            bad: set[int] = set()
-            x = out = xt = out_t = None
-            if nb:
-                x = np.empty((nb, k, shard_size), dtype=np.uint8)
-                for i, s in enumerate(sel):
-                    x[:, i, :] = rows[s][1]
-                digests, out = fused.verify_and_transform(
-                    x, k, m, tuple(sel), missing, algo=algo,
-                    device=self.device)
-                digests = digests.cpu().numpy()
-                bad.update(s for i, s in enumerate(sel)
-                           if not np.array_equal(digests[:, i], rows[s][0]))
-            if has_tail:
-                xt = np.stack([rows[s][3] for s in sel])[None]
-                digests, out_t = fused.verify_and_transform(
-                    xt, k, m, tuple(sel), missing, algo=algo,
-                    device=self.device)
-                digests = digests.cpu().numpy()
-                bad.update(s for i, s in enumerate(sel)
-                           if not np.array_equal(digests[0, i], rows[s][2]))
-            if not bad:
-                break
-            for s in bad:
-                del rows[s]
+        co = coalesce.get() if coalesce.enabled() else None
+        if co is not None:
+            co.note_read(1, self.device)
+        try:
+            rows: dict[int, tuple] = {}
+            tried: set[int] = set()
+            rounds = 0
+            while True:
+                want = [s for s in candidates if s not in tried
+                        and s not in rows][:max(k - len(rows), 0)]
+                if len(rows) < k and not want:
+                    raise ErrErasureReadQuorum(
+                        f"only {len(rows)}/{k} shards readable")
+                tried.update(want)
+                for s, (row, err) in zip(want, self.pool.map(
+                        _attempt(read_row), want)):
+                    if err is None:
+                        rows[s] = row
+                if len(rows) < k:
+                    continue
+                rounds += 1
+                sel = tuple(sorted(rows)[:k])
+                missing = tuple(s for s in range(k) if s not in sel)
+                x = out = xt = out_t = None
+                if nb:
+                    x = np.empty((nb, k, shard_size), dtype=np.uint8)
+                    for i, s in enumerate(sel):
+                        x[:, i, :] = rows[s][1]
+                    verified = self._verify_rows(x, k, m, sel, missing, algo,
+                                                 co)
+                if has_tail:
+                    xt = np.stack([rows[s][3] for s in sel])[None]
+                    verified_t = self._verify_rows(xt, k, m, sel, missing,
+                                                   algo, co)
+                bad: set[int] = set()
+                if nb:
+                    digests, out = verified()
+                    bad.update(s for i, s in enumerate(sel)
+                               if not np.array_equal(digests[:, i],
+                                                     rows[s][0]))
+                if has_tail:
+                    digests, out_t = verified_t()
+                    bad.update(s for i, s in enumerate(sel)
+                               if not np.array_equal(digests[0, i],
+                                                     rows[s][2]))
+                if not bad:
+                    break
+                for s in bad:
+                    del rows[s]
+        finally:
+            if co is not None:
+                co.note_read(-1, self.device)
 
-        pieces = []
-        if nb:
-            y = _data_rows(x, out, sel, missing, k)
-            flat = y.reshape(nb, k * shard_size)
-            pieces.append(flat[:, :BLOCK_SIZE].reshape(-1)
-                          if BLOCK_SIZE % k else flat.reshape(-1))
-        if has_tail:
-            y = _data_rows(xt, out_t, sel, missing, k)
-            pieces.append(y.reshape(-1)[:tail_len])
-        return pieces[0] if len(pieces) == 1 else np.concatenate(pieces)
+        if dcache is not None and rounds == 1 and not missing:
+            # A healthy read, verified on its first round.  Filled before
+            # the assembly: the cache makes the rows read-only, so the
+            # views handed out below are too.
+            dcache.fill((self._devcache_owner, *cache, part_number,
+                         fi.data_dir, b0, b1, algo), gen0,
+                        x if nb else np.empty((0, k, shard_size),
+                                              dtype=np.uint8),
+                        tail=xt, device=self.device)
+        return _assemble(_data_rows(x, out, sel, missing, k) if nb else None,
+                         _data_rows(xt, out_t, sel, missing, k)
+                         if has_tail else None, tail_len)
+
+    def _verify_rows(self, x: np.ndarray, k: int, m: int, sel: tuple,
+                     missing: tuple, algo: str, co):
+        """Start the device verify of `x` ((B, k, S) rows in `sel` order),
+        rebuilding the `missing` data rows; returns a function that waits
+        for (digests (B, k, 32), rebuilt (B, T, S) or None) on the host.
+
+        A rebuild goes through the coalescer under ("vt", ...), a plain
+        verify under ("digest", algo, S) on a card, and on the CPU while
+        the lane is hot (the reference's `use_co` rule); otherwise, or
+        when a handle fails, it is the direct call."""
+        b, _, s = x.shape
+        h = None
+        if co is not None and missing:
+            h = co.submit(("vt", k, m, sel, missing, algo, s), x,
+                          self._vt_kernel(k, m, sel, missing, algo),
+                          weight=b, device=self.device)
+        elif co is not None and (self.device.type == "cuda"
+                                 or co.hot(self.device)):
+            h = co.submit(("digest", algo, s), x.reshape(b * k, s),
+                          coalesce.make_digest_kernel(algo, self.device),
+                          weight=b, device=self.device)
+
+        def direct():
+            digests, out = fused.verify_and_transform(
+                x, k, m, sel, missing, algo=algo, device=self.device)
+            return _host(digests), _host(out)
+
+        if h is None:
+            launched = direct()
+            return lambda: launched
+
+        def wait():
+            try:
+                res = h.result()
+                h.release()
+            except Exception:  # noqa: BLE001 — direct recompute
+                coalesce.record_co_fallback()
+                return direct()
+            return res if missing else (res.reshape(b, k, 32), None)
+
+        return wait
 
     # -- metadata --------------------------------------------------------------
 
@@ -842,15 +1032,49 @@ def _attempt(fn):
     return call
 
 
-def _data_rows(x: np.ndarray, out, sel: list[int], missing: tuple,
+def _host(t):
+    """A device result on the host (numpy); None and numpy pass."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+
+
+def _enc_slices(parity, digests, n: int, spans) -> list[tuple]:
+    """Per-span (parity, digests) of a coalesced encode's results."""
+    parity = _host(parity)[:n]
+    digests = _host(digests)[:, :n]
+    return [(parity[lo:hi], digests[:, lo:hi]) for lo, hi in spans]
+
+
+def _vt_slices(digests, out, n: int, spans) -> list[tuple]:
+    """Per-span (digests, rebuilt or None) of a coalesced verify."""
+    digests = _host(digests)[:n]
+    out = _host(out)[:n] if out is not None else None
+    return [(digests[lo:hi], out[lo:hi] if out is not None else None)
+            for lo, hi in spans]
+
+
+def _data_rows(x: np.ndarray, out, sel: tuple, missing: tuple,
                k: int) -> np.ndarray:
     """The k data rows in shard order, from the chosen rows `x` (in `sel`
-    order) and the device-rebuilt `missing` rows `out`."""
+    order) and the rebuilt `missing` rows `out`."""
     if not missing:
         return x                        # sel is range(k): x is the data
-    rebuilt = out.cpu().numpy()
     y = np.empty((x.shape[0], k, x.shape[2]), dtype=np.uint8)
     for s in range(k):
         y[:, s] = x[:, sel.index(s)] if s in sel \
-            else rebuilt[:, missing.index(s)]
+            else out[:, missing.index(s)]
     return y
+
+
+def _assemble(y: np.ndarray | None, yt: np.ndarray | None,
+              tail_len: int) -> np.ndarray:
+    """The bytes of data rows `y` ((nb, k, S) full blocks) and `yt`
+    ((1, k, tail shard) tail block, trimmed to `tail_len`) in order."""
+    pieces = []
+    if y is not None:
+        nb, k, s = y.shape
+        flat = y.reshape(nb, k * s)
+        pieces.append(flat[:, :BLOCK_SIZE].reshape(-1)
+                      if BLOCK_SIZE % k else flat.reshape(-1))
+    if yt is not None:
+        pieces.append(yt.reshape(-1)[:tail_len])
+    return pieces[0] if len(pieces) == 1 else np.concatenate(pieces)

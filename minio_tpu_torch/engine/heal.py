@@ -18,7 +18,13 @@ JAX package's heal leaves:
   to read or verify is dropped and a spare read in its place.  The
   rebuilt rows' new frame digests come from the device too
   (ops/fused.hash_rows), and the tail fragment goes the same way at its
-  own shard size.  The frames are appended to a staging file per target
+  own shard size.  Both calls go through the coalescer (ops/coalesce.py)
+  under ("vt", ...) and ("digest", ...), so concurrent heals and degraded
+  GETs of the same geometry share launches; a failed handle is
+  recomputed by the direct call.  A batch whose verified data rows are
+  resident in the device shard cache (ops/devcache.py, filled by healthy
+  GETs) is rebuilt from their tensor on the card, with no source read
+  used and no copy of them to the card after the first.  The frames are appended to a staging file per target
   and published with rename_data.  By default the batches run through a
   read -> verify+rebuild -> write pipeline (parallel/pipeline.py): batch
   i+1's source reads fan out across drives while batch i is on the
@@ -40,8 +46,7 @@ JAX package's heal leaves:
   (engine/sets.py and background/heal_ops.py call it).
 
 Left out: the QoS plane's throttling of heal workers (ROADMAP.md Queue
-A item 7); the JAX package's device shard cache and dispatch coalescer
-branches of the pipelined heal.
+A item 7).
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..ops import fused
+from ..ops import coalesce, devcache, fused
 from ..parallel import pipeline as pl
 from ..storage import bitrot_io
 from ..storage.drive import SYS_VOL, TMP_DIR, LocalDrive
@@ -379,7 +384,7 @@ def _heal_metadata_only(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
     k, m = ec.data_blocks, ec.parity_blocks
     data = es._read_inline(fi, metas, 0, fi.size) if fi.size else b""
     shards = [bytearray() for _ in range(k + m)]
-    for framed in es._encode_chunk(data, True, k, m, ec.bitrot_algo()):
+    for framed in es._encode_chunks([(data, True)], k, m, ec.bitrot_algo()):
         for s, piece in enumerate(framed):
             shards[s] += memoryview(piece)
     for pos in targets:
@@ -437,18 +442,22 @@ class _PartRebuild:
     sources and rebuilds the `need` rows in one verify_and_transform,
     then hashes the rebuilt rows for their new frames with hash_rows; a
     source that fails to read or verify is dropped for this batch onward
-    and a spare read in its place, as on the GET path.  `sel` changes
-    only in `rebuild`."""
+    and a spare read in its place, as on the GET path.  A batch whose
+    data rows are resident in the device shard cache is rebuilt from
+    them instead.  `sel` changes only in `rebuild`."""
 
     def __init__(self, es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
                  part, sources: list[int], need: list[int]):
         ec = fi.erasure
         self.es, self.need = es, need
         self.k, self.m = ec.data_blocks, ec.parity_blocks
+        self.shard_size = ec.shard_size
         self.algo = ec.bitrot_algo(part.number)
         self.hs = bitrot_io.digest_size(self.algo)
         self.path = f"{obj}/{fi.data_dir}/part.{part.number}"
         self.bucket = bucket
+        self.cache_id = (es._devcache_owner, bucket, obj, part.number,
+                         fi.data_dir)
         self.what = f"heal {bucket}/{obj} part {part.number}"
         self.src_pos = {ec.distribution[pos] - 1: pos for pos in sources}
         want = bitrot_io.bitrot_shard_file_size(
@@ -485,6 +494,15 @@ class _PartRebuild:
         frames already read, by source; sources of `sel` missing from it
         are read here."""
         k, m, hs, sel, spares = self.k, self.m, self.hs, self.sel, self.spares
+        es, algo, need = self.es, self.algo, tuple(self.need)
+        co = coalesce.get() if coalesce.enabled() else None
+        resident = self._resident(lo, nb, s_len)
+        if resident is not None:
+            # Verified data rows already on the card: rebuild from them.
+            _, rebuilt = fused.verify_and_transform(
+                resident, k, m, tuple(range(k)), need, algo=algo,
+                device=es.device)
+            return self._frame(rebuilt, nb, s_len, None)
         ln = nb * (hs + s_len)
         while True:
             for s in [s for s in sel if s not in data]:
@@ -507,10 +525,7 @@ class _PartRebuild:
             x = np.empty((nb, k, s_len), dtype=np.uint8)
             for i, s in enumerate(sel):
                 x[:, i, :] = frames[s][:, hs:]
-            digests, rebuilt = fused.verify_and_transform(
-                x, k, m, tuple(sel), tuple(self.need), algo=self.algo,
-                device=self.es.device)
-            digests = digests.cpu().numpy()
+            digests, rebuilt = self._verify(x, tuple(sel), co)
             bad = [s for i, s in enumerate(sel)
                    if not np.array_equal(digests[:, i], frames[s][:, :hs])]
             if not bad:
@@ -518,14 +533,65 @@ class _PartRebuild:
             for s in bad:
                 sel.remove(s)
                 del data[s]
-        rows = rebuilt.transpose(0, 1).contiguous()       # (T, nb, s_len)
-        new_digests = fused.hash_rows(
-            rows.reshape(len(self.need) * nb, s_len), self.algo,
-            device=self.es.device)
+        return self._frame(rebuilt, nb, s_len, co)
+
+    def _resident(self, lo: int, nb: int, s_len: int):
+        """The batch's verified data rows as a tensor on the card, when
+        the device shard cache holds them (full frames only)."""
+        if s_len != self.shard_size or not devcache.enabled():
+            return None
+        cache = devcache.get()
+        b0 = lo // (self.hs + s_len)
+        found = cache.lookup_range(*self.cache_id, self.algo, b0, b0 + nb)
+        if found is None:
+            return None
+        e, boff = found
+        return cache.device_array(e)[boff:boff + nb]
+
+    def _verify(self, x: np.ndarray, sel: tuple, co):
+        """Digests of `x` (host) and the rebuilt `need` rows (host from
+        the coalescer, a tensor on the card from the direct call)."""
+        k, m, need, es = self.k, self.m, tuple(self.need), self.es
+        if co is not None:
+            h = co.submit(("vt", k, m, sel, need, self.algo, x.shape[2]), x,
+                          es._vt_kernel(k, m, sel, need, self.algo),
+                          weight=x.shape[0], device=es.device)
+            try:
+                res = h.result()
+                h.release()
+                return res
+            except Exception:  # noqa: BLE001 — direct recompute
+                coalesce.record_co_fallback()
+        digests, rebuilt = fused.verify_and_transform(
+            x, k, m, sel, need, algo=self.algo, device=es.device)
+        return digests.cpu().numpy(), rebuilt
+
+    def _frame(self, rebuilt, nb: int, s_len: int, co) -> dict:
+        """Frame the rebuilt (nb, T, s_len) rows with their new digests
+        (through the coalescer when the rows are on the host)."""
+        t, es, algo = len(self.need), self.es, self.algo
+        if isinstance(rebuilt, np.ndarray):
+            rows = np.ascontiguousarray(rebuilt.transpose(1, 0, 2))
+        else:
+            rows = rebuilt.transpose(0, 1).contiguous()   # (T, nb, s_len)
+        flat = rows.reshape(t * nb, s_len)
+        digests = None
+        if co is not None and isinstance(rows, np.ndarray):
+            h = co.submit(("digest", algo, s_len), flat,
+                          coalesce.make_digest_kernel(algo, es.device),
+                          weight=nb, device=es.device)
+            try:
+                digests = h.result()
+                h.release()
+            except Exception:  # noqa: BLE001 — direct recompute
+                coalesce.record_co_fallback()
+        if digests is None:
+            digests = fused.hash_rows(flat, algo,
+                                      device=es.device).cpu().numpy()
+        if not isinstance(rows, np.ndarray):
+            rows = rows.cpu().numpy()
         framed = bitrot_io.frame_shard_views(
-            None, None,
-            new_digests.cpu().numpy().reshape(len(self.need), nb, hs),
-            self.algo, shards=rows.cpu().numpy())
+            None, None, digests.reshape(t, nb, self.hs), algo, shards=rows)
         return dict(zip(self.need, framed))
 
 

@@ -15,6 +15,8 @@ import warnings
 import numpy as np
 import torch
 
+from . import devcache
+
 
 def n_devices() -> int:
     """Number of CUDA cards the sets are spread over (at least 1)."""
@@ -53,13 +55,17 @@ def resolve(device=None, set_index: int = 0) -> torch.device:
 
 def put(x, device) -> torch.Tensor:
     """Host bytes -> a contiguous uint8 tensor on `device` (one copy to
-    the card; a tensor already there passes through)."""
+    the card; a tensor already there passes through).  Bytes that come
+    from the host are counted in the ledger of ops/devcache.py."""
     dev = torch.device(device)
     if isinstance(x, torch.Tensor):
         if x.dtype != torch.uint8:
             raise TypeError(f"expected uint8, got {x.dtype}")
+        if x.device.type == "cpu" and dev.type != "cpu":
+            devcache.note_h2d(x.nbytes, devcache.card_index(dev))
         return x.to(dev).contiguous()
     arr = np.ascontiguousarray(np.asarray(x, dtype=np.uint8))
+    devcache.note_h2d(arr.nbytes, devcache.card_index(dev))
     with warnings.catch_warnings():
         # Views of immutable bytes are read-only; nothing writes them.
         warnings.simplefilter("ignore", UserWarning)

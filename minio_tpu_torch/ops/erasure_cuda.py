@@ -83,6 +83,10 @@ def _device_tables(mat_bits, device: torch.device) -> torch.Tensor:
         t = _TABLES.get(key)
     if t is None:
         t = torch.from_numpy(nibble_tables(m).view(np.uint8)).to(device)
+        if t.is_cuda:
+            # Threads launch on streams of their own (the coalescer's
+            # lanes): the copy must land before another stream reads it.
+            torch.cuda.current_stream(t.device).synchronize()
         with _TABLES_LOCK:
             if len(_TABLES) >= _TABLES_MAX:
                 _TABLES.clear()

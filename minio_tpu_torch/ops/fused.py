@@ -11,7 +11,20 @@ host gets back only what it needs (parity or rebuilt rows, and the
   shard-major to match the frame writer's (n_shards, n_blocks) order;
 - `verify_and_transform`: digests of the input rows (B, K, 32) and the
   rebuilt target rows (B, T, S), or None when there are no targets;
-- `hash_rows`: digests (N, 32) of N rows (heal's frames of rebuilt rows).
+- `hash_rows`: digests (N, 32) of N rows (heal's frames of rebuilt rows,
+  the coalescer's digest dispatches).  It is the counterpart of the JAX
+  `hash_rows_async`: every launch here is asynchronous already, so it
+  returns the tensor on the device and the caller syncs when it copies
+  the digests back.
+
+An input already on the device (a coalescer lane's staged batch, a cached
+shard batch) passes straight through; bytes from the host are placed with
+`devices.put`, which counts them in the ledger of ops/devcache.py.
+
+`ITEMS` counts, per kernel, the work items the programs compute: one per
+direct call, and the number of requests packed into a coalesced dispatch
+(the `items` argument).  Launches (the wrappers' counts) equal the items
+when nothing is coalesced and are at most the items otherwise.
 
 The digest is the object's recorded bitrot algorithm: mxh256
 (ops/mxhash_torch.py) or HighwayHash-256 (ops/highwayhash_cuda.py, the
@@ -22,6 +35,7 @@ program, here or in the JAX package.
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
@@ -33,6 +47,23 @@ from .mxhash_torch import mxh256_rows
 
 # Algorithms with a device digest (usable in the fused programs).
 DEVICE_ALGOS = ("mxh256", "highwayhash256S", "highwayhash256")
+
+#: Work items per kernel since the last reset (see the module docstring).
+ITEMS = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+_ITEMS_LOCK = threading.Lock()
+
+
+def _count_items(algo: str, gf: bool, items: int) -> None:
+    with _ITEMS_LOCK:
+        ITEMS["mxh256" if algo == "mxh256" else "hh256"] += items
+        if gf:
+            ITEMS["gf_matmul"] += items
+
+
+def reset_items() -> None:
+    with _ITEMS_LOCK:
+        for k in ITEMS:
+            ITEMS[k] = 0
 
 
 def check_algo(algo: str) -> None:
@@ -59,7 +90,7 @@ def _digest_rows(x: torch.Tensor, algo: str) -> torch.Tensor:
     return d.reshape(*x.shape[:-1], 32)
 
 
-def hash_rows(x, algo: str, device=None) -> torch.Tensor:
+def hash_rows(x, algo: str, device=None, items: int = 1) -> torch.Tensor:
     """((N, S) rows) -> (N, 32) digests on the device (None means the
     CUDA card; "cpu" runs the plain versions)."""
     check_algo(algo)
@@ -67,10 +98,12 @@ def hash_rows(x, algo: str, device=None) -> torch.Tensor:
     if xt.dim() != 2:
         raise ValueError(f"hash_rows takes (N, S) rows, got "
                          f"{tuple(xt.shape)}")
+    _count_items(algo, False, items)
     return _digest_rows(xt, algo)
 
 
-def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None):
+def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None,
+                    items: int = 1):
     """((B, K, S) data) -> ((B, M, S) parity, (K+M, B, 32) digests).
 
     The PUT program: parity and the bitrot digest of every shard-block in
@@ -80,6 +113,7 @@ def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None):
     check_algo(algo)
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
+    _count_items(algo, True, items)
     parity = _codec(k, m, str(dev)).encode_blocks(xt)
     # One digest launch over all K+M rows of the batch.
     digests = _digest_rows(torch.cat([xt, parity], dim=1), algo)
@@ -88,7 +122,7 @@ def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None):
 
 def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
                          targets: tuple[int, ...], algo: str = "mxh256",
-                         device=None):
+                         device=None, items: int = 1):
     """((B, K, S) shard rows) -> ((B, K, 32) digests, (B, T, S) rebuilt).
 
     Digests are of the INPUT rows (the caller compares them with the
@@ -99,6 +133,7 @@ def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
     check_algo(algo)
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
+    _count_items(algo, bool(targets), items)
     digests = _digest_rows(xt, algo)
     if not targets:
         return digests, None

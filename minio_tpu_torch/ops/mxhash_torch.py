@@ -39,7 +39,12 @@ def _count_launch() -> None:
 
 @functools.lru_cache(maxsize=8)
 def _matrix_a(device: str) -> torch.Tensor:
-    return torch.from_numpy(mxhash.matrix_a().astype(np.float64)).to(device)
+    a = torch.from_numpy(mxhash.matrix_a().astype(np.float64)).to(device)
+    if a.is_cuda:
+        # Shared by every stream (the coalescer's lanes): the copy must
+        # land before another stream reads it.
+        torch.cuda.current_stream(a.device).synchronize()
+    return a
 
 
 def _level(rows: torch.Tensor) -> torch.Tensor:

@@ -108,18 +108,36 @@ Phases, each printing its own lines; any failure exits non-zero:
       fault, every lane-thread dispatch pipelined when the pipeline is
       on; per step GB/s, operations/s, dispatches and items per
       dispatch, the lanes' time split, bytes copied per byte served.
-   Phases a-g run with MTPU_DEVCACHE=0: their counts assume every GET
-   reads its shards, and a and b probe a GET of a corrupted frame.
+   i. the front door's identity planes: an S3Server with an IAMSys and
+      an HS256 OIDC provider over one EC:8+4 set of 12 drives; root
+      creates 1000 users in 20 groups, 50 custom policies scoped to a
+      bucket and prefix and 100 service accounts over the admin API
+      (each IAM object an inline PUT on the card); a SigV2-header PUT of
+      64 MiB read back by a SigV2 presigned GET and by SigV4; a readonly
+      user's 64 MiB PUT refused; a prefix-scoped user, service accounts,
+      AssumeRole with an inline GetObject-only policy (no session token
+      refused), AssumeRoleWithWebIdentity; a 32 MiB POST-policy upload
+      under content-length-range and starts-with, and one over the range
+      refused; a snowball tar of 512 members read back; zip-extract GETs
+      from a 64 MiB stored zip; a bucket policy serving an anonymous
+      64 MiB GET and refusing an anonymous PUT; a new server whose fresh
+      IAMSys loads every identity from the drives.  Items equal the
+      counts the objects call for; every refused request adds no launch,
+      no item and no staging entry.  ms and GB/s per step, the IAM
+      create and load seconds, SigV2 against SigV4 per request and the
+      ms to issue STS credentials.
+   Phases a-g and i run with MTPU_DEVCACHE=0: their counts assume every
+   GET reads its shards, and a and b probe a GET of a corrupted frame.
 6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
    device's busy share over one 64 MiB PUT + GET (torch.profiler).
 
 Launch counts are read for gf_matmul, hh256 and mxh256 (its calls on the
 card), and beside them the work items of each (ops/fused.ITEMS: one per
 direct call, the requests packed into a coalesced dispatch).  Where a
-phase holds counts (e-h), the items must equal what the sizes call for
+phase holds counts (e-i), the items must equal what the sizes call for
 and the launches must be at most the items (equal with
 MTPU_COALESCE=0).  Each path starts on fresh coalescer lanes; after each
-of a-g their dispatches are printed, and a batch fault, a lane-thread
+of a-g and i their dispatches are printed, and a batch fault, a lane-thread
 dispatch that was not pipelined, or a fallback to the direct call on any
 path fails the run.  The line before the last is the kernels' JSON record,
 whose launches are the main paths'; mxh256 is no hand-written kernel and
@@ -2596,6 +2614,430 @@ def phase_dispatch(args, counts, card):
     return launches
 
 
+# The front door's identity planes on the card (phase 5i), on one EC:8+4
+# set of 12 drives: IAM state of IDENTITY_USERS users (each in one of
+# IDENTITY_GROUPS groups), IDENTITY_POLICIES custom policies scoped to a
+# bucket and prefix, IDENTITY_SVC service accounts; objects of
+# IDENTITY_BIG_BYTES, a POST-policy upload of IDENTITY_POST_BYTES, a
+# snowball tar of IDENTITY_SNOW_SMALL members of IDENTITY_SNOW_SMALL_BYTES
+# (inline) and IDENTITY_SNOW_BIG of IDENTITY_SNOW_BIG_BYTES, a stored zip
+# of IDENTITY_ZIP_MEMBERS members of IDENTITY_ZIP_MEMBER_BYTES read
+# IDENTITY_ZIP_GETS times, IDENTITY_AUTH_RUNS requests per auth timing.
+IDENTITY_USERS, IDENTITY_GROUPS = 1000, 20
+IDENTITY_POLICIES, IDENTITY_SVC = 50, 100
+IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
+IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 448, 64 * 1024
+IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 64, MIB
+IDENTITY_ZIP_MEMBERS, IDENTITY_ZIP_MEMBER_BYTES = 64, MIB
+IDENTITY_ZIP_GETS, IDENTITY_AUTH_RUNS = 4, 200
+IDENTITY_CLIENTS = 8
+
+
+def phase_identity(args, counts, card):
+    """The front door's identity planes on the card: an in-process
+    S3Server with an IAMSys and an HS256 OIDC provider over one EC:8+4
+    set of 12 drives (in /dev/shm).  Root creates the IAM state over the
+    admin API (each IAM object an inline PUT through the engine); then,
+    over HTTP: a readwrite user's SigV2-header PUT of 64 MiB read back by
+    a SigV2 presigned GET and by SigV4; a readonly user's 64 MiB PUT
+    refused; a prefix-scoped user's PUT inside its prefix and refused
+    outside; service accounts inheriting their parents' rights;
+    AssumeRole with an inline GetObject-only policy (GET allowed, PUT
+    refused, no session token refused); AssumeRoleWithWebIdentity and a
+    GET; a POST-policy upload under content-length-range and starts-with
+    and its GET, a form over the range refused; a snowball PUT with every
+    member read back; zip-extract GETs; a bucket policy granting
+    anonymous GetObject on public/* (anonymous GET served, anonymous PUT
+    refused); then a new server with a fresh IAMSys over the same drives
+    loads every identity and one user authenticates.  Bodies by SHA-256;
+    the three device programs' items must equal the counts the objects
+    call for, and every refused request adds no launch and no item and
+    leaves no staging entry on the drives."""
+    import tarfile
+    import zipfile
+
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.iam.iam import IAMSys
+    from minio_tpu_torch.iam.oidc import OpenIDConfig, make_hs256_token
+    from minio_tpu_torch.server import sigv2, sigv4
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.storage.drive import SYS_VOL, TMP_DIR, LocalDrive
+    import numpy as np
+
+    access, secret = "idadmin", "idadmin-secret"
+    oidc_secret = b"chip-smoke-oidc-" + str(args.seed).encode()
+    need = int(6 * IDENTITY_BIG_BYTES * 1.5) + (1 << 30)
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"identity: needs {need} bytes free on /dev/shm")
+    root = tempfile.mkdtemp(prefix="chip_smoke-identity-", dir="/dev/shm")
+    paths = [os.path.join(root, f"d{i:02d}") for i in range(12)]
+
+    def body(seed, n):
+        return np.random.default_rng(seed).bytes(n)
+
+    def sha(data):
+        return hashlib.sha256(data).digest()
+
+    def serve(pools):
+        iam = IAMSys(pools)
+        oidc = OpenIDConfig(hs256_secret=oidc_secret, audience="mtpu")
+        return S3Server(pools, sigv4.Credentials(access, secret), iam=iam,
+                        oidc=oidc).start()
+
+    want = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+
+    def expect(calls, gf):
+        want["gf_matmul"] += calls * gf
+        want["mxh256"] += calls
+
+    def staged():
+        return {(d, e) for d in paths
+                for e in os.listdir(os.path.join(d, SYS_VOL, TMP_DIR))}
+
+    refused = []
+
+    def refuse(what, code, call):
+        """`call` must answer `code` and add no launch, no item and no
+        staging entry."""
+        before = (counts.read(), counts.items(), staged())
+        st, _, out = call()
+        after = (counts.read(), counts.items(), staged())
+        if st < 400 or f"<Code>{code}</Code>".encode() not in out:
+            raise SystemExit(f"identity: {what}: {st} {out[:300]}")
+        if after != before:
+            raise SystemExit(f"identity: refused {what} launched or "
+                             f"staged: {before} -> {after}")
+        refused.append(what)
+
+    def ok(what, resp, status=200):
+        st, h, out = resp
+        if st != status:
+            raise SystemExit(f"identity: {what}: {st} {out[:300]}")
+        return h, out
+
+    steps = {}
+
+    def timed(name, nbytes, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        s = time.perf_counter() - t0
+        steps[name] = (s, nbytes)
+        return out
+
+    users = [f"user{i:04d}" for i in range(IDENTITY_USERS)]
+    user_secret = {u: f"{u}-secret-{args.seed}" for u in users}
+    rw, ro, scoped = users[0], users[1], users[2]
+    started = time.perf_counter()
+    pools = srv = None
+    try:
+        pools = ServerPools([ErasureSets([LocalDrive(p) for p in paths],
+                                         set_drive_count=12,
+                                         default_parity=4)])
+        srv = serve(pools)
+        adm = S3Client(srv.endpoint, access, secret, timeout=300)
+        for b in ("work", "tenants", "pub"):
+            adm.make_bucket(b)
+
+        counts.reset()                        # the main path starts here
+        # -- IAM state over the admin API ------------------------------------
+        t0 = time.perf_counter()
+        for i in range(IDENTITY_POLICIES):
+            adm.set_policy(f"tenant-{i:02d}", {
+                "Version": "2012-10-17", "Statement": [
+                    {"Effect": "Allow",
+                     "Action": ["s3:PutObject", "s3:GetObject"],
+                     "Resource": [f"arn:aws:s3:::tenants/t{i:02d}/*"]},
+                    {"Effect": "Allow", "Action": "s3:ListBucket",
+                     "Resource": "arn:aws:s3:::tenants",
+                     "Condition": {"StringLike":
+                                   {"s3:prefix": [f"t{i:02d}/*"]}}}]})
+
+        def policies_of(i):
+            return (["readwrite"] if i == 0 else ["readonly"] if i == 1
+                    else [f"tenant-{i % IDENTITY_POLICIES:02d}"])
+        _in_threads(IDENTITY_CLIENTS, lambda i: adm.add_user(
+            users[i], user_secret[users[i]], policies_of(i)),
+            range(IDENTITY_USERS))
+        for g in range(IDENTITY_GROUPS):
+            adm.add_group(f"group{g:02d}", users[g::IDENTITY_GROUPS],
+                          ["readonly"])
+        svc = _in_threads(IDENTITY_CLIENTS, adm.add_service_account,
+                          users[:IDENTITY_SVC])
+        create_s = time.perf_counter() - t0
+        # A policy, a user, a service account: one object write each; a
+        # group: its own object and each new member's user object again.
+        iam_writes = (IDENTITY_POLICIES + IDENTITY_USERS + IDENTITY_SVC
+                      + IDENTITY_GROUPS + IDENTITY_USERS)
+        expect(iam_writes, 1)                 # one inline PUT each
+        create_launches = counts.read()
+        if sorted(adm.list_users()) != users:
+            raise SystemExit("identity: the admin API lists other users")
+
+        def client(ak, sk, token=""):
+            return S3Client(srv.endpoint, ak, sk, timeout=300,
+                            session_token=token)
+        c_rw, c_ro, c_sc = (client(u, user_secret[u])
+                            for u in (rw, ro, scoped))
+
+        # 1. SigV2 header PUT; SigV2 presigned and SigV4 GETs.
+        big = body(7000, IDENTITY_BIG_BYTES)
+        ok("v2 PUT", timed("SigV2 header PUT", len(big), lambda: c_rw.request(
+            "PUT", "/work/big", body=big, auth="v2")))
+        expect(_put_calls(len(big)), 1)
+        fi_big = pools.head_object("work", "big")
+        for name, kw in (("SigV2 presigned GET", {"auth": "v2-presigned"}),
+                         ("SigV4 GET", {})):
+            _, got = ok(name, timed(name, len(big), lambda: c_rw.request(
+                "GET", "/work/big", **kw)))
+            if sha(got) != sha(big):
+                raise SystemExit(f"identity: {name} differs")
+            expect(_get_calls(fi_big), 0)
+        # 2. A readonly user's 64 MiB PUT.
+        refuse("readonly PUT", "AccessDenied", lambda: c_ro.request(
+            "PUT", "/work/ro", body=big))
+        # 3. Inside and outside the prefix user's prefix.
+        small = body(7001, MIB)
+        pre = f"t{2 % IDENTITY_POLICIES:02d}"
+        ok("prefix PUT", c_sc.request("PUT", f"/tenants/{pre}/a",
+                                      body=small))
+        expect(_put_calls(len(small)), 1)
+        refuse("PUT outside the prefix", "AccessDenied", lambda: c_sc.request(
+            "PUT", "/tenants/t99/a", body=small))
+        # 4. Service accounts inherit their parents' rights.
+        svc_rw, svc_ro = (client(*svc[0]), client(*svc[1]))
+        ok("service account PUT", svc_rw.request("PUT", "/work/svc",
+                                                 body=small))
+        expect(_put_calls(len(small)), 1)
+        _, got = ok("readonly service account GET",
+                    svc_ro.request("GET", "/work/svc"))
+        if got != small:
+            raise SystemExit("identity: service account GET differs")
+        expect(1, 0)
+        refuse("readonly service account PUT", "AccessDenied",
+               lambda: svc_ro.request("PUT", "/work/svc2", body=small))
+        # 5. AssumeRole with an inline GetObject-only policy.
+        get_only = {"Version": "2012-10-17", "Statement": [
+            {"Effect": "Allow", "Action": "s3:GetObject",
+             "Resource": "arn:aws:s3:::work/*"}]}
+        t0 = time.perf_counter()
+        for _ in range(IDENTITY_AUTH_RUNS - 1):
+            c_rw.assume_role(policy=get_only)
+        creds = c_rw.assume_role(policy=get_only)
+        sts_ms = (time.perf_counter() - t0) * 1e3 / IDENTITY_AUTH_RUNS
+        sts = c_rw.with_credentials(creds)
+        _, got = ok("STS GET", timed("STS GET", len(big), lambda: sts.request(
+            "GET", "/work/big")))
+        if sha(got) != sha(big):
+            raise SystemExit("identity: STS GET differs")
+        expect(_get_calls(fi_big), 0)
+        refuse("STS PUT", "AccessDenied", lambda: sts.request(
+            "PUT", "/work/sts", body=small))
+        no_token = client(creds["AccessKeyId"], creds["SecretAccessKey"])
+        refuse("STS GET without its token", "InvalidAccessKeyId",
+               lambda: no_token.request("GET", "/work/big"))
+        # 6. AssumeRoleWithWebIdentity.
+        token = make_hs256_token(oidc_secret, {
+            "sub": "smoke-app", "aud": "mtpu", "policy": "readonly"})
+        web = adm.with_credentials(adm.assume_role_with_web_identity(token))
+        _, got = ok("web identity GET", web.request("GET", "/work/svc"))
+        if got != small:
+            raise SystemExit("identity: web identity GET differs")
+        expect(1, 0)
+        # 7. A POST-policy upload, its GET, a form over the range.
+        upload = body(7002, IDENTITY_POST_BYTES)
+        fields = c_rw.post_form("work", [
+            ["starts-with", "$key", "uploads/"],
+            ["content-length-range", 1, IDENTITY_POST_BYTES]])
+        ok("POST upload", timed("POST-policy upload", len(upload),
+                                lambda: c_rw.post_object(
+                                    "work", "uploads/p", upload, fields)),
+           204)
+        expect(_put_calls(len(upload)), 1)
+        fi_post = pools.head_object("work", "uploads/p")
+        _, got = ok("POST GET", c_rw.request("GET", "/work/uploads/p"))
+        if sha(got) != sha(upload):
+            raise SystemExit("identity: POST upload differs")
+        expect(_get_calls(fi_post), 0)
+        refuse("POST over the range", "EntityTooLarge",
+               lambda: c_rw.post_object("work", "uploads/q",
+                                        upload + b"x", fields))
+        refuse("POST outside starts-with", "AccessDenied",
+               lambda: c_rw.post_object("work", "other/q", small, fields))
+        del upload
+        # 8. A snowball tar, every member read back.
+        tar = io.BytesIO()
+        members = {}
+        with tarfile.open(fileobj=tar, mode="w") as tf:
+            for i in range(IDENTITY_SNOW_SMALL + IDENTITY_SNOW_BIG):
+                n = (IDENTITY_SNOW_SMALL_BYTES if i < IDENTITY_SNOW_SMALL
+                     else IDENTITY_SNOW_BIG_BYTES)
+                data = body(8000 + i, n)
+                info = tarfile.TarInfo(f"m{i:03d}")
+                info.size = n
+                tf.addfile(info, io.BytesIO(data))
+                members[f"snow/m{i:03d}"] = sha(data)
+                expect(_put_calls(n), 1)
+        tar = tar.getvalue()
+        h, _ = ok("snowball PUT", timed("snowball PUT", len(tar),
+                                        lambda: c_rw.request(
+            "PUT", "/work/snow", body=tar,
+            headers={"x-amz-meta-snowball-auto-extract": "true"})))
+        if h.get("x-mtpu-extracted-objects") != str(len(members)):
+            raise SystemExit(f"identity: snowball extracted {h}")
+
+        def member_get(name):
+            st, _, got = c_rw.request("GET", f"/work/{name}")
+            if st != 200 or sha(got) != members[name]:
+                raise SystemExit(f"identity: snowball member {name}: {st}")
+            return len(got)
+        t0 = time.perf_counter()
+        got_bytes = sum(_in_threads(IDENTITY_CLIENTS, member_get,
+                                    sorted(members)))
+        steps["snowball member GETs"] = (time.perf_counter() - t0,
+                                         got_bytes)
+        expect(len(members), 0)
+        del tar
+        # 9. Zip-extract GETs of a stored zip.
+        zbuf = io.BytesIO()
+        zmembers = {}
+        with zipfile.ZipFile(zbuf, "w", zipfile.ZIP_STORED) as zf:
+            for i in range(IDENTITY_ZIP_MEMBERS):
+                data = body(9000 + i, IDENTITY_ZIP_MEMBER_BYTES)
+                zf.writestr(f"z/{i:02d}.bin", data)
+                zmembers[f"z/{i:02d}.bin"] = sha(data)
+        zdata = zbuf.getvalue()
+        ok("zip PUT", c_rw.request("PUT", "/work/a.zip", body=zdata))
+        expect(_put_calls(len(zdata)), 1)
+        fi_zip = pools.head_object("work", "a.zip")
+        picks = sorted(zmembers)[::max(1, len(zmembers)
+                                       // IDENTITY_ZIP_GETS)]
+        picks = picks[:IDENTITY_ZIP_GETS]
+        t0 = time.perf_counter()
+        for name in picks:
+            _, got = ok("zip GET", c_ro.request(
+                "GET", f"/work/a.zip/{name}",
+                headers={"x-minio-extract": "true"}))
+            if sha(got) != zmembers[name]:
+                raise SystemExit(f"identity: zip member {name} differs")
+            expect(_get_calls(fi_zip), 0)
+        steps["zip-extract GETs"] = (time.perf_counter() - t0,
+                                     len(picks) * IDENTITY_ZIP_MEMBER_BYTES)
+        del zdata
+        # 10. A bucket policy: anonymous GET on public/*.
+        ok("bucket policy PUT", adm.request("PUT", "/pub", query={
+            "policy": ""}, body=json.dumps({
+                "Version": "2012-10-17", "Statement": [{
+                    "Effect": "Allow", "Principal": {"AWS": ["*"]},
+                    "Action": ["s3:GetObject"],
+                    "Resource": ["arn:aws:s3:::pub/public/*"]}]}).encode()))
+        expect(1, 1)                          # the policy's inline PUT
+        ok("public PUT", adm.request("PUT", "/pub/public/big", body=big))
+        expect(_put_calls(len(big)), 1)
+        anon = S3Client(srv.endpoint, "", "", timeout=300)
+        _, got = ok("anonymous GET", timed(
+            "anonymous GET", len(big), lambda: anon.request(
+                "GET", "/pub/public/big", auth="anonymous")))
+        if sha(got) != sha(big):
+            raise SystemExit("identity: anonymous GET differs")
+        expect(_get_calls(pools.head_object("pub", "public/big")), 0)
+        refuse("anonymous PUT", "AccessDenied", lambda: anon.request(
+            "PUT", "/pub/public/new", body=big, auth="anonymous"))
+        refuse("anonymous GET outside public/", "AccessDenied",
+               lambda: anon.request("GET", "/work/big", auth="anonymous"))
+        # The per-request cost of SigV2 against SigV4 (HEADs: no device
+        # work), and the signature checks alone.
+        auth_ms = {}
+        for kind in ("v4", "v2", "v2-presigned"):
+            t0 = time.perf_counter()
+            for _ in range(IDENTITY_AUTH_RUNS):
+                ok("HEAD", c_rw.request("HEAD", "/work/svc", auth=kind))
+            auth_ms[kind] = ((time.perf_counter() - t0) * 1e3
+                             / IDENTITY_AUTH_RUNS)
+        lookup = srv._lookup_creds
+        hdr = {"Host": f"{srv.host}:{srv.port}"}
+        h4 = dict(hdr, **sigv4.sign_request(c_rw.creds, "GET", "/work/svc",
+                                            {}, hdr, b""))
+        h2 = sigv2.sign_header_v2(c_rw.creds, "GET", "/work/svc", {}, hdr)
+        verify_us = {}
+        for kind, fn in (("v4", lambda: sigv4.verify_header_signature(
+                lookup, "GET", "/work/svc", {}, h4, b"")),
+                         ("v2", lambda: sigv2.verify_header_v2(
+                             lookup, "GET", "/work/svc", {}, h2))):
+            t0 = time.perf_counter()
+            for _ in range(IDENTITY_AUTH_RUNS):
+                fn()
+            verify_us[kind] = ((time.perf_counter() - t0) * 1e6
+                               / IDENTITY_AUTH_RUNS)
+        served_launches = counts.read()
+        srv.shutdown()
+        srv = None
+        pools.close()
+        pools = None
+
+        # 11. A new server, a fresh IAMSys over the same drives.
+        before_load = counts.read()
+        t0 = time.perf_counter()
+        pools = ServerPools([ErasureSets([LocalDrive(p) for p in paths],
+                                         set_drive_count=12,
+                                         default_parity=4)])
+        srv = serve(pools)
+        load_s = time.perf_counter() - t0
+        load_launches = {k: v - before_load[k]
+                         for k, v in counts.read().items()}
+        iam_objects = (IDENTITY_USERS + IDENTITY_SVC + IDENTITY_POLICIES
+                       + IDENTITY_GROUPS)
+        expect(iam_objects, 0)                # one GET each at the load
+        if srv.iam.list_users() != users or \
+                len(srv.iam.list_service_accounts()) != IDENTITY_SVC:
+            raise SystemExit("identity: the reboot did not load every "
+                             "identity")
+        again = S3Client(srv.endpoint, scoped, user_secret[scoped],
+                         timeout=300)
+        _, got = ok("GET after the reboot", again.request(
+            "GET", f"/tenants/{pre}/a"))
+        if got != small:
+            raise SystemExit("identity: GET after the reboot differs")
+        expect(1, 0)
+        launches = counts.read()              # the main path ends here
+        items = counts.items()
+        _check_launches("identity", launches, items, want,
+                        held=("gf_matmul", "hh256", "mxh256"))
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        if pools is not None:
+            pools.close()
+        shutil.rmtree(root, ignore_errors=True)
+    took = time.perf_counter() - started
+    print(f"[identity] S3Server with IAM and OIDC over one EC:8+4 set of 12 "
+          f"drives: {IDENTITY_USERS} users in {IDENTITY_GROUPS} groups, "
+          f"{IDENTITY_POLICIES} custom policies, {IDENTITY_SVC} service "
+          f"accounts created over the admin API from {IDENTITY_CLIENTS} "
+          f"clients in {create_s:.3f} s ({iam_writes} IAM object writes, "
+          f"launches {create_launches}); card {card}")
+    for name, (s, nbytes) in steps.items():
+        print(f"[identity] {name}: {s * 1e3:.1f} ms, {nbytes} B, "
+              f"{nbytes / s / 1e9:.3f} GB/s (host clock); card {card}")
+    print(f"[identity] per request over HTTP (HEAD, no device work, "
+          f"{IDENTITY_AUTH_RUNS} runs): SigV4 {auth_ms['v4']:.3f} ms, SigV2 "
+          f"{auth_ms['v2']:.3f} ms, SigV2 presigned "
+          f"{auth_ms['v2-presigned']:.3f} ms; the signature check alone: "
+          f"SigV4 {verify_us['v4']:.1f} us, SigV2 {verify_us['v2']:.1f} us; "
+          f"AssumeRole with an inline policy {sts_ms:.3f} ms a credential; "
+          f"card {card}")
+    print(f"[identity] refused with no launch, item or staging entry: "
+          f"{', '.join(refused)}; card {card}")
+    print(f"[identity] reboot: a fresh IAMSys loaded {iam_objects} IAM "
+          f"objects ({IDENTITY_USERS} users) in {load_s:.3f} s, launches "
+          f"{load_launches}; launches before the reboot {served_launches}, "
+          f"in all {launches}, items {items}, expected from the objects "
+          f"{want}; the phase took {took:.1f} s; card {card}")
+    return launches
+
+
 def _boot_server(card) -> float:
     """`python -m minio_tpu_torch.server --drives <shm>/b{1...12}` in a
     subprocess on the card: ready, one signed PUT (storage class STANDARD
@@ -2869,14 +3311,15 @@ def main() -> int:
         "object layer": lambda: phase_object_layer(args, counts, card),
         "server": lambda: phase_server(args, counts, card),
         "dispatch": lambda: phase_dispatch(args, counts, card),
+        "identity": lambda: phase_identity(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
     with MxhShapes(fused, mt) as counts.shapes:
         for name, run in paths.items():
-            # Phases 5a-5g count every GET's device work from the sizes
-            # and probe reads of corrupted frames: they run without the
-            # device shard cache; 5h runs every default.
+            # Phases 5a-5g and 5i count every GET's device work from the
+            # sizes (5a and 5b probe reads of corrupted frames): they run
+            # without the device shard cache; 5h runs every default.
             if name == "dispatch":
                 os.environ.pop("MTPU_DEVCACHE", None)
             else:

@@ -2,11 +2,13 @@
 
 The single-node part of minio_tpu/server/__main__.py (the serverMain
 role, cmd/server-main.go:441): expand the drive endpoints, build the
-object layer (pools -> sets -> drives) on the CUDA card, start the S3
-front door, serve until SIGTERM or SIGINT, then drain and exit 0.  A
-second signal forces the exit.  Credentials come from MTPU_ROOT_USER /
-MTPU_ROOT_PASSWORD (the reference's MINIO_ROOT_USER convention),
-defaulting to minioadmin/minioadmin.
+object layer (pools -> sets -> drives) on the CUDA card, load IAM from
+it, start the S3 front door, serve until SIGTERM or SIGINT, then drain
+and exit 0.  A second signal forces the exit.  Root credentials come
+from MTPU_ROOT_USER / MTPU_ROOT_PASSWORD (the reference's
+MINIO_ROOT_USER convention), defaulting to minioadmin/minioadmin; the
+other identities are IAM's, managed through the admin API and kept in
+the object layer.
 
 Each --drives flag is one pool; within a flag, each space-separated
 ellipsis group is one pool too (`--drives '/a{1...4} /b{1...4}'`),
@@ -28,8 +30,8 @@ import threading
 LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner "
             "(item 9); startup self-tests, boot recovery sweep, drive "
             "health wrap and MRF (item 5); hot cache and QoS (item 7); "
-            "the pre-fork worker pool (item 6); IAM (item 3b); "
-            "notifications, replication and tiering (item 10)")
+            "the pre-fork worker pool (item 6); notifications, "
+            "replication and tiering (item 10)")
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -107,6 +109,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..engine.pools import ServerPools
     from ..engine.sets import ErasureSets
+    from ..iam.iam import IAMSys
     from ..storage.drive import LocalDrive
     from .server import S3Server
     from .sigv4 import Credentials
@@ -130,8 +133,9 @@ def main(argv: list[str] | None = None) -> int:
     stop = threading.Event()
     install_signal_handlers(stop)
     try:
+        iam = IAMSys(pools)
         srv = S3Server(pools, creds, host=args.host, port=args.port,
-                       certs=certs).start()
+                       certs=certs, iam=iam).start()
         desc = ", ".join(f"pool{i}: {len(p)} drives "
                          f"set={pool_sets[i].set_drive_count}"
                          for i, p in enumerate(pool_paths))

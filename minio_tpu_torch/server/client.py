@@ -1,7 +1,12 @@
 """Minimal signed S3 client — the test harness's `mc` analogue (the
 port's copy of minio_tpu/server/client.py; `timeout` bounds every
 socket operation, and a streamed body goes out in 1 MiB sends, not
-http.client's 8 KiB ones).
+http.client's 8 KiB ones).  Beside SigV4 it signs SigV2 headers and
+presigns SigV2 URLs (`auth=`), carries an STS session token
+(`session_token`), calls the admin API's IAM endpoints and STS, and
+builds browser POST-policy forms.  A server that refuses a request
+before reading its body answers and closes the connection; the client
+then reads that answer instead of failing on the unsent rest.
 
 Signs every request with the same sigv4 module the server verifies with
 is NOT circular: the signer follows the public SigV4 spec from the client
@@ -12,10 +17,15 @@ tooling.
 
 from __future__ import annotations
 
+import datetime
 import http.client
+import json
+import re
+import secrets
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from . import postpolicy, sigv2
 from .sigv4 import Credentials, sign_request
 
 #: Bytes per send of a streamed request body.  Each send takes the GIL
@@ -32,10 +42,27 @@ class S3ClientError(Exception):
         super().__init__(f"{status} {code}: {message}")
 
 
+#: How the client authenticates a request: SigV4 header, SigV2 header,
+#: a SigV2 presigned URL, or not at all.
+AUTH_KINDS = ("v4", "v2", "v2-presigned", "anonymous")
+
+
+def _send(conn, method: str, url: str, body, headers: dict):
+    """Send a request and read its response.  A server that refuses a
+    request from its headers answers and closes without reading the
+    body: the send then fails, and the answer is read all the same."""
+    try:
+        conn.request(method, url, body=body, headers=headers)
+    except (BrokenPipeError, ConnectionResetError):
+        pass
+    resp = conn.getresponse()
+    return resp, resp.read()
+
+
 class S3Client:
     def __init__(self, endpoint: str, access_key: str, secret_key: str,
                  region: str = "us-east-1", verify_tls: bool = True,
-                 timeout: float = 60):
+                 timeout: float = 60, session_token: str = ""):
         u = urllib.parse.urlsplit(endpoint)
         self.host = u.hostname
         self.tls = u.scheme == "https"
@@ -43,6 +70,7 @@ class S3Client:
         self.verify_tls = verify_tls
         self.timeout = timeout
         self.creds = Credentials(access_key, secret_key, region)
+        self.session_token = session_token   # STS credentials carry one
         self._ssl_ctx = None             # built once, lazily
 
     def _connect(self):
@@ -69,26 +97,41 @@ class S3Client:
     def request(self, method: str, path: str,
                 query: dict[str, str] | None = None,
                 body: bytes = b"", headers: dict[str, str] | None = None,
-                raw_query: str | None = None):
+                raw_query: str | None = None, auth: str = "v4",
+                expires_in: int = 600):
+        """One request, signed as `auth` (one of AUTH_KINDS; a SigV2
+        presigned URL is valid for `expires_in` seconds): (status,
+        headers, body)."""
+        if auth not in AUTH_KINDS:
+            raise ValueError(f"auth must be one of {AUTH_KINDS}")
         q = {k: [v] for k, v in (query or {}).items()}
         headers = dict(headers or {})
         headers["Host"] = f"{self.host}:{self.port}"
+        if self.session_token and auth in ("v4", "v2"):
+            headers["x-amz-security-token"] = self.session_token
         # Sign over the DECODED path; send the percent-encoded form on the
         # wire (keys with spaces/non-ASCII would otherwise break the
         # request line and the signature).
         wire_path = urllib.parse.quote(path, safe="/~-._")
         if raw_query is None:
-            auth = sign_request(self.creds, method, path, q, headers, body)
-            headers.update(auth)
+            if auth == "v4":
+                headers.update(sign_request(self.creds, method, path, q,
+                                            headers, body))
+            elif auth == "v2":
+                headers = sigv2.sign_header_v2(self.creds, method, path, q,
+                                               headers)
+            elif auth == "v2-presigned":
+                if self.session_token:
+                    q["X-Amz-Security-Token"] = [self.session_token]
+                q = sigv2.presign_v2(self.creds, method, path, expires_in,
+                                     query=q)
             qs = urllib.parse.urlencode({k: v[0] for k, v in q.items()})
             url = wire_path + ("?" + qs if qs else "")
         else:
             url = wire_path + "?" + raw_query
         conn = self._connect()
         try:
-            conn.request(method, url, body=body, headers=headers)
-            resp = conn.getresponse()
-            data = resp.read()
+            resp, data = _send(conn, method, url, body, headers)
             return resp.status, dict(resp.getheaders()), data
         finally:
             conn.close()
@@ -102,15 +145,15 @@ class S3Client:
         headers = dict(headers or {})
         headers["Host"] = f"{self.host}:{self.port}"
         headers["Content-Length"] = str(size)
+        if self.session_token:
+            headers["x-amz-security-token"] = self.session_token
         auth = sign_request(self.creds, "PUT", path, {}, headers,
                             "UNSIGNED-PAYLOAD")
         headers.update(auth)
         wire_path = urllib.parse.quote(path, safe="/~-._")
         conn = self._connect()
         try:
-            conn.request("PUT", wire_path, body=reader, headers=headers)
-            resp = conn.getresponse()
-            data = resp.read()
+            resp, data = _send(conn, "PUT", wire_path, reader, headers)
             _, h, _ = self._check(resp.status, dict(resp.getheaders()),
                                   data)
             return h
@@ -122,6 +165,8 @@ class S3Client:
         """Streamed GET: yields body chunks as they arrive."""
         path = f"/{bucket}/{key}"
         headers = {"Host": f"{self.host}:{self.port}"}
+        if self.session_token:
+            headers["x-amz-security-token"] = self.session_token
         auth = sign_request(self.creds, "GET", path, {}, headers, b"")
         headers.update(auth)
         wire_path = urllib.parse.quote(path, safe="/~-._")
@@ -302,3 +347,123 @@ class S3Client:
     def abort_multipart(self, bucket: str, key: str, upload_id: str) -> None:
         self._check(*self.request(
             "DELETE", f"/{bucket}/{key}", query={"uploadId": upload_id}))
+
+    # -- admin API: IAM (cf. madmin-go's user/group/policy calls) -------------
+
+    def admin(self, method: str, endpoint: str,
+              query: dict[str, str] | None = None,
+              doc: dict | None = None):
+        """One admin API call, SigV4-signed: (status, decoded JSON or
+        the raw body when it is not JSON)."""
+        body = json.dumps(doc).encode() if doc is not None else b""
+        st, _, data = self.request(method, f"/minio/admin/v3/{endpoint}",
+                                   query=query, body=body)
+        try:
+            return st, json.loads(data)
+        except ValueError:
+            return st, data
+
+    def _admin_ok(self, method, endpoint, query=None, doc=None) -> dict:
+        st, out = self.admin(method, endpoint, query, doc)
+        if st != 200:
+            if isinstance(out, bytes):
+                self._check(st, {}, out)
+            raise S3ClientError(st, "AdminError", str(out))
+        return out
+
+    def add_user(self, access_key: str, secret_key: str,
+                 policies: list[str] | None = None) -> None:
+        self._admin_ok("POST", "users", doc={
+            "accessKey": access_key, "secretKey": secret_key,
+            "policies": list(policies or [])})
+
+    def list_users(self) -> list[str]:
+        return self._admin_ok("GET", "users")["users"]
+
+    def set_policy(self, name: str, policy: dict) -> None:
+        self._admin_ok("POST", "policies", doc={"name": name,
+                                                "policy": policy})
+
+    def add_group(self, name: str, members: list[str],
+                  policies: list[str] | None = None) -> None:
+        doc = {"name": name, "members": list(members)}
+        if policies is not None:
+            doc["policies"] = list(policies)
+        self._admin_ok("POST", "groups", doc=doc)
+
+    def add_service_account(self, parent: str,
+                            policies: list[str] | None = None
+                            ) -> tuple[str, str]:
+        out = self._admin_ok("POST", "service-accounts", doc={
+            "parent": parent, "policies": list(policies or [])})
+        return out["accessKey"], out["secretKey"]
+
+    # -- STS (cf. cmd/sts-handlers.go) ----------------------------------------
+
+    def sts(self, form: dict[str, str], signed: bool = True) -> dict:
+        """POST one STS action (a form body); the issued credentials as
+        {"AccessKeyId", "SecretAccessKey", "SessionToken",
+        "Expiration"}.  The identity-provider actions go unsigned."""
+        body = urllib.parse.urlencode(
+            {"Version": "2011-06-15", **form}).encode()
+        headers = {"Content-Type": "application/x-www-form-urlencoded"}
+        st, h, data = self.request("POST", "/", body=body, headers=headers,
+                                   auth="v4" if signed else "anonymous")
+        self._check(st, h, data)
+        return {tag: re.search(f"<{tag}>([^<]*)</{tag}>".encode(),
+                               data).group(1).decode()
+                for tag in ("AccessKeyId", "SecretAccessKey",
+                            "SessionToken", "Expiration")}
+
+    def assume_role(self, duration_s: int = 3600,
+                    policy: dict | None = None) -> dict:
+        form = {"Action": "AssumeRole", "DurationSeconds": str(duration_s)}
+        if policy is not None:
+            form["Policy"] = json.dumps(policy)
+        return self.sts(form)
+
+    def assume_role_with_web_identity(self, token: str,
+                                      duration_s: int = 3600) -> dict:
+        return self.sts({"Action": "AssumeRoleWithWebIdentity",
+                         "WebIdentityToken": token,
+                         "DurationSeconds": str(duration_s)}, signed=False)
+
+    def with_credentials(self, creds: dict) -> "S3Client":
+        """A client of the same endpoint on credentials STS issued."""
+        scheme = "https" if self.tls else "http"
+        return S3Client(f"{scheme}://{self.host}:{self.port}",
+                        creds["AccessKeyId"], creds["SecretAccessKey"],
+                        self.creds.region, self.verify_tls, self.timeout,
+                        session_token=creds["SessionToken"])
+
+    # -- browser POST uploads (cf. cmd/postpolicyform.go) ---------------------
+
+    def post_form(self, bucket: str, conditions: list,
+                  expires_s: int = 3600,
+                  now: datetime.datetime | None = None) -> dict[str, str]:
+        """The signed form fields of a POST policy: `conditions` beside
+        the bucket, credential and date the signature needs."""
+        return postpolicy.sign_post_policy(self.creds, bucket, conditions,
+                                           expires_s, now)
+
+    def post_object(self, bucket: str, key: str, data: bytes,
+                    fields: dict[str, str]):
+        """POST `data` as the form's file under `key` with the signed
+        `fields` (post_form): (status, headers, body), unsigned as a
+        browser sends it."""
+        boundary = secrets.token_hex(16)
+        parts = [b""]
+        for name, value in {"key": key, **fields}.items():
+            parts.append(f'Content-Disposition: form-data; name="{name}"'
+                         f'\r\n\r\n{value}'.encode())
+        parts.append(b'Content-Disposition: form-data; name="file"; '
+                     b'filename="upload"\r\n'
+                     b'Content-Type: application/octet-stream\r\n\r\n'
+                     + data)
+        delim = b"--" + boundary.encode()
+        body = (b"\r\n".join(delim + b"\r\n" + p for p in parts[1:])
+                + b"\r\n" + delim + b"--\r\n")
+        return self.request(
+            "POST", f"/{bucket}", body=body, auth="anonymous",
+            headers={"Content-Type":
+                     f"multipart/form-data; boundary={boundary}"})

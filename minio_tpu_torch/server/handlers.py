@@ -10,11 +10,13 @@ kernels.
 Without the planes of later items: a request that needs one answers
 NotImplemented and names its ROADMAP.md Queue A item (`unported`).  That
 covers SSE, compression, tiering and restore, replication, object lock
-(retention, legal hold), quota, notifications, S3 Select, snowball and
-zip extract, and the bucket configs other than versioning and tagging.
-An object another package stored encrypted, compressed or tiered is not
-served as if it were plain, and a bucket that carries a quota or an
-object-lock config takes no write that would bypass it.
+(retention, legal hold), quota, notifications, S3 Select, and the bucket
+configs other than versioning, tagging and policy.  An object another
+package stored encrypted, compressed or tiered is not served as if it
+were plain, and a bucket that carries a quota or an object-lock config
+takes no write that would bypass it.  Snowball tars are extracted on PUT
+and zip members served on GET (server/extract.py); who may call a
+handler is decided before it runs (server.py `_authorize`).
 """
 
 from __future__ import annotations
@@ -30,9 +32,11 @@ import xml.etree.ElementTree as ET
 from ..bucket.metadata import META_BUCKET, BucketMetadataSys
 from ..config.config import ConfigSys
 from ..engine.pools import ServerPools
+from ..iam.policy import Policy
 from ..storage.errors import StorageError
 from ..storage.xlmeta import FileInfo
 from ..utils import streams
+from . import extract
 from .api_errors import S3Error, from_storage_error
 
 MAX_OBJECT_SIZE = 5 * 1024 ** 4    # 5 TiB (docs/minio-limits.md)
@@ -55,8 +59,6 @@ _TRANSFORM_KEYS = {
 #: transformed or tiered (listings report it, as the JAX package does).
 _CLIENT_SIZE_KEY = "x-mtpu-internal-client-size"
 _TIER_SIZE_KEY = "x-mtpu-internal-tier-size"
-_SNOWBALL_HEADER = "x-amz-meta-snowball-auto-extract"
-_ZIP_EXTRACT_HEADER = "x-minio-extract"
 
 
 def unported(what: str, item: str = "10") -> S3Error:
@@ -250,16 +252,24 @@ class S3Handlers:
 
     # ---- bucket sub-resource configs --------------------------------------
 
-    #: Bucket configs this server stores (?tagging: a blob, no plane).
-    _CONFIG_KINDS = {"tagging": ("tagging", "NoSuchTagSet")}
+    #: Bucket configs this server stores: ?policy (a JSON policy the
+    #: server authorizes anonymous requests by) and ?tagging (a blob).
+    _CONFIG_KINDS = {"policy": ("policy", "NoSuchBucketPolicy"),
+                     "tagging": ("tagging", "NoSuchTagSet")}
     #: Bucket configs whose plane waits for ROADMAP.md Queue A item 10.
-    UNPORTED_CONFIGS = ("lifecycle", "policy", "notification",
-                        "replication", "quota", "object-lock", "encryption")
+    UNPORTED_CONFIGS = ("lifecycle", "notification", "replication",
+                        "quota", "object-lock", "encryption")
 
     def put_bucket_config(self, bucket: str, sub: str,
                           body: bytes) -> Response:
         self.head_bucket(bucket)
         kind, _ = self._CONFIG_KINDS[sub]
+        if kind == "policy":
+            # Validate before storing (cf. PutBucketPolicyHandler).
+            try:
+                Policy(body.decode())
+            except Exception:  # noqa: BLE001 — any parse failure
+                raise S3Error("MalformedXML") from None
         self.meta.put(bucket, kind, body)
         return Response(200)
 
@@ -269,7 +279,9 @@ class S3Handlers:
         data = self.meta.get(bucket, kind)
         if data is None:
             raise S3Error(missing_code)
-        return Response(200, data, {"Content-Type": "application/xml"})
+        ctype = "application/json" if kind == "policy" else \
+            "application/xml"
+        return Response(200, data, {"Content-Type": ctype})
 
     def delete_bucket_config(self, bucket: str, sub: str) -> Response:
         self.head_bucket(bucket)
@@ -537,10 +549,19 @@ class S3Handlers:
     def get_object(self, bucket: str, key: str, query: dict,
                    headers: dict[str, str], head: bool = False) -> Response:
         version_id = query.get("versionId", [""])[0]
-        hl = {k.lower(): v for k, v in headers.items()}
-        if hl.get(_ZIP_EXTRACT_HEADER, "").lower() == "true" \
-                and ".zip/" in key.lower():
-            raise unported("zip extract", "3b")
+        if extract.is_zip_extract_get(headers):
+            split = extract.split_zip_path(key)
+            if split is not None:
+                # A member of a zip object, read whole from the object
+                # (cf. cmd/s3-zip-handlers.go).
+                zip_key, member = split
+                _, zip_bytes = self._read_source(bucket, zip_key,
+                                                 version_id)
+                data = extract.read_zip_member(bytes(zip_bytes), member)
+                h = {"Content-Length": str(len(data)),
+                     "Content-Type": "application/octet-stream",
+                     "Accept-Ranges": "none"}
+                return Response(200, b"" if head else data, h)
         try:
             fi = self.pools.head_object(bucket, key, version_id)
         except StorageError as e:
@@ -601,8 +622,6 @@ class S3Handlers:
                 while body.read(1 << 20):
                     pass
             return self._copy_object(bucket, key, h)
-        if h.get(_SNOWBALL_HEADER, "").lower() == "true":
-            raise unported("snowball extract", "3b")
         if any(h.get(k) for k in _SSE_HEADERS):
             raise unported("server-side encryption")
         if h.get("x-amz-replication-status") == "REPLICA":
@@ -621,8 +640,17 @@ class S3Handlers:
             body = streams.MaxSizeReader(
                 body, MAX_OBJECT_SIZE,
                 exc=lambda msg: S3Error("EntityTooLarge"))
-            if h.get("content-md5"):
+            if h.get("content-md5") or extract.is_snowball_put(headers):
                 body = streams.ensure_bytes(body)
+        if extract.is_snowball_put(headers):
+            # Auto-extract a tar body into one object per member under
+            # the key prefix (cf. PutObjectExtract, cmd/untar.go:100).
+            n = 0
+            for sub_key, data, _meta in extract.extract_tar(body, key):
+                self.put_object(bucket, sub_key, data, {})
+                n += 1
+            return Response(200, headers={"x-mtpu-extracted-objects":
+                                          str(n)})
         md5_hdr = h.get("content-md5")
         if md5_hdr:
             # Conformance split (cf. internal/hash/reader.go): a header
@@ -792,10 +820,13 @@ class S3Handlers:
         except StorageError as e:
             raise from_storage_error(e) from None
 
-    def delete_objects(self, bucket: str, body: bytes) -> Response:
+    def delete_objects(self, bucket: str, body: bytes,
+                       can_delete=None) -> Response:
         """POST /bucket?delete — multi-object delete
         (cf. DeleteMultipleObjectsHandler, cmd/bucket-handlers.go).
-        Root credentials only, so no per-key authorization."""
+        `can_delete(key, version_id) -> bool` authorizes each key
+        individually: a bucket-level check would bypass object-path
+        Deny statements."""
         self.head_bucket(bucket)
         try:
             root = ET.fromstring(body)
@@ -809,6 +840,12 @@ class S3Handlers:
             key = obj.findtext("Key") or obj.findtext(f"{{{S3_NS}}}Key") or ""
             vid = obj.findtext("VersionId") or \
                 obj.findtext(f"{{{S3_NS}}}VersionId") or ""
+            if can_delete is not None and not can_delete(key, vid):
+                ee = _el(out, "Error")
+                _el(ee, "Key", key)
+                _el(ee, "Code", "AccessDenied")
+                _el(ee, "Message", "Access Denied.")
+                continue
             try:
                 # Through the single-delete path, so its gates apply.
                 q = {"versionId": [vid]} if vid else {}

@@ -63,15 +63,15 @@ def test_no_forbidden_imports(path):
 
 def test_scan_covers_every_subpackage():
     """Every subpackage of the port, cluster/, parallel/, background/
-    and the S3 server's server/, bucket/, config/ and topology/ among
-    them, has its modules in the scan."""
+    and the S3 server's server/, bucket/, config/, topology/ and iam/
+    among them, has its modules in the scan."""
     subpackages = {p.parent.relative_to(PKG) for p in PKG.rglob("__init__.py")
                    if (PKG / "build") not in p.parents}
     scanned = {p.parent.relative_to(PKG) for p in SOURCES
                if PKG in p.parents}
     assert {Path("cluster"), Path("parallel"), Path("background"),
             Path("server"), Path("bucket"), Path("config"),
-            Path("topology")} <= subpackages <= scanned
+            Path("topology"), Path("iam")} <= subpackages <= scanned
     for mod in ("cluster/nslock.py", "cluster/dynamic_timeout.py",
                 "parallel/pipeline.py", "storage/format.py",
                 "utils/siphash.py", "engine/metacache.py", "engine/sets.py",
@@ -80,7 +80,9 @@ def test_scan_covers_every_subpackage():
                 "server/sigv4.py", "server/api_errors.py",
                 "server/client.py", "server/__main__.py",
                 "bucket/metadata.py", "config/config.py",
-                "topology/endpoints.py"):
+                "topology/endpoints.py", "iam/iam.py", "iam/policy.py",
+                "iam/oidc.py", "iam/ldap.py", "server/sigv2.py",
+                "server/postpolicy.py", "server/extract.py"):
         assert PKG / mod in SOURCES, mod
 
 

@@ -498,26 +498,24 @@ class TestPortOnly:
                     ("PUT", "/npx/x", None,
                      {"x-amz-server-side-encryption": "AES256"}, "10"),
                     ("GET", "/npx", {"lifecycle": ""}, None, "10"),
-                    ("GET", "/npx", {"policy": ""}, None, "10"),
+                    ("GET", "/npx", {"replication": ""}, None, "10"),
+                    ("GET", "/npx", {"object-lock": ""}, None, "10"),
+                    ("GET", "/npx", {"quota": ""}, None, "10"),
+                    ("GET", "/npx", {"notification": ""}, None, "10"),
                     ("GET", "/npx/o", {"retention": ""}, None, "10"),
                     ("POST", "/npx/o", {"select": ""}, None, "10"),
                     ("POST", "/npx/o", {"restore": ""}, None, "10"),
                     ("GET", "/minio/admin/v3/info", None, None, "10"),
-                    ("POST", "/", None, None, "3b"),
-                    ("POST", "/npx", None,
-                     {"Content-Type": "multipart/form-data; boundary=b"},
-                     "3b"),
-                    ("PUT", "/npx/t.tar", None,
-                     {"x-amz-meta-snowball-auto-extract": "true"}, "3b")):
+                    ("POST", "/minio/admin/v3/heal", None, None, "10"),
+                    ("GET", "/minio/admin/v3/config", None, None, "10")):
                 st, _, body = cli.request(method, path, query=query,
                                           headers=headers)
                 assert st == 501, (method, path, body)
                 assert b"NotImplemented" in body
                 assert f"item {item})".encode() in body, body
-            # SigV2 and the metrics plane, unsigned.
-            for path, headers in (("/npx/o", {"Authorization":
-                                             "AWS testadmin:c2ln"}),
-                                  ("/minio/v2/metrics/node", {})):
+            # The metrics plane, unsigned.
+            for path, headers in (("/minio/v2/metrics/node", {}),
+                                  ("/minio/v2/metrics/cluster", {})):
                 conn = http.client.HTTPConnection(srv.host, srv.port,
                                                   timeout=TIMEOUT)
                 conn.request("GET", path, headers=headers)

@@ -126,18 +126,41 @@ Phases, each printing its own lines; any failure exits non-zero:
       no item and no staging entry.  ms and GB/s per step, the IAM
       create and load seconds, SigV2 against SigV4 per request and the
       ms to issue STS credentials.
-   Phases a-g and i run with MTPU_DEVCACHE=0: their counts assume every
-   GET reads its shards, and a and b probe a GET of a corrupted frame.
-6. Where one 32 MiB PUT batch's time goes, layer by layer, and the
-   device's busy share over one 64 MiB PUT + GET (torch.profiler).
+   j. the host planes (phase_host_planes): the standalone boot on
+      drives seeded with a dead process's staging (self-tests' ms and
+      launches, the sweep's counts); 8 streamed 64 MiB PUTs (2
+      HighwayHash) on one EC:8+4 set from 1 and 4 clients with
+      zero-copy on and MTPU_ZEROCOPY=0 (GB/s, part files equal across
+      modes, MD5 updates in flight at once); get_object and
+      get_object_iter of each; the metadata elections of HEAD + GET
+      with and without the FileInfo cache; a hedged GET over a stalled
+      data-shard drive against MTPU_HEDGE=0, and one over HTTP with
+      every default on (FileInfo cache, adaptive hedge delay); a
+      breaker-offline drive, a
+      parity-5 PUT, its MRF heal, every drive equal to a set that never
+      lost the drive.  Items exact in every step.
+   Phases a-g, i and j run with MTPU_DEVCACHE=0: their counts assume
+   every GET reads its shards, and a and b probe a GET of a corrupted
+   frame.  Phases a-i run with MTPU_HEDGE=0 and the FileInfo cache's TTL
+   at 0: a hedge that fires turns a slow healthy read into a rebuild,
+   and a cache hit serves an inline object from metadata elected before
+   drives were taken away or wiped; their counts allow neither.
+6. Where one 32 MiB PUT batch's time goes, layer by layer (the shard
+   writes as one write_file_batches per drive; the ingest ring over the
+   default buffer pool and a 512 MiB one against the bytearray chunker,
+   from 1 and 4 streams; MD5 of a ring view against bytes), one 32 MiB
+   GET batch's (shard reads, the host gather, H2D, verify, D2H,
+   assembly) and one HTTP HEAD's (the new connection, the metadata election with and
+   without the FileInfo cache, the handler), and the device's busy
+   share over one 64 MiB PUT + GET (torch.profiler).
 
 Launch counts are read for gf_matmul, hh256 and mxh256 (its calls on the
 card), and beside them the work items of each (ops/fused.ITEMS: one per
 direct call, the requests packed into a coalesced dispatch).  Where a
-phase holds counts (e-i), the items must equal what the sizes call for
+phase holds counts (e-j), the items must equal what the sizes call for
 and the launches must be at most the items (equal with
 MTPU_COALESCE=0).  Each path starts on fresh coalescer lanes; after each
-of a-g and i their dispatches are printed, and a batch fault, a lane-thread
+of a-g, i and j their dispatches are printed, and a batch fault, a lane-thread
 dispatch that was not pipelined, or a fallback to the direct call on any
 path fails the run.  The line before the last is the kernels' JSON record,
 whose launches are the main paths'; mxh256 is no hand-written kernel and
@@ -229,6 +252,16 @@ DISPATCH_HH_CLIENTS, DISPATCH_HH_PER = 4, 2
 DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 4, OBJECT_BYTES
 DISPATCH_AWAY = (0, 1)
 DISPATCH_HIT_BYTES = 16 * MIB
+# The host planes (phase 5j) over BASELINE.json config 2's deployment:
+# HOST_OBJECTS streamed PUTs of HOST_BYTES (HOST_HH highwayhash256S) from
+# 1 client and HOST_CLIENTS; a data-shard drive stalled HOST_STALL_S a
+# read under a hedge delay pinned to HOST_HEDGE_MS; the breaker's
+# thresholds of HOST_BREAKER_ENV.
+HOST_OBJECTS, HOST_HH, HOST_BYTES, HOST_CLIENTS = 8, 2, OBJECT_BYTES, 4
+HOST_STALL_S, HOST_HEDGE_MS = 0.05, 10
+HOST_BREAKER_ENV = {"MTPU_BREAKER_ERRS": "2",
+                    "MTPU_BREAKER_OFFLINE_ERRS": "4",
+                    "MTPU_BREAKER_PROBE_S": "30"}
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -3038,20 +3071,462 @@ def phase_identity(args, counts, card):
     return launches
 
 
-def _boot_server(card) -> float:
+class _MD5InFlight:
+    """Stands in for utils/streams' hashlib while installed: its md5()
+    objects count the updates in flight at once (`peak`), i.e. the ETag
+    workers digesting concurrently."""
+
+    def __init__(self, streams):
+        self.streams, self.mu = streams, threading.Lock()
+        self.now = self.peak = 0
+        outer = self
+
+        class MD5:
+            def __init__(self, *a):
+                self._h = hashlib.md5(*a)
+
+            def update(self, data):
+                with outer.mu:
+                    outer.now += 1
+                    outer.peak = max(outer.peak, outer.now)
+                try:
+                    self._h.update(data)
+                finally:
+                    with outer.mu:
+                        outer.now -= 1
+
+            def hexdigest(self):
+                return self._h.hexdigest()
+
+        self.module = type("hashlib", (), {"md5": MD5,
+                                           "sha256": hashlib.sha256})
+
+    def __enter__(self):
+        self.orig, self.streams.hashlib = self.streams.hashlib, self.module
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.streams.hashlib = self.orig
+
+
+def phase_host_planes(args, counts, card):
+    """The host side of PUT and GET and the engine's boot planes on the
+    card, over BASELINE.json config 2's deployment: one EC:8+4 set of 12
+    drives on /dev/shm (MINIO_STORAGE_CLASS_STANDARD=EC:4), objects of
+    64 MiB in 1 MiB blocks.
+
+    1. `python -m minio_tpu_torch.server` boots on drives seeded with a
+       dead process's staging and multipart stage files: self-tests
+       (one GF and one mxh256 item and launch per card), the sweep's
+       counts equal to what was seeded (_boot_server).
+    2. HOST_OBJECTS streamed PUTs (BytesReader, through the ingest ring)
+       of 64 MiB, HOST_HH of them highwayhash256S, from 1 client and
+       from HOST_CLIENTS, with MTPU_ZEROCOPY on and =0: GB/s each, the
+       SHA-256 of every part file equal between the modes, items exact,
+       the MD5 updates in flight at once under HOST_CLIENTS clients >= 2
+       (one ETag worker per stream).
+    3. GET: get_object and get_object_iter of each object, timed; the
+       metadata elections of a HEAD followed by a GET, 1 with the
+       FileInfo cache and 2 with it bypassed (TTL 0).
+    4. Hedged read: the drive of one data shard sleeps HOST_STALL_S in
+       every read_file; GET ms with hedging (MTPU_HEDGE_MS pinned to
+       HOST_HEDGE_MS: the adaptive delay starts at 50 ms, the stall's
+       length) against MTPU_HEDGE=0, bodies equal, the hedged GETs
+       rebuilding the stalled shard on the GF kernel; then one HTTP GET
+       of it through an in-process S3Server over the same drives with
+       every default on (the FileInfo cache, the adaptive hedge delay,
+       the stall twice that delay): one metadata election, a hedge
+       fired, a GF reconstruct, the body equal.
+    5. Breaker and MRF: over health-wrapped drives, one drive raises on
+       every call until its circuit opens; a PUT then writes parity 5
+       ("1-offline" upgraded in xl.meta) and MRF takes it; the drive is
+       restored, the queue drained, and every drive's files equal those
+       of a set that never lost the drive (same parity and metadata
+       written directly); the heal's items exact.
+    Returns the launch counts of steps 2-5."""
+    import minio_tpu_torch.engine.erasure_set as es_mod
+    from minio_tpu_torch.background.mrf import MRFQueue
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server import sigv4
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.storage import health_wrap
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.utils import streams
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    boot_s = _boot_server(card, debris=True)
+    need = int(4 * HOST_OBJECTS * HOST_BYTES * 1.5) + (1 << 30)
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"host planes: needs {need} bytes free on /dev/shm")
+    root = tempfile.mkdtemp(prefix="chip_smoke-host-", dir="/dev/shm")
+    rng = np.random.default_rng(args.seed + 11)
+    bodies = {f"o{i}": rng.bytes(HOST_BYTES) for i in range(HOST_OBJECTS)}
+    hh = set(list(bodies)[:HOST_HH])
+    sets = []
+
+    def new_set(name, wrap=False):
+        drives = [LocalDrive(os.path.join(root, name, f"d{i:02d}"))
+                  for i in range(12)]
+        es = ErasureSet(health_wrap.wrap_drives(drives) if wrap else drives,
+                        default_parity=4)
+        sets.append(es)
+        return es
+
+    def part_hashes(es, bucket, fis):
+        """SHA-256 of every part file keyed by (object, shard index):
+        the shard order hashes the bucket name."""
+        out = {}
+        for key, fi in fis.items():
+            for pos, d in enumerate(es.drives):
+                p = os.path.join(d.root, bucket, key, fi.data_dir, "part.1")
+                with open(p, "rb") as f:
+                    out[key, fi.erasure.distribution[pos]] = \
+                        hashlib.sha256(f.read()).digest()
+        return out
+
+    def put(es, bucket, key):
+        return key, es.put_object(bucket, key,
+                                  streams.BytesReader(bodies[key]))
+
+    def want_for(calls_by_key, gf):
+        want = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+        for key, calls in calls_by_key.items():
+            want["gf_matmul"] += calls * gf
+            want[_digest(HH if key in hh else "mxh256")] += calls
+        return want
+
+    def delta(before_l, before_i):
+        now_l, now_i = counts.read(), counts.items()
+        return ({k: now_l[k] - before_l[k] for k in now_l},
+                {k: now_i[k] - before_i[k] for k in now_i})
+
+    launches = None
+    try:
+        es = new_set("main")
+        counts.reset()                        # the main path starts here
+        # 2. PUT from 1 and HOST_CLIENTS clients, zero-copy on and =0 in
+        # turns (on, =0, =0, on) at each client count.
+        hashes, rates, peaks, fis = {}, {}, {}, {}
+        for clients, turn, mode in [
+                (c, t, m) for c in (1, HOST_CLIENTS)
+                for t, m in enumerate(("default", "0", "0", "default"))]:
+            if mode == "0":
+                os.environ["MTPU_ZEROCOPY"] = "0"
+            bucket = f"put-{mode}-{clients}-{turn}"
+            es.make_bucket(bucket)
+            l0, i0 = counts.read(), counts.items()
+            keys = [k for k in bodies if k not in hh]
+            with _MD5InFlight(streams) as inflight:
+                t0 = time.perf_counter()
+                # The HighwayHash objects go on their own, after the
+                # others: the algorithm is read from the environment.
+                done = dict(_in_threads(clients, lambda k: put(
+                    es, bucket, k), keys))
+                os.environ["MTPU_BITROT_ALGO"] = HH
+                try:
+                    done.update(_in_threads(min(clients, len(hh)),
+                                            lambda k: put(es, bucket, k),
+                                            sorted(hh)))
+                finally:
+                    os.environ.pop("MTPU_BITROT_ALGO")
+                put_s = time.perf_counter() - t0
+            got, items = delta(l0, i0)
+            _check_launches(f"host planes PUT {mode} x{clients}", got,
+                            items, want_for({k: _put_calls(HOST_BYTES)
+                                             for k in bodies}, 1),
+                            held=("gf_matmul", "hh256", "mxh256"))
+            for key, fi in done.items():
+                if fi.etag != hashlib.md5(bodies[key]).hexdigest():
+                    raise SystemExit(f"host planes: ETag of {key}")
+            key3 = (mode, clients, turn)
+            hashes[key3] = part_hashes(es, bucket, done)
+            rates[key3] = len(bodies) * HOST_BYTES / put_s / 1e9
+            peaks[key3] = inflight.peak
+            fis[key3] = done
+            if key3 != ("default", 1, 0):
+                es.delete_bucket(bucket, force=True)
+            os.environ.pop("MTPU_ZEROCOPY", None)
+        if len({tuple(sorted(h.items())) for h in hashes.values()}) != 1:
+            raise SystemExit("host planes: part files differ between "
+                             "zero-copy on and MTPU_ZEROCOPY=0")
+        if min(p for (_, c, _), p in peaks.items()
+               if c == HOST_CLIENTS) < 2:
+            raise SystemExit(f"host planes: MD5 updates in flight {peaks}")
+        print(f"[host] PUT {HOST_OBJECTS} x {HOST_BYTES} B streamed "
+              f"({HOST_HH} {HH}), EC:8+4, 12 drives on tmpfs, in turns: "
+              + ", ".join(f"x{c} clients zero-copy {m} {r:.3f} GB/s (MD5 "
+                          f"updates in flight at once {peaks[m, c, t]})"
+                          for (m, c, t), r in rates.items())
+              + f"; part files' SHA-256 equal across modes; card {card}")
+
+        # 3. GET and the FileInfo cache.
+        bucket, done = "put-default-1-0", fis["default", 1, 0]
+        get_ms, iter_ms = [], []
+        l0, i0 = counts.read(), counts.items()
+        for key, body in bodies.items():
+            t0 = time.perf_counter()
+            _, got = es.get_object(bucket, key)
+            get_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            _, it = es.get_object_iter(bucket, key)
+            whole = b"".join(bytes(c) for c in it)
+            iter_ms.append((time.perf_counter() - t0) * 1e3)
+            if bytes(got) != body or whole != body:
+                raise SystemExit(f"host planes: GET {key} differs")
+        got_l, items = delta(l0, i0)
+        _check_launches("host planes GET", got_l, items, want_for(
+            {k: 2 * _get_calls(fi) for k, fi in done.items()}, 0),
+            held=("gf_matmul", "hh256", "mxh256"))
+        elections = {}
+        for label, ttl in (("cache", es._FI_CACHE_TTL), ("bypassed", 0.0)):
+            es._FI_CACHE_TTL = ttl
+            n0 = es_mod.stats()["meta_read_requests"]
+            es.head_object(bucket, "o3")
+            es.get_object(bucket, "o3")
+            elections[label] = es_mod.stats()["meta_read_requests"] - n0
+        del es._FI_CACHE_TTL
+        if elections != {"cache": 1, "bypassed": 2}:
+            raise SystemExit(f"host planes: elections {elections}")
+        print(f"[host] GET of {HOST_OBJECTS} x {HOST_BYTES} B: get_object "
+              f"median {statistics.median(get_ms):.1f} ms "
+              f"({HOST_BYTES / statistics.median(get_ms) / 1e6:.3f} GB/s), "
+              f"get_object_iter median {statistics.median(iter_ms):.1f} ms; "
+              f"metadata elections for HEAD + GET: {elections['cache']} with "
+              f"the FileInfo cache, {elections['bypassed']} bypassed; "
+              f"card {card}")
+
+        # 4. Hedged read over a stalled data-shard drive.
+        key = "o5"
+        fi = done[key]
+        order = Q.shuffle_by_distribution(list(range(12)),
+                                          fi.erasure.distribution)
+        slow = es.drives[order[0]]
+        real_read = slow.read_file
+
+        def stalled(*a, **kw):
+            time.sleep(HOST_STALL_S)
+            return real_read(*a, **kw)
+        slow.read_file = stalled
+        hedge = {}
+        try:
+            hedged_env = {"MTPU_HEDGE_MS": str(HOST_HEDGE_MS)}
+            for label, env in (("hedged", hedged_env),
+                               ("unhedged", {"MTPU_HEDGE": "0"}),
+                               ("unhedged again", {"MTPU_HEDGE": "0"}),
+                               ("hedged again", hedged_env)):
+                os.environ.update(env)
+                l0, i0 = counts.read(), counts.items()
+                h0 = es_mod.stats()
+                t0 = time.perf_counter()
+                _, got = es.get_object(bucket, key)
+                ms = (time.perf_counter() - t0) * 1e3
+                got_l, items = delta(l0, i0)
+                fired = es_mod.stats()["hedge_fired"] - h0["hedge_fired"]
+                for k in env:
+                    os.environ.pop(k)
+                if hashlib.sha256(got).digest() != \
+                        hashlib.sha256(bodies[key]).digest():
+                    raise SystemExit(f"host planes: {label} GET differs")
+                calls = _get_calls(fi)
+                _check_launches(f"host planes {label} GET", got_l, items,
+                                want_for({key: calls},
+                                         0 if "unhedged" in label else 1),
+                                held=("gf_matmul", "hh256", "mxh256"))
+                segments = len(es._plan_segments(fi, 0, fi.size))
+                if "unhedged" not in label and (got_l["gf_matmul"] < 1
+                                                or fired != segments):
+                    raise SystemExit(f"host planes: {label} GET fired "
+                                     f"{fired} hedges, launches {got_l}")
+                hedge[label] = (ms, got_l["gf_matmul"], fired)
+        finally:
+            del slow.read_file
+        print(f"[host] GET of {key} with data shard 0's drive stalled "
+              f"{HOST_STALL_S * 1e3:.0f} ms a read: " + ", ".join(
+                  f"{lb} {ms:.1f} ms (GF reconstruct launches {g}, hedges "
+                  f"fired {f})" for lb, (ms, g, f) in hedge.items())
+              + f"; bodies' SHA-256 equal; card {card}")
+
+        # 4b. The same stalled drive behind the S3 front door with every
+        # default on: the FileInfo cache at its TTL, the adaptive hedge
+        # delay.  The stall outlasts twice the delay, so a hedge fires.
+        hpools = srv = None
+        try:
+            hpools = ServerPools([ErasureSets(
+                [LocalDrive(d.root) for d in es.drives], set_drive_count=12,
+                default_parity=4)])
+            hes = hpools.pools[0].sets[0]
+            slow = hes.drives[order[0]]
+            real_read = slow.read_file
+            stall_s = max(HOST_STALL_S, 2 * hes._hedge_delay_s() + 0.02)
+
+            def stalled_http(*a, **kw):
+                time.sleep(stall_s)
+                return real_read(*a, **kw)
+            slow.read_file = stalled_http
+            srv = S3Server(hpools, sigv4.Credentials(
+                "smokeadmin", "smokeadmin-secret")).start()
+            cli = S3Client(srv.endpoint, "smokeadmin", "smokeadmin-secret",
+                           timeout=300)
+            l0, i0 = counts.read(), counts.items()
+            h0 = es_mod.stats()
+            t0 = time.perf_counter()
+            got = cli.get_object(bucket, key)
+            http_ms = (time.perf_counter() - t0) * 1e3
+            got_l, items = delta(l0, i0)
+            h1 = es_mod.stats()
+            http = {k: h1[k] - h0[k] for k in ("meta_read_requests",
+                                               "hedge_fired")}
+        finally:
+            if srv is not None:
+                srv.shutdown()
+            if hpools is not None:
+                hpools.close()
+        if hashlib.sha256(got).digest() != \
+                hashlib.sha256(bodies[key]).digest():
+            raise SystemExit("host planes: HTTP GET over the stalled "
+                             "drive differs")
+        if http["meta_read_requests"] != 1 or http["hedge_fired"] < 1 or \
+                got_l["gf_matmul"] < 1:
+            raise SystemExit(f"host planes: HTTP GET with every default "
+                             f"on: {http}, launches {got_l}")
+        print(f"[host] HTTP GET of {key} with data shard 0's drive stalled "
+              f"{stall_s * 1e3:.0f} ms a read, every default on (FileInfo "
+              f"cache, adaptive hedge delay): {http_ms:.1f} ms, metadata "
+              f"elections {http['meta_read_requests']}, hedges fired "
+              f"{http['hedge_fired']}, GF reconstruct launches "
+              f"{got_l['gf_matmul']} (items {items['gf_matmul']}); body's "
+              f"SHA-256 equal; card {card}")
+
+        # 5. Breaker and MRF over health-wrapped drives.
+        fixed = "00000000-0000-4000-8000-00000000c0de"
+        ident = dict(version_id="", mod_time_ns=1_700_000_000_000_000_000)
+        saved_uuid = es_mod.new_uuid
+        es_mod.new_uuid = lambda: fixed
+        for k, v in HOST_BREAKER_ENV.items():
+            os.environ[k] = v
+        try:
+            wes = new_set("wrapped", wrap=True)
+            twin = new_set("twin")
+            for s_ in (wes, twin):
+                s_.make_bucket("mrf")
+            wes.mrf = MRFQueue(lambda b, o, v: heal.heal_object(wes, b, o, v))
+            victim = wes.drives[3]
+            inner = victim._drive
+            for name in ("read_all", "disk_info"):
+                setattr(inner, name, lambda *a, **kw: (_ for _ in ()).throw(
+                    OSError(5, "injected")))
+            trips = 0
+            while victim.health_state() != "offline":
+                try:
+                    victim.read_all("mrf", "probe")
+                except OSError:
+                    trips += 1
+            for name in ("read_all", "disk_info"):
+                delattr(inner, name)
+            l0, i0 = counts.read(), counts.items()
+            fi = wes.put_object("mrf", "o", streams.BytesReader(
+                bodies["o6"]), **ident)
+            got_l, items = delta(l0, i0)
+            _check_launches("host planes breaker PUT", got_l, items,
+                            want_for({"o6": _put_calls(HOST_BYTES)}, 1),
+                            held=("gf_matmul", "hh256", "mxh256"))
+            upgraded = wes.drives[0].read_version("mrf", "o").metadata.get(
+                "x-mtpu-internal-erasure-upgraded")     # from its xl.meta
+            if (fi.erasure.parity_blocks, upgraded, wes.mrf.pending()) != \
+                    (5, "1-offline", 1):
+                raise SystemExit(f"host planes: breaker PUT parity "
+                                 f"{fi.erasure.parity_blocks}, upgraded "
+                                 f"{upgraded}, MRF {wes.mrf.pending()}")
+            twin.put_object("mrf", "o", bodies["o6"], parity=5, metadata={
+                "x-mtpu-internal-erasure-upgraded": "1-offline"}, **ident)
+            if not victim.probe_now():
+                raise SystemExit("host planes: probe of the restored drive")
+            l0, i0 = counts.read(), counts.items()
+            t0 = time.perf_counter()
+            healed = wes.mrf.drain_once()
+            heal_s = time.perf_counter() - t0
+            got_l, items = delta(l0, i0)
+            _check_launches("host planes MRF heal", got_l, items,
+                            _expected_heal_launches([fi], 3),
+                            held=("gf_matmul", "hh256", "mxh256"))
+            same = all(_drive_hashes(os.path.join(a.root, "mrf"))
+                       == _drive_hashes(os.path.join(b.root, "mrf"))
+                       for a, b in zip(wes.drives, twin.drives))
+            if healed != 1 or not same or wes.mrf.pending():
+                raise SystemExit(f"host planes: MRF healed {healed}, "
+                                 f"drives equal to the twin {same}")
+            launches = counts.read()          # the main path ends here
+            for d in wes.drives:
+                d.close()
+        finally:
+            es_mod.new_uuid = saved_uuid
+            for k in HOST_BREAKER_ENV:
+                os.environ.pop(k, None)
+        print(f"[host] breaker: drive 3 offline after {trips} failed calls; "
+              f"PUT wrote EC:7+5 upgraded 1-offline, MRF pending 1; probe "
+              f"closed the circuit, one drain healed it in "
+              f"{heal_s * 1e3:.1f} ms (items {items}); every drive's files "
+              f"equal a set that never lost the drive; card {card}")
+    finally:
+        for es_ in sets:
+            es_.close()
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("MTPU_ZEROCOPY", None)
+    print(f"[host] phase 5j: {time.perf_counter() - t_phase:.1f} s (boot "
+          f"{boot_s:.1f} s); launches {launches}; card {card}")
+    return launches
+
+
+def _seed_debris(root: str, n_drives: int) -> tuple[int, int]:
+    """A dead process's leftovers on drives root/b1..b<n>: staged PUT
+    directories and trash under tmp, multipart stage-* files beside a
+    parked part.  Returns (tmp entries, stage files) seeded."""
+    tmp_n = mp_n = 0
+    for i in range(1, n_drives + 1):
+        sys_dir = os.path.join(root, f"b{i}", ".mtpu.sys")
+        for j in range(1 + i % 3):
+            stage = os.path.join(sys_dir, "tmp", f"put-dead{j}")
+            os.makedirs(stage)
+            with open(os.path.join(stage, "part.1"), "wb") as f:
+                f.write(b"\x00" * 4096)
+            tmp_n += 1
+        os.makedirs(os.path.join(sys_dir, "tmp", "trash-dead"))
+        tmp_n += 1
+        up = os.path.join(sys_dir, "multipart", "deadbeef", "upload-0")
+        os.makedirs(up)
+        for name in ("part.1", "part.1.meta", f"stage-dead{i}.2"):
+            with open(os.path.join(up, name), "wb") as f:
+                f.write(b"x")
+        mp_n += 1
+    return tmp_n, mp_n
+
+
+def _boot_server(card, debris: bool = False) -> float:
     """`python -m minio_tpu_torch.server --drives <shm>/b{1...12}` in a
-    subprocess on the card: ready, one signed PUT (storage class STANDARD
-    = EC:4 through MTPU_STORAGE_CLASS_STANDARD) and GET of 64 MiB checked
-    by SHA-256, then SIGTERM and exit 0 within 30 s.  Returns its
-    seconds."""
+    subprocess on the card: the self-tests pass with one GF and one
+    mxh256 item and launch per card, ready, one signed PUT (storage
+    class STANDARD = EC:4 through MTPU_STORAGE_CLASS_STANDARD) and GET
+    of 64 MiB checked by SHA-256, then SIGTERM and exit 0 within 30 s.
+    With `debris` every drive first gets a dead process's leftovers
+    (_seed_debris), and the boot's recovery sweep must count them all
+    and leave the parked multipart part.  Returns its seconds."""
     import signal
     import urllib.request
 
     from minio_tpu_torch.server.client import S3Client
     import numpy as np
+    import torch
 
     t_start = time.perf_counter()
     root = tempfile.mkdtemp(prefix="chip_smoke-boot-", dir="/dev/shm")
+    seeded = _seed_debris(root, 12) if debris else (0, 0)
     port = _free_port()
     env = dict(os.environ, MTPU_ROOT_USER="bootadmin",
                MTPU_ROOT_PASSWORD="bootadmin-secret",
@@ -3111,13 +3586,38 @@ def _boot_server(card) -> float:
                              f"{open(err_path).read()[-3000:]}")
         stop_s = time.perf_counter() - t0
         lines = open(out_path).read().strip().splitlines()
+        parked = sorted(os.listdir(os.path.join(
+            root, "b1", ".mtpu.sys", "multipart", "deadbeef", "upload-0"))
+            ) if debris else []
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         shutil.rmtree(root, ignore_errors=True)
+    cards = torch.cuda.device_count()
+    m = re.match(r"minio_tpu_torch: self-tests passed in ([0-9.]+) ms "
+                 r"\(items gf_matmul=(\d+) mxh256=(\d+); launches "
+                 r"gf_matmul=(\d+) mxh256=(\d+)\)", lines[0] if lines else "")
+    if not m or any(int(g) != cards for g in m.groups()[1:]):
+        raise SystemExit(f"boot: self-tests line {lines[:1]}, expected one "
+                         f"GF and one mxh256 item and launch per card "
+                         f"({cards})")
+    sweep = (f"minio_tpu_torch: recovery sweep: {seeded[0]} stale tmp "
+             f"entries, {seeded[1]} orphaned multipart staging files across "
+             f"12 drives")
+    if lines[1] != sweep or (debris and parked != ["part.1",
+                                                   "part.1.meta"]):
+        raise SystemExit(f"boot: sweep {lines[1]!r} (seeded {seeded}), "
+                         f"parked upload left {parked}")
+    served = next((ln for ln in lines
+                   if ln.startswith("minio_tpu_torch server on")), "")
+    print(f"[boot] self-tests {float(m.group(1)):.3f} ms on {cards} card(s):"
+          f" items gf_matmul {m.group(2)}, mxh256 {m.group(3)}; launches "
+          f"gf_matmul {m.group(4)}, mxh256 {m.group(5)}; recovery sweep: "
+          f"{seeded[0]} stale tmp entries and {seeded[1]} multipart stage "
+          f"files seeded, swept and counted; card {card}")
     print(f"[server] boot: python -m minio_tpu_torch.server over 12 drives "
-          f"ready in {ready_s:.1f} s ({lines[0] if lines else ''}); signed "
+          f"ready in {ready_s:.1f} s ({served}); signed "
           f"PUT of {OBJECT_BYTES} B with x-amz-storage-class STANDARD (EC:4)"
           f" in {put_s * 1e3:.0f} ms onto {k} drives, GET in "
           f"{get_s * 1e3:.0f} ms, SHA-256 equal; SIGTERM: exit 0 in "
@@ -3128,13 +3628,22 @@ def _boot_server(card) -> float:
 
 
 def phase_layers(torch, card, dev):
-    """Where one 32 MiB EC:8+4 PUT batch's time goes, layer by layer
-    (host clock around synchronised work, median of 5), and the device's
-    busy share over one 64 MiB PUT + GET (torch.profiler)."""
+    """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
+    step by step (host clock around synchronised work, median of 5),
+    one HTTP HEAD's split, and the device's busy share over one 64 MiB
+    PUT + GET (torch.profiler)."""
+    import minio_tpu_torch.engine.erasure_set as es_mod
+    from minio_tpu_torch.engine import quorum as Q
     from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
     from minio_tpu_torch.ops import devices, fused
+    from minio_tpu_torch.server import sigv4
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.handlers import S3Handlers
+    from minio_tpu_torch.server.server import S3Server
     from minio_tpu_torch.storage import bitrot_io
-    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.storage.drive import SYS_VOL, LocalDrive
     import numpy as np
 
     blocks = np.random.default_rng(1).integers(0, 256, (32, 8, 131072),
@@ -3153,10 +3662,27 @@ def phase_layers(torch, card, dev):
             ts.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(ts), out
 
+    stage = [LocalDrive(os.path.join(root, f"w{i}")) for i in range(12)]
+    runs = iter(range(1 << 30))
+
     def write(views):
-        for i, v in enumerate(views):
-            with open(os.path.join(root, f"shard{i}"), "wb") as f:
-                f.write(v)
+        # A fresh staging file on each drive, one write_file_batches
+        # call each, as a PUT stages a batch.
+        run = next(runs)
+        for d, v in zip(stage, views):
+            d.write_file_batches(SYS_VOL, f"tmp/layers{run}/part.1", [v])
+
+    def append(views):
+        run = next(runs)
+        for d, v in zip(stage, views):
+            d.append_file(SYS_VOL, f"tmp/layers{run}/part.1", v)
+
+    def show(title, rows, nbytes):
+        for name, ms in rows.items():
+            print(f"[layers] {title}: {name}: {ms:.3f} ms")
+        print(f"[layers] {title}: sum {sum(rows.values()):.3f} ms "
+              f"({nbytes / sum(rows.values()) / 1e6:.3f} GB/s if serial); "
+              f"card {card}")
 
     try:
         rows = {}
@@ -3168,20 +3694,132 @@ def phase_layers(torch, card, dev):
             lambda: (p.cpu().numpy(), d.cpu().numpy()))
         rows["framing"], views = timed(
             lambda: bitrot_io.frame_shard_views(blocks, pn, dn, "mxh256"))
-        rows["12 shard writes, serial"], _ = timed(lambda: write(views))
+        rows["12 vectored shard writes (write_file_batches), serial"], _ = \
+            timed(lambda: write(views))
+        appends, _ = timed(lambda: append(views))
         rows["MD5 of the batch"], _ = timed(
             lambda: hashlib.md5(blocks).hexdigest())
-        for name, ms in rows.items():
-            print(f"[layers] 32 MiB PUT batch: {name}: {ms:.3f} ms")
-        print(f"[layers] sum {sum(rows.values()):.3f} ms "
-              f"({32 * MIB / sum(rows.values()) / 1e6:.3f} GB/s if serial);"
-              f" card {card}")
+        show("32 MiB PUT batch", rows, 32 * MIB)
 
+        # The ingest layer alone: a 64 MiB body read through BytesReader
+        # into 32 MiB chunks, by the pooled ring (zero-copy on) over the
+        # default 32 MiB buffer pool and over one of 512 MiB (every slot
+        # of 4 streams pooled), and by the bytearray chunker
+        # (MTPU_ZEROCOPY=0); from 1 and from 4 threads at once, in turns.
+        from minio_tpu_torch.ops import bpool
+        from minio_tpu_torch.utils import streams
+        stream_body = np.random.default_rng(3).bytes(64 * MIB)
+
+        def chunk_all(_=None):
+            n = 0
+            for c, _ in streams.batched_chunks(
+                    b"", streams.BytesReader(stream_body), 32 * MIB):
+                n += len(c)
+            if n != len(stream_body):
+                raise SystemExit("layers: chunked length differs")
+        default_pool = bpool.default_pool()
+        pools = {"ring, 32 MiB pool": default_pool,
+                 "ring, 512 MiB pool": bpool.BufferPool(512 * MIB),
+                 "bytearray (MTPU_ZEROCOPY=0)": None}
+        ingest = {}
+        try:
+            for threads in (1, 4):
+                for label in (*pools, *reversed(pools)):
+                    pool = pools[label]
+                    if pool is None:
+                        os.environ["MTPU_ZEROCOPY"] = "0"
+                    else:
+                        bpool._POOL = pool
+                    f0 = (pool or default_pool).stats()["fallbacks"]
+                    ms, _ = timed(lambda: _in_threads(
+                        threads, chunk_all, range(threads)))
+                    falls = (pool or default_pool).stats()["fallbacks"] - f0
+                    os.environ.pop("MTPU_ZEROCOPY", None)
+                    ingest.setdefault((threads, label), []).append(
+                        (ms, falls if pool is not None else None))
+        finally:
+            bpool._POOL = default_pool
+            os.environ.pop("MTPU_ZEROCOPY", None)
+        for (threads, label), runs_ in ingest.items():
+            print(f"[layers] 64 MiB streamed body into 32 MiB chunks, "
+                  f"{threads} stream(s) at once, {label}: " + " and ".join(
+                      f"{ms:.3f} ms" for ms, _ in runs_)
+                  + ("" if runs_[0][1] is None else
+                     f" (fallback mappings {runs_[0][1]} and "
+                     f"{runs_[1][1]} over 6 runs)") + f"; card {card}")
+
+        # PipelinedMD5 of one 32 MiB chunk: a writable view (a ring
+        # slot: copied before it is queued) against bytes (queued as
+        # is), in turns.
+        md5_rows = {}
+        chunk_bytes = stream_body[:32 * MIB]
+        chunk_view = memoryview(bytearray(chunk_bytes))
+        for label, piece in (("writable view", chunk_view),
+                             ("bytes", chunk_bytes),
+                             ("bytes", chunk_bytes),
+                             ("writable view", chunk_view)):
+            def one_md5(piece=piece):
+                md5 = streams.PipelinedMD5()
+                md5.update(piece)
+                return md5.hexdigest()
+            ms, digest = timed(one_md5)
+            if digest != hashlib.md5(chunk_bytes).hexdigest():
+                raise SystemExit("layers: PipelinedMD5 differs")
+            md5_rows.setdefault(label, []).append(ms)
+        print(f"[layers] PipelinedMD5 of a 32 MiB chunk, in turns: writable "
+              f"view (copied) {md5_rows['writable view'][0]:.3f} and "
+              f"{md5_rows['writable view'][1]:.3f} ms, bytes "
+              f"{md5_rows['bytes'][0]:.3f} and {md5_rows['bytes'][1]:.3f} "
+              f"ms; card {card}")
+        print(f"[layers] 32 MiB PUT batch: 12 shard appends (append_file, "
+              f"MTPU_ZEROCOPY=0), serial, timed after the vectored writes: "
+              f"{appends:.3f} ms; card {card}")
+
+        # One 32 MiB GET batch of a healthy object, step by step: the k
+        # data shards' frames read, gathered into (nb, k, S), copied to
+        # the card, verified, the digests back, the bytes assembled.
         body = np.random.default_rng(2).bytes(64 * MIB)
         with ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
                          for i in range(12)], default_parity=4) as es:
             es.make_bucket("prof")
-            es.put_object("prof", "warm", body)
+            fi = es.put_object("prof", "warm", body)
+            order = Q.shuffle_by_distribution(list(range(12)),
+                                              fi.erasure.distribution)
+            frame = 32 + fi.erasure.shard_size
+            path = f"warm/{fi.data_dir}/part.1"
+            rows = {}
+            rows["8 shard reads (32 frames each), serial"], raws = timed(
+                lambda: [es.drives[order[s]].read_file(
+                    "prof", path, 0, 32 * frame) for s in range(8)])
+            split = [bitrot_io.split_frames(np.frombuffer(r, np.uint8), 32,
+                                            fi.erasure.shard_size)
+                     for r in raws]
+
+            def gather():
+                x = np.empty((32, 8, fi.erasure.shard_size), np.uint8)
+                for i in range(8):
+                    x[:, i, :] = split[i][1]
+                return x
+            rows["host gather into (32, 8, S)"], x = timed(gather)
+            rows["host-to-device copy (pageable)"], xg = timed(
+                lambda: devices.put(x, dev))
+            rows["verify (digests) on the device"], dg = timed(
+                lambda: fused.verify_and_transform(xg, 8, 4, tuple(range(8)),
+                                                   (), device=dev)[0])
+            rows["device-to-host copy of the digests"], dh = timed(
+                lambda: dg.cpu().numpy())
+            if any(not np.array_equal(dh[:, i], split[i][0])
+                   for i in range(8)):
+                raise SystemExit("layers: GET batch digests differ")
+            out = bytearray(32 * MIB)
+
+            def assemble():
+                memoryview(out)[:] = es_mod._assemble(x, None, 0)
+            rows["assembly into the response buffer"], _ = timed(assemble)
+            if out != body[:32 * MIB]:
+                raise SystemExit("layers: GET batch bytes differ")
+            show("32 MiB GET batch", rows, 32 * MIB)
+
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts) as prof:
@@ -3197,6 +3835,44 @@ def phase_layers(torch, card, dev):
                  else "not measured (no device time in the trace)")
         print(f"[layers] 64 MiB PUT + GET: wall {wall_us / 1e3:.3f} ms, "
               f"device busy {busy_us / 1e3:.3f} ms = {share}; card {card}")
+
+        # One HTTP HEAD of a 64 MiB object, split: the client's new
+        # connection, the handler (of which the metadata election), and
+        # the election alone with and without the FileInfo cache.
+        pools = ServerPools([ErasureSets(
+            [LocalDrive(os.path.join(root, f"h{i}")) for i in range(12)],
+            set_drive_count=12, default_parity=4)])
+        srv = S3Server(pools, sigv4.Credentials("layers", "layers-secret"))
+        srv.start()
+        try:
+            cli = S3Client(srv.endpoint, "layers", "layers-secret",
+                           timeout=60)
+            cli.make_bucket("head")
+            cli.put_object("head", "obj", body)
+            hes = pools.pools[0].sets[0]
+            heads = []
+            with _Timed(S3Client, "_connect") as conn, \
+                    _Timed(S3Handlers, "get_object") as handler, \
+                    _Timed(type(hes), "_read_metadata") as elect:
+                for _ in range(21):
+                    t0 = time.perf_counter()
+                    cli.head_object("head", "obj")
+                    heads.append((time.perf_counter() - t0) * 1e3)
+            n = len(heads)
+            uncached, _ = timed(lambda: hes._read_metadata("head", "obj"))
+            hes.head_object("head", "obj")
+            cached, _ = timed(lambda: hes._read_metadata_cached("head",
+                                                                "obj"))
+            print(f"[layers] HTTP HEAD of a {64 * MIB} B object ({n} "
+                  f"requests): median {statistics.median(heads):.3f} ms; "
+                  f"mean new connection {conn.s / n * 1e3:.3f} ms, handler "
+                  f"{handler.s / n * 1e3:.3f} ms, of which the metadata "
+                  f"election {elect.s / n * 1e3:.3f} ms; the election alone "
+                  f"{uncached:.3f} ms, a FileInfo-cache hit {cached:.3f} ms;"
+                  f" card {card}")
+        finally:
+            srv.shutdown()
+            pools.close()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3219,6 +3895,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
+        from minio_tpu_torch.engine.erasure_set import ErasureSet
         from minio_tpu_torch.ops import coalesce, cuda_build
         from minio_tpu_torch.ops import erasure_cuda as ec
         from minio_tpu_torch.ops import erasure_torch as et
@@ -3312,18 +3989,31 @@ def main() -> int:
         "server": lambda: phase_server(args, counts, card),
         "dispatch": lambda: phase_dispatch(args, counts, card),
         "identity": lambda: phase_identity(args, counts, card),
+        "host planes": lambda: phase_host_planes(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
+    fi_ttl = ErasureSet._FI_CACHE_TTL
     with MxhShapes(fused, mt) as counts.shapes:
         for name, run in paths.items():
-            # Phases 5a-5g and 5i count every GET's device work from the
-            # sizes (5a and 5b probe reads of corrupted frames): they run
-            # without the device shard cache; 5h runs every default.
+            # Phases 5a-5g, 5i and 5j count every GET's device work from
+            # the sizes (5a and 5b probe reads of corrupted frames): they
+            # run without the device shard cache; 5h runs every default.
+            # A hedge that fires turns a slow healthy read into a rebuild,
+            # and a FileInfo-cache hit serves an inline object's shards
+            # from metadata elected before the phase took drives away or
+            # wiped them: the counts of 5a-5i allow neither, so they run
+            # with MTPU_HEDGE=0 and the cache's TTL at 0; 5j runs both.
             if name == "dispatch":
                 os.environ.pop("MTPU_DEVCACHE", None)
             else:
                 os.environ["MTPU_DEVCACHE"] = "0"
+            if name == "host planes":
+                os.environ.pop("MTPU_HEDGE", None)
+                ErasureSet._FI_CACHE_TTL = fi_ttl
+            else:
+                os.environ["MTPU_HEDGE"] = "0"
+                ErasureSet._FI_CACHE_TTL = 0.0
             coalesce.reset()
             per_path[name] = run()
             for shape, k in counts.last_shapes.items():
@@ -3340,6 +4030,8 @@ def main() -> int:
                         st["pipeline_dispatches"] != queued:
                     raise SystemExit(f"{name}: lanes {st}")
     os.environ.pop("MTPU_DEVCACHE", None)
+    os.environ.pop("MTPU_HEDGE", None)
+    ErasureSet._FI_CACHE_TTL = fi_ttl
     faults = coalesce.stats()
     if (faults["co_fallbacks"], faults["co_faults"]) != \
             (faults0["co_fallbacks"], faults0["co_faults"]):

@@ -42,6 +42,25 @@ wrote.
   (`fi.erasure.bitrot_algo(part)`): mxh256, or HighwayHash256S as MinIO
   writes it, both on the device.  New objects take MTPU_BITROT_ALGO.
 
+The host side of a PUT: the ETag's MD5 runs off the request thread
+(utils/streams.PipelinedMD5, streams piece by piece on a process-wide
+pool of 4), a
+streamed body arrives through the pooled ingest ring and each drive's
+staged shards land by one vectored write (`write_file_batches`) while
+zero-copy is on (MTPU_ZEROCOPY; =0 is the copying oracle).  Drives may
+be health-wrapped (storage/health_wrap.py): a breaker-offline drive
+counts as offline for the parity upgrade (recorded as
+`x-mtpu-internal-erasure-upgraded`) and is skipped by the read fan-out;
+writes still go to it, and a write that missed drives but met quorum is
+queued for MRF heal (`self.mrf`, background/mrf.py).  The GET path
+elects metadata through a FileInfo cache (a HEAD writes through it, so
+HEAD + GET elect once), prefetches one segment in `get_object` as in
+`get_object_iter`, and hedges its shard reads (MTPU_HEDGE,
+MTPU_HEDGE_MS; =0 waits for every shard): stragglers past an adaptive
+delay (the set's DynamicTimeout) are covered by parity spares, whose
+rows are then rebuilt on the device.  `stats()` counts elections and
+hedges.
+
 The device is explicit: `device=None` is the CUDA card
 `set_index % n_devices()`, `device="cpu"` runs the plain versions on the
 host, and without CUDA the constructor raises.
@@ -53,14 +72,15 @@ generation, so no listing is served from a cache taken before it.
 
 Left out of this slice (each has a byte-identical off switch in the JAX
 package, so the bytes do not depend on it): the hot-object cache,
-metadata lanes, hedged reads, zero-copy IO, the multi-device mesh codec
-and legacy xl.json objects.
+metadata lanes, zero-copy sends (`sendfile_plan`), the multi-device
+mesh codec and legacy xl.json objects.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
+import queue as _queuemod
+import threading
 import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
@@ -68,8 +88,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from ..cluster.dynamic_timeout import DynamicTimeout
 from ..cluster.nslock import NSLockMap
 from ..ops import coalesce, devcache, devices, fused
+from ..ops import zerocopy as zc
 from ..parallel import pipeline
 from ..storage import bitrot_io
 from ..storage.drive import SMALL_FILE_THRESHOLD, SYS_VOL, TMP_DIR, LocalDrive
@@ -80,6 +102,7 @@ from ..storage.errors import (ErrBucketExists, ErrBucketNotFound,
                               ErrObjectNotFound, ErrVersionNotFound,
                               ErrVolumeExists, ErrVolumeNotFound,
                               StorageError)
+from ..storage.health_wrap import drive_available
 from ..storage.xlmeta import (ErasureInfo, FileInfo, ObjectPartInfo, XLMeta,
                               new_uuid, normalize_version_id)
 from ..utils import streams
@@ -98,6 +121,44 @@ _BUCKET_CACHE_TTL = 2.0
 #: to BATCH_BLOCKS to bound its jit shapes; the port's kernels take any
 #: batch, so padding would only add work (ROADMAP Queue C).
 PAD_ROWS = 1
+
+
+_STATS_MU = threading.Lock()
+_STATS = {"meta_read_requests": 0, "hedged_reads": 0, "hedge_fired": 0,
+          "hedge_spares": 0, "hedge_wins": 0}
+
+
+def stats() -> dict:
+    """The engine's counters over every set of the process (the JAX
+    package records them into DATA_PATH): metadata elections
+    (`_read_metadata` calls) and hedged shard gathers, with the timer
+    firings, the spares they launched and the spares that won."""
+    with _STATS_MU:
+        return dict(_STATS)
+
+
+def _count(**kw) -> None:
+    with _STATS_MU:
+        for key, n in kw.items():
+            _STATS[key] += n
+
+
+def _hedge_enabled() -> bool:
+    """Hedged shard reads (MTPU_HEDGE, default on): when a stripe
+    read's stragglers outlive an adaptive delay, parity spares are read
+    and the first k distinct shards to answer win.  MTPU_HEDGE=0 is the
+    wait-for-your-shard oracle (read per call)."""
+    return os.environ.get("MTPU_HEDGE", "1") != "0"
+
+
+def _hedge_fixed_ms() -> float | None:
+    """MTPU_HEDGE_MS pins the hedge delay; unset, the set's
+    DynamicTimeout adapts it from observed reads."""
+    v = os.environ.get("MTPU_HEDGE_MS", "")
+    try:
+        return float(v) if v else None
+    except ValueError:
+        return None
 
 
 def _now_ns() -> int:
@@ -120,7 +181,6 @@ class ErasureSet:
         self.set_index = set_index
         self.device = devices.resolve(device, set_index)
         self.pool = ThreadPoolExecutor(max_workers=max(self.n, 4))
-        self._md5_pool = ThreadPoolExecutor(max_workers=1)
         # Read-ahead and write stages of heal's pipeline; never the
         # drive fan-out pool, which those stages submit to.
         self._iter_pool = ThreadPoolExecutor(max_workers=8)
@@ -128,21 +188,42 @@ class ErasureSet:
         # cmd/erasure-object.go:930); one process, so in-process locks.
         self.nslock = NSLockMap() if nslock is None else nslock
         self._bucket_cache: dict[str, float] = {}
+        # An MRF queue (background/mrf.py) takes the objects a write
+        # left short of full width; None until the boot attaches one.
+        self.mrf = None
+        # Parsed-quorum FileInfo cache of the GET path: (bucket
+        # generation, stamp, fi, metas) per (bucket, object, version);
+        # every mutation bumps the bucket's generation (_mark_dirty)
+        # and a short TTL bounds what another process's write leaves
+        # stale.
+        self._fi_cache: dict[tuple, tuple] = {}
+        self._fi_gen: dict[str, int] = {}
+        # Hedged reads: the hedge delay adapts like a lock deadline, and
+        # per-position read EWMAs tell a one-core host when fanning out
+        # is worth the thread hops (a known-slow drive).
+        self._hedge_dyn = DynamicTimeout(0.05, 0.002, 2.0)
+        self._read_ewma_ms = [0.0] * self.n
         self.metacache = Metacache(self)
         # Device shard cache identity: a fresh token per instance, so a
         # reopened set never sees what an earlier one filled.
         self._devcache_owner = devcache.next_owner()
 
+    #: FileInfo cache: the TTL of the bucket-existence cache; the size
+    #: cap only matters for pathological key churn.
+    _FI_CACHE_TTL = 2.0
+    _FI_CACHE_MAX = 512
+
     def _mark_dirty(self, bucket: str) -> None:
-        """A mutation of `bucket`: its cached listings and shard batches
-        are stale.  Recorded with the cache off too, so turning it on
-        again cannot bring back entries from before the write."""
+        """A mutation of `bucket`: its cached FileInfos, listings and
+        shard batches are stale.  Recorded with the cache off too, so
+        turning it on again cannot bring back entries from before the
+        write."""
+        self._fi_gen[bucket] = self._fi_gen.get(bucket, 0) + 1
         self.metacache.bump(bucket)
         devcache.get().note_mutation(self._devcache_owner, bucket)
 
     def close(self) -> None:
         self.pool.shutdown(wait=True)
-        self._md5_pool.shutdown(wait=True)
         self._iter_pool.shutdown(wait=True)
 
     def __enter__(self):
@@ -267,7 +348,9 @@ class ErasureSet:
         parity = self.clamp_parity(parity)
         # Offline drives become parity, so the write keeps full
         # reconstruction capability (cf. erasure-object.go:766-800).
-        offline = sum(1 for d in self.drives if d is None)
+        # Breaker-offline drives count too: their writes fail fast, so
+        # the stripe needs the same extra parity as a physical hole.
+        offline = sum(1 for d in self.drives if not drive_available(d))
         upgraded = bool(offline) and parity < self.n // 2
         if upgraded:
             parity = min(parity + offline, self.n // 2)
@@ -289,12 +372,32 @@ class ErasureSet:
 
         distribution = Q.hash_order(f"{bucket}/{obj}", self.n)
         meta = dict(metadata or {})
+        # A bytes body's ETag digest runs on the MD5 workers while the
+        # body is encoded and written (streams.PipelinedMD5); a stream
+        # feeds them chunk by chunk in stage_stream.
+        md5 = None
+        if stream is None and "etag" not in meta:
+            md5 = streams.PipelinedMD5()
+            md5.feed(data)
+        elif stream is not None:
+            md5 = streams.PipelinedMD5()
         if upgraded:
             meta["x-mtpu-internal-erasure-upgraded"] = f"{offline}-offline"
         if version_id is None:
             version_id = new_uuid() if versioned else ""
         mod_time = (mod_time_ns if mod_time_ns is not None
                     else _now_ns())
+        try:
+            return self._put_body(bucket, obj, data, stream, md5, meta, k,
+                                  parity, write_quorum, distribution,
+                                  version_id, mod_time, mod_time_ns)
+        finally:
+            if md5 is not None:
+                md5.close()
+
+    def _put_body(self, bucket, obj, data, stream, md5, meta, k, parity,
+                  write_quorum, distribution, version_id, mod_time,
+                  mod_time_ns) -> FileInfo:
         if mod_time_ns is not None:
             try:
                 cur = self._read_metadata(bucket, obj, version_id)[0]
@@ -320,7 +423,6 @@ class ErasureSet:
                             inline_data=inline)
 
         if stream is None and len(data) <= SMALL_FILE_THRESHOLD:
-            meta.setdefault("etag", streams.etag(data))
             shards = [bytearray() for _ in range(self.n)]
             for framed in self._encode_chunks(
                     streams.batched_chunks(data, None,
@@ -328,6 +430,8 @@ class ErasureSet:
                     k, parity, algo):
                 for i, f in enumerate(framed):
                     shards[i] += memoryview(f)
+            if md5 is not None:
+                meta.setdefault("etag", md5.hexdigest())
             per_drive = Q.unshuffle_to_drives([bytes(s) for s in shards],
                                               distribution)
             res = self._map_positions(lambda pos, d: d.write_metadata(
@@ -337,18 +441,23 @@ class ErasureSet:
             if err is not None:
                 self._undo_publish(bucket, obj, version_id, errs)
                 raise err
-            return fi_for(0, "", None)
+            fi = fi_for(0, "", None)
+            if self.mrf is not None and any(errs):
+                # Partial success: MRF heals the stripe back to full
+                # width (cf. the enqueue at cmd/erasure-object.go:1403).
+                self.mrf.enqueue(bucket, obj, fi.version_id)
+            return fi
 
         data_dir = new_uuid()
         tmp_dir = f"{TMP_DIR}/put-{uuid.uuid4().hex}"
         part = f"{tmp_dir}/part.1"
         failed = [d is None for d in self.drives]
-        md5 = hashlib.md5()
         try:
-            size["n"] = self.stage_stream(data, stream, md5, k, parity, algo,
-                                          distribution, part, failed,
-                                          write_quorum)
-            meta.setdefault("etag", md5.hexdigest())
+            size["n"] = self.stage_stream(
+                data, stream, md5 if stream is not None else None, k, parity,
+                algo, distribution, part, failed, write_quorum)
+            if md5 is not None:
+                meta.setdefault("etag", md5.hexdigest())
             res = self._map_positions(
                 lambda pos, d: self._publish(pos, d, failed, tmp_dir,
                                              fi_for(pos, data_dir, None),
@@ -362,7 +471,10 @@ class ErasureSet:
             # Publish renamed the winners' staging away; failed drives
             # may still hold theirs.
             self._map_positions(lambda pos, d: self._rm_tmp(d, tmp_dir))
-        return fi_for(0, data_dir, None)
+        fi = fi_for(0, data_dir, None)
+        if self.mrf is not None and (any(failed) or any(errs)):
+            self.mrf.enqueue(bucket, obj, fi.version_id)
+        return fi
 
     def stage_stream(self, head, stream, md5, k: int, m: int, algo: str,
                      distribution: list[int], path: str, failed: list[bool],
@@ -370,40 +482,57 @@ class ErasureSet:
         """Encode a body (`head`, then the rest of `stream` when it is a
         reader) batch by batch on the device and append each drive's
         framed shards to `path` in its system volume; returns the body's
-        length.  `md5` takes the body: chunk i's MD5 runs on its own
-        thread while chunk i is encoded and written (hashlib releases the
-        GIL; on the host it is the slowest stage of a PUT).  A drive whose
+        length.  `md5` (a streams.PipelinedMD5, or None when the caller
+        fed the body itself) takes every chunk: its worker digests
+        chunk i while chunk i is encoded and written.  A drive whose
         append fails is marked in `failed`; fewer than `write_quorum`
-        left raises ErrErasureWriteQuorum."""
+        left raises ErrErasureWriteQuorum.
+
+        With zero-copy on (ops/zerocopy.py) each drive's append is
+        `write_file_batches` (one open + pwritev): a bytes body of at
+        most one batch is encoded whole and staged in one call per
+        drive, a stream in one call per batch.  MTPU_ZEROCOPY=0, or a
+        drive without the call, keeps the append_file loop."""
         total = 0
-        md5_done = None
 
         def chunks():
-            nonlocal total, md5_done
+            nonlocal total
             for chunk, is_last in streams.batched_chunks(
                     head, stream, BATCH_BLOCKS * BLOCK_SIZE):
-                if md5_done is not None:
-                    md5_done.result()
-                md5_done = self._md5_pool.submit(md5.update, chunk)
+                if md5 is not None:
+                    md5.update(chunk)
                 total += len(chunk)
                 yield chunk, is_last
 
-        try:
-            for framed in self._encode_chunks(chunks(), k, m, algo):
-                per_drive = Q.unshuffle_to_drives(framed, distribution)
-                todo = [p for p in range(self.n) if not failed[p]]
-                res = self._map_positions(
-                    lambda pos, d: d.append_file(SYS_VOL, path,
-                                                 per_drive[pos]), todo)
-                for pos, (_, e) in zip(todo, res):
-                    if e is not None:
-                        failed[pos] = True
-                if failed.count(False) < write_quorum:
-                    raise ErrErasureWriteQuorum(
-                        f"{failed.count(False)} < {write_quorum}")
-        finally:
-            if md5_done is not None:
-                md5_done.result()
+        vectored = zc.zerocopy_enabled()
+
+        def write_all(batches: list) -> None:
+            todo = [p for p in range(self.n) if not failed[p]]
+
+            def stage(pos, d):
+                wfb = (getattr(d, "write_file_batches", None)
+                       if vectored else None)
+                if wfb is not None:
+                    wfb(SYS_VOL, path, [b[pos] for b in batches])
+                    return
+                for b in batches:
+                    d.append_file(SYS_VOL, path, b[pos])
+
+            for pos, (_, e) in zip(todo, self._map_positions(stage, todo)):
+                if e is not None:
+                    failed[pos] = True
+            if failed.count(False) < write_quorum:
+                raise ErrErasureWriteQuorum(
+                    f"{failed.count(False)} < {write_quorum}")
+
+        encoded = (Q.unshuffle_to_drives(framed, distribution)
+                   for framed in self._encode_chunks(chunks(), k, m, algo))
+        if vectored and stream is None and \
+                len(head) <= BATCH_BLOCKS * BLOCK_SIZE:
+            write_all(list(encoded))
+        else:
+            for per_drive in encoded:
+                write_all([per_drive])
         return total
 
     @staticmethod
@@ -487,7 +616,9 @@ class ErasureSet:
         batches of up to BATCH_BLOCKS, the ragged tail block in one more
         at its own shard size.  Batch i is dispatched before batch i-1 is
         framed and yielded, so the caller's writes of i-1 overlap the
-        device's work on i.
+        device's work on i.  A chunk may be a view of a recycled buffer
+        (the pooled ingest ring): it stays valid for the next pull, and
+        the last chunk's batch is resolved before the iterator ends.
 
         With the coalescer on, each batch is submitted under ("enc", k,
         m, algo, S), where concurrent requests' batches pack into one
@@ -546,6 +677,13 @@ class ErasureSet:
                 if pending is not None:
                     yield frame(pending)
                 pending = nxt
+            if is_last and pending is not None:
+                # The last chunk's buffer goes back to the ingest ring
+                # when `chunks` ends: resolve its batch, which reads it,
+                # before pulling again (as the reference does at
+                # is_last).
+                yield frame(pending)
+                pending = None
         if pending is not None:
             yield frame(pending)
 
@@ -565,10 +703,21 @@ class ErasureSet:
             return fi, self._read_inline(fi, metas, offset, length)
         out = bytearray(length)
         mv = memoryview(out)
-        pos = 0
-        for pn, off, ln in self._plan_segments(fi, offset, length):
-            mv[pos:pos + ln] = self._read_part(bucket, obj, fi, pn, off, ln)
-            pos += ln
+        segs = self._plan_segments(fi, offset, length)
+        offs = [0]
+        for _, _, ln in segs[:-1]:
+            offs.append(offs[-1] + ln)
+
+        def read_seg(i):
+            pn, off, ln = segs[i]
+            mv[offs[i]:offs[i] + ln] = self._read_part(bucket, obj, fi, pn,
+                                                       off, ln)
+
+        # Segment i+1's reads and device call run while segment i is
+        # copied into place, under get_object_iter's gate.
+        for _ in pipeline.prefetch_map(read_seg, range(len(segs)),
+                                       self._prefetch_pool(metas), depth=1):
+            pass
         return fi, out
 
     def get_object_iter(self, bucket: str, obj: str, offset: int = 0,
@@ -591,18 +740,24 @@ class ErasureSet:
             return fi, iter(())
         if fi.inline_data is not None or (fi.parts and not fi.data_dir):
             return fi, iter((self._read_inline(fi, metas, offset, length),))
-        degraded = (any(d is None for d in self.drives)
-                    or any(m is None for m in metas))
-        pool = None if SERIAL_FANOUT and not degraded else self._iter_pool
         return fi, pipeline.prefetch_map(
             lambda seg: self._read_part(bucket, obj, fi, *seg),
-            self._plan_segments(fi, offset, length), pool, depth=1)
+            self._plan_segments(fi, offset, length),
+            self._prefetch_pool(metas), depth=1)
+
+    def _prefetch_pool(self, metas):
+        """The pool of a read's one-segment prefetch: none for a healthy
+        read on a one-core host (nothing to overlap), else _iter_pool."""
+        degraded = (any(d is None for d in self.drives)
+                    or any(m is None for m in metas))
+        return None if SERIAL_FANOUT and not degraded else self._iter_pool
 
     def _plan_read(self, bucket: str, obj: str, offset: int, length: int,
                    version_id: str):
         """A GET's front half: the metadata election and the range
-        check; (fi, metas by drive position, offset, resolved length)."""
-        fi, metas = self._read_metadata(bucket, obj, version_id)
+        check; (fi, metas by drive position, offset, resolved length).
+        The election goes through the FileInfo cache."""
+        fi, metas = self._read_metadata_cached(bucket, obj, version_id)
         if fi.deleted:
             raise ErrObjectNotFound(f"{bucket}/{obj} (delete marker)")
         size = fi.size
@@ -674,21 +829,32 @@ class ErasureSet:
         path = f"{obj}/{fi.data_dir}/part.{part_number}"
 
         def fetch(s: int) -> bytes:
-            d = self.drives[order[s]]
+            pos = order[s]
+            d = self.drives[pos]
             if d is None:
                 raise ErrDiskNotFound("offline")
-            return d.read_file(bucket, path, b0 * frame, (b1 - b0) * frame)
+            t0 = time.monotonic()
+            raw = d.read_file(bucket, path, b0 * frame, (b1 - b0) * frame)
+            # Successful reads feed the hedge's per-position EWMA (a
+            # fast failure must not make a drive look fast).
+            self._note_read_ms(pos, (time.monotonic() - t0) * 1e3)
+            return raw
 
         k_m = fi.erasure.data_blocks + fi.erasure.parity_blocks
-        online = [s for s in range(k_m) if self.drives[order[s]] is not None]
+        # Offline drives, holes and breaker-open circuits alike, never
+        # yield a shard: a read goes straight to the parity spares.
+        online = [s for s in range(k_m)
+                  if drive_available(self.drives[order[s]])]
         data = self._read_blocks(fi, part_size, b0, b1, fetch, online,
-                                 part_number, cache=(bucket, obj))
+                                 part_number, cache=(bucket, obj),
+                                 order=order)
         lo = offset - b0 * BLOCK_SIZE
         return data[lo:lo + length]
 
     def _read_blocks(self, fi, part_size: int, b0: int, b1: int, fetch,
                      candidates: list[int], part_number: int = 1,
-                     cache: tuple[str, str] | None = None) -> np.ndarray:
+                     cache: tuple[str, str] | None = None,
+                     order: list[int] | None = None) -> np.ndarray:
         """Blocks [b0, b1) of a part as one uint8 array (the ragged tail
         trimmed), from the frames `fetch(shard)` returns.
 
@@ -701,7 +867,11 @@ class ErasureSet:
 
         `cache` is (bucket, object) of a part read: a resident range of
         the device shard cache is served from its verified rows, and a
-        read whose first round verified the k data shards fills it."""
+        read whose first round verified the k data shards fills it.
+
+        `order` (shard -> drive position) marks a read of drives: its
+        rounds are hedged (MTPU_HEDGE, `_hedged_fetch`), so a straggling
+        shard is covered by a parity spare and rebuilt."""
         ec = fi.erasure
         k, m, shard_size = ec.data_blocks, ec.parity_blocks, ec.shard_size
         algo = ec.bitrot_algo(part_number)
@@ -751,11 +921,19 @@ class ErasureSet:
                 if len(rows) < k and not want:
                     raise ErrErasureReadQuorum(
                         f"only {len(rows)}/{k} shards readable")
-                tried.update(want)
-                for s, (row, err) in zip(want, self.pool.map(
-                        _attempt(read_row), want)):
-                    if err is None:
-                        rows[s] = row
+                if order is not None and self._use_hedge(
+                        [order[s] for s in want], candidates, k):
+                    spares = [s for s in candidates if s not in tried
+                              and s not in rows and s not in want]
+                    for s in self._hedged_fetch(read_row, order, rows,
+                                                tried, want, spares, k):
+                        tried.discard(s)     # abandoned: may be retried
+                else:
+                    tried.update(want)
+                    for s, (row, err) in zip(want, self.pool.map(
+                            _attempt(read_row), want)):
+                        if err is None:
+                            rows[s] = row
                 if len(rows) < k:
                     continue
                 rounds += 1
@@ -803,6 +981,108 @@ class ErasureSet:
         return _assemble(_data_rows(x, out, sel, missing, k) if nb else None,
                          _data_rows(xt, out_t, sel, missing, k)
                          if has_tail else None, tail_len)
+
+    # -- hedged shard reads ----------------------------------------------------
+
+    def _note_read_ms(self, pos: int, ms: float) -> None:
+        cur = self._read_ewma_ms[pos]
+        self._read_ewma_ms[pos] = ms if cur == 0.0 else 0.25 * ms + 0.75 * cur
+
+    def _hedge_delay_s(self) -> float:
+        fixed = _hedge_fixed_ms()
+        if fixed is not None:
+            return fixed / 1e3
+        return self._hedge_dyn.timeout()
+
+    def _hedge_worthwhile(self, positions: list[int]) -> bool:
+        """One-core host ignition: fanning k reads across threads costs
+        real milliseconds there, so hedge only when the per-position
+        EWMAs show a straggler, one position markedly slower than the
+        fastest known (or > 5 ms absolute)."""
+        known = [self._read_ewma_ms[p] for p in positions
+                 if self._read_ewma_ms[p] > 0.0]
+        if not known:
+            return False
+        return max(known) > max(5.0, 4.0 * min(known))
+
+    def _use_hedge(self, positions: list[int], candidates: list[int],
+                   k: int) -> bool:
+        """Whether a read round at drive `positions` is hedged: the gate
+        on, and a host with cores to fan out on, or a degraded read (a
+        data shard not among the candidates), or EWMAs that show a
+        straggler (the JAX set's rule)."""
+        if not _hedge_enabled() or not positions:
+            return False
+        degraded = any(s not in candidates for s in range(k))
+        return (not SERIAL_FANOUT or degraded
+                or self._hedge_worthwhile(positions))
+
+    def _hedged_fetch(self, read_row, order, rows, tried, want, spares,
+                      k: int) -> set[int]:
+        """First-k-wins gather.  Launch `want` shard reads at once; if
+        stragglers outlive the adaptive hedge delay, launch parity
+        `spares` to cover them; a FAILED read promotes a spare at once
+        (no timer).  Fills `rows` until k distinct shards answered (or
+        everything failed) and returns the shards still in flight:
+        abandoned losers whose results are ignored, which the caller
+        un-`tried`s so a later round may read them again."""
+        q: _queuemod.Queue = _queuemod.Queue()
+        inflight: set[int] = set()
+
+        def launch(s):
+            tried.add(s)
+            inflight.add(s)
+
+            def run():
+                try:
+                    q.put((s, read_row(s), None))
+                except BaseException as e:  # noqa: BLE001 — marshalled
+                    q.put((s, None, e))
+            self.pool.submit(run)
+
+        for s in want:
+            launch(s)
+        spares = list(spares)
+        t0 = time.monotonic()
+        deadline = t0 + self._hedge_delay_s()
+        fired = False
+        hedged: set[int] = set()
+        n_spares = wins = 0
+        while len(rows) < k and inflight:
+            if not fired and spares:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    # Timer: cover every straggler with a spare at once.
+                    for _ in range(min(len(spares), k - len(rows))):
+                        s = spares.pop(0)
+                        hedged.add(s)
+                        launch(s)
+                        n_spares += 1
+                    fired = True
+                    self._hedge_dyn.log_timeout()
+                    continue
+                try:
+                    item = q.get(timeout=left)
+                except _queuemod.Empty:
+                    continue
+            else:
+                # Every launched read puts exactly one item: blocking
+                # cannot hang while reads are in flight.
+                item = q.get()
+            s, r, err = item
+            inflight.discard(s)
+            if err is None:
+                rows[s] = r
+                if s in hedged:
+                    wins += 1
+            elif spares:
+                launch(spares.pop(0))
+                n_spares += 1
+        if not fired:
+            self._hedge_dyn.log_success(time.monotonic() - t0)
+        _count(hedged_reads=1, hedge_fired=int(fired), hedge_spares=n_spares,
+               hedge_wins=wins)
+        return inflight
 
     def _verify_rows(self, x: np.ndarray, k: int, m: int, sel: tuple,
                      missing: tuple, algo: str, co):
@@ -852,6 +1132,7 @@ class ErasureSet:
         """Read every drive's xl.meta and elect the version a read quorum
         agrees on.  Returns (fi, metas by drive position)."""
         version_id = normalize_version_id(version_id)
+        _count(meta_read_requests=1)
         res = self._map_positions(
             lambda pos, d: d.read_version(bucket, obj, version_id))
         metas = [fi for fi, _ in res]
@@ -869,9 +1150,52 @@ class ErasureSet:
                                                    self.default_parity)
         return Q.find_file_info_in_quorum(metas, read_quorum), metas
 
+    def _fi_cache_store(self, bucket, obj, version_id, gen,
+                        entry) -> None:
+        """Store an election in the LRU under `gen`, the bucket's
+        generation read before the election began: a write that
+        published while it ran has bumped the generation since, so the
+        entry is stale on its first lookup.  Dict order is recency
+        order: a hit re-inserts; pop first so a re-stored key moves to
+        the MRU end."""
+        cache = self._fi_cache
+        key = (bucket, obj, normalize_version_id(version_id))
+        cache.pop(key, None)
+        while len(cache) >= self._FI_CACHE_MAX:
+            try:
+                cache.pop(next(iter(cache)))
+            except (StopIteration, KeyError, RuntimeError):
+                break  # racing eviction: capacity is advisory
+        cache[key] = (gen, time.monotonic(), *entry)
+
+    def _read_metadata_cached(self, bucket, obj, version_id=""):
+        """The GET path's election through the parsed-quorum cache: a
+        HEAD followed by a GET of one request, or the segments of one
+        read, elect xl.meta once.  Any write through this set bumps the
+        bucket's generation (_mark_dirty), which invalidates at once; a
+        short TTL bounds what another process's write leaves stale."""
+        key = (bucket, obj, normalize_version_id(version_id))
+        hit = self._fi_cache.pop(key, None)
+        if hit is not None:
+            gen, stamp, fi, metas = hit
+            if (gen == self._fi_gen.get(bucket, 0)
+                    and time.monotonic() - stamp < self._FI_CACHE_TTL):
+                self._fi_cache[key] = hit
+                return fi, metas
+        gen = self._fi_gen.get(bucket, 0)
+        entry = self._read_metadata(bucket, obj, version_id)
+        self._fi_cache_store(bucket, obj, version_id, gen, entry)
+        return entry
+
     def head_object(self, bucket: str, obj: str,
                     version_id: str = "") -> FileInfo:
-        fi, _ = self._read_metadata(bucket, obj, version_id)
+        # HEAD always elects (a peer's write is visible at once) but
+        # writes through the FileInfo cache, so the GET that follows in
+        # the same request does not elect again.
+        gen = self._fi_gen.get(bucket, 0)
+        entry = self._read_metadata(bucket, obj, version_id)
+        self._fi_cache_store(bucket, obj, version_id, gen, entry)
+        fi = entry[0]
         if fi.deleted and not version_id:
             raise ErrObjectNotFound(f"{bucket}/{obj} (delete marker)")
         return fi

@@ -145,7 +145,7 @@ def put_object_part(es: ErasureSet, bucket: str, obj: str, upload_id: str,
     stage = f"{path}/stage-{uuid.uuid4().hex}.{part_number}"
     algo = bitrot_io.write_algo()
     failed = [d is None for d in es.drives]
-    md5 = hashlib.md5()
+    md5 = streams.PipelinedMD5()
     try:
         total = es.stage_stream(data, stream, md5, ec.data_blocks,
                                 ec.parity_blocks, algo, ec.distribution,
@@ -169,6 +169,7 @@ def put_object_part(es: ErasureSet, bucket: str, obj: str, upload_id: str,
         if err is not None:
             raise err
     finally:
+        md5.close()
         _remove_everywhere(es, stage)
     return ObjectPartInfo(number=part_number, size=total, actual_size=total,
                           etag=etag)

@@ -14,6 +14,13 @@ cmd/xl-storage.go in the reference):
 - deletes rename into the tmp trash first, so they appear atomic.
 
 A drive the JAX package wrote reads here, and the other way round.
+
+Staged shard appends have two forms: `append_file` (one open and write
+per batch) and `write_file_batches` (one open and `pwritev` per drive
+per batch list, O_DIRECT under MTPU_ODIRECT=direct), which the engine
+takes while zero-copy is on (ops/zerocopy.py).  `sweep_stale` is the
+boot-time recovery sweep of a dead process's staging
+(storage/recovery.py).  `stats()` counts the vectored writes.
 """
 
 from __future__ import annotations
@@ -44,6 +51,16 @@ _SYS_SUBDIRS = (TMP_DIR, "metajournal", MULTIPART_DIR, "buckets")
 # Objects <= this are stored inline in xl.meta (cf. smallFileThreshold,
 # cmd/xl-storage.go:59).
 SMALL_FILE_THRESHOLD = 128 * 1024
+
+_STATS_MU = threading.Lock()
+_STATS = {"vectored_writes": 0, "vectored_write_bytes": 0}
+
+
+def stats() -> dict:
+    """The vectored writes of every drive in the process (the JAX
+    package records them as DATA_PATH's zerocopy_vectored_writes)."""
+    with _STATS_MU:
+        return dict(_STATS)
 
 
 def _is_valid_volname(vol: str) -> bool:
@@ -198,6 +215,75 @@ class LocalDrive:
             f.write(buf)
             f.flush()
             diskio.write_done(f.fileno(), len(buf))
+
+    def write_file_batches(self, vol: str, path: str, batches) -> None:
+        """Vectored staged-shard append: every buffer in `batches` lands
+        at EOF through ONE open + pwritev sequence instead of an
+        open/write/close round per batch.
+
+        With MTPU_ODIRECT=direct and a page-aligned (offset, total) the
+        write goes O_DIRECT (preallocated with fallocate); EINVAL (tmpfs
+        refuses O_DIRECT) redoes it buffered.  Byte-identical to the
+        append_file loop."""
+        self._check_vol(vol)
+        p = self._file_path(vol, path)
+        self._ensure_parent_in_vol(vol, p)
+        iov = [v for v in (memoryview(b).cast("B") for b in batches)
+               if len(v)]
+        total = sum(len(v) for v in iov)
+        fd = os.open(p, os.O_WRONLY | os.O_CREAT, 0o644)
+        try:
+            pos = os.fstat(fd).st_size
+            direct_mode = diskio.mode() == "direct"
+            if total and direct_mode:
+                # Preallocate only for unbuffered writes: under buffered
+                # IO fallocate costs an unwritten-extent conversion per
+                # write for a file that is written once and renamed.
+                try:
+                    os.posix_fallocate(fd, pos, total)
+                except (AttributeError, OSError):
+                    pass             # preallocation is best-effort
+            wfd = fd
+            direct = -1
+            if (direct_mode and hasattr(os, "O_DIRECT")
+                    and total >= diskio.BULK
+                    and pos % diskio.ALIGN == 0
+                    and total % diskio.ALIGN == 0
+                    and all(len(v) % diskio.ALIGN == 0 for v in iov)):
+                try:
+                    direct = os.open(p, os.O_WRONLY | os.O_DIRECT)
+                    wfd = direct
+                except OSError:
+                    direct = -1      # fs refuses O_DIRECT: buffered
+            try:
+                off = pos
+                while iov:
+                    try:
+                        n = os.pwritev(wfd, iov[:512], off)
+                    except OSError as e:
+                        if wfd == direct and e.errno == errno.EINVAL:
+                            # Alignment looked right but the fs still
+                            # refused (tmpfs): redo buffered.
+                            wfd = fd
+                            continue
+                        raise
+                    if n <= 0:
+                        raise OSError(errno.EIO, "short pwritev")
+                    off += n
+                    while iov and n >= len(iov[0]):
+                        n -= len(iov[0])
+                        iov.pop(0)
+                    if n:
+                        iov[0] = iov[0][n:]
+            finally:
+                if direct >= 0:
+                    os.close(direct)
+            diskio.write_done(fd, total)
+        finally:
+            os.close(fd)
+        with _STATS_MU:
+            _STATS["vectored_writes"] += 1
+            _STATS["vectored_write_bytes"] += total
 
     def read_file(self, vol: str, path: str, offset: int = 0,
                   length: int = -1) -> bytes:
@@ -403,7 +489,8 @@ class LocalDrive:
                 if not os.path.isdir(src):
                     raise ErrFileNotFound(f"{src_vol}/{src_dir}")
                 if diskio.osync():
-                    # Durability before visibility.
+                    # Durability before visibility: the staged part
+                    # files, then the staging directory's entries.
                     for name in os.listdir(src):
                         fp = os.path.join(src, name)
                         if os.path.isfile(fp):
@@ -412,6 +499,11 @@ class LocalDrive:
                                 os.fsync(fd)
                             finally:
                                 os.close(fd)
+                    dfd = os.open(src, os.O_RDONLY)
+                    try:
+                        os.fsync(dfd)
+                    finally:
+                        os.close(dfd)
                 dst = self._file_path(dst_vol,
                                       os.path.join(dst_obj, fi.data_dir))
                 self._ensure_parent_in_vol(dst_vol, dst)
@@ -481,6 +573,56 @@ class LocalDrive:
         except FileNotFoundError:
             return
         shutil.rmtree(trash, ignore_errors=True)
+
+    def clear_tmp(self) -> None:
+        tmp = os.path.join(self.root, SYS_VOL, TMP_DIR)
+        for name in os.listdir(tmp):
+            shutil.rmtree(os.path.join(tmp, name), ignore_errors=True)
+
+    def sweep_stale(self) -> dict:
+        """Boot-time recovery sweep (formatErasureCleanupTmpLocalEndpoints
+        role, cmd/prepare-storage.go): everything under tmp belongs to a
+        dead boot epoch: staged writes that never published, trash that
+        never finished deleting.  The whole tmp dir is renamed aside (one
+        atomic op, so a concurrent boot cannot race the file walk), a
+        fresh one is created, and the aside tree is deleted.  Orphaned
+        multipart ``stage-*`` files (a part upload killed between encode
+        and rename) are swept too; parked part files and upload metadata
+        stay, so the upload itself is still resumable.
+
+        Returns the counts.  `meta_journal` is always 0: the drive's
+        group-commit metadata journal and its replay
+        (`replay_meta_journal`) come with the metadata lanes, ROADMAP
+        Queue A item 7; until then nothing writes the journal.
+        """
+        counts = {"tmp_entries": 0, "mp_stage": 0, "meta_journal": 0}
+        tmp = os.path.join(self.root, SYS_VOL, TMP_DIR)
+        try:
+            stale = os.listdir(tmp)
+        except FileNotFoundError:
+            stale = []
+        if stale:
+            counts["tmp_entries"] = len(stale)
+            aside = os.path.join(self.root, SYS_VOL,
+                                 f"{TMP_DIR}-old-{uuid.uuid4().hex}")
+            try:
+                os.replace(tmp, aside)
+            except OSError:
+                aside = tmp  # fall back to in-place removal
+            os.makedirs(tmp, exist_ok=True)
+            shutil.rmtree(aside, ignore_errors=True)
+        else:
+            os.makedirs(tmp, exist_ok=True)
+        mp = os.path.join(self.root, SYS_VOL, MULTIPART_DIR)
+        for dirpath, _dirnames, filenames in os.walk(mp):
+            for name in filenames:
+                if name.startswith("stage-"):
+                    try:
+                        os.remove(os.path.join(dirpath, name))
+                        counts["mp_stage"] += 1
+                    except OSError:
+                        pass
+        return counts
 
     def __repr__(self) -> str:
         return f"LocalDrive({self.root!r})"

@@ -139,12 +139,29 @@ Phases, each printing its own lines; any failure exits non-zero:
       breaker-offline drive, a
       parity-5 PUT, its MRF heal, every drive equal to a set that never
       lost the drive.  Items exact in every step.
-   Phases a-g, i and j run with MTPU_DEVCACHE=0: their counts assume
+   k. the pre-fork worker pool (phase_pool): `python -m
+      minio_tpu_torch.server` booted as a subprocess with MTPU_WORKERS=4
+      (a supervisor, the device owner and 4 SO_REUSEPORT workers) and
+      with 0, in turns (4, 0, 0, 4), on one EC:8+4 set of 12 drives on
+      /dev/shm; client processes that load no torch PUT and GET one
+      64 MiB object each from 1, 4 and 16 clients, 8 objects of 1 MiB
+      each from 16, and (the first turn, highwayhash256S) 2 of
+      64 MiB each from 4.  GB/s and operations/s per step; with workers
+      the owner's dispatches and items, the arena's waits and timeouts,
+      the fallbacks, the lanes' pack ms per MiB (beside one process's)
+      and the CUDA contexts (the processes' own reports and nvidia-smi's
+      compute apps).  Bodies and ETags exact, part files equal across
+      turns, the owner's items exact with no fallback where the batches
+      fit the arena, a context in the owner alone; in the last turn the
+      owner is SIGKILLed under 4 clients' PUTs (no PUT lost, fallbacks,
+      generation + 1, later items the owner's again); SIGTERM exits 0.
+   Phases a-g and i-k run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i run with MTPU_HEDGE=0 and the FileInfo cache's TTL
-   at 0: a hedge that fires turns a slow healthy read into a rebuild,
-   and a cache hit serves an inline object from metadata elected before
-   drives were taken away or wiped; their counts allow neither.
+   frame.  Phases a-i and k run with MTPU_HEDGE=0 and the FileInfo
+   cache's TTL at 0: a hedge that fires turns a slow healthy read into a
+   rebuild, and a cache hit serves an inline object from metadata
+   elected before drives were taken away or wiped; their counts allow
+   neither.
 6. Where one 32 MiB PUT batch's time goes, layer by layer (the shard
    writes as one write_file_batches per drive; the ingest ring over the
    default buffer pool and a 512 MiB one against the bytearray chunker,
@@ -159,7 +176,10 @@ card), and beside them the work items of each (ops/fused.ITEMS: one per
 direct call, the requests packed into a coalesced dispatch).  Where a
 phase holds counts (e-j), the items must equal what the sizes call for
 and the launches must be at most the items (equal with
-MTPU_COALESCE=0).  Each path starts on fresh coalescer lanes; after each
+MTPU_COALESCE=0).  Phase k reads the counts of the pool's own processes
+(the owner and the workers, each from 0 at its start) from the pool's
+metrics before and after each step, and its launches join the kernels'
+(its mxh256 calls are not in the shape tally).  Each path starts on fresh coalescer lanes; after each
 of a-g, i and j their dispatches are printed, and a batch fault, a lane-thread
 dispatch that was not pipelined, or a fallback to the direct call on any
 path fails the run.  The line before the last is the kernels' JSON record,
@@ -262,6 +282,22 @@ HOST_STALL_S, HOST_HEDGE_MS = 0.05, 10
 HOST_BREAKER_ENV = {"MTPU_BREAKER_ERRS": "2",
                     "MTPU_BREAKER_OFFLINE_ERRS": "4",
                     "MTPU_BREAKER_PROBE_S": "30"}
+# The pre-fork worker pool (phase 5k) over BASELINE.json config 2's
+# deployment, booted with MTPU_WORKERS = each of POOL_TURNS in turns:
+# client processes (no torch) PUT and GET one POOL_BIG object each from
+# each of POOL_BIG_CLIENTS clients and POOL_SMALL_PER objects of
+# POOL_SMALL_BYTES each from POOL_SMALL_CLIENTS; in the first turn, on
+# a pool booted with highwayhash256S, POOL_HH_PER POOL_BIG
+# objects each from POOL_HH_CLIENTS; in the last turn POOL_KILL_CLIENTS
+# clients PUT POOL_KILL_PER POOL_BIG objects each while the owner is
+# SIGKILLed POOL_KILL_AFTER_S seconds in, and as many after its respawn.
+POOL_WORKERS = 4
+POOL_TURNS = (POOL_WORKERS, 0, 0, POOL_WORKERS)
+POOL_BIG = OBJECT_BYTES
+POOL_BIG_CLIENTS = (1, 4, 16)
+POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 8, MIB
+POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
+POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -3627,6 +3663,593 @@ def _boot_server(card, debris: bool = False) -> float:
     return time.perf_counter() - t_start
 
 
+def pool_client(spec: dict) -> int:
+    """One client process of phase 5k (`chip_smoke.py --pool-client
+    JSON`): makes its bodies from their seeds, says `ready`, then PUTs
+    every object on `put` and GETs every one on `get` from stdin, each
+    time printing one JSON line with its monotonic start and end, whether
+    every ETag and body was right, and whether it loaded torch."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from minio_tpu_torch.server.client import S3Client
+
+    cli = S3Client(f"http://127.0.0.1:{spec['port']}", spec["ak"],
+                   spec["sk"], timeout=600)
+    bodies = {key: np.random.default_rng(seed).bytes(size)
+              for key, size, seed in spec["objects"]}
+    sha = {k: hashlib.sha256(v).hexdigest() for k, v in bodies.items()}
+    print("ready", flush=True)
+    for verb in ("put", "get"):
+        if sys.stdin.readline().strip() != verb:
+            return 1
+        ok, statuses = True, []
+        t0 = time.monotonic()
+        for key, body in bodies.items():
+            path = f"/{spec['bucket']}/{key}"
+            if verb == "put":
+                st, hdrs, _ = cli.request(
+                    "PUT", path, body=body,
+                    headers={"x-amz-storage-class": "STANDARD"})
+                etag = {k.lower(): v for k, v in hdrs.items()}.get(
+                    "etag", "").strip('"')
+                ok &= st == 200 and etag == hashlib.md5(body).hexdigest()
+            else:
+                st, _, got = cli.request("GET", path)
+                ok &= st == 200 and \
+                    hashlib.sha256(got).hexdigest() == sha[key]
+            statuses.append(st)
+        t1 = time.monotonic()
+        print(json.dumps({"t0": t0, "t1": t1, "ok": bool(ok),
+                          "statuses": statuses,
+                          "torch": "torch" in sys.modules}), flush=True)
+    return 0
+
+
+class _Clients:
+    """Client processes of phase 5k, started with subprocess (never a
+    fork of this CUDA-initialised process), all ready before any PUT;
+    `per_client` lists each client's (key, size, seed) objects."""
+
+    def __init__(self, port: int, bucket: str, per_client: list[list]):
+        here = os.path.abspath(__file__)
+        self.procs = []
+        self.bytes = sum(size for objs in per_client for _, size, _ in objs)
+        self.objects = sum(len(objs) for objs in per_client)
+        for objs in per_client:
+            spec = {"port": port, "ak": "pooladmin",
+                    "sk": "pooladmin-secret", "bucket": bucket,
+                    "objects": objs}
+            self.procs.append(subprocess.Popen(
+                [sys.executable, here, "--pool-client", json.dumps(spec)],
+                stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
+        for p in self.procs:
+            if p.stdout.readline().strip() != "ready":
+                self.close()
+                raise SystemExit("pool: a client did not start")
+
+    def run(self, verb: str, during=None) -> dict:
+        """Every client's `verb` at once (`during()` runs once they are
+        told): seconds from the first start to the last end, GB/s and
+        operations/s over them."""
+        for p in self.procs:
+            p.stdin.write(verb + "\n")
+            p.stdin.flush()
+        if during is not None:
+            during()
+        res = []
+        for p in self.procs:
+            line = p.stdout.readline()
+            if not line:
+                raise SystemExit(f"pool: a client died during {verb}")
+            res.append(json.loads(line))
+        bad = [r for r in res if not r["ok"] or r["torch"]]
+        if bad:
+            raise SystemExit(f"pool: {verb} wrong or loaded torch: {bad}")
+        s = max(r["t1"] for r in res) - min(r["t0"] for r in res)
+        return {"s": s, "gbps": self.bytes / s / 1e9,
+                "ops": self.objects / s}
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                try:
+                    p.stdin.close()
+                except OSError:
+                    pass
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+class _Pool:
+    """`python -m minio_tpu_torch.server` over 12 drives under `root`
+    with MTPU_WORKERS=`workers`, booted as a subprocess (fork and exec);
+    `metrics()` reads the pool's families when workers > 0."""
+
+    def __init__(self, root: str, workers: int, algo: str = "mxh256"):
+        self.root, self.workers = root, workers
+        self.port = _free_port()
+        env = dict(os.environ, MTPU_ROOT_USER="pooladmin",
+                   MTPU_ROOT_PASSWORD="pooladmin-secret",
+                   MTPU_STORAGE_CLASS_STANDARD="EC:4",
+                   MTPU_WORKERS=str(workers))
+        env.pop("MTPU_IPC_DISPATCH", None)
+        env.pop("MTPU_BITROT_ALGO", None)
+        if algo != "mxh256":
+            env["MTPU_BITROT_ALGO"] = algo
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here
+        self.log = os.path.join(root, f"pool-w{workers}-{algo}.log")
+        t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "minio_tpu_torch.server", "--drives",
+                 os.path.join(root, "b{1...12}"), "--port", str(self.port)],
+                cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 240
+        while not self._ready():
+            if self.proc.poll() is not None:
+                raise SystemExit(f"pool: boot exited {self.proc.returncode}:"
+                                 f" {self.tail()}")
+            if time.monotonic() > deadline:
+                raise SystemExit(f"pool: never ready: {self.tail()}")
+            time.sleep(0.2)
+        self.boot_s = time.perf_counter() - t0
+
+    def _ready(self) -> bool:
+        import urllib.request
+        try:
+            if self.workers:
+                m = self.metrics()
+                return all(m.get(f'mtpu_worker_ready{{worker="{w}"}}') == 1
+                           for w in range(self.workers))
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port}/minio/health/ready",
+                    timeout=2) as r:
+                return r.status == 200
+        except OSError:
+            return False
+
+    def tail(self) -> str:
+        with open(self.log) as f:
+            return f.read()[-3000:]
+
+    def metrics(self) -> dict:
+        import urllib.request
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.port}/minio/v2/metrics/node",
+                timeout=5) as r:
+            text = r.read().decode()
+        out = {}
+        for line in text.splitlines():
+            if line and not line.startswith("#"):
+                name, v = line.rsplit(" ", 1)
+                out[name] = float(v)
+        return out
+
+    def settled(self) -> dict:
+        """The metrics once every process's 0.1 s heartbeat has published
+        the last step."""
+        time.sleep(0.15)
+        return self.metrics()
+
+    def pids(self) -> dict[int, str]:
+        m = self.metrics()
+        out = {self.proc.pid: "supervisor",
+               int(m["mtpu_owner_pid"]): "owner"}
+        out.update({int(m[f'mtpu_worker_pid{{worker="{w}"}}']): f"worker{w}"
+                    for w in range(self.workers)})
+        return out
+
+    def stop(self) -> float:
+        """SIGTERM: the supervisor (or the one process) exits 0 within
+        30 s."""
+        import signal
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            raise SystemExit("pool: no exit within 30 s of SIGTERM") \
+                from None
+        if rc != 0:
+            raise SystemExit(f"pool: exit {rc} on SIGTERM: {self.tail()}")
+        return time.perf_counter() - t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _pool_counts(m: dict, workers: int) -> dict:
+    """The pool's counters from one metrics read: the owner's dispatches,
+    items and lane packing, the arena's waits and timeouts, per kernel
+    the launches and items summed over the owner and the workers, the
+    workers' fallbacks, and which processes have a CUDA context."""
+    out = {"owner_pid": m["mtpu_owner_pid"],
+           "items": m["mtpu_owner_coalesce_items_total"],
+           "dispatches": m["mtpu_owner_coalesce_dispatches_total"],
+           "pack_s": m["mtpu_owner_lane_pack_seconds_total"],
+           "staged": m["mtpu_owner_lane_staged_bytes_total"],
+           "waits": m["mtpu_shm_arena_alloc_waits_total"],
+           "timeouts": m["mtpu_shm_arena_alloc_timeouts_total"]}
+    for k in ("gf_matmul", "hh256", "mxh256"):
+        for what in ("launches", "items"):
+            out[f"owner_{what}_{k}"] = m[
+                f'mtpu_owner_kernel_{what}_total{{kernel="{k}"}}']
+            out[f"{what}_{k}"] = out[f"owner_{what}_{k}"] + sum(
+                m[f'mtpu_worker_kernel_{what}_total{{worker="{w}",'
+                  f'kernel="{k}"}}'] for w in range(workers))
+    for what in ("ipc_fallbacks", "co_fallbacks", "remote_submits"):
+        out[what] = sum(m[f'mtpu_worker_{what}_total{{worker="{w}"}}']
+                        for w in range(workers))
+    out["cuda"] = {"owner": int(m["mtpu_owner_cuda_context"]),
+                   **{f"worker{w}": int(
+                       m[f'mtpu_worker_cuda_context{{worker="{w}"}}'])
+                      for w in range(workers)}}
+    return out
+
+
+def _compute_apps() -> list[tuple[int, str]]:
+    """(pid, used memory) of every process nvidia-smi lists with a
+    context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    rows = []
+    for line in out.stdout.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            rows.append((int(pid), mem.strip()))
+    return rows
+
+
+def _pool_part_hashes(root: str, bucket: str) -> dict:
+    """SHA-256 of every part file under `bucket`, keyed by (object, shard
+    index): the shard order hashes the bucket name."""
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+    out = {}
+    for d in range(1, 13):
+        base = os.path.join(root, f"b{d}", bucket)
+        for key in sorted(os.listdir(base)):
+            with open(os.path.join(base, key, "xl.meta"), "rb") as f:
+                fi = XLMeta.from_bytes(f.read()).latest(bucket, key)
+            with open(os.path.join(base, key, fi.data_dir, "part.1"),
+                      "rb") as f:
+                out[key, fi.erasure.distribution[d - 1]] = \
+                    hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def _pool_objects(clients: int, per: int, size: int, seed: int,
+                  prefix: str) -> list[list]:
+    """Each client's (key, size, seed) objects."""
+    return [[(f"{prefix}-c{c}-{i}", size, seed + 1000 * c + i)
+             for i in range(per)] for c in range(clients)]
+
+
+def _inprocess_part_hashes(bucket: str, per_client: list[list],
+                           algo: str) -> dict:
+    """_pool_part_hashes of the same objects PUT by an ErasureSet of 12
+    drives in this process (its launches are no main path's)."""
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.storage.drive import LocalDrive
+    import numpy as np
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-twin-", dir="/dev/shm")
+    os.environ["MTPU_BITROT_ALGO"] = algo
+    try:
+        es = ErasureSet([LocalDrive(os.path.join(root, f"b{i}"))
+                         for i in range(1, 13)], default_parity=4)
+        es.make_bucket(bucket)
+        for objs in per_client:
+            for key, size, seed in objs:
+                es.put_object(bucket, key,
+                              np.random.default_rng(seed).bytes(size))
+        es.close()
+        return _pool_part_hashes(root, bucket)
+    finally:
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _inprocess_pack_ms_per_mib(card) -> float:
+    """The lanes' pack ms per MiB staged in one process, for the owner's
+    to stand beside: POOL_KILL_CLIENTS threads each PUT one POOL_BIG
+    object on one EC:8+4 set of 12 drives through the in-process
+    coalescer (its launches are no main path's and are not counted)."""
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.ops import coalesce
+    from minio_tpu_torch.storage.drive import LocalDrive
+    import numpy as np
+
+    root = tempfile.mkdtemp(prefix="chip_smoke-pack-", dir="/dev/shm")
+    try:
+        es = ErasureSet([LocalDrive(os.path.join(root, f"d{i:02d}"))
+                         for i in range(12)], default_parity=4)
+        es.make_bucket("pack")
+        bodies = [np.random.default_rng(i).bytes(POOL_BIG)
+                  for i in range(POOL_KILL_CLIENTS)]
+        coalesce.reset()
+        _in_threads(POOL_KILL_CLIENTS,
+                    lambda i: es.put_object("pack", f"o{i}", bodies[i]),
+                    range(POOL_KILL_CLIENTS))
+        st = coalesce.get().stats()
+        es.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    coalesce.reset()
+    ms = st["pack_s"] * 1e3 / (st["h2d_bytes"] / MIB) \
+        if st["h2d_bytes"] else float("nan")
+    print(f"[pool] in one process: {POOL_KILL_CLIENTS} PUTs of {POOL_BIG} B "
+          f"at once: lanes pack {ms:.4f} ms/MiB over "
+          f"{st['h2d_bytes'] / MIB:.0f} MiB staged in "
+          f"{st['pipeline_dispatches']} pipelined dispatches; card {card}")
+    return ms
+
+
+def phase_pool(args, counts, card):
+    """The pre-fork worker pool on the card over BASELINE.json config 2's
+    deployment: one EC:8+4 set of 12 drives on /dev/shm
+    (MINIO_STORAGE_CLASS_STANDARD=EC:4), 64 MiB objects in 1 MiB blocks.
+
+    `python -m minio_tpu_torch.server` boots as a subprocess with
+    MTPU_WORKERS=4 (a supervisor, the device owner and 4 SO_REUSEPORT
+    workers) and =0 (one process), in the turns of POOL_TURNS, each on
+    fresh drives.  Client processes that load no torch PUT, then GET:
+
+    1. one 64 MiB object from each of 1 and of 4 clients, and 8 objects
+       of 1 MiB from each of 16 clients: with workers, the owner's items
+       exactly what the sizes call for, no fallback, no arena timeout,
+       and afterwards a CUDA context in the owner alone (its own and the
+       workers' reports, and nvidia-smi's compute apps);
+    2. one 64 MiB object from each of 16 clients: the arena's waits and
+       timeouts and the fallbacks are findings, not failures;
+    3. in the last turn: 4 clients PUT one object of 64 MiB each while
+       the owner is SIGKILLed: every PUT 200 with its ETag and every
+       body equal, fallbacks > 0, the generation one higher; then 4
+       more whose items are the owner's again, exactly;
+    4. SIGTERM: exit 0 within 30 s;
+    5. in the first turn, a pool booted with highwayhash256S over the
+       same drives: 2 objects of 64 MiB from each of 4 clients, items
+       exact, part files equal to an ErasureSet's in this process.
+
+    Per step GB/s and operations/s; with workers the owner's dispatches,
+    items and items per dispatch, the arena's waits and timeouts, the
+    fallbacks and the lanes' pack ms per MiB staged (beside one
+    process's, _inprocess_pack_ms_per_mib).  The part files of every
+    object are equal across the turns.  Returns the kernel launches in
+    the pool's processes (owner and workers) over its steps, the
+    owner-kill step's left out (the dead owner's last launches are not
+    readable)."""
+    import signal
+
+    from minio_tpu_torch.server.client import S3Client
+
+    need = (12 * (sum(POOL_BIG_CLIENTS) * POOL_BIG
+                  + POOL_SMALL_CLIENTS * POOL_SMALL_PER * POOL_SMALL_BYTES
+                  + 2 * POOL_KILL_CLIENTS * POOL_KILL_PER * POOL_BIG
+                  + POOL_HH_CLIENTS * POOL_HH_PER * POOL_BIG) // 8
+            + (2 << 30))
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"pool: needs {need} bytes free on /dev/shm")
+    t_phase = time.perf_counter()
+    launches = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+    hashes: dict = {}
+    n_small = POOL_SMALL_CLIENTS * POOL_SMALL_PER
+    n_kill = POOL_KILL_CLIENTS * POOL_KILL_PER
+    n_hh = POOL_HH_CLIENTS * POOL_HH_PER
+    calls = _put_calls(POOL_BIG)               # = the GET's for 64 MiB
+
+    def step(pool, bucket, name, per_client, expect=None, during=None,
+             owner_dies=False):
+        """PUT then GET of `per_client`'s objects; with workers the
+        pool's counters around each verb, held to `expect` (PUT, GET
+        owner items) when given.  Only a step that kills the owner
+        (`owner_dies`) may see it replaced: the dead owner's launches
+        since the last read are lost with it and the new one's count its
+        self-tests, so that step's launches join no tally."""
+        cl = _Clients(pool.port, bucket, per_client)
+        out = {}
+        try:
+            before = (_pool_counts(pool.settled(), pool.workers)
+                      if pool.workers else None)
+            for verb in ("put", "get"):
+                out[verb] = cl.run(verb, during if verb == "put" else None)
+                if pool.workers:
+                    after = _pool_counts(pool.settled(), pool.workers)
+                    d = {k: after[k] - before[k] for k in after
+                         if k != "cuda"}
+                    d["replaced"] = bool(d["owner_pid"])
+                    if d["replaced"] and not owner_dies:
+                        raise SystemExit(f"pool: w={pool.workers} {name} "
+                                         f"{verb}: the owner was replaced")
+                    if not owner_dies:
+                        for k in launches:
+                            launches[k] += int(d[f"launches_{k}"])
+                    out[verb]["d"] = d
+                    before = after
+        finally:
+            cl.close()
+        text = []
+        for i, verb in enumerate(("put", "get")):
+            r = out[verb]
+            t = f"{verb.upper()} {r['gbps']:.3f} GB/s {r['ops']:.2f} ops/s"
+            d = r.get("d")
+            if d is not None:
+                disp = int(d["dispatches"])
+                pack = (f"{d['pack_s'] * 1e3 / (d['staged'] / MIB):.4f} "
+                        f"ms/MiB over {d['staged'] / MIB:.0f} MiB"
+                        if d["staged"] else "nothing staged")
+                owner = ("owner replaced: its counters not read"
+                         if d["replaced"] else
+                         f"owner {disp} dispatches, {int(d['items'])} items,"
+                         f" {d['items'] / disp if disp else 0:.2f} a dispatch")
+                t += (f" ({owner}; arena waits {int(d['waits'])}, timeouts "
+                      f"{int(d['timeouts'])}; fallbacks "
+                      f"{int(d['ipc_fallbacks'])} routed, "
+                      f"{int(d['co_fallbacks'])} recomputed"
+                      + ("" if d["replaced"] else f"; pack {pack}") + ")")
+                if expect is not None and (
+                        int(d["items"]) != expect[i] or d["ipc_fallbacks"]
+                        or d["co_fallbacks"] or d["timeouts"]):
+                    raise SystemExit(f"pool: w={pool.workers} {name} {verb}:"
+                                     f" owner items {int(d['items'])}, want "
+                                     f"{expect[i]}, no fallback: {d}")
+            text.append(t)
+        print(f"[pool] w={pool.workers} {name}: {'; '.join(text)}; "
+              f"card {card}")
+        return out
+
+    def contexts(pool) -> None:
+        import torch
+        cuda = _pool_counts(pool.settled(), pool.workers)["cuda"]
+        names = pool.pids()
+        apps = [(names.get(pid, f"pid {pid}"), mem)
+                for pid, mem in _compute_apps()]
+        mine = int(torch.cuda.is_initialized())
+        print(f"[pool] w={pool.workers} CUDA contexts after the steps that "
+              f"fit the arena: by the processes' own reports {cuda}; "
+              f"nvidia-smi lists {len(apps)} compute apps {apps} (one is "
+              f"this script's: {bool(mine)}; its pids are not the pool's "
+              f"namespace's); card {card}")
+        strays = [n for n, _ in apps if n.startswith(("worker", "super"))]
+        if strays or len(apps) > 1 + mine or not cuda["owner"] or \
+                any(v for k, v in cuda.items() if k != "owner"):
+            raise SystemExit(f"pool: a CUDA context outside the owner: "
+                             f"{cuda}, {apps}")
+
+    def kill_step(pool) -> None:
+        m = pool.metrics()
+        gen0 = int(m["mtpu_owner_generation"])
+        owner = int(m["mtpu_owner_pid"])
+
+        def kill():
+            time.sleep(POOL_KILL_AFTER_S)
+            os.kill(owner, signal.SIGKILL)
+        out = step(pool, "pool", "owner killed",
+                   _pool_objects(POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_BIG,
+                                 args.seed + 7200, "kill"), during=kill,
+                   owner_dies=True)
+        d = out["put"]["d"]
+        t0 = time.monotonic()
+        while True:
+            m = pool.metrics()
+            if m["mtpu_owner_generation"] == gen0 + 1 and \
+                    m["mtpu_owner_up"] == 1:
+                break
+            if time.monotonic() - t0 > 120:
+                raise SystemExit(f"pool: no owner of generation "
+                                 f"{gen0 + 1}: {pool.tail()}")
+            time.sleep(0.2)
+        print(f"[pool] owner SIGKILLed {POOL_KILL_AFTER_S} s into {n_kill} "
+              f"PUTs of {POOL_BIG} B: every PUT 200 with its ETag and every"
+              f" body equal; fallbacks {int(d['ipc_fallbacks'])} routed, "
+              f"{int(d['co_fallbacks'])} recomputed; generation {gen0} -> "
+              f"{gen0 + 1}, up {time.monotonic() - t0:.2f} s after the "
+              f"GETs; card {card}")
+        if not d["ipc_fallbacks"] + d["co_fallbacks"]:
+            raise SystemExit("pool: the owner's death caused no fallback")
+        step(pool, "pool", "after the respawn",
+             _pool_objects(POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_BIG,
+                           args.seed + 7300, "again"),
+             expect=(n_kill * calls, n_kill * calls))
+
+    for turn, workers in enumerate(POOL_TURNS):
+        root = tempfile.mkdtemp(prefix=f"chip_smoke-pool{turn}-",
+                                dir="/dev/shm")
+        pool = None
+        try:
+            for algo in ("mxh256", HH) if turn == 0 else ("mxh256",):
+                pool = _Pool(root, workers, algo)
+                owner_line = next((ln for ln in open(pool.log)
+                                   if "self-tests" in ln), "").strip()
+                print(f"[pool] turn {turn + 1}: MTPU_WORKERS={workers}, "
+                      f"{algo}, ready in {pool.boot_s:.2f} s"
+                      + (f"; {owner_line}" if workers else "")
+                      + f"; card {card}")
+                bucket = "pool" if algo == "mxh256" else "poolhh"
+                S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                         "pooladmin-secret", timeout=60).make_bucket(bucket)
+                fit = bool(workers)
+                if algo == HH:
+                    step(pool, bucket, f"{POOL_HH_CLIENTS} clients x "
+                         f"{POOL_HH_PER} {HH}",
+                         _pool_objects(POOL_HH_CLIENTS, POOL_HH_PER,
+                                       POOL_BIG, args.seed + 7400, "hh"),
+                         expect=(n_hh * calls,) * 2 if fit else None)
+                else:
+                    # Untimed: the pool's first batches pay its lanes'
+                    # pinned staging and the arena's first page faults.
+                    warm = _Clients(pool.port, bucket, _pool_objects(
+                        1, 1, POOL_BIG, args.seed + 7500, "warm"))
+                    try:
+                        warm.run("put")
+                        warm.run("get")
+                    finally:
+                        warm.close()
+                    for n in POOL_BIG_CLIENTS[:-1]:
+                        step(pool, bucket, f"{n} x {POOL_BIG} B",
+                             _pool_objects(n, 1, POOL_BIG,
+                                           args.seed + 7000 + n, f"big{n}"),
+                             expect=(n * calls,) * 2 if fit else None)
+                    step(pool, bucket, f"{POOL_SMALL_CLIENTS} x "
+                         f"{POOL_SMALL_PER} x {POOL_SMALL_BYTES} B",
+                         _pool_objects(POOL_SMALL_CLIENTS, POOL_SMALL_PER,
+                                       POOL_SMALL_BYTES, args.seed + 7100,
+                                       "small"),
+                         expect=(n_small, n_small) if fit else None)
+                    if workers:
+                        contexts(pool)
+                    n = POOL_BIG_CLIENTS[-1]
+                    step(pool, bucket, f"{n} x {POOL_BIG} B",
+                         _pool_objects(n, 1, POOL_BIG, args.seed + 7000 + n,
+                                       f"big{n}"))
+                    if workers and turn == len(POOL_TURNS) - 1:
+                        kill_step(pool)
+                hashes[turn, algo] = _pool_part_hashes(root, bucket)
+                if algo == HH:
+                    want = _inprocess_part_hashes(
+                        bucket, _pool_objects(POOL_HH_CLIENTS, POOL_HH_PER,
+                                              POOL_BIG, args.seed + 7400,
+                                              "hh"), algo)
+                    if want != hashes[turn, algo]:
+                        raise SystemExit(f"pool: {HH} part files differ "
+                                         "from one process's")
+                stop_s = pool.stop()
+                print(f"[pool] turn {turn + 1}: SIGTERM, exit 0 in "
+                      f"{stop_s:.2f} s")
+                pool = None
+        finally:
+            if pool is not None:
+                pool.kill()
+            shutil.rmtree(root, ignore_errors=True)
+
+    for (turn, algo), h in hashes.items():
+        ref = hashes[0, algo]
+        common = set(h) & set(ref)
+        if len(common) < len(ref) or any(h[k] != ref[k] for k in common):
+            raise SystemExit(f"pool: part files of turn {turn + 1} ({algo})"
+                             " differ from turn 1's")
+    pack_in = _inprocess_pack_ms_per_mib(card)
+    # The pools' launches are read from their metrics; this process's
+    # comparison above is no main path's: nothing of it is tallied.
+    counts.reset()
+    counts.read()
+    print(f"[pool] {len(POOL_TURNS)} turns in "
+          f"{time.perf_counter() - t_phase:.1f} s: part files equal across "
+          f"turns ({sum(len(h) for h in hashes.values())} compared), "
+          f"launches in the pools' processes {launches} (the owner-kill "
+          f"step's left out); lanes' pack in one "
+          f"process {pack_in:.4f} ms/MiB; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -3990,6 +4613,7 @@ def main() -> int:
         "dispatch": lambda: phase_dispatch(args, counts, card),
         "identity": lambda: phase_identity(args, counts, card),
         "host planes": lambda: phase_host_planes(args, counts, card),
+        "worker pool": lambda: phase_pool(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -4042,7 +4666,9 @@ def main() -> int:
     calls = sum(p["mxh256"] for p in per_path.values())
     print(f"[mxh256] at (384, 131072): {mxh['ms']:.4f} ms against a bound "
           f"of {mxh['bound_ms']:.4f} ms; card {card}")
-    phase_mxh_shapes(torch, mt, gen, card, tally, calls)
+    # The worker pool's calls ran in its own processes, untallied.
+    phase_mxh_shapes(torch, mt, gen, card, tally,
+                     calls - per_path["worker pool"]["mxh256"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))
@@ -4066,4 +4692,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pool-client"]:
+        sys.exit(pool_client(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -556,27 +556,6 @@ class ErasureSet:
                 d.delete_version(bucket, obj, version_id)
         self._map_positions(undo)
 
-    def _enc_kernel(self, k: int, m: int, algo: str):
-        """The coalesced encode of stacked (B, K, S) blocks on this set's
-        device: (parity, digests) per span, the pair `_direct_encode`
-        gives; `launch` is its pipelined form."""
-        dev = self.device
-
-        def kernel(stacked, spans, ctx):
-            x, n = coalesce.pad_batch(stacked, PAD_ROWS)
-            parity, digests = fused.encode_and_hash(
-                x, k, m, algo=algo, device=dev, items=len(spans))
-            return _enc_slices(parity, digests, n, spans)
-
-        def launch(x, n, spans, ctx):
-            parity, digests = fused.encode_and_hash(
-                x, k, m, algo=algo, device=dev, items=len(spans))
-            return lambda: _enc_slices(parity, digests, n, spans)
-
-        kernel.launch = launch
-        kernel.pad_rows = PAD_ROWS
-        return kernel
-
     def _direct_encode(self, blocks: np.ndarray, k: int, m: int, algo: str):
         """The encode of one (nb, K, S) batch without the coalescer:
         (parity, digests) as tensors on the device.  Also the recompute of
@@ -584,30 +563,6 @@ class ErasureSet:
         launches."""
         return fused.encode_and_hash(blocks, k, m, algo=algo,
                                      device=self.device)
-
-    def _vt_kernel(self, k: int, m: int, sources: tuple, targets: tuple,
-                   algo: str):
-        """The coalesced verify (+ rebuild of `targets`) of stacked
-        (B, K, S) rows in `sources` order: (digests (B, K, 32), rebuilt
-        (B, T, S) or None) per span; `launch` is its pipelined form."""
-        dev = self.device
-
-        def kernel(stacked, spans, ctx):
-            x, n = coalesce.pad_batch(stacked, PAD_ROWS)
-            digests, out = fused.verify_and_transform(
-                x, k, m, sources, targets, algo=algo, device=dev,
-                items=len(spans))
-            return _vt_slices(digests, out, n, spans)
-
-        def launch(x, n, spans, ctx):
-            digests, out = fused.verify_and_transform(
-                x, k, m, sources, targets, algo=algo, device=dev,
-                items=len(spans))
-            return lambda: _vt_slices(digests, out, n, spans)
-
-        kernel.launch = launch
-        kernel.pad_rows = PAD_ROWS
-        return kernel
 
     def _encode_chunks(self, chunks, k: int, m: int, algo: str):
         """Yield lists of k+m framed shard pieces (shard order), one per
@@ -631,7 +586,7 @@ class ErasureSet:
                 return blocks, self._direct_encode(blocks, k, m, algo)
             return blocks, co.submit(
                 ("enc", k, m, algo, blocks.shape[2]), blocks,
-                self._enc_kernel(k, m, algo), weight=blocks.shape[0],
+                enc_kernel(k, m, algo, self.device), weight=blocks.shape[0],
                 device=self.device)
 
         def frame(p):
@@ -1098,7 +1053,7 @@ class ErasureSet:
         h = None
         if co is not None and missing:
             h = co.submit(("vt", k, m, sel, missing, algo, s), x,
-                          self._vt_kernel(k, m, sel, missing, algo),
+                          vt_kernel(k, m, sel, missing, algo, self.device),
                           weight=b, device=self.device)
         elif co is not None and (self.device.type == "cuda"
                                  or co.hot(self.device)):
@@ -1359,6 +1314,53 @@ def _attempt(fn):
 def _host(t):
     """A device result on the host (numpy); None and numpy pass."""
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+
+
+def enc_kernel(k: int, m: int, algo: str, dev):
+    """The coalesced encode of stacked (B, K, S) blocks on `dev`:
+    (parity, digests) per span, the pair `ErasureSet._direct_encode`
+    gives; `launch` is its pipelined form.  The key ("enc", k, m, algo,
+    S) names all it closes over but the device, so the pool's device
+    owner (ops/ipc_dispatch.py) rebuilds the same kernel from the key."""
+
+    def kernel(stacked, spans, ctx):
+        x, n = coalesce.pad_batch(stacked, PAD_ROWS)
+        parity, digests = fused.encode_and_hash(
+            x, k, m, algo=algo, device=dev, items=len(spans))
+        return _enc_slices(parity, digests, n, spans)
+
+    def launch(x, n, spans, ctx):
+        parity, digests = fused.encode_and_hash(
+            x, k, m, algo=algo, device=dev, items=len(spans))
+        return lambda: _enc_slices(parity, digests, n, spans)
+
+    kernel.launch = launch
+    kernel.pad_rows = PAD_ROWS
+    return kernel
+
+
+def vt_kernel(k: int, m: int, sources: tuple, targets: tuple, algo: str,
+              dev):
+    """The coalesced verify (+ rebuild of `targets`) of stacked (B, K, S)
+    rows in `sources` order on `dev`: (digests (B, K, 32), rebuilt
+    (B, T, S) or None) per span; `launch` is its pipelined form."""
+
+    def kernel(stacked, spans, ctx):
+        x, n = coalesce.pad_batch(stacked, PAD_ROWS)
+        digests, out = fused.verify_and_transform(
+            x, k, m, sources, targets, algo=algo, device=dev,
+            items=len(spans))
+        return _vt_slices(digests, out, n, spans)
+
+    def launch(x, n, spans, ctx):
+        digests, out = fused.verify_and_transform(
+            x, k, m, sources, targets, algo=algo, device=dev,
+            items=len(spans))
+        return lambda: _vt_slices(digests, out, n, spans)
+
+    kernel.launch = launch
+    kernel.pad_rows = PAD_ROWS
+    return kernel
 
 
 def _enc_slices(parity, digests, n: int, spans) -> list[tuple]:

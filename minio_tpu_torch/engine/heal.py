@@ -72,7 +72,8 @@ from ..storage.format import load_format, new_format, save_format
 from ..storage.xlmeta import ErasureInfo, FileInfo, XLMeta
 from ..utils import msgpackx
 from . import quorum as Q
-from .erasure_set import BATCH_BLOCKS, BLOCK_SIZE, SERIAL_FANOUT, ErasureSet
+from .erasure_set import (BATCH_BLOCKS, BLOCK_SIZE, SERIAL_FANOUT, ErasureSet,
+                          vt_kernel)
 
 # Drive states (cf. madmin drive states in the reference heal API).
 DRIVE_OK = "ok"
@@ -554,7 +555,7 @@ class _PartRebuild:
         k, m, need, es = self.k, self.m, tuple(self.need), self.es
         if co is not None:
             h = co.submit(("vt", k, m, sel, need, self.algo, x.shape[2]), x,
-                          es._vt_kernel(k, m, sel, need, self.algo),
+                          vt_kernel(k, m, sel, need, self.algo, es.device),
                           weight=x.shape[0], device=es.device)
             try:
                 res = h.result()

@@ -1,8 +1,11 @@
 """Cross-request dispatch coalescing for the erasure and bitrot data plane
 (torch).
 
-Counterpart of minio_tpu/ops/coalesce.py, without its cross-process front
-end (attach_remote; ROADMAP Queue A item 6) and its trace spans.
+Counterpart of minio_tpu/ops/coalesce.py, without its trace spans.  In
+a worker of the pre-fork pool (server/workers.py) `attach_remote`
+installs the cross-process front end (ops/ipc_dispatch.RemoteCoalescer)
+as what `get()` returns: the engine's call sites are unchanged, and
+their device batches go to the device owner's lanes.
 
 Concurrent requests submit their device work (a PUT batch's encode, a
 GET's verify, a degraded GET's or a heal's verify + rebuild) to one
@@ -786,8 +789,16 @@ def make_digest_kernel(algo: str, device):
 _CO: DispatchCoalescer | None = None
 _CO_MU = threading.Lock()
 
+#: The cross-process front end (ops/ipc_dispatch.RemoteCoalescer) a pool
+#: worker attaches: while set, `get()` returns it, and it routes the
+#: device kinds to the owner and the rest to this process's own lanes.
+_REMOTE = None
 
-def get() -> DispatchCoalescer:
+
+def get():
+    r = _REMOTE
+    if r is not None:
+        return r
     global _CO
     co = _CO
     if co is None:
@@ -796,6 +807,20 @@ def get() -> DispatchCoalescer:
                 _CO = DispatchCoalescer()
             co = _CO
     return co
+
+
+def attach_remote(remote) -> None:
+    """Install a cross-process front end as this process's coalescer;
+    detach_remote() restores in-process dispatch."""
+    global _REMOTE
+    _REMOTE = remote
+
+
+def detach_remote() -> None:
+    global _REMOTE
+    r, _REMOTE = _REMOTE, None
+    if r is not None:
+        r.close()
 
 
 def reset() -> None:
@@ -810,9 +835,12 @@ def reset() -> None:
 
 def _reset_after_fork() -> None:
     # A forked child inherits the singleton but not its lane threads, and
-    # cannot use the parent's CUDA streams: it builds fresh lanes.
-    global _CO
+    # cannot use the parent's CUDA streams: it builds fresh lanes.  A
+    # remote front end's listener thread and pending handles stay behind
+    # in the parent too.
+    global _CO, _REMOTE
     _CO = None
+    _REMOTE = None
 
 
 os.register_at_fork(after_in_child=_reset_after_fork)

@@ -14,6 +14,12 @@ role, cmd/server-main.go:441), in its order:
    (background/mrf.attach_mrf);
 5. IAM, loaded from the object layer, and the S3 front door.
 
+With MTPU_WORKERS=N (server/workers.py) the boot forks instead: one
+device owner, which runs the self-tests and then every kernel of the
+pool, and N HTTP workers on one port (SO_REUSEPORT), each booting steps
+2-5 (the sweep in worker 0 only) with its coalescer routed to the owner
+through shared memory.  The branch is taken before anything loads torch.
+
 It serves until SIGTERM or SIGINT, then drains, stops the MRF queues
 and the breakers' probers, and exits 0.  A second signal forces the
 exit.  Root credentials come from MTPU_ROOT_USER / MTPU_ROOT_PASSWORD
@@ -35,13 +41,13 @@ import os
 import signal
 import sys
 import threading
-import time
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner "
-            "(item 9); hot cache and QoS (item 7); the pre-fork worker "
-            "pool (item 6); notifications, replication and tiering "
+LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner, "
+            "in one process and in the worker pool's worker 0 (item 9); "
+            "hot cache and QoS, and the worker pool's shared hot tier and "
+            "QoS slab (item 7); notifications, replication and tiering "
             "(item 10)")
 
 
@@ -118,62 +124,34 @@ def main(argv: list[str] | None = None) -> int:
     if pool_paths is None:
         return 2
 
+    creds = (os.environ.get("MTPU_ROOT_USER", "minioadmin"),
+             os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"))
+    # The pre-fork worker pool (server/workers.py): MTPU_WORKERS=N forks
+    # one device owner and N SO_REUSEPORT HTTP workers.  The branch sits
+    # before any import that loads torch: CUDA must never be initialised
+    # in a process that forks, so the supervisor stays light and each
+    # child builds its own stack.
+    from .workers import nworkers_env
+    nworkers = nworkers_env()
+    if nworkers:
+        from .workers import run_pool
+        return run_pool(nworkers, pool_paths, creds, args.host, args.port,
+                        args.set_drive_count, certs, args.device)
+
     from ..background.mrf import attach_mrf
-    from ..engine.pools import ServerPools
-    from ..engine.sets import ErasureSets
     from ..iam.iam import IAMSys
-    from ..ops import erasure_cuda, fused, mxhash_torch
-    from ..ops.selftest import run_startup_self_tests
-    from ..storage.drive import LocalDrive
-    from ..storage.health_wrap import wrap_drives
-    from ..storage.recovery import boot_recovery_sweep
+    from . import boot
     from .server import S3Server
     from .sigv4 import Credentials
 
     # Startup self-tests before anything binds (hard-fail, as
     # cmd/erasure-coding.go:158 and cmd/bitrot.go:214 do).
-    items0 = dict(fused.ITEMS)
-    launches0 = (erasure_cuda.LAUNCHES, mxhash_torch.LAUNCHES)
-    t0 = time.perf_counter()
-    run_startup_self_tests(args.device)
-    items = {k: v - items0[k] for k, v in fused.ITEMS.items()}
-    print(f"minio_tpu_torch: self-tests passed in "
-          f"{(time.perf_counter() - t0) * 1e3:.3f} ms (items "
-          f"gf_matmul={items['gf_matmul']} mxh256={items['mxh256']}; "
-          f"launches gf_matmul={erasure_cuda.LAUNCHES - launches0[0]} "
-          f"mxh256={mxhash_torch.LAUNCHES - launches0[1]})", flush=True)
+    print(boot.self_tests(args.device), flush=True)
 
-    creds = Credentials(os.environ.get("MTPU_ROOT_USER", "minioadmin"),
-                        os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"))
-    pool_sets: list[ErasureSets] = []
-    wrapped: list = []
-    swept = {"drives": 0, "tmp_entries": 0, "mp_stage": 0}
-    try:
-        for paths in pool_paths:
-            local = [LocalDrive(p) for p in paths]
-            # The recovery sweep before the engine takes traffic: the
-            # previous epoch's staging, trash and multipart stage files
-            # (cmd/prepare-storage.go role).
-            rec = boot_recovery_sweep(local)
-            for key in swept:
-                swept[key] += rec[key]
-            drives = wrap_drives(local)
-            wrapped.extend(drives)
-            pool_sets.append(ErasureSets(
-                drives, set_drive_count=args.set_drive_count or len(drives),
-                deployment_id=(pool_sets[0].deployment_id
-                               if pool_sets else None),
-                device=args.device))
-        pools = ServerPools(pool_sets)
-    except BaseException:
-        for p in pool_sets:
-            p.close()
-        for d in wrapped:
-            d.close()
-        raise
-    print(f"minio_tpu_torch: recovery sweep: {swept['tmp_entries']} stale "
-          f"tmp entries, {swept['mp_stage']} orphaned multipart staging "
-          f"files across {swept['drives']} drives", flush=True)
+    pools, wrapped, swept = boot.object_layer(
+        pool_paths, args.set_drive_count, args.device)
+    pool_sets = pools.pools
+    print(boot.sweep_line(swept), flush=True)
     stop = threading.Event()
     install_signal_handlers(stop)
     mrf_queues: list = []
@@ -186,8 +164,8 @@ def main(argv: list[str] | None = None) -> int:
             print(f"minio_tpu_torch: MRF journal: replayed {replayed} "
                   "pending heals", flush=True)
         iam = IAMSys(pools)
-        srv = S3Server(pools, creds, host=args.host, port=args.port,
-                       certs=certs, iam=iam).start()
+        srv = S3Server(pools, Credentials(*creds), host=args.host,
+                       port=args.port, certs=certs, iam=iam).start()
         desc = ", ".join(f"pool{i}: {len(p)} drives "
                          f"set={pool_sets[i].set_drive_count}"
                          for i, p in enumerate(pool_paths))

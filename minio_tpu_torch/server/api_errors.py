@@ -11,10 +11,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ..cluster.nslock import LockLost
-from ..engine import multipart as mp
-from ..storage import errors as se
-
 
 @dataclass(frozen=True)
 class APIError:
@@ -345,9 +341,14 @@ class S3Error(Exception):
 
 def from_storage_error(e: Exception) -> S3Error:
     """Map engine/storage exceptions to API errors
-    (cf. toAPIErrorCode, cmd/api-errors.go)."""
+    (cf. toAPIErrorCode, cmd/api-errors.go).  The engine is imported
+    here, not with the module: the S3 client and the signers import this
+    module, and a client process loads no torch."""
     if isinstance(e, S3Error):
         return e
+    from ..cluster.nslock import LockLost
+    from ..engine import multipart as mp
+    from ..storage import errors as se
     if isinstance(e, LockLost):
         # Lock contention/loss is retryable, not a server fault
         # (the reference maps lock timeouts to 503).

@@ -15,8 +15,9 @@ own signature and are authorized from the form.
 The admin API serves IAM's users, groups, policies and service accounts;
 POST / is STS (AssumeRole, WebIdentity and ClientGrants through OIDC,
 LDAPIdentity, Certificate over mTLS).  What answers NotImplemented, with
-its ROADMAP.md Queue A item: the other admin endpoints, metrics and
-listen (item 10); cluster health (item 9).  Spans, metrics, the audit
+its ROADMAP.md Queue A item: the other admin endpoints, metrics (but
+the worker pool's families at /minio/v2/metrics/node) and listen (item
+10); cluster health (item 9).  Spans, metrics, the audit
 trail, QoS, federation and zero-copy sends stay in the JAX package for
 now.
 """
@@ -27,6 +28,7 @@ import datetime
 import json
 import os
 import secrets
+import socket
 import ssl
 import threading
 import time
@@ -58,13 +60,22 @@ class S3Server:
     AssumeRoleWithCertificate reads.  `iam` (an iam.iam.IAMSys) holds
     the other identities, `oidc` (iam.oidc.OpenIDConfig) and `ldap`
     (iam.ldap.LDAPConfig) the STS identity providers; without `iam`
-    only root authenticates and policy is not consulted."""
+    only root authenticates and policy is not consulted.
+
+    In the pre-fork pool (server/workers.py) each worker binds the
+    shared port with `reuse_port`; `worker_plane` (a WorkerPlane) and
+    `worker_id` let it count its requests, flag its drain and serve the
+    pool's Prometheus families at /minio/v2/metrics/node."""
 
     def __init__(self, pools: ServerPools, creds: Credentials,
                  host: str = "127.0.0.1", port: int = 0,
                  certs: tuple[str, str] | None = None, iam=None,
-                 oidc=None, ldap=None, client_ca: str | None = None):
+                 oidc=None, ldap=None, client_ca: str | None = None,
+                 reuse_port: bool = False, worker_plane=None,
+                 worker_id: int | None = None):
         self.pools = pools
+        self.worker_plane = worker_plane
+        self.worker_id = worker_id
         self.creds = creds                 # root credentials (policy bypass)
         self.iam = iam
         self.oidc = oidc
@@ -162,6 +173,8 @@ class S3Server:
                     return
                 with outer._drain_cv:
                     outer._inflight += 1
+                if outer.worker_plane is not None:
+                    outer.worker_plane.state.note_request(outer.worker_id)
                 try:
                     self._handle_inner()
                 finally:
@@ -225,6 +238,14 @@ class S3Server:
             a blocking handshake, letting one silent client stall the
             whole endpoint."""
             ssl_context = None
+
+            def server_bind(self):
+                if reuse_port:
+                    # Pre-fork pool: every worker binds the same (host,
+                    # port) and the kernel spreads connections over them.
+                    self.socket.setsockopt(socket.SOL_SOCKET,
+                                           socket.SO_REUSEPORT, 1)
+                super().server_bind()
 
             def finish_request(self, request, client_address):
                 if self.ssl_context is None:
@@ -298,6 +319,9 @@ class S3Server:
                                            "10") or 10)
         t0 = time.monotonic()
         deadline = t0 + timeout
+        if self.worker_plane is not None and self.worker_id is not None:
+            # Pool mode: any worker's metrics show this one leaving.
+            self.worker_plane.state.set_draining(self.worker_id)
         with self._drain_cv:
             self.draining = True
             while self._inflight > 0:
@@ -477,6 +501,11 @@ class S3Server:
             return Response(200)
         if path == "/minio/health/cluster":
             raise unported("cluster health", "9")
+        if path == "/minio/v2/metrics/node" and self.worker_plane is not None:
+            # The worker pool's families only; the registry's others
+            # wait for observe/ (ROADMAP Queue A item 10).
+            return Response(200, self.worker_plane.render_prom().encode(),
+                            {"Content-Type": "text/plain; version=0.0.4"})
         if path.startswith("/minio/v2/metrics/"):
             raise unported("metrics")
         raise S3Error("MethodNotAllowed")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
@@ -37,6 +38,18 @@ def _md5_pool() -> ThreadPoolExecutor:
             _MD5_POOL = ThreadPoolExecutor(max_workers=4,
                                            thread_name_prefix="mtpu-md5")
         return _MD5_POOL
+
+
+def _reset_after_fork() -> None:
+    # A forked child (a worker of server/workers.py) inherits the pool
+    # object but none of its threads, and maybe a held lock: it starts
+    # its own.
+    global _MD5_POOL, _MD5_POOL_LOCK
+    _MD5_POOL = None
+    _MD5_POOL_LOCK = threading.Lock()
+
+
+os.register_at_fork(after_in_child=_reset_after_fork)
 
 
 class PipelinedMD5:

@@ -86,7 +86,9 @@ def test_scan_covers_every_subpackage():
                 "utils/streams.py", "ops/shm_arena.py", "ops/bpool.py",
                 "ops/zerocopy.py", "ops/selftest.py",
                 "storage/diskio.py", "storage/health_wrap.py",
-                "storage/recovery.py", "background/mrf.py"):
+                "storage/recovery.py", "background/mrf.py",
+                "ops/ipc_ring.py", "ops/ipc_knobs.py", "ops/ipc_dispatch.py",
+                "server/workers.py", "server/boot.py"):
         assert PKG / mod in SOURCES, mod
 
 

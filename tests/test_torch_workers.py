@@ -1,0 +1,792 @@
+"""The port's pre-fork worker pool (minio_tpu_torch/server/workers.py,
+ops/ipc_dispatch.py, ops/ipc_ring.py) on the CPU.
+
+Layers, cheapest first:
+
+- the shared-memory ring and the control block, in process;
+- the remote dispatch protocol in threads (no fork): a RemoteCoalescer
+  talking to serve_owner() over a real plane.  Seeded enc, vt and digest
+  items under mxh256 and highwayhash256S go through the owner, through
+  the port's in-process coalescer and through the JAX package's fused
+  programs, and all three are byte-equal; the protocol's limits (arena
+  space returned, an unknown kind, mode 0, a dead owner, a respawned
+  worker adopting its predecessor's slots, an answer too large);
+- one real pool, `python -m minio_tpu_torch.server --device cpu` with
+  MTPU_WORKERS=2 and MTPU_IPC_DISPATCH=all, booted with subprocess.Popen
+  (no test forks the pytest process): S3 through the owner, both
+  workers serving, the owner's items in the metrics, part files and
+  xl.meta equal to the JAX package's ErasureSet, an owner SIGKILL with a
+  PUT in the gap, a SIGTERM drain;
+- the supervisor stays light (no torch), and a failing self-test in the
+  owner ends the boot, or the pool after a respawn.
+
+Every subprocess has its own timeout and is killed in `finally`.
+"""
+
+import hashlib
+import os
+import re
+import signal
+import socket
+import struct
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from minio_tpu.ops import fused as jax_fused
+from minio_tpu_torch.engine import erasure_set as es_mod
+from minio_tpu_torch.ops import coalesce
+from minio_tpu_torch.ops import ipc_dispatch as ipc
+from minio_tpu_torch.ops.ipc_ring import REC, ShmRing
+from minio_tpu_torch.server.client import S3Client
+from minio_tpu_torch.server.workers import (SharedState, WorkerPlane,
+                                            nworkers_env)
+
+ROOT = Path(__file__).resolve().parent.parent
+MIB = 1 << 20
+HH = "highwayhash256S"
+
+
+# -- descriptor ring ----------------------------------------------------------
+
+def _ring_fifo():
+    r = ShmRing(capacity=4)
+    assert r.put(b"a") and r.put(b"bb")
+    assert r.depth() == 2
+    assert r.get() == b"a".ljust(REC, b"\x00")
+    assert r.get() == b"bb".ljust(REC, b"\x00")
+    assert r.depth() == 0
+
+
+def _ring_oversize():
+    r = ShmRing(capacity=2)
+    with pytest.raises(ValueError):
+        r.put(b"x" * (REC + 1))
+
+
+def _ring_timeouts():
+    r = ShmRing(capacity=2)
+    assert r.put(b"1") and r.put(b"2")
+    assert r.put(b"3", timeout=0.1) is False
+    assert len(r.drain()) == 2
+    assert r.get(timeout=0.1) is None
+
+
+def _ring_mpmc():
+    r = ShmRing(capacity=16)
+    nprod, per = 3, 80
+    seen, mu = [], threading.Lock()
+
+    def consumer():
+        while True:
+            rec = r.get(timeout=2.0)
+            if rec is None:
+                return
+            with mu:
+                seen.append(struct.unpack_from("<I", rec)[0])
+
+    def producer(base):
+        for i in range(per):
+            assert r.put(struct.pack("<I", base + i), timeout=10.0)
+
+    ts = ([threading.Thread(target=consumer) for _ in range(2)]
+          + [threading.Thread(target=producer, args=(k * 1000,))
+             for k in range(nprod)])
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+    assert sorted(seen) == sorted(k * 1000 + i for k in range(nprod)
+                                  for i in range(per))
+
+
+@pytest.mark.parametrize("case", [_ring_fifo, _ring_oversize,
+                                  _ring_timeouts, _ring_mpmc],
+                         ids=["fifo_padding", "oversize_refused",
+                              "full_and_empty_time_out", "threaded_mpmc"])
+def test_shm_ring(case):
+    case()
+
+
+# -- control block ------------------------------------------------------------
+
+def test_worker_slab_roundtrip():
+    st = SharedState(3)
+    st.worker_register(1, 4242)
+    st.worker_beat(1, inflight=5, counters={"ipc_fallbacks": 2,
+                                            "launches_hh256": 7})
+    st.note_request(1)
+    st.note_request(1)
+    st.set_ready(1)
+    st.set_draining(1)
+    assert st.bump_respawn(1) == 1
+    rows = st.worker_rows()
+    assert len(rows) == 3
+    r = rows[1]
+    assert r["pid"] == 4242 and r["up"] and r["ready"] and r["draining"]
+    assert r["respawns"] == 1 and r["requests"] == 2 and r["inflight"] == 5
+    assert r["ipc_fallbacks"] == 2 and r["launches_hh256"] == 7
+    assert rows[0]["up"] is False              # never registered
+
+
+def test_owner_generation_staleness_and_down():
+    st = SharedState(1)
+    assert st.owner_ok(5.0) is False           # never registered
+    gen = st.bump_owner_gen()
+    st.owner_register(123)
+    assert st.owner_ok(5.0) is True
+    st._a[2] = 0                               # rewind the heartbeat
+    assert st.owner_ok(5.0) is False
+    st.owner_beat({"dispatches": 4, "items": 8, "pending_items": 1,
+                   "pack_s": 0.5, "h2d_bytes": 3 * MIB},
+                  {"launches_gf_matmul": 3, "items_gf_matmul": 8})
+    info = st.owner_info()
+    assert info["pid"] == 123 and info["generation"] == gen
+    assert info["co_occupancy"] == 2.0         # 8 items / 4 dispatches
+    assert info["co_pack_s"] == 0.5 and info["co_staged_bytes"] == 3 * MIB
+    assert info["launches_gf_matmul"] == 3 and info["items_gf_matmul"] == 8
+    assert st.owner_ok(5.0) is True
+    st.owner_down()                            # the supervisor reaped it
+    assert st.owner_ok(5.0) is False
+    info = st.owner_info()
+    assert info["generation"] == gen and info["co_items"] == 0
+    assert info["launches_gf_matmul"] == 0
+
+
+def test_plane_renders_the_pool_families():
+    plane = WorkerPlane(2, arena_bytes=8 * MIB, ring_capacity=32)
+    assert plane.hotcache is None and plane.qos is None
+    plane.state.worker_register(0, os.getpid())
+    plane.state.set_ready(0)
+    plane.state.note_request(0)
+    assert plane.state.worker_rows()[0]["up"] is True
+    prom = plane.render_prom()
+    for name in ("mtpu_worker_up", "mtpu_worker_respawns_total",
+                 "mtpu_worker_requests_total", "mtpu_worker_ready",
+                 "mtpu_worker_ipc_fallbacks_total",
+                 "mtpu_worker_cuda_context", "mtpu_shm_arena_bytes",
+                 "mtpu_shm_arena_in_use", "mtpu_shm_arena_alloc_timeouts",
+                 "mtpu_ipc_ring_depth", "mtpu_owner_up",
+                 "mtpu_owner_generation", "mtpu_owner_coalesce_items_total",
+                 "mtpu_owner_lane_pack_seconds_total"):
+        assert name in prom
+    assert 'mtpu_worker_up{worker="0"} 1' in prom
+    assert 'mtpu_worker_up{worker="1"} 0' in prom
+    assert 'mtpu_worker_requests_total{worker="0"} 1' in prom
+    assert 'mtpu_owner_kernel_items_total{kernel="hh256"} 0' in prom
+
+
+@pytest.mark.parametrize("value,want", [(None, 0), ("3", 3), ("junk", 0),
+                                        ("-2", 0)])
+def test_nworkers_env(monkeypatch, value, want):
+    if value is None:
+        monkeypatch.delenv("MTPU_WORKERS", raising=False)
+    else:
+        monkeypatch.setenv("MTPU_WORKERS", value)
+    assert nworkers_env() == want
+
+
+# -- remote dispatch protocol (in threads, no fork) ---------------------------
+
+def _serve(plane):
+    """serve_owner() and a heartbeat in threads on `plane`'s current
+    generation: (the owner's coalescer, a function that stops both)."""
+    stop = threading.Event()
+    co = coalesce.DispatchCoalescer()
+    threads = ipc.serve_owner(plane, stop, co, nthreads=2)
+    beat = threading.Thread(target=lambda: [
+        plane.state.owner_beat() for _ in iter(lambda: stop.wait(0.1), True)])
+    beat.start()
+
+    def close():
+        stop.set()
+        for t in threads + [beat]:
+            t.join(timeout=10)
+        co.close()
+    return co, close
+
+
+@pytest.fixture()
+def owner_plane(monkeypatch):
+    """A WorkerPlane with serve_owner() running in threads: the arena and
+    ring protocol of the forked pool, without the processes."""
+    monkeypatch.setenv("MTPU_IPC_DISPATCH", "all")
+    plane = WorkerPlane(1, arena_bytes=16 * MIB, ring_capacity=64)
+    plane.state.bump_owner_gen()
+    plane.state.owner_register(os.getpid())
+    co, close = _serve(plane)
+    yield plane, co
+    close()
+
+
+def _shards(b, k, m, s, seed):
+    """(b, k + m, s) real shards: random data and its parity."""
+    x = np.random.default_rng(seed).integers(0, 256, (b, k, s),
+                                             dtype=np.uint8)
+    parity, _ = jax_fused.encode_and_hash(x, k, m, algo="mxh256")
+    return np.concatenate([x, np.asarray(parity)], axis=1)
+
+
+def _items(algo):
+    """(name, key, payload, port kernel, JAX result) of each kind."""
+    k, m, b = 4, 2, 3
+    s = 1024 if algo == "mxh256" else 160     # HighwayHash's plain version
+    full = _shards(b, k, m, s, seed=len(algo))
+    data = np.ascontiguousarray(full[:, :k])
+    out = [("enc", ("enc", k, m, algo, s), data,
+            es_mod.enc_kernel(k, m, algo, "cpu"),
+            jax_fused.encode_and_hash(data, k, m, algo=algo))]
+    for name, sel, targets in (("vt_data", (0, 1, 3, 4), (2,)),
+                               ("vt_parity", (0, 1, 2, 3), (5,))):
+        x = np.ascontiguousarray(full[:, list(sel)])
+        out.append((name, ("vt", k, m, sel, targets, algo, s), x,
+                    es_mod.vt_kernel(k, m, sel, targets, algo, "cpu"),
+                    jax_fused.verify_and_transform(x, k, m, sel, targets,
+                                                   algo=algo)))
+    rows = np.ascontiguousarray(full.reshape(b * (k + m), s))
+    out.append(("digest", ("digest", algo, s), rows,
+                coalesce.make_digest_kernel(algo, "cpu"),
+                jax_fused.hash_rows_async(rows, algo)))
+    return out
+
+
+def _arrays(res):
+    if isinstance(res, tuple):
+        return [None if a is None else np.asarray(a) for a in res]
+    return [np.asarray(res)]
+
+
+@pytest.mark.parametrize("algo", ["mxh256", HH])
+def test_remote_equals_local_and_jax(owner_plane, algo):
+    plane, owner_co = owner_plane
+    local = coalesce.DispatchCoalescer()
+    rc = ipc.RemoteCoalescer(plane, 0)
+    try:
+        for name, key, payload, fn, want in _items(algo):
+            h = local.submit(key, payload, fn, device="cpu")
+            got_local = _arrays(h.result(timeout=60))
+            h.release()
+            h = rc.submit(key, payload, fn, device="cpu")
+            assert isinstance(h, ipc.RemoteHandle)
+            got_remote = _arrays(h.result(timeout=60))
+            want = _arrays(want)
+            assert len(got_remote) == len(got_local) == len(want), name
+            for r, lo, j in zip(got_remote, got_local, want):
+                assert (r is None) == (lo is None) == (j is None), name
+                if r is not None:
+                    assert r.dtype == lo.dtype == j.dtype == np.uint8, name
+                    assert np.array_equal(r, lo) and np.array_equal(r, j), name
+        st = rc.stats()
+        assert st["remote_submits"] == st["remote_results"] == 4
+        assert st["remote_fallbacks"] == 0 and st["items"] == 0
+        assert owner_co.stats()["items"] == 4
+    finally:
+        rc.close()
+        local.close()
+
+
+def test_arena_space_returned_after_roundtrips(owner_plane):
+    plane, _ = owner_plane
+    payload = np.zeros((4, 1024), dtype=np.uint8)
+    fn = coalesce.make_digest_kernel("mxh256", "cpu")
+    rc = ipc.RemoteCoalescer(plane, 0)
+    try:
+        for _ in range(5):
+            h = rc.submit(("digest", "mxh256", 1024), payload, fn,
+                          device="cpu")
+            h.result(timeout=60)
+        deadline = time.monotonic() + 10
+        while (plane.arena.stats()["in_use_bytes"]
+               and time.monotonic() < deadline):
+            time.sleep(0.05)              # the listener frees after decode
+        st = plane.arena.stats()
+        assert st["in_use_bytes"] == 0 and st["allocs"] == st["frees"] == 5
+    finally:
+        rc.close()
+
+
+def test_unknown_kind_surfaces_as_error(owner_plane, monkeypatch):
+    plane, _ = owner_plane
+    rc = ipc.RemoteCoalescer(plane, 0)
+    # A kind the worker would keep local: force it onto the wire.
+    monkeypatch.setattr(ipc, "KINDS", ipc.KINDS + ("bogus",))
+    try:
+        h = rc.submit(("bogus", 1), np.zeros((2, 8), np.uint8),
+                      coalesce.make_digest_kernel("mxh256", "cpu"),
+                      device="cpu")
+        with pytest.raises(RuntimeError, match="no remote kernel"):
+            h.result(timeout=60)
+        assert rc.stats()["remote_errors"] == 1
+    finally:
+        rc.close()
+
+
+@pytest.mark.parametrize("mode,device,remote", [
+    ("0", "cpu", False), ("auto", "cpu", False), ("all", "cpu", True)])
+def test_routing_modes(owner_plane, monkeypatch, mode, device, remote):
+    plane, _ = owner_plane
+    monkeypatch.setenv("MTPU_IPC_DISPATCH", mode)
+    rc = ipc.RemoteCoalescer(plane, 0)
+    try:
+        h = rc.submit(("digest", "mxh256", 64), np.zeros((1, 64), np.uint8),
+                      coalesce.make_digest_kernel("mxh256", device),
+                      device=device)
+        np.asarray(h.result(timeout=60))
+        st = rc.stats()
+        assert st["remote_submits"] == int(remote)
+        assert st["items"] == int(not remote)
+        assert st["remote_active"] is (mode != "0")
+        # Staying local by mode is routing, not a fallback.
+        assert st["remote_fallbacks"] == 0
+    finally:
+        rc.close()
+
+
+def test_dead_owner_fails_pending_and_pins_local(monkeypatch):
+    monkeypatch.setenv("MTPU_IPC_DISPATCH", "all")
+    # No serve_owner: the submit waits until the watchdog declares the
+    # silent owner dead.
+    plane = WorkerPlane(1, arena_bytes=8 * MIB, ring_capacity=16)
+    plane.state.bump_owner_gen()
+    plane.state.owner_register(os.getpid())
+    rc = ipc.RemoteCoalescer(plane, 0)
+    key = ("digest", "mxh256", 64)
+    x = np.arange(64, dtype=np.uint8)[None]
+    fn = coalesce.make_digest_kernel("mxh256", "cpu")
+    try:
+        h = rc.submit(key, x, fn, device="cpu")
+        assert rc.stats()["remote_submits"] == 1
+        plane.state.owner_down()
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match="device owner died"):
+            h.result(timeout=30.0)
+        assert time.monotonic() - t0 < 2.0
+        assert rc._remote_active() is False           # pinned local
+        # The slot the dead owner may still write is held back.
+        assert plane.arena.stats()["in_use_bytes"] > 0
+        # Local recompute, on the set's device, counted.
+        h = rc.submit(key, x, fn, device="cpu")
+        assert not isinstance(h, ipc.RemoteHandle)
+        want = jax_fused.hash_rows_async(x, "mxh256")
+        assert np.array_equal(np.asarray(h.result(timeout=30)),
+                              np.asarray(want))
+        st = rc.stats()
+        assert st["remote_fallbacks"] == 1 and st["remote_owner_deaths"] == 1
+        assert list(rc.lane_stats()) == ["cpu"]
+        # A new generation that beats re-enables routing and frees the
+        # old generation's slot.
+        plane.state.bump_owner_gen()
+        plane.state.owner_register(os.getpid())
+        assert rc._remote_active() is True
+        deadline = time.monotonic() + 10
+        while (plane.arena.stats()["in_use_bytes"]
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        assert plane.arena.stats()["in_use_bytes"] == 0
+    finally:
+        rc.close()
+
+
+def _arena_settles(plane, timeout=10.0) -> dict:
+    deadline = time.monotonic() + timeout
+    while (plane.arena.stats()["in_use_bytes"]
+           and time.monotonic() < deadline):
+        time.sleep(0.05)                  # the listener frees after decode
+    return plane.arena.stats()
+
+
+@pytest.mark.parametrize("owner_dies", [False, True],
+                         ids=["owner_answers", "owner_dies"])
+def test_respawned_worker_adopts_its_predecessors_slots(monkeypatch,
+                                                        owner_dies):
+    """A worker dies with a request in flight and is respawned into its
+    slot, and its first request has the predecessor's sequence number.
+    The predecessor's answer resolves nothing of the successor's, the
+    successor's result is its own, and every arena slot comes back:
+    whether the owner answers the old request late or dies with it."""
+    monkeypatch.setenv("MTPU_IPC_DISPATCH", "all")
+    plane = WorkerPlane(1, arena_bytes=8 * MIB, ring_capacity=16)
+    plane.state.bump_owner_gen()
+    plane.state.owner_register(os.getpid())
+    key = ("digest", "mxh256", 1024)
+    fn = coalesce.make_digest_kernel("mxh256", "cpu")
+    rng = np.random.default_rng(5)
+    old, new = (rng.integers(0, 256, (4, 1024), dtype=np.uint8)
+                for _ in range(2))
+    # No owner serves yet: the predecessor sends, then dies unanswered.
+    pred = ipc.RemoteCoalescer(plane, 0)
+    assert isinstance(pred.submit(key, old, fn, device="cpu"),
+                      ipc.RemoteHandle)
+    pred._stopped = True
+    pred._listener.join(timeout=5)
+    pred.local.close()
+    (old_req,) = pred._slots
+    plane.state.bump_respawn(0)
+    if owner_dies:
+        plane.state.owner_down()
+        plane.state.bump_owner_gen()
+        plane.state.owner_register(os.getpid())
+    owner_co, close = _serve(plane)
+    succ = ipc.RemoteCoalescer(plane, 0)
+    try:
+        assert list(succ._slots) == [old_req]            # adopted
+        h = succ.submit(key, new, fn, device="cpu")
+        assert isinstance(h, ipc.RemoteHandle)
+        new_req = max(succ._slots)
+        assert new_req & 0xFFFFFFFF == old_req & 0xFFFFFFFF
+        assert new_req != old_req
+        got = np.asarray(h.result(timeout=60))
+        assert np.array_equal(got, np.asarray(
+            jax_fused.hash_rows_async(new, "mxh256")))
+        st = _arena_settles(plane)
+        assert st["in_use_bytes"] == 0 and st["allocs"] == st["frees"] == 2
+        assert not plane.inflight[..., 0].any()
+        assert succ.stats()["remote_results"] == 1
+        # Served: both requests when the owner lived, only the new one
+        # when the old request's generation died unread.
+        assert owner_co.stats()["items"] == (1 if owner_dies else 2)
+    finally:
+        succ.close()
+        close()
+
+
+def test_answer_too_large_for_its_slot_is_an_error(owner_plane):
+    """The owner answers inside the request's slot only: an answer that
+    does not fit is an error (the engine recomputes the item) written in
+    the same slot, which the worker then frees."""
+    plane, _ = owner_plane
+    off = plane.arena.alloc(100)
+    arrays = [np.zeros(2 * MIB, np.uint8)]
+    hdr, _ = ipc._encode_arrays(arrays)
+    ipc._respond_ok(plane, 0, 12345, plane.owner_gen(), hdr, arrays,
+                    (off, 100))
+    rec = plane.resp_rings[0].get(timeout=5)
+    (_, _, req, roff, _, hlen, status, _, _) = ipc._DESC.unpack(
+        rec[:ipc._DESC.size])
+    assert (req, roff, status) == (12345, off, ipc.ST_ERR)
+    assert "exceeds its request's slot" in bytes(
+        plane.arena.view(roff, hlen)).decode()
+    assert plane.arena.stats()["allocs"] == 1
+
+
+def test_stale_generation_request_is_dropped_unread(owner_plane):
+    """A descriptor sent to a dead generation is never served: its
+    worker frees the slot, and the new owner must not touch it."""
+    plane, owner_co = owner_plane
+    rec = ipc._DESC.pack(ipc._MAGIC, 0, 7, 0, 0, 0, ipc.ST_REQ,
+                         plane.owner_gen() - 1, ipc._CPU_DEV)
+    ipc._serve_one(plane, owner_co, rec)
+    assert plane.resp_rings[0].depth() == 0
+    assert owner_co.stats()["items"] == 0
+
+
+# -- one real pool ------------------------------------------------------------
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _env(**extra):
+    env = dict(os.environ, MTPU_ROOT_USER="pooladmin",
+               MTPU_ROOT_PASSWORD="pooladmin-secret", **extra)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    return env
+
+
+def _get(port, path, timeout=5):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        return r.status, r.read().decode()
+
+
+def _metrics(port) -> dict:
+    _, text = _get(port, "/minio/v2/metrics/node")
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, v = line.rsplit(" ", 1)
+            out[name] = float(v)
+    return out
+
+
+def _wait(pred, what, timeout=60, proc=None):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"pool exited {proc.returncode} waiting "
+                                 f"for {what}")
+        try:
+            if pred():
+                return
+        except OSError:
+            pass
+        time.sleep(0.1)
+    raise AssertionError(f"timed out waiting for {what}")
+
+
+def _boot(root, nworkers, extra_env=None, pythonpath=None):
+    port = _free_port()
+    env = _env(MTPU_WORKERS=str(nworkers), **(extra_env or {}))
+    if pythonpath:
+        env["PYTHONPATH"] = os.pathsep.join([pythonpath, env["PYTHONPATH"]])
+    out = open(os.path.join(root, "pool.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.server", "--device", "cpu",
+         "--drives", os.path.join(root, "d{1...4}"), "--port", str(port)],
+        cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    return proc, port
+
+
+def _log(root) -> str:
+    with open(os.path.join(root, "pool.log")) as f:
+        return f.read()
+
+
+@pytest.fixture(scope="module")
+def pool(tmp_path_factory):
+    """One pool boot for the module: two workers and the device owner,
+    every device kind routed through the shared-memory plane."""
+    root = str(tmp_path_factory.mktemp("pool"))
+    proc, port = _boot(root, 2, {"MTPU_IPC_DISPATCH": "all",
+                                 "MTPU_OWNER_STALE_S": "1",
+                                 "MTPU_RESPAWN_DELAY_S": "0.2"})
+    try:
+        def both_ready():
+            m = _metrics(port)
+            return all(m.get(f'mtpu_{f}{{worker="{w}"}}') == 1
+                       for f in ("worker_up", "worker_ready")
+                       for w in (0, 1))
+        _wait(both_ready, "both workers", timeout=90, proc=proc)
+        yield {"proc": proc, "port": port, "root": root,
+               "cli": S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                               "pooladmin-secret", timeout=60)}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
+def _settled_metrics(port) -> dict:
+    """Metrics once the 0.1 s heartbeats have published the last step."""
+    time.sleep(0.6)
+    return _metrics(port)
+
+
+def test_pool_serves_put_get_range_through_the_owner(pool):
+    cli, port = pool["cli"], pool["port"]
+    m0 = _settled_metrics(port)
+    cli.make_bucket("bkt")
+    body = np.random.default_rng(11).bytes(3 * MIB + 12345)
+    h = cli.put_object("bkt", "obj", body)
+    assert h["ETag"].strip('"') == hashlib.md5(body).hexdigest()
+    assert cli.get_object("bkt", "obj") == body
+    st, hdrs, got = cli.request("GET", "/bkt/obj",
+                                headers={"Range": "bytes=1000-2100000"})
+    assert st == 206 and got == body[1000:2100001]
+    m = _settled_metrics(port)
+    items = (m["mtpu_owner_coalesce_items_total"]
+             - m0["mtpu_owner_coalesce_items_total"])
+    # The PUT's full-block batch and tail, the GET's, and the range's.
+    assert items >= 4
+    for w in (0, 1):
+        assert m[f'mtpu_worker_ipc_fallbacks_total{{worker="{w}"}}'] == 0
+        assert m[f'mtpu_worker_co_fallbacks_total{{worker="{w}"}}'] == 0
+        assert m[f'mtpu_worker_kernel_items_total{{worker="{w}",'
+                 f'kernel="gf_matmul"}}'] == 0
+
+
+def test_requests_reach_both_workers(pool):
+    port = pool["port"]
+    for _ in range(40):                 # each a fresh connection
+        assert _get(port, "/minio/health/ready")[0] == 200
+    m = _settled_metrics(port)
+    reqs = [m[f'mtpu_worker_requests_total{{worker="{w}"}}']
+            for w in (0, 1)]
+    assert sum(reqs) >= 40 and min(reqs) > 0
+    assert m["mtpu_owner_up"] == 1 and m["mtpu_owner_generation"] == 1
+
+
+def test_part_files_and_xlmeta_equal_the_jax_set(pool, tmp_path,
+                                                 monkeypatch):
+    import minio_tpu.engine.erasure_set as jax_es_mod
+    from minio_tpu.engine.erasure_set import ErasureSet as JaxErasureSet
+    from minio_tpu.storage.drive import LocalDrive as JaxLocalDrive
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+
+    cli, root = pool["cli"], pool["root"]
+    cli.make_bucket("cmp")
+    body = np.random.default_rng(12).bytes(2 * MIB + 777)
+    cli.put_object("cmp", "o", body)
+    drives = [os.path.join(root, f"d{i}") for i in range(1, 5)]
+    metas = [open(os.path.join(d, "cmp", "o", "xl.meta"), "rb").read()
+             for d in drives]
+    fi = XLMeta.from_bytes(metas[0]).latest("cmp", "o")
+    monkeypatch.setattr(jax_es_mod, "new_uuid", lambda: fi.data_dir)
+    jes = JaxErasureSet([JaxLocalDrive(str(tmp_path / f"j{i}"))
+                         for i in range(4)])
+    try:
+        jes.make_bucket("cmp")
+        jfi = jes.put_object("cmp", "o", body, metadata=dict(fi.metadata),
+                             version_id=fi.version_id,
+                             mod_time_ns=fi.mod_time_ns)
+    finally:
+        jes.pool.shutdown(wait=True)
+        jes._iter_pool.shutdown(wait=True)
+    assert jfi.erasure.distribution == fi.erasure.distribution
+    for i, d in enumerate(drives):
+        jd = str(tmp_path / f"j{i}")
+        with open(os.path.join(jd, "cmp", "o", "xl.meta"), "rb") as f:
+            assert f.read() == metas[i], f"xl.meta of drive {i}"
+        for name in ("part.1",):
+            with open(os.path.join(d, "cmp", "o", fi.data_dir, name),
+                      "rb") as a, open(os.path.join(
+                          jd, "cmp", "o", fi.data_dir, name), "rb") as b:
+                assert a.read() == b.read(), f"{name} of drive {i}"
+
+
+def test_overwrite_is_read_back_from_every_worker(pool):
+    """An acknowledged overwrite is what the next GET returns, whichever
+    worker serves either request (fresh connections land on either)."""
+    cli, port = pool["cli"], pool["port"]
+    cli.make_bucket("ovw")
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=60)
+    for i in range(24):
+        body = b"%d" % i * 100
+        fresh().put_object("ovw", "k", body)
+        for _ in range(2):
+            assert fresh().get_object("ovw", "k") == body, i
+
+
+def test_supervisor_never_loads_torch(pool):
+    sup = pool["proc"].pid
+    with open(f"/proc/{sup}/maps") as f:
+        maps = f.read()
+    assert "libtorch" not in maps and "libc10" not in maps
+    owner = int(_metrics(pool["port"])["mtpu_owner_pid"])
+    with open(f"/proc/{owner}/maps") as f:
+        assert "libtorch" in f.read()
+
+
+def test_owner_sigkill_respawns_and_loses_no_put(pool):
+    cli, port, root = pool["cli"], pool["port"], pool["root"]
+    cli.make_bucket("kill")
+    m0 = _metrics(port)
+    gen0, owner = m0["mtpu_owner_generation"], int(m0["mtpu_owner_pid"])
+    bodies = [np.random.default_rng(20 + i).bytes(MIB + 3 * i)
+              for i in range(3)]
+    os.kill(owner, signal.SIGKILL)
+    # During the gap: the PUT runs on the worker's own lanes.
+    h = cli.put_object("kill", "gap", bodies[0])
+    assert h["ETag"].strip('"') == hashlib.md5(bodies[0]).hexdigest()
+    _wait(lambda: _metrics(port)["mtpu_owner_generation"] == gen0 + 1
+          and _metrics(port)["mtpu_owner_up"] == 1, "the respawned owner",
+          timeout=60, proc=pool["proc"])
+    m1 = _settled_metrics(port)
+    assert int(m1["mtpu_owner_pid"]) != owner
+    for i, body in enumerate(bodies[1:], 1):
+        cli.put_object("kill", f"after{i}", body)
+    m2 = _settled_metrics(port)
+    assert (m2["mtpu_owner_coalesce_items_total"]
+            - m1["mtpu_owner_coalesce_items_total"]) >= 2
+    for i, body in enumerate(bodies):
+        name = "gap" if i == 0 else f"after{i}"
+        assert cli.get_object("kill", name) == body
+    fallbacks = sum(m2[f'mtpu_worker_ipc_fallbacks_total{{worker="{w}"}}']
+                    + m2[f'mtpu_worker_co_fallbacks_total{{worker="{w}"}}']
+                    for w in (0, 1))
+    assert fallbacks > 0
+    assert "respawning as generation 2" in _log(root)
+
+
+def test_sigterm_drains_and_exits_zero(pool):
+    proc = pool["proc"]
+    proc.send_signal(signal.SIGTERM)
+    assert proc.wait(timeout=30) == 0
+
+
+# -- the supervisor stays light; a failing self-test ends the boot -------------
+
+def test_supervisor_imports_leave_torch_out():
+    code = ("import sys\n"
+            "import minio_tpu_torch.server.__main__\n"
+            "from minio_tpu_torch.server.workers import WorkerPlane\n"
+            "WorkerPlane(2, arena_bytes=8 << 20, ring_capacity=16)\n"
+            "print(sorted(m for m in ('torch', 'minio_tpu_torch.ops.coalesce',"
+            " 'minio_tpu_torch.ops.ipc_dispatch') if m in sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_failing_self_test_ends_the_boot(tmp_path):
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(
+        "import minio_tpu_torch.ops.selftest as st\n"
+        "def _fail(device=None):\n"
+        "    raise st.SelfTestError('forced device lane mismatch')\n"
+        "st.run_startup_self_tests = _fail\n")
+    proc, port = _boot(str(tmp_path), 2, pythonpath=str(hook))
+    try:
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    log = _log(str(tmp_path))
+    assert rc != 0, log
+    assert "forced device lane mismatch" in log
+    assert re.search(r"device owner died during boot \(rc=1\)", log)
+    assert "worker pool serving" not in log
+    assert not (tmp_path / "d1" / ".mtpu.sys").exists()  # no worker booted
+
+
+def test_owner_failing_its_self_test_after_a_respawn_ends_the_pool(tmp_path):
+    """The first owner passes its self-tests; after a SIGKILL the
+    respawned one fails them, and the pool ends non-zero instead of
+    respawning it without end."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    passed = tmp_path / "passed-once"
+    (hook / "sitecustomize.py").write_text(
+        "import os\n"
+        "import minio_tpu_torch.ops.selftest as st\n"
+        "_run = st.run_startup_self_tests\n"
+        "def _second_fails(device=None):\n"
+        f"    if os.path.exists({str(passed)!r}):\n"
+        "        raise st.SelfTestError('forced failure after a respawn')\n"
+        f"    open({str(passed)!r}, 'w').close()\n"
+        "    return _run(device)\n"
+        "st.run_startup_self_tests = _second_fails\n")
+    proc, port = _boot(str(tmp_path), 1, {"MTPU_RESPAWN_DELAY_S": "0.2"},
+                       pythonpath=str(hook))
+    try:
+        _wait(lambda: _metrics(port).get('mtpu_worker_ready{worker="0"}')
+              == 1, "worker 0", timeout=90, proc=proc)
+        os.kill(int(_metrics(port)["mtpu_owner_pid"]), signal.SIGKILL)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+    log = _log(str(tmp_path))
+    assert rc == 1, log
+    assert "forced failure after a respawn" in log
+    assert "device owner of generation 2 died before it served" in log
+    assert log.count("respawning as generation") == 1
+    assert log.count("self-tests passed") == 1

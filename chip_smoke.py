@@ -69,8 +69,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       with one, uninterrupted, each twice in turns on a fresh wipe.
    f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
       (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
-      versioned bucket of 2048 objects of 1-100 KiB, 96 of 4 MiB + 1 B
-      and 24 of 64 MiB (6 HighwayHash), about 2.1 GB: PUT with SipHash
+      versioned bucket of 1024 objects of 1-100 KiB, 96 of 4 MiB + 1 B
+      and 12 of 64 MiB (3 HighwayHash), about 1.2 GB (half the depth it
+      had before phase l joined the run): PUT with SipHash
       placement checked, second versions, delete markers, a version
       deleted by id, metadata updates, 1000-key pages listed cold and
       warm and after a PUT, version histories, GET of every live object
@@ -142,10 +143,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    k. the pre-fork worker pool (phase_pool): `python -m
       minio_tpu_torch.server` booted as a subprocess with MTPU_WORKERS=4
       (a supervisor, the device owner and 4 SO_REUSEPORT workers) and
-      with 0, in turns (4, 0, 0, 4), on one EC:8+4 set of 12 drives on
+      with 0, in turns (0, 4: half the turns it had before phase l
+      joined the run), on one EC:8+4 set of 12 drives on
       /dev/shm; client processes that load no torch PUT and GET one
       64 MiB object each from 1, 4 and 16 clients, 8 objects of 1 MiB
-      each from 16, and (the first turn, highwayhash256S) 2 of
+      each from 16, and (the turn with workers, highwayhash256S) 2 of
       64 MiB each from 4.  GB/s and operations/s per step; with workers
       the owner's dispatches and items, the arena's waits and timeouts,
       the fallbacks, the lanes' pack ms per MiB (beside one process's)
@@ -155,9 +157,30 @@ Phases, each printing its own lines; any failure exits non-zero:
       fit the arena, a context in the owner alone; in the last turn the
       owner is SIGKILLed under 4 clients' PUTs (no PUT lost, fallbacks,
       generation + 1, later items the owner's again); SIGTERM exits 0.
-   Phases a-g and i-k run with MTPU_DEVCACHE=0: their counts assume
+      The boots run with the hot tier on (the default): every GET there
+      reads its key once (a first miss only plants a ghost) or an object
+      over MTPU_HOTCACHE_MAX_OBJ, so no count changes.
+   l. the GET side of the serving spine (phase_get_spine): the same
+      deployment with the default 64 MiB hot-object tier, booted four
+      times over one set of drives (one process, tier on and
+      MTPU_HOTCACHE=0; MTPU_WORKERS=4, tier on with new objects written
+      highwayhash256S, and MTPU_HOTCACHE=0); client processes read a
+      hot set of 32 x 1 MiB + 6 x 4 MiB (two cold rounds, the two-hit
+      admission, then from 1, 4 and 16 clients: GB/s and GET/s with the
+      tier and without, misses' device items exact, hits' 0), a scan of
+      128 distinct keys (no fill, the hot set stays resident), 16
+      concurrent cold GETs of one admitted 4 MiB key (one engine read in
+      one process), highwayhash256S misses (hh256 exact), a versioned
+      key warm in every worker read after a PUT of a new version (the
+      new bytes from every worker), and GETs with one drive away (GF
+      rebuilds exact, nothing filled); then in this process an EC:1+1
+      set of 2 drives behind an S3Server: 4 x 64 MiB whole GETs from 1
+      and 4 clients with MTPU_ZEROCOPY=1 (a verified sendfile plan: its
+      device items exact, one sendfile per GET) against =0, bodies
+      equal.
+   Phases a-g and i-l run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i and k run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i, k and l run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
@@ -240,11 +263,13 @@ DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 # one pool of LAYER_SETS sets; a versioned bucket of LAYER_SMALL objects
 # of LAYER_SMALL_BYTES (inline), LAYER_MID of LAYER_MID_BYTES (a ragged
 # tail block) and LAYER_BIG of LAYER_BIG_BYTES, LAYER_BIG_HH of them
-# under highwayhash256S.
+# under highwayhash256S.  Cut to half its depth (2048 small and 24 big
+# objects, 6 of them highwayhash256S, before phase 5l joined the run) to
+# keep the whole run within its time.
 LAYER_SETS, LAYER_SET_DRIVES = 4, 12
-LAYER_SMALL, LAYER_SMALL_BYTES = 2048, (1024, 100 * 1024)
+LAYER_SMALL, LAYER_SMALL_BYTES = 1024, (1024, 100 * 1024)
 LAYER_MID, LAYER_MID_BYTES = 96, 4 * MIB + 1
-LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 24, 6, OBJECT_BYTES
+LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 12, 3, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
 # SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
 # one of SERVER_CHUNKED_BYTES by aws-chunked PUT, SERVER_SMALL of
@@ -286,18 +311,42 @@ HOST_BREAKER_ENV = {"MTPU_BREAKER_ERRS": "2",
 # deployment, booted with MTPU_WORKERS = each of POOL_TURNS in turns:
 # client processes (no torch) PUT and GET one POOL_BIG object each from
 # each of POOL_BIG_CLIENTS clients and POOL_SMALL_PER objects of
-# POOL_SMALL_BYTES each from POOL_SMALL_CLIENTS; in the first turn, on
-# a pool booted with highwayhash256S, POOL_HH_PER POOL_BIG
+# POOL_SMALL_BYTES each from POOL_SMALL_CLIENTS; in a turn with workers,
+# on a pool booted with highwayhash256S, POOL_HH_PER POOL_BIG
 # objects each from POOL_HH_CLIENTS; in the last turn POOL_KILL_CLIENTS
 # clients PUT POOL_KILL_PER POOL_BIG objects each while the owner is
 # SIGKILLed POOL_KILL_AFTER_S seconds in, and as many after its respawn.
 POOL_WORKERS = 4
-POOL_TURNS = (POOL_WORKERS, 0, 0, POOL_WORKERS)
+# (POOL_WORKERS, 0, 0, POOL_WORKERS) before phase 5l joined the run: cut to
+# one turn each to keep the whole run within its time.
+POOL_TURNS = (0, POOL_WORKERS)
 POOL_BIG = OBJECT_BYTES
 POOL_BIG_CLIENTS = (1, 4, 16)
 POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 8, MIB
 POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
 POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
+# Phase 5l, the GET side of the serving spine, over the same deployment
+# with the default 64 MiB hot tier: a hot set of SPINE_HOT (count, size)
+# objects that the tier holds, read by each of SPINE_CLIENTS client
+# processes; a scan of SPINE_SCAN distinct objects of 1 MiB;
+# SPINE_SF_CLIENTS concurrent cold GETs of one admitted 4 MiB object;
+# SPINE_HH highwayhash256S objects of 1 MiB; SPINE_DEG objects of 1 MiB
+# read with one drive away; SPINE_STALE_ROUNDS rounds of
+# SPINE_SF_CLIENTS GETs of a versioned key after a PUT of a new version;
+# and SPINE_SENDFILE objects of 64 MiB on an EC:1+1 set of 2 drives read
+# from each of SPINE_SENDFILE_CLIENTS clients, sendfile against
+# MTPU_ZEROCOPY=0.
+SPINE_HOT = ((32, MIB), (6, 4 * MIB))
+SPINE_WORKERS = POOL_WORKERS
+SPINE_SMALL, SPINE_SF_BYTES = MIB, 4 * MIB
+SPINE_CLIENTS = (1, 4, 16)
+# Past SPINE_STRIDE clients, each client reads a SPINE_STRIDE-th of the
+# hot set (16 clients read it 4 times over, as 4 clients do).
+SPINE_STRIDE = 4
+SPINE_SCAN = 128
+SPINE_SF_CLIENTS = 16
+SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 4, 8, 4
+SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -3344,12 +3393,13 @@ def phase_host_planes(args, counts, card):
         order = Q.shuffle_by_distribution(list(range(12)),
                                           fi.erasure.distribution)
         slow = es.drives[order[0]]
-        real_read = slow.read_file
+        # A local drive's shard reads are mmap views (read_file_view).
+        real_read = slow.read_file_view
 
         def stalled(*a, **kw):
             time.sleep(HOST_STALL_S)
             return real_read(*a, **kw)
-        slow.read_file = stalled
+        slow.read_file_view = stalled
         hedge = {}
         try:
             hedged_env = {"MTPU_HEDGE_MS": str(HOST_HEDGE_MS)}
@@ -3382,7 +3432,7 @@ def phase_host_planes(args, counts, card):
                                      f"{fired} hedges, launches {got_l}")
                 hedge[label] = (ms, got_l["gf_matmul"], fired)
         finally:
-            del slow.read_file
+            del slow.read_file_view
         print(f"[host] GET of {key} with data shard 0's drive stalled "
               f"{HOST_STALL_S * 1e3:.0f} ms a read: " + ", ".join(
                   f"{lb} {ms:.1f} ms (GF reconstruct launches {g}, hedges "
@@ -3399,13 +3449,13 @@ def phase_host_planes(args, counts, card):
                 default_parity=4)])
             hes = hpools.pools[0].sets[0]
             slow = hes.drives[order[0]]
-            real_read = slow.read_file
+            real_read = slow.read_file_view
             stall_s = max(HOST_STALL_S, 2 * hes._hedge_delay_s() + 0.02)
 
             def stalled_http(*a, **kw):
                 time.sleep(stall_s)
                 return real_read(*a, **kw)
-            slow.read_file = stalled_http
+            slow.read_file_view = stalled_http
             srv = S3Server(hpools, sigv4.Credentials(
                 "smokeadmin", "smokeadmin-secret")).start()
             cli = S3Client(srv.endpoint, "smokeadmin", "smokeadmin-secret",
@@ -3666,9 +3716,11 @@ def _boot_server(card, debris: bool = False) -> float:
 def pool_client(spec: dict) -> int:
     """One client process of phase 5k (`chip_smoke.py --pool-client
     JSON`): makes its bodies from their seeds, says `ready`, then PUTs
-    every object on `put` and GETs every one on `get` from stdin, each
-    time printing one JSON line with its monotonic start and end, whether
-    every ETag and body was right, and whether it loaded torch."""
+    every object on `put` and GETs every one on `get` (every N-th from
+    the K-th on `get K N`) from stdin (each as often as it comes, until
+    stdin closes), each time printing one
+    JSON line with its monotonic start and end, whether every ETag and
+    body was right, and whether it loaded torch."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
@@ -3680,12 +3732,16 @@ def pool_client(spec: dict) -> int:
               for key, size, seed in spec["objects"]}
     sha = {k: hashlib.sha256(v).hexdigest() for k, v in bodies.items()}
     print("ready", flush=True)
-    for verb in ("put", "get"):
-        if sys.stdin.readline().strip() != verb:
+    for line in sys.stdin:
+        verb, *cut = line.split()
+        if verb not in ("put", "get"):
             return 1
+        # "get K N": every N-th object from the K-th.
+        keys = list(bodies)[int(cut[0])::int(cut[1])] if cut else bodies
         ok, statuses = True, []
         t0 = time.monotonic()
-        for key, body in bodies.items():
+        for key in keys:
+            body = bodies[key]
             path = f"/{spec['bucket']}/{key}"
             if verb == "put":
                 st, hdrs, _ = cli.request(
@@ -3714,8 +3770,7 @@ class _Clients:
     def __init__(self, port: int, bucket: str, per_client: list[list]):
         here = os.path.abspath(__file__)
         self.procs = []
-        self.bytes = sum(size for objs in per_client for _, size, _ in objs)
-        self.objects = sum(len(objs) for objs in per_client)
+        self.per_client = per_client
         for objs in per_client:
             spec = {"port": port, "ak": "pooladmin",
                     "sk": "pooladmin-secret", "bucket": bucket,
@@ -3728,17 +3783,25 @@ class _Clients:
                 self.close()
                 raise SystemExit("pool: a client did not start")
 
-    def run(self, verb: str, during=None) -> dict:
-        """Every client's `verb` at once (`during()` runs once they are
-        told): seconds from the first start to the last end, GB/s and
+    def run(self, verb: str, during=None, only: int | None = None,
+            stride: int | None = None) -> dict:
+        """Every client's `verb` at once, or the first `only` clients'
+        (`during()` runs once they are told); with `stride`, client c
+        takes every `stride`-th of its objects from the (c % stride)-th.
+        Seconds from the first start to the last end, GB/s and
         operations/s over them."""
-        for p in self.procs:
-            p.stdin.write(verb + "\n")
+        procs = self.procs[:only]
+        objs = self.per_client[:only]
+        if stride:
+            objs = [o[c % stride::stride] for c, o in enumerate(objs)]
+        for c, p in enumerate(procs):
+            p.stdin.write(verb + (f" {c % stride} {stride}" if stride
+                                  else "") + "\n")
             p.stdin.flush()
         if during is not None:
             during()
         res = []
-        for p in self.procs:
+        for p in procs:
             line = p.stdout.readline()
             if not line:
                 raise SystemExit(f"pool: a client died during {verb}")
@@ -3747,8 +3810,15 @@ class _Clients:
         if bad:
             raise SystemExit(f"pool: {verb} wrong or loaded torch: {bad}")
         s = max(r["t1"] for r in res) - min(r["t0"] for r in res)
-        return {"s": s, "gbps": self.bytes / s / 1e9,
-                "ops": self.objects / s}
+        return {"s": s,
+                "gbps": sum(z for o in objs for _, z, _ in o) / s / 1e9,
+                "ops": sum(len(o) for o in objs) / s}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def close(self) -> None:
         for p in self.procs:
@@ -3769,20 +3839,22 @@ class _Pool:
     with MTPU_WORKERS=`workers`, booted as a subprocess (fork and exec);
     `metrics()` reads the pool's families when workers > 0."""
 
-    def __init__(self, root: str, workers: int, algo: str = "mxh256"):
+    def __init__(self, root: str, workers: int, algo: str = "mxh256",
+                 env: dict | None = None):
         self.root, self.workers = root, workers
         self.port = _free_port()
         env = dict(os.environ, MTPU_ROOT_USER="pooladmin",
                    MTPU_ROOT_PASSWORD="pooladmin-secret",
                    MTPU_STORAGE_CLASS_STANDARD="EC:4",
-                   MTPU_WORKERS=str(workers))
+                   MTPU_WORKERS=str(workers), **(env or {}))
         env.pop("MTPU_IPC_DISPATCH", None)
         env.pop("MTPU_BITROT_ALGO", None)
         if algo != "mxh256":
             env["MTPU_BITROT_ALGO"] = algo
         here = os.path.dirname(os.path.abspath(__file__))
         env["PYTHONPATH"] = here
-        self.log = os.path.join(root, f"pool-w{workers}-{algo}.log")
+        self.log = os.path.join(
+            root, f"pool-w{workers}-{algo}-{len(os.listdir(root))}.log")
         t0 = time.perf_counter()
         with open(self.log, "w") as out:
             self.proc = subprocess.Popen(
@@ -4014,7 +4086,7 @@ def phase_pool(args, counts, card):
        body equal, fallbacks > 0, the generation one higher; then 4
        more whose items are the owner's again, exactly;
     4. SIGTERM: exit 0 within 30 s;
-    5. in the first turn, a pool booted with highwayhash256S over the
+    5. in the turn with workers, a pool booted with highwayhash256S over the
        same drives: 2 objects of 64 MiB from each of 4 clients, items
        exact, part files equal to an ErasureSet's in this process.
 
@@ -4165,7 +4237,7 @@ def phase_pool(args, counts, card):
                                 dir="/dev/shm")
         pool = None
         try:
-            for algo in ("mxh256", HH) if turn == 0 else ("mxh256",):
+            for algo in ("mxh256", HH) if workers else ("mxh256",):
                 pool = _Pool(root, workers, algo)
                 owner_line = next((ln for ln in open(pool.log)
                                    if "self-tests" in ln), "").strip()
@@ -4231,11 +4303,11 @@ def phase_pool(args, counts, card):
             shutil.rmtree(root, ignore_errors=True)
 
     for (turn, algo), h in hashes.items():
-        ref = hashes[0, algo]
+        first, ref = min((t, r) for (t, a), r in hashes.items() if a == algo)
         common = set(h) & set(ref)
         if len(common) < len(ref) or any(h[k] != ref[k] for k in common):
             raise SystemExit(f"pool: part files of turn {turn + 1} ({algo})"
-                             " differ from turn 1's")
+                             f" differ from turn {first + 1}'s")
     pack_in = _inprocess_pack_ms_per_mib(card)
     # The pools' launches are read from their metrics; this process's
     # comparison above is no main path's: nothing of it is tallied.
@@ -4248,6 +4320,451 @@ def phase_pool(args, counts, card):
           f"step's left out); lanes' pack in one "
           f"process {pack_in:.4f} ms/MiB; card {card}")
     return launches
+
+
+def _spine_counts(m: dict, workers: int) -> dict:
+    """Phase 5l's counters from one metrics read: per kernel the launches
+    and items (the owner's and the workers' in a pool, the process's
+    own outside one), the shared tier's counts, and per worker its
+    requests and tier hits and misses."""
+    out = {}
+    for k in ("gf_matmul", "hh256", "mxh256"):
+        for what in ("launches", "items"):
+            if workers:
+                v = m[f'mtpu_owner_kernel_{what}_total{{kernel="{k}"}}'] \
+                    + sum(m[f'mtpu_worker_kernel_{what}_total{{worker="{w}",'
+                            f'kernel="{k}"}}'] for w in range(workers))
+            else:
+                v = m[f'mtpu_kernel_{what}_total{{kernel="{k}"}}']
+            out[f"{what}_{k}"] = int(v)
+    # A server without a tier (MTPU_HOTCACHE=0) has no tier families.
+    for key in ("hits", "misses", "meta_hits", "fills", "evictions",
+                "bypassed", "ghost_defers", "stale_generation"):
+        out[key] = int(m.get(f"mtpu_hotcache_{key}_total", 0))
+    for w in range(workers):
+        for key in ("requests", "hotcache_hits", "hotcache_misses"):
+            out[f"w{w}_{key}"] = int(
+                m[f'mtpu_worker_{key}_total{{worker="{w}"}}'])
+    out["owner_pid"] = int(m.get("mtpu_owner_pid", 0))
+    return out
+
+
+def phase_get_spine(args, counts, card):
+    """The GET half of the serving spine over BASELINE.json config 2's
+    deployment (one EC:8+4 set of 12 drives on /dev/shm, 1 MiB blocks,
+    MINIO_STORAGE_CLASS_STANDARD=EC:4) with the default 64 MiB hot-object
+    tier (engine/hotcache.py).  `python -m minio_tpu_torch.server` boots
+    four times over the same drives, each a subprocess read through its
+    /minio/v2/metrics/node families: A, one process, tier on; B, one
+    process, MTPU_HOTCACHE=0; C, MTPU_WORKERS=4, tier on, new objects
+    written highwayhash256S; D, MTPU_WORKERS=4, MTPU_HOTCACHE=0.  The
+    device shard cache is off (MTPU_DEVCACHE=0, as in every pool
+    worker), so every miss reads its shards.  Client processes that load
+    no torch PUT and GET:
+
+    1. the hot set (SPINE_HOT, about 56 MiB): two cold rounds from one
+       client (the two-hit admission: the first plants ghosts, the
+       second fills), then every key from each of SPINE_CLIENTS clients;
+       in A and C the misses' device items exact and the hits' 0, in D
+       (no tier) every GET's exact; GET GB/s and operations/s with the
+       tier and without it, in one process and in the pool; the hit
+       ratio, fills and evictions;
+    2. (A) a scan: SPINE_SCAN distinct keys of 1 MiB read once each:
+       no fill, and the hot set read again is all hits;
+    3. single flight: SPINE_SF_CLIENTS concurrent GETs of one admitted
+       4 MiB key cost exactly one engine read in A (in C one per worker
+       at most: flights are per process);
+    4. (C) SPINE_HH highwayhash256S objects: their misses launch hh256
+       exactly, their hits nothing;
+    5. (C) stale reads in the pool: a versioned key warm in every worker
+       (its FileInfo and the tier), a new version PUT through one worker,
+       then SPINE_STALE_ROUNDS rounds of SPINE_SF_CLIENTS GETs: the new
+       bytes every time, from every worker;
+    6. (C) one drive away: SPINE_DEG objects read three times each
+       rebuild through GF with exact items and fill nothing;
+    7. verified sendfile, in this process: an EC:1+1 set on 2 drives
+       behind an S3Server, SPINE_SENDFILE objects of 64 MiB read whole
+       from each of SPINE_SENDFILE_CLIENTS clients with MTPU_ZEROCOPY=1
+       (os.sendfile after the plan's verify on the card) and =0, in
+       turns: bodies equal in both, the plan's device items exact, one
+       sendfile per GET.
+
+    Returns the kernel launches of its steps, the subprocess servers'
+    (from their metrics) with this process's sendfile part; the
+    servers' mxh256 launches are also under "mxh256_elsewhere" (their
+    shapes are not in this process's tally)."""
+    from minio_tpu_torch.engine import hotcache
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.ops import zerocopy as zc
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+
+    hot_bytes = sum(n * size for n, size in SPINE_HOT)
+    need = (12 * (hot_bytes + (SPINE_SCAN + SPINE_HH + SPINE_DEG + 2)
+                  * SPINE_SMALL + 2 * SPINE_SF_BYTES) // 8
+            + 2 * SPINE_SENDFILE * OBJECT_BYTES + (2 << 30))
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"spine: needs {need} bytes free on /dev/shm")
+    t_phase = time.perf_counter()
+    seed = args.seed + 9000
+    hot = [(f"hot{j}-{i}", size, seed + 100 * j + i)
+           for j, (n, size) in enumerate(SPINE_HOT) for i in range(n)]
+    n_hot = len(hot)
+    deg = [(f"deg-{i}", SPINE_SMALL, seed + 8000 + i)
+           for i in range(SPINE_DEG)]
+    launches = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+    elsewhere = 0
+    counts.reset()
+    gbps: dict = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke-spine-", dir="/dev/shm")
+
+    def settled(pool):
+        """The metrics after a step: one process serves its own live;
+        a pool's processes publish on a 0.1 s heartbeat."""
+        return pool.settled() if pool.workers else pool.metrics()
+
+    def _stride(n):
+        """Past SPINE_STRIDE clients each reads a SPINE_STRIDE-th of
+        the hot set, so a round holds at most SPINE_STRIDE passes."""
+        return n // SPINE_STRIDE if n > SPINE_STRIDE else None
+
+    def run(pool, cl, verbs, what, want_items=None, only=None,
+            stride=None):
+        """`verbs` from the clients of `cl` (a _Clients; the first
+        `only` of them), the server's counters around each; `want_items`
+        (per verb: a dict of kernel -> items, or None) holds the device
+        items exactly, and the launches to at most the items and at
+        least one where there were items.  Returns [(run result, counter
+        deltas)]."""
+        nonlocal elsewhere
+        out = []
+        before = _spine_counts(settled(pool), pool.workers)
+        for i, verb in enumerate(verbs):
+            r = cl.run(verb, only=only, stride=stride)
+            after = _spine_counts(settled(pool), pool.workers)
+            d = {k: after[k] - before[k] for k in after}
+            if d["owner_pid"]:
+                raise SystemExit(f"spine: {what}: the owner was "
+                                 "replaced")
+            for k in launches:
+                launches[k] += d[f"launches_{k}"]
+            elsewhere += d["launches_mxh256"]
+            want = want_items[i] if want_items else None
+            if want is not None:
+                for k in launches:
+                    items, got = d[f"items_{k}"], d[f"launches_{k}"]
+                    if items != want.get(k, 0) or got > items or \
+                            (items and not got):
+                        raise SystemExit(
+                            f"spine: {what} {verb} #{i + 1}: items "
+                            f"{ {k: d[f'items_{k}'] for k in launches} }"
+                            f", launches "
+                            f"{ {k: d[f'launches_{k}'] for k in launches} }"
+                            f", want items {want}")
+            out.append((r, d))
+            before = after
+        return out
+
+    def line(what, pool, res, i=-1):
+        r, d = res[i]
+        hits = d["hits"]
+        look = hits + d["misses"]
+        return (f"[spine] {pool.label} {what}: {r['gbps']:.3f} GB/s, "
+                f"{r['ops']:.1f} GET/s; tier hits {hits}/{look}, fills "
+                f"{d['fills']}, evictions {d['evictions']}, bypassed "
+                f"{d['bypassed']}; items mxh256 {d['items_mxh256']} hh256 "
+                f"{d['items_hh256']} gf {d['items_gf_matmul']}, launches "
+                f"mxh256 {d['launches_mxh256']} hh256 "
+                f"{d['launches_hh256']} gf {d['launches_gf_matmul']}; card "
+                f"{card}")
+
+    def hot_rounds(pool, hot_cl, tier: bool, cold: bool):
+        """The hot set: (with `cold`) two rounds from one client, then
+        each of SPINE_CLIENTS; items exact."""
+        if cold:
+            res = run(pool, hot_cl, ("get", "get"), "cold rounds",
+                      [{"mxh256": n_hot}] * 2, only=1)
+            (_, d1), (_, d2) = res
+            if tier and (d1["fills"], d1["ghost_defers"], d2["fills"]) != \
+                    (0, n_hot, n_hot):
+                raise SystemExit(f"spine: {pool.label} cold rounds filled "
+                                 f"{d1['fills']}, {d2['fills']} (ghosts "
+                                 f"{d1['ghost_defers']})")
+            for i, name in enumerate(("cold round 1 (ghosts)",
+                                      "cold round 2 (fills)")):
+                print(line(name, pool, res, i))
+        for n in SPINE_CLIENTS:
+            gets = n_hot * min(n, SPINE_STRIDE)
+            want = {} if tier else {"mxh256": gets}
+            res = run(pool, hot_cl, ("get",), f"{n} clients", [want],
+                      only=n, stride=_stride(n))
+            _, d = res[0]
+            if tier and (d["hits"] != gets or d["fills"]
+                         or d["evictions"]):
+                raise SystemExit(f"spine: {pool.label} {n} clients: hits "
+                                 f"{d['hits']} of {gets}: {d}")
+            gbps[pool.label, n] = res[0][0]
+            print(line(f"hot set x {n} clients", pool, res))
+
+    def single_flight(pool, key, exact):
+        """One admitted 4 MiB key (PUT, one GET plants its ghost), then
+        SPINE_SF_CLIENTS clients GET it at once."""
+        obj = [(key, SPINE_SF_BYTES, seed + 5000 + len(key))]
+        with _Clients(pool.port, "spinesf",
+                        [obj] * SPINE_SF_CLIENTS) as cl:
+            run(pool, cl, ("put", "get"), f"{key} admit", only=1)
+            res = run(pool, cl, ("get",), f"{key} single flight")
+        _, d = res[0]
+        reads = d["items_mxh256"] + d["items_hh256"]
+        if (exact and reads != 1) or not 1 <= reads <= max(pool.workers, 1):
+            raise SystemExit(f"spine: {pool.label} single flight read "
+                             f"{reads} times: {d}")
+        print(f"[spine] {pool.label} single flight: {SPINE_SF_CLIENTS} "
+              f"concurrent cold GETs of one admitted 4 MiB key cost {reads}"
+              f" engine read(s) (device items), fills {d['fills']}, hits "
+              f"{d['hits']}; {res[0][0]['gbps']:.3f} GB/s; card {card}")
+
+    def scan(pool, hot_cl):
+        objs = [(f"scan-{i}", SPINE_SMALL, seed + 3000 + i)
+                for i in range(SPINE_SCAN)]
+        # In a bucket of its own: a PUT bumps its bucket's generation.
+        with _Clients(pool.port, "spinescan", [objs]) as cl:
+            run(pool, cl, ("put",), "scan put")
+            res = run(pool, cl, ("get",), "scan", [{"mxh256": SPINE_SCAN}])
+        _, d = res[0]
+        again = run(pool, hot_cl, ("get",), "hot set after the scan", [{}],
+                    only=1)
+        _, d2 = again[0]
+        if d["fills"] or d2["hits"] != n_hot:
+            raise SystemExit(f"spine: the scan filled {d['fills']}; the "
+                             f"hot set then hit {d2['hits']} of {n_hot}")
+        print(f"[spine] {pool.label} scan of {SPINE_SCAN} x 1 MiB keys "
+              f"read once: {res[0][0]['gbps']:.3f} GB/s, fills 0, ghosts "
+              f"{d['ghost_defers']}, evictions {d['evictions']}; the hot "
+              f"set after it: {d2['hits']}/{n_hot} hits, 0 device items; "
+              f"card {card}")
+
+    def hh_step(pool):
+        objs = [(f"hh-{i}", SPINE_SMALL, seed + 4000 + i)
+                for i in range(SPINE_HH)]
+        with _Clients(pool.port, "spinehh", [objs]) as cl:
+            run(pool, cl, ("put",), "hh put")
+            res = run(pool, cl, ("get", "get", "get"), "highwayhash256S",
+                      [{"hh256": SPINE_HH}, {"hh256": SPINE_HH}, {}])
+        fills = [d["fills"] for _, d in res]
+        if fills != [0, SPINE_HH, 0]:
+            raise SystemExit(f"spine: {HH} fills {fills}")
+        print(f"[spine] {pool.label} {SPINE_HH} x {SPINE_SMALL} B {HH}: misses "
+              f"{res[0][1]['launches_hh256']} + {res[1][1]['launches_hh256']}"
+              f" hh256 launches for {SPINE_HH} + {SPINE_HH} items, hits "
+              f"{res[2][1]['hits']} with 0; card {card}")
+
+    def stale_step(pool):
+        cli = S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                       "pooladmin-secret", timeout=60)
+        cli.make_bucket("stale")
+        cli.set_versioning("stale", True)
+        v1 = [("k", SPINE_SMALL, seed + 6001)]
+        v2 = [("k", SPINE_SMALL, seed + 6002)]
+        with _Clients(pool.port, "stale", [v1] * SPINE_SF_CLIENTS) as cl:
+            run(pool, cl, ("put",), "stale v1", only=1)
+            warm = run(pool, cl, ("get",) * SPINE_STALE_ROUNDS,
+                       "stale warm")
+        with _Clients(pool.port, "stale", [v2] * SPINE_SF_CLIENTS) as cl:
+            run(pool, cl, ("put",), "stale v2", only=1)
+            after = run(pool, cl, ("get",) * SPINE_STALE_ROUNDS,
+                        "stale after")
+        per_w = [sum(d[f"w{w}_requests"] for _, d in res)
+                 for res in (warm, after) for w in range(pool.workers)]
+        if min(per_w) == 0:
+            raise SystemExit(f"spine: a worker served none of the stale "
+                             f"GETs: {per_w}")
+        print(f"[spine] {pool.label} stale reads: a versioned 1 MiB key "
+              f"warm in every worker ({per_w[:pool.workers]} GETs), v2 "
+              f"PUT through one, then {SPINE_STALE_ROUNDS} x "
+              f"{SPINE_SF_CLIENTS} GETs ({per_w[pool.workers:]} by "
+              f"worker): v2 every time; tier fills "
+              f"{sum(d['fills'] for _, d in after)}, stale "
+              f"{sum(d['stale_generation'] for _, d in after)}; card "
+              f"{card}")
+
+    def degraded_step(pool, objs):
+        fis = {}
+        for key, _, _ in objs:
+            with open(os.path.join(root, "b1", "spinedeg", key, "xl.meta"),
+                      "rb") as f:
+                fis[key] = XLMeta.from_bytes(f.read()).latest("spinedeg",
+                                                              key)
+        # Away: the drive holding data shard 0 of the first object.
+        fi0 = fis[objs[0][0]]
+        pos = fi0.erasure.distribution.index(1)
+        gf = sum(1 for fi in fis.values() if _holds_data(fi, [pos]))
+        away = os.path.join(root, f"b{pos + 1}")
+        os.rename(away, away + ".away")
+        try:
+            with _Clients(pool.port, "spinedeg", [objs]) as cl:
+                res = run(pool, cl, ("get",) * 3, "one drive away",
+                          [{"mxh256": len(objs), "gf_matmul": gf}] * 3)
+        finally:
+            os.rename(away + ".away", away)
+        fills = sum(d["fills"] for _, d in res)
+        bypassed = sum(d["bypassed"] for _, d in res)
+        if fills or bypassed != 3 * len(objs):
+            raise SystemExit(f"spine: degraded GETs filled {fills}, "
+                             f"bypassed {bypassed}")
+        print(f"[spine] {pool.label} drive {pos + 1} away: {len(objs)} x "
+              f"1 MiB read 3 times: GF items {3 * gf} "
+              f"({sum(d['launches_gf_matmul'] for _, d in res)} launches),"
+              f" fills 0, bypassed {bypassed}; {res[-1][0]['gbps']:.3f} "
+              f"GB/s; card {card}")
+
+    def sendfile_step():
+        """An EC:1+1 set on 2 drives behind an in-process S3Server."""
+        zroot = os.path.join(root, "zc")
+        spools = ServerPools([ErasureSets(
+            [LocalDrive(os.path.join(zroot, f"z{i}")) for i in range(2)],
+            set_drive_count=2, default_parity=1)])
+        hotcache.attach_pools(spools)
+        srv = S3Server(spools, Credentials("pooladmin",
+                                           "pooladmin-secret")).start()
+        objs = [(f"z-{i}", OBJECT_BYTES, seed + 7000 + i)
+                for i in range(SPINE_SENDFILE)]
+        n_max = max(SPINE_SENDFILE_CLIENTS)
+        # Heal's frame batches (32 full frames, then the tail frame): the
+        # same count as a GET's segments and as a PUT's batches.
+        per_get = _put_calls(OBJECT_BYTES)
+        try:
+            S3Client(srv.endpoint, "pooladmin", "pooladmin-secret",
+                     timeout=60).make_bucket("spinezc")
+            # Client c holds objects c, c + n_max, ...: the first n
+            # clients read them all between them.
+            cl = _Clients(srv.port, "spinezc",
+                          [objs[c::n_max] for c in range(n_max)])
+            rows = {}
+            try:
+                cl.run("put")
+                for turn, mode in enumerate(("1", "0", "0", "1")):
+                    os.environ["MTPU_ZEROCOPY"] = mode
+                    for n in SPINE_SENDFILE_CLIENTS:
+                        l0, i0, z0 = counts.read(), counts.items(), \
+                            zc.stats()
+                        r = cl.run("get", only=n)
+                        l1, i1, z1 = counts.read(), counts.items(), \
+                            zc.stats()
+                        rows.setdefault((mode, n), []).append(
+                            (r, l0, i0, z0, l1, i1, z1))
+            finally:
+                cl.close()
+            for (mode, n), runs in rows.items():
+                for r, l0, i0, z0, l1, i1, z1 in runs:
+                    gets = sum(len(objs[c::n_max]) for c in range(n))
+                    got = {k: l1[k] - l0[k] for k in l1}
+                    items = {k: i1[k] - i0[k] for k in i1}
+                    sent = z1["sendfile"] - z0["sendfile"]
+                    if items != {"gf_matmul": 0, "hh256": 0,
+                                 "mxh256": gets * per_get} or \
+                            sent != (gets if mode == "1" else 0) or \
+                            (mode == "1" and got["mxh256"] != items["mxh256"]):
+                        raise SystemExit(
+                            f"spine: sendfile MTPU_ZEROCOPY={mode} {n} "
+                            f"clients: items {items}, launches {got}, "
+                            f"sendfiles {sent} of {gets}")
+            print("[spine] verified sendfile, EC:1+1 on 2 drives, "
+                  f"{SPINE_SENDFILE} x {OBJECT_BYTES} B whole GETs, bodies "
+                  "equal in both modes, one sendfile per GET and "
+                  f"{per_get} mxh256 verify launches per plan: " + ", ".join(
+                      f"MTPU_ZEROCOPY={m} {n} client(s) "
+                      + "/".join(f"{x[0]['gbps']:.3f}" for x in v) + " GB/s"
+                      for (m, n), v in sorted(rows.items()))
+                  + f"; card {card}")
+        finally:
+            os.environ.pop("MTPU_ZEROCOPY", None)
+            srv.shutdown()
+            spools.close()
+
+    pool = None
+    clients: list = []
+    try:
+        for label, workers, algo, env in (
+                ("A 1 process", 0, "mxh256", {}),
+                ("B 1 process MTPU_HOTCACHE=0", 0, "mxh256",
+                 {"MTPU_HOTCACHE": "0"}),
+                (f"C {SPINE_WORKERS} workers", SPINE_WORKERS, HH, {}),
+                (f"D {SPINE_WORKERS} workers MTPU_HOTCACHE=0",
+                 SPINE_WORKERS, "mxh256", {"MTPU_HOTCACHE": "0"})):
+            tier = "MTPU_HOTCACHE" not in env
+            t0 = time.perf_counter()
+            pool = _Pool(root, workers, algo, env=env)
+            pool.label = label
+            print(f"[spine] {label}: ready in {pool.boot_s:.2f} s; card "
+                  f"{card}")
+            hot_cl = _Clients(pool.port, "spine",
+                              [hot] * max(SPINE_CLIENTS))
+            clients.append(hot_cl)
+            if label.startswith("A"):
+                cli = S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                               "pooladmin-secret", timeout=60)
+                for b in ("spine", "spinedeg", "spinescan", "spinesf"):
+                    cli.make_bucket(b)
+                run(pool, hot_cl, ("put",), "hot set put", only=1)
+                with _Clients(pool.port, "spinedeg", [deg]) as cl:
+                    run(pool, cl, ("put",), "degraded put")
+            if label.startswith("B"):
+                # Without a tier the one process serves no metrics: its
+                # rounds are timed, not counted.
+                for n in SPINE_CLIENTS:
+                    r = hot_cl.run("get", only=n, stride=_stride(n))
+                    gbps[label, n] = r
+                    print(f"[spine] {label} hot set x {n} clients: "
+                          f"{r['gbps']:.3f} GB/s, {r['ops']:.1f} GET/s "
+                          f"(device items not read: no metrics route "
+                          f"without a tier or a pool); card {card}")
+            else:
+                hot_rounds(pool, hot_cl, tier, cold=tier)
+            if label.startswith("A"):
+                scan(pool, hot_cl)
+                single_flight(pool, "sf-one", exact=True)
+            if label.startswith("C"):
+                cli = S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                               "pooladmin-secret", timeout=60)
+                cli.make_bucket("spinehh")
+                hh_step(pool)
+                single_flight(pool, "sf-pool", exact=False)
+                stale_step(pool)
+                degraded_step(pool, deg)
+            hot_cl.close()
+            stop_s = pool.stop()
+            pool = None
+            print(f"[spine] {label}: SIGTERM, exit 0 in {stop_s:.2f} s; "
+                  f"{time.perf_counter() - t0:.1f} s in all")
+        sendfile_step()
+    finally:
+        for cl in clients:
+            cl.close()
+        if pool is not None:
+            pool.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    ratios = ", ".join(
+        f"{n} client(s) {gbps[a, n]['gbps']:.3f} against "
+        f"{gbps[b, n]['gbps']:.3f}"
+        for a, b in (("A 1 process", "B 1 process MTPU_HOTCACHE=0"),
+                     (f"C {SPINE_WORKERS} workers",
+                      f"D {SPINE_WORKERS} workers MTPU_HOTCACHE=0"))
+        for n in SPINE_CLIENTS)
+    print(f"[spine] hot-set GET GB/s, tier on against MTPU_HOTCACHE=0 (one "
+          f"process, then {SPINE_WORKERS} workers): {ratios}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+    # This process's launches (the sendfile step's PUTs and GETs) join
+    # the servers'; its mxh256 calls stay in the shape tally (read, not
+    # reset).
+    for k, v in counts.read().items():
+        launches[k] += v
+    return {**launches, "mxh256_elsewhere": elsewhere}
 
 
 def phase_layers(torch, card, dev):
@@ -4614,6 +5131,7 @@ def main() -> int:
         "identity": lambda: phase_identity(args, counts, card),
         "host planes": lambda: phase_host_planes(args, counts, card),
         "worker pool": lambda: phase_pool(args, counts, card),
+        "serving spine": lambda: phase_get_spine(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -4666,9 +5184,11 @@ def main() -> int:
     calls = sum(p["mxh256"] for p in per_path.values())
     print(f"[mxh256] at (384, 131072): {mxh['ms']:.4f} ms against a bound "
           f"of {mxh['bound_ms']:.4f} ms; card {card}")
-    # The worker pool's calls ran in its own processes, untallied.
+    # The worker pool's calls, and the serving spine's servers', ran in
+    # their own processes, untallied.
     phase_mxh_shapes(torch, mt, gen, card, tally,
-                     calls - per_path["worker pool"]["mxh256"])
+                     calls - per_path["worker pool"]["mxh256"]
+                     - per_path["serving spine"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

@@ -61,6 +61,21 @@ delay (the set's DynamicTimeout) are covered by parity spares, whose
 rows are then rebuilt on the device.  `stats()` counts elections and
 hedges.
 
+The GET side of the serving spine: with a hot tier attached
+(`hot_tier`, engine/hotcache.py, MTPU_HOTCACHE) a GET is served from the
+pool-shared RAM tier when its entry is fresh, and a cold GET of a
+cacheable object (streaming layout, 1 B to MTPU_HOTCACHE_MAX_OBJ) runs
+single-flight: one leader reads the whole object and fills the tier
+when every segment verified its k data shards in one round on the
+device, its followers slice the leader's result.  A hit launches
+nothing.  `get_object_iter` serves a hit as a view of the tier's shared
+arena while zero-copy is on.  With a tier attached, the FileInfo cache
+is stamped with the tier's shared generation as well as this set's, so
+a write through another worker process invalidates it at once.
+`sendfile_plan` plans a whole healthy GET of a k=1 object as verified
+file runs that the server sends with os.sendfile (ops/zerocopy.py): the
+shard's frames are verified on the device through the fd the sends use.
+
 The device is explicit: `device=None` is the CUDA card
 `set_index % n_devices()`, `device="cpu"` runs the plain versions on the
 host, and without CUDA the constructor raises.
@@ -71,13 +86,13 @@ mutation calls `_mark_dirty`, which bumps the bucket's metacache
 generation, so no listing is served from a cache taken before it.
 
 Left out of this slice (each has a byte-identical off switch in the JAX
-package, so the bytes do not depend on it): the hot-object cache,
-metadata lanes, zero-copy sends (`sendfile_plan`), the multi-device
-mesh codec and legacy xl.json objects.
+package, so the bytes do not depend on it): metadata lanes, the
+multi-device mesh codec and legacy xl.json objects.
 """
 
 from __future__ import annotations
 
+import mmap
 import os
 import queue as _queuemod
 import threading
@@ -207,6 +222,9 @@ class ErasureSet:
         # Device shard cache identity: a fresh token per instance, so a
         # reopened set never sees what an earlier one filled.
         self._devcache_owner = devcache.next_owner()
+        # The hot-object tier (engine/hotcache.attach_sets), None until
+        # the boot attaches one.
+        self.hot_tier = None
 
     #: FileInfo cache: the TTL of the bucket-existence cache; the size
     #: cap only matters for pathological key churn.
@@ -220,6 +238,8 @@ class ErasureSet:
         write."""
         self._fi_gen[bucket] = self._fi_gen.get(bucket, 0) + 1
         self.metacache.bump(bucket)
+        if self.hot_tier is not None:
+            self.hot_tier.note_mutation(bucket)
         devcache.get().note_mutation(self._devcache_owner, bucket)
 
     def close(self) -> None:
@@ -649,7 +669,29 @@ class ErasureSet:
                    ) -> tuple[FileInfo, bytes]:
         """Read [offset, offset+length) of an object, verifying bitrot on
         the device and rebuilding up to `parity` missing or corrupt
-        shards (cf. getObjectWithFileInfo, cmd/erasure-object.go:221)."""
+        shards (cf. getObjectWithFileInfo, cmd/erasure-object.go:221).
+
+        With a hot tier attached the read is served from the tier when
+        its entry is fresh; a cold read of a cacheable object runs
+        single-flight and fills the tier when fully verified."""
+        tier = self.hot_tier
+        if tier is not None and tier.enabled:
+            got = self._get_object_hot(bucket, obj, offset, length,
+                                       version_id)
+            if got is not None:
+                return got
+        return self._get_object_direct(bucket, obj, offset, length,
+                                       version_id)
+
+    def _get_object_direct(self, bucket: str, obj: str, offset: int = 0,
+                           length: int = -1, version_id: str = "",
+                           report: dict | None = None
+                           ) -> tuple[FileInfo, bytes]:
+        """The engine read, without the tier.  `report` collects what
+        decides a tier fill: "segs", the segments read; "fast", those
+        whose k data shards verified in one round (or came from the
+        device shard cache); "taint", any degraded read or rebuild.  A
+        fill needs fast == segs and no taint."""
         fi, metas, offset, length = self._plan_read(bucket, obj, offset,
                                                     length, version_id)
         if length == 0:
@@ -662,11 +704,15 @@ class ErasureSet:
         offs = [0]
         for _, _, ln in segs[:-1]:
             offs.append(offs[-1] + ln)
+        if report is not None:
+            report["segs"] = len(segs)
+            if self._degraded(metas):
+                report["taint"] = True
 
         def read_seg(i):
             pn, off, ln = segs[i]
             mv[offs[i]:offs[i] + ln] = self._read_part(bucket, obj, fi, pn,
-                                                       off, ln)
+                                                       off, ln, report)
 
         # Segment i+1's reads and device call run while segment i is
         # copied into place, under get_object_iter's gate.
@@ -674,6 +720,198 @@ class ErasureSet:
                                        self._prefetch_pool(metas), depth=1):
             pass
         return fi, out
+
+    # -- hot tier --------------------------------------------------------------
+
+    @staticmethod
+    def _hot_range(fi, body, offset: int, length: int):
+        """Slice a cached or leader's whole body with _plan_read's range
+        checks, so a hit raises the errors a direct read would."""
+        size = fi.size
+        if offset < 0 or offset > size:
+            raise StorageError(f"offset {offset} outside object of size "
+                               f"{size}")
+        if length < 0:
+            length = size - offset
+        if offset + length > size:
+            raise StorageError(f"range [{offset}, {offset + length}) "
+                               f"outside object of size {size}")
+        if offset == 0 and length == len(body):
+            return body
+        return body[offset:offset + length]
+
+    def _hot_cacheable(self, fi) -> bool:
+        """Only streaming-layout objects within the size gate enter the
+        tier: an inline object is one cheap metadata read already, and a
+        zero-byte one has no payload."""
+        if fi.deleted or fi.size <= 0 or fi.size > self.hot_tier.max_obj:
+            return False
+        return fi.inline_data is None and not (fi.parts and not fi.data_dir)
+
+    def _get_object_hot(self, bucket: str, obj: str, offset: int,
+                        length: int, version_id: str,
+                        skip_lookup: bool = False):
+        """A GET through the tier: a hit, else a single-flight engine
+        read with a verified fill.  Returns (fi, body), or None, which
+        tells the caller to read directly (not cacheable, or the leader
+        failed)."""
+        tier = self.hot_tier
+        if not skip_lookup:
+            got = tier.lookup(bucket, obj, version_id)
+            if got is not None:
+                fi, body = got
+                return fi, self._hot_range(fi, body, offset, length)
+        key = (id(self), bucket, obj, version_id)
+        flight, leader = tier.flights.begin(key)
+        if not leader:
+            res = flight.wait()
+            if res is None:
+                return None
+            fi, body = res
+            return fi, self._hot_range(fi, body, offset, length)
+        ok = False
+        try:
+            # A leader elected after an earlier flight filled the entry
+            # (its lookup missed just before that flight ended) serves
+            # the fill instead of reading again.
+            if tier.lookup_meta(bucket, obj, version_id) is not None:
+                got = tier.lookup(bucket, obj, version_id)
+                if got is not None:
+                    flight.resolve(got)
+                    ok = True
+                    fi, body = got
+                    return fi, self._hot_range(fi, body, offset, length)
+            # The generation before the read: a write that lands while
+            # it runs bumps it, and the fill is dropped.  The FileInfo
+            # cache is stamped with it too (_fi_generation), so the
+            # election below is no older than gen0.
+            gen0 = tier.generation(bucket)
+            fi, _, _, _ = self._plan_read(bucket, obj, 0, -1, version_id)
+            if not self._hot_cacheable(fi):
+                tier.note_bypass()
+                return None
+            report: dict = {}
+            fi, data = self._get_object_direct(bucket, obj, 0, -1,
+                                               version_id, report=report)
+            body = bytes(data)
+            if report.get("segs") and not report.get("taint") \
+                    and report.get("fast", 0) == report["segs"]:
+                tier.fill(bucket, obj, version_id, fi, body, gen0)
+            else:
+                tier.note_bypass()
+            flight.resolve((fi, body))
+            ok = True
+            return fi, self._hot_range(fi, body, offset, length)
+        finally:
+            if not ok:
+                flight.resolve(None)
+            tier.flights.end(key)
+
+    def _hot_iter(self, bucket: str, obj: str, offset: int, length: int,
+                  version_id: str):
+        """get_object_iter's tier branch: (fi, chunks) of a hit or of a
+        single-flight read of a cacheable object, else None.  While
+        zero-copy is on a hit is one view of the tier's shared arena
+        (its pin is released once the view dies)."""
+        tier = self.hot_tier
+        if zc.zerocopy_enabled():
+            got = tier.lookup_view(bucket, obj, version_id)
+            if got is not None:
+                fi, body = got
+                chunk = self._hot_range(fi, body, offset, length)
+                zc.record("hot_views", len(chunk))
+                return fi, iter((chunk,)) if len(chunk) else iter(())
+        else:
+            got = tier.lookup(bucket, obj, version_id)
+            if got is not None:
+                fi, body = got
+                chunk = self._hot_range(fi, memoryview(body), offset,
+                                        length)
+                return fi, iter((chunk,)) if len(chunk) else iter(())
+        # A cold cacheable object: the single-flight whole read (the
+        # miss was counted above).  Its memory is bounded by the
+        # admission size, MTPU_HOTCACHE_MAX_OBJ.
+        try:
+            peek, _, _, _ = self._plan_read(bucket, obj, 0, -1, version_id)
+        except StorageError:
+            return None
+        if not self._hot_cacheable(peek):
+            tier.note_bypass()
+            return None
+        got = self._get_object_hot(bucket, obj, offset, length, version_id,
+                                   skip_lookup=True)
+        if got is None:
+            return None
+        fi, body = got
+        return fi, iter((body,)) if len(body) else iter(())
+
+    def sendfile_plan(self, bucket: str, obj: str, offset: int = 0,
+                      length: int = -1, version_id: str = ""):
+        """A kernel-send plan of a whole healthy GET, or None.
+
+        In the k=1 layout each part's one data shard is the plaintext
+        between bitrot frames, so the body can leave by os.sendfile of
+        its data runs without entering the process.  Returns (fi,
+        [zerocopy.FilePlan per part]) whose fds' frames were verified on
+        the device (heal's frame batches) through the fds the sends
+        use, or None when a gate fails and the caller reads normally:
+        zero-copy off; not the whole object; not k=1; inline; a drive or
+        a metadata copy missing; the data shard's drive not a healthy
+        local one; the object cacheable while the hot tier is on (the
+        tier owns the small hot set); or a shard file's size or frames
+        that fail the verify."""
+        if not zc.zerocopy_enabled():
+            return None
+        try:
+            fi, metas, offset, length = self._plan_read(
+                bucket, obj, offset, length, version_id)
+        except StorageError:
+            return None          # the normal read raises the real error
+        if offset != 0 or length != fi.size or fi.size <= 0:
+            return None
+        if fi.erasure.data_blocks != 1:
+            return None
+        if fi.inline_data is not None or not fi.parts or not fi.data_dir:
+            return None
+        tier = self.hot_tier
+        if tier is not None and tier.enabled and self._hot_cacheable(fi):
+            return None
+        if self._degraded(metas):
+            return None
+        order = Q.shuffle_by_distribution(list(range(self.n)),
+                                          fi.erasure.distribution)
+        d = self.drives[order[0]]
+        if not isinstance(d, LocalDrive) or not drive_available(d):
+            return None
+        from .heal import _verify_frames
+        ec = fi.erasure
+        plans: list[zc.FilePlan] = []
+        try:
+            for part in fi.parts:
+                algo = ec.bitrot_algo(part.number)
+                hs = bitrot_io.digest_size(algo)
+                frame = hs + ec.shard_size
+                fd = d.open_read_fd(
+                    bucket, f"{obj}/{fi.data_dir}/part.{part.number}")
+                # The plan owns the fd from here (closed on any bail).
+                full, tail = divmod(part.size, ec.shard_size)
+                runs = [(b * frame + hs, ec.shard_size) for b in range(full)]
+                if tail:
+                    runs.append((full * frame + hs, tail))
+                plans.append(zc.FilePlan(fd, runs, part.size))
+                want = bitrot_io.bitrot_shard_file_size(
+                    part.size, ec.shard_size, algo)
+                if os.fstat(fd).st_size != want:
+                    raise ErrFileCorrupt("sendfile plan size mismatch")
+                mm = mmap.mmap(fd, want, prot=mmap.PROT_READ)
+                view = memoryview(mm)
+                _verify_frames(self, lambda lo, ln: view[lo:lo + ln],
+                               part.size, ec, algo)
+        except (StorageError, OSError, ValueError):
+            for p in plans:
+                p.close()
+            return None
+        return fi, plans
 
     def get_object_iter(self, bucket: str, obj: str, offset: int = 0,
                         length: int = -1, version_id: str = ""):
@@ -688,7 +926,15 @@ class ErasureSet:
         drains to the caller.  On a one-core host a healthy read from
         local drives has nothing to overlap, so its segments run inline;
         a degraded one still prefetches, its rebuild overlapping the
-        next segment's shard reads."""
+        next segment's shard reads.
+
+        With a hot tier attached, a hit or a cold read of a cacheable
+        object goes through the tier (`_hot_iter`)."""
+        tier = self.hot_tier
+        if tier is not None and tier.enabled:
+            got = self._hot_iter(bucket, obj, offset, length, version_id)
+            if got is not None:
+                return got
         fi, metas, offset, length = self._plan_read(bucket, obj, offset,
                                                     length, version_id)
         if length == 0:
@@ -700,12 +946,16 @@ class ErasureSet:
             self._plan_segments(fi, offset, length),
             self._prefetch_pool(metas), depth=1)
 
+    def _degraded(self, metas) -> bool:
+        """A read with a drive offline or a drive's metadata missing."""
+        return (any(d is None for d in self.drives)
+                or any(m is None for m in metas))
+
     def _prefetch_pool(self, metas):
         """The pool of a read's one-segment prefetch: none for a healthy
         read on a one-core host (nothing to overlap), else _iter_pool."""
-        degraded = (any(d is None for d in self.drives)
-                    or any(m is None for m in metas))
-        return None if SERIAL_FANOUT and not degraded else self._iter_pool
+        return (None if SERIAL_FANOUT and not self._degraded(metas)
+                else self._iter_pool)
 
     def _plan_read(self, bucket: str, obj: str, offset: int, length: int,
                    version_id: str):
@@ -771,9 +1021,10 @@ class ErasureSet:
         return data[offset:offset + length].tobytes()
 
     def _read_part(self, bucket, obj, fi, part_number: int, offset: int,
-                   length: int) -> np.ndarray:
+                   length: int, report: dict | None = None) -> np.ndarray:
         """[offset, offset+length) of one part, reading only the frames
-        that cover it."""
+        that cover it.  A local drive's frames are read as an mmap view
+        (read_file_view); `report` is _get_object_direct's."""
         part_size = fi.parts[part_number - 1].size
         frame = (bitrot_io.digest_size(fi.erasure.bitrot_algo(part_number))
                  + fi.erasure.shard_size)
@@ -789,7 +1040,9 @@ class ErasureSet:
             if d is None:
                 raise ErrDiskNotFound("offline")
             t0 = time.monotonic()
-            raw = d.read_file(bucket, path, b0 * frame, (b1 - b0) * frame)
+            read = (d.read_file_view if isinstance(d, LocalDrive)
+                    else d.read_file)
+            raw = read(bucket, path, b0 * frame, (b1 - b0) * frame)
             # Successful reads feed the hedge's per-position EWMA (a
             # fast failure must not make a drive look fast).
             self._note_read_ms(pos, (time.monotonic() - t0) * 1e3)
@@ -802,14 +1055,15 @@ class ErasureSet:
                   if drive_available(self.drives[order[s]])]
         data = self._read_blocks(fi, part_size, b0, b1, fetch, online,
                                  part_number, cache=(bucket, obj),
-                                 order=order)
+                                 order=order, report=report)
         lo = offset - b0 * BLOCK_SIZE
         return data[lo:lo + length]
 
     def _read_blocks(self, fi, part_size: int, b0: int, b1: int, fetch,
                      candidates: list[int], part_number: int = 1,
                      cache: tuple[str, str] | None = None,
-                     order: list[int] | None = None) -> np.ndarray:
+                     order: list[int] | None = None,
+                     report: dict | None = None) -> np.ndarray:
         """Blocks [b0, b1) of a part as one uint8 array (the ragged tail
         trimmed), from the frames `fetch(shard)` returns.
 
@@ -826,7 +1080,12 @@ class ErasureSet:
 
         `order` (shard -> drive position) marks a read of drives: its
         rounds are hedged (MTPU_HEDGE, `_hedged_fetch`), so a straggling
-        shard is covered by a parity spare and rebuilt."""
+        shard is covered by a parity spare and rebuilt.
+
+        `report` (a tier fill's evidence) counts the read as "fast" when
+        it verified its k data shards in its first round or came from
+        the device shard cache, as the reference's verify-only fast path
+        does (which also needs BLOCK_SIZE % k == 0); else as "taint"."""
         ec = fi.erasure
         k, m, shard_size = ec.data_blocks, ec.parity_blocks, ec.shard_size
         algo = ec.bitrot_algo(part_number)
@@ -852,6 +1111,7 @@ class ErasureSet:
             if found is not None:
                 e, boff = found
                 if not has_tail or e.tail is not None:
+                    _report(report, BLOCK_SIZE % k == 0)
                     return _assemble(e.host[boff:boff + nb] if nb else None,
                                      e.tail if has_tail else None, tail_len)
 
@@ -924,6 +1184,7 @@ class ErasureSet:
             if co is not None:
                 co.note_read(-1, self.device)
 
+        _report(report, rounds == 1 and not missing and BLOCK_SIZE % k == 0)
         if dcache is not None and rounds == 1 and not missing:
             # A healthy read, verified on its first round.  Filled before
             # the assembly: the cache makes the rows read-only, so the
@@ -1133,21 +1394,38 @@ class ErasureSet:
         hit = self._fi_cache.pop(key, None)
         if hit is not None:
             gen, stamp, fi, metas = hit
-            if (gen == self._fi_gen.get(bucket, 0)
+            if (gen == self._fi_generation(bucket)
                     and time.monotonic() - stamp < self._FI_CACHE_TTL):
                 self._fi_cache[key] = hit
                 return fi, metas
-        gen = self._fi_gen.get(bucket, 0)
+        gen = self._fi_generation(bucket)
         entry = self._read_metadata(bucket, obj, version_id)
         self._fi_cache_store(bucket, obj, version_id, gen, entry)
         return entry
 
+    def _fi_generation(self, bucket: str) -> tuple[int, int]:
+        """The generation a FileInfo-cache entry of `bucket` is stamped
+        with: this set's own, and with a hot tier attached the tier's
+        shared one, which a write through another worker process bumps
+        too.  A tier's leader thus never elects through an entry older
+        than the generation it fills under."""
+        tier = self.hot_tier
+        return (self._fi_gen.get(bucket, 0),
+                tier.generation(bucket) if tier is not None else 0)
+
     def head_object(self, bucket: str, obj: str,
                     version_id: str = "") -> FileInfo:
+        # A fresh hot-tier entry proves its version is current (every
+        # mutation bumps the bucket's shared generation): no election.
+        tier = self.hot_tier
+        if tier is not None and tier.enabled:
+            hfi = tier.lookup_meta(bucket, obj, version_id)
+            if hfi is not None:
+                return hfi
         # HEAD always elects (a peer's write is visible at once) but
         # writes through the FileInfo cache, so the GET that follows in
         # the same request does not elect again.
-        gen = self._fi_gen.get(bucket, 0)
+        gen = self._fi_generation(bucket)
         entry = self._read_metadata(bucket, obj, version_id)
         self._fi_cache_store(bucket, obj, version_id, gen, entry)
         fi = entry[0]
@@ -1299,6 +1577,19 @@ class ErasureSet:
                                     "quorum)")
         out.sort(key=lambda fi: (-fi.mod_time_ns, fi.version_id))
         return out
+
+
+def _report(report: dict | None, fast: bool) -> None:
+    """Count one segment of a tier fill's evidence: "fast" (verified on
+    the full-k path), else "taint".  Segments of one read may run on two
+    threads (the prefetch), so the count is taken under a lock."""
+    if report is None:
+        return
+    with _STATS_MU:
+        if fast:
+            report["fast"] = report.get("fast", 0) + 1
+        else:
+            report["taint"] = True
 
 
 def _attempt(fn):

@@ -41,6 +41,9 @@ class ServerPools:
                         f" not on {first.type} as pool 0 set 0 does")
         self.pools = list(pools)
         self.deployment_id = pools[0].deployment_id
+        # The hot-object tier the boot attached to every all-local set
+        # (engine/hotcache.attach_pools), for the server's metrics.
+        self.hot_tier = None
 
     def close(self) -> None:
         """Stop every set's executors."""
@@ -172,6 +175,21 @@ class ServerPools:
         batch) from the first pool that holds the object."""
         return self._first(bucket, obj, lambda p: p.get_object_iter(
             bucket, obj, offset, length, version_id))
+
+    def sendfile_plan(self, bucket: str, obj: str, offset: int = 0,
+                      length: int = -1, version_id: str = ""):
+        """A kernel-send plan (fi, [FilePlan, ...]) from the first pool
+        whose set plans one (ErasureSet.sendfile_plan), else None.  It
+        never raises: the normal read is the error's source."""
+        for p in self.pools:
+            try:
+                got = p.sendfile_plan(bucket, obj, offset, length,
+                                      version_id)
+            except StorageError:
+                return None
+            if got is not None:
+                return got
+        return None
 
     def head_object(self, bucket: str, obj: str,
                     version_id: str = "") -> FileInfo:

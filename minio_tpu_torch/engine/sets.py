@@ -134,6 +134,13 @@ class ErasureSets:
         return self.set_for(obj).get_object_iter(bucket, obj, offset,
                                                  length, version_id)
 
+    def sendfile_plan(self, bucket: str, obj: str, offset: int = 0,
+                      length: int = -1, version_id: str = ""):
+        """The owning set's kernel-send plan, or None
+        (ErasureSet.sendfile_plan)."""
+        return self.set_for(obj).sendfile_plan(bucket, obj, offset,
+                                               length, version_id)
+
     def head_object(self, bucket: str, obj: str,
                     version_id: str = "") -> FileInfo:
         return self.set_for(obj).head_object(bucket, obj, version_id)

@@ -12,12 +12,15 @@ role, cmd/server-main.go:441), in its order:
 4. the object layer (pools -> sets -> drives) on the CUDA card, and an
    MRF heal queue per pool journaled to its first drive
    (background/mrf.attach_mrf);
-5. IAM, loaded from the object layer, and the S3 front door.
+5. the hot-object tier (engine/hotcache.attach_pools, MTPU_HOTCACHE,
+   default on): one private segment here, one segment built before the
+   fork and shared by every worker in the pool;
+6. IAM, loaded from the object layer, and the S3 front door.
 
 With MTPU_WORKERS=N (server/workers.py) the boot forks instead: one
 device owner, which runs the self-tests and then every kernel of the
 pool, and N HTTP workers on one port (SO_REUSEPORT), each booting steps
-2-5 (the sweep in worker 0 only) with its coalescer routed to the owner
+2-6 (the sweep in worker 0 only) with its coalescer routed to the owner
 through shared memory.  The branch is taken before anything loads torch.
 
 It serves until SIGTERM or SIGINT, then drains, stops the MRF queues
@@ -46,9 +49,8 @@ import threading
 #: ROADMAP.md Queue A item each waits for.
 LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner, "
             "in one process and in the worker pool's worker 0 (item 9); "
-            "hot cache and QoS, and the worker pool's shared hot tier and "
-            "QoS slab (item 7); notifications, replication and tiering "
-            "(item 10)")
+            "QoS, and the worker pool's QoS slab (item 7); notifications, "
+            "replication and tiering (item 10)")
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -163,6 +165,13 @@ def main(argv: list[str] | None = None) -> int:
         if replayed:
             print(f"minio_tpu_torch: MRF journal: replayed {replayed} "
                   "pending heals", flush=True)
+        # The RAM hot-object tier: one private segment in one process
+        # (the pool builds its segment before the fork instead).
+        from ..engine.hotcache import attach_pools as attach_hotcache
+        if attach_hotcache(pools) is not None:
+            print("minio_tpu_torch: hot-object cache: "
+                  f"{pools.hot_tier.stats()['segment_bytes'] >> 20} MiB "
+                  "segment attached", flush=True)
         iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*creds), host=args.host,
                        port=args.port, certs=certs, iam=iam).start()

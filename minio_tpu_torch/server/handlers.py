@@ -94,12 +94,18 @@ S3_NS = "http://s3.amazonaws.com/doc/2006-03-01/"
 
 class Response:
     def __init__(self, status: int = 200, body: bytes = b"",
-                 headers: dict[str, str] | None = None, body_iter=None):
+                 headers: dict[str, str] | None = None, body_iter=None,
+                 body_file=None):
         """body_iter: optional iterator of byte chunks streamed to the
-        client instead of `body`; headers must carry Content-Length."""
+        client instead of `body`; headers must carry Content-Length.
+        body_file: optional list of ops.zerocopy.FilePlan, whose verified
+        shard runs are the body, sent with os.sendfile (the TLS and
+        oracle writers read them through plan.read_all()); headers must
+        carry Content-Length."""
         self.status = status
         self.body = body
         self.body_iter = body_iter
+        self.body_file = body_file
         self.headers = headers or {}
 
 
@@ -580,21 +586,31 @@ class S3Handlers:
             if parsed:
                 offset, length = parsed
                 partial = True
-        body_iter = None
+        body_iter = body_file = None
         if not head:
-            # The body streams off the erasure engine in device-batch
-            # chunks: O(batch) memory (the GetObjectReader role).
             try:
-                fi, body_iter = self.pools.get_object_iter(
-                    bucket, key, offset, length, version_id)
-                # Pull the FIRST chunk now: once headers are on the wire
-                # a failure can only sever the connection, so quorum and
-                # bitrot errors that surface at once must still become
-                # S3 error responses.
-                first = next(body_iter, b"")
+                # A whole healthy GET of a k=1 object gets a verified
+                # sendfile plan: the body never enters the process
+                # (ops/zerocopy.py).  None on any gate: ranged, cached,
+                # inline, degraded, k > 1, zero-copy off.
+                got = self.pools.sendfile_plan(bucket, key, offset, length,
+                                               version_id)
+                if got is not None:
+                    fi, body_file = got
+                else:
+                    # The body streams off the erasure engine in
+                    # device-batch chunks: O(batch) memory (the
+                    # GetObjectReader role).
+                    fi, body_iter = self.pools.get_object_iter(
+                        bucket, key, offset, length, version_id)
+                    # Pull the FIRST chunk now: once headers are on the
+                    # wire a failure can only sever the connection, so
+                    # quorum and bitrot errors that surface at once must
+                    # still become S3 error responses.
+                    first = next(body_iter, b"")
+                    body_iter = _stream(first, body_iter)
             except StorageError as e:
                 raise from_storage_error(e) from None
-            body_iter = _stream(first, body_iter)
 
         h = self._object_headers(fi)
         if partial:
@@ -605,7 +621,8 @@ class S3Handlers:
         else:
             h["Content-Length"] = str(size)
             status = 200
-        return Response(status, b"", h, body_iter=body_iter)
+        return Response(status, b"", h, body_iter=body_iter,
+                        body_file=body_file)
 
     def put_object(self, bucket: str, key: str, body,
                    headers: dict[str, str]) -> Response:

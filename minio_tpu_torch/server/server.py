@@ -16,10 +16,16 @@ The admin API serves IAM's users, groups, policies and service accounts;
 POST / is STS (AssumeRole, WebIdentity and ClientGrants through OIDC,
 LDAPIdentity, Certificate over mTLS).  What answers NotImplemented, with
 its ROADMAP.md Queue A item: the other admin endpoints, metrics (but
-the worker pool's families at /minio/v2/metrics/node) and listen (item
-10); cluster health (item 9).  Spans, metrics, the audit
-trail, QoS, federation and zero-copy sends stay in the JAX package for
-now.
+the worker pool's and the hot tier's families at /minio/v2/metrics/node)
+and listen (item 10); cluster health (item 9).  Spans, metrics, the
+audit trail, QoS and federation stay in the JAX package for now.
+
+Responses leave through the zero-copy writer while MTPU_ZEROCOPY is on
+(ops/zerocopy.py): the header block, built by the same send_header
+calls, goes out with the body in one gathered sendmsg, and a verified
+sendfile plan (a whole k=1 GET, ErasureSet.sendfile_plan) by
+os.sendfile.  TLS, chunked framing and MTPU_ZEROCOPY=0 keep the buffered
+writer, byte for byte the same on the wire.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from ..iam.iam import Identity
 from ..iam.ldap import LDAPError
 from ..iam.oidc import OIDCError
 from ..iam.policy import Policy, PolicyError
+from ..ops import zerocopy as zc
 from ..utils import streams
 from . import postpolicy, sigv2
 from .api_errors import S3Error
@@ -51,6 +58,80 @@ from .sigv4 import (STREAMING_PAYLOAD, UNSIGNED_PAYLOAD, Credentials,
 
 MAX_HEADER_BODY = 5 * 1024 ** 3      # max single PUT (5 GiB part limit)
 STS_NS = "https://sts.amazonaws.com/doc/2011-06-15/"
+
+
+def _family(out: list, name: str, help_: str, rows) -> None:
+    """One Prometheus gauge family: rows of (labels dict, value)."""
+    out.append(f"# HELP {name} {help_}")
+    out.append(f"# TYPE {name} gauge")
+    for labels, v in rows:
+        lab = ",".join(f'{k}="{v2}"' for k, v2 in labels.items())
+        out.append(f"{name}{{{lab}}} {v}" if lab else f"{name} {v}")
+
+
+#: mtpu_hotcache_* families: (stats key, family, help), the JAX
+#: package's names (minio_tpu/observe/metrics.py)
+_HOT_FAMILIES = (
+    ("hits", "mtpu_hotcache_hits_total", "Hot-object cache hits"),
+    ("misses", "mtpu_hotcache_misses_total", "Hot-object cache misses"),
+    ("meta_hits", "mtpu_hotcache_meta_hits_total",
+     "Metadata-only hot-object cache hits (HEAD)"),
+    ("hit_ratio", "mtpu_hotcache_hit_ratio", "Hot-object cache hit ratio"),
+    ("fills", "mtpu_hotcache_fills_total",
+     "Verified reads admitted to the hot-object cache"),
+    ("evictions", "mtpu_hotcache_evictions_total",
+     "Hot-object cache CLOCK evictions"),
+    ("bypassed", "mtpu_hotcache_bypassed_total",
+     "Reads that bypassed the hot-object cache fill"),
+    ("stale_gen", "mtpu_hotcache_stale_generation_total",
+     "Hot-object entries or fills dropped by a generation bump"),
+    ("invalidations", "mtpu_hotcache_invalidations_total",
+     "Bucket generation bumps (mutations)"),
+    ("ghost_defers", "mtpu_hotcache_ghost_defers_total",
+     "First misses the two-hit filter kept out"),
+    ("entries", "mtpu_hotcache_entries", "Hot-object cache entries"),
+    ("cached_bytes", "mtpu_hotcache_usage_bytes",
+     "Body bytes held by the hot-object cache"),
+    ("segment_bytes", "mtpu_hotcache_total_bytes",
+     "Hot-object cache segment size"),
+    ("in_use_bytes", "mtpu_hotcache_arena_in_use_bytes",
+     "Hot-object arena bytes in use, pinned runs included"))
+
+
+def node_families(tier, worker_id: int | None = None,
+                  kernels: bool = False) -> str:
+    """The hot tier's families (pool-wide: its counters live in shared
+    memory), this process's zero-copy sends (labelled with the worker in
+    a pool) and, with `kernels`, this process's kernel launches and
+    items."""
+    out: list[str] = []
+    if tier is not None:
+        st = tier.stats()
+        for key, name, help_ in _HOT_FAMILIES:
+            _family(out, name, help_, [({}, st[key])])
+    lab = {} if worker_id is None else {"worker": worker_id}
+    zs = zc.stats()
+    for key, help_ in (
+            ("sendmsg", "Responses sent by one gathered sendmsg"),
+            ("sendmsg_bytes", "Body bytes sent by gathered sendmsg"),
+            ("sendfile", "Responses sent by verified sendfile plans"),
+            ("sendfile_bytes", "Body bytes sent by sendfile"),
+            ("hot_views", "Hot-tier hits served as shared-arena views"),
+            ("hot_view_bytes", "Body bytes served as shared-arena views"),
+            ("fallbacks", "Verified plans sent through userspace")):
+        _family(out, f"mtpu_zerocopy_{key}_total", help_, [(lab, zs[key])])
+    if kernels:
+        from ..ops import erasure_cuda, fused, highwayhash_cuda, mxhash_torch
+        launches = {"gf_matmul": erasure_cuda.LAUNCHES,
+                    "hh256": highwayhash_cuda.LAUNCHES,
+                    "mxh256": mxhash_torch.LAUNCHES}
+        _family(out, "mtpu_kernel_launches_total",
+                "Kernel launches in this process",
+                [({"kernel": k}, v) for k, v in launches.items()])
+        _family(out, "mtpu_kernel_items_total",
+                "Kernel work items in this process",
+                [({"kernel": k}, v) for k, v in fused.ITEMS.items()])
+    return "\n".join(out) + "\n"
 
 
 class S3Server:
@@ -93,10 +174,10 @@ class S3Server:
         class _Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
             server_version = "MinioTPU"
-            # TCP_NODELAY: a response leaves as headers then body, two
-            # writes; with Nagle the body waits for the client's delayed
-            # ACK of the headers (the JAX package's zero-copy writer
-            # sends both in one sendmsg instead).
+            # TCP_NODELAY: the buffered writer sends headers then body,
+            # two writes; with Nagle the body waits for the client's
+            # delayed ACK of the headers (the zero-copy writer sends
+            # both in one sendmsg instead).
             disable_nagle_algorithm = True
             # Per-connection socket timeout: a client that stalls
             # mid-body for this long surfaces as TimeoutError in the
@@ -111,6 +192,24 @@ class S3Server:
                 body = resp.body or b""
                 chunked = resp.headers.get(
                     "Transfer-Encoding") == "chunked"
+                # The zero-copy writer: plain TCP only (an SSLSocket has
+                # no sendmsg, and sendfile cannot cross the record
+                # layer), never with chunked framing.
+                use_zc = (zc.zerocopy_enabled() and not chunked
+                          and not isinstance(self.connection,
+                                             ssl.SSLSocket))
+                if resp.body_file is not None and not use_zc:
+                    # TLS or the oracle: the verified plans through
+                    # userspace, the same bytes the sends would carry.
+                    try:
+                        if self.command != "HEAD":
+                            body = b"".join(p.read_all()
+                                            for p in resp.body_file)
+                    finally:
+                        for p in resp.body_file:
+                            p.close()
+                    resp.body_file = None
+                    zc.record("fallbacks")
                 self.send_response(resp.status)
                 for k, v in resp.headers.items():
                     self.send_header(k, v)
@@ -123,6 +222,9 @@ class S3Server:
                 self.send_header("X-XSS-Protection", "1; mode=block")
                 self.send_header("Content-Security-Policy",
                                  "block-all-mixed-content")
+                if use_zc:
+                    self._respond_zc(resp, body)
+                    return
                 self.end_headers()
                 if self.command == "HEAD":
                     return
@@ -145,6 +247,46 @@ class S3Server:
                             self.wfile.write(chunk)
                     if chunked:
                         self.wfile.write(b"0\r\n\r\n")
+                finally:
+                    close = getattr(resp.body_iter, "close", None)
+                    if close is not None:
+                        close()
+
+            def _respond_zc(self, resp: Response, body):
+                """The header block end_headers() would flush, taken
+                from the same send_response/send_header calls, leaves
+                with the first body segment in one sendmsg, or ahead of
+                the sendfile runs: the same bytes on the wire in one or
+                two syscalls."""
+                self._headers_buffer.append(b"\r\n")
+                hdr = b"".join(self._headers_buffer)
+                self._headers_buffer = []
+                sock = self.connection
+                if self.command == "HEAD":
+                    zc.send_gather(sock, (hdr,))
+                    return
+                if resp.body_file is not None:
+                    try:
+                        zc.send_gather(sock, (hdr,))
+                        n = sum(zc.send_file(sock, p.fd, p.runs)
+                                for p in resp.body_file)
+                        zc.record("sendfile", n)
+                    finally:
+                        for p in resp.body_file:
+                            p.close()
+                    return
+                if resp.body_iter is None:
+                    n = zc.send_gather(sock, (hdr, body)) - len(hdr)
+                    zc.record("sendmsg", n)
+                    return
+                try:
+                    it = iter(resp.body_iter)
+                    first = next(it, None)
+                    segs = [hdr] if first is None else [hdr, first]
+                    n = zc.send_gather(sock, segs) - len(hdr)
+                    for chunk in it:
+                        n += zc.send_gather(sock, (chunk,))
+                    zc.record("sendmsg", n)
                 finally:
                     close = getattr(resp.body_iter, "close", None)
                     if close is not None:
@@ -501,10 +643,19 @@ class S3Server:
             return Response(200)
         if path == "/minio/health/cluster":
             raise unported("cluster health", "9")
-        if path == "/minio/v2/metrics/node" and self.worker_plane is not None:
-            # The worker pool's families only; the registry's others
-            # wait for observe/ (ROADMAP Queue A item 10).
-            return Response(200, self.worker_plane.render_prom().encode(),
+        tier = getattr(self.pools, "hot_tier", None)
+        if path == "/minio/v2/metrics/node" and (
+                self.worker_plane is not None or tier is not None):
+            # The worker pool's families, the hot tier's and this
+            # process's zero-copy sends (with its kernels' launches and
+            # items outside a pool, whose plane carries them); the
+            # registry's others wait for observe/ (ROADMAP Queue A item
+            # 10).
+            text = (self.worker_plane.render_prom()
+                    if self.worker_plane is not None else "")
+            text += node_families(tier, self.worker_id,
+                                  kernels=self.worker_plane is None)
+            return Response(200, text.encode(),
                             {"Content-Type": "text/plain; version=0.0.4"})
         if path.startswith("/minio/v2/metrics/"):
             raise unported("metrics")

@@ -56,9 +56,16 @@ Contracts:
 - Each child sets PR_SET_PDEATHSIG(SIGKILL): a kill -9 on the
   supervisor leaves no worker holding the port.
 
-Left out (with their ROADMAP.md Queue A items): the pool's shared hot
-tier and QoS admission slab (item 7; WorkerPlane.hotcache and .qos are
-None), and worker 0's topology, decommission and scanner (item 9).
+The hot-object tier (engine/hotcache.py) is built by the supervisor
+before the first fork (`WorkerPlane.hotcache`, None under
+MTPU_HOTCACHE=0) and attached by every worker: one warm copy of the hot
+set for the pool, worker A's fill is worker B's hit, and a write through
+any worker bumps the shared generation every worker checks.  Each worker
+counts its hits and misses in its slab (`mtpu_worker_hotcache_*`).
+
+Left out (with their ROADMAP.md Queue A items): the pool's QoS
+admission slab (item 7; WorkerPlane.qos is None), and worker 0's
+topology, decommission and scanner (item 9).
 
 `MTPU_WORKERS=0` (the default) never enters this module: one process
 remains the oracle.
@@ -102,9 +109,12 @@ _GHDR = len(_G)
 _W = {name: i for i, name in enumerate((
     "pid", "beat_ns", "ready", "draining", "respawns", "requests",
     "inflight", "ipc_fallbacks", "co_fallbacks", "remote_submits", "cuda",
+    "hotcache_hits", "hotcache_misses",
     *(f"launches_{k}" for k in KERNELS),
     *(f"items_{k}" for k in KERNELS)))}
 _WSLOTS = len(_W)
+#: serialises this process's read-modify-write of its own slab slots
+_SLAB_MU = threading.Lock()
 
 
 def nworkers_env() -> int:
@@ -250,6 +260,14 @@ class SharedState:
     def note_request(self, idx: int) -> None:
         self._a[self._w(idx) + _W["requests"]] += 1
 
+    def note_hotcache(self, idx: int, hit: bool) -> None:
+        """This worker's hot-tier hit or miss: the tier is shared, so the
+        per-worker counts are what shows worker B hitting worker A's
+        fills.  Request threads share the slot: the add takes a lock."""
+        with _SLAB_MU:
+            self._a[self._w(idx) + _W["hotcache_hits" if hit
+                                      else "hotcache_misses"]] += 1
+
     def worker_rows(self) -> list[dict]:
         stale = int(owner_stale_s() * 1e9)
         now = _now_ns()
@@ -273,8 +291,9 @@ class WorkerPlane:
     length and generation; id 0 is a free row), which a respawned worker
     adopts.  Also the duck type ops/ipc_dispatch.py talks to (arena,
     req_ring, resp_rings, inflight, state, owner_ok, owner_gen).
-    `hotcache` and `qos`, the JAX package's pool-shared hot tier and
-    admission slab, wait for ROADMAP Queue A item 7."""
+    `hotcache` is the pool-shared hot tier (engine/hotcache.maybe_tier,
+    None under MTPU_HOTCACHE=0); `qos`, the JAX package's admission
+    slab, waits for ROADMAP Queue A item 7."""
 
     def __init__(self, nworkers: int, arena_bytes: int | None = None,
                  ring_capacity: int = RING_CAPACITY):
@@ -289,7 +308,11 @@ class WorkerPlane:
         self._ledger_mm = mmap.mmap(-1, max(1, self.nworkers) * rows * 32)
         self.inflight = np.frombuffer(self._ledger_mm, dtype=np.int64)[
             :self.nworkers * rows * 4].reshape(self.nworkers, rows, 4)
-        self.hotcache = None
+        # The tier's segment must exist before the first fork so every
+        # worker inherits the same mapping (engine/hotcache.py imports
+        # no torch).
+        from ..engine.hotcache import maybe_tier
+        self.hotcache = maybe_tier()
         self.qos = None
 
     def owner_ok(self) -> bool:
@@ -339,6 +362,14 @@ class WorkerPlane:
                    "co_fallbacks")
         per_worker("mtpu_worker_cuda_context",
                    "This worker has initialised CUDA", "cuda")
+        # Per-worker view of the shared tier (its own counters are the
+        # mtpu_hotcache_* families).
+        per_worker("mtpu_worker_hotcache_hits_total",
+                   "Hot-object cache hits served by this worker",
+                   "hotcache_hits")
+        per_worker("mtpu_worker_hotcache_misses_total",
+                   "Hot-object cache misses seen by this worker",
+                   "hotcache_misses")
         for what in ("launches", "items"):
             fam(f"mtpu_worker_kernel_{what}_total",
                 f"Kernel {what} in this worker",
@@ -529,6 +560,13 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     mrf_queues: list = []
     try:
         mrf_queues = attach_mrf(pools)
+        if plane.hotcache is not None:
+            # The segment this worker inherited; its hits and misses
+            # also land in this worker's slab.
+            from ..engine.hotcache import attach_pools as attach_hotcache
+            if attach_hotcache(pools, plane.hotcache) is not None:
+                plane.hotcache.on_lookup = (
+                    lambda hit, _i=idx: plane.state.note_hotcache(_i, hit))
         iam = IAMSys(pools)
         coalesce.attach_remote(remote)
         srv = S3Server(pools, Credentials(*cfg["creds"]), host=cfg["host"],

@@ -22,7 +22,10 @@ quorum).
 
 from __future__ import annotations
 
+import errno
+import mmap
 import os
+import stat
 
 ALIGN = 4096
 BULK = 128 * 1024          # below this, cache behaviour is irrelevant
@@ -94,6 +97,33 @@ def _direct_read(path: str, offset: int, length: int) -> bytes | None:
             return b"" if hi <= lo else bytes(view[lo:hi])
     except OSError:
         return None
+    finally:
+        os.close(fd)
+
+
+def read_range_view(path: str, offset: int, length: int) -> memoryview:
+    """Zero-copy read: a memoryview over a private read-only mmap of the
+    range (the map lives as long as the view).  Shard files are immutable
+    once published (staged, then renamed into place), so the view cannot
+    be truncated under its reader.  The range is clamped to the file's
+    size at map time: past EOF the view is short, as a read() is.
+    Raises FileNotFoundError/IsADirectoryError like open()."""
+    if length == 0:
+        return memoryview(b"")
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        st = os.fstat(fd)
+        if not stat.S_ISREG(st.st_mode):
+            raise IsADirectoryError(errno.EISDIR, "not a file", path)
+        size = st.st_size
+        if length < 0 or offset + length > size:
+            length = max(size - offset, 0)
+        if length == 0:
+            return memoryview(b"")
+        a_off = offset & ~(mmap.ALLOCATIONGRANULARITY - 1)
+        mm = mmap.mmap(fd, length + (offset - a_off), mmap.MAP_PRIVATE,
+                       mmap.PROT_READ, offset=a_off)
+        return memoryview(mm)[offset - a_off:offset - a_off + length]
     finally:
         os.close(fd)
 

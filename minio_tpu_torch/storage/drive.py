@@ -18,9 +18,12 @@ A drive the JAX package wrote reads here, and the other way round.
 Staged shard appends have two forms: `append_file` (one open and write
 per batch) and `write_file_batches` (one open and `pwritev` per drive
 per batch list, O_DIRECT under MTPU_ODIRECT=direct), which the engine
-takes while zero-copy is on (ops/zerocopy.py).  `sweep_stale` is the
-boot-time recovery sweep of a dead process's staging
-(storage/recovery.py).  `stats()` counts the vectored writes.
+takes while zero-copy is on (ops/zerocopy.py).  Shard reads have two
+zero-copy forms beside `read_file`: `read_file_view` (an mmap over the
+page cache) and `open_read_fd` (the fd a verified sendfile plan reads
+and sends through).  `sweep_stale` is the boot-time recovery sweep of a
+dead process's staging (storage/recovery.py).  `stats()` counts the
+vectored writes.
 """
 
 from __future__ import annotations
@@ -290,6 +293,32 @@ class LocalDrive:
         p = self._file_path(vol, path)
         try:
             return diskio.read_range(p, offset, length)
+        except FileNotFoundError:
+            raise ErrFileNotFound(f"{vol}/{path}") from None
+        except IsADirectoryError:
+            raise ErrIsNotRegular(f"{vol}/{path}") from None
+
+    def read_file_view(self, vol: str, path: str, offset: int = 0,
+                       length: int = -1) -> memoryview:
+        """Zero-copy bulk read: a read-only memoryview over an mmap of
+        the page cache, with read_file's error surface, a range past EOF
+        included (the view is short; callers size-check the framed
+        layout as they do a short read)."""
+        p = self._file_path(vol, path)
+        try:
+            return diskio.read_range_view(p, offset, length)
+        except FileNotFoundError:
+            raise ErrFileNotFound(f"{vol}/{path}") from None
+        except IsADirectoryError:
+            raise ErrIsNotRegular(f"{vol}/{path}") from None
+
+    def open_read_fd(self, vol: str, path: str) -> int:
+        """Open a shard file read-only and hand the caller the fd (the
+        sendfile plan: one fd serves the verify pass and the sends, so a
+        racing delete only unlinks the name).  The caller closes it."""
+        p = self._file_path(vol, path)
+        try:
+            return os.open(p, os.O_RDONLY)
         except FileNotFoundError:
             raise ErrFileNotFound(f"{vol}/{path}") from None
         except IsADirectoryError:

@@ -161,10 +161,14 @@ def test_owner_generation_staleness_and_down():
 
 def test_plane_renders_the_pool_families():
     plane = WorkerPlane(2, arena_bytes=8 * MIB, ring_capacity=32)
-    assert plane.hotcache is None and plane.qos is None
+    # The pool-shared hot tier is built before any fork; QoS is not
+    # ported yet.
+    assert plane.hotcache is not None and plane.qos is None
     plane.state.worker_register(0, os.getpid())
     plane.state.set_ready(0)
     plane.state.note_request(0)
+    plane.state.note_hotcache(0, True)
+    plane.state.note_hotcache(1, False)
     assert plane.state.worker_rows()[0]["up"] is True
     prom = plane.render_prom()
     for name in ("mtpu_worker_up", "mtpu_worker_respawns_total",
@@ -178,6 +182,8 @@ def test_plane_renders_the_pool_families():
         assert name in prom
     assert 'mtpu_worker_up{worker="0"} 1' in prom
     assert 'mtpu_worker_up{worker="1"} 0' in prom
+    assert 'mtpu_worker_hotcache_hits_total{worker="0"} 1' in prom
+    assert 'mtpu_worker_hotcache_misses_total{worker="1"} 1' in prom
     assert 'mtpu_worker_requests_total{worker="0"} 1' in prom
     assert 'mtpu_owner_kernel_items_total{kernel="hh256"} 0' in prom
 

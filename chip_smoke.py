@@ -3393,13 +3393,12 @@ def phase_host_planes(args, counts, card):
         order = Q.shuffle_by_distribution(list(range(12)),
                                           fi.erasure.distribution)
         slow = es.drives[order[0]]
-        # A local drive's shard reads are mmap views (read_file_view).
-        real_read = slow.read_file_view
+        real_read = slow.read_file
 
         def stalled(*a, **kw):
             time.sleep(HOST_STALL_S)
             return real_read(*a, **kw)
-        slow.read_file_view = stalled
+        slow.read_file = stalled
         hedge = {}
         try:
             hedged_env = {"MTPU_HEDGE_MS": str(HOST_HEDGE_MS)}
@@ -3432,7 +3431,7 @@ def phase_host_planes(args, counts, card):
                                      f"{fired} hedges, launches {got_l}")
                 hedge[label] = (ms, got_l["gf_matmul"], fired)
         finally:
-            del slow.read_file_view
+            del slow.read_file
         print(f"[host] GET of {key} with data shard 0's drive stalled "
               f"{HOST_STALL_S * 1e3:.0f} ms a read: " + ", ".join(
                   f"{lb} {ms:.1f} ms (GF reconstruct launches {g}, hedges "
@@ -3449,13 +3448,13 @@ def phase_host_planes(args, counts, card):
                 default_parity=4)])
             hes = hpools.pools[0].sets[0]
             slow = hes.drives[order[0]]
-            real_read = slow.read_file_view
+            real_read = slow.read_file
             stall_s = max(HOST_STALL_S, 2 * hes._hedge_delay_s() + 0.02)
 
             def stalled_http(*a, **kw):
                 time.sleep(stall_s)
                 return real_read(*a, **kw)
-            slow.read_file_view = stalled_http
+            slow.read_file = stalled_http
             srv = S3Server(hpools, sigv4.Credentials(
                 "smokeadmin", "smokeadmin-secret")).start()
             cli = S3Client(srv.endpoint, "smokeadmin", "smokeadmin-secret",
@@ -3760,6 +3759,82 @@ def pool_client(spec: dict) -> int:
                           "statuses": statuses,
                           "torch": "torch" in sys.modules}), flush=True)
     return 0
+
+
+class _GetSpans:
+    """Host-clock spans, in ms, of the GETs an in-process S3Server answers
+    while it is entered: the sendfile plan (election, fds, mmap) and its
+    frame verify, the engine read the handler waited on (election, shard
+    reads, verify, copy out), the device verify calls inside either, and
+    the socket sends (sendfile, sendmsg, or the buffered writer's
+    sendall).  Patches module and instance attributes, and puts them
+    back on exit."""
+
+    def __init__(self, spools):
+        self.spools = spools
+        self.ms: dict[str, float] = {}
+        self._mu = threading.Lock()
+
+    def _add(self, name: str, t0: float) -> None:
+        with self._mu:
+            self.ms[name] = self.ms.get(name, 0.0) \
+                + (time.perf_counter() - t0) * 1e3
+
+    def _timed(self, name: str, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._add(name, t0)
+        return run
+
+    def _get_iter(self, real):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            fi, it = real(*a, **kw)
+            self._add("engine read waited", t0)
+
+            def chunks():
+                try:
+                    while True:
+                        t1 = time.perf_counter()
+                        try:
+                            chunk = next(it)
+                        except StopIteration:
+                            return
+                        finally:
+                            self._add("engine read waited", t1)
+                        yield chunk
+                finally:
+                    close = getattr(it, "close", None)
+                    if close is not None:
+                        close()
+            return fi, chunks()
+        return run
+
+    def __enter__(self):
+        import socketserver
+        from minio_tpu_torch.engine import heal
+        from minio_tpu_torch.ops import fused
+        from minio_tpu_torch.ops import zerocopy as zc
+        self._saved = [(m, a, getattr(m, a)) for m, a in (
+            (heal, "_verify_frames"), (fused, "verify_and_transform"),
+            (zc, "send_file"), (zc, "send_gather"),
+            (socketserver._SocketWriter, "write"))]
+        for (m, a, fn), name in zip(self._saved, (
+                "plan frame verify", "device verify calls", "sendfile",
+                "sendmsg", "buffered writes")):
+            setattr(m, a, self._timed(name, fn))
+        sp = self.spools
+        sp.sendfile_plan = self._timed("sendfile plan", sp.sendfile_plan)
+        sp.get_object_iter = self._get_iter(sp.get_object_iter)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for m, a, fn in self._saved:
+            setattr(m, a, fn)
+        del self.spools.sendfile_plan, self.spools.get_object_iter
 
 
 class _Clients:
@@ -4645,7 +4720,7 @@ def phase_get_spine(args, counts, card):
             # clients read them all between them.
             cl = _Clients(srv.port, "spinezc",
                           [objs[c::n_max] for c in range(n_max)])
-            rows = {}
+            rows, traced = {}, {}
             try:
                 cl.run("put")
                 for turn, mode in enumerate(("1", "0", "0", "1")):
@@ -4658,6 +4733,15 @@ def phase_get_spine(args, counts, card):
                             zc.stats()
                         rows.setdefault((mode, n), []).append(
                             (r, l0, i0, z0, l1, i1, z1))
+                # One 64 MiB GET from one client at a time, in spans,
+                # each way in turns: where the sendfile path's time goes
+                # against the copying read's.
+                for mode in ("1", "0", "0", "1"):
+                    os.environ["MTPU_ZEROCOPY"] = mode
+                    with _GetSpans(spools) as sp:
+                        r = cl.run("get", only=1)
+                    traced.setdefault(mode, []).append(
+                        {"client GET": r["s"] * 1e3, **sp.ms})
             finally:
                 cl.close()
             for (mode, n), runs in rows.items():
@@ -4682,6 +4766,14 @@ def phase_get_spine(args, counts, card):
                       + "/".join(f"{x[0]['gbps']:.3f}" for x in v) + " GB/s"
                       for (m, n), v in sorted(rows.items()))
                   + f"; card {card}")
+            for mode, runs in sorted(traced.items(), reverse=True):
+                print(f"[spine] one {OBJECT_BYTES} B GET from 1 client, "
+                      f"MTPU_ZEROCOPY={mode}, host-clock spans in ms (2 "
+                      "GETs, in turns): " + "; ".join(
+                          f"{k} " + "/".join(f"{x.get(k, 0.0):.2f}"
+                                             for x in runs)
+                          for k in sorted({k for x in runs for k in x}))
+                      + f"; card {card}")
         finally:
             os.environ.pop("MTPU_ZEROCOPY", None)
             srv.shutdown()

@@ -859,8 +859,13 @@ class ErasureSet:
         a metadata copy missing; the data shard's drive not a healthy
         local one; the object cacheable while the hot tier is on (the
         tier owns the small hot set); or a shard file's size or frames
-        that fail the verify."""
+        that fail the verify.  A key the tier holds is declined before
+        the election, so a hit never pays for one."""
         if not zc.zerocopy_enabled():
+            return None
+        tier = self.hot_tier
+        if tier is not None and tier.enabled \
+                and tier.holds(bucket, obj, version_id):
             return None
         try:
             fi, metas, offset, length = self._plan_read(
@@ -873,7 +878,6 @@ class ErasureSet:
             return None
         if fi.inline_data is not None or not fi.parts or not fi.data_dir:
             return None
-        tier = self.hot_tier
         if tier is not None and tier.enabled and self._hot_cacheable(fi):
             return None
         if self._degraded(metas):
@@ -903,7 +907,12 @@ class ErasureSet:
                     part.size, ec.shard_size, algo)
                 if os.fstat(fd).st_size != want:
                     raise ErrFileCorrupt("sendfile plan size mismatch")
-                mm = mmap.mmap(fd, want, prot=mmap.PROT_READ)
+                # The verify copies every page to the card once: map
+                # them in one call (MAP_POPULATE), not one fault a page
+                # inside the copy.
+                mm = mmap.mmap(fd, want, prot=mmap.PROT_READ,
+                               flags=mmap.MAP_SHARED
+                               | getattr(mmap, "MAP_POPULATE", 0))
                 view = memoryview(mm)
                 _verify_frames(self, lambda lo, ln: view[lo:lo + ln],
                                part.size, ec, algo)
@@ -1023,8 +1032,11 @@ class ErasureSet:
     def _read_part(self, bucket, obj, fi, part_number: int, offset: int,
                    length: int, report: dict | None = None) -> np.ndarray:
         """[offset, offset+length) of one part, reading only the frames
-        that cover it.  A local drive's frames are read as an mmap view
-        (read_file_view); `report` is _get_object_direct's."""
+        that cover it; `report` is _get_object_direct's.  The frames are
+        read with read_file, not as an mmap view: they are copied into
+        the device batch at once, so a view would save no copy, and its
+        page faults would move the disk I/O out of the pooled (timed,
+        hedged) fetch into the gather, with a SIGBUS for an EIO."""
         part_size = fi.parts[part_number - 1].size
         frame = (bitrot_io.digest_size(fi.erasure.bitrot_algo(part_number))
                  + fi.erasure.shard_size)
@@ -1040,9 +1052,7 @@ class ErasureSet:
             if d is None:
                 raise ErrDiskNotFound("offline")
             t0 = time.monotonic()
-            read = (d.read_file_view if isinstance(d, LocalDrive)
-                    else d.read_file)
-            raw = read(bucket, path, b0 * frame, (b1 - b0) * frame)
+            raw = d.read_file(bucket, path, b0 * frame, (b1 - b0) * frame)
             # Successful reads feed the hedge's per-position EWMA (a
             # fast failure must not make a drive look fast).
             self._note_read_ms(pos, (time.monotonic() - t0) * 1e3)

@@ -482,11 +482,8 @@ class _PartRebuild:
         return ErrErasureReadQuorum(f"{self.what}: {got} readable < {self.k}")
 
     def read(self, s: int, lo: int, ln: int) -> bytes:
-        d = self.es.drives[self.src_pos[s]]
-        # A local drive's frames are an mmap view: no read() copy.
-        read = d.read_file_view if isinstance(d, LocalDrive) \
-            else d.read_file
-        raw = read(self.bucket, self.path, lo, ln)
+        raw = self.es.drives[self.src_pos[s]].read_file(self.bucket,
+                                                        self.path, lo, ln)
         if len(raw) != ln:
             raise ErrFileCorrupt(f"short shard segment ({len(raw)} != {ln})")
         return raw

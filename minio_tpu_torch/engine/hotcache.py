@@ -219,8 +219,11 @@ class HotObjectCache:
     # -- generations ---------------------------------------------------------
 
     def generation(self, bucket: str) -> int:
-        with self._mu:
-            return int(self._gens[_bucket_slot(bucket)])
+        # No lock: one aligned int64 load from the shared mapping (every
+        # election stamps its FileInfo-cache entry with it, in every
+        # worker).  Bumps stay under the lock; a read older than a bump
+        # only forces a miss.
+        return int(self._gens[_bucket_slot(bucket)])
 
     def note_mutation(self, bucket: str) -> None:
         """One atomic generation bump invalidates every cached entry
@@ -364,6 +367,17 @@ class HotObjectCache:
         if self.on_lookup is not None:
             self.on_lookup(False)
         return None
+
+    def holds(self, bucket: str, obj: str, version_id: str) -> bool:
+        """Whether a fresh entry for the key is resident, without
+        counting, pinning or reaping: sendfile_plan asks this before its
+        election, so a tier hit never pays for one.  A key-hash
+        collision reads as held (the read then takes the normal path)."""
+        h = _key_hash(_key_bytes(bucket, obj, version_id))
+        gen = self.generation(bucket)
+        with self._mu:
+            return any(int(self._ent[idx, 2]) == gen
+                       for idx in self._find_locked(h))
 
     def lookup_meta(self, bucket: str, obj: str, version_id: str):
         """Metadata-only hit (HEAD / conditional-GET precheck): the

@@ -303,7 +303,10 @@ class LocalDrive:
         """Zero-copy bulk read: a read-only memoryview over an mmap of
         the page cache, with read_file's error surface, a range past EOF
         included (the view is short; callers size-check the framed
-        layout as they do a short read)."""
+        layout as they do a short read).  For a reader that consumes the
+        bytes in place: the engine's shard reads copy their frames into
+        a device batch at once, so they use read_file (its I/O timed in
+        the pooled fetch, an EIO an error and not a SIGBUS)."""
         p = self._file_path(vol, path)
         try:
             return diskio.read_range_view(p, offset, length)

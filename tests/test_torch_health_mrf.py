@@ -307,19 +307,17 @@ def test_parity_upgrade_xlmeta_equals_jax(tmp_path, monkeypatch,
 # -- hedged reads ----------------------------------------------------------------
 
 def _slow_data_drive(es, fi, delay):
-    """Make the drive of data shard 0 sleep `delay` s in each shard read,
-    read_file and read_file_view (a local drive's reads are views);
+    """Make the drive of data shard 0 sleep `delay` s in each read_file;
     returns its position."""
     order = Q.shuffle_by_distribution(list(range(es.n)),
                                       fi.erasure.distribution)
     d = es.drives[order[0]]
-    for name in ("read_file", "read_file_view"):
-        real = getattr(d, name)
+    real = d.read_file
 
-        def slow(*a, _real=real, **kw):
-            time.sleep(delay)
-            return _real(*a, **kw)
-        setattr(d, name, slow)
+    def slow(*a, **kw):
+        time.sleep(delay)
+        return real(*a, **kw)
+    d.read_file = slow
     return order[0]
 
 

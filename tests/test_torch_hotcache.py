@@ -242,6 +242,33 @@ class TestCacheUnit:
         assert st["meta_hits"] == 1 and st["hits"] == h0
 
 
+def test_generation_reads_without_the_lock():
+    """Every election reads the shared generation: it takes no lock, so
+    a worker that holds the tier's lock blocks no read of it."""
+    c = hc.HotObjectCache(total_bytes=8 * MIB)
+    c.note_mutation("b")
+    held, done = threading.Event(), threading.Event()
+
+    def hold():
+        with c._mu:
+            held.set()
+            done.wait(10)
+    t = threading.Thread(target=hold)
+    t.start()
+    try:
+        assert held.wait(10)
+        got = []
+        reader = threading.Thread(
+            target=lambda: got.append(c.generation("b")), daemon=True)
+        reader.start()
+        reader.join(5)
+        assert got == [1]
+    finally:
+        done.set()
+        t.join(10)
+        reader.join(10)
+
+
 def test_cache_sequence_matches_jax():
     """One seeded sequence of fills, lookups, views, metadata lookups and
     mutations over both packages' caches: the same answers and stats."""
@@ -851,12 +878,12 @@ class TestWhatFills:
         es.put_object("b", "o", data)
         pos, _ = _data_drive(es, "b", "o")
         d = es.drives[pos]
-        slow = d.read_file_view
+        slow = d.read_file
 
         def straggle(*a, **kw):
             time.sleep(0.5)
             return slow(*a, **kw)
-        d.read_file_view = straggle
+        d.read_file = straggle
         wins0 = es_mod.stats()["hedge_wins"]
         self._three_gets(es, data)
         assert es_mod.stats()["hedge_wins"] > wins0

@@ -223,6 +223,52 @@ def _plan_bytes(got) -> bytes:
             p.close()
 
 
+class TestDriveViews:
+    """LocalDrive.read_file_view and open_read_fd, held to the JAX
+    drive's: the same bytes, short views past EOF, the same errors."""
+
+    @pytest.mark.parametrize("offset,length", [
+        (0, -1), (5, 100), (4096, 8192), (MIB - 3, 100), (MIB + 10, 5),
+        (7, 0)])
+    def test_view_matches_jax_and_read_file(self, tmp_path, offset, length):
+        body = payload(MIB, seed=3)
+        d = LocalDrive(str(tmp_path / "d"))
+        d.make_volume("b")
+        d.write_all("b", "o/part.1", body)
+        jd = JaxLocalDrive(d.root)
+        view = d.read_file_view("b", "o/part.1", offset, length)
+        assert isinstance(view, memoryview)
+        want = body[offset:] if length < 0 else body[offset:offset + length]
+        assert bytes(view) == want
+        assert bytes(view) == d.read_file("b", "o/part.1", offset, length)
+        assert bytes(view) == bytes(jd.read_file_view("b", "o/part.1",
+                                                       offset, length))
+
+    def test_errors_and_fd_match_jax(self, tmp_path):
+        d = LocalDrive(str(tmp_path / "d"))
+        d.make_volume("b")
+        d.write_all("b", "dir/o", b"abc")
+        jd = JaxLocalDrive(d.root)
+        for fn in ("read_file_view", "open_read_fd"):
+            with pytest.raises(Exception) as port_err:
+                getattr(d, fn)("b", "nope")
+            with pytest.raises(Exception) as jax_err:
+                getattr(jd, fn)("b", "nope")
+            assert type(port_err.value).__name__ == \
+                type(jax_err.value).__name__ == "ErrFileNotFound"
+        # A directory is read_file's ErrIsNotRegular (the JAX drive's
+        # view lets mmap's ENODEV out as a bare OSError).
+        with pytest.raises(Exception) as port_err:
+            d.read_file("b", "dir")
+        with pytest.raises(type(port_err.value)):
+            d.read_file_view("b", "dir")
+        fd = d.open_read_fd("b", "dir/o")
+        try:
+            assert os.pread(fd, 10, 0) == b"abc"
+        finally:
+            os.close(fd)
+
+
 class TestSendfilePlan:
     @pytest.mark.parametrize("algo", ["mxh256", "highwayhash256S"])
     def test_plan_verifies_on_the_device_and_matches_jax(
@@ -276,6 +322,34 @@ class TestSendfilePlan:
         k2.make_bucket("b")
         k2.put_object("b", "o", payload(MIB, seed=1))
         assert k2.sendfile_plan("b", "o") is None                # k > 1
+
+    def test_a_key_the_tier_holds_is_declined_before_the_election(
+            self, make_set, monkeypatch):
+        es = make_set(tier=True)
+        tier = es.hot_tier
+        es.make_bucket("b")
+        mid = payload(600_000, seed=8)
+        es.put_object("b", "mid", mid)
+        for _ in range(2):                        # two-hit admission
+            assert es.get_object("b", "mid")[1] == mid
+        assert tier.stats()["fills"] == 1
+        assert tier.holds("b", "mid", "") and not tier.holds("b", "x", "")
+        elections = []
+        real = es._read_metadata
+
+        def counted(*a, **kw):
+            elections.append(a)
+            return real(*a, **kw)
+        monkeypatch.setattr(es, "_read_metadata", counted)
+        es._fi_cache.clear()                      # as after the TTL
+        stats0 = tier.stats()
+        assert es.sendfile_plan("b", "mid") is None
+        assert elections == []
+        assert tier.stats() == stats0             # holds counts nothing
+        es.put_object("b", "mid", mid[::-1])      # bumps the generation
+        assert not tier.holds("b", "mid", "")
+        assert es.sendfile_plan("b", "mid") is None     # cacheable
+        assert len(elections) == 1
 
     @pytest.mark.parametrize("fault", ["frame", "size"])
     def test_corruption_found_through_the_fd(self, make_set, fault):

@@ -70,8 +70,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
       (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
       versioned bucket of 1024 objects of 1-100 KiB, 96 of 4 MiB + 1 B
-      and 12 of 64 MiB (3 HighwayHash), about 1.2 GB (half the depth it
-      had before phase l joined the run): PUT with SipHash
+      and 8 of 64 MiB (2 HighwayHash), about 1.0 GB (the depth cut for
+      phases l and m): PUT with SipHash
       placement checked, second versions, delete markers, a version
       deleted by id, metadata updates, 1000-key pages listed cold and
       warm and after a PUT, version histories, GET of every live object
@@ -82,9 +82,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       ErasureSet alone, for what the layers add.
    g. the S3 server: an in-process S3Server on loopback TCP over the
       deployment of f, driven by the port's S3Client signing SigV4: a
-      versioned bucket, 16 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
+      versioned bucket, 8 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
       PUT from 1 and 4 clients (2 highwayhash256S), one of 64 MiB +
-      300 KiB + 5 B by signed aws-chunked PUT, 1024 of 1-100 KiB by
+      300 KiB + 5 B by signed aws-chunked PUT, 512 of 1-100 KiB by
       signed-payload PUT from 1 and 8 clients, a multipart upload of
       64 MiB + 64 MiB + 5 MiB + 7 B; GETs of every object, ranged GETs,
       an If-None-Match 304, HEADs, a presigned GET, ListObjectsV2 in
@@ -99,7 +99,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    h. concurrent dispatch: the deployment of f through ServerPools and
       through the S3 server, with the cross-request coalescer
       (ops/coalesce.py) and its pinned, double-buffered copies, with
-      MTPU_COALESCE=0 and with MTPU_H2D_PIPELINE=0: 16 clients x 8
+      MTPU_COALESCE=0 and with MTPU_H2D_PIPELINE=0: 16 clients x 4
       objects of 1 MiB PUT and GET, 4 clients x 2 HighwayHash objects,
       four 64 MiB objects PUT and GET from 1 and from 4 clients and read
       degraded with two drives of every set away, and a 16 MiB object
@@ -111,8 +111,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       dispatch, the lanes' time split, bytes copied per byte served.
    i. the front door's identity planes: an S3Server with an IAMSys and
       an HS256 OIDC provider over one EC:8+4 set of 12 drives; root
-      creates 1000 users in 20 groups, 50 custom policies scoped to a
-      bucket and prefix and 100 service accounts over the admin API
+      creates 500 users in 10 groups, 25 custom policies scoped to a
+      bucket and prefix and 50 service accounts over the admin API
       (each IAM object an inline PUT on the card); a SigV2-header PUT of
       64 MiB read back by a SigV2 presigned GET and by SigV4; a readonly
       user's 64 MiB PUT refused; a prefix-scoped user, service accounts,
@@ -178,13 +178,34 @@ Phases, each printing its own lines; any failure exits non-zero:
       and 4 clients with MTPU_ZEROCOPY=1 (a verified sendfile plan: its
       device items exact, one sendfile per GET) against =0, bodies
       equal.
-   Phases a-g and i-l run with MTPU_DEVCACHE=0: their counts assume
+   m. the metadata plane of the PUT side (phase_meta_plane): the server
+      booted as one process on fresh drives with the metadata lanes (the
+      default) and with MTPU_METABATCH=0 (every server of the phase
+      booted at once), driven in turns; 16 client processes
+      PUT 16 inline objects of 4-64 KiB each (the JAX package's
+      small-object mix), HEAD every one and GET a quarter, then one
+      client 32 the same way: PUT/s, HEAD/s, p50 and p99, publishes per
+      journal fsync, keys per metadata read round, trim accepted and
+      fallen back, the device items equal across the turns; on /dev/shm
+      and, for the 16-client turns with 8 objects a client, on a
+      disk-backed directory (not tmpfs) when one has room.  Then a SIGKILL under 16 clients' journaled PUTs
+      (MTPU_METABATCH_SOLO=1) after 200 acknowledgements, the reboot's
+      journal replay, every acknowledged PUT read back exact and no key
+      holding bytes never written to it; and in this process, with the
+      lanes forced on over 12 NaughtyDrives, a failed write_metadata, a
+      failed and a stalled read_version, two drives taken away and a
+      breaker tripped by failed laned publishes, each reaching its
+      target with exact items.
+   Phases a-g and i-m run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i, k and l run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i and k-m run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
-   neither.
+   neither.  Every phase runs with the metadata lanes on (the default):
+   concurrent inline PUTs group-commit, and concurrent elections read
+   through the lanes and the K+1 trim, which reads the drives holding
+   the key's data shards, so no count changes.
 6. Where one 32 MiB PUT batch's time goes, layer by layer (the shard
    writes as one write_file_batches per drive; the ingest ring over the
    default buffer pool and a 512 MiB one against the bytearray chunker,
@@ -264,22 +285,25 @@ DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 # of LAYER_SMALL_BYTES (inline), LAYER_MID of LAYER_MID_BYTES (a ragged
 # tail block) and LAYER_BIG of LAYER_BIG_BYTES, LAYER_BIG_HH of them
 # under highwayhash256S.  Cut to half its depth (2048 small and 24 big
-# objects, 6 of them highwayhash256S, before phase 5l joined the run) to
-# keep the whole run within its time.
+# objects, 6 of them highwayhash256S, before phase 5l joined the run),
+# and its big objects to 8 (12, 3 of them highwayhash256S, before phase
+# 5m joined it) to keep the whole run within its time.
 LAYER_SETS, LAYER_SET_DRIVES = 4, 12
 LAYER_SMALL, LAYER_SMALL_BYTES = 1024, (1024, 100 * 1024)
 LAYER_MID, LAYER_MID_BYTES = 96, 4 * MIB + 1
-LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 12, 3, OBJECT_BYTES
+LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
 # SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
 # one of SERVER_CHUNKED_BYTES by aws-chunked PUT, SERVER_SMALL of
 # SERVER_SMALL_BYTES (the first SERVER_SMALL_SERIAL from one client),
 # one multipart upload of SERVER_PARTS, a ranged GET of SERVER_RANGE
-# (offset, length) per large object.
+# (offset, length) per large object.  SERVER_SMALL and SERVER_BIG cut to
+# half (1024, 128 of them from one client, and 16, before phase 5m
+# joined the run) to keep the whole run within its time.
 SERVER_SETS = LAYER_SETS
-SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 16, 2, OBJECT_BYTES
+SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 8, 2, OBJECT_BYTES
 SERVER_CHUNKED_BYTES = TAIL_OBJECT_BYTES
-SERVER_SMALL, SERVER_SMALL_SERIAL = 1024, 128
+SERVER_SMALL, SERVER_SMALL_SERIAL = 512, 64
 SERVER_SMALL_BYTES = (1024, 100 * 1024)
 SERVER_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 SERVER_RANGE = (300 * 1024, MIB)
@@ -291,8 +315,10 @@ SERVER_RANGE = (300 * 1024, MIB)
 # DISPATCH_BIG_CLIENTS objects of DISPATCH_BIG_BYTES from 1 client and
 # from DISPATCH_BIG_CLIENTS, and their degraded GETs with drives
 # DISPATCH_AWAY of every set away; one DISPATCH_HIT_BYTES object read
-# twice (the second read a device-cache hit).
-DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 16, 8, MIB
+# twice (the second read a device-cache hit).  DISPATCH_SMALL_PER cut to
+# half (8 before phase 5m joined the run) to keep the whole run within
+# its time.
+DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 16, 4, MIB
 DISPATCH_HH_CLIENTS, DISPATCH_HH_PER = 4, 2
 DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 4, OBJECT_BYTES
 DISPATCH_AWAY = (0, 1)
@@ -347,6 +373,20 @@ SPINE_SCAN = 128
 SPINE_SF_CLIENTS = 16
 SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 4, 8, 4
 SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
+# Phase 5m, the metadata plane of the PUT side, over BASELINE.json
+# config 2's deployment: META_CLIENTS client processes PUT META_PER
+# objects each, of sizes uniform in META_BYTES (inline: under the
+# 128 KiB SMALL_FILE_THRESHOLD; the JAX package's small-object mix,
+# SMALLOBJ_r19.json so_small_lo_kib, so_small_hi_kib and so_clients),
+# then HEAD every object and GET every META_GET_STRIDE-th; one client
+# does the same with META_ONE objects; with the lanes (the default) and
+# with MTPU_METABATCH=0, in turns, on fresh drives.  Then
+# META_KILL_CLIENTS clients PUT up to META_KILL_PER objects each under
+# MTPU_METABATCH_SOLO=1, and the server is SIGKILLed once META_KILL_ACKS
+# are acknowledged.
+META_CLIENTS, META_PER, META_BYTES = 16, 16, (4 * 1024, 64 * 1024)
+META_GET_STRIDE, META_ONE = 4, 32
+META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 200
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -2489,7 +2529,7 @@ def phase_dispatch(args, counts, card):
     in-process S3Server, in each of DISPATCH_MODES (the coalescer with
     its pinned, double-buffered copies; MTPU_COALESCE=0; and
     MTPU_H2D_PIPELINE=0).  Per mode and route, a fresh bucket: 16
-    clients PUT 8 objects of 1 MiB each, then GET them; 4 clients PUT and
+    clients PUT DISPATCH_SMALL_PER objects of 1 MiB each, then GET them; 4 clients PUT and
     GET 2 highwayhash256S objects each; four 64 MiB objects PUT from 1
     client and again from 4, then read from 1 and from 4; degraded GETs
     of them from 4 clients with two drives of every set away; one 16 MiB
@@ -2741,8 +2781,11 @@ def phase_dispatch(args, counts, card):
 # (inline) and IDENTITY_SNOW_BIG of IDENTITY_SNOW_BIG_BYTES, a stored zip
 # of IDENTITY_ZIP_MEMBERS members of IDENTITY_ZIP_MEMBER_BYTES read
 # IDENTITY_ZIP_GETS times, IDENTITY_AUTH_RUNS requests per auth timing.
-IDENTITY_USERS, IDENTITY_GROUPS = 1000, 20
-IDENTITY_POLICIES, IDENTITY_SVC = 50, 100
+# The IAM state cut to half (1000 users, 20 groups, 50 policies and 100
+# service accounts before phase 5m joined the run) to keep the whole run
+# within its time.
+IDENTITY_USERS, IDENTITY_GROUPS = 500, 10
+IDENTITY_POLICIES, IDENTITY_SVC = 25, 50
 IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
 IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 448, 64 * 1024
 IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 64, MIB
@@ -3689,7 +3732,8 @@ def _boot_server(card, debris: bool = False) -> float:
                          f"({cards})")
     sweep = (f"minio_tpu_torch: recovery sweep: {seeded[0]} stale tmp "
              f"entries, {seeded[1]} orphaned multipart staging files across "
-             f"12 drives")
+             f"12 drives; 0 xl.meta entries replayed from the metadata "
+             f"journal")
     if lines[1] != sweep or (debris and parked != ["part.1",
                                                    "part.1.meta"]):
         raise SystemExit(f"boot: sweep {lines[1]!r} (seeded {seeded}), "
@@ -3757,6 +3801,79 @@ def pool_client(spec: dict) -> int:
         t1 = time.monotonic()
         print(json.dumps({"t0": t0, "t1": t1, "ok": bool(ok),
                           "statuses": statuses,
+                          "torch": "torch" in sys.modules}), flush=True)
+    return 0
+
+
+def meta_client(spec: dict) -> int:
+    """One client process of phase 5m (`chip_smoke.py --meta-client
+    JSON`): makes its bodies from their seeds, says `ready`, then on
+    each line of stdin PUTs (`put`), HEADs (`head`) or GETs (`get K N`:
+    every N-th object from the K-th) its objects, or GETs each and
+    classes the answer (`check`: "exact"; "missing" for a 404; "wrong"
+    for other bytes; "error <status>" for another answer, which carries
+    no object bytes); each time it prints one JSON line with its monotonic start
+    and end, whether every answer was right, each request's ms, the
+    classes, the error that stopped it (a server killed under it) and
+    whether it loaded torch.  With `acks`, each acknowledged PUT's key
+    is appended to that file at once."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import http.client
+
+    import numpy as np
+
+    from minio_tpu_torch.server.client import S3Client
+
+    cli = S3Client(f"http://127.0.0.1:{spec['port']}", spec["ak"],
+                   spec["sk"], timeout=120)
+    bodies = {key: np.random.default_rng(seed).bytes(size)
+              for key, size, seed in spec["objects"]}
+    md5 = {k: hashlib.md5(v).hexdigest() for k, v in bodies.items()}
+    acks = open(spec["acks"], "a") if spec.get("acks") else None
+    print("ready", flush=True)
+    for line in sys.stdin:
+        verb, *cut = line.split()
+        if verb not in ("put", "head", "get", "check"):
+            return 1
+        keys = list(bodies)[int(cut[0])::int(cut[1])] if cut else \
+            list(bodies)
+        ok, lat, classes, err = True, [], {}, ""
+        t0 = time.monotonic()
+        for key in keys:
+            path = f"/{spec['bucket']}/{key}"
+            t = time.perf_counter()
+            try:
+                if verb == "put":
+                    st, hdrs, _ = cli.request(
+                        "PUT", path, body=bodies[key],
+                        headers={"x-amz-storage-class": "STANDARD"})
+                    h = {k.lower(): v for k, v in hdrs.items()}
+                    good = st == 200 and \
+                        h.get("etag", "").strip('"') == md5[key]
+                    if good and acks is not None:
+                        acks.write(key + "\n")
+                        acks.flush()
+                elif verb == "head":
+                    st, hdrs, _ = cli.request("HEAD", path)
+                    h = {k.lower(): v for k, v in hdrs.items()}
+                    good = (st == 200 and h.get("etag", "").strip('"')
+                            == md5[key] and int(h.get("content-length", -1))
+                            == len(bodies[key]))
+                else:
+                    st, _, got = cli.request("GET", path)
+                    good = st == 200 and got == bodies[key]
+                    if verb == "check":
+                        classes[key] = ("exact" if good else "missing"
+                                        if st == 404 else "wrong"
+                                        if st == 200 else f"error {st}")
+                        good = True
+            except (OSError, http.client.HTTPException) as e:
+                ok, err = False, repr(e)
+                break
+            lat.append((time.perf_counter() - t) * 1e3)
+            ok &= good
+        print(json.dumps({"t0": t0, "t1": time.monotonic(), "ok": bool(ok),
+                          "lat": lat, "classes": classes, "err": err,
                           "torch": "torch" in sys.modules}), flush=True)
     return 0
 
@@ -3838,20 +3955,26 @@ class _GetSpans:
 
 
 class _Clients:
-    """Client processes of phase 5k, started with subprocess (never a
+    """Client processes of phases 5k-5m, started with subprocess (never a
     fork of this CUDA-initialised process), all ready before any PUT;
-    `per_client` lists each client's (key, size, seed) objects."""
+    `per_client` lists each client's (key, size, seed) objects; `role`
+    is the client's entry (`--pool-client`, or `--meta-client` with
+    `acks`, a directory where client c appends the keys of its
+    acknowledged PUTs to the file c)."""
 
-    def __init__(self, port: int, bucket: str, per_client: list[list]):
+    def __init__(self, port: int, bucket: str, per_client: list[list],
+                 role: str = "--pool-client", acks: str | None = None):
         here = os.path.abspath(__file__)
         self.procs = []
         self.per_client = per_client
-        for objs in per_client:
+        for c, objs in enumerate(per_client):
             spec = {"port": port, "ak": "pooladmin",
                     "sk": "pooladmin-secret", "bucket": bucket,
                     "objects": objs}
+            if acks:
+                spec["acks"] = os.path.join(acks, str(c))
             self.procs.append(subprocess.Popen(
-                [sys.executable, here, "--pool-client", json.dumps(spec)],
+                [sys.executable, here, role, json.dumps(spec)],
                 stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True))
         for p in self.procs:
             if p.stdout.readline().strip() != "ready":
@@ -3859,12 +3982,13 @@ class _Clients:
                 raise SystemExit("pool: a client did not start")
 
     def run(self, verb: str, during=None, only: int | None = None,
-            stride: int | None = None) -> dict:
+            stride: int | None = None, strict: bool = True) -> dict:
         """Every client's `verb` at once, or the first `only` clients'
         (`during()` runs once they are told); with `stride`, client c
         takes every `stride`-th of its objects from the (c % stride)-th.
         Seconds from the first start to the last end, GB/s and
-        operations/s over them."""
+        operations/s over them, and the clients' answers ("res"); a
+        wrong answer fails the run unless not `strict`."""
         procs = self.procs[:only]
         objs = self.per_client[:only]
         if stride:
@@ -3881,13 +4005,13 @@ class _Clients:
             if not line:
                 raise SystemExit(f"pool: a client died during {verb}")
             res.append(json.loads(line))
-        bad = [r for r in res if not r["ok"] or r["torch"]]
+        bad = [r for r in res if (strict and not r["ok"]) or r["torch"]]
         if bad:
             raise SystemExit(f"pool: {verb} wrong or loaded torch: {bad}")
         s = max(r["t1"] for r in res) - min(r["t0"] for r in res)
         return {"s": s,
                 "gbps": sum(z for o in objs for _, z, _ in o) / s / 1e9,
-                "ops": sum(len(o) for o in objs) / s}
+                "ops": sum(len(o) for o in objs) / s, "res": res}
 
     def __enter__(self):
         return self
@@ -4859,6 +4983,479 @@ def phase_get_spine(args, counts, card):
     return {**launches, "mxh256_elsewhere": elsewhere}
 
 
+def _fs_type(path: str) -> str:
+    return subprocess.run(["stat", "-f", "-c", "%T", path],
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _disk_dir(need: int) -> str | None:
+    """A directory on a disk-backed filesystem (not tmpfs) with `need`
+    bytes free: the temp dir or the checkout's ignored build dir."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for cand in (tempfile.gettempdir(),
+                 os.path.join(here, "minio_tpu_torch", "build")):
+        try:
+            os.makedirs(cand, exist_ok=True)
+            if _fs_type(cand) not in ("tmpfs", "ramfs") and \
+                    shutil.disk_usage(cand).free >= need:
+                return cand
+        except OSError:
+            continue
+    return None
+
+
+def _meta_counts(m: dict) -> dict:
+    """Phase 5m's counters from one metrics read of a one-process
+    server: the metadata plane's and the kernels' items and launches."""
+    out = {k: m.get(f"mtpu_meta_{k}", 0) for k in (
+        "publishes_total", "fsyncs_total", "group_commits_total",
+        "group_items_total", "group_items_max", "journal_replays_total",
+        "read_requests_total", "read_rounds_total", "read_keys_total",
+        "trim_hits_total", "trim_fallbacks_total", "lane_dispatches_total",
+        "inline_ops_total")}
+    for k in ("gf_matmul", "hh256", "mxh256"):
+        for what in ("launches", "items"):
+            out[f"{what}_{k}"] = int(
+                m[f'mtpu_kernel_{what}_total{{kernel="{k}"}}'])
+    return out
+
+
+def _pct(values: list, q: float) -> float:
+    vs = sorted(values)
+    return vs[min(len(vs) - 1, int(q * len(vs)))] if vs else 0.0
+
+
+def phase_meta_plane(args, counts, card):
+    """The metadata plane of the PUT side (ops/metalanes.py, the drive's
+    group-commit journal and batched reads, the K+1 read trim) over
+    BASELINE.json config 2's deployment (one EC:8+4 set of 12 drives,
+    MINIO_STORAGE_CLASS_STANDARD=EC:4), `python -m
+    minio_tpu_torch.server` as one process, read through its
+    /minio/v2/metrics/node families:
+
+    Every server boots at once, each on fresh drives, and waits idle
+    while another is driven.
+
+    1. two servers, the lanes (the default) and MTPU_METABATCH=0 (the
+       single-op oracle), driven in turns step by step (the first to go
+       alternates): META_CLIENTS client processes PUT META_PER inline
+       objects each, HEAD every one and GET every META_GET_STRIDE-th
+       (SHA-256 exact), then one client the same with META_ONE
+       objects.  PUT/s, HEAD/s, p50 and p99 of
+       each; publishes per journal fsync (mean and max), keys per
+       metadata read round, trim accepted against fallen back; the
+       PUTs' and GETs' device items equal across the turns.  On /dev/shm
+       (tmpfs, where an fsync is nearly free), and the two 16-client
+       turns again, with half the objects, on a disk-backed directory
+       (not tmpfs) when one has room;
+    2. durability: lanes on with MTPU_METABATCH_SOLO=1 (every publish
+       journaled), META_KILL_CLIENTS clients PUT and the server is
+       SIGKILLed after META_KILL_ACKS acknowledgements; the reboot on the
+       same drives prints the sweep's journal replays; every
+       acknowledged PUT reads back exact, and no key returns bytes never
+       written to it;
+    3. in this process, on the card: the lanes forced on over 12
+       NaughtyDrives, each fault reaching its target: a scripted
+       write_metadata fault fails its drive's item of the batched
+       publish, a failed and a stalled read_version hit their drives'
+       items of the laned election, two drives taken away, and a
+       health-wrapped drive failing every laned publish trips its
+       breaker (the next PUT upgrades its parity); items exact.
+
+    Returns the kernel launches of its steps; the servers' mxh256
+    launches also under "mxh256_elsewhere"."""
+    import numpy as np
+
+    from minio_tpu_torch.server.client import S3Client
+
+    t_phase = time.perf_counter()
+    seed = args.seed + 11000
+    lo, hi = META_BYTES
+
+    def objects(prefix, n_clients, per, salt):
+        rng = np.random.default_rng(seed + salt)
+        return [[(f"{prefix}{c}-{i}", int(rng.integers(lo, hi + 1)),
+                  seed + salt * 100000 + c * 1000 + i)
+                 for i in range(per)] for c in range(n_clients)]
+
+    need = 3 << 30
+    if not os.path.isdir("/dev/shm") or \
+            shutil.disk_usage("/dev/shm").free < need:
+        raise SystemExit(f"meta: needs {need} bytes free on /dev/shm")
+    disk = _disk_dir(need)
+    launches = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+    elsewhere = 0
+    counts.reset()
+    roots: list = []
+
+    def step(pool, cl, verb, what, only=None, stride=None):
+        """One verb from the clients, the server's counters around it."""
+        nonlocal elsewhere
+        before = _meta_counts(pool.metrics())
+        r = cl.run(verb, only=only, stride=stride)
+        after = _meta_counts(pool.metrics())
+        d = {k: after[k] - before[k] for k in after}
+        d["group_items_max"] = after["group_items_max"]
+        for k in launches:
+            launches[k] += d[f"launches_{k}"]
+        elsewhere += d["launches_mxh256"]
+        lat = [x for res in r["res"] for x in res["lat"]]
+        return {"what": what, "ops": r["ops"], "s": r["s"],
+                "p50": _pct(lat, 0.50), "p99": _pct(lat, 0.99), **d}
+
+    def report(label, out):
+        for (n, verb), r in out.items():
+            commits = r["group_commits_total"]
+            rounds = r["read_rounds_total"]
+            print(f"[meta] {label} {n} client(s) {verb}: {r['ops']:.1f} "
+                  f"op/s, p50 {r['p50']:.2f} ms, p99 {r['p99']:.2f} ms; "
+                  f"publishes {int(r['publishes_total'])}, fsyncs "
+                  f"{int(r['fsyncs_total'])}, group commits {int(commits)} "
+                  f"({r['group_items_total'] / commits if commits else 0:.2f}"
+                  f" publishes a journal fsync, at most "
+                  f"{int(r['group_items_max'])} since boot); metadata reads "
+                  f"{int(r['read_requests_total'])} in {int(rounds)} drive "
+                  f"rounds ({r['read_keys_total'] / rounds if rounds else 0:.2f}"
+                  f" keys a round); trim accepted "
+                  f"{int(r['trim_hits_total'])}, fell back "
+                  f"{int(r['trim_fallbacks_total'])}; items gf_matmul "
+                  f"{r['items_gf_matmul']} mxh256 {r['items_mxh256']}, "
+                  f"launches gf_matmul {r['launches_gf_matmul']} mxh256 "
+                  f"{r['launches_mxh256']}; card {card}")
+
+    def turns(base, pools, one_client: bool, per: int) -> dict:
+        """The lanes' server and the oracle's on `base`, driven step by
+        step in turns (the first to go alternates), each by its own
+        clients: every verb from 16 clients, then (`one_client`) from
+        1."""
+        for pool in pools.values():
+            S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                     "pooladmin-secret", timeout=60).make_bucket("meta")
+        out: dict = {label: {} for label in pools}
+        plan = [(META_CLIENTS, per, "m", 1)]
+        if one_client:
+            plan.append((1, META_ONE, "s", 2))
+        for n, per_c, prefix, salt in plan:
+            objs = objects(prefix, n, per_c, salt)
+            cls = {}
+            try:
+                for label, pool in pools.items():
+                    cls[label] = _Clients(pool.port, "meta", objs,
+                                          role="--meta-client")
+                for i, verb in enumerate(("put", "head", "get")):
+                    order = list(pools) if i % 2 == 0 else \
+                        list(pools)[::-1]
+                    for label in order:
+                        out[label][n, verb] = step(
+                            pools[label], cls[label], verb, verb.upper(),
+                            stride=META_GET_STRIDE if verb == "get"
+                            else None)
+            finally:
+                for cl in cls.values():
+                    cl.close()
+        return out
+
+    modes = (("lanes", {}), ("MTPU_METABATCH=0", {"MTPU_METABATCH": "0"}))
+    pools: dict = {}
+    try:
+        fs = {"/dev/shm": _fs_type("/dev/shm")}
+        bases = ["/dev/shm"]
+        if disk is None:
+            print(f"[meta] no disk-backed directory with {need} bytes "
+                  f"free: the 16-client turns run on tmpfs only; card "
+                  f"{card}")
+        else:
+            bases.append(disk)
+            fs[disk] = _fs_type(disk)
+        # Every server of the phase boots at once, each on fresh drives
+        # (the durability step's with every publish journaled); a
+        # server waits idle while another is driven.
+        specs = [((base, label), base, env) for base in bases
+                 for label, env in modes]
+        specs.append(("solo", "/dev/shm", {"MTPU_METABATCH_SOLO": "1"}))
+        t0 = time.perf_counter()
+        errors: list = []
+
+        def boot(key, base, env):
+            root = tempfile.mkdtemp(prefix="chip_smoke-meta-", dir=base)
+            roots.append(root)
+            try:
+                pools[key] = _Pool(root, 0, env=env)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+        threads = [threading.Thread(target=boot, args=sp) for sp in specs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        print(f"[meta] {len(specs)} one-process servers booted at once in "
+              f"{time.perf_counter() - t0:.2f} s (each ready in "
+              + ", ".join(f"{pools[k].boot_s:.2f}" for k, _, _ in specs)
+              + f" s); card {card}")
+        for base in bases:
+            one = base == "/dev/shm"
+            per = META_PER if one else META_PER // 2
+            pair = {label: pools.pop((base, label)) for label, _ in modes}
+            done = False
+            try:
+                runs = turns(base, pair, one, per)
+                done = True
+            finally:
+                if not done:
+                    for label, pool in pair.items():
+                        print(f"[meta] {label}: the server's log ends: "
+                              f"{pool.tail()}")
+                        pool.kill()
+            for label, pool in pair.items():
+                report(f"{fs[base]} ({base}) {label}", runs[label])
+                print(f"[meta] {fs[base]} ({base}) {label}: ready in "
+                      f"{pool.boot_s:.2f} s, SIGTERM exit 0 in "
+                      f"{pool.stop():.2f} s")
+            lanes, oracle = runs["lanes"], runs["MTPU_METABATCH=0"]
+            for key in lanes:
+                a, b = lanes[key], oracle[key]
+                if any(a[f"items_{k}"] != b[f"items_{k}"]
+                       for k in launches):
+                    raise SystemExit(f"meta: {base} {key}: device items "
+                                     f"differ across the turns: {a} {b}")
+                if a["items_gf_matmul"] and not a["launches_gf_matmul"]:
+                    raise SystemExit(f"meta: {key}: no GF launch")
+            put = lanes[META_CLIENTS, "put"]
+            if (put["items_gf_matmul"], put["items_mxh256"]) != \
+                    (META_CLIENTS * per,) * 2:
+                raise SystemExit(f"meta: {META_CLIENTS * per} inline PUTs "
+                                 f"made items {put}")
+            if oracle[META_CLIENTS, "put"]["group_commits_total"]:
+                raise SystemExit("meta: group commits with "
+                                 f"MTPU_METABATCH=0: {oracle}")
+            print(f"[meta] {fs[base]} ({base}): {META_CLIENTS}-client "
+                  f"PUT/s lanes {put['ops']:.1f} against "
+                  f"{oracle[META_CLIENTS, 'put']['ops']:.1f}, HEAD/s "
+                  f"{lanes[META_CLIENTS, 'head']['ops']:.1f} against "
+                  f"{oracle[META_CLIENTS, 'head']['ops']:.1f}; device items"
+                  f" equal across the turns; card {card}")
+        _meta_durability(card, objects, pools.pop("solo"))
+        _meta_faults(card, counts, launches, seed, roots)
+    finally:
+        for pool in pools.values():
+            pool.kill()
+        for r_ in roots:
+            shutil.rmtree(r_, ignore_errors=True)
+    print(f"[meta] phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return {**launches, "mxh256_elsewhere": elsewhere}
+
+
+def _meta_durability(card, objects, pool) -> None:
+    """Phase 5m, step 2: a SIGKILL under 16 clients' journaled PUTs to
+    `pool` (booted with MTPU_METABATCH_SOLO=1 on fresh drives), the
+    reboot's journal replay, every acknowledged PUT read back."""
+    import signal
+
+    from minio_tpu_torch.server.client import S3Client
+
+    root = pool.root
+    acks_dir = os.path.join(root, "acks")
+    os.mkdir(acks_dir)
+    objs = objects("k", META_KILL_CLIENTS, META_KILL_PER, 3)
+    try:
+        S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                 "pooladmin-secret", timeout=60).make_bucket("dur")
+        m0 = _meta_counts(pool.metrics())
+
+        def acked() -> list[str]:
+            out = []
+            for c in range(META_KILL_CLIENTS):
+                try:
+                    with open(os.path.join(acks_dir, str(c))) as f:
+                        out += [ln.strip() for ln in f if ln.strip()]
+                except FileNotFoundError:
+                    pass
+            return out
+
+        state = {}
+
+        def kill_after_acks():
+            deadline = time.monotonic() + 120
+            while len(acked()) < META_KILL_ACKS:
+                if time.monotonic() > deadline:
+                    raise SystemExit("meta: too few acknowledged PUTs")
+                time.sleep(0.005)
+            m = _meta_counts(pool.metrics())
+            state["commits"] = m["group_commits_total"] - \
+                m0["group_commits_total"]
+            pool.proc.send_signal(signal.SIGKILL)
+            pool.proc.wait()
+            state["at"] = len(acked())
+        with _Clients(pool.port, "dur", objs, role="--meta-client",
+                      acks=acks_dir) as cl:
+            r = cl.run("put", during=kill_after_acks, strict=False)
+    finally:
+        pool.kill()
+    keys = acked()
+    stopped = sum(1 for res in r["res"] if res["err"])
+    pool = _Pool(root, 0)
+    try:
+        sweep = next((ln for ln in open(pool.log).read().splitlines()
+                      if "recovery sweep:" in ln), "")
+        m = re.search(r"; (\d+) xl\.meta entries replayed", sweep)
+        if not m:
+            raise SystemExit(f"meta: no sweep line after the kill: "
+                             f"{pool.tail()}")
+        with _Clients(pool.port, "dur", objs, role="--meta-client") as cl:
+            res = cl.run("check", strict=False)["res"]
+        classes = {k: v for x in res for k, v in x["classes"].items()}
+        lost = [k for k in keys if classes.get(k) != "exact"]
+        wrong = [k for k, v in classes.items() if v == "wrong"]
+        errors = sorted(v for v in classes.values()
+                        if v.startswith("error"))
+        if lost or wrong or len(classes) != sum(len(o) for o in objs):
+            raise SystemExit(f"meta: after the SIGKILL {len(lost)} "
+                             f"acknowledged PUTs lost ({lost[:5]}), "
+                             f"{len(wrong)} keys with bytes never written "
+                             f"({wrong[:5]})")
+        pool.stop()
+        pool = None
+    finally:
+        if pool is not None:
+            pool.kill()
+    landed = sum(1 for v in classes.values() if v == "exact")
+    missing = sum(1 for v in classes.values() if v == "missing")
+    print(f"[meta] durability, MTPU_METABATCH_SOLO=1: SIGKILL after "
+          f"{state['at']} acknowledged PUTs ({state['commits']} group "
+          f"commits so far; {stopped} of {META_KILL_CLIENTS} clients cut "
+          f"off); the reboot's sweep replayed {m.group(1)} xl.meta entries "
+          f"from the journal; {len(keys)} acknowledged PUTs all read back "
+          f"exact, {landed - len(keys)} unacknowledged ones landed whole, "
+          f"{missing} are absent (404), {len(errors)} answer without an "
+          f"object ({', '.join(sorted(set(errors))) or 'none'}: PUTs cut "
+          f"off mid-publish, short of a read quorum), none holds other "
+          f"bytes; card {card}")
+
+
+def _meta_faults(card, counts, launches, seed, roots) -> None:
+    """Phase 5m, step 3: faults reach their targets with the lanes
+    forced on, in this process on the card; adds its launches to
+    `launches`."""
+    import numpy as np
+
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.ops import metalanes
+    from minio_tpu_torch.storage.health_wrap import HealthWrappedDrive
+    from minio_tpu_torch.storage.naughty import NaughtyDrive
+
+    # 3. Faults reach their targets with the lanes engaged.
+    froot = tempfile.mkdtemp(prefix="chip_smoke-meta-faults-",
+                             dir="/dev/shm")
+    roots.append(froot)
+    saved = {k: os.environ.get(k) for k in (
+        "MTPU_METABATCH_SOLO", "MTPU_BREAKER_ERRS",
+        "MTPU_BREAKER_OFFLINE_ERRS", "MTPU_BREAKER_PROBE_S")}
+    os.environ.update({"MTPU_METABATCH_SOLO": "1", **HOST_BREAKER_ENV})
+    nd = [NaughtyDrive(os.path.join(froot, f"f{i}")) for i in range(12)]
+    drives = list(nd)
+    drives[9] = HealthWrappedDrive(nd[9])
+    es = ErasureSet(drives, default_parity=4)
+    mb = metalanes.get()
+    try:
+        es.make_bucket("f")
+        data = {f"k{i}": np.random.default_rng(seed + 50 + i).bytes(
+            8 * 1024 + i) for i in range(8)}
+
+        def held(what, fn, want):
+            l0, i0 = counts.read(), counts.items()
+            out = fn()
+            got = {k: v - l0[k] for k, v in counts.read().items()}
+            items = {k: v - i0[k] for k, v in counts.items().items()}
+            for k in launches:
+                launches[k] += got[k]
+            if any(items[k] != want.get(k, 0) for k in items) or \
+                    any(got[k] > items[k] for k in got):
+                raise SystemExit(f"meta faults: {what}: items {items}, "
+                                 f"launches {got}, want {want}")
+            return out
+
+        put = {"gf_matmul": 1, "mxh256": 1}
+        nd[2].fail("write_metadata", on_call=1)
+        held("scripted write_metadata fault", lambda: es.put_object(
+            "f", "k0", data["k0"]), put)
+        if os.path.exists(os.path.join(nd[2].root, "f", "k0")) or \
+                nd[2]._on_call or not nd[2].calls.get("write_metadata_many"):
+            raise SystemExit("meta faults: the write_metadata fault missed "
+                             "its laned publish")
+        fi0 = es.head_object("f", "k0")
+        got = held("GET past the missing copy", lambda: bytes(
+            es.get_object("f", "k0")[1]), {"mxh256": 1, "gf_matmul": int(
+                _holds_data(fi0, [2]))})
+        if got != data["k0"]:
+            raise SystemExit("meta faults: k0 read back wrong")
+        held("PUT k1", lambda: es.put_object("f", "k1", data["k1"]), put)
+        mb.note_read(2)                   # a hot read plane: lanes, trim
+        try:
+            dist = Q.hash_order("f/k1", 12)
+            first = [p for p in range(12) if dist[p] <= 9 and p != 9]
+            nd[first[0]].fail("read_version", on_call=1)
+            r0 = nd[first[0]].calls.get("read_version", 0)
+            if es.head_object("f", "k1").etag != \
+                    hashlib.md5(data["k1"]).hexdigest() or \
+                    nd[first[0]]._on_call or \
+                    nd[first[0]].calls["read_version"] == r0:
+                raise SystemExit("meta faults: the read_version fault "
+                                 "missed its laned read")
+            nd[first[1]].slow("read_version", 0.3, on_call=1)
+            t0 = time.perf_counter()
+            es.head_object("f", "k1")
+            stall_s = time.perf_counter() - t0
+            if stall_s < 0.3 or nd[first[1]]._slow_on:
+                raise SystemExit(f"meta faults: the stalled read_version "
+                                 f"took {stall_s:.3f} s")
+            fi1 = es.head_object("f", "k1")
+            away = [p for p in range(12)
+                    if fi1.erasure.distribution[p] in (1, 2)]
+            for p in away:
+                es.drives[p] = None
+            got = held("GET with two data-shard drives away", lambda: bytes(
+                es.get_object("f", "k1")[1]), {"mxh256": 1, "gf_matmul": 1})
+            for p in away:
+                es.drives[p] = drives[p]
+            if got != data["k1"]:
+                raise SystemExit("meta faults: k1 read back wrong")
+        finally:
+            mb.note_read(-2)
+        nd[9].fail_always("write_metadata")
+        for i in range(2, 6):
+            held(f"PUT k{i}", lambda i=i: es.put_object(
+                "f", f"k{i}", data[f"k{i}"]), put)
+        trips = drives[9].api_stats()["write_metadata_many"]["errors"]
+        fi = held("PUT past the open circuit", lambda: es.put_object(
+            "f", "k6", data["k6"]), put)
+        if drives[9].health_state() != "offline" or \
+                fi.erasure.parity_blocks != 5:
+            raise SystemExit(f"meta faults: breaker "
+                             f"{drives[9].health_state()} after {trips} "
+                             f"failed items, parity "
+                             f"{fi.erasure.parity_blocks}")
+        print(f"[meta] faults with the lanes forced on (12 NaughtyDrives, "
+              f"EC:8+4): a scripted write_metadata fault failed drive 2's "
+              f"item of the batched publish (the PUT and GET exact); a "
+              f"failed and a {stall_s:.3f} s stalled read_version hit "
+              f"their drives' items of the laned election; a GET with two "
+              f"data-shard drives away rebuilt on the GF kernel; drive 9 "
+              f"failing every laned publish went offline after {trips} "
+              f"failed items and the next PUT wrote EC:7+5; items exact; "
+              f"card {card}")
+    finally:
+        drives[9].close()
+        es.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -5224,6 +5821,7 @@ def main() -> int:
         "host planes": lambda: phase_host_planes(args, counts, card),
         "worker pool": lambda: phase_pool(args, counts, card),
         "serving spine": lambda: phase_get_spine(args, counts, card),
+        "metadata plane": lambda: phase_meta_plane(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -5249,7 +5847,9 @@ def main() -> int:
                 os.environ["MTPU_HEDGE"] = "0"
                 ErasureSet._FI_CACHE_TTL = 0.0
             coalesce.reset()
+            t_path = time.perf_counter()
             per_path[name] = run()
+            print(f"[time] {name}: {time.perf_counter() - t_path:.1f} s")
             for shape, k in counts.last_shapes.items():
                 tally[shape] = tally.get(shape, 0) + k
             st = coalesce.get().stats()
@@ -5276,11 +5876,12 @@ def main() -> int:
     calls = sum(p["mxh256"] for p in per_path.values())
     print(f"[mxh256] at (384, 131072): {mxh['ms']:.4f} ms against a bound "
           f"of {mxh['bound_ms']:.4f} ms; card {card}")
-    # The worker pool's calls, and the serving spine's servers', ran in
-    # their own processes, untallied.
+    # The worker pool's calls, and the serving spine's and the metadata
+    # plane's servers', ran in their own processes, untallied.
     phase_mxh_shapes(torch, mt, gen, card, tally,
                      calls - per_path["worker pool"]["mxh256"]
-                     - per_path["serving spine"]["mxh256_elsewhere"])
+                     - per_path["serving spine"]["mxh256_elsewhere"]
+                     - per_path["metadata plane"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))
@@ -5306,4 +5907,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pool-client"]:
         sys.exit(pool_client(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--meta-client"]:
+        sys.exit(meta_client(json.loads(sys.argv[2])))
     sys.exit(main())

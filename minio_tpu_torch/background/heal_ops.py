@@ -10,7 +10,7 @@ once per set first, then for each bucket and pool `heal_bucket` and
 flight.
 
 Left out: the QoS throttle of the heal workers (ROADMAP.md Queue A
-item 7).
+item 7c).
 """
 
 from __future__ import annotations

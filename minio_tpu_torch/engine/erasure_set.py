@@ -85,9 +85,19 @@ PUT and DELETE hold the object's namespace write lock
 mutation calls `_mark_dirty`, which bumps the bucket's metacache
 generation, so no listing is served from a cache taken before it.
 
+The metadata plane (ops/metalanes.py, MTPU_METABATCH; =0 is the
+single-op oracle): once concurrent inline PUTs are in flight, each
+drive's publishes go through its write lane and share one journal fsync
+(`_put_inline_lanes`); concurrent metadata reads go through the read
+lanes, and while reads are hot an election first reads the K+1 drives
+that hold the key's shards 0..K (`_read_version_fanout`, MTPU_META_TRIM)
+and stands on them only when they agree on an inline version at quorum.
+The positions it did not read are listed in the election's
+`Metas.unread`, and nothing takes them for missing drives.
+
 Left out of this slice (each has a byte-identical off switch in the JAX
-package, so the bytes do not depend on it): metadata lanes, the
-multi-device mesh codec and legacy xl.json objects.
+package, so the bytes do not depend on it): the multi-device mesh codec
+and legacy xl.json objects.
 """
 
 from __future__ import annotations
@@ -105,7 +115,7 @@ import torch
 
 from ..cluster.dynamic_timeout import DynamicTimeout
 from ..cluster.nslock import NSLockMap
-from ..ops import coalesce, devcache, devices, fused
+from ..ops import coalesce, devcache, devices, fused, metalanes
 from ..ops import zerocopy as zc
 from ..parallel import pipeline
 from ..storage import bitrot_io
@@ -180,6 +190,14 @@ def _now_ns() -> int:
     return time.time_ns()
 
 
+class Metas(list):
+    """An election's metadata by drive position.  `unread` holds the
+    positions a trimmed read did not read: a None there is neither a
+    missing drive nor a missing metadata copy."""
+
+    unread: frozenset = frozenset()
+
+
 class ErasureSet:
     """Object CRUD on one stripe of `n` drives (an entry may be None when
     a drive is offline)."""
@@ -225,6 +243,8 @@ class ErasureSet:
         # The hot-object tier (engine/hotcache.attach_sets), None until
         # the boot attaches one.
         self.hot_tier = None
+        # The parity the K+1 read trim assumes (_read_version_fanout).
+        self._trim_parity = self.default_parity
 
     #: FileInfo cache: the TTL of the bucket-existence cache; the size
     #: cap only matters for pathological key churn.
@@ -454,19 +474,8 @@ class ErasureSet:
                 meta.setdefault("etag", md5.hexdigest())
             per_drive = Q.unshuffle_to_drives([bytes(s) for s in shards],
                                               distribution)
-            res = self._map_positions(lambda pos, d: d.write_metadata(
-                bucket, obj, fi_for(pos, "", per_drive[pos])))
-            errs = [e for _, e in res]
-            err = Q.reduce_write_quorum_errs(errs, write_quorum)
-            if err is not None:
-                self._undo_publish(bucket, obj, version_id, errs)
-                raise err
-            fi = fi_for(0, "", None)
-            if self.mrf is not None and any(errs):
-                # Partial success: MRF heals the stripe back to full
-                # width (cf. the enqueue at cmd/erasure-object.go:1403).
-                self.mrf.enqueue(bucket, obj, fi.version_id)
-            return fi
+            return self._put_inline(bucket, obj, fi_for, per_drive,
+                                    write_quorum, version_id)
 
         data_dir = new_uuid()
         tmp_dir = f"{TMP_DIR}/put-{uuid.uuid4().hex}"
@@ -495,6 +504,59 @@ class ErasureSet:
         if self.mrf is not None and (any(failed) or any(errs)):
             self.mrf.enqueue(bucket, obj, fi.version_id)
         return fi
+
+    def _put_inline(self, bucket, obj, fi_for, per_drive, write_quorum,
+                    version_id) -> FileInfo:
+        """Publish a small object: each drive's framed shard lives in
+        its xl.meta.  A lone request takes the single-op fan-out (one
+        fsynced write_metadata per drive); once the in-flight count or a
+        busy lane shows concurrency (or MTPU_METABATCH_SOLO), each
+        publish goes through its drive's write lane, whose batch-mates
+        share one journal fsync."""
+        mb = None
+        use_lanes = False
+        if metalanes.enabled():
+            mb = metalanes.get()
+            mb.note_put(1)
+            use_lanes = mb.put_hot() or metalanes.solo_forced()
+        try:
+            if use_lanes:
+                res = self._put_inline_lanes(bucket, obj, fi_for, per_drive,
+                                             mb)
+            else:
+                res = self._map_positions(lambda pos, d: d.write_metadata(
+                    bucket, obj, fi_for(pos, "", per_drive[pos])))
+        finally:
+            if mb is not None:
+                mb.note_put(-1)
+        errs = [e for _, e in res]
+        err = Q.reduce_write_quorum_errs(errs, write_quorum)
+        if err is not None:
+            self._undo_publish(bucket, obj, version_id, errs)
+            raise err
+        fi = fi_for(0, "", None)
+        if self.mrf is not None and any(errs):
+            # Partial success: MRF heals the stripe back to full width
+            # (cf. the enqueue at cmd/erasure-object.go:1403).
+            self.mrf.enqueue(bucket, obj, fi.version_id)
+        return fi
+
+    def _put_inline_lanes(self, bucket, obj, fi_for, per_drive, mb) -> list:
+        """One xl.meta publish per position through its drive's write
+        lane; the handles collected into `_map_positions`' (result,
+        error) shape.  The lanes own their dispatchers, so this never
+        waits on the set's fan-out pool."""
+        handles: list = []
+        for pos, d in enumerate(self.drives):
+            if d is None:
+                handles.append(ErrDiskNotFound("offline"))
+                continue
+            try:
+                handles.append(mb.submit_write(
+                    d, bucket, obj, fi_for(pos, "", per_drive[pos])))
+            except Exception as e:  # noqa: BLE001 — quorum classifies
+                handles.append(e)
+        return [_handle_result(h) for h in handles]
 
     def stage_stream(self, head, stream, md5, k: int, m: int, algo: str,
                      distribution: list[int], path: str, failed: list[bool],
@@ -956,9 +1018,11 @@ class ErasureSet:
             self._prefetch_pool(metas), depth=1)
 
     def _degraded(self, metas) -> bool:
-        """A read with a drive offline or a drive's metadata missing."""
+        """A read with a drive offline or a drive's metadata missing (a
+        position a trimmed election did not read is neither)."""
         return (any(d is None for d in self.drives)
-                or any(m is None for m in metas))
+                or any(m is None for pos, m in enumerate(metas)
+                       if pos not in metas.unread))
 
     def _prefetch_pool(self, metas):
         """The pool of a read's one-segment prefetch: none for a healthy
@@ -1355,14 +1419,25 @@ class ErasureSet:
     # -- metadata --------------------------------------------------------------
 
     def _read_metadata(self, bucket: str, obj: str, version_id: str = ""):
-        """Read every drive's xl.meta and elect the version a read quorum
-        agrees on.  Returns (fi, metas by drive position)."""
+        """Read the drives' xl.meta (every drive's, or the K+1 of a
+        trimmed read) and elect the version a read quorum agrees on.
+        Returns (fi, Metas by drive position)."""
         version_id = normalize_version_id(version_id)
         _count(meta_read_requests=1)
-        res = self._map_positions(
-            lambda pos, d: d.read_version(bucket, obj, version_id))
-        metas = [fi for fi, _ in res]
+        mb = metalanes.get() if metalanes.enabled() else None
+        if mb is not None:
+            mb.note_read(1)
+        try:
+            res = self._read_version_fanout(bucket, obj, version_id, mb)
+        finally:
+            if mb is not None:
+                mb.note_read(-1)
+        metas = Metas(fi for fi, _ in res)
         errs = [e for _, e in res]
+        unread = frozenset(pos for pos, (fi, e) in enumerate(res)
+                           if fi is None and e is None)
+        if unread:
+            metas.unread = unread
         if not any(m is not None for m in metas):
             err, _ = Q.reduce_errs(errs, ignored=(ErrDiskNotFound,))
             if isinstance(err, (ErrFileNotFound, ErrVolumeNotFound)):
@@ -1374,7 +1449,104 @@ class ErasureSet:
             raise ErrErasureReadQuorum(f"{bucket}/{obj}: {err}")
         read_quorum, _ = Q.object_quorum_from_meta(metas, self.n,
                                                    self.default_parity)
-        return Q.find_file_info_in_quorum(metas, read_quorum), metas
+        fi = Q.find_file_info_in_quorum(metas, read_quorum)
+        if fi.inline_data is not None:
+            self._trim_parity = fi.erasure.parity_blocks
+        return fi, metas
+
+    def _read_positions(self, bucket, obj, version_id, positions,
+                        mb) -> list:
+        """read_version on the drives at `positions`: one (FileInfo |
+        None, error | None) per position, in order.  While metadata reads
+        are hot the reads go through the drives' read lanes (distinct
+        keys' reads then share one read_version_many round per drive);
+        otherwise the single-op fan-out."""
+        if mb is not None and mb.read_hot():
+            handles = []
+            for pos in positions:
+                d = self.drives[pos]
+                if d is None:
+                    handles.append(ErrDiskNotFound("offline"))
+                    continue
+                try:
+                    handles.append(mb.submit_read(d, bucket, obj,
+                                                  version_id))
+                except Exception as e:  # noqa: BLE001 — quorum classifies
+                    handles.append(e)
+            return [_handle_result(h) for h in handles]
+        res = self._map_positions(
+            lambda pos, d: d.read_version(bucket, obj, version_id),
+            positions)
+        metalanes.record_read_round(len(positions), len(positions))
+        return res
+
+    def _read_version_fanout(self, bucket, obj, version_id, mb) -> list:
+        """The election's reads with the K+1 trim: while reads are hot,
+        read first the K+1 drives that hold the key's shards 0..K (its
+        data shards and one parity shard, where every PUT of the key
+        placed them); stand on them only when `_trim_acceptable`, else
+        read the remaining drives too, so every drive is read once and
+        the election and its errors equal the all-N read's.  Unread
+        positions are padded (None, None), which no drive's outcome is
+        (a failure carries its error).
+
+        The JAX package trims to positions 0..K instead; on a healthy
+        inline read those miss a data shard nearly always, and its host
+        codec rebuilds it.  Here a rebuild would be a device launch, so
+        the trim reads where the data shards are, and a trimmed election
+        costs the healthy read no device work the all-N one does not.
+
+        An idle plane (one reader) takes the full fan-out: the trim's
+        checks cost more than one page-cached read saves there.
+
+        K is the data shards of the last inline object this set elected
+        (the set's default parity's until then), not the default's
+        alone as in the JAX package: a server writes its objects at the
+        storage class's parity (EC:4 on 12 drives) while the set's
+        default stays N/2, and K+1 drives would then never hold a read
+        quorum."""
+        k1 = (self.n - self._trim_parity) + 1
+        everyone = list(range(self.n))
+        if (not metalanes.trim_enabled() or k1 >= self.n
+                or mb is None or not mb.read_hot()):
+            return self._read_positions(bucket, obj, version_id, everyone,
+                                        mb)
+        dist = Q.hash_order(f"{bucket}/{obj}", self.n)
+        first = [pos for pos in everyone if dist[pos] <= k1]
+        res1 = self._read_positions(bucket, obj, version_id, first, mb)
+        full: list = [(None, None)] * self.n
+        for pos, r in zip(first, res1):
+            full[pos] = r
+        if self._trim_acceptable(res1):
+            metalanes.record_trim(True)
+            return full
+        metalanes.record_trim(False)
+        rest = [pos for pos in everyone if dist[pos] > k1]
+        for pos, r in zip(rest, self._read_positions(
+                bucket, obj, version_id, rest, mb)):
+            full[pos] = r
+        return full
+
+    def _trim_acceptable(self, res) -> bool:
+        """A trimmed round stands only when more drives could not change
+        it: every read succeeded, all agree on one version (a lone
+        dissenter might be the majority among the unread), the agreeing
+        count meets the object's own read quorum, and the version has no
+        shard files (inline or a delete marker), so no later step needs
+        every drive's metadata."""
+        metas = [fi for fi, _ in res]
+        if any(e is not None for _, e in res) or \
+                any(m is None for m in metas):
+            return False
+        if len({Q._fi_key(m) for m in metas}) != 1:
+            return False
+        read_quorum, _ = Q.object_quorum_from_meta(metas, self.n,
+                                                   self.default_parity)
+        if len(metas) < read_quorum:
+            return False
+        fi = metas[0]
+        return (fi.deleted or fi.inline_data is not None
+                or bool(fi.parts and not fi.data_dir))
 
     def _fi_cache_store(self, bucket, obj, version_id, gen,
                         entry) -> None:
@@ -1600,6 +1772,17 @@ def _report(report: dict | None, fast: bool) -> None:
             report["fast"] = report.get("fast", 0) + 1
         else:
             report["taint"] = True
+
+
+def _handle_result(h) -> tuple:
+    """A metadata lane's handle (or the error that kept an item from
+    being submitted) as a fan-out's (result, error) pair."""
+    if isinstance(h, Exception):
+        return None, h
+    try:
+        return h.result(), None
+    except Exception as e:  # noqa: BLE001 — quorum classifies
+        return None, e
 
 
 def _attempt(fn):

@@ -46,7 +46,7 @@ JAX package's heal leaves:
   (engine/sets.py and background/heal_ops.py call it).
 
 Left out: the QoS plane's throttling of heal workers (ROADMAP.md Queue
-A item 7).
+A item 7c).
 """
 
 from __future__ import annotations

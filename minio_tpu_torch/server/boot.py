@@ -32,11 +32,13 @@ def self_tests(device) -> str:
 
 
 def object_layer(pool_paths: list[list[str]], set_drive_count, device,
-                 sweep: bool = True):
+                 sweep: bool = True, retire_pid: int = 0):
     """The object layer over local drives: the recovery sweep of every
-    drive (when `sweep`), the health wrap, one ErasureSets per pool and
-    the ServerPools over them.  Returns (pools, wrapped drives, the
-    sweep's counts); on a failure everything built so far is closed."""
+    drive (when `sweep`), the removal of process `retire_pid`'s metadata
+    journal segments (a respawned pool worker's dead predecessor), the
+    health wrap, one ErasureSets per pool and the ServerPools over them.
+    Returns (pools, wrapped drives, the sweep's counts with the segments
+    retired); on a failure everything built so far is closed."""
     from ..engine.pools import ServerPools
     from ..engine.sets import ErasureSets
     from ..storage.drive import LocalDrive
@@ -45,16 +47,20 @@ def object_layer(pool_paths: list[list[str]], set_drive_count, device,
 
     pool_sets: list = []
     wrapped: list = []
-    swept = {"drives": 0, "tmp_entries": 0, "mp_stage": 0}
+    swept = {"drives": 0, "tmp_entries": 0, "mp_stage": 0,
+             "meta_journal": 0, "retired_segments": 0}
     try:
         for paths in pool_paths:
             local = [LocalDrive(p) for p in paths]
+            if retire_pid:
+                swept["retired_segments"] += sum(
+                    d.retire_meta_segments(retire_pid) for d in local)
             if sweep:
                 # The previous epoch's staging, trash and multipart stage
                 # files, before the engine takes traffic
                 # (cmd/prepare-storage.go role).
                 rec = boot_recovery_sweep(local)
-                for key in swept:
+                for key in rec:
                     swept[key] += rec[key]
             drives = wrap_drives(local)
             wrapped.extend(drives)
@@ -76,4 +82,6 @@ def object_layer(pool_paths: list[list[str]], set_drive_count, device,
 def sweep_line(swept: dict) -> str:
     return (f"minio_tpu_torch: recovery sweep: {swept['tmp_entries']} stale "
             f"tmp entries, {swept['mp_stage']} orphaned multipart staging "
-            f"files across {swept['drives']} drives")
+            f"files across {swept['drives']} drives; "
+            f"{swept['meta_journal']} xl.meta entries replayed from the "
+            f"metadata journal")

@@ -33,6 +33,7 @@ from ..bucket.metadata import META_BUCKET, BucketMetadataSys
 from ..config.config import ConfigSys
 from ..engine.pools import ServerPools
 from ..iam.policy import Policy
+from ..ops import metalanes
 from ..storage.errors import StorageError
 from ..storage.xlmeta import FileInfo
 from ..utils import streams
@@ -568,10 +569,20 @@ class S3Handlers:
                      "Content-Type": "application/octet-stream",
                      "Accept-Ranges": "none"}
                 return Response(200, b"" if head else data, h)
+        # The request's ignition note for the metadata lanes: concurrent
+        # HEAD and GET elections of distinct keys then share per-drive
+        # read_version_many rounds (a lone request keeps the single-op
+        # fan-out).
+        mb = metalanes.get() if metalanes.enabled() else None
+        if mb is not None:
+            mb.note_read(1)
         try:
             fi = self.pools.head_object(bucket, key, version_id)
         except StorageError as e:
             raise from_storage_error(e) from None
+        finally:
+            if mb is not None:
+                mb.note_read(-1)
         cond = self._check_conditions(headers, fi)
         if cond is not None:
             return cond

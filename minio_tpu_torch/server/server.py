@@ -16,7 +16,8 @@ The admin API serves IAM's users, groups, policies and service accounts;
 POST / is STS (AssumeRole, WebIdentity and ClientGrants through OIDC,
 LDAPIdentity, Certificate over mTLS).  What answers NotImplemented, with
 its ROADMAP.md Queue A item: the other admin endpoints, metrics (but
-the worker pool's and the hot tier's families at /minio/v2/metrics/node)
+the worker pool's, the hot tier's and the metadata plane's families at
+/minio/v2/metrics/node)
 and listen (item 10); cluster health (item 9).  Spans, metrics, the
 audit trail, QoS and federation stay in the JAX package for now.
 
@@ -98,18 +99,82 @@ _HOT_FAMILIES = (
      "Hot-object arena bytes in use, pinned runs included"))
 
 
+#: mtpu_meta_* families: (counter, family, help), the JAX package's
+#: names (minio_tpu/observe/metrics.py) and two of the port's (the keys
+#: the read rounds served, the largest group commit)
+_META_FAMILIES = (
+    ("meta_publishes", "mtpu_meta_publishes_total",
+     "xl.meta publishes across all drives (solo + batched)"),
+    ("meta_fsyncs", "mtpu_meta_fsyncs_total",
+     "fsyncs paying for metadata publishes (group commit amortizes one "
+     "journal fsync over a whole batch)"),
+    ("fsyncs_per_object", "mtpu_meta_fsyncs_per_object",
+     "Amortized fsyncs per xl.meta publish (oracle: 1.0)"),
+    ("meta_group_commits", "mtpu_meta_group_commits_total",
+     "Group-committed metadata batches (one journal fsync each)"),
+    ("meta_group_items", "mtpu_meta_group_items_total",
+     "xl.meta publishes carried inside group commits"),
+    ("batch_occupancy", "mtpu_meta_batch_occupancy",
+     "Mean publishes per group commit"),
+    ("meta_group_max", "mtpu_meta_group_items_max",
+     "Most publishes in one group commit"),
+    ("meta_journal_replays", "mtpu_meta_journal_replays_total",
+     "xl.meta entries republished from metadata journal segments at "
+     "boot recovery"),
+    ("meta_read_requests", "mtpu_meta_read_requests_total",
+     "Engine metadata reads (quorum _read_metadata calls)"),
+    ("read_rounds", "mtpu_meta_read_rounds_total",
+     "Per-drive metadata read dispatches serving those requests"),
+    ("read_keys", "mtpu_meta_read_keys_total",
+     "Metadata lookups those dispatches served"),
+    ("fanouts_per_request", "mtpu_meta_read_fanouts_per_request",
+     "Drive dispatches per metadata read (oracle: N drives; coalescing "
+     "drives it below 1)"),
+    ("trim_hits", "mtpu_meta_trim_hits_total",
+     "K+1-trimmed read fan-outs accepted at quorum"),
+    ("trim_fallbacks", "mtpu_meta_trim_fallbacks_total",
+     "Trimmed fan-outs that widened to the remaining drives"),
+    ("lane_dispatches", "mtpu_meta_lane_dispatches_total",
+     "Metadata lane dispatcher rounds"),
+    ("inline_ops", "mtpu_meta_inline_ops_total",
+     "Lane submits executed inline on the caller's thread (idle fast "
+     "path)"))
+
+
+def meta_counters() -> dict:
+    """This process's metadata-plane counters (ops/metalanes.py, the
+    drives' publishes, the engine's elections), with the ratios."""
+    from ..engine import erasure_set
+    from ..ops import metalanes
+    from ..storage import drive
+    c = {**drive.stats(), **metalanes.counters(),
+         "meta_read_requests": erasure_set.stats()["meta_read_requests"]}
+    c["fsyncs_per_object"] = (c["meta_fsyncs"] / c["meta_publishes"]
+                              if c["meta_publishes"] else 0.0)
+    c["batch_occupancy"] = (c["meta_group_items"] / c["meta_group_commits"]
+                            if c["meta_group_commits"] else 0.0)
+    c["fanouts_per_request"] = (c["read_rounds"] / c["meta_read_requests"]
+                                if c["meta_read_requests"] else 0.0)
+    return c
+
+
 def node_families(tier, worker_id: int | None = None,
                   kernels: bool = False) -> str:
     """The hot tier's families (pool-wide: its counters live in shared
-    memory), this process's zero-copy sends (labelled with the worker in
-    a pool) and, with `kernels`, this process's kernel launches and
-    items."""
+    memory), this process's zero-copy sends and metadata plane (each
+    labelled with the worker in a pool) and, with `kernels`, this
+    process's kernel launches and items."""
     out: list[str] = []
     if tier is not None:
         st = tier.stats()
         for key, name, help_ in _HOT_FAMILIES:
             _family(out, name, help_, [({}, st[key])])
     lab = {} if worker_id is None else {"worker": worker_id}
+    mc = meta_counters()
+    for key, name, help_ in _META_FAMILIES:
+        v = mc[key]
+        _family(out, name, help_,
+                [(lab, round(v, 6) if isinstance(v, float) else v)])
     zs = zc.stats()
     for key, help_ in (
             ("sendmsg", "Responses sent by one gathered sendmsg"),
@@ -380,6 +445,10 @@ class S3Server:
             a blocking handshake, letting one silent client stall the
             whole endpoint."""
             ssl_context = None
+            # The listen backlog (socketserver's default is 5): a burst
+            # of 16 clients connecting at once overflowed it, and the
+            # connections past it were reset.
+            request_queue_size = 128
 
             def server_bind(self):
                 if reuse_port:

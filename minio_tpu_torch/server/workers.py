@@ -11,8 +11,8 @@ pool runs the S3 vertical in N processes:
     |                 the shared-memory dispatch plane
     |                 (ops/ipc_dispatch.py)
     |- worker 0       full S3 vertical; also the recovery owner: the
-    |                 boot recovery sweep and MRF orphan-journal
-    |                 adoption
+    |                 boot recovery sweep (on its first spawn only) and
+    |                 MRF orphan-journal adoption
     |- worker 1..N-1  full S3 vertical
 
 Every worker binds the same (host, port) with SO_REUSEPORT, and the
@@ -42,7 +42,11 @@ Contracts:
   requests keep their dispatch plane; the supervisor exits 0.  A second
   signal SIGKILLs everything.
 - A worker that dies is respawned after MTPU_RESPAWN_DELAY_S with its
-  `mtpu_worker_respawns_total` counter bumped.  A dead owner is marked
+  `mtpu_worker_respawns_total` counter bumped.  The respawn neither
+  sweeps (the tmp dir holds the live workers' staging) nor replays: it
+  removes its predecessor's metadata journal segments, whose items were
+  never acknowledged, before it serves (storage/drive.py
+  `retire_meta_segments`).  A dead owner is marked
   down at once (its pending handles fail within MTPU_OWNER_STALE_S and
   the engine recomputes them on the worker's device), then respawned
   under a new generation; workers route to it again once it beats.  An
@@ -64,7 +68,7 @@ any worker bumps the shared generation every worker checks.  Each worker
 counts its hits and misses in its slab (`mtpu_worker_hotcache_*`).
 
 Left out (with their ROADMAP.md Queue A items): the pool's QoS
-admission slab (item 7; WorkerPlane.qos is None), and worker 0's
+admission slab (item 7c; WorkerPlane.qos is None), and worker 0's
 topology, decommission and scanner (item 9).
 
 `MTPU_WORKERS=0` (the default) never enters this module: one process
@@ -225,6 +229,9 @@ class SharedState:
 
     # workers ----------------------------------------------------------------
 
+    def worker_pid(self, idx: int) -> int:
+        return int(self._a[self._w(idx) + _W["pid"]])
+
     def worker_register(self, idx: int, pid: int) -> None:
         w = self._w(idx)
         self._a[w + _W["pid"]] = pid
@@ -293,7 +300,7 @@ class WorkerPlane:
     req_ring, resp_rings, inflight, state, owner_ok, owner_gen).
     `hotcache` is the pool-shared hot tier (engine/hotcache.maybe_tier,
     None under MTPU_HOTCACHE=0); `qos`, the JAX package's admission
-    slab, waits for ROADMAP Queue A item 7."""
+    slab, waits for ROADMAP Queue A item 7c."""
 
     def __init__(self, nworkers: int, arena_bytes: int | None = None,
                  ring_capacity: int = RING_CAPACITY):
@@ -526,6 +533,10 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     # The device shard cache keeps rows on the card in the process that
     # read them: a worker would open a context for it.
     os.environ["MTPU_DEVCACHE"] = "0"
+    # A respawn: the slot still names the dead predecessor, whose
+    # metadata journal segments this worker retires before it serves.
+    respawn = plane.state.respawns(idx) > 0
+    predecessor = plane.state.worker_pid(idx) if respawn else 0
     plane.state.worker_register(idx, os.getpid())
 
     import torch
@@ -552,11 +563,19 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
         if _early_stop["hit"]:
             return 0
         time.sleep(0.05)
+    # The recovery sweep runs once per pool boot, on worker 0's first
+    # spawn, before any worker serves.  A respawned worker 0 must not
+    # sweep: the tmp dir then holds the staging of PUTs and part uploads
+    # the live workers are running.
     pools, wrapped, swept = boot.object_layer(
         cfg["pool_paths"], cfg["set_drive_count"], cfg["device"],
-        sweep=idx == 0)
-    if idx == 0:
+        sweep=idx == 0 and not respawn, retire_pid=predecessor)
+    if idx == 0 and not respawn:
         print(boot.sweep_line(swept), flush=True)
+    if predecessor:
+        print(f"minio_tpu_torch: worker {idx} retired "
+              f"{swept['retired_segments']} metadata journal segments of "
+              f"its predecessor (pid {predecessor})", flush=True)
     mrf_queues: list = []
     try:
         mrf_queues = attach_mrf(pools)

@@ -23,7 +23,23 @@ zero-copy forms beside `read_file`: `read_file_view` (an mmap over the
 page cache) and `open_read_fd` (the fd a verified sendfile plan reads
 and sends through).  `sweep_stale` is the boot-time recovery sweep of a
 dead process's staging (storage/recovery.py).  `stats()` counts the
-vectored writes.
+vectored writes and the metadata plane's publishes.
+
+Group-committed metadata (ops/metalanes.py): `write_metadata_many`
+stages a batch of xl.meta publishes, persists every blob in ONE fsynced
+journal segment under ``.mtpu.sys/metajournal`` (the JAX package's
+format: ``MJ01``, a CRC-32 of the payload, then msgpack ``{"v": 1,
+"entries": [{"vol", "obj", "blob"}]}``), publishes each blob by an
+unsynced tmp + rename and unlinks the segment; `read_version_many`
+resolves a batch of lookups in one call.  `replay_meta_journal` (the
+boot sweep's first step) republishes what a killed batch left, in
+commit order (the segments' modification times), and never over an
+xl.meta written after the segment: in the worker pool each worker
+publishes through its own drive objects, so a dead worker's segment
+can be older than another worker's acknowledged write.
+`retire_meta_segments` drops a dead process's segments unreplayed
+(their items were never acknowledged: a batch acks only after its
+unlink), which a respawned pool worker does for its predecessor.
 """
 
 from __future__ import annotations
@@ -32,13 +48,16 @@ import errno
 import os
 import shutil
 import threading
+import time
 import uuid
+import zlib
 
 from . import diskio
 from .errors import (ErrDiskNotFound, ErrFileAccessDenied, ErrFileCorrupt,
                      ErrFileNotFound, ErrFileVersionNotFound,
                      ErrIsNotRegular, ErrPathNotFound, ErrVolumeExists,
                      ErrVolumeNotEmpty, ErrVolumeNotFound)
+from ..utils import msgpackx
 from .xlmeta import FileInfo, XLMeta
 
 # Reserved system namespace on every drive (reference: .minio.sys).
@@ -47,23 +66,50 @@ TMP_DIR = "tmp"
 MULTIPART_DIR = "multipart"
 XL_META_FILE = "xl.meta"
 FORMAT_FILE = "format.json"
+META_JOURNAL_DIR = "metajournal"
 # The JAX package's system subdirectories, created alike so a drive
 # looks the same whichever package opened it first.
-_SYS_SUBDIRS = (TMP_DIR, "metajournal", MULTIPART_DIR, "buckets")
+_SYS_SUBDIRS = (TMP_DIR, META_JOURNAL_DIR, MULTIPART_DIR, "buckets")
+#: the first bytes of a journal segment (then a CRC-32 and the payload)
+_SEG_MAGIC = b"MJ01"
 
 # Objects <= this are stored inline in xl.meta (cf. smallFileThreshold,
 # cmd/xl-storage.go:59).
 SMALL_FILE_THRESHOLD = 128 * 1024
 
 _STATS_MU = threading.Lock()
-_STATS = {"vectored_writes": 0, "vectored_write_bytes": 0}
+_STATS = {"vectored_writes": 0, "vectored_write_bytes": 0,
+          "meta_publishes": 0, "meta_fsyncs": 0, "meta_group_commits": 0,
+          "meta_group_items": 0, "meta_group_max": 0,
+          "meta_journal_replays": 0}
 
 
 def stats() -> dict:
-    """The vectored writes of every drive in the process (the JAX
-    package records them as DATA_PATH's zerocopy_vectored_writes)."""
+    """The vectored writes and xl.meta publishes of every drive in the
+    process (the JAX package records them into DATA_PATH): publishes
+    and the fsyncs paying for them (one each for a solo write_metadata,
+    one journal fsync for a whole group commit), group commits, the
+    publishes inside them and the most in one, and entries republished
+    from the journal."""
     with _STATS_MU:
         return dict(_STATS)
+
+
+def _count(**kw) -> None:
+    with _STATS_MU:
+        for key, n in kw.items():
+            _STATS[key] += n
+
+
+def _segment_pid(name: str) -> int:
+    """The writer's pid in a segment name, ``seg-<stamp>-<pid>-<hex>``
+    (the JAX package's stamp is a per-process sequence number, the
+    port's a nanosecond clock); 0 when the name has another form."""
+    parts = name.split("-")
+    try:
+        return int(parts[2]) if len(parts) == 4 else 0
+    except ValueError:
+        return 0
 
 
 def _is_valid_volname(vol: str) -> bool:
@@ -477,6 +523,11 @@ class LocalDrive:
     def read_version(self, vol: str, obj: str,
                      version_id: str = "") -> FileInfo:
         """One version's FileInfo (inline data included when present)."""
+        return self._read_version(vol, obj, version_id)
+
+    def _read_version(self, vol: str, obj: str, version_id: str) -> FileInfo:
+        # read_version's body, which read_version_many calls too: a test
+        # drive that wraps the public method sees a batch's items once.
         self._check_vol(vol)
         return self._read_xlmeta(vol, obj).get(version_id, vol, obj)
 
@@ -491,6 +542,190 @@ class LocalDrive:
                 meta = XLMeta()
             meta.add_version(fi)
             self._write_xlmeta(vol, obj, meta)
+        _count(meta_publishes=1, meta_fsyncs=1)
+
+    # -- group-committed metadata (ops/metalanes.py) ---------------------------
+
+    def _journal_dir(self) -> str:
+        return os.path.join(self.root, SYS_VOL, META_JOURNAL_DIR)
+
+    def write_metadata_many(self, items: list) -> list:
+        """Group-commit a batch of write_metadata ops: stage each item's
+        next xl.meta blob, persist them all in ONE fsynced journal
+        segment, then publish each blob by an unsynced tmp + rename and
+        unlink the segment.  `items` is a list of ``(vol, obj, fi)``;
+        returns one ``exception | None`` per item, so one poisoned item
+        fails alone.
+
+        No item is acknowledged before the call returns, after the
+        unlink.  A kill before the fsync leaves a torn segment (dropped
+        by its CRC at replay); a kill after it leaves a segment whose
+        blobs the boot sweep republishes where nothing newer landed.
+        Items of one key chain onto each other's staged metadata, so the
+        final xl.meta equals a sequence of solo writes."""
+        out: list = [None] * len(items)
+        blobs: list = []            # (index, vol, obj, blob)
+        with self._meta_lock:
+            staged: dict = {}
+            for i, (vol, obj, fi) in enumerate(items):
+                try:
+                    self._check_vol(vol)
+                    meta = staged.get((vol, obj))
+                    if meta is None:
+                        try:
+                            meta = self._read_xlmeta(vol, obj)
+                        except (ErrFileNotFound, ErrFileCorrupt):
+                            meta = XLMeta()
+                    meta.add_version(fi)
+                    staged[(vol, obj)] = meta
+                    blobs.append((i, vol, obj, meta.to_bytes()))
+                except Exception as e:  # noqa: BLE001 — per-item verdict
+                    out[i] = e
+            if not blobs:
+                return out
+            payload = msgpackx.packb({
+                "v": 1,
+                "entries": [{"vol": vol, "obj": obj, "blob": blob}
+                            for _, vol, obj, blob in blobs]})
+            # The stamp orders segments in commit order across processes
+            # sharing the drive (replay sorts by mtime, then by name).
+            seg = os.path.join(
+                self._journal_dir(),
+                f"seg-{time.time_ns():020d}-{os.getpid()}-"
+                f"{uuid.uuid4().hex}")
+            with open(seg, "wb") as f:
+                f.write(_SEG_MAGIC)
+                f.write(zlib.crc32(payload).to_bytes(4, "big"))
+                f.write(payload)
+                f.flush()
+                os.fsync(f.fileno())
+            for i, vol, obj, blob in blobs:
+                try:
+                    self._publish_meta_blob(vol, obj, blob)
+                except Exception as e:  # noqa: BLE001 — per-item verdict
+                    out[i] = e
+            try:
+                os.unlink(seg)
+            except OSError:
+                pass
+        _count(meta_group_commits=1, meta_group_items=len(blobs),
+               meta_publishes=len(blobs), meta_fsyncs=1)
+        with _STATS_MU:
+            _STATS["meta_group_max"] = max(_STATS["meta_group_max"],
+                                           len(blobs))
+        return out
+
+    def _publish_meta_blob(self, vol: str, obj: str, blob: bytes) -> None:
+        p = self._file_path(vol, os.path.join(obj, XL_META_FILE))
+        self._ensure_parent_in_vol(vol, p)
+        tmp = os.path.join(self.root, SYS_VOL, TMP_DIR,
+                           f"mj-{uuid.uuid4().hex}")
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, p)
+
+    @staticmethod
+    def _segment_entries(path: str) -> list:
+        """A segment's entries, or [] when it is torn or unreadable (it
+        was never fsync-complete, so nothing in it was acknowledged)."""
+        try:
+            with open(path, "rb") as f:
+                raw = f.read()
+            if raw[:4] == _SEG_MAGIC and len(raw) >= 8:
+                payload = raw[8:]
+                if zlib.crc32(payload) == int.from_bytes(raw[4:8], "big"):
+                    return list(msgpackx.unpackb(payload).get("entries",
+                                                              []))
+        except (OSError, msgpackx.MsgpackError, ValueError, AttributeError):
+            pass
+        return []
+
+    def replay_meta_journal(self) -> int:
+        """Boot recovery: republish the xl.meta blobs of the segments a
+        kill left behind, and remove every segment.  Segments apply in
+        commit order (modification time, then name), so the last blob
+        of a key wins; a key's blob is republished only where its
+        xl.meta is missing or older than the blob's segment, so a write
+        that landed after the segment (another worker's, acknowledged)
+        is never replaced.  Torn segments are dropped.  Returns the
+        entries republished."""
+        jdir = self._journal_dir()
+        try:
+            names = os.listdir(jdir)
+        except FileNotFoundError:
+            return 0
+        segs = []
+        for name in names:
+            try:
+                segs.append((os.stat(os.path.join(jdir, name)).st_mtime_ns,
+                             name))
+            except OSError:
+                pass
+        segs.sort()
+        replayed = 0
+        with self._meta_lock:
+            last: dict = {}         # (vol, obj) -> (segment mtime, blob)
+            for mtime, name in segs:
+                for ent in self._segment_entries(os.path.join(jdir, name)):
+                    try:
+                        last[(ent["vol"], ent["obj"])] = (mtime,
+                                                          ent["blob"])
+                    except (KeyError, TypeError):
+                        pass
+            for (vol, obj), (mtime, blob) in last.items():
+                try:
+                    p = self._file_path(vol, os.path.join(obj,
+                                                          XL_META_FILE))
+                    try:
+                        if os.stat(p).st_mtime_ns >= mtime:
+                            continue        # written after the segment
+                    except FileNotFoundError:
+                        pass
+                    self._publish_meta_blob(vol, obj, blob)
+                    replayed += 1
+                except (OSError, TypeError, ErrVolumeNotFound,
+                        ErrFileAccessDenied):
+                    # The volume went since: the entry has nowhere to
+                    # land.
+                    pass
+            for _, name in segs:
+                try:
+                    os.unlink(os.path.join(jdir, name))
+                except OSError:
+                    pass
+        return replayed
+
+    def retire_meta_segments(self, pid: int) -> int:
+        """Remove, unreplayed, the journal segments that process `pid`
+        left (a dead pool worker's: its items were never acknowledged,
+        and the live workers may have written newer versions of their
+        keys since).  Returns the segments removed."""
+        removed = 0
+        try:
+            names = os.listdir(self._journal_dir())
+        except FileNotFoundError:
+            return 0
+        for name in names:
+            if pid and _segment_pid(name) == pid:
+                try:
+                    os.unlink(os.path.join(self._journal_dir(), name))
+                    removed += 1
+                except OSError:
+                    pass
+        return removed
+
+    def read_version_many(self, items: list) -> list:
+        """Batched read_version: one call resolves a list of ``(vol,
+        obj, version_id)`` lookups into one ``(FileInfo | None,
+        exception | None)`` pair per item.  Each key is still its own
+        read; concurrent requests share one dispatch into the drive."""
+        out = []
+        for vol, obj, vid in items:
+            try:
+                out.append((self._read_version(vol, obj, vid), None))
+            except Exception as e:  # noqa: BLE001 — per-item verdict
+                out.append((None, e))
+        return out
 
     def rename_data(self, src_vol: str, src_dir: str, fi: FileInfo,
                     dst_vol: str, dst_obj: str) -> None:
@@ -622,12 +857,13 @@ class LocalDrive:
         and rename) are swept too; parked part files and upload metadata
         stay, so the upload itself is still resumable.
 
-        Returns the counts.  `meta_journal` is always 0: the drive's
-        group-commit metadata journal and its replay
-        (`replay_meta_journal`) come with the metadata lanes, ROADMAP
-        Queue A item 7; until then nothing writes the journal.
+        Returns the counts; `meta_journal` is the xl.meta entries the
+        journal replay republished, which runs first: nothing below may
+        run ahead of re-establishing them.
         """
         counts = {"tmp_entries": 0, "mp_stage": 0, "meta_journal": 0}
+        counts["meta_journal"] = self.replay_meta_journal()
+        _count(meta_journal_replays=counts["meta_journal"])
         tmp = os.path.join(self.root, SYS_VOL, TMP_DIR)
         try:
             stale = os.listdir(tmp)

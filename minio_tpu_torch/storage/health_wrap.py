@@ -31,6 +31,10 @@ Env knobs (read per call so tests flip them without rebuilding):
   MTPU_BREAKER_SLOW_MS        per-call latency breach bound  (default 2000)
   MTPU_BREAKER_SLOW_CALLS     consecutive breaches -> SUSPECT (default 5)
   MTPU_BREAKER_PROBE_S        base probe interval, jittered  (default 1.0)
+
+The batched metadata calls (`write_metadata_many`, `read_version_many`,
+ops/metalanes.py) return an error per item instead of raising; each
+failed item counts against the drive as a failed solo call would.
 """
 
 from __future__ import annotations
@@ -49,6 +53,14 @@ def stats() -> dict:
     the process."""
     with _STATS_MU:
         return {"transitions": dict(_TRANSITIONS)}
+
+
+#: the batched drive calls, which return their items' errors instead of
+#: raising: how to read them from the result
+_ITEM_ERRORS = {
+    "write_metadata_many": lambda res: list(res),
+    "read_version_many": lambda res: [e for _, e in res],
+}
 
 
 class APIStats:
@@ -165,24 +177,35 @@ class HealthWrappedDrive:
                     f"({self._last_fault})")
             t0 = time.perf_counter()
             err: Exception | None = None
+            outcomes: list = []
             try:
-                return attr(*args, **kwargs)
+                res = attr(*args, **kwargs)
+                if name in _ITEM_ERRORS:
+                    outcomes = _ITEM_ERRORS[name](res)
+                return res
             except Exception as e:
                 err = e
                 raise
             finally:
                 ms = (time.perf_counter() - t0) * 1e3
-                fault = err is not None and not self._benign(err)
+                if not outcomes:
+                    outcomes = [err]
+                faults = [e if e is not None and not self._benign(e)
+                          else None for e in outcomes]
                 with self._mu:
                     st = self._stats.setdefault(name, APIStats())
                     st.calls += 1
-                    if fault:
-                        st.errors += 1
+                    st.errors += sum(1 for f in faults if f is not None)
                     st.last_ms = ms
                     st.ewma_ms = (ms if st.calls == 1 else
                                   self.EWMA_ALPHA * ms
                                   + (1 - self.EWMA_ALPHA) * st.ewma_ms)
-                self._breaker_record(name, ms, err if fault else None)
+                # A batched call's items count as the single calls they
+                # stand for, in order, each with its share of the time:
+                # a drive that fails every laned publish trips the
+                # breaker as one failing every solo publish does.
+                for fault in faults:
+                    self._breaker_record(name, ms / len(faults), fault)
         timed.__name__ = name
         self._timed_cache[name] = timed
         return timed

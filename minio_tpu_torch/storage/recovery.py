@@ -5,7 +5,9 @@ formatErasureCleanupTmpLocalEndpoints role (cmd/prepare-storage.go):
 before a freshly booted server takes traffic, every *local* drive sweeps
 the debris a dead process left behind: staged tmp writes that never
 published, trash renames that never finished, orphaned multipart
-``stage-*`` files.  The per-drive mechanics live in
+``stage-*`` files; first, the xl.meta blobs of metadata journal
+segments a kill left (replayed in commit order, never over a newer
+xl.meta).  The per-drive mechanics live in
 `LocalDrive.sweep_stale`; this module fans the sweep across a drive
 list (health wrappers pass the call through; anything without a sweep
 is skipped) and counts it in `stats()` (the JAX package records the
@@ -21,7 +23,7 @@ from __future__ import annotations
 import threading
 
 _STATS_MU = threading.Lock()
-_STATS = {"sweeps": 0, "tmp_entries": 0, "mp_stage": 0}
+_STATS = {"sweeps": 0, "tmp_entries": 0, "mp_stage": 0, "meta_journal": 0}
 
 
 def stats() -> dict:
@@ -55,4 +57,5 @@ def boot_recovery_sweep(drives) -> dict:
             _STATS["sweeps"] += 1
             _STATS["tmp_entries"] += counts.get("tmp_entries", 0)
             _STATS["mp_stage"] += counts.get("mp_stage", 0)
+            _STATS["meta_journal"] += counts.get("meta_journal", 0)
     return totals

@@ -307,7 +307,8 @@ def test_boot_sweeps_seeded_debris_and_drains(tmp_path):
     assert lines[1] == (
         f"minio_tpu_torch: recovery sweep: {sum(t for t, _ in seeded)} "
         f"stale tmp entries, {sum(s for _, s in seeded)} orphaned "
-        "multipart staging files across 4 drives")
+        "multipart staging files across 4 drives; 0 xl.meta entries "
+        "replayed from the metadata journal")
     for i in range(1, 5):
         tmp = tmp_path / f"d{i}" / SYS_VOL / TMP_DIR
         assert not [p for p in tmp.iterdir()

@@ -796,3 +796,90 @@ def test_owner_failing_its_self_test_after_a_respawn_ends_the_pool(tmp_path):
     assert "device owner of generation 2 died before it served" in log
     assert log.count("respawning as generation") == 1
     assert log.count("self-tests passed") == 1
+
+
+# -- the recovery sweep runs once per pool boot ---------------------------------
+
+def test_worker0_respawn_keeps_a_live_puts_staging(tmp_path):
+    """Worker 0 is SIGKILLed while worker 1 holds a PUT stalled between
+    its staging and rename_data.  The respawned worker 0 must not sweep
+    the drives' tmp dir (worker 1's staging is in it): the PUT completes
+    and its object reads back."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    gate = tmp_path / "gate"
+    gate.mkdir()
+    (hook / "sitecustomize.py").write_text(
+        "import os, time\n"
+        "import minio_tpu_torch.storage.drive as drv\n"
+        "_rename = drv.LocalDrive.rename_data\n"
+        f"GATE = {str(gate)!r}\n"
+        "def _stalled(self, src_vol, src_dir, fi, dst_vol, dst_obj):\n"
+        "    if dst_obj.startswith('stall-'):\n"
+        "        mark = os.path.join(GATE, dst_obj)\n"
+        "        with open(mark + '.who', 'w') as f:\n"
+        "            f.write(os.environ.get('MTPU_WORKER_ID', '?'))\n"
+        "        end = time.monotonic() + 60\n"
+        "        while not os.path.exists(mark + '.go') \\\n"
+        "                and time.monotonic() < end:\n"
+        "            time.sleep(0.02)\n"
+        "    return _rename(self, src_vol, src_dir, fi, dst_vol, dst_obj)\n"
+        "drv.LocalDrive.rename_data = _stalled\n")
+    root = str(tmp_path)
+    proc, port = _boot(root, 2, {"MTPU_RESPAWN_DELAY_S": "0.2"},
+                       pythonpath=str(hook))
+    cli = S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                   "pooladmin-secret", timeout=120)
+    put = None
+    try:
+        _wait(lambda: all(_metrics(port).get(f'mtpu_worker_ready{{worker='
+                                             f'"{w}"}}') == 1
+                          for w in (0, 1)), "both workers", timeout=90,
+              proc=proc)
+        cli.make_bucket("sweep")
+        body = np.random.default_rng(41).bytes(300 * 1024 + 7)
+        # Connections spread over the workers: retry keys until a PUT
+        # stalls in worker 1.
+        for i in range(16):
+            key = f"stall-{i}"
+            res: dict = {}
+
+            def run(key=key, res=res):
+                res["st"] = cli.request("PUT", f"/sweep/{key}", body=body)[0]
+            put = threading.Thread(target=run)
+            put.start()
+            who = gate / f"{key}.who"
+            _wait(lambda: who.exists() and who.read_text(), f"{key} staged",
+                  timeout=30, proc=proc)
+            if who.read_text() == "1":
+                break
+            (gate / f"{key}.go").touch()
+            put.join(timeout=60)
+            put = None
+        assert put is not None, "no PUT reached worker 1"
+        m = _metrics(port)
+        w0 = int(m['mtpu_worker_pid{worker="0"}'])
+        os.kill(w0, signal.SIGKILL)
+        _wait(lambda: (lambda m: m.get('mtpu_worker_respawns_total{worker='
+                                       '"0"}') == 1
+                       and int(m['mtpu_worker_pid{worker="0"}']) != w0
+                       and m.get('mtpu_worker_ready{worker="0"}') == 1)(
+            _metrics(port)), "worker 0's respawn", timeout=90, proc=proc)
+        (gate / f"{key}.go").touch()
+        put.join(timeout=60)
+        assert res.get("st") == 200, res
+        assert cli.get_object("sweep", key) == body
+        log = _log(root)
+        assert log.count("recovery sweep:") == 1, log
+        assert re.search(r"worker 0 retired 0 metadata journal segments of "
+                         rf"its predecessor \(pid {w0}\)", log), log
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        for p in gate.glob("*.who"):
+            (gate / (p.name[:-4] + ".go")).touch()
+        if put is not None:
+            put.join(timeout=60)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)

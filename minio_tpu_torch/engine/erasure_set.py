@@ -87,8 +87,9 @@ generation, so no listing is served from a cache taken before it.
 
 The metadata plane (ops/metalanes.py, MTPU_METABATCH; =0 is the
 single-op oracle): once concurrent inline PUTs are in flight, each
-drive's publishes go through its write lane and share one journal fsync
-(`_put_inline_lanes`); concurrent metadata reads go through the read
+drive's publishes go through its write lane, where three or more queued
+share one journal fsync and one drive sync (`_put_inline_lanes`);
+concurrent metadata reads go through the read
 lanes, and while reads are hot an election first reads the K+1 drives
 that hold the key's shards 0..K (`_read_version_fanout`, MTPU_META_TRIM)
 and stands on them only when they agree on an inline version at quorum.
@@ -102,6 +103,7 @@ and legacy xl.json objects.
 
 from __future__ import annotations
 
+import contextlib
 import mmap
 import os
 import queue as _queuemod
@@ -243,8 +245,10 @@ class ErasureSet:
         # The hot-object tier (engine/hotcache.attach_sets), None until
         # the boot attaches one.
         self.hot_tier = None
-        # The parity the K+1 read trim assumes (_read_version_fanout).
-        self._trim_parity = self.default_parity
+        # The parity the K+1 read trim assumes (_read_version_fanout):
+        # the set's default, or the parity the server writes its
+        # STANDARD storage class with (server/handlers.py sets it).
+        self.trim_parity = self.default_parity
 
     #: FileInfo cache: the TTL of the bucket-existence cache; the size
     #: cap only matters for pathological key churn.
@@ -512,7 +516,7 @@ class ErasureSet:
         fsynced write_metadata per drive); once the in-flight count or a
         busy lane shows concurrency (or MTPU_METABATCH_SOLO), each
         publish goes through its drive's write lane, whose batch-mates
-        share one journal fsync."""
+        (three or more) share one journal fsync and one drive sync."""
         mb = None
         use_lanes = False
         if metalanes.enabled():
@@ -1425,13 +1429,8 @@ class ErasureSet:
         version_id = normalize_version_id(version_id)
         _count(meta_read_requests=1)
         mb = metalanes.get() if metalanes.enabled() else None
-        if mb is not None:
-            mb.note_read(1)
-        try:
+        with mb.reading() if mb is not None else contextlib.nullcontext():
             res = self._read_version_fanout(bucket, obj, version_id, mb)
-        finally:
-            if mb is not None:
-                mb.note_read(-1)
         metas = Metas(fi for fi, _ in res)
         errs = [e for _, e in res]
         unread = frozenset(pos for pos, (fi, e) in enumerate(res)
@@ -1449,10 +1448,7 @@ class ErasureSet:
             raise ErrErasureReadQuorum(f"{bucket}/{obj}: {err}")
         read_quorum, _ = Q.object_quorum_from_meta(metas, self.n,
                                                    self.default_parity)
-        fi = Q.find_file_info_in_quorum(metas, read_quorum)
-        if fi.inline_data is not None:
-            self._trim_parity = fi.erasure.parity_blocks
-        return fi, metas
+        return Q.find_file_info_in_quorum(metas, read_quorum), metas
 
     def _read_positions(self, bucket, obj, version_id, positions,
                         mb) -> list:
@@ -1499,13 +1495,12 @@ class ErasureSet:
         An idle plane (one reader) takes the full fan-out: the trim's
         checks cost more than one page-cached read saves there.
 
-        K is the data shards of the last inline object this set elected
-        (the set's default parity's until then), not the default's
-        alone as in the JAX package: a server writes its objects at the
-        storage class's parity (EC:4 on 12 drives) while the set's
-        default stays N/2, and K+1 drives would then never hold a read
-        quorum."""
-        k1 = (self.n - self._trim_parity) + 1
+        K is the data shards at `trim_parity`: the set's default parity
+        as in the JAX package, or in a server the parity of its STANDARD
+        storage class (EC:4 on 12 drives, while the set's default stays
+        N/2: K+1 drives at the default would never hold such an
+        object's read quorum)."""
+        k1 = (self.n - self.trim_parity) + 1
         everyone = list(range(self.n))
         if (not metalanes.trim_enabled() or k1 >= self.n
                 or mb is None or not mb.read_hot()):

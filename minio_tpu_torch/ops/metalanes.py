@@ -11,15 +11,21 @@ traffic:
   daemon dispatcher.  A write lane drains the concurrent inline-PUT
   publishes landing on its drive into ONE
   ``drive.write_metadata_many`` call, whose blobs share a single
-  journal fsync before any caller is acknowledged (group commit); a
+  journal fsync and a single drive sync before any caller is
+  acknowledged (group commit); a
   read lane drains distinct keys' metadata reads into one
   ``drive.read_version_many`` round.
 - an idle lane runs the item on the caller's thread through the exact
   single-op drive call (``write_metadata`` / ``read_version``), so a
   lone request keeps the single-op latency and bytes; packing engages
-  once the engine's in-flight counters (`note_put`, `note_read`) or a
+  once the engine's in-flight counters (`note_put`, `reading`) or a
   busy lane show concurrency, and an occupancy EMA holds the window
   open while batches pack.
+- a write round of fewer than ``JOURNAL_MIN_ITEMS`` queued publishes
+  is handed back: each caller runs its own solo ``write_metadata``, in
+  parallel.  A journaled batch pays two syncs (the segment's fsync and
+  the drive's sync), a solo publish one, so group commit can only pay
+  from three items up.
 - a failed batch retries its members solo, so one poisoned item fails
   alone; a dead dispatcher fails its queued handles and every later
   submit runs inline.
@@ -35,7 +41,7 @@ Env, read per call:
   company once the window engages (default 250);
 - MTPU_METABATCH_DEPTH: items per batched drive call (default 64);
 - MTPU_METABATCH_SOLO=1 sends even a lone PUT through the journaled
-  batch path (a batch of one);
+  batch path (a batch of one; no round is handed back);
 - MTPU_META_TRIM=0 turns off the engine's K+1 read trim
   (engine/erasure_set._read_version_fanout); it rides MTPU_METABATCH.
 
@@ -46,6 +52,7 @@ trim outcomes, lane dispatches and inline ops.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -97,6 +104,10 @@ def window_s() -> float:
     return max(0.0, us) / 1e6
 
 
+#: the fewest queued publishes a write round journals (see above)
+JOURNAL_MIN_ITEMS = 3
+
+
 def depth() -> int:
     try:
         return max(1, int(os.environ.get("MTPU_METABATCH_DEPTH", "64")))
@@ -107,17 +118,26 @@ def depth() -> int:
 class MetaHandle:
     """The future of one submitted metadata op."""
 
-    __slots__ = ("_ev", "_res", "_exc", "_t_enq")
+    __slots__ = ("_ev", "_res", "_exc", "_t_enq", "_back")
 
     def __init__(self):
         self._ev = threading.Event()
         self._res = None
         self._exc: BaseException | None = None
         self._t_enq = time.monotonic()
+        # (lane, item) when the lane handed the op back to its caller
+        self._back = None
 
     def result(self, timeout: float | None = 120.0):
         if not self._ev.wait(timeout):
             raise TimeoutError("batched metadata op did not complete")
+        back, self._back = self._back, None
+        if back is not None:
+            lane, item = back
+            try:
+                self._res = lane._run_handed_back(item)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                self._exc = e
         if self._exc is not None:
             raise self._exc
         return self._res
@@ -135,16 +155,20 @@ class MetaLane:
     `write_metadata_many` / `read_version_many`, or None for a drive
     without one) takes a list of items and returns one `(result, exc)`
     pair per item.  Without a batch op the lane still runs its items in
-    one dispatcher round of solo calls."""
+    one dispatcher round of solo calls.  A round of fewer than
+    `min_batch` items (unless MTPU_METABATCH_SOLO) is handed back: each
+    item's caller runs `solo_fn` itself."""
 
     #: queued items allowed, as a multiple of the depth; beyond it
     #: submit() blocks (backpressure)
     QUEUE_FACTOR = 4
 
-    def __init__(self, name: str, solo_fn, batch_fn=None):
+    def __init__(self, name: str, solo_fn, batch_fn=None,
+                 min_batch: int = 1):
         self.name = name
         self._solo = solo_fn
         self._batch = batch_fn
+        self._min_batch = min_batch
         self._mu = threading.Lock()
         self._work = threading.Condition(self._mu)
         self._space = threading.Condition(self._mu)
@@ -163,6 +187,7 @@ class MetaLane:
         self.inline_ops = 0
         self.batch_faults = 0
         self.member_retries = 0
+        self.handed_back = 0
 
     def busy(self) -> bool:
         return (len(self._queue) > 0 or self._dispatching
@@ -258,7 +283,29 @@ class MetaLane:
         for h in victims:
             h._resolve(exc=err)
 
+    def _run_handed_back(self, item):
+        try:
+            return self._solo(item)
+        finally:
+            with self._mu:
+                self._inline -= 1
+                self.inline_ops += 1
+            _count(inline_ops=1)
+
     def _dispatch(self, items: list) -> None:
+        if len(items) < self._min_batch and not solo_forced():
+            # Too few to pay for a batch: each caller runs its own solo
+            # call, in parallel, as an inline op of the lane.  The round
+            # still feeds the occupancy EMA, so rounds that keep
+            # arriving in pairs open the window for a third.
+            with self._mu:
+                self._inline += len(items)
+                self.handed_back += len(items)
+                self._ema = 0.75 * self._ema + 0.25 * len(items)
+            for it, h in items:
+                h._back = (self, it)
+                h._ev.set()
+            return
         try:
             if self._batch is not None:
                 results = self._batch([it for it, _ in items])
@@ -321,6 +368,7 @@ class MetaLane:
                 "inline_ops": self.inline_ops,
                 "batch_faults": self.batch_faults,
                 "member_retries": self.member_retries,
+                "handed_back": self.handed_back,
                 "occupancy": (self.items / self.dispatches
                               if self.dispatches else 0.0),
                 "pending": len(self._queue),
@@ -344,7 +392,8 @@ class MetaBatcher:
 
     # -- lanes -----------------------------------------------------------------
 
-    def _lane(self, drive, kind: str, solo_fn, batch_fn) -> MetaLane:
+    def _lane(self, drive, kind: str, solo_fn, batch_fn,
+              min_batch: int = 1) -> MetaLane:
         key = (id(drive), kind)
         got = self._lanes.get(key)
         if got is not None:
@@ -354,7 +403,7 @@ class MetaBatcher:
             if got is None:
                 name = f"{getattr(drive, 'root', '?')}-{kind}"
                 lane = MetaLane(os.path.basename(str(name)) or name,
-                                solo_fn, batch_fn)
+                                solo_fn, batch_fn, min_batch)
                 if self._closed:
                     lane._stopped = True
                 got = self._lanes[key] = (drive, lane)
@@ -371,7 +420,8 @@ class MetaBatcher:
             return [(None, e) for e in wmm(items)]
 
         return self._lane(drive, "write", solo,
-                          batch if wmm is not None else None)
+                          batch if wmm is not None else None,
+                          JOURNAL_MIN_ITEMS)
 
     def read_lane(self, drive) -> MetaLane:
         def solo(item):
@@ -407,6 +457,22 @@ class MetaBatcher:
         with self._mu:
             self._inflight_reads += delta
 
+    @contextlib.contextmanager
+    def reading(self):
+        """One metadata-reading request in flight, counted once on its
+        thread however many layers note it (the HEAD/GET handler around
+        the engine's election)."""
+        outer = not getattr(_TLS, "reading", False)
+        if outer:
+            _TLS.reading = True
+            self.note_read(1)
+        try:
+            yield
+        finally:
+            if outer:
+                self.note_read(-1)
+                _TLS.reading = False
+
     def _busy(self, kind: str) -> bool:
         return any(lane.busy() for (_, k), (_, lane)
                    in list(self._lanes.items()) if k == kind)
@@ -431,13 +497,13 @@ class MetaBatcher:
 
     def stats(self) -> dict:
         out = {"dispatches": 0, "items": 0, "inline_ops": 0,
-               "batch_faults": 0, "member_retries": 0, "max_items": 0,
-               "lanes": 0}
+               "batch_faults": 0, "member_retries": 0, "handed_back": 0,
+               "max_items": 0, "lanes": 0}
         for _, lane in list(self._lanes.values()):
             st = lane.stats()
             out["lanes"] += 1
             for k in ("dispatches", "items", "inline_ops", "batch_faults",
-                      "member_retries"):
+                      "member_retries", "handed_back"):
                 out[k] += st[k]
             out["max_items"] = max(out["max_items"], st["max_items"])
         out["occupancy"] = (out["items"] / out["dispatches"]
@@ -449,6 +515,7 @@ class MetaBatcher:
 
 _MB: MetaBatcher | None = None
 _MB_MU = threading.Lock()
+_TLS = threading.local()
 
 
 def get() -> MetaBatcher:

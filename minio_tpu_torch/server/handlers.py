@@ -22,6 +22,7 @@ handler is decided before it runs (server.py `_authorize`).
 from __future__ import annotations
 
 import base64
+import contextlib
 import datetime
 import email.utils
 import hashlib
@@ -156,6 +157,13 @@ class S3Handlers:
             pass
         self.meta = BucketMetadataSys(pools)
         self.config_sys = ConfigSys(pools)
+        # The K+1 read trim (engine/erasure_set._read_version_fanout)
+        # reads for the parity this server writes its STANDARD class at.
+        standard = self.config_sys.parity_for_class("standard")
+        if standard is not None:
+            for pool in pools.pools:
+                for es in pool.sets:
+                    es.trim_parity = es.clamp_parity(standard)
 
     # x-amz-storage-class -> storage_class config key (parity source,
     # cf. GetParityForSC at cmd/erasure-object.go:761 and
@@ -569,20 +577,17 @@ class S3Handlers:
                      "Content-Type": "application/octet-stream",
                      "Accept-Ranges": "none"}
                 return Response(200, b"" if head else data, h)
-        # The request's ignition note for the metadata lanes: concurrent
-        # HEAD and GET elections of distinct keys then share per-drive
-        # read_version_many rounds (a lone request keeps the single-op
-        # fan-out).
+        # The request's ignition note for the metadata lanes, counted
+        # once with the engine's own: concurrent HEAD and GET elections
+        # of distinct keys then share per-drive read_version_many rounds
+        # (a lone request keeps the single-op fan-out).
         mb = metalanes.get() if metalanes.enabled() else None
-        if mb is not None:
-            mb.note_read(1)
         try:
-            fi = self.pools.head_object(bucket, key, version_id)
+            with mb.reading() if mb is not None else \
+                    contextlib.nullcontext():
+                fi = self.pools.head_object(bucket, key, version_id)
         except StorageError as e:
             raise from_storage_error(e) from None
-        finally:
-            if mb is not None:
-                mb.note_read(-1)
         cond = self._check_conditions(headers, fi)
         if cond is not None:
             return cond

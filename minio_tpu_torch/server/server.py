@@ -106,12 +106,13 @@ _META_FAMILIES = (
     ("meta_publishes", "mtpu_meta_publishes_total",
      "xl.meta publishes across all drives (solo + batched)"),
     ("meta_fsyncs", "mtpu_meta_fsyncs_total",
-     "fsyncs paying for metadata publishes (group commit amortizes one "
-     "journal fsync over a whole batch)"),
+     "syncs paying for metadata publishes (group commit amortizes a "
+     "journal fsync and a drive sync over a whole batch)"),
     ("fsyncs_per_object", "mtpu_meta_fsyncs_per_object",
      "Amortized fsyncs per xl.meta publish (oracle: 1.0)"),
     ("meta_group_commits", "mtpu_meta_group_commits_total",
-     "Group-committed metadata batches (one journal fsync each)"),
+     "Group-committed metadata batches (one journal fsync and one "
+     "drive sync each)"),
     ("meta_group_items", "mtpu_meta_group_items_total",
      "xl.meta publishes carried inside group commits"),
     ("batch_occupancy", "mtpu_meta_batch_occupancy",

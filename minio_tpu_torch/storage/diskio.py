@@ -40,6 +40,28 @@ def osync() -> bool:
     return os.environ.get("MTPU_OSYNC", "off") == "on"
 
 
+_SYNCFS = None
+
+
+def sync_fs(path: str) -> None:
+    """Flush the filesystem holding `path` to stable storage, data and
+    directory entries alike: syncfs(2), or sync(2) (every filesystem)
+    where the C library has no syncfs."""
+    global _SYNCFS
+    if _SYNCFS is None:
+        try:
+            import ctypes
+            _SYNCFS = ctypes.CDLL(None, use_errno=True).syncfs
+        except (OSError, AttributeError):
+            _SYNCFS = False
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        if not _SYNCFS or _SYNCFS(fd) != 0:
+            os.sync()
+    finally:
+        os.close(fd)
+
+
 def drop_cache(fd: int) -> None:
     """Advise the kernel to evict this file's pages (post-IO)."""
     try:

@@ -87,8 +87,9 @@ _STATS = {"vectored_writes": 0, "vectored_write_bytes": 0,
 def stats() -> dict:
     """The vectored writes and xl.meta publishes of every drive in the
     process (the JAX package records them into DATA_PATH): publishes
-    and the fsyncs paying for them (one each for a solo write_metadata,
-    one journal fsync for a whole group commit), group commits, the
+    and the syncs paying for them (one fsync each for a solo
+    write_metadata; for a whole group commit two, the journal's fsync
+    and the drive's sync), group commits, the
     publishes inside them and the most in one, and entries republished
     from the journal."""
     with _STATS_MU:
@@ -552,17 +553,22 @@ class LocalDrive:
     def write_metadata_many(self, items: list) -> list:
         """Group-commit a batch of write_metadata ops: stage each item's
         next xl.meta blob, persist them all in ONE fsynced journal
-        segment, then publish each blob by an unsynced tmp + rename and
-        unlink the segment.  `items` is a list of ``(vol, obj, fi)``;
-        returns one ``exception | None`` per item, so one poisoned item
-        fails alone.
+        segment, publish each blob by an unsynced tmp + rename, make the
+        published blobs durable with ONE sync of the drive's filesystem
+        (`diskio.sync_fs`), and only then unlink the segment.  `items`
+        is a list of ``(vol, obj, fi)``; returns one ``exception |
+        None`` per item, so one poisoned item fails alone.
 
         No item is acknowledged before the call returns, after the
-        unlink.  A kill before the fsync leaves a torn segment (dropped
-        by its CRC at replay); a kill after it leaves a segment whose
-        blobs the boot sweep republishes where nothing newer landed.
-        Items of one key chain onto each other's staged metadata, so the
-        final xl.meta equals a sequence of solo writes."""
+        unlink, so an acknowledged item's blob is on stable storage as a
+        solo write_metadata's is; while a renamed blob may not be yet,
+        the fsynced segment still covers it.  A kill before the
+        segment's fsync leaves a torn segment (dropped by its CRC at
+        replay); a kill or power loss after it leaves a segment whose
+        items were never acknowledged, and the boot sweep republishes
+        them only where nothing newer landed.  Items of one key chain
+        onto each other's staged metadata, so the final xl.meta equals a
+        sequence of solo writes."""
         out: list = [None] * len(items)
         blobs: list = []            # (index, vol, obj, blob)
         with self._meta_lock:
@@ -604,12 +610,15 @@ class LocalDrive:
                     self._publish_meta_blob(vol, obj, blob)
                 except Exception as e:  # noqa: BLE001 — per-item verdict
                     out[i] = e
+            # The segment is the only synced record of the renamed
+            # blobs: it goes only once they are durable themselves.
+            diskio.sync_fs(self.root)
             try:
                 os.unlink(seg)
             except OSError:
                 pass
         _count(meta_group_commits=1, meta_group_items=len(blobs),
-               meta_publishes=len(blobs), meta_fsyncs=1)
+               meta_publishes=len(blobs), meta_fsyncs=2)
         with _STATS_MU:
             _STATS["meta_group_max"] = max(_STATS["meta_group_max"],
                                            len(blobs))
@@ -642,13 +651,20 @@ class LocalDrive:
 
     def replay_meta_journal(self) -> int:
         """Boot recovery: republish the xl.meta blobs of the segments a
-        kill left behind, and remove every segment.  Segments apply in
-        commit order (modification time, then name), so the last blob
-        of a key wins; a key's blob is republished only where its
-        xl.meta is missing or older than the blob's segment, so a write
-        that landed after the segment (another worker's, acknowledged)
-        is never replaced.  Torn segments are dropped.  Returns the
-        entries republished."""
+        kill or a power loss left behind, and remove every segment.
+
+        Nothing in a surviving segment was acknowledged (the writer
+        acknowledges after its unlink), so the replay only rolls
+        unacknowledged writes forward, and never over a newer state:
+        segments apply in commit order (modification time, then name),
+        so the last blob of a key wins, and a key's blob is republished
+        only where its xl.meta is older than the segment, or is corrupt
+        (a rename whose data a power loss lost: the blob holds every
+        version the file had when staged), or is missing while the
+        key's nearest existing directory is older than the segment too.
+        A missing xl.meta under a directory changed since is a delete
+        that landed after the segment, or a publish that never did.
+        Torn segments are dropped.  Returns the entries republished."""
         jdir = self._journal_dir()
         try:
             names = os.listdir(jdir)
@@ -672,15 +688,17 @@ class LocalDrive:
                                                           ent["blob"])
                     except (KeyError, TypeError):
                         pass
+            # Every verdict is taken before the first republish, whose
+            # new directories would read as changes since a segment.
+            land = []
             for (vol, obj), (mtime, blob) in last.items():
                 try:
-                    p = self._file_path(vol, os.path.join(obj,
-                                                          XL_META_FILE))
-                    try:
-                        if os.stat(p).st_mtime_ns >= mtime:
-                            continue        # written after the segment
-                    except FileNotFoundError:
-                        pass
+                    if not self._replay_would_replace(vol, obj, mtime):
+                        land.append((vol, obj, blob))
+                except (OSError, ErrFileAccessDenied):
+                    pass
+            for vol, obj, blob in land:
+                try:
                     self._publish_meta_blob(vol, obj, blob)
                     replayed += 1
                 except (OSError, TypeError, ErrVolumeNotFound,
@@ -694,6 +712,34 @@ class LocalDrive:
                 except OSError:
                     pass
         return replayed
+
+    def _replay_would_replace(self, vol: str, obj: str,
+                              mtime_ns: int) -> bool:
+        """Whether republishing a segment blob of `vol/obj` committed at
+        `mtime_ns` could replace a state written after it (the rule of
+        replay_meta_journal)."""
+        p = self._file_path(vol, os.path.join(obj, XL_META_FILE))
+        try:
+            if os.stat(p).st_mtime_ns < mtime_ns:
+                return False
+            try:
+                self._read_xlmeta(vol, obj)
+            except ErrFileCorrupt:
+                return False
+            return True
+        except FileNotFoundError:
+            pass
+        # No xl.meta: a delete since the segment would have removed the
+        # key's directory from its parent (or removed emptied parents in
+        # turn), so the nearest existing ancestor would have changed.
+        d = os.path.dirname(p)
+        stop = os.path.dirname(self._file_path(vol, ""))
+        while len(d) > len(stop):
+            try:
+                return os.stat(d).st_mtime_ns >= mtime_ns
+            except FileNotFoundError:
+                d = os.path.dirname(d)
+        return True
 
     def retire_meta_segments(self, pid: int) -> int:
         """Remove, unreplayed, the journal segments that process `pid`

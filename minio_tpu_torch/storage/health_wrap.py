@@ -34,7 +34,9 @@ Env knobs (read per call so tests flip them without rebuilding):
 
 The batched metadata calls (`write_metadata_many`, `read_version_many`,
 ops/metalanes.py) return an error per item instead of raising; each
-failed item counts against the drive as a failed solo call would.
+failed item counts against the drive as a failed solo call would, and
+the call's whole time is judged once for slowness (every item waited
+that long).
 """
 
 from __future__ import annotations
@@ -200,12 +202,17 @@ class HealthWrappedDrive:
                     st.ewma_ms = (ms if st.calls == 1 else
                                   self.EWMA_ALPHA * ms
                                   + (1 - self.EWMA_ALPHA) * st.ewma_ms)
-                # A batched call's items count as the single calls they
-                # stand for, in order, each with its share of the time:
-                # a drive that fails every laned publish trips the
-                # breaker as one failing every solo publish does.
+                # A batched call's failed items count as the failed
+                # single calls they stand for: a drive that fails every
+                # laned publish trips the breaker as one failing every
+                # solo publish does.  Its clean items count once, at the
+                # call's full time, so a stalled drive breaches the slow
+                # bound whatever the batch's size.
                 for fault in faults:
-                    self._breaker_record(name, ms / len(faults), fault)
+                    if fault is not None:
+                        self._breaker_record(name, ms, fault)
+                if any(f is None for f in faults):
+                    self._breaker_record(name, ms, None)
         timed.__name__ = name
         self._timed_cache[name] = timed
         return timed

@@ -1,10 +1,13 @@
 """The metadata plane of the port (ops/metalanes.py, the drive's group
 commit, journal and batched reads, the engine's laned publishes and the
 K+1 read trim) held to the JAX package's on the same seeded inputs, and
-the repairs the port makes: a journal replay never puts an older blob
-over a newer xl.meta, replays in commit order, a respawned worker
-retires its predecessor's segments, and the breaker counts a batched
-call's failed items."""
+the repairs the port makes: a group commit acknowledges only once its
+blobs are durable, a journal replay never puts an older blob over a
+newer xl.meta nor brings back a deleted key, replays in commit order, a
+respawned worker retires its predecessor's segments, a write round too
+small to journal is handed back, a request's read note counts once, and
+the breaker counts a batched call's failed items and judges its whole
+time."""
 
 import os
 import shutil
@@ -26,6 +29,7 @@ from minio_tpu_torch.storage import drive as drive_mod
 from minio_tpu_torch.storage.drive import (META_JOURNAL_DIR, SYS_VOL,
                                            XL_META_FILE, LocalDrive)
 from minio_tpu_torch.storage.errors import (ErrDiskNotFound,
+                                            ErrFileNotFound,
                                             ErrObjectNotFound,
                                             ErrVolumeNotFound)
 from minio_tpu_torch.storage.health_wrap import HealthWrappedDrive
@@ -142,6 +146,9 @@ def _leave_segment(monkeypatch, drive_cls, root, items):
     it as a kill would: the segment stays, nothing is published."""
     d = drive_cls(str(root))
     d.make_volume("v")
+    # The volume predates the segment by more than a timestamp tick (a
+    # directory changed in the segment's tick is not replayed into).
+    time.sleep(0.02)
 
     def killed(self, *a, **kw):
         raise _Killed()
@@ -218,11 +225,12 @@ def test_read_version_many_on_mixed_items_matches_jax(tmp_path):
 
 # -- the replay's repairs -------------------------------------------------------
 
-def _stale_segment_sequence(tmp_path, drive_cls, fi_cls):
+def _stale_segment_sequence(tmp_path, drive_cls, fi_cls, then="write"):
     """Worker A group-commits version 1 of K and publishes, worker B
     (another process's drive object over the same root) writes version
-    2 and acknowledges it, then A dies before its unlink; a later boot
-    sweeps.  Returns K's version after the sweep."""
+    2 and acknowledges it (or, `then="delete"`, deletes K, its last
+    version), then A dies before its unlink; a later boot sweeps.
+    Returns K's version after the sweep (None when K is gone)."""
     root = str(tmp_path / "shared")
     a, b = drive_cls(root), drive_cls(root)
     a.make_volume("v")
@@ -238,23 +246,116 @@ def _stale_segment_sequence(tmp_path, drive_cls, fi_cls):
     a._publish_meta_blob = publish_and_keep.__get__(a)
     assert a.write_metadata_many(
         [("v", "K", fi_for(fi_cls, "K", b"version 1", mod=1))]) == [None]
-    time.sleep(0.01)
-    b.write_metadata("v", "K", fi_for(fi_cls, "K", b"version 2", mod=2))
+    time.sleep(0.02)
+    if then == "delete":
+        b.delete_version("v", "K", "")
+    else:
+        b.write_metadata("v", "K", fi_for(fi_cls, "K", b"version 2",
+                                          mod=2))
     for name in os.listdir(kept):             # A died before its unlink
         shutil.copy2(os.path.join(kept, name), jdir)
     drive_cls(root).sweep_stale()
     assert os.listdir(jdir) == []
-    return drive_cls(root).read_version("v", "K").inline_data
+    try:
+        return drive_cls(root).read_version("v", "K").inline_data
+    except Exception as e:  # noqa: BLE001 — either package's not-found
+        assert type(e).__name__ == "ErrFileNotFound", e
+        return None
 
 
+@pytest.mark.parametrize("then,kept", [("write", b"version 2"),
+                                       ("delete", None)])
 def test_replay_never_puts_an_older_blob_over_an_acknowledged_write(
-        tmp_path):
-    """The port keeps B's acknowledged version 2; the JAX rule (replace
-    with every surviving blob) puts A's version 1 back."""
+        tmp_path, then, kept):
+    """The port keeps B's acknowledged version 2, and keeps K deleted
+    after B's acknowledged DELETE; the JAX rule (replace with every
+    surviving blob) puts A's version 1 back either way."""
     assert _stale_segment_sequence(tmp_path / "torch", LocalDrive,
-                                   FileInfo) == b"version 2"
+                                   FileInfo, then) == kept
     assert _stale_segment_sequence(tmp_path / "jax", JaxLocalDrive,
-                                   JaxFileInfo) == b"version 1"
+                                   JaxFileInfo, then) == b"version 1"
+
+
+def test_replay_repairs_a_corrupt_xlmeta_but_not_a_missing_one(tmp_path):
+    """A blob renamed over an xl.meta whose data a power loss lost reads
+    corrupt: the segment's blob replaces it.  A segment of a key whose
+    xl.meta is missing under a directory changed since is not
+    replayed."""
+    d = LocalDrive(str(tmp_path / "d"))
+    d.make_volume("v")
+    jdir = os.path.join(d.root, SYS_VOL, META_JOURNAL_DIR)
+    d.write_metadata("v", "torn", fi_for(FileInfo, "torn", b"old"))
+    os.makedirs(os.path.join(d.root, "v", "gone"))
+    time.sleep(0.02)
+    blobs = {}
+    for obj, text in (("torn", b"new"), ("gone", b"deleted since")):
+        meta = XLMeta()
+        meta.add_version(fi_for(FileInfo, obj, text))
+        blobs[obj] = meta.to_bytes()
+    _segment(os.path.join(jdir, "seg-00000000000000000001-1-aa"),
+             [{"vol": "v", "obj": o, "blob": b} for o, b in blobs.items()],
+             time.time_ns())
+    time.sleep(0.02)
+    with open(xlmeta_path(d.root, "torn"), "wb"):
+        pass                                  # zero length, as torn
+    shutil.rmtree(os.path.join(d.root, "v", "gone"))
+    assert d.sweep_stale()["meta_journal"] == 1
+    assert d.read_version("v", "torn").inline_data == b"new"
+    with pytest.raises(ErrFileNotFound):
+        d.read_version("v", "gone")
+
+
+def xlmeta_path(root, obj, vol="v"):
+    return os.path.join(root, vol, obj, XL_META_FILE)
+
+
+def test_a_group_commit_acks_after_its_blobs_are_durable(tmp_path,
+                                                         monkeypatch):
+    """Each journaled publish, in order: the segment's fsync, the blob's
+    rename, a sync that makes the renamed blob durable (the drive's
+    sync), the segment's unlink, and only then the caller's ack.  With
+    no sync between the rename and the unlink, nothing synced would
+    cover an acknowledged blob after a power loss."""
+    monkeypatch.setenv("MTPU_METABATCH_SOLO", "1")
+    d = LocalDrive(str(tmp_path / "d"))
+    d.make_volume("v")
+    jdir = os.path.join(d.root, SYS_VOL, META_JOURNAL_DIR)
+    events = []
+    real_fsync, real_replace, real_unlink = os.fsync, os.replace, os.unlink
+    real_sync = drive_mod.diskio.sync_fs
+
+    def fsync(fd):
+        path = os.readlink(f"/proc/self/fd/{fd}")
+        events.append("fsync-segment" if path.startswith(jdir) else
+                      "sync" if path.endswith(XL_META_FILE) else "fsync")
+        real_fsync(fd)
+
+    def replace(src, dst):
+        if str(dst).endswith(XL_META_FILE):
+            events.append("rename")
+        real_replace(src, dst)
+
+    def unlink(path):
+        if str(path).startswith(jdir):
+            events.append("unlink-segment")
+        real_unlink(path)
+
+    def sync_fs(path):
+        events.append("sync")
+        real_sync(path)
+    monkeypatch.setattr(os, "fsync", fsync)
+    monkeypatch.setattr(os, "replace", replace)
+    monkeypatch.setattr(os, "unlink", unlink)
+    monkeypatch.setattr(drive_mod.diskio, "sync_fs", sync_fs)
+    mb = metalanes.get()
+    for i, obj in enumerate(("a", "K", "K")):
+        mb.submit_write(d, "v", obj, fi_for(FileInfo, obj, bytes([i]),
+                                            vid=f"{i:032x}")).result()
+        events.append("ack")
+    monkeypatch.undo()
+    assert [e for e in events if e != "fsync"] == [
+        "fsync-segment", "rename", "sync", "unlink-segment", "ack"] * 3
+    assert segments(d.root) == []
 
 
 def _segment(path, entries, mtime_ns):
@@ -274,6 +375,8 @@ def test_replay_follows_commit_order_not_names(tmp_path):
         d.make_volume("v")
         jdir = os.path.join(d.root, SYS_VOL, META_JOURNAL_DIR)
         now = time.time_ns()
+        # The volume was made before both commits.
+        os.utime(os.path.join(d.root, "v"), ns=(now - 3_000_000_000,) * 2)
         for text, name, age in ((b"committed first", "seg-000000000002-7-a",
                                  2_000_000_000),
                                 (b"committed last", "seg-000000000001-8-b",
@@ -324,6 +427,29 @@ def test_breaker_counts_each_failed_item_of_a_batch(tmp_path, monkeypatch):
         wd.close()
 
 
+def test_breaker_judges_a_batched_call_on_its_whole_time(tmp_path,
+                                                        monkeypatch):
+    """A stalled drive under batched publishes reaches SUSPECT: every
+    item waited the call's whole time, so a slow breach is judged on
+    it, not on a per-item share (3 items in 150 ms are no 50 ms
+    publishes)."""
+    monkeypatch.setenv("MTPU_BREAKER_SLOW_MS", "100")
+    monkeypatch.setenv("MTPU_BREAKER_SLOW_CALLS", "2")
+    nd = NaughtyDrive(str(tmp_path / "d"))
+    nd.make_volume("v")
+    nd.slow("write_metadata_many", 0.15)
+    wd = HealthWrappedDrive(nd)
+    try:
+        for call in range(2):
+            assert wd.health_state() == "ok"
+            assert wd.write_metadata_many(
+                [("v", f"o{call}-{i}", fi_for(FileInfo, "o", b"x"))
+                 for i in range(3)]) == [None] * 3
+        assert wd.health_state() == "suspect"
+    finally:
+        wd.close()
+
+
 def test_breaker_counts_failed_reads_but_not_benign_misses(tmp_path,
                                                            monkeypatch):
     monkeypatch.setenv("MTPU_BREAKER_ERRS", "2")
@@ -359,6 +485,89 @@ def test_naughty_program_hits_the_matching_item_of_a_batch(tmp_path):
     assert res[0][0] is None and isinstance(res[0][1], ErrDiskNotFound)
     assert res[1][0].inline_data == bytes([2])
     assert nd.calls["read_version"] == 2          # each item once
+
+
+# -- the write round's gate and the read note -------------------------------------
+
+@pytest.mark.parametrize("n,solo", [(1, ""), (2, ""), (3, ""), (1, "1")])
+def test_a_write_round_too_small_to_journal_is_handed_back(monkeypatch, n,
+                                                           solo):
+    """A round of fewer than JOURNAL_MIN_ITEMS publishes is no batch:
+    each caller runs its solo call on its own thread.  From three items
+    up (or under MTPU_METABATCH_SOLO) the round is one batched call."""
+    monkeypatch.setenv("MTPU_METABATCH_SOLO", solo)
+    calls = []
+
+    def solo_fn(item):
+        calls.append(("solo", item, threading.get_ident()))
+        return item
+
+    def batch_fn(items):
+        calls.append(("batch", tuple(items), threading.get_ident()))
+        return [(it, None) for it in items]
+    lane = metalanes.MetaLane("t", solo_fn, batch_fn,
+                              metalanes.JOURNAL_MIN_ITEMS)
+    handles = [metalanes.MetaHandle() for _ in range(n)]
+    got = {}
+
+    def caller(i):
+        got[i] = (handles[i].result(), threading.get_ident())
+    ts = [threading.Thread(target=caller, args=(i,)) for i in range(n)]
+    for t in ts:
+        t.start()
+    lane._dispatch(list(zip(range(n), handles)))
+    for t in ts:
+        t.join()
+    assert {i: r for i, (r, _) in got.items()} == {i: i for i in range(n)}
+    if n >= metalanes.JOURNAL_MIN_ITEMS or solo:
+        assert [c[:2] for c in calls] == [("batch", tuple(range(n)))]
+        assert lane.stats()["handed_back"] == 0
+    else:
+        assert sorted(c[:2] for c in calls) == [("solo", i)
+                                                for i in range(n)]
+        assert {c[1]: c[2] for c in calls} == {i: tid for i, (_, tid)
+                                               in got.items()}
+        st = lane.stats()
+        assert (st["handed_back"], st["inline_ops"]) == (n, n)
+        assert not lane.busy() or lane._ema > 1.05
+
+
+def test_a_request_counts_once_on_the_read_plane(tmp_path, monkeypatch):
+    """A lone HEAD through the S3 handler notes one read in flight (the
+    handler's note and the engine's are one), so the idle plane takes
+    the full fan-out; the handler sets the sets' trim parity from the
+    STANDARD storage class."""
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server.handlers import S3Handlers
+    monkeypatch.setenv("MTPU_STORAGE_CLASS_STANDARD", "EC:1")
+    pools = ServerPools([ErasureSets(
+        [LocalDrive(str(tmp_path / f"d{i}")) for i in range(6)],
+        set_drive_count=6, device="cpu")])
+    try:
+        h = S3Handlers(pools)
+        es = pools.pools[0].sets[0]
+        assert (es.default_parity, es.trim_parity) == (3, 1)
+        pools.make_bucket("b")
+        pools.put_object("b", "k", body(3000, 8))
+        mb = metalanes.get()
+        seen = []
+        real = es._read_version_fanout
+
+        def fanout(*a):
+            seen.append((mb._inflight_reads, mb.read_hot()))
+            return real(*a)
+        monkeypatch.setattr(es, "_read_version_fanout", fanout)
+        resp = h.get_object("b", "k", {}, {}, head=True)
+        assert resp.status == 200
+        assert seen and all(x == (1, False) for x in seen)
+        assert mb._inflight_reads == 0
+        with mb.reading():
+            with mb.reading():
+                assert mb._inflight_reads == 1
+        assert mb._inflight_reads == 0
+    finally:
+        pools.close()
 
 
 # -- the engine: laned publishes and elections ------------------------------------

@@ -66,10 +66,10 @@ Phases, each printing its own lines; any failure exits non-zero:
       recorded SHA-256, launches equal to those the sizes call for, and
       every version read byte-exact with three other drives away.  Then
       pipelined and serial (MTPU_HEAL_PIPELINE=0), with four workers and
-      with one, uninterrupted, each twice in turns on a fresh wipe.
+      with one, uninterrupted, each once on a fresh wipe.
    f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
       (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
-      versioned bucket of 1024 objects of 1-100 KiB, 96 of 4 MiB + 1 B
+      versioned bucket of 512 objects of 1-100 KiB, 96 of 4 MiB + 1 B
       and 8 of 64 MiB (2 HighwayHash), about 1.0 GB (the depth cut for
       phases l and m): PUT with SipHash
       placement checked, second versions, delete markers, a version
@@ -84,7 +84,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       deployment of f, driven by the port's S3Client signing SigV4: a
       versioned bucket, 8 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
       PUT from 1 and 4 clients (2 highwayhash256S), one of 64 MiB +
-      300 KiB + 5 B by signed aws-chunked PUT, 512 of 1-100 KiB by
+      300 KiB + 5 B by signed aws-chunked PUT, 256 of 1-100 KiB by
       signed-payload PUT from 1 and 8 clients, a multipart upload of
       64 MiB + 64 MiB + 5 MiB + 7 B; GETs of every object, ranged GETs,
       an If-None-Match 304, HEADs, a presigned GET, ListObjectsV2 in
@@ -119,7 +119,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       AssumeRole with an inline GetObject-only policy (no session token
       refused), AssumeRoleWithWebIdentity; a 32 MiB POST-policy upload
       under content-length-range and starts-with, and one over the range
-      refused; a snowball tar of 512 members read back; zip-extract GETs
+      refused; a snowball tar of 256 members read back; zip-extract GETs
       from a 64 MiB stored zip; a bucket policy serving an anonymous
       64 MiB GET and refusing an anonymous PUT; a new server whose fresh
       IAMSys loads every identity from the drives.  Items equal the
@@ -146,7 +146,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       with 0, in turns (0, 4: half the turns it had before phase l
       joined the run), on one EC:8+4 set of 12 drives on
       /dev/shm; client processes that load no torch PUT and GET one
-      64 MiB object each from 1, 4 and 16 clients, 8 objects of 1 MiB
+      64 MiB object each from 1 and 16 clients, 8 objects of 1 MiB
       each from 16, and (the turn with workers, highwayhash256S) 2 of
       64 MiB each from 4.  GB/s and operations/s per step; with workers
       the owner's dispatches and items, the arena's waits and timeouts,
@@ -166,9 +166,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       MTPU_HOTCACHE=0; MTPU_WORKERS=4, tier on with new objects written
       highwayhash256S, and MTPU_HOTCACHE=0); client processes read a
       hot set of 32 x 1 MiB + 6 x 4 MiB (two cold rounds, the two-hit
-      admission, then from 1, 4 and 16 clients: GB/s and GET/s with the
+      admission, then from 1 and 16 clients: GB/s and GET/s with the
       tier and without, misses' device items exact, hits' 0), a scan of
-      128 distinct keys (no fill, the hot set stays resident), 16
+      64 distinct keys (no fill, the hot set stays resident), 16
       concurrent cold GETs of one admitted 4 MiB key (one engine read in
       one process), highwayhash256S misses (hh256 exact), a versioned
       key warm in every worker read after a PUT of a new version (the
@@ -182,13 +182,14 @@ Phases, each printing its own lines; any failure exits non-zero:
       booted as one process on fresh drives with the metadata lanes (the
       default) and with MTPU_METABATCH=0 (every server of the phase
       booted at once), driven in turns; 16 client processes
-      PUT 16 inline objects of 4-64 KiB each (the JAX package's
+      PUT 8 inline objects of 4-64 KiB each (the JAX package's
       small-object mix), HEAD every one and GET a quarter, then one
       client 32 the same way: PUT/s, HEAD/s, p50 and p99, publishes per
       journal fsync, keys per metadata read round, trim accepted and
       fallen back, the device items equal across the turns; on /dev/shm
-      and, for the 16-client turns with 8 objects a client, on a
-      disk-backed directory (not tmpfs) when one has room.  Then a SIGKILL under 16 clients' journaled PUTs
+      and, for the 16-client turns with 4 objects a client, on a
+      disk-backed directory (not tmpfs) when one has room.  Then a
+      SIGKILL under 16 clients' journaled PUTs
       (MTPU_METABATCH_SOLO=1) after 200 acknowledgements, the reboot's
       journal replay, every acknowledged PUT read back exact and no key
       holding bytes never written to it; and in this process, with the
@@ -196,9 +197,26 @@ Phases, each printing its own lines; any failure exits non-zero:
       failed and a stalled read_version, two drives taken away and a
       breaker tripped by failed laned publishes, each reaching its
       target with exact items.
-   Phases a-g and i-m run with MTPU_DEVCACHE=0: their counts assume
+   n. the admission plane (phase_admission): BASELINE.json config 2's
+      deployment as two pools of 2 workers and the device owner booted
+      at once (QoS on; MTPU_QOS=0) with the JAX package's overload_bench
+      settings (4 slots, a 2 s deadline, a queue of 12, tenants gold
+      premium, std standard, beff best-effort), 256 KiB objects, client
+      processes half PUT, half GET of 8 warm objects (tier hits), legs
+      of 6 s: capacity (1 client a tenant), overload (4, 4, 8) after 6 s
+      of decay, collapse (the 16 with MTPU_QOS=0): goodput, overload
+      over capacity, premium p99 against 2 x deadline + capacity p99,
+      sheds per class and reason, best-effort shed before premium, the
+      legs' device items equal to their acknowledged PUTs; a worker
+      holding 3 slots with stalled PUTs SIGKILLed (in flight equal to
+      the live rows after its respawn, 4 requests admitted at once, no
+      GET or HEAD waiting 2 s); a heal of a wiped drive under the
+      overload in one process (its workers, its yields, the drive equal
+      to itself before the wipe); and a check that phases a-m, QoS on
+      at the default budget, shed nothing.
+   Phases a-g and i-n run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i and k-m run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i and k-n run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
@@ -286,10 +304,11 @@ DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 # tail block) and LAYER_BIG of LAYER_BIG_BYTES, LAYER_BIG_HH of them
 # under highwayhash256S.  Cut to half its depth (2048 small and 24 big
 # objects, 6 of them highwayhash256S, before phase 5l joined the run),
-# and its big objects to 8 (12, 3 of them highwayhash256S, before phase
-# 5m joined it) to keep the whole run within its time.
+# its big objects to 8 (12, 3 of them highwayhash256S, before phase 5m
+# joined it) and its small ones to 512 (1024 before phase 5n joined it)
+# to keep the whole run within its time.
 LAYER_SETS, LAYER_SET_DRIVES = 4, 12
-LAYER_SMALL, LAYER_SMALL_BYTES = 1024, (1024, 100 * 1024)
+LAYER_SMALL, LAYER_SMALL_BYTES = 512, (1024, 100 * 1024)
 LAYER_MID, LAYER_MID_BYTES = 96, 4 * MIB + 1
 LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
@@ -299,11 +318,13 @@ LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 # one multipart upload of SERVER_PARTS, a ranged GET of SERVER_RANGE
 # (offset, length) per large object.  SERVER_SMALL and SERVER_BIG cut to
 # half (1024, 128 of them from one client, and 16, before phase 5m
-# joined the run) to keep the whole run within its time.
+# joined the run), and SERVER_SMALL to half again (512, 64 from one
+# client, before phase 5n joined it) to keep the whole run within its
+# time.
 SERVER_SETS = LAYER_SETS
 SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 8, 2, OBJECT_BYTES
 SERVER_CHUNKED_BYTES = TAIL_OBJECT_BYTES
-SERVER_SMALL, SERVER_SMALL_SERIAL = 512, 64
+SERVER_SMALL, SERVER_SMALL_SERIAL = 256, 32
 SERVER_SMALL_BYTES = (1024, 100 * 1024)
 SERVER_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 SERVER_RANGE = (300 * 1024, MIB)
@@ -347,7 +368,8 @@ POOL_WORKERS = 4
 # one turn each to keep the whole run within its time.
 POOL_TURNS = (0, POOL_WORKERS)
 POOL_BIG = OBJECT_BYTES
-POOL_BIG_CLIENTS = (1, 4, 16)
+# (1, 4, 16) before phase 5n joined the run.
+POOL_BIG_CLIENTS = (1, 16)
 POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 8, MIB
 POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
 POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
@@ -365,11 +387,12 @@ POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 SPINE_HOT = ((32, MIB), (6, 4 * MIB))
 SPINE_WORKERS = POOL_WORKERS
 SPINE_SMALL, SPINE_SF_BYTES = MIB, 4 * MIB
-SPINE_CLIENTS = (1, 4, 16)
+# (1, 4, 16), and SPINE_SCAN 128, before phase 5n joined the run.
+SPINE_CLIENTS = (1, 16)
 # Past SPINE_STRIDE clients, each client reads a SPINE_STRIDE-th of the
 # hot set (16 clients read it 4 times over, as 4 clients do).
 SPINE_STRIDE = 4
-SPINE_SCAN = 128
+SPINE_SCAN = 64
 SPINE_SF_CLIENTS = 16
 SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 4, 8, 4
 SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
@@ -384,7 +407,8 @@ SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
 # META_KILL_CLIENTS clients PUT up to META_KILL_PER objects each under
 # MTPU_METABATCH_SOLO=1, and the server is SIGKILLed once META_KILL_ACKS
 # are acknowledged.
-META_CLIENTS, META_PER, META_BYTES = 16, 16, (4 * 1024, 64 * 1024)
+# META_PER was 16 before phase 5n joined the run.
+META_CLIENTS, META_PER, META_BYTES = 16, 8, (4 * 1024, 64 * 1024)
 META_GET_STRIDE, META_ONE = 4, 32
 META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 200
 DISPATCH_MODES = (
@@ -1511,8 +1535,8 @@ def phase_drive_heal(args, counts, card):
     objects and resumed; every file of the drive back to its recorded
     SHA-256; every object version read byte-exact with three other drives
     away.  Then each way of healing (pipelined and serial, the latter
-    MTPU_HEAL_PIPELINE=0, with four workers and with one) twice in turns,
-    each on a fresh wipe of the drive."""
+    MTPU_HEAL_PIPELINE=0, with four workers and with one) once, each on a
+    fresh wipe of the drive."""
     from minio_tpu_torch.engine import heal
     from minio_tpu_torch.engine import quorum as Q
     from minio_tpu_torch.engine.erasure_set import ErasureSet
@@ -1611,11 +1635,12 @@ def phase_drive_heal(args, counts, card):
                                for s, k in parts):
                 raise SystemExit(f"GET {b}/{o}@{vid}: bytes differ")
         es.drives = saved_drives
-        # Each way of healing twice, in turns (ABCD DCBA), uninterrupted.
+        # Each way of healing once, uninterrupted (twice, in turns ABCD
+        # DCBA, before phase 5n joined the run).
         ways = [("pipelined, 4 workers", "1", 4),
                 ("pipelined, 1 worker", "1", 1),
                 ("serial, 4 workers", "0", 4), ("serial, 1 worker", "0", 1)]
-        for name, pipeline, workers in ways + ways[::-1]:
+        for name, pipeline, workers in ways:
             os.environ["MTPU_HEAL_PIPELINE"] = pipeline
             runs.setdefault(name, []).append(
                 wipe_and_heal(workers, interrupt=False))
@@ -1646,7 +1671,7 @@ def phase_drive_heal(args, counts, card):
     line("pipelined, 4 workers, stopped and resumed (the main path)", main)
     for name, rs in runs.items():
         for turn, r in enumerate(rs):
-            line(f"{name}, turn {turn + 1} of 2", r)
+            line(f"{name}, turn {turn + 1} of {len(rs)}", r)
     # Coalesced launches differ from run to run: the main path's shapes go
     # with its launches.
     counts.last_shapes = main["shapes"]
@@ -2782,13 +2807,14 @@ def phase_dispatch(args, counts, card):
 # of IDENTITY_ZIP_MEMBERS members of IDENTITY_ZIP_MEMBER_BYTES read
 # IDENTITY_ZIP_GETS times, IDENTITY_AUTH_RUNS requests per auth timing.
 # The IAM state cut to half (1000 users, 20 groups, 50 policies and 100
-# service accounts before phase 5m joined the run) to keep the whole run
-# within its time.
+# service accounts before phase 5m joined the run) and the snowball tar
+# to half (448 and 64 members before phase 5n joined it) to keep the
+# whole run within its time.
 IDENTITY_USERS, IDENTITY_GROUPS = 500, 10
 IDENTITY_POLICIES, IDENTITY_SVC = 25, 50
 IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
-IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 448, 64 * 1024
-IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 64, MIB
+IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 224, 64 * 1024
+IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 32, MIB
 IDENTITY_ZIP_MEMBERS, IDENTITY_ZIP_MEMBER_BYTES = 64, MIB
 IDENTITY_ZIP_GETS, IDENTITY_AUTH_RUNS = 4, 200
 IDENTITY_CLIENTS = 8
@@ -3500,6 +3526,10 @@ def phase_host_planes(args, counts, card):
             slow.read_file = stalled_http
             srv = S3Server(hpools, sigv4.Credentials(
                 "smokeadmin", "smokeadmin-secret")).start()
+            # The admission plane reads the bucket's quota config (its
+            # bandwidth budget) once per server, an election of its own:
+            # read before the counted GET, whose elections are its own.
+            srv._qos_bucket_rate(bucket)
             cli = S3Client(srv.endpoint, "smokeadmin", "smokeadmin-secret",
                            timeout=300)
             l0, i0 = counts.read(), counts.items()
@@ -4033,6 +4063,11 @@ class _Clients:
                     p.wait()
 
 
+#: (server log, its admission counters {"admitted", "shed"}, or None
+#: where it served no metrics) of every server a phase stopped
+POOL_QOS: list = []
+
+
 class _Pool:
     """`python -m minio_tpu_torch.server` over 12 drives under `root`
     with MTPU_WORKERS=`workers`, booted as a subprocess (fork and exec);
@@ -4117,8 +4152,17 @@ class _Pool:
 
     def stop(self) -> float:
         """SIGTERM: the supervisor (or the one process) exits 0 within
-        30 s."""
+        30 s.  First the admission plane's counters, where the server
+        serves its metrics, go into POOL_QOS."""
         import signal
+        try:
+            m = self.metrics()
+        except OSError:
+            m = None                  # no metrics (one process, no tier)
+        POOL_QOS.append((os.path.basename(self.log), None if m is None else {
+            what: sum(v for k, v in m.items()
+                      if k.startswith(f"mtpu_qos_{what}_total{{"))
+            for what in ("admitted", "shed")}))
         t0 = time.perf_counter()
         self.proc.send_signal(signal.SIGTERM)
         try:
@@ -5456,6 +5500,694 @@ def _meta_faults(card, counts, launches, seed, roots) -> None:
                 os.environ[k] = v
 
 
+#: phase 5n: the admission plane (server/qos.py), after the JAX
+#: package's overload_bench (bench.py:1193) and its parameters: 4 slots,
+#: a 2 s deadline, a queue of 3 x slots, three tenants of three classes,
+#: 256 KiB objects (over the 128 KiB inline size: every PUT is one encode
+#: and one mxh256 item), half PUT and half GET, legs of 6 s
+ADMISSION_WORKERS = 2
+ADMISSION_SLOTS = 4
+ADMISSION_DEADLINE_MS = 2000
+ADMISSION_ENV = {"MTPU_REQUESTS_MAX": str(ADMISSION_SLOTS),
+                 "MTPU_REQUESTS_DEADLINE_MS": str(ADMISSION_DEADLINE_MS),
+                 "MTPU_QOS_QUEUE": str(3 * ADMISSION_SLOTS),
+                 "MTPU_QOS_TENANTS":
+                     "gold=premium,std=standard,beff=best-effort"}
+ADMISSION_CLASS = {"gold": "premium", "std": "standard",
+                   "beff": "best-effort"}
+ADMISSION_BYTES = 256 * 1024
+ADMISSION_LEG_S = 6.0
+#: the pressure EMA's three half-lives between legs on one boot
+ADMISSION_DECAY_S = 6.0
+#: clients per tenant: the capacity leg, and the overload and collapse
+#: legs (4 x the slots, half of them best-effort)
+ADMISSION_CAPACITY = {"gold": 1, "std": 1, "beff": 1}
+ADMISSION_OVERLOAD = {"gold": ADMISSION_SLOTS, "std": ADMISSION_SLOTS,
+                      "beff": 2 * ADMISSION_SLOTS}
+#: objects every GET reads (kept in the hot tier), keys each client PUTs
+ADMISSION_WARM = 8
+ADMISSION_KEYS = 8
+#: objects the heal under pressure rebuilds on the wiped drive
+ADMISSION_HEAL_OBJECTS = 24
+ADMISSION_STALLED = 3
+
+
+def _tenant_secret(name: str) -> str:
+    return f"{name}-tenant-secret"
+
+
+def qos_client(spec: dict) -> int:
+    """One client process of phase 5n (`chip_smoke.py --qos-client
+    JSON`): signs as its tenant, makes its bodies from their seeds, says
+    `ready`, then on each `run PORT SECONDS` line from stdin runs a
+    closed loop for SECONDS against the server at PORT, half PUTs of its
+    own keys (ETag = MD5) and half GETs of the warm objects (SHA-256),
+    in a seeded order.  It prints one JSON line: the acknowledged PUTs
+    and good GETs, sheds (503 SlowDown), connections reset, other
+    errors, wrong answers, the bytes of good requests, each good
+    request's ms, its monotonic start and end, and whether it loaded
+    torch.  A shed is data, not a failure: the loop goes on."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import http.client
+
+    import numpy as np
+
+    from minio_tpu_torch.server.client import S3Client
+
+    warm = {key: np.random.default_rng(seed).bytes(size)
+            for key, size, seed in spec["warm"]}
+    warm_sha = {k: hashlib.sha256(v).hexdigest() for k, v in warm.items()}
+    puts = {key: np.random.default_rng(seed).bytes(size)
+            for key, size, seed in spec["puts"]}
+    put_md5 = {k: hashlib.md5(v).hexdigest() for k, v in puts.items()}
+    print("ready", flush=True)
+    for line in sys.stdin:
+        verb, port, seconds = line.split()
+        if verb != "run":
+            return 1
+        cli = S3Client(f"http://127.0.0.1:{port}", spec["ak"], spec["sk"],
+                       timeout=120)
+        rng = np.random.default_rng(spec["seed"])
+        out = {"tenant": spec["tenant"], "put_ok": 0, "get_ok": 0,
+               "shed": 0, "resets": 0, "errors": 0, "bad": 0, "bytes": 0,
+               "lat": []}
+        t0 = time.monotonic()
+        end = t0 + float(seconds)
+        j = 0
+        while time.monotonic() < end:
+            is_put = rng.random() < 0.5
+            t = time.perf_counter()
+            try:
+                if is_put:
+                    key = list(puts)[j % len(puts)]
+                    j += 1
+                    st, hdrs, body = cli.request(
+                        "PUT", f"/{spec['bucket']}/{key}", body=puts[key])
+                    etag = {k.lower(): v for k, v in hdrs.items()}.get(
+                        "etag", "").strip('"')
+                    good = st == 200 and etag == put_md5[key]
+                    moved = len(puts[key])
+                else:
+                    key = list(warm)[int(rng.integers(len(warm)))]
+                    st, _, body = cli.request(
+                        "GET", f"/{spec['warm_bucket']}/{key}")
+                    good = st == 200 and \
+                        hashlib.sha256(body).hexdigest() == warm_sha[key]
+                    moved = len(body)
+            except (OSError, http.client.HTTPException):
+                out["resets"] += 1
+                continue
+            if st == 503 and b"SlowDown" in body:
+                out["shed"] += 1
+            elif st != 200:
+                out["errors"] += 1
+            elif not good:
+                out["bad"] += 1
+            else:
+                out["put_ok" if is_put else "get_ok"] += 1
+                out["bytes"] += moved
+                out["lat"].append((time.perf_counter() - t) * 1e3)
+        out.update({"t0": t0, "t1": time.monotonic(),
+                    "torch": "torch" in sys.modules})
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+def _admission_objects(seed: int):
+    """The warm objects (key, size, seed) and each tenant's clients'
+    PUT keys: the same in every deployment of the phase."""
+    warm = [(f"w{i}", ADMISSION_BYTES, seed + i)
+            for i in range(ADMISSION_WARM)]
+    clients = []
+    for tenant, n in ADMISSION_OVERLOAD.items():
+        for c in range(n):
+            cid = len(clients)
+            clients.append({
+                "tenant": tenant, "ak": tenant,
+                "sk": _tenant_secret(tenant), "seed": seed + 100 + cid,
+                "bucket": "adm", "warm_bucket": "admw", "warm": warm,
+                "puts": [(f"{tenant}{c}-{k}", ADMISSION_BYTES,
+                          seed + 1000 + cid * ADMISSION_KEYS + k)
+                         for k in range(ADMISSION_KEYS)]})
+    return warm, clients
+
+
+def _admission_prep(root: str, warm, heal_objects: int = 0):
+    """In this process, before a server boots over the drives: the
+    12-drive EC:8+4 set's format, the tenants' IAM users (each worker of
+    a pool loads them at its boot), the buckets and the warm objects,
+    and `heal_objects` objects in bucket "heal".  Returns the
+    (ServerPools, heal FileInfos); the caller closes the pools."""
+    import numpy as np
+
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.iam.iam import IAMSys
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    drives = [LocalDrive(os.path.join(root, f"b{i}")) for i in range(1, 13)]
+    pools = ServerPools([ErasureSets(drives, set_drive_count=12)])
+    iam = IAMSys(pools)
+    for tenant in ADMISSION_CLASS:
+        iam.add_user(tenant, _tenant_secret(tenant), ["readwrite"])
+    for b in ("adm", "admw") + (("heal",) if heal_objects else ()):
+        pools.make_bucket(b)
+    for key, size, seed in warm:
+        pools.put_object("admw", key, np.random.default_rng(seed).bytes(size),
+                         parity=4)
+    fis = {}
+    rng = np.random.default_rng(len(warm) + heal_objects)
+    for i in range(heal_objects):
+        fis[f"h{i}"] = pools.put_object("heal", f"h{i}",
+                                        rng.bytes(ADMISSION_BYTES), parity=4)
+    return pools, fis
+
+
+class _QosClients:
+    """The phase's client processes (started with subprocess, never a fork
+    of this CUDA-initialised process), all ready before a leg; each
+    `leg()` runs a subset against one server's port."""
+
+    def __init__(self, specs: list[dict]):
+        here = os.path.abspath(__file__)
+        self.specs = specs
+        self.procs = [subprocess.Popen(
+            [sys.executable, here, "--qos-client", json.dumps(spec)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            for spec in specs]
+        for p in self.procs:
+            if p.stdout.readline().strip() != "ready":
+                self.close()
+                raise SystemExit("qos: a client did not start")
+
+    def pick(self, per_tenant: dict) -> list[int]:
+        out = []
+        for tenant, n in per_tenant.items():
+            out += [i for i, s in enumerate(self.specs)
+                    if s["tenant"] == tenant][:n]
+        return out
+
+    def leg(self, port: int, which: list[int], seconds: float,
+            during=None) -> list[dict]:
+        for i in which:
+            self.procs[i].stdin.write(f"run {port} {seconds}\n")
+            self.procs[i].stdin.flush()
+        if during is not None:
+            during()
+        res = []
+        for i in which:
+            line = self.procs[i].stdout.readline()
+            if not line:
+                raise SystemExit("qos: a client died during a leg")
+            res.append(json.loads(line))
+        bad = [r for r in res if r["errors"] or r["bad"] or r["torch"]]
+        if bad:
+            raise SystemExit(f"qos: errors, wrong answers or torch in the "
+                             f"clients: {bad}")
+        return res
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                try:
+                    p.stdin.close()
+                except OSError:
+                    pass
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+
+
+def _qos_counts(m: dict) -> dict:
+    """The admission plane's counters from one metrics read."""
+    out = {k: m.get(f"mtpu_qos_{k}", 0.0) for k in (
+        "requests_inflight", "queue_depth", "pressure",
+        "queue_wait_seconds_total", "tenant_throttled_total")}
+    for c in ADMISSION_CLASS.values():
+        out[f"admitted {c}"] = m.get(
+            f'mtpu_qos_admitted_total{{tenant_class="{c}"}}', 0.0)
+        out[f"shed {c}"] = m.get(
+            f'mtpu_qos_shed_total{{tenant_class="{c}"}}', 0.0)
+    for r in ("queue", "deadline"):
+        out[f"shed {r}"] = m.get(
+            f'mtpu_qos_shed_reason_total{{reason="{r}"}}', 0.0)
+    return out
+
+
+def _leg_report(name: str, res: list[dict], m0: dict, m1: dict,
+                workers: int) -> dict:
+    """One leg's readings: goodput, per tenant the good requests, sheds,
+    resets and p50/p99 of the good ones, the plane's sheds per class and
+    reason, and the device items against the acknowledged PUTs."""
+    wall = max(r["t1"] for r in res) - min(r["t0"] for r in res)
+    rows = {}
+    for tenant in ADMISSION_CLASS:
+        mine = [r for r in res if r["tenant"] == tenant]
+        if not mine:
+            continue
+        lat = [x for r in mine for x in r["lat"]]
+        good = sum(r["put_ok"] + r["get_ok"] for r in mine)
+        shed = sum(r["shed"] for r in mine)
+        rows[tenant] = {
+            "clients": len(mine), "good": good, "shed": shed,
+            "resets": sum(r["resets"] for r in mine),
+            "shed_rate": shed / max(1, good + shed),
+            "p50_ms": _pct(lat, 0.5), "p99_ms": _pct(lat, 0.99),
+            "gbps": sum(r["bytes"] for r in mine) / wall / 1e9}
+    c0, c1 = _pool_counts(m0, workers), _pool_counts(m1, workers)
+    q0, q1 = _qos_counts(m0), _qos_counts(m1)
+    rep = {"wall_s": wall, "rows": rows,
+           "gbps": sum(r["bytes"] for r in res) / wall / 1e9,
+           "acked_puts": sum(r["put_ok"] for r in res),
+           "shed": sum(r["shed"] for r in res),
+           "resets": sum(r["resets"] for r in res),
+           "p99_ms": _pct([x for r in res for x in r["lat"]], 0.99),
+           "qos": {k: q1[k] - q0[k] for k in q1
+                   if k.startswith(("shed", "admitted"))},
+           "items": {k: c1[f"items_{k}"] - c0[f"items_{k}"]
+                     for k in ("gf_matmul", "hh256", "mxh256")},
+           "launches": {k: c1[f"launches_{k}"] - c0[f"launches_{k}"]
+                        for k in ("gf_matmul", "hh256", "mxh256")}}
+    want = rep["acked_puts"]
+    if (rep["items"]["gf_matmul"], rep["items"]["mxh256"],
+            rep["items"]["hh256"]) != (want, want, 0):
+        raise SystemExit(f"qos {name}: device items {rep['items']} for "
+                         f"{want} acknowledged PUTs (GETs are tier hits)")
+    if rep["acked_puts"] and not rep["launches"]["gf_matmul"]:
+        raise SystemExit(f"qos {name}: no GF launch: {rep['launches']}")
+    return rep
+
+
+def _stalled_put(port: int, key: str) -> socket.socket:
+    """A signed PUT whose headers and first 4 KiB are sent and whose body
+    then stalls: it holds an admission slot while the handler waits."""
+    import socket as _socket
+
+    from minio_tpu_torch.server.sigv4 import (UNSIGNED_PAYLOAD, Credentials,
+                                              sign_request)
+    s = _socket.create_connection(("127.0.0.1", port), timeout=30)
+    path = f"/adm/{key}"
+    hdrs = {"Host": f"127.0.0.1:{port}",
+            "Content-Length": str(ADMISSION_BYTES)}
+    hdrs.update(sign_request(Credentials("pooladmin", "pooladmin-secret"),
+                             "PUT", path, {}, hdrs, UNSIGNED_PAYLOAD))
+    s.sendall((f"PUT {path} HTTP/1.1\r\n" + "".join(
+        f"{k}: {v}\r\n" for k, v in hdrs.items()) + "\r\n").encode()
+        + b"\0" * 4096)
+    return s
+
+
+def _worker_rows(m: dict, workers: int, what: str = "inflight") -> list:
+    return [int(m[f'mtpu_qos_worker_{what}{{worker="{w}"}}'])
+            for w in range(workers)]
+
+
+def _admission_kill(pool, card, warm) -> dict:
+    """Hold ADMISSION_STALLED slots in one worker with stalled PUTs (a
+    connection the kernel gave the other worker is closed and opened
+    again), find that worker from the per-worker rows, SIGKILL it; after
+    its respawn the pool's in-flight equals its live rows (0), 4
+    requests hold all 4 slots at once, and no GET or HEAD waits 2 s."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    from minio_tpu_torch.server.client import S3Client
+
+    import http.client
+
+    port, workers = pool.port, pool.workers
+
+    def metrics():
+        # A scrape the kernel queued on the killed worker's listening
+        # socket is reset with it: scrape again.
+        for _ in range(50):
+            try:
+                return pool.metrics()
+            except (OSError, http.client.HTTPException):
+                time.sleep(0.1)
+        return pool.metrics()
+
+    def wait_inflight(n, timeout=5.0):
+        # The total and the rows are read one after the other, without
+        # the plane's lock: a scrape counts when both show n.
+        deadline = time.monotonic() + timeout
+        while True:
+            m = metrics()
+            if int(m["mtpu_qos_requests_inflight"]) == n == \
+                    sum(_worker_rows(m, workers)):
+                return m
+            if time.monotonic() > deadline:
+                raise SystemExit(f"qos kill: in flight "
+                                 f"{m['mtpu_qos_requests_inflight']}, "
+                                 f"wanted {n}: rows "
+                                 f"{_worker_rows(m, workers)}")
+            time.sleep(0.02)
+
+    held, holder, tries = [], None, 0
+    try:
+        wait_inflight(0)
+        while len(held) < ADMISSION_STALLED:
+            tries += 1
+            if tries > 60:
+                raise SystemExit("qos kill: the stalled PUTs never met in "
+                                 "one worker")
+            before = _worker_rows(metrics(), workers)
+            s = _stalled_put(port, f"stall{tries}")
+            m = wait_inflight(len(held) + 1)
+            rows = _worker_rows(m, workers)
+            (w,) = [i for i in range(workers) if rows[i] > before[i]]
+            if holder in (None, w):
+                holder = w
+                held.append(s)
+            else:
+                s.close()             # the other worker: its slot returns
+                wait_inflight(len(held))
+        m = metrics()
+        pid = int(m[f'mtpu_worker_pid{{worker="{holder}"}}'])
+        respawns = int(m[f'mtpu_worker_respawns_total{{worker="{holder}"}}'])
+        rows_before = _worker_rows(m, workers)
+        t0 = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        deadline = time.monotonic() + 120
+        while True:
+            m = metrics()
+            if (int(m[f'mtpu_worker_respawns_total{{worker="{holder}"}}'])
+                    == respawns + 1 and m[
+                        f'mtpu_worker_ready{{worker="{holder}"}}'] == 1):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(f"qos kill: worker {holder} never came "
+                                 f"back: {pool.tail()}")
+            time.sleep(0.1)
+        respawn_s = time.perf_counter() - t0
+    finally:
+        for s in held:
+            s.close()
+    rows_after = _worker_rows(m, workers)
+    inflight = int(m["mtpu_qos_requests_inflight"])
+    if inflight != sum(rows_after) or inflight != 0 or rows_after[holder]:
+        raise SystemExit(f"qos kill: in flight {inflight} with live rows "
+                         f"{rows_after} after the respawn")
+    # Four requests take all four slots at once: none queues, none sheds.
+    q0 = _qos_counts(m)
+    four = [_stalled_put(port, f"four{i}") for i in range(ADMISSION_SLOTS)]
+    try:
+        m4 = wait_inflight(ADMISSION_SLOTS, timeout=2.0)
+        q4 = _qos_counts(m4)
+    finally:
+        for s in four:
+            s.close()
+    if q4["queue_depth"] or any(q4[k] != q0[k] for k in q4
+                                if k.startswith("shed")):
+        raise SystemExit(f"qos kill: the 4 requests queued or shed: {q4}")
+    wait_inflight(0)
+    # GETs (tier hits) and HEADs from every worker: none waits 2 s on the
+    # tier or the arena.
+    cli = S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                   "pooladmin-secret", timeout=30)
+
+    def one(i):
+        key = warm[i % len(warm)][0]
+        t = time.perf_counter()
+        st, _, _ = cli.request("GET" if i % 2 else "HEAD", f"/admw/{key}")
+        return st, time.perf_counter() - t
+
+    with ThreadPoolExecutor(8) as ex:
+        got = list(ex.map(one, range(32)))
+    slowest = max(s for _, s in got)
+    if any(st != 200 for st, _ in got) or slowest >= 2.0:
+        raise SystemExit(f"qos kill: GET/HEAD after the respawn: {got}")
+    out = {"holder": holder, "rows_before": rows_before,
+           "respawn_s": respawn_s, "rows_after": rows_after,
+           "slowest_s": slowest, "tries": tries}
+    print(f"[qos] kill: {ADMISSION_STALLED} stalled PUTs held worker "
+          f"{holder}'s slots (rows {rows_before}, {tries} connections); "
+          f"SIGKILL, respawned in {respawn_s:.2f} s; in flight {inflight} "
+          f"= live rows {rows_after}; {ADMISSION_SLOTS} requests then held "
+          f"all {ADMISSION_SLOTS} slots at once (no queue, no shed); 32 "
+          f"GET/HEAD, slowest {slowest * 1e3:.1f} ms; card {card}")
+    return out
+
+
+def _admission_heal(args, counts, card, clients, warm) -> dict:
+    """Heal under pressure, in one process (MTPU_WORKERS=0: the heal shares
+    the server's plane there; the pool has no heal trigger): an S3Server
+    in this process with the phase's admission settings over 12 fresh
+    drives, ADMISSION_HEAL_OBJECTS objects in bucket "heal", one drive
+    wiped; the overload mix for one leg while heal_bucket and
+    heal_bucket_objects (4 workers asked) rebuild the drive.  The heal's
+    workers, its yields, and every healed part file against its
+    SHA-256 from before the wipe."""
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.iam.iam import IAMSys
+    from minio_tpu_torch.server import qos
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    root = _tmp_root("chip_smoke-qosheal-")
+    saved_env = {k: os.environ.get(k) for k in ADMISSION_ENV}
+    os.environ.update(ADMISSION_ENV)
+    qos.reset_for_tests()                  # a plane with these knobs
+    real_workers = heal._heal_workers
+    asked = []
+    srv = pools = None
+    try:
+        pools, fis = _admission_prep(root, warm, ADMISSION_HEAL_OBJECTS)
+        es = pools.pools[0].sets[0]
+        golden = _part_hashes(es, "heal", fis)
+        wiped = 3
+        _wipe(es, LocalDrive, [wiped])
+        srv = S3Server(pools, Credentials("pooladmin", "pooladmin-secret"),
+                       iam=IAMSys(pools)).start()
+        plane = srv.qos
+        heal._heal_workers = lambda w: asked.append(real_workers(w)) \
+            or asked[-1]
+        box = {}
+
+        def run_heal():
+            try:
+                time.sleep(1.0)               # the pressure rises first
+                y0 = plane.stats()["bg_yields_by_plane"].get("heal", 0)
+                t = time.perf_counter()
+                heal.heal_bucket(es, "heal")
+                box["res"] = heal.heal_bucket_objects(es, "heal", workers=4)
+                box["s"] = time.perf_counter() - t
+                box["yields"] = plane.stats()["bg_yields_by_plane"].get(
+                    "heal", 0) - y0
+                box["pressure"] = plane.pressure()
+            except BaseException as e:  # noqa: BLE001 — raised below
+                box["err"] = e
+
+        th = threading.Thread(target=run_heal)
+        counts.reset()
+        res = clients.leg(srv.port, list(range(len(clients.procs))),
+                          ADMISSION_LEG_S, during=th.start)
+        th.join(120)
+        launches = counts.read()
+        if "err" in box:
+            raise box["err"]
+        if th.is_alive() or "res" not in box:
+            raise SystemExit("qos heal: the heal did not finish")
+        healed = _part_hashes(es, "heal", fis)
+        if healed != golden:
+            raise SystemExit("qos heal: healed part files differ from the "
+                             "drive's before it left")
+        if not asked or asked[-1] >= 4 or box["yields"] < len(fis):
+            raise SystemExit(f"qos heal: no yield under pressure: workers "
+                             f"{asked}, yields {box['yields']}")
+        st = plane.stats()
+        good = sum(r["put_ok"] + r["get_ok"] for r in res)
+        print(f"[qos] heal under pressure (one process, same admission "
+              f"settings, {len(res)} clients): drive {wiped} wiped, "
+              f"{len(fis)} objects of {ADMISSION_BYTES} B healed in "
+              f"{box['s']:.2f} s with {asked[-1]} of 4 workers, "
+              f"{box['yields']} yields (pressure {box['pressure']:.3f} at "
+              f"the end); every part file equal to its SHA-256 before the "
+              f"wipe; clients {good} good, {sum(r['shed'] for r in res)} "
+              f"shed; plane admitted {st['admitted']}, shed {st['shed']}; "
+              f"launches {launches}; card {card}")
+        return {"launches": launches, "workers": asked[-1],
+                "yields": box["yields"], "heal_s": box["s"]}
+    finally:
+        heal._heal_workers = real_workers
+        if srv is not None:
+            srv.shutdown()
+        if pools is not None:
+            pools.close()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        qos.reset_for_tests()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _earlier_sheds(card) -> None:
+    """The earlier phases ran with QoS on at the default slot budget (32
+    x cores x workers): none of them may have shed a request."""
+    from minio_tpu_torch.server import qos
+    st = qos.get_plane().stats()
+    served = [(log, c) for log, c in POOL_QOS if c is not None]
+    shed = st["shed"] + sum(c["shed"] for _, c in served)
+    print(f"[qos] earlier phases with QoS on (default budget): this "
+          f"process's servers admitted {st['admitted']} and shed "
+          f"{st['shed']} ({st['max_slots']} slots); {len(served)} booted "
+          f"servers admitted {sum(c['admitted'] for _, c in served):g} and "
+          f"shed {sum(c['shed'] for _, c in served):g} "
+          f"({len(POOL_QOS) - len(served)} served no metrics); card {card}")
+    if shed:
+        raise SystemExit(f"qos: earlier phases shed {shed} requests: "
+                         f"{POOL_QOS}")
+
+
+def phase_admission(args, counts, card):
+    """The admission plane (server/qos.py) on BASELINE.json config 2's
+    deployment (one EC:8+4 set of 12 drives on /dev/shm), after the JAX
+    package's overload_bench: `python -m minio_tpu_torch.server` as a
+    pool of ADMISSION_WORKERS workers and the device owner, with
+    MTPU_REQUESTS_MAX=4, a 2 s deadline, a queue of 12 and the tenants
+    gold (premium), std (standard) and beff (best-effort).  Client
+    processes PUT their own 256 KiB objects and GET 8 warm ones (hot-tier
+    hits), half and half, in legs of 6 s:
+
+    1. capacity: 1 client a tenant, QoS on;
+    2. overload: 4 gold, 4 std, 8 beff, QoS on (after 6 s for the
+       pressure to decay): goodput against capacity, premium p99 against
+       2 x deadline + capacity p99, sheds per class and reason, and
+       best-effort shed before premium;
+    3. a worker killed holding 3 slots (_admission_kill);
+    4. collapse: the overload's clients, booted again with MTPU_QOS=0:
+       p99, no shed;
+    5. heal under pressure in one process (_admission_heal).
+
+    In every leg of the pool the device items (the pool's metrics) equal
+    the acknowledged PUTs.  Returns the launches of the pool's processes
+    over its legs and of this process's heal leg."""
+    import numpy as np  # noqa: F401 — the prep's bodies
+
+    t_phase = time.perf_counter()
+    _earlier_sheds(card)
+    warm, specs = _admission_objects(args.seed + 9000)
+    boots = (("QoS on", ADMISSION_ENV,
+              (("capacity", ADMISSION_CAPACITY),
+               ("overload", ADMISSION_OVERLOAD))),
+             ("MTPU_QOS=0", {**ADMISSION_ENV, "MTPU_QOS": "0"},
+              (("collapse", ADMISSION_OVERLOAD),)))
+    roots = {label: _tmp_root("chip_smoke-qos-") for label, _, _ in boots}
+    clients, pools = None, {}
+    legs, launches, elsewhere = {}, {"gf_matmul": 0, "hh256": 0,
+                                     "mxh256": 0}, 0
+    try:
+        for root in roots.values():
+            prep, _ = _admission_prep(root, warm)
+            prep.close()
+        clients = _QosClients(specs)
+        # Both pools boot at once (each on its own drives), and are
+        # driven one after the other.
+        t0, errors = time.perf_counter(), []
+
+        def boot(label, env):
+            try:
+                pools[label] = _Pool(roots[label], ADMISSION_WORKERS,
+                                     env=env)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+        threads = [threading.Thread(target=boot, args=(label, env))
+                   for label, env, _ in boots]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        print(f"[qos] two pools of {ADMISSION_WORKERS} workers booted at "
+              f"once in {time.perf_counter() - t0:.2f} s ("
+              + ", ".join(f"{k} ready in {v.boot_s:.2f} s"
+                          for k, v in pools.items()) + f"); card {card}")
+        from minio_tpu_torch.server.client import S3Client
+        for label, _, plan in boots:
+            pool = pools[label]
+            cli = S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                           "pooladmin-secret", timeout=60)
+            for _ in range(3):               # two misses admit, then hits
+                for key, _, _ in warm:
+                    st, _, _ = cli.request("GET", f"/admw/{key}")
+                    if st != 200:
+                        raise SystemExit(f"qos: warm GET {key}: {st}")
+            # The PUT path warmed up too, so the first leg is not the
+            # workers' first writes.
+            for i in range(2 * ADMISSION_WORKERS * ADMISSION_SLOTS):
+                body = bytes([i]) * ADMISSION_BYTES
+                st, _, _ = cli.request("PUT", f"/adm/warmup{i}", body=body)
+                if st != 200:
+                    raise SystemExit(f"qos: warm-up PUT: {st}")
+            m = pool.settled()
+            if m["mtpu_hotcache_entries"] < len(warm):
+                raise SystemExit("qos: the warm objects are not resident")
+            for i, (name, per) in enumerate(plan):
+                if i:
+                    time.sleep(ADMISSION_DECAY_S)
+                m0 = pool.settled()
+                res = clients.leg(pool.port, clients.pick(per),
+                                  ADMISSION_LEG_S)
+                m1 = pool.settled()
+                rep = legs[name] = _leg_report(name, res, m0, m1,
+                                               ADMISSION_WORKERS)
+                for k in launches:
+                    launches[k] += rep["launches"][k]
+                elsewhere += rep["launches"]["mxh256"]
+                rows = "; ".join(
+                    f"{t} ({ADMISSION_CLASS[t]}, {r['clients']}) {r['good']}"
+                    f" good, {r['shed']} shed, {r['resets']} reset, p50 "
+                    f"{r['p50_ms']:.1f} p99 {r['p99_ms']:.1f} ms, "
+                    f"{r['gbps']:.4f} GB/s" for t, r in rep["rows"].items())
+                print(f"[qos] {name} ({label}): {rep['gbps']:.4f} GB/s "
+                      f"goodput over {rep['wall_s']:.2f} s, p99 "
+                      f"{rep['p99_ms']:.1f} ms; {rows}; plane sheds "
+                      f"{rep['qos']}; items {rep['items']} for "
+                      f"{rep['acked_puts']} acknowledged PUTs, launches "
+                      f"{rep['launches']}; card {card}")
+            if label == "QoS on":
+                legs["kill"] = _admission_kill(pool, card, warm)
+            print(f"[qos] {label}: SIGTERM, exit 0 in "
+                  f"{pools.pop(label).stop():.2f} s")
+        heal_rep = _admission_heal(args, counts, card, clients, warm)
+        for k in launches:
+            launches[k] += heal_rep["launches"][k]
+    finally:
+        for pool in pools.values():
+            print(f"[qos] a pool's log ends: {pool.tail()}")
+            pool.kill()
+        if clients is not None:
+            clients.close()
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+    cap, over, off = legs["capacity"], legs["overload"], legs["collapse"]
+    if cap["shed"] or off["shed"] or off["resets"]:
+        raise SystemExit(f"qos: capacity sheds {cap['shed']}, collapse "
+                         f"sheds {off['shed']} + resets {off['resets']}")
+    gold, beff = over["rows"]["gold"], over["rows"]["beff"]
+    if not beff["shed"] or beff["shed_rate"] <= gold["shed_rate"]:
+        raise SystemExit(f"qos: best-effort did not shed before premium: "
+                         f"{over['rows']}")
+    bound = 2 * ADMISSION_DEADLINE_MS + cap["p99_ms"]
+    ratio = over["gbps"] / cap["gbps"] if cap["gbps"] else 0.0
+    print(f"[qos] overload over capacity {ratio:.3f} (the JAX gate is >= "
+          f"0.9: {'met' if ratio >= 0.9 else 'missed'}); premium p99 "
+          f"{gold['p99_ms']:.1f} ms against 2 x {ADMISSION_DEADLINE_MS} + "
+          f"{cap['p99_ms']:.1f} = {bound:.1f} ms "
+          f"({'met' if gold['p99_ms'] <= bound else 'missed'}); shed rate "
+          f"premium {gold['shed_rate']:.3f}, best-effort "
+          f"{beff['shed_rate']:.3f}; collapse p99 {off['p99_ms']:.1f} ms, "
+          f"0 shed, {off['gbps']:.4f} GB/s; card {card}")
+    print(f"[qos] phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return {**launches, "mxh256_elsewhere": elsewhere}
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -5822,6 +6554,7 @@ def main() -> int:
         "worker pool": lambda: phase_pool(args, counts, card),
         "serving spine": lambda: phase_get_spine(args, counts, card),
         "metadata plane": lambda: phase_meta_plane(args, counts, card),
+        "admission plane": lambda: phase_admission(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -5876,12 +6609,14 @@ def main() -> int:
     calls = sum(p["mxh256"] for p in per_path.values())
     print(f"[mxh256] at (384, 131072): {mxh['ms']:.4f} ms against a bound "
           f"of {mxh['bound_ms']:.4f} ms; card {card}")
-    # The worker pool's calls, and the serving spine's and the metadata
-    # plane's servers', ran in their own processes, untallied.
+    # The worker pool's calls, and the serving spine's, the metadata
+    # plane's and the admission plane's servers', ran in their own
+    # processes, untallied.
     phase_mxh_shapes(torch, mt, gen, card, tally,
                      calls - per_path["worker pool"]["mxh256"]
                      - per_path["serving spine"]["mxh256_elsewhere"]
-                     - per_path["metadata plane"]["mxh256_elsewhere"])
+                     - per_path["metadata plane"]["mxh256_elsewhere"]
+                     - per_path["admission plane"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))
@@ -5909,4 +6644,6 @@ if __name__ == "__main__":
         sys.exit(pool_client(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--meta-client"]:
         sys.exit(meta_client(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--qos-client"]:
+        sys.exit(qos_client(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -7,10 +7,8 @@ once per set first, then for each bucket and pool `heal_bucket` and
 `heal_bucket_objects` on every set, through
 `heal.sweep_sets_device_parallel` (sets on different cards at once).
 `status()` is live while it runs and `stop()` ends it after the heals in
-flight.
-
-Left out: the QoS throttle of the heal workers (ROADMAP.md Queue A
-item 7c).
+flight.  Its heals yield to foreground pressure as every heal does
+(engine/heal.py `_heal_workers`, `bg_pause`).
 """
 
 from __future__ import annotations

@@ -1,11 +1,36 @@
-"""Namespace locks: per-(bucket, object) mutual exclusion in one process.
+"""Namespace locks: per-(bucket, object) mutual exclusion across the
+processes of one node.
 
 The local form of minio_tpu/cluster/nslock.py (cf. nsLockMap,
 cmd/namespace-lock.go:224): `ErasureSet` builds an `NSLockMap` and takes
 its write lock around every object mutation (PUT, DELETE, multipart
 complete, heal), so a heal cannot publish a version that a concurrent PUT
-has replaced.  The distributed form over dsync lockers is not ported:
-the port runs one process on one node.
+has replaced.  The distributed form over dsync lockers is not ported
+(ROADMAP Queue A item 9).
+
+The port runs one process or, under MTPU_WORKERS=N, a pool of forked
+workers that each open their own drives (server/workers.py).  An
+in-process lock alone would let two workers interleave their
+read-modify-writes of one key's xl.meta and lose an acknowledged
+version (the JAX pool does).  So under each key's in-process RW lock a
+write also holds the key's stripe of a fork-shared table
+(`StripeTable`): one ops/shm_lock.ShmLock over rows of (holder pid, its
+start time, holds).  Reads take no stripe: a publish is a rename, and a
+read sees the old xl.meta or the new one.
+
+- A stripe is held by a process, not a thread: two threads of one
+  process writing two keys of one stripe both go on (the RW locks keep
+  each key exclusive), so a thread that takes two keys of one stripe
+  (copy, multipart complete) cannot wait on itself.  Another process
+  waits until the stripe's holds drop to 0, up to the write's deadline
+  (LockLost).
+- A process killed while it holds a stripe leaves a row naming a dead
+  pid: a waiter finds it dead (/proc says gone, a zombie, or another
+  start time) and takes the stripe.  A process killed inside the table's
+  lock leaves nothing half-set that matters: the next locker clears the
+  rows of dead holders.
+- The table is made before the pool forks (`shared_stripes()`, which
+  the supervisor calls; one process makes it on first use).
 
 A lock that cannot be taken within its deadline raises `LockLost`, a
 StorageError, as the JAX package's dsync does (cluster/dsync.py:26).
@@ -13,12 +38,22 @@ StorageError, as the JAX package's dsync does (cluster/dsync.py:26).
 
 from __future__ import annotations
 
+import mmap
+import os
 import threading
 import time
+import zlib
 from contextlib import contextmanager
 
+import numpy as np
+
+from ..ops.shm_lock import ShmLock
 from ..storage.errors import StorageError
 from .dynamic_timeout import DynamicTimeout
+
+#: stripes of the shared table: a write of one key waits only on writes,
+#: in other processes, of keys of its stripe
+STRIPES = 1024
 
 
 class LockLost(StorageError):
@@ -74,10 +109,116 @@ class _LocalRWLock:
             self._mu.notify_all()
 
 
-class NSLockMap:
-    """In-process RW locks keyed by "bucket/object"."""
+def _start_ticks(pid: int) -> int | None:
+    """The process's start time in clock ticks (field 22 of
+    /proc/<pid>/stat), or None when it is gone or a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            stat = f.read()
+    except OSError:
+        return None
+    fields = stat[stat.rindex(b")") + 2:].split()
+    if fields[0] in (b"Z", b"X"):
+        return None
+    return int(fields[19])
 
-    def __init__(self):
+
+_SELF: tuple[int, int] = (0, 0)
+
+
+def _self_ident() -> tuple[int, int]:
+    """(pid, start ticks) of this process, made again after a fork."""
+    global _SELF
+    pid = os.getpid()
+    if _SELF[0] != pid:
+        _SELF = (pid, _start_ticks(pid) or 0)
+    return _SELF
+
+
+class StripeTable:
+    """Fork-shared stripes of (holder pid, its start ticks, holds) under
+    one robust lock; a waiter sleeps on the lock's condition and looks
+    at the holder's liveness every 50 ms."""
+
+    def __init__(self, nstripes: int = STRIPES):
+        self.nstripes = int(nstripes)
+        self._mm = mmap.mmap(-1, self.nstripes * 3 * 8)
+        self._rows = np.frombuffer(self._mm, dtype=np.int64).reshape(
+            self.nstripes, 3)
+        self._lock = ShmLock(on_owner_dead=self._repair_locked)
+
+    def stripe(self, resource: str) -> int:
+        return zlib.crc32(resource.encode()) % self.nstripes
+
+    def _repair_locked(self) -> None:
+        """A process died inside the table's lock: drop the rows of every
+        holder that is gone (a live holder's row stays whole: it changes
+        only under this lock, one field at a time, and a row whose pid is
+        set names a holder)."""
+        for s in np.nonzero(self._rows[:, 0])[0].tolist():
+            pid, ticks, _ = (int(v) for v in self._rows[s])
+            if _start_ticks(pid) != ticks:
+                self._rows[s] = 0
+
+    def acquire(self, resource: str, timeout: float) -> bool:
+        s = self.stripe(resource)
+        pid, ticks = _self_ident()
+        deadline = time.monotonic() + timeout
+        rows = self._rows
+        if not self._lock.acquire(timeout=timeout):
+            return False
+        try:
+            while True:
+                holder = int(rows[s, 0])
+                if holder and holder != pid and \
+                        _start_ticks(holder) != int(rows[s, 1]):
+                    rows[s] = 0             # its holder died holding it
+                    holder = 0
+                if holder == 0:
+                    rows[s, 2] = 0
+                    rows[s, 1] = ticks
+                    rows[s, 0] = pid
+                if holder in (0, pid):
+                    rows[s, 2] += 1
+                    return True
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._lock.wait(min(left, 0.05))
+        finally:
+            self._lock.release()
+
+    def release(self, resource: str) -> None:
+        s = self.stripe(resource)
+        with self._lock:
+            if int(self._rows[s, 0]) != _self_ident()[0]:
+                return
+            self._rows[s, 2] -= 1
+            if self._rows[s, 2] <= 0:
+                self._rows[s] = 0
+                self._lock.notify_all()
+
+
+_STRIPES: StripeTable | None = None
+_STRIPES_MU = threading.Lock()
+
+
+def shared_stripes() -> StripeTable:
+    """The process tree's stripe table: the pool's supervisor makes it
+    before it forks, so every worker locks the same one; a single
+    process makes it on first use."""
+    global _STRIPES
+    with _STRIPES_MU:
+        if _STRIPES is None:
+            _STRIPES = StripeTable()
+        return _STRIPES
+
+
+class NSLockMap:
+    """RW locks keyed by "bucket/object": in-process RW locks, and for a
+    write the key's stripe of the fork-shared `StripeTable`."""
+
+    def __init__(self, stripes: StripeTable | None = None):
         # Adaptive lock deadline (cf. dynamicTimeout at NewNSLock call
         # sites, cmd/dynamic-timeouts.go:36): callers that pass no
         # timeout get one tuned from observed outcomes.
@@ -88,6 +229,7 @@ class NSLockMap:
         # the map does not grow with every key ever touched.
         self._local: dict[str, list] = {}
         self._mu = threading.Lock()
+        self.stripes = stripes if stripes is not None else shared_stripes()
 
     def _acquire_entry(self, resource: str) -> _LocalRWLock:
         with self._mu:
@@ -113,6 +255,13 @@ class NSLockMap:
         try:
             ok = (lk.acquire_write(timeout) if write
                   else lk.acquire_read(timeout))
+            if ok and write:
+                # Under the key's own lock, the cross-process stripe,
+                # within what is left of the deadline.
+                left = max(0.0, timeout - (time.monotonic() - t0))
+                if not self.stripes.acquire(resource, left):
+                    lk.release_write()
+                    ok = False
             if adaptive:
                 if ok:
                     self.acquire_timeout.log_success(time.monotonic() - t0)
@@ -124,6 +273,7 @@ class NSLockMap:
                 yield
             finally:
                 if write:
+                    self.stripes.release(resource)
                     lk.release_write()
                 else:
                     lk.release_read()

@@ -45,8 +45,10 @@ JAX package's heal leaves:
   one thread per card, each running its card's sets in order
   (engine/sets.py and background/heal_ops.py call it).
 
-Left out: the QoS plane's throttling of heal workers (ROADMAP.md Queue
-A item 7c).
+Heal yields to foreground traffic through the admission plane
+(server/qos.py): the worker pool shrinks with its pressure
+(`_heal_workers`), and `heal_bucket_objects` pauses between objects
+(`bg_pause`), both no-ops under MTPU_QOS=0 or below the threshold.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ import numpy as np
 
 from ..ops import coalesce, devcache, fused
 from ..parallel import pipeline as pl
+from ..server import qos as _qos
 from ..storage import bitrot_io
 from ..storage.drive import SYS_VOL, TMP_DIR, LocalDrive
 from ..storage.errors import (ErrErasureReadQuorum, ErrFileCorrupt,
@@ -802,12 +805,13 @@ def _set_objects(es: ErasureSet, bucket: str, skip_pos: int) -> list[str]:
 
 def _heal_workers(workers: int | None) -> int:
     """Concurrent object heals: `workers` when given, else 1 on a
-    one-core host and min(4, cores) elsewhere.  The JAX package also
-    shrinks this under foreground load (server/qos.scale_workers); the
-    port has no QoS plane yet, so the bound stands as it is."""
+    one-core host and min(4, cores) elsewhere; under foreground pressure
+    the overload plane shrinks either further — heal yields to GET/PUT
+    for drives and coalescer lanes (server/qos.scale_workers)."""
     if workers is not None:
-        return max(1, int(workers))
-    return 1 if SERIAL_FANOUT else min(4, os.cpu_count() or 1)
+        return _qos.scale_workers(max(1, int(workers)), "heal")
+    n = 1 if SERIAL_FANOUT else min(4, os.cpu_count() or 1)
+    return _qos.scale_workers(n, "heal")
 
 
 def heal_drive(es: ErasureSet, pos: int, checkpoint_every: int = 64,
@@ -917,6 +921,9 @@ def heal_bucket_objects(es: ErasureSet, bucket: str, prefix: str = "",
                 on_object(name, res, err)
             if err is None and res:
                 results.extend(res)
+            # Pace between objects under foreground pressure (no-op
+            # below the threshold: one float compare per object).
+            _qos.bg_pause("heal")
     finally:
         if pool is not None:
             pool.shutdown(wait=True)

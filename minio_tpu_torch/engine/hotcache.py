@@ -63,6 +63,7 @@ import weakref
 import numpy as np
 
 from ..ops.shm_arena import ArenaFull, ShmArena
+from ..ops.shm_lock import ShmLock
 
 #: header int64 slots: 0 hits, 1 misses, 2 fills, 3 evictions,
 #: 4 bypassed, 5 stale_gen, 6 invalidations, 7 clock_hand,
@@ -178,7 +179,6 @@ class HotObjectCache:
                  max_obj: int | None = None,
                  n_entries: int | None = None):
         import mmap
-        import multiprocessing
         total_bytes = int(total_bytes or hot_bytes())
         self.max_obj = int(max_obj or hot_max_obj())
         # 64 KiB slots: small hot objects waste little; a 1 MiB object
@@ -197,8 +197,11 @@ class HotObjectCache:
                         _HDR + _GEN_SLOTS + _GHOST_SLOTS]
         self._ent = a[_HDR + _GEN_SLOTS + _GHOST_SLOTS:].reshape(
             self.n_entries, _EFIELDS)
-        ctx = multiprocessing.get_context("fork")
-        self._mu = ctx.RLock()
+        # Recursive (fill reaches note_bypass under it) and robust: a
+        # worker killed inside it leaves no other worker blocked at its
+        # lookup (ops/shm_lock.py), and the next locker drops the index
+        # first (_repair_locked).
+        self._mu = ShmLock(recursive=True, on_owner_dead=self._repair_locked)
         self.flights = SingleFlight()
         #: arena offsets whose zero-copy view died (weakref.finalize)
         #: — released on the next cache operation, NOT in the GC
@@ -232,6 +235,16 @@ class HotObjectCache:
         with self._mu:
             self._gens[_bucket_slot(bucket)] += 1
             self._hdr[6] += 1
+
+    def _repair_locked(self) -> None:
+        """A worker died holding the lock, perhaps halfway through an
+        entry or a fill: every entry is suspect.  The tier is a cache,
+        so it drops its whole index, and the bodies go back to the
+        arena (runs a live reader pins are freed by its last release).
+        Nothing the dead worker was filling can be served: its entry
+        never went in, or is dropped here."""
+        self._ent[:, 0] = 0
+        self.arena.free_unpinned()
 
     # -- lookup --------------------------------------------------------------
 

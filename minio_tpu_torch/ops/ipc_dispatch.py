@@ -46,7 +46,16 @@ Where the port differs:
   holds in a shared ledger (`plane.inflight`): a respawned worker adopts
   what its predecessor held, frees each slot when its answer comes (an
   answer that can never match one of its own ids) or when the
-  generation it was sent to is gone.
+  generation it was sent to is gone;
+- every slot is allocated with its owner, (worker slot + 1, request
+  id), recorded by the arena under its own lock: a respawned worker
+  frees the predecessor's slots that never reached the ledger (a worker
+  killed between the alloc and the ledger row), and each party frees a
+  slot only while it still carries that owner;
+- an answer the owner cannot push (the worker's response ring stays
+  full) frees its slot there, once; the worker's watchdog sees the slot
+  gone from its owner, fails the handle (the engine recomputes the
+  item) and drops its ledger row without a second free.
 
 Ladder when the owner cannot serve (liveness first):
 
@@ -101,6 +110,16 @@ KINDS = ("enc", "vt", "digest")
 #: the owner's descriptor readers: several let its coalescer pack items
 #: of different workers into one launch
 OWNER_THREADS = 4
+
+#: called, when set, right after a worker's arena alloc and before its
+#: ledger row: tests kill a worker there
+after_alloc_hook = None
+
+
+def _owner_tag(wid: int, req: int) -> tuple[int, int]:
+    """The arena owner of a request's slot: worker slot + 1 (0 is no
+    owner) and the request id."""
+    return int(wid) + 1, int(req)
 
 
 def _dev_field(device) -> int:
@@ -329,6 +348,10 @@ class RemoteCoalescer:
                 self._slots[req] = (gen, off, total, row)
             else:
                 self._rows.append(row)
+        # What the predecessor allocated but never recorded (it died in
+        # between) goes back now: no descriptor names it.
+        self.plane.arena.reclaim(self.wid + 1,
+                                 keep=lambda req: req in self._slots)
         if self._slots:
             self._ensure_listener()
 
@@ -351,7 +374,7 @@ class RemoteCoalescer:
             _, off, total, row = ent
             self._ledger[row, 0] = 0
             self._rows.append(row)
-        self.plane.arena.free(off, total)
+        self.plane.arena.free(off, total, owner=_owner_tag(self.wid, req))
 
     def _submit_remote(self, key: tuple, payload, weight,
                        device) -> RemoteHandle:
@@ -367,11 +390,15 @@ class RemoteCoalescer:
         total = len(hdr) + payload.nbytes
         arena = self.plane.arena
         gen = self.plane.owner_gen()
-        off = arena.alloc(total, timeout=alloc_timeout_s())  # ArenaFull ->
-        req = next(self._seq)                                # caller runs
-        with self._mu:                                       # it locally
+        req = next(self._seq)
+        tag = _owner_tag(self.wid, req)
+        # ArenaFull: the caller runs the item locally.
+        off = arena.alloc(total, timeout=alloc_timeout_s(), owner=tag)
+        if after_alloc_hook is not None:
+            after_alloc_hook()
+        with self._mu:
             if self._stopped or not self._rows:
-                arena.free(off, total)
+                arena.free(off, total, owner=tag)
                 raise RuntimeError("remote coalescer closed")
             self._hold(req, gen, off, total)
             self._filling.add(req)
@@ -490,6 +517,7 @@ class RemoteCoalescer:
                                for r, (g, _, _, _) in self._slots.items())
         for _, h in victims:
             h._finish(exc=RuntimeError("device owner died"))
+        self._drop_undelivered()
         if not stale:
             return
         # A newer owner is up, so the old one was reaped: take in what it
@@ -502,6 +530,28 @@ class RemoteCoalescer:
                    and r not in self._filling]
         for r in old:
             self._release(r)
+
+    def _drop_undelivered(self) -> None:
+        """Slots the owner freed because it could not push their answers
+        (the response ring stayed full): their handles fail now, and the
+        ledger rows go without a second free."""
+        arena = self.plane.arena
+        with self._mu:
+            gone = [r for r, (_, off, _, _) in self._slots.items()
+                    if r not in self._filling
+                    and arena.owner_of(off) != _owner_tag(self.wid, r)]
+            victims = []
+            for r in gone:
+                _, _, _, row = self._slots.pop(r)
+                self._ledger[row, 0] = 0
+                self._rows.append(row)
+                h = self._pending.pop(r, None)
+                if h is not None:
+                    victims.append(h)
+                    self.remote_errors += 1
+        for h in victims:
+            h._finish(exc=RuntimeError("the owner could not deliver the "
+                                       "answer"))
 
 
 # -- owner side ---------------------------------------------------------------
@@ -592,9 +642,8 @@ def _respond_ok(plane, wid, req, gen, hdr: bytes, arrays: list[np.ndarray],
         if a.nbytes:
             view[cur:cur + a.nbytes] = a.reshape(-1).view(np.uint8)
         cur += a.nbytes
-    _push_resp(plane, wid, _DESC.pack(_MAGIC, wid, req, off,
-                                      max(total, rtotal), len(hdr), ST_OK,
-                                      gen, 0))
+    _push_resp(plane, wid, req, off, _DESC.pack(
+        _MAGIC, wid, req, off, max(total, rtotal), len(hdr), ST_OK, gen, 0))
 
 
 def _respond_error(plane, wid, req, gen, slot: tuple[int, int],
@@ -604,13 +653,19 @@ def _respond_error(plane, wid, req, gen, slot: tuple[int, int],
     # An error header (at most ~450 bytes) always fits the request's
     # slot, which is at least one arena slot long.
     plane.arena.view(off, len(hdr))[:] = np.frombuffer(hdr, dtype=np.uint8)
-    _push_resp(plane, wid, _DESC.pack(_MAGIC, wid, req, off,
-                                      max(total, len(hdr)), len(hdr),
-                                      ST_ERR, gen, 0))
+    _push_resp(plane, wid, req, off, _DESC.pack(
+        _MAGIC, wid, req, off, max(total, len(hdr)), len(hdr), ST_ERR, gen,
+        0))
 
 
-def _push_resp(plane, wid: int, rec: bytes) -> bool:
+def _push_resp(plane, wid: int, req: int, off: int, rec: bytes) -> bool:
+    """Push an answer; one that cannot be pushed within 2 s frees its
+    slot here, once (only while the slot still carries the request's
+    owner), and the worker's watchdog drops the request."""
     try:
-        return plane.resp_rings[wid].put(rec, timeout=2.0)
+        if plane.resp_rings[wid].put(rec, timeout=2.0):
+            return True
     except Exception:  # noqa: BLE001 — ring torn down mid-shutdown
-        return False
+        pass
+    plane.arena.free(off, 0, owner=_owner_tag(wid, req))
+    return False

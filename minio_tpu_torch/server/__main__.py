@@ -49,8 +49,7 @@ import threading
 #: ROADMAP.md Queue A item each waits for.
 LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner, "
             "in one process and in the worker pool's worker 0 (item 9); "
-            "QoS, and the worker pool's QoS slab (item 7c); notifications, "
-            "replication and tiering (item 10)")
+            "notifications, replication and tiering (item 10)")
 
 
 def expand_ellipses(pattern: str) -> list[str]:

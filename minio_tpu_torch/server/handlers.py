@@ -10,13 +10,15 @@ kernels.
 Without the planes of later items: a request that needs one answers
 NotImplemented and names its ROADMAP.md Queue A item (`unported`).  That
 covers SSE, compression, tiering and restore, replication, object lock
-(retention, legal hold), quota, notifications, S3 Select, and the bucket
-configs other than versioning, tagging and policy.  An object another
-package stored encrypted, compressed or tiered is not served as if it
-were plain, and a bucket that carries a quota or an object-lock config
-takes no write that would bypass it.  Snowball tars are extracted on PUT
-and zip members served on GET (server/extract.py); who may call a
-handler is decided before it runs (server.py `_authorize`).
+(retention, legal hold), notifications, S3 Select, and the bucket
+configs other than versioning, tagging, policy and quota.  An object
+another package stored encrypted, compressed or tiered is not served as
+if it were plain, and a bucket that carries an object-lock config takes
+no write that would bypass it.  A bucket's hard quota is enforced at PUT
+and multipart complete (bucket/quota.py, usage from a live listing).
+Snowball tars are extracted on PUT and zip members served on GET
+(server/extract.py); who may call a handler is decided before it runs
+(server.py `_authorize`).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import time
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from ..bucket import quota as bq
 from ..bucket.metadata import META_BUCKET, BucketMetadataSys
 from ..config.config import ConfigSys
 from ..engine.pools import ServerPools
@@ -193,12 +196,10 @@ class S3Handlers:
                 raise unported(f"an object stored with {plane}")
 
     def _refuse_write_gates(self, bucket: str) -> None:
-        """A bucket whose quota or object-lock config another package
-        stored takes no write or delete that would bypass it."""
-        for kind, plane in (("quota", "bucket quota"),
-                            ("object_lock", "object lock")):
-            if self.meta.get(bucket, kind) is not None:
-                raise unported(f"a bucket with {plane}")
+        """A bucket whose object-lock config another package stored takes
+        no write or delete that would bypass it."""
+        if self.meta.get(bucket, "object_lock") is not None:
+            raise unported("a bucket with object lock")
 
     # ---- bucket config helpers (persisted via BucketMetadataSys) ----------
 
@@ -268,23 +269,35 @@ class S3Handlers:
     # ---- bucket sub-resource configs --------------------------------------
 
     #: Bucket configs this server stores: ?policy (a JSON policy the
-    #: server authorizes anonymous requests by) and ?tagging (a blob).
+    #: server authorizes anonymous requests by), ?quota (JSON: the hard
+    #: quota enforced at PUT and multipart complete, and the bandwidth
+    #: budget the QoS plane enforces) and ?tagging (a blob).
     _CONFIG_KINDS = {"policy": ("policy", "NoSuchBucketPolicy"),
+                     "quota": ("quota", "NoSuchBucketPolicy"),
                      "tagging": ("tagging", "NoSuchTagSet")}
     #: Bucket configs whose plane waits for ROADMAP.md Queue A item 10.
     UNPORTED_CONFIGS = ("lifecycle", "notification", "replication",
-                        "quota", "object-lock", "encryption")
+                        "object-lock", "encryption")
 
     def put_bucket_config(self, bucket: str, sub: str,
                           body: bytes) -> Response:
         self.head_bucket(bucket)
         kind, _ = self._CONFIG_KINDS[sub]
-        if kind == "policy":
-            # Validate before storing (cf. PutBucketPolicyHandler).
-            try:
+        # Validate before storing (cf. the per-config parse in
+        # cmd/bucket-handlers.go).
+        try:
+            if kind == "policy":
                 Policy(body.decode())
-            except Exception:  # noqa: BLE001 — any parse failure
-                raise S3Error("MalformedXML") from None
+            elif kind == "quota":
+                cfg = bq.parse_quota_config(body)
+                if cfg["quota"] < 0 or cfg["bandwidth"] < 0:
+                    raise S3Error(
+                        "InvalidArgument",
+                        "quota and bandwidth must be non-negative")
+        except S3Error:
+            raise
+        except Exception:  # noqa: BLE001 — any parse failure
+            raise S3Error("MalformedXML") from None
         self.meta.put(bucket, kind, body)
         return Response(200)
 
@@ -294,7 +307,7 @@ class S3Handlers:
         data = self.meta.get(bucket, kind)
         if data is None:
             raise S3Error(missing_code)
-        ctype = "application/json" if kind == "policy" else \
+        ctype = "application/json" if kind in ("policy", "quota") else \
             "application/xml"
         return Response(200, data, {"Content-Type": ctype})
 
@@ -706,6 +719,25 @@ class S3Handlers:
         if "content-type" in h:
             metadata["content-type"] = h["content-type"]
         parity = self._parity_for_request(h, metadata)
+
+        # Quota enforcement (cf. enforceBucketQuotaHard,
+        # cmd/bucket-quota.go).
+        quota_raw = self.meta.get(bucket, "quota")
+        if quota_raw is not None:
+            qcfg = bq.parse_quota_config(quota_raw)
+            reason = bq.check_quota(self.pools, bucket, declared_size, qcfg)
+            if reason:
+                raise S3Error("QuotaExceeded", reason)
+            if streams.is_reader(body) and not declared_size \
+                    and qcfg.get("quota", 0) > 0:
+                # Undeclared-length stream on a quota'd bucket: cap at
+                # the remaining allowance so chunked TE can't bypass it.
+                remaining = max(0, qcfg["quota"]
+                                - bq.current_bucket_bytes(self.pools,
+                                                          bucket))
+                body = streams.MaxSizeReader(
+                    body, remaining,
+                    exc=lambda msg: S3Error("QuotaExceeded", msg))
         self._refuse_write_gates(bucket)
         versioned = self.bucket_versioning_enabled(bucket)
         try:
@@ -994,6 +1026,22 @@ class S3Handlers:
                     or "").strip('"')
             parts.append((int(num), etag))
         versioned = self.bucket_versioning_enabled(bucket)
+        # The same quota gate as put_object: multipart must not be a
+        # quota bypass (the reference runs it in
+        # CompleteMultipartUploadHandler too).
+        quota_raw = self.meta.get(bucket, "quota")
+        if quota_raw is not None:
+            try:
+                stored = {p.number: p
+                          for p in self.pools.list_parts(bucket, key,
+                                                         upload_id)}
+            except StorageError as e:
+                raise from_storage_error(e) from None
+            total = sum(stored[n].size for n, _ in parts if n in stored)
+            reason = bq.check_quota(self.pools, bucket, total,
+                                    bq.parse_quota_config(quota_raw))
+            if reason:
+                raise S3Error("QuotaExceeded", reason)
         self._refuse_write_gates(bucket)
         try:
             fi = self.pools.complete_multipart_upload(

@@ -16,10 +16,18 @@ The admin API serves IAM's users, groups, policies and service accounts;
 POST / is STS (AssumeRole, WebIdentity and ClientGrants through OIDC,
 LDAPIdentity, Certificate over mTLS).  What answers NotImplemented, with
 its ROADMAP.md Queue A item: the other admin endpoints, metrics (but
-the worker pool's, the hot tier's and the metadata plane's families at
-/minio/v2/metrics/node)
-and listen (item 10); cluster health (item 9).  Spans, metrics, the
-audit trail, QoS and federation stay in the JAX package for now.
+the worker pool's, the hot tier's, the metadata plane's and the
+admission plane's families at /minio/v2/metrics/node)
+and listen (item 10); cluster health (item 9).  Spans, the rest of the
+metrics, the audit trail and federation stay in the JAX package for now.
+
+Admission (server/qos.py) runs around dispatch, after the drain gate:
+every request but /minio/health/, /minio/admin/, /minio/v2/metrics and
+/minio/listen takes a slot of the fork-shared plane or is shed with 503
+SlowDown, Retry-After: 1, and a closed connection; after authentication
+the tenant's req/s and bytes/s buckets and the bucket's bandwidth
+budget (its quota config) may refuse it the same way, and a response's
+bytes are charged to both after it is sent.
 
 Responses leave through the zero-copy writer while MTPU_ZEROCOPY is on
 (ops/zerocopy.py): the header block, built by the same send_header
@@ -50,7 +58,7 @@ from ..iam.oidc import OIDCError
 from ..iam.policy import Policy, PolicyError
 from ..ops import zerocopy as zc
 from ..utils import streams
-from . import postpolicy, sigv2
+from . import postpolicy, qos as _qos, sigv2
 from .api_errors import S3Error
 from .handlers import Response, S3Handlers, error_response, unported
 from .sigv4 import (STREAMING_PAYLOAD, UNSIGNED_PAYLOAD, Credentials,
@@ -159,13 +167,59 @@ def meta_counters() -> dict:
     return c
 
 
+def qos_families(out: list, plane) -> None:
+    """The admission plane's mtpu_qos_* families, the JAX package's names
+    (minio_tpu/observe/metrics.py): pool-wide, from the shared slab."""
+    st = plane.stats()
+    for key, name, help_ in (
+            ("inflight", "mtpu_qos_requests_inflight",
+             "Admission slots currently held (pool-wide: the slab is "
+             "fork-shared)"),
+            ("waiting", "mtpu_qos_queue_depth",
+             "Requests waiting in the admission deadline queue"),
+            ("pressure", "mtpu_qos_pressure",
+             "Admission occupancy EMA in [0,1] — the signal background "
+             "planes yield to"),
+            ("queue_wait_seconds", "mtpu_qos_queue_wait_seconds_total",
+             "Summed admission-queue wait of requests that were "
+             "eventually admitted"),
+            ("tenant_throttled", "mtpu_qos_tenant_throttled_total",
+             "Requests refused by per-tenant token buckets (req/s or "
+             "bandwidth)"),
+            ("bucket_throttled", "mtpu_qos_bucket_throttled_total",
+             "Requests refused by per-bucket bandwidth budgets")):
+        _family(out, name, help_, [({}, st[key])])
+    _family(out, "mtpu_qos_admitted_total",
+            "Requests admitted through the overload plane by tenant class",
+            [({"tenant_class": c}, row["admitted"])
+             for c, row in st["classes"].items()])
+    _family(out, "mtpu_qos_shed_total",
+            "Requests shed with 503 SlowDown by tenant class",
+            [({"tenant_class": c}, row["shed"])
+             for c, row in st["classes"].items()])
+    _family(out, "mtpu_qos_shed_reason_total",
+            "Admission sheds by cause (queue: bounded queue full; "
+            "deadline: MTPU_REQUESTS_DEADLINE_MS expired waiting)",
+            [({"reason": "queue"}, st["shed_queue"]),
+             ({"reason": "deadline"}, st["shed_deadline"])])
+    _family(out, "mtpu_qos_bg_yields_total",
+            "Background-plane yields to foreground pressure (shrunk "
+            "batch concurrency + paced batches)",
+            [({"plane": "all"}, st["bg_yields"])]
+            + [({"plane": n}, k)
+               for n, k in st["bg_yields_by_plane"].items()])
+
+
 def node_families(tier, worker_id: int | None = None,
-                  kernels: bool = False) -> str:
+                  kernels: bool = False, qos_plane=None) -> str:
     """The hot tier's families (pool-wide: its counters live in shared
-    memory), this process's zero-copy sends and metadata plane (each
-    labelled with the worker in a pool) and, with `kernels`, this
-    process's kernel launches and items."""
+    memory), the admission plane's (pool-wide too), this process's
+    zero-copy sends and metadata plane (each labelled with the worker in
+    a pool) and, with `kernels`, this process's kernel launches and
+    items."""
     out: list[str] = []
+    if qos_plane is not None:
+        qos_families(out, qos_plane)
     if tier is not None:
         st = tier.stats()
         for key, name, help_ in _HOT_FAMILIES:
@@ -229,6 +283,11 @@ class S3Server:
         self.ldap = ldap
         self.client_ca = client_ca
         self.handlers = S3Handlers(pools)
+        # Overload plane (server/qos.py): the process-tree singleton; in
+        # the pool the supervisor made it before the fork, so every
+        # worker draws on one cap.
+        self.qos = _qos.get_plane()
+        self._qos_bw_cache: dict = {}
         # Graceful drain (the cmd/signals.go role): once draining, new S3
         # requests bounce with 503 + Retry-After while inflight ones
         # finish, through the last byte of every streamed GET.
@@ -379,6 +438,35 @@ class S3Server:
                             TimeoutError):
                         pass
                     return
+                # Admission control (server/qos.py): one fork-shared
+                # requests-max semaphore with a deadline queue.  Exempt:
+                # the health, admin, metrics and listen planes — an
+                # operator must be able to see and steer a saturated
+                # server (cmd/handler-api.go maxClients exempts its
+                # health endpoints the same way).
+                qos_slot = False
+                if _qos.qos_enabled() and not path.startswith(
+                        ("/minio/health/", "/minio/admin/",
+                         "/minio/v2/metrics", "/minio/listen")):
+                    klass = _qos.tenant_class(
+                        _qos.peek_access_key(self.headers))
+                    verdict, _ = outer.qos.acquire(klass)
+                    if verdict != "ok":
+                        self.request_id = secrets.token_hex(8)
+                        resp = error_response(
+                            S3Error("SlowDown",
+                                    "server is at capacity; request "
+                                    "shed by admission control"),
+                            path, self.request_id)
+                        resp.headers["Retry-After"] = "1"
+                        self.close_connection = True
+                        try:
+                            self._respond(resp)
+                        except (BrokenPipeError, ConnectionResetError,
+                                TimeoutError):
+                            pass
+                        return
+                    qos_slot = True
                 with outer._drain_cv:
                     outer._inflight += 1
                 if outer.worker_plane is not None:
@@ -386,12 +474,18 @@ class S3Server:
                 try:
                     self._handle_inner()
                 finally:
+                    if qos_slot:
+                        outer.qos.release()
                     with outer._drain_cv:
                         outer._inflight -= 1
                         outer._drain_cv.notify_all()
 
             def _handle_inner(self):
                 self.request_id = secrets.token_hex(8)
+                # The verified identity of THIS request (handler
+                # instances persist across keep-alive requests):
+                # _dispatch stamps it once authentication succeeds.
+                self.qos_access_key = ""
                 parsed = urllib.parse.urlsplit(self.path)
                 path = urllib.parse.unquote(parsed.path)
                 query = urllib.parse.parse_qs(parsed.query,
@@ -405,6 +499,10 @@ class S3Server:
                         resp = outer._dispatch(self, path, query)
                 except S3Error as e:
                     resp = error_response(e, path, self.request_id)
+                    if e.api.code == "SlowDown":
+                        # Throttle 503s (tenant/bucket token buckets)
+                        # carry the same retry hint as admission sheds.
+                        resp.headers["Retry-After"] = "1"
                     # A failed request may leave unread body bytes on
                     # the socket (streaming PUTs); don't reuse it.
                     self.close_connection = True
@@ -437,6 +535,30 @@ class S3Server:
                 except (BrokenPipeError, ConnectionResetError,
                         TimeoutError):
                     self.close_connection = True
+                    return
+                # Post-paid bandwidth accounting: tenant and bucket
+                # buckets run a bounded debt (a GET's size is unknown
+                # at admission), repaid before the next admit.  Both
+                # charges short-circuit unless a rate is configured.
+                if _qos.qos_enabled() and resp.status < 400:
+                    resp_size = (int(resp.headers.get("Content-Length", 0)
+                                     or 0)
+                                 if resp.body_iter is not None
+                                 or resp.body_file is not None
+                                 else len(resp.body or b""))
+                    nbytes = resp_size + int(
+                        self.headers.get("Content-Length", 0) or 0)
+                    ak = self.qos_access_key
+                    if ak:
+                        outer.qos.charge_tenant_bw(
+                            ak, _qos.tenant_class(ak), nbytes)
+                    req_bucket = ("" if path.startswith("/minio/")
+                                  else path.split("/", 2)[1]
+                                  if path.count("/") >= 1 else "")
+                    if req_bucket:
+                        outer.qos.charge_bucket_bw(
+                            req_bucket, outer._qos_bucket_rate(req_bucket),
+                            nbytes)
 
             do_GET = do_PUT = do_POST = do_DELETE = do_HEAD = _handle
 
@@ -723,8 +845,9 @@ class S3Server:
             # 10).
             text = (self.worker_plane.render_prom()
                     if self.worker_plane is not None else "")
-            text += node_families(tier, self.worker_id,
-                                  kernels=self.worker_plane is None)
+            text += node_families(
+                tier, self.worker_id, kernels=self.worker_plane is None,
+                qos_plane=self.qos if _qos.qos_enabled() else None)
             return Response(200, text.encode(),
                             {"Content-Type": "text/plain; version=0.0.4"})
         if path.startswith("/minio/v2/metrics/"):
@@ -737,6 +860,9 @@ class S3Server:
                                                             query)
         else:
             body, access_key = self._authenticate(req, path, query)
+        # Auth succeeded: the bandwidth charge after the response goes
+        # to this identity.
+        req.qos_access_key = access_key
         method = req.command
         headers = {k: v for k, v in req.headers.items()}
         if path.startswith("/minio/admin/"):
@@ -749,6 +875,7 @@ class S3Server:
         parts = path.lstrip("/").split("/", 1)
         bucket = parts[0] if parts[0] else ""
         key = parts[1] if len(parts) > 1 else ""
+        self._qos_checks(access_key, bucket)
         if not bucket:
             if method == "POST":
                 return self._handle_sts(access_key, body, req)
@@ -772,6 +899,49 @@ class S3Server:
                                          body, access_key)
         return self._dispatch_object(method, bucket, key, query, headers,
                                      body)
+
+    def _qos_checks(self, access_key: str, bucket: str) -> None:
+        """Per-tenant QoS after authentication (the VERIFIED identity
+        throttles, unlike the admission peek): the req/s token bucket and
+        a positive balance on the post-paid bandwidth bucket; then the
+        bucket's bandwidth budget (the `bandwidth` field of its quota
+        config, cmd/bucket-quota.go enforcement riding the same config
+        as the hard quota).  Each short-circuits unless a rate is
+        configured, so the oracle path costs one env read."""
+        if not _qos.qos_enabled():
+            return
+        if access_key:
+            klass = _qos.tenant_class(access_key)
+            if not self.qos.tenant_admit(access_key, klass):
+                raise S3Error("SlowDown",
+                              "per-tenant request rate exceeded")
+            if not self.qos.tenant_bw_ok(access_key, klass):
+                raise S3Error("SlowDown",
+                              "per-tenant bandwidth budget exceeded")
+        if bucket:
+            rate = self._qos_bucket_rate(bucket)
+            if rate > 0 and not self.qos.bucket_bw_ok(bucket, rate):
+                raise S3Error("SlowDown",
+                              f"bucket {bucket} bandwidth budget exceeded")
+
+    def _qos_bucket_rate(self, bucket: str) -> float:
+        """Per-bucket bandwidth budget (bytes/s) from the bucket quota
+        config, cached ~5s so the request path never pays a metadata
+        read per GET (0 = unlimited / no config)."""
+        now = time.monotonic()
+        hit = self._qos_bw_cache.get(bucket)
+        if hit is not None and now - hit[1] < 5.0:
+            return hit[0]
+        rate = 0.0
+        try:
+            raw = self.handlers.meta.get(bucket, "quota")
+            if raw is not None:
+                from ..bucket.quota import parse_quota_config
+                rate = float(parse_quota_config(raw).get("bandwidth", 0))
+        except Exception:  # noqa: BLE001 — bad config ≠ blocked IO
+            rate = 0.0
+        self._qos_bw_cache[bucket] = (rate, now)
+        return rate
 
     # -- authorization (cf. checkRequestAuthType policy check) ---------------
 

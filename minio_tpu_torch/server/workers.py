@@ -67,9 +67,19 @@ set for the pool, worker A's fill is worker B's hit, and a write through
 any worker bumps the shared generation every worker checks.  Each worker
 counts its hits and misses in its slab (`mtpu_worker_hotcache_*`).
 
-Left out (with their ROADMAP.md Queue A items): the pool's QoS
-admission slab (item 7c; WorkerPlane.qos is None), and worker 0's
-topology, decommission and scanner (item 9).
+The admission plane's slab (server/qos.py) is built the same way
+(`WorkerPlane.qos`): one requests-max cap and one pressure signal for
+the pool.  Each worker counts its occupancy in its own row of the slab
+(`mtpu_qos_worker_*`), and the supervisor clears a dead worker's row
+when it reaps it, so slots held or awaited by a killed worker come back
+before its respawn serves.  The namespace lock's stripe table
+(cluster/nslock.py) is made before the fork too: two workers writing
+one key exclude each other.  Every fork-shared lock of the pool (the
+tier's, the arenas', the slab's, the stripes') is an ops/shm_lock
+robust mutex: a worker killed inside one leaves no other blocked.
+
+Left out (with its ROADMAP.md Queue A item): worker 0's topology,
+decommission and scanner (item 9).
 
 `MTPU_WORKERS=0` (the default) never enters this module: one process
 remains the oracle.
@@ -299,8 +309,8 @@ class WorkerPlane:
     adopts.  Also the duck type ops/ipc_dispatch.py talks to (arena,
     req_ring, resp_rings, inflight, state, owner_ok, owner_gen).
     `hotcache` is the pool-shared hot tier (engine/hotcache.maybe_tier,
-    None under MTPU_HOTCACHE=0); `qos`, the JAX package's admission
-    slab, waits for ROADMAP Queue A item 7c."""
+    None under MTPU_HOTCACHE=0); `qos` the admission slab
+    (server/qos.get_plane, one row per worker)."""
 
     def __init__(self, nworkers: int, arena_bytes: int | None = None,
                  ring_capacity: int = RING_CAPACITY):
@@ -320,7 +330,13 @@ class WorkerPlane:
         # no torch).
         from ..engine.hotcache import maybe_tier
         self.hotcache = maybe_tier()
-        self.qos = None
+        # The admission slab and the namespace lock's stripes likewise:
+        # get_plane() and shared_stripes() install the module singletons
+        # every forked worker's S3Server and ErasureSets pick up.
+        from ..cluster.nslock import shared_stripes
+        from . import qos as _qos
+        self.qos = _qos.get_plane(nworkers=self.nworkers)
+        shared_stripes()
 
     def owner_ok(self) -> bool:
         return self.state.owner_ok(owner_stale_s())
@@ -377,6 +393,13 @@ class WorkerPlane:
         per_worker("mtpu_worker_hotcache_misses_total",
                    "Hot-object cache misses seen by this worker",
                    "hotcache_misses")
+        qrows = self.qos.worker_rows()
+        fam("mtpu_qos_worker_inflight",
+            "Admission slots held by this worker's requests",
+            [({"worker": i}, r[0]) for i, r in enumerate(qrows)])
+        fam("mtpu_qos_worker_waiting",
+            "This worker's requests in the admission deadline queue",
+            [({"worker": i}, r[1]) for i, r in enumerate(qrows)])
         for what in ("launches", "items"):
             fam(f"mtpu_worker_kernel_{what}_total",
                 f"Kernel {what} in this worker",
@@ -538,6 +561,9 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     respawn = plane.state.respawns(idx) > 0
     predecessor = plane.state.worker_pid(idx) if respawn else 0
     plane.state.worker_register(idx, os.getpid())
+    # This worker's admission slots are counted in its own row, which
+    # the supervisor cleared when it reaped a predecessor.
+    plane.qos.bind_row(idx)
 
     import torch
 
@@ -779,6 +805,14 @@ def run_pool(nworkers: int, pool_paths: list[list[str]],
             continue
         role, idx = children.pop(pid, ("?", -1))
         rc = os.waitstatus_to_exitcode(st)
+        if role == "worker":
+            # The dead worker's admission slots (requests it held or
+            # queued) go back now, before any respawn serves.
+            held, waiting = plane.qos.clear_row(idx)
+            if held or waiting:
+                print(f"minio_tpu_torch: worker {idx} died holding "
+                      f"{held} admission slots ({waiting} waiting); "
+                      f"returned to the pool", file=sys.stderr, flush=True)
         if role == "owner":
             served = plane.state.owner_pid() == pid
             plane.state.owner_down()

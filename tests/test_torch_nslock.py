@@ -308,3 +308,213 @@ def test_table_cache_under_threads(monkeypatch):
         t.join(timeout=120)
     assert not any(t.is_alive() for t in threads)
     assert bad == [] and len(erasure_cuda._TABLES) <= 2
+
+
+# -- the namespace lock across processes --------------------------------------
+
+_TWO_WRITERS = r"""
+import json, os, signal, sys, time
+signal.alarm(90)
+from minio_tpu_torch.cluster import nslock
+from minio_tpu_torch.engine.erasure_set import ErasureSet
+from minio_tpu_torch.storage.drive import LocalDrive
+
+root, n_puts = sys.argv[1], int(sys.argv[2])
+nslock.shared_stripes()          # made before the fork, as the pool does
+go_r, go_w = os.pipe()
+acks_r, acks_w = os.pipe()
+
+
+def child(c):
+    real = LocalDrive._read_xlmeta
+
+    def slow(self, vol, obj):
+        # Widen the read-modify-write of xl.meta: two writers that are
+        # not excluded overlap here.
+        meta = real(self, vol, obj)
+        time.sleep(0.03)
+        return meta
+    LocalDrive._read_xlmeta = slow
+    es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
+                     for i in range(4)], device="cpu")
+    if c == 0:
+        es.make_bucket("vb")
+        os.write(go_w, b"gg")
+    os.read(go_r, 1)
+    for i in range(n_puts):
+        fi = es.put_object("vb", "key", b"v%d-%d" % (c, i) * 100,
+                           versioned=True)
+        os.write(acks_w, (fi.version_id + "\n").encode())
+    es.close()
+
+
+pids = []
+for c in range(2):
+    pid = os.fork()
+    if pid == 0:
+        try:
+            child(c)
+            os._exit(0)
+        except BaseException:
+            import traceback
+            traceback.print_exc()
+            os._exit(1)
+    pids.append(pid)
+os.close(acks_w)
+rcs = [os.waitstatus_to_exitcode(os.waitpid(p, 0)[1]) for p in pids]
+acked = set()
+with os.fdopen(acks_r) as f:
+    acked = {line.strip() for line in f if line.strip()}
+es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}")) for i in range(4)],
+                device="cpu")
+history = {fi.version_id for fi in es.list_object_versions("vb", "key")}
+es.close()
+print(json.dumps({"rcs": rcs, "acked": sorted(acked),
+                  "history": sorted(history)}))
+"""
+
+
+def test_two_processes_keep_every_acknowledged_version(tmp_path):
+    """Two forked processes, each with its own LocalDrives over one
+    root, write versions of one key at once (each read-modify-write of
+    xl.meta slowed to overlap): every acknowledged version is in the
+    key's history.  With a per-process lock alone the writes interleave
+    and versions are lost."""
+    import json
+    import subprocess
+    root = str(tmp_path / "root")
+    os.makedirs(root)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", _TWO_WRITERS, root, "6"],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["rcs"] == [0, 0], out.stderr[-3000:]
+    assert len(res["acked"]) == 12
+    lost = set(res["acked"]) - set(res["history"])
+    assert not lost, f"{len(lost)} acknowledged versions lost"
+
+
+def _holder(table, resource):
+    """(pid, holds) of the resource's stripe; (0, 0) when free."""
+    pid, _, holds = (int(v) for v in table._rows[table.stripe(resource)])
+    return pid, holds
+
+
+class TestStripes:
+    def test_one_thread_takes_two_keys_of_one_stripe(self):
+        """Copy and multipart complete take two keys: two keys of one
+        stripe in one thread do not wait on each other."""
+        from minio_tpu_torch.cluster.nslock import StripeTable
+        locks = NSLockMap(StripeTable(nstripes=1))
+        t0 = time.monotonic()
+        with locks.write_locked("b", "src", timeout=2):
+            with locks.write_locked("b", "dst", timeout=2):
+                assert _holder(locks.stripes, "b/dst") == (os.getpid(), 2)
+        assert time.monotonic() - t0 < 1.0
+        assert _holder(locks.stripes, "b/dst") == (0, 0)
+
+    def test_threads_of_one_process_share_a_stripe(self):
+        """Two threads writing two keys of one stripe both go on; a
+        write of the same key still waits for the first."""
+        from minio_tpu_torch.cluster.nslock import StripeTable
+        locks = NSLockMap(StripeTable(nstripes=1))
+        inside = threading.Event()
+        leave = threading.Event()
+
+        def hold():
+            with locks.write_locked("b", "x", timeout=5):
+                inside.set()
+                leave.wait(5)
+        t = threading.Thread(target=hold, daemon=True)
+        t.start()
+        assert inside.wait(5)
+        try:
+            with locks.write_locked("b", "y", timeout=1):
+                pass
+            with pytest.raises(LockLost):
+                with locks.write_locked("b", "x", timeout=0.2):
+                    pass
+        finally:
+            leave.set()
+            t.join(5)
+        assert not t.is_alive()
+
+    def test_a_dead_holders_stripe_is_taken(self):
+        """A process that died holding a stripe (its row names a gone
+        pid) does not stall the next writer until its deadline."""
+        import subprocess
+        from minio_tpu_torch.cluster.nslock import StripeTable, _start_ticks
+        table = StripeTable(nstripes=4)
+        p = subprocess.Popen([sys.executable, "-c", "pass"])
+        ticks = _start_ticks(p.pid)
+        p.wait(timeout=30)
+        s = table.stripe("b/k")
+        table._rows[s] = (p.pid, ticks or 1, 1)
+        t0 = time.monotonic()
+        assert table.acquire("b/k", timeout=5)
+        assert time.monotonic() - t0 < 1.0
+        assert _holder(table, "b/k") == (os.getpid(), 1)
+        table.release("b/k")
+        assert _holder(table, "b/k") == (0, 0)
+
+    def test_a_live_holder_in_another_process_excludes(self):
+        """A stripe held by a live other process (its row names it)
+        keeps this process out until the deadline."""
+        import subprocess
+        from minio_tpu_torch.cluster.nslock import StripeTable, _start_ticks
+        table = StripeTable(nstripes=4)
+        p = subprocess.Popen([sys.executable, "-c",
+                              "import time; time.sleep(30)"])
+        try:
+            deadline = time.monotonic() + 10
+            while _start_ticks(p.pid) is None:
+                assert time.monotonic() < deadline
+                time.sleep(0.01)
+            s = table.stripe("b/k")
+            table._rows[s] = (p.pid, _start_ticks(p.pid), 1)
+            assert not table.acquire("b/k", timeout=0.3)
+            p.kill()
+            p.wait(timeout=30)
+            assert table.acquire("b/k", timeout=5)
+            table.release("b/k")
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+    def test_uncontended_cost_per_mutation(self, capsys):
+        """What a single process (MTPU_WORKERS=0) pays for the stripe: one
+        uncontended lock more per mutation, printed in ms."""
+        class _NoStripes:
+            def acquire(self, resource, timeout):
+                return True
+
+            def release(self, resource):
+                pass
+
+        def per_mutation_ms(locks, n=3000):
+            t0 = time.perf_counter()
+            for i in range(n):
+                with locks.write_locked("b", f"k{i % 64}", timeout=5):
+                    pass
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        from minio_tpu_torch.cluster.nslock import StripeTable
+        with_stripes = NSLockMap(StripeTable())
+        without = NSLockMap(_NoStripes())
+        got = {"with": [], "without": []}
+        for _ in range(3):            # in turns
+            got["without"].append(per_mutation_ms(without))
+            got["with"].append(per_mutation_ms(with_stripes))
+        extra = min(got["with"]) - min(got["without"])
+        with capsys.disabled():
+            print(f"\n[nslock] uncontended write lock: "
+                  f"{min(got['without']):.4f} ms in-process only, "
+                  f"{min(got['with']):.4f} ms with the stripe "
+                  f"(+{extra:.4f} ms a mutation; CPU)")
+        assert extra < 1.0

@@ -24,6 +24,7 @@ Every subprocess has its own timeout and is killed in `finally`.
 """
 
 import hashlib
+import json
 import os
 import re
 import signal
@@ -160,10 +161,15 @@ def test_owner_generation_staleness_and_down():
 
 
 def test_plane_renders_the_pool_families():
+    from minio_tpu_torch.server import qos
+    qos.reset_for_tests()
     plane = WorkerPlane(2, arena_bytes=8 * MIB, ring_capacity=32)
-    # The pool-shared hot tier is built before any fork; QoS is not
-    # ported yet.
-    assert plane.hotcache is not None and plane.qos is None
+    # The pool-shared hot tier and the admission slab (one row per
+    # worker) are built before any fork.
+    assert plane.hotcache is not None and plane.qos is qos.get_plane()
+    assert plane.qos.nrows == 2
+    plane.qos.bind_row(1)
+    assert plane.qos.acquire()[0] == "ok"
     plane.state.worker_register(0, os.getpid())
     plane.state.set_ready(0)
     plane.state.note_request(0)
@@ -186,6 +192,10 @@ def test_plane_renders_the_pool_families():
     assert 'mtpu_worker_hotcache_misses_total{worker="1"} 1' in prom
     assert 'mtpu_worker_requests_total{worker="0"} 1' in prom
     assert 'mtpu_owner_kernel_items_total{kernel="hh256"} 0' in prom
+    assert 'mtpu_qos_worker_inflight{worker="1"} 1' in prom
+    assert 'mtpu_qos_worker_inflight{worker="0"} 0' in prom
+    plane.qos.release()
+    qos.reset_for_tests()
 
 
 @pytest.mark.parametrize("value,want", [(None, 0), ("3", 3), ("junk", 0),
@@ -883,3 +893,233 @@ def test_worker0_respawn_keeps_a_live_puts_staging(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
+
+
+# -- fork-shared locks and slots that survive a killed worker -----------------
+
+#: Run in a subprocess (never a fork of pytest): build one structure, fork
+#: a child that takes its lock (and leaves a write half done), SIGKILL it,
+#: then lock, read and write it from this process and from a second child,
+#: and check its invariants.  `signal.alarm` ends a run that hangs.
+_KILLED_HOLDER = r"""
+import json, os, signal, sys, time
+signal.alarm(40)
+import numpy as np
+what = sys.argv[1]
+
+if what == "tier":
+    from minio_tpu_torch.engine.hotcache import HotObjectCache
+    s = HotObjectCache(total_bytes=1 << 20, n_entries=16, max_obj=1 << 16)
+    body = b"b" * 5000
+    for _ in range(2):                       # two-hit admission
+        s.fill("bk", "hot", "", {"v": 1}, body, s.generation("bk"))
+    assert s.lookup("bk", "hot", "") is not None
+    lock = s._mu
+
+    def half_done():
+        # A fill cut off after its arena run, before its entry.
+        off = s.arena.alloc(9000, timeout=0)
+        s.arena.view(off, 9000)[:] = 7
+
+    def use():
+        for _ in range(2):
+            s.fill("bk", "k%d" % os.getpid(), "", {"v": 2}, b"x" * 3000,
+                   s.generation("bk"))
+        got = s.lookup("bk", "k%d" % os.getpid(), "")
+        assert got is not None and got[1] == b"x" * 3000, got
+        assert s.lookup("bk", "hot", "") is None   # the index was dropped
+
+    def check():
+        st = s.stats()
+        live = int(np.count_nonzero(s._ent[:, 0]))
+        runs = int(np.count_nonzero(s.arena._runs))
+        return {"entries": st["entries"], "live": live, "runs": runs,
+                "repairs": s.arena.repairs + lock.repairs}
+elif what == "arena":
+    from minio_tpu_torch.ops.shm_arena import ShmArena
+    s = ShmArena(16 << 20, slot_bytes=1 << 20)
+    keep = s.alloc(3 << 20)
+    lock = s._cv
+
+    def half_done():
+        # An alloc cut off between its run record and its bitmap, and a
+        # free cut off between its record and its bitmap.
+        s._runs[8] = 4
+        s._bitmap[8:10] = 1
+        s._bitmap[14:16] = 1
+
+    def use():
+        off = s.alloc(2 << 20, timeout=1)
+        s.view(off, 4)[:] = 1
+        s.free(off, 2 << 20)
+
+    def check():
+        bm = np.zeros(s.nslots, np.uint8)
+        for first in np.nonzero(s._runs)[0].tolist():
+            bm[first:first + int(s._runs[first])] = 1
+        st = s.stats()
+        return {"bitmap_matches_runs": bool((bm == s._bitmap).all()),
+                "in_use": st["in_use_bytes"],
+                "want_in_use": int(bm.sum()) * s.slot_bytes,
+                "keep_held": bool(s._runs[s._first(keep)] == 3),
+                "repairs": s.repairs}
+else:
+    from minio_tpu_torch.server.qos import QoSPlane
+    s = QoSPlane(nworkers=3, max_slots=4, deadline_ms=100, queue_max=4)
+    s.bind_row(2)
+    assert s.acquire("premium")[0] == "ok"     # row 2 holds one slot
+    lock = s._cv
+
+    def half_done():
+        # An admission cut off between its row and the pool total.
+        s.bind_row(1)
+        s._a[s._row] += 1
+
+    def use():
+        s.bind_row(0)
+        assert s.acquire("premium")[0] == "ok"
+        s.release()
+
+    def check():
+        st = s.stats()
+        rows = s.worker_rows()
+        return {"inflight": st["inflight"],
+                "rows_sum": sum(r[0] for r in rows),
+                "waiting": st["waiting"], "repairs": lock.repairs}
+
+r, w = os.pipe()
+pid = os.fork()
+if pid == 0:
+    lock.acquire()
+    half_done()
+    os.write(w, b"x")
+    time.sleep(60)
+    os._exit(0)
+os.read(r, 1)
+os.kill(pid, signal.SIGKILL)
+os.waitpid(pid, 0)
+t0 = time.monotonic()
+use()                                   # this process: lock, read, write
+pid = os.fork()
+if pid == 0:
+    use()                               # a second child
+    os._exit(0)
+rc = os.waitstatus_to_exitcode(os.waitpid(pid, 0)[1])
+out = check()
+out.update({"s": time.monotonic() - t0, "child_rc": rc})
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.parametrize("what", ["tier", "arena", "slab"])
+def test_killed_lock_holder_leaves_the_structure_usable(what):
+    """A forked child SIGKILLed while it holds the structure's lock (a
+    write half done): this process and a second child then lock, read
+    and write it within 2 s, and the next locker has repaired it — the
+    tier's index dropped (nothing of the half fill served), the arena's
+    bitmap and occupancy equal to its runs, the slab's totals equal to
+    its per-worker rows."""
+    out = subprocess.run([sys.executable, "-c", _KILLED_HOLDER, what],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["s"] < 2.0 and res["child_rc"] == 0, res
+    assert res["repairs"] == 1, res
+    if what == "tier":
+        # The children's two fills; the half fill's run went back.
+        assert res["entries"] == res["live"] == 2, res
+        assert res["runs"] == 2, res
+    elif what == "arena":
+        assert res["bitmap_matches_runs"] and res["keep_held"], res
+        assert res["in_use"] == res["want_in_use"] == 7 << 20, res
+    else:
+        assert res["inflight"] == res["rows_sum"] == 2, res
+        assert res["waiting"] == 0, res
+
+
+_KILLED_AFTER_ALLOC = r"""
+import json, os, signal, sys
+signal.alarm(40)
+import numpy as np
+from minio_tpu_torch.ops import ipc_dispatch as ipc
+from minio_tpu_torch.server.workers import WorkerPlane
+
+plane = WorkerPlane(1, arena_bytes=8 << 20, ring_capacity=16)
+plane.state.bump_owner_gen()
+plane.state.owner_register(os.getpid())
+pid = os.fork()
+if pid == 0:
+    ipc.after_alloc_hook = lambda: os.kill(os.getpid(), signal.SIGKILL)
+    rc = ipc.RemoteCoalescer(plane, 0)
+    rc._submit_remote(("digest", "mxh256", 1024),
+                      np.zeros((4, 1024), np.uint8), None, "cpu")
+    os._exit(3)
+st = os.waitpid(pid, 0)[1]
+held = plane.arena.stats()["in_use_bytes"]
+plane.state.bump_respawn(0)
+succ = ipc.RemoteCoalescer(plane, 0)
+print(json.dumps({"killed": os.WIFSIGNALED(st), "held_before": held,
+                  "held_after": plane.arena.stats()["in_use_bytes"],
+                  "ledger": int(plane.inflight[..., 0].any())}))
+succ.close()
+"""
+
+
+def test_worker_killed_right_after_alloc_leaves_no_slot():
+    """A worker SIGKILLed between its arena alloc and its ledger row:
+    the slot carries its owner, and the respawned worker frees it."""
+    out = subprocess.run([sys.executable, "-c", _KILLED_AFTER_ALLOC],
+                         cwd=ROOT, env=_env(MTPU_IPC_DISPATCH="all"),
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["killed"] and res["held_before"] > 0, res
+    assert res["held_after"] == 0 and res["ledger"] == 0, res
+
+
+def test_undeliverable_answer_frees_its_slot_once(monkeypatch):
+    """The owner cannot push an answer (the worker's response ring is
+    full): it frees the request's slot, once.  The worker's watchdog
+    then fails the handle and drops the ledger row without freeing the
+    slot again, though it has been allocated anew meanwhile."""
+    monkeypatch.setenv("MTPU_IPC_DISPATCH", "all")
+    monkeypatch.setenv("MTPU_OWNER_STALE_S", "60")
+    plane = WorkerPlane(1, arena_bytes=8 * MIB, ring_capacity=2)
+    plane.state.bump_owner_gen()
+    plane.state.owner_register(os.getpid())
+    co = coalesce.DispatchCoalescer()
+    rc = ipc.RemoteCoalescer(plane, 0)
+    # No listener thread: it would make room in the ring; the watchdog
+    # runs by hand below.
+    monkeypatch.setattr(rc, "_ensure_listener", lambda: None)
+    try:
+        x = np.random.default_rng(3).integers(0, 256, (4, 1024),
+                                              dtype=np.uint8)
+        start = plane.arena.stats()
+        h = rc._submit_remote(("digest", "mxh256", 1024), x, None, "cpu")
+        (req,) = rc._slots
+        off = rc._slots[req][1]
+        while plane.resp_rings[0].put(b"full", timeout=0):
+            pass                                  # the ring is full
+        ipc._serve_one(plane, co, plane.req_ring.get(timeout=5))
+        st = plane.arena.stats()
+        assert st["in_use_bytes"] == start["in_use_bytes"]
+        assert st["frees"] == st["allocs"] == 1
+        # The freed slot is someone else's now: the worker's retirement
+        # of the request must leave it alone.
+        other = plane.arena.alloc(100)
+        assert other == off
+        plane.resp_rings[0].drain()
+        rc._check_owner()
+        with pytest.raises(RuntimeError, match="could not deliver"):
+            h.result(timeout=5)
+        rc._release(req)
+        st = plane.arena.stats()
+        assert st["in_use_bytes"] == plane.arena.slot_bytes
+        assert st["frees"] == 1 and req not in rc._slots
+        assert not plane.inflight[..., 0].any()
+        plane.arena.free(other, 100)
+    finally:
+        rc.close()
+        co.close()

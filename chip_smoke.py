@@ -57,7 +57,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    d. multipart: three parts under mxh256, highwayhash256S and mxh256,
       completed, read whole, ranged across a part boundary and degraded,
       then healed and read again;
-   e. drive heal: a formatted set holding 16 mxh256 objects of 64 MiB,
+   e. drive heal: a formatted set holding 8 mxh256 objects of 64 MiB,
       4 HighwayHash objects of 64 MiB + 300 KiB + 5 B, 32 inline
       objects, a multipart object and a versioned object with a delete
       marker (a versioned DELETE); a data-shard drive wiped whole; heal_format, heal_drive
@@ -69,7 +69,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       with one, uninterrupted, each once on a fresh wipe.
    f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
       (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
-      versioned bucket of 512 objects of 1-100 KiB, 96 of 4 MiB + 1 B
+      versioned bucket of 512 objects of 1-100 KiB, 48 of 4 MiB + 1 B
       and 8 of 64 MiB (2 HighwayHash), about 1.0 GB (the depth cut for
       phases l and m): PUT with SipHash
       placement checked, second versions, delete markers, a version
@@ -99,7 +99,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    h. concurrent dispatch: the deployment of f through ServerPools and
       through the S3 server, with the cross-request coalescer
       (ops/coalesce.py) and its pinned, double-buffered copies, with
-      MTPU_COALESCE=0 and with MTPU_H2D_PIPELINE=0: 16 clients x 4
+      MTPU_COALESCE=0 and with MTPU_H2D_PIPELINE=0: 16 clients x 2
       objects of 1 MiB PUT and GET, 4 clients x 2 HighwayHash objects,
       four 64 MiB objects PUT and GET from 1 and from 4 clients and read
       degraded with two drives of every set away, and a 16 MiB object
@@ -111,8 +111,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       dispatch, the lanes' time split, bytes copied per byte served.
    i. the front door's identity planes: an S3Server with an IAMSys and
       an HS256 OIDC provider over one EC:8+4 set of 12 drives; root
-      creates 500 users in 10 groups, 25 custom policies scoped to a
-      bucket and prefix and 50 service accounts over the admin API
+      creates 250 users in 5 groups, 12 custom policies scoped to a
+      bucket and prefix and 25 service accounts over the admin API
       (each IAM object an inline PUT on the card); a SigV2-header PUT of
       64 MiB read back by a SigV2 presigned GET and by SigV4; a readonly
       user's 64 MiB PUT refused; a prefix-scoped user, service accounts,
@@ -182,7 +182,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       booted as one process on fresh drives with the metadata lanes (the
       default) and with MTPU_METABATCH=0 (every server of the phase
       booted at once), driven in turns; 16 client processes
-      PUT 8 inline objects of 4-64 KiB each (the JAX package's
+      PUT 4 inline objects of 4-64 KiB each (the JAX package's
       small-object mix), HEAD every one and GET a quarter, then one
       client 32 the same way: PUT/s, HEAD/s, p50 and p99, publishes per
       journal fsync, keys per metadata read round, trim accepted and
@@ -214,9 +214,30 @@ Phases, each printing its own lines; any failure exits non-zero:
       overload in one process (its workers, its yields, the drive equal
       to itself before the wipe); and a check that phases a-m, QoS on
       at the default budget, shed nothing.
-   Phases a-g and i-n run with MTPU_DEVCACHE=0: their counts assume
+   o. the other bitrot forms (phase_bitrot_forms): sha256 objects of
+      64 MiB and 64 MiB + 300 KiB + 5 B on config 2's set, PUT, GET,
+      degraded GET and heal of a wiped drive with exact GF items and no
+      mxh256 or hh256 item (the digests are hashlib's, on the host);
+      legacy xl.json objects of the same sizes (whole-file HighwayHash,
+      10 MiB blocks) GET, HEAD, listed and read with a corrupted shard
+      (one hh256 item a part, one GF item a chunk size); bodies by
+      SHA-256; one 32 MiB batch's encode with sha256 digests against
+      mxh256's.
+   p. the distributed cluster (phase_cluster): 4 node processes x 4
+      drives behind URL endpoints, one set of 16 with STANDARD=EC:4,
+      booted at once; one client process a node PUTs 64 MiB objects and
+      GETs each through the next node; inline objects listed alike from
+      every node; one key PUT through two nodes at once, round after
+      round; node 4 SIGKILLed (every GET served, GF rebuilds exact, a
+      PUT at write quorum, a dsync lock with 3 of 4 lockers), booted
+      again and healed by a heal sequence; then, every node stopped, the
+      16 drives in this process: a deep dry-run heal finds every copy
+      ok and every object reads from node 4's drives.  Items per step
+      from the nodes' metrics; boot s, PUT and GET GB/s beside 5f's,
+      ms a dsync lock against the local lock, heal s.
+   Phases a-g and i-p run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i and k-n run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i and k-p run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
@@ -289,11 +310,13 @@ OBJECT_BYTES = 64 * MIB        # BASELINE.json config 2's object size
 # multiple of 32, so the HighwayHash remainder packet is on the path.
 TAIL_OBJECT_BYTES = OBJECT_BYTES + 300 * 1024 + 5
 HH = "highwayhash256S"
-# The drive-heal deployment (phase 5e): 16 mxh256 objects of
+# The drive-heal deployment (phase 5e): DRIVE_HEAL_MXH mxh256 objects of
 # DRIVE_HEAL_OBJECT and 4 HighwayHash objects of DRIVE_HEAL_TAIL_OBJECT in
 # bucket a; 32 inline objects, a multipart object of DRIVE_HEAL_PARTS and
 # an object with DRIVE_HEAL_VERSIONS and a delete marker in bucket b.
 DRIVE_HEAL_OBJECT = OBJECT_BYTES
+# 16 before phases 5o and 5p joined the run.
+DRIVE_HEAL_MXH = 8
 DRIVE_HEAL_TAIL_OBJECT = TAIL_OBJECT_BYTES
 DRIVE_HEAL_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
@@ -309,7 +332,8 @@ DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 # to keep the whole run within its time.
 LAYER_SETS, LAYER_SET_DRIVES = 4, 12
 LAYER_SMALL, LAYER_SMALL_BYTES = 512, (1024, 100 * 1024)
-LAYER_MID, LAYER_MID_BYTES = 96, 4 * MIB + 1
+# LAYER_MID 96 before phases 5o and 5p joined the run.
+LAYER_MID, LAYER_MID_BYTES = 48, 4 * MIB + 1
 LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
 # SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
@@ -339,7 +363,8 @@ SERVER_RANGE = (300 * 1024, MIB)
 # twice (the second read a device-cache hit).  DISPATCH_SMALL_PER cut to
 # half (8 before phase 5m joined the run) to keep the whole run within
 # its time.
-DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 16, 4, MIB
+# DISPATCH_SMALL_PER 4 before phases 5o and 5p joined the run.
+DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 16, 2, MIB
 DISPATCH_HH_CLIENTS, DISPATCH_HH_PER = 4, 2
 DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 4, OBJECT_BYTES
 DISPATCH_AWAY = (0, 1)
@@ -407,8 +432,8 @@ SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
 # META_KILL_CLIENTS clients PUT up to META_KILL_PER objects each under
 # MTPU_METABATCH_SOLO=1, and the server is SIGKILLed once META_KILL_ACKS
 # are acknowledged.
-# META_PER was 16 before phase 5n joined the run.
-META_CLIENTS, META_PER, META_BYTES = 16, 8, (4 * 1024, 64 * 1024)
+# META_PER was 16 before phase 5n joined the run, 8 before 5o and 5p.
+META_CLIENTS, META_PER, META_BYTES = 16, 4, (4 * 1024, 64 * 1024)
 META_GET_STRIDE, META_ONE = 4, 32
 META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 200
 DISPATCH_MODES = (
@@ -1451,7 +1476,7 @@ def _drive_heal_deployment(es, rng):
     es.make_bucket("a")
     es.make_bucket("b")
     sizes = ([("a", f"m{i:02d}", "mxh256", DRIVE_HEAL_OBJECT)
-              for i in range(16)]
+              for i in range(DRIVE_HEAL_MXH)]
              + [("a", f"h{i}", HH, DRIVE_HEAL_TAIL_OBJECT) for i in range(4)]
              + [("b", f"i{i:02d}", "mxh256", int(n)) for i, n in
                 enumerate(rng.integers(1024, 100 * 1024 + 1, 32))])
@@ -2048,6 +2073,7 @@ def phase_object_layer(args, counts, card):
           f"checked); {len(overwritten)} second versions, {len(marked)} "
           f"delete markers, 1 version deleted by id, 8 metadata updates; "
           f"card {card}")
+    ONE_PROCESS_GBPS["pools"] = rates["pools"]
     print(f"[object layer] {LAYER_BIG_BYTES} B objects ({len(big)}, "
           f"{big_bytes} bytes): "
           f"PUT {rates['pools'][0]:.3f} GB/s, GET {rates['pools'][1]:.3f} "
@@ -2810,8 +2836,9 @@ def phase_dispatch(args, counts, card):
 # service accounts before phase 5m joined the run) and the snowball tar
 # to half (448 and 64 members before phase 5n joined it) to keep the
 # whole run within its time.
-IDENTITY_USERS, IDENTITY_GROUPS = 500, 10
-IDENTITY_POLICIES, IDENTITY_SVC = 25, 50
+# (500, 10, 25, 50) before phases 5o and 5p joined the run.
+IDENTITY_USERS, IDENTITY_GROUPS = 250, 5
+IDENTITY_POLICIES, IDENTITY_SVC = 12, 25
 IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
 IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 224, 64 * 1024
 IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 32, MIB
@@ -3801,6 +3828,9 @@ def pool_client(spec: dict) -> int:
 
     cli = S3Client(f"http://127.0.0.1:{spec['port']}", spec["ak"],
                    spec["sk"], timeout=600)
+    # A cluster's client (5p) GETs through another node than it PUTs.
+    get_cli = S3Client(f"http://127.0.0.1:{spec.get('get_port', spec['port'])}",
+                       spec["ak"], spec["sk"], timeout=600)
     bodies = {key: np.random.default_rng(seed).bytes(size)
               for key, size, seed in spec["objects"]}
     sha = {k: hashlib.sha256(v).hexdigest() for k, v in bodies.items()}
@@ -3824,7 +3854,7 @@ def pool_client(spec: dict) -> int:
                     "etag", "").strip('"')
                 ok &= st == 200 and etag == hashlib.md5(body).hexdigest()
             else:
-                st, _, got = cli.request("GET", path)
+                st, _, got = get_cli.request("GET", path)
                 ok &= st == 200 and \
                     hashlib.sha256(got).hexdigest() == sha[key]
             statuses.append(st)
@@ -3993,7 +4023,8 @@ class _Clients:
     acknowledged PUTs to the file c)."""
 
     def __init__(self, port: int, bucket: str, per_client: list[list],
-                 role: str = "--pool-client", acks: str | None = None):
+                 role: str = "--pool-client", acks: str | None = None,
+                 ports: list[int] | None = None):
         here = os.path.abspath(__file__)
         self.procs = []
         self.per_client = per_client
@@ -4001,6 +4032,11 @@ class _Clients:
             spec = {"port": port, "ak": "pooladmin",
                     "sk": "pooladmin-secret", "bucket": bucket,
                     "objects": objs}
+            if ports:
+                # One node a client: PUT through node c, GET through the
+                # next one.
+                spec["port"] = ports[c % len(ports)]
+                spec["get_port"] = ports[(c + 1) % len(ports)]
             if acks:
                 spec["acks"] = os.path.join(acks, str(c))
             self.procs.append(subprocess.Popen(
@@ -6188,6 +6224,630 @@ def phase_admission(args, counts, card):
     return {**launches, "mxh256_elsewhere": elsewhere}
 
 
+#: 5o: the sha256 objects (BASELINE.json config 2's object size and a
+#: ragged one) and the legacy objects' sizes
+FORMS_SIZES = (OBJECT_BYTES, TAIL_OBJECT_BYTES)
+#: the legacy (format v1) erasure block: 10 MiB (blockSizeV1)
+V1_BLOCK = 10 * MIB
+
+
+def _v1_write(es, torch_dev, bucket: str, obj: str, data: bytes) -> None:
+    """A legacy (xl.json) object as an older MinIO server leaves it on the
+    set's drives: each 10 MiB block cut into k chunks of ceil(block / k)
+    and encoded (the GF kernel here, before any count is read), the
+    unframed shard files back to back, and on each drive an xl.json
+    (storage/xlmeta_v1.make_xl_json) holding its shard's whole-file
+    HighwayHash-256."""
+    import numpy as np
+    from minio_tpu_torch.ops import fused
+    from minio_tpu_torch.storage import bitrot_io, xlmeta_v1
+    from minio_tpu_torch.storage.xlmeta import (ErasureInfo, FileInfo,
+                                                ObjectPartInfo)
+    n = es.n
+    k, m = n - es.default_parity, es.default_parity
+    shards = [bytearray() for _ in range(n)]
+    buf = np.frombuffer(data, dtype=np.uint8)
+    for lo in range(0, len(data), V1_BLOCK):
+        cur = min(V1_BLOCK, len(data) - lo)
+        chunk = -(-cur // k)
+        x = np.zeros((1, k, chunk), dtype=np.uint8)
+        x.reshape(-1)[:cur] = buf[lo:lo + cur]
+        par = fused.transform(x, k, m, tuple(range(k)),
+                              tuple(range(k, n)), device=torch_dev)
+        par = par.cpu().numpy()
+        for s in range(k):
+            shards[s] += x[0, s].tobytes()
+        for s in range(m):
+            shards[k + s] += par[0, s].tobytes()
+    sums = bitrot_io.whole_file_digests([bytes(s) for s in shards],
+                                        "highwayhash256", torch_dev)
+    dist = list(range(1, n + 1))
+    for pos, d in enumerate(es.drives):
+        d.create_file(bucket, f"{obj}/part.1", bytes(shards[pos]))
+        fi = FileInfo(
+            volume=bucket, name=obj, version_id="", data_dir="legacy",
+            mod_time_ns=1_600_000_000_000_000_000, size=len(data),
+            metadata={"etag": hashlib.md5(data).hexdigest(),
+                      "content-type": "application/octet-stream"},
+            parts=[ObjectPartInfo(1, len(data), len(data))],
+            erasure=ErasureInfo(
+                data_blocks=k, parity_blocks=m, block_size=V1_BLOCK,
+                index=pos + 1, distribution=dist,
+                checksums=[{"part": 1, "name": "part.1",
+                            "algo": "highwayhash256", "hash": sums[pos]}]))
+        d.write_all(bucket, f"{obj}/{xlmeta_v1.XL_JSON}",
+                    xlmeta_v1.make_xl_json(fi))
+
+
+def phase_bitrot_forms(args, counts, card):
+    """Phase 5o, the other bitrot forms, on BASELINE.json config 2's set
+    (EC:8+4, 12 drives on /dev/shm) in this process.
+
+    sha256 objects (64 MiB and 64 MiB + 300 KiB + 5 B): PUT, GET,
+    degraded GET with two data-shard drives away, heal of a wiped
+    data-shard drive; the digests are hashlib's (the host route), so
+    each step's GF items are exact and no mxh256 or hh256 item or launch
+    is made.  Then legacy xl.json objects (format v1, whole-file
+    HighwayHash, 10 MiB blocks) of the same sizes: GET (one hh256 item a
+    part: the 12 shard files of a part are one call), HEAD,
+    list_object_versions, and GET with one data shard corrupted (one
+    hh256 item, and one GF item per chunk size: the 10 MiB blocks and
+    the shorter last one).  Bodies by SHA-256.  Beside it, one 32 MiB
+    PUT batch's encode with sha256 digests on the host against mxh256's
+    on the device."""
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.ops import devices, fused
+    from minio_tpu_torch.storage import xlmeta_v1
+    from minio_tpu_torch.storage.drive import LocalDrive
+    import numpy as np
+    import torch
+
+    root = _tmp_root("chip_smoke-forms-", 3 * sum(FORMS_SIZES) * 2)
+    rng = np.random.default_rng(args.seed + 15)
+    bodies = {f"sha{i}": rng.bytes(n) for i, n in enumerate(FORMS_SIZES)}
+    legacy = {f"v1-{i}": rng.bytes(n) for i, n in enumerate(FORMS_SIZES)}
+    sha = {k: hashlib.sha256(v).digest()
+           for k, v in {**bodies, **legacy}.items()}
+    es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
+                     for i in range(12)], default_parity=4)
+    dev = es.device
+    report, t_phase = {}, time.perf_counter()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def check(name, want_gf, want_hh=0, got=None):
+        launches, items = counts.read(), counts.items()
+        want = {"gf_matmul": want_gf, "hh256": want_hh, "mxh256": 0}
+        if items != want or any(launches[k] > items[k] for k in items) \
+                or launches["mxh256"] or launches["hh256"] != want_hh:
+            raise SystemExit(f"forms {name}: items {items} launches "
+                             f"{launches}, want items {want}")
+        report[name] = (launches, items)
+
+    def same(name, got):
+        if hashlib.sha256(bytes(got)).digest() != sha[name]:
+            raise SystemExit(f"forms: {name} bytes differ")
+
+    try:
+        es.make_bucket("forms")
+        os.environ["MTPU_BITROT_ALGO"] = "sha256"
+        counts.reset()
+        t0 = time.perf_counter()
+        fis = {k: es.put_object("forms", k, v) for k, v in bodies.items()}
+        put_s = time.perf_counter() - t0
+        if any(fi.erasure.bitrot_algo() != "sha256" for fi in fis.values()):
+            raise SystemExit("forms: PUT did not record sha256")
+        check("sha256 PUT", sum(_put_calls(n) for n in FORMS_SIZES))
+
+        counts.reset()
+        t0 = time.perf_counter()
+        for k in bodies:
+            same(k, es.get_object("forms", k)[1])
+        get_s = time.perf_counter() - t0
+        check("sha256 GET", 0)
+
+        counts.reset()
+        t0 = time.perf_counter()
+        for k, fi in fis.items():
+            saved = list(es.drives)
+            for pos in _data_positions(Q, fi, 2):
+                es.drives[pos] = None
+            same(k, es.get_object("forms", k)[1])
+            es.drives = saved
+        deg_s = time.perf_counter() - t0
+        check("sha256 degraded GET", sum(_get_calls(fi)
+                                         for fi in fis.values()))
+
+        golden = _part_hashes(es, "forms", fis)
+        wiped = _data_positions(Q, fis["sha0"], 1)
+        _wipe(es, LocalDrive, wiped)
+        counts.reset()
+        t0 = time.perf_counter()
+        heal.heal_bucket(es, "forms")
+        for k in bodies:
+            r = heal.heal_object(es, "forms", k)[0]
+            if r.healed_drives != wiped:
+                raise SystemExit(f"forms heal {k}: {r.healed_drives}")
+        heal_s = time.perf_counter() - t0
+        check("sha256 heal", sum(
+            len(heal._frame_batches(fi.size, fi.erasure, "sha256"))
+            for fi in fis.values()))
+        if _part_hashes(es, "forms", fis) != golden:
+            raise SystemExit("forms: healed sha256 part files differ")
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+
+        # Legacy objects, written before any count is read.
+        for k, v in legacy.items():
+            _v1_write(es, dev, "forms", k, v)
+        sync()
+        counts.reset()
+        t0 = time.perf_counter()
+        for k in legacy:
+            fi, got = es.get_object("forms", k)
+            if not xlmeta_v1.is_v1(fi):
+                raise SystemExit(f"forms: {k} not read as format v1")
+            same(k, got)
+        v1_get_s = time.perf_counter() - t0
+        check("xl.json GET", 0, len(legacy))
+        counts.reset()
+        for k, v in legacy.items():
+            fi = es.head_object("forms", k)
+            vers = es.list_object_versions("forms", k)
+            if fi.size != len(v) or fi.etag != hashlib.md5(v).hexdigest() \
+                    or len(vers) != 1 or vers[0].size != len(v):
+                raise SystemExit(f"forms: HEAD or versions of {k} wrong")
+        check("xl.json HEAD + versions", 0, 0)
+        for k in legacy:                      # shard 0 (data) corrupted
+            p = os.path.join(es.drives[0].root, "forms", k, "part.1")
+            with open(p, "r+b") as f:
+                f.seek(os.path.getsize(p) // 2)
+                f.write(b"\x5a" * 64)
+        counts.reset()
+        t0 = time.perf_counter()
+        for k in legacy:
+            same(k, es.get_object("forms", k)[1])
+        v1_deg_s = time.perf_counter() - t0
+        check("xl.json corrupted-shard GET", sum(
+            1 + (n % V1_BLOCK != 0 and n > V1_BLOCK)
+            for n in FORMS_SIZES), len(legacy))
+    finally:
+        es.close()
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("MTPU_BITROT_ALGO", None)
+
+    # One 32 MiB PUT batch's encode: sha256 (GF on the card, digests on
+    # the host) against mxh256 (both on the card), in turns.
+    blocks = np.random.default_rng(1).integers(0, 256, (32, 8, 131072),
+                                               dtype=np.uint8)
+    xt = devices.put(blocks, dev)
+    ms = {"sha256": [], "mxh256": []}
+    for algo in ("sha256", "mxh256", "mxh256", "sha256") * 2:
+        sync()
+        t0 = time.perf_counter()
+        p, d = fused.encode_and_hash(xt, 8, 4, algo=algo, device=dev)
+        p.cpu(), d.cpu()
+        sync()
+        ms[algo].append((time.perf_counter() - t0) * 1e3)
+    gb = sum(FORMS_SIZES) / 1e9
+    print(f"[forms] sha256, EC:8+4, {len(bodies)} objects, "
+          f"{sum(FORMS_SIZES)} B: PUT {gb / put_s:.3f} GB/s, GET "
+          f"{gb / get_s:.3f} GB/s, degraded GET {gb / deg_s:.3f} GB/s, heal "
+          f"of drive {wiped[0]} {heal_s:.2f} s; items and launches per step "
+          f"{report}; card {card}")
+    print(f"[forms] xl.json (format v1, whole-file HighwayHash, 10 MiB "
+          f"blocks), {len(legacy)} objects: GET {gb / v1_get_s:.3f} GB/s, "
+          f"GET with shard 0 corrupted {gb / v1_deg_s:.3f} GB/s; card {card}")
+    print(f"[forms] one 32 MiB PUT batch's encode + digests "
+          f"(encode_and_hash, D2H included, median of 4): sha256 (digests "
+          f"on the host) {statistics.median(ms['sha256']):.3f} ms, mxh256 "
+          f"(on the device) {statistics.median(ms['mxh256']):.3f} ms; "
+          f"card {card}")
+    print(f"[forms] phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return {k: sum(l[k] for l, _ in report.values())
+            for k in ("gf_matmul", "hh256", "mxh256")}
+
+
+#: 5p: MinIO's multi-node multi-drive layout on one card: node
+#: processes x drives each, one erasure set of all of them, STANDARD=EC:4
+CLUSTER_NODES = 4
+CLUSTER_DRIVES = 4
+#: 64 MiB objects per client process (one client a node)
+CLUSTER_PER_CLIENT = 2
+CLUSTER_INLINE = 16
+CLUSTER_RACE_ROUNDS = 8
+CLUSTER_RACE_BYTES = 4 * MIB + 3
+CLUSTER_LOCKS = 50
+#: the 5f figures (ServerPools in this process, 64 MiB objects) 5p prints
+#: its own beside
+ONE_PROCESS_GBPS: dict = {}
+
+
+class _Node:
+    """One cluster node, `python -m minio_tpu_torch.server` over URL
+    endpoints, booted as a subprocess; `counts()` reads its kernels'
+    launches and items from /minio/v2/metrics/node."""
+
+    def __init__(self, root: str, args: list[str], port: int, idx: int):
+        self.root, self.args, self.port, self.idx = root, args, port, idx
+        self.log = os.path.join(root, f"node{idx}.log")
+        self.proc = None
+
+    def start(self) -> "_Node":
+        # MTPU_PEER_PROBE_MAX_S bounds how long a node's RPC client
+        # waits between probes of a dead peer: node 4's return is seen
+        # within seconds.
+        env = dict(os.environ, MTPU_ROOT_USER="pooladmin",
+                   MTPU_ROOT_PASSWORD="pooladmin-secret",
+                   MTPU_STORAGE_CLASS_STANDARD="EC:4",
+                   MTPU_BOOT_TIMEOUT="240", MTPU_PEER_PROBE_MAX_S="2")
+        for k in ("MTPU_WORKERS", "MTPU_IPC_DISPATCH", "MTPU_BITROT_ALGO"):
+            env.pop(k, None)
+        here = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = here
+        with open(self.log, "a") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "minio_tpu_torch.server", "--drives",
+                 " ".join(self.args), "--port", str(self.port)],
+                cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
+        return self
+
+    def ready(self) -> bool:
+        import urllib.request
+        if self.proc.poll() is not None:
+            raise SystemExit(f"cluster: node {self.idx} exited "
+                             f"{self.proc.returncode}: {self.tail()}")
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port}/minio/health/ready",
+                    timeout=2) as r:
+                return r.status == 200
+        except OSError:
+            return False
+
+    def tail(self) -> str:
+        with open(self.log) as f:
+            return f.read()[-3000:]
+
+    def counts(self) -> dict:
+        out = {}
+        for line in _metrics_text(self.port).splitlines():
+            for what in ("launches", "items"):
+                pre = f'mtpu_kernel_{what}_total{{kernel="'
+                if line.startswith(pre):
+                    k = line[len(pre):line.index('"', len(pre))]
+                    out[f"{what}_{k}"] = int(float(line.rsplit(" ", 1)[1]))
+        return out
+
+    def stop(self) -> None:
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            raise SystemExit(f"cluster: node {self.idx} no exit within "
+                             "30 s of SIGTERM") from None
+        if rc != 0:
+            raise SystemExit(f"cluster: node {self.idx} exit {rc} on "
+                             f"SIGTERM: {self.tail()}")
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _metrics_text(port: int) -> str:
+    import urllib.request
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/minio/v2/metrics/node",
+            timeout=10) as r:
+        return r.read().decode()
+
+
+def _boot_nodes(nodes) -> float:
+    t0 = time.perf_counter()
+    for n in nodes:
+        n.start()
+    deadline = time.monotonic() + 300
+    pending = list(nodes)
+    while pending:
+        pending = [n for n in pending if not n.ready()]
+        if pending and time.monotonic() > deadline:
+            raise SystemExit(f"cluster: node {pending[0].idx} never ready:"
+                             f" {pending[0].tail()}")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def phase_cluster(args, counts, card):
+    """Phase 5p, the distributed cluster: CLUSTER_NODES node processes x
+    CLUSTER_DRIVES drives on /dev/shm behind URL endpoints
+    (`http://127.0.0.1:{port}/.../d{1...4}`), one erasure set of 16 with
+    STANDARD=EC:4 (MinIO's documented multi-node multi-drive layout, on
+    one card), every node booted at once with its self-tests on the card.
+
+    Client processes (one a node) PUT 64 MiB objects through their node
+    and GET each through the next one, byte-exact; 16 inline objects PUT
+    round-robin are listed alike from every node; two clients PUT one key
+    through two nodes at once, round after round, and every node then
+    serves one of the two bodies whole.  Then node 4 is SIGKILLed: every
+    object is still served by the other nodes (12 of 16 drives, its data
+    rows rebuilt: GF items exact), a 64 MiB PUT meets write quorum and a
+    dsync lock is taken with 3 of 4 lockers.  Node 4 boots again and a
+    heal sequence restores it; with every node stopped, this process
+    opens the 16 drives as one set: a deep dry-run heal finds every
+    drive of every object ok, and every object reads byte-exact with
+    node 1's drives away (so from node 4's).  Each step's device items
+    are the nodes' (their metrics), summed, against the sizes."""
+    from minio_tpu_torch.cluster.dsync import DRWMutex
+    from minio_tpu_torch.cluster.nslock import NSLockMap
+    from minio_tpu_torch.engine import heal
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.erasure_set import ErasureSet
+    from minio_tpu_torch.rpc.lock_rpc import RemoteLocker
+    from minio_tpu_torch.rpc.rest import RPCClient
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.cluster import internode_token
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+    import numpy as np
+
+    n_nodes, per = CLUSTER_NODES, CLUSTER_DRIVES
+    n = n_nodes * per
+    big = [[(f"c{c}-{i}", OBJECT_BYTES, args.seed * 1000 + 40 + c * 8 + i)
+            for i in range(CLUSTER_PER_CLIENT)] for c in range(n_nodes)]
+    need = (n * sum(z for o in big for _, z, _ in o) // (n - 4)
+            + 4 * CLUSTER_RACE_BYTES * 3 + OBJECT_BYTES * 3)
+    root = _tmp_root("chip_smoke-cluster-", need)
+    ports = [_free_port() for _ in range(n_nodes)]
+    eps = [f"http://127.0.0.1:{p}{root}/n{i}/d{{1...{per}}}"
+           for i, p in enumerate(ports, 1)]
+    nodes = [_Node(root, eps, p, i + 1) for i, p in enumerate(ports)]
+    paths = [os.path.join(root, f"n{i}", f"d{j}")
+             for i in range(1, n_nodes + 1) for j in range(1, per + 1)]
+    cli = [S3Client(f"http://127.0.0.1:{p}", "pooladmin",
+                    "pooladmin-secret", timeout=600) for p in ports]
+    t_phase = time.perf_counter()
+    steps, lines = {}, []
+    node_launches = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
+
+    def fi_of(key):
+        """The key's version as node 1's first drive holds it."""
+        with open(os.path.join(paths[0], "clus", key, "xl.meta"), "rb") as f:
+            return XLMeta.from_bytes(f.read()).latest("clus", key)
+
+    def node_counts(live):
+        return {nd.idx: nd.counts() for nd in live}
+
+    def step(name, live, before, want):
+        """The step's items and launches: each live node's counts now
+        less before, summed."""
+        time.sleep(0.1)
+        after = node_counts(live)
+        d = {k: sum(after[i][k] - before[i][k] for i in after)
+             for k in after[live[0].idx]}
+        items = {k: d[f"items_{k}"] for k in node_launches}
+        launches = {k: d[f"launches_{k}"] for k in node_launches}
+        if want is not None and (items != want or any(
+                launches[k] > items[k] for k in items)):
+            raise SystemExit(f"cluster {name}: items {items} launches "
+                             f"{launches}, want {want}")
+        for k in node_launches:
+            node_launches[k] += launches[k]
+        steps[name] = items
+        return after
+
+    def rebuilt(fi) -> bool:
+        """Whether a read without node 4's drives rebuilds data rows."""
+        order = Q.shuffle_by_distribution(list(range(n)),
+                                          fi.erasure.distribution)
+        return any(order[s] >= n - per
+                   for s in range(fi.erasure.data_blocks))
+
+    clients = None
+    try:
+        boot_s = _boot_nodes(nodes)
+        cli[0].make_bucket("clus")
+        m0 = node_counts(nodes)
+
+        # dsync against the local lock: CLUSTER_LOCKS acquire + release.
+        token = internode_token("pooladmin-secret")
+        lockers = [RemoteLocker(RPCClient(f"127.0.0.1:{p}", token))
+                   for p in ports]
+
+        def lock_ms(lks) -> float:
+            t0 = time.perf_counter()
+            for i in range(CLUSTER_LOCKS):
+                m = DRWMutex(f"clus/lock{i}", lks)
+                if not m.get_lock(timeout=5):
+                    raise SystemExit(f"cluster: dsync lock with "
+                                     f"{len(lks)} lockers not taken")
+                m.unlock()
+            return (time.perf_counter() - t0) * 1e3 / CLUSTER_LOCKS
+
+        dsync_ms = lock_ms(lockers)
+        ns = NSLockMap()
+        t0 = time.perf_counter()
+        for i in range(1000):
+            with ns.write_locked("clus", f"lock{i}"):
+                pass
+        local_ms = (time.perf_counter() - t0) * 1e3 / 1000
+
+        clients = _Clients(ports[0], "clus", big, ports=ports)
+        put = clients.run("put")
+        m1 = step("PUT", nodes, m0, {
+            "gf_matmul": sum(_put_calls(z) for o in big for _, z, _ in o),
+            "hh256": 0,
+            "mxh256": sum(_put_calls(z) for o in big for _, z, _ in o)})
+        get = clients.run("get")
+        fis = {k: fi_of(k) for o in big for k, _, _ in o}
+        m1 = step("GET", nodes, m1, {
+            "gf_matmul": 0, "hh256": 0,
+            "mxh256": sum(_get_calls(fi) for fi in fis.values())})
+
+        rng = np.random.default_rng(args.seed + 16)
+        inline = {f"small/{i:03d}": rng.bytes(int(rng.integers(1, 100))
+                                              * 1024)
+                  for i in range(CLUSTER_INLINE)}
+        for i, (k, v) in enumerate(inline.items()):
+            cli[i % n_nodes].put_object("clus", k, v)
+        for i, (k, v) in enumerate(inline.items()):
+            if cli[(i + 1) % n_nodes].get_object("clus", k) != v:
+                raise SystemExit(f"cluster: inline {k} differs")
+        want_keys = sorted(list(inline) + list(fis))
+        listed = [c.list_objects("clus")[0] for c in cli]
+        if any(lst != want_keys for lst in listed):
+            raise SystemExit(f"cluster: listings differ: "
+                             f"{[len(x) for x in listed]}")
+        m1 = step("inline PUT + GET", nodes, m1, {
+            "gf_matmul": len(inline), "hh256": 0,
+            "mxh256": 2 * len(inline)})
+
+        race = {c: np.random.default_rng(900 + c).bytes(CLUSTER_RACE_BYTES)
+                for c in (0, 1)}
+
+        def racer(c):
+            for _ in range(CLUSTER_RACE_ROUNDS):
+                cli[c].put_object("clus", "race", race[c])
+        _in_threads(2, racer, [0, 1])
+        got = {hashlib.sha256(c.get_object("clus", "race")).digest()
+               for c in cli}
+        if len(got) != 1 or got.pop() not in {
+                hashlib.sha256(v).digest() for v in race.values()}:
+            raise SystemExit("cluster: the raced key is not one whole body "
+                             "on every node")
+        m1 = step("same-key PUTs through two nodes", nodes, m1, {
+            "gf_matmul": 2 * CLUSTER_RACE_ROUNDS * _put_calls(
+                CLUSTER_RACE_BYTES), "hh256": 0,
+            "mxh256": 2 * CLUSTER_RACE_ROUNDS * _put_calls(
+                CLUSTER_RACE_BYTES) + n_nodes * _get_calls(fi_of("race"))})
+
+        # Node 4 SIGKILLed.
+        nodes[-1].kill()
+        live = nodes[:-1]
+        t0 = time.perf_counter()
+        for i, (k, fi) in enumerate(fis.items()):
+            c = cli[i % (n_nodes - 1)]
+            body = np.random.default_rng(
+                next(s for o in big for kk, _, s in o if kk == k)).bytes(
+                    OBJECT_BYTES)
+            if c.get_object("clus", k) != body:
+                raise SystemExit(f"cluster: {k} with node 4 down differs")
+        deg_s = time.perf_counter() - t0
+        m1 = step("GET with node 4 down", live, m1, {
+            "gf_matmul": sum(_get_calls(fi) for fi in fis.values()
+                             if rebuilt(fi)),
+            "hh256": 0,
+            "mxh256": sum(_get_calls(fi) for fi in fis.values())})
+        late = np.random.default_rng(args.seed + 17).bytes(OBJECT_BYTES)
+        cli[0].put_object("clus", "late", late)
+        if cli[1].get_object("clus", "late") != late:
+            raise SystemExit("cluster: the PUT with node 4 down differs")
+        fi_late = fi_of("late")
+        m1 = step("PUT + GET with node 4 down", live, m1, {
+            "gf_matmul": _put_calls(OBJECT_BYTES) + (
+                _get_calls(fi_late) if rebuilt(fi_late) else 0),
+            "hh256": 0,
+            "mxh256": _put_calls(OBJECT_BYTES) + _get_calls(fi_late)})
+        dsync3_ms = lock_ms(lockers)
+
+        # Node 4 again, then a heal sequence from node 1 once node 1's
+        # client sees it (and its drives' breakers have probed it).
+        reboot_s = _boot_nodes([nodes[-1]])
+        peer = f'mtpu_peer_online{{peer="127.0.0.1:{ports[-1]}"}} 1'
+        deadline = time.monotonic() + 60
+        while peer not in _metrics_text(ports[0]):
+            if time.monotonic() > deadline:
+                raise SystemExit("cluster: node 1 never saw node 4 again")
+            time.sleep(0.2)
+        time.sleep(2.0)
+        h0 = node_counts(nodes)
+        t0 = time.perf_counter()
+        st, _, body = cli[0].request("POST", "/minio/admin/v3/heal/",
+                                     query={})
+        if st != 200:
+            raise SystemExit(f"cluster: heal start {st} {body[:200]}")
+        deadline = time.monotonic() + 300
+        while True:
+            _, _, body = cli[0].request("GET", "/minio/admin/v3/heal/",
+                                        query={})
+            seq = json.loads(body)["sequences"][-1]
+            if seq["state"] in ("done", "failed"):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit("cluster: heal sequence never ended")
+            time.sleep(0.2)
+        heal_s = time.perf_counter() - t0
+        if seq["state"] != "done" or seq["failures"]:
+            raise SystemExit(f"cluster: heal sequence {seq}")
+        # MRF heals of node 1's late PUT may race the sequence: the
+        # heal's items are printed, not held to a count.
+        step("heal", nodes, h0, None)
+        for nd in nodes:
+            nd.stop()
+    finally:
+        if clients is not None:
+            clients.close()
+        for nd in nodes:
+            nd.kill()
+
+    # This process: the 16 drives as one set, every object's copies ok
+    # under a deep dry-run heal, every object read from node 4's drives.
+    counts.reset()
+    es = ErasureSet([LocalDrive(p) for p in paths], default_parity=4)
+    try:
+        keys = list(fis) + ["late", "race"] + list(inline)
+        for k in keys:
+            for r in heal.heal_object(es, "clus", k, deep=True,
+                                      dry_run=True):
+                if any(s != heal.DRIVE_OK for s in r.before):
+                    raise SystemExit(f"cluster: {k} after heal {r.before}")
+        for pos in range(per):
+            es.drives[pos] = None
+        for k in fis:
+            body = np.random.default_rng(
+                next(s for o in big for kk, _, s in o if kk == k)).bytes(
+                    OBJECT_BYTES)
+            if bytes(es.get_object("clus", k)[1]) != body:
+                raise SystemExit(f"cluster: {k} from node 4's drives "
+                                 "differs")
+        if bytes(es.get_object("clus", "late")[1]) != late:
+            raise SystemExit("cluster: the late PUT from node 4's drives "
+                             "differs")
+    finally:
+        es.close()
+        shutil.rmtree(root, ignore_errors=True)
+    here = counts.read()
+    launches = {k: node_launches[k] + here[k] for k in node_launches}
+    launches["mxh256_elsewhere"] = node_launches["mxh256"]
+    one = ONE_PROCESS_GBPS.get("pools", (float("nan"), float("nan")))
+    print(f"[cluster] {n_nodes} nodes x {per} drives (one set of {n}, "
+          f"STANDARD=EC:4), booted at once in {boot_s:.2f} s; node 4 "
+          f"booted again in {reboot_s:.2f} s; card {card}")
+    print(f"[cluster] {n_nodes} clients x {CLUSTER_PER_CLIENT} x "
+          f"{OBJECT_BYTES} B across nodes: PUT {put['gbps']:.3f} GB/s, GET "
+          f"{get['gbps']:.3f} GB/s (each through the next node), GET with "
+          f"node 4 down {len(fis) * OBJECT_BYTES / deg_s / 1e9:.3f} GB/s; "
+          f"one process (5f, ServerPools): PUT {one[0]:.3f} GB/s, GET "
+          f"{one[1]:.3f} GB/s (host clock); card {card}")
+    print(f"[cluster] dsync write lock + unlock: {dsync_ms:.3f} ms over 4 "
+          f"lockers, {dsync3_ms:.3f} ms over 3 of 4 (node 4 down); the "
+          f"local namespace lock {local_ms:.4f} ms; card {card}")
+    print(f"[cluster] heal sequence after node 4's return: {heal_s:.2f} s, "
+          f"{seq['scanned']} scanned, {seq['healed']} healed; every drive "
+          f"of every object ok under a deep dry-run heal, every object "
+          f"byte-exact from node 4's drives; card {card}")
+    print(f"[cluster] items per step (the nodes' metrics, summed): {steps}; "
+          f"launches {launches}; phase {time.perf_counter() - t_phase:.1f} "
+          f"s; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -6555,6 +7215,8 @@ def main() -> int:
         "serving spine": lambda: phase_get_spine(args, counts, card),
         "metadata plane": lambda: phase_meta_plane(args, counts, card),
         "admission plane": lambda: phase_admission(args, counts, card),
+        "bitrot forms": lambda: phase_bitrot_forms(args, counts, card),
+        "cluster": lambda: phase_cluster(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -6616,7 +7278,8 @@ def main() -> int:
                      calls - per_path["worker pool"]["mxh256"]
                      - per_path["serving spine"]["mxh256_elsewhere"]
                      - per_path["metadata plane"]["mxh256_elsewhere"]
-                     - per_path["admission plane"]["mxh256_elsewhere"])
+                     - per_path["admission plane"]["mxh256_elsewhere"]
+                     - per_path["cluster"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

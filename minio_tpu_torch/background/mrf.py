@@ -276,12 +276,14 @@ def _journal_name() -> str:
 
 def _pool_journal_path(pool) -> str | None:
     """Journal home: the first local drive of the pool's first set —
-    under its reserved system namespace, next to tmp/ and multipart/."""
-    from ..storage.drive import SYS_VOL
+    under its reserved system namespace, next to tmp/ and multipart/.
+    A cluster node's remote drives (rpc/storage_rpc.RemoteDrive, whose
+    root names a URL) are skipped: the journal is this node's file."""
+    from ..storage.drive import SYS_VOL, LocalDrive
     for es in getattr(pool, "sets", [pool]):
         for d in getattr(es, "drives", []):
             root = getattr(d, "root", None)
-            if d is not None and root:
+            if isinstance(d, LocalDrive) and root:
                 return os.path.join(root, SYS_VOL, _journal_name())
     return None
 

@@ -6,7 +6,7 @@ equivalent: a JSON config {"quota": N, "quotatype": "hard"} per bucket;
 PUTs and multipart completes that would push usage past the limit are
 refused. Usage comes from the scanner's persisted tree (cheap) with a
 live fallback listing when no scan has run yet; the port has no scanner
-yet (ROADMAP Queue A item 9), so its callers pass scanner=None and the
+yet (ROADMAP Queue A item 9b), so its callers pass scanner=None and the
 listing decides.
 
 The config also carries an optional "bandwidth" field (bytes/s, 0 =

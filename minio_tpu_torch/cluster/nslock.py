@@ -1,12 +1,16 @@
 """Namespace locks: per-(bucket, object) mutual exclusion across the
-processes of one node.
+processes of one node, or across the nodes of a cluster.
 
-The local form of minio_tpu/cluster/nslock.py (cf. nsLockMap,
+Counterpart of minio_tpu/cluster/nslock.py (cf. nsLockMap,
 cmd/namespace-lock.go:224): `ErasureSet` builds an `NSLockMap` and takes
 its write lock around every object mutation (PUT, DELETE, multipart
 complete, heal), so a heal cannot publish a version that a concurrent PUT
-has replaced.  The distributed form over dsync lockers is not ported
-(ROADMAP Queue A item 9).
+has replaced.  `NSLockMap(lockers=[...])` is the distributed form: each
+lock is a cluster/dsync.DRWMutex over one locker per node (this node's
+LocalLocker, the peers' through rpc/lock_rpc.RemoteLocker), as a cluster
+node builds it (server/cluster.py); a lock whose refresh lost quorum
+while the operation ran raises LockLost after it.  Without lockers it
+is the local form below.
 
 The port runs one process or, under MTPU_WORKERS=N, a pool of forked
 workers that each open their own drives (server/workers.py).  An
@@ -33,7 +37,7 @@ read sees the old xl.meta or the new one.
   the supervisor calls; one process makes it on first use).
 
 A lock that cannot be taken within its deadline raises `LockLost`, a
-StorageError, as the JAX package's dsync does (cluster/dsync.py:26).
+StorageError (cluster/dsync.py, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -48,18 +52,12 @@ from contextlib import contextmanager
 import numpy as np
 
 from ..ops.shm_lock import ShmLock
-from ..storage.errors import StorageError
+from .dsync import DRWMutex, LockLost
 from .dynamic_timeout import DynamicTimeout
 
 #: stripes of the shared table: a write of one key waits only on writes,
 #: in other processes, of keys of its stripe
 STRIPES = 1024
-
-
-class LockLost(StorageError):
-    """Lock acquisition timed out.  A StorageError, so callers that
-    classify storage errors (heal workers, quorum reduction) treat it as
-    a failed operation, not a crash."""
 
 
 class _LocalRWLock:
@@ -216,9 +214,11 @@ def shared_stripes() -> StripeTable:
 
 class NSLockMap:
     """RW locks keyed by "bucket/object": in-process RW locks, and for a
-    write the key's stripe of the fork-shared `StripeTable`."""
+    write the key's stripe of the fork-shared `StripeTable`; or, with
+    `lockers`, dsync mutexes over them."""
 
-    def __init__(self, stripes: StripeTable | None = None):
+    def __init__(self, stripes: StripeTable | None = None,
+                 lockers: list | None = None):
         # Adaptive lock deadline (cf. dynamicTimeout at NewNSLock call
         # sites, cmd/dynamic-timeouts.go:36): callers that pass no
         # timeout get one tuned from observed outcomes.
@@ -229,7 +229,9 @@ class NSLockMap:
         # the map does not grow with every key ever touched.
         self._local: dict[str, list] = {}
         self._mu = threading.Lock()
-        self.stripes = stripes if stripes is not None else shared_stripes()
+        self.lockers = lockers
+        self.stripes = (None if lockers is not None else
+                        stripes if stripes is not None else shared_stripes())
 
     def _acquire_entry(self, resource: str) -> _LocalRWLock:
         with self._mu:
@@ -246,10 +248,40 @@ class NSLockMap:
                     del self._local[resource]
 
     @contextmanager
+    def _dist_locked(self, resource: str, write: bool, timeout: float,
+                     adaptive: bool):
+        t0 = time.monotonic()
+        lost = threading.Event()
+        dm = DRWMutex(resource, self.lockers,
+                      loss_callback=lambda r: lost.set())
+        ok = dm.get_lock(timeout) if write else dm.get_rlock(timeout)
+        if adaptive:
+            if ok:
+                self.acquire_timeout.log_success(time.monotonic() - t0)
+            else:
+                self.acquire_timeout.log_timeout()
+        if not ok:
+            raise LockLost(resource)
+        try:
+            yield
+        finally:
+            # The lease is sampled before unlock clears the held state:
+            # a holder whose refresh never reached quorum within the
+            # lease must not acknowledge, even before the loss callback.
+            expired = dm.lease_expired()
+            dm.unlock()
+        if lost.is_set() or expired:
+            raise LockLost(f"{resource}: lock lost during operation")
+
+    @contextmanager
     def _locked(self, resource: str, write: bool, timeout: float | None):
         adaptive = timeout is None
         if adaptive:
             timeout = self.acquire_timeout.timeout()
+        if self.lockers is not None:
+            with self._dist_locked(resource, write, timeout, adaptive):
+                yield
+            return
         t0 = time.monotonic()
         lk = self._acquire_entry(resource)
         try:

@@ -40,7 +40,18 @@ wrote.
   Every mutation (`_mark_dirty`) invalidates the bucket's entries.
 - The digest is each part's recorded bitrot algorithm
   (`fi.erasure.bitrot_algo(part)`): mxh256, or HighwayHash256S as MinIO
-  writes it, both on the device.  New objects take MTPU_BITROT_ALGO.
+  writes it, both on the device; sha256 (written) and blake2b512 (read)
+  have no device program and take ops/fused.py's host route, hashlib,
+  while their encode, rebuild and heal stay on the device.  New objects
+  take MTPU_BITROT_ALGO.
+- Legacy objects, an `xl.json` per drive (storage/xlmeta_v1.py, the
+  format-v1 layout of older MinIO servers): unframed shard files with
+  one whole-file digest per drive, 10 MiB blocks.  They are read whole
+  (`_read_v1_object`): each drive's shard is trusted only when its own
+  xl.json's digest verifies (HighwayHash on the device,
+  storage/bitrot_io.verify_whole_file), and missing data rows are
+  rebuilt on the device from k trusted shards.  They never enter the
+  hot tier or a sendfile plan, and `list_object_versions` lists them.
 
 The host side of a PUT: the ETag's MD5 runs off the request thread
 (utils/streams.PipelinedMD5, streams piece by piece on a process-wide
@@ -96,9 +107,8 @@ and stands on them only when they agree on an inline version at quorum.
 The positions it did not read are listed in the election's
 `Metas.unread`, and nothing takes them for missing drives.
 
-Left out of this slice (each has a byte-identical off switch in the JAX
-package, so the bytes do not depend on it): the multi-device mesh codec
-and legacy xl.json objects.
+Left out (it has a byte-identical off switch in the JAX package, so
+the bytes do not depend on it): the multi-device mesh codec.
 """
 
 from __future__ import annotations
@@ -120,7 +130,7 @@ from ..cluster.nslock import NSLockMap
 from ..ops import coalesce, devcache, devices, fused, metalanes
 from ..ops import zerocopy as zc
 from ..parallel import pipeline
-from ..storage import bitrot_io
+from ..storage import bitrot_io, xlmeta_v1
 from ..storage.drive import SMALL_FILE_THRESHOLD, SYS_VOL, TMP_DIR, LocalDrive
 from ..storage.errors import (ErrBucketExists, ErrBucketNotFound,
                               ErrDiskNotFound, ErrErasureReadQuorum,
@@ -764,6 +774,9 @@ class ErasureSet:
             return fi, b""
         if fi.inline_data is not None or (fi.parts and not fi.data_dir):
             return fi, self._read_inline(fi, metas, offset, length)
+        if xlmeta_v1.is_v1(fi):
+            return fi, self._read_v1_object(bucket, obj, fi)[
+                offset:offset + length]
         out = bytearray(length)
         mv = memoryview(out)
         segs = self._plan_segments(fi, offset, length)
@@ -808,11 +821,14 @@ class ErasureSet:
 
     def _hot_cacheable(self, fi) -> bool:
         """Only streaming-layout objects within the size gate enter the
-        tier: an inline object is one cheap metadata read already, and a
-        zero-byte one has no payload."""
+        tier: an inline object is one cheap metadata read already, a
+        zero-byte one has no payload, and a legacy (xl.json) one is read
+        whole on its own path."""
         if fi.deleted or fi.size <= 0 or fi.size > self.hot_tier.max_obj:
             return False
-        return fi.inline_data is None and not (fi.parts and not fi.data_dir)
+        if fi.inline_data is not None or (fi.parts and not fi.data_dir):
+            return False
+        return not xlmeta_v1.is_v1(fi)
 
     def _get_object_hot(self, bucket: str, obj: str, offset: int,
                         length: int, version_id: str,
@@ -921,7 +937,8 @@ class ErasureSet:
         [zerocopy.FilePlan per part]) whose fds' frames were verified on
         the device (heal's frame batches) through the fds the sends
         use, or None when a gate fails and the caller reads normally:
-        zero-copy off; not the whole object; not k=1; inline; a drive or
+        zero-copy off; not the whole object; not k=1; inline; legacy
+        (xl.json: unframed shards); a drive or
         a metadata copy missing; the data shard's drive not a healthy
         local one; the object cacheable while the hot tier is on (the
         tier owns the small hot set); or a shard file's size or frames
@@ -943,6 +960,8 @@ class ErasureSet:
         if fi.erasure.data_blocks != 1:
             return None
         if fi.inline_data is not None or not fi.parts or not fi.data_dir:
+            return None
+        if xlmeta_v1.is_v1(fi):
             return None
         if tier is not None and tier.enabled and self._hot_cacheable(fi):
             return None
@@ -1016,6 +1035,9 @@ class ErasureSet:
             return fi, iter(())
         if fi.inline_data is not None or (fi.parts and not fi.data_dir):
             return fi, iter((self._read_inline(fi, metas, offset, length),))
+        if xlmeta_v1.is_v1(fi):
+            return fi, iter((self._read_v1_object(bucket, obj, fi)[
+                offset:offset + length],))
         return fi, pipeline.prefetch_map(
             lambda seg: self._read_part(bucket, obj, fi, *seg),
             self._plan_segments(fi, offset, length),
@@ -1096,6 +1118,77 @@ class ErasureSet:
         data = self._read_blocks(fi, fi.size, 0, b1, fetch,
                                  sorted(by_shard))
         return data[offset:offset + length].tobytes()
+
+    def _read_v1_object(self, bucket: str, obj: str, fi) -> bytes:
+        """The whole body of a legacy (xl.json) object.
+
+        v1 checksums are per drive: each drive's own xl.json holds the
+        whole-file digest of its shard of each part, so every drive's
+        document is read once.  A shard is trusted only when its drive's
+        digest verifies; one with no readable xl.json, no (or an empty)
+        digest, or the wrong length is treated as missing, never served
+        unverified.  The shard files of a part all have one length, so
+        each part's digests are one device call (one hh256 launch for
+        HighwayHash).  The shards are v1's blocks back to back, each
+        block's chunk ceil(block / k) bytes with a shorter last block;
+        missing data rows are rebuilt on the device from the first k
+        trusted shards, one GF call per chunk size."""
+        ec = fi.erasure
+        k, m, bs = ec.data_blocks, ec.parity_blocks, ec.block_size
+        dist = ec.distribution
+        own = [sums if e is None else None for sums, e in self._map_drives(
+            lambda d: xlmeta_v1.parse_xl_json(
+                d.read_all(bucket, f"{obj}/{xlmeta_v1.XL_JSON}"),
+                bucket, obj).erasure.checksums)]
+        out = bytearray()
+        for part in fi.parts:
+            name = f"part.{part.number}"
+            full, last = divmod(part.size, bs)
+            groups = [(bs, full)] if full else []
+            if last:
+                groups.append((last, 1))
+            expect = sum(n * -(-cur // k) for cur, n in groups)
+
+            def read_row(pos, d):
+                want = next((c for c in own[pos] or () if c.get("name") == name
+                             and c.get("hash")), None)
+                if want is None or pos >= len(dist):
+                    return None                    # unverifiable shard
+                raw = d.read_file(bucket, f"{obj}/{name}")
+                return (want, raw) if len(raw) == expect else None
+
+            by_algo: dict[str, list] = {}
+            for pos, (got, err) in enumerate(self._map_positions(read_row)):
+                if err is None and got is not None:
+                    by_algo.setdefault(got[0].get("algo", "highwayhash256"),
+                                       []).append((pos, got))
+            trusted: dict[int, bytes] = {}
+            for algo, rows in by_algo.items():
+                digests = bitrot_io.whole_file_digests(
+                    [raw for _, (_, raw) in rows], algo, self.device)
+                for (pos, (want, raw)), dg in zip(rows, digests):
+                    if dg == want["hash"]:
+                        trusted[dist[pos] - 1] = raw
+            if len(trusted) < k:
+                raise ErrErasureReadQuorum(
+                    f"{bucket}/{obj} part {part.number} (v1): "
+                    f"{len(trusted)}/{k} shards verified")
+            sel = tuple(sorted(trusted)[:k])
+            missing = tuple(s for s in range(k) if s not in trusted)
+            rows_np = [np.frombuffer(trusted[s], dtype=np.uint8) for s in sel]
+            off = 0
+            for cur, n in groups:
+                chunk = -(-cur // k)
+                x = np.empty((n, k, chunk), dtype=np.uint8)
+                for i, r in enumerate(rows_np):
+                    x[:, i] = r[off:off + n * chunk].reshape(n, chunk)
+                off += n * chunk
+                rebuilt = (_host(fused.transform(x, k, m, sel, missing,
+                                                 device=self.device))
+                           if missing else None)
+                y = _data_rows(x, rebuilt, sel, missing, k)
+                out += y.reshape(n, k * chunk)[:, :cur].tobytes()
+        return bytes(out)
 
     def _read_part(self, bucket, obj, fi, part_number: int, offset: int,
                    length: int, report: dict | None = None) -> np.ndarray:
@@ -1387,15 +1480,17 @@ class ErasureSet:
         A rebuild goes through the coalescer under ("vt", ...), a plain
         verify under ("digest", algo, S) on a card, and on the CPU while
         the lane is hot (the reference's `use_co` rule); otherwise, or
-        when a handle fails, it is the direct call."""
+        when a handle fails, it is the direct call.  A host-route
+        algorithm's plain verify is hashlib's on the host: its rows never
+        go to the device."""
         b, _, s = x.shape
         h = None
         if co is not None and missing:
             h = co.submit(("vt", k, m, sel, missing, algo, s), x,
                           vt_kernel(k, m, sel, missing, algo, self.device),
                           weight=b, device=self.device)
-        elif co is not None and (self.device.type == "cuda"
-                                 or co.hot(self.device)):
+        elif co is not None and not fused.is_host_algo(algo) and (
+                self.device.type == "cuda" or co.hot(self.device)):
             h = co.submit(("digest", algo, s), x.reshape(b * k, s),
                           coalesce.make_digest_kernel(algo, self.device),
                           weight=b, device=self.device)
@@ -1707,10 +1802,8 @@ class ErasureSet:
         readAllFileInfo + findFileInfoInQuorum,
         cmd/erasure-metadata-utils.go).
 
-        Objects in the legacy xl.json format are not read here: that
-        format waits for its module (storage/xlmeta_v1.py, ROADMAP.md
-        Queue A item 8), and an xl.meta object's history does not
-        depend on it."""
+        Where no drive holds an xl.meta, a legacy object's xl.json is one
+        unversioned entry per drive that has it."""
         lists: list[list[FileInfo]] = []
         for raw, err in self._map_drives(
                 lambda d: d.read_all(bucket, f"{obj}/xl.meta")):
@@ -1721,6 +1814,17 @@ class ErasureSet:
                                                                   obj))
             except StorageError:
                 continue
+        if not lists:
+            for raw, err in self._map_drives(lambda d: d.read_all(
+                    bucket, f"{obj}/{xlmeta_v1.XL_JSON}")):
+                if err is not None or raw is None:
+                    continue
+                try:
+                    fi = xlmeta_v1.parse_xl_json(raw, bucket, obj)
+                except StorageError:
+                    continue
+                fi.is_latest = True
+                lists.append([fi])
         if not lists:
             raise ErrObjectNotFound(f"{bucket}/{obj}")
         counts: dict[tuple, int] = {}

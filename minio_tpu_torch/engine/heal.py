@@ -21,7 +21,9 @@ JAX package's heal leaves:
   own shard size.  Both calls go through the coalescer (ops/coalesce.py)
   under ("vt", ...) and ("digest", ...), so concurrent heals and degraded
   GETs of the same geometry share launches; a failed handle is
-  recomputed by the direct call.  A batch whose verified data rows are
+  recomputed by the direct call.  A sha256 or blake2b512 part (no device
+  program) is verified and framed with hashlib's digests on the host
+  while its rows are still rebuilt on the device.  A batch whose verified data rows are
   resident in the device shard cache (ops/devcache.py, filled by healthy
   GETs) is rebuilt from their tensor on the card, with no source read
   used and no copy of them to the card after the first.  The frames are appended to a staging file per target
@@ -580,7 +582,8 @@ class _PartRebuild:
             rows = rebuilt.transpose(0, 1).contiguous()   # (T, nb, s_len)
         flat = rows.reshape(t * nb, s_len)
         digests = None
-        if co is not None and isinstance(rows, np.ndarray):
+        if co is not None and isinstance(rows, np.ndarray) \
+                and not fused.is_host_algo(algo):
             h = co.submit(("digest", algo, s_len), flat,
                           coalesce.make_digest_kernel(algo, es.device),
                           weight=nb, device=es.device)

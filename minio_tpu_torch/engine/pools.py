@@ -7,7 +7,7 @@ else to the pool with the most free space, ties to the lowest index
 (getPoolIdx, :373); reads and deletes probe the pools in order;
 listings merge the pools'; a multipart upload id carries its pool.
 
-Left out: decommission and `set_draining` (ROADMAP.md Queue A item 9),
+Left out: decommission and `set_draining` (ROADMAP.md Queue A item 9b),
 with the draining-aware read and delete paths they need, and adding a
 pool to a running deployment.
 """

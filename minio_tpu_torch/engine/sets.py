@@ -35,7 +35,13 @@ class ErasureSets:
                  set_drive_count: int,
                  default_parity: int | None = None,
                  deployment_id: str | None = None,
-                 device=None):
+                 device=None, nslock=None,
+                 preloaded_format: dict | None = None):
+        """`nslock` is one namespace lock map for every set (the cluster
+        boot's dsync map; None gives each set its own local one).
+        `preloaded_format` is a format the cluster boot already loaded
+        and verified (wait_format): it skips a second scan of the whole
+        deployment, one RPC per remote drive."""
         if set_drive_count < 2:
             raise ValueError("set_drive_count must be >= 2")
         if len(drives) % set_drive_count != 0:
@@ -46,7 +52,8 @@ class ErasureSets:
         self.set_count = len(drives) // set_drive_count
         rows = [drives[i * set_drive_count:(i + 1) * set_drive_count]
                 for i in range(self.set_count)]
-        fmt = init_format_sets(rows, deployment_id)
+        fmt = (preloaded_format if preloaded_format is not None
+               else init_format_sets(rows, deployment_id))
         self.deployment_id = fmt["id"]
         self._dep_key = uuid.UUID(self.deployment_id).bytes
         self.sets: list[ErasureSet] = []
@@ -54,7 +61,7 @@ class ErasureSets:
             for i, row in enumerate(rows):
                 self.sets.append(ErasureSet(
                     row, default_parity=default_parity, set_index=i,
-                    device=device))
+                    device=device, nslock=nslock))
         except BaseException:
             self.close()
             raise

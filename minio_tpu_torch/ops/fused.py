@@ -29,7 +29,13 @@ when nothing is coalesced and are at most the items otherwise.
 The digest is the object's recorded bitrot algorithm: mxh256
 (ops/mxhash_torch.py) or HighwayHash-256 (ops/highwayhash_cuda.py, the
 hand-written kernel on the card).  sha256 and blake2b512 have no device
-program, here or in the JAX package.
+program, here or in the JAX package: they take the host route
+(`HOST_ALGOS`, hashlib through storage/bitrot_io.host_hash_batch), chosen
+by the algorithm and never as a fallback, while the GF(2^8) work of the
+same call still runs on the device.  The digests of a host-route call
+are a CPU tensor, taken from the host copy of the input when the caller
+passed one.  `check_algo` is the gate of the device digests: any other
+name raises.
 """
 
 from __future__ import annotations
@@ -39,6 +45,9 @@ import threading
 
 import torch
 
+import numpy as np
+
+from ..storage import bitrot_io
 from . import devices
 from .erasure_torch import ReedSolomon
 from .highwayhash import MAGIC_KEY
@@ -47,15 +56,18 @@ from .mxhash_torch import mxh256_rows
 
 # Algorithms with a device digest (usable in the fused programs).
 DEVICE_ALGOS = ("mxh256", "highwayhash256S", "highwayhash256")
+#: Algorithms with no device program: their digests are hashlib's.
+HOST_ALGOS = bitrot_io.HOST_ALGOS
 
 #: Work items per kernel since the last reset (see the module docstring).
 ITEMS = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
 _ITEMS_LOCK = threading.Lock()
 
 
-def _count_items(algo: str, gf: bool, items: int) -> None:
+def _count_items(algo: str | None, gf: bool, items: int) -> None:
     with _ITEMS_LOCK:
-        ITEMS["mxh256" if algo == "mxh256" else "hh256"] += items
+        if algo is not None and algo not in HOST_ALGOS:
+            ITEMS["mxh256" if algo == "mxh256" else "hh256"] += items
         if gf:
             ITEMS["gf_matmul"] += items
 
@@ -72,6 +84,23 @@ def check_algo(algo: str) -> None:
         raise NotImplementedError(
             f"bitrot algorithm {algo!r} has no device program (device "
             f"digests: {', '.join(DEVICE_ALGOS)})")
+
+
+def is_host_algo(algo: str) -> bool:
+    """Whether `algo` takes the host route; otherwise `check_algo` must
+    pass (an unknown name raises)."""
+    if algo in HOST_ALGOS:
+        return True
+    check_algo(algo)
+    return False
+
+
+def _host_digests(x, algo: str) -> torch.Tensor:
+    """(..., S) rows (numpy, or a tensor on any device) -> (..., hs)
+    hashlib digests as a CPU tensor."""
+    a = x if isinstance(x, np.ndarray) else x.cpu().numpy()
+    d = bitrot_io.host_hash_batch(a.reshape(-1, a.shape[-1]), algo)
+    return torch.from_numpy(d.reshape(*a.shape[:-1], d.shape[-1]))
 
 
 @functools.lru_cache(maxsize=64)
@@ -92,8 +121,12 @@ def _digest_rows(x: torch.Tensor, algo: str) -> torch.Tensor:
 
 def hash_rows(x, algo: str, device=None, items: int = 1) -> torch.Tensor:
     """((N, S) rows) -> (N, 32) digests on the device (None means the
-    CUDA card; "cpu" runs the plain versions)."""
-    check_algo(algo)
+    CUDA card; "cpu" runs the plain versions); a host-route algorithm's
+    (N, hs) digests on the host."""
+    if is_host_algo(algo):
+        if len(getattr(x, "shape", ())) != 2:
+            raise ValueError("hash_rows takes (N, S) rows")
+        return _host_digests(x, algo)
     xt = devices.put(x, devices.resolve(device))
     if xt.dim() != 2:
         raise ValueError(f"hash_rows takes (N, S) rows, got "
@@ -108,15 +141,21 @@ def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None,
 
     The PUT program: parity and the bitrot digest of every shard-block in
     one pass over the device copy of `x`.  Results are tensors on the
-    device (None means the CUDA card; "cpu" runs the plain versions).
+    device (None means the CUDA card; "cpu" runs the plain versions),
+    but a host-route algorithm's digests, which are on the host.
     """
-    check_algo(algo)
+    host = is_host_algo(algo)
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
     _count_items(algo, True, items)
     parity = _codec(k, m, str(dev)).encode_blocks(xt)
-    # One digest launch over all K+M rows of the batch.
-    digests = _digest_rows(torch.cat([xt, parity], dim=1), algo)
+    if host:
+        digests = torch.cat([_host_digests(x if isinstance(x, np.ndarray)
+                                           else xt, algo),
+                             _host_digests(parity, algo)], dim=1)
+    else:
+        # One digest launch over all K+M rows of the batch.
+        digests = _digest_rows(torch.cat([xt, parity], dim=1), algo)
     return parity, digests.transpose(0, 1).contiguous()
 
 
@@ -128,9 +167,18 @@ def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
     Digests are of the INPUT rows (the caller compares them with the
     frame hashes); rebuilt rows are the GF transform sources -> targets,
     parity rows included.  With no targets only the digest runs and the
-    second result is None.
+    second result is None.  A host-route algorithm's digests are hashed
+    on the host, and with no targets nothing goes to the device.
     """
-    check_algo(algo)
+    if is_host_algo(algo):
+        digests = _host_digests(x, algo)
+        if not targets:
+            return digests, None
+        dev = devices.resolve(device)
+        xt = devices.put(x, dev)
+        _count_items(algo, True, items)
+        return digests, _codec(k, m, str(dev)).transform_blocks(
+            xt, tuple(sources), tuple(targets))
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
     _count_items(algo, bool(targets), items)
@@ -140,3 +188,17 @@ def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
     out = _codec(k, m, str(dev)).transform_blocks(xt, tuple(sources),
                                                   tuple(targets))
     return digests, out
+
+
+def transform(x, k: int, m: int, sources: tuple[int, ...],
+              targets: tuple[int, ...], device=None,
+              items: int = 1) -> torch.Tensor:
+    """((B, K, S) rows of shards `sources`) -> (B, T, S) rows of shards
+    `targets` on the device: the GF(2^8) program alone, for legacy
+    whole-file objects, whose digests cover whole shard files and were
+    checked before (storage/bitrot_io.whole_file_digests)."""
+    dev = devices.resolve(device)
+    xt = devices.put(x, dev)
+    _count_items(None, True, items)
+    return _codec(k, m, str(dev)).transform_blocks(xt, tuple(sources),
+                                                   tuple(targets))

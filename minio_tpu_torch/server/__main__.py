@@ -35,6 +35,17 @@ ellipsis group is one pool too (`--drives '/a{1...4} /b{1...4}'`),
 plain paths without ellipses make one pool together.  The sets run on
 the card (`--device cpu` runs them, and the self-tests, on the host, for
 tests); without CUDA and without that flag the boot raises.
+
+URL endpoints (`--drives 'http://127.0.0.1:9001/d{1...4}
+http://127.0.0.1:9002/d{1...4}'`, every node given the same list and its
+own --port) boot one node of a cluster (server/cluster.py): the
+self-tests on this node's card, the front door with the RPC planes,
+the format wait (MTPU_BOOT_TIMEOUT seconds, default 120), the peers'
+verify, then the object layer over local and remote drives with a dsync
+namespace lock.  MTPU_WORKERS is ignored there (one process per node),
+https endpoints need --certs-dir and --certs-dir needs https endpoints,
+and no hot tier is attached.  A service restart (admin) boots the node
+again; SIGTERM drains and exits 0.
 """
 
 from __future__ import annotations
@@ -47,8 +58,8 @@ import threading
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = ("cluster boot, pool topology, decommission and the scanner, "
-            "in one process and in the worker pool's worker 0 (item 9); "
+LEFT_OUT = ("pool topology, decommission and the scanner, in one process, "
+            "in the worker pool's worker 0 and on a cluster node (item 9b); "
             "notifications, replication and tiering (item 10)")
 
 
@@ -121,19 +132,25 @@ def main(argv: list[str] | None = None) -> int:
                   file=sys.stderr)
             return 2
         certs = (cert, key)
-    pool_paths = parse_pool_paths([g.split() for g in args.drives])
-    if pool_paths is None:
-        return 2
-
+    drive_groups = [g.split() for g in args.drives]
+    endpoint_args = [a for g in drive_groups for a in g]
     creds = (os.environ.get("MTPU_ROOT_USER", "minioadmin"),
              os.environ.get("MTPU_ROOT_PASSWORD", "minioadmin"))
+    from .workers import nworkers_env
+    nworkers = nworkers_env()
+    if any("://" in a for a in endpoint_args):
+        if nworkers:
+            print("minio_tpu_torch: MTPU_WORKERS ignored in cluster mode "
+                  "(one process per node)", file=sys.stderr, flush=True)
+        return cluster_main(args, drive_groups, endpoint_args, creds, certs)
+    pool_paths = parse_pool_paths(drive_groups)
+    if pool_paths is None:
+        return 2
     # The pre-fork worker pool (server/workers.py): MTPU_WORKERS=N forks
     # one device owner and N SO_REUSEPORT HTTP workers.  The branch sits
     # before any import that loads torch: CUDA must never be initialised
     # in a process that forks, so the supervisor stays light and each
     # child builds its own stack.
-    from .workers import nworkers_env
-    nworkers = nworkers_env()
     if nworkers:
         from .workers import run_pool
         return run_pool(nworkers, pool_paths, creds, args.host, args.port,
@@ -194,6 +211,75 @@ def main(argv: list[str] | None = None) -> int:
             d.close()
         pools.close()
     return 0
+
+
+def cluster_main(args, drive_groups: list[list[str]],
+                 endpoint_args: list[str], creds: tuple[str, str],
+                 certs) -> int:
+    """One node of a cluster (cf. the serverMain distributed path,
+    cmd/server-main.go:441): the self-tests on this node's device, then
+    boot_cluster_node, then serve until a signal; a service restart
+    boots the node again (format adopt and peer verify run again)."""
+    if certs is not None and not all(a.startswith("https://")
+                                     for a in endpoint_args):
+        # TLS without https endpoints would serve the planes over TLS
+        # while the peers dial plaintext: fail, never downgrade.
+        print("--certs-dir requires https:// cluster endpoints",
+              file=sys.stderr)
+        return 2
+    if certs is None and any(a.startswith("https://")
+                             for a in endpoint_args):
+        print("https:// endpoints require --certs-dir", file=sys.stderr)
+        return 2
+    from . import boot
+    from .cluster import boot_cluster_node
+    from .server import S3Server
+    from .sigv4 import Credentials
+
+    print(boot.self_tests(args.device), flush=True)
+    root = Credentials(*creds)
+
+    def factory(node):
+        srv = S3Server(None, root, host=args.host, port=args.port,
+                       certs=certs, rpc_router=node.router).start()
+        print(f"minio_tpu_torch cluster node on {srv.endpoint} "
+              f"(first={node.is_first}, {len(node.local_drives)} local / "
+              f"{len(node.endpoints)} total drives, "
+              f"set={node.set_drive_count}): waiting for the cluster",
+              flush=True)
+        return srv
+
+    stop = threading.Event()
+    install_signal_handlers(stop)
+    while True:
+        try:
+            node, srv, pools = boot_cluster_node(
+                drive_groups if len(drive_groups) > 1 else endpoint_args,
+                args.host, args.port, root,
+                set_drive_count=args.set_drive_count,
+                server_factory=factory, certs_dir=args.certs_dir,
+                timeout=float(os.environ.get("MTPU_BOOT_TIMEOUT", "120")),
+                device=args.device)
+        except Exception as e:  # noqa: BLE001 — the boot's verdict
+            print(f"minio_tpu_torch: cluster boot failed: {e}",
+                  file=sys.stderr, flush=True)
+            return 1
+        device = pools.pools[0].sets[0].device
+        print(f"minio_tpu_torch cluster node ready on {srv.endpoint} "
+              f"(deployment ok; sets on {device})", flush=True)
+        print(boot.sweep_line(node.swept), flush=True)
+        print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
+        while not stop.wait(timeout=1.0):
+            if srv.service_event:
+                break
+        restart = srv.service_event == "restart"
+        srv.drain()
+        srv.shutdown()
+        node.close()
+        pools.close()
+        if not restart or stop.is_set():
+            return 0
+        print("minio_tpu_torch: service restart requested", flush=True)
 
 
 if __name__ == "__main__":

@@ -12,14 +12,26 @@ PUTs and parts stream from the socket into the erasure engine; GETs
 stream back in device batches.  Browser POST-policy uploads carry their
 own signature and are authorized from the form.
 
-The admin API serves IAM's users, groups, policies and service accounts;
+The admin API serves IAM's users, groups, policies and service accounts,
+and heal sequences (`heal`: POST starts one, GET lists their status);
 POST / is STS (AssumeRole, WebIdentity and ClientGrants through OIDC,
 LDAPIdentity, Certificate over mTLS).  What answers NotImplemented, with
 its ROADMAP.md Queue A item: the other admin endpoints, metrics (but
-the worker pool's, the hot tier's, the metadata plane's and the
-admission plane's families at /minio/v2/metrics/node)
-and listen (item 10); cluster health (item 9).  Spans, the rest of the
-metrics, the audit trail and federation stay in the JAX package for now.
+the worker pool's, the hot tier's, the metadata plane's, the admission
+plane's and a cluster node's families at /minio/v2/metrics/node) and
+listen (item 10); pool topology and decommission (item 9b).  Spans, the
+rest of the metrics, the audit trail and federation stay in the JAX
+package for now.
+
+A cluster node (server/cluster.py) mounts its RPC router
+(`rpc_router`): POST /minio/rpc/... goes to the storage, lock and peer
+planes with their bearer token and msgpack, before the drain gate,
+admission and S3 auth, as the reference serves them on its main port.
+Its front door starts before the object layer exists: until
+`bind_object_layer`, S3 requests answer 503 ServerNotInitialized and
+/minio/health/ready 503.  /minio/health/cluster answers 200 while every
+erasure set keeps write quorum (observe/health.py), with `maintenance=N`
+counting N more drives as gone.
 
 Admission (server/qos.py) runs around dispatch, after the drain gate:
 every request but /minio/health/, /minio/admin/, /minio/v2/metrics and
@@ -56,6 +68,7 @@ from ..iam.iam import Identity
 from ..iam.ldap import LDAPError
 from ..iam.oidc import OIDCError
 from ..iam.policy import Policy, PolicyError
+from ..observe.health import cluster_health
 from ..ops import zerocopy as zc
 from ..utils import streams
 from . import postpolicy, qos as _qos, sigv2
@@ -211,13 +224,26 @@ def qos_families(out: list, plane) -> None:
 
 
 def node_families(tier, worker_id: int | None = None,
-                  kernels: bool = False, qos_plane=None) -> str:
+                  kernels: bool = False, qos_plane=None,
+                  cluster_node=None) -> str:
     """The hot tier's families (pool-wide: its counters live in shared
     memory), the admission plane's (pool-wide too), this process's
     zero-copy sends and metadata plane (each labelled with the worker in
-    a pool) and, with `kernels`, this process's kernel launches and
-    items."""
+    a pool), a cluster node's peer liveness and RPC client counters and,
+    with `kernels`, this process's kernel launches and items."""
     out: list[str] = []
+    if cluster_node is not None:
+        from ..rpc import rest
+        peers = cluster_node.peer_info()
+        _family(out, "mtpu_peer_online", "Peer node answering its RPC planes",
+                [({"peer": p["endpoint"]}, int(p["online"])) for p in peers])
+        _family(out, "mtpu_peer_transitions_total",
+                "Online/offline flips of the peer's RPC endpoint",
+                [({"peer": p["endpoint"]}, p["transitions"]) for p in peers])
+        rs = rest.stats()
+        _family(out, "mtpu_rpc_retries_total",
+                "Idempotent RPCs retried on a transient transport fault",
+                [({}, rs["retries"])])
     if qos_plane is not None:
         qos_families(out, qos_plane)
     if tier is not None:
@@ -268,13 +294,20 @@ class S3Server:
     `worker_id` let it count its requests, flag its drain and serve the
     pool's Prometheus families at /minio/v2/metrics/node."""
 
-    def __init__(self, pools: ServerPools, creds: Credentials,
+    def __init__(self, pools: ServerPools | None, creds: Credentials,
                  host: str = "127.0.0.1", port: int = 0,
                  certs: tuple[str, str] | None = None, iam=None,
                  oidc=None, ldap=None, client_ca: str | None = None,
                  reuse_port: bool = False, worker_plane=None,
-                 worker_id: int | None = None):
+                 worker_id: int | None = None, rpc_router=None):
         self.pools = pools
+        # A cluster node's RPC planes, served under this port; its
+        # ClusterNode (set by server/cluster.boot_cluster_node) gives the
+        # peers' liveness to the metrics.
+        self.rpc_router = rpc_router
+        self.cluster_node = None
+        self.service_event = ""            # "" | "restart" | "stop"
+        self.heal_state = None
         self.worker_plane = worker_plane
         self.worker_id = worker_id
         self.creds = creds                 # root credentials (policy bypass)
@@ -282,7 +315,7 @@ class S3Server:
         self.oidc = oidc
         self.ldap = ldap
         self.client_ca = client_ca
-        self.handlers = S3Handlers(pools)
+        self.handlers = S3Handlers(pools) if pools is not None else None
         # Overload plane (server/qos.py): the process-tree singleton; in
         # the pool the supervisor made it before the fork, so every
         # worker draws on one cap.
@@ -424,6 +457,21 @@ class S3Server:
                 # response mid-stream.
                 path = urllib.parse.unquote(
                     urllib.parse.urlsplit(self.path).path)
+                if path.startswith("/minio/rpc/") and \
+                        outer.rpc_router is not None:
+                    # An inter-node plane: its bearer token and msgpack,
+                    # no S3 signature (cf. the storage REST server's
+                    # auth, cmd/storage-rest-server.go).
+                    length = int(self.headers.get("Content-Length",
+                                                  0) or 0)
+                    body = self.rfile.read(length) if length else b""
+                    status, out = outer.rpc_router.handle(
+                        path, self.headers.get("Authorization", ""), body)
+                    self.request_id = secrets.token_hex(8)
+                    self._respond(Response(
+                        status, out,
+                        {"Content-Type": "application/msgpack"}))
+                    return
                 if outer.draining and not path.startswith("/minio/health/"):
                     self.request_id = secrets.token_hex(8)
                     resp = error_response(
@@ -491,10 +539,13 @@ class S3Server:
                 query = urllib.parse.parse_qs(parsed.query,
                                               keep_blank_values=True)
                 try:
+                    if outer.handlers is None and \
+                            not path.startswith("/minio/health/"):
+                        raise S3Error("ServerNotInitialized")
                     if path.startswith("/minio/") and \
                             not path.startswith("/minio/admin/") and \
                             path != "/minio/listen":
-                        resp = outer._dispatch_internal(path)
+                        resp = outer._dispatch_internal(path, query)
                     else:
                         resp = outer._dispatch(self, path, query)
                 except S3Error as e:
@@ -822,32 +873,48 @@ class S3Server:
 
     # -- dispatch ------------------------------------------------------------
 
-    def _dispatch_internal(self, path: str) -> Response:
+    def bind_object_layer(self, pools: ServerPools, iam=None) -> None:
+        """Install the object layer after a cluster boot: the listener
+        was up first so that peers reached this node's planes while it
+        waited for the format (cf. cmd/server-main.go:441)."""
+        self.handlers = S3Handlers(pools)
+        if iam is not None:
+            self.iam = iam
+        self.pools = pools
+
+    def _dispatch_internal(self, path: str, query: dict) -> Response:
         """Unauthenticated infra endpoints (cf.
         cmd/healthcheck-handler.go)."""
         if path == "/minio/health/live":
             return Response(200)
         if path == "/minio/health/ready":
-            # ready = serving and not draining: load balancers stop
-            # routing here first.
+            # ready = the object layer bound and not draining: load
+            # balancers stop routing here first.
             if self.draining:
                 return Response(503, headers={"Retry-After": "1"})
-            return Response(200)
+            return Response(200 if self.pools is not None else 503)
+        if self.pools is None:
+            return Response(503)
         if path == "/minio/health/cluster":
-            raise unported("cluster health", "9")
+            maint = int(query.get("maintenance", ["0"])[0] or 0)
+            ok, detail = cluster_health(self.pools, maint)
+            return Response(200 if ok else 503, json.dumps(detail).encode(),
+                            {"Content-Type": "application/json"})
         tier = getattr(self.pools, "hot_tier", None)
         if path == "/minio/v2/metrics/node" and (
-                self.worker_plane is not None or tier is not None):
-            # The worker pool's families, the hot tier's and this
-            # process's zero-copy sends (with its kernels' launches and
-            # items outside a pool, whose plane carries them); the
-            # registry's others wait for observe/ (ROADMAP Queue A item
-            # 10).
+                self.worker_plane is not None or tier is not None
+                or self.cluster_node is not None):
+            # The worker pool's families, the hot tier's, a cluster
+            # node's peers and this process's zero-copy sends (with its
+            # kernels' launches and items outside a pool, whose plane
+            # carries them); the registry's others wait for observe/
+            # (ROADMAP Queue A item 10).
             text = (self.worker_plane.render_prom()
                     if self.worker_plane is not None else "")
             text += node_families(
                 tier, self.worker_id, kernels=self.worker_plane is None,
-                qos_plane=self.qos if _qos.qos_enabled() else None)
+                qos_plane=self.qos if _qos.qos_enabled() else None,
+                cluster_node=self.cluster_node)
             return Response(200, text.encode(),
                             {"Content-Type": "text/plain; version=0.0.4"})
         if path.startswith("/minio/v2/metrics/"):
@@ -1162,6 +1229,11 @@ class S3Server:
         NotImplemented (item 10)."""
         sub = path[len("/minio/admin/v1/"):].strip("/")
         self._admin_authorize(access_key, sub, method)
+        if sub == "heal":
+            return self._admin_heal(method, query)
+        if sub == "service" and method == "POST" and \
+                self.cluster_node is not None:
+            return self._admin_service(query)
         handler = {"users": self._admin_users,
                    "service-accounts": self._admin_service_accounts,
                    "policies": self._admin_policies,
@@ -1178,6 +1250,39 @@ class S3Server:
             raise S3Error("MethodNotAllowed",
                           f"unknown admin endpoint {sub!r}")
         return resp
+
+    def _admin_service(self, query: dict) -> Response:
+        """A cluster node's service action (cf. ServiceHandler,
+        cmd/admin-handlers.go): `restart` and `stop` are recorded in
+        `service_event`, and the node's serve loop
+        (server/__main__.cluster_main) drains, shuts down and, on a
+        restart, boots the node again."""
+        action = query.get("action", ["status"])[0]
+        if action == "status":
+            return _json({"action": "status",
+                          "serviceEvent": self.service_event,
+                          "at": time.time()})
+        if action not in ("restart", "stop"):
+            raise S3Error("InvalidArgument",
+                          f"unknown service action {action!r}")
+        self.service_event = action
+        return _json({"action": action, "acknowledged": True,
+                      "at": time.time()})
+
+    def _admin_heal(self, method: str, query: dict) -> Response:
+        """Heal sequences (background/heal_ops.py, the allHealState
+        role): POST starts one over `bucket` / `prefix` (`deep=true`
+        verifies every frame), GET lists every sequence's status."""
+        if self.heal_state is None:
+            from ..background.heal_ops import HealState
+            self.heal_state = HealState(self.pools)
+        if method == "POST":
+            seq = self.heal_state.launch(
+                bucket=query.get("bucket", [""])[0],
+                prefix=query.get("prefix", [""])[0],
+                deep=query.get("deep", [""])[0] == "true")
+            return _json(seq.status())
+        return _json({"sequences": self.heal_state.statuses()})
 
     def _admin_users(self, method, arg, req) -> Response | None:
         if method == "GET":

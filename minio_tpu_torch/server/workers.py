@@ -79,7 +79,7 @@ tier's, the arenas', the slab's, the stripes') is an ops/shm_lock
 robust mutex: a worker killed inside one leaves no other blocked.
 
 Left out (with its ROADMAP.md Queue A item): worker 0's topology,
-decommission and scanner (item 9).
+decommission and scanner (item 9b).
 
 `MTPU_WORKERS=0` (the default) never enters this module: one process
 remains the oracle.

@@ -52,7 +52,9 @@ import time
 import uuid
 import zlib
 
-from . import diskio
+import numpy as np
+
+from . import bitrot_io, diskio, xlmeta_v1
 from .errors import (ErrDiskNotFound, ErrFileAccessDenied, ErrFileCorrupt,
                      ErrFileNotFound, ErrFileVersionNotFound,
                      ErrIsNotRegular, ErrPathNotFound, ErrVolumeExists,
@@ -76,6 +78,8 @@ _SEG_MAGIC = b"MJ01"
 # Objects <= this are stored inline in xl.meta (cf. smallFileThreshold,
 # cmd/xl-storage.go:59).
 SMALL_FILE_THRESHOLD = 128 * 1024
+#: frames a verify_file device call takes at once
+_VERIFY_FRAMES = 32
 
 _STATS_MU = threading.Lock()
 _STATS = {"vectored_writes": 0, "vectored_write_bytes": 0,
@@ -266,6 +270,20 @@ class LocalDrive:
             f.flush()
             diskio.write_done(f.fileno(), len(buf))
 
+    def create_file(self, vol: str, path: str, data) -> None:
+        """Write a whole (bitrot-framed) shard file, parents created, and
+        sync it (the JAX drive's create_file; the storage plane serves
+        it)."""
+        self._check_vol(vol)
+        p = self._file_path(vol, path)
+        self._ensure_parent_in_vol(vol, p)
+        buf = memoryview(data).cast("B")
+        with open(p, "wb") as f:
+            f.write(buf)
+            f.flush()
+            if not diskio.write_done(f.fileno(), len(buf)):
+                os.fsync(f.fileno())
+
     def write_file_batches(self, vol: str, path: str, batches) -> None:
         """Vectored staged-shard append: every buffer in `batches` lands
         at EOF through ONE open + pwritev sequence instead of an
@@ -406,6 +424,59 @@ class LocalDrive:
         except (FileNotFoundError, NotADirectoryError):
             raise ErrPathNotFound(f"{vol}/{path}") from None
 
+    def list_dir(self, vol: str, path: str = "") -> list[str]:
+        """Entries directly under a prefix dir; directories get a trailing
+        slash, object dirs (holding xl.meta) count as entries."""
+        self._check_vol(vol)
+        p = self._file_path(vol, path) if path else self._vol_path(vol)
+        try:
+            names = sorted(os.listdir(p))
+        except (FileNotFoundError, NotADirectoryError):
+            raise ErrPathNotFound(f"{vol}/{path}") from None
+        out = []
+        for name in names:
+            full = os.path.join(p, name)
+            if os.path.isdir(full):
+                out.append(name if os.path.isfile(
+                    os.path.join(full, XL_META_FILE)) else name + "/")
+        return out
+
+    def verify_file(self, vol: str, path: str, shard_size: int,
+                    expected_logical: int | None = None,
+                    algo: str = bitrot_io.DEFAULT_ALGO,
+                    device=None) -> None:
+        """Full-file bitrot verification (cf. VerifyFile,
+        cmd/xl-storage.go:2194): every frame's digest through the device
+        programs (ops/fused.hash_rows, the host route for sha256) on
+        `device`, None meaning the CUDA card; the storage plane passes
+        its node's.  Raises ErrFileCorrupt."""
+        from ..ops import fused
+        buf = np.frombuffer(self.read_file(vol, path), dtype=np.uint8)
+        if expected_logical is not None:
+            want = bitrot_io.bitrot_shard_file_size(expected_logical,
+                                                    shard_size, algo)
+            if buf.size != want:
+                raise ErrFileCorrupt(f"size mismatch: {buf.size} != {want}")
+        hs = bitrot_io.digest_size(algo)
+        frame = hs + shard_size
+        n_full, rest = divmod(buf.size, frame)
+        if rest and rest <= hs:
+            raise ErrFileCorrupt("truncated bitrot frame")
+        for lo in range(0, n_full, _VERIFY_FRAMES):
+            nb = min(_VERIFY_FRAMES, n_full - lo)
+            hashes, blocks = bitrot_io.split_frames(buf[lo * frame:], nb,
+                                                    shard_size, algo)
+            got = fused.hash_rows(np.ascontiguousarray(blocks), algo,
+                                  device=device).cpu().numpy()
+            if not np.array_equal(got, hashes):
+                raise ErrFileCorrupt("bitrot hash mismatch")
+        if rest:
+            tail = buf[n_full * frame:]
+            got = fused.hash_rows(np.ascontiguousarray(tail[hs:])[None],
+                                  algo, device=device).cpu().numpy()
+            if got[0].tobytes() != tail[:hs].tobytes():
+                raise ErrFileCorrupt("bitrot hash mismatch (tail)")
+
     def walk_dir(self, vol: str, prefix: str = ""):
         """Yield (object name, xl.meta bytes) depth-first in lexical
         order of directory names (cf. WalkDir, cmd/metacache-walk.go:60).
@@ -529,8 +600,23 @@ class LocalDrive:
     def _read_version(self, vol: str, obj: str, version_id: str) -> FileInfo:
         # read_version's body, which read_version_many calls too: a test
         # drive that wraps the public method sees a batch's items once.
+        # Where no xl.meta exists it falls back to the legacy xl.json
+        # (format v1, the migration read path,
+        # cmd/xl-storage-format-v1.go).
         self._check_vol(vol)
-        return self._read_xlmeta(vol, obj).get(version_id, vol, obj)
+        try:
+            meta = self._read_xlmeta(vol, obj)
+        except ErrFileNotFound:
+            try:
+                raw = self.read_all(vol, os.path.join(obj, xlmeta_v1.XL_JSON))
+            except ErrFileNotFound:
+                raise ErrFileNotFound(f"{vol}/{obj}") from None
+            fi = xlmeta_v1.parse_xl_json(raw, vol, obj)
+            if version_id and fi.version_id != version_id:
+                raise ErrFileVersionNotFound(
+                    f"{vol}/{obj}@{version_id}") from None
+            return fi
+        return meta.get(version_id, vol, obj)
 
     def write_metadata(self, vol: str, obj: str, fi: FileInfo) -> None:
         """Add/replace one version in xl.meta.  A corrupt xl.meta starts
@@ -886,6 +972,9 @@ class LocalDrive:
         except FileNotFoundError:
             return
         shutil.rmtree(trash, ignore_errors=True)
+
+    def get_disk_id(self) -> str:
+        return self.disk_id
 
     def clear_tmp(self) -> None:
         tmp = os.path.join(self.root, SYS_VOL, TMP_DIR)

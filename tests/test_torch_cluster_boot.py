@@ -1,0 +1,236 @@
+"""Multi-process cluster boot of the port: `python -m minio_tpu_torch.server
+--device cpu` subprocesses over URL endpoints (`http://127.0.0.1:PORT/path`),
+as the JAX package's tests/test_cluster_boot.py boots its own, so format
+bootstrap, peer verify, the storage, lock and peer planes and a heal across
+processes run over real sockets between interpreters.  Plus read-after-write
+across nodes: a new version PUT through one node is what the other serves at
+once.  Every wait here has its own deadline, so a hung peer fails its test,
+not the run."""
+
+import glob
+import hashlib
+import json
+import os
+import shutil
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
+
+import numpy as np
+import pytest
+
+from minio_tpu_torch.server.client import S3Client
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BOOT_S = 90          # each node's boot, self-tests and format wait included
+
+
+def _free_ports(n):
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _wait_ready(port, procs, timeout=BOOT_S):
+    deadline = time.monotonic() + timeout
+    url = f"http://127.0.0.1:{port}/minio/health/ready"
+    while time.monotonic() < deadline:
+        if any(p.poll() is not None for p in procs):
+            raise RuntimeError("a node exited during the boot")
+        try:
+            with urllib.request.urlopen(url, timeout=2) as r:
+                if r.status == 200:
+                    return
+        except Exception:  # noqa: BLE001 — not up yet
+            pass
+        time.sleep(0.2)
+    raise TimeoutError(f"node on :{port} never became ready")
+
+
+def _env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["MTPU_BOOT_TIMEOUT"] = str(BOOT_S)
+    env.update(extra)
+    return env
+
+
+def _node(args, port, env, log):
+    return subprocess.Popen(
+        [sys.executable, "-m", "minio_tpu_torch.server", "--device", "cpu",
+         "--drives", " ".join(args), "--port", str(port)],
+        stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+
+
+def _stop(procs):
+    for pr in procs:
+        if pr.poll() is None:
+            pr.terminate()
+    for pr in procs:
+        try:
+            pr.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            pr.kill()
+            pr.wait(timeout=5)
+
+
+@pytest.fixture()
+def cluster(tmp_path):
+    """2 node processes x 4 drives -> one erasure set of 8."""
+    ports = _free_ports(2)
+    args = [f"http://127.0.0.1:{p}{tmp_path}/n{i}/d{{1...4}}"
+            for i, p in enumerate(ports, 1)]
+    procs, logs = [], []
+    try:
+        for i, p in enumerate(ports):
+            log = open(tmp_path / f"node{i}.log", "wb")
+            logs.append(log)
+            procs.append(_node(args, p, _env(), log))
+        for p in ports:
+            _wait_ready(p, procs)
+        yield ports, tmp_path
+    finally:
+        _stop(procs)
+        for log in logs:
+            log.close()
+        for i in range(len(ports)):
+            sys.stderr.write(
+                (tmp_path / f"node{i}.log").read_text(errors="replace"))
+
+
+def payload(size, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, 256, size, dtype=np.uint8).tobytes()
+
+
+def _clients(ports):
+    return [S3Client(f"http://127.0.0.1:{p}", "minioadmin", "minioadmin",
+                     timeout=30) for p in ports]
+
+
+def test_boot_put_get_wipe_heal(cluster):
+    ports, tmp = cluster
+    c1, c2 = _clients(ports)
+    c1.make_bucket("clus")
+    blobs = {f"o{i}": payload(200_000 + i * 1000, seed=i) for i in range(3)}
+    blobs["inline"] = payload(5000, seed=9)
+    for name, data in blobs.items():
+        c1.put_object("clus", name, data)
+    for name, data in blobs.items():
+        assert c2.get_object("clus", name) == data
+    # Host-aware layout: shards on both nodes.
+    for node_dir in ("n1", "n2"):
+        assert [p for p in glob.glob(f"{tmp}/{node_dir}/d*/clus/**",
+                                     recursive=True) if os.path.isfile(p)]
+    st, _, body = c2.request("GET", "/minio/health/cluster")
+    assert st == 200 and json.loads(body)["sets"][0]["online"] == 8
+
+    victim = f"{tmp}/n2/d1"
+    for entry in os.listdir(victim):
+        shutil.rmtree(os.path.join(victim, entry), ignore_errors=True)
+    for name, data in blobs.items():
+        assert c1.get_object("clus", name) == data
+        assert c2.get_object("clus", name) == data
+
+    # A heal sequence started on node 1 restores node 2's drive over the
+    # storage plane.
+    st, _, body = c1.request("POST", "/minio/admin/v3/heal/", query={})
+    assert st == 200, body
+    deadline = time.monotonic() + 60
+    seqs = []
+    while time.monotonic() < deadline:
+        _, _, body = c1.request("GET", "/minio/admin/v3/heal/", query={})
+        seqs = json.loads(body)["sequences"]
+        if seqs and seqs[-1]["state"] in ("done", "failed"):
+            break
+        time.sleep(0.25)
+    assert seqs and seqs[-1]["state"] == "done", seqs
+    assert not seqs[-1]["failures"], seqs
+    restored = [p for p in glob.glob(f"{victim}/**", recursive=True)
+                if os.path.isfile(p)]
+    assert any("clus/" in p and p.endswith("xl.meta") for p in restored)
+    assert os.path.exists(os.path.join(victim, ".mtpu.sys", "format.json"))
+    for name, data in blobs.items():
+        assert c1.get_object("clus", name) == data
+        assert c2.get_object("clus", name) == data
+
+    # The lists agree from both nodes.
+    names = sorted(blobs)
+    assert c1.list_objects("clus")[0] == names
+    assert c2.list_objects("clus")[0] == names
+
+
+def _etag(headers) -> str:
+    return {k.lower(): v for k, v in headers.items()}["etag"].strip('"')
+
+
+def test_read_after_write_across_nodes(cluster):
+    """A new version PUT through node 1 is what node 2 serves at once,
+    GET first or HEAD first, though node 2 read the old one just before
+    (its FileInfo cache holds it).  Both packages elect the metadata on
+    every S3 GET and HEAD, so neither serves the stale version here."""
+    ports, _ = cluster
+    c1, c2 = _clients(ports)
+    c1.make_bucket("raw")
+    for size in (200_000, 3000):                 # streamed and inline
+        key = f"k{size}"
+        old, new = payload(size, seed=size), payload(size, seed=size + 1)
+        c1.put_object("raw", key, old)
+        assert c2.get_object("raw", key) == old
+        c1.put_object("raw", key, new)
+        assert c2.get_object("raw", key) == new
+        st, hdrs, _ = c2.request("HEAD", f"/raw/{key}")
+        assert st == 200
+        assert _etag(hdrs) == hashlib.md5(new).hexdigest()
+        newer = payload(size, seed=size + 2)
+        c2.put_object("raw", key, newer)
+        st, hdrs, _ = c1.request("HEAD", f"/raw/{key}")
+        assert _etag(hdrs) == hashlib.md5(newer).hexdigest()
+        assert c1.get_object("raw", key) == newer
+
+
+def test_iam_change_through_one_node_reaches_the_other(cluster):
+    """A user added through node 1 signs requests to node 2 at once: IAM
+    broadcasts its reload over the peer plane, and the reload lists the
+    identities afresh (the JAX cluster boot builds its IAMSys without
+    the broadcast)."""
+    ports, _ = cluster
+    c1, c2 = _clients(ports)
+    c1.make_bucket("iamb")
+    c1.add_user("alice", "alice-secret-key", ["readwrite"])
+    alice2 = S3Client(f"http://127.0.0.1:{ports[1]}", "alice",
+                      "alice-secret-key", timeout=30)
+    alice2.put_object("iamb", "a", b"from alice")
+    assert c1.get_object("iamb", "a") == b"from alice"
+    c2.add_user("bob", "bob-secret-key", ["readwrite"])
+    bob1 = S3Client(f"http://127.0.0.1:{ports[0]}", "bob",
+                    "bob-secret-key", timeout=30)
+    assert bob1.get_object("iamb", "a") == b"from alice"
+
+
+def test_rejects_mixed_root_credentials(tmp_path):
+    """A node booted with other root credentials must not join: its
+    bearer token differs and bootstrap verify rejects it."""
+    ports = _free_ports(2)
+    args = [f"http://127.0.0.1:{p}{tmp_path}/m{i}/d{{1...4}}"
+            for i, p in enumerate(ports, 1)]
+    env = _env(MTPU_BOOT_TIMEOUT="6")
+    env2 = dict(env, MTPU_ROOT_USER="otheradmin",
+                MTPU_ROOT_PASSWORD="otherpassword")
+    p1 = _node(args, ports[0], env, subprocess.DEVNULL)
+    p2 = _node(args, ports[1], env2, subprocess.PIPE)
+    try:
+        rc2 = p2.wait(timeout=60)
+        out = p2.stdout.read().decode(errors="replace")
+        assert rc2 != 0, out
+        assert "cluster boot failed" in out
+    finally:
+        _stop([p1, p2])

@@ -281,13 +281,24 @@ def test_highwayhash_port_writes_jax_reads_same_bytes(tmp_path, geom, size,
 
 
 def test_sha256_still_has_no_device_program(tmp_path, monkeypatch):
+    """sha256 has no device program (the gate raises), so its objects
+    take the host route: the port reads the JAX package's and writes its
+    own with no device digest item, the GF work still on the device."""
+    from minio_tpu_torch.ops import fused
     paths = drive_paths(tmp_path, 4)
     monkeypatch.setenv("MTPU_BITROT_ALGO", "sha256")
     jes = JaxErasureSet([JaxLocalDrive(p) for p in paths])
     jes.make_bucket("bkt")
-    jes.put_object("bkt", "sha", body_of(5000))
+    body = body_of(5000)
+    jes.put_object("bkt", "sha", body)
+    with pytest.raises(NotImplementedError, match="no device program"):
+        fused.check_algo("sha256")
+    fused.reset_items()
     with ErasureSet([LocalDrive(p) for p in paths], device="cpu") as es:
-        with pytest.raises(NotImplementedError, match="sha256"):
-            es.get_object("bkt", "sha")
-        with pytest.raises(NotImplementedError, match="sha256"):
-            es.put_object("bkt", "new", b"abc")
+        assert es.get_object("bkt", "sha")[1] == body
+        fi = es.put_object("bkt", "new", b"abc" * 50_000)
+        assert fi.erasure.bitrot_algo() == "sha256"
+        assert es.get_object("bkt", "new")[1] == b"abc" * 50_000
+    assert fused.ITEMS["hh256"] == fused.ITEMS["mxh256"] == 0
+    assert fused.ITEMS["gf_matmul"] == 1     # the PUT's one encode
+    assert jes.get_object("bkt", "new")[1] == b"abc" * 50_000

@@ -117,9 +117,18 @@ def test_highwayhash_verify_detects_flipped_bit():
 
 @pytest.mark.parametrize("algo", ["sha256", "blake2b512"])
 def test_algorithms_without_a_device_program_raise(algo):
+    """The device-digest gate raises for them; the programs take the
+    host route instead (hashlib digests, equal to the JAX package's),
+    and a name with neither route still raises."""
+    from minio_tpu.storage import bitrot_io as jax_bitrot
     x = _blocks(1, 2, 64, seed=0)
     with pytest.raises(NotImplementedError, match="no device program"):
-        fused.verify_and_transform(x, 2, 2, (0, 1), (), algo=algo,
-                                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        fused.hash_rows(x[0], algo, device="cpu")
+        fused.check_algo(algo)
+    digests, _ = fused.verify_and_transform(x, 2, 2, (0, 1), (), algo=algo,
+                                            device="cpu")
+    want = jax_bitrot._hash_batch(x[0], algo)
+    assert np.array_equal(digests.numpy()[0], want)
+    assert np.array_equal(fused.hash_rows(x[0], algo, device="cpu").numpy(),
+                          want)
+    with pytest.raises(NotImplementedError, match="no device program"):
+        fused.hash_rows(x[0], "crc32", device="cpu")

@@ -505,7 +505,10 @@ class TestPortOnly:
                     ("POST", "/npx/o", {"select": ""}, None, "10"),
                     ("POST", "/npx/o", {"restore": ""}, None, "10"),
                     ("GET", "/minio/admin/v3/info", None, None, "10"),
-                    ("POST", "/minio/admin/v3/heal", None, None, "10"),
+                    # Heal sequences are served (admin `heal`); the
+                    # service actions only on a cluster node.
+                    ("POST", "/minio/admin/v3/service",
+                     {"action": "restart"}, None, "10"),
                     ("GET", "/minio/admin/v3/config", None, None, "10")):
                 st, _, body = cli.request(method, path, query=query,
                                           headers=headers)

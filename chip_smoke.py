@@ -57,7 +57,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    d. multipart: three parts under mxh256, highwayhash256S and mxh256,
       completed, read whole, ranged across a part boundary and degraded,
       then healed and read again;
-   e. drive heal: a formatted set holding 8 mxh256 objects of 64 MiB,
+   e. drive heal: a formatted set holding 4 mxh256 objects of 64 MiB,
       4 HighwayHash objects of 64 MiB + 300 KiB + 5 B, 32 inline
       objects, a multipart object and a versioned object with a delete
       marker (a versioned DELETE); a data-shard drive wiped whole; heal_format, heal_drive
@@ -69,8 +69,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       with one, uninterrupted, each once on a fresh wipe.
    f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
       (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
-      versioned bucket of 512 objects of 1-100 KiB, 48 of 4 MiB + 1 B
-      and 8 of 64 MiB (2 HighwayHash), about 1.0 GB (the depth cut for
+      versioned bucket of 256 objects of 1-100 KiB, 24 of 4 MiB + 1 B
+      and 8 of 64 MiB (2 HighwayHash), about 0.9 GB (the depth cut for
       phases l and m): PUT with SipHash
       placement checked, second versions, delete markers, a version
       deleted by id, metadata updates, 1000-key pages listed cold and
@@ -84,7 +84,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       deployment of f, driven by the port's S3Client signing SigV4: a
       versioned bucket, 8 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
       PUT from 1 and 4 clients (2 highwayhash256S), one of 64 MiB +
-      300 KiB + 5 B by signed aws-chunked PUT, 256 of 1-100 KiB by
+      300 KiB + 5 B by signed aws-chunked PUT, 128 of 1-100 KiB by
       signed-payload PUT from 1 and 8 clients, a multipart upload of
       64 MiB + 64 MiB + 5 MiB + 7 B; GETs of every object, ranged GETs,
       an If-None-Match 304, HEADs, a presigned GET, ListObjectsV2 in
@@ -111,8 +111,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       dispatch, the lanes' time split, bytes copied per byte served.
    i. the front door's identity planes: an S3Server with an IAMSys and
       an HS256 OIDC provider over one EC:8+4 set of 12 drives; root
-      creates 250 users in 5 groups, 12 custom policies scoped to a
-      bucket and prefix and 25 service accounts over the admin API
+      creates 125 users in 5 groups, 12 custom policies scoped to a
+      bucket and prefix and 12 service accounts over the admin API
       (each IAM object an inline PUT on the card); a SigV2-header PUT of
       64 MiB read back by a SigV2 presigned GET and by SigV4; a readonly
       user's 64 MiB PUT refused; a prefix-scoped user, service accounts,
@@ -146,7 +146,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       with 0, in turns (0, 4: half the turns it had before phase l
       joined the run), on one EC:8+4 set of 12 drives on
       /dev/shm; client processes that load no torch PUT and GET one
-      64 MiB object each from 1 and 16 clients, 8 objects of 1 MiB
+      64 MiB object each from 1 and 8 clients, 8 objects of 1 MiB
       each from 16, and (the turn with workers, highwayhash256S) 2 of
       64 MiB each from 4.  GB/s and operations/s per step; with workers
       the owner's dispatches and items, the arena's waits and timeouts,
@@ -168,7 +168,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       hot set of 32 x 1 MiB + 6 x 4 MiB (two cold rounds, the two-hit
       admission, then from 1 and 16 clients: GB/s and GET/s with the
       tier and without, misses' device items exact, hits' 0), a scan of
-      64 distinct keys (no fill, the hot set stays resident), 16
+      32 distinct keys (no fill, the hot set stays resident), 16
       concurrent cold GETs of one admitted 4 MiB key (one engine read in
       one process), highwayhash256S misses (hh256 exact), a versioned
       key warm in every worker read after a PUT of a new version (the
@@ -235,13 +235,35 @@ Phases, each printing its own lines; any failure exits non-zero:
       ok and every object reads from node 4's drives.  Items per step
       from the nodes' metrics; boot s, PUT and GET GB/s beside 5f's,
       ms a dsync lock against the local lock, heal s.
-   Phases a-g and i-p run with MTPU_DEVCACHE=0: their counts assume
+   q. the pool lifecycle and the data scanner (phase_lifecycle): a
+      versioned bucket written in this process onto pool 0 (one EC:8+4
+      set of 12 drives, STANDARD=EC:4): 6 objects of 64 MiB (2
+      highwayhash256S, one of 64 MiB + 300 KiB + 5 B), 128 of 1-100 KiB,
+      3 versions and a delete marker of one key, a pending upload of 2
+      parts of 16 MiB; the server booted with MTPU_WORKERS=2; admin
+      pool/add of pool 1 (12 more drives) through one worker, seen by
+      both; pool/decommission of pool 0 with 4 PUTs during it landing
+      on pool 1, the mover's worker SIGKILLed after 3 versions moved,
+      the drain completed by its respawn, its status equal from both
+      workers; pool 0 empty, every version byte-exact with its id, ETag
+      and mod time, the upload completed under its old id; a reboot
+      with pool 0's drives alone attaching pool 1 from
+      pool-topology.json; then in this process a scanner's normal cycle
+      (usage exact, a removed xl.meta healed), deep cycle (a corrupted
+      frame of a 64 MiB shard found and healed), a PUT counted by the
+      next cycle, and the admin's datausage.  Items exact per step, and
+      across the SIGKILL within one version's items of the count; drain
+      GB/s and versions/s, boot and reboot s, scan s and GB/s.
+   Phases a-g and i-q run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i and k-p run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i and k-q run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
-   neither.  Every phase runs with the metadata lanes on (the default):
+   neither.  Every booted server runs with MTPU_SCANNER=0 (as the JAX
+   crash harness boots its servers): a scanner's cycle reads the drives,
+   writes usage and the dirty set and heals, which the booted phases'
+   exact counts and drive trees do not allow.  Every phase runs with the metadata lanes on (the default):
    concurrent inline PUTs group-commit, and concurrent elections read
    through the lanes and the K+1 trim, which reads the drives holding
    the key's data shards, so no count changes.
@@ -315,8 +337,8 @@ HH = "highwayhash256S"
 # bucket a; 32 inline objects, a multipart object of DRIVE_HEAL_PARTS and
 # an object with DRIVE_HEAL_VERSIONS and a delete marker in bucket b.
 DRIVE_HEAL_OBJECT = OBJECT_BYTES
-# 16 before phases 5o and 5p joined the run.
-DRIVE_HEAL_MXH = 8
+# 16 before phases 5o and 5p joined the run, 8 before phase 5q.
+DRIVE_HEAL_MXH = 4
 DRIVE_HEAL_TAIL_OBJECT = TAIL_OBJECT_BYTES
 DRIVE_HEAL_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
@@ -331,9 +353,10 @@ DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 # joined it) and its small ones to 512 (1024 before phase 5n joined it)
 # to keep the whole run within its time.
 LAYER_SETS, LAYER_SET_DRIVES = 4, 12
-LAYER_SMALL, LAYER_SMALL_BYTES = 512, (1024, 100 * 1024)
-# LAYER_MID 96 before phases 5o and 5p joined the run.
-LAYER_MID, LAYER_MID_BYTES = 48, 4 * MIB + 1
+# LAYER_SMALL 512 before phase 5q joined the run.
+LAYER_SMALL, LAYER_SMALL_BYTES = 256, (1024, 100 * 1024)
+# LAYER_MID 96 before phases 5o and 5p joined the run, 48 before 5q.
+LAYER_MID, LAYER_MID_BYTES = 24, 4 * MIB + 1
 LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
 # SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
@@ -348,7 +371,8 @@ LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 SERVER_SETS = LAYER_SETS
 SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 8, 2, OBJECT_BYTES
 SERVER_CHUNKED_BYTES = TAIL_OBJECT_BYTES
-SERVER_SMALL, SERVER_SMALL_SERIAL = 256, 32
+# (256, 32) before phase 5q joined the run.
+SERVER_SMALL, SERVER_SMALL_SERIAL = 128, 16
 SERVER_SMALL_BYTES = (1024, 100 * 1024)
 SERVER_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 SERVER_RANGE = (300 * 1024, MIB)
@@ -393,8 +417,8 @@ POOL_WORKERS = 4
 # one turn each to keep the whole run within its time.
 POOL_TURNS = (0, POOL_WORKERS)
 POOL_BIG = OBJECT_BYTES
-# (1, 4, 16) before phase 5n joined the run.
-POOL_BIG_CLIENTS = (1, 16)
+# (1, 4, 16) before phase 5n joined the run, (1, 16) before 5q.
+POOL_BIG_CLIENTS = (1, 8)
 POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 8, MIB
 POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
 POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
@@ -417,7 +441,8 @@ SPINE_CLIENTS = (1, 16)
 # Past SPINE_STRIDE clients, each client reads a SPINE_STRIDE-th of the
 # hot set (16 clients read it 4 times over, as 4 clients do).
 SPINE_STRIDE = 4
-SPINE_SCAN = 64
+# 64 before phase 5q joined the run.
+SPINE_SCAN = 32
 SPINE_SF_CLIENTS = 16
 SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 4, 8, 4
 SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
@@ -2837,8 +2862,9 @@ def phase_dispatch(args, counts, card):
 # to half (448 and 64 members before phase 5n joined it) to keep the
 # whole run within its time.
 # (500, 10, 25, 50) before phases 5o and 5p joined the run.
-IDENTITY_USERS, IDENTITY_GROUPS = 250, 5
-IDENTITY_POLICIES, IDENTITY_SVC = 12, 25
+# 250 users and 25 service accounts before phase 5q joined the run.
+IDENTITY_USERS, IDENTITY_GROUPS = 125, 5
+IDENTITY_POLICIES, IDENTITY_SVC = 12, 12
 IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
 IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 224, 64 * 1024
 IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 32, MIB
@@ -6848,6 +6874,592 @@ def phase_cluster(args, counts, card):
     return launches
 
 
+# Phase 5q, the pool lifecycle and the data scanner, over BASELINE.json
+# config 2's deployment per pool (one EC:8+4 set of 12 drives, STANDARD=
+# EC:4, on /dev/shm): a versioned bucket of LIFE_BIG objects of
+# OBJECT_BYTES (LIFE_HH of them highwayhash256S, the last of
+# TAIL_OBJECT_BYTES), LIFE_SMALL of LIFE_SMALL_BYTES, one key with
+# LIFE_HISTORY versions and a delete marker, and a pending multipart
+# upload of LIFE_PARTS, written in this process; the pool booted with
+# LIFE_WORKERS workers; pool 1 added live; pool 0 drained with
+# LIFE_DURING PUTs of LIFE_DURING_BYTES during the drain and its mover's
+# worker SIGKILLed once LIFE_KILL_AFTER versions moved.
+LIFE_BIG, LIFE_HH = 6, 2
+LIFE_SMALL, LIFE_SMALL_BYTES = 128, (1024, 100 * 1024)
+LIFE_HISTORY = 3
+LIFE_PARTS = (16 * MIB, 16 * MIB)
+LIFE_DURING, LIFE_DURING_BYTES = 4, 2 * MIB + 3
+LIFE_WORKERS = 2
+LIFE_KILL_AFTER = 3
+LIFE_CLOCKS = ("bytes_per_sec", "eta_seconds", "started_at")
+_KERNELS = ("gf_matmul", "hh256", "mxh256")
+
+
+def _batches(fi) -> int:
+    """Device calls of one drive's frames of `fi` (a deep verify reads
+    each live drive's in these): per part one per 32 full blocks and one
+    for the tail block; an inline object is one."""
+    if not fi.data_dir:
+        return 1
+    return sum(-(-(p.size // MIB) // 32) + (1 if p.size % MIB else 0)
+               for p in fi.parts)
+
+
+def _version_items(fi) -> dict[str, int]:
+    """The items the mover spends on one data version `fi` of pool 0: the
+    source's GET (its digest), the destination's PUT (a GF encode and an
+    mxh256 digest per call) and the verify GET of the copy (mxh256)."""
+    n = _get_calls(fi)
+    want = dict.fromkeys(_KERNELS, 0)
+    want[_digest(fi.erasure.bitrot_algo())] += n
+    want["gf_matmul"] += _put_calls(fi.size)
+    want["mxh256"] += _put_calls(fi.size) + n
+    return want
+
+
+def _pool0_versions(root: str) -> list:
+    """Every version of bucket `life` on pool 0, read off drive b1's
+    xl.meta files (read only: the pool is serving)."""
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+    top = os.path.join(root, "b1", "life")
+    out = []
+    for d, _, files in os.walk(top):
+        if "xl.meta" in files:
+            name = os.path.relpath(d, top)
+            with open(os.path.join(d, "xl.meta"), "rb") as f:
+                out.extend(XLMeta.from_bytes(f.read()).list_versions(
+                    "life", name))
+    return out
+
+
+def _life_status(port: int) -> dict:
+    """The drain's status through a fresh connection (a connection queued
+    on a worker as it is killed is reset: try again)."""
+    from minio_tpu_torch.server.client import S3Client
+    for _ in range(50):
+        try:
+            st, doc = S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                               "pooladmin-secret", timeout=60).admin(
+                "GET", "pool/decommission", {"pool": "0"})
+        except OSError:
+            time.sleep(0.1)
+            continue
+        if st != 200:
+            raise SystemExit(f"lifecycle: status {st} {doc}")
+        return doc
+    raise SystemExit("lifecycle: no worker answered the drain's status")
+
+
+def phase_lifecycle(args, counts, card):
+    """Phase 5q, the pool lifecycle and the data scanner.  This process
+    writes the versioned bucket onto pool 0's 12 drives (items exact);
+    `python -m minio_tpu_torch.server` boots over them with LIFE_WORKERS
+    workers (MTPU_HOTCACHE=0); admin pool/add of pool 1 through one
+    worker (its self-test's items exact; every fresh connection then
+    lists 2 pools); pool/decommission start of pool 0, PUTs through both
+    workers landing on pool 1, the mover's process (worker 0) SIGKILLed
+    after LIFE_KILL_AFTER versions moved, the drain completed by its
+    respawn, its status equal through 16 fresh connections served by
+    both workers.  Then pool 0 holds no object; every version reads back
+    by SHA-256 with its id, ETag and Last-Modified; the pending upload
+    completes under its old id; SIGTERM exits 0.  A reboot as one process
+    with --drives naming pool 0 only attaches pool 1 from
+    pool-topology.json and keeps pool 0 out of placement.  Then in this
+    process (pool-topology.json adopted, the drains resumed) a
+    DataScanner: a normal cycle's usage equals the sizes written and it
+    heals an xl.meta removed from one drive, a deep cycle finds a
+    corrupted frame of a 64 MiB shard and rewrites the part file to its
+    SHA-256, a PUT after a scan is in the next cycle, and the admin's
+    datausage equals the scanner's.  Items per step: the pool's (its
+    metrics: the owner's and the workers'), this process's; exact, or,
+    across the SIGKILL, between the count and that plus one version's."""
+    import email.utils
+    import signal
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from minio_tpu_torch.background import decom
+    from minio_tpu_torch.background.scanner import DataScanner
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server import topology
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.handlers import S3Handlers
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    big_sizes = [OBJECT_BYTES] * (LIFE_BIG - 1) + [TAIL_OBJECT_BYTES]
+    need = 3 * (sum(big_sizes) + sum(LIFE_PARTS)) + (2 << 30)
+    root = _tmp_root("chip_smoke-life-", need)
+    rng = np.random.default_rng(args.seed * 1000 + 900)
+    url_cli = None
+    t_phase = time.perf_counter()
+    steps: dict[str, dict] = {}
+    pool_launches = dict.fromkeys(_KERNELS, 0)
+    counts.reset()
+
+    def body(seed, n):
+        return np.random.default_rng(seed).bytes(n)
+
+    def here_items(before):
+        now = counts.items()
+        return {k: now[k] - before[k] for k in _KERNELS}
+
+    def hold(name, got, want, launches=None):
+        steps[name] = got
+        if got != want or (launches is not None and any(
+                launches[k] > got[k] or (got[k] and not launches[k])
+                for k in _KERNELS)):
+            raise SystemExit(f"lifecycle {name}: items {got}, launches "
+                             f"{launches}, want {want}")
+
+    def add(into, more, times=1):
+        for k in _KERNELS:
+            into[k] += times * more[k]
+        return into
+
+    def drives(prefix):
+        return [LocalDrive(os.path.join(root, f"{prefix}{i}"))
+                for i in range(1, 13)]
+
+    # -- the load, in this process --------------------------------------
+    records = {}                       # (key, vid) -> (size, sha, etag, mt)
+    pools = ServerPools([ErasureSets(drives("b"), set_drive_count=12)])
+    try:
+        h = S3Handlers(pools)
+        pools.make_bucket("life")
+        h.put_bucket_versioning(
+            "life", b"<VersioningConfiguration><Status>Enabled</Status>"
+                    b"</VersioningConfiguration>")
+        i0 = counts.items()
+        want = dict.fromkeys(_KERNELS, 0)
+        seed = args.seed * 1000 + 901
+        plan = [(f"big{i}", n, HH if i < LIFE_HH else "mxh256")
+                for i, n in enumerate(big_sizes)]
+        plan += [(f"small/{i:03d}", int(rng.integers(*LIFE_SMALL_BYTES)),
+                  "mxh256") for i in range(LIFE_SMALL)]
+        plan += [("hist", 300 * 1024 + i, "mxh256")
+                 for i in range(LIFE_HISTORY)]
+        t0 = time.perf_counter()
+        for key, n, algo in plan:
+            if algo == HH:
+                os.environ["MTPU_BITROT_ALGO"] = HH
+            try:
+                data = body(seed, n)
+                fi = pools.put_object("life", key, data, versioned=True,
+                                      parity=4)
+            finally:
+                os.environ.pop("MTPU_BITROT_ALGO", None)
+            records[key, fi.version_id] = (
+                n, hashlib.sha256(data).hexdigest(),
+                fi.metadata.get("etag", ""), fi.mod_time_ns, seed)
+            want["gf_matmul"] += _put_calls(n)
+            want[_digest(algo)] += _put_calls(n)
+            seed += 1
+        marker = pools.delete_object("life", "hist", versioned=True)
+        uid = pools.new_multipart_upload("life", "mp", parity=4)
+        parts, mp_body = [], b""
+        for pn, n in enumerate(LIFE_PARTS, 1):
+            data = body(seed, n)
+            seed += 1
+            parts.append((pn, pools.put_object_part("life", "mp", uid, pn,
+                                                    data).etag))
+            mp_body += data
+            add(want, {"gf_matmul": _put_calls(n), "hh256": 0,
+                       "mxh256": _put_calls(n)})
+        load_s = time.perf_counter() - t0
+        hold("load", here_items(i0), want)
+    finally:
+        pools.close()
+    old_uid = uid                     # "0.<id>": pool 0 carries it
+    loaded = sum(n for n, *_ in records.values()) + sum(LIFE_PARTS)
+
+    # -- the pool: boot, pool/add, the drain ------------------------------
+    pool = _Pool(root, LIFE_WORKERS, env={"MTPU_HOTCACHE": "0"})
+    boot_s = pool.boot_s
+    port = pool.port
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=600)
+
+    def pool_step(name, before, want, within=None):
+        after = _pool_counts(pool.settled(), LIFE_WORKERS)
+        got = {k: int(after[f"items_{k}"] - before[f"items_{k}"])
+               for k in _KERNELS}
+        launches = {k: int(after[f"launches_{k}"] - before[f"launches_{k}"])
+                    for k in _KERNELS}
+        for k in _KERNELS:
+            pool_launches[k] += launches[k]
+        if within is None:
+            hold(name, got, want, launches)
+        else:
+            steps[name] = got
+            if any(not want[k] <= got[k] <= want[k] + within[k]
+                   for k in _KERNELS) or any(launches[k] > got[k]
+                                             for k in _KERNELS):
+                raise SystemExit(f"lifecycle {name}: items {got}, launches "
+                                 f"{launches}, want {want} + at most "
+                                 f"{within}")
+        if after["ipc_fallbacks"] or after["co_fallbacks"]:
+            raise SystemExit(f"lifecycle {name}: fallbacks {after}")
+        return after
+
+    def warm():
+        """Each worker reads the bucket's versioning config from the meta
+        bucket once and keeps it (an inline GET, one mxh256 item): 16
+        fresh connections reach every worker before a step is counted."""
+        for _ in range(16):
+            st, _, _ = fresh().request("GET", "/life",
+                                       query={"versioning": ""})
+            if st != 200:
+                raise SystemExit(f"lifecycle: GET ?versioning {st}")
+
+    try:
+        warm()
+        c0 = _pool_counts(pool.settled(), LIFE_WORKERS)
+        t0 = time.perf_counter()
+        st, doc = fresh().admin("POST", "pool/add", doc={
+            "drives": os.path.join(root, "c{1...12}")})
+        add_s = time.perf_counter() - t0
+        if (st, doc) != (200, {"pool": 1, "placement": [0, 1]}):
+            raise SystemExit(f"lifecycle: pool/add {st} {doc}")
+        # Its self-test: one inline PUT (a GF encode, an mxh256 digest)
+        # and its GET (a digest).
+        c1 = pool_step("pool/add", c0,
+                       {"gf_matmul": 1, "hh256": 0, "mxh256": 2})
+        deadline = time.monotonic() + 30
+        while not all(len(fresh().admin("GET", "pools")[1]["pools"]) == 2
+                      for _ in range(8)):
+            if time.monotonic() > deadline:
+                raise SystemExit("lifecycle: a worker never saw pool 1")
+            time.sleep(0.2)
+        versions = _pool0_versions(root)
+        exact = dict.fromkeys(_KERNELS, 0)
+        worst = dict.fromkeys(_KERNELS, 0)
+        for fi in versions:
+            if fi.deleted:
+                continue
+            one = _version_items(fi)
+            add(exact, one)
+            worst = {k: max(worst[k], one[k]) for k in _KERNELS}
+        # The pending upload's parts: each read (mxh256) and PUT again
+        # on pool 1.
+        for n in LIFE_PARTS:
+            reads = _get_calls(SimpleNamespace(
+                size=n, data_dir="d", parts=[SimpleNamespace(size=n)]))
+            add(exact, {"gf_matmul": _put_calls(n), "hh256": 0,
+                        "mxh256": reads + _put_calls(n)})
+        add(exact, {"gf_matmul": _put_calls(LIFE_DURING_BYTES), "hh256": 0,
+                    "mxh256": _put_calls(LIFE_DURING_BYTES)}, LIFE_DURING)
+        moved_bytes = sum(fi.size for fi in versions if not fi.deleted)
+
+        t0 = time.perf_counter()
+        st, doc = fresh().admin("POST", "pool/decommission",
+                                {"pool": "0", "action": "start"})
+        if st != 200 or doc["state"] != "draining":
+            raise SystemExit(f"lifecycle: decommission start {st} {doc}")
+        deadline = time.monotonic() + 30
+        while not all(fresh().admin("GET", "pools")[1]["placement"] == [1]
+                      for _ in range(8)):
+            if time.monotonic() > deadline:
+                raise SystemExit("lifecycle: pool 0 still in placement")
+            time.sleep(0.1)
+        during = {}
+        for i in range(LIFE_DURING):
+            key = f"during{i}"
+            data = body(seed, LIFE_DURING_BYTES)
+            h = fresh().put_object("life", key, data)
+            during[key] = (data, h["x-amz-version-id"])
+            seed += 1
+            if not os.path.isdir(os.path.join(root, "c1", "life", key)) or \
+                    os.path.exists(os.path.join(root, "b1", "life", key)):
+                raise SystemExit(f"lifecycle: {key} not on pool 1 alone")
+        while _life_status(port)["versions_moved"] < LIFE_KILL_AFTER:
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit("lifecycle: the drain stalled")
+            time.sleep(0.05)
+        m = pool.metrics()
+        w0 = int(m['mtpu_worker_pid{worker="0"}'])
+        killed_at = _life_status(port)
+        os.kill(w0, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        if killed_at["state"] != "draining":
+            raise SystemExit(f"lifecycle: killed after the drain "
+                             f"{killed_at}")
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                m = pool.metrics()
+                if m.get('mtpu_worker_respawns_total{worker="0"}') == 1 \
+                        and m.get('mtpu_worker_ready{worker="0"}') == 1 \
+                        and int(m['mtpu_worker_pid{worker="0"}']) != w0:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise SystemExit(f"lifecycle: worker 0 never came back: "
+                                 f"{pool.tail()}")
+            time.sleep(0.1)
+        respawn_s = time.perf_counter() - t_kill
+        while _life_status(port)["state"] != "complete":
+            if time.perf_counter() - t0 > 600:
+                raise SystemExit(f"lifecycle: drain never completed: "
+                                 f"{_life_status(port)}")
+            time.sleep(0.1)
+        drain_s = time.perf_counter() - t0
+        r0 = pool.metrics()
+        seen = []
+        for _ in range(16):
+            doc = _life_status(port)
+            seen.append({k: v for k, v in doc.items()
+                         if k not in LIFE_CLOCKS})
+        r1 = pool.metrics()
+        by_worker = [r1[f'mtpu_worker_requests_total{{worker="{w}"}}']
+                     - r0[f'mtpu_worker_requests_total{{worker="{w}"}}']
+                     for w in range(LIFE_WORKERS)]
+        if any(s != seen[0] for s in seen) or min(by_worker) < 2:
+            raise SystemExit(f"lifecycle: statuses {seen}, requests by "
+                             f"worker {by_worker}")
+        status = seen[0]
+        data_versions = sum(1 for fi in versions if not fi.deleted)
+        if not (len(versions) - 1 <= status["versions_moved"]
+                <= len(versions)) or status["objects_remaining"] or \
+                status["uploads_relocated"] != 1:
+            raise SystemExit(f"lifecycle: status {status}, {len(versions)} "
+                             f"versions on pool 0")
+        # The respawned worker 0 reads the versioning config again.
+        warm()
+        c2 = pool_step("drain", c1, exact,
+                       within={**worst, "mxh256": worst["mxh256"] + 1})
+        # -- after the drain: pool 0 empty, every version, the upload -----
+        left = [os.path.join(d, f) for p in range(1, 13)
+                for d, _, files in os.walk(os.path.join(root, f"b{p}",
+                                                        "life"))
+                for f in files]
+        if left:
+            raise SystemExit(f"lifecycle: pool 0 still holds {left[:4]}")
+        want = dict.fromkeys(_KERNELS, 0)
+        t_check = time.perf_counter()
+        cli = fresh()
+        for (key, vid), (n, sha, etag, mt, _) in records.items():
+            st, hdrs, got = cli.request("GET", f"/life/{key}",
+                                        query={"versionId": vid})
+            lm = email.utils.parsedate_to_datetime(hdrs["Last-Modified"])
+            if st != 200 or hashlib.sha256(got).hexdigest() != sha or \
+                    hdrs.get("ETag", "").strip('"') != etag or \
+                    hdrs.get("x-amz-version-id") != vid or \
+                    int(lm.timestamp()) != mt // 10**9:
+                raise SystemExit(f"lifecycle: {key}@{vid} after the drain: "
+                                 f"{st} {hdrs}")
+            want["mxh256"] += _get_calls(SimpleNamespace(
+                size=n, data_dir="" if n <= 128 * 1024 else "d",
+                parts=[SimpleNamespace(size=n)]))
+        st, _, _ = cli.request("GET", "/life/hist")
+        if st != 404:
+            raise SystemExit(f"lifecycle: hist's tip is {st}, not its "
+                             "delete marker")
+        cli.complete_multipart("life", "mp", old_uid, parts)
+        got = cli.get_object("life", "mp")
+        if hashlib.sha256(got).digest() != hashlib.sha256(mp_body).digest():
+            raise SystemExit("lifecycle: the completed upload differs")
+        want["mxh256"] += _get_calls(SimpleNamespace(
+            size=sum(LIFE_PARTS), data_dir="d",
+            parts=[SimpleNamespace(size=n) for n in LIFE_PARTS]))
+        for key, (data, vid) in during.items():
+            st, hdrs, got = cli.request("GET", f"/life/{key}")
+            if st != 200 or got != data or hdrs["x-amz-version-id"] != vid:
+                raise SystemExit(f"lifecycle: {key} reads {st}")
+            want["mxh256"] += _get_calls(SimpleNamespace(
+                size=LIFE_DURING_BYTES, data_dir="d",
+                parts=[SimpleNamespace(size=LIFE_DURING_BYTES)]))
+        check_s = time.perf_counter() - t_check
+        c3 = pool_step("after the drain", c2, want)
+        cuda = c3["cuda"]
+        if cuda != {"owner": 1, **{f"worker{w}": 0
+                                   for w in range(LIFE_WORKERS)}}:
+            raise SystemExit(f"lifecycle: CUDA contexts {cuda}")
+        pool.stop()
+    finally:
+        pool.kill()
+
+    # -- the reboot with pool 0's drives alone ----------------------------
+    pool = _Pool(root, 0)
+    reboot_s = pool.boot_s
+    try:
+        cli = S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                       "pooladmin-secret", timeout=600)
+        st, doc = cli.admin("GET", "pools")
+        rows = [(r["pool"], r["decommissioning"],
+                 r.get("decommission", {}).get("state"))
+                for r in doc["pools"]]
+        if doc["placement"] != [1] or rows != [(0, True, "complete"),
+                                                (1, False, None)]:
+            raise SystemExit(f"lifecycle: the reboot's pools {doc}")
+        r0 = _spine_counts(pool.metrics(), 0)
+        key, vid = next(k for k in records if k[0] == "big0")
+        got = cli.get_object("life", key)
+        if hashlib.sha256(got).hexdigest() != records[key, vid][1]:
+            raise SystemExit("lifecycle: a GET after the reboot differs")
+        r1 = _spine_counts(pool.metrics(), 0)
+        hold("reboot GET", {k: r1[f"items_{k}"] - r0[f"items_{k}"]
+                            for k in _KERNELS},
+             {"gf_matmul": 0, "hh256": 0,
+              "mxh256": _get_calls(SimpleNamespace(
+                  size=OBJECT_BYTES, data_dir="d",
+                  parts=[SimpleNamespace(size=OBJECT_BYTES)]))})
+        for k in _KERNELS:
+            pool_launches[k] += r1[f"launches_{k}"] - r0[f"launches_{k}"]
+        lines = open(pool.log).read()
+        if "topology: 2 pools (1 from pool-topology.json), draining [0]; " \
+                "decommissions: pool 0 complete" not in lines:
+            raise SystemExit(f"lifecycle: the reboot's topology: {lines}")
+        pool.stop()
+    finally:
+        pool.kill()
+
+    # -- the data scanner, in this process --------------------------------
+    pools = ServerPools([ErasureSets(drives("b"), set_drive_count=12)])
+    sc = srv = None
+    try:
+        if topology.adopt_topology(pools) != 1 or \
+                [d.state for d in decom.resume_decommissions(
+                    pools, autostart=False)] != ["complete"] or \
+                pools.placement_pools() != [1]:
+            raise SystemExit("lifecycle: this process's topology "
+                             f"{len(pools.pools)} pools, draining "
+                             f"{pools.draining}")
+        es = pools.pools[1].sets[0]
+        live = {fi.name: fi for fi in es.list_objects("life",
+                                                      max_keys=1000000)}
+        want_usage = (len(live), sum(fi.size for fi in live.values()))
+        # A drive's xl.meta removed (a 64 MiB object's): a normal cycle
+        # heals it.
+        victim = live["big3"]
+        pos = 4
+        meta_path = os.path.join(root, f"c{pos + 1}", "life", "big3",
+                                 "xl.meta")
+        with open(meta_path, "rb") as f:
+            meta_sha = hashlib.sha256(f.read()).digest()
+        os.unlink(meta_path)
+        sc = DataScanner(pools)
+        i0 = counts.items()
+        t0 = time.perf_counter()
+        u = sc.scan_cycle()
+        normal_s = time.perf_counter() - t0
+        bu = u.buckets.get("life")
+        if bu is None or (bu.objects, bu.bytes) != want_usage:
+            raise SystemExit(f"lifecycle: usage {bu and bu.to_obj()}, "
+                             f"want {want_usage}")
+        with open(meta_path, "rb") as f:
+            if hashlib.sha256(f.read()).digest() != meta_sha:
+                raise SystemExit("lifecycle: the healed xl.meta differs")
+        hold("normal scan", here_items(i0),
+             _expected_heal_launches([victim], pos))
+        # A corrupted frame of a 64 MiB shard: a deep cycle finds it.
+        victim = live["big4"]
+        pos = 6
+        part = os.path.join(root, f"c{pos + 1}", "life", "big4",
+                            victim.data_dir, "part.1")
+        with open(part, "rb") as f:
+            part_sha = hashlib.sha256(f.read()).digest()
+        with open(part, "r+b") as f:
+            f.seek(100)
+            f.write(b"\xa5" * 16)
+        want = dict.fromkeys(_KERNELS, 0)
+        shard_bytes = 0
+        for b in pools.list_buckets():
+            for name in (fi.name for fi in es.list_objects(
+                    b, max_keys=1000000)):
+                for v in es.list_object_versions(b, name):
+                    if v.deleted:
+                        continue
+                    want[_digest(v.erasure.bitrot_algo())] += \
+                        es.n * _batches(v)
+                    shard_bytes += v.erasure.shard_file_size(v.size) * es.n
+        # The corrupted drive stops at its first (bad) batch, then the
+        # rebuild: a GF call and two digests a batch.
+        nb = _batches(victim)
+        want["mxh256"] += 1 - nb + 2 * nb
+        want["gf_matmul"] += nb
+        i0 = counts.items()
+        t0 = time.perf_counter()
+        sc.scan_cycle(deep=True)
+        deep_s = time.perf_counter() - t0
+        with open(part, "rb") as f:
+            if hashlib.sha256(f.read()).digest() != part_sha:
+                raise SystemExit("lifecycle: the deep cycle left the part "
+                                 "file corrupted")
+        if sc.stats.corruption_found != 1:
+            raise SystemExit(f"lifecycle: deep cycle found "
+                             f"{sc.stats.corruption_found} corruptions")
+        hold("deep scan", here_items(i0), want)
+        # A PUT into the scanned bucket is in the next cycle.
+        i0 = counts.items()
+        pools.put_object("life", "after-scan", body(seed, 3 * MIB + 1))
+        u = sc.scan_cycle()
+        if u.buckets["life"].objects != want_usage[0] + 1:
+            raise SystemExit(f"lifecycle: the PUT after a scan is not in "
+                             f"the next cycle: {u.buckets['life'].to_obj()}")
+        hold("PUT then scan", here_items(i0),
+             {"gf_matmul": _put_calls(3 * MIB + 1), "hh256": 0,
+              "mxh256": _put_calls(3 * MIB + 1)})
+        srv = S3Server(pools, Credentials("pooladmin", "pooladmin-secret"),
+                       scanner=sc).start()
+        st, doc = S3Client(srv.endpoint, "pooladmin", "pooladmin-secret",
+                           timeout=60).admin("GET", "datausage")
+        if st != 200 or doc["buckets"] != {
+                b: x.to_obj() for b, x in u.buckets.items()}:
+            raise SystemExit(f"lifecycle: datausage {st} {doc}")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        if sc is not None:
+            sc.stop()
+        pools.close()
+        shutil.rmtree(root, ignore_errors=True)
+    here = counts.read()
+    launches = {k: pool_launches[k] + here[k] for k in _KERNELS}
+    launches["mxh256_elsewhere"] = pool_launches["mxh256"]
+    gb = moved_bytes / 1e9
+    print(f"[lifecycle] pool 0 loaded in this process: {len(records)} "
+          f"versions ({LIFE_BIG} of {OBJECT_BYTES} B, {LIFE_HH} of them "
+          f"{HH}, the last {TAIL_OBJECT_BYTES} B; {LIFE_SMALL} of 1-100 KiB;"
+          f" {LIFE_HISTORY} versions and a delete marker of one key), a "
+          f"pending upload of {len(LIFE_PARTS)} x {LIFE_PARTS[0]} B, "
+          f"{loaded} B in {load_s:.2f} s; card {card}")
+    print(f"[lifecycle] python -m minio_tpu_torch.server, {LIFE_WORKERS} "
+          f"workers, ready in {boot_s:.2f} s; pool/add of pool 1 (12 "
+          f"drives, self-test through the owner's lanes) in {add_s:.2f} s;"
+          f" card {card}")
+    print(f"[lifecycle] drain of pool 0: {len(versions)} versions, "
+          f"{moved_bytes} B, {drain_s:.2f} s in all: {gb / drain_s:.3f} "
+          f"GB/s, {len(versions) / drain_s:.2f} versions/s, worker 0 (the "
+          f"mover's) SIGKILLed at {killed_at['versions_moved']} moved and "
+          f"back in {respawn_s:.2f} s; {LIFE_DURING} PUTs of "
+          f"{LIFE_DURING_BYTES} B during it on pool 1 alone; status equal "
+          f"through 16 connections (by worker {by_worker}): {status}; "
+          f"card {card}")
+    print(f"[lifecycle] after the drain: pool 0 holds no object; "
+          f"{len(records)} versions byte-exact with their ids, ETags and "
+          f"Last-Modified, the upload completed under its old id "
+          f"{old_uid[:12]}..., in {check_s:.2f} s; CUDA contexts {cuda}; "
+          f"reboot with pool 0's --drives alone in {reboot_s:.2f} s: "
+          f"placement [1], pool 0 excluded; card {card}")
+    print(f"[lifecycle] scanner in this process: normal cycle "
+          f"{normal_s:.3f} s ({want_usage[1] / normal_s / 1e9:.3f} GB/s "
+          f"of objects accounted; {want_usage[0]} objects; one xl.meta "
+          f"healed), deep cycle {deep_s:.3f} s "
+          f"({shard_bytes / deep_s / 1e9:.3f} GB/s of shards verified on "
+          f"the card; one corrupted frame "
+          f"found, its part file back to its SHA-256); card {card}")
+    print(f"[lifecycle] items per step: {steps}; launches {launches}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -7217,10 +7829,16 @@ def main() -> int:
         "admission plane": lambda: phase_admission(args, counts, card),
         "bitrot forms": lambda: phase_bitrot_forms(args, counts, card),
         "cluster": lambda: phase_cluster(args, counts, card),
+        "lifecycle": lambda: phase_lifecycle(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
     fi_ttl = ErasureSet._FI_CACHE_TTL
+    # No booted server runs the data scanner: its cycles read drives,
+    # write usage and heal, which the exact counts and drive trees of the
+    # booted phases (5g's subprocess, 5j-5q) do not allow.  Phase 5q
+    # drives a scanner of its own in this process.
+    os.environ["MTPU_SCANNER"] = "0"
     with MxhShapes(fused, mt) as counts.shapes:
         for name, run in paths.items():
             # Phases 5a-5g, 5i and 5j count every GET's device work from
@@ -7260,6 +7878,7 @@ def main() -> int:
                     raise SystemExit(f"{name}: lanes {st}")
     os.environ.pop("MTPU_DEVCACHE", None)
     os.environ.pop("MTPU_HEDGE", None)
+    os.environ.pop("MTPU_SCANNER", None)
     ErasureSet._FI_CACHE_TTL = fi_ttl
     faults = coalesce.stats()
     if (faults["co_fallbacks"], faults["co_faults"]) != \
@@ -7279,7 +7898,8 @@ def main() -> int:
                      - per_path["serving spine"]["mxh256_elsewhere"]
                      - per_path["metadata plane"]["mxh256_elsewhere"]
                      - per_path["admission plane"]["mxh256_elsewhere"]
-                     - per_path["cluster"]["mxh256_elsewhere"])
+                     - per_path["cluster"]["mxh256_elsewhere"]
+                     - per_path["lifecycle"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

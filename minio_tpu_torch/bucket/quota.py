@@ -4,10 +4,10 @@ The port of minio_tpu/bucket/quota.py (the port keeps its own code, so
 that it imports nothing of the JAX package), the cmd/bucket-quota.go
 equivalent: a JSON config {"quota": N, "quotatype": "hard"} per bucket;
 PUTs and multipart completes that would push usage past the limit are
-refused. Usage comes from the scanner's persisted tree (cheap) with a
-live fallback listing when no scan has run yet; the port has no scanner
-yet (ROADMAP Queue A item 9b), so its callers pass scanner=None and the
-listing decides.
+refused. Usage comes from the scanner's last cycle (cheap; it lags by
+up to one cycle, as in the JAX package) with a live fallback listing
+when no scan has run yet or no scanner is given (the server's
+`scanner`: background/scanner.py).
 
 The config also carries an optional "bandwidth" field (bytes/s, 0 =
 unlimited) enforced by the QoS plane (server/qos.py) as a per-bucket

@@ -236,6 +236,9 @@ class ErasureSet:
         # An MRF queue (background/mrf.py) takes the objects a write
         # left short of full width; None until the boot attaches one.
         self.mrf = None
+        # The data scanner's dirty-bucket tracker (background/usage.py),
+        # which ServerPools wires into every set of every pool.
+        self._dirty_tracker = None
         # Parsed-quorum FileInfo cache of the GET path: (bucket
         # generation, stamp, fi, metas) per (bucket, object, version);
         # every mutation bumps the bucket's generation (_mark_dirty)
@@ -269,7 +272,10 @@ class ErasureSet:
         """A mutation of `bucket`: its cached FileInfos, listings and
         shard batches are stale.  Recorded with the cache off too, so
         turning it on again cannot bring back entries from before the
-        write."""
+        write.  The dirty tracker, where one is wired, marks the bucket
+        for the scanner's next cycle."""
+        if self._dirty_tracker is not None:
+            self._dirty_tracker.mark(bucket)
         self._fi_gen[bucket] = self._fi_gen.get(bucket, 0) + 1
         self.metacache.bump(bucket)
         if self.hot_tier is not None:
@@ -1191,9 +1197,12 @@ class ErasureSet:
         return bytes(out)
 
     def _read_part(self, bucket, obj, fi, part_number: int, offset: int,
-                   length: int, report: dict | None = None) -> np.ndarray:
+                   length: int, report: dict | None = None,
+                   cache: bool = True) -> np.ndarray:
         """[offset, offset+length) of one part, reading only the frames
-        that cover it; `report` is _get_object_direct's.  The frames are
+        that cover it; `report` is _get_object_direct's; `cache=False`
+        keeps the read out of the device shard cache (a staged part,
+        which a re-upload replaces under the same name).  The frames are
         read with read_file, not as an mmap view: they are copied into
         the device batch at once, so a view would save no copy, and its
         page faults would move the disk I/O out of the pooled (timed,
@@ -1225,7 +1234,8 @@ class ErasureSet:
         online = [s for s in range(k_m)
                   if drive_available(self.drives[order[s]])]
         data = self._read_blocks(fi, part_size, b0, b1, fetch, online,
-                                 part_number, cache=(bucket, obj),
+                                 part_number,
+                                 cache=(bucket, obj) if cache else None,
                                  order=order, report=report)
         lo = offset - b0 * BLOCK_SIZE
         return data[lo:lo + length]

@@ -232,6 +232,50 @@ def _list_parts_with_algos(es: ErasureSet, bucket: str, obj: str,
     return parts, {n: key[4] for n, key in best.items()}
 
 
+def upload_metadata(es: ErasureSet, bucket: str, obj: str,
+                    upload_id: str) -> dict:
+    """The client metadata an upload was created with (the internal
+    staging keys stripped): what a relocated upload is created with
+    again (background/decom.py)."""
+    fi = _read_upload_fi(es, bucket, obj, upload_id)
+    return {k: v for k, v in fi.metadata.items()
+            if not k.startswith("x-mtpu-internal-mp-")}
+
+
+def read_part_bytes(es: ErasureSet, bucket: str, obj: str,
+                    upload_id: str, part_number: int) -> bytes:
+    """One staged part decoded back to its bytes, the decommission
+    mover's relocation read.  A staged part is an erasure-coded stream
+    under the system volume, so the object read path decodes it, aimed
+    at the staging layout: `_read_part` reads `{name}/{data_dir}/part.n`,
+    and name = the upload root, data_dir = the upload id land on
+    `multipart/<hash>/<id>/part.n`.  Verify and any rebuild run on the
+    set's device, as a GET's do."""
+    fi_up = _read_upload_fi(es, bucket, obj, upload_id)
+    ec = fi_up.erasure
+    parts, algos = _list_parts_with_algos(es, bucket, obj, upload_id)
+    info = next((p for p in parts if p.number == part_number), None)
+    if info is None:
+        raise ErrInvalidPart(f"part {part_number}")
+    if info.size == 0:
+        return b""
+    # Part numbers may be sparse; _read_part indexes parts[n - 1].
+    pad = [ObjectPartInfo(number=i + 1, size=0, actual_size=0, etag="")
+           for i in range(part_number - 1)]
+    ec_read = ErasureInfo(
+        data_blocks=ec.data_blocks, parity_blocks=ec.parity_blocks,
+        block_size=ec.block_size, index=0, distribution=ec.distribution,
+        checksums=[{"part": part_number,
+                    "algo": algos.get(part_number, "highwayhash256S"),
+                    "hash": b""}])
+    fi = FileInfo(volume=SYS_VOL, name=_upload_root(bucket, obj),
+                  data_dir=upload_id, size=info.size,
+                  parts=pad + [info], erasure=ec_read)
+    got = es._read_part(SYS_VOL, fi.name, fi, part_number, 0, info.size,
+                        cache=False)
+    return got.tobytes()
+
+
 def abort_multipart_upload(es: ErasureSet, bucket: str, obj: str,
                            upload_id: str) -> None:
     _read_upload_fi(es, bucket, obj, upload_id)  # unknown upload raises

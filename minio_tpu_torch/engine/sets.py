@@ -196,6 +196,16 @@ class ErasureSets:
     def list_parts(self, bucket: str, obj: str, upload_id: str):
         return mp.list_parts(self.set_for(obj), bucket, obj, upload_id)
 
+    def read_part_bytes(self, bucket: str, obj: str, upload_id: str,
+                        part_number: int) -> bytes:
+        return mp.read_part_bytes(self.set_for(obj), bucket, obj,
+                                  upload_id, part_number)
+
+    def upload_metadata(self, bucket: str, obj: str,
+                        upload_id: str) -> dict:
+        return mp.upload_metadata(self.set_for(obj), bucket, obj,
+                                  upload_id)
+
     def list_multipart_uploads(self, bucket: str,
                                prefix: str = "") -> list[dict]:
         out = []

@@ -15,18 +15,25 @@ role, cmd/server-main.go:441), in its order:
 5. the hot-object tier (engine/hotcache.attach_pools, MTPU_HOTCACHE,
    default on): one private segment here, one segment built before the
    fork and shared by every worker in the pool;
-6. IAM, loaded from the object layer, and the S3 front door.
+6. the pool topology: the pools pool-topology.json names beyond the
+   --drives flags are attached, its draining pools adopted
+   (server/topology.py), and the drains the journals left active are
+   resumed (background/decom.resume_decommissions);
+7. the data scanner (background/scanner.py; MTPU_SCANNER=0 starts none,
+   MTPU_SCANNER_INTERVAL, MTPU_SCANNER_DEEP_EVERY);
+8. IAM, loaded from the object layer, and the S3 front door.
 
 With MTPU_WORKERS=N (server/workers.py) the boot forks instead: one
 device owner, which runs the self-tests and then every kernel of the
 pool, and N HTTP workers on one port (SO_REUSEPORT), each booting steps
-2-6 (the sweep in worker 0 only) with its coalescer routed to the owner
-through shared memory.  The branch is taken before anything loads torch.
+2-8 (the sweep, the resumed drains and the scanner in worker 0 only)
+with its coalescer routed to the owner through shared memory.  The
+branch is taken before anything loads torch.
 
-It serves until SIGTERM or SIGINT, then drains, stops the MRF queues
-and the breakers' probers, and exits 0.  A second signal forces the
-exit.  Root credentials come from MTPU_ROOT_USER / MTPU_ROOT_PASSWORD
-(the reference's MINIO_ROOT_USER convention), defaulting to
+It serves until SIGTERM or SIGINT, then drains, stops the scanner, the
+MRF queues and the breakers' probers, and exits 0.  A second signal
+forces the exit.  Root credentials come from MTPU_ROOT_USER /
+MTPU_ROOT_PASSWORD (the reference's MINIO_ROOT_USER convention), defaulting to
 minioadmin/minioadmin; the other identities are IAM's, managed through
 the admin API and kept in the object layer.
 
@@ -42,8 +49,9 @@ own --port) boot one node of a cluster (server/cluster.py): the
 self-tests on this node's card, the front door with the RPC planes,
 the format wait (MTPU_BOOT_TIMEOUT seconds, default 120), the peers'
 verify, then the object layer over local and remote drives with a dsync
-namespace lock.  MTPU_WORKERS is ignored there (one process per node),
-https endpoints need --certs-dir and --certs-dir needs https endpoints,
+namespace lock, and the node's scanner.  MTPU_WORKERS is ignored there
+(one process per node), https endpoints need --certs-dir and
+--certs-dir needs https endpoints,
 and no hot tier is attached.  A service restart (admin) boots the node
 again; SIGTERM drains and exits 0.
 """
@@ -58,9 +66,7 @@ import threading
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = ("pool topology, decommission and the scanner, in one process, "
-            "in the worker pool's worker 0 and on a cluster node (item 9b); "
-            "notifications, replication and tiering (item 10)")
+LEFT_OUT = "notifications, replication and tiering (item 10)"
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -157,6 +163,7 @@ def main(argv: list[str] | None = None) -> int:
                         args.set_drive_count, certs, args.device)
 
     from ..background.mrf import attach_mrf
+    from ..background.scanner import scanner_from_env
     from ..iam.iam import IAMSys
     from . import boot
     from .server import S3Server
@@ -173,6 +180,7 @@ def main(argv: list[str] | None = None) -> int:
     stop = threading.Event()
     install_signal_handlers(stop)
     mrf_queues: list = []
+    scanner = None
     try:
         # MRF heal queues: a write that missed a breaker-offline drive
         # heals back to full width once the drive answers again.
@@ -188,9 +196,12 @@ def main(argv: list[str] | None = None) -> int:
             print("minio_tpu_torch: hot-object cache: "
                   f"{pools.hot_tier.stats()['segment_bytes'] >> 20} MiB "
                   "segment attached", flush=True)
+        print(adopt_pools(pools), flush=True)
+        scanner = scanner_from_env(pools)
         iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*creds), host=args.host,
-                       port=args.port, certs=certs, iam=iam).start()
+                       port=args.port, certs=certs, iam=iam,
+                       scanner=scanner).start()
         desc = ", ".join(f"pool{i}: {len(p)} drives "
                          f"set={pool_sets[i].set_drive_count}"
                          for i, p in enumerate(pool_paths))
@@ -205,12 +216,29 @@ def main(argv: list[str] | None = None) -> int:
         srv.drain()
         srv.shutdown()
     finally:
+        if scanner is not None:
+            scanner.stop()
         for q in mrf_queues:
             q.stop()
         for d in wrapped:
             d.close()
         pools.close()
     return 0
+
+
+def adopt_pools(pools) -> str:
+    """Step 6 of the boot (the recovery owner's): fold pool-topology.json
+    in and resume the drains its journals left active; returns the line
+    the boot prints."""
+    from ..background.decom import resume_decommissions
+    from .topology import adopt_topology
+    added = adopt_topology(pools)
+    drains = [f"pool {d.pool_idx} {d.state}"
+              for d in resume_decommissions(pools)]
+    return (f"minio_tpu_torch: topology: {len(pools.pools)} pools "
+            f"({added} from pool-topology.json), draining "
+            f"{sorted(pools.draining)}; decommissions: "
+            f"{', '.join(drains) or 'none'}")
 
 
 def cluster_main(args, drive_groups: list[list[str]],
@@ -275,6 +303,8 @@ def cluster_main(args, drive_groups: list[list[str]],
         restart = srv.service_event == "restart"
         srv.drain()
         srv.shutdown()
+        if srv.scanner is not None:
+            srv.scanner.stop()
         node.close()
         pools.close()
         if not restart or stop.is_set():

@@ -17,9 +17,11 @@ address; it
    digest, root access key; verifyServerSystemConfig);
 4. builds the mixed local/remote erasure sets on its device, with a
    dsync namespace lock over one locker per node, and binds the object
-   layer, its MRF queues and IAM, whose mutations broadcast a reload to
-   the peers over the peer plane (a reload first drops the node's cached
-   listings of the meta bucket; the JAX boot wires no broadcast).
+   layer, its MRF queues, its data scanner (background/scanner.py, as on
+   every node of the JAX package; MTPU_SCANNER=0 starts none) and IAM,
+   whose mutations broadcast a reload to the peers over the peer plane
+   (a reload first drops the node's cached listings of the meta bucket;
+   the JAX boot wires no broadcast).
 
 The RPC bearer token is derived from the root credentials, so nodes
 booted with the same MTPU_ROOT_USER / MTPU_ROOT_PASSWORD authenticate to
@@ -33,9 +35,8 @@ first paying a transport timeout).  A wrapped remote drive still reports
 as RemoteDrive, so the local-only paths (vectored staging, the metadata
 lanes' batched calls, the sendfile plan) leave it on the solo calls.
 
-Not ported yet (ROADMAP Queue A item 9b and item 10): the data scanner,
-pool topology and decommission, and the observability verbs of the peer
-plane (`register_obs_rpc`).
+Not ported yet (ROADMAP Queue A item 10): the observability verbs of the
+peer plane (`register_obs_rpc`).
 """
 
 from __future__ import annotations
@@ -337,7 +338,9 @@ def boot_cluster_node(endpoint_args: list, my_host: str, my_port: int,
                     es._mark_dirty(META_BUCKET)
             iam.load()
         node.peer_registry.on_reload("iam", reload_iam)
-        server.bind_object_layer(pools, iam=iam)
+        from ..background.scanner import scanner_from_env
+        server.bind_object_layer(pools, iam=iam,
+                                 scanner=scanner_from_env(pools))
         return node, server, pools
     except BaseException:
         server.shutdown()

@@ -15,7 +15,8 @@ configs other than versioning, tagging, policy and quota.  An object
 another package stored encrypted, compressed or tiered is not served as
 if it were plain, and a bucket that carries an object-lock config takes
 no write that would bypass it.  A bucket's hard quota is enforced at PUT
-and multipart complete (bucket/quota.py, usage from a live listing).
+and multipart complete (bucket/quota.py: usage from the scanner's last
+cycle, as in the JAX package, else from a live listing).
 Snowball tars are extracted on PUT and zip members served on GET
 (server/extract.py); who may call a handler is decided before it runs
 (server.py `_authorize`).
@@ -152,8 +153,12 @@ def _valid_bucket_name(name: str) -> bool:
 class S3Handlers:
     """All bucket/object handlers; one instance per server."""
 
-    def __init__(self, pools: ServerPools):
+    def __init__(self, pools: ServerPools, scanner=None):
         self.pools = pools
+        # Where quota reads usage (background/scanner.py: the running
+        # scanner, or in a pool worker without one its persisted usage);
+        # None lists the bucket live.
+        self.scanner = scanner
         try:
             pools.make_bucket(META_BUCKET)
         except StorageError:
@@ -725,7 +730,8 @@ class S3Handlers:
         quota_raw = self.meta.get(bucket, "quota")
         if quota_raw is not None:
             qcfg = bq.parse_quota_config(quota_raw)
-            reason = bq.check_quota(self.pools, bucket, declared_size, qcfg)
+            reason = bq.check_quota(self.pools, bucket, declared_size, qcfg,
+                                    self.scanner)
             if reason:
                 raise S3Error("QuotaExceeded", reason)
             if streams.is_reader(body) and not declared_size \
@@ -733,8 +739,8 @@ class S3Handlers:
                 # Undeclared-length stream on a quota'd bucket: cap at
                 # the remaining allowance so chunked TE can't bypass it.
                 remaining = max(0, qcfg["quota"]
-                                - bq.current_bucket_bytes(self.pools,
-                                                          bucket))
+                                - bq.current_bucket_bytes(
+                                    self.pools, bucket, self.scanner))
                 body = streams.MaxSizeReader(
                     body, remaining,
                     exc=lambda msg: S3Error("QuotaExceeded", msg))
@@ -1039,7 +1045,8 @@ class S3Handlers:
                 raise from_storage_error(e) from None
             total = sum(stored[n].size for n, _ in parts if n in stored)
             reason = bq.check_quota(self.pools, bucket, total,
-                                    bq.parse_quota_config(quota_raw))
+                                    bq.parse_quota_config(quota_raw),
+                                    self.scanner)
             if reason:
                 raise S3Error("QuotaExceeded", reason)
         self._refuse_write_gates(bucket)

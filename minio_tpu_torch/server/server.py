@@ -13,15 +13,24 @@ stream back in device batches.  Browser POST-policy uploads carry their
 own signature and are authorized from the form.
 
 The admin API serves IAM's users, groups, policies and service accounts,
-and heal sequences (`heal`: POST starts one, GET lists their status);
-POST / is STS (AssumeRole, WebIdentity and ClientGrants through OIDC,
-LDAPIdentity, Certificate over mTLS).  What answers NotImplemented, with
-its ROADMAP.md Queue A item: the other admin endpoints, metrics (but
-the worker pool's, the hot tier's, the metadata plane's, the admission
-plane's and a cluster node's families at /minio/v2/metrics/node) and
-listen (item 10); pool topology and decommission (item 9b).  Spans, the
-rest of the metrics, the audit trail and federation stay in the JAX
-package for now.
+heal sequences (`heal`: POST starts one, GET lists their status), `info`
+(drives, sets and the scanner's usage), `datausage`, the pools (`pools`;
+`pool/add` attaches a pool to the running deployment, live; and
+`pool/decommission` with action start, pause, resume or cancel, GET for
+status); POST / is STS (AssumeRole, WebIdentity and ClientGrants through
+OIDC, LDAPIdentity, Certificate over mTLS).  What answers
+NotImplemented, with its ROADMAP.md Queue A item: the other admin
+endpoints, metrics (but the worker pool's, the hot tier's, the metadata
+plane's, the admission plane's and a cluster node's families at
+/minio/v2/metrics/node) and listen (item 10).  Spans, the rest of the
+metrics, the audit trail and federation stay in the JAX package for
+now.
+
+In a worker pool a pool change reaches every worker through
+pool-topology.json and the shared topology generation (server/
+topology.py); a drain's mover runs in worker 0 alone, another worker
+records the admin's request in the drain's journal, and every worker
+answers status from the journal (background/decom.py).
 
 A cluster node (server/cluster.py) mounts its RPC router
 (`rpc_router`): POST /minio/rpc/... goes to the storage, lock and peer
@@ -70,6 +79,7 @@ from ..iam.oidc import OIDCError
 from ..iam.policy import Policy, PolicyError
 from ..observe.health import cluster_health
 from ..ops import zerocopy as zc
+from ..storage.errors import StorageError
 from ..utils import streams
 from . import postpolicy, qos as _qos, sigv2
 from .api_errors import S3Error
@@ -299,7 +309,8 @@ class S3Server:
                  certs: tuple[str, str] | None = None, iam=None,
                  oidc=None, ldap=None, client_ca: str | None = None,
                  reuse_port: bool = False, worker_plane=None,
-                 worker_id: int | None = None, rpc_router=None):
+                 worker_id: int | None = None, rpc_router=None,
+                 scanner=None):
         self.pools = pools
         # A cluster node's RPC planes, served under this port; its
         # ClusterNode (set by server/cluster.boot_cluster_node) gives the
@@ -315,7 +326,14 @@ class S3Server:
         self.oidc = oidc
         self.ldap = ldap
         self.client_ca = client_ca
-        self.handlers = S3Handlers(pools) if pools is not None else None
+        # The data scanner (background/scanner.py), whose lifecycle is
+        # the process's; quota, `info` and `datausage` read its usage.
+        self.scanner = scanner
+        # The process that runs decommission movers: one process alone,
+        # or the pool's worker 0.
+        self.decom_owner = worker_plane is None or worker_id == 0
+        self.handlers = (S3Handlers(pools, self._usage_source())
+                         if pools is not None else None)
         # Overload plane (server/qos.py): the process-tree singleton; in
         # the pool the supervisor made it before the fork, so every
         # worker draws on one cap.
@@ -873,14 +891,29 @@ class S3Server:
 
     # -- dispatch ------------------------------------------------------------
 
-    def bind_object_layer(self, pools: ServerPools, iam=None) -> None:
+    def bind_object_layer(self, pools: ServerPools, iam=None,
+                          scanner=None) -> None:
         """Install the object layer after a cluster boot: the listener
         was up first so that peers reached this node's planes while it
         waited for the format (cf. cmd/server-main.go:441)."""
-        self.handlers = S3Handlers(pools)
+        if scanner is not None:
+            self.scanner = scanner
+        self.pools = pools
+        self.handlers = S3Handlers(pools, self._usage_source())
         if iam is not None:
             self.iam = iam
-        self.pools = pools
+
+    def _usage_source(self):
+        """What quota and the admin read usage from: the scanner, bound
+        to the bucket configuration (item 10's lifecycle binds there),
+        or in a pool worker without one, the usage worker 0's scanner
+        persisted; None without either."""
+        if self.scanner is not None:
+            return self.scanner
+        if self.worker_plane is not None:
+            from ..background.scanner import PersistedUsage
+            return PersistedUsage(self.pools)
+        return None
 
     def _dispatch_internal(self, path: str, query: dict) -> Response:
         """Unauthenticated infra endpoints (cf.
@@ -1231,6 +1264,16 @@ class S3Server:
         self._admin_authorize(access_key, sub, method)
         if sub == "heal":
             return self._admin_heal(method, query)
+        if sub == "info" and method == "GET":
+            return self._admin_info()
+        if sub == "datausage" and method == "GET":
+            return self._admin_datausage()
+        if sub == "pools" and method == "GET":
+            return self._admin_pools()
+        if sub == "pool/add" and method == "POST":
+            return self._admin_pool_add(body)
+        if sub == "pool/decommission":
+            return self._admin_decommission(method, query)
         if sub == "service" and method == "POST" and \
                 self.cluster_node is not None:
             return self._admin_service(query)
@@ -1283,6 +1326,237 @@ class S3Server:
                 deep=query.get("deep", [""])[0] == "true")
             return _json(seq.status())
         return _json({"sequences": self.heal_state.statuses()})
+
+    # -- admin API: usage and the pool lifecycle ------------------------------
+
+    def _admin_info(self) -> Response:
+        """The madmin InfoMessage's shape (cf. ServerInfoHandler,
+        cmd/admin-handlers.go): health, buckets, and the objects and bytes
+        of the scanner's last cycle, every drive's state."""
+        ok, detail = cluster_health(self.pools)
+        n_buckets = len([b for b in self.pools.list_buckets()
+                         if b != ".mtpu.sys"])
+        n_objects = usage_size = 0
+        src = self.handlers.scanner
+        u = src.latest_usage() if src is not None else None
+        if u is not None:
+            for bu in u.buckets.values():
+                n_objects += bu.objects
+                usage_size += bu.bytes
+        drives = []
+        for pi, pool in enumerate(self.pools.pools):
+            for si, es in enumerate(pool.sets):
+                for di, d in enumerate(es.drives):
+                    if d is None:
+                        state = "offline"
+                    elif hasattr(d, "health_state"):
+                        state = d.health_state()
+                    else:
+                        state = "ok"
+                    row = {"pool_index": pi, "set_index": si,
+                           "drive_index": di, "state": state,
+                           "endpoint": getattr(d, "root", "")}
+                    if hasattr(d, "health_info"):
+                        hi = d.health_info()
+                        row["breaker"] = {
+                            k: hi.get(k, default) for k, default in (
+                                ("consecutive_errors", 0),
+                                ("consecutive_slow", 0),
+                                ("last_fault", ""),
+                                ("transitions", []))}
+                    drives.append(row)
+        peers = (self.cluster_node.peer_info()
+                 if self.cluster_node is not None else [])
+        pool_proc = ({"owner": self.worker_plane.state.owner_info(),
+                      "workers": self.worker_plane.state.worker_rows()}
+                     if self.worker_plane is not None else None)
+        return _json({
+            "mode": "online" if ok else "degraded",
+            "peers": peers,
+            "pool": pool_proc,
+            "deploymentID": self.pools.deployment_id,
+            "buckets": {"count": n_buckets},
+            "objects": {"count": n_objects},
+            "usage": {"size": usage_size},
+            "servers": [{"state": "online",
+                         "endpoint": f"{self.host}:{self.port}",
+                         "drives": drives}],
+            "backend": {"backendType": "Erasure", "sets": detail["sets"]},
+            "deploymentId": self.pools.deployment_id,
+            "sets": detail["sets"],
+        })
+
+    def _admin_datausage(self) -> Response:
+        """The scanner's last cycle (a cycle now when none has run); a
+        pool worker without the scanner reads what worker 0's
+        persisted."""
+        src = self.handlers.scanner
+        if src is None:
+            return _json({"error": "scanner not running"}, 503)
+        usage = src.latest_usage()
+        if usage is None and self.scanner is not None:
+            usage = self.scanner.scan_cycle()
+        if usage is None:
+            return _json({"error": "no scan cycle has completed"}, 503)
+        return _json({"buckets": {b: u.to_obj()
+                                  for b, u in usage.buckets.items()},
+                      "scannedAt": usage.scanned_at})
+
+    def _admin_pools(self) -> Response:
+        """Every pool's sets, drives and capacity, and its drain state
+        (cf. ListPools, cmd/admin-handlers-pools.go)."""
+        out = []
+        cap = {r["pool"]: r for r in self.pools.pool_status()}
+        for pi, pool in enumerate(self.pools.pools):
+            drives = online = 0
+            for es in pool.sets:
+                for d in es.drives:
+                    drives += 1
+                    if d is not None and (not hasattr(d, "is_online")
+                                          or d.is_online()):
+                        online += 1
+            crow = cap.get(pi, {})
+            row = {"pool": pi, "sets": len(pool.sets),
+                   "drivesPerSet": pool.sets[0].n if pool.sets else 0,
+                   "drivesTotal": drives, "drivesOnline": online,
+                   "decommissioning": pi in self.pools.draining,
+                   "totalBytes": crow.get("total", 0),
+                   "freeBytes": crow.get("free", 0)}
+            if "decommission" in crow:
+                row["decommission"] = crow["decommission"]
+            out.append(row)
+        return _json({"pools": out,
+                      "placement": self.pools.placement_pools()})
+
+    def _pool_self_test(self, es) -> None:
+        """One PUT, GET and DELETE through every set of a new pool before
+        it becomes a placement candidate: a pool with a dead drive path
+        fails the admin call, not the first client write routed to it.
+        The PUT's encode and the GET's verify run on the card (in a
+        worker pool, through the device owner's lanes)."""
+        probe_bucket = ".mtpu.pool-selftest"
+        try:
+            es.make_bucket(probe_bucket)
+        except StorageError:
+            pass
+        try:
+            for i, s in enumerate(es.sets):
+                payload = secrets.token_bytes(1024)
+                key = f"probe-{i}"
+                s.put_object(probe_bucket, key, payload)
+                _, got = s.get_object(probe_bucket, key)
+                if bytes(got) != payload:
+                    raise ValueError(f"pool self-test: set {i} read "
+                                     "mismatch")
+                s.delete_object(probe_bucket, key)
+        finally:
+            try:
+                es.delete_bucket(probe_bucket, force=True)
+            except StorageError:
+                pass
+
+    def _pool_add(self, spec: str,
+                  set_drive_count: int | None = None) -> int:
+        """Attach a new pool, live: expand the drive spec, sweep, wrap and
+        format its drives as the boot does, self-test every set, make
+        every bucket on it, give it an MRF queue, then tell the other
+        workers (server/topology.py)."""
+        from .__main__ import expand_ellipses
+        from .topology import attach_built_pool
+        paths = [p for part in spec.split() for p in expand_ellipses(part)]
+        if not paths:
+            raise ValueError("empty drives spec")
+        idx = attach_built_pool(
+            self.pools, {"paths": paths, "set_drive_count": set_drive_count},
+            sweep=True, check=self._pool_self_test)
+        self._propagate_topology()
+        return idx
+
+    def _propagate_topology(self) -> None:
+        """Persist pool-topology.json and wake the other workers (the
+        shared topology generation; nothing more in one process)."""
+        from .topology import save_topology
+        save_topology(self.pools)
+        if self.worker_plane is not None:
+            self.worker_plane.state.bump_topology_gen()
+
+    def _admin_pool_add(self, body: bytes) -> Response:
+        req = json.loads(body or b"{}")
+        spec = req.get("drives", "")
+        if not spec:
+            raise S3Error("InvalidArgument",
+                          "drives spec required (ellipses ok)")
+        try:
+            idx = self._pool_add(spec,
+                                 int(req.get("setDriveCount", 0)) or None)
+        except (ValueError, StorageError) as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        return _json({"pool": idx,
+                      "placement": self.pools.placement_pools()})
+
+    def _admin_decommission(self, method: str, query: dict) -> Response:
+        """A drain's lifecycle (cf. StartDecommission, Status and Cancel,
+        cmd/admin-handlers-pools.go).  The mover runs where
+        `decom_owner`; another worker records the request in the drain's
+        journal for it.  Status is read from the journal everywhere."""
+        from ..background import decom
+        q_pool = query.get("pool", [""])[0]
+        if method == "GET":
+            if q_pool:
+                st = decom.pool_status(self.pools, int(q_pool))
+                if st is None:
+                    return _json({"error": "no decommission for pool "
+                                           f"{q_pool}"}, 404)
+                return _json(st)
+            rows = [decom.pool_status(self.pools, i)
+                    for i in range(len(self.pools.pools))]
+            return _json({"decommissions": [r for r in rows
+                                            if r is not None]})
+        if method != "POST":
+            raise S3Error("MethodNotAllowed")
+        if not q_pool:
+            raise S3Error("InvalidArgument", "pool required")
+        idx = int(q_pool)
+        action = query.get("action", ["start"])[0]
+        try:
+            if self.decom_owner:
+                st = self._decom_here(idx, action)
+            else:
+                st = decom.request(self.pools, idx, action)
+        except ValueError as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        if st is None:
+            return _json({"error": f"no decommission for pool {idx}"}, 404)
+        self._propagate_topology()
+        return _json(st)
+
+    def _decom_here(self, idx: int, action: str) -> dict | None:
+        """The owner's side of an admin action on pool `idx`'s drain."""
+        from ..background import decom
+        d = self.pools.decommissions.get(idx)
+        if d is None and action != "start":
+            # A drain this process did not start (a worker recorded it,
+            # or the boot found its journal) is the journal's to name.
+            decom.reconcile(self.pools)
+            d = self.pools.decommissions.get(idx)
+        if action == "start":
+            if d is not None and d.state in decom.ACTIVE_STATES:
+                return d.status()            # an idempotent start
+            d = decom.Decommissioner(
+                self.pools, idx,
+                journal_path=decom.find_journals(self.pools).get(idx))
+            d.start()
+        elif d is None:
+            return None
+        elif action == "pause":
+            d.pause()
+        elif action == "resume":
+            d.resume()
+        elif action == "cancel":
+            d.cancel()
+        else:
+            raise ValueError(f"unknown action {action!r}")
+        return d.status()
 
     def _admin_users(self, method, arg, req) -> Response | None:
         if method == "GET":

@@ -11,8 +11,9 @@ pool runs the S3 vertical in N processes:
     |                 the shared-memory dispatch plane
     |                 (ops/ipc_dispatch.py)
     |- worker 0       full S3 vertical; also the recovery owner: the
-    |                 boot recovery sweep (on its first spawn only) and
-    |                 MRF orphan-journal adoption
+    |                 boot recovery sweep (on its first spawn only), MRF
+    |                 orphan-journal adoption, the data scanner and the
+    |                 decommission movers (resumed on every spawn)
     |- worker 1..N-1  full S3 vertical
 
 Every worker binds the same (host, port) with SO_REUSEPORT, and the
@@ -78,8 +79,20 @@ one key exclude each other.  Every fork-shared lock of the pool (the
 tier's, the arenas', the slab's, the stripes') is an ops/shm_lock
 robust mutex: a worker killed inside one leaves no other blocked.
 
-Left out (with its ROADMAP.md Queue A item): worker 0's topology,
-decommission and scanner (item 9b).
+The pool topology (server/topology.py): a worker that serves admin
+pool/add or a decommission action writes pool-topology.json and bumps
+the shared topology generation; every worker polls it in its idle loop
+and attaches the new pools, adopts the draining set and reloads the
+multipart relocation maps, and a worker spawned later boots the pools
+the file names.  A drain's mover runs in worker 0 alone: another worker
+records the admin's request in the drain's journal, and worker 0 folds
+the journals into its movers on each generation and every 2 s
+(background/decom.reconcile); its every spawn resumes the active drains,
+so a drain survives the death of the worker that ran it.  The data
+scanner runs in worker 0 (MTPU_SCANNER); the other workers mark the
+buckets they write in a fork-shared table (background/usage.SharedMarks,
+built before the fork), so worker 0's next cycle rescans them, and read
+the usage it persisted.
 
 `MTPU_WORKERS=0` (the default) never enters this module: one process
 remains the oracle.
@@ -115,7 +128,7 @@ BOOT_TIMEOUT_S = 120.0
 _G = {name: i for i, name in enumerate((
     "owner_gen", "owner_pid", "owner_beat_ns", "co_dispatches", "co_items",
     "co_pending", "co_pipelined", "co_pack_ns", "co_staged_bytes",
-    "owner_cuda",
+    "owner_cuda", "topology_gen",
     *(f"launches_{k}" for k in KERNELS),
     *(f"items_{k}" for k in KERNELS)))}
 _GHDR = len(_G)
@@ -195,7 +208,22 @@ class SharedState:
         """The supervisor saw the owner die: down now, not a heartbeat
         period later; its counters go with it (the next generation
         counts from 0)."""
+        keep = self._a[_G["topology_gen"]]
         self._a[_G["owner_gen"] + 1:_GHDR] = 0
+        self._a[_G["topology_gen"]] = keep
+
+    # topology ---------------------------------------------------------------
+
+    def bump_topology_gen(self) -> int:
+        """The pool topology's epoch: bumped by the worker that served a
+        pool/add or a decommission action, after pool-topology.json was
+        written (server/topology.py)."""
+        with _SLAB_MU:
+            self._a[_G["topology_gen"]] += 1
+            return int(self._a[_G["topology_gen"]])
+
+    def topology_gen(self) -> int:
+        return int(self._a[_G["topology_gen"]])
 
     def owner_beat(self, co_stats: dict | None = None,
                    kernels: dict | None = None, cuda: bool = False) -> None:
@@ -337,6 +365,10 @@ class WorkerPlane:
         from . import qos as _qos
         self.qos = _qos.get_plane(nworkers=self.nworkers)
         shared_stripes()
+        # The dirty-bucket marks every worker makes and worker 0's
+        # scanner reads (background/usage.py imports no torch).
+        from ..background.usage import SharedMarks
+        self.dirty_marks = SharedMarks()
 
     def owner_ok(self) -> bool:
         return self.state.owner_ok(owner_stale_s())
@@ -567,14 +599,21 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
 
     import torch
 
+    from ..background import decom
     from ..background.mrf import attach_mrf
+    from ..background.scanner import scanner_from_env
+    from ..background.usage import DirtyTracker
     from ..iam.iam import IAMSys
     from ..ops import coalesce
     from ..ops import ipc_dispatch as ipc
     from . import boot
-    from .__main__ import LEFT_OUT
+    from . import topology as topo
+    from .__main__ import LEFT_OUT, adopt_pools
     from .server import S3Server
     from .sigv4 import Credentials
+
+    # Every set this process builds marks the pool-shared table.
+    DirtyTracker.shared().attach_shared(plane.dirty_marks)
 
     # The engine's call sites keep calling coalesce.get(): the device
     # kinds go to the owner, the rest stay on this worker's lanes.  Made
@@ -603,6 +642,7 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
               f"{swept['retired_segments']} metadata journal segments of "
               f"its predecessor (pid {predecessor})", flush=True)
     mrf_queues: list = []
+    scanner = None
     try:
         mrf_queues = attach_mrf(pools)
         if plane.hotcache is not None:
@@ -612,12 +652,20 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
             if attach_hotcache(pools, plane.hotcache) is not None:
                 plane.hotcache.on_lookup = (
                     lambda hit, _i=idx: plane.state.note_hotcache(_i, hit))
-        iam = IAMSys(pools)
         coalesce.attach_remote(remote)
+        # The pools pool-topology.json adds to the flags (and their
+        # draining set); worker 0 resumes the active drains and scans.
+        topo_seen = plane.state.topology_gen()
+        if idx == 0:
+            print(f"{adopt_pools(pools)} [worker 0]", flush=True)
+            scanner = scanner_from_env(pools)
+        else:
+            topo.adopt_topology(pools)
+        iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*cfg["creds"]), host=cfg["host"],
                        port=cfg["port"], certs=cfg["certs"], iam=iam,
                        reuse_port=True, worker_plane=plane,
-                       worker_id=idx).start()
+                       worker_id=idx, scanner=scanner).start()
         stop = _stop_event()
 
         def _beat():
@@ -640,7 +688,30 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
                   f"({plane.nworkers} workers, SO_REUSEPORT; sets on "
                   f"{pools.pools[0].sets[0].device})", flush=True)
             print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
-        stop.wait()
+        next_fold = time.monotonic() + 2.0
+        while not stop.wait(0.25):
+            gen = plane.state.topology_gen()
+            due = time.monotonic() >= next_fold
+            if gen == topo_seen and not due:
+                continue
+            try:
+                if gen != topo_seen:
+                    # Another worker changed the pools or a drain.
+                    topo_seen = gen
+                    topo.adopt_topology(pools)
+                elif pools.draining:
+                    # A drain relocates uploads as it goes; a part PUT
+                    # of the old id can land on any worker.
+                    topo.refresh_relocations(pools)
+                if idx == 0:
+                    for line in decom.reconcile(pools):
+                        print(f"minio_tpu_torch: worker 0: decommission "
+                              f"{line}", flush=True)
+            except Exception as e:  # noqa: BLE001 — keep serving
+                print(f"minio_tpu_torch: worker {idx}: topology: {e}",
+                      file=sys.stderr, flush=True)
+            if due:
+                next_fold = time.monotonic() + 2.0
         plane.state.set_draining(idx)
         srv.drain()
         srv.shutdown()
@@ -651,6 +722,8 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
               f"{coalesce.stats()['co_fallbacks']} recomputed after a "
               f"failed handle", flush=True)
     finally:
+        if scanner is not None:
+            scanner.stop()
         for q in mrf_queues:
             q.stop()
         coalesce.detach_remote()

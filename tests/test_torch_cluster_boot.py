@@ -7,6 +7,7 @@ across nodes: a new version PUT through one node is what the other serves at
 once.  Every wait here has its own deadline, so a hung peer fails its test,
 not the run."""
 
+import contextlib
 import glob
 import hashlib
 import json
@@ -82,8 +83,8 @@ def _stop(procs):
             pr.wait(timeout=5)
 
 
-@pytest.fixture()
-def cluster(tmp_path):
+@contextlib.contextmanager
+def _booted(tmp_path, **env):
     """2 node processes x 4 drives -> one erasure set of 8."""
     ports = _free_ports(2)
     args = [f"http://127.0.0.1:{p}{tmp_path}/n{i}/d{{1...4}}"
@@ -93,7 +94,7 @@ def cluster(tmp_path):
         for i, p in enumerate(ports):
             log = open(tmp_path / f"node{i}.log", "wb")
             logs.append(log)
-            procs.append(_node(args, p, _env(), log))
+            procs.append(_node(args, p, _env(**env), log))
         for p in ports:
             _wait_ready(p, procs)
         yield ports, tmp_path
@@ -104,6 +105,12 @@ def cluster(tmp_path):
         for i in range(len(ports)):
             sys.stderr.write(
                 (tmp_path / f"node{i}.log").read_text(errors="replace"))
+
+
+@pytest.fixture()
+def cluster(tmp_path):
+    with _booted(tmp_path) as booted:
+        yield booted
 
 
 def payload(size, seed=0):
@@ -234,3 +241,35 @@ def test_rejects_mixed_root_credentials(tmp_path):
         assert "cluster boot failed" in out
     finally:
         _stop([p1, p2])
+
+
+def test_every_node_runs_its_scanner(tmp_path):
+    """Each node boots its own data scanner (the JAX cluster boot's
+    DataScanner on every node): a PUT through node 1 is in both nodes'
+    usage after their next cycles, and a drive's removed xl.meta on node
+    2 is healed by a normal cycle."""
+    with _booted(tmp_path, MTPU_SCANNER_INTERVAL="0.3") as (ports, tmp):
+        c1, c2 = _clients(ports)
+        c1.make_bucket("scan")
+        data = payload(150_000, seed=3)
+        c1.put_object("scan", "obj", data)
+
+        def usage(cli):
+            st, doc = cli.admin("GET", "datausage")
+            if st != 200:
+                return None
+            return doc["buckets"].get("scan", {}).get("o")
+        deadline = time.monotonic() + 60
+        while not (usage(c1) == 1 and usage(c2) == 1):
+            assert time.monotonic() < deadline, (usage(c1), usage(c2))
+            time.sleep(0.3)
+        meta = tmp / "n2" / "d3" / "scan" / "obj" / "xl.meta"
+        want = meta.read_bytes()
+        meta.unlink()
+        deadline = time.monotonic() + 60
+        while not meta.exists():
+            assert time.monotonic() < deadline, "xl.meta never healed"
+            time.sleep(0.2)
+        time.sleep(0.5)
+        assert meta.read_bytes() == want
+        assert c2.get_object("scan", "obj") == data

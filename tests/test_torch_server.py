@@ -504,9 +504,10 @@ class TestPortOnly:
                     ("GET", "/npx/o", {"retention": ""}, None, "10"),
                     ("POST", "/npx/o", {"select": ""}, None, "10"),
                     ("POST", "/npx/o", {"restore": ""}, None, "10"),
-                    ("GET", "/minio/admin/v3/info", None, None, "10"),
-                    # Heal sequences are served (admin `heal`); the
-                    # service actions only on a cluster node.
+                    ("GET", "/minio/admin/v3/bandwidth", None, None, "10"),
+                    # Heal sequences, `info`, `datausage` and the pools
+                    # are served; the service actions only on a cluster
+                    # node.
                     ("POST", "/minio/admin/v3/service",
                      {"action": "restart"}, None, "10"),
                     ("GET", "/minio/admin/v3/config", None, None, "10")):

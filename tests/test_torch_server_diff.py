@@ -389,3 +389,116 @@ def test_sigv4_matches_jax(seed):
     assert port_sigv4.verify_header_signature(
         creds[1], "PUT", path, query, signed, payload, now=now) == \
         (hashlib.sha256(payload).hexdigest(), creds[1].access_key)
+
+
+# -- the admin API's usage and pool lifecycle -------------------------------------
+
+#: fields of a drain's status that are clocks, not state
+_CLOCKS = ("bytes_per_sec", "eta_seconds", "started_at")
+
+
+def _admin_script(cli, root, bodies):
+    """The admin calls of the pool lifecycle and the scanner's usage:
+    (status, the JSON answer with clocks and capacities dropped)."""
+    import time as _time
+
+    import json
+
+    out = []
+
+    def admin(method, endpoint, query=None, doc=None):
+        body = json.dumps(doc).encode() if doc is not None else b""
+        st, _, data = cli.request(method, f"/minio/admin/v3/{endpoint}",
+                                  query=query, body=body)
+        try:
+            return st, json.loads(data)
+        except ValueError:
+            return st, data
+
+    def call(method, endpoint, query=None, doc=None):
+        st, got = admin(method, endpoint, query=query, doc=doc)
+        if isinstance(got, dict):
+            got = {k: v for k, v in got.items() if k not in _CLOCKS}
+            for row in got.get("pools", []):
+                row.pop("totalBytes", None)
+                row.pop("freeBytes", None)
+                if "decommission" in row:
+                    row["decommission"] = {
+                        k: v for k, v in row["decommission"].items()
+                        if k not in _CLOCKS}
+            if "decommissions" in got:
+                got["decommissions"] = [
+                    {k: v for k, v in r.items() if k not in _CLOCKS}
+                    for r in got["decommissions"]]
+            if "scannedAt" in got:
+                got["scannedAt"] = got["scannedAt"] > 0
+            if endpoint == "info":
+                got = (got["mode"], got["buckets"], got["objects"],
+                       got["usage"], len(got["servers"][0]["drives"]),
+                       got["deploymentID"] == got["deploymentId"])
+        elif isinstance(got, bytes):
+            got = re.sub(rb"<RequestId>[^<]*</RequestId>", b"", got)
+        out.append((method, endpoint, str(query), st, got))
+        return st, got
+
+    cli.make_bucket("usg")
+    for i, body in enumerate(bodies):
+        cli.put_object("usg", f"k{i}", body)
+    call("GET", "datausage")
+    call("GET", "pools")
+    call("POST", "pool/add", doc={"drives": ""})
+    call("POST", "pool/add", doc={"drives": str(root / "x{0...3}")})
+    call("GET", "pools")
+    call("GET", "pool/decommission", {"pool": "1"})
+    call("POST", "pool/decommission", {"pool": "1", "action": "pause"})
+    call("POST", "pool/decommission", {"action": "start"})
+    call("POST", "pool/decommission", {"pool": "0", "action": "bogus"})
+    admin("POST", "pool/decommission", {"pool": "0", "action": "start"})
+    deadline = _time.monotonic() + 60
+    while admin("GET", "pool/decommission",
+                    {"pool": "0"})[1]["state"] != "complete":
+        assert _time.monotonic() < deadline, "the drain"
+        _time.sleep(0.1)
+    call("GET", "pool/decommission", {"pool": "0"})
+    call("GET", "pool/decommission")
+    call("GET", "pools")
+    call("POST", "pool/decommission", {"pool": "1", "action": "start"})
+    call("GET", "datausage")
+    call("GET", "info")
+    return out
+
+
+def test_admin_pool_lifecycle_and_usage_match_jax(tmp_path):
+    from minio_tpu.background.scanner import DataScanner as JaxScanner
+    from minio_tpu_torch.background.scanner import DataScanner
+    from minio_tpu_torch.background.usage import DirtyTracker
+
+    rng = np.random.default_rng(SEED)
+    bodies = [rng.bytes(int(n)) for n in rng.integers(1, 200_000, 4)]
+    answers = {}
+    for pkg, make, scanner in ((JAX, _jax_pools, JaxScanner),
+                               (PORT, _port_pools, DataScanner)):
+        root = tmp_path / pkg.name
+        pools = make(root, "d")
+        sc = scanner(pools)
+        srv = pkg.S3Server(pools, pkg.sigv4.Credentials(ACCESS, SECRET),
+                           scanner=sc).start()
+        try:
+            cli = pkg.S3Client(srv.endpoint, ACCESS, SECRET,
+                               **pkg.client_kw)
+            answers[pkg.name] = _admin_script(cli, root, bodies)
+        finally:
+            srv.shutdown()
+            sc.stop()
+            close_pools(pools)
+    DirtyTracker.shared().bind(None)
+    jax_a, port_a = answers["jax"], answers["port"]
+    assert len(jax_a) == len(port_a) == 15
+    for j, p in zip(jax_a, port_a):
+        assert p == j, j[:3]
+    # The drain's status and the usage after it, spelled out.
+    st = port_a[9][4]
+    assert (st["state"], st["versions_moved"], st["objects_moved"]) == \
+        ("complete", 4, 4)
+    assert port_a[-1][4][2:4] == ({"count": 4},
+                                  {"size": sum(map(len, bodies))})

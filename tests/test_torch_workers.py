@@ -895,6 +895,234 @@ def test_worker0_respawn_keeps_a_live_puts_staging(tmp_path):
             proc.wait(timeout=10)
 
 
+# -- the pool lifecycle and the scanner across workers ----------------------------
+
+#: A sitecustomize hook for the lifecycle test: worker 0 refuses object
+#: PUTs into the bucket "only1" and every decommission POST (503
+#: SlowDown), so those reach worker 1 alone; each version the mover moves
+#: takes 0.5 s more, so a drain is still running when a worker dies.
+_LIFECYCLE_HOOK = """
+import importlib.util, os, sys, time
+import minio_tpu_torch.background.decom as dc
+
+_moved = dc.Decommissioner._record_moved
+
+def _slow(self, *a, **kw):
+    time.sleep(0.5)
+    return _moved(self, *a, **kw)
+dc.Decommissioner._record_moved = _slow
+
+
+def _refuse():
+    from minio_tpu_torch.server.api_errors import S3Error
+    return S3Error("SlowDown", "worker 0 declines this request")
+
+
+def _patch(name, fix):
+    class Hook:
+        def find_spec(self, fullname, path, target=None):
+            if fullname != name:
+                return None
+            sys.meta_path.remove(self)
+            spec = importlib.util.find_spec(fullname)
+            run = spec.loader.exec_module
+
+            def exec_module(module):
+                run(module)
+                fix(module)
+            spec.loader.exec_module = exec_module
+            return spec
+    sys.meta_path.insert(0, Hook())
+
+
+def _fix_handlers(m):
+    put = m.S3Handlers.put_object
+
+    def guarded(self, bucket, key, *a, **kw):
+        if bucket == "only1" and os.environ.get("MTPU_WORKER_ID") == "0":
+            raise _refuse()
+        return put(self, bucket, key, *a, **kw)
+    m.S3Handlers.put_object = guarded
+
+
+def _fix_server(m):
+    dec = m.S3Server._admin_decommission
+
+    def guarded(self, method, query):
+        if method == "POST" and self.worker_id == 0:
+            raise _refuse()
+        return dec(self, method, query)
+    m.S3Server._admin_decommission = guarded
+
+
+_patch("minio_tpu_torch.server.handlers", _fix_handlers)
+_patch("minio_tpu_torch.server.server", _fix_server)
+"""
+
+_CLOCKS = ("bytes_per_sec", "eta_seconds", "started_at")
+
+
+def _until_200(fresh, call, what, tries=60):
+    """call(client) on fresh connections until one answers 200 (worker 0
+    declines some requests with 503)."""
+    for _ in range(tries):
+        got = call(fresh())
+        if got[0] == 200:
+            return got
+        assert got[0] == 503, got
+    raise AssertionError(f"no worker served {what}")
+
+
+def test_pool_lifecycle_across_workers(tmp_path):
+    """pool/add through one worker reaches both; a drain requested
+    through worker 1 runs in worker 0 alone, outlives worker 1's and
+    worker 0's SIGKILLs, moves every object byte-exact with its version
+    id, and reads alike from every worker; a PUT worker 1 served is in
+    worker 0's next scan.  The JAX pool runs the mover in whichever
+    worker got the POST: its status answers 404 from the others, and the
+    drain stalls with that worker."""
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(_LIFECYCLE_HOOK)
+    root = str(tmp_path)
+    proc, port = _boot(root, 2, {"MTPU_RESPAWN_DELAY_S": "0.2",
+                                 "MTPU_SCANNER_INTERVAL": "0.3"},
+                       pythonpath=str(hook))
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=60)
+
+    def respawned(w, pid):
+        m = _metrics(port)
+        return (int(m[f'mtpu_worker_pid{{worker="{w}"}}']) != pid
+                and m.get(f'mtpu_worker_ready{{worker="{w}"}}') == 1)
+
+    def status():
+        # A connection queued on a worker as it is killed is reset.
+        for _ in range(20):
+            try:
+                return fresh().admin("GET", "pool/decommission",
+                                     {"pool": "0"})
+            except OSError:
+                time.sleep(0.1)
+        raise AssertionError("no worker answered the status")
+
+    def statuses(n=12):
+        out = []
+        for _ in range(n):
+            st, doc = status()
+            assert st == 200, doc
+            out.append({k: v for k, v in doc.items() if k not in _CLOCKS})
+        return out
+
+    try:
+        _wait(lambda: all(_metrics(port).get(
+            f'mtpu_worker_ready{{worker="{w}"}}') == 1 for w in (0, 1)),
+            "both workers", timeout=90, proc=proc)
+        cli = fresh()
+        cli.make_bucket("life")
+        cli.request("PUT", "/life", query={"versioning": ""},
+                    body=b"<VersioningConfiguration><Status>Enabled"
+                         b"</Status></VersioningConfiguration>")
+        bodies = {f"o{i}": np.random.default_rng(60 + i).bytes(
+            40_000 + 997 * i) for i in range(8)}
+        vids = {k: cli.put_object("life", k, v)["x-amz-version-id"]
+                for k, v in bodies.items()}
+        st, doc = cli.admin("POST", "pool/add",
+                            doc={"drives": os.path.join(root, "e{1...4}")})
+        assert (st, doc) == (200, {"pool": 1, "placement": [0, 1]})
+        _wait(lambda: all(len(fresh().admin("GET", "pools")[1]["pools"])
+                          == 2 for _ in range(8)), "both workers' pools",
+              timeout=30, proc=proc)
+
+        st, doc = _until_200(fresh, lambda c: c.admin(
+            "POST", "pool/decommission", {"pool": "0", "action": "start"}),
+            "the decommission start")
+        assert doc["state"] == "draining"
+        # Each worker takes pool 0 out of placement at its next look at
+        # the topology generation; then new PUTs, through both workers,
+        # land on pool 1.
+        _wait(lambda: all(fresh().admin("GET", "pools")[1]["placement"]
+                          == [1] for _ in range(8)), "both placements",
+              timeout=30, proc=proc)
+        for i in range(4):
+            key = f"n{i}"
+            bodies[key] = np.random.default_rng(80 + i).bytes(30_000 + i)
+            vids[key] = fresh().put_object("life", key,
+                                           bodies[key])["x-amz-version-id"]
+            assert os.path.exists(os.path.join(root, "e1", "life", key,
+                                               "xl.meta"))
+            assert not os.path.exists(os.path.join(root, "d1", "life", key))
+        _wait(lambda: statuses(1)[0]["versions_moved"] >= 2,
+              "two versions moved", timeout=60, proc=proc)
+        m = _metrics(port)
+        w0, w1 = (int(m[f'mtpu_worker_pid{{worker="{w}"}}']) for w in (0, 1))
+        os.kill(w1, signal.SIGKILL)        # the worker that took the POST
+        moved = statuses(1)[0]["versions_moved"]
+        _wait(lambda: statuses(1)[0]["versions_moved"] > moved,
+              "the drain after worker 1's death", timeout=30, proc=proc)
+        assert statuses(1)[0]["state"] == "draining"
+        os.kill(w0, signal.SIGKILL)        # the mover's worker, mid-drain
+        _wait(lambda: respawned(0, w0) and respawned(1, w1),
+              "both respawns", timeout=90, proc=proc)
+        _wait(lambda: statuses(1)[0]["state"] == "complete", "the drain",
+              timeout=120, proc=proc)
+        seen = statuses()
+        assert all(st == seen[0] for st in seen), seen
+        # A version whose source was reaped just before the mover's
+        # worker died has no `moved` record (the resume's walk no longer
+        # sees it): one kill, at most one version uncounted.
+        assert seen[0]["versions_moved"] in (7, 8), seen[0]
+        assert seen[0]["objects_remaining"] == 0
+        for d in range(1, 5):
+            assert not [n for n in os.listdir(os.path.join(root, f"d{d}",
+                                                           "life"))], d
+        for k, v in bodies.items():
+            st, hdrs, got = fresh().request("GET", f"/life/{k}")
+            assert st == 200 and got == v, k
+            assert hdrs["x-amz-version-id"] == vids[k]
+            assert hdrs["ETag"].strip('"') == hashlib.md5(v).hexdigest()
+        log = _log(root)
+        assert log.count("decommission pool 0: mover started") == 1, log
+        assert "topology: 1 pools" in log and "decommissions: pool 0 " \
+            "draining [worker 0]" in log, log
+
+        # A bucket only worker 1 writes: its PUT reaches worker 0's
+        # scanner through the shared marks.
+        cli = fresh()
+        cli.make_bucket("only1")
+
+        def usage():
+            st, doc = fresh().admin("GET", "datausage")
+            assert st == 200, doc
+            return (doc["buckets"].get("only1", {}).get("o"),
+                    doc["scannedAt"])
+        _until_200(fresh, lambda c: c.request(
+            "PUT", "/only1/a", body=b"a" * 5000), "a PUT into only1")
+        _wait(lambda: usage()[0] == 1, "the first scan of only1",
+              timeout=30, proc=proc)
+        _until_200(fresh, lambda c: c.request(
+            "PUT", "/only1/b", body=b"b" * 7000), "a PUT into only1")
+        # Two cycles after the PUT (a clean bucket is rescanned only on
+        # every 16th).
+        stamps = {usage()[1]}
+
+        def two_cycles():
+            stamps.add(usage()[1])
+            return len(stamps) >= 3
+        _wait(two_cycles, "two scan cycles", timeout=30, proc=proc)
+        # Worker 1 reads the persisted usage at most once a second.
+        _wait(lambda: usage()[0] == 2, "the PUT in worker 0's scan",
+              timeout=3, proc=proc)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+
+
 # -- fork-shared locks and slots that survive a killed worker -----------------
 
 #: Run in a subprocess (never a fork of pytest): build one structure, fork

@@ -357,7 +357,8 @@ LAYER_SETS, LAYER_SET_DRIVES = 4, 12
 LAYER_SMALL, LAYER_SMALL_BYTES = 256, (1024, 100 * 1024)
 # LAYER_MID 96 before phases 5o and 5p joined the run, 48 before 5q.
 LAYER_MID, LAYER_MID_BYTES = 24, 4 * MIB + 1
-LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
+# LAYER_BIG 8 before phase 5r joined the run.
+LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 6, 2, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
 # SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
 # one of SERVER_CHUNKED_BYTES by aws-chunked PUT, SERVER_SMALL of
@@ -369,7 +370,8 @@ LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 8, 2, OBJECT_BYTES
 # client, before phase 5n joined it) to keep the whole run within its
 # time.
 SERVER_SETS = LAYER_SETS
-SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 8, 2, OBJECT_BYTES
+# SERVER_BIG 8 before phase 5r joined the run.
+SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 6, 2, OBJECT_BYTES
 SERVER_CHUNKED_BYTES = TAIL_OBJECT_BYTES
 # (256, 32) before phase 5q joined the run.
 SERVER_SMALL, SERVER_SMALL_SERIAL = 128, 16
@@ -417,9 +419,10 @@ POOL_WORKERS = 4
 # one turn each to keep the whole run within its time.
 POOL_TURNS = (0, POOL_WORKERS)
 POOL_BIG = OBJECT_BYTES
-# (1, 4, 16) before phase 5n joined the run, (1, 16) before 5q.
-POOL_BIG_CLIENTS = (1, 8)
-POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 8, MIB
+# (1, 4, 16) before phase 5n joined the run, (1, 16) before 5q, (1, 8)
+# before 5r; POOL_SMALL_PER 8 before 5r.
+POOL_BIG_CLIENTS = (1, 4)
+POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 4, MIB
 POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
 POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 # Phase 5l, the GET side of the serving spine, over the same deployment
@@ -433,7 +436,8 @@ POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 # and SPINE_SENDFILE objects of 64 MiB on an EC:1+1 set of 2 drives read
 # from each of SPINE_SENDFILE_CLIENTS clients, sendfile against
 # MTPU_ZEROCOPY=0.
-SPINE_HOT = ((32, MIB), (6, 4 * MIB))
+# ((32, MIB), (6, 4 * MIB)) before phase 5r joined the run.
+SPINE_HOT = ((16, MIB), (6, 4 * MIB))
 SPINE_WORKERS = POOL_WORKERS
 SPINE_SMALL, SPINE_SF_BYTES = MIB, 4 * MIB
 # (1, 4, 16), and SPINE_SCAN 128, before phase 5n joined the run.
@@ -457,10 +461,12 @@ SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
 # META_KILL_CLIENTS clients PUT up to META_KILL_PER objects each under
 # MTPU_METABATCH_SOLO=1, and the server is SIGKILLed once META_KILL_ACKS
 # are acknowledged.
-# META_PER was 16 before phase 5n joined the run, 8 before 5o and 5p.
-META_CLIENTS, META_PER, META_BYTES = 16, 4, (4 * 1024, 64 * 1024)
-META_GET_STRIDE, META_ONE = 4, 32
-META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 200
+# META_PER was 16 before phase 5n joined the run, 8 before 5o and 5p, 4
+# before 5r.
+META_CLIENTS, META_PER, META_BYTES = 16, 2, (4 * 1024, 64 * 1024)
+# META_ONE 32 and META_KILL_ACKS 200 before phase 5r joined the run.
+META_GET_STRIDE, META_ONE = 4, 16
+META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 100
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -5578,7 +5584,8 @@ ADMISSION_ENV = {"MTPU_REQUESTS_MAX": str(ADMISSION_SLOTS),
 ADMISSION_CLASS = {"gold": "premium", "std": "standard",
                    "beff": "best-effort"}
 ADMISSION_BYTES = 256 * 1024
-ADMISSION_LEG_S = 6.0
+# 6.0 before phase 5r joined the run.
+ADMISSION_LEG_S = 4.0
 #: the pressure EMA's three half-lives between legs on one boot
 ADMISSION_DECAY_S = 6.0
 #: clients per tenant: the capacity leg, and the overload and collapse
@@ -6885,7 +6892,8 @@ def phase_cluster(args, counts, card):
 # LIFE_DURING PUTs of LIFE_DURING_BYTES during the drain and its mover's
 # worker SIGKILLed once LIFE_KILL_AFTER versions moved.
 LIFE_BIG, LIFE_HH = 6, 2
-LIFE_SMALL, LIFE_SMALL_BYTES = 128, (1024, 100 * 1024)
+# LIFE_SMALL 128 before phase 5r joined the run.
+LIFE_SMALL, LIFE_SMALL_BYTES = 64, (1024, 100 * 1024)
 LIFE_HISTORY = 3
 LIFE_PARTS = (16 * MIB, 16 * MIB)
 LIFE_DURING, LIFE_DURING_BYTES = 4, 2 * MIB + 3
@@ -6918,17 +6926,24 @@ def _version_items(fi) -> dict[str, int]:
 
 
 def _pool0_versions(root: str) -> list:
-    """Every version of bucket `life` on pool 0, read off drive b1's
-    xl.meta files (read only: the pool is serving)."""
+    """Every version the drain of pool 0 moves, read off drive b1's
+    xl.meta files (read only: the pool is serving): bucket `life`'s and
+    the system volume's objects (the bucket's versioning config)."""
+    from minio_tpu_torch.background.decom import META_PREFIXES
+    from minio_tpu_torch.storage.drive import SYS_VOL
     from minio_tpu_torch.storage.xlmeta import XLMeta
-    top = os.path.join(root, "b1", "life")
+    tops = [("life", os.path.join(root, "b1", "life"))]
+    tops += [(SYS_VOL, os.path.join(root, "b1", SYS_VOL, p))
+             for p in META_PREFIXES]
     out = []
-    for d, _, files in os.walk(top):
-        if "xl.meta" in files:
-            name = os.path.relpath(d, top)
-            with open(os.path.join(d, "xl.meta"), "rb") as f:
-                out.extend(XLMeta.from_bytes(f.read()).list_versions(
-                    "life", name))
+    for bucket, top in tops:
+        base = os.path.join(root, "b1", bucket)
+        for d, _, files in os.walk(top):
+            if "xl.meta" in files:
+                name = os.path.relpath(d, base)
+                with open(os.path.join(d, "xl.meta"), "rb") as f:
+                    out.extend(XLMeta.from_bytes(f.read()).list_versions(
+                        bucket, name))
     return out
 
 
@@ -7460,6 +7475,769 @@ def phase_lifecycle(args, counts, card):
     return launches
 
 
+#: Phase 5r's traffic: 64 MiB objects beside the highwayhash256S one, the
+#: small objects, one key's versions, the PUTs while the target is down,
+#: the client threads, the pool's workers, the kill step's objects and
+#: which copy of a process dies (MTPU_CRASH=repl.pre_copy:N).
+REPL_BIG = 3
+REPL_SMALL, REPL_SMALL_BYTES = 128, (1024, 100 * 1024)
+REPL_HISTORY = 3
+REPL_DEAD, REPL_DEAD_BYTES = 16, 256 * 1024
+REPL_CLIENTS = 4
+REPL_WORKERS = 2
+REPL_KILL_BYTES, REPL_KILL_MAX = 2 * MIB + 3, 6
+REPL_CRASH_NTH = 2
+#: The pool's replication knobs: retries and breaker holds short enough
+#: that a target back up is caught up within a second.
+REPL_ENV = {"MTPU_HOTCACHE": "0", "MTPU_REPL_RETRY_INTERVAL": "0.05",
+            "MTPU_REPL_MAX_INTERVAL": "1", "MTPU_REPL_BREAKER_MAX": "1"}
+REPL_LOCK = (b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+             b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>GOVERNANCE"
+             b"</Mode><Days>1</Days></DefaultRetention></Rule>"
+             b"</ObjectLockConfiguration>")
+
+
+def _repl_by_worker(port: int, workers: int) -> dict:
+    """Every worker's replication counters (admin GET replication through
+    fresh connections until each worker has answered)."""
+    from minio_tpu_torch.server.client import S3Client
+    got: dict = {}
+    for _ in range(400):
+        try:
+            st, doc = S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                               "pooladmin-secret", timeout=60).admin(
+                "GET", "replication")
+        except OSError:
+            time.sleep(0.05)
+            continue
+        if st != 200:
+            raise SystemExit(f"protection: admin replication {st} {doc}")
+        got[doc["worker"]] = doc
+        if len(got) == workers:
+            return got
+    raise SystemExit(f"protection: workers {sorted(got)} answered of "
+                     f"{workers}")
+
+
+def _repl_settled(port: int, workers: int, completed: int,
+                  timeout: float = 300) -> dict:
+    """Wait until the workers' pools hold no task and have completed
+    `completed` copies in all; their counters then."""
+    deadline = time.monotonic() + timeout
+    while True:
+        by = _repl_by_worker(port, workers)
+        done = sum(d["completed"] for d in by.values())
+        if done == completed and not any(d["queued"] for d in by.values()):
+            return by
+        if done > completed or time.monotonic() > deadline:
+            raise SystemExit(f"protection: {done} copies completed, want "
+                             f"{completed}: {by}")
+        time.sleep(0.05)
+
+
+def _resync_file(root: str, bucket: str, state: dict | None = None):
+    """The bucket's resync state on the source's drives (the home pool's
+    first set: b1..b12): read it, or write `state`."""
+    from minio_tpu_torch.storage.drive import SYS_VOL
+    paths = [os.path.join(root, f"b{i}", SYS_VOL, "replication",
+                          f"resync-{bucket}.json") for i in range(1, 13)]
+    if state is None:
+        with open(paths[0]) as f:
+            return json.load(f)
+    for p in paths:
+        with open(p, "w") as f:
+            json.dump(state, f)
+    return state
+
+
+def phase_protection(args, counts, card):
+    """Phase 5r, the data-protection planes.  The source is `python -m
+    minio_tpu_torch.server` over config 2's 12 drives on /dev/shm with
+    REPL_WORKERS workers (MTPU_HOTCACHE=0); the target an in-process
+    S3Server over 12 drives of its own (its hot tier attached, so its
+    /minio/v2/metrics/node serves this process's kernel items).  The
+    versioned bucket and one highwayhash256S 64 MiB object are written
+    through an in-process server over the source's drives before the pool
+    boots; the target's registration (admin bucket-remote) and the
+    replication config go through the pool, each on a fresh connection,
+    and every worker reloads them (the pool's config generation) before
+    the traffic.  A second source of the same shape, for the kill step,
+    registered before its boot, boots at the same time.
+    Then, through the pool: a resync copies the highwayhash256S object;
+    REPL_CLIENTS threads PUT REPL_BIG 64 MiB and REPL_SMALL small
+    objects, one key's REPL_HISTORY versions and its delete marker; the
+    target goes down for REPL_DEAD PUTs (the breaker opens, its probe
+    closes it once the target is back); a GET of a key only the target
+    holds is proxied while a resync is marked running; an object-lock
+    bucket with default GOVERNANCE retention refuses a DELETE, takes the
+    bypass, and refuses even the bypass under a legal hold.  The second
+    source, booted with MTPU_CRASH=repl.pre_copy:REPL_CRASH_NTH: PUTs one
+    at a time until a worker dies between an acknowledged PUT and its
+    copy; its respawn replays the task.  Then in this process: every version
+    on the target byte-exact (SHA-256) with the source's id, ETag and mod
+    time, none twice, the source COMPLETED; a lifecycle rule with a past
+    Date on tmp/ and a NoncurrentVersionExpiration, applied by one
+    scanner cycle, skips the version under a legal hold.  Items per
+    step exact from both servers' metrics (the pool's owner and workers,
+    the target's process)."""
+    import email.utils
+    import signal
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from minio_tpu_torch.background.scanner import DataScanner
+    from minio_tpu_torch.engine.hotcache import attach_pools
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.handlers import S3Handlers
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    ak, sk = "pooladmin", "pooladmin-secret"
+    big_bytes = (REPL_BIG + 1) * OBJECT_BYTES
+    root = _tmp_root("chip_smoke-repl-", 5 * big_bytes + (2 << 30))
+    kroot = _tmp_root("chip_smoke-replk-", 1 << 30)
+    rng = np.random.default_rng(args.seed * 1000 + 950)
+    seed = args.seed * 1000 + 951
+    t_phase = time.perf_counter()
+    steps: dict[str, dict] = {}
+    pool_launches = dict.fromkeys(_KERNELS, 0)
+    counts.reset()
+    versioning = (b"<VersioningConfiguration><Status>Enabled</Status>"
+                  b"</VersioningConfiguration>")
+
+    def body(s, n):
+        return np.random.default_rng(s).bytes(n)
+
+    def zero():
+        return dict.fromkeys(_KERNELS, 0)
+
+    def add(into, more, times=1):
+        for k in _KERNELS:
+            into[k] += times * more[k]
+        return into
+
+    def put_items(n, algo="mxh256"):
+        out = zero()
+        out["gf_matmul"] += _put_calls(n)
+        out[_digest(algo)] += _put_calls(n)
+        return out
+
+    def get_items(n, algo="mxh256"):
+        out = zero()
+        out[_digest(algo)] += _get_calls(SimpleNamespace(
+            size=n, data_dir="" if n <= 128 * 1024 else "d",
+            parts=[SimpleNamespace(size=n)]))
+        return out
+
+    def drives(prefix, top=None):
+        return [LocalDrive(os.path.join(top or root, f"{prefix}{i}"))
+                for i in range(1, 13)]
+
+    def hold(name, got, want, launches=None):
+        steps[name] = got
+        if got != want or (launches is not None and any(
+                launches[k] > got[k] or (got[k] and not launches[k])
+                for k in _KERNELS)):
+            raise SystemExit(f"protection {name}: items {got}, launches "
+                             f"{launches}, want {want}")
+
+    def here_items(before):
+        now = counts.items()
+        return {k: now[k] - before[k] for k in _KERNELS}
+
+    # -- the target, in this process ---------------------------------------
+    tpools = ServerPools([ErasureSets(drives("t"), set_drive_count=12)])
+    if attach_pools(tpools) is None:
+        raise SystemExit("protection: the target's hot tier did not attach")
+    tport = _free_port()
+    tsrv = S3Server(tpools, Credentials(ak, sk), port=tport).start()
+    tcli = S3Client(tsrv.endpoint, ak, sk, timeout=600)
+    pool = kpool = None
+    records: dict = {}          # (key, vid) -> (size, sha, etag)
+
+    def wire(clients, bucket):
+        """The bucket's target registered through admin bucket-remote and
+        its replication config, each through clients(); the ARN."""
+        st, doc = clients().admin("POST", "bucket-remote",
+                                  {"bucket": bucket},
+                                  doc={"endpoint": tsrv.endpoint,
+                                       "accessKey": ak, "secretKey": sk,
+                                       "targetBucket": "rdst"})
+        if st != 200:
+            raise SystemExit(f"protection: bucket-remote {st} {doc}")
+        cli = clients()
+        cli._check(*cli.request(
+            "PUT", f"/{bucket}", query={"replication": ""},
+            body=b"<ReplicationConfiguration><Rule><Status>Enabled"
+                 b"</Status><Filter><Prefix></Prefix></Filter>"
+                 b"<DeleteMarkerReplication><Status>Enabled</Status>"
+                 b"</DeleteMarkerReplication><Destination><Bucket>"
+                 b"arn:aws:s3:::rdst</Bucket></Destination></Rule>"
+                 b"</ReplicationConfiguration>"))
+        return doc["arn"]
+
+    def register(spools, bucket, wired=True):
+        """The bucket, versioned, and (`wired`) its target and replication
+        config, through an in-process server over the source's drives."""
+        ssrv = S3Server(spools, Credentials(ak, sk)).start()
+        try:
+            scli = S3Client(ssrv.endpoint, ak, sk, timeout=600)
+            scli.make_bucket(bucket)
+            scli._check(*scli.request("PUT", f"/{bucket}",
+                                      query={"versioning": ""},
+                                      body=versioning))
+            if wired:
+                wire(lambda: scli, bucket)
+        finally:
+            ssrv.shutdown()
+
+    def reloaded(p):
+        """Wait until every worker of `p` has reloaded the latest bucket
+        configs (its idle loop looks every 0.25 s)."""
+        deadline = time.monotonic() + 30
+        while True:
+            m = p.metrics()
+            if all(m[f'mtpu_worker_config_generation{{worker="{w}"}}']
+                   == m["mtpu_config_generation"]
+                   for w in range(REPL_WORKERS)):
+                return
+            if time.monotonic() > deadline:
+                raise SystemExit(f"protection: the workers' config "
+                                 f"reload: {p.tail()}")
+            time.sleep(0.05)
+
+    def target_counts():
+        import urllib.request
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{tport}/minio/v2/metrics/node",
+                timeout=5) as r:
+            m = {}
+            for line in r.read().decode().splitlines():
+                if line and not line.startswith("#"):
+                    name, v = line.rsplit(" ", 1)
+                    m[name] = float(v)
+        return _spine_counts(m, 0)
+
+    try:
+        tcli.make_bucket("rdst")
+        tcli._check(*tcli.request("PUT", "/rdst", query={"versioning": ""},
+                                  body=versioning))
+        # The target's handlers read the bucket's versioning once.
+        tcli._check(*tcli.request("GET", "/rdst", query={"versioning": ""}))
+
+        # -- the source's bucket, HH object and registration ---------------
+        i0 = counts.items()
+        kpools = ServerPools([ErasureSets(drives("b", kroot),
+                                          set_drive_count=12)])
+        try:
+            register(kpools, "rkill")
+        finally:
+            kpools.close()
+        spools = ServerPools([ErasureSets(drives("b"), set_drive_count=12)])
+        try:
+            register(spools, "rsrc", wired=False)
+            os.environ["MTPU_BITROT_ALGO"] = HH
+            try:
+                data = body(seed, OBJECT_BYTES)
+                fi = spools.put_object("rsrc", "big-hh", data,
+                                       versioned=True, parity=4)
+            finally:
+                os.environ.pop("MTPU_BITROT_ALGO", None)
+            records["big-hh", fi.version_id] = (
+                OBJECT_BYTES, hashlib.sha256(data).hexdigest(),
+                fi.metadata.get("etag", ""))
+            seed += 1
+        finally:
+            spools.close()
+        # Three inline config objects of the kill step's source
+        # (versioning, bucket-targets.json, replication.xml), the main
+        # source's versioning; the HH object.
+        hold("setup", here_items(i0),
+             add(put_items(OBJECT_BYTES, HH), put_items(1), 4))
+        del data
+
+        # -- both sources booted at once --------------------------------------
+        booted: dict = {}
+
+        def boot(name, top, env):
+            try:
+                booted[name] = _Pool(top, REPL_WORKERS, env=env)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                booted[name] = e
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=boot, args=a) for a in (
+            ("main", root, REPL_ENV),
+            ("kill", kroot, {**REPL_ENV, "MTPU_CRASH":
+                             f"repl.pre_copy:{REPL_CRASH_NTH}"}))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        boots_s = time.perf_counter() - t0
+        pool, kpool = (got if isinstance(got, _Pool) else None
+                       for got in (booted.get("main"), booted.get("kill")))
+        for name, got in booted.items():
+            if not isinstance(got, _Pool):
+                raise SystemExit(f"protection: the {name} source's boot: "
+                                 f"{got}")
+        boot_s, boot_b_s = pool.boot_s, kpool.boot_s
+        port = pool.port
+
+        def fresh():
+            return S3Client(f"http://127.0.0.1:{port}", ak, sk, timeout=600)
+
+        def warm(query):
+            """Each worker reads a config once and keeps it: 16 fresh
+            connections reach every worker before a step is counted."""
+            for _ in range(16):
+                st, _, _ = fresh().request("GET", query[0],
+                                           query={query[1]: ""})
+                if st != 200:
+                    raise SystemExit(f"protection: GET {query} {st}")
+
+        def step(name, before_pool, before_target, want_pool, want_target,
+                 on=None):
+            after = _pool_counts((on or pool).settled(), REPL_WORKERS)
+            got = {k: int(after[f"items_{k}"] - before_pool[f"items_{k}"])
+                   for k in _KERNELS}
+            launches = {k: int(after[f"launches_{k}"]
+                               - before_pool[f"launches_{k}"])
+                        for k in _KERNELS}
+            for k in _KERNELS:
+                pool_launches[k] += launches[k]
+            hold(f"{name} (source)", got, want_pool, launches)
+            tafter = target_counts()
+            tgot = {k: tafter[f"items_{k}"] - before_target[f"items_{k}"]
+                    for k in _KERNELS}
+            tl = {k: tafter[f"launches_{k}"] - before_target[f"launches_{k}"]
+                  for k in _KERNELS}
+            hold(f"{name} (target)", tgot, want_target, tl)
+            if after["ipc_fallbacks"] or after["co_fallbacks"]:
+                raise SystemExit(f"protection {name}: fallbacks {after}")
+            return after, tafter
+
+        # The registration and the config through the pool: each worker
+        # wires the bucket when it reloads.
+        arn = wire(fresh, "rsrc")
+        reloaded(pool)
+        warm(("/rsrc", "versioning"))
+        c0, t0c = _pool_counts(pool.settled(), REPL_WORKERS), target_counts()
+        # The resync copies the object written before the boot (its
+        # replica PUT written highwayhash256S too).
+        os.environ["MTPU_BITROT_ALGO"] = HH
+        try:
+            t0 = time.perf_counter()
+            st, doc = fresh().admin("POST", "replication",
+                                    doc={"op": "resync", "bucket": "rsrc"})
+            if st != 200 or doc["status"] != "running":
+                raise SystemExit(f"protection: resync {st} {doc}")
+            _repl_settled(port, REPL_WORKERS, 1)
+            resync_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("MTPU_BITROT_ALGO", None)
+        if _resync_file(root, "rsrc")["status"] != "done":
+            raise SystemExit("protection: the resync is not done")
+        c1, t1c = step("resync", c0, t0c, get_items(OBJECT_BYTES, HH),
+                       put_items(OBJECT_BYTES, HH))
+
+        # -- the traffic: 4 client threads ------------------------------------
+        plan = [(f"big{i}", OBJECT_BYTES) for i in range(REPL_BIG)]
+        plan += [(f"small/{i:03d}", int(rng.integers(*REPL_SMALL_BYTES)))
+                 for i in range(REPL_SMALL)]
+        seeds = {key: seed + i for i, (key, _) in enumerate(plan)}
+        seed += len(plan)
+        mu = threading.Lock()
+        errors: list = []
+
+        def client(part):
+            try:
+                for key, n in part:
+                    data = body(seeds[key], n)
+                    h = fresh().put_object("rsrc", key, data)
+                    with mu:
+                        records[key, h["x-amz-version-id"]] = (
+                            n, hashlib.sha256(data).hexdigest(),
+                            h["ETag"].strip('"'))
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+        t_start = time.perf_counter()
+        threads = [threading.Thread(target=client,
+                                    args=(plan[i::REPL_CLIENTS],))
+                   for i in range(REPL_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise SystemExit(f"protection: client errors {errors[:3]}")
+        done = 1 + len(plan)
+        want_src, want_tgt = zero(), zero()
+        for _, n in plan:
+            add(want_src, put_items(n))
+            add(want_src, get_items(n))
+            add(want_tgt, put_items(n))
+        # One key's versions back to back, then its delete marker: each
+        # version is a task of its own, copied under its id.
+        for i in range(REPL_HISTORY):
+            n = 300 * 1024 + i
+            data = body(seed, n)
+            seed += 1
+            h = fresh().put_object("rsrc", "hist", data)
+            records["hist", h["x-amz-version-id"]] = (
+                n, hashlib.sha256(data).hexdigest(), h["ETag"].strip('"'))
+            done += 1
+            add(want_src, put_items(n))
+            add(want_src, get_items(n))
+            add(want_tgt, put_items(n))
+        h = fresh().delete_object("rsrc", "hist")
+        marker = h.get("x-amz-version-id")
+        t_ack = time.perf_counter()
+        done += 1
+        by = _repl_settled(port, REPL_WORKERS, done)
+        t_done = time.perf_counter()
+        lag_s = t_done - t_ack
+        traffic_s = t_done - t_start
+        moved = sum(n for (k, _), (n, *_) in records.items()
+                    if k != "big-hh")
+        c2, t2c = step("traffic", c1, t1c, want_src, want_tgt)
+
+        # -- the target down --------------------------------------------------
+        before = _repl_by_worker(port, REPL_WORKERS)
+        tsrv.shutdown()
+        t_down = time.perf_counter()
+        for i in range(REPL_DEAD):
+            data = body(seed, REPL_DEAD_BYTES)
+            seed += 1
+            h = fresh().put_object("rsrc", f"dead/{i:02d}", data)
+            records[f"dead/{i:02d}", h["x-amz-version-id"]] = (
+                REPL_DEAD_BYTES, hashlib.sha256(data).hexdigest(),
+                h["ETag"].strip('"'))
+        # Every worker that holds a copy for the dead target opens its
+        # breaker.
+        deadline = time.monotonic() + 60
+        while True:
+            by = _repl_by_worker(port, REPL_WORKERS)
+            holding = [w for w, d in by.items() if d["queued"]]
+            if holding and all(by[w]["breakersOpen"] for w in holding):
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(f"protection: no breaker opened: {by}")
+            time.sleep(0.05)
+        opened = {w: dict(by[w]["breakersOpen"]) for w in holding}
+        # The target back, on its port, with its handlers (their config
+        # cache warm).
+        handlers = tsrv.handlers
+        tsrv = S3Server(tpools, Credentials(ak, sk), port=tport)
+        tsrv.handlers = handlers
+        tsrv.start()
+        down_s = time.perf_counter() - t_down
+        t_up = time.perf_counter()
+        done += REPL_DEAD
+        by = _repl_settled(port, REPL_WORKERS, done)
+        catchup_s = time.perf_counter() - t_up
+        attempts = sum(by[w]["failed"] + by[w]["retries"]
+                       - before[w]["failed"] - before[w]["retries"]
+                       for w in by)
+        trips = {w: by[w]["breakerTrips"] for w in by}
+        if any(not trips[w].get("rsrc->rdst", {}).get("probes")
+               for w in holding):
+            raise SystemExit(f"protection: no probe closed a breaker "
+                             f"{trips}")
+        want_src, want_tgt = zero(), zero()
+        add(want_src, put_items(REPL_DEAD_BYTES), REPL_DEAD)
+        add(want_src, get_items(REPL_DEAD_BYTES), REPL_DEAD + attempts)
+        add(want_tgt, put_items(REPL_DEAD_BYTES), REPL_DEAD)
+        c3, t3c = step("target down", c2, t2c, want_src, want_tgt)
+
+        # -- the proxy GET -----------------------------------------------------
+        only = body(seed, MIB + 7)
+        seed += 1
+        tpools.put_object("rdst", "only-remote", only, versioned=True)
+        saved = _resync_file(root, "rsrc")
+        _resync_file(root, "rsrc", {**saved, "status": "running"})
+        st, _, got = fresh().request("GET", "/rsrc/only-remote")
+        st2, _, _ = fresh().request("GET", "/rsrc/nowhere")
+        _resync_file(root, "rsrc", saved)
+        st3, _, _ = fresh().request("GET", "/rsrc/only-remote")
+        if (st, st2, st3) != (200, 404, 404) or got != only:
+            raise SystemExit(f"protection: proxy GETs {st} {st2} {st3}")
+        c4, t4c = step("proxy", c3, t3c, zero(),
+                       add(put_items(MIB + 7), get_items(MIB + 7)))
+
+        # -- object lock ----------------------------------------------------------
+        cli = fresh()
+        cli.make_bucket("lockb")
+        cli._check(*cli.request("PUT", "/lockb", query={"object-lock": ""},
+                                body=REPL_LOCK))
+        reloaded(pool)
+        warm(("/lockb", "object-lock"))
+        c4 = _pool_counts(pool.settled(), REPL_WORKERS)
+        cli.put_object("lockb", "doc", b"governed")
+        refusals = []
+        st, _, _ = fresh().request("DELETE", "/lockb/doc")
+        refusals.append(st)
+        bypass = {"x-amz-bypass-governance-retention": "true"}
+        st, _, _ = fresh().request("DELETE", "/lockb/doc", headers=bypass)
+        refusals.append(st)
+        fresh().put_object("lockb", "held", b"held")
+        fresh()._check(*fresh().request(
+            "PUT", "/lockb/held", query={"legal-hold": ""},
+            body=b"<LegalHold><Status>ON</Status></LegalHold>"))
+        st, _, _ = fresh().request("DELETE", "/lockb/held", headers=bypass)
+        refusals.append(st)
+        st, _, ret = fresh().request("GET", "/lockb/held",
+                                     query={"retention": ""})
+        if refusals != [400, 204, 400] or st != 200 or \
+                b"GOVERNANCE" not in ret:
+            raise SystemExit(f"protection: lock answers {refusals}, "
+                             f"retention {st} {ret[:200]}")
+        c5, t5c = step("object lock", c4, t4c,
+                       add(put_items(8), put_items(4)), zero())
+        cuda_a = c5["cuda"]
+        pool.stop()
+        pool = None
+
+        # -- the second source: a worker dies between an acknowledged PUT
+        # and its copy
+        port = kpool.port
+        warm(("/rkill", "versioning"))
+        c6, t6c = _pool_counts(kpool.settled(), REPL_WORKERS), \
+            target_counts()
+        m = kpool.metrics()
+        pids = {w: int(m[f'mtpu_worker_pid{{worker="{w}"}}'])
+                for w in range(REPL_WORKERS)}
+        killed = None
+        kill_keys = []
+        for i in range(REPL_KILL_MAX):
+            key = f"kill/{i}"
+            data = body(seed, REPL_KILL_BYTES)
+            seed += 1
+            h = fresh().put_object("rkill", key, data)
+            records[key, h["x-amz-version-id"]] = (
+                REPL_KILL_BYTES, hashlib.sha256(data).hexdigest(),
+                h["ETag"].strip('"'))
+            kill_keys.append(key)
+            deadline = time.monotonic() + 60
+            while killed is None:
+                try:
+                    m = kpool.metrics()
+                except OSError:
+                    # A scrape queued on the dying worker's socket is
+                    # reset: ask again.
+                    time.sleep(0.02)
+                    continue
+                gone = [w for w in range(REPL_WORKERS) if m.get(
+                    f'mtpu_worker_respawns_total{{worker="{w}"}}')]
+                if gone:
+                    killed = gone[0]
+                    t_kill = time.perf_counter()
+                    break
+                try:
+                    tpools.head_object("rdst", key)
+                    break
+                except Exception:  # noqa: BLE001 — not there yet
+                    pass
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"protection: {key} neither copied "
+                                     f"nor fatal")
+                time.sleep(0.02)
+            if killed is not None:
+                break
+        if killed is None:
+            raise SystemExit("protection: no worker died at repl.pre_copy")
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                m = kpool.metrics()
+                if m.get(f'mtpu_worker_ready{{worker="{killed}"}}') == 1 \
+                        and int(m[f'mtpu_worker_pid{{worker="{killed}"}}']) \
+                        != pids[killed]:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise SystemExit(f"protection: worker {killed} never came "
+                                 f"back: {kpool.tail()}")
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t_kill
+        for key in kill_keys:
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    tpools.head_object("rdst", key)
+                    break
+                except Exception:  # noqa: BLE001 — not there yet
+                    if time.monotonic() > deadline:
+                        raise SystemExit(f"protection: {key} never "
+                                         "replicated after the respawn")
+                    time.sleep(0.05)
+        by = _repl_by_worker(port, REPL_WORKERS)
+        if by[killed]["replayed"] != 1:
+            raise SystemExit(f"protection: the respawn replayed "
+                             f"{by[killed]['replayed']} tasks: {by}")
+        warm(("/rkill", "versioning"))
+        if "MTPU_CRASH: dying at repl.pre_copy" not in \
+                open(kpool.log).read():
+            raise SystemExit(f"protection: no crash point in "
+                             f"{kpool.tail()}")
+        n_kill = len(kill_keys)
+        want_src = zero()
+        add(want_src, put_items(REPL_KILL_BYTES), n_kill)
+        add(want_src, get_items(REPL_KILL_BYTES), n_kill)
+        # The respawned worker wires the bucket (its replication config
+        # and targets, two inline GETs) and reads its versioning again.
+        want_src["mxh256"] += 3
+        c7, _ = step("kill", c6, t6c, want_src,
+                     add(zero(), put_items(REPL_KILL_BYTES), n_kill),
+                     on=kpool)
+        cuda_b = c7["cuda"]
+        for cuda in (cuda_a, cuda_b):
+            if cuda != {"owner": 1, **{f"worker{w}": 0
+                                       for w in range(REPL_WORKERS)}}:
+                raise SystemExit(f"protection: CUDA contexts {cuda}")
+        kpool.stop()
+        kpool = None
+
+        # -- every version on the target, once --------------------------------
+        t_check = time.perf_counter()
+        spools = ServerPools([ErasureSets(drives("b"), set_drive_count=12)])
+        kpools = ServerPools([ErasureSets(drives("b", kroot),
+                                          set_drive_count=12)])
+        try:
+            keys = sorted({k for k, _ in records})
+            completed = 0
+            for key in keys:
+                src = (kpools.list_object_versions("rkill", key)
+                       if key.startswith("kill/") else
+                       spools.list_object_versions("rsrc", key))
+                dst = tpools.list_object_versions("rdst", key)
+                sv = [(v.version_id, v.mod_time_ns, v.metadata.get("etag"),
+                       v.size) for v in src if not v.deleted]
+                dv = [(v.version_id, v.mod_time_ns, v.metadata.get("etag"),
+                       v.size) for v in dst if not v.deleted]
+                if sv != dv or [v.deleted for v in src] != \
+                        [v.deleted for v in dst]:
+                    raise SystemExit(f"protection: {key}: source {sv}, "
+                                     f"target {dv}")
+                if not src[0].deleted:
+                    if src[0].metadata.get("x-amz-replication-status") != \
+                            "COMPLETED" or dst[0].metadata.get(
+                                "x-amz-replication-status") != "REPLICA":
+                        raise SystemExit(f"protection: {key}'s statuses")
+                    completed += 1
+            for (key, vid), (n, sha, etag) in records.items():
+                fi, got = tpools.get_object("rdst", key, version_id=vid)
+                if hashlib.sha256(got).hexdigest() != sha or \
+                        fi.metadata.get("etag") != etag or fi.size != n:
+                    raise SystemExit(f"protection: {key}@{vid} differs")
+            if tpools.list_object_versions("rdst", "hist")[0].deleted \
+                    is not True or marker is None:
+                raise SystemExit("protection: hist's marker not on top")
+            check_s = time.perf_counter() - t_check
+
+            # -- lifecycle expiry through one scanner cycle -------------------
+            h = S3Handlers(spools)
+            h.make_bucket("lifeb")
+            now_ns = time.time_ns()
+            day = 86400 * 10**9
+            i0 = counts.items()
+            want = zero()
+            for key, n in (("tmp/a", 2000), ("tmp/b", 200_000),
+                           ("tmp/held", 3000)):
+                spools.put_object("lifeb", key, body(seed, n))
+                seed += 1
+                add(want, put_items(n))
+            h.put_object_legal_hold("lifeb", "tmp/held", {},
+                                    b"<LegalHold><Status>ON</Status>"
+                                    b"</LegalHold>")
+            for age, n in ((30, 5000), (20, 6000), (0, 7000)):
+                spools.put_object("lifeb", "keep/v", body(seed, n),
+                                  versioned=True,
+                                  mod_time_ns=now_ns - age * day)
+                seed += 1
+                add(want, put_items(n))
+            h.put_bucket_config("lifeb", "lifecycle", (
+                b"<LifecycleConfiguration><Rule><ID>tmp</ID><Status>Enabled"
+                b"</Status><Filter><Prefix>tmp/</Prefix></Filter>"
+                b"<Expiration><Date>2020-01-01T00:00:00Z</Date></Expiration>"
+                b"</Rule><Rule><ID>nc</ID><Status>Enabled</Status><Filter/>"
+                b"<NoncurrentVersionExpiration><NoncurrentDays>7"
+                b"</NoncurrentDays></NoncurrentVersionExpiration></Rule>"
+                b"</LifecycleConfiguration>"))
+            add(want, put_items(1))              # the config, inline
+            sc = DataScanner(spools).attach_config(h.meta)
+            try:
+                t0 = time.perf_counter()
+                sc.scan_cycle()
+                scan_s = time.perf_counter() - t0
+                life = dict(sc.stats.lifecycle)
+            finally:
+                sc.stop()
+            left = sorted(fi.name for fi in spools.list_objects("lifeb"))
+            kept = len(spools.list_object_versions("lifeb", "keep/v"))
+            if life != {"expired": 2, "expired_noncurrent": 2,
+                        "transitioned": 0, "skipped_locked": 1} or \
+                    left != ["keep/v", "tmp/held"] or kept != 1:
+                raise SystemExit(f"protection: the scanner's lifecycle "
+                                 f"{life}, left {left}, {kept} versions")
+            hold("lifecycle (this process)", here_items(i0), want)
+        finally:
+            spools.close()
+            kpools.close()
+    finally:
+        for p in (pool, kpool):
+            if p is not None:
+                p.kill()
+        tsrv.shutdown()
+        tpools.close()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(kroot, ignore_errors=True)
+    here = counts.read()
+    launches = {k: pool_launches[k] + here[k] for k in _KERNELS}
+    launches["mxh256_elsewhere"] = pool_launches["mxh256"]
+    n_versions = len([k for k in records if k[0] != "big-hh"])
+    print(f"[protection] two sources: python -m minio_tpu_torch.server, "
+          f"{REPL_WORKERS} workers each, booted at once in {boots_s:.2f} s "
+          f"({boot_s:.2f} s and, MTPU_CRASH armed, {boot_b_s:.2f} s); "
+          f"target: an in-process S3Server on 12 drives; registered through"
+          f" admin bucket-remote ({arn}); card {card}")
+    print(f"[protection] resync of the {HH} object ({OBJECT_BYTES} B) in "
+          f"{resync_s:.2f} s; {REPL_CLIENTS} clients: {len(plan)} objects "
+          f"and {REPL_HISTORY} versions and a delete marker of one key, "
+          f"{moved} B (the PUTs below included); replication lag from the "
+          f"last ack to every version COMPLETED {lag_s:.3f} s; "
+          f"{sum(n for _, n in plan) / traffic_s / 1e9:.4f} GB/s and "
+          f"{(len(plan) + REPL_HISTORY + 1) / traffic_s:.2f} versions/s "
+          f"from the first PUT to the last copy; card {card}")
+    print(f"[protection] target down {down_s:.2f} s for {REPL_DEAD} PUTs "
+          f"of {REPL_DEAD_BYTES} B: breakers open {opened}, "
+          f"{attempts} failed attempts, caught up {catchup_s:.3f} s after "
+          f"the target came back; breaker trips and probes {trips}; "
+          f"card {card}")
+    print(f"[protection] a proxied GET of a key only the target holds "
+          f"while a resync runs, 404 once it is done; object lock: DELETE "
+          f"refused, the bypass taken, a legal hold refusing even the "
+          f"bypass ({refusals}); card {card}")
+    print(f"[protection] MTPU_CRASH=repl.pre_copy:{REPL_CRASH_NTH}: worker "
+          f"{killed} died after {n_kill} acknowledged PUTs, back in "
+          f"{respawn_s:.2f} s, its journal's task replayed and copied once;"
+          f" CUDA contexts {cuda_a} and {cuda_b}; card {card}")
+    print(f"[protection] {n_versions + 1} versions on the target "
+          f"byte-exact (SHA-256) with the source's ids, ETags and mod "
+          f"times, none twice, {completed} keys COMPLETED, in "
+          f"{check_s:.2f} s; scanner cycle {scan_s:.3f} s: expired "
+          f"{life['expired']}, expired_noncurrent "
+          f"{life['expired_noncurrent']}, skipped_locked "
+          f"{life['skipped_locked']}; card {card}")
+    print(f"[protection] items per step: {steps}; launches {launches}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -7830,6 +8608,7 @@ def main() -> int:
         "bitrot forms": lambda: phase_bitrot_forms(args, counts, card),
         "cluster": lambda: phase_cluster(args, counts, card),
         "lifecycle": lambda: phase_lifecycle(args, counts, card),
+        "data protection": lambda: phase_protection(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -7899,7 +8678,8 @@ def main() -> int:
                      - per_path["metadata plane"]["mxh256_elsewhere"]
                      - per_path["admission plane"]["mxh256_elsewhere"]
                      - per_path["cluster"]["mxh256_elsewhere"]
-                     - per_path["lifecycle"]["mxh256_elsewhere"])
+                     - per_path["lifecycle"]["mxh256_elsewhere"]
+                     - per_path["data protection"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

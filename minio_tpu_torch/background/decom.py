@@ -3,7 +3,8 @@
 Counterpart of minio_tpu/background/decom.py (the reference's
 decommission, cmd/erasure-server-pool-decom.go).  The admin marks a pool
 draining (`ServerPools.set_draining`): new writes leave it at once,
-reads keep serving from it, and a mover walks the pool's namespace,
+reads keep serving from it, and a mover walks the pool's namespace
+(the buckets and the system volume's objects, META_PREFIXES),
 PUTting every version and every pending multipart upload again through
 the normal write path into the other pools.  Each version's bytes are
 read (verified, rebuilt where a shard is missing) and written (encoded
@@ -73,6 +74,15 @@ _NOT_HERE = (ErrObjectNotFound, ErrVersionNotFound, ErrBucketNotFound)
 ACTIVE_STATES = ("draining", "paused")
 
 _PREFIX, _SUFFIX = "decom-journal.p", ".jsonl"
+
+#: The system volume's prefixes that hold objects of the object layer:
+#: every bucket's configs (bucket/metadata.py), IAM and the server config
+#: (iam/iam.py, config/config.py).  A drain moves them as it moves a
+#: bucket's versions, or a reboot without the drained pool would lose
+#: them (the JAX mover walks the buckets alone).  The rest of the volume
+#: is each drive's own (journals, pool-topology.json, the metacache,
+#: tmp and multipart staging) and stays.
+META_PREFIXES = ("buckets/", "config/")
 
 
 def journal_name(pool_idx: int) -> str:
@@ -501,13 +511,18 @@ class Decommissioner:
             self._state("failed", error=self.error)
 
     def _names(self) -> list[tuple[str, str]]:
+        """Every object of the pool: each bucket's, then the system
+        volume's objects (META_PREFIXES), which `list_buckets` does not
+        name."""
         src = self._src()
         out: list[tuple[str, str]] = []
-        for b in src.list_buckets():
+        walks = [(b, "") for b in src.list_buckets()]
+        walks += [(SYS_VOL, p) for p in META_PREFIXES]
+        for b, prefix in walks:
             seen: set[str] = set()
             for es in src.sets:
                 try:
-                    seen.update(es.list_object_names(b))
+                    seen.update(es.list_object_names(b, prefix))
                 except StorageError:
                     continue
             out.extend((b, o) for o in sorted(seen))

@@ -18,10 +18,12 @@ Knobs (the JAX package's, with its defaults): MTPU_SCANNER (1; 0 starts
 no scanner at boot), MTPU_SCANNER_INTERVAL (60 s), MTPU_SCANNER_DEEP_EVERY
 (16).  The crawl yields to foreground pressure (server/qos.bg_pause).
 
-`attach_config` is where the server binds its bucket configuration; the
-lifecycle and tiering a cycle applies there (the JAX `_apply_lifecycle`,
-`_ilm_maintenance` and tier-journal drain) wait for ROADMAP.md Queue A
-item 10 with bucket/lifecycle.py and bucket/tier.py.
+`attach_config` is where the server binds its bucket configuration:
+with it bound, each cycle first runs every bucket's lifecycle expiry
+(bucket/lifecycle.py, the JAX `_apply_lifecycle`), when its rules can
+fire at all, and `stats.lifecycle` sums the passes' counts.  The JAX
+cycle's tier upkeep (`_ilm_maintenance`, the tier-journal drain) waits
+for ROADMAP.md Queue A item 10 with bucket/tier.py.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import os
 import threading
 import time
 
+from ..bucket.lifecycle import Lifecycle, apply_lifecycle
 from ..storage.errors import ErrDiskNotFound, StorageError
 from .usage import DataUsage, DirtyTracker
 
@@ -43,6 +46,9 @@ class ScanStats:
         self.heals_triggered = 0
         self.corruption_found = 0
         self.last_cycle_s = 0.0
+        # The lifecycle passes' counts, summed (bucket/lifecycle.py).
+        self.lifecycle = {"expired": 0, "expired_noncurrent": 0,
+                          "transitioned": 0, "skipped_locked": 0}
 
 
 class DataScanner:
@@ -66,10 +72,9 @@ class DataScanner:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._last_usage: DataUsage | None = None
-        # The bucket configuration (attach_config), for item 10's
-        # lifecycle and tiering.
+        # The bucket configuration (attach_config), whose lifecycle a
+        # cycle applies.
         self.meta = None
-        self.tier_mgr = None
         # A restart keeps the marks saved before it (the union of every
         # drive's copy), and marks between cycles are saved shortly
         # after they are made.
@@ -107,12 +112,33 @@ class DataScanner:
         live = sum(1 for d in es.drives if d is not None)
         return 0 < missing < live
 
-    def attach_config(self, meta, tier_mgr=None) -> "DataScanner":
-        """Bind the bucket-config store (and a tier manager); the server
-        calls this when it binds the object layer."""
+    def attach_config(self, meta) -> "DataScanner":
+        """Bind the bucket-config store (bucket/metadata.py) whose
+        lifecycle configs each cycle applies; the server calls this when
+        it binds the object layer."""
         self.meta = meta
-        self.tier_mgr = tier_mgr
         return self
+
+    def _apply_lifecycle(self, bucket: str) -> None:
+        if self.meta is None:
+            return
+        try:
+            raw = self.meta.get(bucket, "lifecycle")
+        except Exception:  # noqa: BLE001 — config store hiccup
+            return
+        if raw is None:
+            return
+        try:
+            lc = Lifecycle.parse(raw)
+            # Only rules that can fire cost a pass: each pass is a whole
+            # listing of the bucket on top of the crawl's own.
+            if any(r.expire_days or r.expire_date or r.noncurrent_days
+                   for r in lc.rules):
+                got = apply_lifecycle(self.pools, bucket, lc)
+                for k, v in got.items():
+                    self.stats.lifecycle[k] += v
+        except Exception:  # noqa: BLE001 — ILM must not kill the scan
+            pass
 
     # -- one cycle -------------------------------------------------------------
 
@@ -130,6 +156,7 @@ class DataScanner:
         usage.cycle = cycle
 
         for bucket in buckets:
+            self._apply_lifecycle(bucket)
             full = (bucket in dirty or deep
                     or cycle % self.full_scan_every == 1)
             if not full and self._last_usage is not None \

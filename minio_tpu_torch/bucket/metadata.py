@@ -3,9 +3,10 @@
 The port's copy of minio_tpu/bucket/metadata.py (the
 cmd/bucket-metadata-sys.go role): configs persist per bucket under the
 internal meta bucket, at the JAX package's paths, and are served from an
-in-memory cache.  The server reads and writes versioning and tagging;
-the other kinds' files are named here so that deleting a bucket removes
-whatever either package stored for it.
+in-memory cache.  `on_change(bucket, kind)`, where set, runs after
+every write or delete: a worker of the pool bumps the plane's config
+generation there, and every other worker `invalidate`s its cache and
+rewires (server/workers.py).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ class BucketMetadataSys:
         self.pools = pools
         self._mu = threading.Lock()
         self._cache: dict[tuple[str, str], bytes | None] = {}
+        self.on_change = None
 
     def _path(self, bucket: str, kind: str) -> str:
         return f"buckets/{bucket}/{CONFIG_FILES[kind]}"
@@ -66,6 +68,8 @@ class BucketMetadataSys:
                               data)
         with self._mu:
             self._cache[bucket, kind] = data
+        if self.on_change is not None:
+            self.on_change(bucket, kind)
 
     def delete(self, bucket: str, kind: str) -> None:
         try:
@@ -75,6 +79,18 @@ class BucketMetadataSys:
             pass
         with self._mu:
             self._cache[bucket, kind] = None
+        if self.on_change is not None:
+            self.on_change(bucket, kind)
+
+    def invalidate(self, bucket: str | None = None) -> None:
+        """Drop cached configs (every bucket's by default): another
+        process wrote the store."""
+        with self._mu:
+            if bucket is None:
+                self._cache.clear()
+            else:
+                for key in [k for k in self._cache if k[0] == bucket]:
+                    del self._cache[key]
 
     def drop_bucket(self, bucket: str) -> None:
         for kind in CONFIG_FILES:

@@ -91,8 +91,8 @@ The device is explicit: `device=None` is the CUDA card
 `set_index % n_devices()`, `device="cpu"` runs the plain versions on the
 host, and without CUDA the constructor raises.
 
-PUT and DELETE hold the object's namespace write lock
-(cluster/nslock.py), as multipart completion and heal do.  Every
+PUT, DELETE and a metadata update hold the object's namespace write
+lock (cluster/nslock.py), as multipart completion and heal do.  Every
 mutation calls `_mark_dirty`, which bumps the bucket's metacache
 generation, so no listing is served from a cache taken before it.
 
@@ -1721,12 +1721,16 @@ class ErasureSet:
         (cf. updateObjectMetadata, cmd/erasure-object.go:1513).  Each
         drive's xl.meta holds that drive's erasure index and, for a small
         object, its own inline shard, so each drive's version is read,
-        given the new metadata and written back."""
+        given the new metadata and written back.  Under the object's
+        write lock, as a PUT: a stamp in one worker of the pool that
+        overlapped another worker's PUT of a new version would write back
+        an xl.meta without it."""
         def upd(d):
             own = d.read_version(bucket, obj, fi.version_id)
             own.metadata = dict(fi.metadata)
             d.update_metadata(bucket, obj, own)
-        res = self._map_drives(upd)
+        with self.nslock.write_locked(bucket, obj):
+            res = self._map_drives(upd)
         # The write quorum of every other mutation: an update on a
         # minority would lose the read election.
         if sum(1 for _, e in res if e is None) < self.n // 2 + 1:

@@ -20,18 +20,25 @@ role, cmd/server-main.go:441), in its order:
    (server/topology.py), and the drains the journals left active are
    resumed (background/decom.resume_decommissions);
 7. the data scanner (background/scanner.py; MTPU_SCANNER=0 starts none,
-   MTPU_SCANNER_INTERVAL, MTPU_SCANNER_DEEP_EVERY);
-8. IAM, loaded from the object layer, and the S3 front door.
+   MTPU_SCANNER_INTERVAL, MTPU_SCANNER_DEEP_EVERY), which applies the
+   buckets' lifecycle;
+8. the replication pool (bucket/replication.py): its journal replayed
+   and, in one process or worker 0, the orphaned journals adopted; the
+   buckets' persisted replication configs are wired to it once the
+   front door binds the object layer;
+9. IAM, loaded from the object layer, and the S3 front door.
 
 With MTPU_WORKERS=N (server/workers.py) the boot forks instead: one
 device owner, which runs the self-tests and then every kernel of the
 pool, and N HTTP workers on one port (SO_REUSEPORT), each booting steps
-2-8 (the sweep, the resumed drains and the scanner in worker 0 only)
+2-9 (the sweep, the resumed drains and the scanner in worker 0 only;
+each worker its own replication pool and journal)
 with its coalescer routed to the owner through shared memory.  The
 branch is taken before anything loads torch.
 
 It serves until SIGTERM or SIGINT, then drains, stops the scanner, the
-MRF queues and the breakers' probers, and exits 0.  A second signal
+replication pool, the MRF queues and the breakers' probers, and exits
+0.  A second signal
 forces the exit.  Root credentials come from MTPU_ROOT_USER /
 MTPU_ROOT_PASSWORD (the reference's MINIO_ROOT_USER convention), defaulting to
 minioadmin/minioadmin; the other identities are IAM's, managed through
@@ -66,7 +73,7 @@ import threading
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = "notifications, replication and tiering (item 10)"
+LEFT_OUT = "notifications and tiering (item 10)"
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -164,6 +171,7 @@ def main(argv: list[str] | None = None) -> int:
 
     from ..background.mrf import attach_mrf
     from ..background.scanner import scanner_from_env
+    from ..bucket.replication import ReplicationPool
     from ..iam.iam import IAMSys
     from . import boot
     from .server import S3Server
@@ -180,7 +188,7 @@ def main(argv: list[str] | None = None) -> int:
     stop = threading.Event()
     install_signal_handlers(stop)
     mrf_queues: list = []
-    scanner = None
+    scanner = replication = None
     try:
         # MRF heal queues: a write that missed a breaker-offline drive
         # heals back to full width once the drive answers again.
@@ -198,10 +206,12 @@ def main(argv: list[str] | None = None) -> int:
                   "segment attached", flush=True)
         print(adopt_pools(pools), flush=True)
         scanner = scanner_from_env(pools)
+        replication = ReplicationPool(pools)
+        print(replication_line(replication), flush=True)
         iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*creds), host=args.host,
                        port=args.port, certs=certs, iam=iam,
-                       scanner=scanner).start()
+                       scanner=scanner, replication=replication).start()
         desc = ", ".join(f"pool{i}: {len(p)} drives "
                          f"set={pool_sets[i].set_drive_count}"
                          for i, p in enumerate(pool_paths))
@@ -218,12 +228,21 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if scanner is not None:
             scanner.stop()
+        if replication is not None:
+            replication.stop()
         for q in mrf_queues:
             q.stop()
         for d in wrapped:
             d.close()
         pools.close()
     return 0
+
+
+def replication_line(rp) -> str:
+    """The line the boot prints for its replication pool."""
+    return (f"minio_tpu_torch: replication journal {rp._jpath}: "
+            f"replayed {rp.replayed} pending task(s), adopted "
+            f"{rp.adopted} orphaned journal(s)")
 
 
 def adopt_pools(pools) -> str:
@@ -305,6 +324,8 @@ def cluster_main(args, drive_groups: list[list[str]],
         srv.shutdown()
         if srv.scanner is not None:
             srv.scanner.stop()
+        if srv.replication is not None:
+            srv.replication.stop()
         node.close()
         pools.close()
         if not restart or stop.is_set():

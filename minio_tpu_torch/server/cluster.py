@@ -339,8 +339,10 @@ def boot_cluster_node(endpoint_args: list, my_host: str, my_port: int,
             iam.load()
         node.peer_registry.on_reload("iam", reload_iam)
         from ..background.scanner import scanner_from_env
+        from ..bucket.replication import ReplicationPool
         server.bind_object_layer(pools, iam=iam,
-                                 scanner=scanner_from_env(pools))
+                                 scanner=scanner_from_env(pools),
+                                 replication=ReplicationPool(pools))
         return node, server, pools
     except BaseException:
         server.shutdown()

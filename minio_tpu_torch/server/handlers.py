@@ -7,16 +7,21 @@ registers routes.  Handlers speak to the object layer
 (engine/pools.ServerPools) only; the erasure engine below reaches the
 kernels.
 
-Without the planes of later items: a request that needs one answers
-NotImplemented and names its ROADMAP.md Queue A item (`unported`).  That
-covers SSE, compression, tiering and restore, replication, object lock
-(retention, legal hold), notifications, S3 Select, and the bucket
-configs other than versioning, tagging, policy and quota.  An object
-another package stored encrypted, compressed or tiered is not served as
-if it were plain, and a bucket that carries an object-lock config takes
-no write that would bypass it.  A bucket's hard quota is enforced at PUT
-and multipart complete (bucket/quota.py: usage from the scanner's last
-cycle, as in the JAX package, else from a live listing).
+The data-protection planes are served: object lock (bucket/
+object_lock.py: default retention on PUT, a client's delete or
+unversioned overwrite of a protected version refused, ?retention and
+?legal-hold), lifecycle configs (bucket/lifecycle.py, applied by the
+scanner) and bucket replication (bucket/replication.py: each write
+journaled for the remote target, replica PUTs keeping the source's
+version id and mod time, the GET proxied to the target while the bucket
+resyncs).  Without the planes of later items a request that needs one
+answers NotImplemented and names its ROADMAP.md Queue A item
+(`unported`): SSE, compression, tiering (a lifecycle Transition too) and
+restore, notifications, S3 Select, and the encryption and notification
+configs.  An object another package stored encrypted, compressed or
+tiered is not served as if it were plain.  A bucket's hard quota is
+enforced at PUT and multipart complete (bucket/quota.py: usage from the
+scanner's last cycle, as in the JAX package, else from a live listing).
 Snowball tars are extracted on PUT and zip members served on GET
 (server/extract.py); who may call a handler is decided before it runs
 (server.py `_authorize`).
@@ -33,13 +38,16 @@ import time
 import urllib.parse
 import xml.etree.ElementTree as ET
 
+from ..bucket import object_lock as ol
 from ..bucket import quota as bq
+from ..bucket import replication as repl
+from ..bucket.lifecycle import Lifecycle
 from ..bucket.metadata import META_BUCKET, BucketMetadataSys
 from ..config.config import ConfigSys
 from ..engine.pools import ServerPools
 from ..iam.policy import Policy
 from ..ops import metalanes
-from ..storage.errors import StorageError
+from ..storage.errors import ErrObjectNotFound, StorageError
 from ..storage.xlmeta import FileInfo
 from ..utils import streams
 from . import extract
@@ -153,8 +161,11 @@ def _valid_bucket_name(name: str) -> bool:
 class S3Handlers:
     """All bucket/object handlers; one instance per server."""
 
-    def __init__(self, pools: ServerPools, scanner=None):
+    def __init__(self, pools: ServerPools, scanner=None, replication=None):
         self.pools = pools
+        # bucket/replication.ReplicationPool: each write's task, the
+        # proxy GET; None replicates nothing.
+        self.replication = replication
         # Where quota reads usage (background/scanner.py: the running
         # scanner, or in a pool worker without one its persisted usage);
         # None lists the bucket live.
@@ -200,11 +211,90 @@ class S3Handlers:
             if fi.metadata.get(key):
                 raise unported(f"an object stored with {plane}")
 
-    def _refuse_write_gates(self, bucket: str) -> None:
-        """A bucket whose object-lock config another package stored takes
-        no write or delete that would bypass it."""
-        if self.meta.get(bucket, "object_lock") is not None:
-            raise unported("a bucket with object lock")
+    def _lock_config(self, bucket: str) -> dict | None:
+        """The bucket's object-lock config, when it is enabled."""
+        data = self.meta.get(bucket, "object_lock")
+        if data is None:
+            return None
+        try:
+            cfg = ol.parse_lock_config(data)
+        except Exception:  # noqa: BLE001
+            return None
+        return cfg if cfg.get("enabled") else None
+
+    def _lock_gate(self, bucket: str, key: str, h: dict[str, str],
+                   metadata: dict, versioned: bool) -> None:
+        """A write into an object-lock bucket: an unversioned overwrite
+        of a protected version is refused, and the new version takes the
+        bucket's default retention, the request's own headers winning."""
+        cfg = self._lock_config(bucket)
+        if cfg is None:
+            return
+        if not versioned:
+            self._refuse_locked(bucket, key)
+        metadata.update(ol.default_retention_metadata(cfg))
+        for hk in (ol.RET_MODE_KEY, ol.RET_DATE_KEY, ol.LEGAL_HOLD_KEY):
+            if hk in h:
+                metadata[hk] = h[hk]
+
+    def _refuse_locked(self, bucket: str, key: str, version_id: str = "",
+                       bypass: bool = False) -> None:
+        """ObjectLocked when the version a write or delete would destroy
+        is under retention or a legal hold (GOVERNANCE yields to
+        `bypass`)."""
+        try:
+            prev = self.pools.head_object(bucket, key, version_id)
+        except StorageError:
+            return
+        reason = ol.check_delete_allowed(prev.metadata,
+                                         bypass_governance=bypass)
+        if reason:
+            raise S3Error("ObjectLocked", reason)
+
+    def _proxy_get_response(self, bucket: str, key: str, version_id: str,
+                            headers: dict, head: bool) -> Response | None:
+        """Serve a GET whose local copy is missing from the bucket's
+        replication target (proxyGetToReplicationTarget,
+        cmd/bucket-replication.go:825), or None for the 404.  Only while
+        the bucket resyncs: outside a resync a local miss means the
+        object does not exist, and a stale replica must not bring back
+        what was deleted.  A version-pinned read stays local."""
+        if self.replication is None or version_id:
+            return None
+        st = self.replication.resync_status(bucket)
+        if not st or st.get("status") != "running":
+            return None
+        try:
+            meta, data = self.replication.proxy_get(bucket, key)
+        except repl.ErrReplicationTargetDown as e:
+            # The target may hold the key but cannot be asked: 503, not
+            # a 404 that would say it does not exist.
+            raise S3Error("ReplicationRemoteConnectionError",
+                          str(e)) from None
+        except StorageError:
+            return None
+        cond_fi = FileInfo(volume=bucket, name=key, size=len(data),
+                           metadata=dict(meta))
+        self._refuse_transformed(cond_fi)
+        cond = self._check_conditions(headers, cond_fi)
+        if cond is not None:
+            return cond
+        h = {"Content-Length": str(len(data)),
+             "Content-Type": meta.get("content-type",
+                                      "application/octet-stream"),
+             repl.STATUS_KEY: "REPLICA"}
+        if meta.get("etag"):
+            h["ETag"] = f'"{meta["etag"]}"'
+        rng = headers.get("Range") or headers.get("range")
+        if rng:
+            parsed = self._parse_range(rng, len(data))
+            if parsed:
+                off, ln = parsed
+                h["Content-Range"] = f"bytes {off}-{off + ln - 1}/{len(data)}"
+                h["Content-Length"] = str(ln)
+                return Response(
+                    206, b"" if head else memoryview(data)[off:off + ln], h)
+        return Response(200, b"" if head else data, h)
 
     # ---- bucket config helpers (persisted via BucketMetadataSys) ----------
 
@@ -276,13 +366,20 @@ class S3Handlers:
     #: Bucket configs this server stores: ?policy (a JSON policy the
     #: server authorizes anonymous requests by), ?quota (JSON: the hard
     #: quota enforced at PUT and multipart complete, and the bandwidth
-    #: budget the QoS plane enforces) and ?tagging (a blob).
-    _CONFIG_KINDS = {"policy": ("policy", "NoSuchBucketPolicy"),
-                     "quota": ("quota", "NoSuchBucketPolicy"),
-                     "tagging": ("tagging", "NoSuchTagSet")}
+    #: budget the QoS plane enforces), ?tagging (a blob), ?lifecycle
+    #: (applied by the scanner), ?replication (wired into the
+    #: replication pool) and ?object-lock.
+    _CONFIG_KINDS = {
+        "lifecycle": ("lifecycle", "NoSuchLifecycleConfiguration"),
+        "policy": ("policy", "NoSuchBucketPolicy"),
+        "replication": ("replication",
+                        "ReplicationConfigurationNotFoundError"),
+        "quota": ("quota", "NoSuchBucketPolicy"),
+        "object-lock": ("object_lock", "NoSuchObjectLockConfiguration"),
+        "tagging": ("tagging", "NoSuchTagSet"),
+    }
     #: Bucket configs whose plane waits for ROADMAP.md Queue A item 10.
-    UNPORTED_CONFIGS = ("lifecycle", "notification", "replication",
-                        "object-lock", "encryption")
+    UNPORTED_CONFIGS = ("notification", "encryption")
 
     def put_bucket_config(self, bucket: str, sub: str,
                           body: bytes) -> Response:
@@ -291,7 +388,32 @@ class S3Handlers:
         # Validate before storing (cf. the per-config parse in
         # cmd/bucket-handlers.go).
         try:
-            if kind == "policy":
+            if kind == "lifecycle":
+                lc = Lifecycle.parse(body)
+                if any(r.transition_tier for r in lc.rules):
+                    raise unported("lifecycle transition")
+            elif kind == "replication":
+                rules = repl.parse_replication_config(body)
+                # The targets are checked BEFORE the config persists: a
+                # 400 must not leave a config that fails its wiring at
+                # every boot.  No registered target at all defers the
+                # wiring (wire_bucket answers False).
+                targets = repl.parse_targets(
+                    self.meta.get(bucket, "replication_targets"))
+                if targets:
+                    registered = {t.get("targetBucket", "")
+                                  for t in targets}
+                    unmatched = [r.target_bucket for r in rules
+                                 if r.target_bucket not in registered]
+                    if unmatched:
+                        raise S3Error(
+                            "InvalidArgument",
+                            f"replication rules reference unregistered "
+                            f"target bucket(s) {unmatched}; register "
+                            f"them with admin bucket-remote first")
+            elif kind == "object_lock":
+                ol.parse_lock_config(body)
+            elif kind == "policy":
                 Policy(body.decode())
             elif kind == "quota":
                 cfg = bq.parse_quota_config(body)
@@ -304,6 +426,16 @@ class S3Handlers:
         except Exception:  # noqa: BLE001 — any parse failure
             raise S3Error("MalformedXML") from None
         self.meta.put(bucket, kind, body)
+        if kind == "replication" and self.replication is not None:
+            try:
+                repl.wire_bucket(self.replication, self.meta, bucket)
+            except Exception as e:  # noqa: BLE001 — wiring's verdict
+                # A config whose wiring fails (a target unregistered in
+                # the window since the check) is rolled back, so no boot
+                # replays a known-bad config.
+                self.meta.delete(bucket, kind)
+                raise S3Error("InvalidArgument",
+                              f"replication wiring: {e}") from None
         return Response(200)
 
     def get_bucket_config(self, bucket: str, sub: str) -> Response:
@@ -320,6 +452,9 @@ class S3Handlers:
         self.head_bucket(bucket)
         kind, _ = self._CONFIG_KINDS[sub]
         self.meta.delete(bucket, kind)
+        if kind == "replication" and self.replication is not None:
+            # Replication stops now, not at the next restart.
+            self.replication.unconfigure(bucket)
         return Response(204)
 
     # ---- listing ----------------------------------------------------------
@@ -475,6 +610,8 @@ class S3Handlers:
             h["x-amz-version-id"] = fi.version_id
         if S3Handlers.SC_HEADER in fi.metadata:
             h[S3Handlers.SC_HEADER] = fi.metadata[S3Handlers.SC_HEADER]
+        if repl.STATUS_KEY in fi.metadata:
+            h[repl.STATUS_KEY] = fi.metadata[repl.STATUS_KEY]
         for k, v in fi.metadata.items():
             if k.startswith(AMZ_META_PREFIX):
                 h[k] = v
@@ -604,6 +741,12 @@ class S3Handlers:
             with mb.reading() if mb is not None else \
                     contextlib.nullcontext():
                 fi = self.pools.head_object(bucket, key, version_id)
+        except ErrObjectNotFound as e:
+            resp = self._proxy_get_response(bucket, key, version_id,
+                                            headers, head)
+            if resp is None:
+                raise from_storage_error(e) from None
+            return resp
         except StorageError as e:
             raise from_storage_error(e) from None
         cond = self._check_conditions(headers, fi)
@@ -675,8 +818,6 @@ class S3Handlers:
             return self._copy_object(bucket, key, h)
         if any(h.get(k) for k in _SSE_HEADERS):
             raise unported("server-side encryption")
-        if h.get("x-amz-replication-status") == "REPLICA":
-            raise unported("replication")
         # aws-chunked bodies declare the PAYLOAD length separately; the
         # wire Content-Length includes chunk headers + signatures.
         declared_size = (len(body) if isinstance(body, (bytes, bytearray))
@@ -723,6 +864,20 @@ class S3Handlers:
                     if k.startswith(AMZ_META_PREFIX)}
         if "content-type" in h:
             metadata["content-type"] = h["content-type"]
+        # An incoming replica (the server strips the marker from callers
+        # without s3:ReplicateObject) is stored REPLICA, which GET and
+        # HEAD report and which replicates no further (the active-active
+        # loop guard), under the source's version id and mod time.
+        is_replica = h.get(repl.STATUS_KEY) == "REPLICA"
+        put_kw = {}
+        if is_replica:
+            metadata[repl.STATUS_KEY] = "REPLICA"
+            try:
+                mtime = int(h.get(repl.REPL_MTIME_HEADER) or 0)
+            except ValueError:
+                mtime = 0
+            if mtime:
+                put_kw["mod_time_ns"] = mtime
         parity = self._parity_for_request(h, metadata)
 
         # Quota enforcement (cf. enforceBucketQuotaHard,
@@ -744,13 +899,19 @@ class S3Handlers:
                 body = streams.MaxSizeReader(
                     body, remaining,
                     exc=lambda msg: S3Error("QuotaExceeded", msg))
-        self._refuse_write_gates(bucket)
         versioned = self.bucket_versioning_enabled(bucket)
+        if is_replica and versioned and h.get(repl.REPL_VID_HEADER):
+            put_kw["version_id"] = h[repl.REPL_VID_HEADER]
+        self._lock_gate(bucket, key, h, metadata, versioned)
         try:
             fi = self.pools.put_object(bucket, key, body, metadata=metadata,
-                                       versioned=versioned, parity=parity)
+                                       versioned=versioned, parity=parity,
+                                       **put_kw)
         except StorageError as e:
             raise from_storage_error(e) from None
+        if self.replication is not None and not is_replica:
+            self.replication.on_put(bucket, key,
+                                    version_id=fi.version_id or "")
         resp_headers = {"ETag": f'"{fi.metadata.get("etag", "")}"'}
         if fi.version_id:
             resp_headers["x-amz-version-id"] = fi.version_id
@@ -803,13 +964,21 @@ class S3Handlers:
                                          "standard"))
         else:
             parity = None
-        self._refuse_write_gates(bucket)
+        # The copy's replication status is its own (the source's would
+        # make it a REPLICA, or claim a copy that never ran); the lock
+        # and replication apply to the copy as to a PUT, which the JAX
+        # package's copy skips.
+        metadata.pop(repl.STATUS_KEY, None)
+        self._lock_gate(bucket, key, h, metadata, versioned)
         try:
             out = self.pools.put_object(bucket, key, bytes(data),
                                         metadata=metadata,
                                         versioned=versioned, parity=parity)
         except StorageError as e:
             raise from_storage_error(e) from None
+        if self.replication is not None:
+            self.replication.on_put(bucket, key,
+                                    version_id=out.version_id or "")
         root = ET.Element("CopyObjectResult", xmlns=S3_NS)
         _el(root, "ETag", f'"{out.metadata.get("etag", "")}"')
         _el(root, "LastModified", _iso(out.mod_time_ns))
@@ -819,7 +988,14 @@ class S3Handlers:
                       headers: dict[str, str] | None = None) -> Response:
         version_id = query.get("versionId", [""])[0]
         versioned = self.bucket_versioning_enabled(bucket)
-        self._refuse_write_gates(bucket)
+        hl = {k.lower(): v for k, v in (headers or {}).items()}
+        # Only a hard delete (a version id, or an unversioned bucket)
+        # destroys data: that is what retention and a legal hold refuse
+        # (cf. enforceRetentionForDeletion); a delete marker keeps the
+        # version readable.
+        if version_id or not versioned:
+            self._refuse_locked(bucket, key, version_id, hl.get(
+                "x-amz-bypass-governance-retention", "") == "true")
         try:
             dm = self.pools.delete_object(bucket, key, version_id, versioned)
         except StorageError as e:
@@ -828,6 +1004,16 @@ class S3Handlers:
             if err.api.code == "NoSuchKey":
                 return Response(204)
             raise err from None
+        # Only a delete of the CURRENT object reaches the target (removing
+        # a noncurrent version must not take down the target's live
+        # copy), and a REPLICA-marked delete, a peer's worker's, does not
+        # bounce back.
+        if self.replication is not None and not version_id \
+                and hl.get(repl.STATUS_KEY) != "REPLICA":
+            self.replication.on_delete(
+                bucket, key,
+                version_id=(dm.version_id or "") if dm is not None else "",
+                delete_marker=dm is not None)
         h = {}
         if dm is not None and dm.version_id:
             h = {"x-amz-version-id": dm.version_id,
@@ -869,6 +1055,63 @@ class S3Handlers:
                 _el(te, "Value", urllib.parse.unquote(v))
         return Response(200, _xml(root), {"Content-Type": "application/xml"})
 
+    def put_object_retention(self, bucket: str, key: str, query: dict,
+                             body: bytes,
+                             headers: dict | None = None) -> Response:
+        fi = self._head_for_update(bucket, key, query)
+        try:
+            new_meta = ol.parse_retention_xml(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        if ol._parse_date(new_meta.get(ol.RET_DATE_KEY, "")) is None:
+            raise S3Error("InvalidRetentionDate")
+        hl = {k.lower(): v for k, v in (headers or {}).items()}
+        bypass = hl.get("x-amz-bypass-governance-retention", "") == "true"
+        # COMPLIANCE retention only extends; GOVERNANCE needs the bypass
+        # to shorten (cf. enforceRetentionBypass).
+        if ol.is_retention_active(fi.metadata):
+            old_mode = fi.metadata.get(ol.RET_MODE_KEY, "").upper()
+            old_until = ol._parse_date(fi.metadata.get(ol.RET_DATE_KEY, ""))
+            new_until = ol._parse_date(new_meta[ol.RET_DATE_KEY])
+            shrinking = old_until and new_until and new_until < old_until
+            if old_mode == "COMPLIANCE" and shrinking:
+                raise S3Error("ObjectLocked",
+                              "compliance retention cannot be shortened")
+            if old_mode == "GOVERNANCE" and shrinking and not bypass:
+                raise S3Error("ObjectLocked",
+                              "governance retention needs bypass")
+        self._update_metadata(bucket, key, fi, new_meta)
+        return Response(200)
+
+    def get_object_retention(self, bucket: str, key: str,
+                             query: dict) -> Response:
+        fi = self._head_for_update(bucket, key, query)
+        if not fi.metadata.get(ol.RET_MODE_KEY):
+            raise S3Error("NoSuchObjectLockConfiguration")
+        return Response(200, ol.retention_xml(fi.metadata),
+                        {"Content-Type": "application/xml"})
+
+    def put_object_legal_hold(self, bucket: str, key: str, query: dict,
+                              body: bytes) -> Response:
+        fi = self._head_for_update(bucket, key, query)
+        try:
+            root = ET.fromstring(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        status = (root.findtext("Status")
+                  or root.findtext(f"{{{S3_NS}}}Status") or "OFF")
+        self._update_metadata(bucket, key, fi,
+                              {ol.LEGAL_HOLD_KEY: status.upper()})
+        return Response(200)
+
+    def get_object_legal_hold(self, bucket: str, key: str,
+                              query: dict) -> Response:
+        fi = self._head_for_update(bucket, key, query)
+        root = ET.Element("LegalHold", xmlns=S3_NS)
+        _el(root, "Status",
+            "ON" if ol.is_legal_hold_on(fi.metadata) else "OFF")
+        return Response(200, _xml(root), {"Content-Type": "application/xml"})
+
     def _head_for_update(self, bucket: str, key: str, query: dict):
         version_id = query.get("versionId", [""])[0]
         try:
@@ -890,6 +1133,13 @@ class S3Handlers:
             self.pools.update_object_metadata(bucket, key, fi)
         except StorageError as e:
             raise from_storage_error(e) from None
+        # The target's copy picks up the new metadata (tags, retention,
+        # legal hold; cf. replicateMetadata); a replica never
+        # re-replicates.
+        if self.replication is not None \
+                and meta.get(repl.STATUS_KEY) != "REPLICA":
+            self.replication.on_metadata(bucket, key,
+                                         version_id=fi.version_id or "")
 
     def delete_objects(self, bucket: str, body: bytes,
                        can_delete=None) -> Response:
@@ -946,7 +1196,11 @@ class S3Handlers:
         # Storage class fixes the stripe geometry for EVERY part now
         # (cf. newMultipartUpload, cmd/erasure-multipart.go:39).
         parity = self._parity_for_request(h, metadata)
-        self._refuse_write_gates(bucket)
+        # The default retention stamps the upload now; the overwrite
+        # check runs at complete, when the object is published.
+        cfg = self._lock_config(bucket)
+        if cfg is not None:
+            metadata.update(ol.default_retention_metadata(cfg))
         try:
             upload_id = self.pools.new_multipart_upload(bucket, key,
                                                         metadata=metadata,
@@ -1049,12 +1303,16 @@ class S3Handlers:
                                     self.scanner)
             if reason:
                 raise S3Error("QuotaExceeded", reason)
-        self._refuse_write_gates(bucket)
+        # The overwrite check (the upload took its retention at create).
+        self._lock_gate(bucket, key, {}, {}, versioned)
         try:
             fi = self.pools.complete_multipart_upload(
                 bucket, key, upload_id, parts, versioned=versioned)
         except StorageError as e:
             raise from_storage_error(e) from None
+        if self.replication is not None:
+            self.replication.on_put(bucket, key,
+                                    version_id=fi.version_id or "")
         root = ET.Element("CompleteMultipartUploadResult", xmlns=S3_NS)
         _el(root, "Bucket", bucket)
         _el(root, "Key", key)

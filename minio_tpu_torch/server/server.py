@@ -17,8 +17,13 @@ heal sequences (`heal`: POST starts one, GET lists their status), `info`
 (drives, sets and the scanner's usage), `datausage`, the pools (`pools`;
 `pool/add` attaches a pool to the running deployment, live; and
 `pool/decommission` with action start, pause, resume or cancel, GET for
-status); POST / is STS (AssumeRole, WebIdentity and ClientGrants through
-OIDC, LDAPIdentity, Certificate over mTLS).  What answers
+status), the replication targets (`bucket-remote`: POST registers one,
+GET lists them, DELETE drops one by ARN) and the replication plane
+(`replication`: GET its counters and, with `bucket=`, the bucket's
+resync; POST `{"op": "resync", "bucket": ...}` starts or resumes one);
+POST / is STS (AssumeRole, WebIdentity and ClientGrants through
+OIDC, LDAPIdentity, Certificate over mTLS).  Objects serve ?retention
+and ?legal-hold.  What answers
 NotImplemented, with its ROADMAP.md Queue A item: the other admin
 endpoints, metrics (but the worker pool's, the hot tier's, the metadata
 plane's, the admission plane's and a cluster node's families at
@@ -66,12 +71,14 @@ import os
 import secrets
 import socket
 import ssl
+import sys
 import threading
 import time
 import urllib.parse
 import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..bucket import replication as repl
 from ..engine.pools import ServerPools
 from ..iam.iam import Identity
 from ..iam.ldap import LDAPError
@@ -310,7 +317,7 @@ class S3Server:
                  oidc=None, ldap=None, client_ca: str | None = None,
                  reuse_port: bool = False, worker_plane=None,
                  worker_id: int | None = None, rpc_router=None,
-                 scanner=None):
+                 scanner=None, replication=None):
         self.pools = pools
         # A cluster node's RPC planes, served under this port; its
         # ClusterNode (set by server/cluster.boot_cluster_node) gives the
@@ -329,11 +336,15 @@ class S3Server:
         # The data scanner (background/scanner.py), whose lifecycle is
         # the process's; quota, `info` and `datausage` read its usage.
         self.scanner = scanner
+        # The process's bucket/replication.ReplicationPool (the boot's;
+        # None replicates nothing), wired from the persisted configs.
+        self.replication = replication
         # The process that runs decommission movers: one process alone,
         # or the pool's worker 0.
         self.decom_owner = worker_plane is None or worker_id == 0
-        self.handlers = (S3Handlers(pools, self._usage_source())
-                         if pools is not None else None)
+        self.handlers = None
+        if pools is not None:
+            self._bind_handlers(pools)
         # Overload plane (server/qos.py): the process-tree singleton; in
         # the pool the supervisor made it before the fork, so every
         # worker draws on one cap.
@@ -733,6 +744,11 @@ class S3Server:
                     break
                 self._drain_cv.wait(timeout=min(left, 0.25))
             leftover = self._inflight
+        if self.replication is not None:
+            # Compact the intent journal, so the next boot replays a
+            # checkpoint, not the tail (the pool itself is the boot's to
+            # stop: a cluster node's restart keeps it).
+            self.replication.checkpoint()
         return {"draining": True, "leftover": leftover,
                 "duration_s": time.monotonic() - t0}
 
@@ -892,16 +908,71 @@ class S3Server:
     # -- dispatch ------------------------------------------------------------
 
     def bind_object_layer(self, pools: ServerPools, iam=None,
-                          scanner=None) -> None:
+                          scanner=None, replication=None) -> None:
         """Install the object layer after a cluster boot: the listener
         was up first so that peers reached this node's planes while it
         waited for the format (cf. cmd/server-main.go:441)."""
         if scanner is not None:
             self.scanner = scanner
+        if replication is not None:
+            self.replication = replication
         self.pools = pools
-        self.handlers = S3Handlers(pools, self._usage_source())
+        self._bind_handlers(pools)
         if iam is not None:
             self.iam = iam
+
+    def _bind_handlers(self, pools: ServerPools) -> None:
+        """The handlers over the object layer; the scanner applies the
+        buckets' lifecycle from their config store, and every bucket
+        with a persisted replication config and registered targets
+        replicates again (cf. the JAX `_reload_replication`)."""
+        self.handlers = S3Handlers(pools, self._usage_source(),
+                                   replication=self.replication)
+        if self.scanner is not None:
+            self.scanner.attach_config(self.handlers.meta)
+        if self.replication is not None:
+            for bucket in pools.list_buckets():
+                self._wire_replication(bucket)
+
+    def reload_bucket_configs(self) -> None:
+        """Another worker of the pool stored or deleted a bucket config:
+        drop the cached configs and rewire replication from the
+        persisted ones (a removed config or target unwires)."""
+        self.handlers.meta.invalidate()
+        if self.replication is None:
+            return
+        for bucket in self.pools.list_buckets():
+            try:
+                wired = repl.wire_bucket(self.replication,
+                                         self.handlers.meta, bucket)
+            except Exception as e:  # noqa: BLE001 — the wiring's verdict
+                print(f"minio_tpu_torch: replication wiring {bucket}: "
+                      f"{e}", file=sys.stderr, flush=True)
+                continue
+            if not wired:
+                self.replication.unconfigure(bucket)
+
+    def _wire_replication(self, bucket: str) -> None:
+        """(Re)wire one bucket's rules and remote targets into the pool
+        (nothing until both halves exist; a bad registration is logged,
+        the wiring is asynchronous to the request that stored it)."""
+        if self.replication is None:
+            return
+        try:
+            repl.wire_bucket(self.replication, self.handlers.meta, bucket)
+        except Exception as e:  # noqa: BLE001 — the wiring's verdict
+            print(f"minio_tpu_torch: replication wiring {bucket}: {e}",
+                  file=sys.stderr, flush=True)
+
+    def _may_replicate(self, access_key: str) -> bool:
+        """The s3:ReplicateObject gate of the incoming REPLICA marker."""
+        if access_key == self.creds.access_key:
+            return True              # root (targets usually register it)
+        if self.iam is None or not access_key:
+            return False
+        ident = self.iam.lookup(access_key)
+        return ident is not None and self.iam.is_allowed(
+            ident, "s3:ReplicateObject", "*")
 
     def _usage_source(self):
         """What quota and the admin read usage from: the scanner, bound
@@ -965,6 +1036,13 @@ class S3Server:
         req.qos_access_key = access_key
         method = req.command
         headers = {k: v for k, v in req.headers.items()}
+        if not self._may_replicate(access_key):
+            # The replication marker and the version-fidelity headers
+            # come only from principals allowed to replicate: any other
+            # writer could mark its objects REPLICA and exempt them from
+            # replication (the reference strips them the same way).
+            headers = {k: v for k, v in headers.items()
+                       if k.lower() not in _REPLICA_HEADERS}
         if path.startswith("/minio/admin/"):
             return self._dispatch_admin(access_key, method, path, query,
                                         body)
@@ -1277,6 +1355,10 @@ class S3Server:
         if sub == "service" and method == "POST" and \
                 self.cluster_node is not None:
             return self._admin_service(query)
+        if sub == "bucket-remote":
+            return self._admin_bucket_remote(method, query, body)
+        if sub == "replication":
+            return self._admin_replication(method, query, body)
         handler = {"users": self._admin_users,
                    "service-accounts": self._admin_service_accounts,
                    "policies": self._admin_policies,
@@ -1326,6 +1408,88 @@ class S3Server:
                 deep=query.get("deep", [""])[0] == "true")
             return _json(seq.status())
         return _json({"sequences": self.heal_state.statuses()})
+
+    # -- admin API: replication ----------------------------------------------
+
+    def _admin_bucket_remote(self, method: str, query: dict,
+                             body: bytes) -> Response:
+        """A bucket's remote targets (cf. SetRemoteTargetHandler,
+        cmd/admin-bucket-handlers.go): where its replication rules copy
+        to, persisted beside its configs and wired again at boot."""
+        bucket = query.get("bucket", [""])[0]
+        if not bucket:
+            raise S3Error("InvalidArgument", "bucket required")
+        meta = self.handlers.meta
+        targets = repl.parse_targets(meta.get(bucket, "replication_targets"))
+        if method == "GET":
+            return _json({"targets": [
+                {k: v for k, v in t.items() if k != "secretKey"}
+                for t in targets]})
+        if method == "POST":
+            req = json.loads(body or b"{}")
+            try:
+                tb = req["targetBucket"]
+                prev = next((t for t in targets
+                             if t.get("targetBucket") == tb), None)
+                kept = [t for t in targets if t.get("targetBucket") != tb]
+                entry = {
+                    # Registering again (a credential rotation) keeps the
+                    # ARN: a handle held elsewhere stays valid.
+                    "arn": (prev["arn"] if prev else
+                            f"arn:minio:replication::{len(kept) + 1}:{tb}"),
+                    "endpoint": req["endpoint"],
+                    "accessKey": req["accessKey"],
+                    "secretKey": req["secretKey"],
+                    "targetBucket": tb,
+                }
+            except KeyError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            meta.put(bucket, "replication_targets",
+                     json.dumps(kept + [entry]).encode())
+            self._wire_replication(bucket)
+            return _json({"arn": entry["arn"]})
+        if method == "DELETE":
+            arn = query.get("arn", [""])[0]
+            remaining = [t for t in targets if t.get("arn") != arn]
+            if len(remaining) == len(targets):
+                return _json({"error": f"no target with arn {arn!r}"}, 404)
+            meta.put(bucket, "replication_targets",
+                     json.dumps(remaining).encode())
+            # Unwired now: nothing more goes to a deregistered target.
+            if self.replication is not None:
+                self.replication.unconfigure(bucket)
+                if remaining:
+                    self._wire_replication(bucket)
+            return _json({"ok": True})
+        raise S3Error("MethodNotAllowed")
+
+    def _admin_replication(self, method: str, query: dict,
+                           body: bytes) -> Response:
+        """The replication plane (cf. the ReplicationDiag and resync
+        admin APIs): GET its counters (with `bucket=` its resync state);
+        POST {"op": "resync", "bucket": ...} starts or resumes one."""
+        rp = self.replication
+        if rp is None:
+            return _json({"error": "replication not enabled"}, 501)
+        if method == "GET":
+            out = rp.stats()
+            bkt = query.get("bucket", [""])[0]
+            if bkt:
+                out["resync"] = rp.resync_status(bkt)
+            if self.worker_id is not None:
+                # Each worker of a pool runs its own pool and journal:
+                # the answer names whose counters these are.
+                out["worker"] = self.worker_id
+            return _json(out)
+        if method == "POST":
+            req = json.loads(body or b"{}")
+            if req.get("op") == "resync":
+                bkt = req.get("bucket")
+                if not bkt:
+                    raise S3Error("InvalidArgument", "bucket required")
+                return _json(rp.start_resync(bkt))
+            raise S3Error("InvalidArgument", "unknown op")
+        raise S3Error("MethodNotAllowed")
 
     # -- admin API: usage and the pool lifecycle ------------------------------
 
@@ -1384,6 +1548,8 @@ class S3Server:
             "backend": {"backendType": "Erasure", "sets": detail["sets"]},
             "deploymentId": self.pools.deployment_id,
             "sets": detail["sets"],
+            "replication": (self.replication.stats()
+                            if self.replication is not None else None),
         })
 
     def _admin_datausage(self) -> Response:
@@ -1877,20 +2043,26 @@ class S3Server:
     def _dispatch_object(self, method, bucket, key, query, headers,
                          body) -> Response:
         h = self.handlers
-        if method in ("GET", "PUT") and ("retention" in query
-                                         or "legal-hold" in query):
-            raise unported("object retention and legal hold")
         if method == "PUT":
             if "partNumber" in query and "uploadId" in query:
                 return h.put_part(bucket, key, query, body, headers)
             if "tagging" in query:
                 return h.put_object_tagging(bucket, key, query, body)
+            if "retention" in query:
+                return h.put_object_retention(bucket, key, query, body,
+                                              headers)
+            if "legal-hold" in query:
+                return h.put_object_legal_hold(bucket, key, query, body)
             return h.put_object(bucket, key, body, headers)
         if method == "GET":
             if "uploadId" in query:
                 return h.list_parts(bucket, key, query)
             if "tagging" in query:
                 return h.get_object_tagging(bucket, key, query)
+            if "retention" in query:
+                return h.get_object_retention(bucket, key, query)
+            if "legal-hold" in query:
+                return h.get_object_legal_hold(bucket, key, query)
             return h.get_object(bucket, key, query, headers)
         if method == "HEAD":
             return h.get_object(bucket, key, query, headers, head=True)
@@ -1909,6 +2081,12 @@ class S3Server:
                 return h.complete_multipart(bucket, key, query, body)
             raise S3Error("MethodNotAllowed")
         raise S3Error("MethodNotAllowed")
+
+
+#: The replication marker and the replica-fidelity headers, honored only
+#: from a principal allowed s3:ReplicateObject.
+_REPLICA_HEADERS = ("x-amz-replication-status", "x-mtpu-repl-version-id",
+                    "x-mtpu-repl-mtime")
 
 
 def _json(obj, status: int = 200) -> Response:

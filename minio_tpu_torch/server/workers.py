@@ -128,7 +128,7 @@ BOOT_TIMEOUT_S = 120.0
 _G = {name: i for i, name in enumerate((
     "owner_gen", "owner_pid", "owner_beat_ns", "co_dispatches", "co_items",
     "co_pending", "co_pipelined", "co_pack_ns", "co_staged_bytes",
-    "owner_cuda", "topology_gen",
+    "owner_cuda", "topology_gen", "config_gen",
     *(f"launches_{k}" for k in KERNELS),
     *(f"items_{k}" for k in KERNELS)))}
 _GHDR = len(_G)
@@ -136,7 +136,7 @@ _GHDR = len(_G)
 _W = {name: i for i, name in enumerate((
     "pid", "beat_ns", "ready", "draining", "respawns", "requests",
     "inflight", "ipc_fallbacks", "co_fallbacks", "remote_submits", "cuda",
-    "hotcache_hits", "hotcache_misses",
+    "hotcache_hits", "hotcache_misses", "config_gen",
     *(f"launches_{k}" for k in KERNELS),
     *(f"items_{k}" for k in KERNELS)))}
 _WSLOTS = len(_W)
@@ -208,9 +208,9 @@ class SharedState:
         """The supervisor saw the owner die: down now, not a heartbeat
         period later; its counters go with it (the next generation
         counts from 0)."""
-        keep = self._a[_G["topology_gen"]]
+        keep = self._a[[_G["topology_gen"], _G["config_gen"]]].copy()
         self._a[_G["owner_gen"] + 1:_GHDR] = 0
-        self._a[_G["topology_gen"]] = keep
+        self._a[[_G["topology_gen"], _G["config_gen"]]] = keep
 
     # topology ---------------------------------------------------------------
 
@@ -224,6 +224,22 @@ class SharedState:
 
     def topology_gen(self) -> int:
         return int(self._a[_G["topology_gen"]])
+
+    def bump_config_gen(self) -> int:
+        """The bucket configs' epoch: bumped by the worker that wrote or
+        deleted one (a replication, object-lock or lifecycle config, a
+        remote target), after the store."""
+        with _SLAB_MU:
+            self._a[_G["config_gen"]] += 1
+            return int(self._a[_G["config_gen"]])
+
+    def config_gen(self) -> int:
+        return int(self._a[_G["config_gen"]])
+
+    def config_applied(self, idx: int, gen: int) -> None:
+        """Worker `idx` has reloaded the bucket configs of generation
+        `gen`."""
+        self._a[self._w(idx) + _W["config_gen"]] = gen
 
     def owner_beat(self, co_stats: dict | None = None,
                    kernels: dict | None = None, cuda: bool = False) -> None:
@@ -417,6 +433,12 @@ class WorkerPlane:
                    "co_fallbacks")
         per_worker("mtpu_worker_cuda_context",
                    "This worker has initialised CUDA", "cuda")
+        fam("mtpu_config_generation",
+            "Bucket-config writes through the pool's workers",
+            [({}, self.state.config_gen())])
+        per_worker("mtpu_worker_config_generation",
+                   "The bucket-config generation this worker has reloaded",
+                   "config_gen")
         # Per-worker view of the shared tier (its own counters are the
         # mtpu_hotcache_* families).
         per_worker("mtpu_worker_hotcache_hits_total",
@@ -603,12 +625,13 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     from ..background.mrf import attach_mrf
     from ..background.scanner import scanner_from_env
     from ..background.usage import DirtyTracker
+    from ..bucket.replication import ReplicationPool
     from ..iam.iam import IAMSys
     from ..ops import coalesce
     from ..ops import ipc_dispatch as ipc
     from . import boot
     from . import topology as topo
-    from .__main__ import LEFT_OUT, adopt_pools
+    from .__main__ import LEFT_OUT, adopt_pools, replication_line
     from .server import S3Server
     from .sigv4 import Credentials
 
@@ -642,7 +665,7 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
               f"{swept['retired_segments']} metadata journal segments of "
               f"its predecessor (pid {predecessor})", flush=True)
     mrf_queues: list = []
-    scanner = None
+    scanner = replication = None
     try:
         mrf_queues = attach_mrf(pools)
         if plane.hotcache is not None:
@@ -661,12 +684,25 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
             scanner = scanner_from_env(pools)
         else:
             topo.adopt_topology(pools)
+        # This worker's own journal (repl-journal.w<idx>.jsonl), its
+        # predecessor's replayed; worker 0 adopts the orphans on every
+        # spawn.
+        replication = ReplicationPool(pools)
+        print(f"{replication_line(replication)} [worker {idx}]",
+              flush=True)
         iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*cfg["creds"]), host=cfg["host"],
                        port=cfg["port"], certs=cfg["certs"], iam=iam,
                        reuse_port=True, worker_plane=plane,
-                       worker_id=idx, scanner=scanner).start()
+                       worker_id=idx, scanner=scanner,
+                       replication=replication).start()
         stop = _stop_event()
+        # A config this worker stores reaches the others' caches and
+        # replication wiring at their next look at the generation.
+        cfg_seen = plane.state.config_gen()
+        plane.state.config_applied(idx, cfg_seen)
+        srv.handlers.meta.on_change = (
+            lambda _b, _k: plane.state.bump_config_gen())
 
         def _beat():
             while True:
@@ -690,6 +726,15 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
             print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
         next_fold = time.monotonic() + 2.0
         while not stop.wait(0.25):
+            cgen = plane.state.config_gen()
+            if cgen != cfg_seen:
+                cfg_seen = cgen
+                try:
+                    srv.reload_bucket_configs()
+                except Exception as e:  # noqa: BLE001 — keep serving
+                    print(f"minio_tpu_torch: worker {idx}: bucket "
+                          f"configs: {e}", file=sys.stderr, flush=True)
+                plane.state.config_applied(idx, cgen)
             gen = plane.state.topology_gen()
             due = time.monotonic() >= next_fold
             if gen == topo_seen and not due:
@@ -724,6 +769,8 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     finally:
         if scanner is not None:
             scanner.stop()
+        if replication is not None:
+            replication.stop()
         for q in mrf_queues:
             q.stop()
         coalesce.detach_remote()

@@ -16,9 +16,10 @@ SIGKILL in a harness's log).  With nothing armed (every normal boot) a
 crash point is one falsy dict check.
 
 The port arms the decommission mover's four points (background/
-decom.py).  The drive's and the engine's points of the JAX registry
-wait for the crash matrix (ROADMAP.md Queue A item 11); naming one
-raises, as any unknown point does.
+decom.py) and replication's four (bucket/replication.py).  The drive's
+and the engine's points of the JAX registry wait for the crash matrix
+(ROADMAP.md Queue A item 11); naming one raises, as any unknown point
+does.
 """
 
 from __future__ import annotations
@@ -26,12 +27,16 @@ from __future__ import annotations
 import os
 import threading
 
-#: the instrumented points, in the mover's order
+#: the instrumented points, in each path's order
 POINTS = (
     "decom.pre_verify",          # mover: before the destination probe
     "decom.post_copy",           # mover: copy published, source intact
     "decom.pre_delete",          # mover: dest verified, source not deleted
     "decom.checkpoint",          # mover: source gone, journal not appended
+    "repl.enqueue",              # replication: intent journaled, not runnable
+    "repl.pre_copy",             # replication: task taken, nothing copied
+    "repl.post_copy",            # replication: copy landed, not counted
+    "repl.status",               # replication: counted, source not stamped
 )
 
 _mu = threading.Lock()

@@ -258,7 +258,8 @@ def test_a_drain_killed_in_one_package_resumes_in_the_other(
     assert len(other.list_object_versions("b", "ver")) == 3
 
 
-@pytest.mark.parametrize("point", crashpoints.POINTS)
+@pytest.mark.parametrize("point", [p for p in crashpoints.POINTS
+                                   if p.startswith("decom.")])
 def test_death_at_each_crash_point_resumes_exactly_once(
         tmp_path, closing, monkeypatch, point):
     class FakeKill(BaseException):
@@ -490,3 +491,96 @@ def test_a_moved_version_keeps_its_parity(tmp_path, closing, impl):
         fi = pools.pools[1].head_object("b", key)
         assert fi.erasure.parity_blocks == want, (impl.name, key)
         assert bytes(pools.get_object("b", key)[1]) == blob(seed, size)
+
+
+POLICY = (b'{"Version": "2012-10-17", "Statement": [{"Effect": "Allow", '
+          b'"Principal": "*", "Action": "s3:GetObject", '
+          b'"Resource": "arn:aws:s3:::bkt/*"}]}')
+
+
+def test_a_drain_carries_the_system_volume(tmp_path, closing):
+    """The repaired fault: bucket configs and IAM are objects of the
+    system volume, which the JAX mover does not walk; the port's moves
+    them, so a reboot on the other pool alone keeps them.  Per-drive
+    files of the volume (the drain's journal, the metacache) stay."""
+    from minio_tpu_torch.iam.iam import IAMSys
+    from minio_tpu_torch.server.handlers import S3Handlers
+
+    p0 = PORT.ErasureSets([LocalDrive(f"{tmp_path}/p0-{i}")
+                           for i in range(4)], set_drive_count=4)
+    pools = ServerPools([p0])
+    closing(pools)
+    h = S3Handlers(pools)
+    h.make_bucket("bkt")
+    h.put_bucket_versioning(
+        "bkt", b"<VersioningConfiguration><Status>Enabled</Status>"
+             b"</VersioningConfiguration>")
+    h.put_bucket_config("bkt", "policy", POLICY)
+    IAMSys(pools).add_user("drainuser", "drainuser-secret")
+    pools.put_object("bkt", "obj", blob(11, 40_000), versioned=True)
+    p1 = PORT.ErasureSets([LocalDrive(f"{tmp_path}/p1-{i}")
+                           for i in range(4)], set_drive_count=4,
+                          deployment_id=pools.deployment_id)
+    pools.add_pool(p1)
+    d = decom.Decommissioner(pools, 0)
+    d.run_sync()
+    assert d.status()["state"] == "complete"
+    assert pool_names(p0, ".mtpu.sys") == set()
+    moved = pool_names(p1, ".mtpu.sys")
+    assert {"buckets/bkt/versioning.xml", "buckets/bkt/policy.json",
+            "config/iam/users/drainuser.json"} <= moved, moved
+    journal = decom.default_journal_path(pools, 0)
+    assert os.path.dirname(journal).startswith(f"{tmp_path}/p1-0")
+    pools.close()
+
+    # Reboot on pool 1 alone.
+    again = ServerPools([PORT.ErasureSets(
+        [LocalDrive(f"{tmp_path}/p1-{i}") for i in range(4)],
+        set_drive_count=4)])
+    closing(again)
+    h2 = S3Handlers(again)
+    assert h2.bucket_versioning_enabled("bkt")
+    assert h2.get_bucket_config("bkt", "policy").body == POLICY
+    ident = IAMSys(again).lookup("drainuser")
+    assert ident is not None and ident.secret_key == "drainuser-secret"
+    assert bytes(again.get_object("bkt", "obj")[1]) == blob(11, 40_000)
+
+
+def test_retention_does_not_hold_a_version_in_a_drain_or_a_heal(
+        tmp_path, closing):
+    """A version under COMPLIANCE retention is moved by the mover and
+    rewritten by heal: only a client's DELETE is refused (the handler's
+    check), never the engine's own moves."""
+    from minio_tpu_torch.engine import heal as H
+    from minio_tpu_torch.server.api_errors import S3Error
+    from minio_tpu_torch.server.handlers import S3Handlers
+
+    pools = two_pools(PORT, tmp_path, closing=closing)
+    h = S3Handlers(pools)
+    force_free(pools, [1000, 10])
+    h.make_bucket("worm")
+    h.put_bucket_config("worm", "object-lock", (
+        b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+        b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>COMPLIANCE"
+        b"</Mode><Days>30</Days></DefaultRetention></Rule>"
+        b"</ObjectLockConfiguration>"))
+    h.put_object("worm", "doc", blob(12, 200_000), {})
+    fi = pools.head_object("worm", "doc")
+    assert fi.metadata["x-amz-object-lock-mode"] == "COMPLIANCE"
+    with pytest.raises(S3Error, match="compliance"):
+        h.delete_object("worm", "doc", {})
+    force_free(pools, [1000, 10 ** 9])
+    decom.Decommissioner(pools, 0).run_sync()
+    assert pool_names(pools.pools[0], "worm") == set()
+    moved = pools.pools[1].head_object("worm", "doc")
+    assert moved.metadata["x-amz-object-lock-mode"] == "COMPLIANCE"
+    # Heal rewrites the locked version's xl.meta and shards on a drive
+    # that lost them.
+    es = pools.pools[1].sets[0]
+    import shutil
+    shutil.rmtree(os.path.join(es.drives[0].root, "worm", "doc"))
+    res = H.heal_object(es, "worm", "doc")
+    assert any(r.healed_drives for r in res)
+    assert os.path.exists(os.path.join(es.drives[0].root, "worm", "doc",
+                                       "xl.meta"))
+    assert bytes(pools.get_object("worm", "doc")[1]) == blob(12, 200_000)

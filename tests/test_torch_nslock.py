@@ -374,6 +374,102 @@ print(json.dumps({"rcs": rcs, "acked": sorted(acked),
 """
 
 
+_WRITER_AND_STAMPER = r"""
+import json, os, select, signal, sys, time
+signal.alarm(90)
+from minio_tpu_torch.cluster import nslock
+from minio_tpu_torch.engine.erasure_set import ErasureSet
+from minio_tpu_torch.storage.drive import LocalDrive
+
+root, n_puts = sys.argv[1], int(sys.argv[2])
+nslock.shared_stripes()          # made before the fork, as the pool does
+go_r, go_w = os.pipe()
+acks_r, acks_w = os.pipe()
+done_r, done_w = os.pipe()
+
+
+def child(c):
+    real = LocalDrive._read_xlmeta
+
+    def slow(self, vol, obj):
+        meta = real(self, vol, obj)
+        time.sleep(0.03)
+        return meta
+    LocalDrive._read_xlmeta = slow
+    es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}"))
+                     for i in range(4)], device="cpu")
+    if c == 0:
+        es.make_bucket("vb")
+        first = es.put_object("vb", "key", os.urandom(200_000),
+                              versioned=True)
+        os.write(go_w, first.version_id.encode())
+        for i in range(n_puts):
+            fi = es.put_object("vb", "key", os.urandom(200_000),
+                               versioned=True)
+            os.write(acks_w, (fi.version_id + "\n").encode())
+        os.write(done_w, b"d")
+    else:
+        first = os.read(go_r, 64).decode()
+        i = 0
+        while not select.select([done_r], [], [], 0)[0]:
+            fi = es.head_object("vb", "key", first)
+            fi.metadata["x-amz-replication-status"] = f"stamp{i}"
+            es.update_object_metadata("vb", "key", fi)
+            i += 1
+    es.close()
+
+
+pids = []
+for c in range(2):
+    pid = os.fork()
+    if pid == 0:
+        try:
+            child(c)
+            os._exit(0)
+        except BaseException:
+            import traceback
+            traceback.print_exc()
+            os._exit(1)
+    pids.append(pid)
+os.close(acks_w)
+rcs = [os.waitstatus_to_exitcode(os.waitpid(p, 0)[1]) for p in pids]
+with os.fdopen(acks_r) as f:
+    acked = {line.strip() for line in f if line.strip()}
+es = ErasureSet([LocalDrive(os.path.join(root, f"d{i}")) for i in range(4)],
+                device="cpu")
+history = {fi.version_id for fi in es.list_object_versions("vb", "key")}
+es.close()
+print(json.dumps({"rcs": rcs, "acked": sorted(acked),
+                  "history": sorted(history)}))
+"""
+
+
+def test_a_metadata_stamp_keeps_another_process_version(tmp_path):
+    """One process PUTs versions of a key while another keeps stamping
+    the metadata of its first version (replication's status, a tag or a
+    retention), each read-modify-write of xl.meta slowed to overlap:
+    every acknowledged version stays in the history.  A stamp outside
+    the key's write lock writes back an xl.meta without the version the
+    other process added."""
+    import json
+    import subprocess
+    root = str(tmp_path / "root")
+    os.makedirs(root)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    out = subprocess.run([sys.executable, "-c", _WRITER_AND_STAMPER, root,
+                          "6"], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["rcs"] == [0, 0], out.stderr[-3000:]
+    assert len(res["acked"]) == 6
+    lost = set(res["acked"]) - set(res["history"])
+    assert not lost, f"{len(lost)} acknowledged versions lost"
+
+
 def test_two_processes_keep_every_acknowledged_version(tmp_path):
     """Two forked processes, each with its own LocalDrives over one
     root, write versions of one key at once (each read-modify-write of

@@ -497,11 +497,10 @@ class TestPortOnly:
             for method, path, query, headers, item in (
                     ("PUT", "/npx/x", None,
                      {"x-amz-server-side-encryption": "AES256"}, "10"),
-                    ("GET", "/npx", {"lifecycle": ""}, None, "10"),
-                    ("GET", "/npx", {"replication": ""}, None, "10"),
-                    ("GET", "/npx", {"object-lock": ""}, None, "10"),
+                    # Lifecycle, replication, object lock and
+                    # retention are served (tests/test_torch_lifecycle.py,
+                    # test_torch_object_lock.py, test_torch_replication.py).
                     ("GET", "/npx", {"notification": ""}, None, "10"),
-                    ("GET", "/npx/o", {"retention": ""}, None, "10"),
                     ("POST", "/npx/o", {"select": ""}, None, "10"),
                     ("POST", "/npx/o", {"restore": ""}, None, "10"),
                     ("GET", "/minio/admin/v3/bandwidth", None, None, "10"),

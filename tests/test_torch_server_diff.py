@@ -502,3 +502,134 @@ def test_admin_pool_lifecycle_and_usage_match_jax(tmp_path):
         ("complete", 4, 4)
     assert port_a[-1][4][2:4] == ({"count": 4},
                                   {"size": sum(map(len, bodies))})
+
+
+# -- the data-protection planes -------------------------------------------------
+
+#: The data-protection script's divergences, as _DIVERGES: a lifecycle
+#: Transition waits for the tier in the port (NotImplemented; the JAX
+#: server stores the config), and the port's copy runs the PUT's lock
+#: gate (the JAX server's copy replaces a protected version).
+_PROTECTION_DIVERGES = {
+    "/pbk?lifecycle#transition": ((200, ""), (501, b"NotImplemented")),
+    "/pbk/locked#copy-over": ((200, ""), (400, b"ObjectLocked")),
+}
+
+_LOCK = (b'<ObjectLockConfiguration xmlns="http://s3.amazonaws.com/doc/'
+         b'2006-03-01/"><ObjectLockEnabled>Enabled</ObjectLockEnabled>'
+         b'<Rule><DefaultRetention><Mode>GOVERNANCE</Mode><Days>2</Days>'
+         b'</DefaultRetention></Rule></ObjectLockConfiguration>')
+
+
+def _protection_script(do, seed: int) -> None:
+    """Object lock, retention and legal hold, the lifecycle and
+    replication configs, and the replication admin endpoints of a server
+    without a replication pool."""
+    rng = np.random.default_rng(seed)
+    lc = (b"<LifecycleConfiguration><Rule><ID>x</ID><Status>Enabled"
+          b"</Status><Filter><Prefix>tmp/</Prefix></Filter><Expiration>"
+          b"<Days>%d</Days></Expiration></Rule></LifecycleConfiguration>"
+          % int(rng.integers(1, 90)))
+    repl = (b"<ReplicationConfiguration><Rule><Status>Enabled</Status>"
+            b"<Filter><Prefix></Prefix></Filter><Destination><Bucket>"
+            b"arn:aws:s3:::tgt</Bucket></Destination></Rule>"
+            b"</ReplicationConfiguration>")
+    data = rng.bytes(int(rng.integers(1, 200_000)))
+    do("PUT", "/pbk")
+    for sub, cfg in (("lifecycle", lc), ("object-lock", _LOCK),
+                     ("replication", repl)):
+        do("GET", "/pbk", {sub: ""})                # the missing code
+        do("PUT", "/pbk", {sub: ""}, body=b"<not-xml")
+        do("PUT", "/pbk", {sub: ""}, body=cfg)
+        do("GET", "/pbk", {sub: ""})
+    do("PUT", "/pbk", {"lifecycle": ""}, label="/pbk?lifecycle#transition",
+       body=b"<LifecycleConfiguration><Rule><Status>Enabled</Status>"
+            b"<Filter/><Transition><Days>3</Days><StorageClass>WARM"
+            b"</StorageClass></Transition></Rule></LifecycleConfiguration>")
+    do("DELETE", "/pbk", {"lifecycle": ""})
+    do("GET", "/pbk", {"lifecycle": ""})
+    do("DELETE", "/pbk", {"replication": ""})
+    # Object lock: the default retention, the refusals and the bypass.
+    do("PUT", "/pbk/locked", body=data)
+    do("GET", "/pbk/locked", {"legal-hold": ""})
+    do("DELETE", "/pbk/locked")                     # ObjectLocked
+    do("PUT", "/pbk/locked", body=data[:10])        # overwrite refused
+    do("PUT", "/pbk/src", body=data[:100])
+    do("PUT", "/pbk/locked", label="/pbk/locked#copy-over",
+       headers={"x-amz-copy-source": "/pbk/src"})
+    do("PUT", "/pbk/locked", {"legal-hold": ""},
+       body=b"<LegalHold><Status>ON</Status></LegalHold>")
+    do("GET", "/pbk/locked", {"legal-hold": ""})
+    do("DELETE", "/pbk/locked",
+       headers={"x-amz-bypass-governance-retention": "true"})
+    do("PUT", "/pbk/locked", {"legal-hold": ""},
+       body=b"<LegalHold><Status>OFF</Status></LegalHold>")
+    do("PUT", "/pbk/locked", {"legal-hold": ""}, body=b"<bad")
+    # Retention: set, read, extend, shorten, a bad date, nothing set.
+    do("PUT", "/pbk/plain", body=data[:5000])
+    do("GET", "/pbk/nosuch", {"retention": ""})
+    do("PUT", "/pbk/plain", {"retention": ""},
+       body=b"<Retention><Mode>GOVERNANCE</Mode><RetainUntilDate>"
+            b"2031-01-01T00:00:00Z</RetainUntilDate></Retention>")
+    do("GET", "/pbk/plain", {"retention": ""})
+    do("PUT", "/pbk/plain", {"retention": ""},
+       body=b"<Retention><Mode>GOVERNANCE</Mode><RetainUntilDate>"
+            b"2030-01-01T00:00:00Z</RetainUntilDate></Retention>")
+    do("PUT", "/pbk/plain", {"retention": ""},
+       headers={"x-amz-bypass-governance-retention": "true"},
+       body=b"<Retention><Mode>COMPLIANCE</Mode><RetainUntilDate>"
+            b"2032-01-01T00:00:00Z</RetainUntilDate></Retention>")
+    do("PUT", "/pbk/plain", {"retention": ""},
+       headers={"x-amz-bypass-governance-retention": "true"},
+       body=b"<Retention><Mode>COMPLIANCE</Mode><RetainUntilDate>"
+            b"2031-06-01T00:00:00Z</RetainUntilDate></Retention>")
+    do("PUT", "/pbk/plain", {"retention": ""},
+       body=b"<Retention><Mode>GOVERNANCE</Mode><RetainUntilDate>later"
+            b"</RetainUntilDate></Retention>")
+    do("GET", "/pbk/plain", {"retention": ""})
+    do("DELETE", "/pbk/plain",
+       headers={"x-amz-bypass-governance-retention": "true"})
+    do("HEAD", "/pbk/plain")
+    # The replication admin of a server without a pool, and its targets.
+    do("GET", "/minio/admin/v3/replication")
+    do("GET", "/minio/admin/v3/bucket-remote")
+    do("GET", "/minio/admin/v3/bucket-remote", {"bucket": "pbk"})
+    do("POST", "/minio/admin/v3/bucket-remote", {"bucket": "pbk"},
+       body=b'{"endpoint": "http://127.0.0.1:9", "accessKey": "a",'
+            b' "secretKey": "bbbbbbbb", "targetBucket": "tgt"}')
+    do("GET", "/minio/admin/v3/bucket-remote", {"bucket": "pbk"})
+    do("POST", "/minio/admin/v3/bucket-remote", {"bucket": "pbk"},
+       body=b'{"endpoint": "http://127.0.0.1:9"}')
+    do("DELETE", "/minio/admin/v3/bucket-remote",
+       {"bucket": "pbk", "arn": "arn:minio:replication::9:none"})
+    do("DELETE", "/minio/admin/v3/bucket-remote",
+       {"bucket": "pbk", "arn": "arn:minio:replication::1:tgt"})
+
+
+def test_data_protection_routes_match_jax(tmp_path):
+    records = {}
+    for pkg, make in ((JAX, _jax_pools), (PORT, _port_pools)):
+        pools = make(tmp_path / pkg.name, "d")
+        srv = _serve(pkg, pools)
+        try:
+            rec = Recorder(pkg, srv)
+            _protection_script(rec, SEED)
+            records[pkg.name] = rec.records
+        finally:
+            srv.shutdown()
+            close_pools(pools)
+    jax_recs, port_recs = records["jax"], records["port"]
+    assert len(jax_recs) == len(port_recs) == 47
+    codes = {r["code"] for r in port_recs}
+    for code in (b"NoSuchLifecycleConfiguration",
+                 b"NoSuchObjectLockConfiguration",
+                 b"ReplicationConfigurationNotFoundError", b"ObjectLocked",
+                 b"MalformedXML", b"InvalidRetentionDate"):
+        assert code in codes, code
+    for j, p in zip(jax_recs, port_recs):
+        label = j["request"][1]
+        if label in _PROTECTION_DIVERGES:
+            assert ((j["status"], j["code"]), (p["status"], p["code"])) \
+                == _PROTECTION_DIVERGES[label], label
+            continue
+        assert p == j, j["request"]

@@ -1070,10 +1070,12 @@ def test_pool_lifecycle_across_workers(tmp_path):
               timeout=120, proc=proc)
         seen = statuses()
         assert all(st == seen[0] for st in seen), seen
-        # A version whose source was reaped just before the mover's
-        # worker died has no `moved` record (the resume's walk no longer
-        # sees it): one kill, at most one version uncounted.
-        assert seen[0]["versions_moved"] in (7, 8), seen[0]
+        # Eight objects and the bucket's versioning config (an object of
+        # the system volume, which the drain carries).  A version whose
+        # source was reaped just before the mover's worker died has no
+        # `moved` record (the resume's walk no longer sees it): one kill,
+        # at most one version uncounted.
+        assert seen[0]["versions_moved"] in (8, 9), seen[0]
         assert seen[0]["objects_remaining"] == 0
         for d in range(1, 5):
             assert not [n for n in os.listdir(os.path.join(root, f"d{d}",
@@ -1121,6 +1123,138 @@ def test_pool_lifecycle_across_workers(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
+
+
+_LOCK_XML = (b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+             b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>GOVERNANCE"
+             b"</Mode><Days>1</Days></DefaultRetention></Rule>"
+             b"</ObjectLockConfiguration>")
+_REPL_XML = (b"<ReplicationConfiguration><Rule><Status>Enabled</Status>"
+             b"<Filter><Prefix></Prefix></Filter><Destination><Bucket>"
+             b"arn:aws:s3:::dst</Bucket></Destination></Rule>"
+             b"</ReplicationConfiguration>")
+_VERSIONED = (b"<VersioningConfiguration><Status>Enabled</Status>"
+              b"</VersioningConfiguration>")
+
+
+def test_a_bucket_config_written_through_one_worker_reaches_the_other(
+        tmp_path):
+    """Both workers have read the source bucket's replication and
+    object-lock configs as absent; then a remote target, a replication
+    config and an object-lock config are stored, each through one
+    worker.  The config generation makes every worker drop its cached
+    configs and rewire: PUTs served by either worker take the default
+    retention and reach the target, and a deregistration through one
+    worker unwires both.  Without it, the worker that served no config
+    PUT keeps its cached absences until it boots again (the JAX pool
+    shares that fault)."""
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    root = str(tmp_path)
+    dst = ServerPools([ErasureSets(
+        [LocalDrive(f"{root}/t{i}") for i in range(4)], set_drive_count=4,
+        device="cpu")])
+    tsrv = S3Server(dst, Credentials("pooladmin", "pooladmin-secret")
+                    ).start()
+    proc, port = _boot(root, 2, {"MTPU_SCANNER": "0",
+                                 "MTPU_REPL_RETRY_INTERVAL": "0.05"})
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=60)
+
+    def reloaded():
+        """Every worker has reloaded the latest config generation."""
+        m = _metrics(port)
+        return m["mtpu_config_generation"] > 0 and all(
+            m[f'mtpu_worker_config_generation{{worker="{w}"}}']
+            == m["mtpu_config_generation"] for w in (0, 1))
+
+    def requests():
+        m = _settled_metrics(port)
+        return [m[f'mtpu_worker_requests_total{{worker="{w}"}}']
+                for w in (0, 1)]
+
+    def put_spread(prefix, n, seed):
+        """n PUTs on fresh connections, and more until both workers
+        served one (the metrics reads are requests too: each of the
+        `reads` may have landed on one worker, the first one counted)."""
+        before, out, i, reads = requests(), {}, 0, 1
+        while True:
+            for _ in range(n):
+                key = f"{prefix}{i:02d}"
+                data = np.random.default_rng(seed + i).bytes(20_000 + i)
+                out[key] = (data, fresh().put_object("src", key, data)[
+                    "x-amz-version-id"])
+                i += 1
+            reads += 1
+            if min(a - b for a, b in zip(requests(), before)) > reads:
+                return out
+            assert i < 4 * n, "every PUT reached one worker"
+
+    tcli = S3Client(tsrv.endpoint, "pooladmin", "pooladmin-secret",
+                    timeout=60)
+    try:
+        _wait(lambda: all(_metrics(port).get(
+            f'mtpu_worker_ready{{worker="{w}"}}') == 1 for w in (0, 1)),
+            "both workers", timeout=90, proc=proc)
+        for cli, b in ((fresh(), "src"), (tcli, "dst")):
+            cli.make_bucket(b)
+            assert cli.request("PUT", f"/{b}", query={"versioning": ""},
+                               body=_VERSIONED)[0] == 200
+        put_spread("pre/", 8, 100)           # both cache the absences
+        st, _, body = fresh().request(
+            "POST", "/minio/admin/v3/bucket-remote", query={"bucket": "src"},
+            body=json.dumps({"endpoint": tsrv.endpoint,
+                             "accessKey": "pooladmin",
+                             "secretKey": "pooladmin-secret",
+                             "targetBucket": "dst"}).encode())
+        assert st == 200, body
+        arn = json.loads(body)["arn"]
+        for sub, xml in (("replication", _REPL_XML),
+                         ("object-lock", _LOCK_XML)):
+            st, _, body = fresh().request("PUT", "/src", query={sub: ""},
+                                          body=xml)
+            assert st == 200, body
+        # Each worker's idle loop looks at the generation every 0.25 s.
+        _wait(reloaded, "both workers' reload", timeout=30, proc=proc)
+        assert all(fresh().request("GET", "/src",
+                                   query={"object-lock": ""})[0] == 200
+                   for _ in range(12))
+        wired = put_spread("post/", 16, 200)
+        for key, (data, vid) in wired.items():
+            _wait(lambda k=key: tcli.request("HEAD", f"/dst/{k}")[0] == 200,
+                  f"{key} on the target", timeout=30, proc=proc)
+            h = tcli.head_object("dst", key)
+            assert h.get("x-amz-version-id") == vid
+            assert h.get("x-amz-replication-status") == "REPLICA"
+            assert tcli.get_object("dst", key) == data
+            st, _, body = fresh().request(
+                "DELETE", f"/src/{key}", query={"versionId": vid})
+            assert st == 400 and b"ObjectLocked" in body, (key, st)
+        st, _, body = fresh().request(
+            "DELETE", "/minio/admin/v3/bucket-remote",
+            query={"bucket": "src", "arn": arn})
+        assert st == 200, body
+        _wait(reloaded, "both workers' reload", timeout=30, proc=proc)
+        unwired = put_spread("gone/", 8, 300)
+        time.sleep(1.5)
+        for key in unwired:
+            assert tcli.request("HEAD", f"/dst/{key}")[0] == 404, key
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        tsrv.shutdown()
+        for pool in dst.pools:
+            for es in pool.sets:
+                es.close()
 
 
 # -- fork-shared locks and slots that survive a killed worker -----------------

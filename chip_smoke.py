@@ -228,7 +228,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       booted at once; one client process a node PUTs 64 MiB objects and
       GETs each through the next node; inline objects listed alike from
       every node; one key PUT through two nodes at once, round after
-      round; node 4 SIGKILLed (every GET served, GF rebuilds exact, a
+      round; versioning enabled through node 1 after node 2 read it
+      absent, then two PUTs of one key through node 2, both versions
+      listed by every node; node 4 SIGKILLed (every GET served, GF rebuilds exact, a
       PUT at write quorum, a dsync lock with 3 of 4 lockers), booted
       again and healed by a heal sequence; then, every node stopped, the
       16 drives in this process: a deep dry-run heal finds every copy
@@ -254,9 +256,25 @@ Phases, each printing its own lines; any failure exits non-zero:
       next cycle, and the admin's datausage.  Items exact per step, and
       across the SIGKILL within one version's items of the count; drain
       GB/s and versions/s, boot and reboot s, scan s and GB/s.
-   Phases a-g and i-q run with MTPU_DEVCACHE=0: their counts assume
+   r. the data-protection planes (phase_protection): object lock,
+      lifecycle expiry through a scanner cycle, and bucket replication
+      from two 2-worker sources into an in-process target, across the
+      target's death and a worker's SIGKILL between an acknowledged PUT
+      and its copy.
+   s. bucket notifications (phase_notify): a 2-worker pool with
+      notify_webhook and notify_nats from the environment (a loopback
+      webhook and a NATS fake in this script); every acknowledged PUT,
+      multipart complete and DELETE at both targets with its event
+      name, key, size, ETag and version id; a rule changed through one
+      worker fired through the other; the webhook down for 16 PUTs and
+      again while the worker holding parked events is SIGKILLed (none
+      lost, kill-step duplicates counted); ListenNotification on an
+      in-process server; the webhook's ms per PUT against PUTs into a
+      bucket without rules; items exact per step, none for a
+      notification.
+   Phases a-g and i-s run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i and k-q run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i and k-s run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
@@ -399,9 +417,12 @@ DISPATCH_HIT_BYTES = 16 * MIB
 # HOST_OBJECTS streamed PUTs of HOST_BYTES (HOST_HH highwayhash256S) from
 # 1 client and HOST_CLIENTS; a data-shard drive stalled HOST_STALL_S a
 # read under a hedge delay pinned to HOST_HEDGE_MS; the breaker's
-# thresholds of HOST_BREAKER_ENV.
+# thresholds of HOST_BREAKER_ENV.  The GET step's reads run under a hedge
+# delay pinned to HOST_GET_HEDGE_MS, above any of its reads, so that no
+# hedge fires there on a slow machine (its GF items are held at 0).
 HOST_OBJECTS, HOST_HH, HOST_BYTES, HOST_CLIENTS = 8, 2, OBJECT_BYTES, 4
 HOST_STALL_S, HOST_HEDGE_MS = 0.05, 10
+HOST_GET_HEDGE_MS = 10_000
 HOST_BREAKER_ENV = {"MTPU_BREAKER_ERRS": "2",
                     "MTPU_BREAKER_OFFLINE_ERRS": "4",
                     "MTPU_BREAKER_PROBE_S": "30"}
@@ -420,9 +441,9 @@ POOL_WORKERS = 4
 POOL_TURNS = (0, POOL_WORKERS)
 POOL_BIG = OBJECT_BYTES
 # (1, 4, 16) before phase 5n joined the run, (1, 16) before 5q, (1, 8)
-# before 5r; POOL_SMALL_PER 8 before 5r.
-POOL_BIG_CLIENTS = (1, 4)
-POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 4, MIB
+# before 5r, (1, 4) before 5s; POOL_SMALL_PER 8 before 5r, 4 before 5s.
+POOL_BIG_CLIENTS = (4,)
+POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 2, MIB
 POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
 POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 # Phase 5l, the GET side of the serving spine, over the same deployment
@@ -440,16 +461,18 @@ POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 SPINE_HOT = ((16, MIB), (6, 4 * MIB))
 SPINE_WORKERS = POOL_WORKERS
 SPINE_SMALL, SPINE_SF_BYTES = MIB, 4 * MIB
-# (1, 4, 16), and SPINE_SCAN 128, before phase 5n joined the run.
-SPINE_CLIENTS = (1, 16)
+# (1, 4, 16), and SPINE_SCAN 128, before phase 5n joined the run; (1, 16)
+# before 5s.
+SPINE_CLIENTS = (16,)
 # Past SPINE_STRIDE clients, each client reads a SPINE_STRIDE-th of the
 # hot set (16 clients read it 4 times over, as 4 clients do).
 SPINE_STRIDE = 4
-# 64 before phase 5q joined the run.
-SPINE_SCAN = 32
+# 64 before phase 5q joined the run, 32 before 5s.
+SPINE_SCAN = 16
 SPINE_SF_CLIENTS = 16
-SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 4, 8, 4
-SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
+# SPINE_HH 4, SPINE_DEG 8 and SPINE_SENDFILE_CLIENTS (1, 4) before 5s.
+SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 2, 4, 4
+SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (4,)
 # Phase 5m, the metadata plane of the PUT side, over BASELINE.json
 # config 2's deployment: META_CLIENTS client processes PUT META_PER
 # objects each, of sizes uniform in META_BYTES (inline: under the
@@ -464,9 +487,11 @@ SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (1, 4)
 # META_PER was 16 before phase 5n joined the run, 8 before 5o and 5p, 4
 # before 5r.
 META_CLIENTS, META_PER, META_BYTES = 16, 2, (4 * 1024, 64 * 1024)
-# META_ONE 32 and META_KILL_ACKS 200 before phase 5r joined the run.
-META_GET_STRIDE, META_ONE = 4, 16
-META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 100
+# META_ONE 32 and META_KILL_ACKS 200 before phase 5r joined the run,
+# META_ONE 16 before 5s.
+META_GET_STRIDE, META_ONE = 4, 8
+# META_KILL_ACKS 100 before 5s.
+META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 50
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -3483,16 +3508,23 @@ def phase_host_planes(args, counts, card):
         bucket, done = "put-default-1-0", fis["default", 1, 0]
         get_ms, iter_ms = [], []
         l0, i0 = counts.read(), counts.items()
-        for key, body in bodies.items():
-            t0 = time.perf_counter()
-            _, got = es.get_object(bucket, key)
-            get_ms.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            _, it = es.get_object_iter(bucket, key)
-            whole = b"".join(bytes(c) for c in it)
-            iter_ms.append((time.perf_counter() - t0) * 1e3)
-            if bytes(got) != body or whole != body:
-                raise SystemExit(f"host planes: GET {key} differs")
+        os.environ["MTPU_HEDGE_MS"] = str(HOST_GET_HEDGE_MS)
+        try:
+            for key, body in bodies.items():
+                t0 = time.perf_counter()
+                _, got = es.get_object(bucket, key)
+                get_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                _, it = es.get_object_iter(bucket, key)
+                whole = b"".join(bytes(c) for c in it)
+                iter_ms.append((time.perf_counter() - t0) * 1e3)
+                if bytes(got) != body or whole != body:
+                    raise SystemExit(f"host planes: GET {key} differs")
+        finally:
+            os.environ.pop("MTPU_HEDGE_MS", None)
+        if max(get_ms + iter_ms) >= HOST_GET_HEDGE_MS:
+            raise SystemExit(f"host planes: a GET took {max(get_ms + iter_ms)}"
+                             f" ms, past the pinned hedge delay")
         got_l, items = delta(l0, i0)
         _check_launches("host planes GET", got_l, items, want_for(
             {k: 2 * _get_calls(fi) for k, fi in done.items()}, 0),
@@ -6489,7 +6521,8 @@ def phase_bitrot_forms(args, counts, card):
 CLUSTER_NODES = 4
 CLUSTER_DRIVES = 4
 #: 64 MiB objects per client process (one client a node)
-CLUSTER_PER_CLIENT = 2
+# 2 before phase 5s joined the run.
+CLUSTER_PER_CLIENT = 1
 CLUSTER_INLINE = 16
 CLUSTER_RACE_ROUNDS = 8
 CLUSTER_RACE_BYTES = 4 * MIB + 3
@@ -6760,6 +6793,32 @@ def phase_cluster(args, counts, card):
             "mxh256": 2 * CLUSTER_RACE_ROUNDS * _put_calls(
                 CLUSTER_RACE_BYTES) + n_nodes * _get_calls(fi_of("race"))})
 
+        # Versioning enabled through node 1 after node 2 read it absent:
+        # node 2's next PUTs of one key add versions, every node lists
+        # both (the bucket-metadata reload node 1 broadcasts before it
+        # answers; without it node 2 kept its cached absence and
+        # replaced the null version).
+        cli[0].make_bucket("clusv")
+        cli[1]._check(*cli[1].request("GET", "/clusv",
+                                      query={"versioning": ""}))
+        cli[0]._check(*cli[0].request(
+            "PUT", "/clusv", query={"versioning": ""},
+            body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                 b"</VersioningConfiguration>"))
+        vids = [cli[1].put_object("clusv", "k", np.random.default_rng(
+            args.seed + 18 + i).bytes(4096 + i)).get("x-amz-version-id")
+            for i in range(2)]
+        for c in cli:
+            _, _, out = c.request("GET", "/clusv", query={"versions": ""})
+            listed = sorted(v.decode() for v in re.findall(
+                rb"<VersionId>([^<]+)</VersionId>", out))
+            if not all(vids) or listed != sorted(vids):
+                raise SystemExit(f"cluster: versions {listed}, PUT as "
+                                 f"{vids}")
+        # The config and two PUTs, inline; node 2 reads the config again.
+        m1 = step("versioning through node 1, PUTs through node 2", nodes,
+                  m1, {"gf_matmul": 3, "hh256": 0, "mxh256": 4})
+
         # Node 4 SIGKILLed.
         nodes[-1].kill()
         live = nodes[:-1]
@@ -6892,8 +6951,8 @@ def phase_cluster(args, counts, card):
 # LIFE_DURING PUTs of LIFE_DURING_BYTES during the drain and its mover's
 # worker SIGKILLed once LIFE_KILL_AFTER versions moved.
 LIFE_BIG, LIFE_HH = 6, 2
-# LIFE_SMALL 128 before phase 5r joined the run.
-LIFE_SMALL, LIFE_SMALL_BYTES = 64, (1024, 100 * 1024)
+# LIFE_SMALL 128 before phase 5r joined the run, 64 before 5s.
+LIFE_SMALL, LIFE_SMALL_BYTES = 32, (1024, 100 * 1024)
 LIFE_HISTORY = 3
 LIFE_PARTS = (16 * MIB, 16 * MIB)
 LIFE_DURING, LIFE_DURING_BYTES = 4, 2 * MIB + 3
@@ -7480,7 +7539,8 @@ def phase_lifecycle(args, counts, card):
 #: the client threads, the pool's workers, the kill step's objects and
 #: which copy of a process dies (MTPU_CRASH=repl.pre_copy:N).
 REPL_BIG = 3
-REPL_SMALL, REPL_SMALL_BYTES = 128, (1024, 100 * 1024)
+# REPL_SMALL 128 before phase 5s joined the run.
+REPL_SMALL, REPL_SMALL_BYTES = 64, (1024, 100 * 1024)
 REPL_HISTORY = 3
 REPL_DEAD, REPL_DEAD_BYTES = 16, 256 * 1024
 REPL_CLIENTS = 4
@@ -8238,6 +8298,694 @@ def phase_protection(args, counts, card):
     return launches
 
 
+# Phase 5s, bucket notifications, over BASELINE.json config 2's set (one
+# EC:8+4 set of 12 drives on /dev/shm, STANDARD=EC:4): the pool booted
+# with NOTIFY_WORKERS workers (MTPU_HOTCACHE=0) and two notification
+# targets from the environment, a loopback webhook and a NATS fake, both
+# in this process; NOTIFY_CLIENTS client threads PUT NOTIFY_BIG objects
+# of OBJECT_BYTES and NOTIFY_SMALL of NOTIFY_SMALL_BYTES, complete one
+# multipart upload of NOTIFY_PARTS and DELETE NOTIFY_DELETES keys
+# (NOTIFY_MARKERS of them making delete markers); a rule changed through
+# one worker fires through the other (at most NOTIFY_FIRE_MAX PUTs); the
+# webhook stops for NOTIFY_OUTAGE PUTs of NOTIFY_EVENT_BYTES, and again
+# for NOTIFY_KILL while the worker holding parked events is SIGKILLed;
+# NOTIFY_LISTEN PUTs of NOTIFY_LISTEN_BYTES reach a ListenNotification
+# stream of an in-process server; NOTIFY_COST PUTs of NOTIFY_EVENT_BYTES
+# into a bucket with a webhook rule and as many into one without, in
+# turns.
+NOTIFY_WORKERS, NOTIFY_CLIENTS = 2, 4
+NOTIFY_BIG = 3
+NOTIFY_SMALL, NOTIFY_SMALL_BYTES = 64, (1024, 100 * 1024)
+NOTIFY_PARTS = (5 * MIB, 5 * MIB, 5 * MIB)
+NOTIFY_DELETES, NOTIFY_MARKERS = 16, 8
+NOTIFY_FIRE_MAX = 16
+NOTIFY_OUTAGE, NOTIFY_KILL, NOTIFY_EVENT_BYTES = 16, 8, 256 * 1024
+NOTIFY_LISTEN, NOTIFY_LISTEN_BYTES, NOTIFY_LISTEN_S = 8, 64 * 1024, 3.0
+NOTIFY_COST = 32
+NOTIFY_WEBHOOK, NOTIFY_NATS = ("arn:minio:sqs::1:webhook",
+                               "arn:minio:sqs::1:nats")
+
+
+class _HookReceiver:
+    """A loopback webhook: each record with its receipt time.  stop()
+    closes the listening socket (connections are refused: an outage),
+    start() listens on the same port again."""
+
+    def __init__(self):
+        self.port = _free_port()
+        self.url = f"http://127.0.0.1:{self.port}/events"
+        self.events: list = []
+        self._mu = threading.Lock()
+        self._srv = None
+        self.start()
+
+    def start(self) -> None:
+        import http.server
+        outer = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                data = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                t = time.monotonic()
+                with outer._mu:
+                    outer.events.extend(
+                        (t, r) for r in json.loads(data)["Records"])
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+        self._srv = http.server.ThreadingHTTPServer(("127.0.0.1", self.port),
+                                                    Handler)
+        threading.Thread(target=self._srv.serve_forever,
+                         kwargs={"poll_interval": 0.05}, daemon=True).start()
+
+    def stop(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+
+    def records(self) -> list:
+        with self._mu:
+            return list(self.events)
+
+
+class _NatsFake:
+    """The server side of NATS's text protocol on the publish path:
+    INFO, CONNECT answered +OK, each PUB's payload answered +OK, PING
+    answered PONG."""
+
+    def __init__(self):
+        import socket
+        self._lsock = socket.socket()
+        self._lsock.bind(("127.0.0.1", 0))
+        self._lsock.listen(16)
+        self.port = self._lsock.getsockname()[1]
+        self.events: list = []
+        self._mu = threading.Lock()
+        self._conns: list = []
+        threading.Thread(target=self._accept, daemon=True).start()
+
+    def _accept(self) -> None:
+        while True:
+            try:
+                conn, _ = self._lsock.accept()
+            except OSError:
+                return
+            self._conns.append(conn)
+            threading.Thread(target=self._serve, args=(conn,),
+                             daemon=True).start()
+
+    def _serve(self, conn) -> None:
+        try:
+            f = conn.makefile("rb")
+            conn.sendall(b'INFO {"server_id":"chip_smoke"}\r\n')
+            if not f.readline().startswith(b"CONNECT "):
+                return
+            conn.sendall(b"+OK\r\n")
+            while True:
+                line = f.readline()
+                if not line:
+                    return
+                if line.startswith(b"PUB "):
+                    n = int(line.split()[-1])
+                    payload = f.read(n + 2)[:n]
+                    t = time.monotonic()
+                    with self._mu:
+                        self.events.extend(
+                            (t, r) for r in json.loads(payload)["Records"])
+                    conn.sendall(b"+OK\r\n")
+                elif line.startswith(b"PING"):
+                    conn.sendall(b"PONG\r\n")
+        except OSError:
+            pass
+        finally:
+            conn.close()
+
+    def records(self) -> list:
+        with self._mu:
+            return list(self.events)
+
+    def close(self) -> None:
+        self._lsock.close()
+        for c in self._conns:
+            try:
+                c.close()
+            except OSError:
+                pass
+
+
+def _rules_xml(arns, events, prefix: str = "") -> bytes:
+    filt = (f"<Filter><S3Key><FilterRule><Name>prefix</Name><Value>{prefix}"
+            f"</Value></FilterRule></S3Key></Filter>" if prefix else "")
+    return ("<NotificationConfiguration>" + "".join(
+        f"<QueueConfiguration><Id>r{i}</Id><Queue>{arn}</Queue>"
+        + "".join(f"<Event>{e}</Event>" for e in events) + filt
+        + "</QueueConfiguration>" for i, arn in enumerate(arns))
+        + "</NotificationConfiguration>").encode()
+
+
+def _pctl(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def phase_notify(args, counts, card):
+    """Phase 5s, bucket notifications, as MinIO documents their setup
+    (`mc admin config set notify_webhook ...`, `mc event add`): `python -m
+    minio_tpu_torch.server` with NOTIFY_WORKERS workers over config 2's
+    12 drives on /dev/shm, `notify_webhook` and `notify_nats` turned on
+    through the environment, pointing at a loopback webhook and a NATS
+    fake in this process, the queue stores under MTPU_NOTIFY_STORE_DIR on
+    /dev/shm.  The rules of every bucket go through the pool.
+
+    Steps, each with its device items exact from the pool's metrics: the
+    traffic (every acknowledged mutation's record at both targets, with
+    its event name, key, size, ETag and version id); a rule changed
+    through one worker and fired through the other; the webhook down for
+    NOTIFY_OUTAGE PUTs, then back (the parked events delivered by the
+    retry loops, none lost, none twice); down again while the worker
+    holding parked events is SIGKILLed, then back (its respawn delivers
+    its predecessor's; duplicates counted); ListenNotification on an
+    in-process server (items from this process); the webhook's cost on
+    the request path, PUTs with a matching rule against PUTs without, in
+    turns (a notification adds no device item).  No CUDA context in a
+    worker."""
+    import signal
+
+    import numpy as np
+
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    ak, sk = "pooladmin", "pooladmin-secret"
+    root = _tmp_root("chip_smoke-notify-", 8 * OBJECT_BYTES + (1 << 30))
+    store = os.path.join(root, "store")
+    rng = np.random.default_rng(args.seed * 1000 + 970)
+    seed = args.seed * 1000 + 971
+    t_phase = time.perf_counter()
+    steps: dict[str, dict] = {}
+    pool_launches = dict.fromkeys(_KERNELS, 0)
+    counts.reset()
+    created, removed = "s3:ObjectCreated:*", "s3:ObjectRemoved:*"
+    versioning = (b"<VersioningConfiguration><Status>Enabled</Status>"
+                  b"</VersioningConfiguration>")
+    # (bucket, key, event name, version id) -> (size, ETag, ack time,
+    # step, targets)
+    want: dict = {}
+    both = (NOTIFY_WEBHOOK, NOTIFY_NATS)
+
+    def body(s, n):
+        return np.random.default_rng(s).bytes(n)
+
+    def zero():
+        return dict.fromkeys(_KERNELS, 0)
+
+    def put_items(n, times=1):
+        out = zero()
+        out["gf_matmul"] = out["mxh256"] = times * _put_calls(n)
+        return out
+
+    def hold(name, got, wanted, launches=None):
+        steps[name] = got
+        if got != wanted or (launches is not None and any(
+                launches[k] > got[k] or (got[k] and not launches[k])
+                for k in _KERNELS)):
+            raise SystemExit(f"notify {name}: items {got}, launches "
+                             f"{launches}, want {wanted}")
+
+    recv, nats = _HookReceiver(), _NatsFake()
+    pool = srv = lpools = None
+    env = {"MTPU_HOTCACHE": "0",
+           "MTPU_NOTIFY_WEBHOOK_ENABLE": "on",
+           "MTPU_NOTIFY_WEBHOOK_ENDPOINT": recv.url,
+           "MTPU_NOTIFY_NATS_ENABLE": "on",
+           "MTPU_NOTIFY_NATS_ADDRESS": f"127.0.0.1:{nats.port}",
+           "MTPU_NOTIFY_NATS_SUBJECT": "minio.events",
+           "MTPU_NOTIFY_STORE_DIR": store}
+    try:
+        pool = _Pool(root, NOTIFY_WORKERS, env=env)
+        port, pool_boot = pool.port, pool.boot_s
+
+        def fresh():
+            return S3Client(f"http://127.0.0.1:{port}", ak, sk, timeout=600)
+
+        def metrics():
+            for _ in range(100):
+                try:
+                    return pool.settled()
+                except OSError:
+                    time.sleep(0.05)      # a scrape on a dying worker
+            raise SystemExit(f"notify: no metrics: {pool.tail()}")
+
+        def per_worker(m, name):
+            return {w: int(m.get(f'{name}{{worker="{w}"}}', 0))
+                    for w in range(NOTIFY_WORKERS)}
+
+        def reloaded():
+            deadline = time.monotonic() + 30
+            while True:
+                m = metrics()
+                if all(m[f'mtpu_worker_config_generation{{worker="{w}"}}']
+                       == m["mtpu_config_generation"]
+                       for w in range(NOTIFY_WORKERS)):
+                    return m
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"notify: the workers' config reload:"
+                                     f" {pool.tail()}")
+                time.sleep(0.05)
+
+        def warm():
+            """16 fresh connections: every worker caches evt's versioning
+            and the other buckets' absent configs before a step counts."""
+            for b in ("evt", "evrule", "evhook", "evbare"):
+                for _ in range(16 if b == "evt" else 4):
+                    fresh()._check(*fresh().request(
+                        "GET", f"/{b}", query={"versioning": ""}))
+
+        def step(name, before, wanted):
+            after = _pool_counts(metrics(), NOTIFY_WORKERS)
+            got = {k: int(after[f"items_{k}"] - before[f"items_{k}"])
+                   for k in _KERNELS}
+            launches = {k: int(after[f"launches_{k}"]
+                               - before[f"launches_{k}"]) for k in _KERNELS}
+            for k in _KERNELS:
+                pool_launches[k] += launches[k]
+            hold(name, got, wanted, launches)
+            if after["ipc_fallbacks"] or after["co_fallbacks"]:
+                raise SystemExit(f"notify {name}: fallbacks {after}")
+            return after
+
+        def expect(bucket, key, name, vid, size, etag, t_ack, step_name,
+                   targets=both):
+            want[bucket, key, name, vid] = (size, etag, t_ack, step_name,
+                                            targets)
+
+        def put(bucket, key, n, step_name, targets=both):
+            nonlocal seed
+            data = body(seed, n)
+            seed += 1
+            h = fresh().put_object(bucket, key, data)
+            expect(bucket, key, "s3:ObjectCreated:Put",
+                   h.get("x-amz-version-id", ""), n, h["ETag"].strip('"'),
+                   time.monotonic(), step_name, targets)
+            return h
+
+        def delivered(who, bucket, keys):
+            got = {}
+            for _, r in who.records():
+                o = r["s3"]["object"]
+                if r["s3"]["bucket"]["name"] == bucket and o["key"] in keys:
+                    got[o["key"]] = got.get(o["key"], 0) + 1
+            return got
+
+        def wait_for(who, bucket, keys, what, timeout=120):
+            t0 = time.monotonic()
+            while len(delivered(who, bucket, keys)) < len(keys):
+                if time.monotonic() - t0 > timeout:
+                    raise SystemExit(f"notify: {what}: "
+                                     f"{len(delivered(who, bucket, keys))}"
+                                     f" of {len(keys)} delivered")
+                time.sleep(0.02)
+            return time.monotonic() - t0
+
+        # -- setup through the pool (`mc mb`, `mc version enable`,
+        # `mc event add`) --------------------------------------------------
+        cli = fresh()
+        for b in ("evt", "evrule", "evhook", "evbare"):
+            cli.make_bucket(b)
+        cli._check(*cli.request("PUT", "/evt", query={"versioning": ""},
+                                body=versioning))
+        for b, xml in (("evt", _rules_xml(both, (created, removed))),
+                       ("evrule", _rules_xml((NOTIFY_WEBHOOK,),
+                                          ("s3:ObjectCreated:Put",), "a/")),
+                       ("evhook", _rules_xml((NOTIFY_WEBHOOK,),
+                                          ("s3:ObjectCreated:Put",)))):
+            fresh()._check(*fresh().request(
+                "PUT", f"/{b}", query={"notification": ""}, body=xml))
+        reloaded()
+        warm()
+        st, _, got = fresh().request("GET", "/evt",
+                                     query={"notification": ""})
+        if st != 200 or b"arn:minio:sqs::1:nats" not in got:
+            raise SystemExit(f"notify: ?notification GET {st} {got[:200]}")
+        targets = [ln for ln in open(pool.log).read().splitlines()
+                   if "notification targets:" in ln]
+        if len(targets) != NOTIFY_WORKERS or any(
+                NOTIFY_WEBHOOK not in ln or NOTIFY_NATS not in ln
+                for ln in targets):
+            raise SystemExit(f"notify: the workers' targets {targets}")
+        c0 = _pool_counts(metrics(), NOTIFY_WORKERS)
+
+        # -- the traffic: 4 client threads ---------------------------------
+        plan = [("put", f"big{i}", OBJECT_BYTES) for i in range(NOTIFY_BIG)]
+        plan += [("put", f"small/{i:03d}",
+                  int(rng.integers(*NOTIFY_SMALL_BYTES)))
+                 for i in range(NOTIFY_SMALL)]
+        plan.append(("multipart", "mp", sum(NOTIFY_PARTS)))
+        seeds = {key: seed + i for i, (_, key, _) in enumerate(plan)}
+        seed += len(plan)
+        mu = threading.Lock()
+        errors: list = []
+        vids: dict = {}
+
+        def multipart(key):
+            c = fresh()
+            st, _, out = c.request("POST", f"/evt/{key}",
+                                   query={"uploads": ""})
+            upload = re.search(rb"<UploadId>([^<]+)</UploadId>",
+                               out).group(1).decode()
+            parts = []
+            for i, n in enumerate(NOTIFY_PARTS, 1):
+                st, h, _ = fresh().request(
+                    "PUT", f"/evt/{key}", query={"partNumber": str(i),
+                                                "uploadId": upload},
+                    body=body(seeds[key] * 7 + i, n))
+                if st != 200:
+                    raise SystemExit(f"notify: part {i} {st}")
+                parts.append(f"<Part><PartNumber>{i}</PartNumber><ETag>"
+                             f"{h['ETag']}</ETag></Part>")
+            st, _, out = fresh().request(
+                "POST", f"/evt/{key}", query={"uploadId": upload},
+                body=("<CompleteMultipartUpload>" + "".join(parts)
+                      + "</CompleteMultipartUpload>").encode())
+            t_ack = time.monotonic()
+            if st != 200:
+                raise SystemExit(f"notify: complete {st} {out[:200]}")
+            etag = re.search(rb"<ETag>([^<]+)</ETag>",
+                             out).group(1).decode().strip('"')
+            vid = fresh().head_object("evt", key).get("x-amz-version-id", "")
+            return ("s3:ObjectCreated:CompleteMultipartUpload", vid, etag,
+                    t_ack)
+
+        def client(part):
+            try:
+                for kind, key, n in part:
+                    if kind == "multipart":
+                        name, vid, etag, t_ack = multipart(key)
+                    else:
+                        h = fresh().put_object("evt", key,
+                                               body(seeds[key], n))
+                        t_ack = time.monotonic()
+                        name, vid, etag = ("s3:ObjectCreated:Put",
+                                           h.get("x-amz-version-id", ""),
+                                           h["ETag"].strip('"'))
+                    with mu:
+                        vids[key] = vid
+                        expect("evt", key, name, vid, n, etag, t_ack,
+                               "traffic")
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+        t_start = time.perf_counter()
+        t_mono = time.monotonic()
+        _in_threads(NOTIFY_CLIENTS, client,
+                    [plan[i::NOTIFY_CLIENTS] for i in range(NOTIFY_CLIENTS)])
+        # The deletes: NOTIFY_MARKERS make delete markers, the others
+        # remove one version by its id.
+        gone = [f"small/{i:03d}" for i in range(NOTIFY_DELETES)]
+
+        def delete(key):
+            try:
+                marker = int(key[-3:]) < NOTIFY_MARKERS
+                query = {} if marker else {"versionId": vids[key]}
+                st, h, _ = fresh().request("DELETE", f"/evt/{key}",
+                                           query=query)
+                t_ack = time.monotonic()
+                if st != 204:
+                    raise SystemExit(f"notify: DELETE {key} {st}")
+                with mu:
+                    expect("evt", key, "s3:ObjectRemoved:DeleteMarkerCreated"
+                           if marker else "s3:ObjectRemoved:Delete",
+                           query.get("versionId", ""), 0, "", t_ack,
+                           "traffic")
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(e)
+        _in_threads(NOTIFY_CLIENTS, delete, gone)
+        if errors:
+            raise SystemExit(f"notify: client errors {errors[:3]}")
+        n_events = len(plan) + len(gone)
+        keys = {k for (b, k, _, _), v in want.items() if v[3] == "traffic"}
+        wait_for(recv, "evt", keys, "the traffic's webhook records")
+        wait_for(nats, "evt", keys, "the traffic's NATS records")
+        traffic_s = time.perf_counter() - t_start
+        last = max(t for who in (recv, nats) for t, _ in who.records())
+        events_per_s = 2 * n_events / (last - t_mono)
+        hook_lat = []
+        for t, r in recv.records():
+            o = r["s3"]["object"]
+            w = want.get(("evt", o["key"], r["eventName"], o["versionId"]))
+            if w is not None and w[3] == "traffic":
+                hook_lat.append((t - w[2]) * 1e3)
+        want_items = zero()
+        for kind, key, n in plan:
+            if kind == "multipart":
+                for p in NOTIFY_PARTS:
+                    for k, v in put_items(p).items():
+                        want_items[k] += v
+            else:
+                for k, v in put_items(n).items():
+                    want_items[k] += v
+        c1 = step("traffic", c0, want_items)
+
+        # -- a rule changed through one worker, fired through the other ---
+        m = metrics()
+        writes0 = per_worker(m, "mtpu_worker_config_writes_total")
+        xml = _rules_xml((NOTIFY_WEBHOOK,), ("s3:ObjectCreated:Put",), "b/")
+        fresh()._check(*fresh().request("PUT", "/evrule",
+                                        query={"notification": ""},
+                                        body=xml))
+        m = reloaded()
+        writes = per_worker(m, "mtpu_worker_config_writes_total")
+        writer = next(w for w in writes if writes[w] != writes0[w])
+        other = 1 - writer
+        put("evrule", "a/old-prefix", 1024, "rule", targets=())
+        fired = 0
+        sent0 = per_worker(m, "mtpu_worker_notify_events_sent_total")
+        for i in range(NOTIFY_FIRE_MAX):
+            put("evrule", f"b/k{i}", 1024, "rule", targets=(NOTIFY_WEBHOOK,))
+            fired += 1
+            sent = per_worker(metrics(),
+                              "mtpu_worker_notify_events_sent_total")
+            if sent[other] > sent0[other]:
+                break
+        else:
+            raise SystemExit(f"notify: no fire PUT reached worker {other}")
+        wait_for(recv, "evrule", {f"b/k{i}" for i in range(fired)},
+                 "the changed rule's records")
+        # The rule's PUT; each worker's reload reads the three buckets'
+        # rules (inline objects); the PUTs.
+        want_items = put_items(len(xml))
+        want_items["mxh256"] += NOTIFY_WORKERS * 3
+        for k, v in put_items(1024, fired + 1).items():
+            want_items[k] += v
+        step("rule through the other worker", c1, want_items)
+        # The reload dropped every worker's cached configs.
+        warm()
+        c2 = _pool_counts(metrics(), NOTIFY_WORKERS)
+
+        # -- the webhook down for NOTIFY_OUTAGE PUTs ------------------------
+        recv.stop()
+        outage = [f"out/{i:02d}" for i in range(NOTIFY_OUTAGE)]
+        for key in outage:
+            put("evt", key, NOTIFY_EVENT_BYTES, "outage")
+        wait_for(nats, "evt", set(outage), "NATS during the outage")
+        m = metrics()
+        parked = per_worker(m, "mtpu_worker_notify_backlog_events")
+        if sum(parked.values()) != NOTIFY_OUTAGE:
+            raise SystemExit(f"notify: parked {parked} of {NOTIFY_OUTAGE}")
+        recv.start()
+        drain_s = wait_for(recv, "evt", set(outage), "the outage's drain")
+        c3 = step("webhook outage", c2,
+                  put_items(NOTIFY_EVENT_BYTES, NOTIFY_OUTAGE))
+
+        # -- down again, and the worker holding parked events SIGKILLed ----
+        recv.stop()
+        kill = [f"kill/{i:02d}" for i in range(NOTIFY_KILL)]
+        for key in kill:
+            put("evt", key, NOTIFY_EVENT_BYTES, "kill")
+        wait_for(nats, "evt", set(kill), "NATS before the kill")
+        m = metrics()
+        parked_kill = per_worker(m, "mtpu_worker_notify_backlog_events")
+        victim = max(parked_kill, key=parked_kill.get)
+        pid = int(m[f'mtpu_worker_pid{{worker="{victim}"}}'])
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                m = pool.metrics()
+                if m.get(f'mtpu_worker_ready{{worker="{victim}"}}') == 1 \
+                        and int(m[f'mtpu_worker_pid{{worker="{victim}"}}']) \
+                        != pid:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise SystemExit(f"notify: worker {victim} never came "
+                                 f"back: {pool.tail()}")
+            time.sleep(0.05)
+        respawn_s = time.perf_counter() - t_kill
+        recv.start()
+        drain_kill_s = wait_for(recv, "evt", set(kill), "the kill's drain")
+        time.sleep(1.5)                   # a second copy would come now
+        # The respawned worker reads the three buckets' rules at boot.
+        want_items = put_items(NOTIFY_EVENT_BYTES, NOTIFY_KILL)
+        want_items["mxh256"] += 3
+        step("kill", c3, want_items)
+        warm()
+        c4 = _pool_counts(metrics(), NOTIFY_WORKERS)
+        left = per_worker(metrics(), "mtpu_worker_notify_backlog_events")
+        if any(left.values()) or any(os.listdir(os.path.join(
+                store, "webhook", f"w{w}")) for w in range(NOTIFY_WORKERS)):
+            raise SystemExit(f"notify: events left parked {left}")
+
+        # -- the webhook's cost on the request path ------------------------
+        cost = {"evhook": [], "evbare": []}
+        for i in range(NOTIFY_COST):
+            for b in ("evhook", "evbare"):
+                t0 = time.perf_counter()
+                put(b, f"c{i:02d}", NOTIFY_EVENT_BYTES, "cost",
+                    targets=(NOTIFY_WEBHOOK,) if b == "evhook" else ())
+                cost[b].append((time.perf_counter() - t0) * 1e3)
+        wait_for(recv, "evhook", {f"c{i:02d}" for i in range(NOTIFY_COST)},
+                 "the cost leg's records")
+        c5 = step("cost", c4, put_items(NOTIFY_EVENT_BYTES, 2 * NOTIFY_COST))
+        cuda = c5["cuda"]
+        if cuda != {"owner": 1, **{f"worker{w}": 0
+                                   for w in range(NOTIFY_WORKERS)}}:
+            raise SystemExit(f"notify: CUDA contexts {cuda}")
+        counters = {k: per_worker(metrics(), f"mtpu_worker_notify_{k}")
+                    for k in ("events_sent_total", "events_delivered_total",
+                              "events_parked_total", "events_retried_total",
+                              "backlog_events")}
+        pool.stop()
+        pool = None
+
+        # -- every record at its targets -----------------------------------
+        dups = {"kill": 0}
+        for who, arn in ((recv, NOTIFY_WEBHOOK), (nats, NOTIFY_NATS)):
+            seen: dict = {}
+            for _, r in who.records():
+                o = r["s3"]["object"]
+                ident = (r["s3"]["bucket"]["name"], o["key"],
+                         r["eventName"], o["versionId"])
+                w = want.get(ident)
+                if w is None or arn not in w[4]:
+                    raise SystemExit(f"notify: unexpected {arn} record "
+                                     f"{ident}")
+                if (o["size"], o["eTag"]) != (w[0], w[1]):
+                    raise SystemExit(f"notify: {arn} record {ident}: size "
+                                     f"{o['size']}, ETag {o['eTag']}, want "
+                                     f"{w[:2]}")
+                seen[ident] = seen.get(ident, 0) + 1
+            for ident, w in want.items():
+                n = seen.get(ident, 0)
+                if arn not in w[4]:
+                    continue
+                if n == 0:
+                    raise SystemExit(f"notify: {arn} lost {ident}")
+                if n > 1:
+                    if w[3] != "kill":
+                        raise SystemExit(f"notify: {arn} got {ident} "
+                                         f"{n} times")
+                    dups["kill"] += n - 1
+
+        # -- ListenNotification on an in-process server --------------------
+        lpools = ServerPools([ErasureSets(
+            [LocalDrive(os.path.join(root, f"l{i}")) for i in range(1, 13)],
+            set_drive_count=12)])
+        srv = S3Server(lpools, Credentials(ak, sk)).start()
+        lcli = S3Client(srv.endpoint, ak, sk, timeout=600)
+        lcli.make_bucket("lbk")
+        stream: dict = {}
+
+        def listen():
+            stream["out"] = S3Client(srv.endpoint, ak, sk,
+                                     timeout=600).request(
+                "GET", "/lbk", query={"events": "s3:ObjectCreated:*",
+                                     "duration": str(NOTIFY_LISTEN_S)})
+        th = threading.Thread(target=listen)
+        i0 = counts.items()
+        th.start()
+        deadline = time.monotonic() + 30
+        while srv.notify.pubsub.num_subscribers != 1:
+            if time.monotonic() > deadline:
+                raise SystemExit("notify: the listen stream never "
+                                 "subscribed")
+            time.sleep(0.01)
+        lkeys = []
+        for i in range(NOTIFY_LISTEN):
+            lkeys.append(f"l/{i}")
+            lcli.put_object("lbk", lkeys[-1],
+                            body(seed + i, NOTIFY_LISTEN_BYTES))
+        th.join(timeout=NOTIFY_LISTEN_S + 30)
+        st, _, out = stream["out"]
+        recs = [json.loads(ln)["Records"][0] for ln in out.split(b"\n")
+                if ln.strip()]
+        if st != 200 or [r["s3"]["object"]["key"] for r in recs] != lkeys:
+            raise SystemExit(f"notify: listen {st}: "
+                             f"{[r['s3']['object']['key'] for r in recs]}")
+        now = counts.items()
+        hold("listen (this process)", {k: now[k] - i0[k] for k in _KERNELS},
+             put_items(NOTIFY_LISTEN_BYTES, NOTIFY_LISTEN))
+        srv.shutdown()
+        srv = None
+    finally:
+        if pool is not None:
+            pool.kill()
+        if srv is not None:
+            srv.shutdown()
+        if lpools is not None:
+            lpools.close()
+        recv.stop()
+        nats.close()
+        shutil.rmtree(root, ignore_errors=True)
+    here = counts.read()
+    launches = {k: pool_launches[k] + here[k] for k in _KERNELS}
+    launches["mxh256_elsewhere"] = pool_launches["mxh256"]
+    rule = statistics.mean(cost["evhook"])
+    bare = statistics.mean(cost["evbare"])
+    print(f"[notify] python -m minio_tpu_torch.server, {NOTIFY_WORKERS} "
+          f"workers, booted in {pool_boot:.2f} s with notify_webhook and "
+          f"notify_nats from the environment (a loopback webhook and a "
+          f"NATS fake in this process); card {card}")
+    print(f"[notify] traffic from {NOTIFY_CLIENTS} clients: {NOTIFY_BIG} x "
+          f"{OBJECT_BYTES} B, {NOTIFY_SMALL} small, a multipart of "
+          f"{len(NOTIFY_PARTS)} x {NOTIFY_PARTS[0]} B, {NOTIFY_DELETES} "
+          f"DELETEs ({NOTIFY_MARKERS} markers): {n_events} events at each "
+          f"target in {traffic_s:.2f} s, {events_per_s:.1f} events/s; the "
+          f"webhook's receipt minus the client's ack, p50 "
+          f"{_pctl(hook_lat, 0.5):.3f} ms, p99 {_pctl(hook_lat, 0.99):.3f} "
+          f"ms (negative: delivered before the response); card {card}")
+    print(f"[notify] a rule changed through worker {writer}, fired through "
+          f"worker {other} after {fired} PUT(s); card {card}")
+    print(f"[notify] webhook down for {NOTIFY_OUTAGE} PUTs: {parked} parked "
+          f"by worker, delivered {drain_s:.3f} s after its return; down "
+          f"again for {NOTIFY_KILL} PUTs, {parked_kill} parked, worker "
+          f"{victim} SIGKILLed and back in {respawn_s:.2f} s, delivered "
+          f"{drain_kill_s:.3f} s after the webhook's return; duplicates in "
+          f"the kill step {dups['kill']}, none elsewhere, none lost; card "
+          f"{card}")
+    print(f"[notify] per worker {counters}; card {card}")
+    print(f"[notify] cost on the request path, {NOTIFY_COST} PUTs of "
+          f"{NOTIFY_EVENT_BYTES} B each way in turns: with a webhook rule "
+          f"{rule:.3f} ms a PUT (median {statistics.median(cost['evhook']):.3f})"
+          f", without {bare:.3f} (median "
+          f"{statistics.median(cost['evbare']):.3f}), {rule - bare:+.3f} ms; "
+          f"card {card}")
+    print(f"[notify] ListenNotification in process: {NOTIFY_LISTEN} PUTs, "
+          f"{len(recs)} records, the stream ended at its "
+          f"{NOTIFY_LISTEN_S} s duration; card {card}")
+    print(f"[notify] items per step: {steps}; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -8609,6 +9357,7 @@ def main() -> int:
         "cluster": lambda: phase_cluster(args, counts, card),
         "lifecycle": lambda: phase_lifecycle(args, counts, card),
         "data protection": lambda: phase_protection(args, counts, card),
+        "notifications": lambda: phase_notify(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -8679,7 +9428,8 @@ def main() -> int:
                      - per_path["admission plane"]["mxh256_elsewhere"]
                      - per_path["cluster"]["mxh256_elsewhere"]
                      - per_path["lifecycle"]["mxh256_elsewhere"]
-                     - per_path["data protection"]["mxh256_elsewhere"])
+                     - per_path["data protection"]["mxh256_elsewhere"]
+                     - per_path["notifications"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))

@@ -62,9 +62,11 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-from ..storage.drive import SYS_VOL
-from ..storage.errors import (ErrBucketNotFound, ErrObjectNotFound,
-                              ErrVersionNotFound, StorageError)
+from ..storage.drive import SYS_VOL, XL_META_FILE
+from ..storage.errors import (ErrBucketNotFound, ErrErasureReadQuorum,
+                              ErrObjectNotFound, ErrVersionNotFound,
+                              StorageError)
+from ..storage.xlmeta import XLMeta
 from ..utils.crashpoints import crash_point
 
 _NOT_HERE = (ErrObjectNotFound, ErrVersionNotFound, ErrBucketNotFound)
@@ -199,6 +201,13 @@ def find_journals(pools) -> dict[int, str]:
                 continue
             found.setdefault(idx, os.path.join(sysdir, name))
     return found
+
+
+def active_drains(pools) -> set[int]:
+    """The pools whose drain journal holds a drain in ACTIVE_STATES."""
+    return {idx for idx, path in find_journals(pools).items()
+            if idx < len(pools.pools)
+            and _fold(path)["state"] in ACTIVE_STATES}
 
 
 def journal_status(pool_idx: int, path: str) -> dict:
@@ -550,6 +559,9 @@ class Decommissioner:
             versions = self._src().list_object_versions(bucket, obj)
         except _NOT_HERE:
             versions = []
+        except ErrErasureReadQuorum:
+            self._finish_reap(bucket, obj)
+            versions = []
         # Oldest first: each PUT keeps the source's mod time and version
         # id, so the history's order survives the move.
         for fi in reversed(versions):
@@ -613,6 +625,39 @@ class Decommissioner:
                                       versioned=False)
         except _NOT_HERE:
             pass                        # reaped before a resume
+
+    def _finish_reap(self, bucket: str, obj: str) -> None:
+        """A version history below read quorum on the source: what is
+        left of a reap the mover's death cut short (the reap begins only
+        once the destination's copy is verified, and a kill between its
+        drives leaves the version on the others).  Each drive's remnant
+        goes once the destination holds that version, by id and mod time;
+        a remnant without such a copy is not the mover's to remove, and
+        the drain fails on it as before."""
+        es = self._src().set_for(obj)
+        copies = {(v.version_id, v.mod_time_ns)
+                  for _, _, vers in self._dest_versions(bucket, obj)
+                  for v in vers if not v.deleted}
+        remnants = []
+        for d in es.drives:
+            if d is None:
+                continue
+            try:
+                raw = d.read_all(bucket, f"{obj}/{XL_META_FILE}")
+            except StorageError:
+                continue
+            for v in XLMeta.from_bytes(raw).list_versions(bucket, obj):
+                if not v.deleted and \
+                        (v.version_id, v.mod_time_ns) not in copies:
+                    raise ErrErasureReadQuorum(
+                        f"{bucket}/{obj}: a version below read quorum "
+                        f"with no copy on another pool")
+                remnants.append((d, v.version_id))
+        for d, vid in remnants:
+            try:
+                d.delete_version(bucket, obj, vid)
+            except StorageError:
+                continue
 
     def _record_moved(self, bucket: str, obj: str, vid: str,
                       nbytes: int) -> None:

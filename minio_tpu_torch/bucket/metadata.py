@@ -4,9 +4,11 @@ The port's copy of minio_tpu/bucket/metadata.py (the
 cmd/bucket-metadata-sys.go role): configs persist per bucket under the
 internal meta bucket, at the JAX package's paths, and are served from an
 in-memory cache.  `on_change(bucket, kind)`, where set, runs after
-every write or delete: a worker of the pool bumps the plane's config
-generation there, and every other worker `invalidate`s its cache and
-rewires (server/workers.py).
+every write or delete (once for a dropped bucket, kind "*"): a worker
+of the pool bumps the plane's config generation there, and every other
+worker `invalidate`s its cache and rewires (server/workers.py); a
+cluster node broadcasts a `bucket-metadata` reload to its peers
+(server/cluster.py).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ class BucketMetadataSys:
         if self.on_change is not None:
             self.on_change(bucket, kind)
 
-    def delete(self, bucket: str, kind: str) -> None:
+    def delete(self, bucket: str, kind: str, announce: bool = True) -> None:
         try:
             self.pools.delete_object(META_BUCKET,
                                      self._path(bucket, kind))
@@ -79,7 +81,7 @@ class BucketMetadataSys:
             pass
         with self._mu:
             self._cache[bucket, kind] = None
-        if self.on_change is not None:
+        if announce and self.on_change is not None:
             self.on_change(bucket, kind)
 
     def invalidate(self, bucket: str | None = None) -> None:
@@ -93,5 +95,8 @@ class BucketMetadataSys:
                     del self._cache[key]
 
     def drop_bucket(self, bucket: str) -> None:
+        """Every config of a deleted bucket goes, with one `on_change`."""
         for kind in CONFIG_FILES:
-            self.delete(bucket, kind)
+            self.delete(bucket, kind, announce=False)
+        if self.on_change is not None:
+            self.on_change(bucket, "*")

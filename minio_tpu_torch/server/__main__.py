@@ -26,13 +26,17 @@ role, cmd/server-main.go:441), in its order:
    and, in one process or worker 0, the orphaned journals adopted; the
    buckets' persisted replication configs are wired to it once the
    front door binds the object layer;
-9. IAM, loaded from the object layer, and the S3 front door.
+9. IAM, loaded from the object layer, and the S3 front door with its
+   notification system: the targets of the configuration's enabled
+   `notify_*` subsystems (parking under MTPU_NOTIFY_STORE_DIR while
+   their service is down) and every bucket's persisted rules.
 
 With MTPU_WORKERS=N (server/workers.py) the boot forks instead: one
 device owner, which runs the self-tests and then every kernel of the
 pool, and N HTTP workers on one port (SO_REUSEPORT), each booting steps
 2-9 (the sweep, the resumed drains and the scanner in worker 0 only;
-each worker its own replication pool and journal)
+each worker its own replication pool and journal, and its own
+notification queue stores)
 with its coalescer routed to the owner through shared memory.  The
 branch is taken before anything loads torch.
 
@@ -73,7 +77,7 @@ import threading
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = "notifications and tiering (item 10)"
+LEFT_OUT = "tiering (item 10.2)"
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -219,6 +223,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"minio_tpu_torch server on {srv.endpoint} ({desc}; sets on "
               f"{device})", flush=True)
         print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
+        print(config_line(srv), flush=True)
         while not stop.wait(timeout=1.0):
             pass
         # Graceful exit: 503 to new requests, finish inflight ones, then
@@ -236,6 +241,18 @@ def main(argv: list[str] | None = None) -> int:
             d.close()
         pools.close()
     return 0
+
+
+def config_line(srv) -> str:
+    """The line the boot prints for its configuration: the notification
+    targets it built, and the environment's settings of planes this
+    server does not run (it ignores them)."""
+    targets = ", ".join(sorted(srv.notify.targets)) or "none"
+    line = f"minio_tpu_torch: notification targets: {targets}"
+    ignored = srv.handlers.config_sys.unported_env()
+    if ignored:
+        line += "; not applied: " + "; ".join(ignored)
+    return line
 
 
 def replication_line(rp) -> str:
@@ -316,6 +333,7 @@ def cluster_main(args, drive_groups: list[list[str]],
               f"(deployment ok; sets on {device})", flush=True)
         print(boot.sweep_line(node.swept), flush=True)
         print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
+        print(config_line(srv), flush=True)
         while not stop.wait(timeout=1.0):
             if srv.service_event:
                 break

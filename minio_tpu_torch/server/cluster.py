@@ -18,10 +18,14 @@ address; it
 4. builds the mixed local/remote erasure sets on its device, with a
    dsync namespace lock over one locker per node, and binds the object
    layer, its MRF queues, its data scanner (background/scanner.py, as on
-   every node of the JAX package; MTPU_SCANNER=0 starts none) and IAM,
-   whose mutations broadcast a reload to the peers over the peer plane
-   (a reload first drops the node's cached listings of the meta bucket;
-   the JAX boot wires no broadcast).
+   every node of the JAX package; MTPU_SCANNER=0 starts none), its
+   notification system (bucket/notify.py) and IAM.  IAM's mutations,
+   every bucket config write (versioning, notification, replication,
+   object lock...) and every server config write broadcast a reload to
+   the peers over the peer plane (`iam`, `bucket-metadata`, `config`)
+   before the write answers, so the next request any node serves sees
+   it; a reload first drops the node's cached listings and elections of
+   the meta bucket.  The JAX boot wires none of these broadcasts.
 
 The RPC bearer token is derived from the root credentials, so nodes
 booted with the same MTPU_ROOT_USER / MTPU_ROOT_PASSWORD authenticate to
@@ -329,20 +333,42 @@ def boot_cluster_node(endpoint_args: list, my_host: str, my_port: int,
         node.mrf_queues = attach_mrf(pools)
         iam = IAMSys(pools, notify=node.notification)
 
-        def reload_iam():
-            # A peer's IAM write bumped no generation on this node: its
+        def meta_dirty():
+            # A peer's write bumped no generation on this node: its
             # cached listings and elections of the meta bucket go first,
-            # or the reload would list the identities it already had.
+            # or a reload would read what it already had.
             for pool in pools.pools:
                 for es in pool.sets:
                     es._mark_dirty(META_BUCKET)
+
+        def reload_iam():
+            meta_dirty()
             iam.load()
+
+        def reload_configs():
+            meta_dirty()
+            if server.handlers is not None:     # else bound fresh below
+                server.reload_bucket_configs()
         node.peer_registry.on_reload("iam", reload_iam)
+        # A bucket config or the server config a peer wrote: the cached
+        # configs go, the notification rules reload and replication
+        # rewires, as a pool's workers do on a config generation.
+        node.peer_registry.on_reload("bucket-metadata", reload_configs)
+        node.peer_registry.on_reload("config", reload_configs)
         from ..background.scanner import scanner_from_env
         from ..bucket.replication import ReplicationPool
+
+        def wire(h):
+            # This node's writes reach every peer before they answer.
+            h.meta.on_change = (
+                lambda _b, _k: node.notification.reload_subsystem(
+                    "bucket-metadata"))
+            h.config_sys.on_write = (
+                lambda: node.notification.reload_subsystem("config"))
         server.bind_object_layer(pools, iam=iam,
                                  scanner=scanner_from_env(pools),
-                                 replication=ReplicationPool(pools))
+                                 replication=ReplicationPool(pools),
+                                 wire=wire)
         return node, server, pools
     except BaseException:
         server.shutdown()

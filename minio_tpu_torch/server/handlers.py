@@ -14,11 +14,13 @@ unversioned overwrite of a protected version refused, ?retention and
 scanner) and bucket replication (bucket/replication.py: each write
 journaled for the remote target, replica PUTs keeping the source's
 version id and mod time, the GET proxied to the target while the bucket
-resyncs).  Without the planes of later items a request that needs one
-answers NotImplemented and names its ROADMAP.md Queue A item
-(`unported`): SSE, compression, tiering (a lifecycle Transition too) and
-restore, notifications, S3 Select, and the encryption and notification
-configs.  An object another package stored encrypted, compressed or
+resyncs).  Bucket notifications are served (bucket/notify.py): a PUT,
+a multipart complete and a DELETE publish their event, with the
+object's logical size, to the rules of `?notification`, validated
+before they are stored.  Without the planes of later items a request
+that needs one answers NotImplemented and names its ROADMAP.md Queue A
+item (`unported`): SSE, compression, tiering (a lifecycle Transition
+too) and restore, S3 Select, and the encryption config.  An object another package stored encrypted, compressed or
 tiered is not served as if it were plain.  A bucket's hard quota is
 enforced at PUT and multipart complete (bucket/quota.py: usage from the
 scanner's last cycle, as in the JAX package, else from a live listing).
@@ -39,6 +41,7 @@ import urllib.parse
 import xml.etree.ElementTree as ET
 
 from ..bucket import object_lock as ol
+from ..bucket.notify import parse_notification_config
 from ..bucket import quota as bq
 from ..bucket import replication as repl
 from ..bucket.lifecycle import Lifecycle
@@ -161,8 +164,12 @@ def _valid_bucket_name(name: str) -> bool:
 class S3Handlers:
     """All bucket/object handlers; one instance per server."""
 
-    def __init__(self, pools: ServerPools, scanner=None, replication=None):
+    def __init__(self, pools: ServerPools, scanner=None, replication=None,
+                 notify=None):
         self.pools = pools
+        # bucket/notify.NotificationSystem: each object event is
+        # published there; None publishes nothing.
+        self.notify = notify
         # bucket/replication.ReplicationPool: each write's task, the
         # proxy GET; None replicates nothing.
         self.replication = replication
@@ -176,11 +183,16 @@ class S3Handlers:
             pass
         self.meta = BucketMetadataSys(pools)
         self.config_sys = ConfigSys(pools)
-        # The K+1 read trim (engine/erasure_set._read_version_fanout)
-        # reads for the parity this server writes its STANDARD class at.
+        self.apply_config()
+
+    def apply_config(self) -> None:
+        """What the server configuration sets beyond each request's own
+        reads: the K+1 read trim (engine/erasure_set.
+        _read_version_fanout) reads for the parity this server writes
+        its STANDARD class at."""
         standard = self.config_sys.parity_for_class("standard")
         if standard is not None:
-            for pool in pools.pools:
+            for pool in self.pools.pools:
                 for es in pool.sets:
                     es.trim_parity = es.clamp_parity(standard)
 
@@ -302,6 +314,13 @@ class S3Handlers:
         data = self.meta.get(bucket, "versioning")
         return data is not None and b"<Status>Enabled</Status>" in data
 
+    def _publish_event(self, event: str, bucket: str, key: str,
+                       size: int = 0, etag: str = "",
+                       version_id: str = "") -> None:
+        if self.notify is not None:
+            self.notify.publish(event, bucket, key, size=size, etag=etag,
+                                version_id=version_id)
+
     # ---- service level ----------------------------------------------------
 
     def list_buckets(self) -> Response:
@@ -368,18 +387,21 @@ class S3Handlers:
     #: quota enforced at PUT and multipart complete, and the bandwidth
     #: budget the QoS plane enforces), ?tagging (a blob), ?lifecycle
     #: (applied by the scanner), ?replication (wired into the
-    #: replication pool) and ?object-lock.
+    #: replication pool), ?notification (the notification system's
+    #: rules) and ?object-lock.
     _CONFIG_KINDS = {
         "lifecycle": ("lifecycle", "NoSuchLifecycleConfiguration"),
         "policy": ("policy", "NoSuchBucketPolicy"),
+        "notification": ("notification",
+                         "NoSuchNotificationConfiguration"),
         "replication": ("replication",
                         "ReplicationConfigurationNotFoundError"),
         "quota": ("quota", "NoSuchBucketPolicy"),
         "object-lock": ("object_lock", "NoSuchObjectLockConfiguration"),
         "tagging": ("tagging", "NoSuchTagSet"),
     }
-    #: Bucket configs whose plane waits for ROADMAP.md Queue A item 10.
-    UNPORTED_CONFIGS = ("notification", "encryption")
+    #: Bucket configs whose plane waits for ROADMAP.md Queue A item 10.3.
+    UNPORTED_CONFIGS = ("encryption",)
 
     def put_bucket_config(self, bucket: str, sub: str,
                           body: bytes) -> Response:
@@ -392,6 +414,8 @@ class S3Handlers:
                 lc = Lifecycle.parse(body)
                 if any(r.transition_tier for r in lc.rules):
                     raise unported("lifecycle transition")
+            elif kind == "notification":
+                rules = parse_notification_config(body)
             elif kind == "replication":
                 rules = repl.parse_replication_config(body)
                 # The targets are checked BEFORE the config persists: a
@@ -426,6 +450,8 @@ class S3Handlers:
         except Exception:  # noqa: BLE001 — any parse failure
             raise S3Error("MalformedXML") from None
         self.meta.put(bucket, kind, body)
+        if kind == "notification" and self.notify is not None:
+            self.notify.set_bucket_rules(bucket, rules)
         if kind == "replication" and self.replication is not None:
             try:
                 repl.wire_bucket(self.replication, self.meta, bucket)
@@ -452,6 +478,8 @@ class S3Handlers:
         self.head_bucket(bucket)
         kind, _ = self._CONFIG_KINDS[sub]
         self.meta.delete(bucket, kind)
+        if kind == "notification" and self.notify is not None:
+            self.notify.set_bucket_rules(bucket, [])
         if kind == "replication" and self.replication is not None:
             # Replication stops now, not at the next restart.
             self.replication.unconfigure(bucket)
@@ -909,10 +937,14 @@ class S3Handlers:
                                        **put_kw)
         except StorageError as e:
             raise from_storage_error(e) from None
+        etag = fi.metadata.get("etag", "")
+        self._publish_event("s3:ObjectCreated:Put", bucket, key,
+                            size=_logical_size(fi), etag=etag,
+                            version_id=fi.version_id)
         if self.replication is not None and not is_replica:
             self.replication.on_put(bucket, key,
                                     version_id=fi.version_id or "")
-        resp_headers = {"ETag": f'"{fi.metadata.get("etag", "")}"'}
+        resp_headers = {"ETag": f'"{etag}"'}
         if fi.version_id:
             resp_headers["x-amz-version-id"] = fi.version_id
         return Response(200, headers=resp_headers)
@@ -1004,6 +1036,10 @@ class S3Handlers:
             if err.api.code == "NoSuchKey":
                 return Response(204)
             raise err from None
+        self._publish_event(
+            "s3:ObjectRemoved:DeleteMarkerCreated" if dm is not None
+            else "s3:ObjectRemoved:Delete", bucket, key,
+            version_id=version_id)
         # Only a delete of the CURRENT object reaches the target (removing
         # a noncurrent version must not take down the target's live
         # copy), and a REPLICA-marked delete, a peer's worker's, does not
@@ -1310,6 +1346,10 @@ class S3Handlers:
                 bucket, key, upload_id, parts, versioned=versioned)
         except StorageError as e:
             raise from_storage_error(e) from None
+        self._publish_event(
+            "s3:ObjectCreated:CompleteMultipartUpload", bucket, key,
+            size=_logical_size(fi), etag=fi.metadata.get("etag", ""),
+            version_id=fi.version_id)
         if self.replication is not None:
             self.replication.on_put(bucket, key,
                                     version_id=fi.version_id or "")

@@ -20,16 +20,29 @@ heal sequences (`heal`: POST starts one, GET lists their status), `info`
 status), the replication targets (`bucket-remote`: POST registers one,
 GET lists them, DELETE drops one by ARN) and the replication plane
 (`replication`: GET its counters and, with `bucket=`, the bucket's
-resync; POST `{"op": "resync", "bucket": ...}` starts or resumes one);
-POST / is STS (AssumeRole, WebIdentity and ClientGrants through
-OIDC, LDAPIdentity, Certificate over mTLS).  Objects serve ?retention
-and ?legal-hold.  What answers
-NotImplemented, with its ROADMAP.md Queue A item: the other admin
-endpoints, metrics (but the worker pool's, the hot tier's, the metadata
-plane's, the admission plane's and a cluster node's families at
-/minio/v2/metrics/node) and listen (item 10).  Spans, the rest of the
-metrics, the audit trail and federation stay in the JAX package for
-now.
+resync; POST `{"op": "resync", "bucket": ...}` starts or resumes one)
+and the server configuration (`config`: GET the subsystems, or with
+`subsys=` one subsystem's values, POST `{"subsys", "key", "value"}` sets
+one; `config-help`); POST / is STS
+(AssumeRole, WebIdentity and ClientGrants through OIDC, LDAPIdentity,
+Certificate over mTLS).  Objects serve ?retention and ?legal-hold.
+
+Bucket notifications (bucket/notify.py): the server's
+NotificationSystem holds the buckets' `?notification` rules and the
+targets the configuration's enabled `notify_*` subsystems build at boot
+(bucket/event_targets.targets_from_config; they park in
+MTPU_NOTIFY_STORE_DIR while their service is down).
+ListenNotification streams the process's events as NDJSON:
+`GET /{bucket}?events=...` (with `prefix`, `suffix`, `duration`) and
+`GET /minio/listen` for every bucket.  In the worker pool each worker
+streams the events it served.
+
+What answers NotImplemented, with its ROADMAP.md Queue A item: the
+other admin endpoints and metrics (but the worker pool's, the hot
+tier's, the metadata plane's, the admission plane's, the notification
+targets' and a cluster node's families at /minio/v2/metrics/node).
+Spans, the rest of the metrics, the audit trail and federation stay in
+the JAX package for now.
 
 In a worker pool a pool change reaches every worker through
 pool-topology.json and the shared topology generation (server/
@@ -49,7 +62,8 @@ counting N more drives as gone.
 
 Admission (server/qos.py) runs around dispatch, after the drain gate:
 every request but /minio/health/, /minio/admin/, /minio/v2/metrics and
-/minio/listen takes a slot of the fork-shared plane or is shed with 503
+/minio/listen (a bucket's listen stream does) takes a slot of the
+fork-shared plane or is shed with 503
 SlowDown, Retry-After: 1, and a closed connection; after authentication
 the tenant's req/s and bytes/s buckets and the bucket's bandwidth
 budget (its quota config) may refuse it the same way, and a response's
@@ -78,7 +92,9 @@ import urllib.parse
 import xml.etree.ElementTree as ET
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..bucket import notify as _notify
 from ..bucket import replication as repl
+from ..config.config import UnportedSetting
 from ..engine.pools import ServerPools
 from ..iam.iam import Identity
 from ..iam.ldap import LDAPError
@@ -240,14 +256,36 @@ def qos_families(out: list, plane) -> None:
                for n, k in st["bg_yields_by_plane"].items()])
 
 
+#: mtpu_notify_* families: (counter, family, help)
+NOTIFY_FAMILIES = (
+    ("sent", "mtpu_notify_events_sent_total",
+     "Events handed to notification targets by matching rules"),
+    ("delivered", "mtpu_notify_events_delivered_total",
+     "Events their target acknowledged (first try or retried)"),
+    ("parked", "mtpu_notify_events_parked_total",
+     "Events parked in a target's queue store while it was down"),
+    ("retried", "mtpu_notify_events_retried_total",
+     "Parked events a retry pass delivered"),
+    ("backlog", "mtpu_notify_backlog_events",
+     "Events parked in this process's queue stores now"))
+
+
+def notify_counters(notify) -> dict:
+    """This process's event counters and its targets' backlog."""
+    c = _notify.stats()
+    c["backlog"] = notify.backlog_depth() if notify is not None else 0
+    return c
+
+
 def node_families(tier, worker_id: int | None = None,
                   kernels: bool = False, qos_plane=None,
-                  cluster_node=None) -> str:
+                  cluster_node=None, notify=None) -> str:
     """The hot tier's families (pool-wide: its counters live in shared
     memory), the admission plane's (pool-wide too), this process's
-    zero-copy sends and metadata plane (each labelled with the worker in
-    a pool), a cluster node's peer liveness and RPC client counters and,
-    with `kernels`, this process's kernel launches and items."""
+    zero-copy sends, metadata plane and notification targets (each
+    labelled with the worker in a pool), a cluster node's peer liveness
+    and RPC client counters and, with `kernels`, this process's kernel
+    launches and items."""
     out: list[str] = []
     if cluster_node is not None:
         from ..rpc import rest
@@ -273,6 +311,9 @@ def node_families(tier, worker_id: int | None = None,
         v = mc[key]
         _family(out, name, help_,
                 [(lab, round(v, 6) if isinstance(v, float) else v)])
+    nc = notify_counters(notify)
+    for key, name, help_ in NOTIFY_FAMILIES:
+        _family(out, name, help_, [(lab, nc[key])])
     zs = zc.stats()
     for key, help_ in (
             ("sendmsg", "Responses sent by one gathered sendmsg"),
@@ -317,7 +358,7 @@ class S3Server:
                  oidc=None, ldap=None, client_ca: str | None = None,
                  reuse_port: bool = False, worker_plane=None,
                  worker_id: int | None = None, rpc_router=None,
-                 scanner=None, replication=None):
+                 scanner=None, replication=None, notify=None):
         self.pools = pools
         # A cluster node's RPC planes, served under this port; its
         # ClusterNode (set by server/cluster.boot_cluster_node) gives the
@@ -339,6 +380,12 @@ class S3Server:
         # The process's bucket/replication.ReplicationPool (the boot's;
         # None replicates nothing), wired from the persisted configs.
         self.replication = replication
+        # The bucket/notify.NotificationSystem the handlers publish to:
+        # the caller's, or one of this server's own, which shutdown()
+        # closes.
+        self._own_notify = notify is None
+        self.notify = notify if notify is not None else \
+            _notify.NotificationSystem()
         # The process that runs decommission movers: one process alone,
         # or the pool's worker 0.
         self.decom_owner = worker_plane is None or worker_id == 0
@@ -610,16 +657,13 @@ class S3Server:
                                 f"{type(e).__name__}: {e}"),
                         path, self.request_id)
                     self.close_connection = True
-                try:
-                    self._respond(resp)
-                except (BrokenPipeError, ConnectionResetError,
-                        TimeoutError):
-                    self.close_connection = True
-                    return
                 # Post-paid bandwidth accounting: tenant and bucket
                 # buckets run a bounded debt (a GET's size is unknown
-                # at admission), repaid before the next admit.  Both
-                # charges short-circuit unless a rate is configured.
+                # at admission), repaid before the next admit.  The
+                # charge is made as the response leaves, before its
+                # first byte: a client's next request, on any
+                # connection, finds it made.  Both charges short-circuit
+                # unless a rate is configured.
                 if _qos.qos_enabled() and resp.status < 400:
                     resp_size = (int(resp.headers.get("Content-Length", 0)
                                      or 0)
@@ -639,6 +683,12 @@ class S3Server:
                         outer.qos.charge_bucket_bw(
                             req_bucket, outer._qos_bucket_rate(req_bucket),
                             nbytes)
+                try:
+                    self._respond(resp)
+                except (BrokenPipeError, ConnectionResetError,
+                        TimeoutError):
+                    self.close_connection = True
+                    return
 
             do_GET = do_PUT = do_POST = do_DELETE = do_HEAD = _handle
 
@@ -721,6 +771,8 @@ class S3Server:
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        if self._own_notify:
+            self.notify.close()
 
     def drain(self, timeout: float | None = None) -> dict:
         """Graceful drain (the cmd/signals.go handleSignals role): new S3
@@ -908,37 +960,78 @@ class S3Server:
     # -- dispatch ------------------------------------------------------------
 
     def bind_object_layer(self, pools: ServerPools, iam=None,
-                          scanner=None, replication=None) -> None:
+                          scanner=None, replication=None,
+                          wire=None) -> None:
         """Install the object layer after a cluster boot: the listener
         was up first so that peers reached this node's planes while it
-        waited for the format (cf. cmd/server-main.go:441)."""
+        waited for the format (cf. cmd/server-main.go:441).  `wire(h)`
+        hooks the new handlers up before any request reaches them; the
+        node reports ready only once they serve."""
         if scanner is not None:
             self.scanner = scanner
         if replication is not None:
             self.replication = replication
-        self.pools = pools
-        self._bind_handlers(pools)
         if iam is not None:
             self.iam = iam
+        self._bind_handlers(pools, wire)
+        self.pools = pools
 
-    def _bind_handlers(self, pools: ServerPools) -> None:
+    def _bind_handlers(self, pools: ServerPools, wire=None) -> None:
         """The handlers over the object layer; the scanner applies the
         buckets' lifecycle from their config store, and every bucket
         with a persisted replication config and registered targets
         replicates again (cf. the JAX `_reload_replication`)."""
-        self.handlers = S3Handlers(pools, self._usage_source(),
-                                   replication=self.replication)
+        h = S3Handlers(pools, self._usage_source(pools),
+                       replication=self.replication, notify=self.notify)
         if self.scanner is not None:
-            self.scanner.attach_config(self.handlers.meta)
+            self.scanner.attach_config(h.meta)
         if self.replication is not None:
             for bucket in pools.list_buckets():
-                self._wire_replication(bucket)
+                self._wire_replication(h, bucket)
+        self._register_config_targets(h, pools)
+        if wire is not None:
+            wire(h)
+        self.handlers = h
+
+    def _register_config_targets(self, h: S3Handlers, pools) -> None:
+        """Boot-time notification wiring (the JAX server's of the same
+        name): every enabled notify_* subsystem's target, parking under
+        MTPU_NOTIFY_STORE_DIR (one directory per worker in the pool),
+        and every bucket's persisted rules.  A bad target config is
+        logged, not fatal."""
+        import os as _os
+        from ..bucket.event_targets import targets_from_config
+        store = _os.environ.get("MTPU_NOTIFY_STORE_DIR") or None
+        pool_kw = {}
+        if self.worker_plane is not None and self.worker_id is not None:
+            pool_kw = {"worker": self.worker_id,
+                       "workers": self.worker_plane.nworkers}
+        try:
+            for t in targets_from_config(h.config_sys, store_dir=store,
+                                         **pool_kw):
+                self.notify.register_target(t)
+        except Exception as e:  # noqa: BLE001 — not boot-fatal
+            print(f"minio_tpu_torch: notify config targets: {e}",
+                  file=sys.stderr, flush=True)
+        self._load_notification_rules(h, pools)
+
+    def _load_notification_rules(self, h: S3Handlers, pools) -> None:
+        try:
+            self.notify.load_rules(h.meta, pools.list_buckets())
+        except Exception as e:  # noqa: BLE001 — keep serving
+            print(f"minio_tpu_torch: notify rule reload: {e}",
+                  file=sys.stderr, flush=True)
 
     def reload_bucket_configs(self) -> None:
-        """Another worker of the pool stored or deleted a bucket config:
-        drop the cached configs and rewire replication from the
-        persisted ones (a removed config or target unwires)."""
+        """Another process (a worker of the pool, a cluster node) stored
+        or deleted a bucket config or the server configuration: reread
+        the configuration, drop the cached bucket configs, reload the
+        notification rules and rewire replication from the persisted
+        configs (a removed config or target unwires)."""
+        self.handlers.config_sys.load()
+        self.handlers.apply_config()
         self.handlers.meta.invalidate()
+        self._load_notification_rules(self.handlers, self.pools)
         if self.replication is None:
             return
         for bucket in self.pools.list_buckets():
@@ -952,14 +1045,14 @@ class S3Server:
             if not wired:
                 self.replication.unconfigure(bucket)
 
-    def _wire_replication(self, bucket: str) -> None:
+    def _wire_replication(self, h: S3Handlers, bucket: str) -> None:
         """(Re)wire one bucket's rules and remote targets into the pool
         (nothing until both halves exist; a bad registration is logged,
         the wiring is asynchronous to the request that stored it)."""
         if self.replication is None:
             return
         try:
-            repl.wire_bucket(self.replication, self.handlers.meta, bucket)
+            repl.wire_bucket(self.replication, h.meta, bucket)
         except Exception as e:  # noqa: BLE001 — the wiring's verdict
             print(f"minio_tpu_torch: replication wiring {bucket}: {e}",
                   file=sys.stderr, flush=True)
@@ -974,7 +1067,7 @@ class S3Server:
         return ident is not None and self.iam.is_allowed(
             ident, "s3:ReplicateObject", "*")
 
-    def _usage_source(self):
+    def _usage_source(self, pools):
         """What quota and the admin read usage from: the scanner, bound
         to the bucket configuration (item 10's lifecycle binds there),
         or in a pool worker without one, the usage worker 0's scanner
@@ -983,7 +1076,7 @@ class S3Server:
             return self.scanner
         if self.worker_plane is not None:
             from ..background.scanner import PersistedUsage
-            return PersistedUsage(self.pools)
+            return PersistedUsage(pools)
         return None
 
     def _dispatch_internal(self, path: str, query: dict) -> Response:
@@ -1018,7 +1111,7 @@ class S3Server:
             text += node_families(
                 tier, self.worker_id, kernels=self.worker_plane is None,
                 qos_plane=self.qos if _qos.qos_enabled() else None,
-                cluster_node=self.cluster_node)
+                cluster_node=self.cluster_node, notify=self.notify)
             return Response(200, text.encode(),
                             {"Content-Type": "text/plain; version=0.0.4"})
         if path.startswith("/minio/v2/metrics/"):
@@ -1047,8 +1140,10 @@ class S3Server:
             return self._dispatch_admin(access_key, method, path, query,
                                         body)
         if path == "/minio/listen":
+            # Every bucket's events (the minio extension), an admin
+            # plane action.
             self._admin_authorize(access_key, "listen", method)
-            raise unported("listen")
+            return self._listen_response("", query)
         h = self.handlers
         parts = path.lstrip("/").split("/", 1)
         bucket = parts[0] if parts[0] else ""
@@ -1359,6 +1454,11 @@ class S3Server:
             return self._admin_bucket_remote(method, query, body)
         if sub == "replication":
             return self._admin_replication(method, query, body)
+        if sub == "config":
+            return self._admin_config(method, query, body)
+        if sub == "config-help" and method == "GET":
+            return _json(self.handlers.config_sys.help(
+                query.get("subsys", [""])[0]))
         handler = {"users": self._admin_users,
                    "service-accounts": self._admin_service_accounts,
                    "policies": self._admin_policies,
@@ -1375,6 +1475,93 @@ class S3Server:
             raise S3Error("MethodNotAllowed",
                           f"unknown admin endpoint {sub!r}")
         return resp
+
+    def _admin_config(self, method: str, query: dict,
+                      body: bytes) -> Response:
+        """`mc admin config get/set` (cf. cmd/admin-handlers-config-kv.go)
+        over the handlers' ConfigSys, which the data path reads: a set
+        applies to the next request, through every worker of the pool and
+        every node of a cluster once they reload (the ConfigSys's
+        on_write hook).  A setting that would turn on a plane this server
+        lacks answers NotImplemented with its item."""
+        cs = self.handlers.config_sys
+        if method == "GET":
+            subsys = query.get("subsys", [""])[0]
+            if subsys:
+                return _json({subsys: cs.get_subsys(subsys)})
+            return _json(cs.help())
+        if method == "POST":
+            req = json.loads(body or b"{}")
+            try:
+                cs.set(req["subsys"], req["key"], req["value"])
+            except UnportedSetting as e:
+                raise unported(f"{e.plane} (config "
+                               f"{req['subsys']}.{req['key']})",
+                               e.item) from None
+            except KeyError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            self.handlers.apply_config()
+            return _json({"ok": True})
+        raise S3Error("MethodNotAllowed")
+
+    def _listen_response(self, bucket: str, query: dict) -> Response:
+        """ListenNotification: `GET /{bucket}?events=...` (and the minio
+        extension `GET /minio/listen` with bucket="") as a chunked NDJSON
+        stream of this process's live S3 event records (cf.
+        ListenNotificationHandler, cmd/bucket-notification-handlers.go).
+        `duration` (seconds) bounds the stream for polling clients."""
+        if bucket and not self.pools.bucket_exists(bucket):
+            raise S3Error("NoSuchBucket", bucket)
+        prefix = query.get("prefix", [""])[0]
+        suffix = query.get("suffix", [""])[0]
+        names = [n for ns in query.get("events", [])
+                 for n in ns.split(",") if n]
+        try:
+            max_s = float(query.get("duration", ["0"])[0] or 0)
+        except ValueError:
+            max_s = 0.0
+        return Response(
+            200, b"",
+            {"Content-Type": "application/x-ndjson",
+             "Transfer-Encoding": "chunked"},
+            body_iter=self._listen_stream(bucket, prefix, suffix, names,
+                                          max_s))
+
+    def _listen_stream(self, bucket, prefix, suffix, names, max_s: float,
+                       poll: float = 0.05):
+        from fnmatch import fnmatch
+        q = self.notify.subscribe_events(2000)
+        try:
+            deadline = (time.monotonic() + max_s) if max_s > 0 else None
+            last = time.monotonic()
+            while deadline is None or time.monotonic() < deadline:
+                sent = False
+                while q:
+                    ev = q.popleft()
+                    if bucket and ev["bucket"] != bucket:
+                        continue
+                    key = ev["key"]
+                    if prefix and not key.startswith(prefix):
+                        continue
+                    if suffix and not key.endswith(suffix):
+                        continue
+                    if names and not any(fnmatch(ev["eventName"], pat)
+                                         for pat in names):
+                        continue
+                    yield json.dumps(
+                        {"Records": [ev["record"]]}).encode() + b"\n"
+                    sent = True
+                now = time.monotonic()
+                if sent:
+                    last = now
+                elif now - last > 5.0:
+                    # Keepalive blank line: NDJSON consumers skip it,
+                    # and the write is how a client hangup shows.
+                    yield b"\n"
+                    last = now
+                time.sleep(poll)
+        finally:
+            self.notify.unsubscribe_events(q)
 
     def _admin_service(self, query: dict) -> Response:
         """A cluster node's service action (cf. ServiceHandler,
@@ -1446,7 +1633,7 @@ class S3Server:
                 raise S3Error("InvalidArgument", str(e)) from None
             meta.put(bucket, "replication_targets",
                      json.dumps(kept + [entry]).encode())
-            self._wire_replication(bucket)
+            self._wire_replication(self.handlers, bucket)
             return _json({"arn": entry["arn"]})
         if method == "DELETE":
             arn = query.get("arn", [""])[0]
@@ -1459,7 +1646,7 @@ class S3Server:
             if self.replication is not None:
                 self.replication.unconfigure(bucket)
                 if remaining:
-                    self._wire_replication(bucket)
+                    self._wire_replication(self.handlers, bucket)
             return _json({"ok": True})
         raise S3Error("MethodNotAllowed")
 
@@ -2026,7 +2213,9 @@ class S3Server:
             raise S3Error("MethodNotAllowed")
         if method == "GET":
             if "events" in query:
-                raise unported("bucket notifications (listen)")
+                # ListenNotification (the reference registers the route
+                # with Queries("events", ...)).
+                return self._listen_response(bucket, query)
             if "location" in query:
                 return h.get_bucket_location(bucket)
             if "versioning" in query:

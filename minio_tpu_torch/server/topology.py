@@ -164,10 +164,15 @@ def adopt_topology(pools) -> int:
     for spec in doc["pools"][len(pools.pools):]:
         attach_built_pool(pools, spec)
         added += 1
+    from ..background import decom
     draining = {int(i) for i in doc.get("draining", [])
                 if 0 <= int(i) < len(pools.pools)}
     # The file is the floor across processes; a mover here may be ahead
-    # of it, and is never un-drained by it.
+    # of it, and is never un-drained by it.  The file is written best
+    # effort, the drain journals durably: a drain a journal holds active
+    # keeps its pool out of placement whatever the file says (a worker
+    # whose save failed must not un-drain itself at its next look).
+    draining |= decom.active_drains(pools)
     pools.draining |= draining
     for idx in list(pools.draining - draining):
         d = pools.decommissions.get(idx)

@@ -94,6 +94,17 @@ buckets they write in a fork-shared table (background/usage.SharedMarks,
 built before the fork), so worker 0's next cycle rescans them, and read
 the usage it persisted.
 
+Bucket configs and the server configuration: a worker that stores one
+(a `?versioning`, `?notification`, `?replication`... PUT or DELETE, an
+admin `config` set) bumps the shared config generation, and every
+worker rereads the configuration, drops its cached bucket configs,
+reloads the notification rules and rewires replication at its next
+look (`mtpu_worker_config_generation` shows it).  Each worker builds
+the configuration's notification targets with a queue store of its own
+(`<MTPU_NOTIFY_STORE_DIR>/<kind>/w<worker>`, which a respawn takes
+over) and publishes its event counters in its slab
+(`mtpu_worker_notify_*`).
+
 `MTPU_WORKERS=0` (the default) never enters this module: one process
 remains the oracle.
 """
@@ -117,6 +128,10 @@ from ..ops.shm_arena import ShmArena, default_arena_bytes
 #: the kernels whose launches and items the owner and each worker publish
 KERNELS = ("gf_matmul", "hh256", "mxh256")
 
+#: the notification counters each worker publishes (server/server.py
+#: notify_counters)
+NOTIFY_COUNTERS = ("sent", "delivered", "parked", "retried", "backlog")
+
 #: records in the request ring and in each worker's response ring
 RING_CAPACITY = 512
 
@@ -136,7 +151,9 @@ _GHDR = len(_G)
 _W = {name: i for i, name in enumerate((
     "pid", "beat_ns", "ready", "draining", "respawns", "requests",
     "inflight", "ipc_fallbacks", "co_fallbacks", "remote_submits", "cuda",
-    "hotcache_hits", "hotcache_misses", "config_gen",
+    "hotcache_hits", "hotcache_misses", "config_gen", "config_writes",
+    "topology_gen",
+    *(f"notify_{k}" for k in NOTIFY_COUNTERS),
     *(f"launches_{k}" for k in KERNELS),
     *(f"items_{k}" for k in KERNELS)))}
 _WSLOTS = len(_W)
@@ -225,6 +242,11 @@ class SharedState:
     def topology_gen(self) -> int:
         return int(self._a[_G["topology_gen"]])
 
+    def topology_applied(self, idx: int, gen: int) -> None:
+        """Worker `idx` has folded the pool topology of generation `gen`
+        in (its pools, its draining set)."""
+        self._a[self._w(idx) + _W["topology_gen"]] = gen
+
     def bump_config_gen(self) -> int:
         """The bucket configs' epoch: bumped by the worker that wrote or
         deleted one (a replication, object-lock or lifecycle config, a
@@ -235,6 +257,13 @@ class SharedState:
 
     def config_gen(self) -> int:
         return int(self._a[_G["config_gen"]])
+
+    def note_config_write(self, idx: int) -> int:
+        """Worker `idx` stored a bucket config or the server config: the
+        pool's config generation moves, and the worker's write count."""
+        with _SLAB_MU:
+            self._a[self._w(idx) + _W["config_writes"]] += 1
+        return self.bump_config_gen()
 
     def config_applied(self, idx: int, gen: int) -> None:
         """Worker `idx` has reloaded the bucket configs of generation
@@ -433,12 +462,36 @@ class WorkerPlane:
                    "co_fallbacks")
         per_worker("mtpu_worker_cuda_context",
                    "This worker has initialised CUDA", "cuda")
+        for key, help_ in (
+                ("sent", "Events this worker handed to notification "
+                         "targets"),
+                ("delivered", "Events this worker's targets "
+                              "acknowledged"),
+                ("parked", "Events this worker parked while a target "
+                           "was down"),
+                ("retried", "Parked events this worker's retry passes "
+                            "delivered")):
+            per_worker(f"mtpu_worker_notify_events_{key}_total", help_,
+                       f"notify_{key}")
+        per_worker("mtpu_worker_notify_backlog_events",
+                   "Events parked in this worker's queue stores now",
+                   "notify_backlog")
+        fam("mtpu_topology_generation",
+            "Pool adds and drain actions through the pool's workers",
+            [({}, self.state.topology_gen())])
+        per_worker("mtpu_worker_topology_generation",
+                   "The topology generation this worker has folded in",
+                   "topology_gen")
         fam("mtpu_config_generation",
-            "Bucket-config writes through the pool's workers",
+            "Bucket-config and server-config writes through the pool's "
+            "workers",
             [({}, self.state.config_gen())])
         per_worker("mtpu_worker_config_generation",
-                   "The bucket-config generation this worker has reloaded",
+                   "The config generation this worker has reloaded",
                    "config_gen")
+        per_worker("mtpu_worker_config_writes_total",
+                   "Bucket-config and server-config writes this worker "
+                   "served", "config_writes")
         # Per-worker view of the shared tier (its own counters are the
         # mtpu_hotcache_* families).
         per_worker("mtpu_worker_hotcache_hits_total",
@@ -631,8 +684,9 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     from ..ops import ipc_dispatch as ipc
     from . import boot
     from . import topology as topo
-    from .__main__ import LEFT_OUT, adopt_pools, replication_line
-    from .server import S3Server
+    from .__main__ import (LEFT_OUT, adopt_pools, config_line,
+                           replication_line)
+    from .server import S3Server, notify_counters
     from .sigv4 import Credentials
 
     # Every set this process builds marks the pool-shared table.
@@ -684,6 +738,7 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
             scanner = scanner_from_env(pools)
         else:
             topo.adopt_topology(pools)
+        plane.state.topology_applied(idx, topo_seen)
         # This worker's own journal (repl-journal.w<idx>.jsonl), its
         # predecessor's replayed; worker 0 adopts the orphans on every
         # spawn.
@@ -697,12 +752,15 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
                        worker_id=idx, scanner=scanner,
                        replication=replication).start()
         stop = _stop_event()
-        # A config this worker stores reaches the others' caches and
-        # replication wiring at their next look at the generation.
+        # A bucket config or server config this worker stores reaches
+        # the others' caches, notification rules and replication wiring
+        # at their next look at the generation.
         cfg_seen = plane.state.config_gen()
         plane.state.config_applied(idx, cfg_seen)
         srv.handlers.meta.on_change = (
-            lambda _b, _k: plane.state.bump_config_gen())
+            lambda _b, _k: plane.state.note_config_write(idx))
+        srv.handlers.config_sys.on_write = (
+            lambda: plane.state.note_config_write(idx))
 
         def _beat():
             while True:
@@ -713,6 +771,8 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
                     "co_fallbacks": coalesce.stats()["co_fallbacks"],
                     "remote_submits": st["remote_submits"],
                     "cuda": torch.cuda.is_initialized(),
+                    **{f"notify_{k}": v
+                       for k, v in notify_counters(srv.notify).items()},
                     **_kernel_counters()})
                 time.sleep(0.1)
         threading.Thread(target=_beat, name="mtpu-worker-beat",
@@ -724,6 +784,7 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
                   f"({plane.nworkers} workers, SO_REUSEPORT; sets on "
                   f"{pools.pools[0].sets[0].device})", flush=True)
             print(f"minio_tpu_torch: not started: {LEFT_OUT}", flush=True)
+        print(f"{config_line(srv)} [worker {idx}]", flush=True)
         next_fold = time.monotonic() + 2.0
         while not stop.wait(0.25):
             cgen = plane.state.config_gen()
@@ -744,6 +805,7 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
                     # Another worker changed the pools or a drain.
                     topo_seen = gen
                     topo.adopt_topology(pools)
+                    plane.state.topology_applied(idx, gen)
                 elif pools.draining:
                     # A drain relocates uploads as it goes; a part PUT
                     # of the old id can land on any worker.

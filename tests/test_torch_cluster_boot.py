@@ -273,3 +273,162 @@ def test_every_node_runs_its_scanner(tmp_path):
         time.sleep(0.5)
         assert meta.read_bytes() == want
         assert c2.get_object("scan", "obj") == data
+
+
+# -- a config written through one node governs every node ---------------------
+
+@pytest.fixture(scope="module")
+def configs_cluster(tmp_path_factory):
+    """One two-node cluster for the config tests, with a webhook
+    receiver every node's notify_webhook target points at."""
+    from test_torch_notify import Receiver
+    recv = Receiver()
+    tmp = tmp_path_factory.mktemp("cfgclus")
+    try:
+        with _booted(tmp, MTPU_NOTIFY_WEBHOOK_ENABLE="on",
+                     MTPU_NOTIFY_WEBHOOK_ENDPOINT=recv.url,
+                     MTPU_NOTIFY_STORE_DIR=str(tmp / "store"),
+                     MTPU_SCANNER="0",
+                     MTPU_REPL_RETRY_INTERVAL="0.05") as (ports, _):
+            yield ports, recv, tmp
+    finally:
+        recv.close()
+
+
+_ENABLED = (b"<VersioningConfiguration><Status>Enabled</Status>"
+            b"</VersioningConfiguration>")
+
+
+def test_versioning_enabled_through_one_node_reaches_the_other(
+        configs_cluster):
+    """Node 2 has read the bucket's versioning as absent; versioning is
+    enabled through node 1: node 2's next PUT of the key adds a version
+    (both listed).  Without the bucket-metadata broadcast node 2 keeps
+    its cached absence and replaces the null version."""
+    ports = configs_cluster[0]
+    c1, c2 = _clients(ports)
+    c1.make_bucket("qcv")
+    c2.put_object("qcv", "k", b"null version")
+    assert c1.request("PUT", "/qcv", query={"versioning": ""},
+                      body=_ENABLED)[0] == 200
+    h = c2.put_object("qcv", "k", b"second version")
+    assert h.get("x-amz-version-id"), h
+    st, _, body = c2.request("GET", "/qcv", query={"versions": ""})
+    assert st == 200
+    assert body.count(b"<Version>") == 2, body
+    assert c2.get_object("qcv", "k") == b"second version"
+
+
+def test_replication_config_through_one_node_wires_and_unwires_the_other(
+        configs_cluster, tmp_path):
+    """A remote target and a replication config stored through node 1
+    wire node 2: its PUT is replicated; the config deleted through node
+    1 unwires node 2 at once."""
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+    ports = configs_cluster[0]
+    c1, c2 = _clients(ports)
+    dst = ServerPools([ErasureSets(
+        [LocalDrive(str(tmp_path / f"t{i}")) for i in range(4)],
+        set_drive_count=4, device="cpu")])
+    tsrv = S3Server(dst, Credentials("minioadmin", "minioadmin")).start()
+    try:
+        tcli = S3Client(tsrv.endpoint, "minioadmin", "minioadmin",
+                        timeout=30)
+        for cli, b in ((c1, "qcr"), (tcli, "qcdst")):
+            cli.make_bucket(b)
+            assert cli.request("PUT", f"/{b}", query={"versioning": ""},
+                               body=_ENABLED)[0] == 200
+        c2.put_object("qcr", "pre", b"before the config")
+        st, _, body = c1.request(
+            "POST", "/minio/admin/v3/bucket-remote", query={"bucket": "qcr"},
+            body=json.dumps({"endpoint": tsrv.endpoint,
+                             "accessKey": "minioadmin",
+                             "secretKey": "minioadmin",
+                             "targetBucket": "qcdst"}).encode())
+        assert st == 200, body
+        repl_xml = (b"<ReplicationConfiguration><Rule><Status>Enabled"
+                    b"</Status><Filter><Prefix></Prefix></Filter>"
+                    b"<Destination><Bucket>arn:aws:s3:::qcdst</Bucket>"
+                    b"</Destination></Rule></ReplicationConfiguration>")
+        st, _, body = c1.request("PUT", "/qcr", query={"replication": ""},
+                                 body=repl_xml)
+        assert st == 200, body
+        c2.put_object("qcr", "wired", b"through node 2")
+        deadline = time.monotonic() + 30
+        while tcli.request("HEAD", "/qcdst/wired")[0] != 200:
+            assert time.monotonic() < deadline, "never replicated"
+            time.sleep(0.1)
+        assert tcli.get_object("qcdst", "wired") == b"through node 2"
+        assert c1.request("DELETE", "/qcr",
+                          query={"replication": ""})[0] == 204
+        c2.put_object("qcr", "unwired", b"after the delete")
+        st, hdrs, _ = c2.request("HEAD", "/qcr/unwired")
+        assert st == 200
+        assert "x-amz-replication-status" not in {k.lower() for k in hdrs}
+        time.sleep(1.0)
+        assert tcli.request("HEAD", "/qcdst/unwired")[0] == 404
+    finally:
+        tsrv.shutdown()
+        for pool in dst.pools:
+            for es in pool.sets:
+                es.close()
+
+
+def test_object_lock_default_through_one_node_governs_the_other(
+        configs_cluster):
+    """Node 2 has read the bucket's object-lock config as absent; a
+    default retention set through node 1 reaches node 2's next PUT, so
+    node 2 refuses to delete the protected object."""
+    ports = configs_cluster[0]
+    c1, c2 = _clients(ports)
+    c1.make_bucket("qcl")
+    c2.put_object("qcl", "k", b"unprotected")
+    lock = (b"<ObjectLockConfiguration><ObjectLockEnabled>Enabled"
+            b"</ObjectLockEnabled><Rule><DefaultRetention><Mode>GOVERNANCE"
+            b"</Mode><Days>1</Days></DefaultRetention></Rule>"
+            b"</ObjectLockConfiguration>")
+    assert c1.request("PUT", "/qcl", query={"object-lock": ""},
+                      body=lock)[0] == 200
+    c2.put_object("qcl", "k", b"protected")
+    st, _, body = c2.request("DELETE", "/qcl/k")
+    assert st == 400 and b"ObjectLocked" in body, (st, body)
+    assert c1.get_object("qcl", "k") == b"protected"
+
+
+def test_config_and_notification_rules_through_one_node_reach_the_other(
+        configs_cluster):
+    """A `?notification` rule stored through node 1 routes node 2's next
+    PUT to the webhook, and `config set storage_class` through node 1
+    governs node 2's next STANDARD PUT (both broadcast: bucket-metadata
+    and config)."""
+    ports, recv, tmp = configs_cluster
+    c1, c2 = _clients(ports)
+    c1.make_bucket("qcn")
+    c2.put_object("qcn", "before", b"no rule yet")
+    rules = (b"<NotificationConfiguration><QueueConfiguration><Queue>"
+             b"arn:minio:sqs::1:webhook</Queue><Event>s3:ObjectCreated:*"
+             b"</Event></QueueConfiguration></NotificationConfiguration>")
+    assert c1.request("PUT", "/qcn", query={"notification": ""},
+                      body=rules)[0] == 200
+    c2.put_object("qcn", "after", b"routed")
+    keys = [(r["s3"]["bucket"]["name"], r["s3"]["object"]["key"])
+            for r in recv.records]
+    assert keys == [("qcn", "after")], keys
+    st, doc = c1.admin("POST", "config", doc={
+        "subsys": "storage_class", "key": "standard", "value": "EC:3"})
+    assert (st, doc) == (200, {"ok": True})
+    st, _, _ = c2.request("PUT", "/qcn/sc", body=b"s" * 200_000,
+                          headers={"x-amz-storage-class": "STANDARD"})
+    assert st == 200
+    st, doc = c2.admin("GET", "config", {"subsys": "storage_class"})
+    assert doc["storage_class"]["standard"] == "EC:3"
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+    metas = glob.glob(f"{tmp}/n*/d*/qcn/sc/xl.meta")
+    assert len(metas) == 8
+    parity = {XLMeta.from_bytes(open(p, "rb").read()).latest()
+              .erasure.parity_blocks for p in metas}
+    assert parity == {3}, parity

@@ -584,3 +584,48 @@ def test_retention_does_not_hold_a_version_in_a_drain_or_a_heal(
     assert os.path.exists(os.path.join(es.drives[0].root, "worm", "doc",
                                        "xl.meta"))
     assert bytes(pools.get_object("worm", "doc")[1]) == blob(12, 200_000)
+
+
+def test_a_reap_cut_short_between_drives_resumes(tmp_path, closing,
+                                                 monkeypatch):
+    """The mover killed between the drives of a source version's reap
+    (after the destination's copy was verified) leaves that version on
+    1 of 4 drives, below read quorum: the resumed drain removes the
+    remnant, whose copy is on pool 1, and completes.  Before, the
+    resume's version listing failed the drain on ErrErasureReadQuorum
+    (the worker-pool lifecycle test met it under load)."""
+    class FakeKill(BaseException):
+        pass
+
+    pools = two_pools(PORT, tmp_path, closing=closing)
+    load(PORT, pools, monkeypatch)
+    force_free(pools, [1000, 10 ** 9])
+    real = decom.Decommissioner._reap_source
+
+    def cut_reap(self, bucket, obj, vid):
+        if obj != "dir/deep":
+            return real(self, bucket, obj, vid)
+        for d in self._src().set_for(obj).drives[:3]:
+            d.delete_version(bucket, obj, vid)
+        raise FakeKill(obj)
+    monkeypatch.setattr(decom.Decommissioner, "_reap_source", cut_reap)
+    with pytest.raises(FakeKill):
+        decom.Decommissioner(pools, 0).run_sync()
+    monkeypatch.undo()
+    close(pools)
+    again = two_pools(PORT, tmp_path, closing=closing)
+    force_free(again, [1000, 10 ** 9])
+    src = again.pools[0].set_for("dir/deep")
+    left = [d for d in src.drives if os.path.exists(os.path.join(
+        d.root, "b", "dir", "deep", "xl.meta"))]
+    assert len(left) == 1
+    (d,) = decom.resume_decommissions(again, autostart=False)
+    d.run_sync()
+    assert d.status()["state"] == "complete", d.status()
+    assert pool_names(again.pools[0], "b") == set()
+    assert not os.path.exists(os.path.join(left[0].root, "b", "dir", "deep",
+                                           "xl.meta"))
+    vid = "44444444-4444-4444-8444-444444444444"
+    fi, data = again.get_object("b", "dir/deep", version_id=vid)
+    assert bytes(data) == blob(5, 70_000)
+    assert fi.mod_time_ns == 1_700_000_005 * 10**9

@@ -128,6 +128,35 @@ def test_adopt_reads_relocations_and_undrains_a_cancel(tmp_path):
         pools.close()
 
 
+def test_a_lost_topology_save_does_not_undrain_the_requester(tmp_path):
+    """Two object layers over the same drives play two workers.  The one
+    that records a drain request writes pool-topology.json best effort;
+    when that write is lost (a full disk), its next look at the topology
+    keeps the pool out of placement, and the other worker adopts the
+    drain from the fsynced journal; a cancel recorded later brings the
+    pool back in both.  Before, the requester took the pool back into
+    placement from the stale file (the worker-pool lifecycle test lost a
+    placement so under load)."""
+    from minio_tpu_torch.background import decom
+    a = ServerPools([port_pool(tmp_path), port_pool(tmp_path, "b")])
+    b = ServerPools([port_pool(tmp_path), port_pool(tmp_path, "b")])
+    try:
+        topo.save_topology(a)                       # draining []
+        st = decom.request(b, 0, "start")           # its save is lost
+        assert st["state"] == "draining" and b.placement_pools() == [1]
+        topo.adopt_topology(b)
+        assert b.draining == {0} and b.placement_pools() == [1]
+        topo.adopt_topology(a)
+        assert a.draining == {0} and a.placement_pools() == [1]
+        decom.request(b, 0, "cancel")
+        assert b.draining == set()
+        topo.adopt_topology(a)
+        assert a.draining == set() and a.placement_pools() == [0, 1]
+    finally:
+        a.close()
+        b.close()
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -497,10 +497,12 @@ class TestPortOnly:
             for method, path, query, headers, item in (
                     ("PUT", "/npx/x", None,
                      {"x-amz-server-side-encryption": "AES256"}, "10"),
-                    # Lifecycle, replication, object lock and
-                    # retention are served (tests/test_torch_lifecycle.py,
-                    # test_torch_object_lock.py, test_torch_replication.py).
-                    ("GET", "/npx", {"notification": ""}, None, "10"),
+                    # Lifecycle, replication, object lock, retention
+                    # and notification configs are served
+                    # (tests/test_torch_lifecycle.py,
+                    # test_torch_object_lock.py, test_torch_replication.py,
+                    # test_torch_notify.py).
+                    ("GET", "/npx", {"encryption": ""}, None, "10"),
                     ("POST", "/npx/o", {"select": ""}, None, "10"),
                     ("POST", "/npx/o", {"restore": ""}, None, "10"),
                     ("GET", "/minio/admin/v3/bandwidth", None, None, "10"),
@@ -509,7 +511,9 @@ class TestPortOnly:
                     # node.
                     ("POST", "/minio/admin/v3/service",
                      {"action": "restart"}, None, "10"),
-                    ("GET", "/minio/admin/v3/config", None, None, "10")):
+                    # The server configuration is served
+                    # (tests/test_torch_config.py).
+                    ("GET", "/minio/admin/v3/profile", None, None, "10")):
                 st, _, body = cli.request(method, path, query=query,
                                           headers=headers)
                 assert st == 501, (method, path, body)

@@ -993,6 +993,15 @@ def test_pool_lifecycle_across_workers(tmp_path):
         return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
                         "pooladmin-secret", timeout=60)
 
+    def folded():
+        """Every worker has folded the latest pool topology in (the
+        pools and the draining set a pool/add or a drain action wrote):
+        fresh connections alone may all reach one worker."""
+        m = _metrics(port)
+        return m["mtpu_topology_generation"] > 0 and all(
+            m[f'mtpu_worker_topology_generation{{worker="{w}"}}']
+            == m["mtpu_topology_generation"] for w in (0, 1))
+
     def respawned(w, pid):
         m = _metrics(port)
         return (int(m[f'mtpu_worker_pid{{worker="{w}"}}']) != pid
@@ -1032,9 +1041,9 @@ def test_pool_lifecycle_across_workers(tmp_path):
         st, doc = cli.admin("POST", "pool/add",
                             doc={"drives": os.path.join(root, "e{1...4}")})
         assert (st, doc) == (200, {"pool": 1, "placement": [0, 1]})
-        _wait(lambda: all(len(fresh().admin("GET", "pools")[1]["pools"])
-                          == 2 for _ in range(8)), "both workers' pools",
-              timeout=30, proc=proc)
+        _wait(folded, "both workers' pools", timeout=30, proc=proc)
+        assert all(len(fresh().admin("GET", "pools")[1]["pools"]) == 2
+                   for _ in range(8))
 
         st, doc = _until_200(fresh, lambda c: c.admin(
             "POST", "pool/decommission", {"pool": "0", "action": "start"}),
@@ -1043,9 +1052,9 @@ def test_pool_lifecycle_across_workers(tmp_path):
         # Each worker takes pool 0 out of placement at its next look at
         # the topology generation; then new PUTs, through both workers,
         # land on pool 1.
-        _wait(lambda: all(fresh().admin("GET", "pools")[1]["placement"]
-                          == [1] for _ in range(8)), "both placements",
-              timeout=30, proc=proc)
+        _wait(folded, "both placements", timeout=30, proc=proc)
+        assert all(fresh().admin("GET", "pools")[1]["placement"] == [1]
+                   for _ in range(8))
         for i in range(4):
             key = f"n{i}"
             bodies[key] = np.random.default_rng(80 + i).bytes(30_000 + i)
@@ -1106,17 +1115,28 @@ def test_pool_lifecycle_across_workers(tmp_path):
               timeout=30, proc=proc)
         _until_200(fresh, lambda c: c.request(
             "PUT", "/only1/b", body=b"b" * 7000), "a PUT into only1")
-        # Two cycles after the PUT (a clean bucket is rescanned only on
-        # every 16th).
-        stamps = {usage()[1]}
+        t_put = time.time()
+        # A cycle that ended after another that ended after the PUT began
+        # after the PUT: it counts the PUT (a clean bucket is rescanned
+        # only on every 16th cycle, a marked one on the next).  Stamps are
+        # taken in order: worker 1 answers from usage up to a second old.
+        stamps = []
 
         def two_cycles():
-            stamps.add(usage()[1])
-            return len(stamps) >= 3
-        _wait(two_cycles, "two scan cycles", timeout=30, proc=proc)
-        # Worker 1 reads the persisted usage at most once a second.
-        _wait(lambda: usage()[0] == 2, "the PUT in worker 0's scan",
-              timeout=3, proc=proc)
+            at = usage()[1]
+            if at > t_put and (not stamps or at > stamps[-1]):
+                stamps.append(at)
+            return len(stamps) >= 2
+        _wait(two_cycles, "two scan cycles after the PUT", timeout=30,
+              proc=proc)
+        seen = {}
+
+        def that_cycle():
+            seen["usage"] = usage()
+            return seen["usage"][1] >= stamps[-1]
+        _wait(that_cycle, "a usage read of that cycle", timeout=30,
+              proc=proc)
+        assert seen["usage"][0] == 2, seen
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:
@@ -1485,3 +1505,167 @@ def test_undeliverable_answer_frees_its_slot_once(monkeypatch):
     finally:
         rc.close()
         co.close()
+
+
+# -- notifications and the server config across workers -----------------------
+
+#: A sitecustomize hook for the notification test: worker 1 declines the
+#: config writes (a `?notification` PUT, an admin config POST) and the
+#: PUTs into "only0"; worker 0 declines the PUTs into "only1".  The retry
+#: loop runs every 0.1 s.
+_NOTIFY_HOOK = _LIFECYCLE_HOOK.split("def _fix_handlers")[0].replace(
+    """import minio_tpu_torch.background.decom as dc
+
+_moved = dc.Decommissioner._record_moved
+
+def _slow(self, *a, **kw):
+    time.sleep(0.5)
+    return _moved(self, *a, **kw)
+dc.Decommissioner._record_moved = _slow
+""", """import minio_tpu_torch.bucket.notify as nt
+nt.RETRY_INTERVAL_S = 0.1
+""") + '''
+def _fix_handlers(m):
+    put = m.S3Handlers.put_object
+    cfg = m.S3Handlers.put_bucket_config
+
+    def guarded(self, bucket, key, *a, **kw):
+        me = os.environ.get("MTPU_WORKER_ID")
+        if (bucket, me) in (("only1", "0"), ("only0", "1")):
+            raise _refuse()
+        return put(self, bucket, key, *a, **kw)
+
+    def guarded_cfg(self, bucket, sub, body):
+        if os.environ.get("MTPU_WORKER_ID") == "1":
+            raise _refuse()
+        return cfg(self, bucket, sub, body)
+    m.S3Handlers.put_object = guarded
+    m.S3Handlers.put_bucket_config = guarded_cfg
+
+
+def _fix_server(m):
+    conf = m.S3Server._admin_config
+
+    def guarded(self, method, query, body):
+        if method == "POST" and self.worker_id == 1:
+            raise _refuse()
+        return conf(self, method, query, body)
+    m.S3Server._admin_config = guarded
+
+
+_patch("minio_tpu_torch.server.handlers", _fix_handlers)
+_patch("minio_tpu_torch.server.server", _fix_server)
+'''
+
+
+def test_notifications_and_config_across_workers(tmp_path):
+    """A `?notification` rule and a `config set storage_class` stored
+    through worker 0 govern PUTs worker 1 serves (the JAX pool sets them
+    in the serving worker alone).  Each worker parks in a store
+    directory of its own while the webhook is down: neither loses or
+    re-sends the other's events, and worker 1's respawn delivers what
+    its predecessor parked (the JAX pool's workers share one directory:
+    each loads, re-sends and unlinks the others' events)."""
+    from test_torch_notify import Receiver
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+    recv = Receiver()
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(_NOTIFY_HOOK)
+    root = str(tmp_path)
+    store = tmp_path / "store"
+    proc, port = _boot(root, 2, {
+        "MTPU_RESPAWN_DELAY_S": "0.2", "MTPU_SCANNER": "0",
+        "MTPU_NOTIFY_WEBHOOK_ENABLE": "on",
+        "MTPU_NOTIFY_WEBHOOK_ENDPOINT": recv.url,
+        "MTPU_NOTIFY_STORE_DIR": str(store)}, pythonpath=str(hook))
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=60)
+
+    def reloaded():
+        m = _metrics(port)
+        return m["mtpu_config_generation"] > 0 and all(
+            m[f'mtpu_worker_config_generation{{worker="{w}"}}']
+            == m["mtpu_config_generation"] for w in (0, 1))
+
+    def put(bucket, key, body, headers=None):
+        return _until_200(fresh, lambda c: c.request(
+            "PUT", f"/{bucket}/{key}", body=body, headers=headers),
+            f"{bucket}/{key}")
+
+    rules = (b"<NotificationConfiguration><QueueConfiguration><Queue>"
+             b"arn:minio:sqs::1:webhook</Queue><Event>s3:ObjectCreated:*"
+             b"</Event></QueueConfiguration></NotificationConfiguration>")
+    try:
+        _wait(lambda: all(_metrics(port).get(
+            f'mtpu_worker_ready{{worker="{w}"}}') == 1 for w in (0, 1)),
+            "both workers", timeout=90, proc=proc)
+        for b in ("only0", "only1"):
+            fresh().make_bucket(b)
+            put(b, "before", b"no rule yet")        # both cache absences
+        for b in ("only0", "only1"):
+            _until_200(fresh, lambda c, b=b: c.request(
+                "PUT", f"/{b}", query={"notification": ""}, body=rules),
+                f"the rules of {b}")
+        _wait(reloaded, "both workers' reload", timeout=30, proc=proc)
+        put("only1", "routed", b"served by worker 1")
+        assert [r["s3"]["object"]["key"] for r in recv.records] == \
+            ["routed"]
+        _until_200(fresh, lambda c: c.admin("POST", "config", doc={
+            "subsys": "storage_class", "key": "standard",
+            "value": "EC:1"}), "the config set")
+        _wait(reloaded, "both workers' reload", timeout=30, proc=proc)
+        put("only1", "sc", b"s" * 200_000,
+            {"x-amz-storage-class": "STANDARD"})
+        raw = open(os.path.join(root, "d1", "only1", "sc", "xl.meta"),
+                   "rb").read()
+        assert XLMeta.from_bytes(raw).latest().erasure.parity_blocks == 1
+
+        # The outage: each worker parks its own events.
+        recv.up = False
+        keys = {w: [f"w{w}-{i}" for i in range(4)] for w in (0, 1)}
+        for w in (0, 1):
+            for k in keys[w]:
+                put(f"only{w}", k, k.encode())
+        for w in (0, 1):
+            assert len(os.listdir(store / "webhook" / f"w{w}")) == 4, w
+        m = _settled_metrics(port)
+        for w in (0, 1):
+            lab = f'{{worker="{w}"}}'
+            assert m[f"mtpu_worker_notify_backlog_events{lab}"] == 4
+            assert m[f"mtpu_worker_notify_events_parked_total{lab}"] == 4
+        pid1 = int(m['mtpu_worker_pid{worker="1"}'])
+        os.kill(pid1, signal.SIGKILL)
+        _wait(lambda: int(_metrics(port)['mtpu_worker_pid{worker="1"}'])
+              != pid1 and _metrics(port)['mtpu_worker_ready{worker="1"}']
+              == 1, "worker 1's respawn", timeout=90, proc=proc)
+        recv.up = True
+        want = sorted(keys[0] + keys[1])
+
+        def delivered():
+            return sorted(r["s3"]["object"]["key"] for r in recv.records
+                          if r["s3"]["object"]["key"].startswith("w"))
+        _wait(lambda: len(delivered()) >= 8, "the parked events",
+              timeout=30, proc=proc)
+        time.sleep(1.0)                # a second copy would come now
+        assert delivered() == want
+        for w in (0, 1):
+            assert os.listdir(store / "webhook" / f"w{w}") == [], w
+        m = _settled_metrics(port)
+        assert m['mtpu_worker_notify_backlog_events{worker="0"}'] == 0
+        assert m['mtpu_worker_notify_backlog_events{worker="1"}'] == 0
+        assert m['mtpu_worker_notify_events_retried_total{worker="0"}'] \
+            == 4
+        assert m['mtpu_worker_notify_events_retried_total{worker="1"}'] \
+            == 4
+        assert "notification targets: arn:minio:sqs::1:webhook [worker " \
+            "0]" in _log(root)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        recv.close()

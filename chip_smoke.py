@@ -57,7 +57,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    d. multipart: three parts under mxh256, highwayhash256S and mxh256,
       completed, read whole, ranged across a part boundary and degraded,
       then healed and read again;
-   e. drive heal: a formatted set holding 4 mxh256 objects of 64 MiB,
+   e. drive heal: a formatted set holding 2 mxh256 objects of 64 MiB,
       4 HighwayHash objects of 64 MiB + 300 KiB + 5 B, 32 inline
       objects, a multipart object and a versioned object with a delete
       marker (a versioned DELETE); a data-shard drive wiped whole; heal_format, heal_drive
@@ -70,8 +70,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    f. object layer: one ServerPools of 4 EC:8+4 sets x 12 drives
       (MinIO's MINIO_ERASURE_SET_DRIVE_COUNT=12, STANDARD=EC:4), a
       versioned bucket of 256 objects of 1-100 KiB, 24 of 4 MiB + 1 B
-      and 8 of 64 MiB (2 HighwayHash), about 0.9 GB (the depth cut for
-      phases l and m): PUT with SipHash
+      and 4 of 64 MiB (2 HighwayHash), about 0.6 GB (the depth cut for
+      phases l, m and t): PUT with SipHash
       placement checked, second versions, delete markers, a version
       deleted by id, metadata updates, 1000-key pages listed cold and
       warm and after a PUT, version histories, GET of every live object
@@ -82,8 +82,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       ErasureSet alone, for what the layers add.
    g. the S3 server: an in-process S3Server on loopback TCP over the
       deployment of f, driven by the port's S3Client signing SigV4: a
-      versioned bucket, 8 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
-      PUT from 1 and 4 clients (2 highwayhash256S), one of 64 MiB +
+      versioned bucket, 4 objects of 64 MiB by streamed UNSIGNED-PAYLOAD
+      PUT from 1 and 4 clients (1 highwayhash256S), one of 64 MiB +
       300 KiB + 5 B by signed aws-chunked PUT, 128 of 1-100 KiB by
       signed-payload PUT from 1 and 8 clients, a multipart upload of
       64 MiB + 64 MiB + 5 MiB + 7 B; GETs of every object, ranged GETs,
@@ -101,7 +101,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       (ops/coalesce.py) and its pinned, double-buffered copies, with
       MTPU_COALESCE=0 and with MTPU_H2D_PIPELINE=0: 16 clients x 2
       objects of 1 MiB PUT and GET, 4 clients x 2 HighwayHash objects,
-      four 64 MiB objects PUT and GET from 1 and from 4 clients and read
+      two 64 MiB objects PUT and GET from 1 and from 2 clients and read
       degraded with two drives of every set away, and a 16 MiB object
       read twice, the second read a device-shard-cache hit that copies 0
       bytes to the card by the ledger (ops/devcache.py).  Bodies equal,
@@ -111,7 +111,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       dispatch, the lanes' time split, bytes copied per byte served.
    i. the front door's identity planes: an S3Server with an IAMSys and
       an HS256 OIDC provider over one EC:8+4 set of 12 drives; root
-      creates 125 users in 5 groups, 12 custom policies scoped to a
+      creates 64 users in 5 groups, 12 custom policies scoped to a
       bucket and prefix and 12 service accounts over the admin API
       (each IAM object an inline PUT on the card); a SigV2-header PUT of
       64 MiB read back by a SigV2 presigned GET and by SigV4; a readonly
@@ -129,7 +129,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       ms to issue STS credentials.
    j. the host planes (phase_host_planes): the standalone boot on
       drives seeded with a dead process's staging (self-tests' ms and
-      launches, the sweep's counts); 8 streamed 64 MiB PUTs (2
+      launches, the sweep's counts); 4 streamed 64 MiB PUTs (1
       HighwayHash) on one EC:8+4 set from 1 and 4 clients with
       zero-copy on and MTPU_ZEROCOPY=0 (GB/s, part files equal across
       modes, MD5 updates in flight at once); get_object and
@@ -147,7 +147,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       joined the run), on one EC:8+4 set of 12 drives on
       /dev/shm; client processes that load no torch PUT and GET one
       64 MiB object each from 1 and 8 clients, 8 objects of 1 MiB
-      each from 16, and (the turn with workers, highwayhash256S) 2 of
+      each from 16, and (the turn with workers, highwayhash256S) 1 of
       64 MiB each from 4.  GB/s and operations/s per step; with workers
       the owner's dispatches and items, the arena's waits and timeouts,
       the fallbacks, the lanes' pack ms per MiB (beside one process's)
@@ -174,7 +174,7 @@ Phases, each printing its own lines; any failure exits non-zero:
       key warm in every worker read after a PUT of a new version (the
       new bytes from every worker), and GETs with one drive away (GF
       rebuilds exact, nothing filled); then in this process an EC:1+1
-      set of 2 drives behind an S3Server: 4 x 64 MiB whole GETs from 1
+      set of 2 drives behind an S3Server: 2 x 64 MiB whole GETs from 1
       and 4 clients with MTPU_ZEROCOPY=1 (a verified sendfile plan: its
       device items exact, one sendfile per GET) against =0, bodies
       equal.
@@ -268,13 +268,35 @@ Phases, each printing its own lines; any failure exits non-zero:
       name, key, size, ETag and version id; a rule changed through one
       worker fired through the other; the webhook down for 16 PUTs and
       again while the worker holding parked events is SIGKILLed (none
-      lost, kill-step duplicates counted); ListenNotification on an
-      in-process server; the webhook's ms per PUT against PUTs into a
-      bucket without rules; items exact per step, none for a
-      notification.
-   Phases a-g and i-s run with MTPU_DEVCACHE=0: their counts assume
+      lost, kill-step duplicates counted); per key, a PUT's record
+      before its DELETE's at both targets: both while the webhook is
+      down, the DELETE after its return but before the retry pass, and
+      across the SIGKILL (each pair on one connection, so one worker's
+      store holds both); ListenNotification on an in-process server;
+      the webhook's ms per PUT against PUTs into a bucket without rules;
+      items exact per step, none for a notification.
+   t. the tier (phase_tier), as MinIO documents it (`mc admin tier add
+      minio WARM`, `mc ilm rule add --transition-days N
+      --transition-tier WARM`): the hot side in this process on config
+      2's set, a warm port server (`python -m minio_tpu_torch.server`,
+      EC:4+2 on 6 drives) reached over loopback by S3TierBackend, the
+      tier added through the admin `tier` endpoint (its credentials
+      sealed by the KMS), the rule by PUT ?lifecycle on a versioned
+      bucket; 2 x 64 MiB, 64 objects of 1-100 KiB and one
+      highwayhash256S object of 64 MiB from 4 client threads; one
+      scanner cycle with the clock past the rule's days moves them all
+      (one source read through the GF decode with two data shards
+      away); full and ranged GETs through every stub byte-exact, half
+      with a warm drive away; HEADs with the tier's storage class; a
+      temporary restore (x-amz-restore) re-expired by a cycle two days
+      on; a permanent restore; DELETEs of stubs by version freeing their
+      tier objects; a transition in a subprocess dying at
+      ilm.post_copy, its orphan reaped by the next TierManager's replay.
+      GF, hh256 and mxh256 items exact per step in this process and in
+      the warm server (its metrics).
+   Phases a-g and i-t run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
-   frame.  Phases a-i and k-s run with MTPU_HEDGE=0 and the FileInfo
+   frame.  Phases a-i and k-t run with MTPU_HEDGE=0 and the FileInfo
    cache's TTL at 0: a hedge that fires turns a slow healthy read into a
    rebuild, and a cache hit serves an inline object from metadata
    elected before drives were taken away or wiped; their counts allow
@@ -355,8 +377,9 @@ HH = "highwayhash256S"
 # bucket a; 32 inline objects, a multipart object of DRIVE_HEAL_PARTS and
 # an object with DRIVE_HEAL_VERSIONS and a delete marker in bucket b.
 DRIVE_HEAL_OBJECT = OBJECT_BYTES
-# 16 before phases 5o and 5p joined the run, 8 before phase 5q.
-DRIVE_HEAL_MXH = 4
+# 16 before phases 5o and 5p joined the run, 8 before phase 5q, 4
+# before 5t.
+DRIVE_HEAL_MXH = 2
 DRIVE_HEAL_TAIL_OBJECT = TAIL_OBJECT_BYTES
 DRIVE_HEAL_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
@@ -371,12 +394,13 @@ DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
 # joined it) and its small ones to 512 (1024 before phase 5n joined it)
 # to keep the whole run within its time.
 LAYER_SETS, LAYER_SET_DRIVES = 4, 12
-# LAYER_SMALL 512 before phase 5q joined the run.
-LAYER_SMALL, LAYER_SMALL_BYTES = 256, (1024, 100 * 1024)
-# LAYER_MID 96 before phases 5o and 5p joined the run, 48 before 5q.
-LAYER_MID, LAYER_MID_BYTES = 24, 4 * MIB + 1
-# LAYER_BIG 8 before phase 5r joined the run.
-LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 6, 2, OBJECT_BYTES
+# LAYER_SMALL 512 before phase 5q joined the run, 256 before 5t.
+LAYER_SMALL, LAYER_SMALL_BYTES = 128, (1024, 100 * 1024)
+# LAYER_MID 96 before phases 5o and 5p joined the run, 48 before 5q,
+# 24 before 5t.
+LAYER_MID, LAYER_MID_BYTES = 12, 4 * MIB + 1
+# LAYER_BIG 8 before phase 5r joined the run, 6 before 5t.
+LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 4, 2, OBJECT_BYTES
 # The S3 server on the card (phase 5g), over the deployment of 5f:
 # SERVER_BIG objects of SERVER_BIG_BYTES (SERVER_BIG_HH highwayhash256S),
 # one of SERVER_CHUNKED_BYTES by aws-chunked PUT, SERVER_SMALL of
@@ -388,11 +412,11 @@ LAYER_BIG, LAYER_BIG_HH, LAYER_BIG_BYTES = 6, 2, OBJECT_BYTES
 # client, before phase 5n joined it) to keep the whole run within its
 # time.
 SERVER_SETS = LAYER_SETS
-# SERVER_BIG 8 before phase 5r joined the run.
-SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 6, 2, OBJECT_BYTES
+# SERVER_BIG 8 before phase 5r joined the run; (6, 2) before 5t.
+SERVER_BIG, SERVER_BIG_HH, SERVER_BIG_BYTES = 4, 1, OBJECT_BYTES
 SERVER_CHUNKED_BYTES = TAIL_OBJECT_BYTES
-# (256, 32) before phase 5q joined the run.
-SERVER_SMALL, SERVER_SMALL_SERIAL = 128, 16
+# (256, 32) before phase 5q joined the run, (128, 16) before 5t.
+SERVER_SMALL, SERVER_SMALL_SERIAL = 64, 16
 SERVER_SMALL_BYTES = (1024, 100 * 1024)
 SERVER_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 SERVER_RANGE = (300 * 1024, MIB)
@@ -408,9 +432,11 @@ SERVER_RANGE = (300 * 1024, MIB)
 # half (8 before phase 5m joined the run) to keep the whole run within
 # its time.
 # DISPATCH_SMALL_PER 4 before phases 5o and 5p joined the run.
-DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 16, 2, MIB
+# DISPATCH_SMALL_CLIENTS 16 before phase 5t joined the run.
+DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 8, 2, MIB
 DISPATCH_HH_CLIENTS, DISPATCH_HH_PER = 4, 2
-DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 4, OBJECT_BYTES
+# DISPATCH_BIG_CLIENTS 4 before phase 5t joined the run.
+DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 2, OBJECT_BYTES
 DISPATCH_AWAY = (0, 1)
 DISPATCH_HIT_BYTES = 16 * MIB
 # The host planes (phase 5j) over BASELINE.json config 2's deployment:
@@ -420,7 +446,8 @@ DISPATCH_HIT_BYTES = 16 * MIB
 # thresholds of HOST_BREAKER_ENV.  The GET step's reads run under a hedge
 # delay pinned to HOST_GET_HEDGE_MS, above any of its reads, so that no
 # hedge fires there on a slow machine (its GF items are held at 0).
-HOST_OBJECTS, HOST_HH, HOST_BYTES, HOST_CLIENTS = 8, 2, OBJECT_BYTES, 4
+# HOST_OBJECTS 8 and HOST_HH 2 before phase 5t joined the run.
+HOST_OBJECTS, HOST_HH, HOST_BYTES, HOST_CLIENTS = 4, 1, OBJECT_BYTES, 4
 HOST_STALL_S, HOST_HEDGE_MS = 0.05, 10
 HOST_GET_HEDGE_MS = 10_000
 HOST_BREAKER_ENV = {"MTPU_BREAKER_ERRS": "2",
@@ -443,9 +470,12 @@ POOL_BIG = OBJECT_BYTES
 # (1, 4, 16) before phase 5n joined the run, (1, 16) before 5q, (1, 8)
 # before 5r, (1, 4) before 5s; POOL_SMALL_PER 8 before 5r, 4 before 5s.
 POOL_BIG_CLIENTS = (4,)
-POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 16, 2, MIB
-POOL_HH_CLIENTS, POOL_HH_PER = 4, 2
-POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
+# POOL_SMALL_PER 2, POOL_HH_PER 2, POOL_SMALL_CLIENTS 16 and
+# POOL_HH_CLIENTS 4 before 5t.
+POOL_SMALL_CLIENTS, POOL_SMALL_PER, POOL_SMALL_BYTES = 8, 1, MIB
+POOL_HH_CLIENTS, POOL_HH_PER = 2, 1
+# POOL_KILL_CLIENTS 4 before phase 5t joined the run.
+POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 2, 1, 0.15
 # Phase 5l, the GET side of the serving spine, over the same deployment
 # with the default 64 MiB hot tier: a hot set of SPINE_HOT (count, size)
 # objects that the tier holds, read by each of SPINE_CLIENTS client
@@ -457,8 +487,9 @@ POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_KILL_AFTER_S = 4, 1, 0.15
 # and SPINE_SENDFILE objects of 64 MiB on an EC:1+1 set of 2 drives read
 # from each of SPINE_SENDFILE_CLIENTS clients, sendfile against
 # MTPU_ZEROCOPY=0.
-# ((32, MIB), (6, 4 * MIB)) before phase 5r joined the run.
-SPINE_HOT = ((16, MIB), (6, 4 * MIB))
+# ((32, MIB), (6, 4 * MIB)) before phase 5r joined the run, ((16, MIB),
+# (6, 4 * MIB)) before 5t.
+SPINE_HOT = ((8, MIB), (3, 4 * MIB))
 SPINE_WORKERS = POOL_WORKERS
 SPINE_SMALL, SPINE_SF_BYTES = MIB, 4 * MIB
 # (1, 4, 16), and SPINE_SCAN 128, before phase 5n joined the run; (1, 16)
@@ -470,9 +501,11 @@ SPINE_STRIDE = 4
 # 64 before phase 5q joined the run, 32 before 5s.
 SPINE_SCAN = 16
 SPINE_SF_CLIENTS = 16
-# SPINE_HH 4, SPINE_DEG 8 and SPINE_SENDFILE_CLIENTS (1, 4) before 5s.
-SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 2, 4, 4
-SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (4,)
+# SPINE_HH 4, SPINE_DEG 8 and SPINE_SENDFILE_CLIENTS (1, 4) before 5s;
+# SPINE_HH 2 and SPINE_DEG 4 before 5t.
+SPINE_HH, SPINE_DEG, SPINE_STALE_ROUNDS = 1, 2, 4
+# SPINE_SENDFILE 4 before 5t.
+SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 2, (4,)
 # Phase 5m, the metadata plane of the PUT side, over BASELINE.json
 # config 2's deployment: META_CLIENTS client processes PUT META_PER
 # objects each, of sizes uniform in META_BYTES (inline: under the
@@ -488,10 +521,10 @@ SPINE_SENDFILE, SPINE_SENDFILE_CLIENTS = 4, (4,)
 # before 5r.
 META_CLIENTS, META_PER, META_BYTES = 16, 2, (4 * 1024, 64 * 1024)
 # META_ONE 32 and META_KILL_ACKS 200 before phase 5r joined the run,
-# META_ONE 16 before 5s.
-META_GET_STRIDE, META_ONE = 4, 8
-# META_KILL_ACKS 100 before 5s.
-META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 16, 32, 50
+# META_ONE 16 before 5s, 8 before 5t.
+META_GET_STRIDE, META_ONE = 4, 4
+# META_KILL_ACKS 100 before 5s; (16, 50) before 5t.
+META_KILL_CLIENTS, META_KILL_PER, META_KILL_ACKS = 8, 32, 25
 DISPATCH_MODES = (
     ("coalesced", {"MTPU_COALESCE": "1", "MTPU_H2D_PIPELINE": "1"}),
     ("direct", {"MTPU_COALESCE": "0", "MTPU_H2D_PIPELINE": "1"}),
@@ -2637,9 +2670,10 @@ def phase_dispatch(args, counts, card):
     its pinned, double-buffered copies; MTPU_COALESCE=0; and
     MTPU_H2D_PIPELINE=0).  Per mode and route, a fresh bucket: 16
     clients PUT DISPATCH_SMALL_PER objects of 1 MiB each, then GET them; 4 clients PUT and
-    GET 2 highwayhash256S objects each; four 64 MiB objects PUT from 1
-    client and again from 4, then read from 1 and from 4; degraded GETs
-    of them from 4 clients with two drives of every set away; one 16 MiB
+    GET 2 highwayhash256S objects each; DISPATCH_BIG_CLIENTS 64 MiB
+    objects PUT from 1 client and again from DISPATCH_BIG_CLIENTS, then
+    read from 1 and from DISPATCH_BIG_CLIENTS; degraded GETs of them
+    from DISPATCH_BIG_CLIENTS clients with two drives of every set away; one 16 MiB
     object PUT and read twice, the second read a device-cache hit that
     copies 0 bytes to the card by the ledger.  Every GET round starts
     from an empty device cache.  Every body equals what was PUT; the
@@ -2894,7 +2928,8 @@ def phase_dispatch(args, counts, card):
 # whole run within its time.
 # (500, 10, 25, 50) before phases 5o and 5p joined the run.
 # 250 users and 25 service accounts before phase 5q joined the run.
-IDENTITY_USERS, IDENTITY_GROUPS = 125, 5
+# IDENTITY_USERS 125 before phase 5t joined the run.
+IDENTITY_USERS, IDENTITY_GROUPS = 64, 5
 IDENTITY_POLICIES, IDENTITY_SVC = 12, 12
 IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
 IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 224, 64 * 1024
@@ -3406,6 +3441,9 @@ def phase_host_planes(args, counts, card):
     root = tempfile.mkdtemp(prefix="chip_smoke-host-", dir="/dev/shm")
     rng = np.random.default_rng(args.seed + 11)
     bodies = {f"o{i}": rng.bytes(HOST_BYTES) for i in range(HOST_OBJECTS)}
+    # Two mxh256 objects the later steps single out (the highwayhash256S
+    # ones come first): the hedged read's, and the body of the MRF step.
+    hedge_key, mrf_key = (f"o{HOST_OBJECTS - 2}", f"o{HOST_OBJECTS - 1}")
     hh = set(list(bodies)[:HOST_HH])
     sets = []
 
@@ -3533,8 +3571,8 @@ def phase_host_planes(args, counts, card):
         for label, ttl in (("cache", es._FI_CACHE_TTL), ("bypassed", 0.0)):
             es._FI_CACHE_TTL = ttl
             n0 = es_mod.stats()["meta_read_requests"]
-            es.head_object(bucket, "o3")
-            es.get_object(bucket, "o3")
+            es.head_object(bucket, mrf_key)
+            es.get_object(bucket, mrf_key)
             elections[label] = es_mod.stats()["meta_read_requests"] - n0
         del es._FI_CACHE_TTL
         if elections != {"cache": 1, "bypassed": 2}:
@@ -3548,7 +3586,7 @@ def phase_host_planes(args, counts, card):
               f"card {card}")
 
         # 4. Hedged read over a stalled data-shard drive.
-        key = "o5"
+        key = hedge_key
         fi = done[key]
         order = Q.shuffle_by_distribution(list(range(12)),
                                           fi.erasure.distribution)
@@ -3681,10 +3719,10 @@ def phase_host_planes(args, counts, card):
                 delattr(inner, name)
             l0, i0 = counts.read(), counts.items()
             fi = wes.put_object("mrf", "o", streams.BytesReader(
-                bodies["o6"]), **ident)
+                bodies[mrf_key]), **ident)
             got_l, items = delta(l0, i0)
             _check_launches("host planes breaker PUT", got_l, items,
-                            want_for({"o6": _put_calls(HOST_BYTES)}, 1),
+                            want_for({mrf_key: _put_calls(HOST_BYTES)}, 1),
                             held=("gf_matmul", "hh256", "mxh256"))
             upgraded = wes.drives[0].read_version("mrf", "o").metadata.get(
                 "x-mtpu-internal-erasure-upgraded")     # from its xl.meta
@@ -3693,7 +3731,7 @@ def phase_host_planes(args, counts, card):
                 raise SystemExit(f"host planes: breaker PUT parity "
                                  f"{fi.erasure.parity_blocks}, upgraded "
                                  f"{upgraded}, MRF {wes.mrf.pending()}")
-            twin.put_object("mrf", "o", bodies["o6"], parity=5, metadata={
+            twin.put_object("mrf", "o", bodies[mrf_key], parity=5, metadata={
                 "x-mtpu-internal-erasure-upgraded": "1-offline"}, **ident)
             if not victim.probe_now():
                 raise SystemExit("host planes: probe of the restored drive")
@@ -4169,18 +4207,20 @@ POOL_QOS: list = []
 
 
 class _Pool:
-    """`python -m minio_tpu_torch.server` over 12 drives under `root`
-    with MTPU_WORKERS=`workers`, booted as a subprocess (fork and exec);
-    `metrics()` reads the pool's families when workers > 0."""
+    """`python -m minio_tpu_torch.server` over `drives` (12) drives under
+    `root` with MTPU_WORKERS=`workers`, booted as a subprocess (fork and
+    exec); `metrics()` reads the pool's families when workers > 0."""
 
     def __init__(self, root: str, workers: int, algo: str = "mxh256",
-                 env: dict | None = None):
+                 env: dict | None = None, drives: int = 12):
         self.root, self.workers = root, workers
         self.port = _free_port()
+        extra = env or {}
         env = dict(os.environ, MTPU_ROOT_USER="pooladmin",
                    MTPU_ROOT_PASSWORD="pooladmin-secret",
                    MTPU_STORAGE_CLASS_STANDARD="EC:4",
-                   MTPU_WORKERS=str(workers), **(env or {}))
+                   MTPU_WORKERS=str(workers))
+        env.update(extra)
         env.pop("MTPU_IPC_DISPATCH", None)
         env.pop("MTPU_BITROT_ALGO", None)
         if algo != "mxh256":
@@ -4193,7 +4233,8 @@ class _Pool:
         with open(self.log, "w") as out:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "minio_tpu_torch.server", "--drives",
-                 os.path.join(root, "b{1...12}"), "--port", str(self.port)],
+                 os.path.join(root, f"b{{1...{drives}}}"), "--port",
+                 str(self.port)],
                 cwd=here, env=env, stdout=out, stderr=subprocess.STDOUT)
         deadline = time.monotonic() + 240
         while not self._ready():
@@ -5617,7 +5658,8 @@ ADMISSION_CLASS = {"gold": "premium", "std": "standard",
                    "beff": "best-effort"}
 ADMISSION_BYTES = 256 * 1024
 # 6.0 before phase 5r joined the run.
-ADMISSION_LEG_S = 4.0
+# ADMISSION_LEG_S 4.0 before phase 5t joined the run.
+ADMISSION_LEG_S = 3.0
 #: the pressure EMA's three half-lives between legs on one boot
 ADMISSION_DECAY_S = 6.0
 #: clients per tenant: the capacity leg, and the overload and collapse
@@ -5629,7 +5671,8 @@ ADMISSION_OVERLOAD = {"gold": ADMISSION_SLOTS, "std": ADMISSION_SLOTS,
 ADMISSION_WARM = 8
 ADMISSION_KEYS = 8
 #: objects the heal under pressure rebuilds on the wiped drive
-ADMISSION_HEAL_OBJECTS = 24
+# ADMISSION_HEAL_OBJECTS 24 before phase 5t joined the run.
+ADMISSION_HEAL_OBJECTS = 12
 ADMISSION_STALLED = 3
 
 
@@ -6523,10 +6566,12 @@ CLUSTER_DRIVES = 4
 #: 64 MiB objects per client process (one client a node)
 # 2 before phase 5s joined the run.
 CLUSTER_PER_CLIENT = 1
-CLUSTER_INLINE = 16
-CLUSTER_RACE_ROUNDS = 8
+# CLUSTER_INLINE 16 before phase 5t joined the run.
+CLUSTER_INLINE = 8
+# CLUSTER_RACE_ROUNDS 8 and CLUSTER_LOCKS 50 before phase 5t.
+CLUSTER_RACE_ROUNDS = 2
 CLUSTER_RACE_BYTES = 4 * MIB + 3
-CLUSTER_LOCKS = 50
+CLUSTER_LOCKS = 25
 #: the 5f figures (ServerPools in this process, 64 MiB objects) 5p prints
 #: its own beside
 ONE_PROCESS_GBPS: dict = {}
@@ -6951,11 +6996,13 @@ def phase_cluster(args, counts, card):
 # LIFE_DURING PUTs of LIFE_DURING_BYTES during the drain and its mover's
 # worker SIGKILLed once LIFE_KILL_AFTER versions moved.
 LIFE_BIG, LIFE_HH = 6, 2
-# LIFE_SMALL 128 before phase 5r joined the run, 64 before 5s.
-LIFE_SMALL, LIFE_SMALL_BYTES = 32, (1024, 100 * 1024)
+# LIFE_SMALL 128 before phase 5r joined the run, 64 before 5s, 32
+# before 5t.
+LIFE_SMALL, LIFE_SMALL_BYTES = 16, (1024, 100 * 1024)
 LIFE_HISTORY = 3
 LIFE_PARTS = (16 * MIB, 16 * MIB)
-LIFE_DURING, LIFE_DURING_BYTES = 4, 2 * MIB + 3
+# LIFE_DURING 4 before phase 5t joined the run.
+LIFE_DURING, LIFE_DURING_BYTES = 2, 2 * MIB + 3
 LIFE_WORKERS = 2
 LIFE_KILL_AFTER = 3
 LIFE_CLOCKS = ("bytes_per_sec", "eta_seconds", "started_at")
@@ -7538,11 +7585,14 @@ def phase_lifecycle(args, counts, card):
 #: small objects, one key's versions, the PUTs while the target is down,
 #: the client threads, the pool's workers, the kill step's objects and
 #: which copy of a process dies (MTPU_CRASH=repl.pre_copy:N).
-REPL_BIG = 3
+# REPL_BIG 3 before phase 5t joined the run.
+REPL_BIG = 2
 # REPL_SMALL 128 before phase 5s joined the run.
-REPL_SMALL, REPL_SMALL_BYTES = 64, (1024, 100 * 1024)
+# REPL_SMALL 64 before 5t.
+REPL_SMALL, REPL_SMALL_BYTES = 16, (1024, 100 * 1024)
 REPL_HISTORY = 3
-REPL_DEAD, REPL_DEAD_BYTES = 16, 256 * 1024
+# REPL_DEAD 16 before 5t.
+REPL_DEAD, REPL_DEAD_BYTES = 8, 256 * 1024
 REPL_CLIENTS = 4
 REPL_WORKERS = 2
 REPL_KILL_BYTES, REPL_KILL_MAX = 2 * MIB + 3, 6
@@ -8315,13 +8365,14 @@ def phase_protection(args, counts, card):
 # turns.
 NOTIFY_WORKERS, NOTIFY_CLIENTS = 2, 4
 NOTIFY_BIG = 3
-NOTIFY_SMALL, NOTIFY_SMALL_BYTES = 64, (1024, 100 * 1024)
+# NOTIFY_SMALL 64 and NOTIFY_COST 32 before phase 5t joined the run.
+NOTIFY_SMALL, NOTIFY_SMALL_BYTES = 32, (1024, 100 * 1024)
 NOTIFY_PARTS = (5 * MIB, 5 * MIB, 5 * MIB)
 NOTIFY_DELETES, NOTIFY_MARKERS = 16, 8
 NOTIFY_FIRE_MAX = 16
 NOTIFY_OUTAGE, NOTIFY_KILL, NOTIFY_EVENT_BYTES = 16, 8, 256 * 1024
 NOTIFY_LISTEN, NOTIFY_LISTEN_BYTES, NOTIFY_LISTEN_S = 8, 64 * 1024, 3.0
-NOTIFY_COST = 32
+NOTIFY_COST = 16
 NOTIFY_WEBHOOK, NOTIFY_NATS = ("arn:minio:sqs::1:webhook",
                                "arn:minio:sqs::1:nats")
 
@@ -8596,6 +8647,52 @@ def phase_notify(args, counts, card):
                    time.monotonic(), step_name, targets)
             return h
 
+        def sticky():
+            """A client whose requests share one keep-alive connection,
+            so one worker serves them all (each worker has its own store
+            and sender: the per-key order holds within a worker)."""
+            import http.client
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=600)
+            real_close, conn.close = conn.close, lambda: None
+            c = fresh()
+            c._connect = lambda: conn
+            return c, real_close
+
+        def put_then_delete(key, step_name, between=None):
+            """PUT then DELETE (a delete marker) of `key` on one
+            connection; `between()` runs in between."""
+            nonlocal seed
+            c, close = sticky()
+            try:
+                data = body(seed, NOTIFY_EVENT_BYTES)
+                seed += 1
+                st, h, _ = c.request("PUT", f"/evt/{key}", body=data)
+                if st != 200:
+                    raise SystemExit(f"notify: PUT {key} {st}")
+                expect("evt", key, "s3:ObjectCreated:Put",
+                       h.get("x-amz-version-id", ""), NOTIFY_EVENT_BYTES,
+                       h["ETag"].strip('"'), time.monotonic(), step_name)
+                if between is not None:
+                    between()
+                st, _, _ = c.request("DELETE", f"/evt/{key}")
+                if st != 204:
+                    raise SystemExit(f"notify: DELETE {key} {st}")
+                expect("evt", key, "s3:ObjectRemoved:DeleteMarkerCreated",
+                       "", 0, "", time.monotonic(), step_name)
+            finally:
+                close()
+
+        def wait_pairs(keys, what, timeout=120):
+            """Both records of each PUT-then-DELETE key at both targets."""
+            t0 = time.monotonic()
+            for who in (recv, nats):
+                while any(delivered(who, "evt", {k}).get(k, 0) < 2
+                          for k in keys):
+                    if time.monotonic() - t0 > timeout:
+                        raise SystemExit(f"notify: {what}")
+                    time.sleep(0.02)
+
         def delivered(who, bucket, keys):
             got = {}
             for _, r in who.records():
@@ -8798,10 +8895,15 @@ def phase_notify(args, counts, card):
         parked = per_worker(m, "mtpu_worker_notify_backlog_events")
         if sum(parked.values()) != NOTIFY_OUTAGE:
             raise SystemExit(f"notify: parked {parked} of {NOTIFY_OUTAGE}")
-        recv.start()
+        # The per-key order across the outage: a PUT and a DELETE of one
+        # key while the webhook is down, and a PUT parked before its
+        # return whose DELETE comes after it, before the retry pass.
+        put_then_delete("ord/down", "outage")
+        put_then_delete("ord/back", "outage", between=recv.start)
         drain_s = wait_for(recv, "evt", set(outage), "the outage's drain")
+        wait_pairs(("ord/down", "ord/back"), "the outage's ordered keys")
         c3 = step("webhook outage", c2,
-                  put_items(NOTIFY_EVENT_BYTES, NOTIFY_OUTAGE))
+                  put_items(NOTIFY_EVENT_BYTES, NOTIFY_OUTAGE + 2))
 
         # -- down again, and the worker holding parked events SIGKILLed ----
         recv.stop()
@@ -8810,8 +8912,14 @@ def phase_notify(args, counts, card):
             put("evt", key, NOTIFY_EVENT_BYTES, "kill")
         wait_for(nats, "evt", set(kill), "NATS before the kill")
         m = metrics()
+        before_ord = per_worker(m, "mtpu_worker_notify_backlog_events")
+        # The key whose order the SIGKILL must keep: its worker is the
+        # one killed.
+        put_then_delete("ord/kill", "kill")
+        m = metrics()
         parked_kill = per_worker(m, "mtpu_worker_notify_backlog_events")
-        victim = max(parked_kill, key=parked_kill.get)
+        victim = next(w for w in parked_kill
+                      if parked_kill[w] - before_ord[w] == 2)
         pid = int(m[f'mtpu_worker_pid{{worker="{victim}"}}'])
         os.kill(pid, signal.SIGKILL)
         t_kill = time.perf_counter()
@@ -8832,9 +8940,10 @@ def phase_notify(args, counts, card):
         respawn_s = time.perf_counter() - t_kill
         recv.start()
         drain_kill_s = wait_for(recv, "evt", set(kill), "the kill's drain")
+        wait_pairs(("ord/kill",), "the kill's ordered key")
         time.sleep(1.5)                   # a second copy would come now
         # The respawned worker reads the three buckets' rules at boot.
-        want_items = put_items(NOTIFY_EVENT_BYTES, NOTIFY_KILL)
+        want_items = put_items(NOTIFY_EVENT_BYTES, NOTIFY_KILL + 1)
         want_items["mxh256"] += 3
         step("kill", c3, want_items)
         warm()
@@ -8894,6 +9003,17 @@ def phase_notify(args, counts, card):
                         raise SystemExit(f"notify: {arn} got {ident} "
                                          f"{n} times")
                     dups["kill"] += n - 1
+            # Per key, the PUT's record arrives before the DELETE's.
+            for key in ("ord/down", "ord/back", "ord/kill"):
+                names = [r["eventName"] for _, r in who.records()
+                         if r["s3"]["bucket"]["name"] == "evt"
+                         and r["s3"]["object"]["key"] == key]
+                first = [n for i, n in enumerate(names)
+                         if n not in names[:i]]
+                if first != ["s3:ObjectCreated:Put",
+                             "s3:ObjectRemoved:DeleteMarkerCreated"]:
+                    raise SystemExit(f"notify: {arn} got {key}'s records "
+                                     f"in the order {names}")
 
         # -- ListenNotification on an in-process server --------------------
         lpools = ServerPools([ErasureSets(
@@ -8969,8 +9089,9 @@ def phase_notify(args, counts, card):
           f"again for {NOTIFY_KILL} PUTs, {parked_kill} parked, worker "
           f"{victim} SIGKILLed and back in {respawn_s:.2f} s, delivered "
           f"{drain_kill_s:.3f} s after the webhook's return; duplicates in "
-          f"the kill step {dups['kill']}, none elsewhere, none lost; card "
-          f"{card}")
+          f"the kill step {dups['kill']}, none elsewhere, none lost; the "
+          f"PUT before the DELETE of each of 3 keys at both targets (down, "
+          f"back before the retry, across the kill); card {card}")
     print(f"[notify] per worker {counters}; card {card}")
     print(f"[notify] cost on the request path, {NOTIFY_COST} PUTs of "
           f"{NOTIFY_EVENT_BYTES} B each way in turns: with a webhook rule "
@@ -8982,6 +9103,540 @@ def phase_notify(args, counts, card):
           f"{len(recs)} records, the stream ended at its "
           f"{NOTIFY_LISTEN_S} s duration; card {card}")
     print(f"[notify] items per step: {steps}; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
+# Phase 5t, the tier: MinIO's documented tiering (`mc admin tier add
+# minio WARM ...`, `mc ilm rule add --transition-days N
+# --transition-tier WARM`) with the hot side in this process (config 2's
+# EC:8+4 set of 12 drives) and the warm tier a port server booted through
+# its entry point (EC:4+2 on TIER_WARM_DRIVES drives), reached over
+# loopback through S3TierBackend.  TIER_CLIENTS client threads PUT
+# TIER_BIG objects of OBJECT_BYTES and TIER_SMALL of TIER_SMALL_BYTES, then
+# one highwayhash256S object of OBJECT_BYTES; TIER_TEMP objects restored
+# for a day and TIER_PERM for good; TIER_DELETE stubs deleted by version;
+# one transition of a TIER_CRASH_BYTES object in a subprocess dies at
+# ilm.post_copy.
+TIER_CLIENTS, TIER_BIG, TIER_SMALL = 4, 2, 64
+TIER_SMALL_BYTES = (1024, 100 * 1024)
+TIER_WARM_DRIVES = 6
+TIER_DAYS = 30
+TIER_TEMP, TIER_PERM, TIER_DELETE = 4, 4, 8
+TIER_CRASH_BYTES = 16 * MIB + 7
+TIER_KMS_KEY = "5a" * 32
+#: the crash subprocess's device (None: the card)
+TIER_CRASH_DEVICE = None
+TIER_INLINE = 128 * 1024
+
+
+class _Clock:
+    """A `time` module stand-in `shift` seconds ahead of the real one
+    (the scanner's clock past a rule's days, as the JAX tier tests age
+    objects)."""
+
+    def __init__(self, shift: float):
+        self.shift = shift
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    def time(self) -> float:
+        return time.time() + self.shift
+
+
+def tier_crash(spec: dict) -> int:
+    """`chip_smoke.py --tier-crash JSON`: one transition on the card over
+    the hot drives, armed by MTPU_CRASH to die at ilm.post_copy."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from minio_tpu_torch.bucket.tier import TierManager
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.storage.drive import LocalDrive
+    pools = ServerPools([ErasureSets([LocalDrive(d) for d in spec["drives"]],
+                                     set_drive_count=len(spec["drives"]),
+                                     device=spec.get("device"))])
+    tm = TierManager(pools)
+    tm.transition_object(spec["bucket"], spec["key"], spec["tier"])
+    print("survived", flush=True)
+    return 0
+
+
+def _warm_counts(m: dict) -> tuple[dict, dict]:
+    """(items, launches) per kernel of one booted server process from
+    its metrics."""
+    return ({k: int(m[f'mtpu_kernel_items_total{{kernel="{k}"}}'])
+             for k in _KERNELS},
+            {k: int(m[f'mtpu_kernel_launches_total{{kernel="{k}"}}'])
+             for k in _KERNELS})
+
+
+def _warm_get_items(size: int, offset: int = 0, length: int | None = None
+                    ) -> int:
+    """mxh256 items of the warm server's reads of one tier object of
+    `size` bytes through S3TierBackend.get_stream: a HEAD, then ranged
+    GETs of MTPU_ILM_CHUNK_MB (8 MiB); an inline object is read whole
+    per GET."""
+    from types import SimpleNamespace
+    length = size - offset if length is None else length
+    chunk = 8 * MIB
+    fi = SimpleNamespace(size=size, data_dir="d",
+                         parts=[SimpleNamespace(size=size)])
+    calls, pos, end = 0, offset, offset + length
+    while pos < end:
+        n = min(chunk, end - pos)
+        calls += 1 if size <= TIER_INLINE else _get_calls(fi, pos, n)
+        pos += n
+    return calls
+
+
+def phase_tier(args, counts, card):
+    """Phase 5t, the tier.  Setup: the hot S3Server in this process over
+    config 2's set (a TierManager with the KMS that seals the tier's
+    credentials, a DataScanner bound and driven by hand), the warm server
+    (`python -m minio_tpu_torch.server`, one process, STANDARD=EC:2 over
+    TIER_WARM_DRIVES drives on /dev/shm) booted meanwhile; the tier added
+    through the admin `tier` endpoint, the Transition rule by `PUT
+    ?lifecycle` on a versioned bucket.
+
+    Steps, each with the hot side's GF, hh256 and mxh256 items exact
+    (launches at most the items, some when there are items) and the warm
+    server's from its metrics, exact too: the traffic; two data-shard
+    drives' part files of one 64 MiB source removed; one scanner cycle
+    with the clock TIER_DAYS + 1 days on, which moves every object (the
+    degraded source through the GF decode, the highwayhash256S one
+    through hh256); full and ranged GETs through every stub byte-exact,
+    the second half with one warm drive away; HEADs with the tier's
+    storage class; a temporary restore (Days=1) checked for x-amz-restore
+    and re-expired by a scanner cycle with the clock two days on; a
+    permanent restore; DELETEs of stubs by version, their tier objects
+    gone from the warm bucket; a transition in a subprocess dying at
+    ilm.post_copy, whose orphan the next TierManager boot reaps, the hot
+    version byte-exact."""
+    import numpy as np
+
+    import minio_tpu_torch.bucket.lifecycle as lc_mod
+    import minio_tpu_torch.bucket.tier as tier_mod
+    from minio_tpu_torch.background.scanner import DataScanner
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.storage.xlmeta import XLMeta
+
+    ak, sk = "pooladmin", "pooladmin-secret"
+    root = _tmp_root("chip_smoke-tier-", 12 * OBJECT_BYTES + (1 << 30))
+    wroot = os.path.join(root, "warm")
+    os.makedirs(wroot)
+    rng = np.random.default_rng(args.seed * 1000 + 980)
+    seed = args.seed * 1000 + 981
+    t_phase = time.perf_counter()
+    counts.reset()
+    steps: dict[str, dict] = {}
+    warm_launches = dict.fromkeys(_KERNELS, 0)
+    times: dict[str, float] = {}
+    kms0 = os.environ.get("MTPU_KMS_SECRET_KEY")
+    os.environ["MTPU_KMS_SECRET_KEY"] = TIER_KMS_KEY
+    clocks = (lc_mod.time, tier_mod.time)
+
+    def zero():
+        return dict.fromkeys(_KERNELS, 0)
+
+    def add(d, other):
+        for k, v in other.items():
+            d[k] += v
+        return d
+
+    def put_items(n, algo="mxh256"):
+        out = zero()
+        out["gf_matmul"] = out[_digest(algo)] = _put_calls(n)
+        return out
+
+    def body(s, n):
+        return np.random.default_rng(s).bytes(n)
+
+    booted: dict = {}
+
+    def boot_warm():
+        try:
+            # The hot-object cache stays on for the metrics route but
+            # admits nothing: every read reaches the engine.
+            booted["pool"] = _Pool(wroot, 0, env={
+                "MTPU_STORAGE_CLASS_STANDARD": "EC:2",
+                "MTPU_HOTCACHE_MAX_OBJ": "1"}, drives=TIER_WARM_DRIVES)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            booted["error"] = e
+    warm_thread = threading.Thread(target=boot_warm)
+    warm_thread.start()
+    warm = srv = hpools = sc = None
+    try:
+        drives = [os.path.join(root, f"h{i}") for i in range(1, 13)]
+        hpools = ServerPools([ErasureSets([LocalDrive(d) for d in drives],
+                                          set_drive_count=12)])
+        es = hpools.pools[0].sets[0]
+        tm = tier_mod.TierManager(hpools)
+        sc = DataScanner(hpools)
+        srv = S3Server(hpools, Credentials(ak, sk), tier_mgr=tm,
+                       scanner=sc).start()
+
+        def fresh():
+            return S3Client(srv.endpoint, ak, sk, timeout=600)
+        cli = fresh()
+        for b in ("tierb", "crashb"):
+            cli.make_bucket(b)
+        cli._check(*cli.request(
+            "PUT", "/tierb", query={"versioning": ""},
+            body=b"<VersioningConfiguration><Status>Enabled</Status>"
+                 b"</VersioningConfiguration>"))
+        warm_thread.join(timeout=300)
+        if "pool" not in booted:
+            raise SystemExit(f"tier: the warm server: {booted.get('error')}")
+        warm = booted["pool"]
+        times["warm boot"] = warm.boot_s
+        wurl = f"http://127.0.0.1:{warm.port}"
+        wcli = S3Client(wurl, ak, sk, timeout=600)
+        wcli.make_bucket("warm")
+        st, doc = cli.admin("POST", "tier", doc={
+            "name": "WARM", "type": "s3", "endpoint": wurl,
+            "accessKey": ak, "secretKey": sk, "bucket": "warm"})
+        if st != 200:
+            raise SystemExit(f"tier: admin tier add {st} {doc}")
+        st, doc = cli.admin("GET", "tier")
+        if st != 200 or doc["tiers"] != ["WARM"]:
+            raise SystemExit(f"tier: admin tier list {st} {doc}")
+        raw = open(os.path.join(drives[0], ".mtpu.sys", "tier",
+                                "config.json"), "rb").read()
+        if sk.encode() in raw or b'"v": 2' not in raw:
+            raise SystemExit("tier: the tier config is not sealed")
+        rule = (b"<LifecycleConfiguration><Rule><ID>warm</ID><Status>"
+                b"Enabled</Status><Filter/><Transition><Days>%d</Days>"
+                b"<StorageClass>WARM</StorageClass></Transition></Rule>"
+                b"</LifecycleConfiguration>" % TIER_DAYS)
+        cli._check(*cli.request("PUT", "/tierb", query={"lifecycle": ""},
+                                body=rule))
+
+        def warm_items():
+            return _warm_counts(warm.metrics())
+
+        mark = {"hot": counts.items(), "hot_l": counts.read(),
+                "warm": warm_items()}
+
+        def step(name, want_hot, want_warm):
+            hot, hot_l = counts.items(), counts.read()
+            got = {k: hot[k] - mark["hot"][k] for k in _KERNELS}
+            launches = {k: hot_l[k] - mark["hot_l"][k] for k in _KERNELS}
+            w_items, w_launch = warm_items()
+            wgot = {k: w_items[k] - mark["warm"][0][k] for k in _KERNELS}
+            wl = {k: w_launch[k] - mark["warm"][1][k] for k in _KERNELS}
+            for k in _KERNELS:
+                warm_launches[k] += wl[k]
+            steps[name] = {"hot": got, "warm": wgot}
+            bad = any(launches[k] > got[k] or (got[k] and not launches[k])
+                      or wl[k] > wgot[k] or (wgot[k] and not wl[k])
+                      for k in _KERNELS)
+            if got != want_hot or wgot != want_warm or bad:
+                raise SystemExit(
+                    f"tier {name}: hot items {got} (launches {launches}), "
+                    f"want {want_hot}; warm items {wgot} (launches {wl}), "
+                    f"want {want_warm}")
+            mark.update(hot=hot, hot_l=hot_l, warm=(w_items, w_launch))
+
+        # -- the traffic: TIER_CLIENTS client threads -----------------------
+        plan = [(f"big{i}", OBJECT_BYTES) for i in range(TIER_BIG)]
+        plan += [(f"small/{i:03d}", int(rng.integers(*TIER_SMALL_BYTES)))
+                 for i in range(TIER_SMALL)]
+        data: dict[str, bytes] = {}
+        for key, n in plan:
+            data[key] = body(seed, n)
+            seed += 1
+        vids: dict[str, str] = {}
+        mu = threading.Lock()
+
+        def client(part):
+            for key, _ in part:
+                h = fresh().put_object("tierb", key, data[key])
+                with mu:
+                    vids[key] = h["x-amz-version-id"]
+        t0 = time.perf_counter()
+        _in_threads(TIER_CLIENTS, client,
+                    [plan[i::TIER_CLIENTS] for i in range(TIER_CLIENTS)])
+        os.environ["MTPU_BITROT_ALGO"] = HH
+        try:
+            data["hh"] = body(seed, OBJECT_BYTES)
+            seed += 1
+            vids["hh"] = fresh().put_object(
+                "tierb", "hh", data["hh"])["x-amz-version-id"]
+        finally:
+            os.environ.pop("MTPU_BITROT_ALGO", None)
+        crash_data = body(seed, TIER_CRASH_BYTES)
+        seed += 1
+        fresh().put_object("crashb", "obj", crash_data)
+        times["traffic"] = time.perf_counter() - t0
+        want = zero()
+        for key, n in plan:
+            add(want, put_items(n))
+        add(want, put_items(OBJECT_BYTES, HH))
+        add(want, put_items(TIER_CRASH_BYTES))
+        step("traffic", want, zero())
+        keys = [k for k, _ in plan] + ["hh"]
+        moved = sum(len(data[k]) for k in keys)
+
+        # -- two data shards of big0 away, one scanner cycle past the days -
+        fis = {k: hpools.head_object("tierb", k) for k in keys}
+        gone = _data_positions(Q, fis["big0"], 2)
+        for pos in gone:
+            os.unlink(os.path.join(drives[pos], "tierb", "big0",
+                                   fis["big0"].data_dir, "part.1"))
+        lc_mod.time = _Clock((TIER_DAYS + 1) * 86400.0)
+        t0 = time.perf_counter()
+        try:
+            sc.scan_cycle()
+        finally:
+            lc_mod.time = clocks[0]
+        times["transition cycle"] = time.perf_counter() - t0
+        st = tm.stats()
+        if st["transitioned"] != len(keys) or st["transition_errors"] or \
+                st["journal_pending"]:
+            raise SystemExit(f"tier: the cycle moved {st}")
+        want, wwant = zero(), zero()
+        for k in keys:
+            fi = fis[k]
+            calls = _get_calls(fi)
+            want[_digest(fi.erasure.bitrot_algo())] += calls
+            if k == "big0":
+                want["gf_matmul"] += calls
+            add(wwant, put_items(fi.size))
+            wwant["mxh256"] += _warm_get_items(fi.size)
+        step("transition", want, wwant)
+        stubs = {k: hpools.head_object("tierb", k) for k in keys}
+        tkeys = {k: fi.metadata[tier_mod.TIER_OBJ_KEY]
+                 for k, fi in stubs.items()}
+        if any(fi.size or not tm.is_transitioned(fi)
+               for fi in stubs.values()):
+            raise SystemExit("tier: a version was not left a stub")
+
+        # -- GETs through every stub, half with a warm drive away ---------
+        def warm_fi(k):
+            path = os.path.join(wroot, "b2", "warm", "tier", tkeys[k],
+                                "xl.meta")
+            with open(path, "rb") as f:
+                return XLMeta.from_bytes(f.read()).latest()
+        wfis = {k: warm_fi(k) for k in keys}
+        half = keys[::2]
+        t0 = time.perf_counter()
+        want_w = zero()
+        got_bytes = 0
+
+        def get_checks(k):
+            n = len(data[k])
+            st_, h, got = fresh().request("GET", f"/tierb/{k}")
+            if st_ != 200 or got != data[k]:
+                raise SystemExit(f"tier: GET {k} through its stub: {st_}")
+            a, b = n // 3, n // 3 + max(1, n // 5)
+            st_, h, got = fresh().request(
+                "GET", f"/tierb/{k}", headers={"Range": f"bytes={a}-{b - 1}"})
+            if st_ != 206 or got != data[k][a:b]:
+                raise SystemExit(f"tier: ranged GET {k}: {st_}")
+            return n + (b - a), ((0, None), (a, b - a))
+        for k in keys:
+            if k not in half:
+                continue
+            n, ranges = get_checks(k)
+            got_bytes += n
+            for off, ln in ranges:
+                want_w["mxh256"] += _warm_get_items(len(data[k]), off, ln)
+        times["stub GETs"] = time.perf_counter() - t0
+        away = os.path.join(wroot, "b1")
+        os.rename(away, away + ".away")
+        t0 = time.perf_counter()
+        try:
+            for k in keys:
+                if k in half:
+                    continue
+                n, ranges = get_checks(k)
+                got_bytes += n
+                for off, ln in ranges:
+                    calls = _warm_get_items(len(data[k]), off, ln)
+                    want_w["mxh256"] += calls
+                    if _holds_data(wfis[k], [0]):
+                        want_w["gf_matmul"] += calls
+        finally:
+            os.rename(away + ".away", away)
+        times["degraded stub GETs"] = time.perf_counter() - t0
+        for k in keys:
+            st_, h, _ = fresh().request("HEAD", f"/tierb/{k}")
+            if st_ != 200 or h.get("x-amz-storage-class") != "WARM" or \
+                    int(h["Content-Length"]) != len(data[k]):
+                raise SystemExit(f"tier: HEAD {k} {st_} {h}")
+        step("GETs through the stubs", zero(), want_w)
+
+        # -- a temporary restore, re-expired two days on -------------------
+        small = [k for k in keys if k.startswith("small/")]
+        temp = ["big1", "hh"] + small[:TIER_TEMP - 2]
+        perm = ["big0"] + small[TIER_TEMP - 2:TIER_TEMP + TIER_PERM - 3]
+        dels = small[TIER_TEMP + TIER_PERM - 3:
+                     TIER_TEMP + TIER_PERM - 3 + TIER_DELETE]
+        t0 = time.perf_counter()
+        want, wwant = zero(), zero()
+        for k in temp:
+            st_, _, out = fresh().request(
+                "POST", f"/tierb/{k}", query={"restore": ""},
+                body=b"<RestoreRequest><Days>1</Days></RestoreRequest>")
+            if st_ != 202:
+                raise SystemExit(f"tier: restore {k} {st_} {out[:200]}")
+            add(want, put_items(len(data[k])))
+            wwant["mxh256"] += _warm_get_items(len(data[k]))
+        times["temporary restore"] = time.perf_counter() - t0
+        for k in temp:
+            st_, h, got = fresh().request("GET", f"/tierb/{k}")
+            if st_ != 200 or got != data[k] or not h.get(
+                    "x-amz-restore", "").startswith(
+                        'ongoing-request="false", expiry-date="'):
+                raise SystemExit(f"tier: restored GET {k} {st_} {h}")
+            want["mxh256"] += _get_calls(hpools.head_object("tierb", k))
+        tier_mod.time = _Clock(2 * 86400.0)
+        try:
+            sc.scan_cycle()
+        finally:
+            tier_mod.time = clocks[1]
+        if tm.stats()["restore_expired"] != len(temp):
+            raise SystemExit(f"tier: re-expired {tm.stats()}")
+        for k in temp:
+            fi = hpools.head_object("tierb", k)
+            st_, h, got = fresh().request("GET", f"/tierb/{k}")
+            if fi.size or "x-amz-restore" in h or got != data[k]:
+                raise SystemExit(f"tier: {k} after its window")
+            wwant["mxh256"] += _warm_get_items(len(data[k]))
+        step("temporary restore", want, wwant)
+
+        # -- a permanent restore --------------------------------------------
+        t0 = time.perf_counter()
+        want, wwant = zero(), zero()
+        for k in perm:
+            st_, _, out = fresh().request("POST", f"/tierb/{k}",
+                                          query={"restore": ""})
+            if st_ != 202:
+                raise SystemExit(f"tier: restore {k} {st_} {out[:200]}")
+            add(want, put_items(len(data[k])))
+            wwant["mxh256"] += _warm_get_items(len(data[k]))
+        times["permanent restore"] = time.perf_counter() - t0
+        for k in perm:
+            st_, h, got = fresh().request("GET", f"/tierb/{k}")
+            if st_ != 200 or got != data[k] or "x-amz-storage-class" in h:
+                raise SystemExit(f"tier: permanently restored {k}: {st_}")
+            want["mxh256"] += _get_calls(hpools.head_object("tierb", k))
+        step("permanent restore", want, wwant)
+
+        # -- DELETE of stubs by version --------------------------------------
+        for k in dels:
+            st_, _, _ = fresh().request("DELETE", f"/tierb/{k}",
+                                        query={"versionId": vids[k]})
+            if st_ != 204:
+                raise SystemExit(f"tier: DELETE {k} {st_}")
+        step("stub deletes", zero(), zero())
+        st_, _, out = wcli.request("GET", "/warm",
+                                   query={"list-type": "2",
+                                          "prefix": "tier/"})
+        left = set(re.findall(rb"<Key>tier/([^<]+)</Key>", out))
+        freed = {tkeys[k].encode() for k in perm + dels}
+        if st_ != 200 or left & freed or len(left) != len(keys) - len(
+                freed):
+            raise SystemExit(f"tier: the warm bucket holds {len(left)} "
+                             f"keys, {len(left & freed)} freed ones")
+        st = tm.stats()
+        if st["freed"] != len(freed) or st["journal_pending"]:
+            raise SystemExit(f"tier: frees {st}")
+
+        # -- a transition dying at ilm.post_copy in a subprocess ----------
+        env = dict(os.environ, MTPU_CRASH="ilm.post_copy:1",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tier-crash",
+             json.dumps({"drives": drives, "bucket": "crashb",
+                         "key": "obj", "tier": "WARM",
+                         "device": TIER_CRASH_DEVICE})],
+            env=env, capture_output=True, text=True, timeout=300)
+        times["crash subprocess"] = time.perf_counter() - t0
+        if proc.returncode != 137 or "survived" in proc.stdout or \
+                "dying at ilm.post_copy" not in proc.stderr:
+            raise SystemExit(f"tier: the crash run {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+        st_, _, out = wcli.request("GET", "/warm",
+                                   query={"list-type": "2",
+                                          "prefix": "tier/crashb/"})
+        if out.count(b"<Key>") != 1:
+            raise SystemExit("tier: no orphan copy after the crash")
+        t0 = time.perf_counter()
+        tm2 = tier_mod.TierManager(hpools)
+        times["replay boot"] = time.perf_counter() - t0
+        st = tm2.stats()
+        if (st["orphans_reaped"], st["journal_pending"]) != (1, 0):
+            raise SystemExit(f"tier: the replay {st}")
+        st_, _, out = wcli.request("GET", "/warm",
+                                   query={"list-type": "2",
+                                          "prefix": "tier/crashb/"})
+        fi, got = hpools.get_object("crashb", "obj")
+        if b"<Key>" in out or bytes(got) != crash_data or \
+                tm2.is_transitioned(fi):
+            raise SystemExit("tier: the crash's orphan or hot version")
+        want = zero()
+        want["mxh256"] = _get_calls(fi)
+        # The subprocess's reads ran in its own process; its tier copy,
+        # a warm PUT, and its verify were the warm server's.
+        wwant = put_items(TIER_CRASH_BYTES)
+        wwant["mxh256"] += _warm_get_items(TIER_CRASH_BYTES)
+        step("crash and replay", want, wwant)
+        tm2.close()
+        srv.shutdown()
+        srv = None
+        warm.stop()
+    finally:
+        lc_mod.time, tier_mod.time = clocks
+        if kms0 is None:
+            os.environ.pop("MTPU_KMS_SECRET_KEY", None)
+        else:
+            os.environ["MTPU_KMS_SECRET_KEY"] = kms0
+        warm_thread.join(timeout=300)
+        if warm is None:
+            warm = booted.get("pool")     # None after its clean stop too
+        if warm is not None and warm.proc.poll() is None:
+            warm.kill()
+        if srv is not None:
+            srv.shutdown()
+        if sc is not None:
+            sc.stop()
+        if hpools is not None:
+            hpools.close()
+        shutil.rmtree(root, ignore_errors=True)
+    here = counts.read()
+    launches = {k: warm_launches[k] + here[k] for k in _KERNELS}
+    launches["mxh256_elsewhere"] = warm_launches["mxh256"]
+    tr = times["transition cycle"]
+    print(f"[tier] hot: config 2's set in this process; warm: python -m "
+          f"minio_tpu_torch.server, EC:4+2 on {TIER_WARM_DRIVES} drives, "
+          f"booted in {times['warm boot']:.2f} s; the tier added through "
+          f"the admin API (S3 backend, sealed credentials); card {card}")
+    print(f"[tier] traffic from {TIER_CLIENTS} clients: {TIER_BIG} x "
+          f"{OBJECT_BYTES} B, {TIER_SMALL} of 1-100 KiB, one "
+          f"highwayhash256S of {OBJECT_BYTES} B in {times['traffic']:.2f} s;"
+          f" one scanner cycle moved {len(keys)} versions ({moved} B, one "
+          f"source with 2 data shards away) in {tr:.2f} s, "
+          f"{moved / tr / 1e9:.3f} GB/s; card {card}")
+    print(f"[tier] GETs through the stubs (full + ranged, {got_bytes} B): "
+          f"{times['stub GETs']:.2f} s healthy, "
+          f"{times['degraded stub GETs']:.2f} s with a warm drive away; "
+          f"temporary restore of {len(temp)} {times['temporary restore']:.2f}"
+          f" s, permanent of {len(perm)} {times['permanent restore']:.2f} s;"
+          f" {len(dels)} stubs deleted, {len(freed)} tier objects freed; "
+          f"card {card}")
+    print(f"[tier] crash at ilm.post_copy: the subprocess "
+          f"{times['crash subprocess']:.2f} s, the replay boot "
+          f"{times['replay boot']:.3f} s reaped its orphan; card {card}")
+    print(f"[tier] items per step: {steps}; launches {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s; card {card}")
     return launches
 
@@ -9358,6 +10013,7 @@ def main() -> int:
         "lifecycle": lambda: phase_lifecycle(args, counts, card),
         "data protection": lambda: phase_protection(args, counts, card),
         "notifications": lambda: phase_notify(args, counts, card),
+        "tier": lambda: phase_tier(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -9429,7 +10085,8 @@ def main() -> int:
                      - per_path["cluster"]["mxh256_elsewhere"]
                      - per_path["lifecycle"]["mxh256_elsewhere"]
                      - per_path["data protection"]["mxh256_elsewhere"]
-                     - per_path["notifications"]["mxh256_elsewhere"])
+                     - per_path["notifications"]["mxh256_elsewhere"]
+                     - per_path["tier"]["mxh256_elsewhere"])
     for rec in records:
         rec["launches"] = sum(p[rec["name"]] for p in per_path.values())
     phase_layers(torch, card, torch.device("cuda", 0))
@@ -9459,4 +10116,6 @@ if __name__ == "__main__":
         sys.exit(meta_client(json.loads(sys.argv[2])))
     if sys.argv[1:2] == ["--qos-client"]:
         sys.exit(qos_client(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--tier-crash"]:
+        sys.exit(tier_crash(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -18,12 +18,18 @@ Knobs (the JAX package's, with its defaults): MTPU_SCANNER (1; 0 starts
 no scanner at boot), MTPU_SCANNER_INTERVAL (60 s), MTPU_SCANNER_DEEP_EVERY
 (16).  The crawl yields to foreground pressure (server/qos.bg_pause).
 
-`attach_config` is where the server binds its bucket configuration:
-with it bound, each cycle first runs every bucket's lifecycle expiry
-(bucket/lifecycle.py, the JAX `_apply_lifecycle`), when its rules can
-fire at all, and `stats.lifecycle` sums the passes' counts.  The JAX
-cycle's tier upkeep (`_ilm_maintenance`, the tier-journal drain) waits
-for ROADMAP.md Queue A item 10 with bucket/tier.py.
+`attach_config` is where the server binds its bucket configuration and
+its tier manager (bucket/tier.py): with them bound, each cycle first
+runs every bucket's lifecycle (bucket/lifecycle.py, the JAX
+`_apply_lifecycle`): the expiry pass when its rules can expire anything,
+freeing the tier copy of an expired transitioned version, and the
+transitions (tier.run_transitions) when its rules can transition; then
+the bucket's tier upkeep (`_ilm_maintenance`: temporary restores whose
+window passed lose their hot copy).  `stats.lifecycle` sums the expiry
+passes' counts (the tier manager's `stats()` counts the moves).  Each
+cycle ends with one drain of the tier journal: failed remote deletes
+and the partial copies of failed transitions are retried on the
+scanner's cadence.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import threading
 import time
 
 from ..bucket.lifecycle import Lifecycle, apply_lifecycle
+from ..bucket.tier import run_transitions
 from ..storage.errors import ErrDiskNotFound, StorageError
 from .usage import DataUsage, DirtyTracker
 
@@ -46,7 +53,7 @@ class ScanStats:
         self.heals_triggered = 0
         self.corruption_found = 0
         self.last_cycle_s = 0.0
-        # The lifecycle passes' counts, summed (bucket/lifecycle.py).
+        # The expiry passes' counts, summed (bucket/lifecycle.py).
         self.lifecycle = {"expired": 0, "expired_noncurrent": 0,
                           "transitioned": 0, "skipped_locked": 0}
 
@@ -72,9 +79,10 @@ class DataScanner:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._last_usage: DataUsage | None = None
-        # The bucket configuration (attach_config), whose lifecycle a
-        # cycle applies.
+        # The bucket configuration and the tier manager (attach_config),
+        # whose lifecycle and tier upkeep a cycle applies.
         self.meta = None
+        self.tier_mgr = None
         # A restart keeps the marks saved before it (the union of every
         # drive's copy), and marks between cycles are saved shortly
         # after they are made.
@@ -112,11 +120,13 @@ class DataScanner:
         live = sum(1 for d in es.drives if d is not None)
         return 0 < missing < live
 
-    def attach_config(self, meta) -> "DataScanner":
+    def attach_config(self, meta, tier_mgr=None) -> "DataScanner":
         """Bind the bucket-config store (bucket/metadata.py) whose
-        lifecycle configs each cycle applies; the server calls this when
-        it binds the object layer."""
+        lifecycle configs each cycle applies, and the tier manager that
+        moves and frees tiered versions; the server calls this when it
+        binds the object layer."""
         self.meta = meta
+        self.tier_mgr = tier_mgr
         return self
 
     def _apply_lifecycle(self, bucket: str) -> None:
@@ -134,9 +144,24 @@ class DataScanner:
             # listing of the bucket on top of the crawl's own.
             if any(r.expire_days or r.expire_date or r.noncurrent_days
                    for r in lc.rules):
-                got = apply_lifecycle(self.pools, bucket, lc)
+                got = apply_lifecycle(self.pools, bucket, lc,
+                                      tier_mgr=self.tier_mgr)
                 for k, v in got.items():
                     self.stats.lifecycle[k] += v
+            if self.tier_mgr is not None and any(
+                    r.transition_tier and r.transition_days
+                    for r in lc.rules):
+                run_transitions(self.pools, bucket, lc, self.tier_mgr)
+        except Exception:  # noqa: BLE001 — ILM must not kill the scan
+            pass
+
+    def _ilm_maintenance(self, bucket: str) -> None:
+        """The bucket's tier upkeep: temporary restores whose window
+        passed lose their hot copy (the x-amz-restore expiry)."""
+        if self.tier_mgr is None:
+            return
+        try:
+            self.tier_mgr.expire_restores(bucket)
         except Exception:  # noqa: BLE001 — ILM must not kill the scan
             pass
 
@@ -157,6 +182,7 @@ class DataScanner:
 
         for bucket in buckets:
             self._apply_lifecycle(bucket)
+            self._ilm_maintenance(bucket)
             full = (bucket in dirty or deep
                     or cycle % self.full_scan_every == 1)
             if not full and self._last_usage is not None \
@@ -200,6 +226,14 @@ class DataScanner:
                         if self.object_sleep:
                             time.sleep(self.object_sleep)
                         _qos.bg_pause("scanner")
+
+        # One tier-journal drain a cycle: the journal converges to zero
+        # without a loop of its own.
+        if self.tier_mgr is not None:
+            try:
+                self.tier_mgr.drain_journal()
+            except Exception:  # noqa: BLE001 — ILM must not kill the scan
+                pass
 
         usage.scanned_at = time.time()
         self.stats.last_cycle_s = usage.scanned_at - t0

@@ -5,9 +5,9 @@ internal/bucket/lifecycle and cmd/bucket-lifecycle.go role): XML rules
 with prefix and tag filters, current-version Expiration (days or date),
 NoncurrentVersionExpiration and AbortIncompleteMultipartUpload, and the
 pass the data scanner runs per bucket (background/scanner.py).  Rules
-that transition to a tier parse and evaluate here, but the tier itself
-(bucket/tier.py) waits for ROADMAP.md Queue A item 10: the server
-refuses such a config, and the pass only counts what would transition.
+that transition to a tier parse and evaluate here; the scanner hands
+them to bucket/tier.py's `run_transitions`, and the expiry pass frees
+the tier copy of an expired transitioned version.
 """
 
 from __future__ import annotations
@@ -125,12 +125,16 @@ def _object_tags(fi) -> dict[str, str]:
 
 
 def apply_lifecycle(pools, bucket: str, lc: Lifecycle,
-                    now: float | None = None) -> dict:
+                    now: float | None = None, tier_mgr=None) -> dict:
     """One expiry pass over a bucket (the expiry worker,
     cmd/bucket-lifecycle.go:213).  Versions under retention or a legal
     hold are skipped (`skipped_locked`), and noncurrent-expiry rules walk
-    each key's versions.  The JAX pass's `tier_mgr`, which frees the
-    tier copy of an expired transitioned version, waits with the tier."""
+    each key's versions.  Transitions are counted here and moved by the
+    tier module (`tier.run_transitions`).
+
+    `tier_mgr`: expiring a transitioned version also frees its tier
+    object (the free-version role, cmd/xl-storage-free-version.go); the
+    tier journal retries until the remote delete succeeds."""
     stats = {"expired": 0, "expired_noncurrent": 0, "transitioned": 0,
              "skipped_locked": 0}
     try:
@@ -148,6 +152,8 @@ def apply_lifecycle(pools, bucket: str, lc: Lifecycle,
                 try:
                     pools.delete_object(bucket, fi.name)
                     stats["expired"] += 1
+                    if tier_mgr is not None:
+                        tier_mgr.on_version_deleted(fi)
                 except StorageError:
                     pass
         elif action.startswith("transition:"):
@@ -170,6 +176,8 @@ def apply_lifecycle(pools, bucket: str, lc: Lifecycle,
             try:
                 pools.delete_object(bucket, fi.name, v.version_id)
                 stats["expired_noncurrent"] += 1
+                if tier_mgr is not None:
+                    tier_mgr.on_version_deleted(v)
             except StorageError:
                 pass
     return stats

@@ -8,7 +8,7 @@ bucket/event_targets.py, and QueueTarget, an in-process queue with
 optional on-disk persistence: the queue store (target/queuestore.go)
 that parks an event while its target is down.
 
-The port repairs three faults of the JAX store:
+The port repairs five faults of the JAX store:
 
 - A target with parked events retries them on its own, every
   `RETRY_INTERVAL_S` seconds, until none is left; the JAX
@@ -24,9 +24,19 @@ The port repairs three faults of the JAX store:
   two live processes load or remove one file; a respawned worker takes
   its predecessor's directory over.  One process and a cluster node keep
   the JAX layout (`<kind>/`), and adopt what a pool left.
+- While a target has parked events, a new event parks behind them
+  (`_Backlogged.send`), and the target's one retry loop delivers the
+  store in arrival order: once the target is back, a key's DELETE never
+  reaches it before that key's parked PUT.  The JAX `send` posts a new
+  event straight away, overtaking the store.
+- An event whose rule names an ARN with no registered target is counted
+  (`dropped`).  The server refuses such a rule when it is stored
+  (server/handlers.py `_check_arns`), as MinIO does; what is counted is
+  what a rule stored before that check still names.
 
-Counters (`stats`): events sent to targets, delivered, parked, and
-delivered by a retry pass; the server adds the backlog's depth.
+Counters (`stats`): events sent to targets, delivered, parked,
+delivered by a retry pass, and dropped for want of a target; the server
+adds the backlog's depth.
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from ..observe.trace import PubSub
 RETRY_INTERVAL_S = 1.0
 
 _STATS_MU = threading.Lock()
-_STATS = {"sent": 0, "delivered": 0, "parked": 0, "retried": 0}
+_STATS = {"sent": 0, "delivered": 0, "parked": 0, "retried": 0,
+          "dropped": 0}
 
 
 def _count(name: str, n: int = 1) -> None:
@@ -239,9 +250,13 @@ class _Backlogged:
             self._start_retry()
 
     def send(self, event: dict) -> None:
-        if self._deliver(event):
-            _count("delivered")
-            return
+        """Deliver `event` now when nothing is parked, else (or when the
+        delivery fails) park it behind the parked ones: the retry loop
+        is the one sender of the store, in arrival order."""
+        if not len(self.backlog):
+            if self._deliver(event):
+                _count("delivered")
+                return
         self.backlog.send(event)
         _count("parked")
         self._start_retry()
@@ -390,6 +405,7 @@ class NotificationSystem:
                 continue
             target = targets.get(rule.arn)
             if target is None:
+                _count("dropped")
                 continue
             target.send(make_event(event_name, bucket, key, size, etag,
                                    version_id))

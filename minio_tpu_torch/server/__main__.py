@@ -26,7 +26,11 @@ role, cmd/server-main.go:441), in its order:
    and, in one process or worker 0, the orphaned journals adopted; the
    buckets' persisted replication configs are wired to it once the
    front door binds the object layer;
-9. IAM, loaded from the object layer, and the S3 front door with its
+9. the tier plane (bucket/tier.py): the persisted tiers reload and the
+   tier journal replays before traffic, so a kill -9 mid-transition
+   resolves to the whole hot version or a valid stub and tier object
+   here (a line says what the replay did when it did anything);
+10. IAM, loaded from the object layer, and the S3 front door with its
    notification system: the targets of the configuration's enabled
    `notify_*` subsystems (parking under MTPU_NOTIFY_STORE_DIR while
    their service is down) and every bucket's persisted rules.
@@ -34,9 +38,9 @@ role, cmd/server-main.go:441), in its order:
 With MTPU_WORKERS=N (server/workers.py) the boot forks instead: one
 device owner, which runs the self-tests and then every kernel of the
 pool, and N HTTP workers on one port (SO_REUSEPORT), each booting steps
-2-9 (the sweep, the resumed drains and the scanner in worker 0 only;
+2-10 (the sweep, the resumed drains and the scanner in worker 0 only;
 each worker its own replication pool and journal, and its own
-notification queue stores)
+notification queue stores; one tier journal and tier registry for all)
 with its coalescer routed to the owner through shared memory.  The
 branch is taken before anything loads torch.
 
@@ -77,7 +81,8 @@ import threading
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = "tiering (item 10.2)"
+LEFT_OUT = ("the KMS for SSE (item 10.3), the audit targets (item 10.5), "
+            "bucket DNS (item 9c)")
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -212,10 +217,14 @@ def main(argv: list[str] | None = None) -> int:
         scanner = scanner_from_env(pools)
         replication = ReplicationPool(pools)
         print(replication_line(replication), flush=True)
+        tier_mgr, line = tier_manager(pools)
+        if line:
+            print(line, flush=True)
         iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*creds), host=args.host,
                        port=args.port, certs=certs, iam=iam,
-                       scanner=scanner, replication=replication).start()
+                       scanner=scanner, replication=replication,
+                       tier_mgr=tier_mgr).start()
         desc = ", ".join(f"pool{i}: {len(p)} drives "
                          f"set={pool_sets[i].set_drive_count}"
                          for i, p in enumerate(pool_paths))
@@ -253,6 +262,21 @@ def config_line(srv) -> str:
     if ignored:
         line += "; not applied: " + "; ".join(ignored)
     return line
+
+
+def tier_manager(pools):
+    """Step 9 of the boot: the tier manager (persisted tiers reloaded,
+    the journal replayed) and the line the boot prints for it, or ""
+    when the replay had nothing to do."""
+    from ..bucket.tier import TierManager
+    tm = TierManager(pools)
+    line = ""
+    if tm.counters.get("replayed"):
+        line = (f"minio_tpu_torch: tier journal: replayed "
+                f"{tm.counters['replayed']} record(s) "
+                f"({tm.counters['orphans_reaped']} orphan(s) reaped), "
+                f"{tm.journal.pending()} pending")
+    return tm, line
 
 
 def replication_line(rp) -> str:

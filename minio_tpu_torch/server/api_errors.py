@@ -380,4 +380,11 @@ def from_storage_error(e: Exception) -> S3Error:
         return S3Error("BucketNotEmpty")
     if isinstance(e, se.ErrInvalidArgument):
         return S3Error("InvalidArgument", str(e))
+    from ..bucket import tier
+    if isinstance(e, tier.ErrRestoreInProgress):
+        return S3Error("RestoreAlreadyInProgress", str(e))
+    if isinstance(e, tier.ErrTierUnavailable):
+        # A failing warm backend is retryable: 503, never a 500 (the
+        # journal owns the cleanup).
+        return S3Error("ServiceUnavailable", str(e))
     return S3Error("InternalError", f"{type(e).__name__}: {e}")

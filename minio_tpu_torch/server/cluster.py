@@ -365,6 +365,10 @@ def boot_cluster_node(endpoint_args: list, my_host: str, my_port: int,
                     "bucket-metadata"))
             h.config_sys.on_write = (
                 lambda: node.notification.reload_subsystem("config"))
+            if server.tier_mgr is not None:
+                # A tier registered here reaches every peer's registry.
+                server.tier_mgr.on_change = (
+                    lambda: node.notification.reload_subsystem("config"))
         server.bind_object_layer(pools, iam=iam,
                                  scanner=scanner_from_env(pools),
                                  replication=ReplicationPool(pools),

@@ -17,11 +17,17 @@ version id and mod time, the GET proxied to the target while the bucket
 resyncs).  Bucket notifications are served (bucket/notify.py): a PUT,
 a multipart complete and a DELETE publish their event, with the
 object's logical size, to the rules of `?notification`, validated
-before they are stored.  Without the planes of later items a request
+before they are stored (a rule whose ARN names no registered target is
+refused).  The tier is served (bucket/tier.py, `tier_mgr`): lifecycle
+Transition rules, GETs of a transitioned stub read through from its tier
+(ranged too), HEAD and GET report the tier as the storage class and a
+temporary restore's `x-amz-restore`, and a stub's overwrite or hard
+delete frees its tier copy through the tier journal (restore is the
+server's `POST ?restore`).  Without the planes of later items a request
 that needs one answers NotImplemented and names its ROADMAP.md Queue A
-item (`unported`): SSE, compression, tiering (a lifecycle Transition
-too) and restore, S3 Select, and the encryption config.  An object another package stored encrypted, compressed or
-tiered is not served as if it were plain.  A bucket's hard quota is
+item (`unported`): SSE, compression, S3 Select, and the encryption
+config.  An object another package stored encrypted or compressed is not
+served as if it were plain.  A bucket's hard quota is
 enforced at PUT and multipart complete (bucket/quota.py: usage from the
 scanner's last cycle, as in the JAX package, else from a live listing).
 Snowball tars are extracted on PUT and zip members served on GET
@@ -45,6 +51,8 @@ from ..bucket.notify import parse_notification_config
 from ..bucket import quota as bq
 from ..bucket import replication as repl
 from ..bucket.lifecycle import Lifecycle
+from ..bucket.tier import (RESTORE_EXPIRY_KEY, TIER_NAME_KEY,
+                           TIER_SIZE_KEY, _TIER_META_KEYS)
 from ..bucket.metadata import META_BUCKET, BucketMetadataSys
 from ..config.config import ConfigSys
 from ..engine.pools import ServerPools
@@ -63,19 +71,17 @@ MAX_KEY_LEN = 1024
 AMZ_META_PREFIX = "x-amz-meta-"
 
 # Request headers and stored metadata keys of the planes this server
-# does not have (the JAX package's crypto/sse.py, utils/compress.py,
-# bucket/tier.py and server/extract.py).
+# does not have (the JAX package's crypto/sse.py and utils/compress.py).
 _SSE_HEADERS = ("x-amz-server-side-encryption",
                 "x-amz-server-side-encryption-customer-algorithm")
 _TRANSFORM_KEYS = {
     "x-mtpu-internal-sse-algo": "SSE",
     "x-mtpu-internal-compression": "compression",
-    "x-mtpu-internal-tier": "tiering",
 }
 #: The size a client sees of an object another package stored
-#: transformed or tiered (listings report it, as the JAX package does).
+#: transformed, or of a tiered stub (listings report it, as the JAX
+#: package does).
 _CLIENT_SIZE_KEY = "x-mtpu-internal-client-size"
-_TIER_SIZE_KEY = "x-mtpu-internal-tier-size"
 
 
 def unported(what: str, item: str = "10") -> S3Error:
@@ -138,7 +144,7 @@ def error_response(err: S3Error, resource: str, request_id: str) -> Response:
 
 def _logical_size(fi: FileInfo) -> int:
     return int(fi.metadata.get(_CLIENT_SIZE_KEY,
-                               fi.metadata.get(_TIER_SIZE_KEY, fi.size)))
+                               fi.metadata.get(TIER_SIZE_KEY, fi.size)))
 
 
 def _stream(first, rest):
@@ -165,8 +171,15 @@ class S3Handlers:
     """All bucket/object handlers; one instance per server."""
 
     def __init__(self, pools: ServerPools, scanner=None, replication=None,
-                 notify=None):
+                 notify=None, tier_mgr=None):
         self.pools = pools
+        # bucket/tier.TierManager: transitions, read-through, restore and
+        # the freeing of tier copies; None serves no tiered stub.
+        self.tier_mgr = tier_mgr
+        # Called with no argument when a notification rule names an ARN
+        # this process has no target for: the server registers the
+        # targets a configuration set since its boot enabled.
+        self.refresh_targets = None
         # bucket/notify.NotificationSystem: each object event is
         # published there; None publishes nothing.
         self.notify = notify
@@ -222,6 +235,13 @@ class S3Handlers:
         for key, plane in _TRANSFORM_KEYS.items():
             if fi.metadata.get(key):
                 raise unported(f"an object stored with {plane}")
+
+    def _tiered(self, fi: FileInfo) -> bool:
+        """A transitioned stub whose bytes live in its tier (not a live
+        temporary restore, whose hot copy is served as any object)."""
+        return (self.tier_mgr is not None
+                and self.tier_mgr.is_transitioned(fi)
+                and not self.tier_mgr.restore_fresh(fi))
 
     def _lock_config(self, bucket: str) -> dict | None:
         """The bucket's object-lock config, when it is enabled."""
@@ -411,11 +431,10 @@ class S3Handlers:
         # cmd/bucket-handlers.go).
         try:
             if kind == "lifecycle":
-                lc = Lifecycle.parse(body)
-                if any(r.transition_tier for r in lc.rules):
-                    raise unported("lifecycle transition")
+                Lifecycle.parse(body)
             elif kind == "notification":
                 rules = parse_notification_config(body)
+                self._check_arns(rules)
             elif kind == "replication":
                 rules = repl.parse_replication_config(body)
                 # The targets are checked BEFORE the config persists: a
@@ -463,6 +482,25 @@ class S3Handlers:
                 raise S3Error("InvalidArgument",
                               f"replication wiring: {e}") from None
         return Response(200)
+
+    def _check_arns(self, rules) -> None:
+        """A rule whose ARN names no registered target is refused, as
+        MinIO refuses it when it parses the configuration (its events
+        would go nowhere).  Targets enabled through `admin config set`
+        since the boot are registered first."""
+        if self.notify is None:
+            return
+        unknown = [r.arn for r in rules if r.arn not in self.notify.targets]
+        if unknown and self.refresh_targets is not None:
+            self.refresh_targets()
+            unknown = [r.arn for r in rules
+                       if r.arn not in self.notify.targets]
+        if unknown:
+            raise S3Error(
+                "InvalidArgument",
+                f"A specified destination ARN does not exist or is not "
+                f"well-formed: {', '.join(unknown)} (enable its notify_* "
+                f"subsystem first)")
 
     def get_bucket_config(self, bucket: str, sub: str) -> Response:
         self.head_bucket(bucket)
@@ -640,6 +678,19 @@ class S3Handlers:
             h[S3Handlers.SC_HEADER] = fi.metadata[S3Handlers.SC_HEADER]
         if repl.STATUS_KEY in fi.metadata:
             h[repl.STATUS_KEY] = fi.metadata[repl.STATUS_KEY]
+        if TIER_NAME_KEY in fi.metadata:
+            # A transitioned stub: its tier is the storage class the
+            # client sees, and a temporary restore adds x-amz-restore
+            # (cf. postRestoreOpts, cmd/object-handlers.go).
+            h[S3Handlers.SC_HEADER] = fi.metadata[TIER_NAME_KEY]
+            exp = fi.metadata.get(RESTORE_EXPIRY_KEY)
+            if exp:
+                try:
+                    h["x-amz-restore"] = (
+                        'ongoing-request="false", expiry-date="'
+                        + _http_date(int(float(exp) * 1e9)) + '"')
+                except ValueError:
+                    pass
         for k, v in fi.metadata.items():
             if k.startswith(AMZ_META_PREFIX):
                 h[k] = v
@@ -781,8 +832,13 @@ class S3Handlers:
         if cond is not None:
             return cond
         self._refuse_transformed(fi)
+        if self.tier_mgr is None and fi.metadata.get(TIER_NAME_KEY):
+            # A stub's body is empty: never serve it as the object.
+            raise S3Error("NotImplemented", "the object is in a tier and "
+                          "this server has no tier manager")
 
-        size = fi.size
+        tiered = self._tiered(fi)
+        size = _logical_size(fi) if tiered else fi.size
         rng = headers.get("Range") or headers.get("range")
         offset, length = 0, size
         partial = False
@@ -792,7 +848,18 @@ class S3Handlers:
                 offset, length = parsed
                 partial = True
         body_iter = body_file = None
-        if not head:
+        if not head and tiered:
+            # A transitioned stub streams from its tier in bounded
+            # chunks, the range passed through; the first chunk is
+            # pulled now so a tier that is down is still an S3 error.
+            try:
+                body_iter = self.tier_mgr.read_through_iter(
+                    fi, offset, length)
+                first = next(body_iter, b"")
+            except StorageError as e:
+                raise from_storage_error(e) from None
+            body_iter = _stream(first, body_iter)
+        elif not head:
             try:
                 # A whole healthy GET of a k=1 object gets a verified
                 # sendfile plan: the body never enters the process
@@ -931,12 +998,18 @@ class S3Handlers:
         if is_replica and versioned and h.get(repl.REPL_VID_HEADER):
             put_kw["version_id"] = h[repl.REPL_VID_HEADER]
         self._lock_gate(bucket, key, h, metadata, versioned)
+        # An unversioned overwrite of a transitioned stub destroys it:
+        # its tier copy is freed once the new version stands.
+        replaced = self._tiered_version(bucket, key) \
+            if not versioned else None
         try:
             fi = self.pools.put_object(bucket, key, body, metadata=metadata,
                                        versioned=versioned, parity=parity,
                                        **put_kw)
         except StorageError as e:
             raise from_storage_error(e) from None
+        if replaced is not None:
+            self.tier_mgr.on_version_deleted(replaced)
         etag = fi.metadata.get("etag", "")
         self._publish_event("s3:ObjectCreated:Put", bucket, key,
                             size=_logical_size(fi), etag=etag,
@@ -949,6 +1022,18 @@ class S3Handlers:
             resp_headers["x-amz-version-id"] = fi.version_id
         return Response(200, headers=resp_headers)
 
+    def _tiered_version(self, bucket: str, key: str,
+                        version_id: str = "") -> FileInfo | None:
+        """The version a write or hard delete would destroy, when it is
+        a transitioned stub (its tier copy must then be freed)."""
+        if self.tier_mgr is None:
+            return None
+        try:
+            prev = self.pools.head_object(bucket, key, version_id)
+        except StorageError:
+            return None
+        return prev if self.tier_mgr.is_transitioned(prev) else None
+
     def _copy_source(self, h: dict[str, str]) -> tuple[str, str, str]:
         src = urllib.parse.unquote(h["x-amz-copy-source"]).lstrip("/")
         src_bucket, _, src_key = src.partition("/")
@@ -958,13 +1043,23 @@ class S3Handlers:
         return src_bucket, src_key, src_vid
 
     def _read_source(self, bucket: str, key: str, version_id: str):
-        """(fi, bytes) of a copy source."""
+        """(fi, bytes) of a copy source.  A transitioned stub is not a
+        source until it is restored (InvalidObjectState, as S3 answers
+        for an archived object); a live temporary restore's hot copy is,
+        without the tier keys."""
         try:
             fi, data = self.pools.get_object(bucket, key,
                                              version_id=version_id)
         except StorageError as e:
             raise from_storage_error(e) from None
         self._refuse_transformed(fi)
+        if fi.metadata.get(TIER_NAME_KEY):
+            if self._tiered(fi) or self.tier_mgr is None:
+                raise S3Error("InvalidObjectState",
+                              "the object is in its tier: restore it "
+                              "first")
+            fi.metadata = {k: v for k, v in fi.metadata.items()
+                           if k not in _TIER_META_KEYS}
         return fi, data
 
     def _copy_object(self, bucket: str, key: str,
@@ -1025,9 +1120,11 @@ class S3Handlers:
         # destroys data: that is what retention and a legal hold refuse
         # (cf. enforceRetentionForDeletion); a delete marker keeps the
         # version readable.
+        tiered = None
         if version_id or not versioned:
             self._refuse_locked(bucket, key, version_id, hl.get(
                 "x-amz-bypass-governance-retention", "") == "true")
+            tiered = self._tiered_version(bucket, key, version_id)
         try:
             dm = self.pools.delete_object(bucket, key, version_id, versioned)
         except StorageError as e:
@@ -1036,6 +1133,10 @@ class S3Handlers:
             if err.api.code == "NoSuchKey":
                 return Response(204)
             raise err from None
+        # Only a hard delete frees the tier copy; a delete marker keeps
+        # the version readable.
+        if tiered is not None and dm is None:
+            self.tier_mgr.on_version_deleted(tiered)
         self._publish_event(
             "s3:ObjectRemoved:DeleteMarkerCreated" if dm is not None
             else "s3:ObjectRemoved:Delete", bucket, key,

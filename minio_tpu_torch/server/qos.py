@@ -25,9 +25,9 @@ cmd/bucket-quota.go and the bandwidth monitor:
     the background planes: `scale_workers` shrinks batch concurrency
     and `bg_pause` sleeps between items, so background work stops
     competing with foreground GET/PUT under load and recovers when
-    pressure clears.  Heal takes both; the scanner, decommission, ILM
-    and replication take them when they are ported (ROADMAP Queue A
-    items 9 and 10).
+    pressure clears.  Heal, the scanner, decommission and replication
+    take them, and the ILM transition workers `scale_workers("ilm")`
+    (bucket/tier.run_transitions).
 
 Fork-shared by construction: all mutable state lives in one anonymous
 ``mmap(-1)`` guarded by a fork-inherited lock, created BEFORE the worker

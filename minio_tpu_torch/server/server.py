@@ -23,9 +23,18 @@ GET lists them, DELETE drops one by ARN) and the replication plane
 resync; POST `{"op": "resync", "bucket": ...}` starts or resumes one)
 and the server configuration (`config`: GET the subsystems, or with
 `subsys=` one subsystem's values, POST `{"subsys", "key", "value"}` sets
-one; `config-help`); POST / is STS
+one, and a `notify_*` target it enables registers at once;
+`config-help`), the tiers (`tier`: GET lists them with their usage and
+the journal's pending records, POST registers one, `{"name", "type":
+"fs" | "s3" | "pool", ...}`, PUT replaces one, DELETE `?name=` drops
+one) and the ILM plane (`ilm`: GET the tier manager's counters, POST
+`{"op": "drain"}` drains the tier journal and `{"bucket", "object",
+"tier"}` transitions one object); POST / is STS
 (AssumeRole, WebIdentity and ClientGrants through OIDC, LDAPIdentity,
-Certificate over mTLS).  Objects serve ?retention and ?legal-hold.
+Certificate over mTLS).  Objects serve ?retention and ?legal-hold, and
+`POST ?restore` copies a transitioned version back from its tier: for
+good, or with `<RestoreRequest><Days>N</Days></RestoreRequest>` for N
+days, after which the scanner drops the hot copy (bucket/tier.py).
 
 Bucket notifications (bucket/notify.py): the server's
 NotificationSystem holds the buckets' `?notification` rules and the
@@ -105,7 +114,7 @@ from ..ops import zerocopy as zc
 from ..storage.errors import StorageError
 from ..utils import streams
 from . import postpolicy, qos as _qos, sigv2
-from .api_errors import S3Error
+from .api_errors import S3Error, from_storage_error
 from .handlers import Response, S3Handlers, error_response, unported
 from .sigv4 import (STREAMING_PAYLOAD, UNSIGNED_PAYLOAD, Credentials,
                     StreamingSigV4Reader, decode_streaming_body,
@@ -266,6 +275,8 @@ NOTIFY_FAMILIES = (
      "Events parked in a target's queue store while it was down"),
     ("retried", "mtpu_notify_events_retried_total",
      "Parked events a retry pass delivered"),
+    ("dropped", "mtpu_notify_events_dropped_total",
+     "Events whose rule names an ARN with no registered target"),
     ("backlog", "mtpu_notify_backlog_events",
      "Events parked in this process's queue stores now"))
 
@@ -358,8 +369,12 @@ class S3Server:
                  oidc=None, ldap=None, client_ca: str | None = None,
                  reuse_port: bool = False, worker_plane=None,
                  worker_id: int | None = None, rpc_router=None,
-                 scanner=None, replication=None, notify=None):
+                 scanner=None, replication=None, notify=None,
+                 tier_mgr=None):
         self.pools = pools
+        # bucket/tier.TierManager (the boot's; None serves no tier and
+        # refuses restore and the admin tier API).
+        self.tier_mgr = tier_mgr
         # A cluster node's RPC planes, served under this port; its
         # ClusterNode (set by server/cluster.boot_cluster_node) gives the
         # peers' liveness to the metrics.
@@ -386,6 +401,8 @@ class S3Server:
         self._own_notify = notify is None
         self.notify = notify if notify is not None else \
             _notify.NotificationSystem()
+        # The notify_* settings the registered targets were built from.
+        self._notify_seen = None
         # The process that runs decommission movers: one process alone,
         # or the pool's worker 0.
         self.decom_owner = worker_plane is None or worker_id == 0
@@ -973,6 +990,16 @@ class S3Server:
             self.replication = replication
         if iam is not None:
             self.iam = iam
+        if self.tier_mgr is None:
+            # The tier plane needs the object layer: stand it up now
+            # (its journal replayed), as the JAX server does; tiering
+            # must not block a boot.
+            from ..bucket.tier import TierManager
+            try:
+                self.tier_mgr = TierManager(pools)
+            except Exception as e:  # noqa: BLE001
+                print(f"minio_tpu_torch: tier manager: {e}",
+                      file=sys.stderr, flush=True)
         self._bind_handlers(pools, wire)
         self.pools = pools
 
@@ -982,9 +1009,11 @@ class S3Server:
         with a persisted replication config and registered targets
         replicates again (cf. the JAX `_reload_replication`)."""
         h = S3Handlers(pools, self._usage_source(pools),
-                       replication=self.replication, notify=self.notify)
+                       replication=self.replication, notify=self.notify,
+                       tier_mgr=self.tier_mgr)
+        h.refresh_targets = lambda: self._register_new_targets(h, True)
         if self.scanner is not None:
-            self.scanner.attach_config(h.meta)
+            self.scanner.attach_config(h.meta, self.tier_mgr)
         if self.replication is not None:
             for bucket in pools.list_buckets():
                 self._wire_replication(h, bucket)
@@ -999,6 +1028,18 @@ class S3Server:
         MTPU_NOTIFY_STORE_DIR (one directory per worker in the pool),
         and every bucket's persisted rules.  A bad target config is
         logged, not fatal."""
+        self._register_new_targets(h)
+        self._load_notification_rules(h, pools)
+
+    def _register_new_targets(self, h: S3Handlers,
+                              reread: bool = False) -> None:
+        """Register the target of each enabled notify_* subsystem whose
+        ARN has none yet (at the boot every one; after a configuration
+        set, here or in another process (`reread` loads the stored
+        configuration first), the ones it enabled).  Nothing is built
+        while the notify_* settings are those of the last registration.
+        A target already registered keeps running: a changed setting of
+        its subsystem applies at the next boot."""
         import os as _os
         from ..bucket.event_targets import targets_from_config
         store = _os.environ.get("MTPU_NOTIFY_STORE_DIR") or None
@@ -1007,13 +1048,25 @@ class S3Server:
             pool_kw = {"worker": self.worker_id,
                        "workers": self.worker_plane.nworkers}
         try:
-            for t in targets_from_config(h.config_sys, store_dir=store,
-                                         **pool_kw):
+            if reread:
+                h.config_sys.load()
+            cs = h.config_sys
+            seen = tuple((sub, tuple(sorted(cs.get_subsys(sub).items())))
+                         for sub in cs.help()["subsystems"]
+                         if sub.startswith("notify_"))
+            if seen == self._notify_seen:
+                return
+            for t in targets_from_config(cs, store_dir=store, **pool_kw):
+                if t.arn in self.notify.targets:
+                    close = getattr(t, "close", None)
+                    if close is not None:
+                        close()
+                    continue
                 self.notify.register_target(t)
+            self._notify_seen = seen
         except Exception as e:  # noqa: BLE001 — not boot-fatal
             print(f"minio_tpu_torch: notify config targets: {e}",
                   file=sys.stderr, flush=True)
-        self._load_notification_rules(h, pools)
 
     def _load_notification_rules(self, h: S3Handlers, pools) -> None:
         try:
@@ -1025,13 +1078,17 @@ class S3Server:
     def reload_bucket_configs(self) -> None:
         """Another process (a worker of the pool, a cluster node) stored
         or deleted a bucket config or the server configuration: reread
-        the configuration, drop the cached bucket configs, reload the
-        notification rules and rewire replication from the persisted
+        the configuration, drop the cached bucket configs, register the
+        notification targets it enabled, reload the notification rules,
+        the persisted tiers, and rewire replication from the persisted
         configs (a removed config or target unwires)."""
         self.handlers.config_sys.load()
         self.handlers.apply_config()
         self.handlers.meta.invalidate()
+        self._register_new_targets(self.handlers)
         self._load_notification_rules(self.handlers, self.pools)
+        if self.tier_mgr is not None:
+            self.tier_mgr.load_persisted_tiers()
         if self.replication is None:
             return
         for bucket in self.pools.list_buckets():
@@ -1456,6 +1513,10 @@ class S3Server:
             return self._admin_replication(method, query, body)
         if sub == "config":
             return self._admin_config(method, query, body)
+        if sub == "tier":
+            return self._admin_tier(method, query, body)
+        if sub == "ilm":
+            return self._admin_ilm(method, body)
         if sub == "config-help" and method == "GET":
             return _json(self.handlers.config_sys.help(
                 query.get("subsys", [""])[0]))
@@ -1501,8 +1562,118 @@ class S3Server:
             except KeyError as e:
                 raise S3Error("InvalidArgument", str(e)) from None
             self.handlers.apply_config()
+            if req["subsys"].startswith("notify_"):
+                self._register_new_targets(self.handlers)
             return _json({"ok": True})
         raise S3Error("MethodNotAllowed")
+
+    def _admin_tier(self, method: str, query: dict,
+                    body: bytes) -> Response:
+        """`mc admin tier add/ls/rm` (cf. AddTierHandler / ListTierHandler,
+        cmd/admin-handlers-pools.go).  A registration persists on the
+        system volume (credentials sealed with the KMS, refused without
+        one); a duplicate name is 409 unless PUT replaces it (the
+        credential rotation of EditTierHandler)."""
+        tm = self.tier_mgr
+        if tm is None:
+            return _json({"error": "tiering not enabled"}, 501)
+        if method == "GET":
+            st = tm.stats()
+            return _json({"tiers": tm.list_tiers(), "usage": st["tiers"],
+                          "journal_pending": st["journal_pending"]})
+        if method == "DELETE":
+            name = query.get("name", [""])[0]
+            if not name:
+                raise S3Error("InvalidArgument", "name required")
+            try:
+                removed = tm.remove_tier(name)
+            except ValueError as e:
+                return _json({"error": str(e)}, 409)
+            if not removed:
+                return _json({"error": f"no tier {name!r}"}, 404)
+            return _json({"ok": True})
+        if method in ("POST", "PUT"):
+            req = json.loads(body or b"{}")
+            try:
+                name = req["name"]
+                kind = req.get("type", "fs")
+                if kind not in ("fs", "s3", "pool"):
+                    raise S3Error("InvalidArgument",
+                                  f"unknown tier type {kind!r}")
+                cfg = {k: v for k, v in req.items() if k != "name"}
+                tm.add_tier(name, tm.backend_for(cfg), config=cfg,
+                            replace=method == "PUT")
+            except KeyError as e:
+                raise S3Error("InvalidArgument",
+                              f"missing field {e}") from None
+            except ValueError as e:
+                return _json({"error": str(e)}, 409)
+            except StorageError as e:
+                # No KMS to seal its credentials, or a stored config
+                # that cannot be rewritten.
+                raise S3Error("InvalidArgument", str(e)) from None
+            return _json({"ok": True})
+        raise S3Error("MethodNotAllowed")
+
+    def _admin_ilm(self, method: str, body: bytes) -> Response:
+        """The ILM plane: GET the tier manager's counters; POST
+        `{"op": "drain"}` drains the journal, `{"bucket", "object",
+        "tier"}` transitions one object now (what the scanner does on its
+        own cadence)."""
+        tm = self.tier_mgr
+        if tm is None:
+            return _json({"error": "tiering not enabled"}, 501)
+        if method == "GET":
+            return _json(tm.stats())
+        if method != "POST":
+            raise S3Error("MethodNotAllowed")
+        req = json.loads(body or b"{}")
+        if req.get("op") == "drain":
+            freed = tm.drain_journal()
+            return _json({"freed": freed, "pending": tm.journal.pending()})
+        bkt, okey, tname = (req.get("bucket"), req.get("object"),
+                            req.get("tier"))
+        if not bkt or not okey or not tname:
+            raise S3Error("InvalidArgument",
+                          "bucket, object, tier required")
+        try:
+            moved = tm.transition_object(bkt, okey, tname,
+                                         req.get("versionId", ""))
+        except StorageError as e:
+            raise from_storage_error(e) from None
+        return _json({"transitioned": bool(moved)})
+
+    def _restore(self, bucket: str, key: str, query: dict,
+                 body: bytes) -> Response:
+        """POST ?restore (PostRestoreObjectHandler): an empty body
+        restores for good; `<RestoreRequest><Days>N</Days>` for N days
+        (`x-amz-restore`, the scanner re-expires it).  202 Accepted; a
+        version that is not transitioned is InvalidObjectState."""
+        tm = self.tier_mgr
+        if tm is None:
+            raise S3Error("NotImplemented", "tiering not enabled")
+        days = None
+        if body:
+            try:
+                root = ET.fromstring(body)
+                dtext = root.findtext(".//{*}Days") or \
+                    root.findtext(".//Days")
+                if dtext is not None:
+                    days = float(dtext)
+                    if days <= 0:
+                        raise ValueError(dtext)
+            except ET.ParseError:
+                raise S3Error("MalformedXML") from None
+            except ValueError as e:
+                raise S3Error("InvalidArgument", f"bad Days: {e}") from None
+        try:
+            restored = tm.restore_object(
+                bucket, key, query.get("versionId", [""])[0], days=days)
+        except StorageError as e:
+            raise from_storage_error(e) from None
+        if not restored:
+            raise S3Error("InvalidObjectState")
+        return Response(202)
 
     def _listen_response(self, bucket: str, query: dict) -> Response:
         """ListenNotification: `GET /{bucket}?events=...` (and the minio
@@ -1737,6 +1908,8 @@ class S3Server:
             "sets": detail["sets"],
             "replication": (self.replication.stats()
                             if self.replication is not None else None),
+            "ilm": (self.tier_mgr.stats()
+                    if self.tier_mgr is not None else None),
         })
 
     def _admin_datausage(self) -> Response:
@@ -2261,7 +2434,7 @@ class S3Server:
             return h.delete_object(bucket, key, query, headers)
         if method == "POST":
             if "restore" in query:
-                raise unported("restore from a tier")
+                return self._restore(bucket, key, query, body)
             if "select" in query:
                 raise unported("S3 Select")
             if "uploads" in query:

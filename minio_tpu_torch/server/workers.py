@@ -96,10 +96,14 @@ the usage it persisted.
 
 Bucket configs and the server configuration: a worker that stores one
 (a `?versioning`, `?notification`, `?replication`... PUT or DELETE, an
-admin `config` set) bumps the shared config generation, and every
-worker rereads the configuration, drops its cached bucket configs,
-reloads the notification rules and rewires replication at its next
-look (`mtpu_worker_config_generation` shows it).  Each worker builds
+admin `config` set, an admin `tier` add or remove) bumps the shared
+config generation, and every worker rereads the configuration, drops
+its cached bucket configs, registers the notification targets a set
+enabled, reloads the notification rules and the persisted tiers and
+rewires replication at its next look (`mtpu_worker_config_generation`
+shows it).  The tier journal is one file for the pool: appends and
+compactions hold its flock, and no worker reaps the copy of a
+transition another live worker runs (bucket/tier.py).  Each worker builds
 the configuration's notification targets with a queue store of its own
 (`<MTPU_NOTIFY_STORE_DIR>/<kind>/w<worker>`, which a respawn takes
 over) and publishes its event counters in its slab
@@ -130,7 +134,8 @@ KERNELS = ("gf_matmul", "hh256", "mxh256")
 
 #: the notification counters each worker publishes (server/server.py
 #: notify_counters)
-NOTIFY_COUNTERS = ("sent", "delivered", "parked", "retried", "backlog")
+NOTIFY_COUNTERS = ("sent", "delivered", "parked", "retried", "dropped",
+                   "backlog")
 
 #: records in the request ring and in each worker's response ring
 RING_CAPACITY = 512
@@ -470,7 +475,9 @@ class WorkerPlane:
                 ("parked", "Events this worker parked while a target "
                            "was down"),
                 ("retried", "Parked events this worker's retry passes "
-                            "delivered")):
+                            "delivered"),
+                ("dropped", "Events this worker dropped: their rule "
+                            "names an ARN with no target")):
             per_worker(f"mtpu_worker_notify_events_{key}_total", help_,
                        f"notify_{key}")
         per_worker("mtpu_worker_notify_backlog_events",
@@ -685,7 +692,7 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
     from . import boot
     from . import topology as topo
     from .__main__ import (LEFT_OUT, adopt_pools, config_line,
-                           replication_line)
+                           replication_line, tier_manager)
     from .server import S3Server, notify_counters
     from .sigv4 import Credentials
 
@@ -745,12 +752,20 @@ def _worker_main(plane: WorkerPlane, idx: int, cfg: dict,
         replication = ReplicationPool(pools)
         print(f"{replication_line(replication)} [worker {idx}]",
               flush=True)
+        # One tier journal and one tier registry for the pool: each
+        # worker's manager replays what no live process owns, and a tier
+        # one worker registers reaches the others through the config
+        # generation.
+        tier_mgr, line = tier_manager(pools)
+        if line:
+            print(f"{line} [worker {idx}]", flush=True)
+        tier_mgr.on_change = lambda: plane.state.note_config_write(idx)
         iam = IAMSys(pools)
         srv = S3Server(pools, Credentials(*cfg["creds"]), host=cfg["host"],
                        port=cfg["port"], certs=cfg["certs"], iam=iam,
                        reuse_port=True, worker_plane=plane,
                        worker_id=idx, scanner=scanner,
-                       replication=replication).start()
+                       replication=replication, tier_mgr=tier_mgr).start()
         stop = _stop_event()
         # A bucket config or server config this worker stores reaches
         # the others' caches, notification rules and replication wiring

@@ -16,7 +16,8 @@ SIGKILL in a harness's log).  With nothing armed (every normal boot) a
 crash point is one falsy dict check.
 
 The port arms the decommission mover's four points (background/
-decom.py) and replication's four (bucket/replication.py).  The drive's
+decom.py), the tier's four (bucket/tier.py) and replication's four
+(bucket/replication.py).  The drive's
 and the engine's points of the JAX registry wait for the crash matrix
 (ROADMAP.md Queue A item 11); naming one raises, as any unknown point
 does.
@@ -33,6 +34,10 @@ POINTS = (
     "decom.post_copy",           # mover: copy published, source intact
     "decom.pre_delete",          # mover: dest verified, source not deleted
     "decom.checkpoint",          # mover: source gone, journal not appended
+    "ilm.pre_stub",              # transition: intent journaled, no copy
+    "ilm.post_copy",             # transition: tier copy durable, hot intact
+    "ilm.pre_delete",            # free journaled, tier object not deleted
+    "ilm.checkpoint",            # stub published, journal 'done' not appended
     "repl.enqueue",              # replication: intent journaled, not runnable
     "repl.pre_copy",             # replication: task taken, nothing copied
     "repl.post_copy",            # replication: copy landed, not counted

@@ -11,8 +11,7 @@ equal stats, equal surviving version lists).
   locked version; rules that cannot fire cost no pass.
 - tests/test_bucket_features.py's TestLifecycle on both servers, the
   served 404 of a bucket without a config, and a Transition rule, which
-  the port answers NotImplemented (the tier waits; the JAX server stores
-  it).
+  both servers store (tests/test_torch_tier.py runs the transitions).
 """
 
 import datetime
@@ -334,8 +333,7 @@ class TestLifecycleServer:
         assert st == 400 and b"MalformedXML" in body
 
     def test_a_transition_rule(self, stack):
-        """The tier waits: the port answers NotImplemented and stores
-        nothing; the JAX server stores the config."""
+        """Both servers store a Transition rule and read it back."""
         pkg, _, cli = stack
         cli.make_bucket("ltr")
         xml = (b"<LifecycleConfiguration><Rule><Status>Enabled</Status>"
@@ -344,10 +342,6 @@ class TestLifecycleServer:
                b"</LifecycleConfiguration>")
         st, _, body = cli.request("PUT", "/ltr", query={"lifecycle": ""},
                                   body=xml)
-        if pkg is PORT:
-            assert st == 501 and b"NotImplemented" in body
-            assert b"lifecycle transition" in body and b"item 10)" in body
-            st, _, _ = cli.request("GET", "/ltr", query={"lifecycle": ""})
-            assert st == 404
-        else:
-            assert st == 200
+        assert st == 200, body
+        st, _, got = cli.request("GET", "/ltr", query={"lifecycle": ""})
+        assert (st, got) == (200, xml)

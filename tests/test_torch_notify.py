@@ -558,3 +558,98 @@ def test_rules_reload_from_the_store(tmp_path, receiver):
             srv2.shutdown()
     finally:
         close_pools(pools)
+
+
+# -- order and unknown ARNs --------------------------------------------------
+
+def _port_server(tmp_path, ns=None):
+    pools = PORT.pools(tmp_path, "d")
+    srv = PORT.S3Server(pools, PORT.sigv4.Credentials(ACCESS, SECRET),
+                        notify=ns).start()
+    return pools, srv, S3Client(srv.endpoint, ACCESS, SECRET,
+                                timeout=TIMEOUT)
+
+
+def test_a_parked_put_arrives_before_the_next_delete(tmp_path, receiver,
+                                                     monkeypatch):
+    """Order across an outage: a PUT's event parked while the target was
+    down, then the DELETE of the same key once it is back but before the
+    retry pass: the target gets the PUT first.  The DELETE parks behind
+    the store; before the repair it went straight out and overtook it."""
+    monkeypatch.setattr(port_notify, "RETRY_INTERVAL_S", 0.4)
+    ns = port_notify.NotificationSystem()
+    ns.register_target(port_notify.WebhookTarget(
+        ARN, receiver.url, store_dir=str(tmp_path / "store")))
+    pools, srv, cli = _port_server(tmp_path, ns)
+    try:
+        cli.make_bucket("ord")
+        cli._check(*cli.request("PUT", "/ord", query={"notification": ""},
+                                body=_RULES))
+        receiver.up = False
+        for i in range(3):
+            cli.put_object("ord", "k", b"v%d" % i)
+        receiver.up = True
+        cli.delete_object("ord", "k")
+        cli.put_object("ord", "other", b"x")
+        _until(lambda: len(receiver.records) == 5, "the store's delivery")
+        got = [(r["eventName"], r["s3"]["object"]["key"])
+               for r in receiver.records]
+        put, dele = "s3:ObjectCreated:Put", "s3:ObjectRemoved:Delete"
+        assert got == [(put, "k")] * 3 + [(dele, "k"), (put, "other")]
+        assert not os.listdir(tmp_path / "store")
+    finally:
+        srv.shutdown()
+        ns.close()
+        close_pools(pools)
+
+
+def test_an_event_for_an_arn_without_target_is_counted(tmp_path, receiver):
+    """A rule stored before the ARN check (here written to the config
+    store behind the server's back) still names a missing target: its
+    events are counted as dropped; the webhook's rule delivers."""
+    ns = port_notify.NotificationSystem()
+    ns.register_target(port_notify.WebhookTarget(ARN, receiver.url))
+    pools, srv, cli = _port_server(tmp_path, ns)
+    try:
+        cli.make_bucket("drp")
+        ghost = _RULES.replace(b"</NotificationConfiguration>", (
+            b"<QueueConfiguration><Queue>arn:minio:sqs::1:kafka</Queue>"
+            b"<Event>s3:ObjectCreated:*</Event></QueueConfiguration>"
+            b"</NotificationConfiguration>"))
+        srv.handlers.meta.put("drp", "notification", ghost)
+        srv.reload_bucket_configs()
+        before = port_notify.stats()
+        cli.put_object("drp", "a", b"x")
+        after = port_notify.stats()
+        assert after["dropped"] - before["dropped"] == 1
+        assert after["sent"] - before["sent"] == 1
+        assert [r["s3"]["object"]["key"] for r in receiver.records] == ["a"]
+    finally:
+        srv.shutdown()
+        close_pools(pools)
+
+
+def test_a_target_set_through_admin_config_registers_at_once(tmp_path,
+                                                            receiver):
+    """`admin config set notify_webhook` without a restart: the target
+    registers in the serving process, so a rule naming its ARN is stored
+    and routes the next PUT (before, the rule was stored and its events
+    dropped until a restart built the target)."""
+    pools, srv, cli = _port_server(tmp_path)
+    try:
+        cli.make_bucket("adm")
+        st, body = cli.request("PUT", "/adm", query={"notification": ""},
+                               body=_RULES)[::2]
+        assert st == 400 and b"InvalidArgument" in body
+        for key, value in (("endpoint", receiver.url), ("enable", "on")):
+            assert cli.admin("POST", "config", doc={
+                "subsys": "notify_webhook", "key": key,
+                "value": value}) == (200, {"ok": True})
+        assert ARN in srv.notify.targets
+        cli._check(*cli.request("PUT", "/adm", query={"notification": ""},
+                                body=_RULES))
+        cli.put_object("adm", "k", b"x")
+        assert [r["s3"]["object"]["key"] for r in receiver.records] == ["k"]
+    finally:
+        srv.shutdown()
+        close_pools(pools)

@@ -9,6 +9,7 @@ presigned, tampered presigned, aws-chunked streaming, the chunk-size
 cap), key encoding and TLS."""
 
 import datetime
+import hashlib
 import http.client
 import io
 import socket
@@ -504,7 +505,9 @@ class TestPortOnly:
                     # test_torch_notify.py).
                     ("GET", "/npx", {"encryption": ""}, None, "10"),
                     ("POST", "/npx/o", {"select": ""}, None, "10"),
-                    ("POST", "/npx/o", {"restore": ""}, None, "10"),
+                    # Restore and the admin tier API are served
+                    # (tests/test_torch_tier.py); below, a server without
+                    # a tier manager refuses them.
                     ("GET", "/minio/admin/v3/bandwidth", None, None, "10"),
                     # Heal sequences, `info`, `datausage` and the pools
                     # are served; the service actions only on a cluster
@@ -519,6 +522,10 @@ class TestPortOnly:
                 assert st == 501, (method, path, body)
                 assert b"NotImplemented" in body
                 assert f"item {item})".encode() in body, body
+            st, _, body = cli.request("POST", "/npx/o",
+                                      query={"restore": ""})
+            assert st == 501 and b"tiering not enabled" in body, body
+            assert cli.admin("GET", "tier")[0] == 501
             # The metrics plane, unsigned.
             for path, headers in (("/minio/v2/metrics/node", {}),
                                   ("/minio/v2/metrics/cluster", {})):
@@ -545,9 +552,9 @@ class TestPortOnly:
 
     def test_object_stored_through_unported_plane_not_served(self,
                                                              tmp_path):
-        """An object whose metadata says SSE, compression or tiering is
-        refused, not served as plain bytes; a quota'd bucket takes no
-        write."""
+        """An object whose metadata says SSE or compression is refused,
+        not served as plain bytes, and so is a tiered stub in a server
+        without a tier manager; a quota'd bucket takes no write."""
         pools = PORT.pools(tmp_path, "q")
         srv = PORT.S3Server(pools, port_sigv4.Credentials(
             ACCESS, SECRET)).start()
@@ -595,3 +602,121 @@ class TestPortOnly:
             close_pools(pools)
         with pytest.raises(OSError):
             socket.create_connection((srv.host, srv.port), timeout=2)
+
+
+class TestTierFrontDoor:
+    """The tier's front door on both servers over a directory tier:
+    the admin `tier` and `ilm` endpoints, a stub's storage class on
+    HEAD, `POST ?restore` for some days (x-amz-restore) and for good,
+    and a restore of a plain object (InvalidObjectState).  The answers
+    must agree (tests/test_torch_tier.py holds the bytes and the
+    journal)."""
+
+    @staticmethod
+    def _run(pkg, tmp_path) -> list:
+        import json as _json
+        import minio_tpu.bucket.tier as jax_tier
+        import minio_tpu_torch.bucket.tier as port_tier
+        tier_mod = port_tier if pkg is PORT else jax_tier
+        pools = pkg.pools(tmp_path / pkg.name, "t")
+        tm = tier_mod.TierManager(pools)
+        srv = pkg.S3Server(pools, pkg.sigv4.Credentials(ACCESS, SECRET),
+                           tier_mgr=tm).start()
+        out = []
+        try:
+            cli = pkg.S3Client(srv.endpoint, ACCESS, SECRET,
+                               **pkg.client_kw)
+
+            def admin(method, sub, doc=None, query=None):
+                st, _, body = cli.request(
+                    method, f"/minio/admin/v3/{sub}", query=query,
+                    body=_json.dumps(doc).encode() if doc else b"")
+                out.append((method, sub, st, _json.loads(body or b"{}")))
+
+            def s3(method, path, query=None, body=b"", keep=()):
+                st, h, data = cli.request(method, path, query=query,
+                                          body=body)
+                # An error's body carries a request id: keep its Code.
+                what = (data.split(b"<Code>")[1].split(b"</Code>")[0]
+                        if st >= 400 else hashlib.sha256(data).hexdigest())
+                out.append((method, path, st,
+                            {k: h.get(k) for k in keep}, what))
+                return h
+
+            data = np.random.default_rng(7).bytes(300_000)
+            cli.make_bucket("tfd")
+            cli.put_object("tfd", "obj", data)
+            cli.put_object("tfd", "plain", data[:1000])
+            admin("POST", "tier", {"name": "warm", "type": "fs",
+                                   "path": str(tmp_path / pkg.name / "w")})
+            admin("POST", "tier", {"name": "warm", "type": "fs",
+                                   "path": str(tmp_path / "other")})
+            admin("GET", "tier")
+            admin("POST", "ilm", {"bucket": "tfd", "object": "obj",
+                                  "tier": "WARM"})
+            admin("POST", "ilm", {"bucket": "tfd", "object": "obj",
+                                  "tier": "WARM"})
+            keep = ("Content-Length", "x-amz-storage-class",
+                    "x-amz-restore")
+            s3("HEAD", "/tfd/obj", keep=keep)
+            s3("GET", "/tfd/obj", keep=keep)
+            s3("POST", "/tfd/plain", {"restore": ""})
+            s3("POST", "/tfd/obj", {"restore": ""}, body=b"<bad")
+            s3("POST", "/tfd/obj", {"restore": ""},
+               body=b"<RestoreRequest><Days>0</Days></RestoreRequest>")
+            s3("POST", "/tfd/obj", {"restore": ""},
+               body=b"<RestoreRequest><Days>2</Days></RestoreRequest>")
+            h = s3("HEAD", "/tfd/obj", keep=keep[:2])
+            assert h["x-amz-restore"].startswith(
+                'ongoing-request="false", expiry-date="')
+            s3("GET", "/tfd/obj", keep=keep[:2])
+            s3("POST", "/tfd/obj", {"restore": ""})
+            s3("HEAD", "/tfd/obj", keep=keep)
+            s3("POST", "/tfd/obj", {"restore": ""})
+            admin("GET", "tier")
+            admin("DELETE", "tier", query={"name": "warm"})
+            admin("DELETE", "tier", query={"name": "warm"})
+            doc = tm.stats()
+            out.append({k: doc[k] for k in (
+                "transitioned", "restored", "freed", "journal_pending")})
+        finally:
+            srv.shutdown()
+            close_pools(pools)
+        return out
+
+    def test_tier_requests_match_jax(self, tmp_path):
+        jax_out = self._run(JAX, tmp_path)
+        port_out = self._run(PORT, tmp_path)
+        assert port_out == jax_out
+        statuses = [r[2] for r in port_out[:-1]]
+        assert statuses == [200, 409, 200, 200, 200, 200, 200, 403, 400,
+                            400, 202, 200, 200, 202, 200, 403, 200, 200,
+                            404], statuses
+        assert port_out[-1] == {"transitioned": 1, "restored": 2,
+                                "freed": 1, "journal_pending": 0}
+
+    def test_a_rule_for_an_unknown_arn_is_refused(self, tmp_path):
+        """The port refuses a `?notification` rule whose ARN names no
+        registered target (MinIO's ARN check), and stores nothing."""
+        pools = PORT.pools(tmp_path, "a")
+        srv = PORT.S3Server(pools, port_sigv4.Credentials(
+            ACCESS, SECRET)).start()
+        try:
+            cli = PORT.S3Client(srv.endpoint, ACCESS, SECRET,
+                                timeout=TIMEOUT)
+            cli.make_bucket("arnb")
+            rules = (b"<NotificationConfiguration><QueueConfiguration>"
+                     b"<Queue>arn:minio:sqs::1:webhook</Queue><Event>"
+                     b"s3:ObjectCreated:*</Event></QueueConfiguration>"
+                     b"</NotificationConfiguration>")
+            st, _, body = cli.request("PUT", "/arnb",
+                                      query={"notification": ""},
+                                      body=rules)
+            assert st == 400 and b"InvalidArgument" in body, body
+            assert b"arn:minio:sqs::1:webhook" in body
+            st, _, body = cli.request("GET", "/arnb",
+                                      query={"notification": ""})
+            assert st == 404 and b"NoSuchNotificationConfiguration" in body
+        finally:
+            srv.shutdown()
+            close_pools(pools)

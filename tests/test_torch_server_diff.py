@@ -41,9 +41,14 @@ _NORMALISED = ("RequestId", "LastModified", "VersionId", "UploadId",
 #: label -> ((JAX status, Code), (port status, Code)).  A PUT of a bucket
 #: the caller already owns is 409 BucketAlreadyOwnedByYou in MinIO
 #: (cmd/bucket-handlers.go PutBucketHandler); the JAX server's handler
-#: crashes on it.
+#: crashes on it.  A `?notification` rule whose ARN names no registered
+#: target is refused with InvalidArgument, as MinIO refuses it when it
+#: parses the configuration; the JAX server stores it, and its events
+#: then go nowhere.
 _DIVERGES = {"/dbk#again": ((500, b"InternalError"),
-                            (409, b"BucketAlreadyOwnedByYou"))}
+                            (409, b"BucketAlreadyOwnedByYou")),
+             "/dbk?notification#unknown-arn": (
+                 (200, ""), (400, b"InvalidArgument"))}
 
 
 def _normalise_xml(body: bytes) -> bytes:
@@ -104,7 +109,7 @@ def _id(data: bytes, tag: str) -> str:
 
 
 def script(do, seed: int) -> None:
-    """74 requests: every handler of the slice and its errors."""
+    """75 requests: every handler of the slice and its errors."""
     rng = np.random.default_rng(seed)
 
     def body(n):
@@ -115,6 +120,11 @@ def script(do, seed: int) -> None:
     # buckets
     do("PUT", "/dbk")
     do("PUT", "/dbk", label="/dbk#again")           # see _DIVERGES
+    do("PUT", "/dbk", {"notification": ""},         # see _DIVERGES
+       label="/dbk?notification#unknown-arn",
+       body=b"<NotificationConfiguration><QueueConfiguration><Queue>"
+            b"arn:minio:sqs::1:webhook</Queue><Event>s3:ObjectCreated:*"
+            b"</Event></QueueConfiguration></NotificationConfiguration>")
     do("PUT", "/AB")                                # InvalidBucketName
     do("HEAD", "/dbk")
     do("HEAD", "/nosuchbkt")
@@ -506,12 +516,10 @@ def test_admin_pool_lifecycle_and_usage_match_jax(tmp_path):
 
 # -- the data-protection planes -------------------------------------------------
 
-#: The data-protection script's divergences, as _DIVERGES: a lifecycle
-#: Transition waits for the tier in the port (NotImplemented; the JAX
-#: server stores the config), and the port's copy runs the PUT's lock
-#: gate (the JAX server's copy replaces a protected version).
+#: The data-protection script's divergences, as _DIVERGES: the port's
+#: copy runs the PUT's lock gate (the JAX server's copy replaces a
+#: protected version).
 _PROTECTION_DIVERGES = {
-    "/pbk?lifecycle#transition": ((200, ""), (501, b"NotImplemented")),
     "/pbk/locked#copy-over": ((200, ""), (400, b"ObjectLocked")),
 }
 

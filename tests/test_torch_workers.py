@@ -1669,3 +1669,172 @@ def test_notifications_and_config_across_workers(tmp_path):
             proc.kill()
             proc.wait(timeout=10)
         recv.close()
+
+
+# -- the tier across workers ---------------------------------------------------
+
+#: A sitecustomize hook for the tier test: worker 1 declines the admin
+#: `tier` and `ilm` POSTs and the restores, worker 0 the GETs, HEADs and
+#: DELETEs in bucket "tierb"; while the file TIER_DOWN_FLAG exists the
+#: directory tier refuses every delete.
+_TIER_HOOK = _LIFECYCLE_HOOK.split("def _fix_handlers")[0].replace(
+    """import minio_tpu_torch.background.decom as dc
+
+_moved = dc.Decommissioner._record_moved
+
+def _slow(self, *a, **kw):
+    time.sleep(0.5)
+    return _moved(self, *a, **kw)
+dc.Decommissioner._record_moved = _slow
+""", "") + '''
+def _worker():
+    return os.environ.get("MTPU_WORKER_ID")
+
+
+def _fix_tier(m):
+    delete = m.DirTierBackend.delete
+
+    def flaky(self, key):
+        if os.path.exists(os.environ["TIER_DOWN_FLAG"]):
+            raise m.ErrTierUnavailable("the tier is down (test flag)")
+        return delete(self, key)
+    m.DirTierBackend.delete = flaky
+
+
+def _fix_handlers(m):
+    get, dele = m.S3Handlers.get_object, m.S3Handlers.delete_object
+
+    def guarded_get(self, bucket, key, *a, **kw):
+        if bucket == "tierb" and _worker() == "0":
+            raise _refuse()
+        return get(self, bucket, key, *a, **kw)
+
+    def guarded_del(self, bucket, key, *a, **kw):
+        if bucket == "tierb" and _worker() == "0":
+            raise _refuse()
+        return dele(self, bucket, key, *a, **kw)
+    m.S3Handlers.get_object = guarded_get
+    m.S3Handlers.delete_object = guarded_del
+
+
+def _fix_server(m):
+    tier, ilm, restore = (m.S3Server._admin_tier, m.S3Server._admin_ilm,
+                          m.S3Server._restore)
+
+    def guarded_tier(self, method, query, body):
+        if method == "POST" and self.worker_id == 1:
+            raise _refuse()
+        return tier(self, method, query, body)
+
+    def guarded_ilm(self, method, body):
+        if method == "POST" and self.worker_id == 1:
+            raise _refuse()
+        return ilm(self, method, body)
+
+    def guarded_restore(self, *a, **kw):
+        if self.worker_id == 1:
+            raise _refuse()
+        return restore(self, *a, **kw)
+    m.S3Server._admin_tier = guarded_tier
+    m.S3Server._admin_ilm = guarded_ilm
+    m.S3Server._restore = guarded_restore
+
+
+_patch("minio_tpu_torch.bucket.tier", _fix_tier)
+_patch("minio_tpu_torch.server.handlers", _fix_handlers)
+_patch("minio_tpu_torch.server.server", _fix_server)
+'''
+
+
+def _until_status(fresh, call, what, want, tries=60):
+    """call(client) on fresh connections until one answers `want` (the
+    other worker declines with 503)."""
+    for _ in range(tries):
+        got = call(fresh())
+        if got[0] == want:
+            return got
+        assert got[0] == 503, got
+    raise AssertionError(f"no worker served {what}")
+
+
+def test_tier_across_workers(tmp_path):
+    """A tier added and an object transitioned through worker 0 serve a
+    stub GET (full and ranged) and HEAD through worker 1.  With the tier
+    refusing deletes, a permanent restore through worker 0 and a stub
+    DELETE through worker 1 each leave a pending free; every append
+    compacts the one journal (MTPU_ILM_CKPT_EVERY=1), and both frees
+    are still in it (a per-process fold, as in the JAX pool, keeps only
+    its own).  Once the tier is back a drain frees both."""
+    from minio_tpu_torch.bucket import tier as port_tier
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(_TIER_HOOK)
+    root = str(tmp_path)
+    warm = str(tmp_path / "warm")
+    flag = tmp_path / "tier-down"
+    proc, port = _boot(root, 2, {
+        "MTPU_RESPAWN_DELAY_S": "0.2", "MTPU_SCANNER": "0",
+        "MTPU_ILM_CKPT_EVERY": "1", "TIER_DOWN_FLAG": str(flag)},
+        pythonpath=str(hook))
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=60)
+
+    data = {k: np.random.default_rng(i).bytes(300_000 + i)
+            for i, k in enumerate(("a", "b"))}
+    try:
+        _wait(lambda: all(_metrics(port).get(
+            f'mtpu_worker_ready{{worker="{w}"}}') == 1 for w in (0, 1)),
+            "both workers", timeout=90, proc=proc)
+        fresh().make_bucket("tierb")
+        for k, v in data.items():
+            fresh().put_object("tierb", k, v)
+        _until_status(fresh, lambda c: c.admin("POST", "tier", doc={
+            "name": "warm", "type": "fs", "path": warm}), "tier add", 200)
+        for k in data:
+            st, doc = _until_status(fresh, lambda c, k=k: c.admin(
+                "POST", "ilm", doc={"bucket": "tierb", "object": k,
+                                    "tier": "WARM"}), f"ilm {k}", 200)
+            assert doc == {"transitioned": True}
+        tkeys = sorted(os.listdir(warm))
+        assert len(tkeys) == 2
+        st, h, body = _until_status(fresh, lambda c: c.request(
+            "GET", "/tierb/a"), "the stub GET", 200)
+        assert body == data["a"]
+        st, h, body = _until_status(fresh, lambda c: c.request(
+            "GET", "/tierb/a", headers={"Range": "bytes=1000-1999"}),
+            "the ranged stub GET", 206)
+        assert body == data["a"][1000:2000]
+        st, h, _ = _until_status(fresh, lambda c: c.request(
+            "HEAD", "/tierb/b"), "the stub HEAD", 200)
+        assert h["x-amz-storage-class"] == "WARM"
+        assert int(h["Content-Length"]) == len(data["b"])
+
+        flag.write_text("down")
+        _until_status(fresh, lambda c: c.request(
+            "POST", "/tierb/a", query={"restore": ""}), "the restore", 202)
+        _until_status(fresh, lambda c: c.request("DELETE", "/tierb/b"),
+                      "the stub DELETE", 204)
+        path = os.path.join(root, "d1", ".mtpu.sys", "tier-journal.jsonl")
+        with open(path) as f:
+            lines = [json.loads(line) for line in f if line.strip()]
+        assert [r["op"] for r in lines] == ["ckpt"]   # compacted
+        frees = port_tier.TierJournal(path).frees
+        assert sorted(k.replace("/", "_") for k in frees) == tkeys
+        assert sorted(os.listdir(warm)) == tkeys
+
+        flag.unlink()
+        st, doc = _until_status(fresh, lambda c: c.admin(
+            "POST", "ilm", doc={"op": "drain"}), "the drain", 200)
+        assert doc == {"freed": 2, "pending": 0}
+        assert os.listdir(warm) == []
+        st, _, body = _until_status(fresh, lambda c: c.request(
+            "GET", "/tierb/a"), "the restored GET", 200)
+        assert body == data["a"]
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)

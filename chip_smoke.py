@@ -378,8 +378,8 @@ HH = "highwayhash256S"
 # an object with DRIVE_HEAL_VERSIONS and a delete marker in bucket b.
 DRIVE_HEAL_OBJECT = OBJECT_BYTES
 # 16 before phases 5o and 5p joined the run, 8 before phase 5q, 4
-# before 5t.
-DRIVE_HEAL_MXH = 2
+# before 5t, 2 before 5u.
+DRIVE_HEAL_MXH = 1
 DRIVE_HEAL_TAIL_OBJECT = TAIL_OBJECT_BYTES
 DRIVE_HEAL_PARTS = (OBJECT_BYTES, OBJECT_BYTES, 5 * MIB + 7)
 DRIVE_HEAL_VERSIONS = (8 * MIB + 1, 3 * MIB + 17)
@@ -432,8 +432,8 @@ SERVER_RANGE = (300 * 1024, MIB)
 # half (8 before phase 5m joined the run) to keep the whole run within
 # its time.
 # DISPATCH_SMALL_PER 4 before phases 5o and 5p joined the run.
-# DISPATCH_SMALL_CLIENTS 16 before phase 5t joined the run.
-DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 8, 2, MIB
+# DISPATCH_SMALL_CLIENTS 16 before phase 5t joined the run, 8 before 5u.
+DISPATCH_SMALL_CLIENTS, DISPATCH_SMALL_PER, DISPATCH_SMALL_BYTES = 4, 2, MIB
 DISPATCH_HH_CLIENTS, DISPATCH_HH_PER = 4, 2
 # DISPATCH_BIG_CLIENTS 4 before phase 5t joined the run.
 DISPATCH_BIG_CLIENTS, DISPATCH_BIG_BYTES = 2, OBJECT_BYTES
@@ -2932,10 +2932,12 @@ def phase_dispatch(args, counts, card):
 IDENTITY_USERS, IDENTITY_GROUPS = 64, 5
 IDENTITY_POLICIES, IDENTITY_SVC = 12, 12
 IDENTITY_BIG_BYTES, IDENTITY_POST_BYTES = OBJECT_BYTES, 32 * MIB
-IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 224, 64 * 1024
-IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 32, MIB
+# IDENTITY_SNOW_SMALL 224, IDENTITY_SNOW_BIG 32 and IDENTITY_AUTH_RUNS 200
+# before phase 5u joined the run.
+IDENTITY_SNOW_SMALL, IDENTITY_SNOW_SMALL_BYTES = 112, 64 * 1024
+IDENTITY_SNOW_BIG, IDENTITY_SNOW_BIG_BYTES = 16, MIB
 IDENTITY_ZIP_MEMBERS, IDENTITY_ZIP_MEMBER_BYTES = 64, MIB
-IDENTITY_ZIP_GETS, IDENTITY_AUTH_RUNS = 4, 200
+IDENTITY_ZIP_GETS, IDENTITY_AUTH_RUNS = 4, 100
 IDENTITY_CLIENTS = 8
 
 
@@ -6995,7 +6997,8 @@ def phase_cluster(args, counts, card):
 # LIFE_WORKERS workers; pool 1 added live; pool 0 drained with
 # LIFE_DURING PUTs of LIFE_DURING_BYTES during the drain and its mover's
 # worker SIGKILLed once LIFE_KILL_AFTER versions moved.
-LIFE_BIG, LIFE_HH = 6, 2
+# LIFE_BIG 6 before phase 5u joined the run.
+LIFE_BIG, LIFE_HH = 4, 2
 # LIFE_SMALL 128 before phase 5r joined the run, 64 before 5s, 32
 # before 5t.
 LIFE_SMALL, LIFE_SMALL_BYTES = 16, (1024, 100 * 1024)
@@ -7480,9 +7483,10 @@ def phase_lifecycle(args, counts, card):
         hold("normal scan", here_items(i0),
              _expected_heal_launches([victim], pos))
         # A corrupted frame of a 64 MiB shard: a deep cycle finds it.
-        victim = live["big4"]
+        victim = live[f"big{LIFE_BIG - 2}"]
         pos = 6
-        part = os.path.join(root, f"c{pos + 1}", "life", "big4",
+        part = os.path.join(root, f"c{pos + 1}", "life",
+                            f"big{LIFE_BIG - 2}",
                             victim.data_dir, "part.1")
         with open(part, "rb") as f:
             part_sha = hashlib.sha256(f.read()).digest()
@@ -8121,16 +8125,29 @@ def phase_protection(args, counts, card):
         pids = {w: int(m[f'mtpu_worker_pid{{worker="{w}"}}'])
                 for w in range(REPL_WORKERS)}
         killed = None
-        kill_keys = []
+        kill_keys, unacked = [], []
         for i in range(REPL_KILL_MAX):
             key = f"kill/{i}"
             data = body(seed, REPL_KILL_BYTES)
             seed += 1
-            h = fresh().put_object("rkill", key, data)
-            records[key, h["x-amz-version-id"]] = (
-                REPL_KILL_BYTES, hashlib.sha256(data).hexdigest(),
-                h["ETag"].strip('"'))
-            kill_keys.append(key)
+            try:
+                h = fresh().put_object("rkill", key, data)
+            except OSError as e:
+                # The worker can die at repl.pre_copy before this PUT's
+                # answer leaves (its copy task runs as the response is
+                # written): the version stands if the engine published
+                # it, which a HEAD after the respawn tells.  That PUT,
+                # the one in flight at the death, is the only one that
+                # may go unanswered.
+                if unacked:
+                    raise SystemExit(f"protection: a second PUT went "
+                                     f"unanswered: {key}: {e!r}")
+                unacked.append((key, hashlib.sha256(data).hexdigest()))
+            else:
+                records[key, h["x-amz-version-id"]] = (
+                    REPL_KILL_BYTES, hashlib.sha256(data).hexdigest(),
+                    h["ETag"].strip('"'))
+                kill_keys.append(key)
             deadline = time.monotonic() + 60
             while killed is None:
                 try:
@@ -8157,6 +8174,9 @@ def phase_protection(args, counts, card):
                 time.sleep(0.02)
             if killed is not None:
                 break
+            if unacked:
+                raise SystemExit(f"protection: {unacked[0][0]}'s PUT went "
+                                 f"unanswered and no worker died")
         if killed is None:
             raise SystemExit("protection: no worker died at repl.pre_copy")
         deadline = time.monotonic() + 240
@@ -8174,6 +8194,19 @@ def phase_protection(args, counts, card):
                                  f"back: {kpool.tail()}")
             time.sleep(0.05)
         respawn_s = time.perf_counter() - t_kill
+        for key, sha in unacked:
+            st, hd, _ = fresh().request("HEAD", f"/rkill/{key}")
+            if st == 200:
+                records[key, hd["x-amz-version-id"]] = (
+                    REPL_KILL_BYTES, sha, hd["ETag"].strip('"'))
+                kill_keys.append(key)
+            elif st != 404:
+                raise SystemExit(f"protection: HEAD {key} {st}")
+            print(f"[protection] the PUT in flight at the death, {key}, "
+                  f"went unanswered; HEAD after the respawn: {st} (the "
+                  f"version {'stands' if st == 200 else 'was not published'})")
+        if not unacked:
+            print("[protection] every PUT to the dying worker was answered")
         for key in kill_keys:
             deadline = time.monotonic() + 60
             while True:
@@ -8373,6 +8406,8 @@ NOTIFY_FIRE_MAX = 16
 NOTIFY_OUTAGE, NOTIFY_KILL, NOTIFY_EVENT_BYTES = 16, 8, 256 * 1024
 NOTIFY_LISTEN, NOTIFY_LISTEN_BYTES, NOTIFY_LISTEN_S = 8, 64 * 1024, 3.0
 NOTIFY_COST = 16
+#: requests that tell which worker a kept-alive connection reaches
+NOTIFY_PROBES = 8
 NOTIFY_WEBHOOK, NOTIFY_NATS = ("arn:minio:sqs::1:webhook",
                                "arn:minio:sqs::1:nats")
 
@@ -8516,9 +8551,11 @@ def phase_notify(args, counts, card):
     its event name, key, size, ETag and version id); a rule changed
     through one worker and fired through the other; the webhook down for
     NOTIFY_OUTAGE PUTs, then back (the parked events delivered by the
-    retry loops, none lost, none twice); down again while the worker
-    holding parked events is SIGKILLed, then back (its respawn delivers
-    its predecessor's; duplicates counted); ListenNotification on an
+    pool's store's one sender, none lost, none twice); one key's PUT
+    parked by one worker and its DELETE served by the other after the
+    webhook's return (the PUT's record first); down again while the
+    worker that parked a key's pair is SIGKILLed, then back (nothing
+    lost; duplicates counted); ListenNotification on an
     in-process server (items from this process); the webhook's cost on
     the request path, PUTs with a matching rule against PUTs without, in
     turns (a notification adds no device item).  No CUDA context in a
@@ -8649,8 +8686,7 @@ def phase_notify(args, counts, card):
 
         def sticky():
             """A client whose requests share one keep-alive connection,
-            so one worker serves them all (each worker has its own store
-            and sender: the per-key order holds within a worker)."""
+            so one worker serves them all."""
             import http.client
             conn = http.client.HTTPConnection("127.0.0.1", port,
                                               timeout=600)
@@ -8892,8 +8928,9 @@ def phase_notify(args, counts, card):
             put("evt", key, NOTIFY_EVENT_BYTES, "outage")
         wait_for(nats, "evt", set(outage), "NATS during the outage")
         m = metrics()
+        # The pool's one store: every worker sees all that is parked.
         parked = per_worker(m, "mtpu_worker_notify_backlog_events")
-        if sum(parked.values()) != NOTIFY_OUTAGE:
+        if set(parked.values()) != {NOTIFY_OUTAGE}:
             raise SystemExit(f"notify: parked {parked} of {NOTIFY_OUTAGE}")
         # The per-key order across the outage: a PUT and a DELETE of one
         # key while the webhook is down, and a PUT parked before its
@@ -8905,6 +8942,57 @@ def phase_notify(args, counts, card):
         c3 = step("webhook outage", c2,
                   put_items(NOTIFY_EVENT_BYTES, NOTIFY_OUTAGE + 2))
 
+        # -- one key's PUT and DELETE on two workers ------------------------
+        # The PUT parks on one worker while the webhook is down; the
+        # webhook comes back; the DELETE is served by the other worker
+        # before any retry pass: it parks behind the pool's one store, and
+        # the store's one sender delivers the PUT first.
+        recv.stop()
+        split_s = time.perf_counter()
+        a, close_a = sticky()
+        b = close_b = None
+        try:
+            p0 = per_worker(metrics(), "mtpu_worker_notify_events_parked_"
+                                       "total")
+            data = body(seed, NOTIFY_EVENT_BYTES)
+            seed += 1
+            st, h, _ = a.request("PUT", "/evt/ord/split", body=data)
+            if st != 200:
+                raise SystemExit(f"notify: PUT ord/split {st}")
+            expect("evt", "ord/split", "s3:ObjectCreated:Put",
+                   h.get("x-amz-version-id", ""), NOTIFY_EVENT_BYTES,
+                   h["ETag"].strip('"'), time.monotonic(), "split")
+            p1 = per_worker(metrics(), "mtpu_worker_notify_events_parked_"
+                                       "total")
+            w_put = next(w for w in p1 if p1[w] - p0[w] == 1)
+            for _ in range(32):
+                b, close_b = sticky()
+                r0 = per_worker(metrics(), "mtpu_worker_requests_total")
+                for _ in range(NOTIFY_PROBES):
+                    b.request("GET", "/evt", query={"location": ""})
+                r1 = per_worker(metrics(), "mtpu_worker_requests_total")
+                if r1[1 - w_put] - r0[1 - w_put] >= NOTIFY_PROBES:
+                    break
+                close_b()
+                b = close_b = None
+            else:
+                raise SystemExit("notify: no connection reached the "
+                                 "other worker")
+            recv.start()
+            st, _, _ = b.request("DELETE", "/evt/ord/split")
+            if st != 204:
+                raise SystemExit(f"notify: DELETE ord/split {st}")
+            expect("evt", "ord/split", "s3:ObjectRemoved:DeleteMarkerCreated",
+                   "", 0, "", time.monotonic(), "split")
+        finally:
+            close_a()
+            if close_b is not None:
+                close_b()
+        wait_pairs(("ord/split",), "the split key's records")
+        split_s = time.perf_counter() - split_s
+        c3 = step("split across workers", c3,
+                  put_items(NOTIFY_EVENT_BYTES))
+
         # -- down again, and the worker holding parked events SIGKILLed ----
         recv.stop()
         kill = [f"kill/{i:02d}" for i in range(NOTIFY_KILL)]
@@ -8912,14 +9000,15 @@ def phase_notify(args, counts, card):
             put("evt", key, NOTIFY_EVENT_BYTES, "kill")
         wait_for(nats, "evt", set(kill), "NATS before the kill")
         m = metrics()
-        before_ord = per_worker(m, "mtpu_worker_notify_backlog_events")
-        # The key whose order the SIGKILL must keep: its worker is the
-        # one killed.
+        before_ord = per_worker(m, "mtpu_worker_notify_events_parked_total")
+        # The key whose order the SIGKILL must keep: the worker that
+        # parked its pair is the one killed.
         put_then_delete("ord/kill", "kill")
         m = metrics()
-        parked_kill = per_worker(m, "mtpu_worker_notify_backlog_events")
+        parked_kill = per_worker(m, "mtpu_worker_notify_events_parked_total")
         victim = next(w for w in parked_kill
                       if parked_kill[w] - before_ord[w] == 2)
+        parked_kill = per_worker(m, "mtpu_worker_notify_backlog_events")
         pid = int(m[f'mtpu_worker_pid{{worker="{victim}"}}'])
         os.kill(pid, signal.SIGKILL)
         t_kill = time.perf_counter()
@@ -8949,8 +9038,9 @@ def phase_notify(args, counts, card):
         warm()
         c4 = _pool_counts(metrics(), NOTIFY_WORKERS)
         left = per_worker(metrics(), "mtpu_worker_notify_backlog_events")
-        if any(left.values()) or any(os.listdir(os.path.join(
-                store, "webhook", f"w{w}")) for w in range(NOTIFY_WORKERS)):
+        if any(left.values()) or any(n.endswith(".json") for n in
+                                     os.listdir(os.path.join(store,
+                                                             "webhook"))):
             raise SystemExit(f"notify: events left parked {left}")
 
         # -- the webhook's cost on the request path ------------------------
@@ -9004,7 +9094,7 @@ def phase_notify(args, counts, card):
                                          f"{n} times")
                     dups["kill"] += n - 1
             # Per key, the PUT's record arrives before the DELETE's.
-            for key in ("ord/down", "ord/back", "ord/kill"):
+            for key in ("ord/down", "ord/back", "ord/split", "ord/kill"):
                 names = [r["eventName"] for _, r in who.records()
                          if r["s3"]["bucket"]["name"] == "evt"
                          and r["s3"]["object"]["key"] == key]
@@ -9085,13 +9175,17 @@ def phase_notify(args, counts, card):
     print(f"[notify] a rule changed through worker {writer}, fired through "
           f"worker {other} after {fired} PUT(s); card {card}")
     print(f"[notify] webhook down for {NOTIFY_OUTAGE} PUTs: {parked} parked "
-          f"by worker, delivered {drain_s:.3f} s after its return; down "
+          f"in the pool's store (seen by each worker), delivered "
+          f"{drain_s:.3f} s after its return; one key's PUT parked by worker"
+          f" {w_put} and its DELETE served by worker {1 - w_put} after the "
+          f"return, both delivered in order in {split_s:.3f} s; down "
           f"again for {NOTIFY_KILL} PUTs, {parked_kill} parked, worker "
           f"{victim} SIGKILLed and back in {respawn_s:.2f} s, delivered "
           f"{drain_kill_s:.3f} s after the webhook's return; duplicates in "
           f"the kill step {dups['kill']}, none elsewhere, none lost; the "
-          f"PUT before the DELETE of each of 3 keys at both targets (down, "
-          f"back before the retry, across the kill); card {card}")
+          f"PUT before the DELETE of each of 4 keys at both targets (down, "
+          f"back before the retry, split across workers, across the kill);"
+          f" card {card}")
     print(f"[notify] per worker {counters}; card {card}")
     print(f"[notify] cost on the request path, {NOTIFY_COST} PUTs of "
           f"{NOTIFY_EVENT_BYTES} B each way in turns: with a webhook rule "
@@ -9641,6 +9735,442 @@ def phase_tier(args, counts, card):
     return launches
 
 
+# Phase 5u, the object transforms, as AWS and MinIO document them: SSE-S3
+# (`x-amz-server-side-encryption: AES256`) and SSE-C (the
+# `-customer-algorithm`, `-customer-key` and `-customer-key-md5` headers)
+# of AWS's "Protecting data with server-side encryption", MinIO's
+# compression of text, CSV and JSON objects (`compression.enable`, its
+# default extensions), S3 Select over CSV and JSON lines.  Config 2's
+# set (EC:8+4, 12 drives) in one in-process S3Server with a StaticKMS
+# from SSE_KMS_KEY and compression on; SSE_CLIENTS client threads.
+SSE_CLIENTS = 4
+SSE_BIG = 2                    # SSE-S3 objects of OBJECT_BYTES
+SSE_SMALL, SSE_SMALL_BYTES = 16, (1024, 100 * 1024)
+SSE_CSV_ROWS = 200_000         # about 16 MiB of CSV
+SSE_CSV_NOTE = 46              # the note column's letters
+SSE_NDJSON_BYTES = 4 * MIB
+SSE_PART_BYTES = 5 * MIB + 7   # the UploadPartCopy's range
+SSE_KMS_KEY = "6b" * 32
+
+
+def _sse_headers(key: bytes, prefix: str = "x-amz-") -> dict:
+    import base64
+    import hashlib
+    return {f"{prefix}server-side-encryption-customer-algorithm": "AES256",
+            f"{prefix}server-side-encryption-customer-key":
+                base64.b64encode(key).decode(),
+            f"{prefix}server-side-encryption-customer-key-md5":
+                base64.b64encode(hashlib.md5(key).digest()).decode()}
+
+
+def _csv_table(rng, rows: int) -> bytes:
+    import numpy as np
+    depts = ("eng", "sales", "ops", "legal", "finance")
+    cities = ("Berlin", "Lagos", "Lima", "Osaka", "Perth", "Quebec")
+    uid = rng.integers(0, 10**6, rows)
+    dept = rng.integers(0, len(depts), rows)
+    sal = rng.integers(30_000, 250_000, rows)
+    city = rng.integers(0, len(cities), rows)
+    note = rng.integers(0, 26, (rows, SSE_CSV_NOTE)) + ord("a")
+    notes = note.astype(np.uint8).tobytes()
+    lines = [b"id,user,dept,salary,city,note"]
+    for i in range(rows):
+        lines.append(b"%d,user%06d,%s,%d,%s,%s" % (
+            i, uid[i], depts[dept[i]].encode(), sal[i],
+            cities[city[i]].encode(),
+            notes[SSE_CSV_NOTE * i:SSE_CSV_NOTE * (i + 1)]))
+    return b"\n".join(lines) + b"\n"
+
+
+def _ndjson_lines(rng, nbytes: int) -> bytes:
+    out, n, i = [], 0, 0
+    while n < nbytes:
+        line = json.dumps({"id": i, "dept": ("eng", "ops")[i % 2],
+                           "v": int(rng.integers(0, 1000)),
+                           "tags": ["t%d" % (i % 7), "x"]}).encode()
+        out.append(line)
+        n += len(line) + 1
+        i += 1
+    return b"\n".join(out) + b"\n"
+
+
+def phase_transforms(args, counts, card):
+    """Phase 5u, the object transforms.  Setup: config 2's set in one
+    in-process S3Server over loopback with a StaticKMS and compression
+    on (`compress_enabled`), a TierManager with a directory tier.
+
+    Steps, each with the GF, hh256 and mxh256 items exact from the STORED
+    sizes (launches at most the items, some when there are items): the
+    traffic from SSE_CLIENTS threads (SSE_BIG SSE-S3 and one SSE-C object
+    of OBJECT_BYTES, random: the probe leaves them raw; a CSV of
+    SSE_CSV_ROWS rows and a JSON-lines file, compressed and then sealed;
+    SSE_SMALL SSE-C objects of 1-100 KiB), then one SSE-S3 object of
+    OBJECT_BYTES with highwayhash256S; full and ranged GETs of each,
+    byte-exact by SHA-256; HEADs with and without the SSE-C key, a wrong
+    key (403s that read nothing); a copy SSE-C -> SSE-S3 and an
+    UploadPartCopy from a sealed source; a degraded GET with two data
+    shards away; Selects (a WHERE projection and count(*) on the CSV,
+    one on the JSON lines) equal to their plain reference; the sealed,
+    compressed CSV transitioned to the tier and read through its stub.
+    Then PUT and GET of OBJECT_BYTES from one client, plain and SSE-S3 in
+    turns, and the host costs: seal and unseal of OBJECT_BYTES, zlib of
+    the CSV."""
+    import numpy as np
+
+    from minio_tpu_torch.bucket import tier as tier_mod
+    from minio_tpu_torch.crypto import sse
+    from minio_tpu_torch.crypto.kms import StaticKMS
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.s3select import engine as sel
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+    from minio_tpu_torch.utils import compress as cz
+
+    ak, sk = "sseadmin", "sseadmin-secret"
+    root = _tmp_root("chip_smoke-sse-", 16 * OBJECT_BYTES + (1 << 30))
+    rng = np.random.default_rng(args.seed * 1000 + 990)
+    seed = args.seed * 1000 + 991
+    t_phase = time.perf_counter()
+    counts.reset()
+    steps: dict[str, dict] = {}
+    times: dict[str, float] = {}
+    key_c, key_small, wrong = b"\x31" * 32, b"\x32" * 32, b"\x33" * 32
+    s3h = {"x-amz-server-side-encryption": "AES256"}
+
+    def zero():
+        return dict.fromkeys(_KERNELS, 0)
+
+    def body(n):
+        nonlocal seed
+        seed += 1
+        return np.random.default_rng(seed).bytes(n)
+
+    srv = pools = None
+    try:
+        drives = [os.path.join(root, f"d{i}") for i in range(1, 13)]
+        pools = ServerPools([ErasureSets([LocalDrive(d) for d in drives],
+                                         set_drive_count=12)])
+        es = pools.pools[0].sets[0]
+        kms = StaticKMS(bytes.fromhex(SSE_KMS_KEY))
+        tm = tier_mod.TierManager(pools, kms=kms)
+        tm.add_tier("WARM", tier_mod.DirTierBackend(
+            os.path.join(root, "warm")))
+        srv = S3Server(pools, Credentials(ak, sk), kms=kms,
+                       compress_enabled=True, tier_mgr=tm).start()
+
+        def fresh():
+            return S3Client(srv.endpoint, ak, sk, timeout=600)
+        fresh().make_bucket("sseb")
+        mark = {"items": counts.items(), "launches": counts.read()}
+
+        def step(name, want):
+            items, launches = counts.items(), counts.read()
+            got = {k: items[k] - mark["items"][k] for k in _KERNELS}
+            lc = {k: launches[k] - mark["launches"][k] for k in _KERNELS}
+            steps[name] = got
+            if got != want or any(lc[k] > got[k] or (got[k] and not lc[k])
+                                  for k in _KERNELS):
+                raise SystemExit(f"transforms {name}: items {got} "
+                                 f"(launches {lc}), want {want}")
+            mark.update(items=items, launches=launches)
+
+        def stored(key):
+            return pools.head_object("sseb", key)
+
+        def put_want(want, fi):
+            calls = _put_calls(fi.size)
+            want["gf_matmul"] += calls
+            want[_digest(fi.erasure.bitrot_algo())] += calls
+
+        def get_want(want, fi, degraded=False):
+            calls = _get_calls(fi)
+            want[_digest(fi.erasure.bitrot_algo())] += calls
+            if degraded:
+                want["gf_matmul"] += calls
+
+        def request(method, key, want_status, headers=None, body_=b"",
+                    query=None):
+            st, h, out = fresh().request(method, f"/sseb/{key}",
+                                         headers=headers, body=body_,
+                                         query=query)
+            if st != want_status:
+                raise SystemExit(f"transforms: {method} {key} {st}: "
+                                 f"{out[:300]!r}")
+            return h, out
+
+        # -- the traffic -----------------------------------------------------
+        csv = _csv_table(rng, SSE_CSV_ROWS)
+        ndjson = _ndjson_lines(rng, SSE_NDJSON_BYTES)
+        data = {f"big{i}.bin": (body(OBJECT_BYTES), s3h)
+                for i in range(SSE_BIG)}
+        data["ssec.bin"] = (body(OBJECT_BYTES), _sse_headers(key_c))
+        data["table.csv"] = (csv, dict(s3h, **{"Content-Type": "text/csv"}))
+        data["events.json"] = (ndjson, dict(
+            s3h, **{"Content-Type": "application/json"}))
+        for i in range(SSE_SMALL):
+            data[f"small/{i:02d}.bin"] = (
+                body(int(rng.integers(*SSE_SMALL_BYTES))),
+                _sse_headers(key_small))
+        plan = list(data)
+
+        def client(part):
+            for key in part:
+                request("PUT", key, 200, dict(data[key][1]), data[key][0])
+        t0 = time.perf_counter()
+        _in_threads(SSE_CLIENTS, client,
+                    [plan[i::SSE_CLIENTS] for i in range(SSE_CLIENTS)])
+        os.environ["MTPU_BITROT_ALGO"] = HH
+        try:
+            data["hh.bin"] = (body(OBJECT_BYTES), s3h)
+            request("PUT", "hh.bin", 200, dict(s3h), data["hh.bin"][0])
+        finally:
+            os.environ.pop("MTPU_BITROT_ALGO", None)
+        times["traffic"] = time.perf_counter() - t0
+        plan.append("hh.bin")
+        fis = {k: stored(k) for k in plan}
+        sealed_big = OBJECT_BYTES + 8 + 20 * -(-OBJECT_BYTES
+                                               // sse.PACKET_SIZE)
+        for k in [f"big{i}.bin" for i in range(SSE_BIG)] + ["ssec.bin",
+                                                           "hh.bin"]:
+            if fis[k].size != sealed_big or \
+                    cz.is_compressed(fis[k].metadata):
+                raise SystemExit(f"transforms: {k} stored {fis[k].size} B "
+                                 f"{fis[k].metadata}, want {sealed_big} "
+                                 f"sealed, uncompressed")
+        for k in ("table.csv", "events.json"):
+            m = fis[k].metadata
+            if m.get(cz.META_COMPRESSION) != "deflate" or \
+                    m.get(sse.META_ALGO) != "SSE-S3":
+                raise SystemExit(f"transforms: {k} not compressed and "
+                                 f"sealed: {m}")
+        want = zero()
+        for k in plan:
+            put_want(want, fis[k])
+        step("traffic", want)
+        put_bytes = sum(len(data[k][0]) for k in plan)
+
+        # -- GETs, full and ranged; HEADs; refused keys ----------------------
+        def key_headers(k):
+            return {h: v for h, v in data[k][1].items() if "customer" in h}
+
+        def check(k, out, lo=0, hi=None):
+            want_b = data[k][0][lo:hi]
+            if hashlib.sha256(out).digest() != \
+                    hashlib.sha256(want_b).digest():
+                raise SystemExit(f"transforms: {k} [{lo}:{hi}] differs")
+
+        t0 = time.perf_counter()
+        want = zero()
+        got_bytes = 0
+
+        def reader(part):
+            for k in part:
+                _, out = request("GET", k, 200, key_headers(k))
+                check(k, out)
+                n = len(data[k][0])
+                lo, hi = n // 3, n // 3 + max(1, n // 5)
+                _, out = request("GET", k, 206, dict(
+                    key_headers(k), Range=f"bytes={lo}-{hi - 1}"))
+                check(k, out, lo, hi)
+        _in_threads(SSE_CLIENTS, reader,
+                    [plan[i::SSE_CLIENTS] for i in range(SSE_CLIENTS)])
+        times["GETs"] = time.perf_counter() - t0
+        for k in plan:
+            get_want(want, fis[k])
+            get_want(want, fis[k])
+            got_bytes += len(data[k][0]) + max(1, len(data[k][0]) // 5)
+        step("GETs full and ranged", want)
+        h, _ = request("HEAD", "ssec.bin", 200, key_headers("ssec.bin"))
+        if h.get("x-amz-server-side-encryption-customer-algorithm") != \
+                "AES256" or int(h["Content-Length"]) != OBJECT_BYTES:
+            raise SystemExit(f"transforms: SSE-C HEAD {h}")
+        h, _ = request("HEAD", "big0.bin", 200)
+        if h.get("x-amz-server-side-encryption") != "AES256":
+            raise SystemExit(f"transforms: SSE-S3 HEAD {h}")
+        request("HEAD", "ssec.bin", 403)
+        request("GET", "ssec.bin", 403, _sse_headers(wrong))
+        request("GET", "small/00.bin", 403)
+        step("HEADs and refused keys", zero())
+
+        # -- a copy SSE-C -> SSE-S3, an UploadPartCopy from a sealed source -
+        t0 = time.perf_counter()
+        request("PUT", "copy.bin", 200, dict(
+            _sse_headers(key_c, "x-amz-copy-source-"), **s3h,
+            **{"x-amz-copy-source": "/sseb/ssec.bin"}))
+        data["copy.bin"] = (data["ssec.bin"][0], s3h)
+        fis["copy.bin"] = stored("copy.bin")
+        want = zero()
+        get_want(want, fis["ssec.bin"])
+        put_want(want, fis["copy.bin"])
+        _, out = request("GET", "copy.bin", 200)
+        check("copy.bin", out)
+        get_want(want, fis["copy.bin"])
+        _, x = request("POST", "mp.bin", 200, query={"uploads": ""})
+        uid = x.split(b"<UploadId>")[1].split(b"</UploadId>")[0].decode()
+        _, x = request("PUT", "mp.bin", 200, dict(
+            **{"x-amz-copy-source": "/sseb/big0.bin",
+               "x-amz-copy-source-range": f"bytes=0-{SSE_PART_BYTES - 1}"}),
+            query={"partNumber": "1", "uploadId": uid})
+        etag = x.split(b"<ETag>")[1].split(b"</ETag>")[0].decode()
+        request("POST", "mp.bin", 200, body_=(
+            f"<CompleteMultipartUpload><Part><PartNumber>1</PartNumber>"
+            f"<ETag>{etag}</ETag></Part></CompleteMultipartUpload>"
+        ).encode(), query={"uploadId": uid})
+        get_want(want, fis["big0.bin"])
+        want["gf_matmul"] += _put_calls(SSE_PART_BYTES)
+        want["mxh256"] += _put_calls(SSE_PART_BYTES)
+        _, out = request("GET", "mp.bin", 200)
+        if out != data["big0.bin"][0][:SSE_PART_BYTES]:
+            raise SystemExit("transforms: the UploadPartCopy's object "
+                             "differs")
+        get_want(want, stored("mp.bin"))
+        times["copies"] = time.perf_counter() - t0
+        step("copy and UploadPartCopy", want)
+
+        # -- a degraded GET: two data shards of big1 away --------------------
+        fi = fis["big1.bin"]
+        for pos in _data_positions(Q, fi, 2):
+            os.unlink(os.path.join(drives[pos], "sseb", "big1.bin",
+                                   fi.data_dir, "part.1"))
+        t0 = time.perf_counter()
+        _, out = request("GET", "big1.bin", 200)
+        times["degraded GET"] = time.perf_counter() - t0
+        check("big1.bin", out)
+        want = zero()
+        get_want(want, fi, degraded=True)
+        step("degraded GET", want)
+
+        # -- Selects ------------------------------------------------------------
+        def select(k, expr, json_in=False):
+            inp = (b"<JSON><Type>LINES</Type></JSON>" if json_in else
+                   b"<CSV><FileHeaderInfo>USE</FileHeaderInfo></CSV>")
+            req = (b"<SelectObjectContentRequest><Expression>%s"
+                   b"</Expression><ExpressionType>SQL</ExpressionType>"
+                   b"<InputSerialization>%s</InputSerialization>"
+                   b"<OutputSerialization><CSV/></OutputSerialization>"
+                   b"</SelectObjectContentRequest>" % (expr, inp))
+            t = time.perf_counter()
+            _, out = request("POST", k, 200, body_=req,
+                             query={"select": "", "select-type": "2"})
+            t = time.perf_counter() - t
+            ref = sel.execute_select(data[k][0],
+                                     sel.parse_select_request(req))
+            if out != ref:
+                raise SystemExit(f"transforms: Select {expr!r} differs "
+                                 f"from its plain reference")
+            return t, out
+        sel_where, out = select(
+            "table.csv", b"SELECT id, salary FROM S3Object WHERE "
+            b"dept = 'eng' AND salary > 200000")
+        recs = sel.decode_event_stream(out)
+        sel_count, out = select("table.csv", b"SELECT count(*) FROM S3Object")
+        counted = int(b"".join(p for t, p in sel.decode_event_stream(out)
+                               if t == "Records").strip())
+        if counted != SSE_CSV_ROWS:
+            raise SystemExit(f"transforms: count(*) {counted}")
+        sel_json, _ = select("events.json", b"SELECT s.id FROM S3Object s "
+                             b"WHERE s.v > 989", json_in=True)
+        want = zero()
+        for k in ("table.csv", "table.csv", "events.json"):
+            get_want(want, fis[k])
+        step("Selects", want)
+
+        # -- the sealed, compressed CSV to the tier, read through its stub ---
+        t0 = time.perf_counter()
+        if not tm.transition_object("sseb", "table.csv", "WARM"):
+            raise SystemExit("transforms: the transition moved nothing")
+        times["transition"] = time.perf_counter() - t0
+        stub = stored("table.csv")
+        if stub.size or not tm.is_transitioned(stub):
+            raise SystemExit("transforms: no stub left")
+        _, out = request("GET", "table.csv", 200)
+        check("table.csv", out)
+        lo = len(csv) // 2
+        _, out = request("GET", "table.csv", 206,
+                         {"Range": f"bytes={lo}-{lo + 99_999}"})
+        check("table.csv", out, lo, lo + 100_000)
+        want = zero()
+        get_want(want, fis["table.csv"])
+        step("transition and stub GETs", want)
+
+        # -- PUT and GET from one client, plain and SSE-S3 in turns ---------
+        turn = {"plain": {"put": [], "get": []}, "sse": {"put": [], "get": []}}
+        want = zero()
+        tb = body(OBJECT_BYTES)
+        for i, mode in enumerate(("plain", "sse", "sse", "plain")):
+            # .zip: the compression filter passes both turns by, so the
+            # plain turn streams and the sealed one drains only to seal.
+            k = f"turn/{i}-{mode}.zip"
+            h = s3h if mode == "sse" else {}
+            t0 = time.perf_counter()
+            request("PUT", k, 200, dict(h), tb)
+            turn[mode]["put"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            _, out = request("GET", k, 200)
+            turn[mode]["get"].append(time.perf_counter() - t0)
+            if out != tb:
+                raise SystemExit(f"transforms: {k} differs")
+            fi = stored(k)
+            put_want(want, fi)
+            get_want(want, fi)
+        step("turns", want)
+
+        # -- the host costs -----------------------------------------------------
+        dk = bytes(32)[:31] + b"\x01"
+        t0 = time.perf_counter()
+        blob = sse.seal(tb, dk)
+        seal_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        if sse.unseal(blob, dk) != tb:
+            raise SystemExit("transforms: unseal differs")
+        unseal_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        zcsv, _ = cz.compress(csv)
+        zlib_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        if pools is not None:
+            pools.close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = counts.read()
+
+    def gbs(n, secs):
+        return n / sum(secs) / 1e9 * len(secs)
+    print(f"[transforms] config 2's set in process, a StaticKMS, compression"
+          f" on; {SSE_CLIENTS} clients PUT {put_bytes} B ({SSE_BIG + 1} "
+          f"SSE-S3 and 1 SSE-C of {OBJECT_BYTES} B stored {sealed_big} B "
+          f"each, a {len(csv)} B CSV stored {fis['table.csv'].size} B and a "
+          f"{len(ndjson)} B JSON-lines file stored "
+          f"{fis['events.json'].size} B compressed then sealed, "
+          f"{SSE_SMALL} SSE-C of 1-100 KiB) in {times['traffic']:.2f} s; "
+          f"GETs full and ranged of {got_bytes} B in {times['GETs']:.2f} s;"
+          f" card {card}")
+    print(f"[transforms] one client, {OBJECT_BYTES} B in turns: PUT "
+          f"{gbs(OBJECT_BYTES, turn['plain']['put']):.3f} GB/s plain, "
+          f"{gbs(OBJECT_BYTES, turn['sse']['put']):.3f} SSE-S3; GET "
+          f"{gbs(OBJECT_BYTES, turn['plain']['get']):.3f} plain, "
+          f"{gbs(OBJECT_BYTES, turn['sse']['get']):.3f} SSE-S3; seal "
+          f"{seal_ms:.2f} ms and unseal {unseal_ms:.2f} ms per "
+          f"{OBJECT_BYTES} B; zlib level 1 {zlib_ms:.2f} ms per {len(csv)} "
+          f"B CSV ({len(zcsv)} B); card {card}")
+    print(f"[transforms] Select over the sealed, compressed CSV "
+          f"({SSE_CSV_ROWS} rows): WHERE projection {sel_where:.3f} s "
+          f"({SSE_CSV_ROWS / sel_where:.0f} rows/s, {len(recs)} events), "
+          f"count(*) {sel_count:.3f} s ({SSE_CSV_ROWS / sel_count:.0f} "
+          f"rows/s); over the JSON lines {sel_json:.3f} s; copy and "
+          f"UploadPartCopy {times['copies']:.2f} s, degraded GET "
+          f"{times['degraded GET']:.2f} s, transition "
+          f"{times['transition']:.2f} s; card {card}")
+    print(f"[transforms] items per step: {steps}; launches {launches}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -10014,6 +10544,7 @@ def main() -> int:
         "data protection": lambda: phase_protection(args, counts, card),
         "notifications": lambda: phase_notify(args, counts, card),
         "tier": lambda: phase_tier(args, counts, card),
+        "transforms": lambda: phase_transforms(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()

@@ -31,8 +31,8 @@ server on the publish path:
 A failed publish parks the event in the target's queue store, and the
 target's retry loop delivers it once the service answers again
 (bucket/notify.py: the store keeps an event's file until it was
-delivered).  `targets_from_config` gives each worker of the pool a
-store directory of its own.
+delivered).  `targets_from_config` gives every process of a deployment
+one store per kind, drained by one sender.
 """
 
 from __future__ import annotations
@@ -848,8 +848,7 @@ def _hostport(addr: str, default_port: int) -> tuple[str, int]:
 
 
 def targets_from_config(config_sys, store_dir: str | None = None,
-                        target_id: str = "1", worker: int | None = None,
-                        workers: int = 0) -> list:
+                        target_id: str = "1") -> list:
     """Build every ENABLED notify_* subsystem's target with the
     reference's ARN convention (arn:minio:sqs::<id>:<kind>) — called at
     server boot; `admin config set notify_kafka ...` + a restart brings a
@@ -857,13 +856,12 @@ def targets_from_config(config_sys, store_dir: str | None = None,
     internal/config/notify/config.go).
 
     Each kind parks in a directory of its own under `store_dir` (two
-    targets sharing one would replay each other's events).  `worker`,
-    in the pool, gives each worker `<kind>/w<worker>`, which a respawned
-    worker takes over; worker 0 of `workers` also adopts the events of
-    worker slots beyond the pool's size and those the JAX layout left at
-    `<kind>/`.  Without `worker` (one process, a cluster node) the store
-    is `<kind>/`, the JAX layout, and adopts every `w<N>` directory a
-    pool left there."""
+    targets sharing one would replay each other's events): `<kind>/`,
+    the JAX layout, one store for every process that serves the
+    deployment (one process, each worker of the pool, a cluster node
+    with its own `store_dir`).  The event files a pool of the per-worker
+    layout left under `<kind>/w<N>` are adopted into it, in ticket
+    order."""
     from .notify import WebhookTarget
 
     def store_for(kind: str) -> str | None:
@@ -876,15 +874,9 @@ def targets_from_config(config_sys, store_dir: str | None = None,
                            if n[:1] == "w" and n[1:].isdigit())
         except OSError:
             slots = []
-        if worker is None:
+        if slots:
             adopt_store(base, [_os.path.join(base, n) for n in slots])
-            return base
-        mine = _os.path.join(base, f"w{worker}")
-        if worker == 0:
-            adopt_store(mine, [base] + [_os.path.join(base, n)
-                                        for n in slots
-                                        if int(n[1:]) >= max(workers, 1)])
-        return mine
+        return base
 
     def on(subsys: str) -> bool:
         return config_sys.get(subsys, "enable").lower() in ("on", "true",

@@ -19,16 +19,21 @@ The port repairs five faults of the JAX store:
   retry pass loses nothing, and an event may arrive twice (delivery is
   at least once, as the reference's store gives).  The JAX `drain`
   unlinks every file of the store before the pass sends any.
-- Each worker of the pool parks under a directory of its own
-  (`<kind>/w<worker>`, bucket/event_targets.targets_from_config), so no
-  two live processes load or remove one file; a respawned worker takes
-  its predecessor's directory over.  One process and a cluster node keep
-  the JAX layout (`<kind>/`), and adopt what a pool left.
-- While a target has parked events, a new event parks behind them
-  (`_Backlogged.send`), and the target's one retry loop delivers the
-  store in arrival order: once the target is back, a key's DELETE never
-  reaches it before that key's parked PUT.  The JAX `send` posts a new
-  event straight away, overtaking the store.
+- One store serves every process of a deployment: the pool's workers
+  park in the kind's one directory (`<kind>/`, the JAX layout, which one
+  process and a cluster node use too).  Its tickets come from a counter
+  read and advanced under the store's flock (`<store>.seq`), so their
+  names sort in pool-wide arrival order, and exactly one retry loop
+  drains it: the one that holds the store's sender lock
+  (`<store>.sender`), taken over by the next loop when its holder dies.
+  What a pool of the per-worker layout left under `<kind>/w<N>` is
+  adopted in ticket order (`adopt_store`).
+- While the store holds an event, parked by any process, a new event
+  parks behind it (`_Backlogged.send`), and the store's one sender
+  delivers it in arrival order: once the target is back, a key's DELETE
+  never reaches it before that key's parked PUT, whichever workers
+  served the two.  The JAX `send` posts a new event straight away,
+  overtaking the store.
 - An event whose rule names an ARN with no registered target is counted
   (`dropped`).  The server refuses such a rule when it is stored
   (server/handlers.py `_check_arns`), as MinIO does; what is counted is
@@ -41,7 +46,9 @@ adds the backlog's depth.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import fcntl
 import http.client
 import json
 import os
@@ -137,7 +144,16 @@ def make_event(event_name: str, bucket: str, key: str, size: int = 0,
 
 class QueueTarget:
     """In-process queue with optional persistence (the queue store): one
-    JSON file per event in `store_dir`."""
+    JSON file per event in `store_dir`.
+
+    A store directory is shared by every process that opens it (the
+    pool's workers): the directory, not this process's memory, holds
+    what is parked.  A ticket is `<n>-<random>.json`, n read and
+    advanced under the flock of `<store_dir>.seq` (never below the
+    clock's nanoseconds, so it sorts after what an older layout named by
+    time), and its file is written under that lock: the names sort in
+    arrival order across processes.  Without a store the queue lives in
+    memory."""
 
     def __init__(self, arn: str, store_dir: str | None = None,
                  max_items: int = 10000):
@@ -145,85 +161,139 @@ class QueueTarget:
         self.store_dir = store_dir
         self.max_items = max_items
         self._mu = threading.Lock()
-        # ticket (the file's name, or a counter without a store) -> event
+        # Without a store: ticket (a counter) -> event.
         self._items: dict[str, dict] = {}
         self._seq = 0
         if store_dir:
             os.makedirs(store_dir, exist_ok=True)
-            for fn in sorted(os.listdir(store_dir)):
-                path = os.path.join(store_dir, fn)
-                if not os.path.isfile(path):
-                    continue
-                try:
-                    with open(path) as f:
-                        self._items[fn] = json.load(f)
-                except (OSError, ValueError):
-                    continue
+
+    @contextlib.contextmanager
+    def _held(self):
+        """This process's lock, then the store's flock of every process
+        (on a descriptor opened for the hold: a dead holder's lock dies
+        with it).  Yields the descriptor, whose file keeps the counter."""
+        with self._mu:
+            fd = os.open(self.store_dir + ".seq", os.O_RDWR | os.O_CREAT,
+                         0o644)
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX)
+                yield fd
+            finally:
+                os.close(fd)             # drops the flock
+
+    def _tickets(self) -> list[str]:
+        try:
+            names = os.listdir(self.store_dir)
+        except OSError:
+            return []
+        return sorted(n for n in names if n.endswith(".json"))
+
+    def _load(self, ticket: str) -> dict | None:
+        try:
+            with open(os.path.join(self.store_dir, ticket)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
 
     @property
     def events(self) -> list[dict]:
-        with self._mu:
-            return list(self._items.values())
+        return [ev for _, ev in self.pending()]
 
     def __len__(self) -> int:
+        if self.store_dir:
+            return len(self._tickets())
         with self._mu:
             return len(self._items)
 
     def _unlink(self, ticket: str) -> None:
-        if self.store_dir:
-            try:
-                os.unlink(os.path.join(self.store_dir, ticket))
-            except OSError:
-                pass
+        try:
+            os.unlink(os.path.join(self.store_dir, ticket))
+        except OSError:
+            pass
 
     def send(self, event: dict) -> str:
         """Park `event`; returns its ticket."""
-        with self._mu:
-            if len(self._items) >= self.max_items:
-                oldest = next(iter(self._items))
-                del self._items[oldest]
-                self._unlink(oldest)
-            self._seq += 1
-            if self.store_dir:
-                # Time-ordered names: a reload retries in arrival order.
-                ticket = f"{time.time_ns():020d}-{os.urandom(8).hex()}.json"
-                path = os.path.join(self.store_dir, ticket)
-                with open(path + ".tmp", "w") as f:
-                    json.dump(event, f)
-                os.replace(path + ".tmp", path)
-            else:
+        if not self.store_dir:
+            with self._mu:
+                if len(self._items) >= self.max_items:
+                    del self._items[next(iter(self._items))]
+                self._seq += 1
                 ticket = str(self._seq)
-            self._items[ticket] = event
+                self._items[ticket] = event
+                return ticket
+        with self._held() as fd:
+            tickets = self._tickets()
+            for old in tickets[:max(0, len(tickets) - self.max_items + 1)]:
+                self._unlink(old)
+            try:
+                last = int(os.pread(fd, 32, 0).strip() or 0)
+            except ValueError:
+                last = 0
+            n = max(last + 1, time.time_ns())
+            os.ftruncate(fd, 0)
+            os.pwrite(fd, b"%d\n" % n, 0)
+            ticket = f"{n:020d}-{os.urandom(4).hex()}.json"
+            path = os.path.join(self.store_dir, ticket)
+            with open(path + ".tmp", "w") as f:
+                json.dump(event, f)
+            os.replace(path + ".tmp", path)
             return ticket
 
     def pending(self) -> list[tuple[str, dict]]:
         """The parked events in order, each with its ticket."""
-        with self._mu:
-            return list(self._items.items())
+        if not self.store_dir:
+            with self._mu:
+                return list(self._items.items())
+        out = []
+        for ticket in self._tickets():
+            ev = self._load(ticket)
+            if ev is not None:
+                out.append((ticket, ev))
+        return out
 
     def ack(self, ticket: str) -> None:
         """The event was delivered: forget it and remove its file."""
+        if self.store_dir:
+            self._unlink(ticket)
+            return
         with self._mu:
-            if self._items.pop(ticket, None) is not None:
-                self._unlink(ticket)
+            self._items.pop(ticket, None)
+
+    def take_sender(self):
+        """The store's sender lock (`<store_dir>.sender`, flock, not
+        waited for): a descriptor to close when done, or None while
+        another loop holds it.  Without a store there is nothing to
+        share: always granted."""
+        if not self.store_dir:
+            return -1
+        fd = os.open(self.store_dir + ".sender", os.O_RDWR | os.O_CREAT,
+                     0o644)
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            os.close(fd)
+            return None
+        return fd
 
 
 def adopt_store(store_dir: str, sources) -> int:
     """Move the event files of each directory in `sources` into
-    `store_dir` (what another layout of the store left); returns how
-    many moved."""
+    `store_dir` (what another layout of the store left), under the
+    store's lock, keeping their names (they sort in ticket order);
+    returns how many moved."""
     os.makedirs(store_dir, exist_ok=True)
     moved = 0
-    for src in sources:
-        try:
-            names = sorted(os.listdir(src))
-        except OSError:
-            continue
-        for fn in names:
-            path = os.path.join(src, fn)
-            if os.path.isfile(path):
+    with QueueTarget("adopt", store_dir)._held():
+        for src in sources:
+            try:
+                names = sorted(n for n in os.listdir(src)
+                               if n.endswith(".json"))
+            except OSError:
+                continue
+            for fn in names:
                 try:
-                    os.replace(path, os.path.join(store_dir, fn))
+                    os.replace(os.path.join(src, fn),
+                               os.path.join(store_dir, fn))
                     moved += 1
                 except OSError:
                     continue
@@ -233,13 +303,15 @@ def adopt_store(store_dir: str, sources) -> int:
 class _Backlogged:
     """The park-and-retry shell of a delivering target: `_deliver(event)
     -> bool` is the subclass's.  A failed send parks the event and starts
-    this target's retry loop, which runs while events are parked."""
+    this target's retry loop, which runs while events are parked; of the
+    loops over one store, the one holding its sender lock sends."""
 
     def _init_backlog(self, arn: str, store_dir: str | None) -> None:
         self.backlog = QueueTarget(arn + "-backlog", store_dir)
         self._retry_mu = threading.Lock()
         self._pass_mu = threading.Lock()
         self._retry_thread: threading.Thread | None = None
+        self._sender = None              # the loop's sender lock, held
         self._closed = threading.Event()
 
     def kick(self) -> None:
@@ -250,9 +322,10 @@ class _Backlogged:
             self._start_retry()
 
     def send(self, event: dict) -> None:
-        """Deliver `event` now when nothing is parked, else (or when the
-        delivery fails) park it behind the parked ones: the retry loop
-        is the one sender of the store, in arrival order."""
+        """Deliver `event` now when the store is empty, else (or when
+        the delivery fails) park it behind the parked ones, whichever
+        process parked them: the store's sender delivers in arrival
+        order."""
         if not len(self.backlog):
             if self._deliver(event):
                 _count("delivered")
@@ -264,17 +337,27 @@ class _Backlogged:
     def retry_backlog(self) -> int:
         """One pass over the parked events, in order: each is removed
         from the store once delivered; the first that fails ends the
-        pass (the target is still down).  Returns how many were
-        delivered."""
+        pass (the target is still down).  A pass runs only under the
+        store's sender lock (this loop's, or taken for the pass): while
+        another process sends, it delivers nothing.  Returns how many
+        were delivered."""
         sent = 0
         with self._pass_mu:
-            for ticket, ev in self.backlog.pending():
-                if not self._deliver(ev):
-                    break
-                self.backlog.ack(ticket)
-                sent += 1
-                _count("delivered")
-                _count("retried")
+            own = self._sender is None
+            lock = self.backlog.take_sender() if own else self._sender
+            if lock is None:
+                return 0
+            try:
+                for ticket, ev in self.backlog.pending():
+                    if not self._deliver(ev):
+                        break
+                    self.backlog.ack(ticket)
+                    sent += 1
+                    _count("delivered")
+                    _count("retried")
+            finally:
+                if own and lock >= 0:
+                    os.close(lock)
         return sent
 
     def _start_retry(self) -> None:
@@ -286,19 +369,34 @@ class _Backlogged:
                 daemon=True)
             self._retry_thread.start()
 
+    def _drop_sender(self) -> None:
+        with self._pass_mu:
+            if self._sender is not None and self._sender >= 0:
+                os.close(self._sender)
+            self._sender = None
+
     def _retry_loop(self) -> None:
-        while not self._closed.wait(RETRY_INTERVAL_S):
-            try:
-                self.retry_backlog()
-            except Exception as e:  # noqa: BLE001 — the store keeps them
-                print(f"minio_tpu_torch: notify {self.arn}: retry: {e}",
-                      file=sys.stderr, flush=True)
+        try:
+            while not self._closed.wait(RETRY_INTERVAL_S):
+                if self._sender is None:
+                    with self._pass_mu:
+                        self._sender = self.backlog.take_sender()
+                if self._sender is not None:
+                    try:
+                        self.retry_backlog()
+                    except Exception as e:  # noqa: BLE001 — kept
+                        print(f"minio_tpu_torch: notify {self.arn}: "
+                              f"retry: {e}", file=sys.stderr, flush=True)
+                with self._retry_mu:
+                    if not len(self.backlog):
+                        self._drop_sender()
+                        self._retry_thread = None
+                        return
+        finally:
             with self._retry_mu:
-                if not len(self.backlog):
+                if self._retry_thread is threading.current_thread():
+                    self._drop_sender()
                     self._retry_thread = None
-                    return
-        with self._retry_mu:
-            self._retry_thread = None
 
     def close(self) -> None:
         """Stop the retry loop; parked events stay in the store."""

@@ -8,7 +8,12 @@ pool's workers copy the task's version (or the delete marker) to the
 target and stamp x-amz-replication-status on the SOURCE object (PENDING,
 then COMPLETED or FAILED) as the reference does.  The copy lands under
 the source's version id and mod time, so a replayed copy replaces
-rather than duplicates.  A GET of an object missing locally may PROXY to
+rather than duplicates.  A copy carries the version's plaintext: the
+server's reader (`read_source`, set by server/handlers.py) reverses the
+object transforms, and an SSE-S3 version asks the target to seal it
+again under the target's own KMS.  An SSE-C version cannot be copied
+(its key is the client's, never stored): it is stamped FAILED and
+counted `unreplicable`.  A GET of an object missing locally may PROXY to
 the target while the bucket resyncs (`proxy_get`), and `start_resync`
 replays a whole bucket through a persisted, resumable state machine.
 Targets are pools-style objects (put_object, delete_object, get_object):
@@ -67,9 +72,11 @@ import time
 import xml.etree.ElementTree as ET
 from collections import OrderedDict
 
+from ..crypto import sse as _sse
 from ..storage.drive import SYS_VOL
 from ..storage.errors import (ErrBucketNotFound, ErrObjectNotFound,
                               ErrVersionNotFound, StorageError)
+from ..utils import compress as _cz
 from ..utils.crashpoints import crash_point
 
 STATUS_KEY = "x-amz-replication-status"
@@ -82,11 +89,29 @@ REPL_MTIME_HEADER = "x-mtpu-repl-mtime"
 
 _JOURNAL_PREFIX, _JOURNAL_SUFFIX = "repl-journal", ".jsonl"
 
+_SSE_ALGO, _H_SSE = _sse.META_ALGO, _sse.H_SSE
+#: The metadata of the object transforms: a replica carries the
+#: plaintext, so none of it goes with the copy.
+TRANSFORM_KEYS = frozenset((
+    _sse.META_ALGO, _sse.META_SEALED_KEY, _sse.META_KMS_KEY_ID,
+    _sse.META_KEY_MD5, _sse.META_SSEC_IV, _sse.META_ACTUAL_SIZE,
+    _cz.META_COMPRESSION, _cz.META_ACTUAL_SIZE,
+    "x-mtpu-internal-client-size"))     # server/handlers.py's
+
 
 class ErrReplicationTargetDown(StorageError):
     """A configured target could not be reached: a proxied GET answers
     503 ReplicationRemoteConnectionError, not a 404 that would say the
     object does not exist."""
+
+
+class ErrUnreplicable(StorageError):
+    """A version no retry can copy: an SSE-C version (its key is the
+    client's), or a sealed one for a target that cannot seal."""
+
+
+class ErrReplicaDenied(StorageError):
+    """The target refused a proxied GET (403): AccessDenied."""
 
 
 def _is_not_found(e: Exception) -> bool:
@@ -264,6 +289,11 @@ class ReplicationPool:
         self.replayed = 0
         self.adopted = 0
         self.proxied_reads = 0
+        self.unreplicable = 0
+        # (bucket, key, version id) -> (fi, plaintext): the server's
+        # reader, which reverses the object transforms; None copies the
+        # stored bytes of versions that have none.
+        self.read_source = None
         self._stats_mu = threading.Lock()
         self._resync_mu = threading.Lock()
         self._resync_threads: dict[str, threading.Thread] = {}
@@ -585,9 +615,14 @@ class ReplicationPool:
 
     # -- GET proxy (proxyGetToReplicationTarget) -----------------------------
 
-    def proxy_get(self, bucket: str, key: str) -> tuple[dict, bytes]:
+    def proxy_get(self, bucket: str, key: str,
+                  headers: dict | None = None) -> tuple[dict, bytes]:
         """(metadata, bytes) of `key` from the bucket's target: serves a
-        GET whose local copy has not landed yet.  Raises
+        GET whose local copy has not landed yet.  A remote target
+        answers with the plaintext (its server reverses its own
+        transforms; `headers`, the client's SSE-C key, go with the
+        request); an in-process target with its stored bytes and
+        metadata, which the caller reverses.  Raises
         ErrObjectNotFound when no target has it, ErrReplicationTargetDown
         when a target that might have it could not be reached."""
         down: Exception | None = None
@@ -598,10 +633,18 @@ class ReplicationPool:
             if target is None:
                 continue
             try:
-                got = target.get_object(r.target_bucket, key)
+                if isinstance(target, _RemoteTarget):
+                    got = target.get_object(r.target_bucket, key,
+                                            headers=headers)
+                else:
+                    got = target.get_object(r.target_bucket, key)
             except Exception as e:  # noqa: BLE001 — classified below
                 if _is_not_found(e):
                     continue             # absent there too: next rule
+                if getattr(e, "status", None) == 403:
+                    # Reached, and it refused: an SSE-C replica asked
+                    # for without its key, not a target that is down.
+                    raise ErrReplicaDenied(str(e)) from None
                 down = e                 # unreachable: other rules first
                 continue
             with self._stats_mu:
@@ -713,13 +756,34 @@ class ReplicationPool:
         except StorageError:
             pass
 
+    def _read_stored(self, bucket: str, key: str, vid: str) -> tuple:
+        """(fi, bytes) of a version without a reader: its stored bytes,
+        which are its plaintext only when no transform was applied."""
+        fi, data = self.source.get_object(bucket, key, version_id=vid)
+        if any(k in fi.metadata for k in TRANSFORM_KEYS):
+            raise ErrUnreplicable(f"{bucket}/{key} is sealed or "
+                                  "compressed and no reader reverses it")
+        return fi, data
+
     def _replicate_put(self, bucket: str, key: str, tb: str, target,
                        vid: str = "") -> None:
-        """Copy the task's version (the latest when it names none)."""
+        """Copy the task's version (the latest when it names none): its
+        plaintext, which an SSE-S3 version asks the target to seal."""
         self._set_source_status(bucket, key, "PENDING", vid)
-        fi, data = self.source.get_object(bucket, key, version_id=vid)
-        meta = {k: v for k, v in fi.metadata.items() if k != STATUS_KEY}
+        if self.read_source is not None:
+            fi, data = self.read_source(bucket, key, vid)
+        else:
+            fi, data = self._read_stored(bucket, key, vid)
+        meta = {k: v for k, v in fi.metadata.items()
+                if k != STATUS_KEY and k not in TRANSFORM_KEYS}
         meta[STATUS_KEY] = "REPLICA"
+        if fi.metadata.get(_SSE_ALGO) == "SSE-S3":
+            if not isinstance(target, _RemoteTarget):
+                # Only a server seals a replica again; an in-process
+                # target would keep the plaintext.
+                raise ErrUnreplicable(f"{bucket}/{key} is sealed and "
+                                      "the target cannot seal it again")
+            meta[_H_SSE] = "AES256"
         kw = {}
         # The replica keeps the source's version id and mod time (the
         # drain mover's rule): a replayed copy replaces, and the target's
@@ -853,6 +917,14 @@ class ReplicationPool:
                 self.dropped += 1
             self._finish(task, done=False, dropped=True)
             return
+        except ErrUnreplicable:
+            # No retry can copy it (an SSE-C version): FAILED, not lag.
+            with self._stats_mu:
+                self.unreplicable += 1
+            self._set_source_status(bucket, key, "FAILED",
+                                    task.get("vid", ""))
+            self._finish(task, done=False, dropped=True)
+            return
         except Exception:  # noqa: BLE001 — retry with backoff
             with self._stats_mu:
                 if task["attempts"] == 0:
@@ -911,6 +983,7 @@ class ReplicationPool:
                 "dropped": self.dropped, "replayed": self.replayed,
                 "adopted": self.adopted,
                 "proxiedReads": self.proxied_reads,
+                "unreplicable": self.unreplicable,
                 "journalPending": queued,
                 "lagSeconds": {k: round(v, 3) for k, v in lag.items()},
                 "breakersOpen": {k: round(v, 3)
@@ -1031,7 +1104,7 @@ class _RemoteTarget:
         headers = {}
         for k, v in (metadata or {}).items():
             if (k.startswith("x-amz-meta-") or k == "content-type"
-                    or k == STATUS_KEY):
+                    or k == STATUS_KEY or k == _H_SSE):
                 # The status marks the copy REPLICA on the remote: GET
                 # and HEAD report it, and the remote's own replication
                 # skips it (the loop guard).
@@ -1043,8 +1116,10 @@ class _RemoteTarget:
         self.cli.put_object(bucket, key, bytes(data),
                             headers=headers or None)
 
-    def get_object(self, bucket, key, *a, **kw):
-        return self.cli.get_object(bucket, key)
+    def get_object(self, bucket, key, headers=None):
+        _, _, data = self.cli._check(*self.cli.request(
+            "GET", f"/{bucket}/{key}", headers=dict(headers or {})))
+        return data
 
     def delete_object(self, bucket, key, version_id="", versioned=False):
         # REPLICA-marked, so an active-active peer does not send it back;

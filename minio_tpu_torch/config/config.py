@@ -9,16 +9,13 @@ environment variables win over both (the reference's env-over-stored
 merge, internal/config/config.go:261).  The admin API's `config` and
 `config-help` endpoints (server/server.py) read and write it.
 
-Beyond the JAX class:
-
-- `on_write`, where set, runs after every stored `set` or `unset`: a
-  worker of the pool bumps the pool's config generation there, and a
-  cluster node broadcasts a `config` reload to its peers; each other
-  process then `load`s the stored values again.
-- A setting that would turn on a plane this server does not run
-  (`UNPORTED_SETTINGS`) is refused with `UnportedSetting` instead of
-  being stored and ignored; `unported_env` names such settings made
-  through the environment, which the boot reports.
+Beyond the JAX class, `on_write`, where set, runs after every stored
+`set` or `unset`: a worker of the pool bumps the pool's config generation
+there, and a cluster node broadcasts a `config` reload to its peers; each
+other process then `load`s the stored values again.  `compression.enable`
+takes effect at the next PUT (server/handlers.py reads
+`compression_enabled`), where the JAX server stores it and compresses
+only when booted with `compress_enabled`.
 """
 
 from __future__ import annotations
@@ -33,24 +30,8 @@ from ..storage.errors import StorageError
 CONFIG_PATH = "config/config.json"
 ENV_PREFIX = "MTPU"
 
-#: (subsystem, key) whose truthy value turns on a plane the port does not
-#: have yet -> (plane, ROADMAP.md Queue A item).
-UNPORTED_SETTINGS = {
-    ("compression", "enable"): ("compression", "10.3"),
-    ("kms", "enable"): ("KMS and SSE", "10.3"),
-}
-
-
 def _truthy(value: str) -> bool:
     return value.lower() in ("on", "true", "1")
-
-
-class UnportedSetting(ValueError):
-    """A setting that needs a plane of a later item."""
-
-    def __init__(self, plane: str, item: str):
-        super().__init__(plane)
-        self.plane, self.item = plane, item
 
 
 class HelpKV:
@@ -166,9 +147,6 @@ class ConfigSys:
                 raise KeyError(f"unknown config subsystem {subsys!r}")
             if key not in self._defaults[subsys]:
                 raise KeyError(f"unknown key {subsys}.{key}")
-            unported = UNPORTED_SETTINGS.get((subsys, key))
-            if unported is not None and _truthy(value):
-                raise UnportedSetting(*unported)
             self._stored.setdefault(subsys, {})[key] = value
         self.save()
         self._written()
@@ -235,16 +213,3 @@ class ConfigSys:
 
     def compression_enabled(self) -> bool:
         return _truthy(self.get("compression", "enable"))
-
-    def unported_env(self) -> list[str]:
-        """`MTPU_<SUBSYS>_<KEY>=value` settings of the environment that
-        would turn on a plane this server does not run, each with its
-        item."""
-        out = []
-        for (subsys, key), (plane, item) in UNPORTED_SETTINGS.items():
-            env_name = f"{ENV_PREFIX}_{subsys.upper()}_{key.upper()}"
-            value = self._env.get(env_name, "")
-            if _truthy(value):
-                out.append(f"{env_name}={value} ({plane}, ROADMAP.md "
-                           f"Queue A item {item})")
-        return out

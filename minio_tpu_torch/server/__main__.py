@@ -81,8 +81,7 @@ import threading
 
 #: What the JAX package's boot starts and this one does not, with the
 #: ROADMAP.md Queue A item each waits for.
-LEFT_OUT = ("the KMS for SSE (item 10.3), the audit targets (item 10.5), "
-            "bucket DNS (item 9c)")
+LEFT_OUT = "the audit targets (item 10.5), bucket DNS (item 9c)"
 
 
 def expand_ellipses(pattern: str) -> list[str]:
@@ -253,15 +252,15 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def config_line(srv) -> str:
-    """The line the boot prints for its configuration: the notification
-    targets it built, and the environment's settings of planes this
-    server does not run (it ignores them)."""
+    """The line the boot prints for its configuration: the KMS, whether
+    PUTs compress, and the notification targets it built."""
+    h = srv.handlers
     targets = ", ".join(sorted(srv.notify.targets)) or "none"
-    line = f"minio_tpu_torch: notification targets: {targets}"
-    ignored = srv.handlers.config_sys.unported_env()
-    if ignored:
-        line += "; not applied: " + "; ".join(ignored)
-    return line
+    kms = f"{type(h.kms).__name__} ({h.kms.key_id})" if h.kms is not None \
+        else "none (SSE-S3 refused; set MTPU_KMS_SECRET_KEY)"
+    return (f"minio_tpu_torch: kms: {kms}; compression: "
+            f"{'on' if h._compressing() else 'off'}; notification targets: "
+            f"{targets}")
 
 
 def tier_manager(pools):

@@ -23,11 +23,17 @@ Transition rules, GETs of a transitioned stub read through from its tier
 (ranged too), HEAD and GET report the tier as the storage class and a
 temporary restore's `x-amz-restore`, and a stub's overwrite or hard
 delete frees its tier copy through the tier journal (restore is the
-server's `POST ?restore`).  Without the planes of later items a request
-that needs one answers NotImplemented and names its ROADMAP.md Queue A
-item (`unported`): SSE, compression, S3 Select, and the encryption
-config.  An object another package stored encrypted or compressed is not
-served as if it were plain.  A bucket's hard quota is
+server's `POST ?restore`).  The object transforms are served
+(crypto/sse.py, utils/compress.py): a PUT compresses what passes the
+filter when compression is on (`compress_enabled`, or the configuration's
+`compression.enable`) and then seals it under SSE-S3, SSE-KMS or SSE-C
+before the erasure engine sees it; GET, HEAD, copies, UploadPartCopy,
+the replication proxy and S3 Select (`select_object_content`,
+s3select/) reverse them, from the drives or through the tier, whichever
+package stored the object.  A multipart upload with SSE headers is
+refused (the JAX package stores its parts plain), and the bucket
+`?encryption` config is stored, not applied to PUTs without SSE headers,
+as in the JAX package.  A bucket's hard quota is
 enforced at PUT and multipart complete (bucket/quota.py: usage from the
 scanner's last cycle, as in the JAX package, else from a live listing).
 Snowball tars are extracted on PUT and zip members served on GET
@@ -55,11 +61,14 @@ from ..bucket.tier import (RESTORE_EXPIRY_KEY, TIER_NAME_KEY,
                            TIER_SIZE_KEY, _TIER_META_KEYS)
 from ..bucket.metadata import META_BUCKET, BucketMetadataSys
 from ..config.config import ConfigSys
+from ..crypto import sse
+from ..crypto.kms import kms_from_env
 from ..engine.pools import ServerPools
 from ..iam.policy import Policy
 from ..ops import metalanes
 from ..storage.errors import ErrObjectNotFound, StorageError
 from ..storage.xlmeta import FileInfo
+from ..utils import compress as cz
 from ..utils import streams
 from . import extract
 from .api_errors import S3Error, from_storage_error
@@ -70,18 +79,22 @@ MAX_KEY_LEN = 1024
 # User metadata prefix passed through to storage.
 AMZ_META_PREFIX = "x-amz-meta-"
 
-# Request headers and stored metadata keys of the planes this server
-# does not have (the JAX package's crypto/sse.py and utils/compress.py).
-_SSE_HEADERS = ("x-amz-server-side-encryption",
-                "x-amz-server-side-encryption-customer-algorithm")
-_TRANSFORM_KEYS = {
-    "x-mtpu-internal-sse-algo": "SSE",
-    "x-mtpu-internal-compression": "compression",
-}
-#: The size a client sees of an object another package stored
-#: transformed, or of a tiered stub (listings report it, as the JAX
-#: package does).
+#: The SSE request headers (crypto/sse.py).
+_SSE_HEADERS = (sse.H_SSE, sse.H_SSEC_ALGO)
+#: The size a client sees of an object stored transformed (compressed,
+#: sealed) or of a tiered stub; listings report it, as the JAX package
+#: does.
 _CLIENT_SIZE_KEY = "x-mtpu-internal-client-size"
+#: The SSE-C headers of a copy's source, by the request header each
+#: stands for.
+_COPY_SOURCE_SSEC = {
+    sse.H_SSEC_ALGO: "x-amz-copy-source-server-side-encryption-"
+                     "customer-algorithm",
+    sse.H_SSEC_KEY: "x-amz-copy-source-server-side-encryption-"
+                    "customer-key",
+    sse.H_SSEC_MD5: "x-amz-copy-source-server-side-encryption-"
+                    "customer-key-md5",
+}
 
 
 def unported(what: str, item: str = "10") -> S3Error:
@@ -171,8 +184,16 @@ class S3Handlers:
     """All bucket/object handlers; one instance per server."""
 
     def __init__(self, pools: ServerPools, scanner=None, replication=None,
-                 notify=None, tier_mgr=None):
+                 notify=None, tier_mgr=None, kms=None,
+                 compress_enabled: bool = False):
         self.pools = pools
+        # crypto/kms.py (or crypto/kes.py) for SSE-S3 and SSE-KMS: by
+        # default from MTPU_KMS_SECRET_KEY; None refuses those PUTs
+        # rather than seal under a known key.
+        self.kms = kms if kms is not None else kms_from_env()
+        # Compression of what passes utils/compress.py's filter; the
+        # configuration's compression.enable turns it on as well.
+        self.compress_enabled = compress_enabled
         # bucket/tier.TierManager: transitions, read-through, restore and
         # the freeing of tier copies; None serves no tiered stub.
         self.tier_mgr = tier_mgr
@@ -184,8 +205,11 @@ class S3Handlers:
         # published there; None publishes nothing.
         self.notify = notify
         # bucket/replication.ReplicationPool: each write's task, the
-        # proxy GET; None replicates nothing.
+        # proxy GET; None replicates nothing.  Its copies read the
+        # plaintext through this server's transforms.
         self.replication = replication
+        if isinstance(replication, repl.ReplicationPool):
+            replication.read_source = self._replica_source
         # Where quota reads usage (background/scanner.py: the running
         # scanner, or in a pool worker without one its persisted usage);
         # None lists the bucket live.
@@ -228,13 +252,84 @@ class S3Handlers:
             metadata[self.SC_HEADER] = sc
         return self.config_sys.parity_for_class(self.STORAGE_CLASSES[sc])
 
-    @staticmethod
-    def _refuse_transformed(fi: FileInfo) -> None:
-        """An object stored through a plane this server lacks is not
-        served, copied or re-tagged as if its bytes were plain."""
-        for key, plane in _TRANSFORM_KEYS.items():
-            if fi.metadata.get(key):
-                raise unported(f"an object stored with {plane}")
+    def _compressing(self) -> bool:
+        return self.compress_enabled or self.config_sys.compression_enabled()
+
+    def _reverse(self, meta: dict, data, headers: dict, bucket: str,
+                 key: str):
+        """An object's stored bytes -> its plaintext: unseal, then
+        decompress (the reverse of put_object's transforms)."""
+        if sse.is_encrypted(meta):
+            try:
+                data = sse.decrypt_for_get(bytes(data), meta, headers,
+                                           self.kms, bucket, key)
+            except sse.SSEError as e:
+                raise S3Error("AccessDenied", str(e)) from None
+        return cz.decompress(data, meta)
+
+    def _check_key(self, meta: dict, headers: dict, head: bool = False
+                   ) -> None:
+        """The key a sealed object needs, checked from the request and
+        the metadata before a shard is read, so a refused GET or HEAD
+        reads nothing (the checks and answers of decrypt_for_get; HEAD's
+        the JAX HEAD's)."""
+        algo = meta.get(sse.META_ALGO, "")
+        if algo == "SSE-S3" and self.kms is None and not head:
+            raise S3Error("AccessDenied",
+                          "object is KMS encrypted; no KMS configured")
+        if algo != "SSE-C":
+            return
+        try:
+            k = sse.parse_ssec_key(headers)
+        except sse.SSEError as e:
+            raise S3Error("AccessDenied", str(e)) from None
+        md5 = base64.b64encode(hashlib.md5(k).digest()).decode() \
+            if k is not None else None
+        if head and md5 != meta.get(sse.META_KEY_MD5, ""):
+            raise S3Error("AccessDenied", "SSE-C key required for HEAD")
+        if k is None:
+            raise S3Error("AccessDenied",
+                          "object is SSE-C encrypted; key required")
+        if md5 != meta.get(sse.META_KEY_MD5, ""):
+            raise S3Error("AccessDenied",
+                          "SSE-C key does not match object key")
+
+    def _read_plaintext(self, bucket: str, key: str, version_id: str,
+                        headers: dict) -> tuple:
+        """(fi, plaintext) of an object: its stored bytes (a
+        transitioned stub's read through from its tier) with the
+        transforms reversed.  The stub is judged by the returned fi, so
+        a concurrent transition cannot hand over an empty body as
+        data."""
+        try:
+            fi, stored = self.pools.get_object(bucket, key,
+                                               version_id=version_id)
+            if self.tier_mgr is None and fi.metadata.get(TIER_NAME_KEY) \
+                    and not fi.size:
+                raise S3Error("NotImplemented", "the object is in a tier "
+                              "and this server has no tier manager")
+            if self._tiered(fi):
+                stored = self.tier_mgr.read_through(fi)
+        except StorageError as e:
+            raise from_storage_error(e) from None
+        return fi, self._reverse(fi.metadata, stored, headers, bucket, key)
+
+    def _replica_source(self, bucket: str, key: str, version_id: str
+                        ) -> tuple:
+        """(fi, plaintext) of a version to replicate: _read_plaintext
+        without a request.  An SSE-C version, whose key only its client
+        holds, and a sealed one without a KMS are unreplicable; a
+        missing version raises the storage error that drops the task."""
+        fi, stored = self.pools.get_object(bucket, key,
+                                           version_id=version_id)
+        algo = fi.metadata.get(sse.META_ALGO, "")
+        if algo == "SSE-C" or (algo and self.kms is None):
+            raise repl.ErrUnreplicable(
+                f"{bucket}/{key}: {algo} without its key cannot be "
+                "copied")
+        if self._tiered(fi):
+            stored = self.tier_mgr.read_through(fi)
+        return fi, self._reverse(fi.metadata, stored, {}, bucket, key)
 
     def _tiered(self, fi: FileInfo) -> bool:
         """A transitioned stub whose bytes live in its tier (not a live
@@ -297,17 +392,21 @@ class S3Handlers:
         if not st or st.get("status") != "running":
             return None
         try:
-            meta, data = self.replication.proxy_get(bucket, key)
+            meta, data = self.replication.proxy_get(
+                bucket, key, {k: v for k, v in headers.items()
+                              if k.lower() in _COPY_SOURCE_SSEC})
         except repl.ErrReplicationTargetDown as e:
             # The target may hold the key but cannot be asked: 503, not
             # a 404 that would say it does not exist.
             raise S3Error("ReplicationRemoteConnectionError",
                           str(e)) from None
+        except repl.ErrReplicaDenied as e:
+            raise S3Error("AccessDenied", str(e)) from None
         except StorageError:
             return None
+        data = self._reverse(meta, data, headers, bucket, key)
         cond_fi = FileInfo(volume=bucket, name=key, size=len(data),
                            metadata=dict(meta))
-        self._refuse_transformed(cond_fi)
         cond = self._check_conditions(headers, cond_fi)
         if cond is not None:
             return cond
@@ -408,7 +507,8 @@ class S3Handlers:
     #: budget the QoS plane enforces), ?tagging (a blob), ?lifecycle
     #: (applied by the scanner), ?replication (wired into the
     #: replication pool), ?notification (the notification system's
-    #: rules) and ?object-lock.
+    #: rules), ?object-lock and ?encryption (stored and served, not
+    #: applied to a PUT without SSE headers, as in the JAX package).
     _CONFIG_KINDS = {
         "lifecycle": ("lifecycle", "NoSuchLifecycleConfiguration"),
         "policy": ("policy", "NoSuchBucketPolicy"),
@@ -419,9 +519,9 @@ class S3Handlers:
         "quota": ("quota", "NoSuchBucketPolicy"),
         "object-lock": ("object_lock", "NoSuchObjectLockConfiguration"),
         "tagging": ("tagging", "NoSuchTagSet"),
+        "encryption": ("encryption",
+                       "ServerSideEncryptionConfigurationNotFoundError"),
     }
-    #: Bucket configs whose plane waits for ROADMAP.md Queue A item 10.3.
-    UNPORTED_CONFIGS = ("encryption",)
 
     def put_bucket_config(self, bucket: str, sub: str,
                           body: bytes) -> Response:
@@ -804,8 +904,8 @@ class S3Handlers:
                 # A member of a zip object, read whole from the object
                 # (cf. cmd/s3-zip-handlers.go).
                 zip_key, member = split
-                _, zip_bytes = self._read_source(bucket, zip_key,
-                                                 version_id)
+                _, zip_bytes = self._read_plaintext(bucket, zip_key,
+                                                    version_id, headers)
                 data = extract.read_zip_member(bytes(zip_bytes), member)
                 h = {"Content-Length": str(len(data)),
                      "Content-Type": "application/octet-stream",
@@ -831,14 +931,15 @@ class S3Handlers:
         cond = self._check_conditions(headers, fi)
         if cond is not None:
             return cond
-        self._refuse_transformed(fi)
         if self.tier_mgr is None and fi.metadata.get(TIER_NAME_KEY):
             # A stub's body is empty: never serve it as the object.
             raise S3Error("NotImplemented", "the object is in a tier and "
                           "this server has no tier manager")
 
         tiered = self._tiered(fi)
-        size = _logical_size(fi) if tiered else fi.size
+        transcoded = (sse.is_encrypted(fi.metadata)
+                      or cz.is_compressed(fi.metadata))
+        size = _logical_size(fi) if (tiered or transcoded) else fi.size
         rng = headers.get("Range") or headers.get("range")
         offset, length = 0, size
         partial = False
@@ -847,8 +948,19 @@ class S3Handlers:
             if parsed:
                 offset, length = parsed
                 partial = True
+        data = b""
         body_iter = body_file = None
-        if not head and tiered:
+        if transcoded:
+            self._check_key(fi.metadata, headers, head)
+        if not head and transcoded:
+            # A sealed or compressed object is decoded whole, then
+            # sliced by the logical range (cf. the GetObjectReader's
+            # decrypt and decompress stack, cmd/object-api-utils.go:528);
+            # the slice is a view of the one plaintext buffer.
+            fi, full = self._read_plaintext(bucket, key, version_id,
+                                            headers)
+            data = memoryview(full)[offset:offset + length]
+        elif not head and tiered:
             # A transitioned stub streams from its tier in bounded
             # chunks, the range passed through; the first chunk is
             # pulled now so a tier that is down is still an S3 error.
@@ -885,6 +997,7 @@ class S3Handlers:
                 raise from_storage_error(e) from None
 
         h = self._object_headers(fi)
+        h.update(sse.response_headers(fi.metadata))
         if partial:
             h["Content-Range"] = \
                 f"bytes {offset}-{offset + length - 1}/{size}"
@@ -893,14 +1006,41 @@ class S3Handlers:
         else:
             h["Content-Length"] = str(size)
             status = 200
-        return Response(status, b"", h, body_iter=body_iter,
+        return Response(status, data, h, body_iter=body_iter,
                         body_file=body_file)
+
+    def select_object_content(self, bucket: str, key: str, query: dict,
+                              body: bytes,
+                              headers: dict[str, str]) -> Response:
+        """POST /bucket/key?select&select-type=2 (cf.
+        SelectObjectContentHandler, cmd/object-handlers.go:101): the
+        object's plaintext, through its tier and its transforms, queried
+        by s3select/; the answer is the AWS event stream."""
+        from ..s3select.engine import execute_select, parse_select_request
+        from ..s3select.sql import SQLError
+        try:
+            opts = parse_select_request(body)
+        except ET.ParseError:
+            raise S3Error("MalformedXML") from None
+        version_id = query.get("versionId", [""])[0]
+        _, data = self._read_plaintext(bucket, key, version_id, headers)
+        try:
+            out = execute_select(bytes(data), opts)
+        except SQLError as e:
+            raise S3Error("SelectParseError", str(e)) from None
+        except Exception as e:  # noqa: BLE001 — bad data/query combos
+            raise S3Error("SelectParseError",
+                          f"{type(e).__name__}: {e}") from None
+        return Response(200, out,
+                        {"Content-Type": "application/octet-stream"})
 
     def put_object(self, bucket: str, key: str, body,
                    headers: dict[str, str]) -> Response:
         """`body` is bytes or a reader.  A reader streams straight into
-        the erasure engine in O(batch) memory; Content-MD5 verification
-        drains it first, so a rejected body stages nothing."""
+        the erasure engine in O(batch) memory; the transforms (the
+        compression filter passing, SSE headers) and Content-MD5
+        verification drain it first, so a rejected body stages
+        nothing."""
         if len(key) > MAX_KEY_LEN:
             raise S3Error("KeyTooLongError")
         h = {k.lower(): v for k, v in headers.items()}
@@ -911,8 +1051,6 @@ class S3Handlers:
                 while body.read(1 << 20):
                     pass
             return self._copy_object(bucket, key, h)
-        if any(h.get(k) for k in _SSE_HEADERS):
-            raise unported("server-side encryption")
         # aws-chunked bodies declare the PAYLOAD length separately; the
         # wire Content-Length includes chunk headers + signatures.
         declared_size = (len(body) if isinstance(body, (bytes, bytearray))
@@ -920,6 +1058,8 @@ class S3Handlers:
                                   or h.get("content-length") or 0))
         if declared_size > MAX_OBJECT_SIZE:
             raise S3Error("EntityTooLarge")
+        compress = self._compressing() and cz.is_compressible(
+            key, h.get("content-type", ""), declared_size)
         if streams.is_reader(body):
             # Hard cap BEFORE any draining: an undeclared-length
             # (chunked TE) body must not grow past the object limit, in
@@ -927,8 +1067,10 @@ class S3Handlers:
             body = streams.MaxSizeReader(
                 body, MAX_OBJECT_SIZE,
                 exc=lambda msg: S3Error("EntityTooLarge"))
-            if h.get("content-md5") or extract.is_snowball_put(headers):
+            if (h.get("content-md5") or extract.is_snowball_put(headers)
+                    or compress or any(h.get(k) for k in _SSE_HEADERS)):
                 body = streams.ensure_bytes(body)
+                declared_size = len(body)
         if extract.is_snowball_put(headers):
             # Auto-extract a tar body into one object per member under
             # the key prefix (cf. PutObjectExtract, cmd/untar.go:100).
@@ -1002,8 +1144,27 @@ class S3Handlers:
         # its tier copy is freed once the new version stands.
         replaced = self._tiered_version(bucket, key) \
             if not versioned else None
+        # The transforms: compress, then seal (the reference composes
+        # them so, cf. cmd/object-api-utils.go:903 and
+        # cmd/encryption-v1.go:303).
+        stored = body
+        transform_meta: dict = {}
+        if compress and cz.is_compressible(
+                key, metadata.get("content-type", ""), len(body)):
+            stored, cu = cz.compress(stored)
+            transform_meta.update(cu)
         try:
-            fi = self.pools.put_object(bucket, key, body, metadata=metadata,
+            stored, su = sse.encrypt_for_put(stored, h, self.kms, bucket,
+                                             key)
+        except sse.SSEError as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        transform_meta.update(su)
+        if transform_meta:
+            transform_meta[_CLIENT_SIZE_KEY] = str(len(body))
+            metadata.update(transform_meta)
+        try:
+            fi = self.pools.put_object(bucket, key, stored,
+                                       metadata=metadata,
                                        versioned=versioned, parity=parity,
                                        **put_kw)
         except StorageError as e:
@@ -1043,16 +1204,15 @@ class S3Handlers:
         return src_bucket, src_key, src_vid
 
     def _read_source(self, bucket: str, key: str, version_id: str):
-        """(fi, bytes) of a copy source.  A transitioned stub is not a
-        source until it is restored (InvalidObjectState, as S3 answers
-        for an archived object); a live temporary restore's hot copy is,
-        without the tier keys."""
+        """(fi, stored bytes) of a copy source.  A transitioned stub is
+        not a source until it is restored (InvalidObjectState, as S3
+        answers for an archived object); a live temporary restore's hot
+        copy is, without the tier keys."""
         try:
             fi, data = self.pools.get_object(bucket, key,
                                              version_id=version_id)
         except StorageError as e:
             raise from_storage_error(e) from None
-        self._refuse_transformed(fi)
         if fi.metadata.get(TIER_NAME_KEY):
             if self._tiered(fi) or self.tier_mgr is None:
                 raise S3Error("InvalidObjectState",
@@ -1064,19 +1224,20 @@ class S3Handlers:
 
     def _copy_object(self, bucket: str, key: str,
                      h: dict[str, str]) -> Response:
-        if any(h.get(k) for k in _SSE_HEADERS):
-            raise unported("server-side encryption")
         src_bucket, src_key, src_vid = self._copy_source(h)
         fi, data = self._read_source(src_bucket, src_key, src_vid)
         metadata = dict(fi.metadata)
         metadata.pop("etag", None)
         if h.get("x-amz-metadata-directive", "COPY") == "REPLACE":
             # REPLACE swaps the USER metadata only; the internal keys
-            # ride along.
+            # (the transforms' keys describe the stored bytes) ride
+            # along.
             metadata = {k: v for k, v in h.items()
                         if k.startswith(AMZ_META_PREFIX)}
             metadata.update({k: v for k, v in fi.metadata.items()
                              if k.startswith("x-mtpu-internal-")})
+        data = self._reseal(h, fi, data, metadata, src_bucket, src_key,
+                            bucket, key)
         versioned = self.bucket_versioning_enabled(bucket)
         # Storage class: an explicit request header re-classes the copy;
         # otherwise the source's class (already riding in metadata)
@@ -1110,6 +1271,53 @@ class S3Handlers:
         _el(root, "ETag", f'"{out.metadata.get("etag", "")}"')
         _el(root, "LastModified", _iso(out.mod_time_ns))
         return Response(200, _xml(root), {"Content-Type": "application/xml"})
+
+    def _reseal(self, h: dict[str, str], fi: FileInfo, data, metadata: dict,
+                src_bucket: str, src_key: str, bucket: str, key: str):
+        """A copy's stored bytes.  Ciphertext is never copied as it is
+        (an SSE-C object key is bound to the source's path, and a sealed
+        destination needs a fresh seal): a sealed source is unsealed
+        with the key of the x-amz-copy-source-...-customer-* headers,
+        and the copy sealed as the request asks, an SSE-S3 source
+        staying SSE-S3 unless it asks otherwise (as AWS does).  The
+        compressed bytes stay compressed.  Updates `metadata`."""
+        src_algo = fi.metadata.get(sse.META_ALGO, "")
+        try:
+            dst_wants_sse = (sse.parse_ssec_key(h) is not None
+                             or h.get(sse.H_SSE, "") in ("AES256",
+                                                         "aws:kms"))
+        except sse.SSEError as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        if not (src_algo or dst_wants_sse):
+            return data
+        src_h = {hk: h.get(ck, "") for hk, ck in _COPY_SOURCE_SSEC.items()}
+        try:
+            data = sse.decrypt_for_get(bytes(data), fi.metadata, src_h,
+                                       self.kms, src_bucket, src_key)
+        except sse.SSEError as e:
+            raise S3Error("AccessDenied", str(e)) from None
+        for mk in (sse.META_ALGO, sse.META_KEY_MD5, sse.META_SSEC_IV,
+                   sse.META_KMS_KEY_ID, sse.META_SEALED_KEY,
+                   sse.META_ACTUAL_SIZE):
+            metadata.pop(mk, None)
+        eff_h = dict(h)
+        if src_algo == "SSE-S3" and not dst_wants_sse:
+            eff_h[sse.H_SSE] = "AES256"
+        plain_len = len(data)            # after compression, if any
+        try:
+            data, su = sse.encrypt_for_put(data, eff_h, self.kms, bucket,
+                                           key)
+        except sse.SSEError as e:
+            raise S3Error("InvalidArgument", str(e)) from None
+        metadata.update(su)
+        if not cz.is_compressed(metadata):
+            # The client size is the plaintext's (sealing adds bytes); a
+            # plain copy has none.
+            if su:
+                metadata[_CLIENT_SIZE_KEY] = str(plain_len)
+            else:
+                metadata.pop(_CLIENT_SIZE_KEY, None)
+        return data
 
     def delete_object(self, bucket: str, key: str, query: dict,
                       headers: dict[str, str] | None = None) -> Response:
@@ -1325,7 +1533,11 @@ class S3Handlers:
                          headers: dict[str, str]) -> Response:
         h = {k.lower(): v for k, v in headers.items()}
         if any(h.get(k) for k in _SSE_HEADERS):
-            raise unported("server-side encryption")
+            # The JAX package ignores these headers and stores the parts
+            # plain; the port refuses rather than store plaintext a
+            # client asked to have sealed (ROADMAP.md standing records).
+            raise S3Error("NotImplemented", "server-side encryption of a "
+                          "multipart upload is not served")
         metadata = {k: v for k, v in h.items()
                     if k.startswith(AMZ_META_PREFIX)}
         if "content-type" in h:
@@ -1376,11 +1588,15 @@ class S3Handlers:
                           part_number: int, h: dict[str, str]) -> Response:
         """UploadPartCopy (cf. CopyObjectPartHandler,
         cmd/object-handlers.go): source an upload part from an existing
-        object, or a byte range of it."""
+        object, or a byte range of it.  The source is read as plaintext
+        (through its tier, unsealed with the x-amz-copy-source-...-
+        customer-* key, decompressed): the part joins a new stream of its
+        own, and copied and uploaded parts complete byte-identical."""
         src_bucket, src_key, src_vid = self._copy_source(h)
         if not src_bucket or not src_key:
             raise S3Error("InvalidArgument", "bad x-amz-copy-source")
-        fi, data = self._read_source(src_bucket, src_key, src_vid)
+        src_h = {hk: h.get(ck, "") for hk, ck in _COPY_SOURCE_SSEC.items()}
+        fi, data = self._read_plaintext(src_bucket, src_key, src_vid, src_h)
         rng = h.get("x-amz-copy-source-range", "")
         if rng:
             if not rng.startswith("bytes="):

@@ -29,12 +29,16 @@ the journal's pending records, POST registers one, `{"name", "type":
 "fs" | "s3" | "pool", ...}`, PUT replaces one, DELETE `?name=` drops
 one) and the ILM plane (`ilm`: GET the tier manager's counters, POST
 `{"op": "drain"}` drains the tier journal and `{"bucket", "object",
-"tier"}` transitions one object); POST / is STS
+"tier"}` transitions one object) and the KMS (`kms/status`,
+`kms/key/list`, POST `kms/key/create?key-id=`, `kms/key/status?key-id=`);
+POST / is STS
 (AssumeRole, WebIdentity and ClientGrants through OIDC, LDAPIdentity,
 Certificate over mTLS).  Objects serve ?retention and ?legal-hold, and
 `POST ?restore` copies a transitioned version back from its tier: for
 good, or with `<RestoreRequest><Days>N</Days></RestoreRequest>` for N
-days, after which the scanner drops the hot copy (bucket/tier.py).
+days, after which the scanner drops the hot copy (bucket/tier.py), and
+`POST ?select&select-type=2` runs S3 Select over the object's plaintext
+(s3select/).
 
 Bucket notifications (bucket/notify.py): the server's
 NotificationSystem holds the buckets' `?notification` rules and the
@@ -103,7 +107,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..bucket import notify as _notify
 from ..bucket import replication as repl
-from ..config.config import UnportedSetting
 from ..engine.pools import ServerPools
 from ..iam.iam import Identity
 from ..iam.ldap import LDAPError
@@ -370,8 +373,12 @@ class S3Server:
                  reuse_port: bool = False, worker_plane=None,
                  worker_id: int | None = None, rpc_router=None,
                  scanner=None, replication=None, notify=None,
-                 tier_mgr=None):
+                 tier_mgr=None, kms=None, compress_enabled: bool = False):
         self.pools = pools
+        # The handlers' KMS (None: crypto/kms.kms_from_env()) and
+        # compression switch (server/handlers.py).
+        self.kms = kms
+        self.compress_enabled = compress_enabled
         # bucket/tier.TierManager (the boot's; None serves no tier and
         # refuses restore and the admin tier API).
         self.tier_mgr = tier_mgr
@@ -1010,7 +1017,8 @@ class S3Server:
         replicates again (cf. the JAX `_reload_replication`)."""
         h = S3Handlers(pools, self._usage_source(pools),
                        replication=self.replication, notify=self.notify,
-                       tier_mgr=self.tier_mgr)
+                       tier_mgr=self.tier_mgr, kms=self.kms,
+                       compress_enabled=self.compress_enabled)
         h.refresh_targets = lambda: self._register_new_targets(h, True)
         if self.scanner is not None:
             self.scanner.attach_config(h.meta, self.tier_mgr)
@@ -1025,7 +1033,7 @@ class S3Server:
     def _register_config_targets(self, h: S3Handlers, pools) -> None:
         """Boot-time notification wiring (the JAX server's of the same
         name): every enabled notify_* subsystem's target, parking under
-        MTPU_NOTIFY_STORE_DIR (one directory per worker in the pool),
+        MTPU_NOTIFY_STORE_DIR (one store for the pool's workers),
         and every bucket's persisted rules.  A bad target config is
         logged, not fatal."""
         self._register_new_targets(h)
@@ -1043,10 +1051,6 @@ class S3Server:
         import os as _os
         from ..bucket.event_targets import targets_from_config
         store = _os.environ.get("MTPU_NOTIFY_STORE_DIR") or None
-        pool_kw = {}
-        if self.worker_plane is not None and self.worker_id is not None:
-            pool_kw = {"worker": self.worker_id,
-                       "workers": self.worker_plane.nworkers}
         try:
             if reread:
                 h.config_sys.load()
@@ -1056,7 +1060,7 @@ class S3Server:
                          if sub.startswith("notify_"))
             if seen == self._notify_seen:
                 return
-            for t in targets_from_config(cs, store_dir=store, **pool_kw):
+            for t in targets_from_config(cs, store_dir=store):
                 if t.arn in self.notify.targets:
                     close = getattr(t, "close", None)
                     if close is not None:
@@ -1517,6 +1521,8 @@ class S3Server:
             return self._admin_tier(method, query, body)
         if sub == "ilm":
             return self._admin_ilm(method, body)
+        if sub.startswith("kms"):
+            return self._admin_kms(sub, method, query)
         if sub == "config-help" and method == "GET":
             return _json(self.handlers.config_sys.help(
                 query.get("subsys", [""])[0]))
@@ -1537,14 +1543,41 @@ class S3Server:
                           f"unknown admin endpoint {sub!r}")
         return resp
 
+    def _admin_kms(self, sub: str, method: str, query: dict) -> Response:
+        """The KMS admin API (cf. the KMSCreateKey and KMSKeyStatus
+        handlers, cmd/admin-router.go:40): `kms/status`, `kms/key/list`,
+        `kms/key/create?key-id=` (POST) and `kms/key/status?key-id=`."""
+        from ..crypto.kms import KMSError
+        kms = self.handlers.kms
+        if kms is None:
+            return _json({"error": "KMS not configured"}, 501)
+        if sub == "kms/status" and method == "GET":
+            return _json({"name": type(kms).__name__,
+                          "defaultKeyId": kms.key_id,
+                          "endpoints": {"local": "online"}})
+        if sub == "kms/key/list" and method == "GET":
+            return _json({"keys": kms.list_keys()})
+        if sub == "kms/key/create" and method == "POST":
+            key_id = query.get("key-id", [""])[0]
+            if not key_id:
+                raise S3Error("InvalidArgument", "key-id required")
+            try:
+                kms.create_key(key_id)
+            except KMSError as e:
+                raise S3Error("InvalidArgument", str(e)) from None
+            return _json({"created": key_id})
+        if sub == "kms/key/status" and method == "GET":
+            return _json(kms.key_status(
+                query.get("key-id", [kms.key_id])[0]))
+        raise S3Error("MethodNotAllowed")
+
     def _admin_config(self, method: str, query: dict,
                       body: bytes) -> Response:
         """`mc admin config get/set` (cf. cmd/admin-handlers-config-kv.go)
         over the handlers' ConfigSys, which the data path reads: a set
         applies to the next request, through every worker of the pool and
         every node of a cluster once they reload (the ConfigSys's
-        on_write hook).  A setting that would turn on a plane this server
-        lacks answers NotImplemented with its item."""
+        on_write hook)."""
         cs = self.handlers.config_sys
         if method == "GET":
             subsys = query.get("subsys", [""])[0]
@@ -1555,10 +1588,6 @@ class S3Server:
             req = json.loads(body or b"{}")
             try:
                 cs.set(req["subsys"], req["key"], req["value"])
-            except UnportedSetting as e:
-                raise unported(f"{e.plane} (config "
-                               f"{req['subsys']}.{req['key']})",
-                               e.item) from None
             except KeyError as e:
                 raise S3Error("InvalidArgument", str(e)) from None
             self.handlers.apply_config()
@@ -2357,10 +2386,6 @@ class S3Server:
     def _dispatch_bucket(self, method, bucket, query, headers, body,
                          access_key) -> Response:
         h = self.handlers
-        unported_sub = next((s for s in h.UNPORTED_CONFIGS if s in query),
-                            None)
-        if unported_sub and method in ("GET", "PUT", "DELETE"):
-            raise unported(f"bucket {unported_sub} configuration")
         config_sub = next((s for s in h._CONFIG_KINDS if s in query), None)
         if method == "PUT":
             if "versioning" in query:
@@ -2436,7 +2461,8 @@ class S3Server:
             if "restore" in query:
                 return self._restore(bucket, key, query, body)
             if "select" in query:
-                raise unported("S3 Select")
+                return h.select_object_content(bucket, key, query, body,
+                                               headers)
             if "uploads" in query:
                 return h.create_multipart(bucket, key, headers)
             if "uploadId" in query:

@@ -104,10 +104,12 @@ rewires replication at its next look (`mtpu_worker_config_generation`
 shows it).  The tier journal is one file for the pool: appends and
 compactions hold its flock, and no worker reaps the copy of a
 transition another live worker runs (bucket/tier.py).  Each worker builds
-the configuration's notification targets with a queue store of its own
-(`<MTPU_NOTIFY_STORE_DIR>/<kind>/w<worker>`, which a respawn takes
-over) and publishes its event counters in its slab
-(`mtpu_worker_notify_*`).
+the configuration's notification targets over one queue store for the
+pool (`<MTPU_NOTIFY_STORE_DIR>/<kind>/`): its tickets sort in pool-wide
+arrival order and one worker's retry loop, the holder of the store's
+sender lock, drains it (bucket/notify.py), so a key's events reach the
+target in order whichever workers served them.  Each worker publishes
+its event counters in its slab (`mtpu_worker_notify_*`).
 
 `MTPU_WORKERS=0` (the default) never enters this module: one process
 remains the oracle.

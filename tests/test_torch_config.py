@@ -97,23 +97,24 @@ def test_listeners_and_on_write():
     assert writes == [1, 1]
 
 
-@pytest.mark.parametrize("subsys,key", sorted(port_config.UNPORTED_SETTINGS))
+@pytest.mark.parametrize("subsys,key", [("compression", "enable"),
+                                        ("kms", "enable")])
 def test_unported_planes_are_refused(subsys, key):
-    """The JAX class stores `enable=on` for a plane the port does not
-    have; the port refuses it (and still stores `off`)."""
+    """The planes these settings turn on are served now: both classes
+    store `enable=on` and `off` alike, the environment wins over the
+    stored value, and compression's setting reads through
+    `compression_enabled` (the handlers' switch)."""
     j, p = _both()
-    j.set(subsys, key, "on")
-    assert j.get(subsys, key) == "on"
-    with pytest.raises(port_config.UnportedSetting) as ei:
-        p.set(subsys, key, "on")
-    assert ei.value.item == "10.3"
-    assert p.get(subsys, key) == "off"
-    p.set(subsys, key, "off")
-    assert p.get(subsys, key) == "off"
+    for value in ("on", "off", "on"):
+        j.set(subsys, key, value)
+        p.set(subsys, key, value)
+        assert p.get(subsys, key) == j.get(subsys, key) == value
+    assert p.compression_enabled() == j.compression_enabled() == (
+        subsys == "compression")
     env = {f"MTPU_{subsys.upper()}_{key.upper()}": "on"}
     _, pe = _both(env)
-    assert len(pe.unported_env()) == 1
-    assert "item 10.3" in pe.unported_env()[0]
+    assert pe.get(subsys, key) == "on"
+    assert pe.compression_enabled() == (subsys == "compression")
 
 
 @pytest.mark.parametrize("writer,reader", [(PORT, JAX), (JAX, PORT)],
@@ -235,11 +236,19 @@ def test_admin_config_set_governs_the_next_put(tmp_path):
             "subsys": "storage_class", "key": "standard",
             "value": "EC:2"})[0] == 200
         assert parity("c") == 2
-        st, body = cli.admin("POST", "config", doc={
-            "subsys": "compression", "key": "enable", "value": "on"})
-        assert st == 501 and b"item 10.3)" in body, body
+        assert cli.admin("POST", "config", doc={
+            "subsys": "compression", "key": "enable", "value": "on"}) == (
+            200, {"ok": True})
         assert cli.admin("GET", "config", {"subsys": "compression"})[1][
-            "compression"]["enable"] == "off"
+            "compression"]["enable"] == "on"
+        # The setting takes effect at the next PUT: a text body is
+        # stored compressed and read back whole.
+        text = b"compressible line of text\n" * 20_000
+        assert cli.request("PUT", "/cfgb/c.txt", body=text)[0] == 200
+        raw = (tmp_path / "d0" / "cfgb" / "c.txt" / "xl.meta").read_bytes()
+        meta = XLMeta.from_bytes(raw).latest().metadata
+        assert meta["x-mtpu-internal-compression"] == "deflate"
+        assert cli.get_object("cfgb", "c.txt") == text
     finally:
         srv.shutdown()
         close_pools(pools)
@@ -253,8 +262,7 @@ def test_boot_line_names_the_unported_environment(tmp_path, monkeypatch):
     try:
         line = port_main.config_line(srv)
         assert "notification targets: none" in line
-        assert "not applied: MTPU_COMPRESSION_ENABLE=on (compression, " \
-            "ROADMAP.md Queue A item 10.3)" in line
+        assert "compression: on" in line and "not applied" not in line
     finally:
         srv.shutdown()
         close_pools(pools)

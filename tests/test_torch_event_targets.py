@@ -232,33 +232,33 @@ def test_factory_matches_jax(tmp_path):
 
 
 def test_factory_gives_each_worker_its_own_store(tmp_path):
-    """`<kind>/w<worker>` per worker; worker 0 of 2 adopts what the JAX
-    layout and a worker slot beyond the pool left; one process adopts
-    every worker's directory."""
+    """Every process of a deployment, each worker of the pool too,
+    builds its target over one store, `<kind>/` (the JAX layout); the
+    event files of the per-worker layout (`<kind>/w<N>`) are adopted
+    into it in ticket order, and both workers' targets see every parked
+    event."""
     cfg = port_config.ConfigSys(None, env={})
     cfg.set("notify_webhook", "enable", "on")
     cfg.set("notify_webhook", "endpoint", "http://127.0.0.1:9/hook")
     store = tmp_path / "q"
-    for sub, name in (("", "top.json"), ("w1", "one.json"),
-                      ("w2", "two.json")):
+    for sub, n in (("", 3), ("w1", 1), ("w2", 2)):
+        name = f"{n:020d}-{sub or 'top'}.json"    # the old tickets' form
         (store / "webhook" / sub).mkdir(parents=True, exist_ok=True)
         (store / "webhook" / sub / name).write_text(
             json.dumps({"from": sub or "top"}))
     made = []
     try:
-        (w0,) = port_et.targets_from_config(cfg, str(store), worker=0,
-                                            workers=2)
-        (w1,) = port_et.targets_from_config(cfg, str(store), worker=1,
-                                            workers=2)
+        (w0,) = port_et.targets_from_config(cfg, str(store))
+        (w1,) = port_et.targets_from_config(cfg, str(store))
         made += [w0, w1]
-        assert w0.backlog.store_dir == str(store / "webhook" / "w0")
-        assert sorted(e["from"] for e in w0.backlog.events) == ["top", "w2"]
-        assert [e["from"] for e in w1.backlog.events] == ["w1"]
-        (one,) = port_et.targets_from_config(cfg, str(store))
-        made.append(one)
-        assert one.backlog.store_dir == str(store / "webhook")
-        assert sorted(e["from"] for e in one.backlog.events) == [
-            "top", "w1", "w2"]
+        for t in (w0, w1):
+            assert t.backlog.store_dir == str(store / "webhook")
+            assert [e["from"] for e in t.backlog.events] == [
+                "w1", "w2", "top"]
+        w1.backlog.send({"from": "new"})
+        assert [e["from"] for e in w0.backlog.events] == [
+            "w1", "w2", "top", "new"]
+        assert os.listdir(store / "webhook" / "w1") == []
     finally:
         for t in made:
             t.close()

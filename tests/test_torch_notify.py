@@ -342,8 +342,10 @@ def test_register_target_starts_the_retry_of_a_loaded_store(
                                   store_dir=str(tmp_path / "s"))
     ns.register_target(t)
     try:
-        _until(lambda: len(receiver.records) == 3, "the loaded events")
-        assert ns.backlog_depth() == 0
+        # A file goes once its event was delivered, just after the
+        # receiver has it.
+        _until(lambda: len(receiver.records) == 3
+               and ns.backlog_depth() == 0, "the loaded events")
         assert [r["i"] for r in receiver.records] == [0, 1, 2]
     finally:
         ns.close()

@@ -495,16 +495,28 @@ class TestPortOnly:
                 cli.make_bucket("npx")
             assert (ei.value.status, ei.value.code) == \
                 (409, "BucketAlreadyOwnedByYou")
-            for method, path, query, headers, item in (
+            # SSE, the encryption config and Select are served
+            # (tests/test_torch_sse.py, test_torch_select.py): SSE-S3
+            # without a KMS is refused as the JAX server refuses it, a
+            # missing encryption config is a 404 and an empty Select
+            # request malformed.
+            for method, path, query, headers, want in (
                     ("PUT", "/npx/x", None,
-                     {"x-amz-server-side-encryption": "AES256"}, "10"),
+                     {"x-amz-server-side-encryption": "AES256"},
+                     (400, b"no KMS configured")),
+                    ("GET", "/npx", {"encryption": ""}, None,
+                     (404, b"ServerSideEncryptionConfigurationNotFound")),
+                    ("POST", "/npx/o", {"select": ""}, None,
+                     (400, b"MalformedXML"))):
+                st, _, body = cli.request(method, path, query=query,
+                                          headers=headers)
+                assert st == want[0] and want[1] in body, (path, body)
+            for method, path, query, headers, item in (
                     # Lifecycle, replication, object lock, retention
                     # and notification configs are served
                     # (tests/test_torch_lifecycle.py,
                     # test_torch_object_lock.py, test_torch_replication.py,
                     # test_torch_notify.py).
-                    ("GET", "/npx", {"encryption": ""}, None, "10"),
-                    ("POST", "/npx/o", {"select": ""}, None, "10"),
                     # Restore and the admin tier API are served
                     # (tests/test_torch_tier.py); below, a server without
                     # a tier manager refuses them.
@@ -552,9 +564,11 @@ class TestPortOnly:
 
     def test_object_stored_through_unported_plane_not_served(self,
                                                              tmp_path):
-        """An object whose metadata says SSE or compression is refused,
-        not served as plain bytes, and so is a tiered stub in a server
-        without a tier manager; a quota'd bucket takes no write."""
+        """An object whose metadata names an SSE algorithm this server
+        does not know is refused, not served as plain bytes (HEAD
+        answers), a deflated object is served inflated, and a tiered
+        stub in a server without a tier manager is refused; a quota'd
+        bucket takes no write."""
         pools = PORT.pools(tmp_path, "q")
         srv = PORT.S3Server(pools, port_sigv4.Credentials(
             ACCESS, SECRET)).start()
@@ -562,14 +576,23 @@ class TestPortOnly:
             cli = PORT.S3Client(srv.endpoint, ACCESS, SECRET,
                                 timeout=TIMEOUT)
             cli.make_bucket("tqx")
-            for i, key in enumerate(("x-mtpu-internal-sse-algo",
-                                     "x-mtpu-internal-compression",
-                                     "x-mtpu-internal-tier")):
-                pools.put_object("tqx", f"o{i}", b"sealed bytes",
-                                 metadata={key: "on"})
-                for method in ("GET", "HEAD"):
-                    st, _, _ = cli.request(method, f"/tqx/o{i}")
-                    assert st == 501, (key, method)
+            import zlib
+            text = b"a line of text\n" * 8
+            for i, (key, value, stored, want) in enumerate((
+                    ("x-mtpu-internal-sse-algo", "on", b"sealed bytes",
+                     (403, 200)),
+                    ("x-mtpu-internal-compression", "deflate",
+                     zlib.compress(text, 1), (200, 200)),
+                    ("x-mtpu-internal-tier", "on", b"sealed bytes",
+                     (501, 501)))):
+                pools.put_object("tqx", f"o{i}", stored, metadata={
+                    key: value,
+                    "x-mtpu-internal-client-size": str(len(text))})
+                for method, code in zip(("GET", "HEAD"), want):
+                    st, _, body = cli.request(method, f"/tqx/o{i}")
+                    assert st == code, (key, method)
+                    if st == 200 and method == "GET":
+                        assert body == text
             # A quota another package stored is enforced: the bucket's
             # 36 bytes are over it, so the PUT is refused.
             srv.handlers.meta.put("tqx", "quota", b'{"quota": 1}')

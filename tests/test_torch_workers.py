@@ -1509,10 +1509,11 @@ def test_undeliverable_answer_frees_its_slot_once(monkeypatch):
 
 # -- notifications and the server config across workers -----------------------
 
-#: A sitecustomize hook for the notification test: worker 1 declines the
+#: A sitecustomize hook for the notification tests: worker 1 declines the
 #: config writes (a `?notification` PUT, an admin config POST) and the
-#: PUTs into "only0"; worker 0 declines the PUTs into "only1".  The retry
-#: loop runs every 0.1 s.
+#: PUTs into "only0"; worker 0 declines the PUTs into "only1" and the
+#: DELETEs in "only0".  The retry loop runs every 0.1 s; worker 0's
+#: starts 1.5 s late, so worker 1's loop is the first to look.
 _NOTIFY_HOOK = _LIFECYCLE_HOOK.split("def _fix_handlers")[0].replace(
     """import minio_tpu_torch.background.decom as dc
 
@@ -1524,9 +1525,18 @@ def _slow(self, *a, **kw):
 dc.Decommissioner._record_moved = _slow
 """, """import minio_tpu_torch.bucket.notify as nt
 nt.RETRY_INTERVAL_S = 0.1
+_loop = nt._Backlogged._retry_loop
+
+
+def _late_loop(self):
+    if os.environ.get("MTPU_WORKER_ID") == "0":
+        time.sleep(1.5)
+    return _loop(self)
+nt._Backlogged._retry_loop = _late_loop
 """) + '''
 def _fix_handlers(m):
     put = m.S3Handlers.put_object
+    dele = m.S3Handlers.delete_object
     cfg = m.S3Handlers.put_bucket_config
 
     def guarded(self, bucket, key, *a, **kw):
@@ -1535,11 +1545,17 @@ def _fix_handlers(m):
             raise _refuse()
         return put(self, bucket, key, *a, **kw)
 
+    def guarded_del(self, bucket, key, *a, **kw):
+        if bucket == "only0" and os.environ.get("MTPU_WORKER_ID") == "0":
+            raise _refuse()
+        return dele(self, bucket, key, *a, **kw)
+
     def guarded_cfg(self, bucket, sub, body):
         if os.environ.get("MTPU_WORKER_ID") == "1":
             raise _refuse()
         return cfg(self, bucket, sub, body)
     m.S3Handlers.put_object = guarded
+    m.S3Handlers.delete_object = guarded_del
     m.S3Handlers.put_bucket_config = guarded_cfg
 
 
@@ -1561,11 +1577,11 @@ _patch("minio_tpu_torch.server.server", _fix_server)
 def test_notifications_and_config_across_workers(tmp_path):
     """A `?notification` rule and a `config set storage_class` stored
     through worker 0 govern PUTs worker 1 serves (the JAX pool sets them
-    in the serving worker alone).  Each worker parks in a store
-    directory of its own while the webhook is down: neither loses or
-    re-sends the other's events, and worker 1's respawn delivers what
-    its predecessor parked (the JAX pool's workers share one directory:
-    each loads, re-sends and unlinks the others' events)."""
+    in the serving worker alone).  Both workers park in the pool's one
+    store while the webhook is down, and its one sender delivers every
+    event once, none lost across worker 1's respawn (the JAX pool's
+    workers share one directory with no sender: each loads, re-sends
+    and unlinks the others' events)."""
     from test_torch_notify import Receiver
     from minio_tpu_torch.storage.xlmeta import XLMeta
     recv = Receiver()
@@ -1623,18 +1639,18 @@ def test_notifications_and_config_across_workers(tmp_path):
                    "rb").read()
         assert XLMeta.from_bytes(raw).latest().erasure.parity_blocks == 1
 
-        # The outage: each worker parks its own events.
+        # The outage: both workers park in the pool's one store.
         recv.up = False
         keys = {w: [f"w{w}-{i}" for i in range(4)] for w in (0, 1)}
         for w in (0, 1):
             for k in keys[w]:
                 put(f"only{w}", k, k.encode())
-        for w in (0, 1):
-            assert len(os.listdir(store / "webhook" / f"w{w}")) == 4, w
+        assert len([n for n in os.listdir(store / "webhook")
+                    if n.endswith(".json")]) == 8
         m = _settled_metrics(port)
         for w in (0, 1):
             lab = f'{{worker="{w}"}}'
-            assert m[f"mtpu_worker_notify_backlog_events{lab}"] == 4
+            assert m[f"mtpu_worker_notify_backlog_events{lab}"] == 8
             assert m[f"mtpu_worker_notify_events_parked_total{lab}"] == 4
         pid1 = int(m['mtpu_worker_pid{worker="1"}'])
         os.kill(pid1, signal.SIGKILL)
@@ -1651,17 +1667,77 @@ def test_notifications_and_config_across_workers(tmp_path):
               timeout=30, proc=proc)
         time.sleep(1.0)                # a second copy would come now
         assert delivered() == want
-        for w in (0, 1):
-            assert os.listdir(store / "webhook" / f"w{w}") == [], w
+        assert os.listdir(store / "webhook") == []
         m = _settled_metrics(port)
         assert m['mtpu_worker_notify_backlog_events{worker="0"}'] == 0
         assert m['mtpu_worker_notify_backlog_events{worker="1"}'] == 0
-        assert m['mtpu_worker_notify_events_retried_total{worker="0"}'] \
-            == 4
-        assert m['mtpu_worker_notify_events_retried_total{worker="1"}'] \
-            == 4
+        assert sum(m[f'mtpu_worker_notify_events_retried_total'
+                     f'{{worker="{w}"}}'] for w in (0, 1)) == 8
         assert "notification targets: arn:minio:sqs::1:webhook [worker " \
             "0]" in _log(root)
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        recv.close()
+
+
+def test_a_keys_events_keep_their_order_across_workers(tmp_path):
+    """A key's PUT, parked by worker 0 while the webhook is down, reaches
+    the webhook before that key's DELETE, which worker 1 serves once the
+    webhook is back: the DELETE parks behind the pool's one store and its
+    one sender delivers both in arrival order, each once.  With a store
+    per worker, worker 1 found its own store empty and posted the DELETE
+    at once, ahead of the PUT parked in worker 0's."""
+    from test_torch_notify import Receiver
+    recv = Receiver()
+    hook = tmp_path / "hook"
+    hook.mkdir()
+    (hook / "sitecustomize.py").write_text(_NOTIFY_HOOK)
+    root = str(tmp_path)
+    store = tmp_path / "store"
+    proc, port = _boot(root, 2, {
+        "MTPU_SCANNER": "0", "MTPU_NOTIFY_WEBHOOK_ENABLE": "on",
+        "MTPU_NOTIFY_WEBHOOK_ENDPOINT": recv.url,
+        "MTPU_NOTIFY_STORE_DIR": str(store)}, pythonpath=str(hook))
+
+    def fresh():
+        return S3Client(f"http://127.0.0.1:{port}", "pooladmin",
+                        "pooladmin-secret", timeout=60)
+
+    rules = (b"<NotificationConfiguration><QueueConfiguration><Queue>"
+             b"arn:minio:sqs::1:webhook</Queue><Event>s3:ObjectCreated:*"
+             b"</Event><Event>s3:ObjectRemoved:*</Event>"
+             b"</QueueConfiguration></NotificationConfiguration>")
+    try:
+        _wait(lambda: all(_metrics(port).get(
+            f'mtpu_worker_ready{{worker="{w}"}}') == 1 for w in (0, 1)),
+            "both workers", timeout=90, proc=proc)
+        fresh().make_bucket("only0")
+        _until_200(fresh, lambda c: c.request(
+            "PUT", "/only0", query={"notification": ""}, body=rules),
+            "the rules")
+        _wait(lambda: all(
+            _metrics(port)[f'mtpu_worker_config_generation{{worker="{w}"}}']
+            == _metrics(port)["mtpu_config_generation"] for w in (0, 1)),
+            "both workers' reload", timeout=30, proc=proc)
+        recv.up = False
+        _until_200(fresh, lambda c: c.request("PUT", "/only0/k",
+                                              body=b"v"), "the PUT")
+        assert _settled_metrics(port)[
+            'mtpu_worker_notify_events_parked_total{worker="0"}'] == 1
+        recv.up = True
+        _until_status(fresh, lambda c: c.request("DELETE", "/only0/k"),
+                      "the DELETE", 204)
+        _wait(lambda: len(recv.records) >= 2, "both events", timeout=30,
+              proc=proc)
+        time.sleep(0.5)                # a second copy would come now
+        assert [(r["eventName"], r["s3"]["object"]["key"])
+                for r in recv.records] == [
+            ("s3:ObjectCreated:Put", "k"), ("s3:ObjectRemoved:Delete", "k")]
+        assert [n for n in os.listdir(store / "webhook")] == []
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=30) == 0
     finally:

@@ -145,7 +145,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       (a supervisor, the device owner and 4 SO_REUSEPORT workers) and
       with 0, in turns (0, 4: half the turns it had before phase l
       joined the run), on one EC:8+4 set of 12 drives on
-      /dev/shm; client processes that load no torch PUT and GET one
+      /dev/shm; the turns run on phase l's boots of their
+      configurations (A, D and C for the highwayhash256S pool), which
+      also checks the part files across the turns; client processes that load no torch PUT and GET one
       64 MiB object each from 1 and 8 clients, 8 objects of 1 MiB
       each from 16, and (the turn with workers, highwayhash256S) 1 of
       64 MiB each from 4.  GB/s and operations/s per step; with workers
@@ -156,10 +158,17 @@ Phases, each printing its own lines; any failure exits non-zero:
       turns, the owner's items exact with no fallback where the batches
       fit the arena, a context in the owner alone; in the last turn the
       owner is SIGKILLed under 4 clients' PUTs (no PUT lost, fallbacks,
-      generation + 1, later items the owner's again); SIGTERM exits 0.
-      The boots run with the hot tier on (the default): every GET there
-      reads its key once (a first miss only plants a ghost) or an object
-      over MTPU_HOTCACHE_MAX_OBJ, so no count changes.
+      generation + 1, later items the owner's again); the node metrics
+      read through two workers, each family's HELP and TYPE once;
+      SIGTERM exits 0.
+      The one-process turn and the highwayhash256S pool run with the
+      hot tier on (the default; boots A and C), the turn with workers,
+      the owner kill included, without it (boot D, MTPU_HOTCACHE=0; it
+      ran with the tier on while 5k booted its own pools): every GET
+      there reads its key once (a first miss only plants a ghost) or an
+      object over MTPU_HOTCACHE_MAX_OBJ, so the tier changes no count.
+      The turns' launches, read from the pools' metrics, are the worker
+      pool's in the tally, not the serving spine's.
    l. the GET side of the serving spine (phase_get_spine): the same
       deployment with the default 64 MiB hot-object tier, booted four
       times over one set of drives (one process, tier on and
@@ -234,9 +243,12 @@ Phases, each printing its own lines; any failure exits non-zero:
       PUT at write quorum, a dsync lock with 3 of 4 lockers), booted
       again and healed by a heal sequence; then, every node stopped, the
       16 drives in this process: a deep dry-run heal finds every copy
-      ok and every object reads from node 4's drives.  Items per step
-      from the nodes' metrics; boot s, PUT and GET GB/s beside 5f's,
-      ms a dsync lock against the local lock, heal s.
+      ok and every object reads from node 4's drives.  Node 1's fleet
+      scrape (admin metrics/cluster and healthinfo) reads mtpu_node_up 1
+      for the 4 nodes after the boot and 0 for node 4 once it is
+      killed, within MTPU_OBS_DEADLINE_MS.  Items per step from the
+      nodes' metrics; boot s, PUT and GET GB/s beside 5f's, ms a dsync
+      lock against the local lock, heal s.
    q. the pool lifecycle and the data scanner (phase_lifecycle): a
       versioned bucket written in this process onto pool 0 (one EC:8+4
       set of 12 drives, STANDARD=EC:4): 6 objects of 64 MiB (2
@@ -294,6 +306,24 @@ Phases, each printing its own lines; any failure exits non-zero:
       ilm.post_copy, its orphan reaped by the next TierManager's replay.
       GF, hh256 and mxh256 items exact per step in this process and in
       the warm server (its metrics).
+   u. the object transforms (phase_transforms): SSE-S3, SSE-C,
+      compression and S3 Select through an in-process S3Server.
+   v. observability (phase_observe): config 2's set in an in-process
+      S3Server with the span ring on, MTPU_SLO on and MTPU_AUDIT with a
+      file and a webhook target (a loopback collector), an admin trace
+      stream open: 4 client threads PUT 8 mxh256 and 2 highwayhash256S
+      objects of 64 MiB, full and 8 MiB ranged GETs, a GET with two data
+      shards away, 64 inline PUTs and HEADs.  One root span per request
+      in the ring and the stream, one audit entry per request in each
+      target; a PUT's and an engine GET's root covered at least 0.8 by
+      their stages; every device span tagged device=0 and, for one
+      traced PUT, at least the CUDA-event time of its launches and of a
+      20 ms spin queued behind them (the same PUT with the span's wait
+      taken out fails that test, as it must); the registry's coalescer,
+      request and byte families equal to the lanes' and the client's
+      counts, its kernel families rendering the wrappers'; SPAN_ALLOCS
+      still over untraced GETs; 4 x 64 MiB PUT + GET from one client,
+      tracing on and off in turns.
    Phases a-g and i-t run with MTPU_DEVCACHE=0: their counts assume
    every GET reads its shards, and a and b probe a GET of a corrupted
    frame.  Phases a-i and k-t run with MTPU_HEDGE=0 and the FileInfo
@@ -338,6 +368,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import io
@@ -572,6 +603,23 @@ class Launches:
         if self.shapes is not None:
             self.last_shapes = self.shapes.snapshot()
         return {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """A direct wrapper call made inside (a probe of a wrapper, no
+        main path's) leaves the launches, the items and the shape tally
+        as it found them.  Nothing else may launch meanwhile."""
+        launches = {name: mod.LAUNCHES for name, mod in self.wrappers.items()}
+        items = dict(self.fused.ITEMS)
+        shapes = self.shapes.snapshot() if self.shapes is not None else None
+        try:
+            yield
+        finally:
+            for name, mod in self.wrappers.items():
+                mod.LAUNCHES = launches[name]
+            self.fused.ITEMS.update(items)
+            if shapes is not None:
+                self.shapes.counts = shapes
 
     def items(self) -> dict[str, int]:
         return dict(self.fused.ITEMS)
@@ -4455,10 +4503,14 @@ def phase_pool(args, counts, card):
     deployment: one EC:8+4 set of 12 drives on /dev/shm
     (MINIO_STORAGE_CLASS_STANDARD=EC:4), 64 MiB objects in 1 MiB blocks.
 
-    `python -m minio_tpu_torch.server` boots as a subprocess with
+    `python -m minio_tpu_torch.server` booted as a subprocess with
     MTPU_WORKERS=4 (a supervisor, the device owner and 4 SO_REUSEPORT
-    workers) and =0 (one process), in the turns of POOL_TURNS, each on
-    fresh drives.  Client processes that load no torch PUT, then GET:
+    workers) and with 0 (one process): the turns run on the serving
+    spine's boots of their configurations (phase 5l's A, one process; D,
+    4 workers; C, the highwayhash256S pool of step 5), which take this
+    phase's steps from `POOL_SHARED` and check the part files across
+    the turns; this phase itself times the lanes' packing in one
+    process.  Client processes that load no torch PUT, then GET:
 
     1. one 64 MiB object from each of 1 and of 4 clients, and 8 objects
        of 1 MiB from each of 16 clients: with workers, the owner's items
@@ -4471,31 +4523,27 @@ def phase_pool(args, counts, card):
        the owner is SIGKILLed: every PUT 200 with its ETag and every
        body equal, fallbacks > 0, the generation one higher; then 4
        more whose items are the owner's again, exactly;
-    4. SIGTERM: exit 0 within 30 s;
-    5. in the turn with workers, a pool booted with highwayhash256S over the
-       same drives: 2 objects of 64 MiB from each of 4 clients, items
-       exact, part files equal to an ErasureSet's in this process.
+    4. /minio/v2/metrics/node read through two different workers, each
+       exposition with every family's HELP and TYPE once; SIGTERM: exit
+       0 within 30 s;
+    5. in the turn with workers, a pool booted with highwayhash256S: 2
+       objects of 64 MiB from each of 4 clients, items exact, part files
+       equal to an ErasureSet's in this process.
 
     Per step GB/s and operations/s; with workers the owner's dispatches,
     items and items per dispatch, the arena's waits and timeouts, the
     fallbacks and the lanes' pack ms per MiB staged (beside one
     process's, _inprocess_pack_ms_per_mib).  The part files of every
-    object are equal across the turns.  Returns the kernel launches in
-    the pool's processes (owner and workers) over its steps, the
-    owner-kill step's left out (the dead owner's last launches are not
-    readable)."""
+    object are equal across the turns.  The kernel launches in the
+    pool's processes (owner and workers) over its steps, the owner-kill
+    step's left out (the dead owner's last launches are not readable),
+    gather in POOL_SHARED["launches"] as the turns run; main() takes
+    them as this path's once phase 5l has run.  Returns zeros: this
+    process launches nothing of the path."""
     import signal
 
     from minio_tpu_torch.server.client import S3Client
 
-    need = (12 * (sum(POOL_BIG_CLIENTS) * POOL_BIG
-                  + POOL_SMALL_CLIENTS * POOL_SMALL_PER * POOL_SMALL_BYTES
-                  + 2 * POOL_KILL_CLIENTS * POOL_KILL_PER * POOL_BIG
-                  + POOL_HH_CLIENTS * POOL_HH_PER * POOL_BIG) // 8
-            + (2 << 30))
-    if not os.path.isdir("/dev/shm") or \
-            shutil.disk_usage("/dev/shm").free < need:
-        raise SystemExit(f"pool: needs {need} bytes free on /dev/shm")
     t_phase = time.perf_counter()
     launches = {"gf_matmul": 0, "hh256": 0, "mxh256": 0}
     hashes: dict = {}
@@ -4582,7 +4630,7 @@ def phase_pool(args, counts, card):
             raise SystemExit(f"pool: a CUDA context outside the owner: "
                              f"{cuda}, {apps}")
 
-    def kill_step(pool) -> None:
+    def kill_step(pool, bucket) -> None:
         m = pool.metrics()
         gen0 = int(m["mtpu_owner_generation"])
         owner = int(m["mtpu_owner_pid"])
@@ -4590,7 +4638,7 @@ def phase_pool(args, counts, card):
         def kill():
             time.sleep(POOL_KILL_AFTER_S)
             os.kill(owner, signal.SIGKILL)
-        out = step(pool, "pool", "owner killed",
+        out = step(pool, bucket, "owner killed",
                    _pool_objects(POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_BIG,
                                  args.seed + 7200, "kill"), during=kill,
                    owner_dies=True)
@@ -4613,99 +4661,152 @@ def phase_pool(args, counts, card):
               f"GETs; card {card}")
         if not d["ipc_fallbacks"] + d["co_fallbacks"]:
             raise SystemExit("pool: the owner's death caused no fallback")
-        step(pool, "pool", "after the respawn",
+        step(pool, bucket, "after the respawn",
              _pool_objects(POOL_KILL_CLIENTS, POOL_KILL_PER, POOL_BIG,
                            args.seed + 7300, "again"),
              expect=(n_kill * calls, n_kill * calls))
 
-    for turn, workers in enumerate(POOL_TURNS):
-        root = tempfile.mkdtemp(prefix=f"chip_smoke-pool{turn}-",
-                                dir="/dev/shm")
-        pool = None
-        try:
-            for algo in ("mxh256", HH) if workers else ("mxh256",):
-                pool = _Pool(root, workers, algo)
-                owner_line = next((ln for ln in open(pool.log)
-                                   if "self-tests" in ln), "").strip()
-                print(f"[pool] turn {turn + 1}: MTPU_WORKERS={workers}, "
-                      f"{algo}, ready in {pool.boot_s:.2f} s"
-                      + (f"; {owner_line}" if workers else "")
-                      + f"; card {card}")
-                bucket = "pool" if algo == "mxh256" else "poolhh"
-                S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
-                         "pooladmin-secret", timeout=60).make_bucket(bucket)
-                fit = bool(workers)
-                if algo == HH:
-                    step(pool, bucket, f"{POOL_HH_CLIENTS} clients x "
-                         f"{POOL_HH_PER} {HH}",
-                         _pool_objects(POOL_HH_CLIENTS, POOL_HH_PER,
-                                       POOL_BIG, args.seed + 7400, "hh"),
-                         expect=(n_hh * calls,) * 2 if fit else None)
-                else:
-                    # Untimed: the pool's first batches pay its lanes'
-                    # pinned staging and the arena's first page faults.
-                    warm = _Clients(pool.port, bucket, _pool_objects(
-                        1, 1, POOL_BIG, args.seed + 7500, "warm"))
-                    try:
-                        warm.run("put")
-                        warm.run("get")
-                    finally:
-                        warm.close()
-                    for n in POOL_BIG_CLIENTS[:-1]:
-                        step(pool, bucket, f"{n} x {POOL_BIG} B",
-                             _pool_objects(n, 1, POOL_BIG,
-                                           args.seed + 7000 + n, f"big{n}"),
-                             expect=(n * calls,) * 2 if fit else None)
-                    step(pool, bucket, f"{POOL_SMALL_CLIENTS} x "
-                         f"{POOL_SMALL_PER} x {POOL_SMALL_BYTES} B",
-                         _pool_objects(POOL_SMALL_CLIENTS, POOL_SMALL_PER,
-                                       POOL_SMALL_BYTES, args.seed + 7100,
-                                       "small"),
-                         expect=(n_small, n_small) if fit else None)
-                    if workers:
-                        contexts(pool)
-                    n = POOL_BIG_CLIENTS[-1]
-                    step(pool, bucket, f"{n} x {POOL_BIG} B",
-                         _pool_objects(n, 1, POOL_BIG, args.seed + 7000 + n,
-                                       f"big{n}"))
-                    if workers and turn == len(POOL_TURNS) - 1:
-                        kill_step(pool)
-                hashes[turn, algo] = _pool_part_hashes(root, bucket)
-                if algo == HH:
-                    want = _inprocess_part_hashes(
-                        bucket, _pool_objects(POOL_HH_CLIENTS, POOL_HH_PER,
-                                              POOL_BIG, args.seed + 7400,
-                                              "hh"), algo)
-                    if want != hashes[turn, algo]:
-                        raise SystemExit(f"pool: {HH} part files differ "
-                                         "from one process's")
-                stop_s = pool.stop()
-                print(f"[pool] turn {turn + 1}: SIGTERM, exit 0 in "
-                      f"{stop_s:.2f} s")
-                pool = None
-        finally:
-            if pool is not None:
-                pool.kill()
-            shutil.rmtree(root, ignore_errors=True)
+    def turn_steps(pool, root, turn, algo):
+        """One boot's steps (`pool` booted over `root` with `algo`):
+        with workers each step's owner items exact and the CUDA
+        contexts, in the last turn with workers the owner kill; the
+        part files hashed.  Its launches join `launches`."""
+        workers = pool.workers
+        # One bucket a turn: the turns share the spine's drives.
+        bucket = ("poolhh" if algo == HH else "poolw" if workers
+                  else "pool")
+        S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
+                 "pooladmin-secret", timeout=60).make_bucket(bucket)
+        fit = bool(workers)
+        if algo == HH:
+            step(pool, bucket, f"{POOL_HH_CLIENTS} clients x "
+                 f"{POOL_HH_PER} {HH}",
+                 _pool_objects(POOL_HH_CLIENTS, POOL_HH_PER,
+                               POOL_BIG, args.seed + 7400, "hh"),
+                 expect=(n_hh * calls,) * 2 if fit else None)
+        else:
+            # Untimed: the pool's first batches pay its lanes' pinned
+            # staging and the arena's first page faults.
+            warm = _Clients(pool.port, bucket, _pool_objects(
+                1, 1, POOL_BIG, args.seed + 7500, "warm"))
+            try:
+                warm.run("put")
+                warm.run("get")
+            finally:
+                warm.close()
+            for n in POOL_BIG_CLIENTS[:-1]:
+                step(pool, bucket, f"{n} x {POOL_BIG} B",
+                     _pool_objects(n, 1, POOL_BIG,
+                                   args.seed + 7000 + n, f"big{n}"),
+                     expect=(n * calls,) * 2 if fit else None)
+            step(pool, bucket, f"{POOL_SMALL_CLIENTS} x "
+                 f"{POOL_SMALL_PER} x {POOL_SMALL_BYTES} B",
+                 _pool_objects(POOL_SMALL_CLIENTS, POOL_SMALL_PER,
+                               POOL_SMALL_BYTES, args.seed + 7100,
+                               "small"),
+                 expect=(n_small, n_small) if fit else None)
+            if workers:
+                contexts(pool)
+            n = POOL_BIG_CLIENTS[-1]
+            step(pool, bucket, f"{n} x {POOL_BIG} B",
+                 _pool_objects(n, 1, POOL_BIG, args.seed + 7000 + n,
+                               f"big{n}"))
+            if workers and turn == len(POOL_TURNS) - 1:
+                kill_step(pool, bucket)
+            if workers:
+                _scrape_two_workers(pool, card)
+        hashes[turn, algo] = _pool_part_hashes(root, bucket)
+        if algo == HH:
+            want = _inprocess_part_hashes(
+                bucket, _pool_objects(POOL_HH_CLIENTS, POOL_HH_PER,
+                                      POOL_BIG, args.seed + 7400,
+                                      "hh"), algo)
+            if want != hashes[turn, algo]:
+                raise SystemExit(f"pool: {HH} part files differ "
+                                 "from one process's")
 
-    for (turn, algo), h in hashes.items():
-        first, ref = min((t, r) for (t, a), r in hashes.items() if a == algo)
-        common = set(h) & set(ref)
-        if len(common) < len(ref) or any(h[k] != ref[k] for k in common):
-            raise SystemExit(f"pool: part files of turn {turn + 1} ({algo})"
-                             f" differ from turn {first + 1}'s")
+    def finish() -> None:
+        """Once every turn ran: the part files of every object equal
+        across the turns, and the turns' summary."""
+        for (turn, algo), h in hashes.items():
+            first, ref = min((t, r) for (t, a), r in hashes.items()
+                             if a == algo)
+            common = set(h) & set(ref)
+            if len(common) < len(ref) or any(h[k] != ref[k]
+                                             for k in common):
+                raise SystemExit(f"pool: part files of turn {turn + 1} "
+                                 f"({algo}) differ from turn {first + 1}'s")
+        print(f"[pool] {len(POOL_TURNS)} turns on the serving spine's boots "
+              f"A (one process), D ({POOL_WORKERS} workers) and C (the "
+              f"{HH} pool): part files equal across turns "
+              f"({sum(len(h) for h in hashes.values())} compared), launches "
+              f"in the pools' processes {launches} (the owner-kill step's "
+              f"left out); card {card}")
+
+    # The turns ride on the serving spine's boots of their configurations
+    # (phase 5l's A, C and D: D's MTPU_HOTCACHE=0 changes no count of
+    # these steps, which read each key once or past the tier's size
+    # gate), so the run boots three processes fewer.  main() reads
+    # `launches` into this path's tally after 5l.
+    POOL_SHARED.update(turn=turn_steps, finish=finish,
+                       launches=launches)
     pack_in = _inprocess_pack_ms_per_mib(card)
-    # The pools' launches are read from their metrics; this process's
-    # comparison above is no main path's: nothing of it is tallied.
+    # This process's comparison is no main path's: nothing of it is
+    # tallied.
     counts.reset()
     counts.read()
-    print(f"[pool] {len(POOL_TURNS)} turns in "
-          f"{time.perf_counter() - t_phase:.1f} s: part files equal across "
-          f"turns ({sum(len(h) for h in hashes.values())} compared), "
-          f"launches in the pools' processes {launches} (the owner-kill "
-          f"step's left out); lanes' pack in one "
-          f"process {pack_in:.4f} ms/MiB; card {card}")
-    return launches
+    print(f"[pool] lanes' pack in one process {pack_in:.4f} ms/MiB; the "
+          f"turns run on the serving spine's boots; card {card}")
+    return {k: 0 for k in launches}
+
+
+#: phase_pool's steps of one boot and its cross-turn check, which the
+#: serving spine (phase 5l) runs on its boots A, C and D.
+POOL_SHARED: dict = {}
+
+
+def _scrape_two_workers(pool, card, tries: int = 60) -> None:
+    """/minio/v2/metrics/node read through two different workers of
+    `pool` (the worker whose mtpu_worker_requests_total rose served the
+    read), each exposition with every family's HELP and TYPE once."""
+    import urllib.request
+
+    def scrape():
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{pool.port}/minio/v2/metrics/node",
+                timeout=10) as r:
+            return r.read().decode()
+
+    def requests(text):
+        return {w: float(re.search(
+            rf'^mtpu_worker_requests_total{{worker="{w}"}} (\S+)$', text,
+            re.M).group(1)) for w in range(pool.workers)}
+
+    seen: dict[int, str] = {}
+    last = requests(scrape())
+    for _ in range(tries):
+        text = scrape()
+        now = requests(text)
+        rose = [w for w in now if now[w] > last[w]]
+        last = now
+        if len(rose) == 1 and rose[0] not in seen:
+            seen[rose[0]] = text
+        if len(seen) == 2:
+            break
+    if len(seen) < 2:
+        raise SystemExit(f"pool: {tries} scrapes reached workers "
+                         f"{sorted(seen)} only")
+    fams = []
+    for w, text in seen.items():
+        helps = re.findall(r"^# HELP (\S+)", text, re.M)
+        types = re.findall(r"^# TYPE (\S+)", text, re.M)
+        if len(helps) != len(set(helps)) or sorted(helps) != sorted(types):
+            dup = sorted({h for h in helps if helps.count(h) > 1})
+            raise SystemExit(f"pool: worker {w}'s scrape writes a family's "
+                             f"HELP or TYPE twice or apart: {dup}")
+        fams.append(len(types))
+    print(f"[pool] /minio/v2/metrics/node through workers {sorted(seen)}: "
+          f"{fams} families, each HELP and TYPE once; card {card}")
 
 
 def _spine_counts(m: dict, workers: int) -> dict:
@@ -4775,8 +4876,9 @@ def phase_get_spine(args, counts, card):
        turns: bodies equal in both, the plan's device items exact, one
        sendfile per GET.
 
-    Returns the kernel launches of its steps, the subprocess servers'
-    (from their metrics) with this process's sendfile part; the
+    Returns the kernel launches of its steps (not of phase 5k's turns
+    on its boots, which are 5k's), the subprocess servers' (from their
+    metrics) with this process's sendfile part; the
     servers' mxh256 launches are also under "mxh256_elsewhere" (their
     shapes are not in this process's tally)."""
     from minio_tpu_torch.engine import hotcache
@@ -4790,8 +4892,14 @@ def phase_get_spine(args, counts, card):
     from minio_tpu_torch.storage.xlmeta import XLMeta
 
     hot_bytes = sum(n * size for n, size in SPINE_HOT)
+    # With phase 5k's turns (its one-process and 4-worker turns, the
+    # owner kill's objects and its highwayhash256S pool).
     need = (12 * (hot_bytes + (SPINE_SCAN + SPINE_HH + SPINE_DEG + 2)
-                  * SPINE_SMALL + 2 * SPINE_SF_BYTES) // 8
+                  * SPINE_SMALL + 2 * SPINE_SF_BYTES
+                  + 2 * (1 + sum(POOL_BIG_CLIENTS)) * POOL_BIG
+                  + 2 * POOL_SMALL_CLIENTS * POOL_SMALL_PER * POOL_SMALL_BYTES
+                  + 2 * POOL_KILL_CLIENTS * POOL_KILL_PER * POOL_BIG
+                  + POOL_HH_CLIENTS * POOL_HH_PER * POOL_BIG) // 8
             + 2 * SPINE_SENDFILE * OBJECT_BYTES + (2 << 30))
     if not os.path.isdir("/dev/shm") or \
             shutil.disk_usage("/dev/shm").free < need:
@@ -5132,6 +5240,9 @@ def phase_get_spine(args, counts, card):
             if label.startswith("A"):
                 scan(pool, hot_cl)
                 single_flight(pool, "sf-one", exact=True)
+                # Phase 5k's one-process turn, on this boot of its
+                # configuration (its launches were never tallied).
+                POOL_SHARED["turn"](pool, root, 0, "mxh256")
             if label.startswith("C"):
                 cli = S3Client(f"http://127.0.0.1:{pool.port}", "pooladmin",
                                "pooladmin-secret", timeout=60)
@@ -5140,12 +5251,24 @@ def phase_get_spine(args, counts, card):
                 single_flight(pool, "sf-pool", exact=False)
                 stale_step(pool)
                 degraded_step(pool, deg)
+                # Phase 5k's highwayhash256S pool, on this boot of its
+                # configuration: its launches are 5k's (POOL_SHARED).
+                POOL_SHARED["turn"](pool, root,
+                                    POOL_TURNS.index(SPINE_WORKERS), HH)
+            if label.startswith("D"):
+                # Phase 5k's turn with workers, owner kill included, last
+                # on this boot (the owner's respawn resets its counters);
+                # its launches are 5k's (POOL_SHARED).
+                POOL_SHARED["turn"](pool, root,
+                                    POOL_TURNS.index(SPINE_WORKERS),
+                                    "mxh256")
             hot_cl.close()
             stop_s = pool.stop()
             pool = None
             print(f"[spine] {label}: SIGTERM, exit 0 in {stop_s:.2f} s; "
                   f"{time.perf_counter() - t0:.1f} s in all")
         sendfile_step()
+        POOL_SHARED["finish"]()
     finally:
         for cl in clients:
             cl.close()
@@ -6688,7 +6811,10 @@ def phase_cluster(args, counts, card):
     and GET each through the next one, byte-exact; 16 inline objects PUT
     round-robin are listed alike from every node; two clients PUT one key
     through two nodes at once, round after round, and every node then
-    serves one of the two bodies whole.  Then node 4 is SIGKILLed: every
+    serves one of the two bodies whole.  Node 1's fleet scrape (admin
+    metrics/cluster and healthinfo) reads mtpu_node_up 1 for every node
+    after the boot, and 0 for node 4 once it is SIGKILLed, within
+    MTPU_OBS_DEADLINE_MS.  Then node 4 is SIGKILLed: every
     object is still served by the other nodes (12 of 16 drives, its data
     rows rebuilt: GF items exact), a 64 MiB PUT meets write quorum and a
     dsync lock is taken with 3 of 4 lockers.  Node 4 boots again and a
@@ -6762,11 +6888,39 @@ def phase_cluster(args, counts, card):
         return any(order[s] >= n - per
                    for s in range(fi.erasure.data_blocks))
 
+    def fleet(label, down=()):
+        """Node 1's fleet scrape (admin metrics/cluster, healthinfo):
+        mtpu_node_up 1 for every live node and 0 for each of `down`,
+        within MTPU_OBS_DEADLINE_MS (8 s), never a hang."""
+        t0 = time.perf_counter()
+        st, text = cli[0].admin("GET", "metrics/cluster")
+        t_scrape = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st2, info = cli[0].admin("GET", "healthinfo")
+        t_health = time.perf_counter() - t0
+        if st != 200 or st2 != 200:
+            raise SystemExit(f"cluster: fleet scrape {label}: {st}, {st2}")
+        up = {int(p): int(v) for p, v in re.findall(
+            r'^mtpu_node_up\{node="[^"]*:(\d+)"\} (\d+)$',
+            text.decode(), re.M)}
+        want = {p: int(i not in down) for i, p in enumerate(ports)}
+        hup = {int(k.rsplit(":", 1)[1]): v
+               for k, v in info["node_up"].items()}
+        if up != want or hup != want or max(t_scrape, t_health) > 8.0:
+            raise SystemExit(f"cluster: fleet scrape {label}: node_up "
+                             f"{up} and healthinfo {hup}, want {want}, in "
+                             f"{t_scrape:.3f} and {t_health:.3f} s")
+        fams = len(set(re.findall(r"^# TYPE (\S+)", text.decode(), re.M)))
+        print(f"[cluster] fleet scrape {label}: node_up "
+              f"{list(up.values())}, {fams} families merged, "
+              f"{t_scrape:.3f} s; healthinfo {t_health:.3f} s; card {card}")
+
     clients = None
     try:
         boot_s = _boot_nodes(nodes)
         cli[0].make_bucket("clus")
         m0 = node_counts(nodes)
+        fleet("after the boot")
 
         # dsync against the local lock: CLUSTER_LOCKS acquire + release.
         token = internode_token("pooladmin-secret")
@@ -6869,6 +7023,7 @@ def phase_cluster(args, counts, card):
         # Node 4 SIGKILLed.
         nodes[-1].kill()
         live = nodes[:-1]
+        fleet("with node 4 SIGKILLed", down=(n_nodes - 1,))
         t0 = time.perf_counter()
         for i, (k, fi) in enumerate(fis.items()):
             c = cli[i % (n_nodes - 1)]
@@ -6898,7 +7053,7 @@ def phase_cluster(args, counts, card):
         # Node 4 again, then a heal sequence from node 1 once node 1's
         # client sees it (and its drives' breakers have probed it).
         reboot_s = _boot_nodes([nodes[-1]])
-        peer = f'mtpu_peer_online{{peer="127.0.0.1:{ports[-1]}"}} 1'
+        peer = f'mtpu_peer_state{{endpoint="127.0.0.1:{ports[-1]}"}} 1'
         deadline = time.monotonic() + 60
         while peer not in _metrics_text(ports[0]):
             if time.monotonic() > deadline:
@@ -10171,6 +10326,590 @@ def phase_transforms(args, counts, card):
     return launches
 
 
+# Phase 5v, observability, over BASELINE.json config 2's set in one
+# in-process S3Server with tracing on (a ring of OBS_RING traces, no
+# down-sampling), MTPU_SLO on and MTPU_AUDIT with a file and a webhook
+# target: OBS_CLIENTS client threads PUT OBS_MXH mxh256 and OBS_HH
+# highwayhash256S objects of OBJECT_BYTES, read each whole and by one
+# OBS_RANGE range, one with two data shards away; OBS_SMALL inline PUTs
+# of OBS_SMALL_BYTES and as many HEADs; an admin trace stream open
+# throughout.  Then OBS_TURNS PUT + GET of OBJECT_BYTES from one client,
+# tracing on and off in turns.
+OBS_CLIENTS, OBS_MXH, OBS_HH = 4, 8, 2
+OBS_RANGE = 8 * MIB
+OBS_SMALL, OBS_SMALL_BYTES = 64, (1024, 100 * 1024)
+OBS_TURNS = ("on", "off", "off", "on")
+OBS_RING = 8192
+# The traced PUT whose device spans are held to CUDA events: one batch,
+# with a spin of OBS_SLEEP_S (at the card's top clock) queued behind it.
+OBS_EVENT_BYTES = 32 * MIB
+OBS_SLEEP_S = 0.02
+
+
+class _AuditCollector:
+    """A loopback collector for the audit webhook: every entry POSTed."""
+
+    def __init__(self):
+        import http.server
+        outer = self
+        self.entries: list = []
+        self._mu = threading.Lock()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_POST(self):
+                data = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                with outer._mu:
+                    outer.entries.append(json.loads(data))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+        self._srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                    Handler)
+        self.url = f"http://127.0.0.1:{self._srv.server_port}/audit"
+        threading.Thread(target=self._srv.serve_forever,
+                         kwargs={"poll_interval": 0.05}, daemon=True).start()
+
+    def close(self) -> None:
+        self._srv.shutdown()
+        self._srv.server_close()
+
+
+class _TraceStream:
+    """A signed POST /minio/admin/v3/trace held open: its NDJSON span
+    trees collected by a reader thread until close()."""
+
+    def __init__(self, port: int, creds):
+        import http.client
+        import urllib.parse
+
+        from minio_tpu_torch.server.sigv4 import sign_request
+        path, q = "/minio/admin/v3/trace", {"duration": ["3600"]}
+        headers = {"Host": f"127.0.0.1:{port}"}
+        headers.update(sign_request(creds, "POST", path, q, headers, b""))
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=600)
+        self.conn.request("POST", path + "?" + urllib.parse.urlencode(
+            {k: v[0] for k, v in q.items()}), body=b"", headers=headers)
+        self.resp = self.conn.getresponse()
+        if self.resp.status != 200:
+            raise SystemExit(f"observability: trace stream "
+                             f"{self.resp.status}")
+        self.request_id = self.resp.getheader("x-amz-request-id")
+        self.records: list = []
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+
+    def _read(self) -> None:
+        try:
+            while True:
+                line = self.resp.readline()
+                if not line:
+                    return
+                if line.strip():
+                    self.records.append(json.loads(line))
+        except Exception:  # noqa: BLE001 — the socket closed under it
+            return
+
+    def close(self) -> None:
+        import socket
+        try:
+            self.conn.sock.shutdown(socket.SHUT_RDWR)
+        except (OSError, AttributeError):     # closed already
+            pass
+        self.conn.close()
+        self._t.join(timeout=10)
+
+
+def _spans_named(rec: dict, prefix: str) -> list:
+    out = []
+
+    def walk(d):
+        for c in d.get("spans", ()):
+            if c["name"].startswith(prefix):
+                out.append(c)
+            walk(c)
+    walk(rec)
+    return out
+
+
+def _prom(text: str) -> dict:
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, v = line.rsplit(" ", 1)
+            out[name] = float(v)
+    return out
+
+
+def phase_observe(args, counts, card):
+    """Phase 5v, observability (MinIO's `mc admin trace`, `mc admin top
+    api`, the Prometheus v2 node and cluster metrics and the audit
+    webhook).  Setup: config 2's set in one in-process S3Server with the
+    span ring on (OBS_RING, every request rooted), MTPU_SLO on and
+    MTPU_AUDIT with a file target and a webhook target (a loopback
+    collector), and an admin trace stream subscribed for the traffic.
+
+    The traffic of OBS_CLIENTS threads: OBS_MXH mxh256 and OBS_HH
+    highwayhash256S objects of OBJECT_BYTES random bytes, full GETs,
+    OBS_RANGE ranged GETs, one GET with two data shards away, OBS_SMALL
+    inline PUTs of 1-100 KiB and as many HEADs, every body exact.
+    Checks, each failing the run:
+    - every request has exactly one root span in the ring and in the
+      stream, and one audit entry in each target, by request id;
+    - a 64 MiB PUT's root over HTTP and an engine GET's root (the JAX
+      test's form) cover at least 0.8 of their time with their direct
+      children (an HTTP GET's is printed: its body streams after the
+      engine span);
+    - every device.* span carries device=0, and each span of one traced
+      PUT lasts at least the CUDA-event time of its own launches and of
+      an OBS_SLEEP_S spin queued behind them on the current stream
+      (events recorded there around both): the span closed on the
+      card's completion, not on enqueue; the same PUT with
+      fused._card_done a no-op must fail that test;
+    - the registry's coalesced-launch and per-lane families move by the
+      lanes' own counts, its request and byte families by the client's
+      own tally; its kernel families render the wrappers' LAUNCHES (a
+      check of the render: both sides read the same variables);
+    - SPAN_ALLOCS does not move over untraced GETs.
+    Then OBS_TURNS PUT + GET of OBJECT_BYTES from one client, tracing on
+    and off in turns: GB/s, printed with no threshold."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from minio_tpu_torch.engine import quorum as Q
+    from minio_tpu_torch.engine.pools import ServerPools
+    from minio_tpu_torch.engine.sets import ErasureSets
+    from minio_tpu_torch.observe import span as ospan
+    from minio_tpu_torch.ops import coalesce, fused
+    from minio_tpu_torch.server.client import S3Client
+    from minio_tpu_torch.server.server import S3Server
+    from minio_tpu_torch.server.sigv4 import Credentials
+    from minio_tpu_torch.storage.drive import LocalDrive
+
+    ak, sk = "obsadmin", "obsadmin-secret"
+    n_big = OBS_MXH + OBS_HH
+    root = _tmp_root("chip_smoke-obs-", 12 * (n_big + 6) * OBJECT_BYTES
+                     // 8 + (1 << 30))
+    seed = args.seed * 1000 + 1200
+    rng = np.random.default_rng(seed)
+    t_phase = time.perf_counter()
+    counts.reset()
+    times: dict[str, float] = {}
+    log: list = []          # (method, path, status, request id, rx, tx)
+    collector = _AuditCollector()
+    audit_file = os.path.join(root, "audit.jsonl")
+    stream = srv = pools = None
+
+    def body(n):
+        nonlocal seed
+        seed += 1
+        return np.random.default_rng(seed).bytes(n)
+
+    os.environ["MTPU_AUDIT"] = f"file:{audit_file},webhook:{collector.url}"
+    os.environ["MTPU_SLO"] = "1"
+    ospan.TRACER.configure(ring=OBS_RING, sample=1.0)
+    ospan.TRACER.reset()
+    try:
+        drives = [os.path.join(root, f"d{i}") for i in range(1, 13)]
+        pools = ServerPools([ErasureSets([LocalDrive(d) for d in drives],
+                                         set_drive_count=12)])
+        srv = S3Server(pools, Credentials(ak, sk)).start()
+        os.environ.pop("MTPU_AUDIT")
+
+        def request(method, path, want, headers=None, body_=b"",
+                    query=None):
+            st, h, out = S3Client(srv.endpoint, ak, sk, timeout=600
+                                  ).request(method, path, headers=headers,
+                                            body=body_, query=query)
+            if st != want:
+                raise SystemExit(f"observability: {method} {path} {st}: "
+                                 f"{out[:300]!r}")
+            log.append((method, path, st, h["x-amz-request-id"],
+                        len(body_), 0 if method == "HEAD" else len(out)))
+            return h, out
+
+        def registry():
+            m = srv.metrics
+            with m.api_requests._mu:
+                reqs = dict(m.api_requests._values)
+            return reqs, m.bytes_rx.get(), m.bytes_tx.get()
+
+        request("PUT", "/obsb", 200)
+        st = coalesce.get().stats()
+        lanes0 = (st["dispatches"], st["items"])
+        launches0 = counts.read()
+        reg0 = registry()
+        n0 = len(log)
+        _, text = request("GET", "/minio/v2/metrics/node", 200)
+        prom0 = _prom(text.decode())
+        stream = _TraceStream(srv.port, Credentials(ak, sk))
+        # Counted and audited as it starts; its root closes at its end.
+        log.append(("POST", "/minio/admin/v3/trace", 200, stream.request_id,
+                    0, 0))
+        deadline = time.monotonic() + 10
+        while ospan.TRACER.pubsub.num_subscribers < 1:
+            if time.monotonic() > deadline:
+                raise SystemExit("observability: the trace stream never "
+                                 "subscribed")
+            time.sleep(0.01)
+        mark = len(log)
+
+        # -- the traffic ------------------------------------------------------
+        data = {f"big/{i:02d}": body(OBJECT_BYTES) for i in range(n_big)}
+        small = {f"small/{i:03d}": body(int(rng.integers(*OBS_SMALL_BYTES)))
+                 for i in range(OBS_SMALL)}
+        keys = list(data)
+
+        def put(part):
+            for k in part:
+                request("PUT", f"/obsb/{k}", 200, body_=data[k])
+        t0 = time.perf_counter()
+        mxh = keys[:OBS_MXH]
+        _in_threads(OBS_CLIENTS, put,
+                    [mxh[i::OBS_CLIENTS] for i in range(OBS_CLIENTS)])
+        os.environ["MTPU_BITROT_ALGO"] = HH
+        try:
+            hh = keys[OBS_MXH:]
+            if hh:
+                _in_threads(len(hh), put, [[k] for k in hh])
+        finally:
+            os.environ.pop("MTPU_BITROT_ALGO", None)
+        times["PUT"] = time.perf_counter() - t0
+
+        def check(k, out, lo=0, hi=None):
+            if hashlib.sha256(out).digest() != \
+                    hashlib.sha256(data[k][lo:hi]).digest():
+                raise SystemExit(f"observability: {k} [{lo}:{hi}] differs")
+
+        def get(part):
+            for k in part:
+                _, out = request("GET", f"/obsb/{k}", 200)
+                check(k, out)
+                lo = int(np.random.default_rng(len(k) + int(k[-2:])).integers(
+                    0, OBJECT_BYTES - OBS_RANGE))
+                _, out = request("GET", f"/obsb/{k}", 206, headers={
+                    "Range": f"bytes={lo}-{lo + OBS_RANGE - 1}"})
+                check(k, out, lo, lo + OBS_RANGE)
+        t0 = time.perf_counter()
+        _in_threads(OBS_CLIENTS, get,
+                    [keys[i::OBS_CLIENTS] for i in range(OBS_CLIENTS)])
+        times["GET"] = time.perf_counter() - t0
+        fi = pools.head_object("obsb", keys[0])
+        for pos in _data_positions(Q, fi, 2):
+            os.unlink(os.path.join(drives[pos], "obsb", keys[0],
+                                   fi.data_dir, "part.1"))
+        t0 = time.perf_counter()
+        _, out = request("GET", f"/obsb/{keys[0]}", 200)
+        times["degraded GET"] = time.perf_counter() - t0
+        check(keys[0], out)
+        sk_keys = list(small)
+
+        def small_put(part):
+            for k in part:
+                request("PUT", f"/obsb/{k}", 200, body_=small[k])
+
+        def small_head(part):
+            for k in part:
+                h, _ = request("HEAD", f"/obsb/{k}", 200)
+                if int(h["Content-Length"]) != len(small[k]):
+                    raise SystemExit(f"observability: HEAD {k} {h}")
+        t0 = time.perf_counter()
+        _in_threads(OBS_CLIENTS, small_put,
+                    [sk_keys[i::OBS_CLIENTS] for i in range(OBS_CLIENTS)])
+        _in_threads(OBS_CLIENTS, small_head,
+                    [sk_keys[i::OBS_CLIENTS] for i in range(OBS_CLIENTS)])
+        times["small"] = time.perf_counter() - t0
+        st = coalesce.get().stats()
+        lanes1 = (st["dispatches"], st["items"])
+        launches1 = counts.read()
+        reg1 = registry()
+        n1 = len(log)
+        _, text = request("GET", "/minio/v2/metrics/node", 200)
+        prom1 = _prom(text.decode())
+
+        # -- spans: one root per request, in the ring and the stream --------
+        want_roots = collections.Counter(
+            (m, p, s_) for m, p, s_, _, _, _ in log[mark:])
+        deadline = time.monotonic() + 10
+        while True:
+            got = collections.Counter(
+                (r["tags"]["method"], r["tags"]["path"], r["tags"]["status"])
+                for r in stream.records)
+            if got == want_roots or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        stream.close()
+        if got != want_roots:
+            raise SystemExit(f"observability: the stream's roots differ: "
+                             f"missing {want_roots - got}, extra "
+                             f"{got - want_roots}")
+        # The stream's own root closes once the server sees the hang-up.
+        ring = [r for r in ospan.TRACER.traces()
+                if r["tags"]["path"] != "/minio/admin/v3/trace"]
+        ring_roots = collections.Counter(
+            (r["tags"]["method"], r["tags"]["path"], r["tags"]["status"])
+            for r in ring)
+        want_ring = collections.Counter(
+            (m, p, s_) for m, p, s_, _, _, _ in log
+            if p != "/minio/admin/v3/trace")
+        if ring_roots != want_ring:
+            raise SystemExit(f"observability: the ring's roots differ: "
+                             f"missing {want_ring - ring_roots}, extra "
+                             f"{ring_roots - want_ring}")
+        big_put = next(r for r in ring if r["name"] == "api.PutObject"
+                       and r["tags"]["path"] == f"/obsb/{keys[1]}")
+        big_get = next(r for r in ring if r["name"] == "api.GetObject"
+                       and r["tags"]["path"] == f"/obsb/{keys[1]}"
+                       and r["tags"]["bytes"] == OBJECT_BYTES)
+        dev_spans = [sp for r in ring for sp in _spans_named(r, "device.")]
+        bad = [sp for sp in dev_spans
+               if sp.get("tags", {}).get("device") != 0]
+        if not dev_spans or bad:
+            raise SystemExit(f"observability: {len(dev_spans)} device "
+                             f"spans, without device=0: {bad[:3]}")
+        dev_names = collections.Counter(sp["name"] for sp in dev_spans)
+        # One engine GET under a root (the JAX test's form).
+        with ospan.TRACER.root("api.GetObject", path=f"/obsb/{keys[2]}"):
+            _, got_b = pools.get_object("obsb", keys[2])
+        check(keys[2], bytes(got_b))
+        eng_get = ospan.TRACER.traces()[-1]
+        cov = {"PUT over HTTP": ospan.coverage(big_put),
+               "engine GET": ospan.coverage(eng_get),
+               "GET over HTTP": ospan.coverage(big_get)}
+        if cov["PUT over HTTP"] < 0.8 or cov["engine GET"] < 0.8:
+            raise SystemExit(f"observability: coverage {cov}")
+
+        # -- device spans against CUDA events of their own launches ---------
+        # Behind each traced program's launches the current stream gets
+        # a spin of OBS_SLEEP_S at the card's top clock (torch.cuda._sleep,
+        # queued, so the launches return long before it ends); the CUDA
+        # events bracket launches and spin.  A span that closed on
+        # enqueue would be shorter than the events' time; one that waits
+        # on the stream's completion is at least that.  The same PUT with
+        # the wait taken out (fused._card_done a no-op) must fail the
+        # test, or the test proves nothing.
+        real = fused._traced
+        spin = int(OBS_SLEEP_S * max_sm_clock_hz())
+
+        def traced_put(key, data_, card_done):
+            ev: list = []
+
+            def timed(name, dev, fn):
+                if not ospan.active():
+                    return real(name, dev, fn)
+
+                def launches():
+                    stream = torch.cuda.current_stream(dev)
+                    s_ev = torch.cuda.Event(enable_timing=True)
+                    e_ev = torch.cuda.Event(enable_timing=True)
+                    s_ev.record(stream)
+                    out_ = fn()
+                    torch.cuda._sleep(spin)
+                    e_ev.record(stream)
+                    ev.append((s_ev, e_ev))
+                    return out_
+                return real(name, dev, launches)
+            wait = fused._card_done
+            fused._traced = timed
+            if card_done is not None:
+                fused._card_done = card_done
+            try:
+                with ospan.TRACER.root("api.PutObject", path=f"/obsb/{key}"):
+                    pools.put_object("obsb", key, data_)
+            finally:
+                fused._traced = real
+                fused._card_done = wait
+            spans_ = _spans_named(ospan.TRACER.traces()[-1], "device.")
+            torch.cuda.synchronize()
+            return spans_, [s_ev.elapsed_time(e_ev) for s_ev, e_ev in ev]
+        coalesce.reset()                      # a cold lane: inline
+        ev_body = body(OBS_EVENT_BYTES)
+        spans_ev, ev_ms = traced_put("event", ev_body, None)
+        if len(spans_ev) != len(ev_ms) or not ev_ms or any(
+                sp["dur_ms"] < ms or ms < OBS_SLEEP_S * 1e3
+                for sp, ms in zip(spans_ev, ev_ms)):
+            raise SystemExit(f"observability: device spans "
+                             f"{[sp['dur_ms'] for sp in spans_ev]} ms "
+                             f"against their launches' and spin's {ev_ms} "
+                             f"ms (the spin {OBS_SLEEP_S * 1e3} ms at least)")
+        coalesce.reset()
+        spans_no, no_ms = traced_put("event-nowait", ev_body,
+                                     lambda dev: None)
+        if len(spans_no) != len(no_ms) or not no_ms or all(
+                sp["dur_ms"] >= ms for sp, ms in zip(spans_no, no_ms)):
+            raise SystemExit(f"observability: with the wait taken out the "
+                             f"device spans {[sp['dur_ms'] for sp in spans_no]}"
+                             f" ms still last their launches' and spin's "
+                             f"{no_ms} ms: the check cannot fail")
+        # The same launches untraced, on rows already on the card: the
+        # call returns once they are enqueued.  A probe of the wrapper,
+        # not the path's: its launches join no count.
+        x = torch.from_numpy(np.frombuffer(ev_body, dtype=np.uint8).reshape(
+            -1, 8, MIB // 8).copy()).cuda()
+        torch.cuda.synchronize()
+        with counts.uncounted():
+            t0 = time.perf_counter()
+            fused.encode_and_hash(x, 8, 4)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+
+        # -- the registry against the lanes, the wrappers, the client -------
+        dl = {"dispatches": lanes1[0] - lanes0[0],
+              "items": lanes1[1] - lanes0[1]}
+        dp = {"dispatches": prom1["mtpu_coalesce_dispatches_total"]
+              - prom0["mtpu_coalesce_dispatches_total"],
+              "items": prom1["mtpu_coalesce_items_total"]
+              - prom0["mtpu_coalesce_items_total"],
+              "lane0": prom1.get('mtpu_device_lane_dispatches_total'
+                                 '{device="0"}', 0)
+              - prom0.get('mtpu_device_lane_dispatches_total'
+                          '{device="0"}', 0)}
+        if (dp["dispatches"], dp["items"], dp["lane0"]) != \
+                (dl["dispatches"], dl["items"], dl["dispatches"]):
+            raise SystemExit(f"observability: the registry's coalescer "
+                             f"families moved {dp}, the lanes {dl}")
+        dk = {k: launches1[k] - launches0[k] for k in launches1}
+        dpk = {k: int(prom1[f'mtpu_kernel_launches_total{{kernel="{k}"}}']
+                      - prom0[f'mtpu_kernel_launches_total{{kernel="{k}"}}'])
+               for k in dk}
+        if dk != dpk or not all(dk.values()):
+            raise SystemExit(f"observability: kernel launches {dk}, the "
+                             f"registry's {dpk}")
+        window = log[n0:n1]
+        want_req = collections.Counter((m, str(s_))
+                                       for m, _, s_, _, _, _ in window)
+        got_req = collections.Counter()
+        for key, v in reg1[0].items():
+            got_req[key] = int(v - reg0[0].get(key, 0))
+        got_req = +got_req
+        rx = sum(r for *_, r, _ in window)
+        tx = sum(t for *_, t in window)
+        if got_req != want_req or (reg1[1] - reg0[1], reg1[2] - reg0[2]) \
+                != (rx, tx):
+            raise SystemExit(f"observability: requests {dict(got_req)} rx "
+                             f"{reg1[1] - reg0[1]} tx {reg1[2] - reg0[2]}, "
+                             f"the client's {dict(want_req)} rx {rx} tx {tx}")
+        for name, want_v in (("mtpu_s3_rx_bytes_total", rx),
+                             ("mtpu_s3_tx_bytes_total", tx)):
+            got_v = prom1[name] - prom0[name]
+            if abs(got_v - want_v) > 1e-5 * max(prom1[name], 1):
+                raise SystemExit(f"observability: scraped {name} moved "
+                                 f"{got_v}, the client's {want_v}")
+
+        # -- the untraced path allocates no span ------------------------------
+        # Two traced requests give the closed stream two records to
+        # write: the second write fails and the stream unsubscribes now,
+        # not at its next keepalive.
+        for k in sk_keys[:2]:
+            request("HEAD", f"/obsb/{k}", 200)
+        ospan.TRACER.configure(ring=0, sample=1.0)
+        deadline = time.monotonic() + 10
+        while ospan.TRACER.enabled:
+            if time.monotonic() > deadline:
+                raise SystemExit("observability: tracing still on")
+            time.sleep(0.05)
+        allocs0 = ospan.SPAN_ALLOCS
+        for k in keys[3:6]:
+            _, out = request("GET", f"/obsb/{k}", 200)
+            check(k, out)
+        if ospan.SPAN_ALLOCS != allocs0:
+            raise SystemExit(f"observability: untraced GETs allocated "
+                             f"{ospan.SPAN_ALLOCS - allocs0} spans")
+
+        # -- tracing on and off in turns ---------------------------------------
+        turn: dict = {"on": {"put": [], "get": []},
+                      "off": {"put": [], "get": []}}
+        tb = body(OBJECT_BYTES)
+        for i, mode in enumerate(OBS_TURNS):
+            ospan.TRACER.configure(ring=OBS_RING if mode == "on" else 0,
+                                   sample=1.0)
+            k = f"turn/{i}-{mode}"
+            t0 = time.perf_counter()
+            request("PUT", f"/obsb/{k}", 200, body_=tb)
+            turn[mode]["put"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            _, out = request("GET", f"/obsb/{k}", 200)
+            turn[mode]["get"].append(time.perf_counter() - t0)
+            if out != tb:
+                raise SystemExit(f"observability: {k} differs")
+        ospan.TRACER.configure(ring=0, sample=1.0)
+        slo = srv.metrics.last_minute.snapshot()
+        top = ospan.TRACER.snapshot()["apis"]
+    finally:
+        ospan.TRACER.configure(ring=0, sample=1.0)
+        os.environ.pop("MTPU_AUDIT", None)
+        os.environ.pop("MTPU_SLO", None)
+        if stream is not None:
+            stream.close()
+        if srv is not None:
+            srv.shutdown()          # flushes and closes the audit targets
+        if pools is not None:
+            pools.close()
+        collector.close()
+
+    # -- the audit trail: one entry per request in each target ---------------
+    ids = [rid for _, _, _, rid, _, _ in log]
+    with open(audit_file) as f:
+        file_ids = [json.loads(x)["requestID"] for x in f if x.strip()]
+    hook_ids = [e["requestID"] for e in collector.entries]
+    shutil.rmtree(root, ignore_errors=True)
+    for name, got_ids in (("file", file_ids), ("webhook", hook_ids)):
+        if sorted(got_ids) != sorted(ids):
+            raise SystemExit(f"observability: the {name} audit target holds"
+                             f" {len(got_ids)} entries ({len(set(got_ids))}"
+                             f" ids) for {len(ids)} requests")
+    launches = counts.read()
+
+    def gbs(n, secs):
+        return n / sum(secs) / 1e9 * len(secs)
+    print(f"[observe] config 2's set in process, tracing on (ring "
+          f"{OBS_RING}), MTPU_SLO on, audit to a file and a webhook, a "
+          f"trace stream open: {OBS_CLIENTS} clients PUT {n_big} x "
+          f"{OBJECT_BYTES} B ({OBS_HH} {HH}) in {times['PUT']:.2f} s, GET "
+          f"them whole and by an {OBS_RANGE} B range in {times['GET']:.2f}"
+          f" s, a degraded GET {times['degraded GET']:.2f} s, {OBS_SMALL} "
+          f"inline PUTs + HEADs {times['small']:.2f} s; card {card}")
+    print(f"[observe] {len(log)} requests: one root each in the ring "
+          f"({len(ring)}) and the stream ({len(stream.records)} since it "
+          f"opened), one audit entry each in the file and the webhook "
+          f"target; coverage {', '.join(f'{k} {v:.3f}' for k, v in cov.items())};"
+          f" device spans {dict(dev_names)}, all device=0; card {card}")
+    print(f"[observe] one traced {OBS_EVENT_BYTES} B PUT, a "
+          f"{OBS_SLEEP_S * 1e3:g} ms spin queued behind each program: "
+          f"device spans "
+          + ", ".join(f"{sp['name']} {sp['dur_ms']:.3f} ms >= launches + "
+                      f"spin {ms:.3f} ms" for sp, ms in zip(spans_ev, ev_ms))
+          + " (CUDA events on the current stream); with the wait taken "
+          "out " + ", ".join(f"{sp['dur_ms']:.3f} ms < {ms:.3f} ms"
+                             for sp, ms in zip(spans_no, no_ms))
+          + f" (the check fails, as it must); the same launches "
+          f"untraced, on rows already on the card, return in "
+          f"{enqueue_ms:.3f} ms; card {card}")
+    print(f"[observe] registry over the traffic: coalescer {dp} = lanes "
+          f"{dl}; kernel launches {dpk} = the wrappers' (gf_matmul.cu "
+          f"{dk['gf_matmul']}, hh256.cu {dk['hh256']}, mxh256 calls "
+          f"{dk['mxh256']}); requests {dict(sorted(want_req.items()))}, rx "
+          f"{rx} B, tx {tx} B, as the client counted; card {card}")
+    print(f"[observe] one client, {OBJECT_BYTES} B in turns: PUT "
+          f"{gbs(OBJECT_BYTES, turn['on']['put']):.3f} GB/s traced, "
+          f"{gbs(OBJECT_BYTES, turn['off']['put']):.3f} untraced; GET "
+          f"{gbs(OBJECT_BYTES, turn['on']['get']):.3f} traced, "
+          f"{gbs(OBJECT_BYTES, turn['off']['get']):.3f} untraced; "
+          f"SPAN_ALLOCS unchanged over 3 untraced GETs; top/apis "
+          f"{ {k: v['count'] for k, v in top.items()} }; last-minute "
+          f"window {sum(v['count'] for v in slo.values())} requests; "
+          f"card {card}")
+    print(f"[observe] launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+    return launches
+
+
 def phase_layers(torch, card, dev):
     """Where one 32 MiB EC:8+4 PUT batch's and GET batch's time goes,
     step by step (host clock around synchronised work, median of 5),
@@ -10545,6 +11284,7 @@ def main() -> int:
         "notifications": lambda: phase_notify(args, counts, card),
         "tier": lambda: phase_tier(args, counts, card),
         "transforms": lambda: phase_transforms(args, counts, card),
+        "observability": lambda: phase_observe(args, counts, card),
     }
     per_path, tally = {}, {}
     faults0 = coalesce.stats()
@@ -10601,6 +11341,9 @@ def main() -> int:
         raise SystemExit(f"coalescer fallbacks or faults on the main "
                          f"paths: {faults0} -> {faults}")
     counts.shapes = None
+    # Phase 5k's turns ran on 5l's boots: their launches, read from the
+    # pools' metrics as each step ran, are the worker pool's.
+    per_path["worker pool"] = dict(POOL_SHARED["launches"])
     print(f"[launches] per main path: {per_path}")
     calls = sum(p["mxh256"] for p in per_path.values())
     print(f"[mxh256] at (384, 131072): {mxh['ms']:.4f} ms against a bound "

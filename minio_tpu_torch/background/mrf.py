@@ -19,7 +19,8 @@ carry over.
 
 A heal runs through the pool's `heal_object`, so on the port it runs on
 the card.  `attach_mrf` counts the entries its queues replayed in the
-module's `stats()` (the JAX package records them into DATA_PATH).
+module's `stats()`, which the metrics registry (observe/metrics.py)
+renders as mtpu_mrf_journal_replayed_total.
 
 Env knobs:
   MTPU_MRF_FSYNC       1 (default) fsync each enqueue append, 0 flush only

@@ -127,6 +127,8 @@ import torch
 
 from ..cluster.dynamic_timeout import DynamicTimeout
 from ..cluster.nslock import NSLockMap
+from ..observe import span as ospan
+from ..observe.metrics import DATA_PATH
 from ..ops import coalesce, devcache, devices, fused, metalanes
 from ..ops import zerocopy as zc
 from ..parallel import pipeline
@@ -166,10 +168,12 @@ _STATS = {"meta_read_requests": 0, "hedged_reads": 0, "hedge_fired": 0,
 
 
 def stats() -> dict:
-    """The engine's counters over every set of the process (the JAX
-    package records them into DATA_PATH): metadata elections
-    (`_read_metadata` calls) and hedged shard gathers, with the timer
-    firings, the spares they launched and the spares that won."""
+    """The engine's counters over every set of the process: metadata
+    elections (`_read_metadata` calls) and hedged shard gathers, with
+    the timer firings, the spares they launched and the spares that
+    won.  The metrics registry (observe/metrics.py) renders them as its
+    mtpu_meta_read_requests_total, mtpu_hedged_reads_total and
+    mtpu_hedge_* families."""
     with _STATS_MU:
         return dict(_STATS)
 
@@ -309,7 +313,9 @@ class ErasureSet:
             except Exception as e:  # noqa: BLE001 — quorum classifies
                 return None, e
 
-        return list(self.pool.map(call, positions))
+        # wrap_ctx: per-drive spans born in pool threads still attach to
+        # the traced request (a no-op when untraced).
+        return list(self.pool.map(ospan.wrap_ctx(call), positions))
 
     def _map_drives(self, fn) -> list:
         """fn(drive) on every drive in parallel; (result, error) per
@@ -393,8 +399,9 @@ class ErasureSet:
         override the generated identity (and a preserved timestamp never
         replaces a newer version).
         """
-        if not self.bucket_exists(bucket, cached=True):
-            raise ErrBucketNotFound(bucket)
+        with ospan.span("engine.bucket_check"):
+            if not self.bucket_exists(bucket, cached=True):
+                raise ErrBucketNotFound(bucket)
         with self.nslock.write_locked(bucket, obj):
             fi = self._put_object_locked(
                 bucket, obj, data, metadata=metadata, versioned=versioned,
@@ -484,14 +491,16 @@ class ErasureSet:
 
         if stream is None and len(data) <= SMALL_FILE_THRESHOLD:
             shards = [bytearray() for _ in range(self.n)]
-            for framed in self._encode_chunks(
-                    streams.batched_chunks(data, None,
-                                           BATCH_BLOCKS * BLOCK_SIZE),
-                    k, parity, algo):
-                for i, f in enumerate(framed):
-                    shards[i] += memoryview(f)
+            with ospan.span("engine.encode"):
+                for framed in self._encode_chunks(
+                        streams.batched_chunks(data, None,
+                                               BATCH_BLOCKS * BLOCK_SIZE),
+                        k, parity, algo):
+                    for i, f in enumerate(framed):
+                        shards[i] += memoryview(f)
             if md5 is not None:
-                meta.setdefault("etag", md5.hexdigest())
+                with ospan.span("engine.etag"):
+                    meta.setdefault("etag", md5.hexdigest())
             per_drive = Q.unshuffle_to_drives([bytes(s) for s in shards],
                                               distribution)
             return self._put_inline(bucket, obj, fi_for, per_drive,
@@ -501,25 +510,34 @@ class ErasureSet:
         tmp_dir = f"{TMP_DIR}/put-{uuid.uuid4().hex}"
         part = f"{tmp_dir}/part.1"
         failed = [d is None for d in self.drives]
+        errs = None
         try:
             size["n"] = self.stage_stream(
                 data, stream, md5 if stream is not None else None, k, parity,
                 algo, distribution, part, failed, write_quorum)
             if md5 is not None:
-                meta.setdefault("etag", md5.hexdigest())
-            res = self._map_positions(
-                lambda pos, d: self._publish(pos, d, failed, tmp_dir,
-                                             fi_for(pos, data_dir, None),
-                                             bucket, obj))
+                with ospan.span("engine.etag"):
+                    meta.setdefault("etag", md5.hexdigest())
+            with ospan.span("engine.publish"):
+                res = self._map_positions(
+                    lambda pos, d: self._publish(
+                        pos, d, failed, tmp_dir,
+                        fi_for(pos, data_dir, None), bucket, obj))
             errs = [e for _, e in res]
             err = Q.reduce_write_quorum_errs(errs, write_quorum)
             if err is not None:
                 self._undo_publish(bucket, obj, version_id, errs)
                 raise err
         finally:
-            # Publish renamed the winners' staging away; failed drives
-            # may still hold theirs.
-            self._map_positions(lambda pos, d: self._rm_tmp(d, tmp_dir))
+            # Publish renamed the winners' staging away: only a failed
+            # drive (or every drive, when the PUT failed before its
+            # publish) may still hold its own.
+            todo = (None if errs is None else
+                    [pos for pos in range(self.n)
+                     if failed[pos] or errs[pos] is not None])
+            if todo is None or todo:
+                self._map_positions(lambda pos, d: self._rm_tmp(d, tmp_dir),
+                                    todo)
         fi = fi_for(0, data_dir, None)
         if self.mrf is not None and (any(failed) or any(errs)):
             self.mrf.enqueue(bucket, obj, fi.version_id)
@@ -540,12 +558,14 @@ class ErasureSet:
             mb.note_put(1)
             use_lanes = mb.put_hot() or metalanes.solo_forced()
         try:
-            if use_lanes:
-                res = self._put_inline_lanes(bucket, obj, fi_for, per_drive,
-                                             mb)
-            else:
-                res = self._map_positions(lambda pos, d: d.write_metadata(
-                    bucket, obj, fi_for(pos, "", per_drive[pos])))
+            with ospan.span("engine.write"):
+                if use_lanes:
+                    res = self._put_inline_lanes(bucket, obj, fi_for,
+                                                 per_drive, mb)
+                else:
+                    res = self._map_positions(
+                        lambda pos, d: d.write_metadata(
+                            bucket, obj, fi_for(pos, "", per_drive[pos])))
         finally:
             if mb is not None:
                 mb.note_put(-1)
@@ -580,7 +600,7 @@ class ErasureSet:
 
     def stage_stream(self, head, stream, md5, k: int, m: int, algo: str,
                      distribution: list[int], path: str, failed: list[bool],
-                     write_quorum: int) -> int:
+                     write_quorum: int, on_batch=None) -> int:
         """Encode a body (`head`, then the rest of `stream` when it is a
         reader) batch by batch on the device and append each drive's
         framed shards to `path` in its system volume; returns the body's
@@ -594,7 +614,13 @@ class ErasureSet:
         `write_file_batches` (one open + pwritev): a bytes body of at
         most one batch is encoded whole and staged in one call per
         drive, a stream in one call per batch.  MTPU_ZEROCOPY=0, or a
-        drive without the call, keeps the append_file loop."""
+        drive without the call, keeps the append_file loop.
+
+        Tracing: the encode and the writes run under engine.encode and
+        engine.stage (a body of one batch) or engine.write (a batch of a
+        longer one) spans; with `on_batch(nbytes, encode_s, write_s)`
+        (multipart's parts) each batch's measured times go to it
+        instead."""
         total = 0
 
         def chunks():
@@ -629,12 +655,39 @@ class ErasureSet:
 
         encoded = (Q.unshuffle_to_drives(framed, distribution)
                    for framed in self._encode_chunks(chunks(), k, m, algo))
-        if vectored and stream is None and \
-                len(head) <= BATCH_BLOCKS * BLOCK_SIZE:
-            write_all(list(encoded))
+        def write(batches: list) -> None:
+            if vectored:
+                write_all(batches)
+            else:
+                for per_drive in batches:
+                    write_all([per_drive])
+
+        whole = stream is None and len(head) <= BATCH_BLOCKS * BLOCK_SIZE
+        if on_batch is not None:
+            seen = 0
+            it = iter(encoded)
+            while True:
+                t0 = time.perf_counter()
+                got = list(it) if whole else [next(it, None)]
+                if not got or got[-1] is None:
+                    break
+                t1 = time.perf_counter()
+                write(got)
+                on_batch(total - seen, t1 - t0, time.perf_counter() - t1)
+                seen = total
+            return total
+        if whole:
+            # One encode dispatch covers the body: encode, then stage
+            # every drive's shards in one fan-out (a stage span, as the
+            # JAX package's one-dispatch fast path has).
+            with ospan.span("engine.encode"):
+                batches = list(encoded)
+            with ospan.span("engine.stage"):
+                write(batches)
         else:
-            for per_drive in encoded:
-                write_all([per_drive])
+            for per_drive in ospan.timed_iter(encoded, "engine.encode"):
+                with ospan.span("engine.write"):
+                    write_all([per_drive])
         return total
 
     @staticmethod
@@ -783,7 +836,10 @@ class ErasureSet:
         if xlmeta_v1.is_v1(fi):
             return fi, self._read_v1_object(bucket, obj, fi)[
                 offset:offset + length]
-        out = bytearray(length)
+        # The zeroed destination is real time at tens of MiB (page
+        # faults): priced as its own stage.
+        with ospan.span("engine.alloc"):
+            out = bytearray(length)
         mv = memoryview(out)
         segs = self._plan_segments(fi, offset, length)
         offs = [0]
@@ -796,8 +852,9 @@ class ErasureSet:
 
         def read_seg(i):
             pn, off, ln = segs[i]
-            mv[offs[i]:offs[i] + ln] = self._read_part(bucket, obj, fi, pn,
-                                                       off, ln, report)
+            with ospan.span("engine.read_part"):
+                mv[offs[i]:offs[i] + ln] = self._read_part(
+                    bucket, obj, fi, pn, off, ln, report)
 
         # Segment i+1's reads and device call run while segment i is
         # copied into place, under get_object_iter's gate.
@@ -1044,9 +1101,12 @@ class ErasureSet:
         if xlmeta_v1.is_v1(fi):
             return fi, iter((self._read_v1_object(bucket, obj, fi)[
                 offset:offset + length],))
+        def read_seg(seg):
+            with ospan.span("engine.read_part"):
+                return self._read_part(bucket, obj, fi, *seg)
+
         return fi, pipeline.prefetch_map(
-            lambda seg: self._read_part(bucket, obj, fi, *seg),
-            self._plan_segments(fi, offset, length),
+            read_seg, self._plan_segments(fi, offset, length),
             self._prefetch_pool(metas), depth=1)
 
     def _degraded(self, metas) -> bool:
@@ -1307,58 +1367,79 @@ class ErasureSet:
         co = coalesce.get() if coalesce.enabled() else None
         if co is not None:
             co.note_read(1, self.device)
+        # Stage timing, as the JAX package's two read paths have it: a
+        # read whose k data shards all read and verify in the first
+        # round (`fast`) records engine.read / engine.verify /
+        # engine.assemble; any other round runs under engine.read and
+        # engine.verify_decode spans.
+        fast = healthy = all(s in candidates for s in range(k))
+        t0 = time.monotonic()
+        read_s = verify_s = 0.0
         try:
             rows: dict[int, tuple] = {}
             tried: set[int] = set()
-            rounds = 0
+            rounds = attempts = 0
             while True:
                 want = [s for s in candidates if s not in tried
                         and s not in rows][:max(k - len(rows), 0)]
                 if len(rows) < k and not want:
                     raise ErrErasureReadQuorum(
                         f"only {len(rows)}/{k} shards readable")
-                if order is not None and self._use_hedge(
-                        [order[s] for s in want], candidates, k):
-                    spares = [s for s in candidates if s not in tried
-                              and s not in rows and s not in want]
-                    for s in self._hedged_fetch(read_row, order, rows,
-                                                tried, want, spares, k):
-                        tried.discard(s)     # abandoned: may be retried
-                else:
-                    tried.update(want)
-                    for s, (row, err) in zip(want, self.pool.map(
-                            _attempt(read_row), want)):
-                        if err is None:
-                            rows[s] = row
+                timed = fast and attempts == 0
+                attempts += 1
+                tr = time.monotonic()
+                with (contextlib.nullcontext() if timed
+                      else ospan.span("engine.read")):
+                    if order is not None and self._use_hedge(
+                            [order[s] for s in want], candidates, k):
+                        spares = [s for s in candidates if s not in tried
+                                  and s not in rows and s not in want]
+                        for s in self._hedged_fetch(read_row, order, rows,
+                                                    tried, want, spares, k):
+                            tried.discard(s)  # abandoned: may be retried
+                    else:
+                        tried.update(want)
+                        for s, (row, err) in zip(want, self.pool.map(
+                                ospan.wrap_ctx(_attempt(read_row)), want)):
+                            if err is None:
+                                rows[s] = row
+                read_s += time.monotonic() - tr
                 if len(rows) < k:
+                    fast = False
                     continue
                 rounds += 1
                 sel = tuple(sorted(rows)[:k])
                 missing = tuple(s for s in range(k) if s not in sel)
+                fast = fast and not missing
                 x = out = xt = out_t = None
-                if nb:
-                    x = np.empty((nb, k, shard_size), dtype=np.uint8)
-                    for i, s in enumerate(sel):
-                        x[:, i, :] = rows[s][1]
-                    verified = self._verify_rows(x, k, m, sel, missing, algo,
-                                                 co)
-                if has_tail:
-                    xt = np.stack([rows[s][3] for s in sel])[None]
-                    verified_t = self._verify_rows(xt, k, m, sel, missing,
-                                                   algo, co)
+                tv = time.monotonic()
                 bad: set[int] = set()
-                if nb:
-                    digests, out = verified()
-                    bad.update(s for i, s in enumerate(sel)
-                               if not np.array_equal(digests[:, i],
-                                                     rows[s][0]))
-                if has_tail:
-                    digests, out_t = verified_t()
-                    bad.update(s for i, s in enumerate(sel)
-                               if not np.array_equal(digests[0, i],
-                                                     rows[s][2]))
+                with (contextlib.nullcontext() if fast
+                      else ospan.span("engine.verify_decode")):
+                    if nb:
+                        x = np.empty((nb, k, shard_size), dtype=np.uint8)
+                        for i, s in enumerate(sel):
+                            x[:, i, :] = rows[s][1]
+                        verified = self._verify_rows(x, k, m, sel, missing,
+                                                     algo, co)
+                    if has_tail:
+                        xt = np.stack([rows[s][3] for s in sel])[None]
+                        verified_t = self._verify_rows(xt, k, m, sel,
+                                                       missing, algo, co)
+                    if nb:
+                        digests, out = verified()
+                        bad.update(s for i, s in enumerate(sel)
+                                   if not np.array_equal(digests[:, i],
+                                                         rows[s][0]))
+                    if has_tail:
+                        digests, out_t = verified_t()
+                        bad.update(s for i, s in enumerate(sel)
+                                   if not np.array_equal(digests[0, i],
+                                                         rows[s][2]))
+                verify_s += time.monotonic() - tv
                 if not bad:
                     break
+                fast = False
                 for s in bad:
                     del rows[s]
         finally:
@@ -1375,9 +1456,22 @@ class ErasureSet:
                         x if nb else np.empty((0, k, shard_size),
                                               dtype=np.uint8),
                         tail=xt, device=self.device)
-        return _assemble(_data_rows(x, out, sel, missing, k) if nb else None,
+        ta = time.monotonic()
+        data = _assemble(_data_rows(x, out, sel, missing, k) if nb else None,
                          _data_rows(xt, out_t, sel, missing, k)
                          if has_tail else None, tail_len)
+        done = time.monotonic()
+        if healthy and not fast:
+            DATA_PATH.record_fastpath_fallback()
+        if fast:
+            DATA_PATH.record_healthy_read(data.size, read_s, verify_s,
+                                          done - ta)
+            ospan.record("engine.read", read_s)
+            ospan.record("engine.verify", verify_s)
+        else:
+            DATA_PATH.record_degraded_read(data.size, done - t0)
+        ospan.record("engine.assemble", done - ta)
+        return data
 
     # -- hedged shard reads ----------------------------------------------------
 
@@ -1435,7 +1529,7 @@ class ErasureSet:
                     q.put((s, read_row(s), None))
                 except BaseException as e:  # noqa: BLE001 — marshalled
                     q.put((s, None, e))
-            self.pool.submit(run)
+            self.pool.submit(ospan.wrap_ctx(run))
 
         for s in want:
             launch(s)
@@ -1534,7 +1628,8 @@ class ErasureSet:
         version_id = normalize_version_id(version_id)
         _count(meta_read_requests=1)
         mb = metalanes.get() if metalanes.enabled() else None
-        with mb.reading() if mb is not None else contextlib.nullcontext():
+        with mb.reading() if mb is not None else \
+                contextlib.nullcontext(), ospan.span("engine.quorum"):
             res = self._read_version_fanout(bucket, obj, version_id, mb)
         metas = Metas(fi for fi, _ in res)
         errs = [e for _, e in res]

@@ -64,6 +64,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..observe import span as ospan
+from ..observe.metrics import DATA_PATH
 from ..ops import coalesce, devcache, fused
 from ..parallel import pipeline as pl
 from ..server import qos as _qos
@@ -424,10 +426,13 @@ def _heal_data(es: ErasureSet, bucket: str, obj: str, fi: FileInfo,
                 continue
             heal_part(es, bucket, obj, fi, part, sources, targets, need,
                       tmp_id)
-        for pos in targets:
-            _ensure_bucket_on(es.drives[pos], bucket)
-            es.drives[pos].rename_data(SYS_VOL, f"{TMP_DIR}/{tmp_id}",
-                                       _fi_for_drive(fi, pos), bucket, obj)
+        with ospan.span("heal.publish"):
+            for pos in targets:
+                _ensure_bucket_on(es.drives[pos], bucket)
+                es.drives[pos].rename_data(SYS_VOL, f"{TMP_DIR}/{tmp_id}",
+                                           _fi_for_drive(fi, pos), bucket,
+                                           obj)
+        DATA_PATH.record_heal_object()
     finally:
         for pos in targets:
             try:
@@ -539,6 +544,8 @@ class _PartRebuild:
             for s in bad:
                 sel.remove(s)
                 del data[s]
+        DATA_PATH.record_heal_batch(nb, HEAL_BATCH_BLOCKS, len(sel) * ln,
+                                    len(need) * ln)
         return self._frame(rebuilt, nb, s_len, co)
 
     def _resident(self, lo: int, nb: int, s_len: int):
@@ -696,10 +703,18 @@ def _heal_part_pipelined(es: ErasureSet, bucket: str, obj: str,
         else:
             list(es.pool.map(put, targets))
 
+    def on_batch(read_s, compute_s, write_s):
+        # Runs on the (possibly traced) caller's thread: a heal under a
+        # request shows its stage times in the trace.
+        STAGES.add(read_s, compute_s, write_s)
+        ospan.record("heal.read", read_s)
+        ospan.record("heal.decode", compute_s)
+        ospan.record("heal.write", write_s)
+
     batches = _frame_batches(part.size, fi.erasure, job.algo)
     pl.StagePipeline(es._iter_pool).run(
         pl.prefetch_map(read_batch, batches, es._iter_pool, depth=1),
-        compute, write, on_batch=STAGES.add)
+        compute, write, on_batch=on_batch)
 
 
 def heal_bucket(es: ErasureSet, bucket: str) -> list[int]:

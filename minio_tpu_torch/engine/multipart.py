@@ -22,10 +22,13 @@ least MIN_PART_SIZE.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import time
 import uuid
 
+from ..observe import span as ospan
+from ..observe.metrics import DATA_PATH
 from ..storage import bitrot_io
 from ..storage.drive import MULTIPART_DIR, SYS_VOL, TMP_DIR
 from ..storage.errors import (ErrBucketNotFound, ErrFileNotFound,
@@ -34,7 +37,7 @@ from ..storage.xlmeta import (ErasureInfo, FileInfo, ObjectPartInfo,
                               XLMeta, new_uuid)
 from ..utils import msgpackx, streams
 from . import quorum as Q
-from .erasure_set import BLOCK_SIZE, ErasureSet
+from .erasure_set import BATCH_BLOCKS, BLOCK_SIZE, ErasureSet
 
 MIN_PART_SIZE = 5 * 1024 * 1024        # S3 minimum for all but the last part
 MAX_PARTS = 10_000                     # docs/minio-limits.md:24-29
@@ -146,10 +149,17 @@ def put_object_part(es: ErasureSet, bucket: str, obj: str, upload_id: str,
     algo = bitrot_io.write_algo()
     failed = [d is None for d in es.drives]
     md5 = streams.PipelinedMD5()
+
+    def on_batch(nbytes, encode_s, write_s):
+        DATA_PATH.record_mp_batch(nbytes, encode_s, write_s)
+        ospan.record("mp.encode", encode_s)
+        ospan.record("mp.write", write_s)
+
     try:
         total = es.stage_stream(data, stream, md5, ec.data_blocks,
                                 ec.parity_blocks, algo, ec.distribution,
-                                stage, failed, write_quorum)
+                                stage, failed, write_quorum,
+                                on_batch=on_batch)
         etag = md5.hexdigest()
         part_meta = _part_meta_blob(part_number, etag, total, algo)
 
@@ -164,7 +174,12 @@ def put_object_part(es: ErasureSet, bucket: str, obj: str, upload_id: str,
             d.write_all(SYS_VOL, f"{path}/part.{part_number}.meta",
                         part_meta)
 
-        res = es._map_positions(publish)
+        # A part of one device batch publishes in the fan-out the JAX
+        # package's small-part path writes in, with no span of its own.
+        small = stream is None and 0 < total <= BATCH_BLOCKS * BLOCK_SIZE
+        with (contextlib.nullcontext() if small
+              else ospan.span("mp.publish")):
+            res = es._map_positions(publish)
         err = Q.reduce_write_quorum_errs([e for _, e in res], write_quorum)
         if err is not None:
             raise err
@@ -402,8 +417,11 @@ def complete_multipart_upload(es: ErasureSet, bucket: str, obj: str,
     # PUT and DELETE, so a concurrent overwrite cannot interleave its
     # per-drive metadata writes (cf. NSLock in CompleteMultipartUpload,
     # erasure-multipart.go:771).
-    with es.nslock.write_locked(bucket, obj, timeout=30.0):
+    t0 = time.perf_counter()
+    with es.nslock.write_locked(bucket, obj, timeout=30.0), \
+            ospan.span("mp.publish"):
         res = es._map_positions(publish)
+    DATA_PATH.record_mp_complete(time.perf_counter() - t0)
     errs = [e for _, e in res]
     err = Q.reduce_write_quorum_errs(errs, write_quorum)
     if err is not None:

@@ -20,7 +20,6 @@ Credential kinds (all verified by SigV4 or SigV2 with their own secret):
 from __future__ import annotations
 
 import json
-import logging
 import secrets
 import threading
 import time
@@ -30,20 +29,16 @@ from ..bucket.metadata import META_BUCKET
 from ..storage.errors import StorageError
 from . import policy as pol
 
-_LOG = logging.getLogger("minio_tpu_torch.iam")
-_LOGGED: set[str] = set()
-_LOGGED_MU = threading.Lock()
+_LOGGER = None
 
 
-def log_once(level: str, msg: str, key: str) -> None:
-    """Log `msg` at `level` the first time `key` is seen in this
-    process; later calls with the same key are dropped (the load loop
-    re-runs on every reload)."""
-    with _LOGGED_MU:
-        if key in _LOGGED:
-            return
-        _LOGGED.add(key)
-    _LOG.log(logging.getLevelName(level.upper()), msg)
+def _logger():
+    """The IAM plane's logger (observe/logger.py), made on first use."""
+    global _LOGGER
+    if _LOGGER is None:
+        from ..observe.logger import Logger
+        _LOGGER = Logger()
+    return _LOGGER
 
 
 IAM_PREFIX = "config/iam"
@@ -125,7 +120,7 @@ class IAMSys:
                         # (fail-open). Degrade to deny-all so attached
                         # identities fail closed, and say so (deduped —
                         # this loop re-runs on every reload).
-                        log_once(
+                        _logger().log_once(
                             "error",
                             f"IAM: policy {name!r} failed to parse "
                             f"({e}); degrading it to deny-all for "

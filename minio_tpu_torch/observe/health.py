@@ -1,6 +1,5 @@
 """Copy of minio_tpu/observe/health.py: the port keeps its own, so that it
-imports nothing of the JAX package (the rest of observe/ is ROADMAP
-Queue A item 10).
+imports nothing of the JAX package.
 
 Health checks: liveness, readiness, maintenance-aware cluster quorum.
 

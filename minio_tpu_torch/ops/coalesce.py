@@ -1,7 +1,7 @@
 """Cross-request dispatch coalescing for the erasure and bitrot data plane
 (torch).
 
-Counterpart of minio_tpu/ops/coalesce.py, without its trace spans.  In
+Counterpart of minio_tpu/ops/coalesce.py.  In
 a worker of the pre-fork pool (server/workers.py) `attach_remote`
 installs the cross-process front end (ops/ipc_dispatch.RemoteCoalescer)
 as what `get()` returns: the engine's call sites are unchanged, and
@@ -42,6 +42,13 @@ on the lane thread's first pipelined dispatch, never at import or before
 a fork.  Inline and serial dispatches run on the caller's current stream
 and sync before they return.
 
+Tracing (observe/span.py): the lane thread carries no request context,
+so the programs it runs open no span and never wait for the card; the
+submitter's `Handle.result()` records the item's queue wait as a
+`coalesce.wait` child of whatever span the caller is in, and an inline
+dispatch runs the program on the caller's thread, where its
+`device.*` span nests under the caller's stage span.
+
 `pad_batch` is the reference's padding of a batch to a multiple of its
 jit-shape bucket; the port's kernels take any batch, so the engine pads
 to a multiple of 1 (ROADMAP Queue C: a divergence with the same bytes).
@@ -66,6 +73,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..observe import span as ospan
 from . import devcache, devices
 
 
@@ -102,8 +110,7 @@ def pad_batch(x: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
 # -- module counters ----------------------------------------------------------
 
 _COUNTERS_MU = threading.Lock()
-_COUNTERS = {"co_fallbacks": 0, "co_faults": 0, "co_dispatches": 0,
-             "co_items": 0}
+_COUNTERS = {"co_fallbacks": 0, "co_faults": 0}
 
 
 def _count(name: str, n: int = 1) -> None:
@@ -119,9 +126,9 @@ def record_co_fallback() -> None:
 
 def stats() -> dict:
     """Process-wide counters: co_fallbacks (direct recomputes after a
-    failed handle), co_faults (items of batches that faulted),
-    co_dispatches and co_items (dispatches that resolved, and their
-    items)."""
+    failed handle) and co_faults (items of batches that faulted).  The
+    dispatches and their items are each lane's (`DispatchLane.stats`),
+    which the metrics registry renders."""
     with _COUNTERS_MU:
         return dict(_COUNTERS)
 
@@ -182,13 +189,18 @@ class Handle:
     lane to resolve it; `release()` says the caller is done with any
     pooled buffer the result aliases."""
 
-    __slots__ = ("_ev", "_res", "_exc", "_t_enq", "_ctx", "weight", "nrows")
+    __slots__ = ("_ev", "_res", "_exc", "_t_enq", "_t_disp", "_ctx",
+                 "weight", "nrows")
+
+    #: The span the caller's wait is recorded under.
+    WAIT_SPAN = "coalesce.wait"
 
     def __init__(self, weight: int, nrows: int):
         self._ev = threading.Event()
         self._res = None
         self._exc: BaseException | None = None
         self._t_enq = time.monotonic()
+        self._t_disp: float | None = None
         self._ctx: DispatchCtx | None = None
         self.weight = weight
         self.nrows = nrows
@@ -196,6 +208,10 @@ class Handle:
     def result(self, timeout: float | None = 120.0):
         if not self._ev.wait(timeout):
             raise TimeoutError("coalesced dispatch did not complete")
+        if self._t_disp is not None:
+            ospan.record(self.WAIT_SPAN,
+                         max(0.0, self._t_disp - self._t_enq))
+            self._t_disp = None
         if self._exc is not None:
             raise self._exc
         return self._res
@@ -462,6 +478,7 @@ class DispatchLane:
         wait_sum = 0.0
         for (_, h), res in zip(items, results):
             wait_sum += t_disp - h._t_enq
+            h._t_disp = t_disp
             h._ctx = ctx
             h._res = res
             h._ev.set()
@@ -472,8 +489,6 @@ class DispatchLane:
             self.wait_s += wait_sum
             self.max_items = max(self.max_items, len(items))
             self._ema = 0.75 * self._ema + 0.25 * len(items)
-        _count("co_dispatches")
-        _count("co_items", len(items))
 
     def _dispatch(self, items: list[tuple], w: int, fn,
                   pipelined: bool = False, inline: bool = False) -> None:

@@ -36,6 +36,19 @@ same call still runs on the device.  The digests of a host-route call
 are a CPU tensor, taken from the host copy of the input when the caller
 passed one.  `check_algo` is the gate of the device digests: any other
 name raises.
+
+Device spans (observe/span.py): inside a traced request each program
+runs in a span, `device.encode_hash`, `device.verify` (digests only) or
+`device.verify_transform` (with `transform`'s GF(2^8)-only call under
+the same name), tagged with the card's index.  The launches are
+asynchronous, so on a card the span closes only once an event recorded
+on the CURRENT stream after the launches has completed: the caller's
+stream, on which a direct call or a coalescer's inline dispatch (run on
+the caller's thread) queued its launches, and nothing else on the
+device; never a device-wide synchronize, which would stall the other
+lanes.  Untraced calls, and every call a lane thread makes on its own
+stream (it carries no request context), do not wait: a pipelined lane
+keeps resolving batch i only after it has launched batch i+1.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ import torch
 
 import numpy as np
 
+from ..observe import span as ospan
 from ..storage import bitrot_io
 from . import devices
 from .erasure_torch import ReedSolomon
@@ -103,6 +117,30 @@ def _host_digests(x, algo: str) -> torch.Tensor:
     return torch.from_numpy(d.reshape(*a.shape[:-1], d.shape[-1]))
 
 
+def _card_done(dev: torch.device) -> None:
+    """Block until the work queued so far on `dev`'s current stream is
+    complete (an event recorded there, then synchronized)."""
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    ev.synchronize()
+
+
+def _traced(name: str, dev: torch.device, fn):
+    """Run `fn()` (the program's launches); inside a traced request the
+    span covers the launches AND their completion on the card (see the
+    module docstring).  Untraced, it is `fn()`."""
+    if not ospan.active():
+        return fn()
+    with ospan.span(name) as sp:
+        card = dev.type == "cuda"
+        if card:
+            sp.tag(device=dev.index or 0)
+        out = fn()
+        if card:
+            _card_done(dev)
+        return out
+
+
 @functools.lru_cache(maxsize=64)
 def _codec(k: int, m: int, device: str) -> ReedSolomon:
     return ReedSolomon(k, m, device=device)
@@ -148,15 +186,19 @@ def encode_and_hash(x, k: int, m: int, algo: str = "mxh256", device=None,
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
     _count_items(algo, True, items)
-    parity = _codec(k, m, str(dev)).encode_blocks(xt)
-    if host:
-        digests = torch.cat([_host_digests(x if isinstance(x, np.ndarray)
-                                           else xt, algo),
-                             _host_digests(parity, algo)], dim=1)
-    else:
-        # One digest launch over all K+M rows of the batch.
-        digests = _digest_rows(torch.cat([xt, parity], dim=1), algo)
-    return parity, digests.transpose(0, 1).contiguous()
+
+    def run():
+        parity = _codec(k, m, str(dev)).encode_blocks(xt)
+        if host:
+            digests = torch.cat(
+                [_host_digests(x if isinstance(x, np.ndarray) else xt,
+                               algo),
+                 _host_digests(parity, algo)], dim=1)
+        else:
+            # One digest launch over all K+M rows of the batch.
+            digests = _digest_rows(torch.cat([xt, parity], dim=1), algo)
+        return parity, digests.transpose(0, 1).contiguous()
+    return _traced("device.encode_hash", dev, run)
 
 
 def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
@@ -177,17 +219,22 @@ def verify_and_transform(x, k: int, m: int, sources: tuple[int, ...],
         dev = devices.resolve(device)
         xt = devices.put(x, dev)
         _count_items(algo, True, items)
-        return digests, _codec(k, m, str(dev)).transform_blocks(
-            xt, tuple(sources), tuple(targets))
+        return digests, _traced(
+            "device.verify_transform", dev,
+            lambda: _codec(k, m, str(dev)).transform_blocks(
+                xt, tuple(sources), tuple(targets)))
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
     _count_items(algo, bool(targets), items)
-    digests = _digest_rows(xt, algo)
     if not targets:
-        return digests, None
-    out = _codec(k, m, str(dev)).transform_blocks(xt, tuple(sources),
-                                                  tuple(targets))
-    return digests, out
+        return _traced("device.verify", dev,
+                       lambda: _digest_rows(xt, algo)), None
+
+    def run():
+        digests = _digest_rows(xt, algo)
+        return digests, _codec(k, m, str(dev)).transform_blocks(
+            xt, tuple(sources), tuple(targets))
+    return _traced("device.verify_transform", dev, run)
 
 
 def transform(x, k: int, m: int, sources: tuple[int, ...],
@@ -200,5 +247,6 @@ def transform(x, k: int, m: int, sources: tuple[int, ...],
     dev = devices.resolve(device)
     xt = devices.put(x, dev)
     _count_items(None, True, items)
-    return _codec(k, m, str(dev)).transform_blocks(xt, tuple(sources),
-                                                   tuple(targets))
+    return _traced("device.verify_transform", dev,
+                   lambda: _codec(k, m, str(dev)).transform_blocks(
+                       xt, tuple(sources), tuple(targets)))

@@ -220,6 +220,9 @@ class RemoteHandle(coalesce.Handle):
 
     __slots__ = ("_kind", "_gen")
 
+    #: The caller's wait for the owner's answer, enqueue to answer.
+    WAIT_SPAN = "ipc.wait"
+
     def __init__(self, kind: str, weight: int, nrows: int, gen: int):
         super().__init__(weight, nrows)
         self._kind = kind
@@ -228,6 +231,7 @@ class RemoteHandle(coalesce.Handle):
     def _finish(self, res=None, exc: BaseException | None = None) -> None:
         self._res = res
         self._exc = exc
+        self._t_disp = time.monotonic()
         self._ev.set()
 
 

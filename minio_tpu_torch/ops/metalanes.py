@@ -45,9 +45,13 @@ Env, read per call:
 - MTPU_META_TRIM=0 turns off the engine's K+1 read trim
   (engine/erasure_set._read_version_fanout); it rides MTPU_METABATCH.
 
-`counters()` holds the plane's process-wide counts (the JAX package
-records them into DATA_PATH): read rounds and the keys they served,
-trim outcomes, lane dispatches and inline ops.
+`counters()` holds the plane's process-wide counts: read rounds and the
+keys they served, trim outcomes, lane dispatches and inline ops.  The
+metrics registry (observe/metrics.py) renders them as its mtpu_meta_*
+families and keeps no counter of its own for them.  Inside a traced
+request an op the dispatcher took off its lane's queue records
+`metalane.wait`, its time queued (observe/span.py), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ import os
 import threading
 import time
 from collections import deque
+
+from ..observe import span as ospan
 
 _STATS_MU = threading.Lock()
 _STATS = {"read_rounds": 0, "read_keys": 0, "trim_hits": 0,
@@ -118,19 +124,26 @@ def depth() -> int:
 class MetaHandle:
     """The future of one submitted metadata op."""
 
-    __slots__ = ("_ev", "_res", "_exc", "_t_enq", "_back")
+    __slots__ = ("_ev", "_res", "_exc", "_t_enq", "_t_disp", "_back")
 
     def __init__(self):
         self._ev = threading.Event()
         self._res = None
         self._exc: BaseException | None = None
         self._t_enq = time.monotonic()
+        # set by the dispatcher when it takes the op off the queue
+        self._t_disp: float | None = None
         # (lane, item) when the lane handed the op back to its caller
         self._back = None
 
     def result(self, timeout: float | None = 120.0):
         if not self._ev.wait(timeout):
             raise TimeoutError("batched metadata op did not complete")
+        if self._t_disp is not None:
+            # Inside a traced request: the time the op queued on its lane.
+            ospan.record("metalane.wait",
+                         max(0.0, self._t_disp - self._t_enq))
+            self._t_disp = None
         back, self._back = self._back, None
         if back is not None:
             lane, item = back
@@ -280,7 +293,9 @@ class MetaLane:
             self._space.notify_all()
             self._work.notify_all()
         err = RuntimeError(f"metadata lane dispatcher died: {exc!r}")
+        t = time.monotonic()
         for h in victims:
+            h._t_disp = t
             h._resolve(exc=err)
 
     def _run_handed_back(self, item):
@@ -293,6 +308,9 @@ class MetaLane:
             _count(inline_ops=1)
 
     def _dispatch(self, items: list) -> None:
+        t_disp = time.monotonic()
+        for _, h in items:
+            h._t_disp = t_disp
         if len(items) < self._min_batch and not solo_forced():
             # Too few to pay for a batch: each caller runs its own solo
             # call, in parallel, as an inline op of the lane.  The round

@@ -15,10 +15,13 @@ its device programs:
   mxh256 once; a mismatch or a failed launch raises SelfTestError
   naming the card.  It never skips.
 
+- `metrics_registry_self_test`: every family of the metrics registry
+  (observe/metrics.py) has a help string, lives in the mtpu_ namespace
+  and is named in the README: a family added without docs refuses to
+  serve.
+
 The JAX module's `digest_self_test` checks the native MD5/SHA-256
 lanes; the port loads no native digest, so it has nothing to test.
-`metrics_registry_self_test` waits for observe/ (ROADMAP Queue A
-item 10).
 """
 
 from __future__ import annotations
@@ -132,11 +135,62 @@ def device_lane_self_test(device=None) -> None:
                 f"device lane self-test digest mismatch on {dev}")
 
 
+def metrics_registry_self_test() -> None:
+    """Every exported metric family must carry a help string, live in
+    the mtpu_ namespace, and appear in the README's Observability
+    section: a boot-time drift guard.  The README may name families by
+    brace groups (mtpu_api_last_minute_{p50,p99}) or trailing-*
+    wildcards (mtpu_worker_*); an absent README (a stripped install)
+    skips the doc check, never the help and namespace checks."""
+    import re
+    from pathlib import Path
+
+    from ..observe.metrics import MetricsRegistry
+
+    fams = MetricsRegistry().families()
+    if not fams:
+        raise SelfTestError("metrics registry exports no families")
+    names = []
+    for m in fams:
+        if not getattr(m, "help", ""):
+            raise SelfTestError(
+                f"metric family {m.name} has no help string")
+        if not m.name.startswith("mtpu_"):
+            raise SelfTestError(
+                f"metric family {m.name} outside the mtpu_ namespace")
+        names.append(m.name)
+    readme = Path(__file__).resolve().parents[2] / "README.md"
+    try:
+        text = readme.read_text(encoding="utf-8")
+    except OSError:
+        return
+    documented: set[str] = set()
+    prefixes: list[str] = []
+    for tok in re.findall(r"mtpu_[\w{},*]+", text):
+        if "{" in tok and "}" in tok:
+            base, rest = tok.split("{", 1)
+            inner, tail = rest.split("}", 1)
+            for alt in inner.split(","):
+                documented.add(base + alt + tail)
+        elif tok.endswith("*"):
+            prefixes.append(tok[:-1])
+        else:
+            documented.add(tok)
+    missing = [n for n in names
+               if n not in documented
+               and not any(n.startswith(p) for p in prefixes)]
+    if missing:
+        raise SelfTestError(
+            "metric families missing from the README metrics table: "
+            + ", ".join(sorted(missing)))
+
+
 def run_startup_self_tests(device=None) -> None:
     erasure_self_test()
     bitrot_self_test()
     mxhash_self_test()
     device_lane_self_test(device)
+    metrics_registry_self_test()
     # Fail boot on a misconfigured bitrot write algorithm (a clear
     # config error now, not a confusing per-request failure later).
     from ..storage.bitrot_io import write_algo

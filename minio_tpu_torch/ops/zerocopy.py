@@ -21,8 +21,9 @@ copying path.  Behind it:
 Both sends map EPIPE/ECONNRESET back to BrokenPipeError /
 ConnectionResetError, so the server's quiet client-disconnect handling
 covers the new syscalls.  `stats()` counts the sends, their bytes,
-the hot tier's zero-copy views and the writer's fallbacks (the JAX
-package records them into DATA_PATH).
+the hot tier's zero-copy views and the writer's fallbacks; the metrics
+registry (observe/metrics.py) renders these counts as its
+mtpu_zerocopy_* families, and keeps no counter of its own for them.
 
 This module uses the standard library only.
 """

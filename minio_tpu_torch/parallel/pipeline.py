@@ -1,9 +1,11 @@
 """Reconstruct-pipeline primitives for heal.
 
 Counterpart of minio_tpu/parallel/pipeline.py (`prefetch_map` :36,
-`StagePipeline` :71, `Frontier` :154, `run_window` :182), without the
-span wrappers around pooled calls: the port has no request tracing yet.
-The stage timings `StagePipeline` reports through `on_batch` stay.
+`StagePipeline` :71, `Frontier` :154, `run_window` :182).  Pooled calls
+carry the caller's span context and deadline budget (observe/span.py
+`wrap_ctx`): stage timings, and the `coalesce.wait` a stage records when
+it blocks on a coalesced dispatch, attach to the request that submitted
+the work, not to an anonymous pool thread.
 
 - ``prefetch_map``: ordered map with a bounded read-ahead window, the
   parallelReader analogue (cmd/erasure-decode.go:101): batch *i+1*'s
@@ -27,6 +29,8 @@ import threading
 import time
 from concurrent.futures import FIRST_COMPLETED, Executor, wait
 
+from ..observe import span as ospan
+
 
 def prefetch_map(fn, items, pool: Executor | None, depth: int = 1):
     """Yield ``fn(item)`` in order with up to `depth` calls in flight
@@ -35,6 +39,7 @@ def prefetch_map(fn, items, pool: Executor | None, depth: int = 1):
         for item in items:
             yield fn(item)
         return
+    fn = ospan.wrap_ctx(fn)
     pending = []
     it = iter(items)
     try:
@@ -97,6 +102,7 @@ class StagePipeline:
         wfut = None
         pend_rs = pend_cs = 0.0
 
+        @ospan.wrap_ctx
         def timed_write(res):
             t0 = clock()
             write(res)
@@ -188,6 +194,7 @@ def run_window(fn, items, pool: Executor | None, window: int,
 
     it = enumerate(items)
     futs = {}
+    pooled_fn = ospan.wrap_ctx(fn)
 
     def submit_next() -> bool:
         if stop is not None and stop.is_set():
@@ -196,7 +203,7 @@ def run_window(fn, items, pool: Executor | None, window: int,
             idx, item = next(it)
         except StopIteration:
             return False
-        futs[pool.submit(fn, item)] = (idx, item)
+        futs[pool.submit(pooled_fn, item)] = (idx, item)
         return True
 
     for _ in range(window):

@@ -12,9 +12,9 @@ peer in parallel and collects per-peer results — the control-plane
 analogue of the storage plane's quorum fan-out.
 
 The observability verbs of the same plane (`register_obs_rpc`:
-peer.metrics_text, peer.healthinfo) wait for observe/ (ROADMAP Queue A
-item 10); until then a peer's call to them is answered 404, no such
-method.
+peer.metrics_text, peer.healthinfo) answer a node's whole metrics render
+and health document, which the admin `metrics/cluster` and `healthinfo`
+endpoints fan out to.
 """
 
 from __future__ import annotations
@@ -90,6 +90,19 @@ def register_peer_rpc(server, registry: PeerRegistry) -> None:
                     lambda p: registry.profile_start())
     server.register("peer.profile_dump",
                     lambda p: {"text": registry.profile_dump()})
+
+
+def register_obs_rpc(server, s3_server) -> None:
+    """Observability verbs: whole-node metric/health snapshots the
+    admin aggregate endpoints fan out to (cf. the peer REST metrics
+    channel, cmd/peer-rest-server.go GetMetricsHandler + the HealthInfo
+    collection in cmd/admin-handlers.go).  Mounted separately from
+    register_peer_rpc because they need the S3Server back-reference —
+    only available after boot_cluster_node built it."""
+    server.register("peer.metrics_text",
+                    lambda p: {"text": s3_server.local_metrics_text()})
+    server.register("peer.healthinfo",
+                    lambda p: {"info": s3_server.local_healthinfo()})
 
 
 class NotificationSys:

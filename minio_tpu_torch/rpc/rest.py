@@ -22,7 +22,17 @@ until the peer answers; while offline a call fails at once.
 Idempotent calls (reads) get a short bounded retry on a transient
 transport fault before the endpoint is declared offline; writes never
 retry, since a lost response cannot be told from a lost request.
-`stats()` counts the retries and the online/offline flips.
+`stats()` counts the retries, the online/offline flips and the calls
+refused because the request's deadline ran out.
+
+The per-request RPC deadline (MTPU_RPC_DEADLINE_MS, the reference's
+context deadline on its storage REST calls): the S3 front door arms
+`set_deadline` for each request, and every RPC the request fans out to
+gets min(its own timeout, the budget left); once the budget is spent a
+call raises `DeadlineExceeded` without dialing, is never retried and
+never marks the peer offline.  The budget is a contextvar registered
+with observe/span.py's `carry_var`, so `wrap_ctx` carries it into the
+engine's fan-out threads.
 
 The router is transport-independent: `RPCServer` gives it a listener of
 its own (tests), and a cluster node mounts the same router under its S3
@@ -31,13 +41,12 @@ on the main port.
 
 Not ported: the seeded network-fault injector (`ChaosTransport`,
 MTPU_NETCHAOS), which belongs to the net-chaos tools (ROADMAP Queue A
-item 11), and the per-request RPC deadline (MTPU_RPC_DEADLINE_MS),
-whose budget reaches the engine's fan-out threads through the span
-carrier of observe/ (item 10).
+item 11).
 """
 
 from __future__ import annotations
 
+import contextvars
 import errno
 import hmac
 import http.client
@@ -68,12 +77,14 @@ _RETRYABLE_ERRNOS = frozenset({
     errno.ETIMEDOUT, errno.EAGAIN})
 
 _STATS_MU = threading.Lock()
-_STATS = {"retries": 0, "went_offline": 0, "came_online": 0}
+_STATS = {"retries": 0, "went_offline": 0, "came_online": 0,
+          "deadline_exceeded": 0}
 
 
 def stats() -> dict:
-    """The process's RPC client counters: idempotent retries and the
-    endpoints' offline and online transitions."""
+    """The process's RPC client counters: idempotent retries, the
+    endpoints' offline and online transitions, and the calls refused on
+    a spent request deadline."""
     with _STATS_MU:
         return dict(_STATS)
 
@@ -105,6 +116,60 @@ class NetworkError(Exception):
     def __init__(self, msg: str, *, retryable: bool = False):
         super().__init__(msg)
         self.retryable = retryable
+
+
+class DeadlineExceeded(NetworkError):
+    """The caller's request deadline budget ran out before (or while)
+    dialing the peer.  NOT a peer-health event: the peer may be fine —
+    the REQUEST is out of time — so the client never marks the endpoint
+    offline for it, and it is never retried."""
+
+    def __init__(self, msg: str):
+        super().__init__(msg, retryable=False)
+
+
+#: Absolute monotonic deadline for the current request, or None.  Set at
+#: the S3 front door from MTPU_RPC_DEADLINE_MS and consulted by every
+#: RPC the request fans out to: each hop gets min(per-call timeout,
+#: remaining budget), so one wedged peer can never eat more than the
+#: request's whole budget.
+_DEADLINE: contextvars.ContextVar[float | None] = contextvars.ContextVar(
+    "mtpu_rpc_deadline", default=None)
+
+
+def set_deadline(seconds: float):
+    """Arm a deadline `seconds` from now; returns the reset token."""
+    return _DEADLINE.set(time.monotonic() + seconds)
+
+
+def clear_deadline(token) -> None:
+    _DEADLINE.reset(token)
+
+
+def deadline_remaining() -> float | None:
+    """Seconds left in the current request's budget (may be <= 0), or
+    None when no deadline is armed."""
+    dl = _DEADLINE.get()
+    if dl is None:
+        return None
+    return dl - time.monotonic()
+
+
+def request_deadline_ms() -> float:
+    """The configured per-request RPC budget (MTPU_RPC_DEADLINE_MS), or
+    0 when unset/disabled."""
+    try:
+        return float(os.environ.get("MTPU_RPC_DEADLINE_MS", "0") or 0)
+    except ValueError:
+        return 0.0
+
+
+# Pool-hop propagation: erasure fan-outs run on worker threads, which
+# have their own contextvars context; span.wrap_ctx re-sets registered
+# vars in the worker so the deadline budget survives the hop.
+from ..observe.span import carry_var as _carry_var  # noqa: E402
+
+_carry_var(_DEADLINE)
 
 
 class RPCVersionMismatch(Exception):
@@ -376,7 +441,16 @@ class RPCClient:
                   timeout: float | None = None) -> object:
         body = msgpackx.packb(payload)
         me = f"{self.host}:{self.port} {method}"
+        # Effective per-call timeout: explicit (health probes) wins,
+        # else the peer's measured adaptive deadline — both clamped to
+        # the request's remaining deadline budget.
         eff = timeout if timeout is not None else self.dyn_timeout.timeout()
+        rem = deadline_remaining()
+        if rem is not None:
+            if rem <= 0:
+                _count("deadline_exceeded")
+                raise DeadlineExceeded(f"{me}: request deadline exhausted")
+            eff = min(eff, rem)
         if self.tls_context is not None:
             conn = http.client.HTTPSConnection(
                 self.host, self.port, timeout=eff, context=self.tls_context)
@@ -417,6 +491,10 @@ class RPCClient:
         for i in range(attempts):
             try:
                 return self._raw_call(method, payload or {})
+            except DeadlineExceeded:
+                # Out of REQUEST budget, not a peer fault: never retried
+                # (there is no time left) and never a health event.
+                raise
             except NetworkError as e:
                 if e.retryable and i + 1 < attempts:
                     _count("retries")

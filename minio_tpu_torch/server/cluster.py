@@ -39,8 +39,10 @@ first paying a transport timeout).  A wrapped remote drive still reports
 as RemoteDrive, so the local-only paths (vectored staging, the metadata
 lanes' batched calls, the sendfile plan) leave it on the solo calls.
 
-Not ported yet (ROADMAP Queue A item 10): the observability verbs of the
-peer plane (`register_obs_rpc`).
+The boot mounts the peer plane's observability verbs
+(`register_obs_rpc`: peer.metrics_text, peer.healthinfo) once the
+server exists: the admin `metrics/cluster` and `healthinfo` endpoints
+fan out to them.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ from ..cluster.local_locker import LocalLocker
 from ..cluster.nslock import NSLockMap
 from ..rpc.lock_rpc import RemoteLocker, register_lock_rpc
 from ..rpc.peer_rpc import (NotificationSys, PeerRegistry,
-                            register_bootstrap_rpc, register_peer_rpc,
+                            register_bootstrap_rpc, register_obs_rpc,
+                            register_peer_rpc,
                             verify_cluster_config)
 from ..rpc.rest import RPCClient, RPCRouter, RPCVersionMismatch
 from ..rpc.storage_rpc import RemoteDrive, register_storage_rpc
@@ -322,8 +325,10 @@ def boot_cluster_node(endpoint_args: list, my_host: str, my_port: int,
                        set_drive_count, certs_dir=certs_dir, device=device)
     server = server_factory(node)
     server.cluster_node = node
-    # The observability verbs (register_obs_rpc) would mount here, with
-    # the server back-reference: ROADMAP Queue A item 10.
+    # The observability verbs need the server back-reference (they
+    # snapshot the whole node through it), so they mount here, not in
+    # ClusterNode.__init__.
+    register_obs_rpc(node.router, server)
     pools = None
     try:
         drives = node.build_drives()

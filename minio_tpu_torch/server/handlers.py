@@ -65,6 +65,7 @@ from ..crypto import sse
 from ..crypto.kms import kms_from_env
 from ..engine.pools import ServerPools
 from ..iam.policy import Policy
+from ..observe.span import span as _span
 from ..ops import metalanes
 from ..storage.errors import ErrObjectNotFound, StorageError
 from ..storage.xlmeta import FileInfo
@@ -977,21 +978,24 @@ class S3Handlers:
                 # sendfile plan: the body never enters the process
                 # (ops/zerocopy.py).  None on any gate: ranged, cached,
                 # inline, degraded, k > 1, zero-copy off.
-                got = self.pools.sendfile_plan(bucket, key, offset, length,
-                                               version_id)
+                with _span("engine.sendfile_plan"):
+                    got = self.pools.sendfile_plan(bucket, key, offset,
+                                                   length, version_id)
                 if got is not None:
                     fi, body_file = got
                 else:
                     # The body streams off the erasure engine in
                     # device-batch chunks: O(batch) memory (the
                     # GetObjectReader role).
-                    fi, body_iter = self.pools.get_object_iter(
-                        bucket, key, offset, length, version_id)
-                    # Pull the FIRST chunk now: once headers are on the
-                    # wire a failure can only sever the connection, so
-                    # quorum and bitrot errors that surface at once must
-                    # still become S3 error responses.
-                    first = next(body_iter, b"")
+                    with _span("engine.get_object"):
+                        fi, body_iter = self.pools.get_object_iter(
+                            bucket, key, offset, length, version_id)
+                        # Pull the FIRST chunk now: once headers are on
+                        # the wire a failure can only sever the
+                        # connection, so quorum and bitrot errors that
+                        # surface at once must still become S3 error
+                        # responses.
+                        first = next(body_iter, b"")
                     body_iter = _stream(first, body_iter)
             except StorageError as e:
                 raise from_storage_error(e) from None
@@ -1163,10 +1167,11 @@ class S3Handlers:
             transform_meta[_CLIENT_SIZE_KEY] = str(len(body))
             metadata.update(transform_meta)
         try:
-            fi = self.pools.put_object(bucket, key, stored,
-                                       metadata=metadata,
-                                       versioned=versioned, parity=parity,
-                                       **put_kw)
+            with _span("engine.put_object"):
+                fi = self.pools.put_object(bucket, key, stored,
+                                           metadata=metadata,
+                                           versioned=versioned,
+                                           parity=parity, **put_kw)
         except StorageError as e:
             raise from_storage_error(e) from None
         if replaced is not None:
@@ -1659,8 +1664,9 @@ class S3Handlers:
         # The overwrite check (the upload took its retention at create).
         self._lock_gate(bucket, key, {}, {}, versioned)
         try:
-            fi = self.pools.complete_multipart_upload(
-                bucket, key, upload_id, parts, versioned=versioned)
+            with _span("engine.complete_multipart"):
+                fi = self.pools.complete_multipart_upload(
+                    bucket, key, upload_id, parts, versioned=versioned)
         except StorageError as e:
             raise from_storage_error(e) from None
         self._publish_event(

@@ -50,12 +50,25 @@ ListenNotification streams the process's events as NDJSON:
 `GET /minio/listen` for every bucket.  In the worker pool each worker
 streams the events it served.
 
-What answers NotImplemented, with its ROADMAP.md Queue A item: the
-other admin endpoints and metrics (but the worker pool's, the hot
-tier's, the metadata plane's, the admission plane's, the notification
-targets' and a cluster node's families at /minio/v2/metrics/node).
-Spans, the rest of the metrics, the audit trail and federation stay in
-the JAX package for now.
+Observability (observe/): every request opens one root span
+(observe/span.py; a NOOP unless a trace ring or a trace stream is on),
+feeds the HTTP tracer, the metrics registry (observe/metrics.py) and,
+under MTPU_SLO, the last-minute window, and leaves one audit entry per
+MTPU_AUDIT target (observe/audit.py), a request refused before routing
+included.  /minio/v2/metrics/node serves this node's whole registry
+(with the worker pool's families in a pool), /minio/v2/metrics/cluster
+the fleet merge of every node's, as MinIO serves it (the JAX server
+answers this node's render there);
+the admin API serves `trace` (GET the HTTP trace ring, POST a span-tree
+NDJSON stream with TraceFilter's filters), `top/apis`, `console`,
+`metrics/cluster` and `healthinfo` (this node and its peers, fanned out
+under MTPU_OBS_DEADLINE_MS: a peer that does not answer in time is
+node_up 0), `profile` (cProfile, fanned out in a cluster), `inspect` and
+`bandwidth`.  Federation (bucket DNS) stays in the JAX package for now.
+
+In the worker pool a trace subscription, `top/apis` and `console`
+answer from the worker the connection landed on, as the JAX pool's do:
+each worker has its own tracer, window and log ring.
 
 In a worker pool a pool change reaches every worker through
 pool-topology.json and the shared topology generation (server/
@@ -112,8 +125,14 @@ from ..iam.iam import Identity
 from ..iam.ldap import LDAPError
 from ..iam.oidc import OIDCError
 from ..iam.policy import Policy, PolicyError
+from ..observe import span as ospan
+from ..observe.audit import build_entry, targets_from_env
 from ..observe.health import cluster_health
+from ..observe.logger import Logger, RingTarget
+from ..observe.metrics import DATA_PATH, MetricsRegistry, merge_prom
+from ..observe.trace import HTTPTracer
 from ..ops import zerocopy as zc
+from ..rpc import rest as _rest
 from ..storage.errors import StorageError
 from ..utils import streams
 from . import postpolicy, qos as _qos, sigv2
@@ -127,161 +146,71 @@ MAX_HEADER_BODY = 5 * 1024 ** 3      # max single PUT (5 GiB part limit)
 STS_NS = "https://sts.amazonaws.com/doc/2011-06-15/"
 
 
-def _family(out: list, name: str, help_: str, rows) -> None:
-    """One Prometheus gauge family: rows of (labels dict, value)."""
-    out.append(f"# HELP {name} {help_}")
-    out.append(f"# TYPE {name} gauge")
-    for labels, v in rows:
-        lab = ",".join(f'{k}="{v2}"' for k, v2 in labels.items())
-        out.append(f"{name}{{{lab}}} {v}" if lab else f"{name} {v}")
-
-
-#: mtpu_hotcache_* families: (stats key, family, help), the JAX
-#: package's names (minio_tpu/observe/metrics.py)
-_HOT_FAMILIES = (
-    ("hits", "mtpu_hotcache_hits_total", "Hot-object cache hits"),
-    ("misses", "mtpu_hotcache_misses_total", "Hot-object cache misses"),
-    ("meta_hits", "mtpu_hotcache_meta_hits_total",
-     "Metadata-only hot-object cache hits (HEAD)"),
-    ("hit_ratio", "mtpu_hotcache_hit_ratio", "Hot-object cache hit ratio"),
-    ("fills", "mtpu_hotcache_fills_total",
-     "Verified reads admitted to the hot-object cache"),
-    ("evictions", "mtpu_hotcache_evictions_total",
-     "Hot-object cache CLOCK evictions"),
-    ("bypassed", "mtpu_hotcache_bypassed_total",
-     "Reads that bypassed the hot-object cache fill"),
-    ("stale_gen", "mtpu_hotcache_stale_generation_total",
-     "Hot-object entries or fills dropped by a generation bump"),
-    ("invalidations", "mtpu_hotcache_invalidations_total",
-     "Bucket generation bumps (mutations)"),
-    ("ghost_defers", "mtpu_hotcache_ghost_defers_total",
-     "First misses the two-hit filter kept out"),
-    ("entries", "mtpu_hotcache_entries", "Hot-object cache entries"),
-    ("cached_bytes", "mtpu_hotcache_usage_bytes",
-     "Body bytes held by the hot-object cache"),
-    ("segment_bytes", "mtpu_hotcache_total_bytes",
-     "Hot-object cache segment size"),
-    ("in_use_bytes", "mtpu_hotcache_arena_in_use_bytes",
-     "Hot-object arena bytes in use, pinned runs included"))
-
-
-#: mtpu_meta_* families: (counter, family, help), the JAX package's
-#: names (minio_tpu/observe/metrics.py) and two of the port's (the keys
-#: the read rounds served, the largest group commit)
-_META_FAMILIES = (
-    ("meta_publishes", "mtpu_meta_publishes_total",
-     "xl.meta publishes across all drives (solo + batched)"),
-    ("meta_fsyncs", "mtpu_meta_fsyncs_total",
-     "syncs paying for metadata publishes (group commit amortizes a "
-     "journal fsync and a drive sync over a whole batch)"),
-    ("fsyncs_per_object", "mtpu_meta_fsyncs_per_object",
-     "Amortized fsyncs per xl.meta publish (oracle: 1.0)"),
-    ("meta_group_commits", "mtpu_meta_group_commits_total",
-     "Group-committed metadata batches (one journal fsync and one "
-     "drive sync each)"),
-    ("meta_group_items", "mtpu_meta_group_items_total",
-     "xl.meta publishes carried inside group commits"),
-    ("batch_occupancy", "mtpu_meta_batch_occupancy",
-     "Mean publishes per group commit"),
-    ("meta_group_max", "mtpu_meta_group_items_max",
-     "Most publishes in one group commit"),
-    ("meta_journal_replays", "mtpu_meta_journal_replays_total",
-     "xl.meta entries republished from metadata journal segments at "
-     "boot recovery"),
-    ("meta_read_requests", "mtpu_meta_read_requests_total",
-     "Engine metadata reads (quorum _read_metadata calls)"),
-    ("read_rounds", "mtpu_meta_read_rounds_total",
-     "Per-drive metadata read dispatches serving those requests"),
-    ("read_keys", "mtpu_meta_read_keys_total",
-     "Metadata lookups those dispatches served"),
-    ("fanouts_per_request", "mtpu_meta_read_fanouts_per_request",
-     "Drive dispatches per metadata read (oracle: N drives; coalescing "
-     "drives it below 1)"),
-    ("trim_hits", "mtpu_meta_trim_hits_total",
-     "K+1-trimmed read fan-outs accepted at quorum"),
-    ("trim_fallbacks", "mtpu_meta_trim_fallbacks_total",
-     "Trimmed fan-outs that widened to the remaining drives"),
-    ("lane_dispatches", "mtpu_meta_lane_dispatches_total",
-     "Metadata lane dispatcher rounds"),
-    ("inline_ops", "mtpu_meta_inline_ops_total",
-     "Lane submits executed inline on the caller's thread (idle fast "
-     "path)"))
-
-
-def meta_counters() -> dict:
-    """This process's metadata-plane counters (ops/metalanes.py, the
-    drives' publishes, the engine's elections), with the ratios."""
-    from ..engine import erasure_set
-    from ..ops import metalanes
-    from ..storage import drive
-    c = {**drive.stats(), **metalanes.counters(),
-         "meta_read_requests": erasure_set.stats()["meta_read_requests"]}
-    c["fsyncs_per_object"] = (c["meta_fsyncs"] / c["meta_publishes"]
-                              if c["meta_publishes"] else 0.0)
-    c["batch_occupancy"] = (c["meta_group_items"] / c["meta_group_commits"]
-                            if c["meta_group_commits"] else 0.0)
-    c["fanouts_per_request"] = (c["read_rounds"] / c["meta_read_requests"]
-                                if c["meta_read_requests"] else 0.0)
-    return c
-
-
-def qos_families(out: list, plane) -> None:
-    """The admission plane's mtpu_qos_* families, the JAX package's names
-    (minio_tpu/observe/metrics.py): pool-wide, from the shared slab."""
-    st = plane.stats()
-    for key, name, help_ in (
-            ("inflight", "mtpu_qos_requests_inflight",
-             "Admission slots currently held (pool-wide: the slab is "
-             "fork-shared)"),
-            ("waiting", "mtpu_qos_queue_depth",
-             "Requests waiting in the admission deadline queue"),
-            ("pressure", "mtpu_qos_pressure",
-             "Admission occupancy EMA in [0,1] — the signal background "
-             "planes yield to"),
-            ("queue_wait_seconds", "mtpu_qos_queue_wait_seconds_total",
-             "Summed admission-queue wait of requests that were "
-             "eventually admitted"),
-            ("tenant_throttled", "mtpu_qos_tenant_throttled_total",
-             "Requests refused by per-tenant token buckets (req/s or "
-             "bandwidth)"),
-            ("bucket_throttled", "mtpu_qos_bucket_throttled_total",
-             "Requests refused by per-bucket bandwidth budgets")):
-        _family(out, name, help_, [({}, st[key])])
-    _family(out, "mtpu_qos_admitted_total",
-            "Requests admitted through the overload plane by tenant class",
-            [({"tenant_class": c}, row["admitted"])
-             for c, row in st["classes"].items()])
-    _family(out, "mtpu_qos_shed_total",
-            "Requests shed with 503 SlowDown by tenant class",
-            [({"tenant_class": c}, row["shed"])
-             for c, row in st["classes"].items()])
-    _family(out, "mtpu_qos_shed_reason_total",
-            "Admission sheds by cause (queue: bounded queue full; "
-            "deadline: MTPU_REQUESTS_DEADLINE_MS expired waiting)",
-            [({"reason": "queue"}, st["shed_queue"]),
-             ({"reason": "deadline"}, st["shed_deadline"])])
-    _family(out, "mtpu_qos_bg_yields_total",
-            "Background-plane yields to foreground pressure (shrunk "
-            "batch concurrency + paced batches)",
-            [({"plane": "all"}, st["bg_yields"])]
-            + [({"plane": n}, k)
-               for n, k in st["bg_yields_by_plane"].items()])
-
-
-#: mtpu_notify_* families: (counter, family, help)
-NOTIFY_FAMILIES = (
-    ("sent", "mtpu_notify_events_sent_total",
-     "Events handed to notification targets by matching rules"),
-    ("delivered", "mtpu_notify_events_delivered_total",
-     "Events their target acknowledged (first try or retried)"),
-    ("parked", "mtpu_notify_events_parked_total",
-     "Events parked in a target's queue store while it was down"),
-    ("retried", "mtpu_notify_events_retried_total",
-     "Parked events a retry pass delivered"),
-    ("dropped", "mtpu_notify_events_dropped_total",
-     "Events whose rule names an ARN with no registered target"),
-    ("backlog", "mtpu_notify_backlog_events",
-     "Events parked in this process's queue stores now"))
+def _api_name(method: str, path: str, query: dict, headers) -> str:
+    """S3/admin API name for the request's root span — the per-API key
+    traces aggregate under (the role of api-router.go handler names in
+    the reference's trace/metrics labels), the JAX package's names.
+    Best-effort: unrecognized shapes fall back to method-qualified names
+    rather than guessing."""
+    if path.startswith("/minio/admin/"):
+        # version prefixes v1/v3 are the same length — same strip
+        # _dispatch_admin uses.
+        sub = path[len("/minio/admin/v1/"):].strip("/")
+        return "admin." + ((sub.split("/", 1)[0] or "Service"))
+    if path.startswith("/minio/"):
+        if path == "/minio/listen":
+            return "api.ListenNotification"
+        return "internal." + path[len("/minio/"):].strip("/").replace(
+            "/", ".")
+    parts = path.strip("/").split("/", 1)
+    bucket = parts[0]
+    key = parts[1] if len(parts) > 1 else ""
+    if not bucket:
+        return "api.ListBuckets" if method == "GET" else f"api.{method}Root"
+    if key:
+        if method == "GET":
+            return ("api.ListParts" if "uploadId" in query
+                    else "api.GetObject")
+        if method == "HEAD":
+            return "api.HeadObject"
+        if method == "PUT":
+            if "partNumber" in query and "uploadId" in query:
+                return ("api.UploadPartCopy"
+                        if "x-amz-copy-source" in headers
+                        else "api.UploadPart")
+            if "x-amz-copy-source" in headers:
+                return "api.CopyObject"
+            return "api.PutObject"
+        if method == "POST":
+            if "uploads" in query:
+                return "api.NewMultipartUpload"
+            if "uploadId" in query:
+                return "api.CompleteMultipartUpload"
+            return f"api.{method}Object"
+        if method == "DELETE":
+            return ("api.AbortMultipartUpload" if "uploadId" in query
+                    else "api.DeleteObject")
+        return f"api.{method}Object"
+    if method == "GET":
+        if "events" in query:
+            return "api.ListenNotification"
+        if "location" in query:
+            return "api.GetBucketLocation"
+        if "uploads" in query:
+            return "api.ListMultipartUploads"
+        if "versions" in query:
+            return "api.ListObjectVersions"
+        return "api.ListObjects"
+    if method == "HEAD":
+        return "api.HeadBucket"
+    if method == "PUT":
+        return "api.PutBucket" if not query else "api.PutBucketConfig"
+    if method == "DELETE":
+        return ("api.DeleteBucket" if not query
+                else "api.DeleteBucketConfig")
+    if method == "POST" and "delete" in query:
+        return "api.DeleteMultipleObjects"
+    return f"api.{method}Bucket"
 
 
 def notify_counters(notify) -> dict:
@@ -289,67 +218,6 @@ def notify_counters(notify) -> dict:
     c = _notify.stats()
     c["backlog"] = notify.backlog_depth() if notify is not None else 0
     return c
-
-
-def node_families(tier, worker_id: int | None = None,
-                  kernels: bool = False, qos_plane=None,
-                  cluster_node=None, notify=None) -> str:
-    """The hot tier's families (pool-wide: its counters live in shared
-    memory), the admission plane's (pool-wide too), this process's
-    zero-copy sends, metadata plane and notification targets (each
-    labelled with the worker in a pool), a cluster node's peer liveness
-    and RPC client counters and, with `kernels`, this process's kernel
-    launches and items."""
-    out: list[str] = []
-    if cluster_node is not None:
-        from ..rpc import rest
-        peers = cluster_node.peer_info()
-        _family(out, "mtpu_peer_online", "Peer node answering its RPC planes",
-                [({"peer": p["endpoint"]}, int(p["online"])) for p in peers])
-        _family(out, "mtpu_peer_transitions_total",
-                "Online/offline flips of the peer's RPC endpoint",
-                [({"peer": p["endpoint"]}, p["transitions"]) for p in peers])
-        rs = rest.stats()
-        _family(out, "mtpu_rpc_retries_total",
-                "Idempotent RPCs retried on a transient transport fault",
-                [({}, rs["retries"])])
-    if qos_plane is not None:
-        qos_families(out, qos_plane)
-    if tier is not None:
-        st = tier.stats()
-        for key, name, help_ in _HOT_FAMILIES:
-            _family(out, name, help_, [({}, st[key])])
-    lab = {} if worker_id is None else {"worker": worker_id}
-    mc = meta_counters()
-    for key, name, help_ in _META_FAMILIES:
-        v = mc[key]
-        _family(out, name, help_,
-                [(lab, round(v, 6) if isinstance(v, float) else v)])
-    nc = notify_counters(notify)
-    for key, name, help_ in NOTIFY_FAMILIES:
-        _family(out, name, help_, [(lab, nc[key])])
-    zs = zc.stats()
-    for key, help_ in (
-            ("sendmsg", "Responses sent by one gathered sendmsg"),
-            ("sendmsg_bytes", "Body bytes sent by gathered sendmsg"),
-            ("sendfile", "Responses sent by verified sendfile plans"),
-            ("sendfile_bytes", "Body bytes sent by sendfile"),
-            ("hot_views", "Hot-tier hits served as shared-arena views"),
-            ("hot_view_bytes", "Body bytes served as shared-arena views"),
-            ("fallbacks", "Verified plans sent through userspace")):
-        _family(out, f"mtpu_zerocopy_{key}_total", help_, [(lab, zs[key])])
-    if kernels:
-        from ..ops import erasure_cuda, fused, highwayhash_cuda, mxhash_torch
-        launches = {"gf_matmul": erasure_cuda.LAUNCHES,
-                    "hh256": highwayhash_cuda.LAUNCHES,
-                    "mxh256": mxhash_torch.LAUNCHES}
-        _family(out, "mtpu_kernel_launches_total",
-                "Kernel launches in this process",
-                [({"kernel": k}, v) for k, v in launches.items()])
-        _family(out, "mtpu_kernel_items_total",
-                "Kernel work items in this process",
-                [({"kernel": k}, v) for k, v in fused.ITEMS.items()])
-    return "\n".join(out) + "\n"
 
 
 class S3Server:
@@ -364,7 +232,8 @@ class S3Server:
     In the pre-fork pool (server/workers.py) each worker binds the
     shared port with `reuse_port`; `worker_plane` (a WorkerPlane) and
     `worker_id` let it count its requests, flag its drain and serve the
-    pool's Prometheus families at /minio/v2/metrics/node."""
+    pool's Prometheus families at /minio/v2/metrics/node, beside its own
+    registry's."""
 
     def __init__(self, pools: ServerPools | None, creds: Credentials,
                  host: str = "127.0.0.1", port: int = 0,
@@ -421,6 +290,20 @@ class S3Server:
         # worker draws on one cap.
         self.qos = _qos.get_plane()
         self._qos_bw_cache: dict = {}
+        # Observability (observe/): the registry (its kernel families
+        # only outside a pool, whose plane carries every process's), the
+        # HTTP tracer, the console log ring, the audit targets built from
+        # MTPU_AUDIT (a typo'd spec raises and refuses to serve: a silent
+        # fallback would lose the trail) and the SLO window's switch.
+        self.metrics = MetricsRegistry(kernels=worker_plane is None)
+        self.tracer = HTTPTracer()
+        self.log = Logger()
+        self.log_ring = RingTarget()
+        self.log.add_target(self.log_ring)
+        self.audit_targets: list = targets_from_env()
+        self.slo_enabled = os.environ.get("MTPU_SLO", "1") != "0"
+        self._trace_ring = None
+        self._profiler = None
         # Graceful drain (the cmd/signals.go role): once draining, new S3
         # requests bounce with 503 + Retry-After while inflight ones
         # finish, through the last byte of every streamed GET.
@@ -580,6 +463,14 @@ class S3Server:
                         path, self.request_id)
                     resp.headers["Retry-After"] = "1"
                     self.close_connection = True
+                    # Drain bounces never reach _handle_inner's audit
+                    # point, but the trail must still show them.
+                    outer._emit_audit(
+                        api=_api_name(self.command, path, {}, self.headers),
+                        method=self.command, path=path, status=503,
+                        error_code="ServiceUnavailable",
+                        source_ip=self.client_address[0],
+                        request_id=self.request_id)
                     try:
                         self._respond(resp)
                     except (BrokenPipeError, ConnectionResetError,
@@ -598,9 +489,11 @@ class S3Server:
                          "/minio/v2/metrics", "/minio/listen")):
                     klass = _qos.tenant_class(
                         _qos.peek_access_key(self.headers))
-                    verdict, _ = outer.qos.acquire(klass)
+                    verdict, waited = outer.qos.acquire(klass)
                     if verdict != "ok":
                         self.request_id = secrets.token_hex(8)
+                        api_name = _api_name(self.command, path, {},
+                                             self.headers)
                         resp = error_response(
                             S3Error("SlowDown",
                                     "server is at capacity; request "
@@ -608,6 +501,17 @@ class S3Server:
                             path, self.request_id)
                         resp.headers["Retry-After"] = "1"
                         self.close_connection = True
+                        # Sheds are their own SLO class (not errors) and
+                        # still leave an audit trail, like drain 503s.
+                        if outer.slo_enabled:
+                            outer.metrics.observe_api(api_name, waited,
+                                                      shed=True)
+                        outer._emit_audit(
+                            api=api_name, method=self.command, path=path,
+                            status=503, error_code="SlowDown",
+                            source_ip=self.client_address[0],
+                            request_id=self.request_id,
+                            duration_ms=waited * 1e3)
                         try:
                             self._respond(resp)
                         except (BrokenPipeError, ConnectionResetError,
@@ -632,12 +536,34 @@ class S3Server:
                 self.request_id = secrets.token_hex(8)
                 # The verified identity of THIS request (handler
                 # instances persist across keep-alive requests):
-                # _dispatch stamps it once authentication succeeds.
+                # _dispatch stamps it once authentication succeeds, and
+                # routing begins (a request refused before carries an
+                # empty access key and a null object in its audit entry).
                 self.qos_access_key = ""
+                self.audit_dispatched = False
                 parsed = urllib.parse.urlsplit(self.path)
                 path = urllib.parse.unquote(parsed.path)
                 query = urllib.parse.parse_qs(parsed.query,
                                               keep_blank_values=True)
+                t0 = time.perf_counter()
+                outer.metrics.inflight.inc(1)
+                # Per-request deadline budget (MTPU_RPC_DEADLINE_MS):
+                # armed here, consumed by every RPC this request fans out
+                # to (rpc/rest.py clamps each hop's timeout to the budget
+                # left; span.wrap_ctx carries it across pool threads).
+                dl_ms = _rest.request_deadline_ms()
+                dl_token = (_rest.set_deadline(dl_ms / 1000.0)
+                            if dl_ms > 0 else None)
+                # Root span: one per request, open through dispatch AND
+                # the response write (a streamed GET reads the engine
+                # inside _respond).  NOOP unless a trace ring or stream
+                # is on.
+                api_name = _api_name(self.command, path, query,
+                                     self.headers)
+                rspan = ospan.TRACER.root(api_name, method=self.command,
+                                          path=path)
+                rspan.__enter__()
+                err_code = None
                 try:
                     if outer.handlers is None and \
                             not path.startswith("/minio/health/"):
@@ -649,6 +575,7 @@ class S3Server:
                     else:
                         resp = outer._dispatch(self, path, query)
                 except S3Error as e:
+                    err_code = e.api.code
                     resp = error_response(e, path, self.request_id)
                     if e.api.code == "SlowDown":
                         # Throttle 503s (tenant/bucket token buckets)
@@ -660,12 +587,14 @@ class S3Server:
                 except streams.StreamError as e:
                     # Malformed or truncated request body: 400-class,
                     # not a handler crash.
+                    err_code = "IncompleteBody"
                     resp = error_response(
                         S3Error("IncompleteBody", str(e)), path,
                         self.request_id)
                     self.close_connection = True
                 except TimeoutError:
                     # Client stalled mid-body past the socket timeout.
+                    err_code = "RequestTimeout"
                     resp = error_response(
                         S3Error("RequestTimeout",
                                 "client read timed out mid-request"),
@@ -673,14 +602,38 @@ class S3Server:
                     self.close_connection = True
                 except (BrokenPipeError, ConnectionResetError):
                     # Client went away mid-body: nothing to tell them.
+                    err_code = "ClientDisconnected"
+                    resp = Response(499, b"")
                     self.close_connection = True
-                    return
                 except Exception as e:  # noqa: BLE001 — a handler crash
+                    outer.log.error(f"handler crash: {e}", path=path,
+                                    request_id=self.request_id)
+                    err_code = "InternalError"
                     resp = error_response(
                         S3Error("InternalError",
                                 f"{type(e).__name__}: {e}"),
                         path, self.request_id)
                     self.close_connection = True
+                finally:
+                    if dl_token is not None:
+                        _rest.clear_deadline(dl_token)
+                    outer.metrics.inflight.inc(-1)
+                dur = time.perf_counter() - t0
+                rx = int(self.headers.get("Content-Length", 0) or 0)
+                resp_size = (int(resp.headers.get("Content-Length", 0)
+                                 or 0)
+                             if resp.body_iter is not None
+                             or resp.body_file is not None
+                             else len(resp.body or b""))
+                # Only successful requests feed the bandwidth monitor:
+                # unauthenticated probes of made-up bucket names must
+                # not mint tracking state.
+                req_bucket = ("" if path.startswith("/minio/")
+                              else path.split("/", 2)[1]
+                              if path.count("/") >= 1 else "")
+                outer.metrics.observe_request(
+                    self.command, resp.status, dur, rx, resp_size,
+                    bucket=req_bucket if resp.status < 400 else "")
                 # Post-paid bandwidth accounting: tenant and bucket
                 # buckets run a bounded debt (a GET's size is unknown
                 # at admission), repaid before the next admit.  The
@@ -689,30 +642,58 @@ class S3Server:
                 # connection, finds it made.  Both charges short-circuit
                 # unless a rate is configured.
                 if _qos.qos_enabled() and resp.status < 400:
-                    resp_size = (int(resp.headers.get("Content-Length", 0)
-                                     or 0)
-                                 if resp.body_iter is not None
-                                 or resp.body_file is not None
-                                 else len(resp.body or b""))
-                    nbytes = resp_size + int(
-                        self.headers.get("Content-Length", 0) or 0)
+                    nbytes = resp_size + rx
                     ak = self.qos_access_key
                     if ak:
                         outer.qos.charge_tenant_bw(
                             ak, _qos.tenant_class(ak), nbytes)
-                    req_bucket = ("" if path.startswith("/minio/")
-                                  else path.split("/", 2)[1]
-                                  if path.count("/") >= 1 else "")
                     if req_bucket:
                         outer.qos.charge_bucket_bw(
                             req_bucket, outer._qos_bucket_rate(req_bucket),
                             nbytes)
+                outer.tracer.trace(
+                    method=self.command, path=path, status=resp.status,
+                    duration_ms=dur * 1e3, request_size=rx,
+                    response_size=resp_size,
+                    source_ip=self.client_address[0])
+                if outer.slo_enabled:
+                    outer.metrics.observe_api(api_name, dur,
+                                              error=resp.status >= 400,
+                                              nbytes=resp_size)
+                sb = "" if path.startswith("/minio/") else path.lstrip("/")
+                obj = sb.split("/", 1)[1] if "/" in sb else ""
+                rspan.tag(status=resp.status, bytes=resp_size,
+                          bucket=sb.split("/", 1)[0], object=obj,
+                          error=resp.status >= 400)
                 try:
-                    self._respond(resp)
+                    if resp.status != 499:
+                        self._respond(resp)
                 except (BrokenPipeError, ConnectionResetError,
                         TimeoutError):
                     self.close_connection = True
-                    return
+                finally:
+                    # Close the root span BEFORE building the audit
+                    # entry, so its per-stage timings (the child spans
+                    # flattened) cover the response write too.
+                    rspan.__exit__(None, None, None)
+                    if outer.audit_targets:
+                        stages = (ospan.flatten(rspan.to_dict())
+                                  if rspan is not ospan.NOOP else None)
+                        if (not self.audit_dispatched
+                                or err_code == "IncompleteBody"):
+                            # Rejected before (or during) routing: the
+                            # object was never resolved.
+                            obj = ""
+                        outer._emit_audit(
+                            api=api_name, method=self.command, path=path,
+                            status=resp.status, error_code=err_code,
+                            bucket=sb.split("/", 1)[0] or None,
+                            object_name=obj or None,
+                            access_key=self.qos_access_key,
+                            source_ip=self.client_address[0],
+                            request_id=self.request_id, rx=rx,
+                            tx=resp_size, duration_ms=dur * 1e3,
+                            stages=stages)
 
             do_GET = do_PUT = do_POST = do_DELETE = do_HEAD = _handle
 
@@ -797,6 +778,10 @@ class S3Server:
             self._thread.join(timeout=10)
         if self._own_notify:
             self.notify.close()
+        # Flush and stop the audit drain threads (file targets flush
+        # their tail on close).
+        for t in self.audit_targets:
+            t.close()
 
     def drain(self, timeout: float | None = None) -> dict:
         """Graceful drain (the cmd/signals.go handleSignals role): new S3
@@ -820,6 +805,7 @@ class S3Server:
                     break
                 self._drain_cv.wait(timeout=min(left, 0.25))
             leftover = self._inflight
+        DATA_PATH.record_drain(leftover, time.monotonic() - t0)
         if self.replication is not None:
             # Compact the intent journal, so the next boot replays a
             # checkpoint, not the tail (the pool itself is the boot's to
@@ -1158,25 +1144,11 @@ class S3Server:
             ok, detail = cluster_health(self.pools, maint)
             return Response(200 if ok else 503, json.dumps(detail).encode(),
                             {"Content-Type": "application/json"})
-        tier = getattr(self.pools, "hot_tier", None)
-        if path == "/minio/v2/metrics/node" and (
-                self.worker_plane is not None or tier is not None
-                or self.cluster_node is not None):
-            # The worker pool's families, the hot tier's, a cluster
-            # node's peers and this process's zero-copy sends (with its
-            # kernels' launches and items outside a pool, whose plane
-            # carries them); the registry's others wait for observe/
-            # (ROADMAP Queue A item 10).
-            text = (self.worker_plane.render_prom()
-                    if self.worker_plane is not None else "")
-            text += node_families(
-                tier, self.worker_id, kernels=self.worker_plane is None,
-                qos_plane=self.qos if _qos.qos_enabled() else None,
-                cluster_node=self.cluster_node, notify=self.notify)
-            return Response(200, text.encode(),
+        if path == "/minio/v2/metrics/node":
+            return Response(200, self.local_metrics_text().encode(),
                             {"Content-Type": "text/plain; version=0.0.4"})
-        if path.startswith("/minio/v2/metrics/"):
-            raise unported("metrics")
+        if path == "/minio/v2/metrics/cluster":
+            return self._cluster_metrics()
         raise S3Error("MethodNotAllowed")
 
     def _dispatch(self, req, path: str, query: dict) -> Response:
@@ -1185,9 +1157,10 @@ class S3Server:
                                                             query)
         else:
             body, access_key = self._authenticate(req, path, query)
-        # Auth succeeded: the bandwidth charge after the response goes
-        # to this identity.
+        # Auth succeeded and routing begins: the bandwidth charge after
+        # the response and the audit entry go to this identity.
         req.qos_access_key = access_key
+        req.audit_dispatched = True
         method = req.command
         headers = {k: v for k, v in req.headers.items()}
         if not self._may_replicate(access_key):
@@ -1491,11 +1464,14 @@ class S3Server:
 
     def _dispatch_admin(self, access_key: str, method: str, path: str,
                         query: dict, body: bytes) -> Response:
-        """The admin API's IAM endpoints (cf.
-        cmd/admin-handlers-users.go); every other endpoint answers
-        NotImplemented (item 10)."""
+        """The admin API (cf. registerAdminRouter,
+        cmd/admin-router.go:40); an endpoint it does not know answers
+        MethodNotAllowed."""
         sub = path[len("/minio/admin/v1/"):].strip("/")
         self._admin_authorize(access_key, sub, method)
+        obs = self._admin_observe(sub, method, query)
+        if obs is not None:
+            return obs
         if sub == "heal":
             return self._admin_heal(method, query)
         if sub == "info" and method == "GET":
@@ -1530,8 +1506,14 @@ class S3Server:
                    "service-accounts": self._admin_service_accounts,
                    "policies": self._admin_policies,
                    "groups": self._admin_groups}.get(sub)
+        if sub == "service":
+            # The service action of a single-node server, which the JAX
+            # server drains and stops itself for, waits (ROADMAP.md).
+            raise unported("the admin API's service action on a single "
+                           "node", "10.5")
         if handler is None:
-            raise unported(f"the admin API's {sub or 'root'} endpoint")
+            raise S3Error("MethodNotAllowed",
+                          f"unknown admin endpoint {sub!r}")
         if self.iam is None:
             return _json({"error": "IAM not enabled"}, 501)
         def arg(name: str) -> str:
@@ -1542,6 +1524,393 @@ class S3Server:
             raise S3Error("MethodNotAllowed",
                           f"unknown admin endpoint {sub!r}")
         return resp
+
+    def _admin_observe(self, sub: str, method: str,
+                       query: dict) -> Response | None:
+        """The observability endpoints of the admin API (cf.
+        cmd/admin-handlers.go TraceHandler, TopAPIs, ConsoleLog,
+        HealthInfo, the Prometheus cluster scrape, StartProfiling /
+        DownloadProfiling, InspectData and BandwidthMonitor); None for
+        any other endpoint."""
+        if sub == "metrics/cluster" and method == "GET":
+            return self._cluster_metrics()
+        if sub == "healthinfo" and method == "GET":
+            results, node_up = self._obs_fanout("healthinfo")
+            return _json({"nodes": results, "node_up": node_up})
+        if sub == "trace" and method == "GET":
+            # The HTTP tracer's records since the last GET (the ring
+            # subscribes on the first one).
+            if self._trace_ring is None:
+                self._trace_ring = self.tracer.pubsub.subscribe(2000)
+            items = list(self._trace_ring)
+            self._trace_ring.clear()
+            return _json({"trace": items})
+        if sub == "trace" and method == "POST":
+            # Live span-trace stream: chunked NDJSON of completed request
+            # span trees off the span PubSub, filtered server-side.
+            # `duration` (seconds) bounds the stream for polling clients;
+            # without it the stream runs until the client hangs up.
+            flat = {k: v[0] if v else "" for k, v in query.items()}
+            filt = ospan.TraceFilter.from_query(flat)
+            try:
+                max_s = float(flat.get("duration", 0) or 0)
+            except ValueError:
+                max_s = 0.0
+            return Response(
+                200, b"", {"Content-Type": "application/x-ndjson",
+                           "Transfer-Encoding": "chunked"},
+                body_iter=self._span_stream(filt, max_s))
+        if sub == "top/apis" and method == "GET":
+            return _json(ospan.TRACER.snapshot())
+        if sub == "console" and method == "GET":
+            n = int(query.get("n", ["100"])[0] or 100)
+            return _json({"log": self.log_ring.tail(n)})
+        if sub == "profile":
+            return self._admin_profile(method, query)
+        if sub.startswith("inspect") and method == "GET":
+            return self._admin_inspect(query)
+        if sub == "bandwidth" and method == "GET":
+            # Per-bucket bandwidth over a sliding window.
+            want = query.get("buckets", [""])[0]
+            buckets = [b for b in want.split(",") if b] or None
+            return _json({"windowS": self.metrics.bandwidth.WINDOW,
+                          "buckets": self.metrics.bandwidth.report(buckets)})
+        return None
+
+    def _cluster_metrics(self) -> Response:
+        """The fleet scrape (cmd/metrics-v2.go's cluster collection over
+        the peer clients), served at /minio/v2/metrics/cluster as MinIO
+        serves it, and at the admin `metrics/cluster` as the JAX server
+        does: this node's render and every peer's under the deadline
+        budget, merged into one exposition whose samples carry a `node`
+        label; mtpu_node_up marks which nodes answered, so a dead peer
+        is 0, never a hung scrape."""
+        results, node_up = self._obs_fanout("metrics_text")
+        text = merge_prom(sorted(results.items()))
+        up = ["# HELP mtpu_node_up Node answered the cluster scrape "
+              "within the deadline budget", "# TYPE mtpu_node_up gauge"]
+        up += [f'mtpu_node_up{{node="{n}"}} {v}'
+               for n, v in sorted(node_up.items())]
+        text += "\n".join(up) + "\n"
+        return Response(200, text.encode(),
+                        {"Content-Type": "text/plain; version=0.0.4"})
+
+    def _admin_profile(self, method: str, query: dict) -> Response:
+        """cProfile in place of pprof (cf. StartProfilingHandler and
+        DownloadProfilingHandler, cmd/admin-handlers.go:491,599): POST
+        starts it, GET stops it and answers the report.  In a cluster
+        the start fans out to every peer and the download collects every
+        node's report into one zip."""
+        import cProfile
+        import io
+        import pstats
+        peers = (self.cluster_node.notification
+                 if self.cluster_node is not None else None)
+        if method == "POST":
+            started = 0
+            if self._profiler is None:
+                self._profiler = cProfile.Profile()
+                self._profiler.enable()
+                started = 1
+            peer_started = 0
+            if peers is not None:
+                res = peers._fan_out("peer.profile_start", {})
+                peer_started = sum(1 for r, e in res if e is None and r)
+            if started or peer_started:
+                return _json({"profiling": "started",
+                              "nodes": started + peer_started})
+            return _json({"profiling": "already running"}, 409)
+        if method != "GET":
+            raise S3Error("MethodNotAllowed")
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return _json({"error": "profiling not running"}, 404)
+        prof.disable()
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats(
+            "cumulative").print_stats(50)
+        local_text = buf.getvalue()
+        if query.get("format", [""])[0] != "zip" and peers is None:
+            return Response(200, local_text.encode(),
+                            {"Content-Type": "text/plain"})
+        import zipfile
+        blob = io.BytesIO()
+        with zipfile.ZipFile(blob, "w", zipfile.ZIP_DEFLATED) as z:
+            z.writestr("profile-local.txt", local_text)
+            if peers is not None:
+                for cli, (r, e) in zip(
+                        peers.peers, peers._fan_out("peer.profile_dump",
+                                                    {})):
+                    name = f"profile-{cli.host}-{cli.port}.txt"
+                    if e is not None:
+                        z.writestr(name + ".error", str(e))
+                    elif r and r.get("text"):
+                        z.writestr(name, r["text"])
+        return Response(200, blob.getvalue(),
+                        {"Content-Type": "application/zip"})
+
+    def _admin_inspect(self, query: dict) -> Response:
+        """Every drive's raw xl.meta of one object, hex (cf.
+        InspectDataHandler, cmd/admin-handlers.go)."""
+        bucket = query.get("volume", query.get("bucket", [""]))[0]
+        obj = query.get("file", query.get("object", [""]))[0]
+        if not bucket or not obj:
+            raise S3Error("InvalidArgument", "volume and file required")
+        copies = []
+        for pi, pool in enumerate(self.pools.pools):
+            for si, es in enumerate(getattr(pool, "sets", [pool])):
+                for di, d in enumerate(getattr(es, "drives", [])):
+                    if d is None:
+                        continue
+                    try:
+                        raw = d.read_all(bucket, f"{obj}/xl.meta")
+                    except Exception:  # noqa: BLE001 — a missing copy
+                        continue
+                    copies.append({"pool": pi, "set": si, "drive": di,
+                                   "endpoint": getattr(d, "root", ""),
+                                   "xl_meta_hex": raw.hex()})
+        if not copies:
+            return _json({"error": "no xl.meta found"}, 404)
+        return _json({"volume": bucket, "file": obj, "copies": copies})
+
+    def _span_stream(self, filt, max_s: float, poll: float = 0.05):
+        """The generator behind POST trace: drain the span PubSub, apply
+        the filters, frame as NDJSON.  Subscribing is what turns tracing
+        on: requests that arrive while a stream is open get span trees."""
+        q = ospan.TRACER.subscribe(2000)
+        try:
+            deadline = (time.monotonic() + max_s) if max_s > 0 else None
+            last = time.monotonic()
+            while deadline is None or time.monotonic() < deadline:
+                sent = False
+                while q:
+                    rec = q.popleft()
+                    if filt.matches(rec):
+                        yield json.dumps(rec).encode() + b"\n"
+                        sent = True
+                now = time.monotonic()
+                if sent:
+                    last = now
+                elif now - last > 5.0:
+                    # Keepalive blank line: NDJSON consumers skip it, and
+                    # the write is how a client hangup is noticed.
+                    yield b"\n"
+                    last = now
+                time.sleep(poll)
+        finally:
+            ospan.TRACER.unsubscribe(q)
+
+    # -- observability plane (audit fan-out, node snapshots, fleet merge) ----
+
+    def _emit_audit(self, **kw) -> None:
+        """Build one structured audit entry and fan it to every target.
+        Never blocks and never raises into the request path: targets
+        shed to their drop counters."""
+        if not self.audit_targets:
+            return
+        entry = build_entry(node=f"{self.host}:{self.port}",
+                            worker=self.worker_id, **kw)
+        for t in self.audit_targets:
+            try:
+                t.send(entry)
+            except Exception:  # noqa: BLE001 — a sink bug can't 500 a request
+                pass
+        if self.worker_plane is not None and self.worker_id is not None:
+            # This worker's shed count into the shared slab, so any
+            # worker's scrape shows the pool's drops.
+            self.worker_plane.state.set_audit_dropped(
+                self.worker_id, sum(t.dropped for t in self.audit_targets))
+
+    def local_metrics_text(self) -> str:
+        """THIS node's whole Prometheus render: the body of
+        /minio/v2/metrics/node and of the peer.metrics_text verb the
+        cluster scrape fans out to.  Every number is a read of counters
+        other planes keep; no device state is touched and no dispatcher
+        lock is taken.  In a pool the pool's families follow (the slabs
+        are shared, so whichever worker answers exports the pool's
+        view)."""
+        # A cold remote-drive capacity read against a blackholed peer
+        # would pay an RPC timeout per drive: a short ambient deadline
+        # turns that into a bounded sub-second fail-fast.
+        left = _rest.deadline_remaining()
+        tok = _rest.set_deadline(1.0 if left is None else min(1.0, left))
+        try:
+            if self.pools is not None:
+                self.metrics.update_cluster(self.pools, self.scanner,
+                                            self.tier_mgr)
+            if self.cluster_node is not None:
+                self.metrics.update_peers(
+                    self.cluster_node.peer_clients.values())
+        finally:
+            _rest.clear_deadline(tok)
+        self.metrics.update_audit(self.audit_targets)
+        self.metrics.update_qos(self.qos if _qos.qos_enabled() else None)
+        self.metrics.update_replication(self.replication)
+        self.metrics.update_notify(notify_counters(self.notify))
+        text = self.metrics.render()
+        if self.worker_plane is not None:
+            text += self.worker_plane.render_prom()
+        return text
+
+    def local_healthinfo(self) -> dict:
+        """One node's health document (the cmd/admin-handlers.go
+        HealthInfo role): drive and breaker states, peer liveness, pool
+        and drain status, MRF backlog, the card's coalescer lanes and
+        their totals, the device shard cache and the host->device
+        ledger, drain state, the worker slab, audit sink health: all
+        read from state other planes keep, msgpack- and JSON-safe for
+        the peer fan-out."""
+        from ..ops import coalesce as _co
+        from ..ops import devcache as _devcache
+        drives: list[dict] = []
+        pool_rows: list = []
+        mrf_rows: list[dict] = []
+        if self.pools is not None:
+            seen_mrf: set[int] = set()
+            for pi, pool in enumerate(self.pools.pools):
+                for si, es in enumerate(getattr(pool, "sets", None)
+                                        or [pool]):
+                    for di, d in enumerate(getattr(es, "drives", [])):
+                        if d is None:
+                            state = "offline"
+                        elif hasattr(d, "health_state"):
+                            state = d.health_state()
+                        elif (hasattr(d, "is_online")
+                                and not d.is_online()):
+                            state = "offline"
+                        else:
+                            state = "ok"
+                        drives.append({"pool": pi, "set": si, "drive": di,
+                                       "state": state})
+                    mrf = getattr(es, "mrf", None)
+                    if mrf is not None and id(mrf) not in seen_mrf:
+                        seen_mrf.add(id(mrf))
+                        mrf_rows.append({"pool": pi, "set": si,
+                                         **mrf.stats()})
+            left = _rest.deadline_remaining()
+            tok = _rest.set_deadline(1.0 if left is None
+                                     else min(1.0, left))
+            try:
+                pool_rows = self.pools.pool_status()
+            except Exception:  # noqa: BLE001 — status is best-effort
+                pool_rows = []
+            finally:
+                _rest.clear_deadline(tok)
+        # The card's lanes: this process's coalescer (a pool worker's
+        # own, beside its front end to the owner), by card index.
+        remote = _co._REMOTE
+        co = remote.local if remote is not None else _co._CO
+        lanes: dict = {}
+        coalescer: dict = {"co_fallbacks": _co.stats()["co_fallbacks"],
+                           "co_faults": _co.stats()["co_faults"]}
+        if co is not None:
+            cst = co.stats()
+            lanes = {name: {k: v for k, v in row.items()}
+                     for name, row in cst["lanes"].items()}
+            coalescer.update({
+                "co_dispatches": cst["dispatches"],
+                "co_items": cst["items"], "co_weight": cst["weight"],
+                "co_wait_s": cst["wait_s"],
+                "co_occupancy": cst["occupancy"],
+                "co_batch_faults": cst["batch_faults"],
+                "co_member_retries": cst["member_retries"]})
+        h2d = _devcache.h2d_stats()
+        peers = (self.cluster_node.peer_info()
+                 if self.cluster_node is not None else [])
+        workers = ({"owner": self.worker_plane.state.owner_info(),
+                    "workers": self.worker_plane.state.worker_rows()}
+                   if self.worker_plane is not None else None)
+        tier = getattr(self.pools, "hot_tier", None)
+        return {
+            "endpoint": f"{self.host}:{self.port}",
+            "time": round(time.time(), 3),
+            "draining": bool(self.draining),
+            "inflight": int(self._inflight),
+            "drives": drives,
+            "pools": pool_rows,
+            "mrf": mrf_rows,
+            "peers": peers,
+            "device_lanes": lanes,
+            # The port has no native digest lanes (the JAX package's
+            # multi-buffer MD5 and batched SHA-256).
+            "digest": {},
+            "coalescer": coalescer,
+            "workers": workers,
+            "hotcache": tier.stats() if tier is not None else None,
+            "devcache": _devcache.stats(),
+            "h2d": {"bytes": h2d["h2d_bytes"],
+                    "dispatches": h2d["h2d_dispatches"],
+                    "lanes": {str(k): v for k, v in h2d["lanes"].items()}},
+            "ilm": (self.tier_mgr.stats()
+                    if self.tier_mgr is not None else None),
+            "replication": (self.replication.stats()
+                            if self.replication is not None else None),
+            "audit": [t.stats() for t in self.audit_targets],
+            "slo": (self.metrics.last_minute.snapshot()
+                    if self.slo_enabled else {}),
+            "qos": (self.qos.stats() if _qos.qos_enabled()
+                    else {"enabled": False}),
+        }
+
+    def _obs_fanout(self, verb: str) -> tuple[dict, dict]:
+        """Run one observability verb (peer.metrics_text or
+        peer.healthinfo) against every peer under one wall-clock budget
+        (MTPU_OBS_DEADLINE_MS, default 8000).  Breaker-aware: an offline
+        peer is node_up 0 at once (no dial); a hung one costs at most
+        the budget left, so the aggregate never hangs.  Returns
+        ({node: payload}, {node: 0|1}), this node included."""
+        from concurrent.futures import ThreadPoolExecutor
+        me = f"{self.host}:{self.port}"
+        local = (self.local_metrics_text() if verb == "metrics_text"
+                 else self.local_healthinfo())
+        results: dict = {me: local}
+        node_up: dict = {me: 1}
+        node = self.cluster_node
+        if node is None or not node.peer_clients:
+            return results, node_up
+        try:
+            budget_s = float(os.environ.get("MTPU_OBS_DEADLINE_MS",
+                                            "8000") or 8000) / 1e3
+        except ValueError:
+            budget_s = 8.0
+        deadline = time.monotonic() + budget_s
+        key = "text" if verb == "metrics_text" else "info"
+
+        def one(cli):
+            if not cli.is_online():
+                return None          # breaker open: fast-fail, no dial
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return None
+            # The RPC deadline in THIS thread, so rpc/rest.py clamps the
+            # hop's timeout to the budget left.
+            tok = _rest.set_deadline(left)
+            try:
+                out = cli.call(f"peer.{verb}", {}, idempotent=True)
+                return out.get(key) if isinstance(out, dict) else None
+            except Exception:  # noqa: BLE001 — a dead peer is node_up 0
+                return None
+            finally:
+                _rest.clear_deadline(tok)
+
+        peers = [(f"{h}:{p}", cli)
+                 for (h, p), cli in node.peer_clients.items()]
+        # No context manager: shutdown(wait=False) below; waiting for a
+        # hung future would defeat the budget.
+        ex = ThreadPoolExecutor(max_workers=len(peers),
+                                thread_name_prefix="obs-fanout")
+        futs = [(name, ex.submit(one, cli)) for name, cli in peers]
+        for name, fut in futs:
+            try:
+                out = fut.result(
+                    timeout=max(0.0, deadline - time.monotonic()))
+            except Exception:  # noqa: BLE001 — budget exhausted
+                out = None
+            node_up[name] = 0 if out is None else 1
+            if out is not None:
+                results[name] = out
+        ex.shutdown(wait=False)
+        return results, node_up
 
     def _admin_kms(self, sub: str, method: str, query: dict) -> Response:
         """The KMS admin API (cf. the KMSCreateKey and KMSKeyStatus

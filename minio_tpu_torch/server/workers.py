@@ -157,7 +157,8 @@ _GHDR = len(_G)
 #: per-worker slab
 _W = {name: i for i, name in enumerate((
     "pid", "beat_ns", "ready", "draining", "respawns", "requests",
-    "inflight", "ipc_fallbacks", "co_fallbacks", "remote_submits", "cuda",
+    "inflight", "audit_dropped", "ipc_fallbacks", "co_fallbacks",
+    "remote_submits", "cuda",
     "hotcache_hits", "hotcache_misses", "config_gen", "config_writes",
     "topology_gen",
     *(f"notify_{k}" for k in NOTIFY_COUNTERS),
@@ -357,6 +358,11 @@ class SharedState:
     def note_request(self, idx: int) -> None:
         self._a[self._w(idx) + _W["requests"]] += 1
 
+    def set_audit_dropped(self, idx: int, n: int) -> None:
+        """Worker `idx`'s audit entries shed so far (observe/audit.py):
+        the pool's scrape sums every worker's."""
+        self._a[self._w(idx) + _W["audit_dropped"]] = int(n)
+
     def note_hotcache(self, idx: int, hit: bool) -> None:
         """This worker's hot-tier hit or miss: the tier is shared, so the
         per-worker counts are what shows worker B hitting worker A's
@@ -458,6 +464,9 @@ class WorkerPlane:
                    "HTTP requests handled by this worker", "requests")
         per_worker("mtpu_worker_inflight_requests",
                    "Requests currently inflight in this worker", "inflight")
+        per_worker("mtpu_worker_audit_dropped_total",
+                   "Audit entries shed by this worker's targets",
+                   "audit_dropped")
         per_worker("mtpu_worker_remote_submits_total",
                    "Items this worker sent to the device owner",
                    "remote_submits")

@@ -22,6 +22,7 @@ import os
 
 import numpy as np
 
+from ..observe import span as ospan
 from .errors import ErrFileCorrupt
 
 # Digest size of every algorithm an object may record (cf. cmd/bitrot.go:39).
@@ -62,9 +63,10 @@ def host_hash_batch(blocks: np.ndarray, algo: str) -> np.ndarray:
         raise ValueError(f"bitrot algorithm {algo!r} has no host route")
     blocks = np.ascontiguousarray(blocks)
     out = np.empty((blocks.shape[0], DIGEST_SIZES[algo]), dtype=np.uint8)
-    for i in range(blocks.shape[0]):
-        out[i] = np.frombuffer(hashlib.new(name, blocks[i]).digest(),
-                               dtype=np.uint8)
+    with ospan.span("host.hash_batch"):
+        for i in range(blocks.shape[0]):
+            out[i] = np.frombuffer(hashlib.new(name, blocks[i]).digest(),
+                                   dtype=np.uint8)
     return out
 
 

@@ -54,7 +54,7 @@ import zlib
 
 import numpy as np
 
-from . import bitrot_io, diskio, xlmeta_v1
+from . import bitrot_io, diskio, oscounters, xlmeta_v1
 from .errors import (ErrDiskNotFound, ErrFileAccessDenied, ErrFileCorrupt,
                      ErrFileNotFound, ErrFileVersionNotFound,
                      ErrIsNotRegular, ErrPathNotFound, ErrVolumeExists,
@@ -90,7 +90,8 @@ _STATS = {"vectored_writes": 0, "vectored_write_bytes": 0,
 
 def stats() -> dict:
     """The vectored writes and xl.meta publishes of every drive in the
-    process (the JAX package records them into DATA_PATH): publishes
+    process, which the metrics registry (observe/metrics.py) renders as
+    its mtpu_zerocopy_vectored_* and mtpu_meta_* families: publishes
     and the syncs paying for them (one fsync each for a solo
     write_metadata; for a whole group commit two, the journal's fsync
     and the drive's sync), group commits, the
@@ -130,6 +131,10 @@ class LocalDrive:
             os.makedirs(self.root, exist_ok=True)
         elif not os.path.isdir(self.root):
             raise ErrDiskNotFound(root)
+        # Per-drive syscall counts and times (disk_info()["os"]); inside
+        # a traced request each timed call is also a per-drive I/O span
+        # ("drive.read", ...), as in the JAX package.
+        self._osc = oscounters.Counters(drive=os.path.basename(self.root))
         self.init_sys_volume()
         self._meta_lock = threading.Lock()
         # This drive's id in the deployment's format.json (set when the
@@ -154,7 +159,9 @@ class LocalDrive:
 
     def _check_vol(self, vol: str) -> str:
         p = self._vol_path(vol)
-        if not os.path.isdir(p):
+        with self._osc.timed("stat"):
+            isdir = os.path.isdir(p)
+        if not isdir:
             raise ErrVolumeNotFound(vol)
         return p
 
@@ -163,12 +170,14 @@ class LocalDrive:
         chain is missing so a deleted bucket is never recreated."""
         d = os.path.dirname(p)
         try:
-            os.mkdir(d)
+            with self._osc.timed("mkdir"):
+                os.mkdir(d)
         except FileExistsError:
             pass
         except FileNotFoundError:
             self._check_vol(vol)
-            os.makedirs(d, exist_ok=True)
+            with self._osc.timed("mkdir"):
+                os.makedirs(d, exist_ok=True)
 
     # -- volume ops ----------------------------------------------------------
 
@@ -182,20 +191,27 @@ class LocalDrive:
 
     def make_volume(self, vol: str) -> None:
         p = self._vol_path(vol)
-        if os.path.isdir(p):
+        with self._osc.timed("stat"):
+            exists = os.path.isdir(p)
+        if exists:
             raise ErrVolumeExists(vol)
-        os.makedirs(p)
+        with self._osc.timed("mkdir"):
+            os.makedirs(p)
 
     def list_volumes(self) -> list[str]:
         """The drive's volumes (buckets), sorted; the system volume and
         other dot-names are not volumes."""
-        return [name for name in sorted(os.listdir(self.root))
+        with self._osc.timed("listdir"):
+            names = sorted(os.listdir(self.root))
+        return [name for name in names
                 if not name.startswith(".")
                 and os.path.isdir(os.path.join(self.root, name))]
 
     def stat_volume(self, vol: str) -> dict:
         p = self._check_vol(vol)
-        return {"name": vol, "created_ns": int(os.stat(p).st_mtime_ns)}
+        with self._osc.timed("stat"):
+            st = os.stat(p)
+        return {"name": vol, "created_ns": int(st.st_mtime_ns)}
 
     def delete_volume(self, vol: str, force: bool = False) -> None:
         """Remove a volume: an empty one, or with `force` whatever it
@@ -218,7 +234,8 @@ class LocalDrive:
         return {"total": st.f_blocks * st.f_frsize,
                 "free": st.f_bavail * st.f_frsize,
                 "used": (st.f_blocks - st.f_bfree) * st.f_frsize,
-                "endpoint": self.root, "id": self.disk_id, "online": True}
+                "endpoint": self.root, "id": self.disk_id, "online": True,
+                "os": self._osc.snapshot()}
 
     # -- small files ---------------------------------------------------------
 
@@ -229,16 +246,18 @@ class LocalDrive:
         self._ensure_parent_in_vol(vol, p)
         tmp = os.path.join(self.root, SYS_VOL, TMP_DIR,
                            f"wa-{uuid.uuid4().hex}")
-        with open(tmp, "wb") as f:
-            f.write(data)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, p)
+        with self._osc.timed("write"):
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+        with self._osc.timed("rename"):
+            os.replace(tmp, p)
 
     def read_all(self, vol: str, path: str) -> bytes:
         p = self._file_path(vol, path)
         try:
-            with open(p, "rb") as f:
+            with self._osc.timed("read"), open(p, "rb") as f:
                 return f.read()
         except (FileNotFoundError, IsADirectoryError):
             raise ErrFileNotFound(f"{vol}/{path}") from None
@@ -246,15 +265,17 @@ class LocalDrive:
             raise ErrFileAccessDenied(f"{vol}/{path}") from None
 
     def delete(self, vol: str, path: str, recursive: bool = False) -> None:
-        p = self._file_path(vol, path)
-        if not os.path.exists(p):
-            raise ErrFileNotFound(f"{vol}/{path}")
-        if os.path.isdir(p):
-            if not recursive:
-                raise ErrFileAccessDenied(f"{vol}/{path} is a directory")
-            self._move_to_trash(p)
-        else:
-            os.remove(p)
+        with self._osc.timed("delete"):
+            p = self._file_path(vol, path)
+            if not os.path.exists(p):
+                raise ErrFileNotFound(f"{vol}/{path}")
+            if os.path.isdir(p):
+                if not recursive:
+                    raise ErrFileAccessDenied(
+                        f"{vol}/{path} is a directory")
+                self._move_to_trash(p)
+            else:
+                os.remove(p)
 
     # -- shard files ---------------------------------------------------------
 
@@ -265,7 +286,7 @@ class LocalDrive:
         p = self._file_path(vol, path)
         self._ensure_parent_in_vol(vol, p)
         buf = memoryview(data).cast("B")
-        with open(p, "ab") as f:
+        with self._osc.timed("write"), open(p, "ab") as f:
             f.write(buf)
             f.flush()
             diskio.write_done(f.fileno(), len(buf))
@@ -278,7 +299,7 @@ class LocalDrive:
         p = self._file_path(vol, path)
         self._ensure_parent_in_vol(vol, p)
         buf = memoryview(data).cast("B")
-        with open(p, "wb") as f:
+        with self._osc.timed("write"), open(p, "wb") as f:
             f.write(buf)
             f.flush()
             if not diskio.write_done(f.fileno(), len(buf)):
@@ -299,6 +320,15 @@ class LocalDrive:
         iov = [v for v in (memoryview(b).cast("B") for b in batches)
                if len(v)]
         total = sum(len(v) for v in iov)
+        with self._osc.timed("write"):
+            self._write_vectored(p, iov, total)
+        with _STATS_MU:
+            _STATS["vectored_writes"] += 1
+            _STATS["vectored_write_bytes"] += total
+
+    @staticmethod
+    def _write_vectored(p: str, iov: list, total: int) -> None:
+        """write_file_batches' open + pwritev sequence."""
         fd = os.open(p, os.O_WRONLY | os.O_CREAT, 0o644)
         try:
             pos = os.fstat(fd).st_size
@@ -349,15 +379,13 @@ class LocalDrive:
             diskio.write_done(fd, total)
         finally:
             os.close(fd)
-        with _STATS_MU:
-            _STATS["vectored_writes"] += 1
-            _STATS["vectored_write_bytes"] += total
 
     def read_file(self, vol: str, path: str, offset: int = 0,
                   length: int = -1) -> bytes:
         p = self._file_path(vol, path)
         try:
-            return diskio.read_range(p, offset, length)
+            with self._osc.timed("read"):
+                return diskio.read_range(p, offset, length)
         except FileNotFoundError:
             raise ErrFileNotFound(f"{vol}/{path}") from None
         except IsADirectoryError:
@@ -374,7 +402,8 @@ class LocalDrive:
         the pooled fetch, an EIO an error and not a SIGBUS)."""
         p = self._file_path(vol, path)
         try:
-            return diskio.read_range_view(p, offset, length)
+            with self._osc.timed("read"):
+                return diskio.read_range_view(p, offset, length)
         except FileNotFoundError:
             raise ErrFileNotFound(f"{vol}/{path}") from None
         except IsADirectoryError:
@@ -386,7 +415,8 @@ class LocalDrive:
         racing delete only unlinks the name).  The caller closes it."""
         p = self._file_path(vol, path)
         try:
-            return os.open(p, os.O_RDONLY)
+            with self._osc.timed("read"):
+                return os.open(p, os.O_RDONLY)
         except FileNotFoundError:
             raise ErrFileNotFound(f"{vol}/{path}") from None
         except IsADirectoryError:
@@ -400,12 +430,14 @@ class LocalDrive:
         if not os.path.isfile(src):
             raise ErrFileNotFound(f"{src_vol}/{src_path}")
         self._ensure_parent_in_vol(dst_vol, dst)
-        os.replace(src, dst)
+        with self._osc.timed("rename"):
+            os.replace(src, dst)
 
     def file_size(self, vol: str, path: str) -> int:
         p = self._file_path(vol, path)
         try:
-            st = os.stat(p)
+            with self._osc.timed("stat"):
+                st = os.stat(p)
         except FileNotFoundError:
             raise ErrFileNotFound(f"{vol}/{path}") from None
         if not os.path.isfile(p):
@@ -420,7 +452,8 @@ class LocalDrive:
         self._check_vol(vol)
         p = self._file_path(vol, path) if path else self._vol_path(vol)
         try:
-            return sorted(os.listdir(p))
+            with self._osc.timed("listdir"):
+                return sorted(os.listdir(p))
         except (FileNotFoundError, NotADirectoryError):
             raise ErrPathNotFound(f"{vol}/{path}") from None
 
@@ -430,7 +463,8 @@ class LocalDrive:
         self._check_vol(vol)
         p = self._file_path(vol, path) if path else self._vol_path(vol)
         try:
-            names = sorted(os.listdir(p))
+            with self._osc.timed("listdir"):
+                names = sorted(os.listdir(p))
         except (FileNotFoundError, NotADirectoryError):
             raise ErrPathNotFound(f"{vol}/{path}") from None
         out = []
@@ -587,7 +621,7 @@ class LocalDrive:
             # no tmp+rename (a torn write fails the integrity checksum).
             p = self._file_path(vol, os.path.join(obj, XL_META_FILE))
             self._ensure_parent_in_vol(vol, p)
-            with open(p, "wb") as f:
+            with self._osc.timed("write"), open(p, "wb") as f:
                 f.write(meta.to_bytes())
             return
         self.write_all(vol, os.path.join(obj, XL_META_FILE), meta.to_bytes())
@@ -685,7 +719,7 @@ class LocalDrive:
                 self._journal_dir(),
                 f"seg-{time.time_ns():020d}-{os.getpid()}-"
                 f"{uuid.uuid4().hex}")
-            with open(seg, "wb") as f:
+            with self._osc.timed("write"), open(seg, "wb") as f:
                 f.write(_SEG_MAGIC)
                 f.write(zlib.crc32(payload).to_bytes(4, "big"))
                 f.write(payload)
@@ -715,9 +749,10 @@ class LocalDrive:
         self._ensure_parent_in_vol(vol, p)
         tmp = os.path.join(self.root, SYS_VOL, TMP_DIR,
                            f"mj-{uuid.uuid4().hex}")
-        with open(tmp, "wb") as f:
+        with self._osc.timed("write"), open(tmp, "wb") as f:
             f.write(blob)
-        os.replace(tmp, p)
+        with self._osc.timed("rename"):
+            os.replace(tmp, p)
 
     @staticmethod
     def _segment_entries(path: str) -> list:
@@ -908,7 +943,8 @@ class LocalDrive:
                 self._ensure_parent_in_vol(dst_vol, dst)
                 if os.path.isdir(dst):
                     self._move_to_trash(dst)
-                os.replace(src, dst)
+                with self._osc.timed("rename"):
+                    os.replace(src, dst)
             meta.add_version(fi)
             self._write_xlmeta(dst_vol, dst_obj, meta, new=fresh)
             if old_dd:
@@ -968,7 +1004,8 @@ class LocalDrive:
         trash = os.path.join(self.root, SYS_VOL, TMP_DIR,
                              f"trash-{uuid.uuid4().hex}")
         try:
-            os.replace(path, trash)
+            with self._osc.timed("rename"):
+                os.replace(path, trash)
         except FileNotFoundError:
             return
         shutil.rmtree(trash, ignore_errors=True)

@@ -21,8 +21,8 @@ drive and land in the MRF queue, and nothing waits multi-second I/O
 timeouts on hardware already known dead.  A daemon prober re-checks the
 raw drive on a jittered interval and closes the circuit when it answers;
 `close()` stops it (the boot's drain calls it).  The module's `stats()`
-counts the state transitions (the JAX package records them into
-DATA_PATH).
+counts the state transitions, which the metrics registry
+(observe/metrics.py) renders as mtpu_drive_state_transitions_total.
 
 Env knobs (read per call so tests flip them without rebuilding):
   MTPU_BREAKER=0              disable (passive-stats-only oracle mode)

@@ -10,8 +10,8 @@ segments a kill left (replayed in commit order, never over a newer
 xl.meta).  The per-drive mechanics live in
 `LocalDrive.sweep_stale`; this module fans the sweep across a drive
 list (health wrappers pass the call through; anything without a sweep
-is skipped) and counts it in `stats()` (the JAX package records the
-same counts into DATA_PATH).
+is skipped) and counts it in `stats()`, which the metrics registry
+(observe/metrics.py) renders as its mtpu_recovery_* families.
 
 This is an explicit boot step, NOT a LocalDrive.__init__ side effect:
 tests and tools construct drives over live trees all the time, and a

@@ -520,25 +520,28 @@ class TestPortOnly:
                     # Restore and the admin tier API are served
                     # (tests/test_torch_tier.py); below, a server without
                     # a tier manager refuses them.
-                    ("GET", "/minio/admin/v3/bandwidth", None, None, "10"),
                     # Heal sequences, `info`, `datausage` and the pools
                     # are served; the service actions only on a cluster
                     # node.
                     ("POST", "/minio/admin/v3/service",
-                     {"action": "restart"}, None, "10"),
-                    # The server configuration is served
-                    # (tests/test_torch_config.py).
-                    ("GET", "/minio/admin/v3/profile", None, None, "10")):
+                     {"action": "restart"}, None, "10.5"),):
                 st, _, body = cli.request(method, path, query=query,
                                           headers=headers)
                 assert st == 501, (method, path, body)
                 assert b"NotImplemented" in body
                 assert f"item {item})".encode() in body, body
+            # The observability endpoints are served
+            # (tests/test_torch_observe_admin.py): the bandwidth monitor,
+            # and a profile read with none started is a 404.
+            st, _, body = cli.request("GET", "/minio/admin/v3/bandwidth")
+            assert st == 200 and b'"windowS"' in body, body
+            st, _, body = cli.request("GET", "/minio/admin/v3/profile")
+            assert st == 404 and b"profiling not running" in body, body
             st, _, body = cli.request("POST", "/npx/o",
                                       query={"restore": ""})
             assert st == 501 and b"tiering not enabled" in body, body
             assert cli.admin("GET", "tier")[0] == 501
-            # The metrics plane, unsigned.
+            # The metrics plane, unsigned: the node's whole registry.
             for path, headers in (("/minio/v2/metrics/node", {}),
                                   ("/minio/v2/metrics/cluster", {})):
                 conn = http.client.HTTPConnection(srv.host, srv.port,
@@ -547,7 +550,8 @@ class TestPortOnly:
                 resp = conn.getresponse()
                 body = resp.read()
                 conn.close()
-                assert resp.status == 501 and b"NotImplemented" in body
+                assert resp.status == 200, body
+                assert b"# TYPE mtpu_s3_requests_total counter" in body
             # A bucket tagging config is stored, read back and deleted.
             tags = b"<Tagging><TagSet></TagSet></Tagging>"
             cli._check(*cli.request("PUT", "/npx", query={"tagging": ""},
